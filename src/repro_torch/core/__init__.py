@@ -1,0 +1,24 @@
+"""Channel, protocol, wire and aggregation primitives of the paper's method
+(§III), ported from ``repro.core``."""
+
+from repro_torch.core.aggregation import aggregate_wire
+from repro_torch.core.channel import ChannelConfig, ChannelSimulator, ChannelState, topk_budget_batch
+from repro_torch.core.protocol import CommLedger, PayloadSpec, UplinkPayload, downlink_bits
+from repro_torch.core.topk import QUANT_LEVELS, QuantizedWire, SparseWire, quantize_wire, sparsify_wire
+
+__all__ = [
+    "aggregate_wire",
+    "ChannelConfig",
+    "ChannelSimulator",
+    "ChannelState",
+    "topk_budget_batch",
+    "CommLedger",
+    "PayloadSpec",
+    "UplinkPayload",
+    "downlink_bits",
+    "QUANT_LEVELS",
+    "QuantizedWire",
+    "SparseWire",
+    "quantize_wire",
+    "sparsify_wire",
+]

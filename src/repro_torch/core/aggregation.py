@@ -1,0 +1,98 @@
+"""Server-side logit aggregation straight from the sparse wire (paper
+§III-A, eqs. 6-7) — the port of ``repro/core/aggregation.py``'s wire path.
+
+    s_{n,c} = |K̃_{n,c}|,   w_{n,c} = s_{n,c} / Σ_n s_{n,c},   K_g = Σ_n w_{n,c} K̃_{n,c}
+
+Every mode reduces to one two-channel scatter-accumulate over the
+O(N·B·k_cap) wire entries into ``(..., vocab)`` sums; ``use_kernel=True``
+routes it through :mod:`repro_torch.kernels.ops` (the CUDA kernels on the
+card, their plain versions for CPU tensors).
+"""
+
+from __future__ import annotations
+
+from typing import Literal
+
+import torch
+
+from repro_torch.core.topk import QuantizedWire, SparseWire
+from repro_torch.kernels.ref import scatter_wire_sums_dequant_ref, scatter_wire_sums_ref
+
+__all__ = ["AggregationMode", "aggregate_wire", "scatter_wire_sums", "scatter_wire_sums_dequant"]
+
+AggregationMode = Literal["adaptive", "zeropad", "mean_nonzero"]
+_EPS = 1e-12
+
+
+def scatter_wire_sums(
+    a: torch.Tensor, b: torch.Tensor, indices: torch.Tensor, vocab: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain scatter-accumulate of ``a, b, indices (N, ..., k)`` into
+    ``(..., vocab)`` sums (masked entries must already be zero)."""
+    n, k = a.shape[0], a.shape[-1]
+    lead = a.shape[1:-1]
+    num, den = scatter_wire_sums_ref(
+        a.reshape(n, -1, k), b.reshape(n, -1, k), indices.reshape(n, -1, k), vocab
+    )
+    return num.reshape(lead + (vocab,)), den.reshape(lead + (vocab,))
+
+
+def scatter_wire_sums_dequant(
+    q_values: torch.Tensor,
+    scale: torch.Tensor,
+    mask: torch.Tensor,
+    indices: torch.Tensor,
+    vocab: int,
+    mode: AggregationMode = "adaptive",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain dequantize-fused scatter for the int8 wire: ``v = q * scale``
+    per row, the mode's two channels, then :func:`scatter_wire_sums`."""
+    n, k = q_values.shape[0], q_values.shape[-1]
+    lead = q_values.shape[1:-1]
+    fold = lambda x: x.reshape(n, -1, k)  # noqa: E731
+    num, den = scatter_wire_sums_dequant_ref(
+        fold(q_values), scale.reshape(n, -1), fold(mask), fold(indices), vocab, mode
+    )
+    return num.reshape(lead + (vocab,)), den.reshape(lead + (vocab,))
+
+
+def aggregate_wire(
+    wire: SparseWire | QuantizedWire,
+    mode: AggregationMode = "adaptive",
+    *,
+    num_transmitters: int | None = None,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """Aggregate straight from the wire: ``(..., vocab)`` teacher logits.
+
+    ``zeropad`` divides by the number of transmitting clients
+    (``num_transmitters``, derived from the mask when not given);
+    ``adaptive`` and ``mean_nonzero`` divide by the den channel + eps.
+    """
+    if mode not in ("adaptive", "zeropad", "mean_nonzero"):
+        raise ValueError(f"unknown aggregation mode: {mode!r}")
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+
+        sums, sums_dequant = kops.scatter_wire_sums, kops.scatter_wire_sums_dequant
+    else:
+        sums, sums_dequant = scatter_wire_sums, scatter_wire_sums_dequant
+    if isinstance(wire, QuantizedWire):
+        num, den = sums_dequant(
+            wire.values, wire.scale, wire.mask, wire.indices, wire.vocab, mode
+        )
+    else:
+        m = wire.mask.to(wire.values.dtype)
+        v = wire.values * m
+        if mode == "adaptive":
+            s = torch.abs(v)
+            a, b = s * v, s
+        else:
+            a, b = v, m
+        num, den = sums(a, b, wire.indices, wire.vocab)
+
+    if mode == "zeropad":
+        if num_transmitters is None:
+            num_transmitters = int(wire.mask.reshape(wire.mask.shape[0], -1).any(dim=1).sum())
+        return num / max(int(num_transmitters), 1)
+    return num / (den + _EPS)

@@ -1,0 +1,152 @@
+"""Shared engine plumbing: budget math, round dataclasses and the
+server-owner mixin — the port of the parts of ``repro/fed/engines/base.py``
+that the ``fused_e2e`` engine uses."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.channel import topk_budget_batch
+from repro_torch.core.protocol import UplinkPayload, downlink_bits, lora_projection_bits
+from repro_torch.core.topk import QuantizedWire, SparseWire
+from repro_torch.lora import merge_lora, split_lora
+from repro_torch.optim import adamw_init
+
+__all__ = [
+    "BroadcastState",
+    "ClientPhase",
+    "cohort_budgets",
+    "k_cap_bucket",
+    "check_unique_cohort",
+]
+
+
+def cohort_budgets(
+    states,
+    cfg: ModelConfig,
+    n_samples: int,
+    adaptive_k: bool,
+    n_cohort: int,
+    send_h: bool = False,
+    *,
+    value_bits: int = 16,
+    k_min: int = 1,
+    quantize_wire: bool = False,
+) -> list[int]:
+    """Per-client adaptive k for a cohort (host-side scalar math).  With
+    ``send_h`` the LoRA-projection bits are reserved out of each budget
+    first; under ``quantize_wire`` the (value, index) entries cost 8 value
+    bits while the projection keeps ``value_bits``."""
+    if not adaptive_k:
+        return [cfg.vocab_size] * n_cohort
+    reserved = (
+        lora_projection_bits(n_samples, cfg.lora.rank, value_bits)
+        if (send_h and cfg.lora is not None)
+        else 0
+    )
+    return topk_budget_batch(
+        states, vocab_size=cfg.vocab_size, num_samples=n_samples,
+        value_bits=8 if quantize_wire else value_bits, k_min=k_min, reserved_bits=reserved,
+    )
+
+
+def k_cap_bucket(ks: Sequence[int], vocab: int) -> int:
+    """Static wire width for a round: the next power of two >= max(ks),
+    clamped to the vocabulary."""
+    need = max(list(ks) + [1])
+    cap = 1
+    while cap < need:
+        cap *= 2
+    return min(cap, vocab)
+
+
+def check_unique_cohort(sel: Sequence[int]) -> list[int]:
+    """A cohort selects each client at most once: the fleet write-back of
+    duplicate rows would be ambiguous."""
+    out = [int(i) for i in sel]
+    if len(set(out)) != len(out):
+        dups = sorted({i for i in out if out.count(i) > 1})
+        raise ValueError(f"cohort selection contains duplicate client ids {dups}")
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class BroadcastState:
+    """The server's knowledge broadcast carried across rounds."""
+
+    tokens: torch.Tensor  # (P, L) public batch the knowledge was inferred on
+    logits: torch.Tensor  # (P, V) global logits K_g
+    h: torch.Tensor | None  # (P, r) global LoRA projection h_g
+    bits: int  # on-air size of one broadcast to one client
+
+
+@dataclasses.dataclass
+class ClientPhase:
+    """One round's client-phase result: ``ks`` for every selected client
+    (0 = dropped straggler), the transmitters' manifests, and their uplink
+    as the sparse wire (transmitters only, cohort order)."""
+
+    payloads: list[UplinkPayload]
+    ks: list[int]
+    sparse: SparseWire | QuantizedWire | None = None
+
+    @property
+    def uplink_bytes(self) -> float:
+        return float(sum(p.bytes for p in self.payloads))
+
+    @property
+    def num_transmitters(self) -> int:
+        return len(self.payloads)
+
+
+class _ServerOwnerMixin:
+    """Server-state plumbing of the whole-round engine: it owns the server
+    LLM's LoRA (with a client axis of 1), optimizer state and frozen
+    backbone for the run, computes the broadcast in the round, and writes
+    the merged parameters back for evaluation."""
+
+    handles_server = True
+
+    def _init_server_state(self, server) -> None:
+        self.server = server
+        lora, self._s_frozen = split_lora(server.params)
+        self._s_lora = {k: v[None] for k, v in lora.items()}
+        self._s_opt = adamw_init(self._s_lora, state_dtype=server.cfg.optimizer_state_dtype)
+        self._b_tokens: torch.Tensor | None = None
+        self._b_logits: torch.Tensor | None = None
+        self._b_h: torch.Tensor | None = None
+        self._d_loss: torch.Tensor | None = None
+
+    def _cold_broadcast(self, pub_tokens: torch.Tensor, n_samples: int):
+        """Round-0 placeholders: no broadcast exists yet, so the round skips
+        the client distillation (``g_valid=False``)."""
+        cfg = self.server.cfg
+        dev = pub_tokens.device
+        g_logits = torch.zeros((n_samples, cfg.vocab_size), device=dev)
+        g_h = torch.zeros((n_samples, cfg.lora.rank), device=dev) if cfg.lora is not None else None
+        return pub_tokens, g_logits, g_h
+
+    def broadcast_state(self, pub_tokens: torch.Tensor) -> BroadcastState:
+        """The broadcast the LAST executed round computed."""
+        assert self._b_logits is not None, "no round has run yet"
+        rank = (
+            self.server.cfg.lora.rank
+            if (self.server.cfg.lora is not None and self._b_h is not None)
+            else None
+        )
+        bits = downlink_bits(int(self._b_logits.shape[0]), int(self._b_logits.shape[-1]), rank)
+        return BroadcastState(tokens=pub_tokens, logits=self._b_logits, h=self._b_h, bits=bits)
+
+    @property
+    def last_distill_loss(self) -> float:
+        """The final server-distill step loss of the last round (NaN before
+        any round and for a round where every client dropped)."""
+        return float("nan") if self._d_loss is None else float(self._d_loss)
+
+    def sync_server(self) -> None:
+        """Write the engine-held server state back onto the Server."""
+        self.server.params = merge_lora({k: v[0] for k, v in self._s_lora.items()}, self._s_frozen)

@@ -1,0 +1,227 @@
+"""Federated AdaLD round orchestration (paper Algorithm 1 + §IV setup) —
+the port of ``repro/fed/rounds.py`` for ``engine="fused_e2e"``.
+
+One communication round: the server's last broadcast {K_g, h_g} reaches
+the selected clients, who distill against it, fine-tune on private data,
+infer the public set and upload adaptive top-k sparse logits (+ LoRA
+projections); the server aggregates from the wire, distills into the LLM
+and recomputes the broadcast.  Host-side draws (cohorts, public batches,
+channels, client batch streams) use the reference's numpy streams in the
+reference's order, so both packages see identical data under one seed.
+
+What the port does not carry yet raises ``NotImplementedError`` naming its
+entry in ROADMAP.md's port queue.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Literal
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.channel import ChannelConfig, ChannelSimulator
+from repro_torch.core.protocol import CommLedger, RoundStats
+from repro_torch.data.partition import dirichlet_partition, iid_partition, split_public_private
+from repro_torch.data.synthetic import IntentDataset
+from repro_torch.fed.client import Client
+from repro_torch.fed.engines import BroadcastState, FusedE2EEngine
+from repro_torch.fed.server import Server
+from repro_torch.fed.steps import make_eval_fn
+
+__all__ = ["FedConfig", "FedRun", "run_federated", "METHODS"]
+
+Method = Literal["adald", "adaptive", "zeropad", "all_logits"]
+
+METHODS: dict[str, dict] = {
+    "adald": dict(aggregation="adaptive", send_h=True, adaptive_k=True),
+    "adaptive": dict(aggregation="adaptive", send_h=False, adaptive_k=True),
+    "zeropad": dict(aggregation="zeropad", send_h=False, adaptive_k=True),
+    "all_logits": dict(aggregation="zeropad", send_h=False, adaptive_k=False),
+}
+
+
+@dataclasses.dataclass
+class FedConfig:
+    """The reference's FedConfig, field for field and default for default,
+    so one configuration means the same run in both packages."""
+
+    method: Method = "adald"
+    engine: str = "batched"
+    last_only: bool = True
+    shard_clients: bool = False
+    scan_rounds: bool = False
+    fleet_store: str = "device"
+    num_clients: int = 50
+    clients_per_round: int = 10
+    rounds: int = 20
+    public_size: int = 2000
+    non_iid: bool = True
+    dirichlet_gamma: float = 0.5
+    seed: int = 0
+    temperature: float = 2.0
+    lam: float = 0.03
+    lr: float = 1e-3
+    distill_lr: float = 3e-3
+    local_steps: int = 4
+    distill_steps: int = 2
+    server_distill_steps: int = 12
+    public_batch: int = 256
+    eval_size: int = 512
+    use_kernels: bool = False
+    restrict_to_support: bool = False
+    quantize_wire: bool = False
+    compute_dtype: str = "float32"
+    channel: ChannelConfig = dataclasses.field(default_factory=ChannelConfig)
+    scenario: object = None
+    faults: object = None
+    pretrain_steps: int = 80
+    pretrain_frac: float = 0.12
+    pretrain_lr: float = 2e-3
+    server_pretrain: str = "lm"
+    server_pretrain_steps: int = 60
+
+
+@dataclasses.dataclass
+class FedRun:
+    ledger: CommLedger
+    server_acc: list[float]
+    client_acc: list[float]
+    mean_k: list[float]
+    per_client_k: list[list[int]] = dataclasses.field(default_factory=list)
+    distill_loss: list[float] = dataclasses.field(default_factory=list)
+    # host wall-clock seconds of each round, its evaluation included
+    round_seconds: list[float] = dataclasses.field(default_factory=list)
+
+
+def _not_carried(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not carried by the port yet (ROADMAP.md port queue: {item})")
+
+
+def _check_carried(client_cfg, fed: FedConfig, ckpt_dir) -> None:
+    if fed.engine == "fused":
+        raise _not_carried("engine='fused'", "the fused engine and run_rounds")
+    if fed.engine != "fused_e2e":
+        raise _not_carried(f"engine={fed.engine!r}", "the sequential and batched engines")
+    if not isinstance(client_cfg, ModelConfig):
+        raise _not_carried("a mixed-family fleet", "other model families and mixed fleets")
+    if fed.compute_dtype != "float32":
+        raise _not_carried(f"compute_dtype={fed.compute_dtype!r}", "bf16")
+    if fed.pretrain_steps > 0:
+        raise _not_carried("pretrain_steps > 0", "pretraining")
+    if fed.scenario is not None or fed.channel.scenario is not None:
+        raise _not_carried("a channel scenario", "scenarios and faults, then checkpoints")
+    if fed.faults not in (None, "none"):
+        raise _not_carried("fault injection", "scenarios and faults, then checkpoints")
+    if ckpt_dir is not None:
+        raise _not_carried("checkpoints (ckpt_dir)", "scenarios and faults, then checkpoints")
+    if fed.fleet_store != "device":
+        raise _not_carried(f"fleet_store={fed.fleet_store!r}", "the host fleet store")
+    if fed.scan_rounds:
+        raise _not_carried("scan_rounds", "the fused engine and run_rounds")
+    if fed.shard_clients:
+        raise _not_carried("shard_clients", "launchers and scale-out")
+
+
+def run_federated(
+    client_cfg: ModelConfig,
+    server_cfg: ModelConfig,
+    dataset: IntentDataset,
+    fed: FedConfig,
+    *,
+    verbose: bool = False,
+    ckpt_dir: str | None = None,
+    device: str | torch.device = "cuda",
+) -> FedRun:
+    """Run the whole federation on ``device`` (the card unless the caller
+    asks for ``"cpu"``).  Every client runs ``client_cfg``; each inits its
+    own backbone (seed ``fed.seed + i``), the server inits from
+    ``fed.seed + 999``."""
+    _check_carried(client_cfg, fed, ckpt_dir)
+    preset = METHODS[fed.method]
+    rng = np.random.default_rng(fed.seed)
+
+    public, private = split_public_private(dataset, fed.public_size, seed=fed.seed)
+    if fed.non_iid:
+        parts = dirichlet_partition(
+            private.labels, fed.num_clients, gamma=fed.dirichlet_gamma, seed=fed.seed
+        )
+    else:
+        parts = iid_partition(len(private), fed.num_clients, seed=fed.seed)
+    clients = [
+        Client(i, client_cfg, private.subset(parts[i]), seed=fed.seed + i, device=device)
+        for i in range(fed.num_clients)
+    ]
+    server = Server(server_cfg, seed=fed.seed + 999, device=device)
+    chan_sim = ChannelSimulator(fed.num_clients, fed.channel, seed=fed.seed)
+
+    eval_idx = rng.permutation(len(private))[: fed.eval_size]
+    eval_tokens = torch.as_tensor(private.tokens[eval_idx], device=device)
+    eval_labels = torch.as_tensor(private.labels[eval_idx], device=device)
+    evaluate = make_eval_fn(server_cfg, dataset.num_classes, last_only=fed.last_only)
+    evaluate_client = make_eval_fn(client_cfg, dataset.num_classes, last_only=fed.last_only)
+
+    engine = FusedE2EEngine(
+        clients, client_cfg, server=server, num_classes=dataset.num_classes,
+        lr=fed.lr, distill_lr=fed.distill_lr, temperature=fed.temperature, lam=fed.lam,
+        local_steps=fed.local_steps, distill_steps=fed.distill_steps,
+        server_distill_steps=fed.server_distill_steps, aggregation=preset["aggregation"],
+        restrict_to_support=fed.restrict_to_support, value_bits=fed.channel.value_bits,
+        k_min=fed.channel.min_k, last_only=fed.last_only, use_kernels=fed.use_kernels,
+        quantize_wire=fed.quantize_wire,
+    )
+
+    ledger = CommLedger()
+    run = FedRun(ledger=ledger, server_acc=[], client_acc=[], mean_k=[])
+    pub_rng = np.random.default_rng(fed.seed + 7)
+    bcast: BroadcastState | None = None
+    for rnd in range(fed.rounds):
+        t0 = time.perf_counter()
+        # the reference's canonical draw order: cohort, public batch, channel
+        sel = [int(i) for i in rng.choice(fed.num_clients, size=fed.clients_per_round, replace=False)]
+        pub_tokens = torch.as_tensor(
+            public.tokens[pub_rng.integers(0, len(public), size=fed.public_batch)], device=device
+        )
+        states = chan_sim.states_batched(rnd, sel)
+        downlink = bcast.bits * len(sel) if bcast is not None else 0
+
+        phase = engine.run_round(
+            sel, pub_tokens, bcast, states,
+            adaptive_k=preset["adaptive_k"], send_h=preset["send_h"],
+        )
+        bcast = engine.broadcast_state(pub_tokens)
+        engine.sync_server()
+
+        s_acc = evaluate(server.params, eval_tokens, eval_labels)
+        c_acc = evaluate_client(engine.client_params(sel[0]), eval_tokens, eval_labels)
+        d_loss = engine.last_distill_loss
+        mean_k = float(np.mean(phase.ks))
+        run.server_acc.append(s_acc)
+        run.client_acc.append(c_acc)
+        run.mean_k.append(mean_k)
+        run.per_client_k.append(list(phase.ks))
+        run.distill_loss.append(d_loss)
+        ledger.record(
+            RoundStats(
+                round_index=rnd,
+                uplink_bytes=phase.uplink_bytes,
+                downlink_bytes=downlink / 8.0,
+                server_accuracy=s_acc,
+                client_accuracy=c_acc,
+                distill_loss=d_loss,
+                mean_k=mean_k,
+                num_selected=len(sel),
+                num_transmitters=phase.num_transmitters,
+            )
+        )
+        run.round_seconds.append(time.perf_counter() - t0)
+        if verbose:
+            print(
+                f"[{fed.method}/{fed.engine}] round {rnd:3d}  server_acc={s_acc:.3f} "
+                f"client_acc={c_acc:.3f}  mean_k={mean_k:7.1f}  "
+                f"uplink={phase.uplink_bytes / 1e6:.2f}MB  tx={phase.num_transmitters}/{len(sel)}"
+            )
+    return run

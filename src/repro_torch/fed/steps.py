@@ -1,0 +1,280 @@
+"""Round step functions (Algorithm 1) — the port of ``repro/fed/steps.py``
+for the ``fused_e2e`` round.
+
+Task convention (paper §IV): class logits are the LM-head logits over the
+first ``num_classes`` vocab ids at the LAST position; distillation works on
+the full last-position vocab logits.  Only the LoRA group trains.
+
+Where the reference vmaps one client's round body over the cohort, every
+function here runs the cohort at once on a leading client axis: LoRA leaves
+and optimizer state are ``(C, ...)``, the backbone is shared or ``(C, ...)``.
+A step's loss is the SUM of the per-client losses, so one ``backward`` gives
+each client exactly its own gradient; AdamW then clips per client.
+``lax.scan``/``fori_loop`` are Python loops, and the two data-dependent
+round decisions of the reference (cold server in round 0, a round where
+every client dropped) are host-side values here, so they are plain
+branches that skip the work the reference computes and discards.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.aggregation import AggregationMode, aggregate_wire
+from repro_torch.core.distill import kl_rows, teacher_log_probs
+from repro_torch.core.topk import sparsify_wire
+from repro_torch.lora import merge_lora
+from repro_torch.models import forward
+from repro_torch.optim import adamw_update
+
+__all__ = [
+    "EVAL_BATCH",
+    "class_logits",
+    "last_logits",
+    "make_server_phase_fn",
+    "make_fused_e2e_round_fn",
+    "make_eval_fn",
+]
+
+# Host-eval batch size: make_eval_fn walks whole batches and drops the rest.
+EVAL_BATCH = 64
+
+
+def class_logits(logits_last: torch.Tensor, num_classes: int) -> torch.Tensor:
+    return logits_last[..., :num_classes]
+
+
+def last_logits(params, cfg: ModelConfig, tokens: torch.Tensor, *, last_only: bool = True,
+                head_cols: int | None = None):
+    """``(C, B, V)`` last-position logits + Aux.  ``last_only=False`` keeps
+    the full-sequence head and slices it (``head_cols`` ignored there, as
+    in the reference)."""
+    if last_only:
+        return forward(params, cfg, tokens, last_only=True, head_cols=head_cols)
+    logits, aux = forward(params, cfg, tokens)
+    return logits[:, :, -1], aux
+
+
+def _per_client_tokens(tokens: torch.Tensor, c: int) -> torch.Tensor:
+    """One ``(P, L)`` batch shared by the whole cohort -> ``(C, P, L)``."""
+    return tokens.expand((c,) + tuple(tokens.shape))
+
+
+def _grads(loss_fn: Callable, lora: dict, *args):
+    """``(per-client losses (C,), grads)`` of ``loss_fn(lora, *args)``."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in lora.items()}
+    with torch.enable_grad():
+        losses = loss_fn(leaves, *args)
+        grads = torch.autograd.grad(losses.sum(), list(leaves.values()))
+    return losses.detach(), dict(zip(leaves, grads))
+
+
+def _finetune_loss_fn(cfg: ModelConfig, num_classes: int, last_only: bool = True) -> Callable:
+    """loss(lora, frozen, tokens (C,B,L), labels (C,B)) -> per-client NLL (C,);
+    the LM head computes only the ``num_classes`` columns the loss reads."""
+
+    def loss_fn(lora, frozen, tokens, labels):
+        last, _aux = last_logits(
+            merge_lora(lora, frozen), cfg, tokens, last_only=last_only,
+            head_cols=num_classes if last_only else None,
+        )
+        logp = torch.log_softmax(class_logits(last, num_classes).float(), dim=-1)
+        return -torch.gather(logp, -1, labels[..., None].long())[..., 0].mean(dim=-1)
+
+    return loss_fn
+
+
+def _distill_loss_cached_fn(cfg: ModelConfig, temperature: float, lam: float,
+                            last_only: bool = True) -> Callable:
+    """loss(lora, frozen, tokens, t_logp, th_logp, support) -> (C,) eq. 10
+    with the teacher log-probs precomputed once per round."""
+    use_h = cfg.lora is not None
+
+    def loss_fn(lora, frozen, tokens, t_logp, th_logp, support):
+        own, aux = last_logits(merge_lora(lora, frozen), cfg, tokens, last_only=last_only)
+        t2 = temperature**2
+        loss = kl_rows(t_logp, own, temperature, mask=support).mean(dim=-1) * t2
+        if use_h and th_logp is not None:
+            loss = loss + lam * kl_rows(th_logp, aux.lora_h, temperature).mean(dim=-1) * t2
+        return loss
+
+    return loss_fn
+
+
+def _teacher_cache_fn(temperature: float, restrict_to_support: bool, use_h: bool) -> Callable:
+    """teacher_cache(logits, h) -> (t_logp, th_logp, support): a round's
+    teacher softmaxed once for every consumer."""
+
+    def teacher_cache(logits, h):
+        support = (logits != 0) if restrict_to_support else None
+        t_logp = teacher_log_probs(logits, temperature, mask=support)
+        th_logp = teacher_log_probs(h, temperature) if (use_h and h is not None) else None
+        return t_logp, th_logp, support
+
+    return teacher_cache
+
+
+def _client_round_core(cfg: ModelConfig, num_classes: int, *, lr: float, weight_decay: float,
+                       distill_lr: float, temperature: float, lam: float, local_steps: int,
+                       distill_steps: int, last_only: bool) -> Callable:
+    """The cohort's round body: ``distill_steps`` distillation updates
+    (skipped when ``g_valid`` is False — the cold server of round 0),
+    ``local_steps`` supervised updates, public last-position inference."""
+    ft_loss = _finetune_loss_fn(cfg, num_classes, last_only)
+    kd_loss = _distill_loss_cached_fn(cfg, temperature, lam, last_only)
+
+    def client_round(lora, frozen, opt, g_tokens, t_cache, g_valid: bool, batches, pub_tokens):
+        c = next(iter(lora.values())).shape[0]
+        # -- lines 5-7: local distillation against the broadcast knowledge --
+        if g_valid:
+            g_tok = _per_client_tokens(g_tokens, c)
+            for _ in range(distill_steps):
+                _, grads = _grads(kd_loss, lora, frozen, g_tok, *t_cache)
+                lora, opt = adamw_update(grads, opt, lora, lr=distill_lr)
+        # -- line 8: local fine-tuning --
+        for s in range(local_steps):
+            _, grads = _grads(ft_loss, lora, frozen, batches["tokens"][:, s], batches["labels"][:, s])
+            lora, opt = adamw_update(grads, opt, lora, lr=lr, weight_decay=weight_decay)
+        # -- line 9: public last-position inference --
+        with torch.no_grad():
+            last, aux = last_logits(merge_lora(lora, frozen), cfg,
+                                    _per_client_tokens(pub_tokens, c), last_only=last_only)
+        return lora, opt, last, aux.lora_h
+
+    return client_round
+
+
+def make_server_phase_fn(
+    server_cfg: ModelConfig,
+    *,
+    distill_lr: float = 1e-3,
+    temperature: float = 2.0,
+    lam: float = 0.03,
+    restrict_to_support: bool = False,
+    server_distill_steps: int = 12,
+    aggregation: AggregationMode = "adaptive",
+    send_h: bool = True,
+    last_only: bool = True,
+    use_kernels: bool = False,
+) -> Callable:
+    """The server phase of one round (Algorithm 1 lines 13-16 + the next
+    broadcast), reading the cohort's wire.
+
+    fn(s_lora (1,...), s_frozen, s_opt, wire, h (N,P,r)|None, ks, pub_tokens (P,L))
+    -> (s_lora, s_opt, b_logits (P,V), b_h (P,r)|None, d_loss)
+
+    The aggregation runs every round.  When every client dropped
+    (all ``ks == 0``) the server does not distill and ``d_loss`` is NaN;
+    the broadcast still refreshes on the current public batch."""
+    kd_loss = _distill_loss_cached_fn(server_cfg, temperature, lam, last_only)
+    teacher_cache = _teacher_cache_fn(temperature, restrict_to_support, True)
+
+    def fn(s_lora, s_frozen, s_opt, wire, h, ks: Sequence[int], pub_tokens):
+        n_tx = sum(1 for k in ks if k > 0)
+        # -- line 15: aggregation from the wire (eqs. 6-7) --
+        k_g = aggregate_wire(wire, aggregation, num_transmitters=n_tx, use_kernel=use_kernels)
+        h_g = None
+        if send_h and h is not None:
+            tx = torch.as_tensor([k > 0 for k in ks], dtype=h.dtype, device=h.device)
+            h_g = torch.sum(h * tx[:, None, None], dim=0) / max(n_tx, 1)
+        # -- line 16: server distillation against the teacher softmaxed once --
+        d_loss = torch.tensor(float("nan"))
+        if n_tx > 0:
+            kg_logp, kg_h_logp, kg_support = teacher_cache(k_g, h_g)
+            tokens = _per_client_tokens(pub_tokens, 1)
+            for _ in range(server_distill_steps):
+                losses, grads = _grads(kd_loss, s_lora, s_frozen, tokens, kg_logp,
+                                       kg_h_logp, kg_support)
+                s_lora, s_opt = adamw_update(grads, s_opt, s_lora, lr=distill_lr)
+                d_loss = losses[0]
+        # -- lines 1-2 of the NEXT round: refreshed broadcast knowledge --
+        with torch.no_grad():
+            b_last, b_aux = last_logits(merge_lora(s_lora, s_frozen), server_cfg,
+                                        _per_client_tokens(pub_tokens, 1), last_only=last_only)
+        b_h = None if b_aux.lora_h is None else b_aux.lora_h[0]
+        return s_lora, s_opt, b_last[0], b_h, d_loss
+
+    return fn
+
+
+def make_fused_e2e_round_fn(
+    client_cfg: ModelConfig,
+    server_cfg: ModelConfig,
+    num_classes: int,
+    *,
+    k_cap: int,
+    lr: float = 1e-3,
+    weight_decay: float = 1e-3,
+    distill_lr: float = 1e-3,
+    temperature: float = 2.0,
+    lam: float = 0.03,
+    restrict_to_support: bool = False,
+    local_steps: int = 4,
+    distill_steps: int = 2,
+    server_distill_steps: int = 12,
+    aggregation: AggregationMode = "adaptive",
+    send_h: bool = True,
+    last_only: bool = True,
+    use_kernels: bool = False,
+    quantize: bool = False,
+) -> Callable:
+    """One whole federated round — client phase and server phase.
+
+    fn(lora (C,...), frozen, opt, s_lora, s_frozen, s_opt,
+       g_tokens (P,L), g_logits (P,V), g_h (P,r)|None, g_valid bool,
+       batches {tokens (C,S,B,L), labels (C,S,B)}, pub_tokens (P,L), ks [C ints])
+    -> (lora, opt, s_lora, s_opt, wire (C,P,k_cap), b_logits (P,V),
+        b_h (P,r)|None, d_loss)
+
+    The uplink leaves the client phase as the sparse wire of width
+    ``k_cap`` (int8 with ``quantize``) and is aggregated straight from it."""
+    client_round = _client_round_core(
+        client_cfg, num_classes, lr=lr, weight_decay=weight_decay, distill_lr=distill_lr,
+        temperature=temperature, lam=lam, local_steps=local_steps,
+        distill_steps=distill_steps, last_only=last_only,
+    )
+    teacher_cache = _teacher_cache_fn(temperature, restrict_to_support, client_cfg.lora is not None)
+    server_phase = make_server_phase_fn(
+        server_cfg, distill_lr=distill_lr,
+        temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
+        server_distill_steps=server_distill_steps, aggregation=aggregation, send_h=send_h,
+        last_only=last_only, use_kernels=use_kernels,
+    )
+
+    def fn(lora, frozen, opt, s_lora, s_frozen, s_opt, g_tokens, g_logits, g_h, g_valid,
+           batches, pub_tokens, ks):
+        t_cache = teacher_cache(g_logits, g_h) if g_valid else None
+        lora, opt, last, h = client_round(
+            lora, frozen, opt, g_tokens, t_cache, g_valid, batches, pub_tokens
+        )
+        wire = sparsify_wire(last, ks, k_cap, quantize=quantize)
+        s_lora, s_opt, b_last, b_h, d_loss = server_phase(
+            s_lora, s_frozen, s_opt, wire, h, ks, pub_tokens
+        )
+        return lora, opt, s_lora, s_opt, wire, b_last, b_h, d_loss
+
+    return fn
+
+
+def make_eval_fn(cfg: ModelConfig, num_classes: int, *, last_only: bool = True) -> Callable:
+    """evaluate(params, tokens (N,L), labels (N,)) -> accuracy of one model
+    over whole ``EVAL_BATCH`` batches (the remainder is dropped)."""
+
+    @torch.no_grad()
+    def evaluate(params, tokens, labels) -> float:
+        n = tokens.shape[0]
+        correct = 0.0
+        for i in range(0, n - EVAL_BATCH + 1, EVAL_BATCH):
+            last, _ = last_logits(
+                params, cfg, tokens[None, i:i + EVAL_BATCH], last_only=last_only,
+                head_cols=num_classes if last_only else None,
+            )
+            pred = torch.argmax(class_logits(last[0], num_classes), dim=-1)
+            correct += float(torch.sum(pred == labels[i:i + EVAL_BATCH]))
+        return correct / max(1, (n // EVAL_BATCH) * EVAL_BATCH)
+
+    return evaluate
+

@@ -1,0 +1,86 @@
+"""Build the port's CUDA sources into shared libraries and load them.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, which
+:mod:`repro_torch.kernels.ops` calls through ``ctypes``.  A build runs at
+first use, into ``<repo>/build/kernels/<name>-<hash>/``, keyed by a hash of
+the source and the flags, so an unchanged source is never compiled twice;
+:func:`build_all` starts one ``nvcc`` per source, all at once.  Nothing here
+runs at import time: the CPU tests import this module on machines with no
+CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "nvcc_path"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES: dict[str, Path] = {"sparse_agg": _CSRC / "sparse_agg.cu"}
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc") or "",
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's CUDA "
+        "kernels are compiled from source at first use"
+    )
+
+
+def _lib_path(name: str) -> Path:
+    src = SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
+
+
+def build_all(names=None) -> dict[str, Path]:
+    """Compile every named source that has no library yet, one ``nvcc``
+    per source, all started together; returns ``{name: library path}``."""
+    names = list(SOURCES) if names is None else list(names)
+    jobs = []
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a reader never sees half a library
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return {name: _lib_path(name) for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if needed."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(build_all([name])[name]))
+    return _LIBS[name]

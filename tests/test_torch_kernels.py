@@ -1,0 +1,160 @@
+"""The port's wire-scatter kernels against the JAX reference, on the CPU.
+
+Here the ``ops`` wrappers run their plain PyTorch versions (the tensors lie
+on the CPU); the CUDA kernels themselves are held against those plain
+versions on the card by ``chip_smoke.py``.  Inputs are made with numpy
+from a seed and cover k = 0 client rows, wire padding at index 0 beside a
+real index-0 entry, and negative values.  fp32 tolerance: rtol 1e-6, atol 0.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import aggregation as jagg  # noqa: E402
+from repro.kernels.sparse_agg import (  # noqa: E402
+    scatter_wire_sums_dequant_pallas,
+    scatter_wire_sums_pallas,
+)
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+MODES = ("adaptive", "zeropad", "mean_nonzero")
+
+
+def _wire(seed, n=3, rows=5, k=8, vocab=64, ks=(8, 5, 0)):
+    """A cohort wire: distinct indices per (client, row), client i transmits
+    its first ks[i] entries, the rest is padding (index 0, value 0), and
+    some rows carry a real index-0 entry beside that padding."""
+    rng = np.random.default_rng(seed)
+    idx = np.zeros((n, rows, k), np.int32)
+    for i in range(n):
+        for r in range(rows):
+            idx[i, r] = rng.permutation(np.arange(1, vocab))[:k]
+    mask = np.arange(k)[None, None, :] < np.asarray(ks)[:, None, None]
+    mask = np.broadcast_to(mask, (n, rows, k)).copy()
+    idx[1, ::2, 0] = 0  # real index-0 entries of a client that also pads
+    vals = rng.normal(size=(n, rows, k)).astype(np.float32)  # mixed signs
+    vals = np.where(mask, vals, 0.0).astype(np.float32)
+    idx = np.where(mask, idx, 0).astype(np.int32)
+    return vals, idx, mask, vocab
+
+
+def _channels(vals, mask, mode):
+    v = vals * mask
+    if mode == "adaptive":
+        return (np.abs(v) * v).astype(np.float32), np.abs(v).astype(np.float32)
+    return v.astype(np.float32), mask.astype(np.float32)
+
+
+def _quantized(vals, mask):
+    amax = np.abs(vals).max(axis=-1)
+    scale = np.where(amax > 0, amax / 127, 1.0).astype(np.float32)
+    q = np.clip(np.round(vals / scale[..., None]), -127, 127).astype(np.int8)
+    return q, scale
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("mode", MODES)
+def test_scatter_wire_sums_matches_reference(seed, mode):
+    vals, idx, mask, vocab = _wire(seed)
+    a, b = _channels(vals, mask, mode)
+    j_num, j_den = scatter_wire_sums_pallas(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(idx), vocab, interpret=True
+    )
+    jj_num, jj_den = jagg.scatter_wire_sums(jnp.asarray(a), jnp.asarray(b), jnp.asarray(idx), vocab)
+    ta, tb, ti = (torch.as_tensor(x) for x in (a, b, idx))
+    ops.reset_launches()
+    for num, den in (ref.scatter_wire_sums_ref(ta, tb, ti, vocab), ops.scatter_wire_sums(ta, tb, ti, vocab)):
+        for t_out, j_out in ((num, j_num), (den, j_den), (num, jj_num), (den, jj_den)):
+            np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=1e-6, atol=0)
+    assert ops.LAUNCHES == {"scatter_wire_sums": 0, "scatter_wire_sums_dequant": 0}
+
+
+def test_scatter_wire_sums_folds_batch_dims():
+    vals, idx, mask, vocab = _wire(2, rows=6)
+    a, b = _channels(vals, mask, "adaptive")
+    fold = lambda x: torch.as_tensor(x).reshape(3, 2, 3, -1)  # noqa: E731
+    num, den = ops.scatter_wire_sums(fold(a), fold(b), fold(idx), vocab)
+    r_num, r_den = ref.scatter_wire_sums_ref(*(torch.as_tensor(x) for x in (a, b, idx)), vocab)
+    assert num.shape == (2, 3, vocab)
+    assert torch.equal(num.reshape(6, vocab), r_num) and torch.equal(den.reshape(6, vocab), r_den)
+
+
+def test_index_zero_entry_survives_padding():
+    vals, idx, mask, vocab = _wire(3)
+    a, b = _channels(vals, mask, "zeropad")
+    num, den = ops.scatter_wire_sums(*(torch.as_tensor(x) for x in (a, b, idx)), vocab)
+    # row 0: client 0 has no index 0, client 1 sends a real index-0 entry and
+    # pads at index 0, client 2 (k = 0) pads everywhere at index 0
+    assert float(num[0, 0]) == pytest.approx(float(vals[1, 0, 0]))
+    assert float(den[0, 0]) == 1.0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_scatter_wire_sums_dequant_matches_reference(mode):
+    vals, idx, mask, vocab = _wire(4)
+    q, scale = _quantized(vals, mask)
+    j_num, j_den = scatter_wire_sums_dequant_pallas(
+        jnp.asarray(q), jnp.asarray(scale), jnp.asarray(mask.astype(np.int8)), jnp.asarray(idx),
+        vocab, mode, interpret=True,
+    )
+    jj_num, jj_den = jagg.scatter_wire_sums_dequant(
+        jnp.asarray(q), jnp.asarray(scale), jnp.asarray(mask), jnp.asarray(idx), vocab, mode
+    )
+    tq, ts, tm, ti = (torch.as_tensor(x) for x in (q, scale, mask, idx))
+    ops.reset_launches()
+    outs = (
+        ref.scatter_wire_sums_dequant_ref(tq, ts, tm, ti, vocab, mode),
+        ops.scatter_wire_sums_dequant(tq, ts, tm, ti, vocab, mode),
+        ops.scatter_wire_sums_dequant(tq, ts, tm.to(torch.int8), ti, vocab, mode),
+    )
+    for num, den in outs:
+        for t_out, j_out in ((num, j_num), (den, j_den), (num, jj_num), (den, jj_den)):
+            np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=1e-6, atol=0)
+    assert ops.LAUNCHES == {"scatter_wire_sums": 0, "scatter_wire_sums_dequant": 0}
+
+
+def test_wrappers_reject_bad_inputs():
+    vals, idx, mask, vocab = _wire(5)
+    a, b = _channels(vals, mask, "adaptive")
+    ta, tb, ti = (torch.as_tensor(x) for x in (a, b, idx))
+    non_contig = ta.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not non_contig.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.scatter_wire_sums(non_contig, tb, ti, vocab)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.scatter_wire_sums(ta.double(), tb, ti, vocab)
+    with pytest.raises(ValueError, match="shape"):
+        ops.scatter_wire_sums(ta, tb[:, :, :4].contiguous(), ti, vocab)
+    q, scale = _quantized(vals, mask)
+    with pytest.raises(ValueError, match="mode"):
+        ops.scatter_wire_sums_dequant(torch.as_tensor(q), torch.as_tensor(scale),
+                                      torch.as_tensor(mask), ti, vocab, "median")
+
+
+def _imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_nothing_of_the_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20 and all(f.exists() for f in files)
+    bad = [
+        (str(f.relative_to(ROOT)), mod)
+        for f in files
+        for mod in _imports(f)
+        if mod.split(".")[0] in ("jax", "jaxlib", "repro")
+    ]
+    assert bad == []
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "sparse_agg.cu").is_file()

@@ -1,0 +1,115 @@
+"""The port's uplink wire, its aggregation and the host-side budget and
+byte accounting against the JAX reference, on the CPU.
+
+Integer results must be identical: wire indices and masks, int8 values,
+adaptive k and ledger bytes.  Aggregated floats: rtol 1e-6.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import aggregation as j_agg  # noqa: E402
+from repro.core import channel as j_chan  # noqa: E402
+from repro.core import protocol as j_proto  # noqa: E402
+from repro.core import topk as j_topk  # noqa: E402
+from repro.configs.gpt2_paper import GPT2_SMALL as J_GPT2_SMALL  # noqa: E402
+from repro.fed.client import make_upload_payload as j_payload  # noqa: E402
+from repro.fed.engines.base import cohort_budgets as j_budgets  # noqa: E402
+from repro.fed.engines.base import k_cap_bucket as j_k_cap  # noqa: E402
+from repro_torch.configs.gpt2_paper import GPT2_SMALL as T_GPT2_SMALL  # noqa: E402
+from repro_torch.core import aggregation as t_agg  # noqa: E402
+from repro_torch.core import channel as t_chan  # noqa: E402
+from repro_torch.core import protocol as t_proto  # noqa: E402
+from repro_torch.core import topk as t_topk  # noqa: E402
+from repro_torch.fed.client import make_upload_payload as t_payload  # noqa: E402
+from repro_torch.fed.engines.base import cohort_budgets as t_budgets  # noqa: E402
+from repro_torch.fed.engines.base import k_cap_bucket as t_k_cap  # noqa: E402
+
+MODES = ("adaptive", "zeropad", "mean_nonzero")
+
+
+def _logits(seed, ties: bool, shape=(3, 4, 64)):
+    rng = np.random.default_rng(seed)
+    if ties:  # a handful of distinct values: every top-k cut falls inside a tie
+        return rng.integers(-3, 4, size=shape).astype(np.float32)
+    return rng.normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("ties", [True, False])
+@pytest.mark.parametrize("k_cap", [16, 64])
+@pytest.mark.parametrize("quantize", [False, True])
+def test_sparsify_wire_identical(ties, k_cap, quantize):
+    x = _logits(0, ties)
+    ks = np.array([0, 5, 16], np.int32)
+    jw = j_topk.sparsify_wire(jnp.asarray(x), jnp.asarray(ks), k_cap, quantize=quantize)
+    tw = t_topk.sparsify_wire(torch.as_tensor(x), [int(k) for k in ks], k_cap, quantize=quantize)
+    assert type(tw).__name__ == type(jw).__name__ and tw.vocab == jw.vocab
+    np.testing.assert_array_equal(tw.indices.numpy(), np.asarray(jw.indices))
+    np.testing.assert_array_equal(tw.mask.numpy(), np.asarray(jw.mask))
+    np.testing.assert_array_equal(tw.values.numpy(), np.asarray(jw.values))
+    assert tw.values.dtype == (torch.int8 if quantize else torch.float32)
+    if quantize:
+        np.testing.assert_array_equal(tw.scale.numpy(), np.asarray(jw.scale))
+
+
+def test_quantize_wire_rounds_half_to_even():
+    # 0.5 and 2.5 quantization steps must round to 0 and 2, as jnp.round does
+    vals = np.array([[[127.0, 0.5, 2.5, -1.5]]], np.float32)
+    mask = np.ones_like(vals, bool)
+    idx = np.arange(4, dtype=np.int32)[None, None]
+    jq = j_topk.quantize_wire(j_topk.SparseWire(jnp.asarray(vals), jnp.asarray(idx), jnp.asarray(mask), 8))
+    tq = t_topk.quantize_wire(t_topk.SparseWire(torch.as_tensor(vals), torch.as_tensor(idx),
+                                                torch.as_tensor(mask), 8))
+    np.testing.assert_array_equal(tq.values.numpy(), np.asarray(jq.values))
+    assert tq.values.numpy().ravel().tolist() == [127, 0, 2, -2]
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_aggregate_wire_matches_reference(quantize, mode):
+    x = _logits(1, ties=False)
+    ks = np.array([7, 0, 12], np.int32)
+    jw = j_topk.sparsify_wire(jnp.asarray(x), jnp.asarray(ks), 16, quantize=quantize)
+    tw = t_topk.sparsify_wire(torch.as_tensor(x), [int(k) for k in ks], 16, quantize=quantize)
+    j_out = np.asarray(j_agg.aggregate_wire(jw, mode))
+    for use_kernel in (False, True):
+        for n_tx in (None, 2):
+            t_out = t_agg.aggregate_wire(tw, mode, num_transmitters=n_tx, use_kernel=use_kernel)
+            np.testing.assert_allclose(t_out.numpy(), j_out, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, 7])
+@pytest.mark.parametrize("quantize", [False, True])
+def test_budgets_and_ledger_bytes_identical(seed, quantize):
+    """Channel realisations, adaptive k, k_cap, payload and broadcast bytes
+    and the ledger over a few rounds: identical integers (and floats)."""
+    kw = dict(bandwidth_hz=2e5, mean_snr_db=2.0, min_k=0, dropout_prob=0.3)
+    j_sim = j_chan.ChannelSimulator(12, j_chan.ChannelConfig(**kw), seed=seed)
+    t_sim = t_chan.ChannelSimulator(12, t_chan.ChannelConfig(**kw), seed=seed)
+    j_led, t_led = j_proto.CommLedger(), t_proto.CommLedger()
+    rng = np.random.default_rng(seed)
+    for rnd in range(4):
+        sel = [int(i) for i in rng.choice(12, size=5, replace=False)]
+        j_states, t_states = j_sim.states_batched(rnd, sel), t_sim.states_batched(rnd, sel)
+        np.testing.assert_array_equal(t_states.snr_db, j_states.snr_db)
+        for send_h in (False, True):
+            args = (64, True, len(sel), send_h)
+            opts = dict(value_bits=16, k_min=0, quantize_wire=quantize)
+            j_ks = j_budgets(j_states, J_GPT2_SMALL, *args, **opts)
+            t_ks = t_budgets(t_states, T_GPT2_SMALL, *args, **opts)
+            assert t_ks == j_ks
+            assert t_k_cap(t_ks, 50257) == j_k_cap(j_ks, 50257)
+        j_bytes = [j_payload(J_GPT2_SMALL, c, 64, k, send_h=True, value_bits=16, snr_db=0.0,
+                             quantize=quantize)[0].bytes for c, k in zip(sel, j_ks) if k > 0]
+        t_bytes = [t_payload(T_GPT2_SMALL, c, 64, k, send_h=True, value_bits=16, snr_db=0.0,
+                             quantize=quantize)[0].bytes for c, k in zip(sel, t_ks) if k > 0]
+        assert t_bytes == j_bytes
+        down = j_proto.downlink_bits(64, 50257, 8)
+        assert t_proto.downlink_bits(64, 50257, 8) == down
+        j_led.record(j_proto.RoundStats(rnd, uplink_bytes=sum(j_bytes), downlink_bytes=down / 8))
+        t_led.record(t_proto.RoundStats(rnd, uplink_bytes=sum(t_bytes), downlink_bytes=down / 8))
+    assert (t_led.total_mb, t_led.uplink_mb) == (j_led.total_mb, j_led.uplink_mb)
