@@ -6,30 +6,52 @@ Phases (any failure raises and exits non-zero):
    name and power limit; full-fp32 matmuls (TF32 off).
 2. build — compiles every CUDA source of ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) into ``build/``.
-3. kernels — each wire-scatter kernel against its plain PyTorch version on
-   the card at the main path's widths (4 clients x 64 public samples x
-   vocab 50 257, k_cap 128 and 1024; k = 0 client rows, wire padding at
-   index 0 beside a real index-0 entry, negative values): ``torch.equal``.
+3. kernels — each kernel against its plain PyTorch version on the card at
+   the main path's widths, ``torch.equal``:
+   * the wire scatters (4 clients x 64 public samples x vocab 50 257,
+     k_cap 128 and 1024; k = 0 client rows, wire padding at index 0 beside
+     a real index-0 entry, negative values);
+   * the bisection top-k masks, per-row budget and static k, at 256 rows x
+     V 50 257 (the shared-memory path) and 8 rows x V 152 064 (the
+     global-memory path): k = 0, 1, V and > V, ties at the threshold, an
+     all-negative and a constant row;
+   * the dense adaptive aggregation at (4, 64, 50 257) on a top-k-sparse
+     and on a dense random stack.
 4. small input — the port's round on a tiny config on the card (kernels)
-   and on the CPU (plain versions): identical k and bytes, accuracies within
-   one eval sample, server-distill loss within rtol 1e-3 and broadcast
-   logits within 1e-3 of their largest magnitude (fp32 reductions run in
-   another order on the card, and Adam's normalised step carries such
-   differences into the weights); on the int8 wire the logits bound is one
+   and on the CPU (plain versions), ``fused_e2e`` then ``fused``, float and
+   int8 uplink: identical k and bytes, accuracies within one eval sample,
+   the final broadcast logits within 1e-3 of their largest magnitude (fp32
+   reductions run in another order on the card, and Adam's normalised step
+   carries such differences into the weights); on the int8 uplink one
    quantization step, 1/127, since a last-bit difference can move a value
-   across a rounding boundary.
-5. main path — ``run_federated`` with AdaLD, ``engine="fused_e2e"``,
-   ``use_kernels=True`` at the paper's widths (GPT-2 small clients, GPT-2
-   large server), float wire then int8 wire, 2 rounds each; each kernel's
-   launch count must equal the rounds run.
-6. timing — each kernel, its plain version and one PyTorch library call
-   (``scatter_add_``) at the main path's shapes, beside the byte bound.
+   across a rounding boundary.  On ``fused_e2e`` the server-distill loss is
+   held within rtol 1e-3 (off the e2e path it is NaN by definition).
+5. main path — ``run_federated`` with AdaLD and ``use_kernels=True`` at the
+   paper's widths (GPT-2 small clients, GPT-2 large server), 2 rounds each:
+   ``fused_e2e`` float and int8 wire, ``fused`` float and int8 uplink,
+   ``batched`` float uplink.  Every launch count is set to 0 just before
+   each run and read just after: the scatter kernels launch once a round on
+   ``fused_e2e`` (float or int8), the per-row top-k once a round on
+   ``fused``, the dense aggregation once a round with a transmitter on
+   ``fused`` and ``batched``, and nothing else launches.  The static top-k
+   has no engine caller (nor in the reference), so its main-path count is
+   0: after each ``fused`` run it is driven on its own through its public
+   entry point, ``core.topk.topk_mask_dense(use_kernel=True)``, on the
+   final broadcast, with the counts set to 0 just before and read just
+   after (one launch).
+6. timing — each kernel's C entry point, its wrapper, its plain version and
+   one PyTorch library call where one computes the same function, at the
+   main path's shapes, beside the least time the card could take.
 
 The last two lines are the kernels record and the device record (JSON).
+In the kernels record ``launches`` is each kernel's count summed over the
+five main-path runs; the static top-k's row adds ``entry_launches``, its
+count summed over the runs through its public entry point.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -47,7 +69,7 @@ from repro_torch.configs.base import LoRAConfig  # noqa: E402
 from repro_torch.configs.gpt2_paper import GPT2_LARGE, GPT2_SMALL, REDUCED_CLIENT, REDUCED_SERVER  # noqa: E402
 from repro_torch.core.aggregation import AggregationMode  # noqa: E402
 from repro_torch.core.channel import ChannelConfig  # noqa: E402
-from repro_torch.core.topk import quantize_wire, sparsify_wire  # noqa: E402
+from repro_torch.core.topk import quantize_wire, sparsify_wire, topk_mask_dense  # noqa: E402
 from repro_torch.data import make_banking77_like  # noqa: E402
 from repro_torch.fed import FedConfig  # noqa: E402
 from repro_torch.fed import rounds as fed_rounds  # noqa: E402
@@ -55,12 +77,17 @@ from repro_torch.fed.engines import k_cap_bucket  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
 N_CLIENTS, ROWS, VOCAB = 4, 64, GPT2_SMALL.vocab_size
+WIDE_ROWS, WIDE_VOCAB = 8, 152_064  # a vocabulary beyond one block's shared memory
 MODES: tuple[AggregationMode, ...] = ("adaptive", "zeropad", "mean_nonzero")
-SOURCE = "src/repro_torch/kernels/csrc/sparse_agg.cu"
-REPLACES = {
-    "scatter_wire_sums": "src/repro/kernels/sparse_agg.py:149",
-    "scatter_wire_sums_dequant": "src/repro/kernels/sparse_agg.py:244",
+_AGG, _TOPK = "src/repro_torch/kernels/csrc/sparse_agg.cu", "src/repro_torch/kernels/csrc/topk_select.cu"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "scatter_wire_sums": (_AGG, "src/repro/kernels/sparse_agg.py:149"),
+    "scatter_wire_sums_dequant": (_AGG, "src/repro/kernels/sparse_agg.py:244"),
+    "topk_mask_dynamic": (_TOPK, "src/repro/kernels/topk_select.py:104"),
+    "sparse_aggregate": (_AGG, "src/repro/kernels/sparse_agg.py:60"),
+    "topk_mask": (_TOPK, "src/repro/kernels/topk_select.py:129"),
 }
 
 
@@ -96,6 +123,34 @@ def float_channels(wire, mode: str):
     return v, m
 
 
+def topk_rows(rows: int, vocab: int, seed: int, device):
+    """(rows, V) logits and int32 budgets with the edge cases in the first
+    eight rows — k = 0, 1, V and V + 7 on random rows; a tie of 12 at the
+    threshold for k = 10; an all-negative row; a constant row; a row of
+    half-integers — and budgets of 1..1024 on the random rest."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((rows, vocab), generator=gen, device=device)
+    x[4] = torch.randint(-3, 3, (vocab,), generator=gen, device=device).float()
+    x[4, 5:17] = 3.0
+    x[5] -= 50.0
+    x[6] = 2.5
+    x[7] = torch.round(x[7] * 2) / 2
+    ks = torch.randint(1, 1025, (rows,), generator=gen, device=device, dtype=torch.int32)
+    ks[:8] = torch.tensor([0, 1, vocab, vocab + 7, 10, 7, 3, 20], dtype=torch.int32)
+    return x, ks
+
+
+def dense_stack(ks, seed: int, device, sparse: bool = True):
+    """An (N, 64, V) stack like the dense uplink's: each client's top-k of
+    random logits at budget ``ks[n]`` (zeros off the support), or dense."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((len(ks), ROWS, VOCAB), generator=gen, device=device)
+    if not sparse:
+        return x
+    kk = torch.tensor(ks, dtype=torch.int32, device=device)[:, None].expand(len(ks), ROWS)
+    return ref.topk_mask_ref(x.reshape(-1, VOCAB), kk.reshape(-1), guard=True).reshape(x.shape)
+
+
 # -- timing -------------------------------------------------------------------
 
 
@@ -117,7 +172,14 @@ def time_ms(fn, calls: int = 10, reps: int = 21, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def library_call(a, b, idx):
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    over the memory rate and the fp32 operations over the fp32 rate."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def scatter_library_call(a, b, idx):
     """One ``scatter_add_`` over the client-folded wire into a (2, rows, V)
     buffer: the yardstick PyTorch offers for the same sums (timed only)."""
     n, rows, k = a.shape
@@ -150,7 +212,7 @@ def phase_build():
     log(f"[build] {', '.join(map(str, libs.values()))} in {time.perf_counter() - t0:.1f} s")
 
 
-def phase_kernels(device):
+def check_scatter_kernels(device):
     for k_cap in (128, 1024):
         wire = make_wire(k_cap, seed=k_cap, device=device)
         for mode in MODES:
@@ -168,20 +230,70 @@ def phase_kernels(device):
         # the edge cases really are in the data
         assert not wire.mask[2].any() and bool(((wire.indices[1] == 0) & wire.mask[1]).any())
         assert bool((wire.values[3][wire.mask[3]] < 0).all())
-        log(f"[kernels] k_cap={k_cap}: both kernels torch.equal to their plain versions "
+        log(f"[kernels] k_cap={k_cap}: both wire scatters torch.equal to their plain versions "
             f"in all 3 modes at N={N_CLIENTS} rows={ROWS} V={VOCAB}")
 
 
+def check_topk_kernels(device):
+    smem_max = ops.smem_max_vocab(device.index or 0)
+    assert VOCAB <= smem_max < WIDE_VOCAB, (smem_max, VOCAB, WIDE_VOCAB)
+    for rows, vocab in ((N_CLIENTS * ROWS, VOCAB), (WIDE_ROWS, WIDE_VOCAB)):
+        x, ks = topk_rows(rows, vocab, seed=vocab, device=device)
+        got = ops.topk_mask_dynamic(x, ks)
+        want = ref.topk_mask_ref(x, torch.clamp(ks, 0, vocab), guard=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), ("topk_mask_dynamic", rows, vocab)
+        kept = (want != 0).sum(dim=1).tolist()
+        assert kept[:4] == [0, 1, vocab, vocab] and kept[4] == 12 and kept[6] == vocab, kept[:8]
+        for k in (0, 1, 517, vocab, vocab + 5):
+            got = ops.topk_mask(x, k)
+            want = ref.topk_mask_ref(x, torch.full((rows,), min(k, vocab), dtype=torch.int32,
+                                                   device=device), guard=False)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), ("topk_mask", rows, vocab, k)
+        path = "shared-memory" if vocab <= smem_max else "global-memory"
+        log(f"[kernels] rows={rows} V={vocab} ({path} path): top-k masks torch.equal to their "
+            f"plain versions, per-row k (0, 1, V, V+7, ties, all-negative, constant) and "
+            f"static k in (0, 1, 517, V, V+5)")
+
+
+def check_sparse_aggregate(device):
+    ks = [1024, 517, 1, VOCAB]
+    for sparse in (True, False):
+        stack = dense_stack(ks, seed=11, device=device, sparse=sparse)
+        got, want = ops.sparse_aggregate(stack), ref.sparse_aggregate_ref(stack)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), ("sparse_aggregate", sparse)
+    log(f"[kernels] dense adaptive aggregation torch.equal to its plain version at "
+        f"({len(ks)}, {ROWS}, {VOCAB}), top-k-sparse (k {ks}) and dense stacks")
+
+
 def _drive(client_cfg, server_cfg, dataset, fed, device):
-    """run_federated, also returning the engine it built."""
-    engines = []
-    make = fed_rounds.FusedE2EEngine
-    fed_rounds.FusedE2EEngine = lambda *a, **k: engines.append(make(*a, **k)) or engines[-1]
+    """run_federated, also returning the engine (built through
+    ``make_engine``, whatever its kind) and the Server it built."""
+    built, saved = {}, {}
+    for name in ("make_engine", "Server"):
+        saved[name] = make = getattr(fed_rounds, name)
+
+        def capture(*args, _make=make, _name=name, **kwargs):
+            built[_name] = _make(*args, **kwargs)
+            return built[_name]
+
+        setattr(fed_rounds, name, capture)
     try:
         run = fed_rounds.run_federated(client_cfg, server_cfg, dataset, fed, device=device)
     finally:
-        fed_rounds.FusedE2EEngine = make
-    return run, engines[-1]
+        for name, make in saved.items():
+            setattr(fed_rounds, name, make)
+    return run, built["make_engine"], built["Server"]
+
+
+def final_broadcast(engine, server, tokens: torch.Tensor) -> torch.Tensor:
+    """The broadcast logits after the last round: the e2e engine computed
+    them in its round; a dense-uplink server answers on ``tokens``."""
+    if getattr(engine, "handles_server", False):
+        return engine._b_logits
+    return server.broadcast(tokens.to(server.params["embed"].device))[0]
 
 
 def phase_small_input(device):
@@ -191,60 +303,122 @@ def phase_small_input(device):
     server = REDUCED_SERVER.with_overrides(num_layers=2, d_model=96, num_heads=2, num_kv_heads=2,
                                            d_ff=192, vocab_size=256, max_seq_len=32, lora=lora)
     ds = make_banking77_like(vocab_size=256, seq_len=12, total=500, seed=0)
-    for quant in (False, True):
-        fed = FedConfig(method="adald", engine="fused_e2e", use_kernels=True, pretrain_steps=0,
-                        num_clients=4, clients_per_round=2, rounds=2, public_size=64,
-                        public_batch=16, eval_size=64, local_steps=2, distill_steps=1,
-                        server_distill_steps=2, quantize_wire=quant,
-                        channel=ChannelConfig(bandwidth_hz=2e5, mean_snr_db=2.0))
-        gpu, gpu_eng = _drive(client, server, ds, fed, device)
-        cpu, cpu_eng = _drive(client, server, ds, fed, "cpu")
-        assert gpu.per_client_k == cpu.per_client_k
-        assert [r.uplink_bytes for r in gpu.ledger.rounds] == [r.uplink_bytes for r in cpu.ledger.rounds]
-        assert [r.downlink_bytes for r in gpu.ledger.rounds] == [r.downlink_bytes for r in cpu.ledger.rounds]
-        np.testing.assert_allclose(gpu.server_acc, cpu.server_acc, rtol=0, atol=1 / 64 + 1e-9)
-        np.testing.assert_allclose(gpu.client_acc, cpu.client_acc, rtol=0, atol=1 / 64 + 1e-9)
-        np.testing.assert_allclose(gpu.distill_loss, cpu.distill_loss, rtol=1e-3)
-        g_b, c_b = gpu_eng._b_logits.cpu().numpy(), cpu_eng._b_logits.numpy()
-        err = float(np.abs(g_b - c_b).max() / np.abs(c_b).max())
-        assert err < (1 / 127 if quant else 1e-3), err
-        log(f"[small input] {'int8' if quant else 'float'} wire: card == CPU on k and bytes, "
-            f"broadcast max |diff|/max|logit| = {err:.2e}, distill_loss {gpu.distill_loss} vs {cpu.distill_loss}")
+    tokens = torch.as_tensor(ds.tokens[:16])
+    for engine in ("fused_e2e", "fused"):
+        for quant in (False, True):
+            fed = FedConfig(method="adald", engine=engine, use_kernels=True, pretrain_steps=0,
+                            num_clients=4, clients_per_round=2, rounds=2, public_size=64,
+                            public_batch=16, eval_size=64, local_steps=2, distill_steps=1,
+                            server_distill_steps=2, quantize_wire=quant,
+                            channel=ChannelConfig(bandwidth_hz=2e5, mean_snr_db=2.0))
+            ops.reset_launches()
+            gpu, gpu_eng, gpu_srv = _drive(client, server, ds, fed, device)
+            assert sum(ops.LAUNCHES.values()) > 0, ops.LAUNCHES  # the card ran the kernels
+            cpu, cpu_eng, cpu_srv = _drive(client, server, ds, fed, "cpu")
+            assert gpu.per_client_k == cpu.per_client_k
+            for key in ("uplink_bytes", "downlink_bytes", "num_transmitters"):
+                assert [getattr(r, key) for r in gpu.ledger.rounds] == [getattr(r, key) for r in cpu.ledger.rounds]
+            np.testing.assert_allclose(gpu.server_acc, cpu.server_acc, rtol=0, atol=1 / 64 + 1e-9)
+            np.testing.assert_allclose(gpu.client_acc, cpu.client_acc, rtol=0, atol=1 / 64 + 1e-9)
+            np.testing.assert_allclose(gpu.distill_loss, cpu.distill_loss, rtol=1e-3, equal_nan=True)
+            assert math.isnan(gpu.distill_loss[-1]) == (engine != "fused_e2e")
+            g_b = final_broadcast(gpu_eng, gpu_srv, tokens).cpu().numpy()
+            c_b = final_broadcast(cpu_eng, cpu_srv, tokens).numpy()
+            err = float(np.abs(g_b - c_b).max() / np.abs(c_b).max())
+            assert err < (1 / 127 if quant else 1e-3), err
+            log(f"[small input] {engine} {'int8' if quant else 'float'} uplink: card == CPU on k and "
+                f"bytes, broadcast max |diff|/max|logit| = {err:.2e}, "
+                f"distill_loss {gpu.distill_loss} vs {cpu.distill_loss}")
 
 
-def phase_main_path(device, quantize: bool):
-    fed = FedConfig(method="adald", engine="fused_e2e", use_kernels=True, pretrain_steps=0,
+def phase_main_path(device, engine: str, quantize: bool) -> dict:
+    """One main-path run; returns its launch counts, its per-client k and,
+    for ``fused``, the launch counts of the static top-k's public entry
+    point driven on its own after the run."""
+    fed = FedConfig(method="adald", engine=engine, use_kernels=True, pretrain_steps=0,
                     num_clients=8, clients_per_round=4, rounds=2, public_batch=64,
                     local_steps=2, distill_steps=1, server_distill_steps=2, eval_size=128,
                     quantize_wire=quantize)
     ds = make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32)
+    tokens = torch.as_tensor(ds.tokens[: fed.public_batch], device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    run, engine = _drive(GPT2_SMALL, GPT2_LARGE, ds, fed, device)
+    ops.reset_launches()  # this path's launches only, from here
+    run, eng, srv = _drive(GPT2_SMALL, GPT2_LARGE, ds, fed, device)
     torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
     wall = time.perf_counter() - t0
-    tag = "int8" if quantize else "float"
-    log(f"[main path/{tag}] GPT-2 small clients x{fed.num_clients} (cohort {fed.clients_per_round}), "
+    tag = f"{engine}/{'int8' if quantize else 'float'}"
+    log(f"[main path {tag}] GPT-2 small clients x{fed.num_clients} (cohort {fed.clients_per_round}), "
         f"GPT-2 large server, {fed.rounds} rounds in {wall:.1f} s (setup included)")
-    log(f"[main path/{tag}] per_client_k={run.per_client_k}")
-    log(f"[main path/{tag}] uplink_bytes={[r.uplink_bytes for r in run.ledger.rounds]} "
+    log(f"[main path {tag}] per_client_k={run.per_client_k}")
+    log(f"[main path {tag}] uplink_bytes={[r.uplink_bytes for r in run.ledger.rounds]} "
         f"downlink_bytes={[r.downlink_bytes for r in run.ledger.rounds]}")
-    log(f"[main path/{tag}] server_acc={run.server_acc} client_acc={run.client_acc} "
+    log(f"[main path {tag}] server_acc={run.server_acc} client_acc={run.client_acc} "
         f"distill_loss={run.distill_loss}")
-    log(f"[main path/{tag}] round_seconds={[round(s, 3) for s in run.round_seconds]} "
+    log(f"[main path {tag}] round_seconds={[round(s, 3) for s in run.round_seconds]} "
         f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    b = engine._b_logits
+    log(f"[main path {tag}] kernel launches {launches}")
+
+    rounds, tx_rounds = fed.rounds, sum(1 for r in run.ledger.rounds if r.num_transmitters > 0)
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    if engine == "fused_e2e":
+        want["scatter_wire_sums_dequant" if quantize else "scatter_wire_sums"] = rounds
+    else:
+        want["sparse_aggregate"] = tx_rounds
+        want["topk_mask_dynamic"] = rounds if engine == "fused" else 0
+    assert launches == want, (tag, launches, want)
+    b = final_broadcast(eng, srv, tokens)
     assert tuple(b.shape) == (fed.public_batch, GPT2_LARGE.vocab_size) and bool(torch.isfinite(b).all())
-    assert all(math.isfinite(x) for x in run.distill_loss + run.server_acc + run.client_acc)
+    assert all(math.isfinite(x) for x in run.server_acc + run.client_acc)
+    if engine == "fused_e2e":  # NaN off the e2e path, by the reference's definition
+        assert all(math.isfinite(x) for x in run.distill_loss)
     assert all(k > 0 for ks in run.per_client_k for k in ks)  # default channel: everyone transmits
-    return run
+    out = {"launches": launches, "per_client_k": run.per_client_k, "entry_launches": {}}
+    if engine == "fused":
+        # the static top-k's public entry point, on what the server broadcast
+        k = max(max(ks) for ks in run.per_client_k)
+        ops.reset_launches()
+        kept = topk_mask_dense(b.contiguous(), k, use_kernel=True)
+        torch.cuda.synchronize()
+        out["entry_launches"] = dict(ops.LAUNCHES)
+        assert ops.LAUNCHES["topk_mask"] == 1 and sum(ops.LAUNCHES.values()) == 1, ops.LAUNCHES
+        n_kept = (kept != 0).sum(dim=-1)
+        assert bool((n_kept >= k).all()), n_kept  # ties at the threshold are kept
+        log(f"[entry {tag}] topk_mask_dense(use_kernel=True) on the final broadcast at k={k}: "
+            f"kernel launches {ops.LAUNCHES}")
+    del run, eng, srv, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
-def phase_timing(name: str, k_cap: int, device) -> dict:
-    """``ms`` is the kernel's own time: back-to-back launches of the bound C
-    entry point on preallocated outputs, so the device, not the wrapper's
-    host-side checks, sets the pace; the wrapper call is timed beside it."""
+def _row(name: str, raw, wrapper, plain, library, check, bytes_moved: float, ops_done: float,
+         desc: str) -> dict:
+    """Time one kernel: its C entry point (``raw``, preallocated outputs,
+    so the device and not the wrapper's host checks sets the pace), its
+    wrapper, its plain version and the library call; ``check`` compares the
+    raw launch's output with the plain version's."""
+    assert raw() == 0
+    torch.cuda.synchronize()
+    err = check()
+    bound_ms, bound_by = bound(bytes_moved, ops_done)
+    source, replaces = KERNELS[name]
+    row = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "max_abs_err": err, "ms": time_ms(raw), "plain_ms": time_ms(plain),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None if library is None else time_ms(library),
+    }
+    lib = "-" if library is None else f"{row['library_ms']:.4f} ms"
+    log(f"[timing] {name} {desc}: kernel {row['ms']:.4f} ms (wrapper call {time_ms(wrapper):.4f} ms), "
+        f"plain {row['plain_ms']:.4f} ms, library {lib}, bound {bound_ms * 1e3:.2f} us by {bound_by} "
+        f"({bytes_moved:.0f} B, {ops_done:.0f} ops), max_abs_err {err}")
+    return row
+
+
+def time_scatter(name: str, k_cap: int, device) -> dict:
     wire = make_wire(k_cap, seed=7, device=device)
     n, rows, k = wire.values.shape
     num = torch.empty((rows, VOCAB), device=device)
@@ -254,7 +428,7 @@ def phase_timing(name: str, k_cap: int, device) -> dict:
         a, b = float_channels(wire, "adaptive")
         wrapper = lambda: ops.scatter_wire_sums(a, b, wire.indices, VOCAB)  # noqa: E731
         plain = lambda: ref.scatter_wire_sums_ref(a, b, wire.indices, VOCAB)  # noqa: E731
-        fn = ops._fn("scatter_wire_sums_f32", 5, 4)
+        fn = ops._fn("sparse_agg", "scatter_wire_sums_f32", 5, 4)
         ptrs = [t.data_ptr() for t in (a, b, wire.indices, num, den)]
         raw = lambda: fn(*ptrs, n, rows, k, VOCAB, stream)  # noqa: E731
         in_bytes = n * rows * k * (4 + 4 + 4)
@@ -265,56 +439,113 @@ def phase_timing(name: str, k_cap: int, device) -> dict:
             qw.values, qw.scale, qw.mask, qw.indices, VOCAB, "adaptive")
         plain = lambda: ref.scatter_wire_sums_dequant_ref(  # noqa: E731
             qw.values, qw.scale, qw.mask, qw.indices, VOCAB, "adaptive")
-        fn = ops._fn("scatter_wire_sums_dequant_i8", 6, 5)
+        fn = ops._fn("sparse_agg", "scatter_wire_sums_dequant_i8", 6, 5)
         ptrs = [t.data_ptr() for t in (qw.values, qw.scale, qw.mask.view(torch.uint8), qw.indices, num, den)]
         raw = lambda: fn(*ptrs, n, rows, k, VOCAB, 0, stream)  # noqa: E731  mode 0: adaptive
         in_bytes = n * rows * k * (1 + 1 + 4) + n * rows * 4
-    got, want = wrapper(), plain()
-    assert raw() == 0
-    torch.cuda.synchronize()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    assert torch.equal(num, want[0]) and torch.equal(den, want[1])
-    out_bytes = 2 * rows * VOCAB * 4
-    row = {
-        "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-        "max_abs_err": err,
-        "ms": time_ms(raw), "plain_ms": time_ms(plain),
-        "bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": time_ms(library_call(a, b, wire.indices)),
-    }
-    log(f"[timing] {name} N={n} rows={rows} k_cap={k} V={VOCAB}: kernel {row['ms']:.4f} ms "
-        f"(wrapper call {time_ms(wrapper):.4f} ms), plain {row['plain_ms']:.4f} ms, "
-        f"library scatter_add_ {row['library_ms']:.4f} ms, byte bound {row['bound_ms'] * 1e3:.2f} us "
-        f"({in_bytes + out_bytes} B), max_abs_err {err}")
-    return row
+    want = plain()
+
+    def check():
+        assert torch.equal(num, want[0]) and torch.equal(den, want[1])
+        return max(float((g - w).abs().max()) for g, w in zip((num, den), want))
+
+    return _row(name, raw, wrapper, plain, scatter_library_call(a, b, wire.indices), check,
+                in_bytes + 2 * rows * VOCAB * 4, 2 * n * rows * k,
+                f"N={n} rows={rows} k_cap={k} V={VOCAB}")
+
+
+def time_topk(name: str, ks: list[int], device) -> dict:
+    """The top-k masks at the fused main path's shape: the cohort's
+    (C·64, V) rows with the run's per-client budgets (static k: their
+    largest).  The work is data-independent: min/max, 30 counting passes
+    and the masked write over every element."""
+    rows = len(ks) * ROWS
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn((rows, VOCAB), generator=gen, device=device)
+    kk = torch.tensor(ks, dtype=torch.int32, device=device).repeat_interleave(ROWS)
+    k_max = max(ks)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fn = ops._fn("topk_select", "topk_mask_f32", 3, 5)
+    use_smem = int(VOCAB <= ops.smem_max_vocab(device.index or 0))
+    if name == "topk_mask_dynamic":
+        ptrs = (x.data_ptr(), kk.data_ptr(), out.data_ptr())
+        raw = lambda: fn(*ptrs, rows, VOCAB, 0, 1, use_smem, stream)  # noqa: E731
+        wrapper = lambda: ops.topk_mask_dynamic(x, kk)  # noqa: E731
+        plain = lambda: ref.topk_mask_ref(x, kk, guard=True)  # noqa: E731
+        in_bytes, desc = rows * VOCAB * 4 + rows * 4, f"rows={rows} V={VOCAB} k={ks}"
+    else:
+        ptrs = (x.data_ptr(), None, out.data_ptr())
+        raw = lambda: fn(*ptrs, rows, VOCAB, k_max, 0, use_smem, stream)  # noqa: E731
+        wrapper = lambda: ops.topk_mask(x, k_max)  # noqa: E731
+        k_all = torch.full((rows,), k_max, dtype=torch.int32, device=device)
+        plain = lambda: ref.topk_mask_ref(x, k_all, guard=False)  # noqa: E731
+        in_bytes, desc = rows * VOCAB * 4, f"rows={rows} V={VOCAB} k={k_max}"
+    want = plain()
+
+    def check():
+        assert torch.equal(out, want)
+        return float((out - want).abs().max())
+
+    library = lambda: torch.topk(x, k_max, dim=-1)  # noqa: E731  (the selection, not the mask)
+    ops_done = (2 + 30 + 1) * rows * VOCAB  # min and max, 30 counting passes, the masked select
+    return _row(name, raw, wrapper, plain, library, check, in_bytes + rows * VOCAB * 4, ops_done,
+                desc)
+
+
+def time_sparse_aggregate(ks: list[int], device) -> dict:
+    """The dense adaptive aggregation at the fused main path's shape: the
+    transmitters' (N, 64, V) top-k stack with the run's budgets."""
+    stack = dense_stack(ks, seed=13, device=device)
+    n = stack.shape[0]
+    out = torch.empty((ROWS, VOCAB), device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fn = ops._fn("sparse_agg", "sparse_aggregate_f32", 2, 3)
+    raw = lambda: fn(stack.data_ptr(), out.data_ptr(), n, ROWS, VOCAB, stream)  # noqa: E731
+    want = ref.sparse_aggregate_ref(stack)
+
+    def check():
+        assert torch.equal(out, want)
+        return float((out - want).abs().max())
+
+    elems = ROWS * VOCAB
+    return _row("sparse_aggregate", raw, lambda: ops.sparse_aggregate(stack),
+                lambda: ref.sparse_aggregate_ref(stack), None, check,
+                (n + 1) * elems * 4, (4 * n + 2) * elems, f"N={n} rows={ROWS} V={VOCAB} k={ks}")
 
 
 def main() -> int:
     device, card = phase_device()
     phase_build()
-    phase_kernels(device)
+    check_scatter_kernels(device)
+    check_topk_kernels(device)
+    check_sparse_aggregate(device)
     phase_small_input(device)
 
-    ops.reset_launches()  # the main path's launches only, from here
-    float_run = phase_main_path(device, quantize=False)
-    assert ops.LAUNCHES == {"scatter_wire_sums": 2, "scatter_wire_sums_dequant": 0}, ops.LAUNCHES
-    int8_run = phase_main_path(device, quantize=True)
-    launches = dict(ops.LAUNCHES)
-    assert launches == {"scatter_wire_sums": 2, "scatter_wire_sums_dequant": 2}, launches
-    log(f"[main path] kernel launches {launches}")
+    runs = {}
+    for engine, quantize in (("fused_e2e", False), ("fused_e2e", True), ("fused", False),
+                             ("fused", True), ("batched", False)):
+        runs[(engine, quantize)] = phase_main_path(device, engine, quantize)
+    launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) for name in KERNELS}
+    entry = {"topk_mask": sum(r["entry_launches"].get("topk_mask", 0) for r in runs.values())}
+    log(f"[main path] kernel launches over the five runs {launches}")
+    log(f"[entry] topk_mask launches through topk_mask_dense(use_kernel=True) {entry}")
 
     k_caps = {
-        "scatter_wire_sums": max(k_cap_bucket(ks, VOCAB) for ks in float_run.per_client_k),
-        "scatter_wire_sums_dequant": max(k_cap_bucket(ks, VOCAB) for ks in int8_run.per_client_k),
+        name: max(k_cap_bucket(ks, VOCAB) for ks in runs[("fused_e2e", quant)]["per_client_k"])
+        for name, quant in (("scatter_wire_sums", False), ("scatter_wire_sums_dequant", True))
     }
-    rows = []
-    for name, k_cap in k_caps.items():
-        row = phase_timing(name, k_cap, device)
-        rows.append({**row, "launches": launches[name]})
+    fused_ks = runs[("fused", False)]["per_client_k"][-1]
+    rows = [time_scatter(name, k_cap, device) for name, k_cap in k_caps.items()]
+    rows += [time_topk("topk_mask_dynamic", fused_ks, device), time_sparse_aggregate(fused_ks, device),
+             time_topk("topk_mask", fused_ks, device)]
+    rows = [{**row, "launches": launches[row["name"]],
+             **({"entry_launches": entry[row["name"]]} if row["name"] in entry else {})}
+            for row in rows]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+                                             "count": 1}}))
     return 0
 
 

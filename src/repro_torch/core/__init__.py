@@ -1,12 +1,24 @@
 """Channel, protocol, wire and aggregation primitives of the paper's method
 (§III), ported from ``repro.core``."""
 
-from repro_torch.core.aggregation import aggregate_wire
+from repro_torch.core.aggregation import aggregate, aggregate_wire
 from repro_torch.core.channel import ChannelConfig, ChannelSimulator, ChannelState, topk_budget_batch
 from repro_torch.core.protocol import CommLedger, PayloadSpec, UplinkPayload, downlink_bits
-from repro_torch.core.topk import QUANT_LEVELS, QuantizedWire, SparseWire, quantize_wire, sparsify_wire
+from repro_torch.core.topk import (
+    QUANT_LEVELS,
+    QuantizedWire,
+    SparseWire,
+    densify,
+    quantize_wire,
+    sparsify_wire,
+    topk_mask_batch,
+    topk_mask_dense,
+    topk_mask_dynamic,
+    topk_sparsify,
+)
 
 __all__ = [
+    "aggregate",
     "aggregate_wire",
     "ChannelConfig",
     "ChannelSimulator",
@@ -21,4 +33,9 @@ __all__ = [
     "SparseWire",
     "quantize_wire",
     "sparsify_wire",
+    "densify",
+    "topk_sparsify",
+    "topk_mask_batch",
+    "topk_mask_dense",
+    "topk_mask_dynamic",
 ]

@@ -1,12 +1,24 @@
-"""Server-side logit aggregation straight from the sparse wire (paper
-§III-A, eqs. 6-7) — the port of ``repro/core/aggregation.py``'s wire path.
+"""Server-side logit aggregation (paper §III-A, eqs. 6-7) — the port of
+``repro/core/aggregation.py``.
 
     s_{n,c} = |K̃_{n,c}|,   w_{n,c} = s_{n,c} / Σ_n s_{n,c},   K_g = Σ_n w_{n,c} K̃_{n,c}
 
-Every mode reduces to one two-channel scatter-accumulate over the
-O(N·B·k_cap) wire entries into ``(..., vocab)`` sums; ``use_kernel=True``
-routes it through :mod:`repro_torch.kernels.ops` (the CUDA kernels on the
-card, their plain versions for CPU tensors).
+Two input forms, each with the paper's ``adaptive`` mode and the
+``zeropad`` / ``mean_nonzero`` baselines:
+
+* a DENSE ``(N, ..., vocab)`` stack of the transmitters' top-k masks (the
+  ``batched`` and ``fused`` engines), with an optional explicit transmit
+  ``mask`` (without it "transmitted" is the ``!= 0`` sentinel):
+  :func:`aggregate`.  ``use_kernel=True`` sends the adaptive mode to the
+  dense CUDA kernel, whose formula ``Σ|x|x / (Σ|x| + eps)`` is not the jnp
+  one ``Σ (|x| / (S + eps)) x``; each route keeps its own, as in the
+  reference.
+* the sparse WIRE (the ``fused_e2e`` engine): every mode reduces to one
+  two-channel scatter-accumulate over the O(N·B·k_cap) wire entries into
+  ``(..., vocab)`` sums: :func:`aggregate_wire`.
+
+``use_kernel=True`` routes through :mod:`repro_torch.kernels.ops` (the CUDA
+kernels on the card, their plain versions for CPU tensors).
 """
 
 from __future__ import annotations
@@ -18,10 +30,73 @@ import torch
 from repro_torch.core.topk import QuantizedWire, SparseWire
 from repro_torch.kernels.ref import scatter_wire_sums_dequant_ref, scatter_wire_sums_ref
 
-__all__ = ["AggregationMode", "aggregate_wire", "scatter_wire_sums", "scatter_wire_sums_dequant"]
+__all__ = [
+    "AggregationMode",
+    "aggregate_adaptive",
+    "aggregate_zeropad",
+    "aggregate_mean_nonzero",
+    "aggregate",
+    "aggregate_wire",
+    "scatter_wire_sums",
+    "scatter_wire_sums_dequant",
+]
 
 AggregationMode = Literal["adaptive", "zeropad", "mean_nonzero"]
 _EPS = 1e-12
+
+
+def _support(stack: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """The transmit mask as the stack's dtype: explicit when given, else the
+    ``!= 0`` sentinel (which cannot see a transmitted 0.0)."""
+    return (stack != 0).to(stack.dtype) if mask is None else mask.to(stack.dtype)
+
+
+def aggregate_adaptive(
+    stack: torch.Tensor, *, mask: torch.Tensor | None = None, eps: float = _EPS
+) -> torch.Tensor:
+    """Paper eqs. 6-7 over a dense ``(N, ..., vocab)`` stack: dimensions no
+    client transmitted stay 0."""
+    s = torch.abs(stack) * _support(stack, mask)
+    w = s / (torch.sum(s, dim=0)[None] + eps)
+    return torch.sum(w * stack, dim=0)
+
+
+def aggregate_zeropad(stack: torch.Tensor, *, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The paper's ZeroPad baseline: the plain mean, zeros included."""
+    if mask is not None:
+        stack = stack * mask.to(stack.dtype)
+    return torch.mean(stack, dim=0)
+
+
+def aggregate_mean_nonzero(
+    stack: torch.Tensor, *, mask: torch.Tensor | None = None, eps: float = _EPS
+) -> torch.Tensor:
+    """The mean over the clients that transmitted each dimension."""
+    m = _support(stack, mask)
+    return torch.sum(stack * m, dim=0) / (torch.sum(m, dim=0) + eps)
+
+
+def aggregate(
+    stack: torch.Tensor,
+    mode: AggregationMode = "adaptive",
+    *,
+    mask: torch.Tensor | None = None,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """Aggregate a dense ``(N, ..., vocab)`` stack in ``mode``;
+    ``use_kernel`` routes the adaptive mode through the dense CUDA kernel
+    (masked first when ``mask`` is given)."""
+    if mode == "adaptive":
+        if use_kernel:
+            from repro_torch.kernels import ops as kops
+
+            return kops.sparse_aggregate(stack if mask is None else stack * mask.to(stack.dtype))
+        return aggregate_adaptive(stack, mask=mask)
+    if mode == "zeropad":
+        return aggregate_zeropad(stack, mask=mask)
+    if mode == "mean_nonzero":
+        return aggregate_mean_nonzero(stack, mask=mask)
+    raise ValueError(f"unknown aggregation mode: {mode!r}")
 
 
 def scatter_wire_sums(

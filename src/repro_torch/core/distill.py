@@ -1,21 +1,32 @@
 """Distillation losses (paper §III-B, eqs. 9-10) — the port of
-``repro/core/distill.py``'s cached-teacher form.
+``repro/core/distill.py``.
 
     L_logits = mean_x KL( softmax(K_g(x)/T) || softmax(K_n(x)/T) )   (eq. 9)
     L_total  = L_logits + λ · KL over the LoRA projections h = A·x   (eq. 10)
 
-Within a round the teacher is a constant, so its log-softmax is computed
-once (:func:`teacher_log_probs`) and reused by every client and step.  The
-λ-term is assembled by the round's loss (``repro_torch.fed.steps``).
+Two forms: the uncached losses (:func:`total_distill_loss`), which the
+``batched`` and ``fused`` engines and the server's distillation use, and
+the cached-teacher form of the ``fused_e2e`` round — within a round the
+teacher is a constant, so its log-softmax is computed once
+(:func:`teacher_log_probs`) and reused by every client and step.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["teacher_log_probs", "kl_rows", "kl_divergence_from_log_probs"]
+__all__ = [
+    "teacher_log_probs",
+    "kl_rows",
+    "kl_divergence",
+    "kl_divergence_from_log_probs",
+    "logits_distill_loss",
+    "lora_projection_loss",
+    "total_distill_loss",
+]
 
 DEFAULT_TEMPERATURE = 2.0
+DEFAULT_LAMBDA = 0.03
 _NEG = -1e30
 
 
@@ -63,3 +74,69 @@ def kl_divergence_from_log_probs(
     gradient-scale correction) unless ``scale_by_t2=False``."""
     kl = kl_rows(teacher_log_p, student_logits, temperature, mask=mask).mean()
     return kl * (temperature**2) if scale_by_t2 else kl
+
+
+def kl_divergence(
+    teacher_logits: torch.Tensor,
+    student_logits: torch.Tensor,
+    temperature: float = DEFAULT_TEMPERATURE,
+    *,
+    mask: torch.Tensor | None = None,
+    scale_by_t2: bool = True,
+) -> torch.Tensor:
+    """``KL(σ(t/T) || σ(s/T))``, mean over all leading axes, times T²
+    unless ``scale_by_t2=False``; ``mask`` drops the entries off a support
+    from both distributions."""
+    return kl_divergence_from_log_probs(
+        teacher_log_probs(teacher_logits, temperature, mask=mask), student_logits,
+        temperature, mask=mask, scale_by_t2=scale_by_t2,
+    )
+
+
+def logits_distill_loss(
+    global_logits: torch.Tensor,
+    client_logits: torch.Tensor,
+    temperature: float = DEFAULT_TEMPERATURE,
+    *,
+    restrict_to_support: bool = False,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """Paper eq. 9 over a public batch; ``restrict_to_support`` softmaxes
+    over the teacher's non-zero support only."""
+    if use_kernel and not restrict_to_support:
+        raise NotImplementedError(
+            "logits_distill_loss(use_kernel=True) needs the distill_kl kernel, which is not "
+            "carried by the port yet (ROADMAP.md port queue: the sequential engine and kernel 6)"
+        )
+    mask = (global_logits != 0) if restrict_to_support else None
+    return kl_divergence(global_logits, client_logits, temperature, mask=mask)
+
+
+def lora_projection_loss(
+    global_h: torch.Tensor, client_h: torch.Tensor, temperature: float = DEFAULT_TEMPERATURE
+) -> torch.Tensor:
+    """§III-B: eq. 9 between the softmaxed LoRA projections ``h = A·x``."""
+    return kl_divergence(global_h, client_h, temperature)
+
+
+def total_distill_loss(
+    global_logits: torch.Tensor,
+    client_logits: torch.Tensor,
+    global_h: torch.Tensor | None = None,
+    client_h: torch.Tensor | None = None,
+    *,
+    temperature: float = DEFAULT_TEMPERATURE,
+    lam: float = DEFAULT_LAMBDA,
+    restrict_to_support: bool = False,
+    use_kernel: bool = False,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Paper eq. 10, ``L_logits + λ·L_h``, and its two parts; without a
+    projection on either side the λ-term drops (the 'Adaptive' baseline)."""
+    l_logits = logits_distill_loss(
+        global_logits, client_logits, temperature,
+        restrict_to_support=restrict_to_support, use_kernel=use_kernel,
+    )
+    if global_h is None or client_h is None:
+        return l_logits, {"logits": l_logits, "lora": torch.zeros_like(l_logits)}
+    l_h = lora_projection_loss(global_h, client_h, temperature)
+    return l_logits + lam * l_h, {"logits": l_logits, "lora": l_h}

@@ -1,21 +1,41 @@
-"""Adaptive Top-k logit sparsification as the sparse uplink wire (paper
-§III-A, eqs. 3-4) — the port of ``repro/core/topk.py``'s wire formats.
+"""Adaptive Top-k logit sparsification (paper §III-A, eqs. 3-4) — the
+port of ``repro/core/topk.py``.
 
-A cohort's upload is ONE fixed-width wire: for every client and public
-sample the ``k_cap`` largest logits as ``(values, indices)`` plus an
-explicit transmit mask (client ``n`` transmits its first ``k_n`` entries;
-a dropped straggler, ``k = 0``, transmits nothing).  ``quantize_wire``
-turns it into the int8 wire with one fp32 scale per (client, sample) row.
+Two uplink forms:
+
+* the DENSE top-k mask, ``(..., vocab)`` with zeros off the support, which
+  the ``batched`` and ``fused`` engines hand to the dense aggregation:
+  :func:`topk_mask_batch` (one exact top-k per client) and
+  :func:`topk_mask_dynamic` (the threshold bisection the ``fused`` engine
+  runs, whose CUDA kernel is :func:`repro_torch.kernels.ops.topk_mask_dynamic`);
+* the sparse WIRE of the ``fused_e2e`` engine: for every client and public
+  sample the ``k_cap`` largest logits as ``(values, indices)`` plus an
+  explicit transmit mask (client ``n`` transmits its first ``k_n`` entries;
+  a dropped straggler, ``k = 0``, transmits nothing).  ``quantize_wire``
+  turns it into the int8 wire with one fp32 scale per (client, sample) row.
+
+``lax.top_k`` in the reference is a stable select — on ties the lower
+index comes first — which ``torch.topk`` does not promise; a stable
+descending sort sliced at ``k`` gives the identical order.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
+from repro_torch.kernels.ref import BISECTION_ITERS, topk_mask_ref
+
 __all__ = [
+    "BISECTION_ITERS",
     "QUANT_LEVELS",
+    "SparseLogits",
+    "topk_sparsify",
+    "densify",
+    "topk_mask_dense",
+    "topk_mask_batch",
+    "topk_mask_dynamic",
     "SparseWire",
     "QuantizedWire",
     "sparsify_wire",
@@ -25,6 +45,82 @@ __all__ = [
 # Symmetric int8 range: round(v / scale) lands in [-127, 127], so the scale
 # amax/127 is exactly invertible at the extremes and -128 is never emitted.
 QUANT_LEVELS = 127
+
+class SparseLogits(NamedTuple):
+    """One payload's top-k: ``values``/``indices (..., k)`` descending,
+    ``k`` and ``vocab`` python ints."""
+
+    values: torch.Tensor
+    indices: torch.Tensor
+    k: int
+    vocab: int
+
+
+def _stable_topk(logits: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k``: the k largest per row, ties broken by lower index."""
+    values, indices = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def topk_sparsify(logits: torch.Tensor, k: int) -> SparseLogits:
+    """The top-k logits per row (paper eq. 3); the last axis is the vocab."""
+    vocab = logits.shape[-1]
+    k = int(min(k, vocab))
+    values, indices = _stable_topk(logits, k)
+    return SparseLogits(values=values, indices=indices.to(torch.int32), k=k, vocab=vocab)
+
+
+def densify(sparse: SparseLogits, *, fill: float = 0.0) -> torch.Tensor:
+    """Scatter a payload back to a dense ``(..., vocab)`` tensor (paper
+    eq. 4: zeros off the top-k support, unless ``fill`` overrides)."""
+    shape = sparse.values.shape[:-1] + (sparse.vocab,)
+    dense = torch.full(shape, fill, dtype=sparse.values.dtype, device=sparse.values.device)
+    return dense.scatter_(-1, sparse.indices.long(), sparse.values)
+
+
+def topk_mask_dense(logits: torch.Tensor, k: int, *, use_kernel: bool = False) -> torch.Tensor:
+    """Keep the top-k per row, zero elsewhere.  ``use_kernel`` routes to the
+    bisection kernel (:func:`repro_torch.kernels.ops.topk_mask`), whose
+    threshold semantics keep every tie at the k-th value."""
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+
+        return kops.topk_mask(logits, k)
+    return densify(topk_sparsify(logits, k))
+
+
+def topk_mask_batch(logits: torch.Tensor, ks: Sequence[int]) -> torch.Tensor:
+    """Per-client densified top-k of a ``(C, ..., vocab)`` stack with one
+    budget per client: one stable top-k at ``max(ks)``, client ``i``'s
+    entries beyond ``ks[i]`` zeroed before the scatter — equal to
+    ``densify(topk_sparsify(logits[i], ks[i]))`` for every client."""
+    if logits.shape[0] != len(ks):
+        raise ValueError(f"{len(ks)} budgets for {logits.shape[0]} clients")
+    vocab = logits.shape[-1]
+    ks = [int(min(k, vocab)) for k in ks]
+    if min(ks) < 0:
+        raise ValueError(f"negative top-k budget in {ks}")
+    k_max = max(ks + [1])
+    values, indices = _stable_topk(logits, k_max)
+    karr = torch.as_tensor(ks, dtype=torch.int32, device=logits.device)
+    karr = karr.reshape((len(ks),) + (1,) * (logits.ndim - 1))
+    keep = torch.arange(k_max, dtype=torch.int32, device=logits.device) < karr
+    values = torch.where(keep, values, torch.zeros_like(values))
+    return torch.zeros_like(logits).scatter_(-1, indices, values)
+
+
+def topk_mask_dynamic(logits: torch.Tensor, k) -> torch.Tensor:
+    """Dense top-k mask with the budget as DATA: ``k`` (ints or an int
+    tensor) broadcastable to ``logits.shape[:-1]``, clamped to ``[0, vocab]``.
+
+    The reference's fp32 threshold bisection (:func:`repro_torch.kernels.
+    ref.topk_mask_ref`): every tie at the k-th value is kept, and ``k == 0``
+    zeroes the row (a dropped straggler transmits nothing)."""
+    vocab = logits.shape[-1]
+    kk = torch.clamp(torch.as_tensor(k, dtype=torch.int32, device=logits.device), 0, vocab)
+    kk = torch.broadcast_to(kk, logits.shape[:-1]).reshape(-1)
+    out = topk_mask_ref(logits.reshape(-1, vocab), kk, guard=True)
+    return out.reshape(logits.shape)
 
 
 class SparseWire(NamedTuple):
@@ -74,16 +170,10 @@ def sparsify_wire(
     logits: torch.Tensor, ks: torch.Tensor, k_cap: int, *, quantize: bool = False
 ) -> SparseWire | QuantizedWire:
     """Per-client adaptive top-k of ``(N, ..., vocab)`` logits as the wire,
-    with the budgets ``ks`` (int, one per client) as data.
-
-    ``lax.top_k`` in the reference is a stable select — on ties the lower
-    index comes first — which ``torch.topk`` does not promise; a stable
-    descending sort sliced at ``k_cap`` gives the identical order.
-    """
+    with the budgets ``ks`` (int, one per client) as data."""
     vocab = logits.shape[-1]
     k_cap = int(min(k_cap, vocab))
-    values, indices = torch.sort(logits, dim=-1, descending=True, stable=True)
-    values, indices = values[..., :k_cap], indices[..., :k_cap]
+    values, indices = _stable_topk(logits, k_cap)
     kk = torch.clamp(torch.as_tensor(ks, dtype=torch.int32, device=logits.device), 0, vocab)
     kk = kk.reshape(kk.shape + (1,) * (values.ndim - kk.ndim))
     mask = torch.arange(k_cap, dtype=torch.int32, device=logits.device) < kk

@@ -1,6 +1,18 @@
-"""The federated AdaLD runtime (Algorithm 1) for ``engine="fused_e2e"``."""
+"""The federated AdaLD runtime (Algorithm 1) for the ``batched``, ``fused``
+and ``fused_e2e`` engines."""
 
-from repro_torch.fed.engines import FusedE2EEngine
+from repro_torch.fed.engines import BatchedEngine, FusedE2EEngine, FusedEngine, make_engine
 from repro_torch.fed.rounds import METHODS, FedConfig, FedRun, run_federated
+from repro_torch.fed.server import Server
 
-__all__ = ["FusedE2EEngine", "METHODS", "FedConfig", "FedRun", "run_federated"]
+__all__ = [
+    "BatchedEngine",
+    "FusedEngine",
+    "FusedE2EEngine",
+    "make_engine",
+    "Server",
+    "METHODS",
+    "FedConfig",
+    "FedRun",
+    "run_federated",
+]

@@ -1,19 +1,73 @@
-"""Round engines: the whole-round ``fused_e2e`` engine and its plumbing."""
+"""Round engines — the port of ``repro/fed/engines``:
 
+* :class:`BatchedEngine` — every phase of the client round as one step
+  over a leading client axis; the exact per-client top-k as the dense
+  uplink.
+* :class:`FusedEngine` — the batched engine's phases as one round
+  function; the uplink is the per-row-budget bisection top-k (the CUDA
+  kernel with ``use_kernels``).
+* :class:`FusedE2EEngine` — the whole round, client and server phase, as
+  one function call with the sparse wire between them.
+
+All of them keep the fleet in a device fleet store and are driven by
+:func:`repro_torch.fed.rounds.run_federated`.  A client whose channel
+yields ``k == 0`` transmits nothing and is left out of the aggregation.
+"""
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.fed.client import Client
 from repro_torch.fed.engines.base import (
     BroadcastState,
     ClientPhase,
     check_unique_cohort,
     cohort_budgets,
+    fake_quant_dense,
     k_cap_bucket,
+    not_carried,
+    shared_frozen_backbone,
 )
+from repro_torch.fed.engines.batched import BatchedEngine
 from repro_torch.fed.engines.e2e import FusedE2EEngine
+from repro_torch.fed.engines.fused import FusedEngine
 
 __all__ = [
     "BroadcastState",
     "ClientPhase",
+    "BatchedEngine",
+    "FusedEngine",
     "FusedE2EEngine",
+    "make_engine",
     "check_unique_cohort",
     "cohort_budgets",
+    "fake_quant_dense",
     "k_cap_bucket",
+    "shared_frozen_backbone",
 ]
+
+
+def make_engine(kind: str, clients: list[Client], cfg: ModelConfig, **kwargs):
+    """Build a round engine, dropping the keyword arguments that ``kind``
+    does not take, as the reference's ``make_engine`` does (the batched
+    engine has no kernel of its own: its aggregation kernel runs in the
+    Server)."""
+    if kind == "sequential":
+        raise not_carried("engine='sequential'", "the sequential engine and kernel 6")
+    if kind not in ("batched", "fused", "fused_e2e"):
+        raise ValueError(
+            f"unknown engine: {kind!r} (expected 'sequential', 'batched', 'fused' or 'fused_e2e')"
+        )
+    if kwargs.pop("shard_clients", False):
+        raise not_carried("shard_clients", "launchers and scale-out")
+    if kwargs.pop("compute_dtype", "float32") != "float32":
+        raise not_carried("a compute_dtype other than float32", "bf16")
+    if kwargs.pop("fleet_store", "device") != "device":
+        raise not_carried("a fleet_store other than 'device'", "the host fleet store")
+    if kind != "fused_e2e":
+        for e2e_only in ("server", "server_distill_steps", "aggregation"):
+            kwargs.pop(e2e_only, None)
+    if kind == "batched":
+        kwargs.pop("use_kernels", None)
+        return BatchedEngine(clients, cfg, **kwargs)
+    if kind == "fused":
+        return FusedEngine(clients, cfg, **kwargs)
+    return FusedE2EEngine(clients, cfg, **kwargs)

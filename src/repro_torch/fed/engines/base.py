@@ -1,6 +1,7 @@
-"""Shared engine plumbing: budget math, round dataclasses and the
-server-owner mixin — the port of the parts of ``repro/fed/engines/base.py``
-that the ``fused_e2e`` engine uses."""
+"""Shared engine plumbing: budget math, the dense uplink's int8 code, round
+dataclasses and the server-owner mixin — the port of the parts of
+``repro/fed/engines/base.py`` that the ``batched``, ``fused`` and
+``fused_e2e`` engines use."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.channel import topk_budget_batch
 from repro_torch.core.protocol import UplinkPayload, downlink_bits, lora_projection_bits
-from repro_torch.core.topk import QuantizedWire, SparseWire
+from repro_torch.core.topk import QUANT_LEVELS, QuantizedWire, SparseWire
 from repro_torch.lora import merge_lora, split_lora
 from repro_torch.optim import adamw_init
 
@@ -22,7 +23,16 @@ __all__ = [
     "cohort_budgets",
     "k_cap_bucket",
     "check_unique_cohort",
+    "fake_quant_dense",
+    "not_carried",
+    "shared_frozen_backbone",
 ]
+
+
+def not_carried(what: str, item: str) -> NotImplementedError:
+    """The error for what the port does not carry yet, naming its item of
+    ROADMAP.md's port queue."""
+    return NotImplementedError(f"{what} is not carried by the port yet (ROADMAP.md port queue: {item})")
 
 
 def cohort_budgets(
@@ -64,6 +74,25 @@ def k_cap_bucket(ks: Sequence[int], vocab: int) -> int:
     return min(cap, vocab)
 
 
+def fake_quant_dense(dense: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize a densified top-k stack through the int8 wire's
+    per-(client, sample)-row symmetric code, as the dense engines do under
+    ``quantize_wire``; zeros stay exact zeros.  ``torch.round`` rounds half
+    to even, as ``jnp.round`` does."""
+    amax = torch.amax(torch.abs(dense), dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / QUANT_LEVELS, 1.0)
+    return torch.clamp(torch.round(dense / scale), -QUANT_LEVELS, QUANT_LEVELS) * scale
+
+
+def shared_frozen_backbone(frozens: Sequence[dict]) -> bool:
+    """True iff every client's frozen dict holds literally the same tensors
+    (one W' under per-client LoRA deltas): identity, not value comparison."""
+    first = frozens[0]
+    return all(
+        o.keys() == first.keys() and all(o[k] is first[k] for k in first) for o in frozens[1:]
+    )
+
+
 def check_unique_cohort(sel: Sequence[int]) -> list[int]:
     """A cohort selects each client at most once: the fleet write-back of
     duplicate rows would be ambiguous."""
@@ -88,10 +117,14 @@ class BroadcastState:
 class ClientPhase:
     """One round's client-phase result: ``ks`` for every selected client
     (0 = dropped straggler), the transmitters' manifests, and their uplink
-    as the sparse wire (transmitters only, cohort order)."""
+    (transmitters only, cohort order): the dense top-k stack ``dense (N, P,
+    V)`` with the projections ``h (N, P, r)`` of the dense engines, or the
+    sparse wire of ``fused_e2e``."""
 
     payloads: list[UplinkPayload]
     ks: list[int]
+    dense: torch.Tensor | None = None
+    h: torch.Tensor | None = None
     sparse: SparseWire | QuantizedWire | None = None
 
     @property

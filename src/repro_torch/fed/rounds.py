@@ -1,11 +1,14 @@
 """Federated AdaLD round orchestration (paper Algorithm 1 + §IV setup) —
-the port of ``repro/fed/rounds.py`` for ``engine="fused_e2e"``.
+the port of ``repro/fed/rounds.py`` for the ``batched``, ``fused`` and
+``fused_e2e`` engines.
 
 One communication round: the server's last broadcast {K_g, h_g} reaches
 the selected clients, who distill against it, fine-tune on private data,
-infer the public set and upload adaptive top-k sparse logits (+ LoRA
-projections); the server aggregates from the wire, distills into the LLM
-and recomputes the broadcast.  Host-side draws (cohorts, public batches,
+infer the public set and upload adaptive top-k logits (+ LoRA
+projections); the server aggregates them, distills into the LLM and
+recomputes the broadcast.  ``fused_e2e`` does the server's part inside its
+round, from the sparse wire; the other engines hand the round loop the
+transmitters' dense top-k stack for the :class:`Server`.  Host-side draws (cohorts, public batches,
 channels, client batch streams) use the reference's numpy streams in the
 reference's order, so both packages see identical data under one seed.
 
@@ -28,7 +31,8 @@ from repro_torch.core.protocol import CommLedger, RoundStats
 from repro_torch.data.partition import dirichlet_partition, iid_partition, split_public_private
 from repro_torch.data.synthetic import IntentDataset
 from repro_torch.fed.client import Client
-from repro_torch.fed.engines import BroadcastState, FusedE2EEngine
+from repro_torch.fed.engines import BroadcastState, make_engine
+from repro_torch.fed.engines.base import not_carried
 from repro_torch.fed.server import Server
 from repro_torch.fed.steps import make_eval_fn
 
@@ -97,33 +101,22 @@ class FedRun:
     round_seconds: list[float] = dataclasses.field(default_factory=list)
 
 
-def _not_carried(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not carried by the port yet (ROADMAP.md port queue: {item})")
-
-
 def _check_carried(client_cfg, fed: FedConfig, ckpt_dir) -> None:
-    if fed.engine == "fused":
-        raise _not_carried("engine='fused'", "the fused engine and run_rounds")
-    if fed.engine != "fused_e2e":
-        raise _not_carried(f"engine={fed.engine!r}", "the sequential and batched engines")
+    """Raise on what the port does not carry, before any work;
+    ``make_engine`` checks the engine's own options (kind, shard_clients,
+    compute_dtype, fleet_store)."""
     if not isinstance(client_cfg, ModelConfig):
-        raise _not_carried("a mixed-family fleet", "other model families and mixed fleets")
-    if fed.compute_dtype != "float32":
-        raise _not_carried(f"compute_dtype={fed.compute_dtype!r}", "bf16")
+        raise not_carried("a mixed-family fleet", "other model families and mixed fleets")
     if fed.pretrain_steps > 0:
-        raise _not_carried("pretrain_steps > 0", "pretraining")
+        raise not_carried("pretrain_steps > 0", "pretraining")
     if fed.scenario is not None or fed.channel.scenario is not None:
-        raise _not_carried("a channel scenario", "scenarios and faults, then checkpoints")
+        raise not_carried("a channel scenario", "scenarios and faults, then checkpoints")
     if fed.faults not in (None, "none"):
-        raise _not_carried("fault injection", "scenarios and faults, then checkpoints")
+        raise not_carried("fault injection", "scenarios and faults, then checkpoints")
     if ckpt_dir is not None:
-        raise _not_carried("checkpoints (ckpt_dir)", "scenarios and faults, then checkpoints")
-    if fed.fleet_store != "device":
-        raise _not_carried(f"fleet_store={fed.fleet_store!r}", "the host fleet store")
+        raise not_carried("checkpoints (ckpt_dir)", "scenarios and faults, then checkpoints")
     if fed.scan_rounds:
-        raise _not_carried("scan_rounds", "the fused engine and run_rounds")
-    if fed.shard_clients:
-        raise _not_carried("shard_clients", "launchers and scale-out")
+        raise not_carried("scan_rounds", "run_rounds and scan_rounds")
 
 
 def run_federated(
@@ -155,7 +148,12 @@ def run_federated(
         Client(i, client_cfg, private.subset(parts[i]), seed=fed.seed + i, device=device)
         for i in range(fed.num_clients)
     ]
-    server = Server(server_cfg, seed=fed.seed + 999, device=device)
+    server = Server(
+        server_cfg, seed=fed.seed + 999, distill_lr=fed.distill_lr, temperature=fed.temperature,
+        lam=fed.lam, aggregation=preset["aggregation"], distill_steps=fed.server_distill_steps,
+        use_kernels=fed.use_kernels, restrict_to_support=fed.restrict_to_support,
+        last_only=fed.last_only, device=device,
+    )
     chan_sim = ChannelSimulator(fed.num_clients, fed.channel, seed=fed.seed)
 
     eval_idx = rng.permutation(len(private))[: fed.eval_size]
@@ -164,15 +162,19 @@ def run_federated(
     evaluate = make_eval_fn(server_cfg, dataset.num_classes, last_only=fed.last_only)
     evaluate_client = make_eval_fn(client_cfg, dataset.num_classes, last_only=fed.last_only)
 
-    engine = FusedE2EEngine(
-        clients, client_cfg, server=server, num_classes=dataset.num_classes,
+    engine = make_engine(
+        fed.engine, clients, client_cfg, num_classes=dataset.num_classes,
         lr=fed.lr, distill_lr=fed.distill_lr, temperature=fed.temperature, lam=fed.lam,
         local_steps=fed.local_steps, distill_steps=fed.distill_steps,
-        server_distill_steps=fed.server_distill_steps, aggregation=preset["aggregation"],
         restrict_to_support=fed.restrict_to_support, value_bits=fed.channel.value_bits,
-        k_min=fed.channel.min_k, last_only=fed.last_only, use_kernels=fed.use_kernels,
-        quantize_wire=fed.quantize_wire,
+        k_min=fed.channel.min_k, last_only=fed.last_only, shard_clients=fed.shard_clients,
+        use_kernels=fed.use_kernels, quantize_wire=fed.quantize_wire,
+        compute_dtype=fed.compute_dtype, fleet_store=fed.fleet_store,
+        # fused_e2e only: the engine owns the server phase too
+        server=server, server_distill_steps=fed.server_distill_steps,
+        aggregation=preset["aggregation"],
     )
+    handles_server = getattr(engine, "handles_server", False)
 
     ledger = CommLedger()
     run = FedRun(ledger=ledger, server_acc=[], client_acc=[], mean_k=[])
@@ -192,12 +194,24 @@ def run_federated(
             sel, pub_tokens, bcast, states,
             adaptive_k=preset["adaptive_k"], send_h=preset["send_h"],
         )
-        bcast = engine.broadcast_state(pub_tokens)
-        engine.sync_server()
+        if handles_server:
+            # fused_e2e: aggregation, server distillation and the broadcast
+            # all ran inside the engine's round
+            bcast = engine.broadcast_state(pub_tokens)
+            engine.sync_server()
+        else:
+            if phase.dense is not None:
+                k_g, h_g = server.aggregate_dense(phase.dense, phase.h)
+                server.distill(pub_tokens, k_g, h_g)
+            # else: every selected client dropped -> no aggregation, the
+            # server's knowledge carries over
+            g_logits, g_h, g_bits = server.broadcast(pub_tokens)
+            bcast = BroadcastState(tokens=pub_tokens, logits=g_logits, h=g_h, bits=g_bits)
 
         s_acc = evaluate(server.params, eval_tokens, eval_labels)
         c_acc = evaluate_client(engine.client_params(sel[0]), eval_tokens, eval_labels)
-        d_loss = engine.last_distill_loss
+        # the reference reports no server-distill loss off the e2e path
+        d_loss = engine.last_distill_loss if handles_server else float("nan")
         mean_k = float(np.mean(phase.ks))
         run.server_acc.append(s_acc)
         run.client_acc.append(c_acc)

@@ -1,13 +1,23 @@
-"""FL server state (Algorithm 1, server block) — the port of
-``repro/fed/server.py``.  Aggregation, distillation and the broadcast run
-inside the round (:mod:`repro_torch.fed.steps`); the server holds the LLM's
-parameters between rounds for evaluation."""
+"""FL server: dense logit aggregation, LLM distillation and the broadcast
+(Algorithm 1, server block: lines 1-2, 13-16) — the port of
+``repro/fed/server.py``.
+
+The ``batched`` and ``fused`` engines hand the round loop a dense stack of
+the transmitters' top-k masks, which the server aggregates
+(:meth:`Server.aggregate_dense`), distills into its LLM
+(:meth:`Server.distill`) and answers with a refreshed broadcast
+(:meth:`Server.broadcast`).  The ``fused_e2e`` engine runs the same work
+inside its round and only keeps the parameters here for evaluation.
+"""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.aggregation import AggregationMode, aggregate
+from repro_torch.core.protocol import downlink_bits
+from repro_torch.fed import steps as fed_steps
 from repro_torch.models import model as model_lib
 
 __all__ = ["Server"]
@@ -19,10 +29,66 @@ class Server:
         cfg: ModelConfig,
         *,
         seed: int = 42,
+        distill_lr: float = 1e-3,
+        temperature: float = 2.0,
+        lam: float = 0.03,
+        aggregation: AggregationMode = "adaptive",
+        distill_steps: int = 2,
+        use_kernels: bool = False,
+        restrict_to_support: bool = False,
+        last_only: bool = True,
         device: str | torch.device = "cuda",
         initial_params: dict | None = None,
     ):
         self.cfg = cfg
+        self.aggregation: AggregationMode = aggregation
+        self.distill_steps = distill_steps
+        self.use_kernels = use_kernels
+        self.last_only = last_only
         self.params = (
             initial_params if initial_params is not None else model_lib.init(cfg, seed, device)
         )
+        # made by the first distill: the fused_e2e engine distills inside
+        # its round and holds its own optimizer state
+        self.opt = None
+        self._distill_step = None
+        self._distill_kwargs = dict(lr=distill_lr, temperature=temperature, lam=lam,
+                                    restrict_to_support=restrict_to_support, last_only=last_only)
+
+    # ---- Algorithm 1, line 15: aggregate client knowledge ----
+    def aggregate_dense(
+        self,
+        stack: torch.Tensor,
+        h_stack: torch.Tensor | None = None,
+        *,
+        mask: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Aggregate the transmitters' dense ``(N, P, V)`` top-k stack (and
+        their ``(N, P, r)`` projections: ``h_g`` is their mean).  Dropped
+        stragglers are never in the stack; ``mask`` is the optional explicit
+        transmit mask (else the ``!= 0`` sentinel)."""
+        k_g = aggregate(stack, self.aggregation, mask=mask, use_kernel=self.use_kernels)
+        h_g = torch.mean(h_stack, dim=0) if h_stack is not None else None
+        return k_g, h_g
+
+    # ---- Algorithm 1, line 16: update the LLM by distilling K_g, h_g ----
+    def distill(self, public_tokens: torch.Tensor, k_g: torch.Tensor, h_g) -> dict:
+        if self._distill_step is None:
+            self.opt = fed_steps.init_lora_opt(self.params, self.cfg)
+            self._distill_step = fed_steps.make_distill_step(self.cfg, **self._distill_kwargs)
+        metrics = {}
+        for _ in range(self.distill_steps):
+            self.params, self.opt, metrics = self._distill_step(
+                self.params, self.opt, public_tokens, k_g, h_g
+            )
+        return {k: float(v) for k, v in metrics.items()}
+
+    # ---- §II-B: broadcast the server's own refreshed knowledge ----
+    def broadcast(self, public_tokens: torch.Tensor):
+        """``(K_down (P, V), h_down (P, r) or None, downlink_bits)``: the
+        server re-infers the public batch after its distillation update."""
+        logits, h = fed_steps.public_logits(
+            self.params, self.cfg, public_tokens, last_only=self.last_only
+        )
+        rank = self.cfg.lora.rank if (self.cfg.lora is not None and h is not None) else None
+        return logits, h, downlink_bits(int(logits.shape[0]), int(logits.shape[-1]), rank)

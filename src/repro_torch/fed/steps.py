@@ -1,5 +1,5 @@
 """Round step functions (Algorithm 1) — the port of ``repro/fed/steps.py``
-for the ``fused_e2e`` round.
+for the ``batched``, ``fused`` and ``fused_e2e`` engines and the server.
 
 Task convention (paper §IV): class logits are the LM-head logits over the
 first ``num_classes`` vocab ids at the LAST position; distillation works on
@@ -9,11 +9,12 @@ Where the reference vmaps one client's round body over the cohort, every
 function here runs the cohort at once on a leading client axis: LoRA leaves
 and optimizer state are ``(C, ...)``, the backbone is shared or ``(C, ...)``.
 A step's loss is the SUM of the per-client losses, so one ``backward`` gives
-each client exactly its own gradient; AdamW then clips per client.
-``lax.scan``/``fori_loop`` are Python loops, and the two data-dependent
-round decisions of the reference (cold server in round 0, a round where
-every client dropped) are host-side values here, so they are plain
-branches that skip the work the reference computes and discards.
+each client exactly its own gradient; AdamW then clips per client.  A single
+model (the server) is a client axis of 1.  ``lax.scan``/``fori_loop`` are
+Python loops, and the two data-dependent round decisions of the reference
+(cold server in round 0, a round where every client dropped) are host-side
+values here, so they are plain branches that skip the work the reference
+computes and discards.
 """
 
 from __future__ import annotations
@@ -24,16 +25,23 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.aggregation import AggregationMode, aggregate_wire
-from repro_torch.core.distill import kl_rows, teacher_log_probs
-from repro_torch.core.topk import sparsify_wire
-from repro_torch.lora import merge_lora
+from repro_torch.core.distill import kl_rows, teacher_log_probs, total_distill_loss
+from repro_torch.core.topk import sparsify_wire, topk_mask_dynamic
+from repro_torch.lora import merge_lora, split_lora
 from repro_torch.models import forward
-from repro_torch.optim import adamw_update
+from repro_torch.optim import AdamWState, adamw_init, adamw_update
 
 __all__ = [
     "EVAL_BATCH",
     "class_logits",
     "last_logits",
+    "public_logits",
+    "init_lora_opt",
+    "make_distill_step",
+    "make_batched_finetune_step",
+    "make_batched_distill_step",
+    "make_batched_public_logits",
+    "make_fused_round_fn",
     "make_server_phase_fn",
     "make_fused_e2e_round_fn",
     "make_eval_fn",
@@ -87,6 +95,27 @@ def _finetune_loss_fn(cfg: ModelConfig, num_classes: int, last_only: bool = True
     return loss_fn
 
 
+def _distill_loss_fn(cfg: ModelConfig, temperature: float, lam: float,
+                     restrict_to_support: bool, last_only: bool = True) -> Callable:
+    """loss(lora, frozen, tokens (C,P,L), g_logits (P,V), g_h (P,r)|None) ->
+    (C,) eq. 10 per client through :func:`total_distill_loss`, the teacher
+    softmaxed anew for each client (the reference's uncached form)."""
+    use_h = cfg.lora is not None
+
+    def loss_fn(lora, frozen, tokens, g_logits, g_h):
+        own, aux = last_logits(merge_lora(lora, frozen), cfg, tokens, last_only=last_only)
+        return torch.stack([
+            total_distill_loss(
+                g_logits, own[i], g_h if use_h else None,
+                aux.lora_h[i] if (use_h and aux.lora_h is not None) else None,
+                temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
+            )[0]
+            for i in range(own.shape[0])
+        ])
+
+    return loss_fn
+
+
 def _distill_loss_cached_fn(cfg: ModelConfig, temperature: float, lam: float,
                             last_only: bool = True) -> Callable:
     """loss(lora, frozen, tokens, t_logp, th_logp, support) -> (C,) eq. 10
@@ -118,21 +147,27 @@ def _teacher_cache_fn(temperature: float, restrict_to_support: bool, use_h: bool
 
 
 def _client_round_core(cfg: ModelConfig, num_classes: int, *, lr: float, weight_decay: float,
-                       distill_lr: float, temperature: float, lam: float, local_steps: int,
-                       distill_steps: int, last_only: bool) -> Callable:
+                       distill_lr: float, temperature: float, lam: float,
+                       restrict_to_support: bool, local_steps: int, distill_steps: int,
+                       last_only: bool, kd_loss: Callable | None = None) -> Callable:
     """The cohort's round body: ``distill_steps`` distillation updates
     (skipped when ``g_valid`` is False — the cold server of round 0),
-    ``local_steps`` supervised updates, public last-position inference."""
-    ft_loss = _finetune_loss_fn(cfg, num_classes, last_only)
-    kd_loss = _distill_loss_cached_fn(cfg, temperature, lam, last_only)
+    ``local_steps`` supervised updates, public last-position inference.
 
-    def client_round(lora, frozen, opt, g_tokens, t_cache, g_valid: bool, batches, pub_tokens):
+    ``kd_loss`` is called as ``kd_loss(lora, frozen, g_tokens, *kd_args)``
+    with the teacher tuple the caller threads through; the default is the
+    uncached :func:`_distill_loss_fn` on ``(g_logits, g_h)``."""
+    ft_loss = _finetune_loss_fn(cfg, num_classes, last_only)
+    if kd_loss is None:
+        kd_loss = _distill_loss_fn(cfg, temperature, lam, restrict_to_support, last_only)
+
+    def client_round(lora, frozen, opt, g_tokens, kd_args, g_valid: bool, batches, pub_tokens):
         c = next(iter(lora.values())).shape[0]
         # -- lines 5-7: local distillation against the broadcast knowledge --
         if g_valid:
             g_tok = _per_client_tokens(g_tokens, c)
             for _ in range(distill_steps):
-                _, grads = _grads(kd_loss, lora, frozen, g_tok, *t_cache)
+                _, grads = _grads(kd_loss, lora, frozen, g_tok, *kd_args)
                 lora, opt = adamw_update(grads, opt, lora, lr=distill_lr)
         # -- line 8: local fine-tuning --
         for s in range(local_steps):
@@ -145,6 +180,144 @@ def _client_round_core(cfg: ModelConfig, num_classes: int, *, lr: float, weight_
         return lora, opt, last, aux.lora_h
 
     return client_round
+
+
+def public_logits(params, cfg: ModelConfig, tokens: torch.Tensor, *, last_only: bool = True):
+    """One model's last-position vocab logits ``(B, V)`` and pooled LoRA
+    projection ``(B, r)`` or None on a public batch ``(B, L)``."""
+    with torch.no_grad():
+        last, aux = last_logits(params, cfg, tokens[None], last_only=last_only)
+    return last[0], None if aux.lora_h is None else aux.lora_h[0]
+
+
+def init_lora_opt(params, cfg: ModelConfig) -> AdamWState:
+    """AdamW state for one model's LoRA group, on a client axis of 1."""
+    lora, _ = split_lora(params)
+    return adamw_init({k: v[None] for k, v in lora.items()}, state_dtype=cfg.optimizer_state_dtype)
+
+
+def make_batched_finetune_step(cfg: ModelConfig, num_classes: int, *, lr: float = 1e-3,
+                               weight_decay: float = 1e-3, last_only: bool = True) -> Callable:
+    """One fine-tune update for a whole cohort (paper eq. 2, LoRA only).
+
+    step(lora (C,...), frozen, opt (C,...), batch {tokens (C,B,L), labels (C,B)})
+    -> (lora, opt, {"loss": (C,)})"""
+    loss_fn = _finetune_loss_fn(cfg, num_classes, last_only)
+
+    def step(lora, frozen, opt, batch):
+        losses, grads = _grads(loss_fn, lora, frozen, batch["tokens"], batch["labels"])
+        lora, opt = adamw_update(grads, opt, lora, lr=lr, weight_decay=weight_decay)
+        return lora, opt, {"loss": losses}
+
+    return step
+
+
+def make_batched_distill_step(cfg: ModelConfig, *, lr: float = 1e-3, temperature: float = 2.0,
+                              lam: float = 0.03, restrict_to_support: bool = False,
+                              last_only: bool = True) -> Callable:
+    """Cohort distillation against one broadcast teacher (Algorithm 1 lines
+    5-7): every client distills on the same public tokens and ``{K_g, h_g}``.
+
+    step(lora (C,...), frozen, opt (C,...), tokens (P,L), g_logits (P,V), g_h)
+    -> (lora, opt, {"loss": (C,)}); ``g_h`` None drops the λ-term."""
+    loss_fn = _distill_loss_fn(cfg, temperature, lam, restrict_to_support, last_only)
+
+    def step(lora, frozen, opt, tokens, g_logits, g_h):
+        c = next(iter(lora.values())).shape[0]
+        losses, grads = _grads(loss_fn, lora, frozen, _per_client_tokens(tokens, c), g_logits, g_h)
+        lora, opt = adamw_update(grads, opt, lora, lr=lr)
+        return lora, opt, {"loss": losses}
+
+    return step
+
+
+def make_distill_step(cfg: ModelConfig, *, lr: float = 1e-3, temperature: float = 2.0,
+                      lam: float = 0.03, restrict_to_support: bool = False,
+                      last_only: bool = True) -> Callable:
+    """One model's distillation update against teacher knowledge (Algorithm
+    1 line 16 for the server), the cohort step on a client axis of 1.
+
+    step(params, opt (from :func:`init_lora_opt`), tokens (P,L), g_logits, g_h)
+    -> (params, opt, {"loss": ()})"""
+    batched = make_batched_distill_step(cfg, lr=lr, temperature=temperature, lam=lam,
+                                        restrict_to_support=restrict_to_support,
+                                        last_only=last_only)
+
+    def step(params, opt, tokens, g_logits, g_h):
+        lora, frozen = split_lora(params)
+        lora, opt, metrics = batched({k: v[None] for k, v in lora.items()}, frozen, opt,
+                                     tokens, g_logits, g_h)
+        params = merge_lora({k: v[0] for k, v in lora.items()}, frozen)
+        return params, opt, {"loss": metrics["loss"][0]}
+
+    return step
+
+
+def make_batched_public_logits(cfg: ModelConfig, *, last_only: bool = True) -> Callable:
+    """Cohort public-set inference (Algorithm 1 line 9): (lora (C,...),
+    frozen, tokens (P,L)) -> (logits (C,P,V), h (C,P,r) or None)."""
+
+    @torch.no_grad()
+    def public(lora, frozen, tokens):
+        c = next(iter(lora.values())).shape[0]
+        last, aux = last_logits(merge_lora(lora, frozen), cfg, _per_client_tokens(tokens, c),
+                                last_only=last_only)
+        return last, aux.lora_h
+
+    return public
+
+
+def make_fused_round_fn(
+    cfg: ModelConfig,
+    num_classes: int,
+    *,
+    lr: float = 1e-3,
+    weight_decay: float = 1e-3,
+    distill_lr: float = 1e-3,
+    temperature: float = 2.0,
+    lam: float = 0.03,
+    restrict_to_support: bool = False,
+    local_steps: int = 4,
+    distill_steps: int = 2,
+    last_only: bool = True,
+    use_kernels: bool = False,
+) -> Callable:
+    """The whole client phase of Algorithm 1 (lines 5-11) as one function.
+
+    fn(lora (C,...), frozen, opt (C,...), g_tokens (P,L), g_logits (P,V),
+       g_h (P,r)|None, batches {tokens (C,S,B,L), labels (C,S,B)},
+       pub_tokens (P,L), ks [C ints])
+    -> (lora, opt, dense (C,P,V), h (C,P,r)|None)
+
+    ``distill_steps`` distillation updates, ``local_steps``
+    supervised updates and the public inference, then the per-client
+    adaptive top-k with one budget per client row: the bisection CUDA
+    kernel (:func:`repro_torch.kernels.ops.topk_mask_dynamic`) with
+    ``use_kernels``, else :func:`repro_torch.core.topk.topk_mask_dynamic` —
+    the same threshold (ties-kept) semantics.  ``distill_steps=0`` builds
+    the cold round (no broadcast exists yet; the g_* operands are unused)."""
+    client_round = _client_round_core(
+        cfg, num_classes, lr=lr, weight_decay=weight_decay, distill_lr=distill_lr,
+        temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
+        local_steps=local_steps, distill_steps=distill_steps, last_only=last_only,
+    )
+
+    def fn(lora, frozen, opt, g_tokens, g_logits, g_h, batches, pub_tokens, ks):
+        lora, opt, last, h = client_round(
+            lora, frozen, opt, g_tokens, (g_logits, g_h), True, batches, pub_tokens
+        )
+        # -- line 10: adaptive top-k over the (C·P, V) rows, one budget per client --
+        kk = torch.as_tensor(ks, dtype=torch.int32, device=last.device)[:, None]
+        if use_kernels:
+            from repro_torch.kernels import ops as kops
+
+            rows_k = kk.expand(last.shape[:-1]).contiguous()
+            dense = kops.topk_mask_dynamic(last.contiguous(), rows_k)
+        else:
+            dense = topk_mask_dynamic(last, kk)
+        return lora, opt, dense, h
+
+    return fn
 
 
 def make_server_phase_fn(
@@ -233,8 +406,9 @@ def make_fused_e2e_round_fn(
     ``k_cap`` (int8 with ``quantize``) and is aggregated straight from it."""
     client_round = _client_round_core(
         client_cfg, num_classes, lr=lr, weight_decay=weight_decay, distill_lr=distill_lr,
-        temperature=temperature, lam=lam, local_steps=local_steps,
-        distill_steps=distill_steps, last_only=last_only,
+        temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
+        local_steps=local_steps, distill_steps=distill_steps, last_only=last_only,
+        kd_loss=_distill_loss_cached_fn(client_cfg, temperature, lam, last_only),
     )
     teacher_cache = _teacher_cache_fn(temperature, restrict_to_support, client_cfg.lora is not None)
     server_phase = make_server_phase_fn(

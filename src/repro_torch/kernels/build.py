@@ -22,7 +22,7 @@ from pathlib import Path
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "nvcc_path"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES: dict[str, Path] = {"sparse_agg": _CSRC / "sparse_agg.cu"}
+SOURCES: dict[str, Path] = {name: _CSRC / f"{name}.cu" for name in ("sparse_agg", "topk_select")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -16,14 +16,34 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import scatter_wire_sums_dequant_ref, scatter_wire_sums_ref
+from repro_torch.kernels.ref import (
+    scatter_wire_sums_dequant_ref,
+    scatter_wire_sums_ref,
+    sparse_aggregate_ref,
+    topk_mask_ref,
+)
 
-__all__ = ["LAUNCHES", "reset_launches", "scatter_wire_sums", "scatter_wire_sums_dequant"]
+__all__ = [
+    "LAUNCHES",
+    "reset_launches",
+    "topk_mask_dynamic",
+    "topk_mask",
+    "sparse_aggregate",
+    "scatter_wire_sums",
+    "scatter_wire_sums_dequant",
+]
 
-LAUNCHES: dict[str, int] = {"scatter_wire_sums": 0, "scatter_wire_sums_dequant": 0}
+LAUNCHES: dict[str, int] = {
+    "topk_mask_dynamic": 0,
+    "topk_mask": 0,
+    "sparse_aggregate": 0,
+    "scatter_wire_sums": 0,
+    "scatter_wire_sums_dequant": 0,
+}
 
 _MODES = {"adaptive": 0, "zeropad": 1, "mean_nonzero": 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 
 def reset_launches() -> None:
@@ -31,9 +51,14 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(name: str, tensors: dict, dtypes: dict, shape: tuple) -> None:
+def _check(name: str, tensors: dict, dtypes: dict, shapes: dict) -> None:
     dev = None
     for key, t in tensors.items():
+        if t.dtype in _LOW_PRECISION and torch.float32 in dtypes[key]:
+            raise NotImplementedError(
+                f"{name}: {key} is {t.dtype}; the kernels take float32 only "
+                "(ROADMAP.md port queue: bf16)"
+            )
         if t.dtype not in dtypes[key]:
             raise TypeError(f"{name}: {key} has dtype {t.dtype}, expected one of {dtypes[key]}")
         if not t.is_contiguous():
@@ -42,30 +67,97 @@ def _check(name: str, tensors: dict, dtypes: dict, shape: tuple) -> None:
             dev = t.device
         elif t.device != dev:
             raise ValueError(f"{name}: {key} is on {t.device}, others on {dev}")
-    for key, t in tensors.items():
-        want = shape[: t.ndim] if key == "scale" else shape
-        if tuple(t.shape) != tuple(want):
-            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(want)}")
+    for key, want in shapes.items():
+        if tuple(tensors[key].shape) != tuple(want):
+            raise ValueError(
+                f"{name}: {key} has shape {tuple(tensors[key].shape)}, expected {tuple(want)}"
+            )
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
 
 
 @functools.cache
-def _fn(symbol: str, nargs_ptr: int, nargs_int: int):
-    fn = getattr(build.load("sparse_agg"), symbol)
+def _fn(lib: str, symbol: str, nargs_ptr: int, nargs_int: int):
+    """The C entry point ``symbol`` of ``lib``: ``nargs_ptr`` pointers,
+    ``nargs_int`` ints, then the stream; returns a ``cudaError_t``."""
+    fn = getattr(build.load(lib), symbol)
     fn.argtypes = [_P] * nargs_ptr + [_I] * nargs_int + [_P]
     fn.restype = _I
     return fn
 
 
-def _launch(name: str, symbol: str, ptrs, ints, device) -> None:
-    fn = _fn(symbol, len(ptrs), len(ints))
+@functools.cache
+def smem_max_vocab(device_index: int) -> int:
+    """Widest row the top-k kernel keeps in shared memory on this card;
+    wider rows take its global-memory path."""
+    fn = build.load("topk_select").topk_mask_smem_max_vocab
+    fn.argtypes, fn.restype = [], _I
+    with torch.cuda.device(device_index):
+        out = fn()
+    if out < 0:
+        raise RuntimeError(f"topk_mask_smem_max_vocab: CUDA error {-out}")
+    return out
+
+
+def _launch(name: str, lib: str, symbol: str, ptrs, ints, device) -> None:
+    fn = _fn(lib, symbol, len(ptrs), len(ints))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        rc = fn(*[t.data_ptr() for t in ptrs], *ints, stream)
+        rc = fn(*[None if t is None else t.data_ptr() for t in ptrs], *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
+
+
+def _topk(name: str, logits: torch.Tensor, ks: torch.Tensor | None, k_static: int) -> torch.Tensor:
+    """The bisection top-k mask over the rows of ``logits (..., V)``: per-row
+    budgets ``ks`` (shape ``logits.shape[:-1]``, with the ``k > 0`` guard)
+    or, when ``ks`` is None, one static ``k_static`` and no guard."""
+    tensors = {"logits": logits} if ks is None else {"logits": logits, "ks": ks}
+    _check(name, tensors, {"logits": (torch.float32,), "ks": (torch.int32,)},
+           {} if ks is None else {"ks": logits.shape[:-1]})
+    vocab = logits.shape[-1]
+    flat = logits.reshape(-1, vocab)
+    rows = flat.shape[0]
+    if logits.device.type == "cpu":
+        kk = (torch.full((rows,), k_static, dtype=torch.int32) if ks is None
+              else torch.clamp(ks.reshape(rows), 0, vocab))
+        return topk_mask_ref(flat, kk, guard=ks is not None).reshape(logits.shape)
+    out = torch.empty_like(flat)
+    if rows and vocab:
+        use_smem = int(vocab <= smem_max_vocab(logits.device.index or 0))
+        _launch(name, "topk_select", "topk_mask_f32", (flat, ks, out),
+                (rows, vocab, k_static, int(ks is not None), use_smem), logits.device)
+    return out.reshape(logits.shape)
+
+
+def topk_mask_dynamic(logits: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
+    """Per-row-budget dense top-k mask of ``logits (..., V)`` fp32 with int32
+    budgets ``ks`` of the leading shape, clamped to ``[0, V]``: threshold
+    semantics (ties at the k-th value kept), ``k = 0`` zeroes the row — the
+    ``fused`` engine's uplink sparsifier."""
+    return _topk("topk_mask_dynamic", logits, ks, 0)
+
+
+def topk_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Dense top-k mask of ``logits (..., V)`` fp32 with one static
+    ``min(k, V)`` for every row and no ``k > 0`` guard (paper eq. 4)."""
+    return _topk("topk_mask", logits, None, int(min(int(k), logits.shape[-1])))
+
+
+def sparse_aggregate(stack: torch.Tensor) -> torch.Tensor:
+    """Dense adaptive aggregation (eqs. 6-7) of ``stack (N, ..., V)`` fp32:
+    ``Σₙ|x|x / (Σₙ|x| + 1e-12)`` -> ``(..., V)`` fp32."""
+    _check("sparse_aggregate", {"stack": stack}, {"stack": (torch.float32,)}, {})
+    n, vocab = stack.shape[0], stack.shape[-1]
+    flat = stack.reshape(n, -1, vocab)
+    if stack.device.type == "cpu":
+        return sparse_aggregate_ref(flat).reshape(stack.shape[1:])
+    out = torch.empty(flat.shape[1:], dtype=torch.float32, device=stack.device)
+    if out.numel():
+        _launch("sparse_aggregate", "sparse_agg", "sparse_aggregate_f32", (flat, out),
+                (n, flat.shape[1], vocab), stack.device)
+    return out.reshape(stack.shape[1:])
 
 
 def scatter_wire_sums(
@@ -77,7 +169,7 @@ def scatter_wire_sums(
     _check(
         "scatter_wire_sums", {"a": a, "b": b, "indices": indices},
         {"a": (torch.float32,), "b": (torch.float32,), "indices": (torch.int32,)},
-        tuple(a.shape),
+        {"b": a.shape, "indices": a.shape},
     )
     n, k = a.shape[0], a.shape[-1]
     lead = a.shape[1:-1]
@@ -89,7 +181,7 @@ def scatter_wire_sums(
         num = torch.empty((rows, vocab), dtype=torch.float32, device=a.device)
         den = torch.empty_like(num)
         if rows:
-            _launch("scatter_wire_sums", "scatter_wire_sums_f32",
+            _launch("scatter_wire_sums", "sparse_agg", "scatter_wire_sums_f32",
                     (fa, fb, fi, num, den), (n, rows, k, vocab), a.device)
     return num.reshape(lead + (vocab,)), den.reshape(lead + (vocab,))
 
@@ -112,7 +204,7 @@ def scatter_wire_sums_dequant(
         {"q_values": q_values, "scale": scale, "mask": mask, "indices": indices},
         {"q_values": (torch.int8,), "scale": (torch.float32,),
          "mask": (torch.bool, torch.int8, torch.uint8), "indices": (torch.int32,)},
-        tuple(q_values.shape),
+        {"scale": q_values.shape[:-1], "mask": q_values.shape, "indices": q_values.shape},
     )
     n, k = q_values.shape[0], q_values.shape[-1]
     lead = q_values.shape[1:-1]
@@ -125,7 +217,7 @@ def scatter_wire_sums_dequant(
         num = torch.empty((rows, vocab), dtype=torch.float32, device=q_values.device)
         den = torch.empty_like(num)
         if rows:
-            _launch("scatter_wire_sums_dequant", "scatter_wire_sums_dequant_i8",
+            _launch("scatter_wire_sums_dequant", "sparse_agg", "scatter_wire_sums_dequant_i8",
                     (fq, fs, fm.view(torch.uint8), fi, num, den),
                     (n, rows, k, vocab, _MODES[mode]), q_values.device)
     return num.reshape(lead + (vocab,)), den.reshape(lead + (vocab,))

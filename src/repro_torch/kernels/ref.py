@@ -10,7 +10,59 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["scatter_wire_sums_ref", "scatter_wire_sums_dequant_ref", "dequant_channels"]
+__all__ = [
+    "BISECTION_ITERS",
+    "AGG_EPS",
+    "topk_mask_ref",
+    "sparse_aggregate_ref",
+    "scatter_wire_sums_ref",
+    "scatter_wire_sums_dequant_ref",
+    "dequant_channels",
+]
+
+# Threshold-bisection iteration count of the top-k kernels: the plain and
+# kernel sparsifiers must converge identically.
+BISECTION_ITERS = 30
+# eps of the dense adaptive aggregation kernel's denominator
+AGG_EPS = 1e-12
+
+
+def topk_mask_ref(x: torch.Tensor, ks: torch.Tensor, *, guard: bool) -> torch.Tensor:
+    """Dense top-k mask of ``x (rows, V)`` by fp32 threshold bisection,
+    with one budget per row ``ks (rows,)`` int.
+
+    ``lo = min``, ``hi = max + 1``; :data:`BISECTION_ITERS` times
+    ``mid = 0.5 * (lo + hi)``, and ``lo = mid`` where ``count(x >= mid) >=
+    k`` else ``hi = mid``; keep ``x >= lo`` (so every tie at the k-th value
+    is kept).  ``guard`` also zeroes the rows whose ``k`` is 0 — the
+    per-row-budget kernel; the static-k kernel has no guard.  Every step is
+    one rounded fp32 operation and the counts are integers, so the CUDA
+    kernels reproduce this bit for bit."""
+    xf = x.float()
+    lo = torch.amin(xf, dim=-1)
+    hi = torch.amax(xf, dim=-1) + 1.0
+    for _ in range(BISECTION_ITERS):
+        mid = (lo + hi) * 0.5
+        take = torch.sum(xf >= mid[:, None], dim=-1) >= ks
+        lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
+    keep = xf >= lo[:, None]
+    if guard:
+        keep = keep & (ks > 0)[:, None]
+    return torch.where(keep, x, torch.zeros_like(x))
+
+
+def sparse_aggregate_ref(stack: torch.Tensor) -> torch.Tensor:
+    """Dense adaptive aggregation ``Σₙ|x|x / (Σₙ|x| + 1e-12)`` of
+    ``stack (N, rows, V)`` -> ``(rows, V)`` fp32, one client at a time in
+    order with a separate multiply and add (no ``sum(0)``, whose order on
+    the card is not fixed), as the kernel does."""
+    num = torch.zeros(stack.shape[1:], dtype=torch.float32, device=stack.device)
+    den = torch.zeros_like(num)
+    for x in stack.float():
+        s = torch.abs(x)
+        num = num + s * x
+        den = den + s
+    return num / (den + AGG_EPS)
 
 
 def scatter_wire_sums_ref(

@@ -40,11 +40,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if not ok:
         raise NotImplementedError(
             f"model {cfg.name!r}: the port carries the GPT-2 family only "
-            "(ROADMAP Queue 1: other model families)"
+            "(ROADMAP.md port queue: other model families and mixed fleets)"
         )
     if cfg.param_dtype != "float32" or cfg.compute_dtype != "float32":
         raise NotImplementedError(
-            f"model {cfg.name!r}: the port computes in float32 only (ROADMAP Queue 1: bf16)"
+            f"model {cfg.name!r}: the port computes in float32 only (ROADMAP.md port queue: bf16)"
         )
 
 

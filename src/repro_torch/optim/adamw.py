@@ -27,7 +27,7 @@ def adamw_init(params: dict[str, torch.Tensor], *, state_dtype: str = "float32")
     if state_dtype != "float32":
         raise NotImplementedError(
             f"optimizer_state_dtype={state_dtype!r}: the port keeps fp32 moments "
-            "only (ROADMAP Queue 1: bf16)"
+            "only (ROADMAP.md port queue: bf16)"
         )
     first = next(iter(params.values()))
     return AdamWState(

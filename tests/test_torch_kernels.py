@@ -1,10 +1,17 @@
-"""The port's wire-scatter kernels against the JAX reference, on the CPU.
+"""The port's kernels against the JAX reference, on the CPU.
 
 Here the ``ops`` wrappers run their plain PyTorch versions (the tensors lie
 on the CPU); the CUDA kernels themselves are held against those plain
 versions on the card by ``chip_smoke.py``.  Inputs are made with numpy
-from a seed and cover k = 0 client rows, wire padding at index 0 beside a
-real index-0 entry, and negative values.  fp32 tolerance: rtol 1e-6, atol 0.
+from a seed.  The wire scatters cover k = 0 client rows, wire padding at
+index 0 beside a real index-0 entry, and negative values (fp32: rtol 1e-6,
+atol 0); the bisection top-k masks cover k = 0, 1, V and > V, ties at the
+threshold, an all-negative and a constant row, and must match the Pallas
+kernels in interpret mode and ``core.topk.topk_mask_dynamic`` exactly
+(every step is one rounded fp32 operation); the dense adaptive aggregation
+is held at rtol 1e-6 plus 1e-6 of the output's largest magnitude (the
+Pallas kernel sums the clients with ``jnp.sum``, whose order the plain
+version need not share, and a sum of signed terms can cancel).
 """
 
 import ast
@@ -18,11 +25,15 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import aggregation as jagg  # noqa: E402
+from repro.core import topk as jtopk  # noqa: E402
 from repro.kernels.sparse_agg import (  # noqa: E402
     scatter_wire_sums_dequant_pallas,
     scatter_wire_sums_pallas,
+    sparse_agg_pallas,
 )
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro.kernels.topk_select import topk_mask_dynamic_pallas, topk_mask_pallas  # noqa: E402
+from repro_torch.core import topk as ttopk  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODES = ("adaptive", "zeropad", "mean_nonzero")
@@ -74,7 +85,7 @@ def test_scatter_wire_sums_matches_reference(seed, mode):
     for num, den in (ref.scatter_wire_sums_ref(ta, tb, ti, vocab), ops.scatter_wire_sums(ta, tb, ti, vocab)):
         for t_out, j_out in ((num, j_num), (den, j_den), (num, jj_num), (den, jj_den)):
             np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=1e-6, atol=0)
-    assert ops.LAUNCHES == {"scatter_wire_sums": 0, "scatter_wire_sums_dequant": 0}
+    assert sum(ops.LAUNCHES.values()) == 0
 
 
 def test_scatter_wire_sums_folds_batch_dims():
@@ -118,7 +129,81 @@ def test_scatter_wire_sums_dequant_matches_reference(mode):
     for num, den in outs:
         for t_out, j_out in ((num, j_num), (den, j_den), (num, jj_num), (den, jj_den)):
             np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=1e-6, atol=0)
-    assert ops.LAUNCHES == {"scatter_wire_sums": 0, "scatter_wire_sums_dequant": 0}
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
+def _topk_rows(seed, vocab=64):
+    """(rows, V) fp32 logits and per-row budgets covering the edge cases:
+    k = 0, 1, V and > V on random rows, a tie at the threshold, an
+    all-negative row, a constant row, and a row of few distinct values."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(8, vocab)).astype(np.float32)
+    x[4] = rng.integers(-3, 3, size=vocab)
+    x[4, 5:17] = 3.0  # the 10th largest sits inside a tie of 12
+    x[5] -= 50.0  # all negative
+    x[6] = 2.5  # constant
+    x[7] = np.round(x[7] * 2) / 2  # many ties
+    ks = np.array([0, 1, vocab, vocab + 5, 10, 7, 3, 20], np.int32)
+    return x, ks
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("vocab", [64, 300])
+def test_topk_mask_dynamic_matches_reference_exactly(seed, vocab):
+    x, ks = _topk_rows(seed, vocab)
+    j_kern = np.asarray(topk_mask_dynamic_pallas(jnp.asarray(x), jnp.asarray(ks), interpret=True))
+    j_jnp = np.asarray(jtopk.topk_mask_dynamic(jnp.asarray(x), jnp.asarray(ks)))
+    np.testing.assert_array_equal(j_kern, j_jnp)
+    tx, tk = torch.as_tensor(x), torch.as_tensor(ks)
+    ops.reset_launches()
+    outs = (
+        ref.topk_mask_ref(tx, torch.clamp(tk, 0, vocab), guard=True),
+        ops.topk_mask_dynamic(tx, tk),
+        ttopk.topk_mask_dynamic(tx, tk),
+        ops.topk_mask_dynamic(tx.reshape(2, 4, vocab), tk.reshape(2, 4)).reshape(8, vocab),
+    )
+    for out in outs:
+        np.testing.assert_array_equal(out.numpy(), j_kern)
+    assert sum(ops.LAUNCHES.values()) == 0
+    # the edge cases really are in the data
+    kept = (j_kern != 0).sum(axis=1)
+    assert kept[0] == 0 and kept[1] == 1 and kept[2] == kept[3] == vocab
+    assert kept[4] == 12 and kept[6] == vocab and (x[5] < 0).all()
+
+
+@pytest.mark.parametrize("k", [0, 1, 7, 64, 70])
+def test_topk_mask_static_matches_reference_exactly(k):
+    x, _ = _topk_rows(2)
+    j_kern = np.asarray(topk_mask_pallas(jnp.asarray(x), k, interpret=True))
+    tx = torch.as_tensor(x)
+    ops.reset_launches()
+    kk = torch.full((8,), min(k, 64), dtype=torch.int32)
+    for out in (ref.topk_mask_ref(tx, kk, guard=False), ops.topk_mask(tx, k),
+                ttopk.topk_mask_dense(tx, k, use_kernel=True)):
+        np.testing.assert_array_equal(out.numpy(), j_kern)
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
+def _stack(seed, n=4, rows=5, vocab=64, k=9):
+    """A dense (N, rows, V) stack: each client's top-k mask of random
+    logits (zeros off the support), and a fully dense random stack."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, rows, vocab)).astype(np.float32)
+    sparse = np.array(jtopk.topk_mask_batch(jnp.asarray(x), [k, 1, 0, vocab]))
+    return sparse, x
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sparse_aggregate_matches_reference(seed):
+    ops.reset_launches()
+    for stack in _stack(seed):
+        j_kern = np.asarray(sparse_agg_pallas(jnp.asarray(stack), interpret=True))
+        ts = torch.as_tensor(stack)
+        for out in (ref.sparse_aggregate_ref(ts), ops.sparse_aggregate(ts),
+                    ops.sparse_aggregate(ts.reshape(4, 5, 1, 64)).reshape(5, 64)):
+            np.testing.assert_allclose(out.numpy(), j_kern, rtol=1e-6,
+                                       atol=1e-6 * np.abs(j_kern).max())
+    assert sum(ops.LAUNCHES.values()) == 0
 
 
 def test_wrappers_reject_bad_inputs():
@@ -137,6 +222,27 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="mode"):
         ops.scatter_wire_sums_dequant(torch.as_tensor(q), torch.as_tensor(scale),
                                       torch.as_tensor(mask), ti, vocab, "median")
+    x, ks = (torch.as_tensor(a) for a in _topk_rows(0))
+    stack = torch.as_tensor(_stack(0)[1])
+    for bad in (x.t().contiguous().t(), stack.transpose(1, 2).contiguous().transpose(1, 2)):
+        assert not bad.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.topk_mask_dynamic(x.t().contiguous().t(), ks)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.topk_mask(x.t().contiguous().t(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.sparse_aggregate(stack.transpose(1, 2).contiguous().transpose(1, 2))
+    for low in (torch.bfloat16, torch.float16):
+        with pytest.raises(NotImplementedError, match="port queue: bf16"):
+            ops.topk_mask_dynamic(x.to(low), ks)
+        with pytest.raises(NotImplementedError, match="port queue: bf16"):
+            ops.topk_mask(x.to(low), 3)
+        with pytest.raises(NotImplementedError, match="port queue: bf16"):
+            ops.sparse_aggregate(stack.to(low))
+    with pytest.raises(TypeError, match="dtype"):
+        ops.topk_mask_dynamic(x, ks.long())
+    with pytest.raises(ValueError, match="shape"):
+        ops.topk_mask_dynamic(x, ks[:4].contiguous())
 
 
 def _imports(path: pathlib.Path):
@@ -158,3 +264,15 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     ]
     assert bad == []
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "sparse_agg.cu").is_file()
+
+
+def test_every_kernel_source_exists_and_is_built_by_name():
+    assert set(build.SOURCES) == {"sparse_agg", "topk_select"}
+    for src in build.SOURCES.values():
+        assert src.is_file() and src.suffix == ".cu"
+    text = {name: src.read_text() for name, src in build.SOURCES.items()}
+    assert "int topk_mask_f32(" in text["topk_select"]
+    assert "int sparse_aggregate_f32(" in text["sparse_agg"]
+    # the launches the wrappers count, one counter per wrapper
+    assert set(ops.LAUNCHES) == {"topk_mask_dynamic", "topk_mask", "sparse_aggregate",
+                                 "scatter_wire_sums", "scatter_wire_sums_dequant"}

@@ -1,8 +1,12 @@
-"""The port's uplink wire, its aggregation and the host-side budget and
-byte accounting against the JAX reference, on the CPU.
+"""The port's uplink (the sparse wire and the dense top-k stack), its
+aggregation and the host-side budget and byte accounting against the JAX
+reference, on the CPU.
 
 Integer results must be identical: wire indices and masks, int8 values,
-adaptive k and ledger bytes.  Aggregated floats: rtol 1e-6.
+top-k supports, adaptive k and ledger bytes; a top-k keeps the input's
+values, so those are identical too.  Aggregated and int8-coded floats:
+rtol 1e-6 (plus 1e-6 of the largest magnitude for the dense aggregation,
+whose client sums may run in another order and cancel).
 """
 
 import numpy as np
@@ -14,19 +18,23 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import aggregation as j_agg  # noqa: E402
 from repro.core import channel as j_chan  # noqa: E402
+from repro.core import distill as j_distill  # noqa: E402
 from repro.core import protocol as j_proto  # noqa: E402
 from repro.core import topk as j_topk  # noqa: E402
 from repro.configs.gpt2_paper import GPT2_SMALL as J_GPT2_SMALL  # noqa: E402
 from repro.fed.client import make_upload_payload as j_payload  # noqa: E402
 from repro.fed.engines.base import cohort_budgets as j_budgets  # noqa: E402
+from repro.fed.engines.base import fake_quant_dense as j_fake_quant  # noqa: E402
 from repro.fed.engines.base import k_cap_bucket as j_k_cap  # noqa: E402
 from repro_torch.configs.gpt2_paper import GPT2_SMALL as T_GPT2_SMALL  # noqa: E402
 from repro_torch.core import aggregation as t_agg  # noqa: E402
 from repro_torch.core import channel as t_chan  # noqa: E402
+from repro_torch.core import distill as t_distill  # noqa: E402
 from repro_torch.core import protocol as t_proto  # noqa: E402
 from repro_torch.core import topk as t_topk  # noqa: E402
 from repro_torch.fed.client import make_upload_payload as t_payload  # noqa: E402
 from repro_torch.fed.engines.base import cohort_budgets as t_budgets  # noqa: E402
+from repro_torch.fed.engines.base import fake_quant_dense as t_fake_quant  # noqa: E402
 from repro_torch.fed.engines.base import k_cap_bucket as t_k_cap  # noqa: E402
 
 MODES = ("adaptive", "zeropad", "mean_nonzero")
@@ -80,6 +88,78 @@ def test_aggregate_wire_matches_reference(quantize, mode):
         for n_tx in (None, 2):
             t_out = t_agg.aggregate_wire(tw, mode, num_transmitters=n_tx, use_kernel=use_kernel)
             np.testing.assert_allclose(t_out.numpy(), j_out, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("ties", [True, False])
+def test_topk_mask_batch_and_densify_identical(ties):
+    x = _logits(2, ties)
+    ks = [0, 5, 64]
+    j_out = np.asarray(j_topk.topk_mask_batch(jnp.asarray(x), ks))
+    t_out = t_topk.topk_mask_batch(torch.as_tensor(x), ks)
+    np.testing.assert_array_equal(t_out.numpy() != 0, j_out != 0)
+    np.testing.assert_array_equal(t_out.numpy(), j_out)
+    for i, k in enumerate(ks):  # one client at a time through topk_sparsify + densify
+        if k == 0:  # the reference's densify cannot fold an empty payload
+            continue
+        j_sp = j_topk.topk_sparsify(jnp.asarray(x[i]), k)
+        t_sp = t_topk.topk_sparsify(torch.as_tensor(x[i]), k)
+        np.testing.assert_array_equal(t_sp.indices.numpy(), np.asarray(j_sp.indices))
+        np.testing.assert_array_equal(t_topk.densify(t_sp).numpy(), np.asarray(j_topk.densify(j_sp)))
+        np.testing.assert_array_equal(t_topk.topk_mask_dense(torch.as_tensor(x[i]), k).numpy(),
+                                      j_out[i])
+    with pytest.raises(ValueError, match="budgets"):
+        t_topk.topk_mask_batch(torch.as_tensor(x), [1, 2])
+
+
+def test_fake_quant_dense_matches_reference():
+    x = np.array(j_topk.topk_mask_batch(jnp.asarray(_logits(3, ties=False)), [0, 7, 30]))
+    x[1, 0, :4] = [0.5, 2.5, -1.5, 127.0]  # half-way steps round to even
+    j_out = np.asarray(j_fake_quant(jnp.asarray(x)))
+    t_out = t_fake_quant(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(t_out, j_out, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(t_out != 0, j_out != 0)
+    assert (t_out[0] == 0).all()
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_dense_aggregate_matches_reference(mode, with_mask, use_kernel):
+    x = _logits(4, ties=False)
+    stack = np.array(j_topk.topk_mask_batch(jnp.asarray(x), [9, 1, 64]))
+    stack[0, 0, 3] = 0.0  # a transmitted true zero the mask sees and the sentinel does not
+    mask = (stack != 0) | (np.arange(64) == 3)[None, None, :] & (np.arange(3) == 0)[:, None, None]
+    j_mask = jnp.asarray(mask) if with_mask else None
+    t_mask = torch.as_tensor(mask) if with_mask else None
+    j_out = np.asarray(j_agg.aggregate(jnp.asarray(stack), mode, mask=j_mask, use_kernel=use_kernel))
+    t_out = t_agg.aggregate(torch.as_tensor(stack), mode, mask=t_mask, use_kernel=use_kernel).numpy()
+    np.testing.assert_allclose(t_out, j_out, rtol=1e-6, atol=1e-6 * np.abs(j_out).max())
+    with pytest.raises(ValueError, match="unknown aggregation mode"):
+        t_agg.aggregate(torch.as_tensor(stack), "median")
+
+
+@pytest.mark.parametrize("restrict_to_support", [False, True])
+@pytest.mark.parametrize("with_h", [False, True])
+def test_total_distill_loss_matches_reference(restrict_to_support, with_h):
+    """Eq. 10 on a top-k-sparse teacher (so the support restriction bites):
+    the loss and both parts at rtol 1e-5."""
+    rng = np.random.default_rng(6)
+    teacher = np.array(j_topk.topk_mask_batch(jnp.asarray(_logits(5, ties=False)), [9, 30, 64]))
+    student = rng.normal(size=teacher.shape).astype(np.float32)
+    g_h, c_h = (rng.normal(size=(3, 4, 8)).astype(np.float32) for _ in range(2))
+    kw = dict(temperature=2.0, lam=0.03, restrict_to_support=restrict_to_support)
+    j_loss, j_parts = j_distill.total_distill_loss(
+        jnp.asarray(teacher), jnp.asarray(student),
+        jnp.asarray(g_h) if with_h else None, jnp.asarray(c_h) if with_h else None, **kw)
+    t_loss, t_parts = t_distill.total_distill_loss(
+        torch.as_tensor(teacher), torch.as_tensor(student),
+        torch.as_tensor(g_h) if with_h else None, torch.as_tensor(c_h) if with_h else None, **kw)
+    for t, j in ((t_loss, j_loss), (t_parts["logits"], j_parts["logits"]),
+                 (t_parts["lora"], j_parts["lora"])):
+        np.testing.assert_allclose(float(t), float(j), rtol=1e-5, atol=1e-7)
+    with pytest.raises(NotImplementedError, match="port queue: the sequential engine and kernel 6"):
+        t_distill.logits_distill_loss(torch.as_tensor(teacher), torch.as_tensor(student),
+                                      use_kernel=True)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 42, 7])
