@@ -7,16 +7,28 @@ Phases (any failure raises and exits non-zero):
 2. build — compiles every CUDA source of ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) into ``build/``.
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the main path's widths, ``torch.equal``:
+   the main path's widths:
    * the wire scatters (4 clients x 64 public samples x vocab 50 257,
      k_cap 128 and 1024; k = 0 client rows, wire padding at index 0 beside
-     a real index-0 entry, negative values);
+     a real index-0 entry, negative values), ``torch.equal``;
    * the bisection top-k masks, per-row budget and static k, at 256 rows x
      V 50 257 (the shared-memory path) and 8 rows x V 152 064 (the
      global-memory path): k = 0, 1, V and > V, ties at the threshold, an
-     all-negative and a constant row;
+     all-negative and a constant row, ``torch.equal``;
    * the dense adaptive aggregation at (4, 64, 50 257) on a top-k-sparse
-     and on a dense random stack.
+     and on a dense random stack, ``torch.equal``;
+   * the distillation KL per row at (64, 50 257) and (8, 152 064), T in
+     (1, 2, 4), with a teacher equal to its student (KL exactly 0), logits
+     of +-3e4, rows with -1e30 entries and a student whose rows sit on
+     another 16-byte phase than the teacher's: within rtol 1e-5 plus
+     2e-6 (1 + |lse_t| + |lse_s|) per row (the KL is a difference of terms
+     of the size of the log-partitions, each carried in fp32; the kernel
+     sums online in another order than the plain log-sum-exp);
+   * causal attention at (96, 1024, 64) and (20, 128, 64):
+     within S * 2^-24 * max|v| (each output is a convex combination of at
+     most S rows of v, summed in fp32 in another order), and a causality
+     check, bitwise: changing k and v from a position on leaves every
+     earlier output unchanged.
 4. small input — the port's round on a tiny config on the card (kernels)
    and on the CPU (plain versions), ``fused_e2e`` then ``fused``, float and
    int8 uplink: identical k and bytes, accuracies within one eval sample,
@@ -29,24 +41,42 @@ Phases (any failure raises and exits non-zero):
 5. main path — ``run_federated`` with AdaLD and ``use_kernels=True`` at the
    paper's widths (GPT-2 small clients, GPT-2 large server), 2 rounds each:
    ``fused_e2e`` float and int8 wire, ``fused`` float and int8 uplink,
-   ``batched`` float uplink.  Every launch count is set to 0 just before
-   each run and read just after: the scatter kernels launch once a round on
-   ``fused_e2e`` (float or int8), the per-row top-k once a round on
-   ``fused``, the dense aggregation once a round with a transmitter on
-   ``fused`` and ``batched``, and nothing else launches.  The static top-k
-   has no engine caller (nor in the reference), so its main-path count is
-   0: after each ``fused`` run it is driven on its own through its public
-   entry point, ``core.topk.topk_mask_dense(use_kernel=True)``, on the
-   final broadcast, with the counts set to 0 just before and read just
-   after (one launch).
-6. timing — each kernel's C entry point, its wrapper, its plain version and
+   ``batched`` and ``sequential`` float uplink.  Every launch count is set
+   to 0 just before each run and read just after: the scatter kernels
+   launch once a round on ``fused_e2e`` (float or int8), the per-row top-k
+   once a round on ``fused``, the dense aggregation once a round with a
+   transmitter on ``fused``, ``batched`` and ``sequential``, and nothing
+   else launches.  The ``sequential`` run's per-client k and ledger bytes
+   are held identical to the ``batched`` run's.  Three kernels have no
+   engine caller (nor in the reference), so their main-path count is 0;
+   each is driven on its own through its public entry point, with the
+   counts set to 0 just before and read just after (``entry_launches``):
+   the static top-k through ``core.topk.topk_mask_dense(use_kernel=True)``
+   on each ``fused`` run's final broadcast; the KL through
+   ``total_distill_loss(use_kernel=True)`` after the ``sequential`` run,
+   the final broadcast as teacher and client 0's public logits as student,
+   against ``use_kernel=False`` (and a student that requires grad must
+   raise); the attention through ``kernels.ops.flash_attention`` in phase 6.
+6. serving — a shared GPT-2 small backbone and 8 tenant adapters (A and B
+   drawn from a numpy seed) in a ``DeviceFleetStore``, exported to an
+   ``AdapterCache`` of 4 slots behind a ``ServeSession`` of batch 8: two
+   tenant mixes (the second pages in through eviction), 32-token prompts
+   prefilled, 32 tokens greedy-decoded; the cache stats held exactly; every
+   request's logits at every step held within 1e-4 of their largest
+   magnitude against the request run alone with its merged adapter, the
+   stacked run's tokens fed to it (fp32 GEMMs of other shapes sum in
+   another order).  Then ``make_prefill_step`` at (8, 1024), the chunked
+   attention, and the attention kernel on layer 0's q/k/v of that prefill,
+   held against the chunked attention and the plain version (and a q that
+   requires grad must raise).
+7. timing — each kernel's C entry point, its wrapper, its plain version and
    one PyTorch library call where one computes the same function, at the
    main path's shapes, beside the least time the card could take.
 
 The last two lines are the kernels record and the device record (JSON).
 In the kernels record ``launches`` is each kernel's count summed over the
-five main-path runs; the static top-k's row adds ``entry_launches``, its
-count summed over the runs through its public entry point.
+six main-path runs; the static top-k's, the KL's and the attention's rows
+add ``entry_launches``, their counts through their public entry points.
 """
 
 from __future__ import annotations
@@ -69,26 +99,47 @@ from repro_torch.configs.base import LoRAConfig  # noqa: E402
 from repro_torch.configs.gpt2_paper import GPT2_LARGE, GPT2_SMALL, REDUCED_CLIENT, REDUCED_SERVER  # noqa: E402
 from repro_torch.core.aggregation import AggregationMode  # noqa: E402
 from repro_torch.core.channel import ChannelConfig  # noqa: E402
+from repro_torch.core.distill import total_distill_loss  # noqa: E402
 from repro_torch.core.topk import quantize_wire, sparsify_wire, topk_mask_dense  # noqa: E402
 from repro_torch.data import make_banking77_like  # noqa: E402
 from repro_torch.fed import FedConfig  # noqa: E402
 from repro_torch.fed import rounds as fed_rounds  # noqa: E402
+from repro_torch.fed import steps as fed_steps  # noqa: E402
 from repro_torch.fed.engines import k_cap_bucket  # noqa: E402
+from repro_torch.fed.store import DeviceFleetStore  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.lora import lora_template, merge_lora, split_lora  # noqa: E402
+from repro_torch.models import attention, model  # noqa: E402
+from repro_torch.models.layers import embedding, layer_norm  # noqa: E402
+from repro_torch.models.transformer import layer_slice  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    AdapterCache,
+    ServeConfig,
+    ServeSession,
+    export_adapters,
+    make_prefill_step,
+    serving_params,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
 N_CLIENTS, ROWS, VOCAB = 4, 64, GPT2_SMALL.vocab_size
 WIDE_ROWS, WIDE_VOCAB = 8, 152_064  # a vocabulary beyond one block's shared memory
 MODES: tuple[AggregationMode, ...] = ("adaptive", "zeropad", "mean_nonzero")
-_AGG, _TOPK = "src/repro_torch/kernels/csrc/sparse_agg.cu", "src/repro_torch/kernels/csrc/topk_select.cu"
+_CSRC = "src/repro_torch/kernels/csrc/"
+_AGG, _TOPK = _CSRC + "sparse_agg.cu", _CSRC + "topk_select.cu"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "scatter_wire_sums": (_AGG, "src/repro/kernels/sparse_agg.py:149"),
     "scatter_wire_sums_dequant": (_AGG, "src/repro/kernels/sparse_agg.py:244"),
     "topk_mask_dynamic": (_TOPK, "src/repro/kernels/topk_select.py:104"),
     "sparse_aggregate": (_AGG, "src/repro/kernels/sparse_agg.py:60"),
     "topk_mask": (_TOPK, "src/repro/kernels/topk_select.py:129"),
+    "distill_kl": (_CSRC + "distill_kl.cu", "src/repro/kernels/distill_kl.py:96"),
+    "flash_attention": (_CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),
 }
+# the serving phase: tenants, slots, batch, prompt and decode lengths
+TENANTS, SLOTS, SERVE_BATCH, PROMPT, GEN = 8, 4, 8, 32, 32
+PREFILL_S = 1024
 
 
 def log(msg: str) -> None:
@@ -149,6 +200,37 @@ def dense_stack(ks, seed: int, device, sparse: bool = True):
         return x
     kk = torch.tensor(ks, dtype=torch.int32, device=device)[:, None].expand(len(ks), ROWS)
     return ref.topk_mask_ref(x.reshape(-1, VOCAB), kk.reshape(-1), guard=True).reshape(x.shape)
+
+
+def kl_logits(rows: int, vocab: int, seed: int, device):
+    """Teacher and student logits of N(0, 2) with the edge cases in the first
+    rows: row 0 the teacher equal to its student, row 1 logits of +-3e4 (the
+    online rescale), row 2 -1e30 on both sides every third entry, row 3
+    -1e30 on the teacher only every fourth entry."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = 2.0 * torch.randn((rows, vocab), generator=gen, device=device)
+    s = 2.0 * torch.randn((rows, vocab), generator=gen, device=device)
+    s[0] = t[0]
+    t[1] = torch.rand(vocab, generator=gen, device=device) * 6e4 - 3e4
+    s[1] = t[1] + torch.randn(vocab, generator=gen, device=device)
+    t[2, ::3] = -1e30
+    s[2, ::3] = -1e30
+    t[3, 1::4] = -1e30
+    return t, s
+
+
+def kl_tolerance(t, s, temp: float, plain: torch.Tensor) -> torch.Tensor:
+    """Per-row bound of the KL kernel against its plain version: rtol 1e-5
+    plus 2e-6 (1 + |lse_t| + |lse_s|), a few ulps of the log-partitions whose
+    difference the KL is."""
+    lse = lambda x: torch.logsumexp(x.double() / temp, dim=-1).float()  # noqa: E731
+    return 1e-5 * plain.abs() + 2e-6 * (1.0 + lse(t).abs() + lse(s).abs())
+
+
+def attention_tolerance(s: int, v: torch.Tensor) -> float:
+    """The worst-case error of an fp32 sum of ``s`` terms bounded by max|v|:
+    each output is a convex combination of at most ``s`` rows of v."""
+    return s * 2.0**-24 * float(v.abs().max())
 
 
 # -- timing -------------------------------------------------------------------
@@ -268,6 +350,59 @@ def check_sparse_aggregate(device):
         f"({len(ks)}, {ROWS}, {VOCAB}), top-k-sparse (k {ks}) and dense stacks")
 
 
+def check_distill_kl(device):
+    for rows, vocab in ((ROWS, VOCAB), (WIDE_ROWS, WIDE_VOCAB)):
+        t, s = kl_logits(rows, vocab, seed=vocab, device=device)
+        # the student one float into a buffer: another 16-byte phase than the teacher's
+        s_off = torch.empty(rows * vocab + 1, device=device)[1:].view(rows, vocab)
+        s_off.copy_(s)
+        worst = 0.0
+        for temp in (1.0, 2.0, 4.0):
+            want = ref.distill_kl_ref(t, s, temp)
+            tol = kl_tolerance(t, s, temp, want)
+            for student in (s, s_off):
+                got = ops.distill_kl_rows(t, student, temp)
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                assert bool((err <= tol).all()), ("distill_kl", rows, vocab, temp, float(err.max()))
+                assert float(got[0]) == 0.0 and bool((got >= -tol).all()), got[:4]
+                worst = max(worst, float(err.max()))
+            whole = float(ops.distill_kl(t, s, temp))
+            assert abs(whole - float(want.mean()) * temp**2) <= temp**2 * float(tol.mean())
+        log(f"[kernels] distill_kl at ({rows}, {vocab}), T in (1, 2, 4): within rtol 1e-5 + "
+            f"2e-6 (1 + |lse_t| + |lse_s|) of its plain version per row (max |diff| {worst:.3e}), "
+            f"KL exactly 0 for teacher == student, +-3e4 logits and -1e30 entries, student on "
+            f"another 16-byte phase")
+
+
+def check_flash_attention(device):
+    for bh, seq, d in ((96, 1024, 64), (20, 128, 64)):
+        gen = torch.Generator(device=device).manual_seed(seq + d)
+        q, k, v = (torch.randn((bh, seq, d), generator=gen, device=device) for _ in range(3))
+        got = ops.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err, tol = float((got - want).abs().max()), attention_tolerance(seq, v)
+        assert err <= tol, ("flash_attention", bh, seq, d, err, tol)
+        log(f"[kernels] flash_attention at ({bh}, {seq}, {d}): max |diff| {err:.3e} against its "
+            f"plain version (bound S * 2^-24 * max|v| = {tol:.3e})")
+    # causality, bitwise: k and v from position 700 on must not reach rows 0..699
+    gen = torch.Generator(device=device).manual_seed(5)
+    q, k, v = (torch.randn((2, 12, 1024, 64), generator=gen, device=device) for _ in range(3))
+    base = ops.flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 700:] = 99.0
+    v2[:, :, 700:] = -99.0
+    pert = ops.flash_attention(q, k2, v2)
+    folded = ops.flash_attention(*(x.reshape(24, 1024, 64) for x in (q, k, v)))
+    torch.cuda.synchronize()
+    assert torch.equal(base[:, :, :700], pert[:, :, :700]), "flash_attention is not causal"
+    assert not torch.equal(base[:, :, 700:], pert[:, :, 700:])
+    assert torch.equal(folded.reshape(base.shape), base)
+    log("[kernels] flash_attention causal bitwise (rows before 700 unchanged when k, v change "
+        "from 700 on), (B, H, S, D) == (B*H, S, D) bitwise")
+
+
 def _drive(client_cfg, server_cfg, dataset, fed, device):
     """run_federated, also returning the engine (built through
     ``make_engine``, whatever its kind) and the Server it built."""
@@ -360,6 +495,9 @@ def phase_main_path(device, engine: str, quantize: bool) -> dict:
     log(f"[main path {tag}] round_seconds={[round(s, 3) for s in run.round_seconds]} "
         f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[main path {tag}] kernel launches {launches}")
+    if engine == "sequential":
+        log(f"[main path {tag}] KL kernel launches on the path: {launches['distill_kl']} (no engine "
+            f"sets use_kernel, as in the reference)")
 
     rounds, tx_rounds = fed.rounds, sum(1 for r in run.ledger.rounds if r.num_transmitters > 0)
     want = dict.fromkeys(ops.LAUNCHES, 0)
@@ -375,7 +513,10 @@ def phase_main_path(device, engine: str, quantize: bool) -> dict:
     if engine == "fused_e2e":  # NaN off the e2e path, by the reference's definition
         assert all(math.isfinite(x) for x in run.distill_loss)
     assert all(k > 0 for ks in run.per_client_k for k in ks)  # default channel: everyone transmits
-    out = {"launches": launches, "per_client_k": run.per_client_k, "entry_launches": {}}
+    out = {"launches": launches, "per_client_k": run.per_client_k, "entry_launches": {},
+           "bytes": [(r.uplink_bytes, r.downlink_bytes, r.num_transmitters) for r in run.ledger.rounds]}
+    if engine == "sequential":
+        out["entry_launches"] = kl_entry(eng, srv, tokens, fed.temperature)
     if engine == "fused":
         # the static top-k's public entry point, on what the server broadcast
         k = max(max(ks) for ks in run.per_client_k)
@@ -389,6 +530,149 @@ def phase_main_path(device, engine: str, quantize: bool) -> dict:
         log(f"[entry {tag}] topk_mask_dense(use_kernel=True) on the final broadcast at k={k}: "
             f"kernel launches {ops.LAUNCHES}")
     del run, eng, srv, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kl_entry(eng, srv, tokens, temp: float) -> dict:
+    """The KL kernel through its public entry point on the run's real
+    tensors: the final broadcast (teacher) and client 0's public logits
+    (student), with their LoRA projections; returns the entry's launches."""
+    student, s_h = fed_steps.public_logits(eng.client_params(0), GPT2_SMALL, tokens)
+    teacher, t_h, _ = srv.broadcast(tokens)
+    ops.reset_launches()
+    loss, parts = total_distill_loss(teacher, student, t_h, s_h, temperature=temp, use_kernel=True)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    assert launches["distill_kl"] == 1 and sum(launches.values()) == 1, launches
+    plain, plain_parts = total_distill_loss(teacher, student, t_h, s_h, temperature=temp)
+    per_row = ref.distill_kl_ref(teacher, student, temp)
+    tol = temp**2 * float(kl_tolerance(teacher, student, temp, per_row).mean())
+    err = abs(float(parts["logits"]) - float(plain_parts["logits"]))
+    assert err <= tol and abs(float(loss) - float(plain)) <= tol, (float(loss), float(plain), tol)
+    try:
+        total_distill_loss(teacher, student.clone().requires_grad_(True), use_kernel=True)
+    except RuntimeError as e:
+        assert "forward only" in str(e)
+    else:
+        raise AssertionError("the forward-only KL kernel accepted a student that requires grad")
+    log(f"[entry sequential] total_distill_loss(use_kernel=True) on the final broadcast "
+        f"{tuple(teacher.shape)} and client 0's public logits: {float(loss):.6f} against "
+        f"{float(plain):.6f} (use_kernel=False), |diff| {err:.3e} <= {tol:.3e}; kernel launches "
+        f"{launches}; a student that requires grad raises")
+    return launches
+
+
+def tenant_rows(lora: dict, n: int, seed: int, device) -> list[dict]:
+    """``n`` tenants' adapters with A and B both drawn from a numpy seed (a
+    fresh init has B = 0, which would make every tenant the backbone)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        rows.append({
+            k: torch.as_tensor((rng.normal(size=tuple(v.shape))
+                                * (v.shape[-2] ** -0.5 if k.endswith("/A") else 0.02)
+                                ).astype(np.float32), device=device)
+            for k, v in lora.items()
+        })
+    return rows
+
+
+def phase_serving(device, card: str) -> dict:
+    """Multi-tenant serving at GPT-2 small width, then the prefill at
+    S = 1024 and the attention kernel on its layer-0 q/k/v; returns the
+    kernel's entry launches and those q/k/v for the timing phase."""
+    t0 = time.perf_counter()
+    backbone = model.init(GPT2_SMALL, 0, device)
+    lora, frozen = split_lora(backbone)
+    rows = tenant_rows(lora, TENANTS, seed=17, device=device)
+    store = DeviceFleetStore(rows, [frozen] * TENANTS, shared=True)
+    src = export_adapters(store)
+    params = serving_params(src, model.init(GPT2_SMALL, 1, device))
+    cache = AdapterCache(src, like=lora_template(params), slots=SLOTS, device=device)
+    sess = ServeSession(ServeConfig(model=GPT2_SMALL, batch=SERVE_BATCH, cache_len=128), params,
+                        adapters=cache, device=device)
+    prompts = np.random.default_rng(23).integers(0, VOCAB, (SERVE_BATCH, PROMPT)).astype(np.int32)
+    log(f"[serving] GPT-2 small backbone + {TENANTS} tenant adapters in a DeviceFleetStore, "
+        f"AdapterCache of {SLOTS} slots, batch {SERVE_BATCH}: set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the reference's LRU rules: duplicates count once a batch, the LRU unpinned slot goes
+    mixes = [([0, 1, 1, 2, 3, 3, 0, 2], dict(hits=0, misses=4, evictions=0, lookups=1)),
+             ([4, 2, 4, 5, 2, 6, 5, 6], dict(hits=1, misses=7, evictions=3, lookups=2))]
+    ops.reset_launches()
+    for ids, want in mixes:
+        sess.attach(ids)
+        assert cache.stats.as_dict() == want, (cache.stats.as_dict(), want)
+        assert set(cache.resident()) == set(ids)
+        sess.prefill(prompts)
+        t0 = time.perf_counter()
+        toks, _ = sess.decode(GEN)  # every step ends in a device sync
+        step_s = (time.perf_counter() - t0) / GEN
+        # the stacked run again on its own tokens, its logits at every step
+        sess.reset()
+        stacked = [sess.prefill(prompts)] + [sess.step(toks[:, i]) for i in range(GEN)]
+        worst, agree = 0.0, 0
+        for b, cid in enumerate(ids):
+            solo = ServeSession(ServeConfig(model=GPT2_SMALL, batch=1, cache_len=128),
+                                merge_lora(rows[cid], frozen), device=device)
+            logits = [solo.prefill(prompts[b:b + 1])] + [solo.step(toks[b:b + 1, i])
+                                                          for i in range(GEN)]
+            for i, (lo, st) in enumerate(zip(logits, stacked)):
+                err = float((lo[0] - st[b]).abs().max() / st[b].abs().max())
+                assert err <= 1e-4, ("stacked vs solo", ids, b, i, err)
+                worst = max(worst, err)
+                agree += int(i < GEN and int(torch.argmax(lo[0])) == int(toks[b, i]))
+        log(f"[serving] tenants {ids}: cache stats {cache.stats.as_dict()}, resident "
+            f"{list(cache.resident())}; stacked decode vs each request alone with its merged "
+            f"adapter over {GEN + 1} steps: max |diff|/max|logit| {worst:.3e}; solo greedy tokens "
+            f"agreeing with the stacked run {agree}/{SERVE_BATCH * GEN}")
+        log(f"[serving] decode step {step_s * 1e3:.3f} ms over {GEN} greedy steps (host clock), "
+            f"{SERVE_BATCH / step_s:.1f} tokens/s (batch {SERVE_BATCH}, {card})")
+    assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES  # no kernel on the serving path
+
+    tokens = torch.as_tensor(
+        np.random.default_rng(29).integers(0, VOCAB, (SERVE_BATCH, PREFILL_S)), device=device)
+    prefill = make_prefill_step(GPT2_SMALL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert tuple(logits.shape) == (SERVE_BATCH, VOCAB) and bool(torch.isfinite(logits).all())
+    assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES
+    with torch.no_grad():  # layer 0's q, k, v of that prefill, and its chunked attention
+        x = embedding(params["embed"], tokens[None]) + params["pos_embed"][:PREFILL_S]
+        lp = layer_slice(params, 0)
+        q, k, v, _ = attention.qkv(lp, layer_norm(x, lp["norm1/scale"], lp["norm1/bias"]),
+                                   GPT2_SMALL)
+        chunked = attention._chunked_attention(q, k, v)
+    heads = lambda t: t.permute(0, 2, 1, 3).contiguous()  # noqa: E731  (B, H, S, D)
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    ops.reset_launches()
+    got = ops.flash_attention(qh, kh, vh)
+    torch.cuda.synchronize()
+    entry = dict(ops.LAUNCHES)
+    assert entry["flash_attention"] == 1 and sum(entry.values()) == 1, entry
+    try:
+        ops.flash_attention(qh.clone().requires_grad_(True), kh, vh)
+    except RuntimeError as e:
+        assert "forward only" in str(e)
+    else:
+        raise AssertionError("the forward-only attention kernel accepted a q that requires grad")
+    want = heads(chunked.reshape(q.shape))
+    plain = ref.flash_attention_ref(*(t.reshape(-1, PREFILL_S, q.shape[-1]) for t in (qh, kh, vh)))
+    tol = attention_tolerance(PREFILL_S, vh)
+    err_chunked = float((got - want).abs().max())
+    err_plain = float((got - plain.reshape(got.shape)).abs().max())
+    assert err_chunked <= tol and err_plain <= tol, (err_chunked, err_plain, tol)
+    log(f"[prefill] make_prefill_step at ({SERVE_BATCH}, {PREFILL_S}) (chunked attention, "
+        f"Q_CHUNK {attention.Q_CHUNK}) in {dt * 1e3:.1f} ms; flash_attention on layer 0's q/k/v "
+        f"{tuple(qh.shape)}: max |diff| {err_chunked:.3e} against the chunked attention, "
+        f"{err_plain:.3e} against its plain version (bound {tol:.3e}); kernel launches {entry}; "
+        f"a q that requires grad raises")
+    out = {"entry_launches": entry, "qkv": (qh, kh, vh)}
+    del sess, cache, store, src, params, backbone
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -514,22 +798,78 @@ def time_sparse_aggregate(ks: list[int], device) -> dict:
                 (n + 1) * elems * 4, (4 * n + 2) * elems, f"N={n} rows={ROWS} V={VOCAB} k={ks}")
 
 
+def time_distill_kl(device) -> dict:
+    """The KL kernel at the distillation's shape: 64 public rows x V 50 257."""
+    gen = torch.Generator(device=device).manual_seed(31)
+    t, s = (2.0 * torch.randn((ROWS, VOCAB), generator=gen, device=device) for _ in range(2))
+    out = torch.empty(ROWS, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fn = ops._fn("distill_kl", "distill_kl_f32", 3, 2, 1)
+    raw = lambda: fn(t.data_ptr(), s.data_ptr(), out.data_ptr(), ROWS, VOCAB, 0.5, stream)  # noqa: E731
+    want = ref.distill_kl_ref(t, s, 2.0)
+    tol = kl_tolerance(t, s, 2.0, want)
+
+    def check():
+        err = (out - want).abs()
+        assert bool((err <= tol).all())
+        return float(err.max())
+
+    # per element pair: two scalings, a difference, two exps and the rescaled sums
+    return _row("distill_kl", raw, lambda: ops.distill_kl(t, s, 2.0),
+                lambda: ref.distill_kl_ref(t, s, 2.0), None, check,
+                2 * ROWS * VOCAB * 4 + ROWS * 4, 12 * ROWS * VOCAB, f"rows={ROWS} V={VOCAB} T=2")
+
+
+def time_flash_attention(qkv, device) -> dict:
+    """The attention kernel on the serving prefill's layer-0 q/k/v."""
+    b, h, seq, d = qkv[0].shape
+    q, k, v = (x.reshape(b * h, seq, d) for x in qkv)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fn = ops._fn("flash_attention", "flash_attention_f32", 4, 3, 1)
+    ptrs = [x.data_ptr() for x in (q, k, v, out)]
+    raw = lambda: fn(*ptrs, b * h, seq, d, d**-0.5, stream)  # noqa: E731
+    want = ref.flash_attention_ref(q, k, v)
+    tol = attention_tolerance(seq, v)
+
+    def check():
+        err = float((out - want).abs().max())
+        assert err <= tol
+        return err
+
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True)
+    # the causal half of q k^T and of p v: 2 * S^2 * D operations per head-batch
+    return _row("flash_attention", raw, lambda: ops.flash_attention(q, k, v),
+                lambda: ref.flash_attention_ref(q, k, v), library, check,
+                4 * q.numel() * 4, 2 * seq * seq * d * b * h, f"B*H={b * h} S={seq} D={d}")
+
+
 def main() -> int:
     device, card = phase_device()
     phase_build()
     check_scatter_kernels(device)
     check_topk_kernels(device)
     check_sparse_aggregate(device)
+    check_distill_kl(device)
+    check_flash_attention(device)
     phase_small_input(device)
 
     runs = {}
     for engine, quantize in (("fused_e2e", False), ("fused_e2e", True), ("fused", False),
-                             ("fused", True), ("batched", False)):
+                             ("fused", True), ("batched", False), ("sequential", False)):
         runs[(engine, quantize)] = phase_main_path(device, engine, quantize)
+    seq, bat = runs[("sequential", False)], runs[("batched", False)]
+    assert seq["per_client_k"] == bat["per_client_k"] and seq["bytes"] == bat["bytes"], (seq, bat)
+    log("[main path] sequential == batched on per-client k, uplink and downlink bytes and "
+        "transmitters")
+    serving = phase_serving(device, card)
     launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) for name in KERNELS}
-    entry = {"topk_mask": sum(r["entry_launches"].get("topk_mask", 0) for r in runs.values())}
-    log(f"[main path] kernel launches over the five runs {launches}")
-    log(f"[entry] topk_mask launches through topk_mask_dense(use_kernel=True) {entry}")
+    entry = {name: sum(r["entry_launches"].get(name, 0) for r in runs.values())
+             for name in ("topk_mask", "distill_kl")}
+    entry["flash_attention"] = serving["entry_launches"]["flash_attention"]
+    log(f"[main path] kernel launches over the six runs {launches}")
+    log(f"[entry] launches through the public entry points {entry}")
 
     k_caps = {
         name: max(k_cap_bucket(ks, VOCAB) for ks in runs[("fused_e2e", quant)]["per_client_k"])
@@ -538,7 +878,8 @@ def main() -> int:
     fused_ks = runs[("fused", False)]["per_client_k"][-1]
     rows = [time_scatter(name, k_cap, device) for name, k_cap in k_caps.items()]
     rows += [time_topk("topk_mask_dynamic", fused_ks, device), time_sparse_aggregate(fused_ks, device),
-             time_topk("topk_mask", fused_ks, device)]
+             time_topk("topk_mask", fused_ks, device), time_distill_kl(device),
+             time_flash_attention(serving["qkv"], device)]
     rows = [{**row, "launches": launches[row["name"]],
              **({"entry_launches": entry[row["name"]]} if row["name"] in entry else {})}
             for row in rows]

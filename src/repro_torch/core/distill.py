@@ -5,7 +5,9 @@
     L_total  = L_logits + λ · KL over the LoRA projections h = A·x   (eq. 10)
 
 Two forms: the uncached losses (:func:`total_distill_loss`), which the
-``batched`` and ``fused`` engines and the server's distillation use, and
+``sequential``, ``batched`` and ``fused`` engines and the server's
+distillation use (``use_kernel=True`` reaches the fused KL kernel, forward
+only, as in the reference: no engine sets it), and
 the cached-teacher form of the ``fused_e2e`` round — within a round the
 teacher is a constant, so its log-softmax is computed once
 (:func:`teacher_log_probs`) and reused by every client and step.
@@ -102,12 +104,14 @@ def logits_distill_loss(
     use_kernel: bool = False,
 ) -> torch.Tensor:
     """Paper eq. 9 over a public batch; ``restrict_to_support`` softmaxes
-    over the teacher's non-zero support only."""
+    over the teacher's non-zero support only.  ``use_kernel`` (without
+    ``restrict_to_support``) computes it through the fused KL kernel
+    (:func:`repro_torch.kernels.ops.distill_kl`), which is forward only:
+    it raises on a student that requires grad."""
     if use_kernel and not restrict_to_support:
-        raise NotImplementedError(
-            "logits_distill_loss(use_kernel=True) needs the distill_kl kernel, which is not "
-            "carried by the port yet (ROADMAP.md port queue: the sequential engine and kernel 6)"
-        )
+        from repro_torch.kernels import ops as kops
+
+        return kops.distill_kl(global_logits, client_logits, temperature)
     mask = (global_logits != 0) if restrict_to_support else None
     return kl_divergence(global_logits, client_logits, temperature, mask=mask)
 

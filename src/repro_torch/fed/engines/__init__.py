@@ -1,5 +1,7 @@
 """Round engines — the port of ``repro/fed/engines``:
 
+* :class:`SequentialEngine` — the reference executor: one client at a
+  time through its own :class:`~repro_torch.fed.client.Client` methods.
 * :class:`BatchedEngine` — every phase of the client round as one step
   over a leading client axis; the exact per-client top-k as the dense
   uplink.
@@ -9,7 +11,8 @@
 * :class:`FusedE2EEngine` — the whole round, client and server phase, as
   one function call with the sparse wire between them.
 
-All of them keep the fleet in a device fleet store and are driven by
+The cohort engines keep the fleet in a device fleet store; all four are
+driven by
 :func:`repro_torch.fed.rounds.run_federated`.  A client whose channel
 yields ``k == 0`` transmits nothing and is left out of the aggregation.
 """
@@ -19,6 +22,7 @@ from repro_torch.fed.client import Client
 from repro_torch.fed.engines.base import (
     BroadcastState,
     ClientPhase,
+    SequentialEngine,
     check_unique_cohort,
     cohort_budgets,
     fake_quant_dense,
@@ -33,6 +37,7 @@ from repro_torch.fed.engines.fused import FusedEngine
 __all__ = [
     "BroadcastState",
     "ClientPhase",
+    "SequentialEngine",
     "BatchedEngine",
     "FusedEngine",
     "FusedE2EEngine",
@@ -49,9 +54,30 @@ def make_engine(kind: str, clients: list[Client], cfg: ModelConfig, **kwargs):
     """Build a round engine, dropping the keyword arguments that ``kind``
     does not take, as the reference's ``make_engine`` does (the batched
     engine has no kernel of its own: its aggregation kernel runs in the
-    Server)."""
+    Server).  The sequential engine keeps the reference's own refusals."""
+    if kind != "fused_e2e":
+        for e2e_only in ("server", "server_distill_steps", "aggregation"):
+            kwargs.pop(e2e_only, None)
     if kind == "sequential":
-        raise not_carried("engine='sequential'", "the sequential engine and kernel 6")
+        if kwargs.get("quantize_wire"):
+            raise NotImplementedError(
+                "quantize_wire is not supported by the sequential reference"
+                " engine — use 'batched', 'fused' or 'fused_e2e'"
+            )
+        if kwargs.get("compute_dtype", "float32") != "float32":
+            raise NotImplementedError(
+                "compute_dtype is not supported by the sequential reference"
+                " engine — use 'fused' or 'fused_e2e'"
+            )
+        if kwargs.get("fleet_store", "device") != "device":
+            raise NotImplementedError(
+                "fleet_store='host' is not supported by the sequential"
+                " reference engine (it keeps per-client state inside the"
+                " Client objects) — use 'batched', 'fused' or 'fused_e2e'"
+            )
+        return SequentialEngine(
+            clients, cfg, value_bits=kwargs.get("value_bits", 16), k_min=kwargs.get("k_min", 1)
+        )
     if kind not in ("batched", "fused", "fused_e2e"):
         raise ValueError(
             f"unknown engine: {kind!r} (expected 'sequential', 'batched', 'fused' or 'fused_e2e')"
@@ -62,9 +88,6 @@ def make_engine(kind: str, clients: list[Client], cfg: ModelConfig, **kwargs):
         raise not_carried("a compute_dtype other than float32", "bf16")
     if kwargs.pop("fleet_store", "device") != "device":
         raise not_carried("a fleet_store other than 'device'", "the host fleet store")
-    if kind != "fused_e2e":
-        for e2e_only in ("server", "server_distill_steps", "aggregation"):
-            kwargs.pop(e2e_only, None)
     if kind == "batched":
         kwargs.pop("use_kernels", None)
         return BatchedEngine(clients, cfg, **kwargs)

@@ -1,7 +1,7 @@
 """Shared engine plumbing: budget math, the dense uplink's int8 code, round
-dataclasses and the server-owner mixin — the port of the parts of
-``repro/fed/engines/base.py`` that the ``batched``, ``fused`` and
-``fused_e2e`` engines use."""
+dataclasses, the sequential engine and the server-owner mixin — the port of
+``repro/fed/engines/base.py`` (its multi-round trajectory belongs to
+``run_rounds``, a later slice)."""
 
 from __future__ import annotations
 
@@ -12,14 +12,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.channel import topk_budget_batch
+from repro_torch.core.channel import BatchedChannelState, ChannelState
 from repro_torch.core.protocol import UplinkPayload, downlink_bits, lora_projection_bits
-from repro_torch.core.topk import QUANT_LEVELS, QuantizedWire, SparseWire
+from repro_torch.core.topk import QUANT_LEVELS, QuantizedWire, SparseWire, densify
+from repro_torch.fed.client import Client
 from repro_torch.lora import merge_lora, split_lora
 from repro_torch.optim import adamw_init
 
 __all__ = [
     "BroadcastState",
     "ClientPhase",
+    "SequentialEngine",
     "cohort_budgets",
     "k_cap_bucket",
     "check_unique_cohort",
@@ -134,6 +137,66 @@ class ClientPhase:
     @property
     def num_transmitters(self) -> int:
         return len(self.payloads)
+
+
+class SequentialEngine:
+    """The reference client-phase executor: one client at a time, each
+    through its own :class:`Client` methods (Algorithm 1 exactly as
+    written).  The clients keep their own parameters and optimizer state."""
+
+    name = "sequential"
+    store_kind = "device"  # per-client params live on the device, unstacked
+
+    def __init__(self, clients: list[Client], cfg: ModelConfig, *, value_bits: int = 16,
+                 k_min: int = 1):
+        self.clients = clients
+        self.cfg = cfg
+        self.value_bits = value_bits
+        self.k_min = k_min
+
+    def client_params(self, cid: int) -> dict:
+        """Current parameters of one client (for evaluation)."""
+        return self.clients[cid].params
+
+    def prefetch_cohort(self, sel: Sequence[int]) -> None:
+        """No-op: every client's state already lives on the device."""
+
+    def run_round(
+        self,
+        sel: Sequence[int],
+        pub_tokens: torch.Tensor,
+        bcast: BroadcastState | None,
+        states: BatchedChannelState | Sequence[ChannelState],
+        *,
+        adaptive_k: bool,
+        send_h: bool,
+    ) -> ClientPhase:
+        sel = check_unique_cohort(sel)
+        cohort = [self.clients[i] for i in sel]
+        if bcast is not None:
+            for c in cohort:
+                c.local_distill(bcast.tokens, bcast.logits, bcast.h)
+        dense_rows, hs, payloads, ks = [], [], [], []
+        for c, st in zip(cohort, states):
+            c.local_train()
+            up = c.upload(
+                pub_tokens, st, value_bits=self.value_bits,
+                k_override=None if adaptive_k else self.cfg.vocab_size,
+                send_h=send_h, k_min=self.k_min,
+            )
+            if up is None:  # straggler in outage: transmits nothing
+                ks.append(0)
+                continue
+            ks.append(up.k)
+            dense_rows.append(densify(up.sparse))
+            if up.h is not None:
+                hs.append(up.h)
+            payloads.append(up.payload)
+        return ClientPhase(
+            payloads=payloads, ks=ks,
+            dense=torch.stack(dense_rows) if dense_rows else None,
+            h=torch.stack(hs) if hs else None,
+        )
 
 
 class _ServerOwnerMixin:

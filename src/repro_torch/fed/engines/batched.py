@@ -61,7 +61,7 @@ class _FleetEngine:
                                        state_dtype=cfg.optimizer_state_dtype)
         del loras, frozens
         for c in clients:  # the store owns the fleet state from here on
-            c.params = None
+            c.params = c.opt = None
 
     @property
     def device(self) -> torch.device:

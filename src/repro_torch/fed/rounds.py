@@ -1,6 +1,6 @@
 """Federated AdaLD round orchestration (paper Algorithm 1 + §IV setup) —
-the port of ``repro/fed/rounds.py`` for the ``batched``, ``fused`` and
-``fused_e2e`` engines.
+the port of ``repro/fed/rounds.py`` for the ``sequential``, ``batched``,
+``fused`` and ``fused_e2e`` engines.
 
 One communication round: the server's last broadcast {K_g, h_g} reaches
 the selected clients, who distill against it, fine-tune on private data,
@@ -145,7 +145,12 @@ def run_federated(
     else:
         parts = iid_partition(len(private), fed.num_clients, seed=fed.seed)
     clients = [
-        Client(i, client_cfg, private.subset(parts[i]), seed=fed.seed + i, device=device)
+        Client(
+            i, client_cfg, private.subset(parts[i]), num_classes=dataset.num_classes,
+            seed=fed.seed + i, lr=fed.lr, distill_lr=fed.distill_lr, temperature=fed.temperature,
+            lam=fed.lam, local_steps=fed.local_steps, distill_steps=fed.distill_steps,
+            restrict_to_support=fed.restrict_to_support, last_only=fed.last_only, device=device,
+        )
         for i in range(fed.num_clients)
     ]
     server = Server(

@@ -2,8 +2,8 @@
 (Algorithm 1, server block: lines 1-2, 13-16) — the port of
 ``repro/fed/server.py``.
 
-The ``batched`` and ``fused`` engines hand the round loop a dense stack of
-the transmitters' top-k masks, which the server aggregates
+The ``sequential``, ``batched`` and ``fused`` engines hand the round loop a
+dense stack of the transmitters' top-k masks, which the server aggregates
 (:meth:`Server.aggregate_dense`), distills into its LLM
 (:meth:`Server.distill`) and answers with a refreshed broadcast
 (:meth:`Server.broadcast`).  The ``fused_e2e`` engine runs the same work
@@ -17,7 +17,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.aggregation import AggregationMode, aggregate
 from repro_torch.core.protocol import downlink_bits
+from repro_torch.core.topk import densify
 from repro_torch.fed import steps as fed_steps
+from repro_torch.fed.client import ClientUpload
 from repro_torch.models import model as model_lib
 
 __all__ = ["Server"]
@@ -56,6 +58,15 @@ class Server:
                                     restrict_to_support=restrict_to_support, last_only=last_only)
 
     # ---- Algorithm 1, line 15: aggregate client knowledge ----
+    def aggregate_uploads(
+        self, uploads: list[ClientUpload]
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """``(K_g (P, V), h_g (P, r) or None)`` from the transmitters'
+        uploads, densified and stacked in order."""
+        stack = torch.stack([densify(u.sparse) for u in uploads])  # (N, P, V)
+        hs = [u.h for u in uploads if u.h is not None]
+        return self.aggregate_dense(stack, torch.stack(hs) if hs else None)
+
     def aggregate_dense(
         self,
         stack: torch.Tensor,

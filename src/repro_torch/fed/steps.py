@@ -1,5 +1,5 @@
 """Round step functions (Algorithm 1) — the port of ``repro/fed/steps.py``
-for the ``batched``, ``fused`` and ``fused_e2e`` engines and the server.
+for the four engines and the server.
 
 Task convention (paper §IV): class logits are the LM-head logits over the
 first ``num_classes`` vocab ids at the LAST position; distillation works on
@@ -10,11 +10,11 @@ function here runs the cohort at once on a leading client axis: LoRA leaves
 and optimizer state are ``(C, ...)``, the backbone is shared or ``(C, ...)``.
 A step's loss is the SUM of the per-client losses, so one ``backward`` gives
 each client exactly its own gradient; AdamW then clips per client.  A single
-model (the server) is a client axis of 1.  ``lax.scan``/``fori_loop`` are
-Python loops, and the two data-dependent round decisions of the reference
-(cold server in round 0, a round where every client dropped) are host-side
-values here, so they are plain branches that skip the work the reference
-computes and discards.
+model (a sequential-engine client, the server) is a client axis of 1.
+``lax.scan``/``fori_loop`` are Python loops, and the two data-dependent
+round decisions of the reference (cold server in round 0, a round where
+every client dropped) are host-side values here, so they are plain
+branches that skip the work the reference computes and discards.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ __all__ = [
     "last_logits",
     "public_logits",
     "init_lora_opt",
+    "make_finetune_step",
     "make_distill_step",
     "make_batched_finetune_step",
     "make_batched_distill_step",
@@ -231,26 +232,49 @@ def make_batched_distill_step(cfg: ModelConfig, *, lr: float = 1e-3, temperature
     return step
 
 
+def _single(batched_step: Callable) -> Callable:
+    """A cohort step run for one model on a client axis of 1:
+    ``step(params, opt, *args) -> (params, opt, metrics)``, with ``opt``
+    from :func:`init_lora_opt` and scalar metrics."""
+
+    def step(params, opt, *args):
+        lora, frozen = split_lora(params)
+        lora, opt, metrics = batched_step({k: v[None] for k, v in lora.items()}, frozen, opt,
+                                          *args)
+        params = merge_lora({k: v[0] for k, v in lora.items()}, frozen)
+        return params, opt, {k: v[0] for k, v in metrics.items()}
+
+    return step
+
+
+def make_finetune_step(cfg: ModelConfig, num_classes: int, *, lr: float = 1e-3,
+                       weight_decay: float = 1e-3, last_only: bool = True) -> Callable:
+    """One model's supervised fine-tuning update (paper eq. 2, LoRA only) —
+    a sequential-engine client's Algorithm 1 line 8.
+
+    step(params, opt (from :func:`init_lora_opt`), batch {tokens (B,L), labels (B,)})
+    -> (params, opt, {"loss": ()})"""
+    batched = _single(make_batched_finetune_step(cfg, num_classes, lr=lr,
+                                                 weight_decay=weight_decay, last_only=last_only))
+
+    def step(params, opt, batch):
+        return batched(params, opt, {k: v[None] for k, v in batch.items()})
+
+    return step
+
+
 def make_distill_step(cfg: ModelConfig, *, lr: float = 1e-3, temperature: float = 2.0,
                       lam: float = 0.03, restrict_to_support: bool = False,
                       last_only: bool = True) -> Callable:
     """One model's distillation update against teacher knowledge (Algorithm
-    1 line 16 for the server), the cohort step on a client axis of 1.
+    1 lines 5-7 for a sequential-engine client, line 16 for the server),
+    the cohort step on a client axis of 1.
 
     step(params, opt (from :func:`init_lora_opt`), tokens (P,L), g_logits, g_h)
     -> (params, opt, {"loss": ()})"""
-    batched = make_batched_distill_step(cfg, lr=lr, temperature=temperature, lam=lam,
-                                        restrict_to_support=restrict_to_support,
-                                        last_only=last_only)
-
-    def step(params, opt, tokens, g_logits, g_h):
-        lora, frozen = split_lora(params)
-        lora, opt, metrics = batched({k: v[None] for k, v in lora.items()}, frozen, opt,
-                                     tokens, g_logits, g_h)
-        params = merge_lora({k: v[0] for k, v in lora.items()}, frozen)
-        return params, opt, {"loss": metrics["loss"][0]}
-
-    return step
+    return _single(make_batched_distill_step(cfg, lr=lr, temperature=temperature, lam=lam,
+                                             restrict_to_support=restrict_to_support,
+                                             last_only=last_only))
 
 
 def make_batched_public_logits(cfg: ModelConfig, *, last_only: bool = True) -> Callable:

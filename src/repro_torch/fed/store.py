@@ -10,7 +10,10 @@ on the selected cohort per round:
   axis = cohort (fresh tensors, safe to update);
 * ``commit(idx, lora, opt)`` — write the advanced cohort rows back;
 * ``client_row(cid) -> (lora, frozen)`` — one client's trees, for
-  evaluation.
+  evaluation;
+* ``lora_rows(sel)`` — fresh rows of the given clients' adapters, leading
+  axis = ``len(sel)``: the serving contract, the read an adapter cache
+  issues on a slot miss (no optimizer state, no backbone).
 
 The frozen backbone is one shared dict when every client rides the same
 tensors (the paper's one pretrained W') and stacked per client otherwise.
@@ -71,3 +74,7 @@ class DeviceFleetStore:
         lora = {k: v[cid] for k, v in self.lora.items()}
         frozen = self.frozen if self.shared else {k: v[cid] for k, v in self.frozen.items()}
         return lora, frozen
+
+    def lora_rows(self, sel: Sequence[int]) -> dict:
+        idx = torch.as_tensor(list(sel), device=self.device)
+        return _rows(self.lora, idx)

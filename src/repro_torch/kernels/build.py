@@ -22,7 +22,8 @@ from pathlib import Path
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "nvcc_path"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES: dict[str, Path] = {name: _CSRC / f"{name}.cu" for name in ("sparse_agg", "topk_select")}
+SOURCES: dict[str, Path] = {name: _CSRC / f"{name}.cu" for name in (
+    "sparse_agg", "topk_select", "distill_kl", "flash_attention")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -6,6 +6,10 @@ goes to the plain version in :mod:`repro_torch.kernels.ref`, a CUDA tensor
 to the hand-written kernel (built from ``csrc/`` at first use) — or an
 exception, never a fallback.  ``LAUNCHES`` counts kernel launches per
 wrapper, so a run can show that its path went through the kernels.
+
+The KL and attention kernels are forward only, as in the reference: their
+wrappers raise on an input that requires a gradient (with autograd on)
+rather than return a result that no gradient flows through.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (
+    distill_kl_ref,
+    flash_attention_ref,
     scatter_wire_sums_dequant_ref,
     scatter_wire_sums_ref,
     sparse_aggregate_ref,
@@ -31,6 +37,9 @@ __all__ = [
     "sparse_aggregate",
     "scatter_wire_sums",
     "scatter_wire_sums_dequant",
+    "distill_kl_rows",
+    "distill_kl",
+    "flash_attention",
 ]
 
 LAUNCHES: dict[str, int] = {
@@ -39,10 +48,12 @@ LAUNCHES: dict[str, int] = {
     "sparse_aggregate": 0,
     "scatter_wire_sums": 0,
     "scatter_wire_sums_dequant": 0,
+    "distill_kl": 0,
+    "flash_attention": 0,
 }
 
 _MODES = {"adaptive": 0, "zeropad": 1, "mean_nonzero": 2}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 
@@ -76,12 +87,24 @@ def _check(name: str, tensors: dict, dtypes: dict, shapes: dict) -> None:
         raise ValueError(f"{name}: unsupported device {dev}")
 
 
+def _forward_only(name: str, *tensors: torch.Tensor) -> None:
+    """The kernel has no backward (nor has the reference's): refuse to hand
+    back a result that would silently carry no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward only (as the reference kernel): an input requires grad, and "
+            "the result would carry no gradient; detach the inputs or use the plain-PyTorch "
+            "route (use_kernel=False)"
+        )
+
+
 @functools.cache
-def _fn(lib: str, symbol: str, nargs_ptr: int, nargs_int: int):
+def _fn(lib: str, symbol: str, nargs_ptr: int, nargs_int: int, nargs_float: int = 0):
     """The C entry point ``symbol`` of ``lib``: ``nargs_ptr`` pointers,
-    ``nargs_int`` ints, then the stream; returns a ``cudaError_t``."""
+    ``nargs_int`` ints, ``nargs_float`` floats, then the stream; returns a
+    ``cudaError_t``."""
     fn = getattr(build.load(lib), symbol)
-    fn.argtypes = [_P] * nargs_ptr + [_I] * nargs_int + [_P]
+    fn.argtypes = [_P] * nargs_ptr + [_I] * nargs_int + [_F] * nargs_float + [_P]
     fn.restype = _I
     return fn
 
@@ -99,11 +122,11 @@ def smem_max_vocab(device_index: int) -> int:
     return out
 
 
-def _launch(name: str, lib: str, symbol: str, ptrs, ints, device) -> None:
-    fn = _fn(lib, symbol, len(ptrs), len(ints))
+def _launch(name: str, lib: str, symbol: str, ptrs, ints, device, floats=()) -> None:
+    fn = _fn(lib, symbol, len(ptrs), len(ints), len(floats))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        rc = fn(*[None if t is None else t.data_ptr() for t in ptrs], *ints, stream)
+        rc = fn(*[None if t is None else t.data_ptr() for t in ptrs], *ints, *floats, stream)
     if rc != 0:
         raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
@@ -221,3 +244,68 @@ def scatter_wire_sums_dequant(
                     (fq, fs, fm.view(torch.uint8), fi, num, den),
                     (n, rows, k, vocab, _MODES[mode]), q_values.device)
     return num.reshape(lead + (vocab,)), den.reshape(lead + (vocab,))
+
+
+def distill_kl_rows(teacher: torch.Tensor, student: torch.Tensor,
+                    temperature: float = 2.0) -> torch.Tensor:
+    """Per-row ``KL(σ(t/T) || σ(s/T))`` of ``(..., V)`` fp32 inputs ->
+    ``(...)`` fp32 (no T², no mean) through the fused one-pass kernel.
+    Forward only: raises when either input requires grad (with autograd
+    on), since a loss built on it would silently train nothing."""
+    _forward_only("distill_kl", teacher, student)
+    _check("distill_kl", {"teacher": teacher, "student": student},
+           {"teacher": (torch.float32,), "student": (torch.float32,)},
+           {"student": teacher.shape})
+    vocab = teacher.shape[-1]
+    t_flat, s_flat = teacher.reshape(-1, vocab), student.reshape(-1, vocab)
+    if teacher.device.type == "cpu":
+        return distill_kl_ref(t_flat, s_flat, temperature).reshape(teacher.shape[:-1])
+    out = torch.empty(t_flat.shape[0], dtype=torch.float32, device=teacher.device)
+    if out.numel() and vocab:
+        _launch("distill_kl", "distill_kl", "distill_kl_f32", (t_flat, s_flat, out),
+                (t_flat.shape[0], vocab), teacher.device, (1.0 / temperature,))
+    return out.reshape(teacher.shape[:-1])
+
+
+def distill_kl(teacher: torch.Tensor, student: torch.Tensor, temperature: float = 2.0) -> torch.Tensor:
+    """Mean of :func:`distill_kl_rows` times T² (Hinton's scaling) —
+    ``core.distill.kl_divergence``'s value through the kernel.  Forward
+    only, as the reference kernel."""
+    return torch.mean(distill_kl_rows(teacher, student, temperature)) * (temperature**2)
+
+
+# the Pallas kernel's tile: S must be a multiple of min(128, S)
+FLASH_BLOCK = 128
+# the one head dim the CUDA kernel takes (GPT-2 small and large)
+FLASH_HEAD_DIM = 64
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal attention of ``(B, H, S, D)`` or fused ``(B·H, S, D)`` fp32
+    q, k, v, with ``S`` a multiple of ``min(128, S)`` as the reference's
+    tiling asserts; the CUDA kernel takes head dim 64.  Forward only
+    (inference prefill): raises when an input requires grad."""
+    _forward_only("flash_attention", q, k, v)
+    if q.ndim not in (3, 4):
+        raise ValueError(f"flash_attention: q has shape {tuple(q.shape)}, expected (B, H, S, D) "
+                         "or (B*H, S, D)")
+    _check("flash_attention", {"q": q, "k": k, "v": v},
+           {"q": (torch.float32,), "k": (torch.float32,), "v": (torch.float32,)},
+           {"k": q.shape, "v": q.shape})
+    s, d = q.shape[-2], q.shape[-1]
+    blk = min(FLASH_BLOCK, s)
+    if s % blk:
+        raise ValueError(f"flash_attention: seq {s} must tile by {blk}")
+    fold = lambda x: x.reshape(-1, s, d)  # noqa: E731
+    if q.device.type == "cpu":
+        return flash_attention_ref(fold(q), fold(k), fold(v)).reshape(q.shape)
+    if d != FLASH_HEAD_DIM:
+        raise ValueError(f"flash_attention: the CUDA kernel takes head dim {FLASH_HEAD_DIM}, got {d}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    bh = fold(q).shape[0]
+    if bh and s:
+        _launch("flash_attention", "flash_attention", "flash_attention_f32", (q, k, v, out),
+                (bh, s, d), q.device, (d**-0.5,))
+    return out

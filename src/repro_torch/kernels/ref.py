@@ -1,9 +1,12 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each function computes exactly what its CUDA kernel computes, in the same
-order, so the kernel is held against it with ``torch.equal`` on the card;
-the ``ops`` wrappers also run these for tensors that lie on the CPU.  They
-mirror ``repro/kernels/ref.py``.
+The ``ops`` wrappers run these for tensors that lie on the CPU, and
+``chip_smoke.py`` holds each CUDA kernel against its plain version on the
+card.  The top-k and aggregation kernels compute exactly what their plain
+versions compute, in the same order, and are held with ``torch.equal``;
+the KL and attention kernels sum in another order (online, blocked) than
+their plain versions' log-sum-exp and softmax, and are held within a
+stated tolerance.  They mirror ``repro/kernels/ref.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ __all__ = [
     "scatter_wire_sums_ref",
     "scatter_wire_sums_dequant_ref",
     "dequant_channels",
+    "distill_kl_ref",
+    "flash_attention_ref",
 ]
 
 # Threshold-bisection iteration count of the top-k kernels: the plain and
@@ -25,6 +30,8 @@ __all__ = [
 BISECTION_ITERS = 30
 # eps of the dense adaptive aggregation kernel's denominator
 AGG_EPS = 1e-12
+# the attention kernel's causal-mask fill
+NEG_INF = -1e30
 
 
 def topk_mask_ref(x: torch.Tensor, ks: torch.Tensor, *, guard: bool) -> torch.Tensor:
@@ -116,3 +123,26 @@ def scatter_wire_sums_dequant_ref(
     -> ``(num, den)`` each ``(rows, vocab)`` fp32."""
     a, b = dequant_channels(q_values, scale, mask, mode)
     return scatter_wire_sums_ref(a, b, indices, vocab)
+
+
+def distill_kl_ref(teacher: torch.Tensor, student: torch.Tensor,
+                   temperature: float = 2.0) -> torch.Tensor:
+    """Per-row ``KL(softmax(t/T) || softmax(s/T))`` of ``(rows, V)``
+    inputs -> ``(rows,)`` fp32, from the log-sum-exp; no T² and no mean
+    (the caller applies those)."""
+    t = teacher.float() / temperature
+    s = student.float() / temperature
+    log_p = t - torch.logsumexp(t, dim=-1, keepdim=True)
+    log_q = s - torch.logsumexp(s, dim=-1, keepdim=True)
+    return torch.sum(torch.exp(log_p) * (log_p - log_q), dim=-1)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain causal softmax attention over fused head-batches ``(B, S, D)``
+    in fp32 math: scores ``q k^T * D^-0.5``, the future masked with -1e30."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bsd,btd->bst", q.float(), k.float()) * scale
+    s = q.shape[1]
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    probs = torch.softmax(torch.where(causal, scores, NEG_INF), dim=-1)
+    return torch.einsum("bst,btd->bsd", probs, v.float()).to(q.dtype)

@@ -8,9 +8,11 @@ backbone W'; only the first group ever gets a gradient.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-__all__ = ["is_lora_path", "split_lora", "merge_lora"]
+__all__ = ["is_lora_path", "split_lora", "merge_lora", "map_lora", "lora_template"]
 
 
 def is_lora_path(key: str) -> bool:
@@ -28,3 +30,16 @@ def split_lora(params: dict[str, torch.Tensor]) -> tuple[dict, dict]:
 def merge_lora(lora: dict, frozen: dict) -> dict:
     """Inverse of :func:`split_lora`."""
     return {**frozen, **lora}
+
+
+def map_lora(fn: Callable[[torch.Tensor], torch.Tensor], params: dict) -> dict:
+    """Apply ``fn`` to the LoRA leaves only."""
+    return {k: fn(v) if is_lora_path(k) else v for k, v in params.items()}
+
+
+def lora_template(params: dict) -> dict:
+    """Shape and dtype skeleton of the adapter group (``split_lora()[0]``
+    with leaves on the ``meta`` device, which holds no data) — the ``like``
+    argument the serving ``AdapterCache`` checks adapter rows against."""
+    lora, _ = split_lora(params)
+    return {k: torch.empty_like(v, device="meta") for k, v in lora.items()}

@@ -1,41 +1,72 @@
-"""Full-sequence causal self-attention with q/k/v LoRA — the port of
-``repro/models/attention.py``'s ``_dense_attention`` path for the GPT-2
-family.  (The chunked path is taken only at ``S >= 1024``; decode and the
-KV cache belong to serving, a later slice.)
+"""Causal self-attention with q/k/v LoRA and the decode KV cache — the port
+of ``repro/models/attention.py`` for the GPT-2 family.
+
+Full-sequence mode (no cache) masks the future: dense attention below
+``2 * Q_CHUNK`` positions, and from there the reference's chunked path,
+which scans query chunks so the ``(S, S)`` scores are never held at once
+(``_chunked_attention``; the same function, less peak memory).  Decode mode
+writes one new token's K/V into a ring slot of the cache and attends over
+every written slot.
+
+Per-request adapters (multi-tenant serving) ride on the model's leading
+client axis: ``C`` requests of batch 1 each, every request with its own
+``(C, d, r)`` adapter row, so row b's contraction is the per-client matmul
+of a cohort.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import linear
 
-__all__ = ["lora_delta", "attn_apply"]
+__all__ = ["KVCache", "Q_CHUNK", "init_kv_cache", "lora_delta", "qkv", "attn_apply"]
 
 _NEG_INF = -1e30
+# query-chunk length of the full-sequence path from 2 * Q_CHUNK positions on
+Q_CHUNK = 512
+
+
+class KVCache(NamedTuple):
+    """One attention layer's decode cache (stacked over layers in the
+    model's cache: a leading ``(L, ...)`` axis on every field)."""
+
+    k: torch.Tensor  # (B, C, Kv, Dh)
+    v: torch.Tensor  # (B, C, Kv, Dh)
+    pos: torch.Tensor  # (C,) int32 absolute position of each slot, -1 = empty
+    length: torch.Tensor  # () int32 tokens seen so far
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                  device: str | torch.device = "cuda") -> KVCache:
+    hd = cfg.head_dim
+    return KVCache(
+        k=torch.zeros((batch, cache_len, cfg.num_kv_heads, hd), device=device),
+        v=torch.zeros((batch, cache_len, cfg.num_kv_heads, hd), device=device),
+        pos=torch.full((cache_len,), -1, dtype=torch.int32, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device),
+    )
 
 
 def lora_delta(
     a: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *, alpha: float, rank: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``x @ A @ B * alpha/r`` with per-client factors ``A (C, d, r)``,
-    ``B (C, r, o)`` for ``x (C, ..., d)``.  Returns ``(delta, h)`` with the
-    projection ``h = x @ A`` (paper eq. 8)."""
+    """``x @ A @ B * alpha/r`` with shared factors ``A (d, r)``, ``B (r, o)``
+    or per-client ones ``A (C, d, r)``, ``B (C, r, o)`` for ``x (C, ...,
+    d)``.  Returns ``(delta, h)`` with the projection ``h = x @ A`` (paper
+    eq. 8)."""
     h = linear(x, a)
     return linear(h, b) * (alpha / rank), h
 
 
-def attn_apply(
-    lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
-) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Causal self-attention of one layer.  ``lp`` holds the layer's
-    ``attn/w{q,k,v,o}/{w,b}`` and, when it has adapters,
-    ``lora/<target>/{A,B}``; ``x (C, B, S, d)``.  Returns ``(y, lora_h)``
-    where ``lora_h (C, B, S, r)`` is the q adapter's projection (the v
+def qkv(lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig):
+    """The layer's q, k, v for ``x (C, B, S, d)``, each ``(C·B, S, H,
+    Dh)``, and ``lora_h (C, B, S, r)``: the q adapter's projection (the v
     adapter's without a q adapter), or None without adapters."""
     c, bsz, s, _ = x.shape
-    hd = cfg.head_dim
     proj, hs = {}, {}
     for name in ("q", "k", "v"):
         y = linear(x, lp[f"attn/w{name}/w"], lp.get(f"attn/w{name}/b"))
@@ -45,13 +76,65 @@ def attn_apply(
                 alpha=cfg.lora.alpha, rank=cfg.lora.rank,
             )
             y = y + delta
-        proj[name] = y.reshape(c * bsz, s, -1, hd)
-    scores = torch.einsum("bshd,bthd->bhst", proj["q"].float(), proj["k"].float()) * hd**-0.5
-    pos = torch.arange(s, device=x.device)
-    causal = pos[:, None] >= pos[None, :]
-    scores = torch.where(causal, scores, _NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhst,bthd->bshd", probs, proj["v"].float())
+        proj[name] = y.reshape(c * bsz, s, -1, cfg.head_dim)
+    return proj["q"], proj["k"], proj["v"], hs.get("q", hs.get("v"))
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``softmax(q k^T * Dh^-0.5)`` over the keys ``valid`` marks, times v:
+    q ``(B, S, H, Dh)``, k/v ``(B, T, H, Dh)``, ``valid`` broadcastable to
+    ``(S, T)`` -> ``(B, S, H·Dh)`` fp32."""
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * q.shape[-1] ** -0.5
+    probs = torch.softmax(torch.where(valid, scores, _NEG_INF), dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs, v.float())
+    return out.reshape(out.shape[0], out.shape[1], -1)
+
+
+def _dense_attention(q, k, v) -> torch.Tensor:
+    pos = torch.arange(q.shape[1], device=q.device)
+    return _attend(q, k, v, pos[:, None] >= pos[None, :])
+
+
+def _chunked_attention(q, k, v) -> torch.Tensor:
+    """Causal attention one ``Q_CHUNK`` of queries at a time against every
+    key: peak memory ``(B, H, Q_CHUNK, S)`` scores, the exact softmax per
+    row."""
+    s = q.shape[1]
+    assert s % Q_CHUNK == 0, f"seq {s} not divisible by q-chunk {Q_CHUNK}"
+    pos = torch.arange(s, device=q.device)
+    return torch.cat([
+        _attend(q[:, i:i + Q_CHUNK], k, v, pos[i:i + Q_CHUNK, None] >= pos[None, :])
+        for i in range(0, s, Q_CHUNK)
+    ], dim=1)
+
+
+def attn_apply(
+    lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
+    cache: KVCache | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Causal self-attention of one layer.  ``lp`` holds the layer's
+    ``attn/w{q,k,v,o}/{w,b}`` and, when it has adapters,
+    ``lora/<target>/{A,B}``; ``x (C, B, S, d)``.  Returns ``(y, lora_h)``
+    (see :func:`qkv`).
+
+    With ``cache`` (decode, ``S == 1``) the new K/V is written IN PLACE into
+    ring slot ``length % cache_len`` of the cache (``k``, ``v``, ``pos``;
+    the caller advances ``length``), and the query attends over every slot
+    written so far."""
+    c, bsz, s, _ = x.shape
+    q, k, v, lora_h = qkv(lp, x, cfg)
+    if cache is None:
+        attend = _chunked_attention if s >= 2 * Q_CHUNK else _dense_attention
+        out = attend(q, k, v)
+    else:
+        assert s == 1, "decode mode expects one new token"
+        # a one-element index tensor: the write needs no host sync
+        slot = (cache.length % cache.k.shape[1]).reshape(1).long()
+        cache.k.index_copy_(1, slot, k.to(cache.k.dtype))
+        cache.v.index_copy_(1, slot, v.to(cache.v.dtype))
+        cache.pos.index_copy_(0, slot, cache.length.reshape(1))
+        valid = (cache.pos >= 0) & (cache.pos <= cache.length)  # every written slot
+        out = _attend(q, cache.k, cache.v, valid[None, :])
     out = out.reshape(c, bsz, s, -1).to(x.dtype)
     y = linear(out, lp["attn/wo/w"], lp.get("attn/wo/b"))
-    return y, hs.get("q", hs.get("v"))
+    return y, lora_h

@@ -1,5 +1,6 @@
 """Top-level model: embeddings + stack + tied LM head — the port of
-``repro/models/model.py``'s ``init`` and ``forward`` for the GPT-2 family.
+``repro/models/model.py``'s ``init``, ``forward``, ``init_cache``,
+``decode_step`` and ``prefill`` for the GPT-2 family.
 
 Parameters are a flat dict keyed by the reference's pytree paths joined
 with ``/`` (``embed``, ``stack/pos0/attn/wq/w``, ``lora_head/A``, ...), so
@@ -17,15 +18,25 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import embedding, layer_norm, linear, normal, truncated_normal
-from repro_torch.models.transformer import STACK_PREFIX, stack_apply
+from repro_torch.models.transformer import LAYER_NDIM, STACK_PREFIX, init_stack_cache, stack_apply
 
-__all__ = ["Aux", "check_supported", "init", "forward"]
+__all__ = ["Aux", "check_supported", "init", "forward", "init_cache", "decode_step", "prefill"]
 
 _ATTN_TARGETS = ("q", "k", "v", "o")
+# dims of the top-level leaves of ONE model (a per-client leaf has one more)
+_TOP_NDIM = {"embed": 2, "pos_embed": 2, "lm_head": 2, "final_norm/scale": 1,
+             "final_norm/bias": 1, "lora_head/A": 2, "lora_head/B": 2}
 
 
 class Aux(NamedTuple):
     lora_h: torch.Tensor | None  # (C, B, r) pooled LoRA projection (paper eq. 8)
+
+
+def _other_families(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: the port carries the GPT-2 family only "
+        "(ROADMAP.md port queue: other model families and mixed fleets)"
+    )
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -38,10 +49,7 @@ def check_supported(cfg: ModelConfig) -> None:
         and cfg.num_kv_heads == cfg.num_heads and cfg.sliding_window is None
     )
     if not ok:
-        raise NotImplementedError(
-            f"model {cfg.name!r}: the port carries the GPT-2 family only "
-            "(ROADMAP.md port queue: other model families and mixed fleets)"
-        )
+        raise _other_families(f"model {cfg.name!r}")
     if cfg.param_dtype != "float32" or cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"model {cfg.name!r}: the port computes in float32 only (ROADMAP.md port queue: bf16)"
@@ -126,3 +134,68 @@ def forward(
     h = st.x[:, :, -1] if last_only else st.x
     h = layer_norm(h, params["final_norm/scale"], params["final_norm/bias"])
     return _lm_logits(params, cfg, h, head_cols), Aux(lora_h=st.lora_h)
+
+
+def _client_rows(params: dict[str, torch.Tensor]) -> int:
+    """The leading client axis of the per-client leaves (requests with an
+    adapter row each, in serving), or 1 when every leaf is shared."""
+    for key, t in params.items():
+        base = (LAYER_NDIM[key.rsplit("/", 1)[-1]] + 1 if key.startswith(STACK_PREFIX)
+                else _TOP_NDIM[key])
+        if t.ndim == base + 1:
+            return int(t.shape[0])
+    return 1
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: int | None = None,
+               device: str | torch.device = "cuda") -> dict:
+    """Decode cache: the stacked per-layer KV caches (``{"layers": {"pos0":
+    KVCache}}``, every field with a leading ``(L, ...)`` axis) and the
+    absolute ``length``."""
+    check_supported(cfg)
+    if window is not None:
+        raise _other_families("a sliding-window decode")
+    return {
+        "layers": init_stack_cache(cfg, batch, cache_len, device),
+        "length": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def decode_step(params: dict[str, torch.Tensor], cfg: ModelConfig, cache: dict,
+                token: torch.Tensor, *, window: int | None = None) -> tuple[torch.Tensor, dict]:
+    """One serving step: consume ``token (B,)`` at position ``length``,
+    return the next-token logits ``(B, V)`` and the cache, advanced IN
+    PLACE (the new K/V in each layer's ring slot, ``length + 1``).
+
+    ``params`` is one model (shared leaves: the batch is a client axis of 1)
+    or per-request adapters on the client axis (``B`` rows of batch 1 each)
+    over a shared backbone."""
+    check_supported(cfg)
+    if window is not None:
+        raise _other_families("a sliding-window decode")
+    b = token.shape[0]
+    c = _client_rows(params)
+    if c not in (1, b):
+        raise ValueError(f"{c} adapter rows for a batch of {b}")
+    pos = params["pos_embed"].index_select(-2, cache["length"].reshape(1).long())
+    if pos.ndim == 3:
+        pos = pos[:, None]
+    x = embedding(params["embed"], token.reshape(c, b // c, 1)) + pos
+    st = stack_apply(params, x, cfg, caches=cache["layers"])
+    h = layer_norm(st.x, params["final_norm/scale"], params["final_norm/bias"])
+    logits = _lm_logits(params, cfg, h, None).reshape(b, -1)
+    cache["layers"]["pos0"].length.add_(1)
+    cache["length"].add_(1)
+    return logits, cache
+
+
+def prefill(params: dict[str, torch.Tensor], cfg: ModelConfig, batch: dict, *,
+            window: int | None = None) -> tuple[torch.Tensor, Aux]:
+    """Full forward over the prompts ``batch["tokens"] (B, S)`` of one
+    model, returning the last-position logits ``(B, V)`` — what sampling
+    needs — and ``Aux`` with ``lora_h (B, r)``.  From ``S = 1024`` on the
+    attention takes the chunked path."""
+    if window is not None:
+        raise _other_families("a sliding-window prefill")
+    logits, aux = forward(params, cfg, batch["tokens"][None], last_only=True)
+    return logits[0], Aux(lora_h=None if aux.lora_h is None else aux.lora_h[0])

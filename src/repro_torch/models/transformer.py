@@ -1,10 +1,12 @@
 """The dense decoder stack — the port of ``repro/models/transformer.py``'s
-``stack_apply`` for the GPT-2 family.
+``stack_apply`` and ``init_stack_cache`` for the GPT-2 family.
 
 Layer parameters keep the reference's layer-stacked layout: every leaf
 under ``stack/pos0/`` has a leading ``(num_layers, ...)`` axis (after the
 client axis, when the leaf is per client), and the ``lax.scan`` over layers
-becomes a Python loop that slices layer ``l`` out of each leaf.
+becomes a Python loop that slices layer ``l`` out of each leaf.  The decode
+cache stacks the layers' KV caches the same way, ``(L, ...)``, and layer
+``l`` writes into its slice in place.
 """
 
 from __future__ import annotations
@@ -14,15 +16,17 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attn_apply
+from repro_torch.models.attention import KVCache, attn_apply, init_kv_cache
 from repro_torch.models.layers import gelu, layer_norm, linear
 
-__all__ = ["StackState", "STACK_PREFIX", "layer_slice", "stack_apply"]
+__all__ = [
+    "StackState", "STACK_PREFIX", "LAYER_NDIM", "layer_slice", "init_stack_cache", "stack_apply",
+]
 
 STACK_PREFIX = "stack/pos0/"
 # dims of one layer's leaf of ONE model, by its last path component; a
 # stack leaf has these + 1 (the layer axis), + 2 with a leading client axis
-_LAYER_NDIM = {"w": 2, "b": 1, "scale": 1, "bias": 1, "A": 2, "B": 2}
+LAYER_NDIM = {"w": 2, "b": 1, "scale": 1, "bias": 1, "A": 2, "B": 2}
 
 
 class StackState(NamedTuple):
@@ -36,18 +40,31 @@ def layer_slice(params: dict[str, torch.Tensor], l: int) -> dict[str, torch.Tens
     out = {}
     for key, t in params.items():
         if key.startswith(STACK_PREFIX):
-            per_client = t.ndim == _LAYER_NDIM[key.rsplit("/", 1)[-1]] + 2
+            per_client = t.ndim == LAYER_NDIM[key.rsplit("/", 1)[-1]] + 2
             out[key[len(STACK_PREFIX):]] = t[:, l] if per_client else t[l]
     return out
 
 
-def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> StackState:
-    """Run the ``cfg.num_layers`` pre-norm blocks over ``x (C, B, S, D)``."""
+def init_stack_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                     device: str | torch.device = "cuda") -> dict[str, KVCache]:
+    """The stack's decode cache, ``{"pos0": KVCache}`` (the reference's
+    period dict, one period for the GPT-2 family) with every field stacked
+    over the ``cfg.num_layers`` layers."""
+    one = init_kv_cache(cfg, batch, cache_len, device)
+    return {"pos0": KVCache(*(t.expand((cfg.num_layers,) + t.shape).clone() for t in one))}
+
+
+def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
+                caches: dict[str, KVCache] | None = None) -> StackState:
+    """Run the ``cfg.num_layers`` pre-norm blocks over ``x (C, B, S, D)``;
+    with ``caches`` (decode) layer ``l`` attends over, and writes into, its
+    slice of the stacked cache in place."""
     lora_h = None
     for l in range(cfg.num_layers):
         lp = layer_slice(params, l)
         h_in = layer_norm(x, lp["norm1/scale"], lp["norm1/bias"])
-        y, h = attn_apply(lp, h_in, cfg)
+        cache = None if caches is None else KVCache(*(t[l] for t in caches["pos0"]))
+        y, h = attn_apply(lp, h_in, cfg, cache=cache)
         if h is not None:
             lora_h = h.mean(dim=2)  # (C, B, r): paper eq. 8, pooled over the sequence
         x = x + y

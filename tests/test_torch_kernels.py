@@ -267,12 +267,15 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
 
 
 def test_every_kernel_source_exists_and_is_built_by_name():
-    assert set(build.SOURCES) == {"sparse_agg", "topk_select"}
+    assert set(build.SOURCES) == {"sparse_agg", "topk_select", "distill_kl", "flash_attention"}
     for src in build.SOURCES.values():
         assert src.is_file() and src.suffix == ".cu"
     text = {name: src.read_text() for name, src in build.SOURCES.items()}
     assert "int topk_mask_f32(" in text["topk_select"]
     assert "int sparse_aggregate_f32(" in text["sparse_agg"]
+    assert "int distill_kl_f32(" in text["distill_kl"]
+    assert "int flash_attention_f32(" in text["flash_attention"]
     # the launches the wrappers count, one counter per wrapper
     assert set(ops.LAUNCHES) == {"topk_mask_dynamic", "topk_mask", "sparse_aggregate",
-                                 "scatter_wire_sums", "scatter_wire_sums_dequant"}
+                                 "scatter_wire_sums", "scatter_wire_sums_dequant",
+                                 "distill_kl", "flash_attention"}

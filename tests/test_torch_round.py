@@ -278,23 +278,29 @@ def test_fused_engine_dense_uplink_matches_reference():
                 assert np.linalg.norm(v.numpy() - j_lora[k]) <= 1e-5 * np.linalg.norm(j_lora[k]), k
 
 
-# The first two ids are kept from when the batched and fused engines were
-# not carried; the cases now check the sequential engine, and the fused
-# engine with shard_clients.
-@pytest.mark.parametrize("change,item", [
-    pytest.param(dict(engine="sequential"), "sequential engine",
-                 id="change0-sequential and batched engines"),
-    pytest.param(dict(engine="fused", shard_clients=True), "scale-out", id="change1-fused engine"),
-    (dict(pretrain_steps=80), "pretraining"),
-    (dict(compute_dtype="bfloat16"), "bf16"),
-    (dict(scenario="gauss_markov"), "scenarios and faults"),
-    (dict(faults="crashes"), "scenarios and faults"),
-    (dict(fleet_store="host"), "host fleet store"),
-    (dict(scan_rounds=True), "run_rounds"),
-    (dict(shard_clients=True), "scale-out"),
+_QUEUE = "ROADMAP.md port queue: "
+
+
+@pytest.mark.parametrize("change,match", [
+    pytest.param(dict(engine="fused", shard_clients=True), _QUEUE + "launchers and scale-out",
+                 id="fused-shard_clients"),
+    pytest.param(dict(pretrain_steps=80), _QUEUE + "pretraining", id="pretrain_steps"),
+    pytest.param(dict(compute_dtype="bfloat16"), _QUEUE + "bf16", id="bf16-compute"),
+    pytest.param(dict(scenario="gauss_markov"), _QUEUE + "scenarios and faults",
+                 id="channel-scenario"),
+    pytest.param(dict(faults="crashes"), _QUEUE + "scenarios and faults", id="fault-injection"),
+    pytest.param(dict(fleet_store="host"), _QUEUE + "the host fleet store",
+                 id="fused_e2e-host-fleet-store"),
+    pytest.param(dict(scan_rounds=True), _QUEUE + "run_rounds and scan_rounds", id="scan_rounds"),
+    pytest.param(dict(shard_clients=True), _QUEUE + "launchers and scale-out",
+                 id="fused_e2e-shard_clients"),
+    # the reference's own refusal, kept by the port's sequential engine
+    pytest.param(dict(engine="sequential", fleet_store="host"),
+                 "fleet_store='host' is not supported by the sequential reference engine",
+                 id="sequential-host-fleet-store"),
 ])
-def test_what_the_port_does_not_carry_raises(change, item):
+def test_what_the_port_does_not_carry_raises(change, match):
     fed = TFed(**{**_fed_kwargs("float_wire"), **change})
     ds = t_dataset(vocab_size=256, seq_len=12, total=500, seed=0)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md port queue: .*{item}"):
+    with pytest.raises(NotImplementedError, match=match):
         t_rounds.run_federated(T_CLIENT, T_SERVER, ds, fed, device="cpu")

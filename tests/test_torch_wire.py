@@ -157,9 +157,13 @@ def test_total_distill_loss_matches_reference(restrict_to_support, with_h):
     for t, j in ((t_loss, j_loss), (t_parts["logits"], j_parts["logits"]),
                  (t_parts["lora"], j_parts["lora"])):
         np.testing.assert_allclose(float(t), float(j), rtol=1e-5, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="port queue: the sequential engine and kernel 6"):
-        t_distill.logits_distill_loss(torch.as_tensor(teacher), torch.as_tensor(student),
-                                      use_kernel=True)
+    # use_kernel=True: the fused KL kernel's route (its plain version on the CPU)
+    # against the reference's (its Pallas kernel in interpret mode)
+    j_kern = j_distill.logits_distill_loss(jnp.asarray(teacher), jnp.asarray(student), 2.0,
+                                           use_kernel=True)
+    t_kern = t_distill.logits_distill_loss(torch.as_tensor(teacher), torch.as_tensor(student),
+                                           2.0, use_kernel=True)
+    np.testing.assert_allclose(float(t_kern), float(j_kern), rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 42, 7])
