@@ -9,12 +9,15 @@ Phases (any failure raises and exits non-zero):
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main path's widths:
    * the wire scatters (4 clients x 64 public samples x vocab 50 257,
-     k_cap 128 and 1024; k = 0 client rows, wire padding at index 0 beside
+     k_cap 128 and 1024, and 8 rows x V 152 064, k_cap 1024, which takes
+     more column tiles; k = 0 client rows, wire padding at index 0 beside
      a real index-0 entry, negative values), ``torch.equal``;
    * the bisection top-k masks, per-row budget and static k, at 256 rows x
-     V 50 257 (the shared-memory path) and 8 rows x V 152 064 (the
+     V 50 257 (the shared-memory path) and 16 rows x V 152 064 (the
      global-memory path): k = 0, 1, V and > V, ties at the threshold, an
-     all-negative and a constant row, ``torch.equal``;
+     all-negative and a constant row, a row holding a NaN (which keeps
+     nothing), a row holding +inf and -inf, a row of spread 1e-3 and a row
+     near 3e38 (where lo + hi overflows), ``torch.equal``;
    * the dense adaptive aggregation at (4, 64, 50 257) on a top-k-sparse
      and on a dense random stack, ``torch.equal``;
    * the distillation KL per row at (64, 50 257) and (8, 152 064), T in
@@ -71,7 +74,10 @@ Phases (any failure raises and exits non-zero):
    requires grad must raise).
 7. timing — each kernel's C entry point, its wrapper, its plain version and
    one PyTorch library call where one computes the same function, at the
-   main path's shapes, beside the least time the card could take.
+   main path's shapes, beside the least time the card could take.  The
+   top-k's work depends on its input: it is timed on the ``fused`` float
+   run's own last-round input (captured at its call), on random rows and
+   on constant rows (its worst case).
 
 The last two lines are the kernels record and the device record (JSON).
 In the kernels record ``launches`` is each kernel's count summed over the
@@ -84,6 +90,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -149,14 +156,14 @@ def log(msg: str) -> None:
 # -- inputs -------------------------------------------------------------------
 
 
-def make_wire(k_cap: int, seed: int, device):
+def make_wire(k_cap: int, seed: int, device, rows: int = ROWS, vocab: int = VOCAB):
     """A cohort wire shaped as the main path shapes it, from sparsify_wire
     on random logits, with the edge cases forced in: client 2 sends nothing
     (k = 0), clients 1 and 3 pad their masked entries at index 0 (as
     ``pad_wire`` does) while rows of client 1 send a real index-0 entry,
     and client 3's logits are all negative."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    logits = torch.randn((N_CLIENTS, ROWS, VOCAB), generator=gen, device=device)
+    logits = torch.randn((N_CLIENTS, rows, vocab), generator=gen, device=device)
     logits[1, ::2, 0] = 10.0  # index 0 in client 1's top-k on even rows
     logits[3] -= 20.0
     ks = [k_cap, k_cap // 2, 0, 3]
@@ -174,11 +181,18 @@ def float_channels(wire, mode: str):
     return v, m
 
 
+TOPK_EDGE_ROWS = 12
+
+
 def topk_rows(rows: int, vocab: int, seed: int, device):
     """(rows, V) logits and int32 budgets with the edge cases in the first
-    eight rows — k = 0, 1, V and V + 7 on random rows; a tie of 12 at the
+    twelve rows — k = 0, 1, V and V + 7 on random rows; a tie of 12 at the
     threshold for k = 10; an all-negative row; a constant row; a row of
-    half-integers — and budgets of 1..1024 on the random rest."""
+    half-integers; a row holding a NaN (min and max are NaN: nothing kept);
+    a row holding +inf and -inf (every mid is NaN); a row of spread 1e-3
+    (the candidate set shrinks late); a row near 3e38 (lo + hi overflows:
+    the kernel's full-pass fallback) — and budgets of 1..1024 on the
+    random rest."""
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((rows, vocab), generator=gen, device=device)
     x[4] = torch.randint(-3, 3, (vocab,), generator=gen, device=device).float()
@@ -186,8 +200,14 @@ def topk_rows(rows: int, vocab: int, seed: int, device):
     x[5] -= 50.0
     x[6] = 2.5
     x[7] = torch.round(x[7] * 2) / 2
+    x[8, 123] = float("nan")
+    x[9, 7], x[9, 9] = float("inf"), float("-inf")
+    x[10] = 1.0 + 1e-3 * x[10]
+    x[11] = 3e38
+    x[11, :50] = 3.3e38
     ks = torch.randint(1, 1025, (rows,), generator=gen, device=device, dtype=torch.int32)
-    ks[:8] = torch.tensor([0, 1, vocab, vocab + 7, 10, 7, 3, 20], dtype=torch.int32)
+    ks[:TOPK_EDGE_ROWS] = torch.tensor([0, 1, vocab, vocab + 7, 10, 7, 3, 20, 5, 5, 300, 60],
+                                       dtype=torch.int32)
     return x, ks
 
 
@@ -288,45 +308,71 @@ def phase_device():
     return torch.device("cuda"), card
 
 
+def ptxas_report(text: str, keys: tuple[str, ...]) -> list[str]:
+    """Registers, shared memory and spills per kernel from ``nvcc -Xptxas
+    -v`` output, for the entry functions whose name holds one of ``keys``."""
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+            continue
+        if "spill stores" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name and any(key in name for key in keys):
+            key = next(key for key in keys if key in name)
+            args = [a for a, tag in (("FloatWire", "FloatWire"), ("Int8Wire", "Int8Wire"),
+                                     ("true", "Lb1E"), ("false", "Lb0E")) if tag in name]
+            out.append(f"{key}<{', '.join(args)}>: {m.group(1)} registers{m.group(2)}; {spill}")
+            name = None
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] {', '.join(map(str, libs.values()))} in {time.perf_counter() - t0:.1f} s")
+    report = (ptxas_report(build.build_log("topk_select"), ("topk_mask_kernel",))
+              + ptxas_report(build.build_log("sparse_agg"), ("scatter_wire_kernel",)))
+    log(f"[build] ptxas -v: {' | '.join(report) or 'no log (library built earlier)'}")
 
 
 def check_scatter_kernels(device):
-    for k_cap in (128, 1024):
-        wire = make_wire(k_cap, seed=k_cap, device=device)
+    for k_cap, rows, vocab in ((128, ROWS, VOCAB), (1024, ROWS, VOCAB), (1024, WIDE_ROWS, WIDE_VOCAB)):
+        wire = make_wire(k_cap, seed=k_cap, device=device, rows=rows, vocab=vocab)
         for mode in MODES:
             a, b = float_channels(wire, mode)
-            got = ops.scatter_wire_sums(a, b, wire.indices, VOCAB)
-            want = ref.scatter_wire_sums_ref(a, b, wire.indices, VOCAB)
+            got = ops.scatter_wire_sums(a, b, wire.indices, vocab)
+            want = ref.scatter_wire_sums_ref(a, b, wire.indices, vocab)
             torch.cuda.synchronize()
             assert all(torch.equal(g, w) for g, w in zip(got, want)), ("scatter_wire_sums", k_cap, mode)
         qw = quantize_wire(wire)
         for mode in MODES:
-            got = ops.scatter_wire_sums_dequant(qw.values, qw.scale, qw.mask, qw.indices, VOCAB, mode)
-            want = ref.scatter_wire_sums_dequant_ref(qw.values, qw.scale, qw.mask, qw.indices, VOCAB, mode)
+            got = ops.scatter_wire_sums_dequant(qw.values, qw.scale, qw.mask, qw.indices, vocab, mode)
+            want = ref.scatter_wire_sums_dequant_ref(qw.values, qw.scale, qw.mask, qw.indices, vocab, mode)
             torch.cuda.synchronize()
             assert all(torch.equal(g, w) for g, w in zip(got, want)), ("dequant", k_cap, mode)
         # the edge cases really are in the data
         assert not wire.mask[2].any() and bool(((wire.indices[1] == 0) & wire.mask[1]).any())
         assert bool((wire.values[3][wire.mask[3]] < 0).all())
         log(f"[kernels] k_cap={k_cap}: both wire scatters torch.equal to their plain versions "
-            f"in all 3 modes at N={N_CLIENTS} rows={ROWS} V={VOCAB}")
+            f"in all 3 modes at N={N_CLIENTS} rows={rows} V={vocab}")
 
 
 def check_topk_kernels(device):
     smem_max = ops.smem_max_vocab(device.index or 0)
+    # V 50 257 takes the shared-memory path, V 152 064 the device-memory one
     assert VOCAB <= smem_max < WIDE_VOCAB, (smem_max, VOCAB, WIDE_VOCAB)
-    for rows, vocab in ((N_CLIENTS * ROWS, VOCAB), (WIDE_ROWS, WIDE_VOCAB)):
+    for rows, vocab in ((N_CLIENTS * ROWS, VOCAB), (2 * WIDE_ROWS, WIDE_VOCAB)):
         x, ks = topk_rows(rows, vocab, seed=vocab, device=device)
         got = ops.topk_mask_dynamic(x, ks)
         want = ref.topk_mask_ref(x, torch.clamp(ks, 0, vocab), guard=True)
         torch.cuda.synchronize()
         assert torch.equal(got, want), ("topk_mask_dynamic", rows, vocab)
         kept = (want != 0).sum(dim=1).tolist()
-        assert kept[:4] == [0, 1, vocab, vocab] and kept[4] == 12 and kept[6] == vocab, kept[:8]
+        assert kept[:4] == [0, 1, vocab, vocab] and kept[4] == 12 and kept[6] == vocab, kept[:12]
+        assert kept[8] == 0 and kept[9] == vocab, kept[:12]  # a NaN row keeps nothing
         for k in (0, 1, 517, vocab, vocab + 5):
             got = ops.topk_mask(x, k)
             want = ref.topk_mask_ref(x, torch.full((rows,), min(k, vocab), dtype=torch.int32,
@@ -335,8 +381,8 @@ def check_topk_kernels(device):
             assert torch.equal(got, want), ("topk_mask", rows, vocab, k)
         path = "shared-memory" if vocab <= smem_max else "global-memory"
         log(f"[kernels] rows={rows} V={vocab} ({path} path): top-k masks torch.equal to their "
-            f"plain versions, per-row k (0, 1, V, V+7, ties, all-negative, constant) and "
-            f"static k in (0, 1, 517, V, V+5)")
+            f"plain versions, per-row k (0, 1, V, V+7, ties, all-negative, constant, NaN row "
+            f"kept {kept[8]}, +-inf, spread 1e-3, near 3e38) and static k in (0, 1, 517, V, V+5)")
 
 
 def check_sparse_aggregate(device):
@@ -479,8 +525,18 @@ def phase_main_path(device, engine: str, quantize: bool) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    captured, topk_dynamic = {}, ops.topk_mask_dynamic
+    if engine == "fused" and not quantize:
+        def capture(logits, ks):  # the fused client phase's input, the last round's kept
+            captured["x"], captured["ks"] = logits.clone(), ks.clone()
+            return topk_dynamic(logits, ks)
+
+        ops.topk_mask_dynamic = capture
     ops.reset_launches()  # this path's launches only, from here
-    run, eng, srv = _drive(GPT2_SMALL, GPT2_LARGE, ds, fed, device)
+    try:
+        run, eng, srv = _drive(GPT2_SMALL, GPT2_LARGE, ds, fed, device)
+    finally:
+        ops.topk_mask_dynamic = topk_dynamic
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     wall = time.perf_counter() - t0
@@ -515,6 +571,9 @@ def phase_main_path(device, engine: str, quantize: bool) -> dict:
     assert all(k > 0 for ks in run.per_client_k for k in ks)  # default channel: everyone transmits
     out = {"launches": launches, "per_client_k": run.per_client_k, "entry_launches": {},
            "bytes": [(r.uplink_bytes, r.downlink_bytes, r.num_transmitters) for r in run.ledger.rounds]}
+    if captured:
+        x, ks = captured["x"], captured["ks"]
+        out["topk_input"] = (x.reshape(-1, x.shape[-1]), ks.reshape(-1))
     if engine == "sequential":
         out["entry_launches"] = kl_entry(eng, srv, tokens, fed.temperature)
     if engine == "fused":
@@ -738,43 +797,62 @@ def time_scatter(name: str, k_cap: int, device) -> dict:
                 f"N={n} rows={rows} k_cap={k} V={VOCAB}")
 
 
-def time_topk(name: str, ks: list[int], device) -> dict:
-    """The top-k masks at the fused main path's shape: the cohort's
-    (C·64, V) rows with the run's per-client budgets (static k: their
-    largest).  The work is data-independent: min/max, 30 counting passes
-    and the masked write over every element."""
-    rows = len(ks) * ROWS
+def time_topk(name: str, real, device) -> dict:
+    """The top-k masks at the fused main path's shape, (C·64, V) rows, on
+    three inputs, since the candidate bisection's work depends on the data:
+    the ``fused`` float run's real input of its last round (the row's
+    ``ms``), random normal rows with those budgets (``ms_random``, the input
+    earlier PRs timed) and constant rows (``ms_constant``: the candidate set
+    never shrinks, every step is a full pass, the worst case).  The static
+    k is the largest budget."""
+    x_real, kk = real
+    rows = x_real.shape[0]
     gen = torch.Generator(device=device).manual_seed(5)
-    x = torch.randn((rows, VOCAB), generator=gen, device=device)
-    kk = torch.tensor(ks, dtype=torch.int32, device=device).repeat_interleave(ROWS)
-    k_max = max(ks)
-    out = torch.empty_like(x)
+    inputs = {"real": x_real, "random": torch.randn((rows, VOCAB), generator=gen, device=device),
+              "constant": torch.full((rows, VOCAB), 0.5, device=device)}
+    k_max = int(kk.max())
+    out = torch.empty_like(x_real)
     stream = torch.cuda.current_stream(device).cuda_stream
     fn = ops._fn("topk_select", "topk_mask_f32", 3, 5)
     use_smem = int(VOCAB <= ops.smem_max_vocab(device.index or 0))
-    if name == "topk_mask_dynamic":
-        ptrs = (x.data_ptr(), kk.data_ptr(), out.data_ptr())
-        raw = lambda: fn(*ptrs, rows, VOCAB, 0, 1, use_smem, stream)  # noqa: E731
-        wrapper = lambda: ops.topk_mask_dynamic(x, kk)  # noqa: E731
-        plain = lambda: ref.topk_mask_ref(x, kk, guard=True)  # noqa: E731
-        in_bytes, desc = rows * VOCAB * 4 + rows * 4, f"rows={rows} V={VOCAB} k={ks}"
-    else:
+    k_all = torch.full((rows,), k_max, dtype=torch.int32, device=device)
+    dynamic = name == "topk_mask_dynamic"
+
+    def calls(x):
+        if dynamic:
+            ptrs = (x.data_ptr(), kk.data_ptr(), out.data_ptr())
+            raw = lambda: fn(*ptrs, rows, VOCAB, 0, 1, use_smem, stream)  # noqa: E731
+            return (raw, lambda: ops.topk_mask_dynamic(x, kk),
+                    lambda: ref.topk_mask_ref(x, kk, guard=True))
         ptrs = (x.data_ptr(), None, out.data_ptr())
         raw = lambda: fn(*ptrs, rows, VOCAB, k_max, 0, use_smem, stream)  # noqa: E731
-        wrapper = lambda: ops.topk_mask(x, k_max)  # noqa: E731
-        k_all = torch.full((rows,), k_max, dtype=torch.int32, device=device)
-        plain = lambda: ref.topk_mask_ref(x, k_all, guard=False)  # noqa: E731
-        in_bytes, desc = rows * VOCAB * 4, f"rows={rows} V={VOCAB} k={k_max}"
+        return raw, lambda: ops.topk_mask(x, k_max), lambda: ref.topk_mask_ref(x, k_all, guard=False)
+
+    extra = {}
+    for label in ("random", "constant"):
+        raw, _, plain = calls(inputs[label])
+        want = plain()
+        assert raw() == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (name, label)
+        extra[f"ms_{label}"] = time_ms(raw)
+    raw, wrapper, plain = calls(x_real)
     want = plain()
 
     def check():
         assert torch.equal(out, want)
         return float((out - want).abs().max())
 
-    library = lambda: torch.topk(x, k_max, dim=-1)  # noqa: E731  (the selection, not the mask)
-    ops_done = (2 + 30 + 1) * rows * VOCAB  # min and max, 30 counting passes, the masked select
-    return _row(name, raw, wrapper, plain, library, check, in_bytes + rows * VOCAB * 4, ops_done,
-                desc)
+    library = lambda: torch.topk(x_real, k_max, dim=-1)  # noqa: E731  (the selection, not the mask)
+    in_bytes = rows * VOCAB * 4 + (rows * 4 if dynamic else 0)
+    # the least work of any bisection on these inputs: min and max, one
+    # counting pass, the masked select (the kernel's passes depend on the data)
+    ops_done = 4 * rows * VOCAB
+    desc = f"rows={rows} V={VOCAB} k={sorted(set(kk.tolist())) if dynamic else k_max} (real input)"
+    row = _row(name, raw, wrapper, plain, library, check, in_bytes + rows * VOCAB * 4, ops_done, desc)
+    log(f"[timing] {name} on random rows {extra['ms_random']:.4f} ms, on constant rows "
+        f"{extra['ms_constant']:.4f} ms (torch.equal to the plain version on both)")
+    return {**row, **extra}
 
 
 def time_sparse_aggregate(ks: list[int], device) -> dict:
@@ -876,9 +954,10 @@ def main() -> int:
         for name, quant in (("scatter_wire_sums", False), ("scatter_wire_sums_dequant", True))
     }
     fused_ks = runs[("fused", False)]["per_client_k"][-1]
+    topk_input = runs[("fused", False)]["topk_input"]
     rows = [time_scatter(name, k_cap, device) for name, k_cap in k_caps.items()]
-    rows += [time_topk("topk_mask_dynamic", fused_ks, device), time_sparse_aggregate(fused_ks, device),
-             time_topk("topk_mask", fused_ks, device), time_distill_kl(device),
+    rows += [time_topk("topk_mask_dynamic", topk_input, device), time_sparse_aggregate(fused_ks, device),
+             time_topk("topk_mask", topk_input, device), time_distill_kl(device),
              time_flash_attention(serving["qkv"], device)]
     rows = [{**row, "launches": launches[row["name"]],
              **({"entry_launches": entry[row["name"]]} if row["name"] in entry else {})}

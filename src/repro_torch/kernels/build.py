@@ -5,7 +5,9 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 :mod:`repro_torch.kernels.ops` calls through ``ctypes``.  A build runs at
 first use, into ``<repo>/build/kernels/<name>-<hash>/``, keyed by a hash of
 the source and the flags, so an unchanged source is never compiled twice;
-:func:`build_all` starts one ``nvcc`` per source, all at once.  Nothing here
+:func:`build_all` starts one ``nvcc`` per source, all at once.  Each build
+keeps ``nvcc``'s output (with ``ptxas``'s registers, shared memory and
+spills per kernel) beside its library, read back by :func:`build_log`.  Nothing here
 runs at import time: the CPU tests import this module on machines with no
 CUDA toolkit.
 """
@@ -19,14 +21,14 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "nvcc_path"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "build_log", "load", "nvcc_path"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES: dict[str, Path] = {name: _CSRC / f"{name}.cu" for name in (
     "sparse_agg", "topk_select", "distill_kl", "flash_attention")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -74,10 +76,18 @@ def build_all(names=None) -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
         else:
+            out.with_name("nvcc.log").write_text(log)
             os.replace(tmp, out)  # atomic: a reader never sees half a library
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {name: _lib_path(name) for name in names}
+
+
+def build_log(name: str) -> str:
+    """``nvcc``'s output from building ``name`` (empty if it was built
+    before logs were kept)."""
+    log = _lib_path(name).with_name("nvcc.log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -12,30 +12,67 @@
 // The dynamic kernel reads one int32 budget per row, clamps it to [0, V],
 // and zeroes a k = 0 row (a dropped straggler); the static
 // kernel takes one k = min(k, V) for every row and has no k > 0 guard.
-// Ties at the threshold are all kept.
+// Ties at the threshold are all kept.  A NaN anywhere in the row makes min
+// and max NaN (as torch.amin / jnp.min do), so lo is NaN and the row comes
+// out all zero.
 //
 // What bounds them on H100: the row must be read once and the masked row
-// written once, rows*V*8 bytes (25.7 MB each way at 256 x 50257, ~31 us at
-// 3.35 TB/s); the 30 counting passes are on-chip work on top of that.
+// written once, rows*V*8 bytes (103 MB at 256 x 50257, ~31 us at
+// 3.35 TB/s).  Everything else is on-chip work, which the design keeps
+// small against that.
 //
 // Design.  The Pallas kernel holds a block of rows in VMEM and runs the 30
-// passes there.  Here one block of 1024 threads owns one row:
-//   * smem path (V*4 bytes fit the 227 KB a Hopper block can opt into):
-//     the row is loaded once into dynamic shared memory, the min/max and
-//     the 30 counting passes read shared memory, and the masked row is
-//     written from it — one read and one write of device memory per row.
-//   * global path (wider rows, e.g. 152k-256k vocabularies): the same
-//     kernel with every pass re-reading the row from device memory (it
-//     stays in the 50 MB L2 for a handful of rows in flight).
-// The wrapper picks the path from V.  Each pass's count is an integer
-// block reduction (__reduce_add_sync per warp, then the warps' partials in
-// shared memory), min and max are exact, and mid / max + 1 are written
-// with __fadd_rn / __fmul_rn, so every step is the same rounded fp32
-// operation as the plain version's and the result is bitwise equal to it
-// (and to the reference's topk_mask_dynamic), whatever the thread order.
-// Every thread sums the warps' partials itself, so all threads take the
-// same branch without another broadcast; the partials are double-buffered
-// by pass parity so one __syncthreads() per pass suffices.
+// passes there.  Here one block of 512 threads owns one row.
+//   * The row goes to shared memory once (rows up to ~56k floats: the row
+//     plus a candidate buffer within the 227 KB a block may opt into, so
+//     one block an SM: 256 rows run in two waves).  One thread issues it as
+//     eight TMA bulk copies (cp.async.bulk, one mbarrier each) of whole
+//     16-byte granules, and the threads reduce each chunk as it lands.  V is
+//     odd, so a row starts at any float phase p of its granule: the copy
+//     starts at the granule below the row, element c sits at smem[p + c],
+//     and the lanes of the first and last granules that belong to the
+//     neighbouring rows are masked (then overwritten with NaN, which counts
+//     nowhere).
+//   * What decides a step.  count(x >= mid) >= k holds iff mid <= X_k, the
+//     k-th largest x of the row (k >= 1).  The block keeps a candidate
+//     interval [clo, chi) that holds X_k, with the exact counts
+//     cnt = #{x >= clo} >= k and above = #{x >= chi} < k.  A mid <= clo
+//     takes, a mid >= chi (or NaN) does not, and only a mid inside
+//     (clo, chi) needs a count, which then narrows the interval:
+//         count(x >= mid) = above + #{c in buffer : mid <= c < chi}
+//     for any buffer that holds every x in [clo, chi).  So each mid is the
+//     same rounded fp32 value as the plain version's (__fadd_rn /
+//     __fmul_rn), every decision the same, and the mask bitwise the same.
+//   * Bracketing X_k as the row loads.  The load is bound by device memory
+//     and leaves the ALUs idle, so every thread also counts #{x >= t} at
+//     three thresholds t, at mean + {1.75, 2.25, 2.75} standard deviations
+//     of the first chunk: before the first step [clo, chi) is already
+//     narrow, and on the main path's rows no full pass is left.  (Eight
+//     thresholds made the load ALU-bound; thresholds spread over the first
+//     chunk's range moved with single outliers.)  min and max are taken
+//     with min.NaN / max.NaN, so a NaN needs no test of its own.
+//   * Counting.  While [clo, chi) holds more than the buffer (~7.5k values
+//     at V = 50257), a count is a full pass over the row (16-byte shared
+//     loads, one compare a value, one __syncthreads a step).  Once it fits,
+//     one pass copies it to the buffer (each thread's count of it, a scan,
+//     plain stores; at the first step the counts come from the load's
+//     threshold counts, taken over the same granules in the same order),
+//     counts run over the buffer, and the buffer is compacted again
+//     whenever the set halves.  At 1024 values warp 0 takes them into
+//     registers (32 a lane, repacked to 4 and to 1 as the set shrinks; a
+//     count is a ballot and a popc a register, no barrier).  With one value
+//     a lane, X_k is the one of rank k - above: [clo, chi) closes on it and
+//     the remaining steps need no count at all.  Constant or all-tied rows
+//     never shrink the set and keep full passes.
+//   * The masked row is written from shared memory with 16-byte stores
+//     (lane by lane for the two edge granules, or for the whole row if out
+//     sits on another phase than x).  A k = 0 row of the dynamic kernel is
+//     written as zeros without reading x; a NaN anywhere makes lo NaN and
+//     the row zero, as in the plain version; at k <= 0 (static) every step
+//     takes.
+//   * Rows too wide for shared memory (e.g. 152k vocabularies) run the same
+//     code with the row read from device memory (L2) on every pass and only
+//     the candidate buffer in shared memory.  Not tuned.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC   (no fast math: the value math must be IEEE).
@@ -48,94 +85,647 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kIters = 30;  // = BISECTION_ITERS of the plain version
+constexpr int kIters = 30;          // = BISECTION_ITERS of the plain version
+constexpr int kPerThread = 16;      // buffer values a thread stages to compact in place
+constexpr int kCapMax = kThreads * kPerThread;
+constexpr int kMinCap = 1024;       // the least buffer the shared-memory path accepts
+constexpr int kLaneRegs = 32;
+constexpr int kWarpCap = 32 * kLaneRegs;  // buffer size at which warp 0 takes over
+constexpr int kChunks = 8;          // TMA bulk copies per row
+constexpr int kGrid = 3;            // thresholds counted while the row loads
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// The bisection (lo, hi, it) and the candidate interval [clo, chi) that
+// holds X_k, the k-th largest x of the row: cnt = #{x >= clo} >= k and
+// above = #{x >= chi} < k.  A step takes (lo = mid) iff count(x >= mid) >= k,
+// i.e. iff mid <= X_k; only a mid inside (clo, chi) needs a count.
+struct Bisect {
+  float lo, hi, clo, chi;
+  int cnt, above;
+  int n_buf;  // values in the buffer (a superset of [clo, chi)), -1 before any
+  int it;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
 }
 
 template <bool kSmem>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float4 ld4(const float4* p) {
+  if (kSmem) return *p;
+  return __ldg(p);
+}
+
+// Granule g of the row (row element 4g + j - p in lane j); lanes outside
+// the row are set to `fill`.
+template <bool kSmem>
+__device__ __forceinline__ float4 granule(const float4* base, int g, int G, int p,
+                                          int vocab, float fill) {
+  float4 v = ld4<kSmem>(base + g);
+  if (g == 0 || g == G - 1) {
+    const int c = 4 * g - p;
+    if (c < 0 || c >= vocab) v.x = fill;
+    if (c + 1 < 0 || c + 1 >= vocab) v.y = fill;
+    if (c + 2 < 0 || c + 2 >= vocab) v.z = fill;
+    if (c + 3 < 0 || c + 3 >= vocab) v.w = fill;
+  }
+  return v;
+}
+
+// Block sums of N ints; every thread gets the totals.  One barrier; the
+// partials are double-buffered by `par`, which the call flips.
+template <int N>
+__device__ __forceinline__ void block_sum(int (&v)[N], int (*s)[4][kWarps], int& par) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int t = __reduce_add_sync(kFull, v[i]);
+    if (lane == 0) s[par][i][warp] = t;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int4* q = reinterpret_cast<const int4*>(s[par][i]);
+    int tot = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps / 4; ++w) {
+      const int4 x = q[w];
+      tot += x.x + x.y + x.z + x.w;
+    }
+    v[i] = tot;
+  }
+  par ^= 1;
+}
+
+// min and max that return NaN when either input is NaN (torch.amin's rule)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// Block min and max, NaN if any value is NaN; every thread gets both.
+__device__ __forceinline__ void block_minmax(float& mn, float& mx, float* s_min, float* s_max) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = min_nan(mn, __shfl_xor_sync(kFull, mn, o));
+    mx = max_nan(mx, __shfl_xor_sync(kFull, mx, o));
+  }
+  __syncthreads();  // the previous use of s_min / s_max is over
+  if (lane == 0) {
+    s_min[warp] = mn;
+    s_max[warp] = mx;
+  }
+  __syncthreads();
+  mn = s_min[0];
+  mx = s_max[0];
+  for (int w = 1; w < kWarps; ++w) {
+    mn = min_nan(mn, s_min[w]);
+    mx = max_nan(mx, s_max[w]);
+  }
+}
+
+// Block sums of two floats (statistics only: their order is free).
+__device__ __forceinline__ float2 block_sum_f2(float2 v, float* s_a, float* s_b) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x += __shfl_xor_sync(kFull, v.x, o);
+    v.y += __shfl_xor_sync(kFull, v.y, o);
+  }
+  if (lane == 0) {
+    s_a[warp] = v.x;
+    s_b[warp] = v.y;
+  }
+  __syncthreads();
+  v = make_float2(0.0f, 0.0f);
+  for (int w = 0; w < kWarps; ++w) {
+    v.x += s_a[w];
+    v.y += s_b[w];
+  }
+  return v;
+}
+
+// Append the flagged values (four a lane) to the buffer: ballots give each
+// its place, one shared atomic per warp reserves them.  All 32 lanes call.
+__device__ __forceinline__ void warp_append(float* buf, int* fill, const float (&vals)[4],
+                                            unsigned flags) {
+  const unsigned lt = (1u << (threadIdx.x & 31)) - 1u;
+  int pos[4], total = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned m = __ballot_sync(kFull, flags >> j & 1u);
+    pos[j] = total + __popc(m & lt);
+    total += __popc(m);
+  }
+  if (total == 0) return;
+  int base = 0;
+  if ((threadIdx.x & 31) == 0) base = atomicAdd(fill, total);
+  base = __shfl_sync(kFull, base, 0);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (flags >> j & 1u) buf[base + pos[j]] = vals[j];
+}
+
+__device__ __forceinline__ unsigned in_flags(const float (&e)[4], float lo, float hi) {
+  unsigned flags = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) flags |= (unsigned)((e[j] >= lo) & (e[j] < hi)) << j;
+  return flags;
+}
+
+__device__ __forceinline__ float midpoint(float lo, float hi) {
+  return __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+}
+
+// The step's decision when no count is needed: false when mid lies inside
+// (clo, chi); else `take` is set (a NaN mid counts 0 < k: no).
+__device__ __forceinline__ bool free_step(const Bisect& s, float mid, bool& take) {
+  if (mid > s.clo && mid < s.chi) return false;
+  take = mid <= s.clo;
+  return true;
+}
+
+// Apply a step's outcome to the bisection.
+__device__ __forceinline__ void apply(Bisect& s, float mid, bool take) {
+  if (take) {
+    s.lo = mid;
+  } else {
+    s.hi = mid;
+  }
+  ++s.it;
+}
+
+// A counted step (cnt = count(x >= mid)) narrows the candidate interval.
+__device__ __forceinline__ void narrow(Bisect& s, float mid, int cnt, int k) {
+  if (cnt >= k) {
+    s.clo = mid;
+    s.cnt = cnt;
+  } else {
+    s.chi = mid;
+    s.above = cnt;
+  }
+}
+
+// Steps by one warp on the candidates in v (R a lane, NaN where empty),
+// until the bisection ends or [clo, chi) holds at most `limit` values.
+// Returns true when it ended.
+template <int R>
+__device__ __forceinline__ bool warp_run(Bisect& s, const float (&v)[R], int k, int limit) {
+  while (s.it < kIters) {
+    if (s.cnt - s.above <= limit) return false;
+    const float mid = midpoint(s.lo, s.hi);
+    bool take;
+    if (!free_step(s, mid, take)) {
+      int cnt = s.above;
+#pragma unroll
+      for (int j = 0; j < R; ++j) cnt += __popc(__ballot_sync(kFull, v[j] >= mid && v[j] < s.chi));
+      take = cnt >= k;
+      narrow(s, mid, cnt, k);
+    }
+    apply(s, mid, take);
+  }
+  return true;
+}
+
+template <int R>
+__device__ __forceinline__ void warp_load(float (&v)[R], const float* buf, int n) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < R; ++j) v[j] = lane + 32 * j < n ? buf[lane + 32 * j] : NAN;  // NaN never counts
+}
+
+// Write the values of v in [lo, hi) to the front of the buffer.
+template <int R>
+__device__ __forceinline__ void warp_keep(const float (&v)[R], float lo, float hi, float* buf) {
+  const unsigned lt = (1u << (threadIdx.x & 31)) - 1u;
+  __syncwarp();  // every lane has read the buffer
+  int total = 0;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const bool in = v[j] >= lo && v[j] < hi;
+    const unsigned m = __ballot_sync(kFull, in);
+    if (in) buf[total + __popc(m & lt)] = v[j];
+    total += __popc(m);
+  }
+  __syncwarp();
+}
+
+// The remaining steps, by warp 0 alone, on at most kWarpCap buffer values
+// held in registers: 32 a lane, repacked to 4 and then to 1 as the set
+// shrinks.  With one candidate a lane, X_k is the one of rank k - above:
+// [clo, chi) closes on it and every later step is decided without a count.
+__device__ __forceinline__ void warp_steps(Bisect& s, float* buf, int k) {
+  float v32[kLaneRegs];
+  warp_load(v32, buf, s.n_buf);
+  if (warp_run(s, v32, k, 32 * 4)) return;
+  warp_keep(v32, s.clo, s.chi, buf);
+  float v4[4];
+  warp_load(v4, buf, s.cnt - s.above);
+  if (warp_run(s, v4, k, 32)) return;
+  warp_keep(v4, s.clo, s.chi, buf);
+  const float mine = s.it < kIters && (threadIdx.x & 31) < s.cnt - s.above ? buf[threadIdx.x & 31]
+                                                                          : NAN;
+  const int kk = k - s.above;  // 1 <= kk <= cnt - above, as above < k <= cnt
+  int gt = 0, ge = 0;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const float o = __shfl_sync(kFull, mine, j);
+    gt += o > mine;
+    ge += o >= mine;
+  }
+  const unsigned who = __ballot_sync(kFull, mine == mine && gt < kk && kk <= ge);
+  if (who == 0) return;  // the bisection had ended
+  const float xk = __shfl_sync(kFull, mine, __ffs(who) - 1);
+  s.clo = xk;
+  s.chi = nextafterf(xk, INFINITY);  // every mid is now <= clo or >= chi
+  while (s.it < kIters) {
+    const float mid = midpoint(s.lo, s.hi);
+    bool take;
+    free_step(s, mid, take);
+    apply(s, mid, take);
+  }
+}
+
+// #{x >= mid} over the row.  The shared-memory row holds NaN in its pad
+// lanes, which counts nowhere; the device-memory row masks its two edge
+// granules.
+template <bool kSmem>
+__device__ __forceinline__ int count_row(const float4* row4, int G, int p, int vocab, float mid) {
+  int c = 0;
+#pragma unroll 4
+  for (int g = threadIdx.x; g < G; g += kThreads) {
+    const float4 v = kSmem ? row4[g] : granule<false>(row4, g, G, p, vocab, NAN);
+    c += (v.x >= mid) + (v.y >= mid) + (v.z >= mid) + (v.w >= mid);
+  }
+  return c;
+}
+
+template <bool kSmem>
+__device__ __forceinline__ void row_granule(const float4* row4, int g, int G, int p, int vocab,
+                                            float (&e)[4]) {
+  const float4 v = kSmem ? row4[g] : granule<false>(row4, g, G, p, vocab, NAN);
+  e[0] = v.x;
+  e[1] = v.y;
+  e[2] = v.z;
+  e[3] = v.w;
+}
+
+// Copy every x of the row with lo <= x < hi to the buffer: each thread's
+// count of them (`mine`, or a first loop when it is not known, -1), a scan
+// for where each thread's run starts, and a loop that writes them there,
+// over the granules in the load's order (in which `mine` was counted).
+template <bool kSmem>
+__device__ __forceinline__ void compact_row(const float4* row4, int G, int per_chunk, int p,
+                                            int vocab, float lo, float hi, int mine, float* buf,
+                                            int (*s)[4][kWarps], int& par) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int chunks = kSmem ? kChunks : 1, span = kSmem ? per_chunk : G;
+  float e[4];
+  if (mine < 0) {
+    mine = 0;
+    for (int c = 0; c < chunks; ++c) {
+      for (int g = c * span + threadIdx.x; g < min(G, (c + 1) * span); g += kThreads) {
+        row_granule<kSmem>(row4, g, G, p, vocab, e);
+        mine += __popc(in_flags(e, lo, hi));
+      }
+    }
+  }
+  int incl = mine;  // inclusive scan over the warp's lanes
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) s[par][0][warp] = incl;
+  __syncthreads();
+  int at = incl - mine;
+  for (int w = 0; w < warp; ++w) at += s[par][0][w];
+  par ^= 1;
+  for (int c = 0; c < chunks; ++c) {
+    for (int g = c * span + threadIdx.x; g < min(G, (c + 1) * span); g += kThreads) {
+      row_granule<kSmem>(row4, g, G, p, vocab, e);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (e[j] >= lo && e[j] < hi) buf[at++] = e[j];
+      }
+    }
+  }
+  __syncthreads();  // the buffer is complete before anyone counts on it
+}
+
+template <bool kSmem>
+__global__ void __launch_bounds__(kThreads, 1)
     topk_mask_kernel(const float* __restrict__ x, const int32_t* __restrict__ ks,
-                     float* __restrict__ out, int vocab, int k_static,
-                     int dynamic) {
-  extern __shared__ float row_smem[];
+                     float* __restrict__ out, int vocab, int k_static, int dynamic,
+                     int cap) {
+  extern __shared__ __align__(16) float dyn[];
+  __shared__ __align__(8) unsigned long long s_bar[kChunks];
   __shared__ float s_min[kWarps], s_max[kWarps];
-  __shared__ int s_cnt[2][kWarps];
+  __shared__ __align__(16) int s_red[2][4][kWarps];
+  __shared__ int s_fill;
+  __shared__ Bisect s_state;
 
   const int r = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* xr = x + (size_t)r * vocab;
-  const float* row = kSmem ? row_smem : xr;
+  float* outr = out + (size_t)r * vocab;
+  const int p = (int)(((uintptr_t)xr >> 2) & 3);  // the row's float phase in its granule
+  const int G = (p + vocab + 3) >> 2;              // granules covering the row
+  const int g_max = (vocab + 6) >> 2;              // ... at the worst phase
+  float* row_s = dyn;
+  float* buf = kSmem ? dyn + 4 * g_max : dyn;
+  const float4* row4 = kSmem ? reinterpret_cast<const float4*>(row_s)
+                             : reinterpret_cast<const float4*>(xr - p);
 
-  float lmin = INFINITY, lmax = -INFINITY;
-  for (int c = threadIdx.x; c < vocab; c += kThreads) {
-    const float v = xr[c];
-    if (kSmem) row_smem[c] = v;
-    lmin = fminf(lmin, v);
-    lmax = fmaxf(lmax, v);
-  }
-  lmin = warp_min(lmin);
-  lmax = warp_max(lmax);
-  if (lane == 0) {
-    s_min[warp] = lmin;
-    s_max[warp] = lmax;
-  }
-  __syncthreads();  // also publishes the row in shared memory
-  float mn = s_min[0], mx = s_max[0];
-  for (int w = 1; w < kWarps; ++w) {
-    mn = fminf(mn, s_min[w]);
-    mx = fmaxf(mx, s_max[w]);
-  }
   const int k = dynamic ? min(max(ks[r], 0), vocab) : k_static;
-  float lo = mn, hi = __fadd_rn(mx, 1.0f);
+  const bool live = !dynamic || k > 0;
+  const int q = (int)(((uintptr_t)outr >> 2) & 3);
+  float4* out4 = reinterpret_cast<float4*>(outr - q);
 
-  for (int it = 0; it < kIters; ++it) {
-    const float mid = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
-    int cnt = 0;
-    for (int c = threadIdx.x; c < vocab; c += kThreads) cnt += row[c] >= mid;
-    cnt = __reduce_add_sync(0xffffffffu, cnt);
-    if (lane == 0) s_cnt[it & 1][warp] = cnt;
-    __syncthreads();  // pass it's partials; pass it-1's buffer is free again
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) total += s_cnt[it & 1][w];
-    if (total >= k) {
-      lo = mid;
-    } else {
-      hi = mid;
+  if (!live) {  // a dropped client's row: zeros, x never read
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int Go = (q + vocab + 3) >> 2;
+    for (int g = threadIdx.x; g < Go; g += kThreads) {
+      if (g == 0 || g == Go - 1) {
+        for (int j = 0; j < 4; ++j) {
+          const int c = 4 * g + j - q;
+          if (c >= 0 && c < vocab) outr[c] = 0.0f;
+        }
+      } else {
+        out4[g] = z;
+      }
+    }
+    return;
+  }
+
+  // -- load (shared-memory path), min / max / NaN, threshold counts ---------
+  const int per_chunk = (G + kChunks - 1) / kChunks;
+  if (kSmem && threadIdx.x == 0) {
+    for (int c = 0; c < kChunks; ++c)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(&s_bar[c])), "r"(1));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x == 0) s_fill = 0;
+  __syncthreads();
+  if (kSmem && threadIdx.x == 0) {
+    const float* src = xr - p;
+    for (int c = 0; c < kChunks; ++c) {
+      const int g0 = c * per_chunk, g1 = min(G, g0 + per_chunk);
+      if (g1 <= g0) break;
+      const uint32_t bytes = (uint32_t)(g1 - g0) * 16u, bar = smem_u32(&s_bar[c]);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                   "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+          ::"r"(smem_u32(row_s + 4 * g0)), "l"(src + 4 * g0), "r"(bytes), "r"(bar)
+          : "memory");
+    }
+  }
+  // The thresholds, at mean + {1.75, 2.25, 2.75} standard deviations of
+  // the first chunk (the paper's budgets, 0.5-2 % of the vocabulary, put X_k
+  // near mean + 2.3 sd on logits close to normal): their counts bracket X_k
+  // before the first step.  Any thresholds are exact; good ones save full
+  // passes.  (Thresholds spread over the chunk's range moved with a single
+  // outlier and missed X_k on some rows.)
+  float t[kGrid];
+  {
+    float sum = 0.0f, sq = 0.0f;
+    if (kSmem) mbar_wait(smem_u32(&s_bar[0]), 0);
+    for (int g = threadIdx.x; g < min(G, per_chunk); g += kThreads) {
+      const float4 a = granule<kSmem>(row4, g, G, p, vocab, 0.0f);
+      sum += (a.x + a.y) + (a.z + a.w);
+      sq += (a.x * a.x + a.y * a.y) + (a.z * a.z + a.w * a.w);
+    }
+    float2 m = block_sum_f2(make_float2(sum, sq), s_min, s_max);
+    const float n = (float)min(vocab, 4 * per_chunk - p);
+    const float mean = m.x / n, sd = sqrtf(fmaxf(m.y / n - mean * mean, 0.0f));
+    const float at[kGrid] = {1.75f, 2.25f, 2.75f};
+#pragma unroll
+    for (int i = 0; i < kGrid; ++i) {
+      t[i] = mean + at[i] * sd;
+      if (!isfinite(t[i])) t[i] = INFINITY;
+    }
+  }
+  float lmin = INFINITY, lmax = -INFINITY;
+  int gc[kGrid] = {}, mine = 0;  // this thread's counts at the thresholds, and of its values
+  for (int c = 0; c < (kSmem ? kChunks : 1); ++c) {
+    const int g0 = kSmem ? c * per_chunk : 0, g1 = kSmem ? min(G, g0 + per_chunk) : G;
+    if (g1 <= g0) break;
+    if (kSmem && c > 0) mbar_wait(smem_u32(&s_bar[c]), 0);
+    for (int g = g0 + threadIdx.x; g < g1; g += kThreads) {
+      const float4 a = granule<kSmem>(row4, g, G, p, vocab, NAN);  // pads: NaN, counted nowhere
+      float4 lo4 = a, hi4 = a;
+      if (g == 0 || g == G - 1) {  // the pads must not reach min and max
+        lo4 = granule<kSmem>(row4, g, G, p, vocab, INFINITY);
+        hi4 = granule<kSmem>(row4, g, G, p, vocab, -INFINITY);
+        for (int j = 0; j < 4; ++j) mine += (4 * g + j - p >= 0) & (4 * g + j - p < vocab);
+      } else {
+        mine += 4;
+      }
+      lmin = min_nan(lmin, min_nan(min_nan(lo4.x, lo4.y), min_nan(lo4.z, lo4.w)));
+      lmax = max_nan(lmax, max_nan(max_nan(hi4.x, hi4.y), max_nan(hi4.z, hi4.w)));
+#pragma unroll
+      for (int i = 0; i < kGrid; ++i)
+        gc[i] += (a.x >= t[i]) + (a.y >= t[i]) + (a.z >= t[i]) + (a.w >= t[i]);
+    }
+  }
+  if (kSmem && threadIdx.x == 0) {  // pad lanes (the neighbours' values) count nowhere
+    for (int i = 0; i < p; ++i) row_s[i] = NAN;
+    for (int i = p + vocab; i < 4 * G; ++i) row_s[i] = NAN;
+  }
+  int gc_mine[kGrid];
+#pragma unroll
+  for (int i = 0; i < kGrid; ++i) gc_mine[i] = gc[i];
+  float mn = lmin, mx = lmax;
+  block_minmax(mn, mx, s_min, s_max);
+  const bool any_nan = mn != mn;
+  int par = 0;
+  block_sum(gc, s_red, par);
+
+  // -- bisection -------------------------------------------------------------
+  Bisect s;
+  s.lo = mn;
+  s.hi = __fadd_rn(mx, 1.0f);
+  s.it = 0;
+  if (any_nan) {  // min and max are NaN, as in the plain version: lo is NaN
+    s.lo = NAN;
+  } else if (k <= 0) {  // every count passes (the static kernel at k = 0)
+    for (; s.it < kIters; ++s.it) s.lo = midpoint(s.lo, s.hi);
+  } else {
+    s.clo = mn;
+    s.cnt = vocab;
+    s.chi = s.hi;  // max + 1: nothing is above it, unless it rounds down to max
+    s.above = 0;
+    // this thread's share of [clo, chi), while those are mn / a threshold /
+    // max + 1: the first compaction then needs no counting loop
+    int f_lo = mine, f_hi = 0;
+    bool f_known = true;
+    if (!(s.hi > mx)) {  // then take +inf, and count what sits there
+      f_known = false;
+      int c[1] = {count_row<kSmem>(row4, G, p, vocab, INFINITY)};
+      block_sum(c, s_red, par);
+      s.chi = INFINITY;
+      s.above = c[0];
+      if (c[0] >= k) {  // X_k = +inf: every step but a NaN mid takes
+        s.clo = INFINITY;
+        s.cnt = c[0];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kGrid; ++i) {
+      if (gc[i] >= k && t[i] > s.clo) {
+        s.clo = t[i];
+        s.cnt = gc[i];
+        f_lo = gc_mine[i];
+      }
+      if (gc[i] < k && t[i] < s.chi) {
+        s.chi = t[i];
+        s.above = gc[i];
+        f_hi = gc_mine[i];
+      }
+    }
+    s.n_buf = -1;
+    while (s.it < kIters) {
+      if (s.n_buf >= 0 && s.n_buf <= kWarpCap) {  // warp 0 takes the rest
+        if (warp == 0) {
+          warp_steps(s, buf, k);
+          if (lane == 0) s_state = s;
+        }
+        __syncthreads();
+        s = s_state;
+        break;
+      }
+      const float mid = midpoint(s.lo, s.hi);
+      bool take;
+      if (!free_step(s, mid, take)) {
+        const int size = s.cnt - s.above;
+        if (s.n_buf < 0 && size <= cap) {
+          compact_row<kSmem>(row4, G, per_chunk, p, vocab, s.clo, s.chi, f_known ? f_lo - f_hi : -1,
+                             buf, s_red, par);
+          s.n_buf = size;
+        }
+        int c[1];
+        float e[kPerThread];
+        if (s.n_buf < 0) {  // a full pass
+          c[0] = count_row<kSmem>(row4, G, p, vocab, mid);
+          block_sum(c, s_red, par);
+        } else {  // a count over the buffer
+          c[0] = 0;
+#pragma unroll
+          for (int j = 0; j < kPerThread; ++j) {
+            const int i = threadIdx.x + j * kThreads;
+            e[j] = i < s.n_buf ? buf[i] : NAN;
+            c[0] += (e[j] >= mid) & (e[j] < s.chi);
+          }
+          block_sum(c, s_red, par);  // every read of the buffer is behind its barrier
+          c[0] += s.above;
+        }
+        take = c[0] >= k;
+        narrow(s, mid, c[0], k);
+        f_known = false;
+        const int n = s.cnt - s.above;
+        if (s.n_buf >= 0 && (2 * n <= s.n_buf || (n <= kWarpCap && s.n_buf > kWarpCap))) {
+#pragma unroll
+          for (int j = 0; j < kPerThread; j += 4) {
+            const float v4[4] = {e[j], e[j + 1], e[j + 2], e[j + 3]};
+            warp_append(buf, &s_fill, v4, in_flags(v4, s.clo, s.chi));
+          }
+          __syncthreads();
+          s.n_buf = n;
+          if (threadIdx.x == 0) s_fill = 0;
+        }
+      }
+      apply(s, mid, take);
     }
   }
 
-  const bool live = !dynamic || k > 0;
-  float* outr = out + (size_t)r * vocab;
-  for (int c = threadIdx.x; c < vocab; c += kThreads) {
-    const float v = row[c];
-    outr[c] = (live && v >= lo) ? v : 0.0f;
+  // -- the masked row ----------------------------------------------------------
+  const float lo = s.lo;  // NaN keeps nothing
+  if (q == p) {
+    for (int g = threadIdx.x; g < G; g += kThreads) {
+      const float4 v = ld4<kSmem>(row4 + g);
+      float4 m;
+      m.x = v.x >= lo ? v.x : 0.0f;
+      m.y = v.y >= lo ? v.y : 0.0f;
+      m.z = v.z >= lo ? v.z : 0.0f;
+      m.w = v.w >= lo ? v.w : 0.0f;
+      if (g == 0 || g == G - 1) {
+        const float e[4] = {m.x, m.y, m.z, m.w};
+        for (int j = 0; j < 4; ++j) {
+          const int c = 4 * g + j - p;
+          if (c >= 0 && c < vocab) outr[c] = e[j];
+        }
+      } else {
+        out4[g] = m;
+      }
+    }
+  } else {  // out on another phase than x: element by element
+    const float* row = kSmem ? row_s + p : xr;
+    for (int c = threadIdx.x; c < vocab; c += kThreads) {
+      const float v = row[c];
+      outr[c] = v >= lo ? v : 0.0f;
+    }
   }
+}
+
+// The shared-memory path's static shared memory and what a block may opt
+// into, per device, looked up once (the queries cost host time per launch).
+struct SmemLimits {
+  int stat, optin, granted;
+};
+
+int smem_limits(SmemLimits*& out) {
+  static SmemLimits lim[64];
+  static bool known[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!known[dev]) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, topk_mask_kernel<true>);
+    if (err != cudaSuccess) return (int)err;
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    lim[dev] = SmemLimits{(int)attr.sharedSizeBytes, optin, 0};
+    known[dev] = true;
+  }
+  out = &lim[dev];
+  return (int)cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest V the shared-memory path takes: the row plus the kernel's static
-// shared memory within the 227 KB (232448 bytes) a block may opt into.
+// Largest V the shared-memory path takes: the row (at its worst 16-byte
+// phase) and a candidate buffer of at least kMinCap values beside the
+// kernel's static shared memory, within what a block may opt into.
 int topk_mask_smem_max_vocab(void) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, topk_mask_kernel<true>);
-  if (err != cudaSuccess) return -(int)err;
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return (optin - (int)attr.sharedSizeBytes) / (int)sizeof(float);
+  SmemLimits* lim = nullptr;
+  const int err = smem_limits(lim);
+  if (err != (int)cudaSuccess) return -err;
+  const int floats = (lim->optin - lim->stat) / (int)sizeof(float) - kMinCap;
+  return (floats / 4) * 4 - 6;
 }
 
 // x, out: (rows, vocab) fp32; ks: (rows,) int32 budgets (read only when
@@ -146,16 +736,26 @@ int topk_mask_f32(const float* x, const int32_t* ks, float* out, int rows,
   if (rows <= 0 || vocab <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (use_smem) {
-    const size_t bytes = (size_t)vocab * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        topk_mask_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    topk_mask_kernel<true><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab,
-                                                          k_static, dynamic);
+    SmemLimits* lim = nullptr;
+    const int lerr = smem_limits(lim);
+    if (lerr != (int)cudaSuccess) return lerr;
+    const int row_bytes = 16 * ((vocab + 6) >> 2);
+    int cap = (lim->optin - lim->stat - row_bytes) / (int)sizeof(float);
+    cap = min(cap & ~3, kCapMax);
+    if (cap < kMinCap) return (int)cudaErrorInvalidValue;
+    const int bytes = row_bytes + cap * (int)sizeof(float);
+    if (lim->granted < bytes) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          topk_mask_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return (int)err;
+      lim->granted = bytes;
+    }
+    topk_mask_kernel<true><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static,
+                                                          dynamic, cap);
   } else {
-    topk_mask_kernel<false><<<rows, kThreads, 0, s>>>(x, ks, out, vocab,
-                                                       k_static, dynamic);
+    const int bytes = kCapMax * (int)sizeof(float);
+    topk_mask_kernel<false><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static,
+                                                           dynamic, kCapMax);
   }
   return (int)cudaGetLastError();
 }

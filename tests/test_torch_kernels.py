@@ -5,10 +5,15 @@ on the CPU); the CUDA kernels themselves are held against those plain
 versions on the card by ``chip_smoke.py``.  Inputs are made with numpy
 from a seed.  The wire scatters cover k = 0 client rows, wire padding at
 index 0 beside a real index-0 entry, and negative values (fp32: rtol 1e-6,
-atol 0); the bisection top-k masks cover k = 0, 1, V and > V, ties at the
-threshold, an all-negative and a constant row, and must match the Pallas
-kernels in interpret mode and ``core.topk.topk_mask_dynamic`` exactly
-(every step is one rounded fp32 operation); the dense adaptive aggregation
+atol 0), and the premise of their CUDA kernel (a client's entries in any
+order, its zero entries dropped: the same sums bitwise); the bisection
+top-k masks cover k = 0, 1, V and > V, ties at the threshold, an
+all-negative and a constant row, rows holding a NaN or +-inf, and must
+match the Pallas kernels in interpret mode and
+``core.topk.topk_mask_dynamic`` exactly (every step is one rounded fp32
+operation), as must a numpy model of their CUDA kernel's candidate
+bisection on random (hypothesis), tied, constant, half-integer, +-inf,
+NaN, tiny-spread and overflowing rows; the dense adaptive aggregation
 is held at rtol 1e-6 plus 1e-6 of the output's largest magnitude (the
 Pallas kernel sums the clients with ``jnp.sum``, whose order the plain
 version need not share, and a sum of signed terms can cancel).
@@ -132,6 +137,45 @@ def test_scatter_wire_sums_dequant_matches_reference(mode):
     assert sum(ops.LAUNCHES.values()) == 0
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_scatter_sums_ignore_entry_order_and_zero_entries(mode):
+    """The premise of the wire-scatter kernel, which splits a row's columns
+    over blocks and adds each client's entries in any order, without
+    atomics: on a wire from the port's sparsify_wire, with index-0 padding
+    beside a real index-0 entry, permuting the k entries within each
+    (client, row) — or dropping the entries whose two channels are both
+    zero, the padding among them — leaves both plain sums bitwise equal,
+    float and int8 wire alike."""
+    rng = np.random.default_rng(11)
+    n, rows, vocab, k_cap = 4, 6, 64, 16
+    logits = rng.normal(size=(n, rows, vocab)).astype(np.float32)
+    logits[1, ::2, 0] = 10.0  # index 0 in client 1's top-k on even rows
+    logits[3] -= 20.0  # all negative
+    wire = ttopk.sparsify_wire(torch.as_tensor(logits), [k_cap, k_cap // 2, 0, 3], k_cap)
+    idx = torch.where(wire.mask, wire.indices, 0).contiguous()  # pad_wire's padding
+    wire = wire._replace(indices=idx)
+    assert bool(((idx[1] == 0) & wire.mask[1]).any()) and int((idx[1] == 0).sum()) > rows // 2
+    perm = torch.as_tensor(np.argsort(rng.random((n, rows, k_cap)), axis=-1))
+    shuf = lambda t: torch.gather(t, -1, perm)  # noqa: E731
+
+    m = wire.mask.float()
+    v = wire.values * m
+    a, b = (torch.abs(v) * v, torch.abs(v)) if mode == "adaptive" else (v, m)
+    want = ref.scatter_wire_sums_ref(a, b, idx, vocab)
+    keep = (a != 0) | (b != 0)  # a zero contribution: dropped (index 0, +0.0) in its place
+    dropped = [torch.where(keep, t, torch.zeros_like(t)) for t in (a, b)] + [torch.where(keep, idx, 0)]
+    assert int((~keep).sum()) > 0
+    for got in (ref.scatter_wire_sums_ref(shuf(a), shuf(b), shuf(idx), vocab),
+                ref.scatter_wire_sums_ref(*dropped, vocab)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+    qw = ttopk.quantize_wire(wire)
+    want = ref.scatter_wire_sums_dequant_ref(qw.values, qw.scale, qw.mask, idx, vocab, mode)
+    got = ref.scatter_wire_sums_dequant_ref(shuf(qw.values), qw.scale, shuf(qw.mask), shuf(idx),
+                                            vocab, mode)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def _topk_rows(seed, vocab=64):
     """(rows, V) fp32 logits and per-row budgets covering the edge cases:
     k = 0, 1, V and > V on random rows, a tie at the threshold, an
@@ -147,10 +191,32 @@ def _topk_rows(seed, vocab=64):
     return x, ks
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("vocab", [64, 300])
-def test_topk_mask_dynamic_matches_reference_exactly(seed, vocab):
+def _special_rows(special, seed, vocab):
+    """Rows the bisection meets rarely: a NaN among normal values (min and
+    max are NaN, nothing is kept), or +inf beside -inf (every mid is NaN)
+    and +inf alone."""
+    rng = np.random.default_rng(seed + 7)
+    x = rng.normal(size=(2, vocab)).astype(np.float32)
+    if special == "nan":
+        x[0, 3] = np.nan
+        x[1, -1] = np.nan
+        return x, np.array([4, vocab], np.int32)
+    x[0, 5], x[0, 9] = np.inf, -np.inf
+    x[1, 2] = np.inf
+    return x, np.array([5, 3], np.int32)
+
+
+@pytest.mark.parametrize(
+    "vocab, seed, special",
+    [pytest.param(v, s, sp, id="-".join(map(str, (v, s) + ((sp,) if sp else ()))))
+     for sp in (None, "nan", "inf") for v in (64, 300) for s in (0, 1)],
+)
+def test_topk_mask_dynamic_matches_reference_exactly(vocab, seed, special):
     x, ks = _topk_rows(seed, vocab)
+    if special:
+        sx, sk = _special_rows(special, seed, vocab)
+        x, ks = np.concatenate([x, sx]), np.concatenate([ks, sk])
+    rows = x.shape[0]
     j_kern = np.asarray(topk_mask_dynamic_pallas(jnp.asarray(x), jnp.asarray(ks), interpret=True))
     j_jnp = np.asarray(jtopk.topk_mask_dynamic(jnp.asarray(x), jnp.asarray(ks)))
     np.testing.assert_array_equal(j_kern, j_jnp)
@@ -160,7 +226,8 @@ def test_topk_mask_dynamic_matches_reference_exactly(seed, vocab):
         ref.topk_mask_ref(tx, torch.clamp(tk, 0, vocab), guard=True),
         ops.topk_mask_dynamic(tx, tk),
         ttopk.topk_mask_dynamic(tx, tk),
-        ops.topk_mask_dynamic(tx.reshape(2, 4, vocab), tk.reshape(2, 4)).reshape(8, vocab),
+        ops.topk_mask_dynamic(tx.reshape(2, rows // 2, vocab),
+                              tk.reshape(2, rows // 2)).reshape(rows, vocab),
     )
     for out in outs:
         np.testing.assert_array_equal(out.numpy(), j_kern)
@@ -169,6 +236,140 @@ def test_topk_mask_dynamic_matches_reference_exactly(seed, vocab):
     kept = (j_kern != 0).sum(axis=1)
     assert kept[0] == 0 and kept[1] == 1 and kept[2] == kept[3] == vocab
     assert kept[4] == 12 and kept[6] == vocab and (x[5] < 0).all()
+    if special == "nan":  # the reference keeps nothing of a row that holds a NaN
+        assert kept[8] == kept[9] == 0
+    if special == "inf":  # +-inf: every mid is NaN, hi becomes NaN, lo stays -inf
+        assert kept[8] == vocab and np.isinf(x[9]).any()
+
+
+def _midpoint(lo, hi):
+    with np.errstate(over="ignore", invalid="ignore"):
+        return np.float32(np.float32(lo + hi) * np.float32(0.5))
+
+
+def _candidate_lo(x, k, cap, warp_cap):
+    """lo after the 30 steps as the CUDA kernel (``csrc/topk_select.cu``)
+    finds it, in numpy: every step takes iff mid <= X_k, the k-th largest x;
+    [clo, chi) holds X_k with exact counts cnt = #{x >= clo} >= k and above =
+    #{x >= chi} < k, bracketed first by counts at three thresholds from the
+    first eighth's mean and deviation; only a mid inside (clo, chi) is
+    counted, as above +
+    #{c in buffer : mid <= c < chi} once the buffer (compacted at ``cap``,
+    again whenever the set halves, and at ``warp_cap``) holds [clo, chi),
+    else over the whole row; at 32 candidates X_k is read off by rank."""
+    f32 = np.float32
+    lo, hi = x.min(), f32(x.max() + f32(1))
+    if np.isnan(x).any():
+        return f32(np.nan)
+    if k <= 0:  # every count passes
+        for _ in range(ref.BISECTION_ITERS):
+            lo = _midpoint(lo, hi)
+        return lo
+    clo, cnt, chi, above = x.min(), x.size, hi, 0
+    if not hi > x.max():  # max + 1 rounds down to max: take +inf
+        chi, above = f32(np.inf), int((x >= np.inf).sum())
+        if above >= k:
+            clo, cnt = f32(np.inf), above
+    head = x[: -(-x.size // 8)].astype(np.float64)
+    with np.errstate(over="ignore", invalid="ignore"):
+        mean, sd = head.mean(), np.sqrt(max((head * head).mean() - head.mean() ** 2, 0.0))
+        grid = [f32(mean + a * sd) if np.isfinite(mean + a * sd) else f32(np.inf)
+                for a in (1.75, 2.25, 2.75)]
+    for t in grid:
+        c = int((x >= t).sum())
+        if c >= k and t > clo:
+            clo, cnt = t, c
+        if c < k and t < chi:
+            chi, above = t, c
+    buf = None
+    for _ in range(ref.BISECTION_ITERS):
+        mid = _midpoint(lo, hi)
+        if mid > clo and mid < chi:
+            if buf is None and cnt - above <= cap:
+                buf = x[(x >= clo) & (x < chi)]
+            if buf is None:
+                c = int((x >= mid).sum())
+            else:
+                c = above + int(((buf >= mid) & (buf < chi)).sum())  # c < chi: the buffer is a superset
+            assert c == int((x >= mid).sum())
+            if c >= k:
+                clo, cnt = mid, c
+            else:
+                chi, above = mid, c
+            n = cnt - above
+            if buf is not None and (2 * n <= buf.size or n <= warp_cap < buf.size or n <= 32):
+                buf = buf[(buf >= clo) & (buf < chi)]
+                assert buf.size == n
+                if n <= 32:  # X_k has rank k - above among them: no count from here on
+                    clo = np.sort(buf)[::-1][k - above - 1]
+                    chi = np.nextafter(clo, f32(np.inf))
+        take = mid <= clo  # a NaN mid: count 0 < k
+        lo, hi = (mid, hi) if take else (lo, mid)
+    return lo
+
+
+def _model_rows(kind, vocab, rng):
+    f32 = np.float32
+    if kind == "tied":
+        x = rng.integers(-3, 3, size=vocab).astype(f32)
+        x[5:17] = 3.0
+    elif kind == "constant":
+        x = np.full(vocab, 2.5, f32)
+    elif kind == "half_integer":
+        x = (np.round(rng.normal(size=vocab) * 2) / 2).astype(f32)
+    elif kind == "inf":
+        x = rng.normal(size=vocab).astype(f32)
+        x[7], x[9] = np.inf, -np.inf
+    elif kind == "nan":
+        x = rng.normal(size=vocab).astype(f32)
+        x[11] = np.nan
+    elif kind == "tiny_spread":
+        x = (1.0 + 1e-3 * rng.normal(size=vocab)).astype(f32)
+    else:  # "overflow": lo + hi overflows fp32
+        x = np.full(vocab, 3e38, f32)
+        x[: vocab // 6] = 3.3e38
+    return x
+
+
+# (V, buffer, warp take-over): small V with the thresholds scaled down so
+# every path runs, and the kernel's own at V 50 257 on an H100
+_MODEL_SIZES = [(300, 64, 16), (50257, 7600, 1024)]
+
+
+@pytest.mark.parametrize("vocab, cap, warp_cap", _MODEL_SIZES, ids=["scaled", "kernel"])
+@pytest.mark.parametrize("k", ["0", "1", "V", "V+7"])
+@pytest.mark.parametrize("kind", ["random", "tied", "constant", "half_integer", "inf", "nan",
+                                  "tiny_spread", "overflow"])
+def test_candidate_bisection_follows_the_plain_trajectory(kind, k, vocab, cap, warp_cap):
+    kk = {"0": 0, "1": 1, "V": vocab, "V+7": vocab + 7}[k]
+
+    def check(x, budget):
+        budget = min(budget, vocab)  # both kernels clamp to V
+        for guard in (True, False):
+            want = ref.topk_mask_ref(torch.as_tensor(x[None]), torch.tensor([budget], dtype=torch.int32),
+                                     guard=guard).numpy()[0]
+            lo = _candidate_lo(x, budget, cap, warp_cap)
+            keep = (x >= lo) & ((budget > 0) or not guard)
+            np.testing.assert_array_equal(np.where(keep, x, np.float32(0)).view(np.int32),
+                                          want.view(np.int32))
+
+    if kind != "random":
+        x = _model_rows(kind, vocab, np.random.default_rng(vocab))
+        check(x, kk)
+        check(x, 5)  # a budget inside the row, where the candidate set shrinks
+        return
+    hypothesis = pytest.importorskip("hypothesis")
+    st = hypothesis.strategies
+
+    @hypothesis.settings(max_examples=12, deadline=None, derandomize=True)
+    @hypothesis.given(seed=st.integers(0, 2**32 - 1), scale=st.sampled_from([1e-3, 0.55, 1.0, 30.0]),
+                      shift=st.sampled_from([0.0, -50.0]), inner=st.integers(2, 2000))
+    def random_rows(seed, scale, shift, inner):
+        x = (np.random.default_rng(seed).normal(size=vocab) * scale + shift).astype(np.float32)
+        check(x, kk)
+        check(x, inner)
+
+    random_rows()
 
 
 @pytest.mark.parametrize("k", [0, 1, 7, 64, 70])

@@ -1,0 +1,232 @@
+"""Measure the top-k and wire-scatter kernels against an earlier checkout on
+one GPU, and break the top-k's time into its phases.
+
+    python3 tools/kernel_probe.py --parent DIR [--real]
+
+DIR is a checkout of an earlier commit (for example ``git archive <commit>``
+unpacked into ``build/parent``); its ``topk_select.cu`` and ``sparse_agg.cu``
+are built beside this checkout's, and the two are timed in turns (earlier,
+this, this, earlier) in the same process, on the same inputs:
+
+* the dynamic top-k at (256, 50 257) with the budgets [388, 608, 342, 428],
+  on normal rows, on rows of scale 0.55 (the spread of a randomly
+  initialised GPT-2's logits) and on constant rows; with ``--real`` also on
+  the input of the ``fused`` float run's last round (its own budgets),
+  captured as ``chip_smoke.py`` captures it, with statistics of its rows;
+* both wire scatters at N 4, 64 rows, V 50 257, k_cap 128 and 1024.
+
+It also builds a copy of this checkout's ``topk_select.cu`` with clock
+reads added at its phase boundaries (load, bisection, store) and counters
+of its full passes, buffer counts and compactions, and prints their
+medians over the 256 rows; and it runs the earlier top-k on a row holding
+a NaN, to show what that kernel kept there.  The clock copy is made by
+text substitution at fixed lines of the source: when those lines change,
+the script stops with the line it could not find.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+import chip_smoke as cs  # noqa: E402
+from repro_torch.core.topk import quantize_wire  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+
+P, I = ctypes.c_void_p, ctypes.c_int
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+OUT = ROOT / "build" / "probe"
+
+
+def with_clocks(src: str) -> str:
+    """``topk_select.cu`` with per-block clocks and counters written to a
+    device buffer set by ``topk_set_prof``: 16 int64 a row."""
+    def rep(old: str, new: str) -> None:
+        nonlocal src
+        if src.count(old) != 1:
+            raise SystemExit(f"kernel_probe: source line not found once: {old!r}")
+        src = src.replace(old, new)
+
+    rep("namespace {\n", "namespace {\n__device__ long long* g_prof;\n")
+    rep("  const int r = blockIdx.x;\n  const int lane",
+        "  const long long pt0 = clock64(); long long pg0;\n"
+        "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pg0));\n"
+        "  const int r = blockIdx.x;\n  const int lane")
+    rep("  // -- bisection ---",
+        "  const long long pt1 = clock64();\n  int pf = 0, pb = 0, pc = 0; long long pwc = 0;\n"
+        "  // -- bisection ---")
+    rep("        if (s.n_buf < 0) {  // a full pass\n", "        if (s.n_buf < 0) {  // a full pass\n          ++pf;\n")
+    rep("        } else {  // a count over the buffer\n",
+        "        } else {  // a count over the buffer\n          ++pb;\n")
+    rep("          compact_row<kSmem>(", "          ++pc;\n          compact_row<kSmem>(")
+    rep("          warp_steps(s, buf, k);",
+        "          const long long pw0 = clock64();\n          warp_steps(s, buf, k);\n"
+        "          pwc = clock64() - pw0;")
+    rep("  // -- the masked row ---", "  const long long pt2 = clock64();\n  // -- the masked row ---")
+    rep("      outr[c] = v >= lo ? v : 0.0f;\n    }\n  }\n}\n",
+        "      outr[c] = v >= lo ? v : 0.0f;\n    }\n  }\n"
+        "  __syncthreads();\n"
+        "  if (threadIdx.x == 0 && g_prof) { long long g1;\n"
+        "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g1));\n"
+        "    long long* d = g_prof + 16 * blockIdx.x;\n"
+        "    d[0] = pt1 - pt0; d[1] = pt2 - pt1; d[2] = clock64() - pt2; d[3] = pf; d[4] = pb;\n"
+        "    d[5] = pc; d[6] = pg0; d[7] = g1; d[8] = pwc; }\n}\n")
+    rep('extern "C" {\n',
+        'extern "C" {\nvoid topk_set_prof(long long* p) { cudaMemcpyToSymbol(g_prof, &p, sizeof(p)); }\n')
+    return src
+
+
+def compile_libs(parent: Path) -> dict[str, ctypes.CDLL]:
+    """The earlier checkout's two sources and the clocked copy, one nvcc
+    each, all at once."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    clocked = OUT / "topk_clocks.cu"
+    clocked.write_text(with_clocks((CSRC / "topk_select.cu").read_text()))
+    pcsrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
+    jobs = []
+    for name, src in (("parent_topk", pcsrc / "topk_select.cu"), ("parent_agg", pcsrc / "sparse_agg.cu"),
+                      ("topk_clocks", clocked)):
+        so = OUT / f"lib{name}.so"
+        jobs.append((name, so, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for name, so, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"kernel_probe: nvcc failed on {name}\n{log}")
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def c_fn(lib: ctypes.CDLL, symbol: str, n_ptr: int, n_int: int):
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = [P] * n_ptr + [I] * n_int + [P], I
+    return fn
+
+
+def in_turns(label: str, old, new) -> None:
+    t = [cs.time_ms(f) * 1e3 for f in (old, new, new, old)]
+    print(f"[probe] {label}: earlier {t[0]:.2f} / {t[3]:.2f} us, this {t[1]:.2f} / {t[2]:.2f} us", flush=True)
+
+
+def scatter_ab(libs, device) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    new_f = ops._fn("sparse_agg", "scatter_wire_sums_f32", 5, 4)
+    new_q = ops._fn("sparse_agg", "scatter_wire_sums_dequant_i8", 6, 5)
+    old_f = c_fn(libs["parent_agg"], "scatter_wire_sums_f32", 5, 4)
+    old_q = c_fn(libs["parent_agg"], "scatter_wire_sums_dequant_i8", 6, 5)
+    for k_cap in (128, 1024):
+        wire = cs.make_wire(k_cap, seed=7, device=device)
+        n, rows, k = wire.values.shape
+        a, b = cs.float_channels(wire, "adaptive")
+        qw = quantize_wire(wire)
+        num = torch.empty((rows, cs.VOCAB), device=device)
+        den = torch.empty_like(num)
+        fp = [t.data_ptr() for t in (a, b, wire.indices, num, den)]
+        qp = [t.data_ptr() for t in (qw.values, qw.scale, qw.mask.view(torch.uint8), qw.indices, num, den)]
+        for fn in (new_f, old_f):
+            assert fn(*fp, n, rows, k, cs.VOCAB, stream) == 0
+            torch.cuda.synchronize()
+            want = ref.scatter_wire_sums_ref(a, b, wire.indices, cs.VOCAB)
+            assert torch.equal(num, want[0]) and torch.equal(den, want[1])
+        in_turns(f"scatter_wire_sums k_cap={k_cap}", lambda: old_f(*fp, n, rows, k, cs.VOCAB, stream),
+                 lambda: new_f(*fp, n, rows, k, cs.VOCAB, stream))
+        in_turns(f"scatter_wire_sums_dequant k_cap={k_cap}",
+                 lambda: old_q(*qp, n, rows, k, cs.VOCAB, 0, stream),
+                 lambda: new_q(*qp, n, rows, k, cs.VOCAB, 0, stream))
+
+
+def describe(x: torch.Tensor, kk: torch.Tensor) -> None:
+    """Medians over the rows: spread, the k-th largest, and how many values
+    lie between the kernel's first and last thresholds (the first chunk's
+    mean + 1.75 and + 2.75 deviations)."""
+    head = x[:, : x.shape[1] // 8]
+    mean, sd = head.mean(dim=1, keepdim=True), head.std(dim=1, correction=0, keepdim=True)
+    xk = torch.stack([torch.topk(x[r], int(kk[r])).values[-1] for r in range(x.shape[0])])
+    between = ((x >= mean + 1.75 * sd) & (x < mean + 2.75 * sd)).sum(dim=1).float()
+    med = lambda v: float(torch.median(v.float()))  # noqa: E731
+    print(f"[probe]   rows: min {med(x.amin(1))}, max {med(x.amax(1))}, mean {med(x.mean(1))}, "
+          f"std {med(x.std(1))}, X_k {med(xk)}, values between the thresholds {med(between)}", flush=True)
+
+
+def topk_ab(libs, device, real=None) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rows, vocab = 4 * cs.ROWS, cs.VOCAB
+    gen = torch.Generator(device=device).manual_seed(5)
+    budgets = torch.tensor([388, 608, 342, 428], dtype=torch.int32, device=device).repeat_interleave(cs.ROWS)
+    inputs = {"normal rows": (torch.randn((rows, vocab), generator=gen, device=device), budgets),
+              "rows of scale 0.55": (0.55 * torch.randn((rows, vocab), generator=gen, device=device), budgets),
+              "constant rows": (torch.full((rows, vocab), 0.5, device=device), budgets)}
+    if real is not None:
+        inputs["the fused run's input"] = real
+    out = torch.empty((rows, vocab), device=device)
+    new = ops._fn("topk_select", "topk_mask_f32", 3, 5)
+    old = c_fn(libs["parent_topk"], "topk_mask_f32", 3, 5)
+    clk = c_fn(libs["topk_clocks"], "topk_mask_f32", 3, 5)
+    libs["topk_clocks"].topk_set_prof.argtypes = [P]
+    clocks = torch.zeros((rows, 16), dtype=torch.int64, device=device)
+    libs["topk_clocks"].topk_set_prof(clocks.data_ptr())
+    for label, (x, kk) in inputs.items():
+        args = (x.data_ptr(), kk.data_ptr(), out.data_ptr(), rows, vocab, 0, 1, 1, stream)
+        want = ref.topk_mask_ref(x, kk, guard=True)
+        for fn in (new, old, clk):
+            assert fn(*args) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), label
+        in_turns(f"topk_mask_dynamic on {label}", lambda a=args: old(*a), lambda a=args: new(*a))
+        d = clocks.cpu()
+        parts = []
+        for j, name in ((0, "load cycles"), (1, "bisection cycles"), (2, "store cycles"), (8, "warp cycles"),
+                        (3, "full passes"), (4, "buffer counts"), (5, "compactions")):
+            parts.append(f"{name} {statistics.median(d[:, j].tolist())} (max {int(d[:, j].max())})")
+        span = int(d[:, 7].max() - d[:, 6].min())
+        print(f"[probe]   per-row medians: {', '.join(parts)}; kernel span {span} ns "
+              f"(globaltimer; block duration median {statistics.median((d[:, 7] - d[:, 6]).tolist())} ns)",
+              flush=True)
+        if x is not inputs["constant rows"][0]:
+            describe(x, kk)
+            slow = torch.argsort(d[:, 1], descending=True)[:3].tolist()
+            for r in slow:
+                row = x[r]
+                print(f"[probe]   slow row {r}: k {int(kk[r])}, bisection cycles {int(d[r, 1])}, full passes "
+                      f"{int(d[r, 3])}, buffer counts {int(d[r, 4])}, min {float(row.min())}, max "
+                      f"{float(row.max())}, first-chunk range [{float(row[: vocab // 8].min())}, "
+                      f"{float(row[: vocab // 8].max())}], X_k {float(torch.topk(row, int(kk[r])).values[-1])}",
+                      flush=True)
+    # the earlier kernel on a row holding a NaN
+    x, ks = cs.topk_rows(rows, vocab, seed=vocab, device=device)
+    for name, fn in (("earlier", old), ("this", new)):
+        assert fn(x.data_ptr(), ks.data_ptr(), out.data_ptr(), rows, vocab, 0, 1, 1, stream) == 0
+        torch.cuda.synchronize()
+        print(f"[probe] {name} top-k on the NaN row (k = {int(ks[8])}): keeps {int((out[8] != 0).sum())}; "
+              f"the plain version keeps {int((ref.topk_mask_ref(x, ks, guard=True)[8] != 0).sum())}",
+              flush=True)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", type=Path, required=True, help="a checkout of the earlier commit")
+    parser.add_argument("--real", action="store_true", help="also time the fused run's own input")
+    args = parser.parse_args()
+    device, card = cs.phase_device()
+    cs.phase_build()
+    libs = compile_libs(args.parent.resolve())
+    real = cs.phase_main_path(device, "fused", False)["topk_input"] if args.real else None
+    topk_ab(libs, device, real)
+    scatter_ab(libs, device)
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
