@@ -20,18 +20,28 @@ Phases (any failure raises and exits non-zero):
      near 3e38 (where lo + hi overflows), ``torch.equal``;
    * the dense adaptive aggregation at (4, 64, 50 257) on a top-k-sparse
      and on a dense random stack, ``torch.equal``;
-   * the distillation KL per row at (64, 50 257) and (8, 152 064), T in
-     (1, 2, 4), with a teacher equal to its student (KL exactly 0), logits
-     of +-3e4, rows with -1e30 entries and a student whose rows sit on
-     another 16-byte phase than the teacher's: within rtol 1e-5 plus
+   * the distillation KL per row at (64, 50 257) (each row split over a
+     cluster of C CTAs, the largest C <= 8 with at most one CTA an SM: 2 on
+     an H100), (32, 50 257) (C = 4), (8, 152 064) (C = 8),
+     (2 * SMs + 56, 50 257) (C = 1) and 8 rows of V 37 and 5 (fewer
+     elements than C slices of one tile: some CTAs hold nothing), T
+     in (1, 2, 4), with a teacher equal to its student (KL exactly 0),
+     logits of +-3e4, rows with -1e30 entries and a student whose rows sit
+     on another 16-byte phase than the teacher's: within rtol 1e-5 plus
      2e-6 (1 + |lse_t| + |lse_s|) per row (the KL is a difference of terms
      of the size of the log-partitions, each carried in fp32; the kernel
      sums online in another order than the plain log-sum-exp);
-   * causal attention at (96, 1024, 64) and (20, 128, 64):
-     within S * 2^-24 * max|v| (each output is a convex combination of at
-     most S rows of v, summed in fp32 in another order), and a causality
-     check, bitwise: changing k and v from a position on leaves every
-     earlier output unchanged.
+   * causal attention at (96, 1024, 64), (20, 128, 64), (20, 64, 64) (one
+     key tile: only the diagonal) and (12, 96, 64) (a tile past the
+     sequence's end), with q and k x4 at (24, 1024, 64) (where one TF32
+     product per product misses the bound: the plain version with TF32
+     matmuls is shown to, by > 10x), and with rows whose
+     largest score arrives in a late key tile: within S * 2^-24 * max|v|
+     (each output is a convex combination of at most S rows of v, summed
+     in fp32 in another order), and a causality check, bitwise: changing k
+     and v from a position on leaves every earlier output unchanged.  The
+     build line gives both kernels' registers and spills, and the count of
+     tensor-core instructions (HMMA) in the attention library's SASS.
 4. small input — the port's round on a tiny config on the card (kernels)
    and on the CPU (plain versions), ``fused_e2e`` then ``fused``, float and
    int8 uplink: identical k and bytes, accuracies within one eval sample,
@@ -74,10 +84,15 @@ Phases (any failure raises and exits non-zero):
    requires grad must raise).
 7. timing — each kernel's C entry point, its wrapper, its plain version and
    one PyTorch library call where one computes the same function, at the
-   main path's shapes, beside the least time the card could take.  The
+   main path's shapes, beside the least time the card could take (for
+   the attention, its operations at the TF32 tensor-core rate, three
+   products per product, as the kernel runs them).  The
    top-k's work depends on its input: it is timed on the ``fused`` float
    run's own last-round input (captured at its call), on random rows and
-   on constant rows (its worst case).
+   on constant rows (its worst case).  The KL's inputs (25.7 MB) would stay
+   in the 50 MB L2 between back-to-back launches, so its row's ``ms`` (and
+   ``plain_ms``) take the launches in turn over ``COLD_COPIES`` copies of
+   them, each read cold; ``ms_warm`` repeats one copy.
 
 The last two lines are the kernels record and the device record (JSON).
 In the kernels record ``launches`` is each kernel's count summed over the
@@ -88,6 +103,7 @@ add ``entry_launches``, their counts through their public entry points.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import re
@@ -130,8 +146,11 @@ from repro_torch.serve import (  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores, NVIDIA data sheet
+TF32_SPLIT = 3  # the attention kernel's TF32 products per fp32 product (3xTF32)
 N_CLIENTS, ROWS, VOCAB = 4, 64, GPT2_SMALL.vocab_size
 WIDE_ROWS, WIDE_VOCAB = 8, 152_064  # a vocabulary beyond one block's shared memory
+COLD_COPIES = 8  # copies of an input under the 50 MB L2, taken in turn to time it cold
 MODES: tuple[AggregationMode, ...] = ("adaptive", "zeropad", "mean_nonzero")
 _CSRC = "src/repro_torch/kernels/csrc/"
 _AGG, _TOPK = _CSRC + "sparse_agg.cu", _CSRC + "topk_select.cu"
@@ -274,10 +293,17 @@ def time_ms(fn, calls: int = 10, reps: int = 21, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def in_turn(calls):
+    """One call that runs ``calls`` in turn, one a time."""
+    turn = itertools.cycle(calls)
+    return lambda: next(turn)()
+
+
+def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes
-    over the memory rate and the fp32 operations over the fp32 rate."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    over the memory rate and the operations over the rate of the units that
+    run them (fp32 outside the tensor cores unless said otherwise)."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -329,13 +355,27 @@ def ptxas_report(text: str, keys: tuple[str, ...]) -> list[str]:
     return out
 
 
+def sass_count(lib: Path, opcode: str) -> int:
+    """Instructions of ``opcode`` in a built library's SASS (``cuobjdump
+    -sass`` from the toolkit that holds nvcc)."""
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    return sum(1 for line in sass.splitlines() if re.search(rf"\b{opcode}\b", line))
+
+
 def phase_build():
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] {', '.join(map(str, libs.values()))} in {time.perf_counter() - t0:.1f} s")
     report = (ptxas_report(build.build_log("topk_select"), ("topk_mask_kernel",))
-              + ptxas_report(build.build_log("sparse_agg"), ("scatter_wire_kernel",)))
+              + ptxas_report(build.build_log("sparse_agg"), ("scatter_wire_kernel",))
+              + ptxas_report(build.build_log("distill_kl"), ("distill_kl_kernel",))
+              + ptxas_report(build.build_log("flash_attention"), ("flash_attention_kernel",)))
     log(f"[build] ptxas -v: {' | '.join(report) or 'no log (library built earlier)'}")
+    hmma = sass_count(libs["flash_attention"], "HMMA")
+    assert hmma > 0, "the attention kernel runs no tensor-core instruction"
+    log(f"[build] flash_attention SASS: {hmma} HMMA instructions (its products on the tensor cores)")
 
 
 def check_scatter_kernels(device):
@@ -397,7 +437,11 @@ def check_sparse_aggregate(device):
 
 
 def check_distill_kl(device):
-    for rows, vocab in ((ROWS, VOCAB), (WIDE_ROWS, WIDE_VOCAB)):
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    ones = 2 * sms + 56  # enough rows for one CTA a row (C = 1)
+    # on an H100's 132 SMs the launch splits a row over C = 2, 4, 8, 1, 8 and 8 CTAs
+    for rows, vocab in ((ROWS, VOCAB), (32, VOCAB), (WIDE_ROWS, WIDE_VOCAB), (ones, VOCAB),
+                        (WIDE_ROWS, 37), (WIDE_ROWS, 5)):
         t, s = kl_logits(rows, vocab, seed=vocab, device=device)
         # the student one float into a buffer: another 16-byte phase than the teacher's
         s_off = torch.empty(rows * vocab + 1, device=device)[1:].view(rows, vocab)
@@ -415,23 +459,45 @@ def check_distill_kl(device):
                 worst = max(worst, float(err.max()))
             whole = float(ops.distill_kl(t, s, temp))
             assert abs(whole - float(want.mean()) * temp**2) <= temp**2 * float(tol.mean())
-        log(f"[kernels] distill_kl at ({rows}, {vocab}), T in (1, 2, 4): within rtol 1e-5 + "
+        c = max(c for c in (1, 2, 4, 8) if c == 1 or rows * c <= sms)
+        log(f"[kernels] distill_kl at ({rows}, {vocab}) (C = {c} CTAs a row by the launch's rule), T in "
+            f"(1, 2, 4): within rtol 1e-5 + "
             f"2e-6 (1 + |lse_t| + |lse_s|) of its plain version per row (max |diff| {worst:.3e}), "
             f"KL exactly 0 for teacher == student, +-3e4 logits and -1e30 entries, student on "
             f"another 16-byte phase")
 
 
 def check_flash_attention(device):
-    for bh, seq, d in ((96, 1024, 64), (20, 128, 64)):
+    cases = ((96, 1024, 64, 1.0, "q, k ~ N(0, 1)"), (20, 128, 64, 1.0, "q, k ~ N(0, 1)"),
+             (20, 64, 64, 1.0, "one key tile, only the diagonal"),
+             (12, 96, 64, 1.0, "a key tile past the sequence's end"),
+             (24, 1024, 64, 4.0, "q, k x4"), (8, 1024, 64, 1.0, "late maxima"))
+    for bh, seq, d, qk_scale, what in cases:
         gen = torch.Generator(device=device).manual_seed(seq + d)
         q, k, v = (torch.randn((bh, seq, d), generator=gen, device=device) for _ in range(3))
+        q, k = q * qk_scale, k * qk_scale
+        if what == "late maxima":  # row 1000's largest score at key 900, key tile 14 of 16
+            k[:, 900] = 2.0 * q[:, 1000]
         got = ops.flash_attention(q, k, v)
         want = ref.flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
         err, tol = float((got - want).abs().max()), attention_tolerance(seq, v)
-        assert err <= tol, ("flash_attention", bh, seq, d, err, tol)
-        log(f"[kernels] flash_attention at ({bh}, {seq}, {d}): max |diff| {err:.3e} against its "
-            f"plain version (bound S * 2^-24 * max|v| = {tol:.3e})")
+        assert err <= tol, ("flash_attention", bh, seq, d, what, err, tol)
+        if what == "late maxima":
+            assert float((got[:, 1000] - v[:, 900]).abs().max()) < 0.05 * float(v.abs().max())
+        one = ""
+        if qk_scale > 1:  # the same plain version with one TF32 product per product misses
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = ref.flash_attention_ref(q, k, v)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            err_one = float((tf32 - want).abs().max())
+            assert err_one > 10 * tol, (err_one, tol)
+            one = (f"; with TF32 matmuls (one TF32 product per product) the plain version is off "
+                   f"by {err_one:.3e}, {err_one / tol:.0f}x the bound")
+        log(f"[kernels] flash_attention at ({bh}, {seq}, {d}), {what}: max |diff| {err:.3e} "
+            f"against its plain version (bound S * 2^-24 * max|v| = {tol:.3e}){one}")
     # causality, bitwise: k and v from position 700 on must not reach rows 0..699
     gen = torch.Generator(device=device).manual_seed(5)
     q, k, v = (torch.randn((2, 12, 1024, 64), generator=gen, device=device) for _ in range(3))
@@ -738,7 +804,7 @@ def phase_serving(device, card: str) -> dict:
 
 
 def _row(name: str, raw, wrapper, plain, library, check, bytes_moved: float, ops_done: float,
-         desc: str) -> dict:
+         desc: str, ops_per_s: float = FP32_OPS_PER_S) -> dict:
     """Time one kernel: its C entry point (``raw``, preallocated outputs,
     so the device and not the wrapper's host checks sets the pace), its
     wrapper, its plain version and the library call; ``check`` compares the
@@ -746,7 +812,7 @@ def _row(name: str, raw, wrapper, plain, library, check, bytes_moved: float, ops
     assert raw() == 0
     torch.cuda.synchronize()
     err = check()
-    bound_ms, bound_by = bound(bytes_moved, ops_done)
+    bound_ms, bound_by = bound(bytes_moved, ops_done, ops_per_s)
     source, replaces = KERNELS[name]
     row = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -877,13 +943,18 @@ def time_sparse_aggregate(ks: list[int], device) -> dict:
 
 
 def time_distill_kl(device) -> dict:
-    """The KL kernel at the distillation's shape: 64 public rows x V 50 257."""
+    """The KL kernel at the distillation's shape: 64 public rows x V 50 257,
+    timed cold (launches in turn over ``COLD_COPIES`` copies of the inputs,
+    so that each finds its 25.7 MB evicted from the L2 by the others') and
+    warm (one copy, ``ms_warm``)."""
     gen = torch.Generator(device=device).manual_seed(31)
     t, s = (2.0 * torch.randn((ROWS, VOCAB), generator=gen, device=device) for _ in range(2))
+    copies = [(t, s)] + [(t.clone(), s.clone()) for _ in range(COLD_COPIES - 1)]
     out = torch.empty(ROWS, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     fn = ops._fn("distill_kl", "distill_kl_f32", 3, 2, 1)
-    raw = lambda: fn(t.data_ptr(), s.data_ptr(), out.data_ptr(), ROWS, VOCAB, 0.5, stream)  # noqa: E731
+    raws = [lambda a=a, b=b: fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), ROWS, VOCAB, 0.5, stream)
+            for a, b in copies]
     want = ref.distill_kl_ref(t, s, 2.0)
     tol = kl_tolerance(t, s, 2.0, want)
 
@@ -893,9 +964,14 @@ def time_distill_kl(device) -> dict:
         return float(err.max())
 
     # per element pair: two scalings, a difference, two exps and the rescaled sums
-    return _row("distill_kl", raw, lambda: ops.distill_kl(t, s, 2.0),
-                lambda: ref.distill_kl_ref(t, s, 2.0), None, check,
-                2 * ROWS * VOCAB * 4 + ROWS * 4, 12 * ROWS * VOCAB, f"rows={ROWS} V={VOCAB} T=2")
+    row = _row("distill_kl", in_turn(raws), lambda: ops.distill_kl(t, s, 2.0),
+               in_turn([lambda a=a, b=b: ref.distill_kl_ref(a, b, 2.0) for a, b in copies]), None, check,
+               2 * ROWS * VOCAB * 4 + ROWS * 4, 12 * ROWS * VOCAB,
+               f"rows={ROWS} V={VOCAB} T=2 (cold: in turn over {COLD_COPIES} copies of the inputs)")
+    row["ms_warm"] = time_ms(raws[0])
+    log(f"[timing] distill_kl warm (the same inputs each launch, in the L2) {row['ms_warm']:.4f} ms; "
+        f"cold {row['ms']:.4f} ms is {row['bound_ms'] / row['ms']:.0%} of its bound")
+    return row
 
 
 def time_flash_attention(qkv, device) -> dict:
@@ -917,10 +993,15 @@ def time_flash_attention(qkv, device) -> dict:
 
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=True)
-    # the causal half of q k^T and of p v: 2 * S^2 * D operations per head-batch
+    # the causal half of q k^T and of p v: 2 * S^2 * D operations per head-batch, each
+    # run as three TF32 products on the tensor cores
+    ops_done = 2 * seq * seq * d * b * h
+    fp32_ms, _ = bound(4 * q.numel() * 4, ops_done)
     return _row("flash_attention", raw, lambda: ops.flash_attention(q, k, v),
                 lambda: ref.flash_attention_ref(q, k, v), library, check,
-                4 * q.numel() * 4, 2 * seq * seq * d * b * h, f"B*H={b * h} S={seq} D={d}")
+                4 * q.numel() * 4, TF32_SPLIT * ops_done,
+                f"B*H={b * h} S={seq} D={d} (3xTF32 on the tensor cores; the fp32 CUDA-core "
+                f"bound would be {fp32_ms * 1e3:.2f} us)", TF32_OPS_PER_S)
 
 
 def main() -> int:

@@ -13,37 +13,65 @@
 // Forward only, as the reference: the wrapper refuses inputs that require
 // a gradient.
 //
-// What bounds it on H100: bytes.  Each operand is read once, 2*rows*V*4
+// What bounds it on H100: bytes, and at the distillation's 64 rows the
+// fixed costs of a short kernel.  Each operand is read once, 2*rows*V*4
 // bytes (25.7 MB at rows=64, V=50257: ~7.7 us at 3.35 TB/s), against ~15
-// flops and two exps per element pair; the output is rows floats.
+// flops and two exps per element pair; the output is rows floats.  To
+// stream at the card's rate the loads of many CTAs must be in flight, and
+// a few rows (64 public samples) must still occupy the whole card.  Above
+// that, a launch, the first loads' latency from HBM and the cluster merge
+// cost a few microseconds whatever the width (PERF.md).
 //
-// Design.  The Pallas kernel sweeps vocab tiles sequentially with (R_b,)
-// scratch accumulators in VMEM.  Here one block owns one row: each of its
-// 512 threads carries its own five running values over a strided slice of
-// the row (16-byte loads once both rows share an alignment, scalar loads
-// for the ragged head and tail: the tail is masked, never padded), then a
-// fixed-order merge combines them — a warp butterfly, then the warps'
-// partials through shared memory — with m = max(m1, m2) and Z, U rescaled
-// by exp(m_i - m) (U with the teacher's rescale).  Each thread's updates
-// and the merge tree are fixed, so a row's result is the same on every run.
-// Teacher and student run the same code, so t == s gives U = 0 and
-// lse_t == lse_s bitwise: KL exactly 0.
-// Known weakness: 64 rows occupy 64 of the card's 132 SMs; splitting a row
-// over several blocks with a second combine pass would fill the card.
+// Design.  A row is split over a thread-block cluster of C CTAs of 512
+// threads; CTA `rank` streams the rank-th contiguous slice of the row's
+// 16-byte granules, thread x the granules x, x + 512, ... of it, so a
+// warp reads 512 contiguous bytes of each operand a step.  C (8, 4, 2 or
+// 1) is the largest that leaves at most one CTA an SM: 2 for 64 rows on
+// an H100's 132 SMs, 8 for 8 rows, 1 from 67 rows.  Larger clusters (two
+// CTAs an SM, or a second wave: 8-CTA clusters fit on only 124 of the 132
+// SMs) cost more in the merges than the split gains.  A granule of t and
+// its granule of s are one tile of 4 element pairs, as the Pallas kernel
+// treats its vocab tile: the tile's max of t~ and of s~, one rescale of
+// the running state, then sums of exp(t~ - m_t), exp(t~ - m_t)(t~ - s~)
+// and exp(s~ - m_s) with no per-element branch.  The loop is unrolled
+// twice: two granules of each operand in flight a thread.  (Measured
+// slower, read cold: one or four in flight, 8-element tiles, 1024-thread
+// CTAs, two CTAs an SM; a ring of TMA bulk copies into shared memory was
+// slower read warm.)  The exps are __expf, ex2.approx of x * log2(e): every
+// argument is a difference to a running maximum, x <= 0, and a term's
+// relative error is a few ulps plus |x| * 2^-24 from rounding the product;
+// a term with |x| > 17 is below 2^-24 of the maximum's term (1), so the
+// sums carry errors of a few ulps, far inside the tolerance (rtol 1e-5 plus
+// 2e-6 (1 + |lse_t| + |lse_s|)).  The accurate expf was slower: the exps,
+// not only the loads, are on the critical path.
+// 16-byte loads need both rows on the same 16-byte phase; the head up to
+// the boundary (on rank 0) and the tail after the last granule (on rank
+// C - 1) are scalar and masked, never padded, and rows on different phases
+// go all scalar.  The partial states merge in a fixed order: each warp's
+// lanes (the maxima first, then every lane's sums rescaled to them once,
+// then the sums), then warp 0 of rank 0 over every warp's partial in the
+// cluster, read through distributed shared memory: no atomics and no
+// second launch, so a row's result is the same on every run.  Teacher and
+// student run the same code (explicitly rounded adds and multiplies), so
+// t == s gives U = 0 and lse_t == lse_s bitwise: KL exactly 0.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC.
 // Plain C interface, loaded through ctypes; the entry point launches on
 // the given stream and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 8;   // the portable cluster size
 
 struct Lse {  // online log-sum-exp state of one distribution
   float m, z;
@@ -54,26 +82,38 @@ struct KL {
   float u;
 };
 
-// One element x into a running (m, z): the running sum is rescaled by r
-// and x enters with weight w, z = z*r + w.  Teacher and student go through
-// this same function, so equal rows give bitwise-equal partitions.
-__device__ __forceinline__ void lse_step(Lse& a, float x, float& r, float& w) {
-  if (x > a.m) {  // a new max: rescale what was summed (exp(-inf) = 0 at first)
-    r = expf(a.m - x);
-    w = 1.0f;
-    a.m = x;
-  } else {
-    r = 1.0f;
-    w = expf(x - a.m);
+// One tile of 4 element pairs into the running state: the tile's maxima,
+// one rescale, then the sums.  With kMasked only the first n_valid pairs
+// count (a select, not a branch, per element).
+template <bool kMasked>
+__device__ __forceinline__ void add_tile(KL& st, const float (&tt)[4], const float (&ss)[4],
+                                         int n_valid) {
+  if (kMasked && n_valid <= 0) return;
+  float mt = -INFINITY, ms = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (!kMasked || i < n_valid) {
+      mt = fmaxf(mt, tt[i]);
+      ms = fmaxf(ms, ss[i]);
+    }
   }
-  a.z = a.z * r + w;
-}
-
-__device__ __forceinline__ void add_elem(KL& st, float tt, float ss) {
-  float r, w;
-  lse_step(st.t, tt, r, w);
-  st.u = st.u * r + w * (tt - ss);  // U rides on the teacher's rescale
-  lse_step(st.s, ss, r, w);
+  mt = fmaxf(st.t.m, mt);
+  ms = fmaxf(st.s.m, ms);
+  float zt = 0.0f, zs = 0.0f, u = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool in = !kMasked || i < n_valid;
+    const float w = in ? __expf(tt[i] - mt) : 0.0f;
+    zt = __fadd_rn(zt, w);
+    u = __fmaf_rn(w, in ? __fsub_rn(tt[i], ss[i]) : 0.0f, u);
+    zs = __fadd_rn(zs, in ? __expf(ss[i] - ms) : 0.0f);
+  }
+  const float rt = __expf(st.t.m - mt), rs = __expf(st.s.m - ms);  // 0 on a thread's first tile
+  st.t.z = __fmaf_rn(st.t.z, rt, zt);
+  st.s.z = __fmaf_rn(st.s.z, rs, zs);
+  st.u = __fmaf_rn(st.u, rt, u);  // U rides on the teacher's rescale
+  st.t.m = mt;
+  st.s.m = ms;
 }
 
 // Merge b into a (ra, rb: the rescales of a's and b's sums).  An empty
@@ -89,9 +129,9 @@ __device__ __forceinline__ void lse_merge(Lse& a, const Lse& b, float& ra, float
     a = b;
   } else {
     const float m = fmaxf(a.m, b.m);
-    ra = expf(a.m - m);
-    rb = expf(b.m - m);
-    a.z = a.z * ra + b.z * rb;
+    ra = __expf(a.m - m);
+    rb = __expf(b.m - m);
+    a.z = __fmaf_rn(a.z, ra, __fmul_rn(b.z, rb));
     a.m = m;
   }
 }
@@ -99,73 +139,153 @@ __device__ __forceinline__ void lse_merge(Lse& a, const Lse& b, float& ra, float
 __device__ __forceinline__ void merge(KL& a, const KL& b) {
   float ra, rb;
   lse_merge(a.t, b.t, ra, rb);
-  a.u = a.u * ra + b.u * rb;  // an empty side has U = 0 and a rescale of 0 or 1
+  a.u = __fmaf_rn(a.u, ra, __fmul_rn(b.u, rb));  // an empty side has U = 0
   lse_merge(a.s, b.s, ra, rb);
 }
 
-__device__ __forceinline__ KL shfl_xor(const KL& a, int lane_mask) {
+// The 32 lanes' states merged into every lane, in a fixed order: the
+// maxima first, then each lane's sums rescaled to them once, then the sums.
+// An empty state (m = -inf) contributes nothing, and an all-empty warp
+// stays empty (without the guard, exp(-inf - -inf) would be NaN).
+__device__ __forceinline__ KL warp_merge(const KL& a) {
   KL b;
-  b.t.m = __shfl_xor_sync(0xffffffffu, a.t.m, lane_mask);
-  b.t.z = __shfl_xor_sync(0xffffffffu, a.t.z, lane_mask);
-  b.u = __shfl_xor_sync(0xffffffffu, a.u, lane_mask);
-  b.s.m = __shfl_xor_sync(0xffffffffu, a.s.m, lane_mask);
-  b.s.z = __shfl_xor_sync(0xffffffffu, a.s.z, lane_mask);
+  b.t.m = a.t.m;
+  b.s.m = a.s.m;
+  for (int off = 16; off > 0; off >>= 1) {
+    b.t.m = fmaxf(b.t.m, __shfl_xor_sync(0xffffffffu, b.t.m, off));
+    b.s.m = fmaxf(b.s.m, __shfl_xor_sync(0xffffffffu, b.s.m, off));
+  }
+  const float rt = a.t.m == -INFINITY ? 0.0f : __expf(a.t.m - b.t.m);
+  const float rs = a.s.m == -INFINITY ? 0.0f : __expf(a.s.m - b.s.m);
+  b.t.z = __fmul_rn(a.t.z, rt);
+  b.u = __fmul_rn(a.u, rt);
+  b.s.z = __fmul_rn(a.s.z, rs);
+  for (int off = 16; off > 0; off >>= 1) {
+    b.t.z = __fadd_rn(b.t.z, __shfl_xor_sync(0xffffffffu, b.t.z, off));
+    b.u = __fadd_rn(b.u, __shfl_xor_sync(0xffffffffu, b.u, off));
+    b.s.z = __fadd_rn(b.s.z, __shfl_xor_sync(0xffffffffu, b.s.z, off));
+  }
   return b;
 }
 
+// Elements [lo, hi) one at a time, four per thread a tile, masked
+__device__ __forceinline__ void add_scalars(KL& st, const float* t, const float* s, int lo,
+                                            int hi, float inv_temp) {
+  for (int c = lo + threadIdx.x; c < hi; c += 4 * kThreads) {
+    float tt[4], ss[4];
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = c + i * kThreads;
+      const bool in = e < hi;  // the valid elements are a prefix of the tile
+      tt[i] = in ? t[e] * inv_temp : 0.0f;
+      ss[i] = in ? s[e] * inv_temp : 0.0f;
+      n += in;
+    }
+    add_tile<true>(st, tt, ss, n);
+  }
+}
+
+__device__ __forceinline__ void unpack(float* dst, float4 a, float inv_temp) {
+  dst[0] = a.x * inv_temp;
+  dst[1] = a.y * inv_temp;
+  dst[2] = a.z * inv_temp;
+  dst[3] = a.w * inv_temp;
+}
+
+// The row's partial states merged in a fixed order and its KL written to
+// *out: each warp's lanes, then warp 0 of rank 0 over every warp's partial
+// in the cluster, read through distributed shared memory (lane l: warp
+// l % kWarps of rank l / kWarps, then l + 32, ... merged into it in order).
+__device__ __forceinline__ void merge_and_write(KL st, cg::cluster_group& cluster, float* out) {
+  const int n_ranks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  st = warp_merge(st);
+  __shared__ KL part[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) part[warp] = st;
+  cluster.sync();  // every warp's partial is in its CTA's shared memory
+  if (rank == 0 && warp == 0) {
+    st.t.m = st.s.m = -INFINITY;
+    st.t.z = st.s.z = st.u = 0.0f;
+    for (int i = lane; i < n_ranks * kWarps; i += 32)
+      merge(st, *cluster.map_shared_rank(&part[i % kWarps], i / kWarps));
+    st = warp_merge(st);
+    if (lane == 0) {
+      const float lse_t = st.t.m + logf(st.t.z);
+      const float lse_s = st.s.m + logf(st.s.z);
+      *out = st.u / st.t.z - lse_t + lse_s;
+    }
+  }
+  cluster.sync();  // no CTA leaves while rank 0 may still read its shared memory
+}
+
 __global__ void __launch_bounds__(kThreads)
-    distill_kl_kernel(const float* __restrict__ teacher,
-                      const float* __restrict__ student,
+    distill_kl_kernel(const float* __restrict__ teacher, const float* __restrict__ student,
                       float* __restrict__ out, int vocab, float inv_temp) {
-  const int r = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int r = blockIdx.x / n_ranks;
   const float* t = teacher + (size_t)r * vocab;
   const float* s = student + (size_t)r * vocab;
   KL st;
   st.t.m = st.s.m = -INFINITY;
   st.t.z = st.s.z = st.u = 0.0f;
 
-  // 16-byte loads need both rows on the same 16-byte phase; the head up
-  // to the boundary and the tail after the last full float4 are scalar
   const uintptr_t pt = (uintptr_t)t, ps = (uintptr_t)s;
-  int head = vocab, n4 = 0;
   if ((pt & 15) == (ps & 15) && (pt & 3) == 0) {
-    head = min(vocab, (int)(((16 - (pt & 15)) & 15) >> 2));
-    n4 = (vocab - head) >> 2;
+    const int head = min(vocab, (int)(((16 - (pt & 15)) & 15) >> 2));
+    const int n4 = (vocab - head) >> 2;
+    const int chunk = (n4 + n_ranks - 1) / n_ranks;
+    const int b0 = min(n4, rank * chunk), b1 = min(n4, b0 + chunk);
+    if (rank == 0) add_scalars(st, t, s, 0, head, inv_temp);
+    const float4* t4 = reinterpret_cast<const float4*>(t + head);
+    const float4* s4 = reinterpret_cast<const float4*>(s + head);
+#pragma unroll 2
+    for (int i = b0 + threadIdx.x; i < b1; i += kThreads) {
+      float tt[4], ss[4];
+      unpack(tt, __ldg(t4 + i), inv_temp);
+      unpack(ss, __ldg(s4 + i), inv_temp);
+      add_tile<false>(st, tt, ss, 4);
+    }
+    if (rank == n_ranks - 1) add_scalars(st, t, s, head + 4 * n4, vocab, inv_temp);
+  } else {  // rows on different 16-byte phases: all scalar, a slice a rank
+    const int chunk = (vocab + n_ranks - 1) / n_ranks;
+    const int lo = min(vocab, rank * chunk);
+    add_scalars(st, t, s, lo, min(vocab, lo + chunk), inv_temp);
   }
-  for (int c = threadIdx.x; c < head; c += kThreads)
-    add_elem(st, t[c] * inv_temp, s[c] * inv_temp);
-  const float4* t4 = reinterpret_cast<const float4*>(t + head);
-  const float4* s4 = reinterpret_cast<const float4*>(s + head);
-  for (int i = threadIdx.x; i < n4; i += kThreads) {
-    const float4 a = __ldg(t4 + i), b = __ldg(s4 + i);
-    add_elem(st, a.x * inv_temp, b.x * inv_temp);
-    add_elem(st, a.y * inv_temp, b.y * inv_temp);
-    add_elem(st, a.z * inv_temp, b.z * inv_temp);
-    add_elem(st, a.w * inv_temp, b.w * inv_temp);
-  }
-  for (int c = head + 4 * n4 + threadIdx.x; c < vocab; c += kThreads)
-    add_elem(st, t[c] * inv_temp, s[c] * inv_temp);
 
-  // fixed-order merge: warp butterfly, then warp 0 over the warps' partials
-  for (int off = 16; off > 0; off >>= 1) merge(st, shfl_xor(st, off));
-  __shared__ KL part[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) part[warp] = st;
-  __syncthreads();
-  if (warp == 0) {
-    if (lane < kWarps) {
-      st = part[lane];
-    } else {
-      st.t.m = st.s.m = -INFINITY;
-      st.t.z = st.s.z = st.u = 0.0f;
-    }
-    for (int off = 16; off > 0; off >>= 1) merge(st, shfl_xor(st, off));
-    if (lane == 0) {
-      const float lse_t = st.t.m + logf(st.t.z);
-      const float lse_s = st.s.m + logf(st.s.z);
-      out[r] = st.u / st.t.z - lse_t + lse_s;
-    }
-  }
+  merge_and_write(st, cluster, out + r);
+}
+
+cudaLaunchConfig_t launch_config(int rows, int cluster, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)rows * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The largest cluster size (8, 4, 2 or 1) that leaves at most one CTA an
+// SM: rows * C <= the SM count.  Two CTAs an SM, or a second wave of
+// clusters, cost more in the merges than the split gains.
+int cluster_size(int rows, int* out) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  int c = kMaxCluster;
+  while (c > 1 && (long long)rows * c > sms) c /= 2;
+  *out = c;
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -173,11 +293,17 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // teacher, student: (rows, vocab) fp32, contiguous; out: (rows,) fp32.
-int distill_kl_f32(const float* teacher, const float* student, float* out,
-                   int rows, int vocab, float inv_temp, void* stream) {
+int distill_kl_f32(const float* teacher, const float* student, float* out, int rows, int vocab,
+                   float inv_temp, void* stream) {
   if (rows <= 0 || vocab <= 0) return (int)cudaSuccess;
-  distill_kl_kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
-      teacher, student, out, vocab, inv_temp);
+  int c = 1;
+  const int err = cluster_size(rows, &c);
+  if (err != (int)cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(rows, c, (cudaStream_t)stream, &attr);
+  const cudaError_t launch =
+      cudaLaunchKernelEx(&cfg, distill_kl_kernel, teacher, student, out, vocab, inv_temp);
+  if (launch != cudaSuccess) return (int)launch;
   return (int)cudaGetLastError();
 }
 

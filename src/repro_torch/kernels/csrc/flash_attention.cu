@@ -9,28 +9,56 @@
 // Both keep, per query row, an online max m, normaliser l and output
 // accumulator over key tiles; tiles wholly above the causal diagonal are
 // skipped (never loaded), the diagonal tile is masked per element, and the
-// row finishes as acc / l.  The score is (q . k) * D^-0.5, as the
-// Pallas kernel computes it.
+// row finishes as acc / l.
 //
-// What bounds it on H100: operations.  2*S*S*D*(B*H) fp32 operations (a
-// multiply-add counts two) for the causal half of QK^T and PV (12.9 GFLOP at B*H=96, S=1024, D=64: ~192 us at
-// the card's 67 TFLOP/s of fp32 outside the tensor cores) against 4*B*H*S*D*4
-// bytes of q, k, v and out (100 MB: ~30 us at 3.35 TB/s).
+// What bounds it on H100: operations.  The causal half of QK^T and PV is
+// 2*S*S*D*(B*H) multiply-adds counted as two operations (12.9 GFLOP at
+// B*H=96, S=1024, D=64) against 4*B*H*S*D*4 bytes of q, k, v and out
+// (100.7 MB: 30 us at 3.35 TB/s).  On CUDA cores (67 TFLOP/s fp32) that is
+// 192 us; this kernel runs both products on the tensor cores in TF32
+// (495 TFLOP/s) with three products per product (below), so its bound is
+// 3 * 12.9 GFLOP / 495 TFLOP/s = 78 us.
 //
-// Design.  The Pallas grid is (B*H, q_blocks, kv_blocks) with the kv axis
-// sequential and the accumulators in VMEM scratch.  Here a block owns 64
-// query rows of one head-batch, one row per thread: the thread keeps its q
-// row and its fp32 accumulator in registers (2 x 64 floats) and walks the key
-// tiles 0..diagonal in order.  Each 64-key tile of K and V is staged in
-// shared memory (2 x 64 x D x 4 bytes: 32 KB at D=64, under the 48 KB a
-// block gets without opting in) by the block's threads with 16-byte loads;
-// every thread then reads the same K/V row at once (a broadcast, no bank
-// conflicts).  Keys go through the online update 16 at a time: scores of
-// the chunk, its max over the keys this row may see, one rescale of l and
-// acc, then p = exp(s - m) into l and acc.  A masked key is never read into
-// the max or the sums, so the outputs of rows before a position do not
-// depend on k or v at or after it, bit for bit.  Products run in fp32 on
-// CUDA cores; wgmma and TMA are a later change.
+// Precision: 3xTF32.  One TF32 product keeps 11 bits of each operand; the
+// scores then carry errors of ~2^-11 * |q||k|, which exp() turns into
+// relative weight errors far above the check this kernel is held to
+// (S * 2^-24 * max|v| against the plain fp32 version: ~75x over it with q
+// and k of scale 4).  Each fp32 operand x is split into big = tf32(x)
+// (round to nearest, ties away: cvt.rna's rounding, done with two integer
+// operations, since the cvt instruction compiles to a guarded sequence
+// several times longer) and small = x - big, exact in fp32, of which the
+// tensor core reads the top 19 bits; a product is summed as small*big +
+// big*small + big*big, the small terms first.  Only small*small (~2^-22
+// relative) and small's last bits are dropped, so the products carry
+// ~fp32 precision; the TF32 products are exact in the fp32 accumulators.
+//
+// Design.  A block owns 64 query rows of one head-batch: 4 warps of 16
+// rows, each warp one m16n8k8 row tile; blocks are launched with the query
+// tiles that see the most keys first, so the causal triangle leaves no
+// tail of long blocks.  The q tile is staged once through shared memory,
+// scaled by D^-0.5 (= 2^-3, exact) and split into big and small A
+// fragments held in registers for the whole block.  K and V arrive in
+// 64-key tiles through cp.async (16-byte, zero-filled past the sequence),
+// double-buffered so that tile j + 1 loads while tile j computes.  S = Q K^T
+// runs the 8 key n-tiles as independent accumulators over each k-step, so
+// the tensor-core latency of one is hidden behind the others.  Inside each
+// pair of k-steps the sum over D is taken in another order (A column t
+// holds d = 16m + 4t + 2h of k-step 2m + h, column t + 4 the next d), so a
+// lane reads its four K values of a step pair as one 16-byte load; K's rows
+// are padded to 80 floats, V's to 68, which puts every fragment load of a
+// warp on distinct banks (an unpadded 64-float row is 4- to 8-way
+// conflicted).  The online softmax runs on the accumulators: the row max
+// across the four lanes of a quad with shuffles, exp(x) as 2^(x log2 e) on
+// the special-function unit, the row sums kept per lane and reduced once
+// at the end.  On the diagonal tile a key after the query is set to -inf
+// before the max, so its weight is an exact 0: it never enters the max or
+// the sums, and the outputs of rows before a position do not depend on k
+// or v at or after it, bit for bit.  P.V reuses the S accumulators as A
+// fragments without any shuffle: the accumulator pair (2t, 2t+1) of a lane
+// becomes the A columns (t, t+4), and the B fragment reads V rows 2t and
+// 2t+1 to match, a permutation of the keys inside each k-step of the sum.
+// 230 registers a thread (no spills): two blocks an SM; a third (168
+// registers) spills and runs slower.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC.
@@ -39,106 +67,241 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 64;   // query rows per block = threads per block
-constexpr int kKeys = 64;   // keys per staged tile
-constexpr int kChunk = 16;  // keys per online update
-constexpr int D = 64;       // head dim (GPT-2 small and large)
-constexpr int D4 = D / 4;
+constexpr int D = 64;                   // head dim (GPT-2 small and large)
+constexpr int kWarps = 4;               // 16 query rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;      // query rows per block
+constexpr int kKeys = 64;               // keys per staged tile
+// shared-memory rows padded (in floats) so that a warp's fragment loads hit
+// distinct banks: K's for 16-byte loads, V's for 4-byte loads
+constexpr int kStrideK = D + 16;
+constexpr int kStrideV = D + 4;
+constexpr int kTileK = kKeys * kStrideK;  // floats of one staged K or V tile
+constexpr int kTileV = kKeys * kStrideV;
+constexpr int kStage = kTileK + kTileV;
+constexpr int kSmemBytes = 2 * kStage * (int)sizeof(float);  // 2 stages of K and V
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kRows == kKeys, "the diagonal tile of a block is its last key tile");
 
-__global__ void __launch_bounds__(kRows)
-    flash_attention_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           float* __restrict__ out, int seq, float scale) {
-  __shared__ float4 ks[kKeys][D4];
-  __shared__ float4 vs[kKeys][D4];
+// x = big + small to ~22 bits.  big is cvt.rna.tf32.f32(x) for finite x,
+// formed with two integer operations (the cvt instruction compiles to a
+// guarded sequence several times longer); small = x - big is exact, and
+// the tensor core reads its top 19 bits.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
 
-  const size_t base = (size_t)blockIdx.y * seq * D;
-  const int q0 = blockIdx.x * kRows;
-  const int qi = q0 + threadIdx.x;  // this thread's query row
-  const bool live = qi < seq;
+// c += a . b on the tensor cores, one m16n8k8 TF32 product
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  float qr[D], acc[D];
-  const float4* q4 = reinterpret_cast<const float4*>(q + base + (size_t)qi * D);
+// c += a . b in 3xTF32: the small terms first, then big * big
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], float b0, float b1) {
+  uint32_t b0b, b0s, b1b, b1s;
+  split(b0, b0b, b0s);
+  split(b1, b1b, b1s);
+  mma(c, as, b0b, b1b);
+  mma(c, ab, b0s, b1s);
+  mma(c, ab, b0b, b1b);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 64 rows of one (seq, D) matrix from row0 into a tile of rows padded to
+// `stride` floats; rows past the sequence are zero
+template <int kStride>
+__device__ __forceinline__ void stage(float* dst, const float* src, int row0, int seq) {
 #pragma unroll
-  for (int d = 0; d < D4; ++d) {
-    const float4 x = live ? q4[d] : make_float4(0.f, 0.f, 0.f, 0.f);
-    qr[4 * d] = x.x;
-    qr[4 * d + 1] = x.y;
-    qr[4 * d + 2] = x.z;
-    qr[4 * d + 3] = x.w;
+  for (int i = 0; i < kKeys * (D / 4) / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c / (D / 4), col = 4 * (c % (D / 4));
+    const bool in = row0 + r < seq;
+    cp_async16(dst + r * kStride + col, src + (size_t)(in ? row0 + r : 0) * D + col, in);
   }
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.0f;
-  float m = -INFINITY, l = 0.0f;
+}
 
-  const float4* k4 = reinterpret_cast<const float4*>(k + base);
-  const float4* v4 = reinterpret_cast<const float4*>(v + base);
-  const int last_key = min(q0 + kRows, seq) - 1;  // the block's last visible key
-  for (int t0 = 0; t0 <= last_key; t0 += kKeys) {
-    // stage the tile; rows past the sequence are zero and never visible
-    for (int e = threadIdx.x; e < kKeys * D4; e += kRows) {
-      const int row = e / D4, col = e % D4;
-      const bool in = t0 + row < seq;
-      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      ks[row][col] = in ? k4[(size_t)(t0 + row) * D4 + col] : z;
-      vs[row][col] = in ? v4[(size_t)(t0 + row) * D4 + col] : z;
+// 2^x on the special-function unit (2 ulp; a subnormal result flushes to 0,
+// and 2^-inf is an exact 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ out, int seq,
+                           float scale) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // stage s: K, then V, at s * kStage
+
+  const int n_qt = (seq + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * kRows;  // the longest query tiles first
+  const size_t base = (size_t)blockIdx.x * seq * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group and lane in the quad
+  const int row0 = q0 + 16 * warp + g, row1 = row0 + 8;
+  const int n_kt = q0 / kKeys + 1;  // key tiles 0 .. the diagonal
+
+  // the q tile through stage 1's K buffer, beside key tile 0 in stage 0
+  stage<kStrideK>(smem, k + base, 0, seq);
+  stage<kStrideV>(smem + kTileK, v + base, 0, seq);
+  stage<kStrideK>(smem + kStage, q + base, q0, seq);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // A fragments of the scaled q, big and small.  The sum over D is taken in
+  // another order inside each pair of k-steps (2m, 2m + 1): A column t holds
+  // d = 16m + 4t + 2h of k-step 2m + h, column t + 4 the next d, and K's B
+  // fragments follow, so that a lane reads its four K values as one float4.
+  uint32_t qb[D / 8][4], qs[D / 8][4];
+  {
+    const float* qt = smem + kStage + 16 * warp * kStrideK + 4 * t;
+#pragma unroll
+    for (int m = 0; m < D / 16; ++m) {
+      const float4 x0 = *reinterpret_cast<const float4*>(qt + g * kStrideK + 16 * m);
+      const float4 x1 = *reinterpret_cast<const float4*>(qt + (g + 8) * kStrideK + 16 * m);
+      split(x0.x * scale, qb[2 * m][0], qs[2 * m][0]);
+      split(x1.x * scale, qb[2 * m][1], qs[2 * m][1]);
+      split(x0.y * scale, qb[2 * m][2], qs[2 * m][2]);
+      split(x1.y * scale, qb[2 * m][3], qs[2 * m][3]);
+      split(x0.z * scale, qb[2 * m + 1][0], qs[2 * m + 1][0]);
+      split(x1.z * scale, qb[2 * m + 1][1], qs[2 * m + 1][1]);
+      split(x0.w * scale, qb[2 * m + 1][2], qs[2 * m + 1][2]);
+      split(x1.w * scale, qb[2 * m + 1][3], qs[2 * m + 1][3]);
+    }
+  }
+  __syncthreads();  // the q tile is read before key tile 1 overwrites it
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    if (it + 1 < n_kt) {
+      float* next = smem + ((it + 1) & 1) * kStage;
+      stage<kStrideK>(next, k + base, (it + 1) * kKeys, seq);
+      stage<kStrideV>(next + kTileK, v + base, (it + 1) * kKeys, seq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    if (live) {
-      for (int c0 = 0; c0 < kKeys && t0 + c0 <= qi; c0 += kChunk) {
-        float s[kChunk];
-        float cmax = -INFINITY;
+    const float* ks = smem + (it & 1) * kStage;
+    const float* vs = ks + kTileK;
+    const int k0 = it * kKeys;
+    const bool diag = it == n_kt - 1;
+
+    // S = (q * scale) k^T, 16 rows x 64 keys a warp: the 8 key n-tiles are
+    // independent accumulators, interleaved over each k-step
+    float s[kKeys / 8][4];
 #pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          float dot = 0.0f;
+    for (int j = 0; j < kKeys / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
-          for (int d = 0; d < D4; ++d) {
-            const float4 kk = ks[c0 + j][d];
-            dot += qr[4 * d] * kk.x;
-            dot += qr[4 * d + 1] * kk.y;
-            dot += qr[4 * d + 2] * kk.z;
-            dot += qr[4 * d + 3] * kk.w;
-          }
-          s[j] = dot * scale;
-          if (t0 + c0 + j <= qi) cmax = fmaxf(cmax, s[j]);
-        }
-        // key t0 + c0 <= qi is visible, so cmax and m_new are finite
-        const float m_new = fmaxf(m, cmax);
-        const float r = expf(m - m_new);  // 0 on the row's first chunk
-        l *= r;
+    for (int m = 0; m < D / 16; ++m) {
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] *= r;
-        m = m_new;
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          if (t0 + c0 + j <= qi) {
-            const float p = expf(s[j] - m);
-            l += p;
-#pragma unroll
-            for (int d = 0; d < D4; ++d) {
-              const float4 vv = vs[c0 + j][d];
-              acc[4 * d] += p * vv.x;
-              acc[4 * d + 1] += p * vv.y;
-              acc[4 * d + 2] += p * vv.z;
-              acc[4 * d + 3] += p * vv.w;
-            }
-          }
-        }
+      for (int j = 0; j < kKeys / 8; ++j) {
+        const float4 kr =
+            *reinterpret_cast<const float4*>(ks + (8 * j + g) * kStrideK + 16 * m + 4 * t);
+        mma3(s[j], qb[2 * m], qs[2 * m], kr.x, kr.y);
+        mma3(s[j], qb[2 * m + 1], qs[2 * m + 1], kr.z, kr.w);
       }
     }
-    __syncthreads();  // the tile is read before the next one overwrites it
-  }
-  if (live) {
-    float4* o4 = reinterpret_cast<float4*>(out + base + (size_t)qi * D);
-    const float inv = 1.0f / l;
+    // the causal mask, then the tile's row max across the quad
+    float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int d = 0; d < D4; ++d)
-      o4[d] = make_float4(acc[4 * d] * inv, acc[4 * d + 1] * inv,
-                          acc[4 * d + 2] * inv, acc[4 * d + 3] * inv);
+    for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        if (diag && key > (e < 2 ? row0 : row1)) s[j][e] = -INFINITY;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    // key k0 <= every row of the block, so the new maxima are finite;
+    // exp(x) = 2^(x log2 e), and exp(-inf) is an exact 0
+    const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+    const float r0 = exp2_approx((m0 - n0) * kLog2e);  // 0 on the first tile
+    const float r1 = exp2_approx((m1 - n1) * kLog2e);
+    m0 = n0;
+    m1 = n1;
+    const float c0 = -m0 * kLog2e, c1 = -m1 * kLog2e;
+    l0 *= r0;
+    l1 *= r1;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      o[nd][0] *= r0;
+      o[nd][1] *= r0;
+      o[nd][2] *= r1;
+      o[nd][3] *= r1;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      s[j][0] = exp2_approx(fmaf(s[j][0], kLog2e, c0));
+      s[j][1] = exp2_approx(fmaf(s[j][1], kLog2e, c0));
+      s[j][2] = exp2_approx(fmaf(s[j][2], kLog2e, c1));
+      s[j][3] = exp2_approx(fmaf(s[j][3], kLog2e, c1));
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+    // O += P V: the accumulators of keys (2t, 2t + 1) are the A columns
+    // (t, t + 4), so the B fragment takes V rows 2t and 2t + 1
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      uint32_t pb[4], ps[4];
+      split(s[j][0], pb[0], ps[0]);
+      split(s[j][2], pb[1], ps[1]);
+      split(s[j][1], pb[2], ps[2]);
+      split(s[j][3], pb[3], ps[3]);
+      const float* vr = vs + (8 * j + 2 * t) * kStrideV + g;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) mma3(o[nd], pb, ps, vr[8 * nd], vr[kStrideV + 8 * nd]);
+    }
+    __syncthreads();  // the tile is read before the next stage overwrites it
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int col = 8 * nd + 2 * t;
+    if (row0 < seq)
+      *reinterpret_cast<float2*>(out + base + (size_t)row0 * D + col) =
+          make_float2(o[nd][0] * inv0, o[nd][1] * inv0);
+    if (row1 < seq)
+      *reinterpret_cast<float2*>(out + base + (size_t)row1 * D + col) =
+          make_float2(o[nd][2] * inv1, o[nd][3] * inv1);
   }
 }
 
@@ -149,14 +312,16 @@ extern "C" {
 // q, k, v, out: (bh, seq, head_dim) fp32, contiguous, 16-byte aligned;
 // head_dim 64 (else cudaErrorInvalidValue, nothing launched); scale: the
 // caller's fp32 head_dim^-0.5.
-int flash_attention_f32(const float* q, const float* k, const float* v,
-                        float* out, int bh, int seq, int head_dim, float scale,
-                        void* stream) {
+int flash_attention_f32(const float* q, const float* k, const float* v, float* out, int bh,
+                        int seq, int head_dim, float scale, void* stream) {
   if (head_dim != D) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
-  const dim3 grid((seq + kRows - 1) / kRows, bh);
-  flash_attention_kernel<<<grid, kRows, 0, (cudaStream_t)stream>>>(
-      q, k, v, out, seq, scale);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (seq + kRows - 1) / kRows);
+  flash_attention_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(q, k, v, out, seq,
+                                                                               scale);
   return (int)cudaGetLastError();
 }
 

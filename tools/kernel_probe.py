@@ -1,19 +1,26 @@
-"""Measure the top-k and wire-scatter kernels against an earlier checkout on
-one GPU, and break the top-k's time into its phases.
+"""Measure the port's kernels against an earlier checkout on one GPU, and
+break the top-k's time into its phases.
 
-    python3 tools/kernel_probe.py --parent DIR [--real]
+    python3 tools/kernel_probe.py --parent DIR [--real] [--kernels topk,scatter,kl,attention]
 
 DIR is a checkout of an earlier commit (for example ``git archive <commit>``
-unpacked into ``build/parent``); its ``topk_select.cu`` and ``sparse_agg.cu``
-are built beside this checkout's, and the two are timed in turns (earlier,
-this, this, earlier) in the same process, on the same inputs:
+unpacked into ``build/parent``); its ``topk_select.cu``, ``sparse_agg.cu``,
+``distill_kl.cu`` and ``flash_attention.cu`` are built beside this
+checkout's, and the two are timed in turns (earlier, this, this, earlier)
+in the same process, on the same inputs (``--kernels`` picks which):
 
 * the dynamic top-k at (256, 50 257) with the budgets [388, 608, 342, 428],
   on normal rows, on rows of scale 0.55 (the spread of a randomly
   initialised GPT-2's logits) and on constant rows; with ``--real`` also on
   the input of the ``fused`` float run's last round (its own budgets),
   captured as ``chip_smoke.py`` captures it, with statistics of its rows;
-* both wire scatters at N 4, 64 rows, V 50 257, k_cap 128 and 1024.
+* both wire scatters at N 4, 64 rows, V 50 257, k_cap 128 and 1024;
+* the distillation KL at (64, 50 257), T = 2, after ``chip_smoke.py``'s
+  checks of the KL kernel: warm (the same inputs each launch) and cold (in
+  turn over ``chip_smoke.COLD_COPIES`` copies of them);
+* the causal attention at (96, 1024, 64) on N(0, 1) q, k, v, after
+  ``chip_smoke.py``'s checks of the attention kernel, with the opcode mix of
+  this checkout's attention library (``cuobjdump -sass``).
 
 It also builds a copy of this checkout's ``topk_select.cu`` with clock
 reads added at its phase boundaries (load, bisection, store) and counters
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import statistics
 import subprocess
 import sys
@@ -42,75 +50,59 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.core.topk import quantize_wire  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "probe"
 
 
-def with_clocks(src: str) -> str:
-    """``topk_select.cu`` with per-block clocks and counters written to a
-    device buffer set by ``topk_set_prof``: 16 int64 a row."""
-    def rep(old: str, new: str) -> None:
-        nonlocal src
+def substituted(path: Path, pairs) -> str:
+    """The source at ``path`` with each ``(old, new)`` replaced: a copy made
+    by text substitution at fixed lines, which stops with the line it could
+    not find once when the source changes."""
+    src = path.read_text()
+    for old, new in pairs:
         if src.count(old) != 1:
             raise SystemExit(f"kernel_probe: source line not found once: {old!r}")
         src = src.replace(old, new)
-
-    rep("namespace {\n", "namespace {\n__device__ long long* g_prof;\n")
-    rep("  const int r = blockIdx.x;\n  const int lane",
-        "  const long long pt0 = clock64(); long long pg0;\n"
-        "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pg0));\n"
-        "  const int r = blockIdx.x;\n  const int lane")
-    rep("  // -- bisection ---",
-        "  const long long pt1 = clock64();\n  int pf = 0, pb = 0, pc = 0; long long pwc = 0;\n"
-        "  // -- bisection ---")
-    rep("        if (s.n_buf < 0) {  // a full pass\n", "        if (s.n_buf < 0) {  // a full pass\n          ++pf;\n")
-    rep("        } else {  // a count over the buffer\n",
-        "        } else {  // a count over the buffer\n          ++pb;\n")
-    rep("          compact_row<kSmem>(", "          ++pc;\n          compact_row<kSmem>(")
-    rep("          warp_steps(s, buf, k);",
-        "          const long long pw0 = clock64();\n          warp_steps(s, buf, k);\n"
-        "          pwc = clock64() - pw0;")
-    rep("  // -- the masked row ---", "  const long long pt2 = clock64();\n  // -- the masked row ---")
-    rep("      outr[c] = v >= lo ? v : 0.0f;\n    }\n  }\n}\n",
-        "      outr[c] = v >= lo ? v : 0.0f;\n    }\n  }\n"
-        "  __syncthreads();\n"
-        "  if (threadIdx.x == 0 && g_prof) { long long g1;\n"
-        "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g1));\n"
-        "    long long* d = g_prof + 16 * blockIdx.x;\n"
-        "    d[0] = pt1 - pt0; d[1] = pt2 - pt1; d[2] = clock64() - pt2; d[3] = pf; d[4] = pb;\n"
-        "    d[5] = pc; d[6] = pg0; d[7] = g1; d[8] = pwc; }\n}\n")
-    rep('extern "C" {\n',
-        'extern "C" {\nvoid topk_set_prof(long long* p) { cudaMemcpyToSymbol(g_prof, &p, sizeof(p)); }\n')
     return src
 
 
-def compile_libs(parent: Path) -> dict[str, ctypes.CDLL]:
-    """The earlier checkout's two sources and the clocked copy, one nvcc
-    each, all at once."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    clocked = OUT / "topk_clocks.cu"
-    clocked.write_text(with_clocks((CSRC / "topk_select.cu").read_text()))
-    pcsrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
-    jobs = []
-    for name, src in (("parent_topk", pcsrc / "topk_select.cu"), ("parent_agg", pcsrc / "sparse_agg.cu"),
-                      ("topk_clocks", clocked)):
-        so = OUT / f"lib{name}.so"
-        jobs.append((name, so, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for name, so, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"kernel_probe: nvcc failed on {name}\n{log}")
-        libs[name] = ctypes.CDLL(str(so))
-    return libs
+def topk_clocks() -> str:
+    """``topk_select.cu`` with per-block clocks and counters written to a
+    device buffer set by ``topk_set_prof``: 16 int64 a row."""
+    return substituted(CSRC / "topk_select.cu", (
+        ("namespace {\n", "namespace {\n__device__ long long* g_prof;\n"),
+        ("  const int r = blockIdx.x;\n  const int lane",
+            "  const long long pt0 = clock64(); long long pg0;\n"
+            "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pg0));\n"
+            "  const int r = blockIdx.x;\n  const int lane"),
+        ("  // -- bisection ---",
+            "  const long long pt1 = clock64();\n  int pf = 0, pb = 0, pc = 0; long long pwc = 0;\n"
+            "  // -- bisection ---"),
+        ("        if (s.n_buf < 0) {  // a full pass\n", "        if (s.n_buf < 0) {  // a full pass\n          ++pf;\n"),
+        ("        } else {  // a count over the buffer\n",
+            "        } else {  // a count over the buffer\n          ++pb;\n"),
+        ("          compact_row<kSmem>(", "          ++pc;\n          compact_row<kSmem>("),
+        ("          warp_steps(s, buf, k);",
+            "          const long long pw0 = clock64();\n          warp_steps(s, buf, k);\n"
+            "          pwc = clock64() - pw0;"),
+        ("  // -- the masked row ---", "  const long long pt2 = clock64();\n  // -- the masked row ---"),
+        ("      outr[c] = v >= lo ? v : 0.0f;\n    }\n  }\n}\n",
+            "      outr[c] = v >= lo ? v : 0.0f;\n    }\n  }\n"
+            "  __syncthreads();\n"
+            "  if (threadIdx.x == 0 && g_prof) { long long g1;\n"
+            "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g1));\n"
+            "    long long* d = g_prof + 16 * blockIdx.x;\n"
+            "    d[0] = pt1 - pt0; d[1] = pt2 - pt1; d[2] = clock64() - pt2; d[3] = pf; d[4] = pb;\n"
+            "    d[5] = pc; d[6] = pg0; d[7] = g1; d[8] = pwc; }\n}\n"),
+        ('extern "C" {\n',
+            'extern "C" {\nvoid topk_set_prof(long long* p) { cudaMemcpyToSymbol(g_prof, &p, sizeof(p)); }\n'),
+    ))
 
 
-def c_fn(lib: ctypes.CDLL, symbol: str, n_ptr: int, n_int: int):
+def c_fn(lib: ctypes.CDLL, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):
     fn = getattr(lib, symbol)
-    fn.argtypes, fn.restype = [P] * n_ptr + [I] * n_int + [P], I
+    fn.argtypes, fn.restype = [P] * n_ptr + [I] * n_int + [F] * n_float + [P], I
     return fn
 
 
@@ -213,17 +205,115 @@ def topk_ab(libs, device, real=None) -> None:
               flush=True)
 
 
+def compile_libs(parent: Path) -> dict[str, ctypes.CDLL]:
+    """The earlier checkout's four sources and the clocked top-k copy, one
+    nvcc each, all at once."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    pcsrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
+    sources = {"parent_topk": pcsrc / "topk_select.cu", "parent_agg": pcsrc / "sparse_agg.cu",
+               "parent_kl": pcsrc / "distill_kl.cu", "parent_attention": pcsrc / "flash_attention.cu",
+               "topk_clocks": OUT / "topk_clocks.cu"}
+    sources["topk_clocks"].write_text(topk_clocks())
+    jobs = {name: (OUT / f"lib{name}.so", subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(OUT / f"lib{name}.so"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for name, src in sources.items()}
+    libs = {}
+    for name, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"kernel_probe: nvcc failed on {name}\n{log}")
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def sass_histogram(lib: Path, top: int = 24) -> str:
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    counts: dict[str, int] = {}
+    for line in sass.splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    ranked = sorted(counts.items(), key=lambda kv: -kv[1])[:top]
+    return f"{sum(counts.values())} instructions: " + ", ".join(f"{k} {v}" for k, v in ranked)
+
+
+def kl_ab(libs, device) -> None:
+    cs.check_distill_kl(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rows, vocab = cs.ROWS, cs.VOCAB
+    gen = torch.Generator(device=device).manual_seed(31)
+    t, s = (2.0 * torch.randn((rows, vocab), generator=gen, device=device) for _ in range(2))
+    out = torch.empty(rows, device=device)
+    want = ref.distill_kl_ref(t, s, 2.0)
+    tol = cs.kl_tolerance(t, s, 2.0, want)
+    args = (t.data_ptr(), s.data_ptr(), out.data_ptr(), rows, vocab)
+    new = ops._fn("distill_kl", "distill_kl_f32", 3, 2, 1)
+    old = c_fn(libs["parent_kl"], "distill_kl_f32", 3, 2, 1)
+    runs = {"earlier": lambda: old(*args, 0.5, stream), "this": lambda: new(*args, 0.5, stream)}
+    for name, fn in runs.items():
+        out.fill_(float("nan"))
+        assert fn() == 0, name
+        torch.cuda.synchronize()
+        assert bool(((out - want).abs() <= tol).all()), name
+    in_turns(f"distill_kl at ({rows}, {vocab}), T=2, warm", runs["earlier"], runs["this"])
+    copies = [(t, s)] + [(t.clone(), s.clone()) for _ in range(cs.COLD_COPIES - 1)]
+    cold = {name: cs.in_turn([lambda a=a, b=b, fn=fn: fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), rows,
+                                                         vocab, 0.5, stream) for a, b in copies])
+            for name, fn in (("earlier", old), ("this", new))}
+    in_turns(f"distill_kl at ({rows}, {vocab}), T=2, cold (in turn over {cs.COLD_COPIES} copies)",
+             cold["earlier"], cold["this"])
+
+
+def attention_ab(libs, device) -> None:
+    cs.check_flash_attention(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    bh, seq, d = 96, 1024, 64
+    gen = torch.Generator(device=device).manual_seed(7)
+    q, k, v = (torch.randn((bh, seq, d), generator=gen, device=device) for _ in range(3))
+    out = torch.empty_like(q)
+    want = ref.flash_attention_ref(q, k, v)
+    tol = cs.attention_tolerance(seq, v)
+    args = [x.data_ptr() for x in (q, k, v, out)]
+    new = ops._fn("flash_attention", "flash_attention_f32", 4, 3, 1)
+    old = c_fn(libs["parent_attention"], "flash_attention_f32", 4, 3, 1)
+    runs = {"earlier": lambda: old(*args, bh, seq, d, d**-0.5, stream),
+            "this": lambda: new(*args, bh, seq, d, d**-0.5, stream)}
+    for name, fn in runs.items():
+        out.fill_(float("nan"))
+        assert fn() == 0, name
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        assert err <= tol, (name, err, tol)
+        print(f"[probe] flash_attention {name}: max |diff| {err:.3e} (bound {tol:.3e})", flush=True)
+    in_turns(f"flash_attention at ({bh}, {seq}, {d})", runs["earlier"], runs["this"])
+    print(f"[probe] flash_attention SASS: {sass_histogram(build.build_all(['flash_attention'])['flash_attention'])}",
+          flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, required=True, help="a checkout of the earlier commit")
     parser.add_argument("--real", action="store_true", help="also time the fused run's own input")
+    parser.add_argument("--kernels", default="topk,scatter,kl,attention",
+                        help="comma-separated: which of topk, scatter, kl, attention to probe")
     args = parser.parse_args()
+    kernels = set(args.kernels.split(","))
+    if not kernels <= {"topk", "scatter", "kl", "attention"}:
+        raise SystemExit(f"kernel_probe: unknown kernels {sorted(kernels)}")
     device, card = cs.phase_device()
     cs.phase_build()
     libs = compile_libs(args.parent.resolve())
-    real = cs.phase_main_path(device, "fused", False)["topk_input"] if args.real else None
-    topk_ab(libs, device, real)
-    scatter_ab(libs, device)
+    if "kl" in kernels:
+        kl_ab(libs, device)
+    if "attention" in kernels:
+        attention_ab(libs, device)
+    if "topk" in kernels:
+        real = cs.phase_main_path(device, "fused", False)["topk_input"] if args.real else None
+        topk_ab(libs, device, real)
+    if "scatter" in kernels:
+        scatter_ab(libs, device)
     print(card)
     return 0
 
