@@ -42,6 +42,15 @@ Phases (any failure raises and exits non-zero):
      and v from a position on leaves every earlier output unchanged.  The
      build line gives both kernels' registers and spills, and the count of
      tensor-core instructions (HMMA) in the attention library's SASS.
+   Then each kernel's bf16 entry point on bf16 inputs: the wire scatter,
+   the top-k masks (bf16-rounded normal rows, the NaN/+-inf/near-3e38
+   rows, and rows of a few exact bf16 values whose k-th value sits in a tie
+   group of ~50, ~500, ~2000 and ~17 000 values: past the warp's 32 values,
+   the warp's take-over size and the candidate buffer) and the dense
+   aggregation ``torch.equal`` to their plain versions (fp32 arithmetic on
+   the upcast inputs, rounded to bf16 once); the KL within its fp32
+   tolerance; the attention within S * 2^-24 * max|v| plus one bf16 ulp
+   (both round once from fp32), and causal bitwise.
 4. small input — the port's round on a tiny config on the card (kernels)
    and on the CPU (plain versions), ``fused_e2e`` then ``fused``, float and
    int8 uplink: identical k and bytes, accuracies within one eval sample,
@@ -54,8 +63,13 @@ Phases (any failure raises and exits non-zero):
 5. main path — ``run_federated`` with AdaLD and ``use_kernels=True`` at the
    paper's widths (GPT-2 small clients, GPT-2 large server), 2 rounds each:
    ``fused_e2e`` float and int8 wire, ``fused`` float and int8 uplink,
-   ``batched`` and ``sequential`` float uplink.  Every launch count is set
-   to 0 just before each run and read just after: the scatter kernels
+   ``batched`` and ``sequential`` float uplink; then ``fused_e2e`` float
+   wire and ``fused`` float uplink in bf16 (the models and the round body
+   compute in bf16: ``compute_dtype="bfloat16"`` on both), held identical
+   to their fp32 runs on per-client k, bytes and transmitters, with the
+   LoRA masters and Adam moments checked fp32 after every run.  Every
+   launch count is set to 0 just before each run and read just after: the
+   bf16 runs launch the bf16 entry points (``name.bf16``), the scatter kernels
    launch once a round on ``fused_e2e`` (float or int8), the per-row top-k
    once a round on ``fused``, the dense aggregation once a round with a
    transmitter on ``fused``, ``batched`` and ``sequential``, and nothing
@@ -69,7 +83,10 @@ Phases (any failure raises and exits non-zero):
    ``total_distill_loss(use_kernel=True)`` after the ``sequential`` run,
    the final broadcast as teacher and client 0's public logits as student,
    against ``use_kernel=False`` (and a student that requires grad must
-   raise); the attention through ``kernels.ops.flash_attention`` in phase 6.
+   raise), and the same after the bf16 ``fused`` run, its kernel part held
+   against the plain version of the kernel (the plain bf16 loss rounds as
+   the reference's does); the attention through
+   ``kernels.ops.flash_attention`` in phase 6, in fp32 and in bf16.
 6. serving — a shared GPT-2 small backbone and 8 tenant adapters (A and B
    drawn from a numpy seed) in a ``DeviceFleetStore``, exported to an
    ``AdapterCache`` of 4 slots behind a ``ServeSession`` of batch 8: two
@@ -81,7 +98,8 @@ Phases (any failure raises and exits non-zero):
    another order).  Then ``make_prefill_step`` at (8, 1024), the chunked
    attention, and the attention kernel on layer 0's q/k/v of that prefill,
    held against the chunked attention and the plain version (and a q that
-   requires grad must raise).
+   requires grad must raise); then that q/k/v rounded to bf16 through the
+   bf16 kernel.
 7. timing — each kernel's C entry point, its wrapper, its plain version and
    one PyTorch library call where one computes the same function, at the
    main path's shapes, beside the least time the card could take (for
@@ -92,12 +110,20 @@ Phases (any failure raises and exits non-zero):
    on constant rows (its worst case).  The KL's inputs (25.7 MB) would stay
    in the 50 MB L2 between back-to-back launches, so its row's ``ms`` (and
    ``plain_ms``) take the launches in turn over ``COLD_COPIES`` copies of
-   them, each read cold; ``ms_warm`` repeats one copy.
+   them, each read cold; ``ms_warm`` repeats one copy.  The bf16 entry
+   points get rows of their own (``name.bf16``), their bounds counting
+   bytes at bf16 width (and, for the attention, the one TF32 product for
+   Q K^T and two for P V that the bf16 kernel runs); the bf16 top-k rows
+   are timed on the bf16 ``fused`` run's input, and the bf16 attention's
+   library call (bf16 SDPA, which rounds P to bf16: not the same function)
+   reports its error against the plain version beside its time.
 
-The last two lines are the kernels record and the device record (JSON).
-In the kernels record ``launches`` is each kernel's count summed over the
-six main-path runs; the static top-k's, the KL's and the attention's rows
-add ``entry_launches``, their counts through their public entry points.
+The last lines are the card and its power limit, the kernels record and the
+device record (JSON).  In the kernels record ``launches`` is each kernel's
+count summed over the eight main-path runs, ``pct_of_bound`` its bound over
+its time; the static top-k's, the KL's and the attention's rows (fp32 and
+bf16) add ``entry_launches``, their counts through their public entry
+points.
 """
 
 from __future__ import annotations
@@ -147,6 +173,7 @@ from repro_torch.serve import (  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
 TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores, NVIDIA data sheet
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores, NVIDIA data sheet
 TF32_SPLIT = 3  # the attention kernel's TF32 products per fp32 product (3xTF32)
 N_CLIENTS, ROWS, VOCAB = 4, 64, GPT2_SMALL.vocab_size
 WIDE_ROWS, WIDE_VOCAB = 8, 152_064  # a vocabulary beyond one block's shared memory
@@ -163,6 +190,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "distill_kl": (_CSRC + "distill_kl.cu", "src/repro/kernels/distill_kl.py:96"),
     "flash_attention": (_CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),
 }
+# each kernel's bf16 entry point: the same source and TPU kernel (the int8
+# wire's scatter has no bf16 input)
+KERNELS.update({f"{name}.bf16": KERNELS[name] for name in ops.BF16_KERNELS})
+BF16 = torch.bfloat16
+# the bf16 main-path runs: the models compute in bf16, and so does the round body
+BF16_CFG = dict(compute_dtype="bfloat16")
 # the serving phase: tenants, slots, batch, prompt and decode lengths
 TENANTS, SLOTS, SERVE_BATCH, PROMPT, GEN = 8, 4, 8, 32, 32
 PREFILL_S = 1024
@@ -175,24 +208,27 @@ def log(msg: str) -> None:
 # -- inputs -------------------------------------------------------------------
 
 
-def make_wire(k_cap: int, seed: int, device, rows: int = ROWS, vocab: int = VOCAB):
+def make_wire(k_cap: int, seed: int, device, rows: int = ROWS, vocab: int = VOCAB,
+              dtype: torch.dtype = torch.float32):
     """A cohort wire shaped as the main path shapes it, from sparsify_wire
-    on random logits, with the edge cases forced in: client 2 sends nothing
-    (k = 0), clients 1 and 3 pad their masked entries at index 0 (as
-    ``pad_wire`` does) while rows of client 1 send a real index-0 entry,
-    and client 3's logits are all negative."""
+    on random logits (in ``dtype``), with the edge cases forced in: client 2
+    sends nothing (k = 0), clients 1 and 3 pad their masked entries at index
+    0 (as ``pad_wire`` does) while rows of client 1 send a real index-0
+    entry, and client 3's logits are all negative."""
     gen = torch.Generator(device=device).manual_seed(seed)
     logits = torch.randn((N_CLIENTS, rows, vocab), generator=gen, device=device)
     logits[1, ::2, 0] = 10.0  # index 0 in client 1's top-k on even rows
     logits[3] -= 20.0
     ks = [k_cap, k_cap // 2, 0, 3]
-    wire = sparsify_wire(logits, ks, k_cap)
+    wire = sparsify_wire(logits.to(dtype), ks, k_cap)
     idx = torch.where(wire.mask, wire.indices, 0).contiguous()
     return wire._replace(indices=idx)
 
 
 def float_channels(wire, mode: str):
-    m = wire.mask.float()
+    """The wire's two contribution channels, in its dtype, as
+    ``aggregate_wire`` forms them."""
+    m = wire.mask.to(wire.values.dtype)
     v = wire.values * m
     if mode == "adaptive":
         s = torch.abs(v)
@@ -272,6 +308,36 @@ def attention_tolerance(s: int, v: torch.Tensor) -> float:
     return s * 2.0**-24 * float(v.abs().max())
 
 
+def bf16_ulp(*xs: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of the larger magnitude, elementwise: bf16 keeps 8
+    significant bits, so 2^(e - 7) for a value in [2^e, 2^(e+1))."""
+    a = torch.stack([x.float().abs() for x in xs]).amax(dim=0)
+    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-38))) - 7),
+                       torch.zeros_like(a))
+
+
+def within_bf16(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """Check a bf16 output rounded once from an fp32 result against its
+    plain version, rounded once too: within the fp32 bound ``tol`` plus one
+    bf16 ulp (two fp32 values that close can round to neighbouring bf16
+    values); returns the largest difference."""
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol + bf16_ulp(got, want)).all()), float(err.max())
+    return float(err.max())
+
+
+def bf16_tie_rows(x: torch.Tensor, ks: torch.Tensor, gen) -> None:
+    """Rows 12-15 of a top-k input (in place): values drawn from 100, 25, 3
+    and 1024 levels, each exact in bf16 ((1 + m / 128) 2^e), so that at
+    V 50 257 the k-th value sits in a tie group of ~500, ~2000, ~17 000
+    (more than the kernel's candidate buffer) and ~50 values."""
+    for row, (levels, k) in enumerate(((100, 1000), (25, 3000), (3, 20000), (1024, 700)),
+                                      start=TOPK_EDGE_ROWS):
+        level = torch.randint(0, levels, (x.shape[1],), generator=gen, device=x.device)
+        x[row] = (1.0 + (level % 128) / 128.0) * torch.exp2((level // 128).float())
+        ks[row] = k
+
+
 # -- timing -------------------------------------------------------------------
 
 
@@ -314,7 +380,8 @@ def scatter_library_call(a, b, idx):
     flat = (torch.arange(rows, device=a.device)[None, :, None] * VOCAB + idx.long()).reshape(-1)
     index = torch.cat([flat, flat + rows * VOCAB])
     src = torch.cat([a.reshape(-1), b.reshape(-1)])
-    return lambda: torch.zeros(2 * rows * VOCAB, device=a.device).scatter_add_(0, index, src)
+    return lambda: torch.zeros(2 * rows * VOCAB, dtype=a.dtype, device=a.device).scatter_add_(
+        0, index, src)
 
 
 # -- phases -------------------------------------------------------------------
@@ -349,7 +416,8 @@ def ptxas_report(text: str, keys: tuple[str, ...]) -> list[str]:
         if m and name and any(key in name for key in keys):
             key = next(key for key in keys if key in name)
             args = [a for a, tag in (("FloatWire", "FloatWire"), ("Int8Wire", "Int8Wire"),
-                                     ("true", "Lb1E"), ("false", "Lb0E")) if tag in name]
+                                     ("true", "Lb1E"), ("false", "Lb0E"),
+                                     ("bf16", "nv_bfloat16")) if tag in name]
             out.append(f"{key}<{', '.join(args)}>: {m.group(1)} registers{m.group(2)}; {spill}")
             name = None
     return out
@@ -369,13 +437,14 @@ def phase_build():
     libs = build.build_all()
     log(f"[build] {', '.join(map(str, libs.values()))} in {time.perf_counter() - t0:.1f} s")
     report = (ptxas_report(build.build_log("topk_select"), ("topk_mask_kernel",))
-              + ptxas_report(build.build_log("sparse_agg"), ("scatter_wire_kernel",))
+              + ptxas_report(build.build_log("sparse_agg"), ("scatter_wire_kernel", "sparse_aggregate"))
               + ptxas_report(build.build_log("distill_kl"), ("distill_kl_kernel",))
               + ptxas_report(build.build_log("flash_attention"), ("flash_attention_kernel",)))
     log(f"[build] ptxas -v: {' | '.join(report) or 'no log (library built earlier)'}")
     hmma = sass_count(libs["flash_attention"], "HMMA")
     assert hmma > 0, "the attention kernel runs no tensor-core instruction"
-    log(f"[build] flash_attention SASS: {hmma} HMMA instructions (its products on the tensor cores)")
+    log(f"[build] flash_attention SASS: {hmma} HMMA instructions in its fp32 and bf16 kernels (their "
+        f"products on the tensor cores)")
 
 
 def check_scatter_kernels(device):
@@ -515,6 +584,98 @@ def check_flash_attention(device):
         "from 700 on), (B, H, S, D) == (B*H, S, D) bitwise")
 
 
+def check_bf16_kernels(device):
+    """Each kernel's bf16 entry point against its plain version on bf16
+    inputs: the wire scatter, the top-k masks and the dense aggregation
+    ``torch.equal`` (fp32 sums rounded once, as their plain versions round
+    them), the KL within its fp32 tolerance (fp32 math on exactly upcast
+    inputs), the attention within its fp32 bound plus one bf16 ulp, and
+    causal bitwise."""
+    for k_cap, rows, vocab in ((128, ROWS, VOCAB), (1024, ROWS, VOCAB), (1024, WIDE_ROWS, WIDE_VOCAB)):
+        wire = make_wire(k_cap, seed=k_cap, device=device, rows=rows, vocab=vocab, dtype=BF16)
+        for mode in MODES:
+            a, b = float_channels(wire, mode)
+            got = ops.scatter_wire_sums(a, b, wire.indices, vocab)
+            want = [x.to(BF16) for x in ref.scatter_wire_sums_ref(a, b, wire.indices, vocab)]
+            torch.cuda.synchronize()
+            assert got[0].dtype == BF16 and all(torch.equal(g, w) for g, w in zip(got, want)), (
+                "scatter_wire_sums.bf16", k_cap, mode)
+    log("[kernels bf16] wire scatter torch.equal to its plain version (fp32 sums rounded to "
+        "bf16) in all 3 modes, k_cap 128 and 1024, V 50 257 and 152 064")
+    for rows, vocab in ((N_CLIENTS * ROWS, VOCAB), (2 * WIDE_ROWS, WIDE_VOCAB)):
+        x, ks = topk_rows(rows, vocab, seed=vocab + 1, device=device)
+        bf16_tie_rows(x, ks, torch.Generator(device=device).manual_seed(vocab))
+        x = x.to(BF16)  # the normal rows rounded to bf16: ties of ~10 values a step at X_k
+        got = ops.topk_mask_dynamic(x, ks)
+        want = ref.topk_mask_ref(x, torch.clamp(ks, 0, vocab), guard=True)
+        torch.cuda.synchronize()
+        assert got.dtype == BF16 and torch.equal(got, want), ("topk_mask_dynamic.bf16", rows, vocab)
+        kept = (want != 0).sum(dim=1).tolist()
+        assert kept[8] == 0 and kept[9] == vocab, kept[:12]  # a NaN row keeps nothing
+        xf = x.float()
+        ties = [int((xf[r] == torch.topk(xf[r], int(ks[r])).values[-1]).sum())
+                for r in range(TOPK_EDGE_ROWS, TOPK_EDGE_ROWS + 4)]
+        assert min(ties) > 32 and max(ties) > 8192, ties  # past the warp and the buffer
+        for k in (0, 1, 517, vocab, vocab + 5):
+            got = ops.topk_mask(x, k)
+            want = ref.topk_mask_ref(x, torch.full((rows,), min(k, vocab), dtype=torch.int32,
+                                                   device=device), guard=False)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), ("topk_mask.bf16", rows, vocab, k)
+        log(f"[kernels bf16] rows={rows} V={vocab}: top-k masks torch.equal to their plain versions "
+            f"on bf16-rounded rows (NaN, +-inf, near 3e38) and tie groups of {ties} values at the "
+            f"k-th value, per-row and static k")
+    for sparse in (True, False):
+        stack = dense_stack([1024, 517, 1, VOCAB], seed=11, device=device, sparse=sparse).to(BF16)
+        got, want = ops.sparse_aggregate(stack), ref.sparse_aggregate_ref(stack).to(BF16)
+        torch.cuda.synchronize()
+        assert got.dtype == BF16 and torch.equal(got, want), ("sparse_aggregate.bf16", sparse)
+    log("[kernels bf16] dense aggregation torch.equal to its plain version (fp32 result rounded "
+        "to bf16), top-k-sparse and dense stacks")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for rows, vocab in ((ROWS, VOCAB), (32, VOCAB), (WIDE_ROWS, WIDE_VOCAB), (2 * sms + 56, VOCAB),
+                        (WIDE_ROWS, 37), (WIDE_ROWS, 5)):
+        t, s = (z.to(BF16) for z in kl_logits(rows, vocab, seed=vocab + 1, device=device))
+        s_off = torch.empty(rows * vocab + 1, dtype=BF16, device=device)[1:].view(rows, vocab)
+        s_off.copy_(s)  # another 16-byte phase than the teacher's
+        worst = 0.0
+        for temp in (1.0, 2.0, 4.0):
+            want = ref.distill_kl_ref(t, s, temp)
+            tol = kl_tolerance(t, s, temp, want)
+            for student in (s, s_off):
+                got = ops.distill_kl_rows(t, student, temp)
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                assert bool((err <= tol).all()), ("distill_kl.bf16", rows, vocab, temp, float(err.max()))
+                assert float(got[0]) == 0.0, got[:4]
+                worst = max(worst, float(err.max()))
+        log(f"[kernels bf16] distill_kl at ({rows}, {vocab}), T in (1, 2, 4): within rtol 1e-5 + "
+            f"2e-6 (1 + |lse_t| + |lse_s|) per row (max |diff| {worst:.3e}), exactly 0 for teacher "
+            f"== student, student on another 16-byte phase")
+    for bh, seq, d, what in ((96, 1024, 64, "q, k ~ N(0, 1)"), (20, 128, 64, "q, k ~ N(0, 1)"),
+                             (20, 64, 64, "one key tile"), (12, 96, 64, "a tile past the end"),
+                             (24, 1024, 64, "q, k x4")):
+        gen = torch.Generator(device=device).manual_seed(seq + d + 1)
+        q, k, v = (torch.randn((bh, seq, d), generator=gen, device=device) for _ in range(3))
+        if what == "q, k x4":
+            q, k = 4 * q, 4 * k
+        q, k, v = (z.to(BF16) for z in (q, k, v))
+        got, want = ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        assert got.dtype == BF16
+        err = within_bf16(got, want, attention_tolerance(seq, v))
+        log(f"[kernels bf16] flash_attention at ({bh}, {seq}, {d}), {what}: max |diff| {err:.3e} "
+            f"against its plain version (bound S * 2^-24 * max|v| + one bf16 ulp)")
+    gen = torch.Generator(device=device).manual_seed(6)
+    q, k, v = (torch.randn((24, 1024, 64), generator=gen, device=device).to(BF16) for _ in range(3))
+    base = ops.flash_attention(q, k, v)
+    k[:, 700:], v[:, 700:] = 99.0, -99.0
+    pert = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(base[:, :700], pert[:, :700]) and not torch.equal(base[:, 700:], pert[:, 700:])
+    log("[kernels bf16] flash_attention causal bitwise")
+
+
 def _drive(client_cfg, server_cfg, dataset, fed, device):
     """run_federated, also returning the engine (built through
     ``make_engine``, whatever its kind) and the Server it built."""
@@ -578,14 +739,20 @@ def phase_small_input(device):
                 f"distill_loss {gpu.distill_loss} vs {cpu.distill_loss}")
 
 
-def phase_main_path(device, engine: str, quantize: bool) -> dict:
+def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> dict:
     """One main-path run; returns its launch counts, its per-client k and,
     for ``fused``, the launch counts of the static top-k's public entry
-    point driven on its own after the run."""
+    point driven on its own after the run (and of the KL's, in bf16).
+    ``bf16``: the models compute in bf16 (``ModelConfig.compute_dtype``)
+    and so does the round body (``FedConfig.compute_dtype``)."""
     fed = FedConfig(method="adald", engine=engine, use_kernels=True, pretrain_steps=0,
                     num_clients=8, clients_per_round=4, rounds=2, public_batch=64,
                     local_steps=2, distill_steps=1, server_distill_steps=2, eval_size=128,
-                    quantize_wire=quantize)
+                    quantize_wire=quantize, **(BF16_CFG if bf16 else {}))
+    client_cfg, server_cfg = GPT2_SMALL, GPT2_LARGE
+    if bf16:
+        client_cfg, server_cfg = (c.with_overrides(**BF16_CFG) for c in (GPT2_SMALL, GPT2_LARGE))
+    dt = ".bf16" if bf16 else ""
     ds = make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32)
     tokens = torch.as_tensor(ds.tokens[: fed.public_batch], device=device)
     torch.cuda.synchronize()
@@ -600,13 +767,13 @@ def phase_main_path(device, engine: str, quantize: bool) -> dict:
         ops.topk_mask_dynamic = capture
     ops.reset_launches()  # this path's launches only, from here
     try:
-        run, eng, srv = _drive(GPT2_SMALL, GPT2_LARGE, ds, fed, device)
+        run, eng, srv = _drive(client_cfg, server_cfg, ds, fed, device)
     finally:
         ops.topk_mask_dynamic = topk_dynamic
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     wall = time.perf_counter() - t0
-    tag = f"{engine}/{'int8' if quantize else 'float'}"
+    tag = f"{engine}/{'int8' if quantize else 'float'}{'/bf16' if bf16 else ''}"
     log(f"[main path {tag}] GPT-2 small clients x{fed.num_clients} (cohort {fed.clients_per_round}), "
         f"GPT-2 large server, {fed.rounds} rounds in {wall:.1f} s (setup included)")
     log(f"[main path {tag}] per_client_k={run.per_client_k}")
@@ -624,13 +791,22 @@ def phase_main_path(device, engine: str, quantize: bool) -> dict:
     rounds, tx_rounds = fed.rounds, sum(1 for r in run.ledger.rounds if r.num_transmitters > 0)
     want = dict.fromkeys(ops.LAUNCHES, 0)
     if engine == "fused_e2e":
-        want["scatter_wire_sums_dequant" if quantize else "scatter_wire_sums"] = rounds
+        want["scatter_wire_sums_dequant" if quantize else "scatter_wire_sums" + dt] = rounds
     else:
-        want["sparse_aggregate"] = tx_rounds
-        want["topk_mask_dynamic"] = rounds if engine == "fused" else 0
+        want["sparse_aggregate" + dt] = tx_rounds
+        want["topk_mask_dynamic" + dt] = rounds if engine == "fused" else 0
     assert launches == want, (tag, launches, want)
     b = final_broadcast(eng, srv, tokens)
     assert tuple(b.shape) == (fed.public_batch, GPT2_LARGE.vocab_size) and bool(torch.isfinite(b).all())
+    assert b.dtype == (BF16 if bf16 else torch.float32), b.dtype
+    # the LoRA masters and the Adam moments stay fp32, whatever the round's dtype
+    if engine == "sequential":  # the clients keep their own state
+        states = [t for c in eng.clients for t in (split_lora(c.params)[0], c.opt.m, c.opt.v)]
+    else:
+        states = [eng._store.lora, eng._store.opt.m, eng._store.opt.v]
+    states += ([eng._s_lora, eng._s_opt.m, eng._s_opt.v] if engine == "fused_e2e"
+               else [split_lora(srv.params)[0]] + ([srv.opt.m, srv.opt.v] if srv.opt else []))
+    assert all(v.dtype == torch.float32 for tree in states for v in tree.values())
     assert all(math.isfinite(x) for x in run.server_acc + run.client_acc)
     if engine == "fused_e2e":  # NaN off the e2e path, by the reference's definition
         assert all(math.isfinite(x) for x in run.distill_loss)
@@ -641,7 +817,7 @@ def phase_main_path(device, engine: str, quantize: bool) -> dict:
         x, ks = captured["x"], captured["ks"]
         out["topk_input"] = (x.reshape(-1, x.shape[-1]), ks.reshape(-1))
     if engine == "sequential":
-        out["entry_launches"] = kl_entry(eng, srv, tokens, fed.temperature)
+        out["entry_launches"] = kl_entry(eng, srv, tokens, fed.temperature, client_cfg)
     if engine == "fused":
         # the static top-k's public entry point, on what the server broadcast
         k = max(max(ks) for ks in run.per_client_k)
@@ -649,40 +825,54 @@ def phase_main_path(device, engine: str, quantize: bool) -> dict:
         kept = topk_mask_dense(b.contiguous(), k, use_kernel=True)
         torch.cuda.synchronize()
         out["entry_launches"] = dict(ops.LAUNCHES)
-        assert ops.LAUNCHES["topk_mask"] == 1 and sum(ops.LAUNCHES.values()) == 1, ops.LAUNCHES
-        n_kept = (kept != 0).sum(dim=-1)
-        assert bool((n_kept >= k).all()), n_kept  # ties at the threshold are kept
+        assert ops.LAUNCHES["topk_mask" + dt] == 1 and sum(ops.LAUNCHES.values()) == 1, ops.LAUNCHES
+        # the k-th value from torch.topk: every value at or above it kept, ties included
+        kth = torch.topk(b.float(), k, dim=-1).values[:, -1:]
+        assert torch.equal(kept, torch.where(b.float() >= kth, b, torch.zeros_like(b)))
         log(f"[entry {tag}] topk_mask_dense(use_kernel=True) on the final broadcast at k={k}: "
             f"kernel launches {ops.LAUNCHES}")
+        if bf16:  # the KL's public entry point on the bf16 run's logits
+            kl = kl_entry(eng, srv, tokens, fed.temperature, client_cfg)
+            out["entry_launches"] = {**out["entry_launches"], "distill_kl.bf16": kl["distill_kl.bf16"]}
     del run, eng, srv, b
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def kl_entry(eng, srv, tokens, temp: float) -> dict:
+def kl_entry(eng, srv, tokens, temp: float, client_cfg=GPT2_SMALL) -> dict:
     """The KL kernel through its public entry point on the run's real
     tensors: the final broadcast (teacher) and client 0's public logits
-    (student), with their LoRA projections; returns the entry's launches."""
-    student, s_h = fed_steps.public_logits(eng.client_params(0), GPT2_SMALL, tokens)
+    (student), with their LoRA projections; returns the entry's launches.
+    On bf16 logits the plain loss computes in bf16, as the reference's
+    does, so the kernel's part is held against the plain version of the
+    kernel (fp32 math on the upcast logits) instead."""
+    student, s_h = fed_steps.public_logits(eng.client_params(0), client_cfg, tokens)
     teacher, t_h, _ = srv.broadcast(tokens)
+    dt = ".bf16" if teacher.dtype == BF16 else ""
     ops.reset_launches()
     loss, parts = total_distill_loss(teacher, student, t_h, s_h, temperature=temp, use_kernel=True)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    assert launches["distill_kl"] == 1 and sum(launches.values()) == 1, launches
+    assert launches["distill_kl" + dt] == 1 and sum(launches.values()) == 1, launches
     plain, plain_parts = total_distill_loss(teacher, student, t_h, s_h, temperature=temp)
     per_row = ref.distill_kl_ref(teacher, student, temp)
     tol = temp**2 * float(kl_tolerance(teacher, student, temp, per_row).mean())
-    err = abs(float(parts["logits"]) - float(plain_parts["logits"]))
-    assert err <= tol and abs(float(loss) - float(plain)) <= tol, (float(loss), float(plain), tol)
+    if dt:
+        err = abs(float(parts["logits"]) - float(per_row.mean()) * temp**2)
+        assert err <= tol and math.isfinite(float(loss)), (float(parts["logits"]), tol)
+        assert torch.equal(parts["lora"], plain_parts["lora"])
+    else:
+        err = abs(float(parts["logits"]) - float(plain_parts["logits"]))
+        assert err <= tol and abs(float(loss) - float(plain)) <= tol, (float(loss), float(plain), tol)
     try:
         total_distill_loss(teacher, student.clone().requires_grad_(True), use_kernel=True)
     except RuntimeError as e:
         assert "forward only" in str(e)
     else:
         raise AssertionError("the forward-only KL kernel accepted a student that requires grad")
-    log(f"[entry sequential] total_distill_loss(use_kernel=True) on the final broadcast "
+    log(f"[entry {'fused/bf16' if dt else 'sequential'}] total_distill_loss(use_kernel=True) on the "
+        f"final broadcast "
         f"{tuple(teacher.shape)} and client 0's public logits: {float(loss):.6f} against "
         f"{float(plain):.6f} (use_kernel=False), |diff| {err:.3e} <= {tol:.3e}; kernel launches "
         f"{launches}; a student that requires grad raises")
@@ -796,7 +986,18 @@ def phase_serving(device, card: str) -> dict:
         f"{tuple(qh.shape)}: max |diff| {err_chunked:.3e} against the chunked attention, "
         f"{err_plain:.3e} against its plain version (bound {tol:.3e}); kernel launches {entry}; "
         f"a q that requires grad raises")
-    out = {"entry_launches": entry, "qkv": (qh, kh, vh)}
+    # the bf16 kernel through the same entry point, on that q/k/v rounded to bf16
+    qb, kb, vb = (t.to(BF16) for t in (qh, kh, vh))
+    ops.reset_launches()
+    got = ops.flash_attention(qb, kb, vb)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention.bf16"] == 1 and sum(ops.LAUNCHES.values()) == 1
+    entry["flash_attention.bf16"] = 1
+    plain_bf16 = ref.flash_attention_ref(*(t.reshape(-1, PREFILL_S, q.shape[-1]) for t in (qb, kb, vb)))
+    err_bf16 = within_bf16(got, plain_bf16.reshape(got.shape), attention_tolerance(PREFILL_S, vb))
+    log(f"[prefill] flash_attention on that q/k/v in bf16: max |diff| {err_bf16:.3e} against its "
+        f"plain version (bound S * 2^-24 * max|v| + one bf16 ulp); kernel launches {dict(ops.LAUNCHES)}")
+    out = {"entry_launches": entry, "qkv": (qh, kh, vh), "qkv_bf16": (qb, kb, vb)}
     del sess, cache, store, src, params, backbone
     gc.collect()
     torch.cuda.empty_cache()
@@ -820,6 +1021,7 @@ def _row(name: str, raw, wrapper, plain, library, check, bytes_moved: float, ops
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None if library is None else time_ms(library),
     }
+    row["pct_of_bound"] = 100.0 * bound_ms / row["ms"]
     lib = "-" if library is None else f"{row['library_ms']:.4f} ms"
     log(f"[timing] {name} {desc}: kernel {row['ms']:.4f} ms (wrapper call {time_ms(wrapper):.4f} ms), "
         f"plain {row['plain_ms']:.4f} ms, library {lib}, bound {bound_ms * 1e3:.2f} us by {bound_by} "
@@ -828,19 +1030,22 @@ def _row(name: str, raw, wrapper, plain, library, check, bytes_moved: float, ops
 
 
 def time_scatter(name: str, k_cap: int, device) -> dict:
-    wire = make_wire(k_cap, seed=7, device=device)
+    dtype = BF16 if name.endswith(".bf16") else torch.float32
+    width = dtype.itemsize
+    wire = make_wire(k_cap, seed=7, device=device, dtype=dtype)
     n, rows, k = wire.values.shape
-    num = torch.empty((rows, VOCAB), device=device)
+    num = torch.empty((rows, VOCAB), dtype=dtype, device=device)
     den = torch.empty_like(num)
     stream = torch.cuda.current_stream(device).cuda_stream
-    if name == "scatter_wire_sums":
+    if name.startswith("scatter_wire_sums") and "dequant" not in name:
         a, b = float_channels(wire, "adaptive")
         wrapper = lambda: ops.scatter_wire_sums(a, b, wire.indices, VOCAB)  # noqa: E731
-        plain = lambda: ref.scatter_wire_sums_ref(a, b, wire.indices, VOCAB)  # noqa: E731
-        fn = ops._fn("sparse_agg", "scatter_wire_sums_f32", 5, 4)
+        plain = lambda: tuple(x.to(dtype) for x in ref.scatter_wire_sums_ref(  # noqa: E731
+            a, b, wire.indices, VOCAB))
+        fn = ops._fn("sparse_agg", "scatter_wire_sums" + ("_bf16" if width == 2 else "_f32"), 5, 4)
         ptrs = [t.data_ptr() for t in (a, b, wire.indices, num, den)]
         raw = lambda: fn(*ptrs, n, rows, k, VOCAB, stream)  # noqa: E731
-        in_bytes = n * rows * k * (4 + 4 + 4)
+        in_bytes = n * rows * k * (width + width + 4)
     else:
         qw = quantize_wire(wire)
         a, b = ref.dequant_channels(qw.values, qw.scale, qw.mask, "adaptive")
@@ -859,8 +1064,8 @@ def time_scatter(name: str, k_cap: int, device) -> dict:
         return max(float((g - w).abs().max()) for g, w in zip((num, den), want))
 
     return _row(name, raw, wrapper, plain, scatter_library_call(a, b, wire.indices), check,
-                in_bytes + 2 * rows * VOCAB * 4, 2 * n * rows * k,
-                f"N={n} rows={rows} k_cap={k} V={VOCAB}")
+                in_bytes + 2 * rows * VOCAB * width, 2 * n * rows * k,
+                f"N={n} rows={rows} k_cap={k} V={VOCAB} ({dtype})")
 
 
 def time_topk(name: str, real, device) -> dict:
@@ -872,17 +1077,18 @@ def time_topk(name: str, real, device) -> dict:
     never shrinks, every step is a full pass, the worst case).  The static
     k is the largest budget."""
     x_real, kk = real
-    rows = x_real.shape[0]
+    rows, dtype = x_real.shape[0], x_real.dtype
     gen = torch.Generator(device=device).manual_seed(5)
-    inputs = {"real": x_real, "random": torch.randn((rows, VOCAB), generator=gen, device=device),
-              "constant": torch.full((rows, VOCAB), 0.5, device=device)}
+    inputs = {"real": x_real,
+              "random": torch.randn((rows, VOCAB), generator=gen, device=device).to(dtype),
+              "constant": torch.full((rows, VOCAB), 0.5, dtype=dtype, device=device)}
     k_max = int(kk.max())
     out = torch.empty_like(x_real)
     stream = torch.cuda.current_stream(device).cuda_stream
-    fn = ops._fn("topk_select", "topk_mask_f32", 3, 5)
+    fn = ops._fn("topk_select", "topk_mask" + ("_bf16" if dtype == BF16 else "_f32"), 3, 5)
     use_smem = int(VOCAB <= ops.smem_max_vocab(device.index or 0))
     k_all = torch.full((rows,), k_max, dtype=torch.int32, device=device)
-    dynamic = name == "topk_mask_dynamic"
+    dynamic = name.startswith("topk_mask_dynamic")
 
     def calls(x):
         if dynamic:
@@ -910,49 +1116,54 @@ def time_topk(name: str, real, device) -> dict:
         return float((out - want).abs().max())
 
     library = lambda: torch.topk(x_real, k_max, dim=-1)  # noqa: E731  (the selection, not the mask)
-    in_bytes = rows * VOCAB * 4 + (rows * 4 if dynamic else 0)
+    in_bytes = rows * VOCAB * dtype.itemsize + (rows * 4 if dynamic else 0)
     # the least work of any bisection on these inputs: min and max, one
     # counting pass, the masked select (the kernel's passes depend on the data)
     ops_done = 4 * rows * VOCAB
-    desc = f"rows={rows} V={VOCAB} k={sorted(set(kk.tolist())) if dynamic else k_max} (real input)"
-    row = _row(name, raw, wrapper, plain, library, check, in_bytes + rows * VOCAB * 4, ops_done, desc)
+    desc = (f"rows={rows} V={VOCAB} k={sorted(set(kk.tolist())) if dynamic else k_max} (real input, "
+            f"{dtype})")
+    row = _row(name, raw, wrapper, plain, library, check, in_bytes + rows * VOCAB * dtype.itemsize,
+               ops_done, desc)
     log(f"[timing] {name} on random rows {extra['ms_random']:.4f} ms, on constant rows "
         f"{extra['ms_constant']:.4f} ms (torch.equal to the plain version on both)")
     return {**row, **extra}
 
 
-def time_sparse_aggregate(ks: list[int], device) -> dict:
+def time_sparse_aggregate(ks: list[int], device, dtype: torch.dtype = torch.float32) -> dict:
     """The dense adaptive aggregation at the fused main path's shape: the
     transmitters' (N, 64, V) top-k stack with the run's budgets."""
-    stack = dense_stack(ks, seed=13, device=device)
+    stack = dense_stack(ks, seed=13, device=device).to(dtype)
     n = stack.shape[0]
-    out = torch.empty((ROWS, VOCAB), device=device)
+    out = torch.empty((ROWS, VOCAB), dtype=dtype, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    fn = ops._fn("sparse_agg", "sparse_aggregate_f32", 2, 3)
+    fn = ops._fn("sparse_agg", "sparse_aggregate" + ("_bf16" if dtype == BF16 else "_f32"), 2, 3)
     raw = lambda: fn(stack.data_ptr(), out.data_ptr(), n, ROWS, VOCAB, stream)  # noqa: E731
-    want = ref.sparse_aggregate_ref(stack)
+    want = ref.sparse_aggregate_ref(stack).to(dtype)
 
     def check():
         assert torch.equal(out, want)
         return float((out - want).abs().max())
 
     elems = ROWS * VOCAB
-    return _row("sparse_aggregate", raw, lambda: ops.sparse_aggregate(stack),
-                lambda: ref.sparse_aggregate_ref(stack), None, check,
-                (n + 1) * elems * 4, (4 * n + 2) * elems, f"N={n} rows={ROWS} V={VOCAB} k={ks}")
+    return _row("sparse_aggregate" + (".bf16" if dtype == BF16 else ""), raw,
+                lambda: ops.sparse_aggregate(stack), lambda: ref.sparse_aggregate_ref(stack).to(dtype),
+                None, check, (n + 1) * elems * dtype.itemsize, (4 * n + 2) * elems,
+                f"N={n} rows={ROWS} V={VOCAB} k={ks} ({dtype})")
 
 
-def time_distill_kl(device) -> dict:
+def time_distill_kl(device, dtype: torch.dtype = torch.float32) -> dict:
     """The KL kernel at the distillation's shape: 64 public rows x V 50 257,
     timed cold (launches in turn over ``COLD_COPIES`` copies of the inputs,
-    so that each finds its 25.7 MB evicted from the L2 by the others') and
-    warm (one copy, ``ms_warm``)."""
+    so that each finds its 25.7 MB (fp32) evicted from the L2 by the
+    others') and warm (one copy, ``ms_warm``)."""
     gen = torch.Generator(device=device).manual_seed(31)
-    t, s = (2.0 * torch.randn((ROWS, VOCAB), generator=gen, device=device) for _ in range(2))
+    t, s = ((2.0 * torch.randn((ROWS, VOCAB), generator=gen, device=device)).to(dtype)
+            for _ in range(2))
     copies = [(t, s)] + [(t.clone(), s.clone()) for _ in range(COLD_COPIES - 1)]
     out = torch.empty(ROWS, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    fn = ops._fn("distill_kl", "distill_kl_f32", 3, 2, 1)
+    bf16 = dtype == BF16
+    fn = ops._fn("distill_kl", "distill_kl" + ("_bf16" if bf16 else "_f32"), 3, 2, 1)
     raws = [lambda a=a, b=b: fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), ROWS, VOCAB, 0.5, stream)
             for a, b in copies]
     want = ref.distill_kl_ref(t, s, 2.0)
@@ -964,44 +1175,69 @@ def time_distill_kl(device) -> dict:
         return float(err.max())
 
     # per element pair: two scalings, a difference, two exps and the rescaled sums
-    row = _row("distill_kl", in_turn(raws), lambda: ops.distill_kl(t, s, 2.0),
+    name = "distill_kl" + (".bf16" if bf16 else "")
+    row = _row(name, in_turn(raws), lambda: ops.distill_kl(t, s, 2.0),
                in_turn([lambda a=a, b=b: ref.distill_kl_ref(a, b, 2.0) for a, b in copies]), None, check,
-               2 * ROWS * VOCAB * 4 + ROWS * 4, 12 * ROWS * VOCAB,
-               f"rows={ROWS} V={VOCAB} T=2 (cold: in turn over {COLD_COPIES} copies of the inputs)")
+               2 * ROWS * VOCAB * dtype.itemsize + ROWS * 4, 12 * ROWS * VOCAB,
+               f"rows={ROWS} V={VOCAB} T=2 ({dtype}; cold: in turn over {COLD_COPIES} copies of "
+               f"the inputs)")
     row["ms_warm"] = time_ms(raws[0])
-    log(f"[timing] distill_kl warm (the same inputs each launch, in the L2) {row['ms_warm']:.4f} ms; "
+    log(f"[timing] {name} warm (the same inputs each launch, in the L2) {row['ms_warm']:.4f} ms; "
         f"cold {row['ms']:.4f} ms is {row['bound_ms'] / row['ms']:.0%} of its bound")
     return row
 
 
 def time_flash_attention(qkv, device) -> dict:
-    """The attention kernel on the serving prefill's layer-0 q/k/v."""
+    """The attention kernel on the serving prefill's layer-0 q/k/v (in
+    their dtype).  In bf16 the library call, bf16 SDPA, rounds P to bf16
+    before P V, so it is not the same function: its max error against the
+    plain version is logged and kept beside its time."""
     b, h, seq, d = qkv[0].shape
     q, k, v = (x.reshape(b * h, seq, d) for x in qkv)
+    bf16 = q.dtype == BF16
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(device).cuda_stream
-    fn = ops._fn("flash_attention", "flash_attention_f32", 4, 3, 1)
+    fn = ops._fn("flash_attention", "flash_attention" + ("_bf16" if bf16 else "_f32"), 4, 3, 1)
     ptrs = [x.data_ptr() for x in (q, k, v, out)]
     raw = lambda: fn(*ptrs, b * h, seq, d, d**-0.5, stream)  # noqa: E731
     want = ref.flash_attention_ref(q, k, v)
     tol = attention_tolerance(seq, v)
 
     def check():
+        if bf16:
+            return within_bf16(out, want, tol)
         err = float((out - want).abs().max())
         assert err <= tol
         return err
 
+    # the library call on (B, H, S, D), the layout its fused kernels take
+    q4, k4, v4 = qkv
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, is_causal=True)
-    # the causal half of q k^T and of p v: 2 * S^2 * D operations per head-batch, each
-    # run as three TF32 products on the tensor cores
+        q4, k4, v4, is_causal=True)
+    # the causal half of q k^T and of p v: S^2 * D operations each per head-batch.  fp32:
+    # each product at fp32 grade is three TF32 products on the tensor cores.  bf16: q k^T
+    # is one bf16 product (bf16 x bf16 is exact in fp32) and p v at fp32 grade three, p
+    # split into three bf16 pieces, at the bf16 rate; ``design_bound_ms`` prices what the
+    # kernel runs instead, one TF32 product for q k^T and two for p v
     ops_done = 2 * seq * seq * d * b * h
-    fp32_ms, _ = bound(4 * q.numel() * 4, ops_done)
-    return _row("flash_attention", raw, lambda: ops.flash_attention(q, k, v),
-                lambda: ref.flash_attention_ref(q, k, v), library, check,
-                4 * q.numel() * 4, TF32_SPLIT * ops_done,
-                f"B*H={b * h} S={seq} D={d} (3xTF32 on the tensor cores; the fp32 CUDA-core "
-                f"bound would be {fp32_ms * 1e3:.2f} us)", TF32_OPS_PER_S)
+    io_bytes = 4 * q.numel() * q.element_size()
+    fp32_ms, _ = bound(io_bytes, ops_done)
+    if bf16:
+        tc_ops, tc_rate, basis = (1 + 3) * ops_done // 2, BF16_OPS_PER_S, "1+3 bf16 products"
+    else:
+        tc_ops, tc_rate, basis = TF32_SPLIT * ops_done, TF32_OPS_PER_S, "3+3 TF32 products"
+    row = _row("flash_attention" + (".bf16" if bf16 else ""), raw, lambda: ops.flash_attention(q, k, v),
+               lambda: ref.flash_attention_ref(q, k, v), library, check, io_bytes, tc_ops,
+               f"B*H={b * h} S={seq} D={d} ({q.dtype}; {basis} on the tensor cores; the fp32 "
+               f"CUDA-core bound would be {fp32_ms * 1e3:.2f} us)", tc_rate)
+    if bf16:
+        row["design_bound_ms"], _ = bound(io_bytes, (1 + 2) * ops_done // 2, TF32_OPS_PER_S)
+        log(f"[timing] {row['name']}: the kernel's own design (1+2 TF32 products) bounds it at "
+            f"{row['design_bound_ms'] * 1e3:.2f} us")
+    row["library_max_abs_err"] = float((library().reshape(want.shape).float() - want.float()).abs().max())
+    log(f"[timing] {row['name']}: SDPA on (B, H, S, D) {row['library_ms']:.4f} ms, off the plain "
+        f"version by {row['library_max_abs_err']:.3e} (the kernel by {row['max_abs_err']:.3e})")
+    return row
 
 
 def main() -> int:
@@ -1012,34 +1248,51 @@ def main() -> int:
     check_sparse_aggregate(device)
     check_distill_kl(device)
     check_flash_attention(device)
+    check_bf16_kernels(device)
     phase_small_input(device)
 
     runs = {}
-    for engine, quantize in (("fused_e2e", False), ("fused_e2e", True), ("fused", False),
-                             ("fused", True), ("batched", False), ("sequential", False)):
-        runs[(engine, quantize)] = phase_main_path(device, engine, quantize)
-    seq, bat = runs[("sequential", False)], runs[("batched", False)]
+    for engine, quantize, bf16 in (("fused_e2e", False, False), ("fused_e2e", True, False),
+                                   ("fused", False, False), ("fused", True, False),
+                                   ("batched", False, False), ("sequential", False, False),
+                                   ("fused_e2e", False, True), ("fused", False, True)):
+        runs[(engine, quantize, bf16)] = phase_main_path(device, engine, quantize, bf16)
+    seq, bat = runs[("sequential", False, False)], runs[("batched", False, False)]
     assert seq["per_client_k"] == bat["per_client_k"] and seq["bytes"] == bat["bytes"], (seq, bat)
     log("[main path] sequential == batched on per-client k, uplink and downlink bytes and "
         "transmitters")
+    for engine in ("fused_e2e", "fused"):  # the budgets depend on the channel only
+        f32, bf = runs[(engine, False, False)], runs[(engine, False, True)]
+        assert bf["per_client_k"] == f32["per_client_k"] and bf["bytes"] == f32["bytes"], (engine, f32, bf)
+    log("[main path] bf16 == fp32 on per-client k, uplink and downlink bytes and transmitters, "
+        "fused_e2e and fused")
     serving = phase_serving(device, card)
     launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) for name in KERNELS}
-    entry = {name: sum(r["entry_launches"].get(name, 0) for r in runs.values())
-             for name in ("topk_mask", "distill_kl")}
-    entry["flash_attention"] = serving["entry_launches"]["flash_attention"]
-    log(f"[main path] kernel launches over the six runs {launches}")
+    entry_names = ("topk_mask", "distill_kl", "topk_mask.bf16", "distill_kl.bf16")
+    entry = {name: sum(r["entry_launches"].get(name, 0) for r in runs.values()) for name in entry_names}
+    for name in ("flash_attention", "flash_attention.bf16"):
+        entry[name] = serving["entry_launches"][name]
+    log(f"[main path] kernel launches over the eight runs {launches}")
     log(f"[entry] launches through the public entry points {entry}")
 
     k_caps = {
-        name: max(k_cap_bucket(ks, VOCAB) for ks in runs[("fused_e2e", quant)]["per_client_k"])
-        for name, quant in (("scatter_wire_sums", False), ("scatter_wire_sums_dequant", True))
+        name: max(k_cap_bucket(ks, VOCAB) for ks in runs[("fused_e2e", quant, bf16)]["per_client_k"])
+        for name, quant, bf16 in (("scatter_wire_sums", False, False),
+                                  ("scatter_wire_sums_dequant", True, False),
+                                  ("scatter_wire_sums.bf16", False, True))
     }
-    fused_ks = runs[("fused", False)]["per_client_k"][-1]
-    topk_input = runs[("fused", False)]["topk_input"]
+    fused_ks = runs[("fused", False, False)]["per_client_k"][-1]
+    topk_input = runs[("fused", False, False)]["topk_input"]
+    topk_bf16 = runs[("fused", False, True)]["topk_input"]
+    assert topk_bf16[0].dtype == BF16
     rows = [time_scatter(name, k_cap, device) for name, k_cap in k_caps.items()]
     rows += [time_topk("topk_mask_dynamic", topk_input, device), time_sparse_aggregate(fused_ks, device),
              time_topk("topk_mask", topk_input, device), time_distill_kl(device),
-             time_flash_attention(serving["qkv"], device)]
+             time_flash_attention(serving["qkv"], device),
+             time_topk("topk_mask_dynamic.bf16", topk_bf16, device),
+             time_sparse_aggregate(runs[("fused", False, True)]["per_client_k"][-1], device, BF16),
+             time_topk("topk_mask.bf16", topk_bf16, device), time_distill_kl(device, BF16),
+             time_flash_attention(serving["qkv_bf16"], device)]
     rows = [{**row, "launches": launches[row["name"]],
              **({"entry_launches": entry[row["name"]]} if row["name"] in entry else {})}
             for row in rows]

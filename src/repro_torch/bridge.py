@@ -6,7 +6,10 @@ keeps a flat dict keyed by the same paths joined with ``/`` (the strings of
 axis of ``stack/pos0/...`` is kept as it is, so every leaf has the same
 shape on both sides.  Arrays cross as numpy: call ``jax.tree.map(np.asarray,
 params)`` on the JAX side first.  ``None`` leaves (the holes of a
-``split_lora`` tree) are skipped.
+``split_lora`` tree) are skipped.  numpy has no bf16 of its own: a bf16
+leaf of the reference (an ``ml_dtypes`` array) crosses as its exact fp32
+values and becomes a bf16 tensor again, and a bf16 tensor goes back as
+fp32 numpy.
 """
 
 from __future__ import annotations
@@ -41,13 +44,22 @@ def unflatten(flat: dict[str, object]) -> dict:
     return tree
 
 
+def _tensor(v) -> torch.Tensor:
+    a = np.array(v, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def to_torch(tree: dict, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
     """A reference param tree (numpy leaves) -> the port's flat tensor dict."""
-    return {
-        k: torch.from_numpy(np.array(v, copy=True)).to(device) for k, v in flatten(tree).items()
-    }
+    return {k: _tensor(v).to(device) for k, v in flatten(tree).items()}
 
 
 def to_numpy_tree(params: dict[str, torch.Tensor]) -> dict:
-    """The port's flat tensor dict -> a reference-shaped tree of numpy arrays."""
-    return unflatten({k: v.detach().cpu().numpy() for k, v in params.items()})
+    """The port's flat tensor dict -> a reference-shaped tree of numpy arrays
+    (bf16 leaves as fp32)."""
+    return unflatten({
+        k: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
+        for k, v in params.items()
+    })

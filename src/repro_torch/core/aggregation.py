@@ -28,7 +28,7 @@ from typing import Literal
 import torch
 
 from repro_torch.core.topk import QuantizedWire, SparseWire
-from repro_torch.kernels.ref import scatter_wire_sums_dequant_ref, scatter_wire_sums_ref
+from repro_torch.kernels.ref import scatter_wire_sums_dequant_ref
 
 __all__ = [
     "AggregationMode",
@@ -103,12 +103,18 @@ def scatter_wire_sums(
     a: torch.Tensor, b: torch.Tensor, indices: torch.Tensor, vocab: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain scatter-accumulate of ``a, b, indices (N, ..., k)`` into
-    ``(..., vocab)`` sums (masked entries must already be zero)."""
+    ``(..., vocab)`` sums (masked entries must already be zero), in the
+    channels' dtype, one client after the other — the reference's
+    scatter-add in ``a.dtype`` (the kernel route sums in fp32)."""
     n, k = a.shape[0], a.shape[-1]
     lead = a.shape[1:-1]
-    num, den = scatter_wire_sums_ref(
-        a.reshape(n, -1, k), b.reshape(n, -1, k), indices.reshape(n, -1, k), vocab
-    )
+    idx = indices.reshape(n, -1, k).long()
+    row_ix = torch.arange(idx.shape[1], device=a.device)[:, None].expand(idx.shape[1:])
+    num = torch.zeros((idx.shape[1], vocab), dtype=a.dtype, device=a.device)
+    den = torch.zeros((idx.shape[1], vocab), dtype=b.dtype, device=a.device)
+    for i, (ai, bi) in enumerate(zip(a.reshape(n, -1, k), b.reshape(n, -1, k))):
+        num.index_put_((row_ix, idx[i]), ai, accumulate=True)
+        den.index_put_((row_ix, idx[i]), bi, accumulate=True)
     return num.reshape(lead + (vocab,)), den.reshape(lead + (vocab,))
 
 

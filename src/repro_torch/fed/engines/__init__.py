@@ -52,9 +52,10 @@ __all__ = [
 
 def make_engine(kind: str, clients: list[Client], cfg: ModelConfig, **kwargs):
     """Build a round engine, dropping the keyword arguments that ``kind``
-    does not take, as the reference's ``make_engine`` does (the batched
-    engine has no kernel of its own: its aggregation kernel runs in the
-    Server).  The sequential engine keeps the reference's own refusals."""
+    does not take, as the reference's ``make_engine`` does: the batched
+    engine drops ``shard_clients``, ``use_kernels`` (its aggregation kernel
+    runs in the Server) and ``compute_dtype``.  The sequential engine keeps
+    the reference's own refusals."""
     if kind != "fused_e2e":
         for e2e_only in ("server", "server_distill_steps", "aggregation"):
             kwargs.pop(e2e_only, None)
@@ -82,15 +83,18 @@ def make_engine(kind: str, clients: list[Client], cfg: ModelConfig, **kwargs):
         raise ValueError(
             f"unknown engine: {kind!r} (expected 'sequential', 'batched', 'fused' or 'fused_e2e')"
         )
-    if kwargs.pop("shard_clients", False):
-        raise not_carried("shard_clients", "launchers and scale-out")
-    if kwargs.pop("compute_dtype", "float32") != "float32":
-        raise not_carried("a compute_dtype other than float32", "bf16")
     if kwargs.pop("fleet_store", "device") != "device":
         raise not_carried("a fleet_store other than 'device'", "the host fleet store")
     if kind == "batched":
-        kwargs.pop("use_kernels", None)
+        # the fp32 per-phase reference: the bf16 round body exists only on
+        # the fused paths, and the batched engine has no kernel of its own
+        for dropped in ("shard_clients", "use_kernels", "compute_dtype"):
+            kwargs.pop(dropped, None)
         return BatchedEngine(clients, cfg, **kwargs)
+    if kwargs.pop("shard_clients", False):
+        raise not_carried("shard_clients", "launchers and scale-out")
+    if kwargs.get("compute_dtype", "float32") not in ("float32", "bfloat16"):
+        raise not_carried(f"compute_dtype={kwargs['compute_dtype']!r}", "fp16")
     if kind == "fused":
         return FusedEngine(clients, cfg, **kwargs)
     return FusedE2EEngine(clients, cfg, **kwargs)

@@ -56,6 +56,7 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         last_only: bool = True,
         use_kernels: bool = False,
         quantize_wire: bool = False,
+        compute_dtype: str = "float32",
     ):
         super().__init__(clients, cfg, local_steps=local_steps, value_bits=value_bits,
                          k_min=k_min, last_only=last_only, quantize_wire=quantize_wire)
@@ -64,7 +65,7 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
             restrict_to_support=restrict_to_support, local_steps=local_steps,
             distill_steps=distill_steps, server_distill_steps=server_distill_steps,
             aggregation=aggregation, last_only=last_only, use_kernels=use_kernels,
-            quantize=quantize_wire,
+            quantize=quantize_wire, compute_dtype=compute_dtype,
         )
         self._num_classes = num_classes
         self._init_server_state(server)

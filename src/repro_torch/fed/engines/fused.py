@@ -46,6 +46,7 @@ class FusedEngine(_FleetEngine):
         last_only: bool = True,
         use_kernels: bool = False,
         quantize_wire: bool = False,
+        compute_dtype: str = "float32",
     ):
         super().__init__(clients, cfg, local_steps=local_steps, value_bits=value_bits,
                          k_min=k_min, last_only=last_only, quantize_wire=quantize_wire)
@@ -55,6 +56,7 @@ class FusedEngine(_FleetEngine):
                 cfg, num_classes, lr=lr, distill_lr=distill_lr, temperature=temperature,
                 lam=lam, restrict_to_support=restrict_to_support, local_steps=local_steps,
                 distill_steps=n_distill, last_only=last_only, use_kernels=use_kernels,
+                compute_dtype=compute_dtype,
             )
 
         self._fused_warm = fused(distill_steps)

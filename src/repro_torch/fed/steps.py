@@ -15,6 +15,12 @@ model (a sequential-engine client, the server) is a client axis of 1.
 round decisions of the reference (cold server in round 0, a round where
 every client dropped) are host-side values here, so they are plain
 branches that skip the work the reference computes and discards.
+
+``compute_dtype`` (the fused engines' round body) casts the float
+parameters to it inside every differentiated loss, as the reference's
+``_cast_params`` does: the LoRA leaves and their AdamW state stay fp32
+masters, and the cast's backward hands AdamW fp32 gradients.  The model
+then computes in its own ``ModelConfig.compute_dtype``.
 """
 
 from __future__ import annotations
@@ -67,6 +73,15 @@ def last_logits(params, cfg: ModelConfig, tokens: torch.Tensor, *, last_only: bo
     return logits[:, :, -1], aux
 
 
+def _cast_params(params: dict, compute_dtype: str) -> dict:
+    """The float parameters cast to ``compute_dtype``; the identity (the
+    same dict, no graph change) for float32."""
+    if compute_dtype == "float32":
+        return params
+    dt = getattr(torch, compute_dtype)
+    return {k: v.to(dt) if v.is_floating_point() else v for k, v in params.items()}
+
+
 def _per_client_tokens(tokens: torch.Tensor, c: int) -> torch.Tensor:
     """One ``(P, L)`` batch shared by the whole cohort -> ``(C, P, L)``."""
     return tokens.expand((c,) + tuple(tokens.shape))
@@ -81,13 +96,15 @@ def _grads(loss_fn: Callable, lora: dict, *args):
     return losses.detach(), dict(zip(leaves, grads))
 
 
-def _finetune_loss_fn(cfg: ModelConfig, num_classes: int, last_only: bool = True) -> Callable:
+def _finetune_loss_fn(cfg: ModelConfig, num_classes: int, last_only: bool = True,
+                      compute_dtype: str = "float32") -> Callable:
     """loss(lora, frozen, tokens (C,B,L), labels (C,B)) -> per-client NLL (C,);
     the LM head computes only the ``num_classes`` columns the loss reads."""
 
     def loss_fn(lora, frozen, tokens, labels):
         last, _aux = last_logits(
-            merge_lora(lora, frozen), cfg, tokens, last_only=last_only,
+            _cast_params(merge_lora(lora, frozen), compute_dtype), cfg, tokens,
+            last_only=last_only,
             head_cols=num_classes if last_only else None,
         )
         logp = torch.log_softmax(class_logits(last, num_classes).float(), dim=-1)
@@ -97,14 +114,16 @@ def _finetune_loss_fn(cfg: ModelConfig, num_classes: int, last_only: bool = True
 
 
 def _distill_loss_fn(cfg: ModelConfig, temperature: float, lam: float,
-                     restrict_to_support: bool, last_only: bool = True) -> Callable:
+                     restrict_to_support: bool, last_only: bool = True,
+                     compute_dtype: str = "float32") -> Callable:
     """loss(lora, frozen, tokens (C,P,L), g_logits (P,V), g_h (P,r)|None) ->
     (C,) eq. 10 per client through :func:`total_distill_loss`, the teacher
     softmaxed anew for each client (the reference's uncached form)."""
     use_h = cfg.lora is not None
 
     def loss_fn(lora, frozen, tokens, g_logits, g_h):
-        own, aux = last_logits(merge_lora(lora, frozen), cfg, tokens, last_only=last_only)
+        own, aux = last_logits(_cast_params(merge_lora(lora, frozen), compute_dtype), cfg, tokens,
+                               last_only=last_only)
         return torch.stack([
             total_distill_loss(
                 g_logits, own[i], g_h if use_h else None,
@@ -118,13 +137,14 @@ def _distill_loss_fn(cfg: ModelConfig, temperature: float, lam: float,
 
 
 def _distill_loss_cached_fn(cfg: ModelConfig, temperature: float, lam: float,
-                            last_only: bool = True) -> Callable:
+                            last_only: bool = True, compute_dtype: str = "float32") -> Callable:
     """loss(lora, frozen, tokens, t_logp, th_logp, support) -> (C,) eq. 10
     with the teacher log-probs precomputed once per round."""
     use_h = cfg.lora is not None
 
     def loss_fn(lora, frozen, tokens, t_logp, th_logp, support):
-        own, aux = last_logits(merge_lora(lora, frozen), cfg, tokens, last_only=last_only)
+        own, aux = last_logits(_cast_params(merge_lora(lora, frozen), compute_dtype), cfg, tokens,
+                               last_only=last_only)
         t2 = temperature**2
         loss = kl_rows(t_logp, own, temperature, mask=support).mean(dim=-1) * t2
         if use_h and th_logp is not None:
@@ -150,7 +170,8 @@ def _teacher_cache_fn(temperature: float, restrict_to_support: bool, use_h: bool
 def _client_round_core(cfg: ModelConfig, num_classes: int, *, lr: float, weight_decay: float,
                        distill_lr: float, temperature: float, lam: float,
                        restrict_to_support: bool, local_steps: int, distill_steps: int,
-                       last_only: bool, kd_loss: Callable | None = None) -> Callable:
+                       last_only: bool, kd_loss: Callable | None = None,
+                       compute_dtype: str = "float32") -> Callable:
     """The cohort's round body: ``distill_steps`` distillation updates
     (skipped when ``g_valid`` is False — the cold server of round 0),
     ``local_steps`` supervised updates, public last-position inference.
@@ -158,9 +179,10 @@ def _client_round_core(cfg: ModelConfig, num_classes: int, *, lr: float, weight_
     ``kd_loss`` is called as ``kd_loss(lora, frozen, g_tokens, *kd_args)``
     with the teacher tuple the caller threads through; the default is the
     uncached :func:`_distill_loss_fn` on ``(g_logits, g_h)``."""
-    ft_loss = _finetune_loss_fn(cfg, num_classes, last_only)
+    ft_loss = _finetune_loss_fn(cfg, num_classes, last_only, compute_dtype)
     if kd_loss is None:
-        kd_loss = _distill_loss_fn(cfg, temperature, lam, restrict_to_support, last_only)
+        kd_loss = _distill_loss_fn(cfg, temperature, lam, restrict_to_support, last_only,
+                                   compute_dtype)
 
     def client_round(lora, frozen, opt, g_tokens, kd_args, g_valid: bool, batches, pub_tokens):
         c = next(iter(lora.values())).shape[0]
@@ -176,7 +198,7 @@ def _client_round_core(cfg: ModelConfig, num_classes: int, *, lr: float, weight_
             lora, opt = adamw_update(grads, opt, lora, lr=lr, weight_decay=weight_decay)
         # -- line 9: public last-position inference --
         with torch.no_grad():
-            last, aux = last_logits(merge_lora(lora, frozen), cfg,
+            last, aux = last_logits(_cast_params(merge_lora(lora, frozen), compute_dtype), cfg,
                                     _per_client_tokens(pub_tokens, c), last_only=last_only)
         return lora, opt, last, aux.lora_h
 
@@ -305,6 +327,7 @@ def make_fused_round_fn(
     distill_steps: int = 2,
     last_only: bool = True,
     use_kernels: bool = False,
+    compute_dtype: str = "float32",
 ) -> Callable:
     """The whole client phase of Algorithm 1 (lines 5-11) as one function.
 
@@ -319,11 +342,13 @@ def make_fused_round_fn(
     kernel (:func:`repro_torch.kernels.ops.topk_mask_dynamic`) with
     ``use_kernels``, else :func:`repro_torch.core.topk.topk_mask_dynamic` —
     the same threshold (ties-kept) semantics.  ``distill_steps=0`` builds
-    the cold round (no broadcast exists yet; the g_* operands are unused)."""
+    the cold round (no broadcast exists yet; the g_* operands are unused).
+    ``compute_dtype`` is the round body's (see the module docstring)."""
     client_round = _client_round_core(
         cfg, num_classes, lr=lr, weight_decay=weight_decay, distill_lr=distill_lr,
         temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
         local_steps=local_steps, distill_steps=distill_steps, last_only=last_only,
+        compute_dtype=compute_dtype,
     )
 
     def fn(lora, frozen, opt, g_tokens, g_logits, g_h, batches, pub_tokens, ks):
@@ -356,6 +381,7 @@ def make_server_phase_fn(
     send_h: bool = True,
     last_only: bool = True,
     use_kernels: bool = False,
+    compute_dtype: str = "float32",
 ) -> Callable:
     """The server phase of one round (Algorithm 1 lines 13-16 + the next
     broadcast), reading the cohort's wire.
@@ -366,7 +392,7 @@ def make_server_phase_fn(
     The aggregation runs every round.  When every client dropped
     (all ``ks == 0``) the server does not distill and ``d_loss`` is NaN;
     the broadcast still refreshes on the current public batch."""
-    kd_loss = _distill_loss_cached_fn(server_cfg, temperature, lam, last_only)
+    kd_loss = _distill_loss_cached_fn(server_cfg, temperature, lam, last_only, compute_dtype)
     teacher_cache = _teacher_cache_fn(temperature, restrict_to_support, True)
 
     def fn(s_lora, s_frozen, s_opt, wire, h, ks: Sequence[int], pub_tokens):
@@ -389,8 +415,9 @@ def make_server_phase_fn(
                 d_loss = losses[0]
         # -- lines 1-2 of the NEXT round: refreshed broadcast knowledge --
         with torch.no_grad():
-            b_last, b_aux = last_logits(merge_lora(s_lora, s_frozen), server_cfg,
-                                        _per_client_tokens(pub_tokens, 1), last_only=last_only)
+            b_last, b_aux = last_logits(_cast_params(merge_lora(s_lora, s_frozen), compute_dtype),
+                                        server_cfg, _per_client_tokens(pub_tokens, 1),
+                                        last_only=last_only)
         b_h = None if b_aux.lora_h is None else b_aux.lora_h[0]
         return s_lora, s_opt, b_last[0], b_h, d_loss
 
@@ -417,6 +444,7 @@ def make_fused_e2e_round_fn(
     last_only: bool = True,
     use_kernels: bool = False,
     quantize: bool = False,
+    compute_dtype: str = "float32",
 ) -> Callable:
     """One whole federated round — client phase and server phase.
 
@@ -427,19 +455,21 @@ def make_fused_e2e_round_fn(
         b_h (P,r)|None, d_loss)
 
     The uplink leaves the client phase as the sparse wire of width
-    ``k_cap`` (int8 with ``quantize``) and is aggregated straight from it."""
+    ``k_cap`` (int8 with ``quantize``) and is aggregated straight from it.
+    ``compute_dtype`` is the round body's (see the module docstring)."""
     client_round = _client_round_core(
         client_cfg, num_classes, lr=lr, weight_decay=weight_decay, distill_lr=distill_lr,
         temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
         local_steps=local_steps, distill_steps=distill_steps, last_only=last_only,
-        kd_loss=_distill_loss_cached_fn(client_cfg, temperature, lam, last_only),
+        kd_loss=_distill_loss_cached_fn(client_cfg, temperature, lam, last_only, compute_dtype),
+        compute_dtype=compute_dtype,
     )
     teacher_cache = _teacher_cache_fn(temperature, restrict_to_support, client_cfg.lora is not None)
     server_phase = make_server_phase_fn(
         server_cfg, distill_lr=distill_lr,
         temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
         server_distill_steps=server_distill_steps, aggregation=aggregation, send_h=send_h,
-        last_only=last_only, use_kernels=use_kernels,
+        last_only=last_only, use_kernels=use_kernels, compute_dtype=compute_dtype,
     )
 
     def fn(lora, frozen, opt, s_lora, s_frozen, s_opt, g_tokens, g_logits, g_h, g_valid,

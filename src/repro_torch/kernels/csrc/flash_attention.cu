@@ -3,8 +3,8 @@
 // over fused head-batches q, k, v, out: (B*H, S, D) fp32.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
-//   flash_attention_f32 <- flash_attention_pallas (_flash_kernel,
-//                                                  _online_update)
+//   flash_attention_{f32,bf16} <- flash_attention_pallas (_flash_kernel,
+//                                                         _online_update)
 //
 // Both keep, per query row, an online max m, normaliser l and output
 // accumulator over key tiles; tiles wholly above the causal diagonal are
@@ -60,14 +60,32 @@
 // 230 registers a thread (no spills): two blocks an SM; a third (168
 // registers) spills and runs slower.
 //
+// bf16 q, k, v (flash_attention_bf16), as the reference's kernel takes
+// them (it upcasts each tile and returns q's dtype).  cp.async cannot
+// convert, so the block's threads load each bf16 tile (16-byte loads),
+// upcast it exactly and store it into the same fp32 tile layout, one tile
+// a step with no copy in flight (a simple loader); everything after that
+// is the fp32 kernel's code, and the output is rounded to bf16 once, from
+// the fp32 accumulator.  A bf16 value has 8 significand bits, so it is
+// its own TF32 big part with small part 0, and so is q * 2^-3: in
+// S = Q K^T both small terms of 3xTF32 are exact zeros, and in P V the
+// term P.big * V.small is, so the kernel skips them -- one TF32 product
+// per product for S and two for P V, the same sums as the fp32 kernel's
+// on the upcast inputs (adding an exact 0 changes no sum).  Bound: 6.4 +
+// 2 * 6.4 GFLOP at B*H = 96, S = 1024 on 495 TFLOP/s, 39 us, against
+// 50.3 MB of bf16 q, k, v and out (15 us).
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC.
 // Plain C interface, loaded through ctypes; the entry point launches on
 // the given stream and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -140,6 +158,26 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int row0, in
   }
 }
 
+// The same tile from bf16 rows: 16-byte loads of 8 values, upcast exactly
+// and stored as fp32 (the tile layout of the fp32 kernel); rows past the
+// sequence are zero.
+template <int kStride>
+__device__ __forceinline__ void stage_bf16(float* dst, const __nv_bfloat16* src, int row0,
+                                           int seq) {
+#pragma unroll
+  for (int i = 0; i < kKeys * (D / 8) / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c / (D / 8), col = 8 * (c % (D / 8));
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < seq) w = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + col));
+    float4* d4 = reinterpret_cast<float4*>(dst + r * kStride + col);
+    d4[0] = make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                        __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+    d4[1] = make_float4(__uint_as_float(w.z << 16), __uint_as_float(w.z & 0xffff0000u),
+                        __uint_as_float(w.w << 16), __uint_as_float(w.w & 0xffff0000u));
+  }
+}
+
 // 2^x on the special-function unit (2 ulp; a subnormal result flushes to 0,
 // and 2^-inf is an exact 0)
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -153,10 +191,14 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
+// T: float or __nv_bfloat16, the type of q, k, v and out; the tiles in
+// shared memory and all the arithmetic are fp32 in both.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ out, int seq,
+    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ out, int seq,
                            float scale) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // stage s: K, then V, at s * kStage
 
@@ -169,18 +211,24 @@ __global__ void __launch_bounds__(kThreads)
   const int n_kt = q0 / kKeys + 1;  // key tiles 0 .. the diagonal
 
   // the q tile through stage 1's K buffer, beside key tile 0 in stage 0
-  stage<kStrideK>(smem, k + base, 0, seq);
-  stage<kStrideV>(smem + kTileK, v + base, 0, seq);
-  stage<kStrideK>(smem + kStage, q + base, q0, seq);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if constexpr (kF32) {
+    stage<kStrideK>(smem, k + base, 0, seq);
+    stage<kStrideV>(smem + kTileK, v + base, 0, seq);
+    stage<kStrideK>(smem + kStage, q + base, q0, seq);
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    stage_bf16<kStrideK>(smem, k + base, 0, seq);
+    stage_bf16<kStrideV>(smem + kTileK, v + base, 0, seq);
+    stage_bf16<kStrideK>(smem + kStage, q + base, q0, seq);
+  }
   __syncthreads();
   // A fragments of the scaled q, big and small.  The sum over D is taken in
   // another order inside each pair of k-steps (2m, 2m + 1): A column t holds
   // d = 16m + 4t + 2h of k-step 2m + h, column t + 4 the next d, and K's B
   // fragments follow, so that a lane reads its four K values as one float4.
-  uint32_t qb[D / 8][4], qs[D / 8][4];
-  {
+  uint32_t qb[D / 8][4], qs[kF32 ? D / 8 : 1][4];  // bf16: the small parts are 0
+  if constexpr (kF32) {
     const float* qt = smem + kStage + 16 * warp * kStrideK + 4 * t;
 #pragma unroll
     for (int m = 0; m < D / 16; ++m) {
@@ -195,6 +243,21 @@ __global__ void __launch_bounds__(kThreads)
       split(x0.w * scale, qb[2 * m + 1][2], qs[2 * m + 1][2]);
       split(x1.w * scale, qb[2 * m + 1][3], qs[2 * m + 1][3]);
     }
+  } else {
+    const float* qt = smem + kStage + 16 * warp * kStrideK + 4 * t;
+#pragma unroll
+    for (int m = 0; m < D / 16; ++m) {
+      const float4 x0 = *reinterpret_cast<const float4*>(qt + g * kStrideK + 16 * m);
+      const float4 x1 = *reinterpret_cast<const float4*>(qt + (g + 8) * kStrideK + 16 * m);
+      qb[2 * m][0] = __float_as_uint(x0.x * scale);
+      qb[2 * m][1] = __float_as_uint(x1.x * scale);
+      qb[2 * m][2] = __float_as_uint(x0.y * scale);
+      qb[2 * m][3] = __float_as_uint(x1.y * scale);
+      qb[2 * m + 1][0] = __float_as_uint(x0.z * scale);
+      qb[2 * m + 1][1] = __float_as_uint(x1.z * scale);
+      qb[2 * m + 1][2] = __float_as_uint(x0.w * scale);
+      qb[2 * m + 1][3] = __float_as_uint(x1.w * scale);
+    }
   }
   __syncthreads();  // the q tile is read before key tile 1 overwrites it
 
@@ -204,14 +267,20 @@ __global__ void __launch_bounds__(kThreads)
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
 
   for (int it = 0; it < n_kt; ++it) {
-    if (it + 1 < n_kt) {
-      float* next = smem + ((it + 1) & 1) * kStage;
-      stage<kStrideK>(next, k + base, (it + 1) * kKeys, seq);
-      stage<kStrideV>(next + kTileK, v + base, (it + 1) * kKeys, seq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    if constexpr (kF32) {
+      if (it + 1 < n_kt) {
+        float* next = smem + ((it + 1) & 1) * kStage;
+        stage<kStrideK>(next, k + base, (it + 1) * kKeys, seq);
+        stage<kStrideV>(next + kTileK, v + base, (it + 1) * kKeys, seq);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else if (it > 0) {  // this step's tile, loaded and upcast now
+      float* cur = smem + (it & 1) * kStage;
+      stage_bf16<kStrideK>(cur, k + base, it * kKeys, seq);
+      stage_bf16<kStrideV>(cur + kTileK, v + base, it * kKeys, seq);
     }
     __syncthreads();
     const float* ks = smem + (it & 1) * kStage;
@@ -230,8 +299,13 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kKeys / 8; ++j) {
         const float4 kr =
             *reinterpret_cast<const float4*>(ks + (8 * j + g) * kStrideK + 16 * m + 4 * t);
-        mma3(s[j], qb[2 * m], qs[2 * m], kr.x, kr.y);
-        mma3(s[j], qb[2 * m + 1], qs[2 * m + 1], kr.z, kr.w);
+        if constexpr (kF32) {
+          mma3(s[j], qb[2 * m], qs[2 * m], kr.x, kr.y);
+          mma3(s[j], qb[2 * m + 1], qs[2 * m + 1], kr.z, kr.w);
+        } else {  // exact TF32 operands: one product
+          mma(s[j], qb[2 * m], __float_as_uint(kr.x), __float_as_uint(kr.y));
+          mma(s[j], qb[2 * m + 1], __float_as_uint(kr.z), __float_as_uint(kr.w));
+        }
       }
     }
     // the causal mask, then the tile's row max across the quad
@@ -283,7 +357,15 @@ __global__ void __launch_bounds__(kThreads)
       split(s[j][3], pb[3], ps[3]);
       const float* vr = vs + (8 * j + 2 * t) * kStrideV + g;
 #pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) mma3(o[nd], pb, ps, vr[8 * nd], vr[kStrideV + 8 * nd]);
+      for (int nd = 0; nd < D / 8; ++nd) {
+        if constexpr (kF32) {
+          mma3(o[nd], pb, ps, vr[8 * nd], vr[kStrideV + 8 * nd]);
+        } else {  // V exact in TF32: P.small * V, then P.big * V
+          const uint32_t b0 = __float_as_uint(vr[8 * nd]), b1 = __float_as_uint(vr[kStrideV + 8 * nd]);
+          mma(o[nd], ps, b0, b1);
+          mma(o[nd], pb, b0, b1);
+        }
+      }
     }
     __syncthreads();  // the tile is read before the next stage overwrites it
   }
@@ -296,13 +378,36 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) {
     const int col = 8 * nd + 2 * t;
-    if (row0 < seq)
-      *reinterpret_cast<float2*>(out + base + (size_t)row0 * D + col) =
-          make_float2(o[nd][0] * inv0, o[nd][1] * inv0);
-    if (row1 < seq)
-      *reinterpret_cast<float2*>(out + base + (size_t)row1 * D + col) =
-          make_float2(o[nd][2] * inv1, o[nd][3] * inv1);
+    if constexpr (kF32) {
+      if (row0 < seq)
+        *reinterpret_cast<float2*>(out + base + (size_t)row0 * D + col) =
+            make_float2(o[nd][0] * inv0, o[nd][1] * inv0);
+      if (row1 < seq)
+        *reinterpret_cast<float2*>(out + base + (size_t)row1 * D + col) =
+            make_float2(o[nd][2] * inv1, o[nd][3] * inv1);
+    } else {  // rounded to bf16 once
+      if (row0 < seq)
+        *reinterpret_cast<__nv_bfloat162*>(out + base + (size_t)row0 * D + col) =
+            __floats2bfloat162_rn(o[nd][0] * inv0, o[nd][1] * inv0);
+      if (row1 < seq)
+        *reinterpret_cast<__nv_bfloat162*>(out + base + (size_t)row1 * D + col) =
+            __floats2bfloat162_rn(o[nd][2] * inv1, o[nd][3] * inv1);
+    }
   }
+}
+
+template <class T>
+int launch_attention(const T* q, const T* k, const T* v, T* out, int bh, int seq, int head_dim,
+                     float scale, void* stream) {
+  if (head_dim != D) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (seq + kRows - 1) / kRows);
+  flash_attention_kernel<T><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(q, k, v, out,
+                                                                                  seq, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -314,15 +419,16 @@ extern "C" {
 // caller's fp32 head_dim^-0.5.
 int flash_attention_f32(const float* q, const float* k, const float* v, float* out, int bh,
                         int seq, int head_dim, float scale, void* stream) {
-  if (head_dim != D) return (int)cudaErrorInvalidValue;
-  if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (seq + kRows - 1) / kRows);
-  flash_attention_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(q, k, v, out, seq,
-                                                                               scale);
-  return (int)cudaGetLastError();
+  return launch_attention(q, k, v, out, bh, seq, head_dim, scale, stream);
+}
+
+// q, k, v, out: (bh, seq, head_dim) bf16, contiguous, 16-byte aligned; the
+// rest as flash_attention_f32.  scale must be a power of two (64^-0.5 = 2^-3)
+// for q * scale to stay exact in TF32.
+int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                         __nv_bfloat16* out, int bh, int seq, int head_dim, float scale,
+                         void* stream) {
+  return launch_attention(q, k, v, out, bh, seq, head_dim, scale, stream);
 }
 
 }  // extern "C"

@@ -2,10 +2,18 @@
 // and the wire scatter-accumulate kernel for the sparse uplink.
 //
 // Replaces the three TPU kernels of src/repro/kernels/sparse_agg.py:
-//   sparse_aggregate_f32         <- sparse_agg_pallas (_agg_kernel)
-//   scatter_wire_sums_f32        <- scatter_wire_sums_pallas (_scatter_wire_kernel)
+//   sparse_aggregate_{f32,bf16}  <- sparse_agg_pallas (_agg_kernel)
+//   scatter_wire_sums_{f32,bf16} <- scatter_wire_sums_pallas (_scatter_wire_kernel)
 //   scatter_wire_sums_dequant_i8 <- scatter_wire_sums_dequant_pallas
 //                                   (_scatter_wire_dequant_kernel)
+//
+// bf16 inputs: each bf16 entry point reads bf16, upcasts every value
+// exactly, runs the fp32 kernel's arithmetic and rounds its fp32 result to
+// bf16 once, as it writes (round to nearest even) -- what the reference
+// computes: the Pallas kernels upcast inside, and its wrappers cast their
+// fp32 results back to the input's dtype.  So the bf16 outputs are
+// bitwise the plain versions' fp32 results cast to bf16, and the outputs
+// move half the bytes.  The fp32 entry points are the same code as before.
 //
 // sparse_aggregate_f32, for a dense (N, rows, V) fp32 stack of the
 // transmitters' top-k masks (zeros off each client's support):
@@ -63,6 +71,7 @@
 // Plain C interface, loaded through ctypes; each entry point launches on the
 // given stream and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,12 +83,25 @@ constexpr int kBatch = 8;  // wire entries a thread has in flight
 
 enum Mode { kAdaptive = 0, kZeropad = 1, kMeanNonzero = 2 };
 
-// The float wire: entry i contributes (a[i], b[i]).
+// Exact upcast of an input value, and the one rounding of a result.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <class T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// The float wire: entry i contributes (a[i], b[i]), upcast to fp32.
+template <class T>
 struct FloatWire {
-  const float* __restrict__ a;
-  const float* __restrict__ b;
+  const T* __restrict__ a;
+  const T* __restrict__ b;
   __device__ __forceinline__ float2 operator()(size_t i, size_t) const {
-    return make_float2(__ldg(a + i), __ldg(b + i));
+    return make_float2(to_f32(__ldg(a + i)), to_f32(__ldg(b + i)));
   }
 };
 
@@ -121,25 +143,55 @@ __device__ __forceinline__ void write_tile(float* dst_row, int p, const float* s
   }
 }
 
+// The same for a bf16 output row, whose 16-byte granules hold 8 values:
+// element c sits in granule (c + p) / 8, and each value is rounded once.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void write_tile(__nv_bfloat16* dst_row, int p, const float* src,
+                                           int g0, int n_gran, int vocab) {
+  uint4* dst4 = reinterpret_cast<uint4*>(dst_row - p);
+  const float4* src4 = reinterpret_cast<const float4*>(src);
+  const int row_gran = (p + vocab + 7) >> 3;
+  for (int g = threadIdx.x; g < n_gran; g += blockDim.x) {
+    const int gg = g0 + g;
+    if (gg >= row_gran) break;
+    const int c = 8 * gg - p;
+    if (c >= 0 && c + 7 < vocab) {
+      const float4 lo = src4[2 * g], hi = src4[2 * g + 1];
+      __stcs(dst4 + gg, make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
+                                   pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w)));
+    } else {
+      for (int j = 0; j < 8; ++j)
+        if (c + j >= 0 && c + j < vocab) dst_row[c + j] = __float2bfloat16_rn(src[8 * g + j]);
+    }
+  }
+}
+
 // One (row, tile) block: zero the tile, add the row's wire entries that
-// land in it, clients in order, then write the tile once.
-template <class Wire>
+// land in it, clients in order, then write the tile once.  The tile sums
+// in fp32 whatever the output type Out; a tile spans whole 16-byte
+// granules of the output row, kG values each.
+template <class Wire, class Out>
 __global__ void __launch_bounds__(kScatterThreads)
-    scatter_wire_kernel(Wire wire, const int32_t* __restrict__ idx, float* __restrict__ num,
-                        float* __restrict__ den, int n_clients, int rows, int k, int vocab,
+    scatter_wire_kernel(Wire wire, const int32_t* __restrict__ idx, Out* __restrict__ num,
+                        Out* __restrict__ den, int n_clients, int rows, int k, int vocab,
                         int gran_per_tile) {
-  extern __shared__ __align__(16) float tile[];  // num then den, 4 * gran_per_tile each
+  constexpr int kG = 16 / (int)sizeof(Out);
+  extern __shared__ __align__(16) float tile[];  // num then den, kG * gran_per_tile each
   const int t = blockIdx.x, r = blockIdx.y;
-  const int width = 4 * gran_per_tile;
+  const int width = kG * gran_per_tile;
   float* s_num = tile;
   float* s_den = tile + width;
-  float* num_r = num + (size_t)r * vocab;
-  float* den_r = den + (size_t)r * vocab;
-  const int p = (int)(((uintptr_t)num_r >> 2) & 3);
+  Out* num_r = num + (size_t)r * vocab;
+  Out* den_r = den + (size_t)r * vocab;
+  const int p = (int)(((uintptr_t)num_r / sizeof(Out)) & (kG - 1));
   const int c0 = t * width - p;  // column of s_num[0]
 
   float4* t4 = reinterpret_cast<float4*>(tile);
-  for (int i = threadIdx.x; i < 2 * gran_per_tile; i += blockDim.x)
+  for (int i = threadIdx.x; i < kG / 2 * gran_per_tile; i += blockDim.x)
     t4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
@@ -182,13 +234,13 @@ __global__ void __launch_bounds__(kScatterThreads)
   }
 
   write_tile(num_r, p, s_num, t * gran_per_tile, gran_per_tile, vocab);
-  const int pd = (int)(((uintptr_t)den_r >> 2) & 3);
+  const int pd = (int)(((uintptr_t)den_r / sizeof(Out)) & (kG - 1));
   if (pd == p) {
     write_tile(den_r, p, s_den, t * gran_per_tile, gran_per_tile, vocab);
   } else {  // den on another 16-byte phase than num: element by element
     for (int i = threadIdx.x; i < width; i += blockDim.x) {
       const int c = c0 + i;
-      if (c >= 0 && c < vocab) den_r[c] = s_den[i];
+      if (c >= 0 && c < vocab) den_r[c] = from_f32<Out>(s_den[i]);
     }
   }
 }
@@ -221,13 +273,15 @@ cudaError_t smem_for(Kernel kern, int bytes_needed_per_gran, int gran, int& tile
   return cudaSuccess;
 }
 
-template <class Wire>
-int launch_scatter(const Wire& wire, const int32_t* idx, float* num, float* den, int n_clients,
+template <class Wire, class Out>
+int launch_scatter(const Wire& wire, const int32_t* idx, Out* num, Out* den, int n_clients,
                    int rows, int k, int vocab, cudaStream_t stream) {
   if (rows <= 0 || vocab <= 0) return (int)cudaSuccess;
-  constexpr int kGranBytes = 32;      // num and den, 16 bytes a granule each
-  const int gran = (vocab + 6) >> 2;  // granules of a row at its worst phase
-  auto kern = scatter_wire_kernel<Wire>;
+  constexpr int kG = 16 / (int)sizeof(Out);  // values of a 16-byte output granule
+  // the fp32 sums of num and den behind one output granule each
+  constexpr int kGranBytes = 2 * kG * (int)sizeof(float);
+  const int gran = (vocab + 2 * kG - 2) / kG;  // granules of a row at its worst phase
+  auto kern = scatter_wire_kernel<Wire, Out>;
   int tiles = 0, per_tile = 0;
   const cudaError_t err = smem_for(kern, kGranBytes, gran, tiles, per_tile);
   if (err != cudaSuccess) return (int)err;
@@ -236,19 +290,29 @@ int launch_scatter(const Wire& wire, const int32_t* idx, float* num, float* den,
   return (int)cudaGetLastError();
 }
 
-__global__ void sparse_aggregate_f32_kernel(const float* __restrict__ x,
-                                            float* __restrict__ out,
-                                            int n_clients, size_t elems) {
+template <class T>
+__global__ void sparse_aggregate_kernel(const T* __restrict__ x, T* __restrict__ out,
+                                        int n_clients, size_t elems) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= elems) return;
   float num = 0.0f, den = 0.0f;
   for (int n = 0; n < n_clients; ++n) {
-    const float v = x[(size_t)n * elems + i];
+    const float v = to_f32(x[(size_t)n * elems + i]);
     const float s = fabsf(v);
     num = __fadd_rn(num, __fmul_rn(s, v));
     den = __fadd_rn(den, s);
   }
-  out[i] = __fdiv_rn(num, __fadd_rn(den, 1e-12f));
+  out[i] = from_f32<T>(__fdiv_rn(num, __fadd_rn(den, 1e-12f)));
+}
+
+template <class T>
+int launch_aggregate(const T* x, T* out, int n_clients, int rows, int vocab, void* stream) {
+  const size_t elems = (size_t)rows * vocab;
+  if (elems == 0) return (int)cudaSuccess;
+  const unsigned blocks = (unsigned)((elems + kThreads - 1) / kThreads);
+  sparse_aggregate_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(x, out, n_clients,
+                                                                            elems);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -258,18 +322,27 @@ extern "C" {
 // x: (n_clients, rows, vocab) fp32; out: (rows, vocab) fp32.
 int sparse_aggregate_f32(const float* x, float* out, int n_clients, int rows,
                          int vocab, void* stream) {
-  const size_t elems = (size_t)rows * vocab;
-  if (elems == 0) return (int)cudaSuccess;
-  const unsigned blocks = (unsigned)((elems + kThreads - 1) / kThreads);
-  sparse_aggregate_f32_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      x, out, n_clients, elems);
-  return (int)cudaGetLastError();
+  return launch_aggregate(x, out, n_clients, rows, vocab, stream);
+}
+
+// x: (n_clients, rows, vocab) bf16; out: (rows, vocab) bf16, the fp32 result rounded.
+int sparse_aggregate_bf16(const __nv_bfloat16* x, __nv_bfloat16* out, int n_clients, int rows,
+                          int vocab, void* stream) {
+  return launch_aggregate(x, out, n_clients, rows, vocab, stream);
 }
 
 int scatter_wire_sums_f32(const float* a, const float* b, const int32_t* idx,
                           float* num, float* den, int n_clients, int rows,
                           int k, int vocab, void* stream) {
-  const FloatWire wire{a, b};
+  const FloatWire<float> wire{a, b};
+  return launch_scatter(wire, idx, num, den, n_clients, rows, k, vocab, (cudaStream_t)stream);
+}
+
+// a, b: (n_clients, rows, k) bf16; num, den: (rows, vocab) bf16, the fp32 sums rounded.
+int scatter_wire_sums_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b, const int32_t* idx,
+                           __nv_bfloat16* num, __nv_bfloat16* den, int n_clients, int rows,
+                           int k, int vocab, void* stream) {
+  const FloatWire<__nv_bfloat16> wire{a, b};
   return launch_scatter(wire, idx, num, den, n_clients, rows, k, vocab, (cudaStream_t)stream);
 }
 

@@ -1,8 +1,8 @@
 // Dense top-k mask by fp32 threshold bisection (paper eqs. 3-4).
 //
 // Replaces the two TPU kernels of src/repro/kernels/topk_select.py:
-//   topk_mask_f32 (dynamic = 1) <- topk_mask_dynamic_pallas (_topk_dynamic_kernel)
-//   topk_mask_f32 (dynamic = 0) <- topk_mask_pallas (_topk_kernel)
+//   topk_mask_{f32,bf16} (dynamic = 1) <- topk_mask_dynamic_pallas (_topk_dynamic_kernel)
+//   topk_mask_{f32,bf16} (dynamic = 0) <- topk_mask_pallas (_topk_kernel)
 //
 // What they compute, per row r of x (rows, V) fp32 with budget k[r]:
 //   lo = min(x[r]), hi = max(x[r]) + 1
@@ -73,15 +73,39 @@
 //   * Rows too wide for shared memory (e.g. 152k vocabularies) run the same
 //     code with the row read from device memory (L2) on every pass and only
 //     the candidate buffer in shared memory.  Not tuned.
+//   * bf16 rows (topk_mask_bf16), as the reference's kernels take them: the
+//     Pallas kernels upcast the row and bisect in fp32, and write the kept
+//     values in the input's dtype.  Here every value is upcast exactly as it
+//     is read, so the bisection, its counts and the masked row are those of
+//     the fp32 kernel on the upcast row, and each kept value goes back to
+//     bf16 exactly.  A granule is 4 values in both types (8 bytes of bf16),
+//     so the phase p, the granule counts and the edge lanes are the same
+//     code.  TMA cannot convert, so on the shared-memory path the threads
+//     load the bf16 row themselves and store it upcast (the row in shared
+//     memory stays fp32: the same widest V); the device-memory path upcasts
+//     each granule it reads.  A simple loader: the load no longer overlaps
+//     the first chunk's statistics.
+//   * Ties.  A tie group at X_k never leaves [clo, chi), so the candidate
+//     set never shrinks below it: bf16 rows (8 significand bits) tie in
+//     groups of tens to thousands near X_k.  A group larger than the
+//     buffer keeps full passes; one larger than 1024 keeps block counts
+//     over the buffer; one larger than 128 (or 32) keeps warp 0 counting
+//     its 32 (or 4) values a lane -- each stage's exit tests the exact size
+//     cnt - above against its capacity, so no buffer ever overflows, and
+//     the rank step at the end reads X_k among at most 32 values, ties
+//     included.  All of these are exact, only slower.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC   (no fast math: the value math must be IEEE).
 // Plain C interface, loaded through ctypes; the entry point launches on the
 // given stream and returns a cudaError_t.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -122,18 +146,37 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-template <bool kSmem>
-__device__ __forceinline__ float4 ld4(const float4* p) {
-  if (kSmem) return *p;
-  return __ldg(p);
+// Four bf16 values (8 bytes), upcast exactly.
+__device__ __forceinline__ float4 bf16x4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Four fp32 values, each a bf16 value or 0, back to bf16 (exactly).
+__device__ __forceinline__ uint2 to_bf16x4(float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// Granule g of a row as 4 fp32 values: 16 bytes of the row in shared memory
+// (always fp32), of an fp32 row in device memory, or 8 bytes of a bf16 row
+// in device memory, upcast.
+template <bool kSmem, class T>
+__device__ __forceinline__ float4 ld4(const void* base, int g) {
+  if (kSmem) return reinterpret_cast<const float4*>(base)[g];
+  if constexpr (std::is_same<T, float>::value) {
+    return __ldg(reinterpret_cast<const float4*>(base) + g);
+  } else {
+    return bf16x4(__ldg(reinterpret_cast<const uint2*>(base) + g));
+  }
 }
 
 // Granule g of the row (row element 4g + j - p in lane j); lanes outside
 // the row are set to `fill`.
-template <bool kSmem>
-__device__ __forceinline__ float4 granule(const float4* base, int g, int G, int p,
+template <bool kSmem, class T>
+__device__ __forceinline__ float4 granule(const void* base, int g, int G, int p,
                                           int vocab, float fill) {
-  float4 v = ld4<kSmem>(base + g);
+  float4 v = ld4<kSmem, T>(base, g);
   if (g == 0 || g == G - 1) {
     const int c = 4 * g - p;
     if (c < 0 || c >= vocab) v.x = fill;
@@ -367,21 +410,21 @@ __device__ __forceinline__ void warp_steps(Bisect& s, float* buf, int k) {
 // #{x >= mid} over the row.  The shared-memory row holds NaN in its pad
 // lanes, which counts nowhere; the device-memory row masks its two edge
 // granules.
-template <bool kSmem>
-__device__ __forceinline__ int count_row(const float4* row4, int G, int p, int vocab, float mid) {
+template <bool kSmem, class T>
+__device__ __forceinline__ int count_row(const void* row4, int G, int p, int vocab, float mid) {
   int c = 0;
 #pragma unroll 4
   for (int g = threadIdx.x; g < G; g += kThreads) {
-    const float4 v = kSmem ? row4[g] : granule<false>(row4, g, G, p, vocab, NAN);
+    const float4 v = kSmem ? ld4<true, T>(row4, g) : granule<false, T>(row4, g, G, p, vocab, NAN);
     c += (v.x >= mid) + (v.y >= mid) + (v.z >= mid) + (v.w >= mid);
   }
   return c;
 }
 
-template <bool kSmem>
-__device__ __forceinline__ void row_granule(const float4* row4, int g, int G, int p, int vocab,
+template <bool kSmem, class T>
+__device__ __forceinline__ void row_granule(const void* row4, int g, int G, int p, int vocab,
                                             float (&e)[4]) {
-  const float4 v = kSmem ? row4[g] : granule<false>(row4, g, G, p, vocab, NAN);
+  const float4 v = kSmem ? ld4<true, T>(row4, g) : granule<false, T>(row4, g, G, p, vocab, NAN);
   e[0] = v.x;
   e[1] = v.y;
   e[2] = v.z;
@@ -392,8 +435,8 @@ __device__ __forceinline__ void row_granule(const float4* row4, int g, int G, in
 // count of them (`mine`, or a first loop when it is not known, -1), a scan
 // for where each thread's run starts, and a loop that writes them there,
 // over the granules in the load's order (in which `mine` was counted).
-template <bool kSmem>
-__device__ __forceinline__ void compact_row(const float4* row4, int G, int per_chunk, int p,
+template <bool kSmem, class T>
+__device__ __forceinline__ void compact_row(const void* row4, int G, int per_chunk, int p,
                                             int vocab, float lo, float hi, int mine, float* buf,
                                             int (*s)[4][kWarps], int& par) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -403,7 +446,7 @@ __device__ __forceinline__ void compact_row(const float4* row4, int G, int per_c
     mine = 0;
     for (int c = 0; c < chunks; ++c) {
       for (int g = c * span + threadIdx.x; g < min(G, (c + 1) * span); g += kThreads) {
-        row_granule<kSmem>(row4, g, G, p, vocab, e);
+        row_granule<kSmem, T>(row4, g, G, p, vocab, e);
         mine += __popc(in_flags(e, lo, hi));
       }
     }
@@ -421,7 +464,7 @@ __device__ __forceinline__ void compact_row(const float4* row4, int G, int per_c
   par ^= 1;
   for (int c = 0; c < chunks; ++c) {
     for (int g = c * span + threadIdx.x; g < min(G, (c + 1) * span); g += kThreads) {
-      row_granule<kSmem>(row4, g, G, p, vocab, e);
+      row_granule<kSmem, T>(row4, g, G, p, vocab, e);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (e[j] >= lo && e[j] < hi) buf[at++] = e[j];
@@ -431,11 +474,14 @@ __device__ __forceinline__ void compact_row(const float4* row4, int G, int per_c
   __syncthreads();  // the buffer is complete before anyone counts on it
 }
 
-template <bool kSmem>
+// T: float or __nv_bfloat16, the row's and the output's type; the shared
+// memory row, the bisection and every count are fp32 in both.
+template <bool kSmem, class T>
 __global__ void __launch_bounds__(kThreads, 1)
-    topk_mask_kernel(const float* __restrict__ x, const int32_t* __restrict__ ks,
-                     float* __restrict__ out, int vocab, int k_static, int dynamic,
+    topk_mask_kernel(const T* __restrict__ x, const int32_t* __restrict__ ks,
+                     T* __restrict__ out, int vocab, int k_static, int dynamic,
                      int cap) {
+  constexpr bool kF32 = std::is_same<T, float>::value;  // bf16: no TMA (it cannot upcast)
   extern __shared__ __align__(16) float dyn[];
   __shared__ __align__(8) unsigned long long s_bar[kChunks];
   __shared__ float s_min[kWarps], s_max[kWarps];
@@ -445,32 +491,31 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int r = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* xr = x + (size_t)r * vocab;
-  float* outr = out + (size_t)r * vocab;
-  const int p = (int)(((uintptr_t)xr >> 2) & 3);  // the row's float phase in its granule
+  const T* xr = x + (size_t)r * vocab;
+  T* outr = out + (size_t)r * vocab;
+  const int p = (int)(((uintptr_t)xr / sizeof(T)) & 3);  // the row's phase in its granule
   const int G = (p + vocab + 3) >> 2;              // granules covering the row
   const int g_max = (vocab + 6) >> 2;              // ... at the worst phase
   float* row_s = dyn;
   float* buf = kSmem ? dyn + 4 * g_max : dyn;
-  const float4* row4 = kSmem ? reinterpret_cast<const float4*>(row_s)
-                             : reinterpret_cast<const float4*>(xr - p);
+  const void* row4 = kSmem ? static_cast<const void*>(row_s) : static_cast<const void*>(xr - p);
 
   const int k = dynamic ? min(max(ks[r], 0), vocab) : k_static;
   const bool live = !dynamic || k > 0;
-  const int q = (int)(((uintptr_t)outr >> 2) & 3);
-  float4* out4 = reinterpret_cast<float4*>(outr - q);
+  const int q = (int)(((uintptr_t)outr / sizeof(T)) & 3);
 
   if (!live) {  // a dropped client's row: zeros, x never read
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
     const int Go = (q + vocab + 3) >> 2;
     for (int g = threadIdx.x; g < Go; g += kThreads) {
       if (g == 0 || g == Go - 1) {
         for (int j = 0; j < 4; ++j) {
           const int c = 4 * g + j - q;
-          if (c >= 0 && c < vocab) outr[c] = 0.0f;
+          if (c >= 0 && c < vocab) outr[c] = T(0.0f);
         }
+      } else if constexpr (kF32) {
+        reinterpret_cast<float4*>(outr - q)[g] = make_float4(0.f, 0.f, 0.f, 0.f);
       } else {
-        out4[g] = z;
+        reinterpret_cast<uint2*>(outr - q)[g] = make_uint2(0u, 0u);
       }
     }
     return;
@@ -478,25 +523,32 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // -- load (shared-memory path), min / max / NaN, threshold counts ---------
   const int per_chunk = (G + kChunks - 1) / kChunks;
-  if (kSmem && threadIdx.x == 0) {
+  if (kSmem && kF32 && threadIdx.x == 0) {
     for (int c = 0; c < kChunks; ++c)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(&s_bar[c])), "r"(1));
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (threadIdx.x == 0) s_fill = 0;
+  if constexpr (kSmem && !kF32) {  // bf16: every thread loads and upcasts its granules
+    const uint2* src = reinterpret_cast<const uint2*>(xr - p);
+    float4* dst = reinterpret_cast<float4*>(row_s);
+    for (int g = threadIdx.x; g < G; g += kThreads) dst[g] = bf16x4(__ldg(src + g));
+  }
   __syncthreads();
-  if (kSmem && threadIdx.x == 0) {
-    const float* src = xr - p;
-    for (int c = 0; c < kChunks; ++c) {
-      const int g0 = c * per_chunk, g1 = min(G, g0 + per_chunk);
-      if (g1 <= g0) break;
-      const uint32_t bytes = (uint32_t)(g1 - g0) * 16u, bar = smem_u32(&s_bar[c]);
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                   "r"(bytes) : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-          ::"r"(smem_u32(row_s + 4 * g0)), "l"(src + 4 * g0), "r"(bytes), "r"(bar)
-          : "memory");
+  if constexpr (kSmem && kF32) {
+    if (threadIdx.x == 0) {
+      const float* src = xr - p;
+      for (int c = 0; c < kChunks; ++c) {
+        const int g0 = c * per_chunk, g1 = min(G, g0 + per_chunk);
+        if (g1 <= g0) break;
+        const uint32_t bytes = (uint32_t)(g1 - g0) * 16u, bar = smem_u32(&s_bar[c]);
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                     "r"(bytes) : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+            ::"r"(smem_u32(row_s + 4 * g0)), "l"(src + 4 * g0), "r"(bytes), "r"(bar)
+            : "memory");
+      }
     }
   }
   // The thresholds, at mean + {1.75, 2.25, 2.75} standard deviations of
@@ -508,9 +560,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   float t[kGrid];
   {
     float sum = 0.0f, sq = 0.0f;
-    if (kSmem) mbar_wait(smem_u32(&s_bar[0]), 0);
+    if (kSmem && kF32) mbar_wait(smem_u32(&s_bar[0]), 0);
     for (int g = threadIdx.x; g < min(G, per_chunk); g += kThreads) {
-      const float4 a = granule<kSmem>(row4, g, G, p, vocab, 0.0f);
+      const float4 a = granule<kSmem, T>(row4, g, G, p, vocab, 0.0f);
       sum += (a.x + a.y) + (a.z + a.w);
       sq += (a.x * a.x + a.y * a.y) + (a.z * a.z + a.w * a.w);
     }
@@ -529,13 +581,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int c = 0; c < (kSmem ? kChunks : 1); ++c) {
     const int g0 = kSmem ? c * per_chunk : 0, g1 = kSmem ? min(G, g0 + per_chunk) : G;
     if (g1 <= g0) break;
-    if (kSmem && c > 0) mbar_wait(smem_u32(&s_bar[c]), 0);
+    if (kSmem && kF32 && c > 0) mbar_wait(smem_u32(&s_bar[c]), 0);
     for (int g = g0 + threadIdx.x; g < g1; g += kThreads) {
-      const float4 a = granule<kSmem>(row4, g, G, p, vocab, NAN);  // pads: NaN, counted nowhere
+      const float4 a = granule<kSmem, T>(row4, g, G, p, vocab, NAN);  // pads: NaN, counted nowhere
       float4 lo4 = a, hi4 = a;
       if (g == 0 || g == G - 1) {  // the pads must not reach min and max
-        lo4 = granule<kSmem>(row4, g, G, p, vocab, INFINITY);
-        hi4 = granule<kSmem>(row4, g, G, p, vocab, -INFINITY);
+        lo4 = granule<kSmem, T>(row4, g, G, p, vocab, INFINITY);
+        hi4 = granule<kSmem, T>(row4, g, G, p, vocab, -INFINITY);
         for (int j = 0; j < 4; ++j) mine += (4 * g + j - p >= 0) & (4 * g + j - p < vocab);
       } else {
         mine += 4;
@@ -580,7 +632,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     bool f_known = true;
     if (!(s.hi > mx)) {  // then take +inf, and count what sits there
       f_known = false;
-      int c[1] = {count_row<kSmem>(row4, G, p, vocab, INFINITY)};
+      int c[1] = {count_row<kSmem, T>(row4, G, p, vocab, INFINITY)};
       block_sum(c, s_red, par);
       s.chi = INFINITY;
       s.above = c[0];
@@ -618,14 +670,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (!free_step(s, mid, take)) {
         const int size = s.cnt - s.above;
         if (s.n_buf < 0 && size <= cap) {
-          compact_row<kSmem>(row4, G, per_chunk, p, vocab, s.clo, s.chi, f_known ? f_lo - f_hi : -1,
-                             buf, s_red, par);
+          compact_row<kSmem, T>(row4, G, per_chunk, p, vocab, s.clo, s.chi,
+                                f_known ? f_lo - f_hi : -1, buf, s_red, par);
           s.n_buf = size;
         }
         int c[1];
         float e[kPerThread];
         if (s.n_buf < 0) {  // a full pass
-          c[0] = count_row<kSmem>(row4, G, p, vocab, mid);
+          c[0] = count_row<kSmem, T>(row4, G, p, vocab, mid);
           block_sum(c, s_red, par);
         } else {  // a count over the buffer
           c[0] = 0;
@@ -661,7 +713,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float lo = s.lo;  // NaN keeps nothing
   if (q == p) {
     for (int g = threadIdx.x; g < G; g += kThreads) {
-      const float4 v = ld4<kSmem>(row4 + g);
+      const float4 v = ld4<kSmem, T>(row4, g);
       float4 m;
       m.x = v.x >= lo ? v.x : 0.0f;
       m.y = v.y >= lo ? v.y : 0.0f;
@@ -671,17 +723,24 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float e[4] = {m.x, m.y, m.z, m.w};
         for (int j = 0; j < 4; ++j) {
           const int c = 4 * g + j - p;
-          if (c >= 0 && c < vocab) outr[c] = e[j];
+          if (c >= 0 && c < vocab) outr[c] = T(e[j]);
         }
+      } else if constexpr (kF32) {
+        reinterpret_cast<float4*>(outr - q)[g] = m;
       } else {
-        out4[g] = m;
+        reinterpret_cast<uint2*>(outr - q)[g] = to_bf16x4(m);
       }
     }
-  } else {  // out on another phase than x: element by element
+  } else if constexpr (kF32) {  // out on another phase than x: element by element
     const float* row = kSmem ? row_s + p : xr;
     for (int c = threadIdx.x; c < vocab; c += kThreads) {
       const float v = row[c];
       outr[c] = v >= lo ? v : 0.0f;
+    }
+  } else {
+    for (int c = threadIdx.x; c < vocab; c += kThreads) {
+      const float v = kSmem ? row_s[p + c] : __bfloat162float(xr[c]);
+      outr[c] = __float2bfloat16_rn(v >= lo ? v : 0.0f);
     }
   }
 }
@@ -692,8 +751,9 @@ struct SmemLimits {
   int stat, optin, granted;
 };
 
+template <class T>
 int smem_limits(SmemLimits*& out) {
-  static SmemLimits lim[64];
+  static SmemLimits lim[64];  // per device and per T: each kernel has its own opt-in
   static bool known[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -701,7 +761,7 @@ int smem_limits(SmemLimits*& out) {
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!known[dev]) {
     cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, topk_mask_kernel<true>);
+    err = cudaFuncGetAttributes(&attr, topk_mask_kernel<true, T>);
     if (err != cudaSuccess) return (int)err;
     int optin = 0;
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -713,16 +773,47 @@ int smem_limits(SmemLimits*& out) {
   return (int)cudaSuccess;
 }
 
+template <class T>
+int launch_topk(const T* x, const int32_t* ks, T* out, int rows, int vocab, int k_static,
+                int dynamic, int use_smem, void* stream) {
+  if (rows <= 0 || vocab <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (use_smem) {
+    SmemLimits* lim = nullptr;
+    const int lerr = smem_limits<T>(lim);
+    if (lerr != (int)cudaSuccess) return lerr;
+    const int row_bytes = 16 * ((vocab + 6) >> 2);
+    int cap = (lim->optin - lim->stat - row_bytes) / (int)sizeof(float);
+    cap = min(cap & ~3, kCapMax);
+    if (cap < kMinCap) return (int)cudaErrorInvalidValue;
+    const int bytes = row_bytes + cap * (int)sizeof(float);
+    if (lim->granted < bytes) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          topk_mask_kernel<true, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return (int)err;
+      lim->granted = bytes;
+    }
+    topk_mask_kernel<true, T><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static,
+                                                             dynamic, cap);
+  } else {
+    const int bytes = kCapMax * (int)sizeof(float);
+    topk_mask_kernel<false, T><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static,
+                                                              dynamic, kCapMax);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Largest V the shared-memory path takes: the row (at its worst 16-byte
 // phase) and a candidate buffer of at least kMinCap values beside the
-// kernel's static shared memory, within what a block may opt into.
+// kernel's static shared memory, within what a block may opt into.  The
+// row sits there as fp32 in both entry points, so this holds for bf16 too.
 int topk_mask_smem_max_vocab(void) {
   SmemLimits* lim = nullptr;
-  const int err = smem_limits(lim);
+  const int err = smem_limits<float>(lim);
   if (err != (int)cudaSuccess) return -err;
   const int floats = (lim->optin - lim->stat) / (int)sizeof(float) - kMinCap;
   return (floats / 4) * 4 - 6;
@@ -733,31 +824,14 @@ int topk_mask_smem_max_vocab(void) {
 int topk_mask_f32(const float* x, const int32_t* ks, float* out, int rows,
                   int vocab, int k_static, int dynamic, int use_smem,
                   void* stream) {
-  if (rows <= 0 || vocab <= 0) return (int)cudaSuccess;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (use_smem) {
-    SmemLimits* lim = nullptr;
-    const int lerr = smem_limits(lim);
-    if (lerr != (int)cudaSuccess) return lerr;
-    const int row_bytes = 16 * ((vocab + 6) >> 2);
-    int cap = (lim->optin - lim->stat - row_bytes) / (int)sizeof(float);
-    cap = min(cap & ~3, kCapMax);
-    if (cap < kMinCap) return (int)cudaErrorInvalidValue;
-    const int bytes = row_bytes + cap * (int)sizeof(float);
-    if (lim->granted < bytes) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          topk_mask_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (err != cudaSuccess) return (int)err;
-      lim->granted = bytes;
-    }
-    topk_mask_kernel<true><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static,
-                                                          dynamic, cap);
-  } else {
-    const int bytes = kCapMax * (int)sizeof(float);
-    topk_mask_kernel<false><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static,
-                                                           dynamic, kCapMax);
-  }
-  return (int)cudaGetLastError();
+  return launch_topk(x, ks, out, rows, vocab, k_static, dynamic, use_smem, stream);
+}
+
+// x, out: (rows, vocab) bf16, the bisection in fp32 on the upcast row; the
+// rest as topk_mask_f32.
+int topk_mask_bf16(const __nv_bfloat16* x, const int32_t* ks, __nv_bfloat16* out, int rows,
+                   int vocab, int k_static, int dynamic, int use_smem, void* stream) {
+  return launch_topk(x, ks, out, rows, vocab, k_static, dynamic, use_smem, stream);
 }
 
 }  // extern "C"

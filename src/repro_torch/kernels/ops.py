@@ -4,8 +4,13 @@ Each wrapper folds the batch dims as ``repro/kernels/ops.py`` does, checks
 its inputs, and then looks at the device the tensors lie on: a CPU tensor
 goes to the plain version in :mod:`repro_torch.kernels.ref`, a CUDA tensor
 to the hand-written kernel (built from ``csrc/`` at first use) — or an
-exception, never a fallback.  ``LAUNCHES`` counts kernel launches per
-wrapper, so a run can show that its path went through the kernels.
+exception, never a fallback.  Float inputs are fp32 or bf16: each kernel
+has an entry point for each (``*_f32``, ``*_bf16``), the bf16 one reads
+bf16, computes in fp32 and writes the reference wrapper's output dtype; a
+bf16 tensor is never upcast here to reach the fp32 kernel.  ``LAUNCHES``
+counts kernel launches per wrapper and input dtype (``name`` for fp32,
+``name.bf16`` for bf16), so a run can show that its path went through the
+kernels.
 
 The KL and attention kernels are forward only, as in the reference: their
 wrappers raise on an input that requires a gradient (with autograd on)
@@ -42,19 +47,20 @@ __all__ = [
     "flash_attention",
 ]
 
+# the wrappers with a bf16 kernel beside the fp32 one (the int8 wire's
+# scatter reads int8 values and an fp32 scale whatever the round's dtype)
+BF16_KERNELS = ("topk_mask_dynamic", "topk_mask", "sparse_aggregate", "scatter_wire_sums",
+                "distill_kl", "flash_attention")
 LAUNCHES: dict[str, int] = {
-    "topk_mask_dynamic": 0,
-    "topk_mask": 0,
-    "sparse_aggregate": 0,
-    "scatter_wire_sums": 0,
-    "scatter_wire_sums_dequant": 0,
-    "distill_kl": 0,
-    "flash_attention": 0,
+    **dict.fromkeys(("topk_mask_dynamic", "topk_mask", "sparse_aggregate", "scatter_wire_sums",
+                     "scatter_wire_sums_dequant", "distill_kl", "flash_attention"), 0),
+    **{f"{name}.bf16": 0 for name in BF16_KERNELS},
 }
 
 _MODES = {"adaptive": 0, "zeropad": 1, "mean_nonzero": 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_LOW_PRECISION = (torch.bfloat16, torch.float16)
+_FLOAT = (torch.float32, torch.bfloat16)
+_SUFFIX = {torch.float32: ("", "_f32"), torch.bfloat16: (".bf16", "_bf16")}
 
 
 def reset_launches() -> None:
@@ -63,15 +69,19 @@ def reset_launches() -> None:
 
 
 def _check(name: str, tensors: dict, dtypes: dict, shapes: dict) -> None:
-    dev = None
+    """Dtypes, contiguity, one device and the shapes; the float operands of
+    one call share their dtype."""
+    dev, floats = None, set()
     for key, t in tensors.items():
-        if t.dtype in _LOW_PRECISION and torch.float32 in dtypes[key]:
+        if t.dtype == torch.float16 and torch.float32 in dtypes[key]:
             raise NotImplementedError(
-                f"{name}: {key} is {t.dtype}; the kernels take float32 only "
-                "(ROADMAP.md port queue: bf16)"
+                f"{name}: {key} is {t.dtype}; the kernels take float32 and bfloat16 "
+                "(ROADMAP.md port queue: fp16)"
             )
         if t.dtype not in dtypes[key]:
             raise TypeError(f"{name}: {key} has dtype {t.dtype}, expected one of {dtypes[key]}")
+        if dtypes[key] == _FLOAT:
+            floats.add(t.dtype)
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
         if dev is None:
@@ -83,6 +93,8 @@ def _check(name: str, tensors: dict, dtypes: dict, shapes: dict) -> None:
             raise ValueError(
                 f"{name}: {key} has shape {tuple(tensors[key].shape)}, expected {tuple(want)}"
             )
+    if len(floats) > 1:
+        raise TypeError(f"{name}: the float inputs mix dtypes {sorted(map(str, floats))}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
 
@@ -122,14 +134,19 @@ def smem_max_vocab(device_index: int) -> int:
     return out
 
 
-def _launch(name: str, lib: str, symbol: str, ptrs, ints, device, floats=()) -> None:
-    fn = _fn(lib, symbol, len(ptrs), len(ints), len(floats))
+def _launch(name: str, lib: str, symbol: str, ptrs, ints, device, floats=(),
+            dtype: torch.dtype | None = None) -> None:
+    """Launch ``symbol`` (+ the entry point's suffix for the float inputs'
+    ``dtype``: ``_f32``, ``_bf16``) and count it under ``name`` (+
+    ``.bf16``)."""
+    tag, suffix = ("", "") if dtype is None else _SUFFIX[dtype]
+    fn = _fn(lib, symbol + suffix, len(ptrs), len(ints), len(floats))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(*[None if t is None else t.data_ptr() for t in ptrs], *ints, *floats, stream)
     if rc != 0:
-        raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{symbol}{suffix}: CUDA error {rc} at launch")
+    LAUNCHES[name + tag] += 1
 
 
 def _topk(name: str, logits: torch.Tensor, ks: torch.Tensor | None, k_static: int) -> torch.Tensor:
@@ -137,7 +154,7 @@ def _topk(name: str, logits: torch.Tensor, ks: torch.Tensor | None, k_static: in
     budgets ``ks`` (shape ``logits.shape[:-1]``, with the ``k > 0`` guard)
     or, when ``ks`` is None, one static ``k_static`` and no guard."""
     tensors = {"logits": logits} if ks is None else {"logits": logits, "ks": ks}
-    _check(name, tensors, {"logits": (torch.float32,), "ks": (torch.int32,)},
+    _check(name, tensors, {"logits": _FLOAT, "ks": (torch.int32,)},
            {} if ks is None else {"ks": logits.shape[:-1]})
     vocab = logits.shape[-1]
     flat = logits.reshape(-1, vocab)
@@ -149,37 +166,40 @@ def _topk(name: str, logits: torch.Tensor, ks: torch.Tensor | None, k_static: in
     out = torch.empty_like(flat)
     if rows and vocab:
         use_smem = int(vocab <= smem_max_vocab(logits.device.index or 0))
-        _launch(name, "topk_select", "topk_mask_f32", (flat, ks, out),
-                (rows, vocab, k_static, int(ks is not None), use_smem), logits.device)
+        _launch(name, "topk_select", "topk_mask", (flat, ks, out),
+                (rows, vocab, k_static, int(ks is not None), use_smem), logits.device,
+                dtype=logits.dtype)
     return out.reshape(logits.shape)
 
 
 def topk_mask_dynamic(logits: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
-    """Per-row-budget dense top-k mask of ``logits (..., V)`` fp32 with int32
-    budgets ``ks`` of the leading shape, clamped to ``[0, V]``: threshold
+    """Per-row-budget dense top-k mask of ``logits (..., V)`` fp32 or bf16
+    (out: the same dtype) with int32 budgets ``ks`` of the leading shape,
+    clamped to ``[0, V]``, by the fp32 bisection on the values: threshold
     semantics (ties at the k-th value kept), ``k = 0`` zeroes the row — the
     ``fused`` engine's uplink sparsifier."""
     return _topk("topk_mask_dynamic", logits, ks, 0)
 
 
 def topk_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """Dense top-k mask of ``logits (..., V)`` fp32 with one static
+    """Dense top-k mask of ``logits (..., V)`` fp32 or bf16 with one static
     ``min(k, V)`` for every row and no ``k > 0`` guard (paper eq. 4)."""
     return _topk("topk_mask", logits, None, int(min(int(k), logits.shape[-1])))
 
 
 def sparse_aggregate(stack: torch.Tensor) -> torch.Tensor:
-    """Dense adaptive aggregation (eqs. 6-7) of ``stack (N, ..., V)`` fp32:
-    ``Σₙ|x|x / (Σₙ|x| + 1e-12)`` -> ``(..., V)`` fp32."""
-    _check("sparse_aggregate", {"stack": stack}, {"stack": (torch.float32,)}, {})
+    """Dense adaptive aggregation (eqs. 6-7) of ``stack (N, ..., V)`` fp32 or
+    bf16: ``Σₙ|x|x / (Σₙ|x| + 1e-12)`` in fp32 -> ``(..., V)`` in the
+    stack's dtype (the reference wrapper's cast)."""
+    _check("sparse_aggregate", {"stack": stack}, {"stack": _FLOAT}, {})
     n, vocab = stack.shape[0], stack.shape[-1]
     flat = stack.reshape(n, -1, vocab)
     if stack.device.type == "cpu":
-        return sparse_aggregate_ref(flat).reshape(stack.shape[1:])
-    out = torch.empty(flat.shape[1:], dtype=torch.float32, device=stack.device)
+        return sparse_aggregate_ref(flat).to(stack.dtype).reshape(stack.shape[1:])
+    out = torch.empty(flat.shape[1:], dtype=stack.dtype, device=stack.device)
     if out.numel():
-        _launch("sparse_aggregate", "sparse_agg", "sparse_aggregate_f32", (flat, out),
-                (n, flat.shape[1], vocab), stack.device)
+        _launch("sparse_aggregate", "sparse_agg", "sparse_aggregate", (flat, out),
+                (n, flat.shape[1], vocab), stack.device, dtype=stack.dtype)
     return out.reshape(stack.shape[1:])
 
 
@@ -187,11 +207,13 @@ def scatter_wire_sums(
     a: torch.Tensor, b: torch.Tensor, indices: torch.Tensor, vocab: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two-channel scatter-accumulate from the sparse uplink wire:
-    ``a, b, indices (N, ..., k)`` -> ``(num, den)`` each ``(..., vocab)``
-    fp32, with ``num[..., idx] += a`` summed over the clients in order."""
+    ``a, b, indices (N, ..., k)`` -> ``(num, den)`` each ``(..., vocab)``,
+    with ``num[..., idx] += a`` summed in fp32 over the clients in order;
+    fp32 or bf16 ``a, b``, and the sums come back in their dtype (the
+    reference wrapper's cast, which the bf16 kernel makes as it writes)."""
     _check(
         "scatter_wire_sums", {"a": a, "b": b, "indices": indices},
-        {"a": (torch.float32,), "b": (torch.float32,), "indices": (torch.int32,)},
+        {"a": _FLOAT, "b": _FLOAT, "indices": (torch.int32,)},
         {"b": a.shape, "indices": a.shape},
     )
     n, k = a.shape[0], a.shape[-1]
@@ -199,13 +221,13 @@ def scatter_wire_sums(
     fa, fb, fi = (x.reshape(n, -1, k) for x in (a, b, indices))
     rows = fa.shape[1]
     if a.device.type == "cpu":
-        num, den = scatter_wire_sums_ref(fa, fb, fi, vocab)
+        num, den = (x.to(a.dtype) for x in scatter_wire_sums_ref(fa, fb, fi, vocab))
     else:
-        num = torch.empty((rows, vocab), dtype=torch.float32, device=a.device)
+        num = torch.empty((rows, vocab), dtype=a.dtype, device=a.device)
         den = torch.empty_like(num)
         if rows:
-            _launch("scatter_wire_sums", "sparse_agg", "scatter_wire_sums_f32",
-                    (fa, fb, fi, num, den), (n, rows, k, vocab), a.device)
+            _launch("scatter_wire_sums", "sparse_agg", "scatter_wire_sums",
+                    (fa, fb, fi, num, den), (n, rows, k, vocab), a.device, dtype=a.dtype)
     return num.reshape(lead + (vocab,)), den.reshape(lead + (vocab,))
 
 
@@ -248,13 +270,13 @@ def scatter_wire_sums_dequant(
 
 def distill_kl_rows(teacher: torch.Tensor, student: torch.Tensor,
                     temperature: float = 2.0) -> torch.Tensor:
-    """Per-row ``KL(σ(t/T) || σ(s/T))`` of ``(..., V)`` fp32 inputs ->
-    ``(...)`` fp32 (no T², no mean) through the fused one-pass kernel.
+    """Per-row ``KL(σ(t/T) || σ(s/T))`` of ``(..., V)`` fp32 or bf16 inputs
+    -> ``(...)`` fp32 (no T², no mean) through the fused one-pass kernel.
     Forward only: raises when either input requires grad (with autograd
     on), since a loss built on it would silently train nothing."""
     _forward_only("distill_kl", teacher, student)
     _check("distill_kl", {"teacher": teacher, "student": student},
-           {"teacher": (torch.float32,), "student": (torch.float32,)},
+           {"teacher": _FLOAT, "student": _FLOAT},
            {"student": teacher.shape})
     vocab = teacher.shape[-1]
     t_flat, s_flat = teacher.reshape(-1, vocab), student.reshape(-1, vocab)
@@ -262,8 +284,9 @@ def distill_kl_rows(teacher: torch.Tensor, student: torch.Tensor,
         return distill_kl_ref(t_flat, s_flat, temperature).reshape(teacher.shape[:-1])
     out = torch.empty(t_flat.shape[0], dtype=torch.float32, device=teacher.device)
     if out.numel() and vocab:
-        _launch("distill_kl", "distill_kl", "distill_kl_f32", (t_flat, s_flat, out),
-                (t_flat.shape[0], vocab), teacher.device, (1.0 / temperature,))
+        _launch("distill_kl", "distill_kl", "distill_kl", (t_flat, s_flat, out),
+                (t_flat.shape[0], vocab), teacher.device, (1.0 / temperature,),
+                dtype=teacher.dtype)
     return out.reshape(teacher.shape[:-1])
 
 
@@ -282,15 +305,16 @@ FLASH_HEAD_DIM = 64
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal attention of ``(B, H, S, D)`` or fused ``(B·H, S, D)`` fp32
-    q, k, v, with ``S`` a multiple of ``min(128, S)`` as the reference's
-    tiling asserts; the CUDA kernel takes head dim 64.  Forward only
-    (inference prefill): raises when an input requires grad."""
+    or bf16 q, k, v (out: q's dtype, from fp32 math), with ``S`` a multiple
+    of ``min(128, S)`` as the reference's tiling asserts; the CUDA kernel
+    takes head dim 64.  Forward only (inference prefill): raises when an
+    input requires grad."""
     _forward_only("flash_attention", q, k, v)
     if q.ndim not in (3, 4):
         raise ValueError(f"flash_attention: q has shape {tuple(q.shape)}, expected (B, H, S, D) "
                          "or (B*H, S, D)")
     _check("flash_attention", {"q": q, "k": k, "v": v},
-           {"q": (torch.float32,), "k": (torch.float32,), "v": (torch.float32,)},
+           {"q": _FLOAT, "k": _FLOAT, "v": _FLOAT},
            {"k": q.shape, "v": q.shape})
     s, d = q.shape[-2], q.shape[-1]
     blk = min(FLASH_BLOCK, s)
@@ -306,6 +330,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     out = torch.empty_like(q)
     bh = fold(q).shape[0]
     if bh and s:
-        _launch("flash_attention", "flash_attention", "flash_attention_f32", (q, k, v, out),
-                (bh, s, d), q.device, (d**-0.5,))
+        _launch("flash_attention", "flash_attention", "flash_attention", (q, k, v, out),
+                (bh, s, d), q.device, (d**-0.5,), dtype=q.dtype)
     return out

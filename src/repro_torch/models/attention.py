@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import linear
+from repro_torch.models.layers import linear, torch_dtype
 
 __all__ = ["KVCache", "Q_CHUNK", "init_kv_cache", "lora_delta", "qkv", "attn_apply"]
 
@@ -42,24 +42,26 @@ class KVCache(NamedTuple):
 
 def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int,
                   device: str | torch.device = "cuda") -> KVCache:
-    hd = cfg.head_dim
+    """An empty cache, K and V in the model's compute dtype."""
+    hd, dt = cfg.head_dim, torch_dtype(cfg.compute_dtype)
     return KVCache(
-        k=torch.zeros((batch, cache_len, cfg.num_kv_heads, hd), device=device),
-        v=torch.zeros((batch, cache_len, cfg.num_kv_heads, hd), device=device),
+        k=torch.zeros((batch, cache_len, cfg.num_kv_heads, hd), dtype=dt, device=device),
+        v=torch.zeros((batch, cache_len, cfg.num_kv_heads, hd), dtype=dt, device=device),
         pos=torch.full((cache_len,), -1, dtype=torch.int32, device=device),
         length=torch.zeros((), dtype=torch.int32, device=device),
     )
 
 
 def lora_delta(
-    a: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *, alpha: float, rank: int
+    a: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *, alpha: float, rank: int,
+    cd: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``x @ A @ B * alpha/r`` with shared factors ``A (d, r)``, ``B (r, o)``
-    or per-client ones ``A (C, d, r)``, ``B (C, r, o)`` for ``x (C, ...,
-    d)``.  Returns ``(delta, h)`` with the projection ``h = x @ A`` (paper
-    eq. 8)."""
-    h = linear(x, a)
-    return linear(h, b) * (alpha / rank), h
+    """``x @ A @ B * alpha/r`` in the compute dtype ``cd``, with shared
+    factors ``A (d, r)``, ``B (r, o)`` or per-client ones ``A (C, d, r)``,
+    ``B (C, r, o)`` for ``x (C, ..., d)``.  Returns ``(delta, h)`` with the
+    projection ``h = x @ A`` (paper eq. 8)."""
+    h = linear(x, a, cd=cd)
+    return linear(h, b, cd=cd) * (alpha / rank), h
 
 
 def qkv(lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig):
@@ -67,13 +69,14 @@ def qkv(lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig):
     Dh)``, and ``lora_h (C, B, S, r)``: the q adapter's projection (the v
     adapter's without a q adapter), or None without adapters."""
     c, bsz, s, _ = x.shape
+    cd = torch_dtype(cfg.compute_dtype)
     proj, hs = {}, {}
     for name in ("q", "k", "v"):
-        y = linear(x, lp[f"attn/w{name}/w"], lp.get(f"attn/w{name}/b"))
+        y = linear(x, lp[f"attn/w{name}/w"], lp.get(f"attn/w{name}/b"), cd=cd)
         if f"lora/{name}/A" in lp:
             delta, hs[name] = lora_delta(
                 lp[f"lora/{name}/A"], lp[f"lora/{name}/B"], x,
-                alpha=cfg.lora.alpha, rank=cfg.lora.rank,
+                alpha=cfg.lora.alpha, rank=cfg.lora.rank, cd=cd,
             )
             y = y + delta
         proj[name] = y.reshape(c * bsz, s, -1, cfg.head_dim)
@@ -136,5 +139,5 @@ def attn_apply(
         valid = (cache.pos >= 0) & (cache.pos <= cache.length)  # every written slot
         out = _attend(q, cache.k, cache.v, valid[None, :])
     out = out.reshape(c, bsz, s, -1).to(x.dtype)
-    y = linear(out, lp["attn/wo/w"], lp.get("attn/wo/b"))
+    y = linear(out, lp["attn/wo/w"], lp.get("attn/wo/b"), cd=torch_dtype(cfg.compute_dtype))
     return y, lora_h

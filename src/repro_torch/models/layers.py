@@ -9,6 +9,11 @@ by the leaf's number of dims.  Two defaults differ from PyTorch's own:
 LayerNorm's eps is 1e-6 (as in the reference), and GELU is the tanh
 approximation (``jax.nn.gelu``'s default).
 
+Precision follows the reference's: a layer computes in the model's
+compute dtype (:func:`linear` casts its input and weights to it, as
+``dense_apply`` does), LayerNorm keeps its statistics in fp32 and returns
+its input's dtype, and parameters are stored in ``param_dtype``.
+
 Init draws from an explicit CPU ``torch.Generator`` — the same shapes and
 scales as ``repro.models.init`` (truncated-normal fan-in dense weights, zero
 biases, N(0, 0.02) embeddings) — so a seed gives the same weights on any
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "NORM_EPS",
+    "torch_dtype",
     "linear",
     "layer_norm",
     "gelu",
@@ -48,16 +54,25 @@ def per_client(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return t.reshape((t.shape[0],) + (1,) * (x.ndim - 2) + (t.shape[-1],))
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """``x @ w (+ b)`` for ``x (C, ..., i)`` and a shared ``w (i, o)`` or a
-    per-client ``w (C, i, o)``."""
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name (``"float32"``,
+    ``"bfloat16"``)."""
+    return getattr(torch, name)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+           cd: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x @ w (+ b)`` in the compute dtype ``cd`` (x, w and b cast to it)
+    for ``x (C, ..., i)`` and a shared ``w (i, o)`` or a per-client
+    ``w (C, i, o)``."""
+    x, w = x.to(cd), w.to(cd)
     if w.ndim == 2:
         y = torch.matmul(x, w)
     else:
         c = x.shape[0]
         y = torch.bmm(x.reshape(c, -1, x.shape[-1]), w).reshape(x.shape[:-1] + (w.shape[-1],))
     if b is not None:
-        y = y + per_client(b, y)
+        y = y + per_client(b.to(cd), y)
     return y
 
 

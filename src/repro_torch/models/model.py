@@ -17,7 +17,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import embedding, layer_norm, linear, normal, truncated_normal
+from repro_torch.models.layers import (
+    embedding, layer_norm, linear, normal, torch_dtype, truncated_normal,
+)
 from repro_torch.models.transformer import LAYER_NDIM, STACK_PREFIX, init_stack_cache, stack_apply
 
 __all__ = ["Aux", "check_supported", "init", "forward", "init_cache", "decode_step", "prefill"]
@@ -41,8 +43,8 @@ def _other_families(what: str) -> NotImplementedError:
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port carries the GPT-2 family (dense, learned positions,
-    LayerNorm, GELU, multi-head attention, fp32); anything else is a later
-    slice's work."""
+    LayerNorm, GELU, multi-head attention) with fp32 or bf16 parameters
+    and compute; anything else is a later slice's work."""
     ok = (
         cfg.family == "dense" and cfg.moe is None and cfg.positional == "learned"
         and cfg.norm == "layernorm" and cfg.activation == "gelu"
@@ -50,15 +52,18 @@ def check_supported(cfg: ModelConfig) -> None:
     )
     if not ok:
         raise _other_families(f"model {cfg.name!r}")
-    if cfg.param_dtype != "float32" or cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"model {cfg.name!r}: the port computes in float32 only (ROADMAP.md port queue: bf16)"
-        )
+    for field in ("param_dtype", "compute_dtype", "optimizer_state_dtype"):
+        if getattr(cfg, field) not in ("float32", "bfloat16"):
+            raise NotImplementedError(
+                f"model {cfg.name!r}: {field}={getattr(cfg, field)!r}; the port carries float32 "
+                "and bfloat16 (ROADMAP.md port queue: fp16)"
+            )
 
 
 def init(cfg: ModelConfig, seed: int, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
-    """Fresh parameters with the reference's shapes and scales, drawn from
-    a CPU ``torch.Generator`` seeded with ``seed`` and moved to ``device``."""
+    """Fresh parameters with the reference's shapes and scales, drawn in
+    fp32 from a CPU ``torch.Generator`` seeded with ``seed``, stored in
+    ``cfg.param_dtype`` on ``device``."""
     check_supported(cfg)
     gen = torch.Generator().manual_seed(int(seed))
     d, L, hd = cfg.d_model, cfg.num_layers, cfg.head_dim
@@ -95,19 +100,22 @@ def init(cfg: ModelConfig, seed: int, device: str | torch.device = "cuda") -> di
     if lc is not None and "head" in lc.targets:
         p["lora_head/A"] = normal((d, lc.rank), d**-0.5, gen)
         p["lora_head/B"] = torch.zeros(lc.rank, cfg.vocab_size)
-    return {k: v.to(device) for k, v in p.items()}
+    dt = torch_dtype(cfg.param_dtype)
+    return {k: v.to(device=device, dtype=dt) for k, v in p.items()}
 
 
 def _lm_logits(params, cfg: ModelConfig, h: torch.Tensor, head_cols: int | None) -> torch.Tensor:
     """``h (C, B, [S,] d)`` -> logits over the first ``head_cols`` vocab
-    columns (all of them when None): the tied head plus the LoRA head delta."""
+    columns (all of them when None) in the compute dtype: the tied head
+    plus the LoRA head delta."""
+    cd = torch_dtype(cfg.compute_dtype)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     cols = slice(None) if head_cols is None else slice(0, head_cols)
     head = head[cols] if head.ndim == 2 else head[:, cols]
-    logits = linear(h, head.transpose(-1, -2))
+    logits = linear(h, head.transpose(-1, -2), cd=cd)
     if "lora_head/A" in params:
         lb = params["lora_head/B"][..., cols]
-        logits = logits + linear(linear(h, params["lora_head/A"]), lb) * (
+        logits = logits + linear(linear(h, params["lora_head/A"], cd=cd), lb, cd=cd) * (
             cfg.lora.alpha / cfg.lora.rank
         )
     return logits
@@ -129,7 +137,8 @@ def forward(
     s = tokens.shape[-1]
     pos = params["pos_embed"]
     pos = pos[:s] if pos.ndim == 2 else pos[:, None, :s]
-    x = embedding(params["embed"], tokens) + pos
+    cd = torch_dtype(cfg.compute_dtype)
+    x = embedding(params["embed"], tokens).to(cd) + pos.to(cd)
     st = stack_apply(params, x, cfg)
     h = st.x[:, :, -1] if last_only else st.x
     h = layer_norm(h, params["final_norm/scale"], params["final_norm/bias"])
@@ -180,7 +189,8 @@ def decode_step(params: dict[str, torch.Tensor], cfg: ModelConfig, cache: dict,
     pos = params["pos_embed"].index_select(-2, cache["length"].reshape(1).long())
     if pos.ndim == 3:
         pos = pos[:, None]
-    x = embedding(params["embed"], token.reshape(c, b // c, 1)) + pos
+    cd = torch_dtype(cfg.compute_dtype)
+    x = embedding(params["embed"], token.reshape(c, b // c, 1)).to(cd) + pos.to(cd)
     st = stack_apply(params, x, cfg, caches=cache["layers"])
     h = layer_norm(st.x, params["final_norm/scale"], params["final_norm/bias"])
     logits = _lm_logits(params, cfg, h, None).reshape(b, -1)

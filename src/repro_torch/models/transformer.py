@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import KVCache, attn_apply, init_kv_cache
-from repro_torch.models.layers import gelu, layer_norm, linear
+from repro_torch.models.layers import gelu, layer_norm, linear, torch_dtype
 
 __all__ = [
     "StackState", "STACK_PREFIX", "LAYER_NDIM", "layer_slice", "init_stack_cache", "stack_apply",
@@ -60,6 +60,7 @@ def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
     with ``caches`` (decode) layer ``l`` attends over, and writes into, its
     slice of the stacked cache in place."""
     lora_h = None
+    cd = torch_dtype(cfg.compute_dtype)
     for l in range(cfg.num_layers):
         lp = layer_slice(params, l)
         h_in = layer_norm(x, lp["norm1/scale"], lp["norm1/bias"])
@@ -69,6 +70,6 @@ def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
             lora_h = h.mean(dim=2)  # (C, B, r): paper eq. 8, pooled over the sequence
         x = x + y
         h2 = layer_norm(x, lp["norm2/scale"], lp["norm2/bias"])
-        up = gelu(linear(h2, lp["mlp/up/w"], lp.get("mlp/up/b")))
-        x = x + linear(up, lp["mlp/down/w"], lp.get("mlp/down/b"))
+        up = gelu(linear(h2, lp["mlp/up/w"], lp.get("mlp/up/b"), cd=cd))
+        x = x + linear(up, lp["mlp/down/w"], lp.get("mlp/down/b"), cd=cd)
     return StackState(x=x, lora_h=lora_h)

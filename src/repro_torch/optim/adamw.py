@@ -1,10 +1,17 @@
 """AdamW over dicts of tensors with a leading CLIENT axis — the port of
-``repro/optim/adamw.py`` (fp32 moments, bias correction, global-norm clip).
+``repro/optim/adamw.py`` (bias correction, global-norm clip).
 
 The reference vmaps one client's update over the cohort; here every leaf
 carries the cohort axis ``(C, ...)`` and the step count is ``(C,)``.  The
 global-norm clip is taken PER CLIENT, over that client's leaves only — a
 norm over the whole stack would couple the clients' updates.
+
+The moments are stored in ``state_dtype`` (fp32 or bf16) and the update
+math always runs in fp32.  ``master_dtype="float32"`` keeps an fp32 MASTER
+copy of low-precision live params in the state: the update reads and
+advances the master, and the live params are re-emitted as its cast, so
+that small updates are not lost to bf16 rounding from step to step.
+Without a master the update is the classic one on the live params.
 """
 
 from __future__ import annotations
@@ -20,20 +27,32 @@ class AdamWState(NamedTuple):
     m: dict[str, torch.Tensor]
     v: dict[str, torch.Tensor]
     count: torch.Tensor  # (C,) int32
+    # fp32 master params for low-precision live params; None: masterless
+    master: dict[str, torch.Tensor] | None = None
 
 
-def adamw_init(params: dict[str, torch.Tensor], *, state_dtype: str = "float32") -> AdamWState:
-    """Zero moments for ``(C, ...)`` leaves; ``state_dtype`` must be fp32."""
-    if state_dtype != "float32":
+def _dtype(name: str) -> torch.dtype:
+    if name not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            f"optimizer_state_dtype={state_dtype!r}: the port keeps fp32 moments "
-            "only (ROADMAP.md port queue: bf16)"
+            f"an optimizer dtype of {name!r}: the port keeps float32 and bfloat16 "
+            "(ROADMAP.md port queue: fp16)"
         )
+    return getattr(torch, name)
+
+
+def adamw_init(params: dict[str, torch.Tensor], *, state_dtype: str = "float32",
+               master_dtype: str | None = None) -> AdamWState:
+    """Zero moments in ``state_dtype`` for ``(C, ...)`` leaves, and a master
+    copy of the params in ``master_dtype`` unless it is None."""
+    dt = _dtype(state_dtype)
     first = next(iter(params.values()))
+    master = (None if master_dtype is None
+              else {k: p.detach().to(_dtype(master_dtype), copy=True) for k, p in params.items()})
     return AdamWState(
-        m={k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
-        v={k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
+        m={k: torch.zeros_like(p, dtype=dt) for k, p in params.items()},
+        v={k: torch.zeros_like(p, dtype=dt) for k, p in params.items()},
         count=torch.zeros(first.shape[0], dtype=torch.int32, device=first.device),
+        master=master,
     )
 
 
@@ -67,14 +86,18 @@ def adamw_update(
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=cf.device), cf)
     if grad_clip is not None:
         scale = torch.clamp(grad_clip / (global_norm(grads) + 1e-9), max=1.0)
-        grads = {k: g * _per_client(scale, g) for k, g in grads.items()}
+        grads = {k: g * _per_client(scale, g).to(g.dtype) for k, g in grads.items()}
+    src = params if state.master is None else state.master
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
         g = grads[k].float()
-        m = state.m[k] * b1 + g * (1.0 - b1)
-        v = state.v[k] * b2 + torch.square(g) * (1.0 - b2)
+        m = state.m[k].float() * b1 + g * (1.0 - b1)
+        v = state.v[k].float() * b2 + torch.square(g) * (1.0 - b2)
         step = (m / _per_client(bc1, m)) / (torch.sqrt(v / _per_client(bc2, v)) + eps)
-        p32 = p.float()
-        new_p[k] = (p32 - lr * (step + weight_decay * p32)).to(p.dtype)
-        new_m[k], new_v[k] = m, v
-    return new_p, AdamWState(m=new_m, v=new_v, count=count)
+        p32 = src[k].float()
+        new_p[k] = p32 - lr * (step + weight_decay * p32)
+        new_m[k], new_v[k] = m.to(state.m[k].dtype), v.to(state.v[k].dtype)
+    master = None if state.master is None else {
+        k: new_p[k].to(state.master[k].dtype) for k in params}
+    return ({k: new_p[k].to(p.dtype) for k, p in params.items()},
+            AdamWState(m=new_m, v=new_v, count=count, master=master))

@@ -372,6 +372,44 @@ def test_candidate_bisection_follows_the_plain_trajectory(kind, k, vocab, cap, w
     random_rows()
 
 
+def _bf16_tie_row(kind, vocab, cap, warp_cap, rng):
+    """A bf16-rounded row and budgets whose k-th value sits inside a tie
+    group larger than 32, than the warp's take-over size, or than the
+    compacted buffer — or a row of a few distinct bf16 values."""
+    x = torch.as_tensor(rng.normal(size=vocab).astype(np.float32)).to(torch.bfloat16).float().numpy()
+    if kind == "few_distinct":  # 1 + 1e-3 N(0, 1) in bf16: three values, ties of thousands
+        x = torch.as_tensor((1.0 + 1e-3 * rng.normal(size=vocab)).astype(np.float32)
+                            ).to(torch.bfloat16).float().numpy()
+        values, counts = np.unique(x, return_counts=True)
+        v0, group = values[np.argmax(counts)], int(counts.max())  # the largest group
+    else:
+        group = {"tie_over_32": 40, "tie_over_warp_cap": warp_cap + 16,
+                 "tie_over_buffer": cap + 64}[kind]
+        v0 = np.float32(np.sort(x)[::-1][vocab // 20])  # a value near the top of the row
+        x[rng.choice(np.flatnonzero(x != v0), size=group, replace=False)] = v0
+    above = int((x > v0).sum())
+    return x, [above + 1, above + group // 2, above + group]
+
+
+@pytest.mark.parametrize("vocab, cap, warp_cap", _MODEL_SIZES, ids=["scaled", "kernel"])
+@pytest.mark.parametrize("kind", ["tie_over_32", "tie_over_warp_cap", "tie_over_buffer",
+                                  "few_distinct"])
+def test_candidate_bisection_on_bf16_ties(kind, vocab, cap, warp_cap):
+    """bf16 rows (8 significand bits) tie in large groups: a tie group at
+    X_k never leaves the candidate interval, so the model of the kernel's
+    design must stay exact when that group exceeds 32, the warp's take-over
+    size and the compacted buffer."""
+    x, budgets = _bf16_tie_row(kind, vocab, cap, warp_cap, np.random.default_rng(vocab + len(kind)))
+    for budget in budgets:
+        kk = torch.tensor([budget], dtype=torch.int32)
+        want = ref.topk_mask_ref(torch.as_tensor(x[None]).to(torch.bfloat16), kk, guard=True)
+        lo = _candidate_lo(x, budget, cap, warp_cap)
+        got = torch.as_tensor(np.where(x >= lo, x, np.float32(0))).to(torch.bfloat16)
+        assert torch.equal(got, want[0]), (kind, budget)
+        tie = int((x == np.sort(x)[::-1][budget - 1]).sum())
+        assert int((want != 0).sum()) >= budget and tie > 32
+
+
 @pytest.mark.parametrize("k", [0, 1, 7, 64, 70])
 def test_topk_mask_static_matches_reference_exactly(k):
     x, _ = _topk_rows(2)
@@ -433,13 +471,15 @@ def test_wrappers_reject_bad_inputs():
         ops.topk_mask(x.t().contiguous().t(), 3)
     with pytest.raises(ValueError, match="contiguous"):
         ops.sparse_aggregate(stack.transpose(1, 2).contiguous().transpose(1, 2))
-    for low in (torch.bfloat16, torch.float16):
-        with pytest.raises(NotImplementedError, match="port queue: bf16"):
+    for low in (torch.float16,):
+        with pytest.raises(NotImplementedError, match="port queue: fp16"):
             ops.topk_mask_dynamic(x.to(low), ks)
-        with pytest.raises(NotImplementedError, match="port queue: bf16"):
+        with pytest.raises(NotImplementedError, match="port queue: fp16"):
             ops.topk_mask(x.to(low), 3)
-        with pytest.raises(NotImplementedError, match="port queue: bf16"):
+        with pytest.raises(NotImplementedError, match="port queue: fp16"):
             ops.sparse_aggregate(stack.to(low))
+    with pytest.raises(TypeError, match="mix"):  # one dtype for the float inputs of a call
+        ops.scatter_wire_sums(ta, tb.to(torch.bfloat16), ti, vocab)
     with pytest.raises(TypeError, match="dtype"):
         ops.topk_mask_dynamic(x, ks.long())
     with pytest.raises(ValueError, match="shape"):
@@ -472,11 +512,14 @@ def test_every_kernel_source_exists_and_is_built_by_name():
     for src in build.SOURCES.values():
         assert src.is_file() and src.suffix == ".cu"
     text = {name: src.read_text() for name, src in build.SOURCES.items()}
-    assert "int topk_mask_f32(" in text["topk_select"]
-    assert "int sparse_aggregate_f32(" in text["sparse_agg"]
-    assert "int distill_kl_f32(" in text["distill_kl"]
-    assert "int flash_attention_f32(" in text["flash_attention"]
-    # the launches the wrappers count, one counter per wrapper
-    assert set(ops.LAUNCHES) == {"topk_mask_dynamic", "topk_mask", "sparse_aggregate",
-                                 "scatter_wire_sums", "scatter_wire_sums_dequant",
-                                 "distill_kl", "flash_attention"}
+    for suffix in ("f32", "bf16"):  # an entry point per input dtype
+        assert f"int topk_mask_{suffix}(" in text["topk_select"]
+        assert f"int sparse_aggregate_{suffix}(" in text["sparse_agg"]
+        assert f"int scatter_wire_sums_{suffix}(" in text["sparse_agg"]
+        assert f"int distill_kl_{suffix}(" in text["distill_kl"]
+        assert f"int flash_attention_{suffix}(" in text["flash_attention"]
+    assert "int scatter_wire_sums_dequant_i8(" in text["sparse_agg"]
+    # the launches the wrappers count, one counter per wrapper and input dtype
+    fp32 = {"topk_mask_dynamic", "topk_mask", "sparse_aggregate", "scatter_wire_sums",
+            "scatter_wire_sums_dequant", "distill_kl", "flash_attention"}
+    assert set(ops.LAUNCHES) == fp32 | {f"{n}.bf16" for n in fp32 - {"scatter_wire_sums_dequant"}}

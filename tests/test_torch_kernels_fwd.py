@@ -185,10 +185,12 @@ def test_flash_attention_rejects_bad_inputs():
     q = torch.randn(2, 128, 32)
     with pytest.raises(ValueError, match="shape"):
         ops.flash_attention(q, q[:1].contiguous(), q)
-    for low in (torch.bfloat16, torch.float16):
-        with pytest.raises(NotImplementedError, match="port queue: bf16"):
+    for low in (torch.float16,):
+        with pytest.raises(NotImplementedError, match="port queue: fp16"):
             ops.flash_attention(q.to(low), q.to(low), q.to(low))
-        with pytest.raises(NotImplementedError, match="port queue: bf16"):
+        with pytest.raises(NotImplementedError, match="port queue: fp16"):
             ops.distill_kl(q.to(low), q.to(low))
+    with pytest.raises(TypeError, match="mix"):  # one dtype for the float inputs of a call
+        ops.flash_attention(q, q.to(torch.bfloat16), q)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)

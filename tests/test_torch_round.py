@@ -87,7 +87,11 @@ DENSE_CASES = {
        for case, spec in CASES.items()},
     "batched_float_wire": dict(CASES["float_wire"], fed=dict(rounds=2, engine="batched")),
 }
-ALL_CASES = {**CASES, **DENSE_CASES}
+# the paper's other methods (aggregation, projection, adaptive k) on one case
+METHOD_CASES = {f"batched_{method}": dict(CASES["float_wire"], fed=dict(rounds=2, engine="batched",
+                                                                        method=method))
+                for method in ("adaptive", "zeropad", "all_logits")}
+ALL_CASES = {**CASES, **DENSE_CASES, **METHOD_CASES}
 
 
 def _fed_kwargs(case):
@@ -152,6 +156,11 @@ def runs():
 @pytest.fixture(scope="module")
 def dense_runs():
     return _run_cases(DENSE_CASES)
+
+
+@pytest.fixture(scope="module")
+def method_runs():
+    return _run_cases(METHOD_CASES)
 
 
 def _integers_identical(j_run, t_run, case):
@@ -223,6 +232,44 @@ def test_dense_round_floats_match(dense_runs, case):
     assert t_b[2] == j_b[2]
 
 
+@pytest.mark.parametrize("case", list(METHOD_CASES))
+def test_method_round_matches_reference(method_runs, case):
+    """``adaptive`` (no projection), ``zeropad`` (the mean) and
+    ``all_logits`` (k = V for everyone): the reference's k, bytes and
+    transmitters, its accuracies within one eval sample."""
+    j_run, _, t_run, _, _, _ = method_runs[case]
+    _integers_identical(j_run, t_run, case)
+    _accuracies_match(j_run, t_run)
+    assert np.isnan(t_run.distill_loss).all() and np.isnan(j_run.distill_loss).all()
+    if case.endswith("all_logits"):
+        assert all(k == 256 for ks in t_run.per_client_k for k in ks)
+
+
+def _batched_run(**option):
+    ds = t_dataset(vocab_size=256, seq_len=12, total=500, seed=0)
+    fed = dict(_fed_kwargs("batched_float_wire"), channel=TChannel(**_CHAN), use_kernels=True)
+    return t_rounds.run_federated(T_CLIENT, T_SERVER, ds, TFed(**fed, **option), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def plain_batched_run():
+    return _batched_run()
+
+
+@pytest.mark.parametrize("option", [dict(compute_dtype="bfloat16"), dict(shard_clients=True)],
+                         ids=["compute_dtype", "shard_clients"])
+def test_batched_engine_drops_the_options_it_does_not_take(plain_batched_run, option):
+    """As the reference's ``make_engine`` does, the batched engine drops
+    ``compute_dtype`` (it is the fp32 per-phase reference) and
+    ``shard_clients``: the run is the plain batched run, bit for bit."""
+    plain, other = plain_batched_run, _batched_run(**option)
+    assert other.per_client_k == plain.per_client_k
+    for o, p in zip(other.ledger.rounds, plain.ledger.rounds):
+        assert (o.uplink_bytes, o.downlink_bytes, o.num_transmitters) == (
+            p.uplink_bytes, p.downlink_bytes, p.num_transmitters)
+    assert (other.server_acc, other.client_acc) == (plain.server_acc, plain.client_acc)
+
+
 def _fused_engines(seed=0, n=3):
     """``tests/test_engine.py``'s ``_mini_cohort`` in both packages: clients
     with 60 private samples each on the tiny client config, the port's
@@ -285,7 +332,8 @@ _QUEUE = "ROADMAP.md port queue: "
     pytest.param(dict(engine="fused", shard_clients=True), _QUEUE + "launchers and scale-out",
                  id="fused-shard_clients"),
     pytest.param(dict(pretrain_steps=80), _QUEUE + "pretraining", id="pretrain_steps"),
-    pytest.param(dict(compute_dtype="bfloat16"), _QUEUE + "bf16", id="bf16-compute"),
+    # the id is kept from the bf16 refusal that this case held before bf16 ran
+    pytest.param(dict(compute_dtype="float16"), _QUEUE + "fp16", id="bf16-compute"),
     pytest.param(dict(scenario="gauss_markov"), _QUEUE + "scenarios and faults",
                  id="channel-scenario"),
     pytest.param(dict(faults="crashes"), _QUEUE + "scenarios and faults", id="fault-injection"),

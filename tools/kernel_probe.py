@@ -1,13 +1,16 @@
 """Measure the port's kernels against an earlier checkout on one GPU, and
 break the top-k's time into its phases.
 
-    python3 tools/kernel_probe.py --parent DIR [--real] [--kernels topk,scatter,kl,attention]
+    python3 tools/kernel_probe.py --parent DIR [--real] [--kernels topk,scatter,agg,kl,attention]
 
 DIR is a checkout of an earlier commit (for example ``git archive <commit>``
 unpacked into ``build/parent``); its ``topk_select.cu``, ``sparse_agg.cu``,
 ``distill_kl.cu`` and ``flash_attention.cu`` are built beside this
-checkout's, and the two are timed in turns (earlier, this, this, earlier)
-in the same process, on the same inputs (``--kernels`` picks which):
+checkout's (the earlier build's ``ptxas -v`` lines are printed beside the
+``[build]`` line of this one), and the two fp32 entry points are timed in
+turns (earlier, this, this, earlier) in the same process, on the same
+inputs, both held to the plain versions (and the KL's and attention's
+outputs compared bitwise with each other); ``--kernels`` picks which:
 
 * the dynamic top-k at (256, 50 257) with the budgets [388, 608, 342, 428],
   on normal rows, on rows of scale 0.55 (the spread of a randomly
@@ -15,6 +18,7 @@ in the same process, on the same inputs (``--kernels`` picks which):
   the input of the ``fused`` float run's last round (its own budgets),
   captured as ``chip_smoke.py`` captures it, with statistics of its rows;
 * both wire scatters at N 4, 64 rows, V 50 257, k_cap 128 and 1024;
+* the dense adaptive aggregation at (4, 64, 50 257), a top-k-sparse stack;
 * the distillation KL at (64, 50 257), T = 2, after ``chip_smoke.py``'s
   checks of the KL kernel: warm (the same inputs each launch) and cold (in
   turn over ``chip_smoke.COLD_COPIES`` copies of them);
@@ -82,13 +86,13 @@ def topk_clocks() -> str:
         ("        if (s.n_buf < 0) {  // a full pass\n", "        if (s.n_buf < 0) {  // a full pass\n          ++pf;\n"),
         ("        } else {  // a count over the buffer\n",
             "        } else {  // a count over the buffer\n          ++pb;\n"),
-        ("          compact_row<kSmem>(", "          ++pc;\n          compact_row<kSmem>("),
+        ("          compact_row<kSmem, T>(", "          ++pc;\n          compact_row<kSmem, T>("),
         ("          warp_steps(s, buf, k);",
             "          const long long pw0 = clock64();\n          warp_steps(s, buf, k);\n"
             "          pwc = clock64() - pw0;"),
         ("  // -- the masked row ---", "  const long long pt2 = clock64();\n  // -- the masked row ---"),
-        ("      outr[c] = v >= lo ? v : 0.0f;\n    }\n  }\n}\n",
-            "      outr[c] = v >= lo ? v : 0.0f;\n    }\n  }\n"
+        ("      outr[c] = __float2bfloat16_rn(v >= lo ? v : 0.0f);\n    }\n  }\n}\n",
+            "      outr[c] = __float2bfloat16_rn(v >= lo ? v : 0.0f);\n    }\n  }\n"
             "  __syncthreads();\n"
             "  if (threadIdx.x == 0 && g_prof) { long long g1;\n"
             "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g1));\n"
@@ -136,6 +140,24 @@ def scatter_ab(libs, device) -> None:
         in_turns(f"scatter_wire_sums_dequant k_cap={k_cap}",
                  lambda: old_q(*qp, n, rows, k, cs.VOCAB, 0, stream),
                  lambda: new_q(*qp, n, rows, k, cs.VOCAB, 0, stream))
+
+
+def agg_ab(libs, device) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    stack = cs.dense_stack([388, 608, 342, 428], seed=13, device=device)
+    n = stack.shape[0]
+    out = torch.empty((cs.ROWS, cs.VOCAB), device=device)
+    new = ops._fn("sparse_agg", "sparse_aggregate_f32", 2, 3)
+    old = c_fn(libs["parent_agg"], "sparse_aggregate_f32", 2, 3)
+    runs = {name: (lambda fn=fn: fn(stack.data_ptr(), out.data_ptr(), n, cs.ROWS, cs.VOCAB, stream))
+            for name, fn in (("earlier", old), ("this", new))}
+    want = ref.sparse_aggregate_ref(stack)
+    for name, fn in runs.items():
+        out.fill_(float("nan"))
+        assert fn() == 0, name
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), name
+    in_turns(f"sparse_aggregate at ({n}, {cs.ROWS}, {cs.VOCAB})", runs["earlier"], runs["this"])
 
 
 def describe(x: torch.Tensor, kk: torch.Tensor) -> None:
@@ -218,11 +240,15 @@ def compile_libs(parent: Path) -> dict[str, ctypes.CDLL]:
         [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(OUT / f"lib{name}.so"), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for name, src in sources.items()}
     libs = {}
+    keys = ("topk_mask_kernel", "scatter_wire_kernel", "sparse_aggregate", "distill_kl_kernel",
+            "flash_attention_kernel")
     for name, (so, proc) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"kernel_probe: nvcc failed on {name}\n{log}")
         libs[name] = ctypes.CDLL(str(so))
+        if name.startswith("parent_"):  # the earlier kernels' registers and spills, beside this build's
+            print(f"[probe] {name} ptxas -v: {' | '.join(cs.ptxas_report(log, keys))}", flush=True)
     return libs
 
 
@@ -252,11 +278,15 @@ def kl_ab(libs, device) -> None:
     new = ops._fn("distill_kl", "distill_kl_f32", 3, 2, 1)
     old = c_fn(libs["parent_kl"], "distill_kl_f32", 3, 2, 1)
     runs = {"earlier": lambda: old(*args, 0.5, stream), "this": lambda: new(*args, 0.5, stream)}
+    outs = {}
     for name, fn in runs.items():
         out.fill_(float("nan"))
         assert fn() == 0, name
         torch.cuda.synchronize()
         assert bool(((out - want).abs() <= tol).all()), name
+        outs[name] = out.clone()
+    print(f"[probe] distill_kl: this == earlier bitwise: {torch.equal(outs['this'], outs['earlier'])}",
+          flush=True)
     in_turns(f"distill_kl at ({rows}, {vocab}), T=2, warm", runs["earlier"], runs["this"])
     copies = [(t, s)] + [(t.clone(), s.clone()) for _ in range(cs.COLD_COPIES - 1)]
     cold = {name: cs.in_turn([lambda a=a, b=b, fn=fn: fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), rows,
@@ -280,13 +310,17 @@ def attention_ab(libs, device) -> None:
     old = c_fn(libs["parent_attention"], "flash_attention_f32", 4, 3, 1)
     runs = {"earlier": lambda: old(*args, bh, seq, d, d**-0.5, stream),
             "this": lambda: new(*args, bh, seq, d, d**-0.5, stream)}
+    outs = {}
     for name, fn in runs.items():
         out.fill_(float("nan"))
         assert fn() == 0, name
         torch.cuda.synchronize()
         err = float((out - want).abs().max())
         assert err <= tol, (name, err, tol)
+        outs[name] = out.clone()
         print(f"[probe] flash_attention {name}: max |diff| {err:.3e} (bound {tol:.3e})", flush=True)
+    print(f"[probe] flash_attention: this == earlier bitwise: "
+          f"{torch.equal(outs['this'], outs['earlier'])}", flush=True)
     in_turns(f"flash_attention at ({bh}, {seq}, {d})", runs["earlier"], runs["this"])
     print(f"[probe] flash_attention SASS: {sass_histogram(build.build_all(['flash_attention'])['flash_attention'])}",
           flush=True)
@@ -296,11 +330,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, required=True, help="a checkout of the earlier commit")
     parser.add_argument("--real", action="store_true", help="also time the fused run's own input")
-    parser.add_argument("--kernels", default="topk,scatter,kl,attention",
-                        help="comma-separated: which of topk, scatter, kl, attention to probe")
+    parser.add_argument("--kernels", default="topk,scatter,agg,kl,attention",
+                        help="comma-separated: which of topk, scatter, agg, kl, attention to probe")
     args = parser.parse_args()
     kernels = set(args.kernels.split(","))
-    if not kernels <= {"topk", "scatter", "kl", "attention"}:
+    if not kernels <= {"topk", "scatter", "agg", "kl", "attention"}:
         raise SystemExit(f"kernel_probe: unknown kernels {sorted(kernels)}")
     device, card = cs.phase_device()
     cs.phase_build()
@@ -314,6 +348,8 @@ def main() -> int:
         topk_ab(libs, device, real)
     if "scatter" in kernels:
         scatter_ab(libs, device)
+    if "agg" in kernels:
+        agg_ab(libs, device)
     print(card)
     return 0
 
