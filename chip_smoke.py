@@ -40,17 +40,19 @@ Phases (any failure raises and exits non-zero):
      (each output is a convex combination of at most S rows of v, summed
      in fp32 in another order), and a causality check, bitwise: changing k
      and v from a position on leaves every earlier output unchanged.  The
-     build line gives both kernels' registers and spills, and the count of
-     tensor-core instructions (HMMA) in the attention library's SASS.
+     build line gives every kernel's registers and spills, and the count of
+     tensor-core instructions in the attention library's SASS (HMMA: the
+     fp32 kernel's mma.sync; HGMMA: the bf16 kernel's wgmma).
    Then each kernel's bf16 entry point on bf16 inputs: the wire scatter,
    the top-k masks (bf16-rounded normal rows, the NaN/+-inf/near-3e38
-   rows, and rows of a few exact bf16 values whose k-th value sits in a tie
-   group of ~50, ~500, ~2000 and ~17 000 values: past the warp's 32 values,
-   the warp's take-over size and the candidate buffer) and the dense
-   aggregation ``torch.equal`` to their plain versions (fp32 arithmetic on
-   the upcast inputs, rounded to bf16 once); the KL within its fp32
-   tolerance; the attention within S * 2^-24 * max|v| plus one bf16 ulp
-   (both round once from fp32), and causal bitwise.
+   rows, rows of a few exact bf16 values whose k-th value sits in a tie
+   group of ~50, ~500, ~2000 and ~17 000 values, and a row of one exponent
+   bin, which the bf16 kernel's radix select histograms into one bin) and
+   the dense aggregation ``torch.equal`` to their plain versions (fp32
+   arithmetic on the upcast inputs, rounded to bf16 once); the KL within
+   its fp32 tolerance; the attention within S * 2^-24 * max|v| plus one
+   bf16 ulp (both round once from fp32; with late maxima too), and causal
+   bitwise.
 4. small input — the port's round on a tiny config on the card (kernels)
    and on the CPU (plain versions), ``fused_e2e`` then ``fused``, float and
    int8 uplink: identical k and bytes, accuracies within one eval sample,
@@ -112,11 +114,13 @@ Phases (any failure raises and exits non-zero):
    ``plain_ms``) take the launches in turn over ``COLD_COPIES`` copies of
    them, each read cold; ``ms_warm`` repeats one copy.  The bf16 entry
    points get rows of their own (``name.bf16``), their bounds counting
-   bytes at bf16 width (and, for the attention, the one TF32 product for
-   Q K^T and two for P V that the bf16 kernel runs); the bf16 top-k rows
-   are timed on the bf16 ``fused`` run's input, and the bf16 attention's
-   library call (bf16 SDPA, which rounds P to bf16: not the same function)
-   reports its error against the plain version beside its time.
+   bytes at bf16 width (and, for the attention, Q K^T as one bf16 product
+   and P V as three, P in three bf16 pieces for fp32 grade;
+   ``design_bound_ms`` the two pieces the kernel runs); the bf16 top-k rows
+   are timed on the bf16 ``fused`` run's input (and on one-exponent-bin
+   rows, ``ms_one_bin``), and the bf16 attention's library call (bf16
+   SDPA, which rounds P to bf16: not the same function) reports its error
+   against the plain version beside its time.
 
 The last lines are the card and its power limit, the kernels record and the
 device record (JSON).  In the kernels record ``launches`` is each kernel's
@@ -196,6 +200,11 @@ KERNELS.update({f"{name}.bf16": KERNELS[name] for name in ops.BF16_KERNELS})
 BF16 = torch.bfloat16
 # the bf16 main-path runs: the models compute in bf16, and so does the round body
 BF16_CFG = dict(compute_dtype="bfloat16")
+# the bf16 kernels' times before their redesign (loaders that upcast each
+# tile into the fp32 kernels: PERF.md section 6, H100 80GB HBM3, 700 W),
+# printed beside this run's; the kernels line keeps only what this run measured
+EARLIER_MS = {"topk_mask_dynamic.bf16": 0.0539, "topk_mask.bf16": 0.0536,
+              "flash_attention.bf16": 0.1410}
 # the serving phase: tenants, slots, batch, prompt and decode lengths
 TENANTS, SLOTS, SERVE_BATCH, PROMPT, GEN = 8, 4, 8, 32, 32
 PREFILL_S = 1024
@@ -338,6 +347,19 @@ def bf16_tie_rows(x: torch.Tensor, ks: torch.Tensor, gen) -> None:
         ks[row] = k
 
 
+BF16_ONE_BIN_ROW = TOPK_EDGE_ROWS + 4
+
+
+def bf16_one_bin_row(x: torch.Tensor, ks: torch.Tensor, gen) -> None:
+    """Row 16 of a top-k input (in place): every value in [1, 2), exact in
+    bf16, so that all keys share their high byte (sign and 7 exponent bits):
+    the bf16 kernel's histogram puts the whole row in one bin, its worst
+    case, and the k-th value ties with ~390 others."""
+    level = torch.randint(0, 128, (x.shape[1],), generator=gen, device=x.device)
+    x[BF16_ONE_BIN_ROW] = 1.0 + level / 128.0
+    ks[BF16_ONE_BIN_ROW] = 3000
+
+
 # -- timing -------------------------------------------------------------------
 
 
@@ -436,15 +458,17 @@ def phase_build():
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] {', '.join(map(str, libs.values()))} in {time.perf_counter() - t0:.1f} s")
-    report = (ptxas_report(build.build_log("topk_select"), ("topk_mask_kernel",))
+    report = (ptxas_report(build.build_log("topk_select"), ("topk_mask_kernel", "topk_radix_bf16_kernel"))
               + ptxas_report(build.build_log("sparse_agg"), ("scatter_wire_kernel", "sparse_aggregate"))
               + ptxas_report(build.build_log("distill_kl"), ("distill_kl_kernel",))
-              + ptxas_report(build.build_log("flash_attention"), ("flash_attention_kernel",)))
+              + ptxas_report(build.build_log("flash_attention"),
+                             ("flash_attention_kernel", "flash_attention_bf16_kernel")))
     log(f"[build] ptxas -v: {' | '.join(report) or 'no log (library built earlier)'}")
     hmma = sass_count(libs["flash_attention"], "HMMA")
-    assert hmma > 0, "the attention kernel runs no tensor-core instruction"
-    log(f"[build] flash_attention SASS: {hmma} HMMA instructions in its fp32 and bf16 kernels (their "
-        f"products on the tensor cores)")
+    hgmma = sass_count(libs["flash_attention"], "HGMMA")
+    assert hmma > 0 and hgmma > 0, "an attention kernel runs no tensor-core instruction"
+    log(f"[build] flash_attention SASS: {hmma} HMMA instructions (mma.sync) in its fp32 kernel, "
+        f"{hgmma} HGMMA (wgmma) in its bf16 kernel: their products on the tensor cores")
 
 
 def check_scatter_kernels(device):
@@ -602,29 +626,7 @@ def check_bf16_kernels(device):
                 "scatter_wire_sums.bf16", k_cap, mode)
     log("[kernels bf16] wire scatter torch.equal to its plain version (fp32 sums rounded to "
         "bf16) in all 3 modes, k_cap 128 and 1024, V 50 257 and 152 064")
-    for rows, vocab in ((N_CLIENTS * ROWS, VOCAB), (2 * WIDE_ROWS, WIDE_VOCAB)):
-        x, ks = topk_rows(rows, vocab, seed=vocab + 1, device=device)
-        bf16_tie_rows(x, ks, torch.Generator(device=device).manual_seed(vocab))
-        x = x.to(BF16)  # the normal rows rounded to bf16: ties of ~10 values a step at X_k
-        got = ops.topk_mask_dynamic(x, ks)
-        want = ref.topk_mask_ref(x, torch.clamp(ks, 0, vocab), guard=True)
-        torch.cuda.synchronize()
-        assert got.dtype == BF16 and torch.equal(got, want), ("topk_mask_dynamic.bf16", rows, vocab)
-        kept = (want != 0).sum(dim=1).tolist()
-        assert kept[8] == 0 and kept[9] == vocab, kept[:12]  # a NaN row keeps nothing
-        xf = x.float()
-        ties = [int((xf[r] == torch.topk(xf[r], int(ks[r])).values[-1]).sum())
-                for r in range(TOPK_EDGE_ROWS, TOPK_EDGE_ROWS + 4)]
-        assert min(ties) > 32 and max(ties) > 8192, ties  # past the warp and the buffer
-        for k in (0, 1, 517, vocab, vocab + 5):
-            got = ops.topk_mask(x, k)
-            want = ref.topk_mask_ref(x, torch.full((rows,), min(k, vocab), dtype=torch.int32,
-                                                   device=device), guard=False)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), ("topk_mask.bf16", rows, vocab, k)
-        log(f"[kernels bf16] rows={rows} V={vocab}: top-k masks torch.equal to their plain versions "
-            f"on bf16-rounded rows (NaN, +-inf, near 3e38) and tie groups of {ties} values at the "
-            f"k-th value, per-row and static k")
+    check_bf16_topk(device)
     for sparse in (True, False):
         stack = dense_stack([1024, 517, 1, VOCAB], seed=11, device=device, sparse=sparse).to(BF16)
         got, want = ops.sparse_aggregate(stack), ref.sparse_aggregate_ref(stack).to(BF16)
@@ -652,18 +654,67 @@ def check_bf16_kernels(device):
         log(f"[kernels bf16] distill_kl at ({rows}, {vocab}), T in (1, 2, 4): within rtol 1e-5 + "
             f"2e-6 (1 + |lse_t| + |lse_s|) per row (max |diff| {worst:.3e}), exactly 0 for teacher "
             f"== student, student on another 16-byte phase")
+    check_bf16_attention(device)
+
+
+def check_bf16_topk(device):
+    """The bf16 top-k masks ``torch.equal`` to their plain versions at both
+    widths: the edge rows of ``topk_rows`` rounded to bf16 (NaN, +-inf,
+    near 3e38, constant), tie groups of ~50 to ~17 000 values at the k-th
+    value, and a row whose values all share one exponent bin (the radix
+    select's histogram puts it in one bin), per-row and static k."""
+    for rows, vocab in ((N_CLIENTS * ROWS, VOCAB), (3 * WIDE_ROWS, WIDE_VOCAB)):
+        x, ks = topk_rows(rows, vocab, seed=vocab + 1, device=device)
+        gen = torch.Generator(device=device).manual_seed(vocab)
+        bf16_tie_rows(x, ks, gen)
+        bf16_one_bin_row(x, ks, gen)
+        x = x.to(BF16)  # the normal rows rounded to bf16: ties of ~10 values a step at X_k
+        got = ops.topk_mask_dynamic(x, ks)
+        want = ref.topk_mask_ref(x, torch.clamp(ks, 0, vocab), guard=True)
+        torch.cuda.synchronize()
+        assert got.dtype == BF16 and torch.equal(got, want), ("topk_mask_dynamic.bf16", rows, vocab)
+        kept = (want != 0).sum(dim=1).tolist()
+        assert kept[8] == 0 and kept[9] == vocab, kept[:12]  # a NaN row keeps nothing
+        xf = x.float()
+        ties = [int((xf[r] == torch.topk(xf[r], int(ks[r])).values[-1]).sum())
+                for r in range(TOPK_EDGE_ROWS, BF16_ONE_BIN_ROW + 1)]
+        assert min(ties) > 32 and max(ties) > 8192, ties  # past the warp and the buffer
+        one_bin = xf[BF16_ONE_BIN_ROW]
+        assert bool(((one_bin >= 1.0) & (one_bin < 2.0)).all())  # one high byte of the key
+        for k in (0, 1, 517, vocab, vocab + 5):
+            got = ops.topk_mask(x, k)
+            want = ref.topk_mask_ref(x, torch.full((rows,), min(k, vocab), dtype=torch.int32,
+                                                   device=device), guard=False)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), ("topk_mask.bf16", rows, vocab, k)
+        path = "shared-memory" if vocab <= ops.smem_max_vocab(device.index or 0, BF16) else "global-memory"
+        log(f"[kernels bf16] rows={rows} V={vocab} ({path} path): top-k masks torch.equal to their "
+            f"plain versions on bf16-rounded rows (NaN, +-inf, near 3e38, constant), tie groups of "
+            f"{ties[:4]} values at the k-th value and a one-exponent-bin row ({ties[4]} tied), "
+            f"per-row and static k")
+
+
+def check_bf16_attention(device):
+    """The bf16 attention within S * 2^-24 * max|v| plus one bf16 ulp of its
+    plain version (both round once from fp32), with q, k x4, one key tile,
+    a tile past the end and late maxima; causal bitwise."""
     for bh, seq, d, what in ((96, 1024, 64, "q, k ~ N(0, 1)"), (20, 128, 64, "q, k ~ N(0, 1)"),
                              (20, 64, 64, "one key tile"), (12, 96, 64, "a tile past the end"),
-                             (24, 1024, 64, "q, k x4")):
+                             (24, 1024, 64, "q, k x4"), (8, 1024, 64, "late maxima")):
         gen = torch.Generator(device=device).manual_seed(seq + d + 1)
         q, k, v = (torch.randn((bh, seq, d), generator=gen, device=device) for _ in range(3))
         if what == "q, k x4":
             q, k = 4 * q, 4 * k
+        if what == "late maxima":  # row 1000's largest score at key 900, key tile 14 of 16
+            k[:, 900] = 2.0 * q[:, 1000]
         q, k, v = (z.to(BF16) for z in (q, k, v))
         got, want = ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
         assert got.dtype == BF16
         err = within_bf16(got, want, attention_tolerance(seq, v))
+        if what == "late maxima":
+            assert float((got[:, 1000].float() - v[:, 900].float()).abs().max()) < 0.05 * float(
+                v.float().abs().max())
         log(f"[kernels bf16] flash_attention at ({bh}, {seq}, {d}), {what}: max |diff| {err:.3e} "
             f"against its plain version (bound S * 2^-24 * max|v| + one bf16 ulp)")
     gen = torch.Generator(device=device).manual_seed(6)
@@ -1070,23 +1121,28 @@ def time_scatter(name: str, k_cap: int, device) -> dict:
 
 def time_topk(name: str, real, device) -> dict:
     """The top-k masks at the fused main path's shape, (C·64, V) rows, on
-    three inputs, since the candidate bisection's work depends on the data:
-    the ``fused`` float run's real input of its last round (the row's
+    three inputs, since the fp32 candidate bisection's work depends on the
+    data: the ``fused`` run's real input of its last round (the row's
     ``ms``), random normal rows with those budgets (``ms_random``, the input
-    earlier PRs timed) and constant rows (``ms_constant``: the candidate set
-    never shrinks, every step is a full pass, the worst case).  The static
-    k is the largest budget."""
+    earlier PRs timed) and constant rows (``ms_constant``: the fp32 kernel's
+    candidate set never shrinks, every step is a full pass, its worst case);
+    in bf16 also rows of one exponent bin (``ms_one_bin``: the radix
+    select's histogram puts every value in one bin, its worst case).  The
+    static k is the largest budget."""
     x_real, kk = real
     rows, dtype = x_real.shape[0], x_real.dtype
     gen = torch.Generator(device=device).manual_seed(5)
     inputs = {"real": x_real,
               "random": torch.randn((rows, VOCAB), generator=gen, device=device).to(dtype),
               "constant": torch.full((rows, VOCAB), 0.5, dtype=dtype, device=device)}
+    if dtype == BF16:  # every value in [1, 2): one bin of the radix select's high digit
+        inputs["one_bin"] = 1.0 + torch.randint(0, 128, (rows, VOCAB), generator=gen,
+                                                device=device).to(dtype) / 128
     k_max = int(kk.max())
     out = torch.empty_like(x_real)
     stream = torch.cuda.current_stream(device).cuda_stream
     fn = ops._fn("topk_select", "topk_mask" + ("_bf16" if dtype == BF16 else "_f32"), 3, 5)
-    use_smem = int(VOCAB <= ops.smem_max_vocab(device.index or 0))
+    use_smem = int(VOCAB <= ops.smem_max_vocab(device.index or 0, dtype))
     k_all = torch.full((rows,), k_max, dtype=torch.int32, device=device)
     dynamic = name.startswith("topk_mask_dynamic")
 
@@ -1101,7 +1157,7 @@ def time_topk(name: str, real, device) -> dict:
         return raw, lambda: ops.topk_mask(x, k_max), lambda: ref.topk_mask_ref(x, k_all, guard=False)
 
     extra = {}
-    for label in ("random", "constant"):
+    for label in [name for name in inputs if name != "real"]:
         raw, _, plain = calls(inputs[label])
         want = plain()
         assert raw() == 0
@@ -1124,8 +1180,12 @@ def time_topk(name: str, real, device) -> dict:
             f"{dtype})")
     row = _row(name, raw, wrapper, plain, library, check, in_bytes + rows * VOCAB * dtype.itemsize,
                ops_done, desc)
+    one_bin = f", on one-exponent-bin rows {extra['ms_one_bin']:.4f} ms" if "ms_one_bin" in extra else ""
     log(f"[timing] {name} on random rows {extra['ms_random']:.4f} ms, on constant rows "
-        f"{extra['ms_constant']:.4f} ms (torch.equal to the plain version on both)")
+        f"{extra['ms_constant']:.4f} ms{one_bin} (torch.equal to the plain version on each)")
+    if name in EARLIER_MS:
+        log(f"[timing] {name}: the earlier upcasting design took {EARLIER_MS[name]} ms on the real "
+            f"input (H100 80GB HBM3, 700 W; PERF.md section 6), not measured in this run")
     return {**row, **extra}
 
 
@@ -1217,8 +1277,9 @@ def time_flash_attention(qkv, device) -> dict:
     # the causal half of q k^T and of p v: S^2 * D operations each per head-batch.  fp32:
     # each product at fp32 grade is three TF32 products on the tensor cores.  bf16: q k^T
     # is one bf16 product (bf16 x bf16 is exact in fp32) and p v at fp32 grade three, p
-    # split into three bf16 pieces, at the bf16 rate; ``design_bound_ms`` prices what the
-    # kernel runs instead, one TF32 product for q k^T and two for p v
+    # split into three bf16 pieces, at the bf16 rate (the row's bound, kept so that it
+    # compares across versions); ``design_bound_ms`` prices what the kernel runs, p in
+    # two bf16 pieces
     ops_done = 2 * seq * seq * d * b * h
     io_bytes = 4 * q.numel() * q.element_size()
     fp32_ms, _ = bound(io_bytes, ops_done)
@@ -1231,9 +1292,11 @@ def time_flash_attention(qkv, device) -> dict:
                f"B*H={b * h} S={seq} D={d} ({q.dtype}; {basis} on the tensor cores; the fp32 "
                f"CUDA-core bound would be {fp32_ms * 1e3:.2f} us)", tc_rate)
     if bf16:
-        row["design_bound_ms"], _ = bound(io_bytes, (1 + 2) * ops_done // 2, TF32_OPS_PER_S)
-        log(f"[timing] {row['name']}: the kernel's own design (1+2 TF32 products) bounds it at "
-            f"{row['design_bound_ms'] * 1e3:.2f} us")
+        row["design_bound_ms"], _ = bound(io_bytes, (1 + 2) * ops_done // 2, BF16_OPS_PER_S)
+        log(f"[timing] {row['name']}: the kernel's own design (Q K^T one bf16 product, P V two: P "
+            f"in two bf16 pieces) bounds it at {row['design_bound_ms'] * 1e3:.2f} us; the earlier "
+            f"upcasting design took {EARLIER_MS[row['name']]} ms (H100 80GB HBM3, 700 W; PERF.md "
+            f"section 6), not measured in this run")
     row["library_max_abs_err"] = float((library().reshape(want.shape).float() - want.float()).abs().max())
     log(f"[timing] {row['name']}: SDPA on (B, H, S, D) {row['library_ms']:.4f} ms, off the plain "
         f"version by {row['library_max_abs_err']:.3e} (the kernel by {row['max_abs_err']:.3e})")

@@ -1,6 +1,6 @@
 // Blockwise causal softmax attention, forward only (inference prefill):
 //   out[b, i, :] = sum_{j <= i} softmax_j(q[b,i,:] . k[b,j,:] * D^-0.5) v[b,j,:]
-// over fused head-batches q, k, v, out: (B*H, S, D) fp32.
+// over fused head-batches q, k, v, out: (B*H, S, D) fp32 or bf16.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 //   flash_attention_{f32,bf16} <- flash_attention_pallas (_flash_kernel,
@@ -61,31 +61,47 @@
 // registers) spills and runs slower.
 //
 // bf16 q, k, v (flash_attention_bf16), as the reference's kernel takes
-// them (it upcasts each tile and returns q's dtype).  cp.async cannot
-// convert, so the block's threads load each bf16 tile (16-byte loads),
-// upcast it exactly and store it into the same fp32 tile layout, one tile
-// a step with no copy in flight (a simple loader); everything after that
-// is the fp32 kernel's code, and the output is rounded to bf16 once, from
-// the fp32 accumulator.  A bf16 value has 8 significand bits, so it is
-// its own TF32 big part with small part 0, and so is q * 2^-3: in
-// S = Q K^T both small terms of 3xTF32 are exact zeros, and in P V the
-// term P.big * V.small is, so the kernel skips them -- one TF32 product
-// per product for S and two for P V, the same sums as the fp32 kernel's
-// on the upcast inputs (adding an exact 0 changes no sum).  Bound: 6.4 +
-// 2 * 6.4 GFLOP at B*H = 96, S = 1024 on 495 TFLOP/s, 39 us, against
-// 50.3 MB of bf16 q, k, v and out (15 us).
+// them (it upcasts each tile and returns q's dtype): a kernel of its own, on
+// Hopper's bf16 warpgroup products (wgmma, 989 TFLOP/s against TF32's 495).
+//   * Loads.  A block owns 128 query rows of one head-batch: two consumer
+//     warpgroups of 64 rows and one producer warp, two blocks an SM.  The
+//     producer's lane 0 loads the q tile and then K and V in 64-key tiles
+//     through a ring of 4 stages by TMA (3-D tensor maps over (bh, seq, D),
+//     so rows past the sequence read as zeros, in the 128-byte swizzle that
+//     wgmma reads), each stage signalled by an mbarrier when its bytes land
+//     and released by another when the consumers' 8 warps are done with it.
+//     The two warpgroups share every K/V tile, which halves the tiles'
+//     traffic from L2 against 64-row blocks.  Query tiles run longest first.
+//   * S = Q K^T: four m64n64k16 bf16 products, Q and K (as stored: the
+//     K-major B) from shared memory; each bf16 x bf16 product is exact in
+//     fp32, as in the plain version.  The scale enters the exponent:
+//     exp(s * scale - m * scale) = 2^(s c - m c), c = scale * log2(e), one
+//     fma a score, the same as scaling q by 2^-3 first (exact) for D = 64.
+//   * The online softmax runs on the accumulators as the fp32 kernel does;
+//     on the diagonal tile a key after the query is -inf before the max,
+//     so causality stays bitwise.
+//   * O += P V with P in two bf16 pieces, hi = bf16(P) and lo = bf16(P -
+//     hi) (together within ~2^-17 P; one piece, as bf16 SDPA rounds it,
+//     misses the check by far), two m64n64k16 products a k-step with A
+//     from registers: the S accumulators of keys 16kk .. 16kk + 15 are,
+//     pairwise packed, the A fragment of k-step kk, no shuffle.  V as
+//     stored, (keys, D), is the MN-major (transposed) B, read straight from
+//     the tile TMA loaded.
+//   * The output is rounded to bf16 once, from the fp32 accumulator.
+//   Bound: Q K^T one bf16 product and P V two, 6.4 + 2 * 6.4 GFLOP at
+//   B*H = 96, S = 1024 on 989 TFLOP/s, 19.5 us, against 50.3 MB of bf16
+//   q, k, v and out (15 us).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC.
 // Plain C interface, loaded through ctypes; the entry point launches on
 // the given stream and returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -158,26 +174,6 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int row0, in
   }
 }
 
-// The same tile from bf16 rows: 16-byte loads of 8 values, upcast exactly
-// and stored as fp32 (the tile layout of the fp32 kernel); rows past the
-// sequence are zero.
-template <int kStride>
-__device__ __forceinline__ void stage_bf16(float* dst, const __nv_bfloat16* src, int row0,
-                                           int seq) {
-#pragma unroll
-  for (int i = 0; i < kKeys * (D / 8) / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c / (D / 8), col = 8 * (c % (D / 8));
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq) w = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + col));
-    float4* d4 = reinterpret_cast<float4*>(dst + r * kStride + col);
-    d4[0] = make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
-                        __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
-    d4[1] = make_float4(__uint_as_float(w.z << 16), __uint_as_float(w.z & 0xffff0000u),
-                        __uint_as_float(w.w << 16), __uint_as_float(w.w & 0xffff0000u));
-  }
-}
-
 // 2^x on the special-function unit (2 ulp; a subnormal result flushes to 0,
 // and 2^-inf is an exact 0)
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -191,14 +187,10 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// T: float or __nv_bfloat16, the type of q, k, v and out; the tiles in
-// shared memory and all the arithmetic are fp32 in both.
-template <class T>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, int seq,
+    flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ out, int seq,
                            float scale) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // stage s: K, then V, at s * kStage
 
@@ -211,24 +203,18 @@ __global__ void __launch_bounds__(kThreads)
   const int n_kt = q0 / kKeys + 1;  // key tiles 0 .. the diagonal
 
   // the q tile through stage 1's K buffer, beside key tile 0 in stage 0
-  if constexpr (kF32) {
-    stage<kStrideK>(smem, k + base, 0, seq);
-    stage<kStrideV>(smem + kTileK, v + base, 0, seq);
-    stage<kStrideK>(smem + kStage, q + base, q0, seq);
-    cp_async_commit();
-    cp_async_wait<0>();
-  } else {
-    stage_bf16<kStrideK>(smem, k + base, 0, seq);
-    stage_bf16<kStrideV>(smem + kTileK, v + base, 0, seq);
-    stage_bf16<kStrideK>(smem + kStage, q + base, q0, seq);
-  }
+  stage<kStrideK>(smem, k + base, 0, seq);
+  stage<kStrideV>(smem + kTileK, v + base, 0, seq);
+  stage<kStrideK>(smem + kStage, q + base, q0, seq);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
   // A fragments of the scaled q, big and small.  The sum over D is taken in
   // another order inside each pair of k-steps (2m, 2m + 1): A column t holds
   // d = 16m + 4t + 2h of k-step 2m + h, column t + 4 the next d, and K's B
   // fragments follow, so that a lane reads its four K values as one float4.
-  uint32_t qb[D / 8][4], qs[kF32 ? D / 8 : 1][4];  // bf16: the small parts are 0
-  if constexpr (kF32) {
+  uint32_t qb[D / 8][4], qs[D / 8][4];
+  {
     const float* qt = smem + kStage + 16 * warp * kStrideK + 4 * t;
 #pragma unroll
     for (int m = 0; m < D / 16; ++m) {
@@ -243,21 +229,6 @@ __global__ void __launch_bounds__(kThreads)
       split(x0.w * scale, qb[2 * m + 1][2], qs[2 * m + 1][2]);
       split(x1.w * scale, qb[2 * m + 1][3], qs[2 * m + 1][3]);
     }
-  } else {
-    const float* qt = smem + kStage + 16 * warp * kStrideK + 4 * t;
-#pragma unroll
-    for (int m = 0; m < D / 16; ++m) {
-      const float4 x0 = *reinterpret_cast<const float4*>(qt + g * kStrideK + 16 * m);
-      const float4 x1 = *reinterpret_cast<const float4*>(qt + (g + 8) * kStrideK + 16 * m);
-      qb[2 * m][0] = __float_as_uint(x0.x * scale);
-      qb[2 * m][1] = __float_as_uint(x1.x * scale);
-      qb[2 * m][2] = __float_as_uint(x0.y * scale);
-      qb[2 * m][3] = __float_as_uint(x1.y * scale);
-      qb[2 * m + 1][0] = __float_as_uint(x0.z * scale);
-      qb[2 * m + 1][1] = __float_as_uint(x1.z * scale);
-      qb[2 * m + 1][2] = __float_as_uint(x0.w * scale);
-      qb[2 * m + 1][3] = __float_as_uint(x1.w * scale);
-    }
   }
   __syncthreads();  // the q tile is read before key tile 1 overwrites it
 
@@ -267,20 +238,14 @@ __global__ void __launch_bounds__(kThreads)
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
 
   for (int it = 0; it < n_kt; ++it) {
-    if constexpr (kF32) {
-      if (it + 1 < n_kt) {
-        float* next = smem + ((it + 1) & 1) * kStage;
-        stage<kStrideK>(next, k + base, (it + 1) * kKeys, seq);
-        stage<kStrideV>(next + kTileK, v + base, (it + 1) * kKeys, seq);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-    } else if (it > 0) {  // this step's tile, loaded and upcast now
-      float* cur = smem + (it & 1) * kStage;
-      stage_bf16<kStrideK>(cur, k + base, it * kKeys, seq);
-      stage_bf16<kStrideV>(cur + kTileK, v + base, it * kKeys, seq);
+    if (it + 1 < n_kt) {
+      float* next = smem + ((it + 1) & 1) * kStage;
+      stage<kStrideK>(next, k + base, (it + 1) * kKeys, seq);
+      stage<kStrideV>(next + kTileK, v + base, (it + 1) * kKeys, seq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
     const float* ks = smem + (it & 1) * kStage;
@@ -299,13 +264,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kKeys / 8; ++j) {
         const float4 kr =
             *reinterpret_cast<const float4*>(ks + (8 * j + g) * kStrideK + 16 * m + 4 * t);
-        if constexpr (kF32) {
-          mma3(s[j], qb[2 * m], qs[2 * m], kr.x, kr.y);
-          mma3(s[j], qb[2 * m + 1], qs[2 * m + 1], kr.z, kr.w);
-        } else {  // exact TF32 operands: one product
-          mma(s[j], qb[2 * m], __float_as_uint(kr.x), __float_as_uint(kr.y));
-          mma(s[j], qb[2 * m + 1], __float_as_uint(kr.z), __float_as_uint(kr.w));
-        }
+        mma3(s[j], qb[2 * m], qs[2 * m], kr.x, kr.y);
+        mma3(s[j], qb[2 * m + 1], qs[2 * m + 1], kr.z, kr.w);
       }
     }
     // the causal mask, then the tile's row max across the quad
@@ -357,15 +317,7 @@ __global__ void __launch_bounds__(kThreads)
       split(s[j][3], pb[3], ps[3]);
       const float* vr = vs + (8 * j + 2 * t) * kStrideV + g;
 #pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        if constexpr (kF32) {
-          mma3(o[nd], pb, ps, vr[8 * nd], vr[kStrideV + 8 * nd]);
-        } else {  // V exact in TF32: P.small * V, then P.big * V
-          const uint32_t b0 = __float_as_uint(vr[8 * nd]), b1 = __float_as_uint(vr[kStrideV + 8 * nd]);
-          mma(o[nd], ps, b0, b1);
-          mma(o[nd], pb, b0, b1);
-        }
-      }
+      for (int nd = 0; nd < D / 8; ++nd) mma3(o[nd], pb, ps, vr[8 * nd], vr[kStrideV + 8 * nd]);
     }
     __syncthreads();  // the tile is read before the next stage overwrites it
   }
@@ -378,35 +330,368 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) {
     const int col = 8 * nd + 2 * t;
-    if constexpr (kF32) {
-      if (row0 < seq)
-        *reinterpret_cast<float2*>(out + base + (size_t)row0 * D + col) =
-            make_float2(o[nd][0] * inv0, o[nd][1] * inv0);
-      if (row1 < seq)
-        *reinterpret_cast<float2*>(out + base + (size_t)row1 * D + col) =
-            make_float2(o[nd][2] * inv1, o[nd][3] * inv1);
-    } else {  // rounded to bf16 once
-      if (row0 < seq)
-        *reinterpret_cast<__nv_bfloat162*>(out + base + (size_t)row0 * D + col) =
-            __floats2bfloat162_rn(o[nd][0] * inv0, o[nd][1] * inv0);
-      if (row1 < seq)
-        *reinterpret_cast<__nv_bfloat162*>(out + base + (size_t)row1 * D + col) =
-            __floats2bfloat162_rn(o[nd][2] * inv1, o[nd][3] * inv1);
-    }
+    if (row0 < seq)
+      *reinterpret_cast<float2*>(out + base + (size_t)row0 * D + col) =
+          make_float2(o[nd][0] * inv0, o[nd][1] * inv0);
+    if (row1 < seq)
+      *reinterpret_cast<float2*>(out + base + (size_t)row1 * D + col) =
+          make_float2(o[nd][2] * inv1, o[nd][3] * inv1);
   }
 }
 
-template <class T>
-int launch_attention(const T* q, const T* k, const T* v, T* out, int bh, int seq, int head_dim,
-                     float scale, void* stream) {
+int launch_attention(const float* q, const float* k, const float* v, float* out, int bh, int seq,
+                     int head_dim, float scale, void* stream) {
   if (head_dim != D) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (seq + kRows - 1) / kRows);
-  flash_attention_kernel<T><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(q, k, v, out,
-                                                                                  seq, scale);
+  flash_attention_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(q, k, v, out, seq,
+                                                                               scale);
+  return (int)cudaGetLastError();
+}
+
+// ---- bf16: both products on bf16 wgmma, K and V fed by TMA -----------------
+
+constexpr int kConsumers = 2;                    // warpgroups of 64 query rows
+constexpr int kBlockRows = 64 * kConsumers;      // query rows a block
+constexpr int kBf16Threads = 128 * kConsumers + 32;  // and one producer warp
+constexpr int kBlocksPerSm = 2;
+constexpr int kStagesBf16 = 4;                   // K/V tiles in flight
+constexpr int kTileBytes = 64 * D * 2;           // 64 rows of bf16, 128 bytes a row
+constexpr int kSmemBf16 = 1024 + kBlockRows * D * 2 + kStagesBf16 * 2 * kTileBytes;  // + alignment
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// One box of a 3-D tensor map (d, row, head-batch) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int row, int bh,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(dst), "l"((uint64_t)map), "r"(0), "r"(row), "r"(bh), "r"(bar)
+      : "memory");
+}
+
+// The wgmma descriptor of a tile of 128-byte rows in TMA's 128-byte swizzle
+// (1024-byte aligned atoms of 8 rows): start address, leading byte offset
+// 16 (unused: a row is one swizzle span), stride byte offset 1024 (the next
+// 8 rows), swizzle mode 128B.  K-major A and B (Q, K: a row is one query or
+// key, along D) step 32 bytes per 16-wide k-step; the MN-major B (V: a row
+// is one key, the k of P V) steps 2048 bytes, 16 rows.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Pin registers that wgmma reads or writes at this point of the program:
+// the compiler may not move their other uses across it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (+)= A B on the tensor cores, one m64n64k16 bf16 product of the warpgroup
+// with fp32 accumulators: A (64 x 16) and B (64 x 16, K-major) from shared
+// memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d += A B, one m64n64k16 bf16 product with A (64 x 16) from registers (the
+// accumulator fragment layout, two bf16 a register) and B (16 x 64,
+// MN-major: transposed) from shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// (lo column, hi column) -> two bf16, rounded to nearest, in one register
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// A block owns kBlockRows query rows of one head-batch; warpgroup w of its
+// consumers owns rows q0 + 64 w ...; the producer warp's lane 0 loads Q and
+// then K/V tiles 0 .. the last consumer's diagonal through a ring of
+// kStagesBf16 stages (full: TMA bytes landed; empty: the consumers' 8 warps
+// are done with it).  c = scale * log2(e).
+__global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
+    flash_attention_bf16_kernel(__grid_constant__ const CUtensorMap tm_q,
+                                __grid_constant__ const CUtensorMap tm_k,
+                                __grid_constant__ const CUtensorMap tm_v,
+                                __nv_bfloat16* __restrict__ out, int seq, float c) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_full[kStagesBf16], bar_empty[kStagesBf16];
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's 1024-byte atoms
+  const uint32_t s_kv = s_q + kBlockRows * D * 2;  // stage s: K at s_kv + 2 s kTileBytes, then V
+
+  const int n_qt = (seq + kBlockRows - 1) / kBlockRows;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * kBlockRows;  // the longest query tiles first
+  const int bh = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // key tiles 0 .. the diagonal of consumer w (none when its rows lie past seq)
+  auto tiles = [&](int w) { return q0 + 64 * w < seq ? (q0 + 64 * w) / 64 + 1 : 0; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(&bar_q), 1);
+    for (int s = 0; s < kStagesBf16; ++s) {
+      mbar_init(smem_u32(&bar_full[s]), 1);
+      mbar_init(smem_u32(&bar_empty[s]), 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {  // the producer
+    if (lane == 0) {
+      int n_tiles = 0;
+      for (int w = 0; w < kConsumers; ++w) n_tiles = max(n_tiles, tiles(w));
+      mbar_expect_tx(smem_u32(&bar_q), kBlockRows * D * 2);
+      tma_load(s_q, &tm_q, q0, bh, smem_u32(&bar_q));
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStagesBf16;
+        // a stage is reused once every consumer that reads tile j - stages is done
+        // with it; tiles past a consumer's diagonal are never reused
+        if (j >= kStagesBf16) mbar_wait(smem_u32(&bar_empty[s]), (j / kStagesBf16 - 1) & 1);
+        const uint32_t bar = smem_u32(&bar_full[s]), k_dst = s_kv + 2 * s * kTileBytes;
+        mbar_expect_tx(bar, 2 * kTileBytes);
+        tma_load(k_dst, &tm_k, 64 * j, bh, bar);
+        tma_load(k_dst + kTileBytes, &tm_v, 64 * j, bh, bar);
+      }
+    }
+    return;
+  }
+
+  // this consumer warpgroup, broadcast from lane 0 so that the compiler
+  // keeps what derives from it (the wgmma descriptors) in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int n_mine = tiles(wg);
+  if (n_mine == 0) return;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group and lane in the quad
+  const int row0 = q0 + 64 * wg + 16 * (warp & 3) + g, row1 = row0 + 8;
+  // the wgmma descriptors of this warpgroup's 64 query rows at k-step 0 and
+  // of stage 0's K and V tiles; a descriptor's low bits are the address / 16
+  const uint64_t dq = sw128_desc(s_q + wg * 64 * D * 2), dk = sw128_desc(s_kv);
+  // key - row on the diagonal tile, less 8 i + (e & 1) + 8 (e >> 1)
+  const int diag_off = 2 * t - 16 * (warp & 3) - g;
+
+  // accumulator fragment: d[4i + e] holds row (e < 2 ? row0 : row1), column
+  // 8i + 2t + (e & 1) of the warpgroup's 64 x 64 tile
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  mbar_wait(smem_u32(&bar_q), 0);
+
+  for (int j = 0; j < n_mine; ++j) {
+    const int s = j % kStagesBf16;
+    const uint64_t dks = dk + 2 * s * (kTileBytes >> 4), dvs = dks + (kTileBytes >> 4);
+    mbar_wait(smem_u32(&bar_full[s]), (j / kStagesBf16) & 1);
+    __syncwarp();  // the warp converged again for the .aligned wgmma instructions
+
+    // S = Q K^T: bf16 x bf16 is exact in fp32
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, dq + 2 * kk, dks + 2 * kk, kk);  // 32 bytes a k-step
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(sc);
+
+    // the causal mask on the diagonal tile (a key after the query is -inf
+    // before the max: its weight is an exact 0), then the row max over the quad
+    if (j == n_mine - 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * i + (e & 1) - 8 * (e >> 1) + diag_off > 0) sc[4 * i + e] = -INFINITY;
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+    }
+    // key 64 j <= every row here, so the new maxima are finite;
+    // exp(x * scale) = 2^(x c), and 2^-inf is an exact 0
+    const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+    const float r0 = exp2_approx((m0 - n0) * c), r1 = exp2_approx((m1 - n1) * c);  // 0 at first
+    m0 = n0;
+    m1 = n1;
+    const float c0 = -m0 * c, c1 = -m1 * c;
+    l0 *= r0;
+    l1 *= r1;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      o[4 * i] *= r0;
+      o[4 * i + 1] *= r0;
+      o[4 * i + 2] *= r1;
+      o[4 * i + 3] *= r1;
+    }
+    fence_regs(o);
+
+    // O += P V, k-step by k-step as its P is ready, so that the tensor cores
+    // run the first k-steps while the later exps are taken.  P in two bf16
+    // pieces, hi = bf16(P) and lo = bf16(P - hi), the small piece first: k-step
+    // kk (keys 16 kk ..) takes accumulator pairs 8 kk + 2 r, 8 kk + 2 r + 1 as
+    // its A register r, no shuffle; V as stored, (keys, D), is the MN-major B
+    uint32_t p_hi[16], p_lo[16];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 4 * kk + r;
+        const float cc = (i & 1) ? c1 : c0;
+        const float a = exp2_approx(fmaf(sc[2 * i], c, cc));
+        const float b = exp2_approx(fmaf(sc[2 * i + 1], c, cc));
+        if (i & 1) {
+          l1 += a + b;
+        } else {
+          l0 += a + b;
+        }
+        p_hi[i] = pack_bf16(a, b);
+        p_lo[i] = pack_bf16(a - __uint_as_float(p_hi[i] << 16),
+                            b - __uint_as_float(p_hi[i] & 0xffff0000u));
+        asm volatile("" : "+r"(p_hi[i]), "+r"(p_lo[i])::"memory");
+      }
+      wgmma_fence();
+      wgmma_rs(o, p_lo + 4 * kk, dvs + 128 * kk);  // 2048 bytes a k-step
+      wgmma_rs(o, p_hi + 4 * kk, dvs + 128 * kk);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&bar_empty[s]));  // this warp is done with the stage
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  __nv_bfloat16* ob = out + (size_t)bh * seq * D;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {  // rounded to bf16 once
+    const int col = 8 * i + 2 * t;
+    if (row0 < seq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * D + col) =
+          pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+    if (row1 < seq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * D + col) =
+          pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+  }
+}
+
+// cuTensorMapEncodeTiled looked up through the runtime's entry-point query
+// (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (bh, seq, D) bf16 as a 3-D tensor map in boxes of `rows` whole rows of
+// 128 bytes, 128-byte swizzle; rows past seq read as zeros.
+bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int seq, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)seq, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)seq * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                          __nv_bfloat16* out, int bh, int seq, int head_dim, float scale,
+                          void* stream) {
+  if (head_dim != D) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!tensor_map(encode, &tm_q, q, bh, seq, kBlockRows) || !tensor_map(encode, &tm_k, k, bh, seq, 64) ||
+      !tensor_map(encode, &tm_v, v, bh, seq, 64))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBf16);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (seq + kBlockRows - 1) / kBlockRows);
+  flash_attention_bf16_kernel<<<grid, kBf16Threads, kSmemBf16, (cudaStream_t)stream>>>(
+      tm_q, tm_k, tm_v, out, seq, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -423,12 +708,11 @@ int flash_attention_f32(const float* q, const float* k, const float* v, float* o
 }
 
 // q, k, v, out: (bh, seq, head_dim) bf16, contiguous, 16-byte aligned; the
-// rest as flash_attention_f32.  scale must be a power of two (64^-0.5 = 2^-3)
-// for q * scale to stay exact in TF32.
+// rest as flash_attention_f32.
 int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                          __nv_bfloat16* out, int bh, int seq, int head_dim, float scale,
                          void* stream) {
-  return launch_attention(q, k, v, out, bh, seq, head_dim, scale, stream);
+  return launch_attention_bf16(q, k, v, out, bh, seq, head_dim, scale, stream);
 }
 
 }  // extern "C"

@@ -73,18 +73,6 @@
 //   * Rows too wide for shared memory (e.g. 152k vocabularies) run the same
 //     code with the row read from device memory (L2) on every pass and only
 //     the candidate buffer in shared memory.  Not tuned.
-//   * bf16 rows (topk_mask_bf16), as the reference's kernels take them: the
-//     Pallas kernels upcast the row and bisect in fp32, and write the kept
-//     values in the input's dtype.  Here every value is upcast exactly as it
-//     is read, so the bisection, its counts and the masked row are those of
-//     the fp32 kernel on the upcast row, and each kept value goes back to
-//     bf16 exactly.  A granule is 4 values in both types (8 bytes of bf16),
-//     so the phase p, the granule counts and the edge lanes are the same
-//     code.  TMA cannot convert, so on the shared-memory path the threads
-//     load the bf16 row themselves and store it upcast (the row in shared
-//     memory stays fp32: the same widest V); the device-memory path upcasts
-//     each granule it reads.  A simple loader: the load no longer overlaps
-//     the first chunk's statistics.
 //   * Ties.  A tie group at X_k never leaves [clo, chi), so the candidate
 //     set never shrinks below it: bf16 rows (8 significand bits) tie in
 //     groups of tens to thousands near X_k.  A group larger than the
@@ -95,6 +83,49 @@
 //     the rank step at the end reads X_k among at most 32 values, ties
 //     included.  All of these are exact, only slower.
 //
+// bf16 rows (topk_mask_bf16), as the reference's kernels take them: the
+// Pallas kernels upcast the row, bisect in fp32 and keep the values in the
+// input's dtype.  The bf16 kernel below is another design, exact as well.
+//   * What decides a step, again: mid <= X_k.  A bf16 row has only 65 536
+//     possible values, so X_k is found exactly, by value, before any step:
+//     a radix select on the 16-bit key that orders bf16 values (flip every
+//     bit of a negative value, set the top bit of a positive one), over a
+//     high digit of 11 bits (sign, exponent, 2 mantissa bits) and a low one
+//     of 5.  The high digit's histogram is taken while the row lands; a
+//     scan from the top finds the bin holding rank k; a second pass counts
+//     the low digits of that bin's values and a second scan finds X_k.
+//     Ties and constant rows cost what any row costs.  -0 and +0 are two
+//     keys of one value; X_k's value comes out right either way.
+//   * Then one thread replays the 30 steps with no count: lo = min, hi =
+//     max + 1, mid = (lo + hi) * 0.5 with __fadd_rn / __fmul_rn, and
+//     take = mid <= X_k (a NaN mid never takes), so lo is bitwise the plain
+//     version's.  A NaN anywhere makes min and max NaN (then lo is NaN and
+//     the row is zero), and the static k <= 0 takes every step.
+//   * The row stays bf16 in shared memory (100.5 KB at V 50 257), loaded by
+//     eight TMA bulk copies of whole 16-byte granules (8 values) with one
+//     mbarrier each, from the granule below the row (element c at p + c).
+//     The high digit's histogram is taken chunk by chunk as the copies
+//     land, with min and max (min.NaN / max.NaN on bf16 pairs), in one
+//     shared histogram of 2048 32-bit counters: the high digit of logits
+//     falls into a handful of bins, yet the compiler's warp-aggregated
+//     atomics (ATOMS.POPC.INC) keep one histogram as fast as copies of it
+//     kept per group of lanes (measured at 256 bins; the pass waits on the
+//     load, not on its atomics).  8 KB: the row, the histogram and the rest
+//     fit two blocks an SM, so 256 rows run in one wave.  The second pass xors each word with the bin's raw bits, so
+//     that a half below 32 is a value of the bin and its low digit; its
+//     atomics are skipped by a warp vote when no lane matches (an 11-bit
+//     bin holds ~1/8 of what an 8-bit one would, so most votes skip).  The
+//     two edge granules, which hold values of the neighbouring rows, are
+//     taken value by value outside the passes.
+//   * The masked row is written from shared memory with 16-byte streaming
+//     stores (st.global.cs), each value kept with its own bits where x >=
+//     lo: for a bf16 x that is x >= lo rounded up to bf16, one packed bf16
+//     compare a word.  Streaming stores send the row to device memory
+//     during the store, not during the next launch's loads, which then run
+//     faster (tools/kernel_probe.py times plain stores in turn).
+//   * Rows too wide for shared memory (V 152 064: 304 KB in bf16) run the
+//     same passes on the row in device memory.  Correct, not tuned.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC   (no fast math: the value math must be IEEE).
 // Plain C interface, loaded through ctypes; the entry point launches on the
@@ -104,8 +135,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -146,37 +175,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// Four bf16 values (8 bytes), upcast exactly.
-__device__ __forceinline__ float4 bf16x4(uint2 u) {
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-
-// Four fp32 values, each a bf16 value or 0, back to bf16 (exactly).
-__device__ __forceinline__ uint2 to_bf16x4(float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
-  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
-}
-
-// Granule g of a row as 4 fp32 values: 16 bytes of the row in shared memory
-// (always fp32), of an fp32 row in device memory, or 8 bytes of a bf16 row
-// in device memory, upcast.
-template <bool kSmem, class T>
+// Granule g of a row, 16 bytes of the row in shared memory or in device
+// memory.
+template <bool kSmem>
 __device__ __forceinline__ float4 ld4(const void* base, int g) {
   if (kSmem) return reinterpret_cast<const float4*>(base)[g];
-  if constexpr (std::is_same<T, float>::value) {
-    return __ldg(reinterpret_cast<const float4*>(base) + g);
-  } else {
-    return bf16x4(__ldg(reinterpret_cast<const uint2*>(base) + g));
-  }
+  return __ldg(reinterpret_cast<const float4*>(base) + g);
 }
 
 // Granule g of the row (row element 4g + j - p in lane j); lanes outside
 // the row are set to `fill`.
-template <bool kSmem, class T>
+template <bool kSmem>
 __device__ __forceinline__ float4 granule(const void* base, int g, int G, int p,
                                           int vocab, float fill) {
-  float4 v = ld4<kSmem, T>(base, g);
+  float4 v = ld4<kSmem>(base, g);
   if (g == 0 || g == G - 1) {
     const int c = 4 * g - p;
     if (c < 0 || c >= vocab) v.x = fill;
@@ -410,21 +422,21 @@ __device__ __forceinline__ void warp_steps(Bisect& s, float* buf, int k) {
 // #{x >= mid} over the row.  The shared-memory row holds NaN in its pad
 // lanes, which counts nowhere; the device-memory row masks its two edge
 // granules.
-template <bool kSmem, class T>
+template <bool kSmem>
 __device__ __forceinline__ int count_row(const void* row4, int G, int p, int vocab, float mid) {
   int c = 0;
 #pragma unroll 4
   for (int g = threadIdx.x; g < G; g += kThreads) {
-    const float4 v = kSmem ? ld4<true, T>(row4, g) : granule<false, T>(row4, g, G, p, vocab, NAN);
+    const float4 v = kSmem ? ld4<true>(row4, g) : granule<false>(row4, g, G, p, vocab, NAN);
     c += (v.x >= mid) + (v.y >= mid) + (v.z >= mid) + (v.w >= mid);
   }
   return c;
 }
 
-template <bool kSmem, class T>
+template <bool kSmem>
 __device__ __forceinline__ void row_granule(const void* row4, int g, int G, int p, int vocab,
                                             float (&e)[4]) {
-  const float4 v = kSmem ? ld4<true, T>(row4, g) : granule<false, T>(row4, g, G, p, vocab, NAN);
+  const float4 v = kSmem ? ld4<true>(row4, g) : granule<false>(row4, g, G, p, vocab, NAN);
   e[0] = v.x;
   e[1] = v.y;
   e[2] = v.z;
@@ -435,7 +447,7 @@ __device__ __forceinline__ void row_granule(const void* row4, int g, int G, int 
 // count of them (`mine`, or a first loop when it is not known, -1), a scan
 // for where each thread's run starts, and a loop that writes them there,
 // over the granules in the load's order (in which `mine` was counted).
-template <bool kSmem, class T>
+template <bool kSmem>
 __device__ __forceinline__ void compact_row(const void* row4, int G, int per_chunk, int p,
                                             int vocab, float lo, float hi, int mine, float* buf,
                                             int (*s)[4][kWarps], int& par) {
@@ -446,7 +458,7 @@ __device__ __forceinline__ void compact_row(const void* row4, int G, int per_chu
     mine = 0;
     for (int c = 0; c < chunks; ++c) {
       for (int g = c * span + threadIdx.x; g < min(G, (c + 1) * span); g += kThreads) {
-        row_granule<kSmem, T>(row4, g, G, p, vocab, e);
+        row_granule<kSmem>(row4, g, G, p, vocab, e);
         mine += __popc(in_flags(e, lo, hi));
       }
     }
@@ -464,7 +476,7 @@ __device__ __forceinline__ void compact_row(const void* row4, int G, int per_chu
   par ^= 1;
   for (int c = 0; c < chunks; ++c) {
     for (int g = c * span + threadIdx.x; g < min(G, (c + 1) * span); g += kThreads) {
-      row_granule<kSmem, T>(row4, g, G, p, vocab, e);
+      row_granule<kSmem>(row4, g, G, p, vocab, e);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (e[j] >= lo && e[j] < hi) buf[at++] = e[j];
@@ -474,14 +486,11 @@ __device__ __forceinline__ void compact_row(const void* row4, int G, int per_chu
   __syncthreads();  // the buffer is complete before anyone counts on it
 }
 
-// T: float or __nv_bfloat16, the row's and the output's type; the shared
-// memory row, the bisection and every count are fp32 in both.
-template <bool kSmem, class T>
+template <bool kSmem>
 __global__ void __launch_bounds__(kThreads, 1)
-    topk_mask_kernel(const T* __restrict__ x, const int32_t* __restrict__ ks,
-                     T* __restrict__ out, int vocab, int k_static, int dynamic,
+    topk_mask_kernel(const float* __restrict__ x, const int32_t* __restrict__ ks,
+                     float* __restrict__ out, int vocab, int k_static, int dynamic,
                      int cap) {
-  constexpr bool kF32 = std::is_same<T, float>::value;  // bf16: no TMA (it cannot upcast)
   extern __shared__ __align__(16) float dyn[];
   __shared__ __align__(8) unsigned long long s_bar[kChunks];
   __shared__ float s_min[kWarps], s_max[kWarps];
@@ -491,9 +500,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int r = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const T* xr = x + (size_t)r * vocab;
-  T* outr = out + (size_t)r * vocab;
-  const int p = (int)(((uintptr_t)xr / sizeof(T)) & 3);  // the row's phase in its granule
+  const float* xr = x + (size_t)r * vocab;
+  float* outr = out + (size_t)r * vocab;
+  const int p = (int)(((uintptr_t)xr / sizeof(float)) & 3);  // the row's phase in its granule
   const int G = (p + vocab + 3) >> 2;              // granules covering the row
   const int g_max = (vocab + 6) >> 2;              // ... at the worst phase
   float* row_s = dyn;
@@ -502,7 +511,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int k = dynamic ? min(max(ks[r], 0), vocab) : k_static;
   const bool live = !dynamic || k > 0;
-  const int q = (int)(((uintptr_t)outr / sizeof(T)) & 3);
+  const int q = (int)(((uintptr_t)outr / sizeof(float)) & 3);
 
   if (!live) {  // a dropped client's row: zeros, x never read
     const int Go = (q + vocab + 3) >> 2;
@@ -510,12 +519,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (g == 0 || g == Go - 1) {
         for (int j = 0; j < 4; ++j) {
           const int c = 4 * g + j - q;
-          if (c >= 0 && c < vocab) outr[c] = T(0.0f);
+          if (c >= 0 && c < vocab) outr[c] = 0.0f;
         }
-      } else if constexpr (kF32) {
-        reinterpret_cast<float4*>(outr - q)[g] = make_float4(0.f, 0.f, 0.f, 0.f);
       } else {
-        reinterpret_cast<uint2*>(outr - q)[g] = make_uint2(0u, 0u);
+        reinterpret_cast<float4*>(outr - q)[g] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
     return;
@@ -523,19 +530,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // -- load (shared-memory path), min / max / NaN, threshold counts ---------
   const int per_chunk = (G + kChunks - 1) / kChunks;
-  if (kSmem && kF32 && threadIdx.x == 0) {
+  if (kSmem && threadIdx.x == 0) {
     for (int c = 0; c < kChunks; ++c)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(&s_bar[c])), "r"(1));
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (threadIdx.x == 0) s_fill = 0;
-  if constexpr (kSmem && !kF32) {  // bf16: every thread loads and upcasts its granules
-    const uint2* src = reinterpret_cast<const uint2*>(xr - p);
-    float4* dst = reinterpret_cast<float4*>(row_s);
-    for (int g = threadIdx.x; g < G; g += kThreads) dst[g] = bf16x4(__ldg(src + g));
-  }
   __syncthreads();
-  if constexpr (kSmem && kF32) {
+  if (kSmem) {
     if (threadIdx.x == 0) {
       const float* src = xr - p;
       for (int c = 0; c < kChunks; ++c) {
@@ -560,9 +562,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   float t[kGrid];
   {
     float sum = 0.0f, sq = 0.0f;
-    if (kSmem && kF32) mbar_wait(smem_u32(&s_bar[0]), 0);
+    if (kSmem) mbar_wait(smem_u32(&s_bar[0]), 0);
     for (int g = threadIdx.x; g < min(G, per_chunk); g += kThreads) {
-      const float4 a = granule<kSmem, T>(row4, g, G, p, vocab, 0.0f);
+      const float4 a = granule<kSmem>(row4, g, G, p, vocab, 0.0f);
       sum += (a.x + a.y) + (a.z + a.w);
       sq += (a.x * a.x + a.y * a.y) + (a.z * a.z + a.w * a.w);
     }
@@ -581,13 +583,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int c = 0; c < (kSmem ? kChunks : 1); ++c) {
     const int g0 = kSmem ? c * per_chunk : 0, g1 = kSmem ? min(G, g0 + per_chunk) : G;
     if (g1 <= g0) break;
-    if (kSmem && kF32 && c > 0) mbar_wait(smem_u32(&s_bar[c]), 0);
+    if (kSmem && c > 0) mbar_wait(smem_u32(&s_bar[c]), 0);
     for (int g = g0 + threadIdx.x; g < g1; g += kThreads) {
-      const float4 a = granule<kSmem, T>(row4, g, G, p, vocab, NAN);  // pads: NaN, counted nowhere
+      const float4 a = granule<kSmem>(row4, g, G, p, vocab, NAN);  // pads: NaN, counted nowhere
       float4 lo4 = a, hi4 = a;
       if (g == 0 || g == G - 1) {  // the pads must not reach min and max
-        lo4 = granule<kSmem, T>(row4, g, G, p, vocab, INFINITY);
-        hi4 = granule<kSmem, T>(row4, g, G, p, vocab, -INFINITY);
+        lo4 = granule<kSmem>(row4, g, G, p, vocab, INFINITY);
+        hi4 = granule<kSmem>(row4, g, G, p, vocab, -INFINITY);
         for (int j = 0; j < 4; ++j) mine += (4 * g + j - p >= 0) & (4 * g + j - p < vocab);
       } else {
         mine += 4;
@@ -632,7 +634,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     bool f_known = true;
     if (!(s.hi > mx)) {  // then take +inf, and count what sits there
       f_known = false;
-      int c[1] = {count_row<kSmem, T>(row4, G, p, vocab, INFINITY)};
+      int c[1] = {count_row<kSmem>(row4, G, p, vocab, INFINITY)};
       block_sum(c, s_red, par);
       s.chi = INFINITY;
       s.above = c[0];
@@ -670,14 +672,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (!free_step(s, mid, take)) {
         const int size = s.cnt - s.above;
         if (s.n_buf < 0 && size <= cap) {
-          compact_row<kSmem, T>(row4, G, per_chunk, p, vocab, s.clo, s.chi,
+          compact_row<kSmem>(row4, G, per_chunk, p, vocab, s.clo, s.chi,
                                 f_known ? f_lo - f_hi : -1, buf, s_red, par);
           s.n_buf = size;
         }
         int c[1];
         float e[kPerThread];
         if (s.n_buf < 0) {  // a full pass
-          c[0] = count_row<kSmem, T>(row4, G, p, vocab, mid);
+          c[0] = count_row<kSmem>(row4, G, p, vocab, mid);
           block_sum(c, s_red, par);
         } else {  // a count over the buffer
           c[0] = 0;
@@ -713,7 +715,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float lo = s.lo;  // NaN keeps nothing
   if (q == p) {
     for (int g = threadIdx.x; g < G; g += kThreads) {
-      const float4 v = ld4<kSmem, T>(row4, g);
+      const float4 v = ld4<kSmem>(row4, g);
       float4 m;
       m.x = v.x >= lo ? v.x : 0.0f;
       m.y = v.y >= lo ? v.y : 0.0f;
@@ -723,64 +725,339 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float e[4] = {m.x, m.y, m.z, m.w};
         for (int j = 0; j < 4; ++j) {
           const int c = 4 * g + j - p;
-          if (c >= 0 && c < vocab) outr[c] = T(e[j]);
+          if (c >= 0 && c < vocab) outr[c] = e[j];
         }
-      } else if constexpr (kF32) {
-        reinterpret_cast<float4*>(outr - q)[g] = m;
       } else {
-        reinterpret_cast<uint2*>(outr - q)[g] = to_bf16x4(m);
+        reinterpret_cast<float4*>(outr - q)[g] = m;
       }
     }
-  } else if constexpr (kF32) {  // out on another phase than x: element by element
+  } else {  // out on another phase than x: element by element
     const float* row = kSmem ? row_s + p : xr;
     for (int c = threadIdx.x; c < vocab; c += kThreads) {
       const float v = row[c];
       outr[c] = v >= lo ? v : 0.0f;
     }
-  } else {
-    for (int c = threadIdx.x; c < vocab; c += kThreads) {
-      const float v = kSmem ? row_s[p + c] : __bfloat162float(xr[c]);
-      outr[c] = __float2bfloat16_rn(v >= lo ? v : 0.0f);
-    }
   }
 }
 
-// The shared-memory path's static shared memory and what a block may opt
-// into, per device, looked up once (the queries cost host time per launch).
+
+// -- bf16 rows: an exact radix select of X_k, then the bisection replayed ----
+
+constexpr int kLowBits = 5;                    // the key's low digit: 5 bits
+constexpr int kHighBins = 1 << (16 - kLowBits);  // its high digit: 11 bits, 2048 bins
+constexpr int kLowBins = 1 << kLowBits;
+
+// Two bf16 values (a 32-bit word) to their 16-bit keys in value order: a
+// negative value's bits all flipped, a positive value's top bit set.
+__device__ __forceinline__ uint32_t keys2(uint32_t w) {
+  uint32_t neg;  // 0xffff in each half that holds a negative value (prmt's sign replication)
+  asm("prmt.b32 %0, %1, %2, 0xbb99;" : "=r"(neg) : "r"(w), "r"(0u));
+  return w ^ (neg | 0x80008000u);
+}
+
+// The value of a 16-bit key, exact in fp32.
+__device__ __forceinline__ float key_value(uint32_t key) {
+  return __uint_as_float((key ^ ((key & 0x8000u) ? 0x8000u : 0xffffu)) << 16);
+}
+
+// min and max of two bf16 pairs, NaN when either is NaN (torch.amin's rule)
+__device__ __forceinline__ uint32_t min2_nan(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("min.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t max2_nan(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Both bf16 values of a word kept where x >= lo, with their own bits, else
+// +0; lo2 holds lo rounded up to bf16 in both halves: for a bf16 x, x >= lo
+// iff x >= lo rounded toward +inf (a NaN lo compares false, as in fp32).
+// One packed compare a word.
+__device__ __forceinline__ uint32_t keep2(uint32_t w, __nv_bfloat162 lo2) {
+  const __nv_bfloat162 ge = __hge2(*reinterpret_cast<const __nv_bfloat162*>(&w), lo2);
+  const uint32_t one = *reinterpret_cast<const uint32_t*>(&ge);  // 1.0 (0x3f80) or 0 a half
+  return w & (((one >> 7) & 0x00010001u) * 0xffffu);
+}
+
+template <bool kSmem>
+__device__ __forceinline__ uint4 granule_bf16(const uint4* row, int g) {
+  return kSmem ? row[g] : __ldg(row + g);
+}
+
+// Value j (0..7) of a granule's four words: its raw bf16 bits.
+__device__ __forceinline__ uint32_t bits_at(const uint4& v, int j) {
+  const uint32_t w = j < 2 ? v.x : j < 4 ? v.y : j < 6 ? v.z : v.w;
+  return (w >> ((j & 1) << 4)) & 0xffffu;
+}
+
+// The bin d of a kN-bin histogram that holds rank kk from the top:
+// above = #{in bins > d} < kk <= above + count(d).  Thread t takes kPer bins
+// from the top (bins kN - 1 - kPer t ...), the threads scan their sums, and
+// the one whose bins hold rank kk walks them; (d, above) land in sel.  Every
+// thread calls it; 1 <= kk <= the histogram's total.
+template <int kN>
+__device__ void select_bin(const uint32_t* hist, int kk, int* warp_tot, int* sel) {
+  constexpr int kPer = kN >= kThreads ? kN / kThreads : 1;
+  constexpr int kUsed = kN / kPer;  // threads that take part: whole warps
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int top = kN - 1 - kPer * t;
+  int cnt = 0, incl = 0;
+  if (t < kUsed) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) cnt += (int)hist[top - i];
+    incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) warp_tot[warp] = incl;
+  }
+  __syncthreads();
+  if (t < kUsed) {
+    for (int w = 0; w < warp; ++w) incl += warp_tot[w];
+    int above = incl - cnt;
+    if (above < kk && kk <= incl) {
+      for (int i = 0; i < kPer; ++i) {
+        const int c = (int)hist[top - i];
+        if (kk <= above + c) {
+          sel[0] = top - i;
+          sel[1] = above;
+          break;
+        }
+        above += c;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// One block a bf16 row: the row in shared memory (kSmem) or read from
+// device memory on each pass.  Same contract as topk_mask_kernel.  The
+// granules 0 and G - 1, which hold values of the neighbouring rows, are
+// taken value by value by threads 0 and 32, outside the passes' loops.
+template <bool kSmem>
+__global__ void __launch_bounds__(kThreads, 2)
+    topk_radix_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ ks,
+                           __nv_bfloat16* __restrict__ out, int vocab, int k_static, int dynamic) {
+  extern __shared__ __align__(16) uint4 row_s[];
+  __shared__ __align__(8) unsigned long long s_bar[kChunks];
+  __shared__ uint32_t s_hist[kHighBins];
+  __shared__ int s_warp[kWarps];
+  __shared__ float s_min[kWarps], s_max[kWarps];
+  __shared__ int s_sel[2];
+  __shared__ float s_lo;
+
+  const int tid = threadIdx.x;
+  const __nv_bfloat16* xr = x + (size_t)blockIdx.x * vocab;
+  __nv_bfloat16* outr = out + (size_t)blockIdx.x * vocab;
+  uint16_t* o16 = reinterpret_cast<uint16_t*>(outr);
+  const int p = (int)(((uintptr_t)xr >> 1) & 7);  // the row's phase in its 16-byte granule
+  const int q = (int)(((uintptr_t)outr >> 1) & 7);
+  const int G = (p + vocab + 7) >> 3;  // granules covering the row
+  const uint4* src = reinterpret_cast<const uint4*>(xr - p);
+  const int k = dynamic ? min(max(ks[blockIdx.x], 0), vocab) : k_static;
+  // this thread's edge granule (0 or G - 1), or -1
+  const int edge = tid == 0 ? 0 : (tid == 32 && G > 1) ? G - 1 : -1;
+
+  if (dynamic && k == 0) {  // a dropped client's row: zeros, x never read
+    const int Go = (q + vocab + 7) >> 3;
+    for (int g = tid; g < Go; g += kThreads) {
+      if (g == 0 || g == Go - 1) {
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * g + j - q;
+          if (c >= 0 && c < vocab) o16[c] = 0;
+        }
+      } else {
+        reinterpret_cast<uint4*>(outr - q)[g] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    return;
+  }
+
+  // -- load (shared-memory path), min / max, the high digit's histogram ------
+  const int per_chunk = (G + kChunks - 1) / kChunks;
+  for (int i = tid; i < kHighBins; i += kThreads) s_hist[i] = 0u;
+  if (kSmem && tid == 0) {
+    for (int c = 0; c < kChunks; ++c)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(&s_bar[c])), "r"(1));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (kSmem && tid == 0) {
+    for (int c = 0; c < kChunks; ++c) {
+      const int g0 = c * per_chunk, g1 = min(G, g0 + per_chunk);
+      if (g1 <= g0) break;
+      const uint32_t bytes = (uint32_t)(g1 - g0) * 16u, bar = smem_u32(&s_bar[c]);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                   "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+          ::"r"(smem_u32(row_s + g0)), "l"(src + g0), "r"(bytes), "r"(bar)
+          : "memory");
+    }
+  }
+  const uint4* row = kSmem ? row_s : src;
+  uint32_t vmin = 0x7f807f80u, vmax = 0xff80ff80u;  // two bf16 a word: +inf, -inf
+  for (int c = 0; c < (kSmem ? kChunks : 1); ++c) {
+    const int g0 = kSmem ? c * per_chunk : 0, g1 = kSmem ? min(G, g0 + per_chunk) : G;
+    if (g1 <= g0) break;
+    if (kSmem) mbar_wait(smem_u32(&s_bar[c]), 0);
+    for (int g = g0 + tid; g < g1; g += kThreads) {
+      if (g == 0 || g == G - 1) continue;  // the edge granules: below
+      const uint4 v = granule_bf16<kSmem>(row, g);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        vmin = min2_nan(vmin, w[j]);
+        vmax = max2_nan(vmax, w[j]);
+        const uint32_t kw = keys2(w[j]);
+        atomicAdd(&s_hist[(kw & 0xffffu) >> kLowBits], 1u);
+        atomicAdd(&s_hist[kw >> (16 + kLowBits)], 1u);
+      }
+    }
+  }
+  if (edge >= 0) {  // the edge granules, value by value
+    const uint4 v = granule_bf16<kSmem>(row, edge);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * edge + j - p;
+      if (col < 0 || col >= vocab) continue;
+      const uint32_t b = bits_at(v, j);
+      vmin = min2_nan(vmin, b * 0x10001u);
+      vmax = max2_nan(vmax, b * 0x10001u);
+      atomicAdd(&s_hist[(keys2(b) & 0xffffu) >> kLowBits], 1u);
+    }
+  }
+  float mn = min_nan(__uint_as_float(vmin << 16), __uint_as_float(vmin & 0xffff0000u));
+  float mx = max_nan(__uint_as_float(vmax << 16), __uint_as_float(vmax & 0xffff0000u));
+  block_minmax(mn, mx, s_min, s_max);  // its barriers also close the histogram
+  const bool any_nan = mn != mn;
+
+  // -- X_k: the bin of the high digit holding rank k, then the low digit ------
+  float xk = 0.0f;
+  if (!any_nan && k > 0) {
+    select_bin<kHighBins>(s_hist, k, s_warp, s_sel);
+    const uint32_t high = (uint32_t)s_sel[0];
+    const int above = s_sel[1];
+    if (tid < kLowBins) s_hist[tid] = 0u;
+    __syncthreads();
+    // w ^ m leaves a half below 2^kLowBits iff its raw bits above the low
+    // digit are the bin's (a positive key: the top bit flipped; a negative
+    // one: every bit), and then that half is its key's low digit
+    const bool pos = high >= (uint32_t)kHighBins / 2;
+    const uint32_t raw_high = high ^ (pos ? (uint32_t)kHighBins / 2 : (uint32_t)kHighBins - 1);
+    const uint32_t m = ((raw_high << kLowBits) | (pos ? 0u : kLowBins - 1u)) * 0x00010001u;
+    for (int g = 1 + tid; g < G - 1; g += kThreads) {
+      const uint4 v = granule_bf16<kSmem>(row, g);
+      const uint32_t w[4] = {v.x ^ m, v.y ^ m, v.z ^ m, v.w ^ m};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // the bin holds ~1/8 of what an 8-bit digit's would: most warps skip
+        const bool m0 = (w[j] & (0xffffu ^ (kLowBins - 1u))) == 0u, m1 = w[j] < (kLowBins << 16);
+        if (__any_sync(__activemask(), m0 || m1)) {
+          if (m0) atomicAdd(&s_hist[w[j] & (kLowBins - 1u)], 1u);
+          if (m1) atomicAdd(&s_hist[w[j] >> 16], 1u);
+        }
+      }
+    }
+    if (edge >= 0) {
+      const uint4 v = granule_bf16<kSmem>(row, edge);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * edge + j - p;
+        const uint32_t b = bits_at(v, j) ^ (m & 0xffffu);
+        if (col >= 0 && col < vocab && b < (uint32_t)kLowBins) atomicAdd(&s_hist[b], 1u);
+      }
+    }
+    __syncthreads();
+    select_bin<kLowBins>(s_hist, k - above, s_warp, s_sel);
+    xk = key_value((high << kLowBits) | (uint32_t)s_sel[0]);
+  }
+
+  // -- the 30 steps, replayed: count(x >= mid) >= k iff mid <= X_k -----------
+  if (tid == 0) {
+    float lo = mn, hi = __fadd_rn(mx, 1.0f);  // NaN on a row holding a NaN, as in the plain version
+    if (!any_nan) {
+      for (int it = 0; it < kIters; ++it) {
+        const float mid = midpoint(lo, hi);
+        if (k <= 0 || mid <= xk) {  // the static k <= 0 takes every step; a NaN mid, never
+          lo = mid;
+        } else {
+          hi = mid;
+        }
+      }
+    }
+    s_lo = lo;
+  }
+  __syncthreads();
+  // lo rounded up to bf16, in both halves; NaN keeps nothing
+  const __nv_bfloat162 lo2 = __bfloat162bfloat162(__float2bfloat16_ru(s_lo));
+
+  // -- the kept values, written back in bf16 -------------------------------------
+  if (q == p) {
+    for (int g = 1 + tid; g < G - 1; g += kThreads) {
+      const uint4 v = granule_bf16<kSmem>(row, g);
+      // streaming stores: the masked row leaves the L2 for device memory now, not
+      // during the next launch's loads
+      __stcs(reinterpret_cast<uint4*>(outr - q) + g,
+             make_uint4(keep2(v.x, lo2), keep2(v.y, lo2), keep2(v.z, lo2),
+                        keep2(v.w, lo2)));
+    }
+    if (edge >= 0) {
+      const uint4 v = granule_bf16<kSmem>(row, edge);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * edge + j - p;
+        if (col >= 0 && col < vocab) o16[col] = (uint16_t)keep2(bits_at(v, j), lo2);
+      }
+    }
+  } else {  // out on another phase than x: value by value
+    const uint16_t* x16 = kSmem ? reinterpret_cast<const uint16_t*>(row_s) + p
+                                : reinterpret_cast<const uint16_t*>(xr);
+    for (int c = tid; c < vocab; c += kThreads) o16[c] = (uint16_t)keep2(x16[c], lo2);
+  }
+}
+
+// The shared-memory paths' static shared memory and what a block may opt
+// into, per kernel (0: fp32, 1: bf16) and device, looked up once (the
+// queries cost host time per launch).
 struct SmemLimits {
   int stat, optin, granted;
 };
 
-template <class T>
-int smem_limits(SmemLimits*& out) {
-  static SmemLimits lim[64];  // per device and per T: each kernel has its own opt-in
-  static bool known[64] = {};
+int smem_limits(int bf16, SmemLimits*& out) {
+  static SmemLimits lim[2][64];
+  static bool known[2][64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!known[dev]) {
+  if (!known[bf16][dev]) {
     cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, topk_mask_kernel<true, T>);
+    err = bf16 ? cudaFuncGetAttributes(&attr, topk_radix_bf16_kernel<true>)
+               : cudaFuncGetAttributes(&attr, topk_mask_kernel<true>);
     if (err != cudaSuccess) return (int)err;
     int optin = 0;
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return (int)err;
-    lim[dev] = SmemLimits{(int)attr.sharedSizeBytes, optin, 0};
-    known[dev] = true;
+    lim[bf16][dev] = SmemLimits{(int)attr.sharedSizeBytes, optin, 0};
+    known[bf16][dev] = true;
   }
-  out = &lim[dev];
+  out = &lim[bf16][dev];
   return (int)cudaSuccess;
 }
 
-template <class T>
-int launch_topk(const T* x, const int32_t* ks, T* out, int rows, int vocab, int k_static,
+int launch_topk(const float* x, const int32_t* ks, float* out, int rows, int vocab, int k_static,
                 int dynamic, int use_smem, void* stream) {
   if (rows <= 0 || vocab <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (use_smem) {
     SmemLimits* lim = nullptr;
-    const int lerr = smem_limits<T>(lim);
+    const int lerr = smem_limits(0, lim);
     if (lerr != (int)cudaSuccess) return lerr;
     const int row_bytes = 16 * ((vocab + 6) >> 2);
     int cap = (lim->optin - lim->stat - row_bytes) / (int)sizeof(float);
@@ -789,16 +1066,43 @@ int launch_topk(const T* x, const int32_t* ks, T* out, int rows, int vocab, int 
     const int bytes = row_bytes + cap * (int)sizeof(float);
     if (lim->granted < bytes) {
       const cudaError_t err = cudaFuncSetAttribute(
-          topk_mask_kernel<true, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+          topk_mask_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
       if (err != cudaSuccess) return (int)err;
       lim->granted = bytes;
     }
-    topk_mask_kernel<true, T><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static,
-                                                             dynamic, cap);
+    topk_mask_kernel<true><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static, dynamic,
+                                                          cap);
   } else {
     const int bytes = kCapMax * (int)sizeof(float);
-    topk_mask_kernel<false, T><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static,
-                                                              dynamic, kCapMax);
+    topk_mask_kernel<false><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static, dynamic,
+                                                           kCapMax);
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_topk_bf16(const __nv_bfloat16* x, const int32_t* ks, __nv_bfloat16* out, int rows,
+                     int vocab, int k_static, int dynamic, int use_smem, void* stream) {
+  if (rows <= 0 || vocab <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (use_smem) {
+    SmemLimits* lim = nullptr;
+    const int lerr = smem_limits(1, lim);
+    if (lerr != (int)cudaSuccess) return lerr;
+    const int bytes = 16 * ((vocab + 14) >> 3);  // the row's granules at its worst phase
+    if (bytes > lim->optin - lim->stat) return (int)cudaErrorInvalidValue;
+    if (lim->granted < bytes) {
+      cudaError_t err = cudaFuncSetAttribute(topk_radix_bf16_kernel<true>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err == cudaSuccess)  // all of the SM's shared memory, for two blocks an SM
+        err = cudaFuncSetAttribute(topk_radix_bf16_kernel<true>,
+                                   cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+      if (err != cudaSuccess) return (int)err;
+      lim->granted = bytes;
+    }
+    topk_radix_bf16_kernel<true><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static,
+                                                                dynamic);
+  } else {
+    topk_radix_bf16_kernel<false><<<rows, kThreads, 0, s>>>(x, ks, out, vocab, k_static, dynamic);
   }
   return (int)cudaGetLastError();
 }
@@ -807,14 +1111,16 @@ int launch_topk(const T* x, const int32_t* ks, T* out, int rows, int vocab, int 
 
 extern "C" {
 
-// Largest V the shared-memory path takes: the row (at its worst 16-byte
-// phase) and a candidate buffer of at least kMinCap values beside the
-// kernel's static shared memory, within what a block may opt into.  The
-// row sits there as fp32 in both entry points, so this holds for bf16 too.
-int topk_mask_smem_max_vocab(void) {
+// Largest V the shared-memory path takes, per row dtype (bf16 != 0: the
+// bf16 kernel).  fp32: the row (at its worst 16-byte phase) and a candidate
+// buffer of at least kMinCap values; bf16: the row alone (at its worst
+// phase); each beside its kernel's static shared memory, within what a
+// block may opt into.
+int topk_mask_smem_max_vocab(int bf16) {
   SmemLimits* lim = nullptr;
-  const int err = smem_limits<float>(lim);
+  const int err = smem_limits(bf16 ? 1 : 0, lim);
   if (err != (int)cudaSuccess) return -err;
+  if (bf16) return 8 * ((lim->optin - lim->stat) / 16) - 14;
   const int floats = (lim->optin - lim->stat) / (int)sizeof(float) - kMinCap;
   return (floats / 4) * 4 - 6;
 }
@@ -827,11 +1133,10 @@ int topk_mask_f32(const float* x, const int32_t* ks, float* out, int rows,
   return launch_topk(x, ks, out, rows, vocab, k_static, dynamic, use_smem, stream);
 }
 
-// x, out: (rows, vocab) bf16, the bisection in fp32 on the upcast row; the
-// rest as topk_mask_f32.
+// x, out: (rows, vocab) bf16; the rest as topk_mask_f32.
 int topk_mask_bf16(const __nv_bfloat16* x, const int32_t* ks, __nv_bfloat16* out, int rows,
                    int vocab, int k_static, int dynamic, int use_smem, void* stream) {
-  return launch_topk(x, ks, out, rows, vocab, k_static, dynamic, use_smem, stream);
+  return launch_topk_bf16(x, ks, out, rows, vocab, k_static, dynamic, use_smem, stream);
 }
 
 }  // extern "C"

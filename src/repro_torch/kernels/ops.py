@@ -122,13 +122,14 @@ def _fn(lib: str, symbol: str, nargs_ptr: int, nargs_int: int, nargs_float: int 
 
 
 @functools.cache
-def smem_max_vocab(device_index: int) -> int:
-    """Widest row the top-k kernel keeps in shared memory on this card;
-    wider rows take its global-memory path."""
+def smem_max_vocab(device_index: int, dtype: torch.dtype = torch.float32) -> int:
+    """Widest row the top-k kernel for ``dtype`` rows keeps in shared memory
+    on this card (the fp32 kernel beside a candidate buffer, the bf16 one a
+    bf16 row alone); wider rows take its global-memory path."""
     fn = build.load("topk_select").topk_mask_smem_max_vocab
-    fn.argtypes, fn.restype = [], _I
+    fn.argtypes, fn.restype = [_I], _I
     with torch.cuda.device(device_index):
-        out = fn()
+        out = fn(int(dtype == torch.bfloat16))
     if out < 0:
         raise RuntimeError(f"topk_mask_smem_max_vocab: CUDA error {-out}")
     return out
@@ -165,7 +166,7 @@ def _topk(name: str, logits: torch.Tensor, ks: torch.Tensor | None, k_static: in
         return topk_mask_ref(flat, kk, guard=ks is not None).reshape(logits.shape)
     out = torch.empty_like(flat)
     if rows and vocab:
-        use_smem = int(vocab <= smem_max_vocab(logits.device.index or 0))
+        use_smem = int(vocab <= smem_max_vocab(logits.device.index or 0, logits.dtype))
         _launch(name, "topk_select", "topk_mask", (flat, ks, out),
                 (rows, vocab, k_static, int(ks is not None), use_smem), logits.device,
                 dtype=logits.dtype)
@@ -175,9 +176,10 @@ def _topk(name: str, logits: torch.Tensor, ks: torch.Tensor | None, k_static: in
 def topk_mask_dynamic(logits: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
     """Per-row-budget dense top-k mask of ``logits (..., V)`` fp32 or bf16
     (out: the same dtype) with int32 budgets ``ks`` of the leading shape,
-    clamped to ``[0, V]``, by the fp32 bisection on the values: threshold
-    semantics (ties at the k-th value kept), ``k = 0`` zeroes the row — the
-    ``fused`` engine's uplink sparsifier."""
+    clamped to ``[0, V]``, by the fp32 bisection on the values (the bf16
+    kernel finds the k-th value exactly and replays the bisection's steps):
+    threshold semantics (ties at the k-th value kept), ``k = 0`` zeroes the
+    row — the ``fused`` engine's uplink sparsifier."""
     return _topk("topk_mask_dynamic", logits, ks, 0)
 
 

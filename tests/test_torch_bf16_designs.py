@@ -1,0 +1,341 @@
+"""CPU models of the designs of the port's two bf16 kernels.
+
+A CUDA kernel cannot run here; these tests pin what each design computes
+against the plain versions in ``repro_torch.kernels.ref`` (themselves held
+to the JAX reference in ``test_torch_bf16.py``).
+
+Top-k (``csrc/topk_select.cu``, ``topk_radix_bf16_kernel``).  A bf16 row
+has only 65 536 possible values, so the kernel finds X_k, the k-th largest
+value, exactly before any bisection step: a radix select on the 16-bit key
+that orders bf16 values (a negative value's bits all flipped, a positive
+value's top bit set), over two digits of 11 and 5 bits — the high digit's
+histogram, a scan from the top to the bin holding rank k, the low digit's
+histogram among that bin's values, a second scan.  min and max come from the keys (a
+NaN's key lies beyond +-inf's).  One thread then replays the 30 steps of
+the plain version with no count: ``count(x >= mid) >= k`` holds iff
+``mid <= X_k`` for k >= 1 on a row without NaN, so ``take = mid <= X_k``
+(the static k <= 0 takes every step).  The model below follows those
+steps in numpy and is held bitwise to ``topk_mask_ref`` on bf16 rows: normal
+and constant rows, tie groups of 40, 1040 and 7664 values at X_k, rows
+mixing -0 and +0, +-inf and NaN, rows of one exponent bin, k in
+{0, 1, V, V + 7} static and per row, and rows drawn by hypothesis.  A
+replay with ``mid < X_k`` fails it.
+
+Attention (``csrc/flash_attention.cu``, ``flash_attention_bf16_kernel``).
+The kernel runs Q K^T as one bf16 product (each bf16 x bf16 product exact
+in fp32, summed in fp32) and P V with P in two bf16 pieces, ``hi =
+bf16(P)``, ``lo = bf16(P - hi)``, over 64-key tiles with the online
+softmax, the diagonal tile masked with -inf before the max, and rounds the
+output to bf16 once.  The model is held within ``S * 2^-24 * max|v|`` plus
+one bf16 ulp of the plain version (the check ``chip_smoke.py`` holds the
+kernel to) at q, k scales 1 and 4; with P in one piece, as bf16 SDPA
+rounds it, it misses that check; and it is causal bitwise.
+"""
+
+import math
+import operator
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ref  # noqa: E402
+
+f32 = np.float32
+ITERS = ref.BISECTION_ITERS
+LOW_BITS = 5  # the top-k kernel's low digit (kLowBits); the high digit has 16 - 5
+KEYS = 64  # the attention kernel's key tile
+
+
+# -- top-k: the radix select and the replayed bisection ------------------------
+
+
+def bf16_bits(x: torch.Tensor) -> np.ndarray:
+    """The raw 16 bits of a bf16 tensor."""
+    return x.contiguous().view(torch.int16).numpy().astype(np.uint32) & 0xFFFF
+
+
+def keys_of(bits: np.ndarray) -> np.ndarray:
+    """bf16 bits -> the 16-bit key in value order (the kernel's ``keys2``)."""
+    return np.where(bits & 0x8000, bits ^ 0xFFFF, bits ^ 0x8000)
+
+
+def key_value(key: int) -> np.float32:
+    """The value of a key, exact in fp32 (the kernel's ``key_value``)."""
+    raw = key ^ (0x8000 if key & 0x8000 else 0xFFFF)
+    return np.array([raw << 16], dtype=np.uint32).view(f32)[0]
+
+
+def select_digit(hist: np.ndarray, kk: int) -> tuple[int, int]:
+    """The bin d holding rank kk from the top, and the count above it:
+    above < kk <= above + hist[d] (the kernel's ``select_digit``)."""
+    incl = np.cumsum(hist[::-1])[::-1]  # values in bins >= d
+    above = incl - hist
+    hit = np.flatnonzero((above < kk) & (kk <= incl))
+    assert hit.size == 1, (kk, int(incl[0]))
+    return int(hit[0]), int(above[hit[0]])
+
+
+def radix_lo(bits: np.ndarray, k: int, take=operator.le) -> np.float32:
+    """The bisection's final lo for one bf16 row as the kernel finds it:
+    min and max from the keys, X_k by its two digits, then the 30 steps
+    replayed with ``take(mid, X_k)``."""
+    keys = keys_of(bits)
+    kmin, kmax = int(keys.min()), int(keys.max())
+    if kmax > 0xFF80 or kmin < 0x007F:  # a NaN: min and max are NaN, so is lo
+        return f32(np.nan)
+    xk = f32(0)
+    if k > 0:
+        high, above = select_digit(np.bincount(keys >> LOW_BITS, minlength=1 << (16 - LOW_BITS)), k)
+        in_bin = keys[keys >> LOW_BITS == high] & ((1 << LOW_BITS) - 1)
+        low, _ = select_digit(np.bincount(in_bin, minlength=1 << LOW_BITS), k - above)
+        xk = key_value(high << LOW_BITS | low)
+    lo, hi = key_value(kmin), key_value(kmax) + f32(1)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for _ in range(ITERS):
+            mid = (lo + hi) * f32(0.5)
+            if k <= 0 or take(mid, xk):  # a NaN mid never takes for k >= 1
+                lo = mid
+            else:
+                hi = mid
+    return lo
+
+
+def model_mask(x: torch.Tensor, budget: int, guard: bool, take=operator.le) -> torch.Tensor:
+    """The kernel's masked row: a per-row budget is clamped to [0, V] and
+    its k = 0 zeroes the row (guard); the static k is min(k, V), with no
+    guard.  Kept values keep their bits, the rest are +0."""
+    vocab = x.shape[-1]
+    k = min(max(budget, 0), vocab) if guard else min(budget, vocab)
+    if guard and k == 0:
+        return torch.zeros_like(x)
+    lo = radix_lo(bf16_bits(x), k, take)
+    with np.errstate(invalid="ignore"):
+        keep = torch.as_tensor(x.float().numpy() >= lo)
+    return torch.where(keep, x, torch.zeros_like(x))
+
+
+def check_row(x: torch.Tensor, budgets, take=operator.le) -> None:
+    for budget in budgets:
+        for guard in (True, False):
+            kk = min(max(budget, 0), x.shape[-1]) if guard else min(budget, x.shape[-1])
+            want = ref.topk_mask_ref(x[None], torch.tensor([kk], dtype=torch.int32), guard=guard)[0]
+            got = model_mask(x, budget, guard, take)
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16)), (budget, guard)
+
+
+VOCAB = 20_000  # past the largest tie group the kernel's earlier design had to spill
+
+
+def _bf16(a: np.ndarray) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, dtype=f32)).to(torch.bfloat16)
+
+
+def _tie_row(group: int, rng) -> tuple[torch.Tensor, list[int]]:
+    """A bf16-rounded normal row with ``group`` more values set to one value
+    near its top (which bf16 already ties with a few others), and budgets
+    at the tie group's first, middle and last rank."""
+    x = _bf16(rng.normal(size=VOCAB)).float().numpy()
+    v0 = f32(np.sort(x)[::-1][VOCAB // 50])
+    x[rng.choice(np.flatnonzero(x != v0), size=group, replace=False)] = v0
+    above, tie = int((x > v0).sum()), int((x == v0).sum())
+    return _bf16(x), [above + 1, above + tie // 2, above + tie]
+
+
+def _special_row(kind: str, rng) -> torch.Tensor:
+    x = rng.normal(size=VOCAB).astype(f32)
+    if kind == "signed_zeros":  # -0 and +0 around X_k: two keys, one value
+        x[: VOCAB // 4] = 0.0
+        x[VOCAB // 8: VOCAB // 4] = -0.0
+    elif kind == "infinities":  # every mid is NaN after the first step
+        x[7], x[9] = np.inf, -np.inf
+    elif kind == "plus_inf":
+        x[: 30] = np.inf
+    elif kind == "minus_inf":
+        x[: 30] = -np.inf
+    elif kind == "nan":
+        x[11] = np.nan
+    elif kind == "negative_nan":
+        x[11] = -np.nan
+    elif kind == "constant":
+        x[:] = 2.5
+    elif kind == "one_bin":  # one exponent: 4 high-digit bins of the kernel, one 8-bit bin
+        x = (1.0 + rng.integers(0, 128, size=VOCAB) / 128).astype(f32)
+    elif kind == "all_negative":
+        x -= 50.0
+    elif kind == "near_max":  # lo + hi overflows fp32
+        x[:] = 3e38
+        x[: VOCAB // 6] = 3.3e38
+    elif kind == "mid_at_xk":  # the first mid, (-2 + 1 + 1) / 2 = 0, is X_k at xk_budget's k
+        x = rng.uniform(-2.0, 1.0, size=VOCAB).astype(f32)
+        x[0], x[1] = -2.0, 1.0
+        x[2:200] = 0.0
+        x[200] = -1e-30  # within 2^-27 below X_k: kept only by a replay that misses the tie
+    return _bf16(x)
+
+
+def xk_budget(x: torch.Tensor) -> int:
+    """The budget whose k-th value is 0 in a ``mid_at_xk`` row."""
+    return int((x.float() >= 0).sum())
+
+
+_SPECIAL = ["normal", "signed_zeros", "infinities", "plus_inf", "minus_inf", "nan", "negative_nan",
+            "constant", "one_bin", "all_negative", "near_max", "mid_at_xk"]
+
+
+def test_keys_order_bf16_values():
+    """The key orders every non-NaN bf16 value, -0 just below +0, and a
+    NaN's key lies beyond +-inf's; key_value inverts it."""
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    keys = keys_of(bits)
+    assert np.array_equal(np.sort(keys), bits)  # a bijection on 16 bits
+    vals = torch.as_tensor(bits.astype(np.uint16).view(np.int16)).view(torch.bfloat16).float().numpy()
+    finite = ~np.isnan(vals)
+    order = np.argsort(keys[finite], kind="stable")
+    assert np.all(np.diff(vals[finite][order]) >= 0)
+    nan_keys = keys[~finite]
+    assert np.all((nan_keys > 0xFF80) | (nan_keys < 0x007F))
+    assert keys_of(np.array([0x7F80, 0xFF80]))[0] == 0xFF80 and keys_of(np.array([0xFF80]))[0] == 0x007F
+    for key in (0, 0x7F, 0x7FFF, 0x8000, 0xBF80, 0xFF80, 0xFFFF):
+        assert keys_of(np.array([int(np.array([key_value(key)]).view(np.uint32)[0]) >> 16]))[0] == key
+
+
+@pytest.mark.parametrize("k", ["0", "1", "V", "V+7", "inner"])
+@pytest.mark.parametrize("kind", _SPECIAL)
+def test_radix_select_replay_matches_plain_bitwise(kind, k):
+    rng = np.random.default_rng(len(kind) * 7 + len(k))
+    x = _special_row(kind, rng)
+    budget = {"0": 0, "1": 1, "V": VOCAB, "V+7": VOCAB + 7,
+              "inner": xk_budget(x) if kind == "mid_at_xk" else 333}[k]
+    check_row(x, [budget])
+
+
+@pytest.mark.parametrize("group", [40, 1040, 7664])
+def test_radix_select_replay_on_tie_groups(group):
+    """Ties at X_k cost the radix select nothing: the groups of 40, 1040 and
+    7664 values that the fp32 design's stages had to fall back on."""
+    x, budgets = _tie_row(group, np.random.default_rng(group))
+    check_row(x, budgets)
+    tie = int((x.float() == x.float().sort(descending=True).values[budgets[0] - 1]).sum())
+    assert tie == budgets[2] - budgets[0] + 1 >= group
+
+
+def test_radix_select_replay_on_random_rows():
+    hypothesis = pytest.importorskip("hypothesis")
+    st = hypothesis.strategies
+
+    @hypothesis.settings(max_examples=25, deadline=None, derandomize=True)
+    @hypothesis.given(seed=st.integers(0, 2**32 - 1), vocab=st.integers(1, 3000),
+                      scale=st.sampled_from([1e-3, 0.55, 1.0, 30.0, 1e30]),
+                      shift=st.sampled_from([0.0, -50.0, 1.0]), budget=st.integers(-3, 3100),
+                      levels=st.sampled_from([0, 3, 100]))
+    def rows(seed, vocab, scale, shift, budget, levels):
+        rng = np.random.default_rng(seed)
+        x = rng.normal(size=vocab) * scale + shift
+        if levels:  # few distinct values: large tie groups
+            x = np.round(x * levels) / levels
+        check_row(_bf16(x), [budget, 1, vocab])
+
+    rows()
+
+
+def test_replay_with_a_strict_comparison_fails():
+    """The mutation ``mid < X_k`` breaks the replay where a mid equals X_k:
+    the first mid of a ``mid_at_xk`` row is its k-th value, 0, and the
+    mutated replay then keeps -1e-30 as well."""
+    x = _special_row("mid_at_xk", np.random.default_rng(3))
+    check_row(x, [xk_budget(x)])
+    with pytest.raises(AssertionError):
+        check_row(x, [xk_budget(x)], take=operator.lt)
+
+
+# -- attention: Q K^T in bf16, P V with P in two bf16 pieces -------------------
+
+
+def attention_model(q, k, v, pieces: int = 2) -> torch.Tensor:
+    """Causal attention over (B, S, D) bf16 q, k, v as the kernel computes
+    it: 64-key tiles in order with the online softmax, scores from exact
+    bf16 products summed in fp32, exp as 2^(s c - m c) with c = scale *
+    log2(e), P in ``pieces`` bf16 pieces, the output rounded to bf16 once."""
+    b, s, d = q.shape
+    c = f32(d**-0.5) * f32(math.log2(math.e))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    rows = torch.arange(s)
+    m = torch.full((b, s), -math.inf)
+    lsum = torch.zeros((b, s))
+    o = torch.zeros((b, s, d))
+    for j in range(0, s, KEYS):
+        keys = torch.arange(j, min(j + KEYS, s))
+        sc = qf @ kf[:, keys].transpose(1, 2)
+        sc = torch.where(keys[None, None, :] > rows[None, :, None], -math.inf, sc)  # diagonal tile
+        live = (rows // KEYS >= j // KEYS)[None, :]  # tiles above a query tile's diagonal: skipped
+        new_m = torch.maximum(m, sc.amax(dim=-1))
+        r = torch.exp2((m - new_m) * c)
+        p = torch.exp2(sc * c - (new_m * c)[..., None])
+        acc = torch.zeros_like(o)
+        rest = p
+        for _ in range(pieces):  # the small piece enters first in the kernel; fp32 sums here
+            piece = rest.to(torch.bfloat16).float()
+            acc = acc + piece @ vf[:, keys]
+            rest = rest - piece
+        o = torch.where(live[..., None], o * r[..., None] + acc, o)
+        lsum = torch.where(live, lsum * r + p.sum(dim=-1), lsum)
+        m = torch.where(live, new_m, m)
+    return (o / lsum[..., None]).to(torch.bfloat16)
+
+
+def bf16_ulp(*xs):
+    """One bf16 ulp of the larger magnitude, elementwise (as chip_smoke.py)."""
+    a = torch.stack([x.float().abs() for x in xs]).amax(dim=0)
+    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-38))) - 7),
+                       torch.zeros_like(a))
+
+
+def excess(got, want, seq, v) -> float:
+    """The largest error over the check ``S * 2^-24 * max|v|`` plus one bf16
+    ulp, as a multiple of it (<= 1 passes)."""
+    tol = seq * 2.0**-24 * float(v.float().abs().max()) + bf16_ulp(got, want)
+    return float(((got.float() - want.float()).abs() / tol).max())
+
+
+def _qkv(seed, shape, scale=1.0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=shape).astype(f32) for _ in range(3))
+    return _bf16(q * scale), _bf16(k * scale), _bf16(v)
+
+
+@pytest.mark.parametrize("qk_scale", [1.0, 4.0])
+@pytest.mark.parametrize("shape", [(2, 256, 64), (3, 96, 64)])
+def test_two_piece_attention_model_within_the_check(shape, qk_scale):
+    q, k, v = _qkv(int(qk_scale) + shape[1], shape, qk_scale)
+    want = ref.flash_attention_ref(q, k, v)
+    assert excess(attention_model(q, k, v), want, shape[1], v) <= 1.0
+
+
+def test_one_bf16_piece_misses_the_check():
+    """P rounded once to bf16 (as bf16 SDPA does) leaves errors of ~2^-9 of
+    the weights: far past the check, where two pieces (~2^-17) pass."""
+    q, k, v = _qkv(9, (2, 256, 64), 4.0)
+    want = ref.flash_attention_ref(q, k, v)
+    one, two = (excess(attention_model(q, k, v, n), want, 256, v) for n in (1, 2))
+    assert one > 4.0 and two <= 1.0, (one, two)
+
+
+def test_attention_model_is_causal_bitwise():
+    q, k, v = _qkv(5, (2, 256, 64))
+    base = attention_model(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 150:], v2[:, 150:] = 99.0, -99.0
+    pert = attention_model(q, k2, v2)
+    assert torch.equal(base[:, :150], pert[:, :150]) and not torch.equal(base[:, 150:], pert[:, 150:])
+
+
+def test_attention_model_late_maximum():
+    """A row whose largest score arrives in a late key tile rescales its
+    earlier sums: the model stays within the check and lands on that key's v."""
+    q, k, v = _qkv(6, (1, 256, 64))
+    k[:, 200] = (2.0 * q[:, 230].float()).to(torch.bfloat16)
+    got = attention_model(q, k, v)
+    assert excess(got, ref.flash_attention_ref(q, k, v), 256, v) <= 1.0
+    assert float((got[0, 230].float() - v[0, 200].float()).abs().max()) < 0.05 * float(v.float().abs().max())

@@ -1,7 +1,8 @@
 """Measure the port's kernels against an earlier checkout on one GPU, and
-break the top-k's time into its phases.
+break the top-k's and the bf16 kernels' time into their phases.
 
-    python3 tools/kernel_probe.py --parent DIR [--real] [--kernels topk,scatter,agg,kl,attention]
+    python3 tools/kernel_probe.py --parent DIR [--real]
+        [--kernels topk,scatter,agg,kl,attention,topk_bf16,attention_bf16]
 
 DIR is a checkout of an earlier commit (for example ``git archive <commit>``
 unpacked into ``build/parent``); its ``topk_select.cu``, ``sparse_agg.cu``,
@@ -24,15 +25,29 @@ outputs compared bitwise with each other); ``--kernels`` picks which:
   turn over ``chip_smoke.COLD_COPIES`` copies of them);
 * the causal attention at (96, 1024, 64) on N(0, 1) q, k, v, after
   ``chip_smoke.py``'s checks of the attention kernel, with the opcode mix of
-  this checkout's attention library (``cuobjdump -sass``).
+  this checkout's fp32 attention kernel (``cuobjdump -sass``);
+* the bf16 top-k (``topk_mask_bf16``) on the same inputs rounded to bf16
+  and on rows of one exponent bin (with ``--real``, the bf16 ``fused``
+  run's input), after ``chip_smoke.py``'s checks of the bf16 top-k, both
+  builds held ``torch.equal`` to the plain version; with a clocked copy of
+  this checkout's bf16 kernel (load and high-digit histogram, the two
+  scans and the low-digit pass, the replay, the store) and a copy that
+  writes the row with plain stores instead of streaming ones, timed
+  beside it;
+* the bf16 attention (``flash_attention_bf16``) at (96, 1024, 64), after
+  ``chip_smoke.py``'s checks of the bf16 attention, both builds within the
+  check and beside bf16 SDPA (a library call the port never makes), with a
+  clocked copy of this checkout's kernel (each consumer warpgroup's cycles
+  waiting for K/V tiles, in Q K^T, in the softmax and in P V) and a copy
+  at one block an SM, and the bf16 kernel's opcode mix.
 
 It also builds a copy of this checkout's ``topk_select.cu`` with clock
-reads added at its phase boundaries (load, bisection, store) and counters
-of its full passes, buffer counts and compactions, and prints their
-medians over the 256 rows; and it runs the earlier top-k on a row holding
-a NaN, to show what that kernel kept there.  The clock copy is made by
-text substitution at fixed lines of the source: when those lines change,
-the script stops with the line it could not find.
+reads added at its fp32 kernel's phase boundaries (load, bisection, store)
+and counters of its full passes, buffer counts and compactions, and prints
+their medians over the 256 rows; and it runs the earlier top-k on a row
+holding a NaN, to show what that kernel kept there.  The clock copies and
+the variants are made by text substitution at fixed lines of the source:
+when those lines change, the script stops with the line it could not find.
 """
 
 from __future__ import annotations
@@ -86,13 +101,13 @@ def topk_clocks() -> str:
         ("        if (s.n_buf < 0) {  // a full pass\n", "        if (s.n_buf < 0) {  // a full pass\n          ++pf;\n"),
         ("        } else {  // a count over the buffer\n",
             "        } else {  // a count over the buffer\n          ++pb;\n"),
-        ("          compact_row<kSmem, T>(", "          ++pc;\n          compact_row<kSmem, T>("),
+        ("          compact_row<kSmem>(", "          ++pc;\n          compact_row<kSmem>("),
         ("          warp_steps(s, buf, k);",
             "          const long long pw0 = clock64();\n          warp_steps(s, buf, k);\n"
             "          pwc = clock64() - pw0;"),
         ("  // -- the masked row ---", "  const long long pt2 = clock64();\n  // -- the masked row ---"),
-        ("      outr[c] = __float2bfloat16_rn(v >= lo ? v : 0.0f);\n    }\n  }\n}\n",
-            "      outr[c] = __float2bfloat16_rn(v >= lo ? v : 0.0f);\n    }\n  }\n"
+        ("      outr[c] = v >= lo ? v : 0.0f;\n    }\n  }\n}\n",
+            "      outr[c] = v >= lo ? v : 0.0f;\n    }\n  }\n"
             "  __syncthreads();\n"
             "  if (threadIdx.x == 0 && g_prof) { long long g1;\n"
             "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g1));\n"
@@ -102,6 +117,80 @@ def topk_clocks() -> str:
         ('extern "C" {\n',
             'extern "C" {\nvoid topk_set_prof(long long* p) { cudaMemcpyToSymbol(g_prof, &p, sizeof(p)); }\n'),
     ))
+
+
+GLOBALTIMER = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"({}));'
+
+
+def topk_bf16_clocks() -> str:
+    """``topk_select.cu`` with per-block clocks at the bf16 kernel's phase
+    boundaries written to a device buffer set by ``topk_set_prof``: 8 int64
+    a row (load and high-digit histogram, scans and low-digit pass, replay,
+    store; the block's globaltimer start and end)."""
+    return substituted(CSRC / "topk_select.cu", (
+        ("namespace {\n", "namespace {\n__device__ long long* g_prof;\n"),
+        ("  const int tid = threadIdx.x;\n  const __nv_bfloat16* xr",
+            "  const long long pt0 = clock64(); long long pg0;\n  " + GLOBALTIMER.format("pg0") + "\n"
+            "  const int tid = threadIdx.x;\n  const __nv_bfloat16* xr"),
+        ("  const bool any_nan = mn != mn;\n\n  // -- X_k",
+            "  const bool any_nan = mn != mn;\n  const long long pt1 = clock64();\n\n  // -- X_k"),
+        ("  // -- the 30 steps, replayed", "  const long long pt2 = clock64();\n  // -- the 30 steps, replayed"),
+        ("  const __nv_bfloat162 lo2 = __bfloat162bfloat162(__float2bfloat16_ru(s_lo));\n",
+            "  const __nv_bfloat162 lo2 = __bfloat162bfloat162(__float2bfloat16_ru(s_lo));\n"
+            "  const long long pt3 = clock64();\n"),
+        ("    for (int c = tid; c < vocab; c += kThreads) o16[c] = (uint16_t)keep2(x16[c], lo2);\n  }\n}\n",
+            "    for (int c = tid; c < vocab; c += kThreads) o16[c] = (uint16_t)keep2(x16[c], lo2);\n  }\n"
+            "  __syncthreads();\n"
+            "  if (tid == 0 && g_prof) { long long g1;\n    " + GLOBALTIMER.format("g1") + "\n"
+            "    long long* d = g_prof + 8 * blockIdx.x;\n"
+            "    d[0] = pt1 - pt0; d[1] = pt2 - pt1; d[2] = pt3 - pt2; d[3] = clock64() - pt3;\n"
+            "    d[6] = pg0; d[7] = g1; }\n}\n"),
+        ('extern "C" {\n',
+            'extern "C" {\nvoid topk_set_prof(long long* p) { cudaMemcpyToSymbol(g_prof, &p, sizeof(p)); }\n'),
+    ))
+
+
+def attention_bf16_clocks() -> str:
+    """``flash_attention.cu`` with the bf16 kernel's consumer cycles summed
+    by phase (waiting for a K/V tile; Q K^T; the row max and the rescale;
+    the exps, the P pieces and P V issued k-step by k-step, to its end) and
+    written per warpgroup to a buffer set by ``attn_set_prof``: 8 int64
+    each (the four sums, its tiles, its query tile, the block's globaltimer
+    start and the warpgroup's end)."""
+    return substituted(CSRC / "flash_attention.cu", (
+        ("namespace {\n", "namespace {\n__device__ long long* g_aprof;\n"),
+        ("  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n  // key tiles 0",
+            "  long long pg0;\n  " + GLOBALTIMER.format("pg0") + "\n"
+            "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n  // key tiles 0"),
+        ("  mbar_wait(smem_u32(&bar_q), 0);\n",
+            "  mbar_wait(smem_u32(&bar_q), 0);\n  long long cw = 0, cq = 0, csm = 0, cpv = 0;\n"),
+        ("    mbar_wait(smem_u32(&bar_full[s]), (j / kStagesBf16) & 1);\n",
+            "    const long long ca = clock64();\n    mbar_wait(smem_u32(&bar_full[s]), (j / kStagesBf16) & 1);\n"
+            "    const long long cb = clock64();\n    cw += cb - ca;\n"),
+        ("    fence_regs(sc);\n", "    fence_regs(sc);\n    const long long cc = clock64();\n    cq += cc - cb;\n"),
+        ("    fence_regs(o);\n\n    // O += P V",
+            "    fence_regs(o);\n    const long long cd = clock64();\n    csm += cd - cc;\n\n    // O += P V"),
+        ("    wgmma_commit();\n    wgmma_wait();\n    fence_regs(o);\n    __syncwarp();\n",
+            "    wgmma_commit();\n    wgmma_wait();\n    fence_regs(o);\n    cpv += clock64() - cd;\n    __syncwarp();\n"),
+        ("          pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);\n  }\n}\n",
+            "          pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);\n  }\n"
+            "  if ((threadIdx.x & 127) == 0 && g_aprof) { long long g1;\n    " + GLOBALTIMER.format("g1") + "\n"
+            "    long long* d = g_aprof + 8 * ((blockIdx.y * gridDim.x + blockIdx.x) * kConsumers + wg);\n"
+            "    d[0] = cw; d[1] = cq; d[2] = csm; d[3] = cpv; d[4] = n_mine; d[5] = blockIdx.y;\n"
+            "    d[6] = pg0; d[7] = g1; }\n}\n"),
+        ('extern "C" {\n',
+            'extern "C" {\nvoid attn_set_prof(long long* p) { cudaMemcpyToSymbol(g_aprof, &p, sizeof(p)); }\n'),
+    ))
+
+
+# builds of this checkout's bf16 kernels with a line or two changed, timed beside it
+VARIANTS = {
+    "topk_plain_stores": ("topk_select.cu", [(
+        "      __stcs(reinterpret_cast<uint4*>(outr - q) + g,\n             make_uint4(",
+        "      *(reinterpret_cast<uint4*>(outr - q) + g) = (\n             make_uint4(")]),
+    "attention_1_block": ("flash_attention.cu", [("constexpr int kBlocksPerSm = 2;",
+                                                  "constexpr int kBlocksPerSm = 1;")]),
+}
 
 
 def c_fn(lib: ctypes.CDLL, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):
@@ -228,34 +317,42 @@ def topk_ab(libs, device, real=None) -> None:
 
 
 def compile_libs(parent: Path) -> dict[str, ctypes.CDLL]:
-    """The earlier checkout's four sources and the clocked top-k copy, one
-    nvcc each, all at once."""
+    """The earlier checkout's four sources, the clocked copies and the
+    variants, one nvcc each, all at once."""
     OUT.mkdir(parents=True, exist_ok=True)
     pcsrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
     sources = {"parent_topk": pcsrc / "topk_select.cu", "parent_agg": pcsrc / "sparse_agg.cu",
-               "parent_kl": pcsrc / "distill_kl.cu", "parent_attention": pcsrc / "flash_attention.cu",
-               "topk_clocks": OUT / "topk_clocks.cu"}
-    sources["topk_clocks"].write_text(topk_clocks())
+               "parent_kl": pcsrc / "distill_kl.cu", "parent_attention": pcsrc / "flash_attention.cu"}
+    made = {"topk_clocks": topk_clocks(), "topk_bf16_clocks": topk_bf16_clocks(),
+            "attention_bf16_clocks": attention_bf16_clocks()}
+    made.update({name: substituted(CSRC / src, pairs) for name, (src, pairs) in VARIANTS.items()})
+    for name, text in made.items():
+        sources[name] = OUT / f"{name}.cu"
+        sources[name].write_text(text)
     jobs = {name: (OUT / f"lib{name}.so", subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(OUT / f"lib{name}.so"), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for name, src in sources.items()}
     libs = {}
-    keys = ("topk_mask_kernel", "scatter_wire_kernel", "sparse_aggregate", "distill_kl_kernel",
-            "flash_attention_kernel")
+    keys = ("topk_mask_kernel", "topk_radix_bf16_kernel", "scatter_wire_kernel", "sparse_aggregate",
+            "distill_kl_kernel", "flash_attention_kernel", "flash_attention_bf16_kernel")
     for name, (so, proc) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"kernel_probe: nvcc failed on {name}\n{log}")
         libs[name] = ctypes.CDLL(str(so))
-        if name.startswith("parent_"):  # the earlier kernels' registers and spills, beside this build's
+        if name.startswith("parent_") or name in VARIANTS:  # registers and spills, beside this build's
             print(f"[probe] {name} ptxas -v: {' | '.join(cs.ptxas_report(log, keys))}", flush=True)
     return libs
 
 
-def sass_histogram(lib: Path, top: int = 24) -> str:
+def sass_histogram(lib: Path, kernel: str, top: int = 24) -> str:
+    """The opcode mix of the one kernel of ``lib`` whose name holds ``kernel``."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
                           text=True).stdout
+    # cuobjdump prints each function after a "Function : <mangled name>" line
+    sections = re.split(r"\n\s*Function : ", sass)
+    sass = "\n".join(sec for sec in sections[1:] if re.match(rf"\S*\d{kernel}E", sec))
     counts: dict[str, int] = {}
     for line in sass.splitlines():
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
@@ -322,19 +419,122 @@ def attention_ab(libs, device) -> None:
     print(f"[probe] flash_attention: this == earlier bitwise: "
           f"{torch.equal(outs['this'], outs['earlier'])}", flush=True)
     in_turns(f"flash_attention at ({bh}, {seq}, {d})", runs["earlier"], runs["this"])
-    print(f"[probe] flash_attention SASS: {sass_histogram(build.build_all(['flash_attention'])['flash_attention'])}",
+    lib = build.build_all(["flash_attention"])["flash_attention"]
+    print(f"[probe] flash_attention (fp32) SASS: {sass_histogram(lib, 'flash_attention_kernel')}", flush=True)
+
+
+def median(values) -> float:
+    return statistics.median(float(v) for v in values)
+
+
+def topk_bf16_ab(libs, device, real=None) -> None:
+    """The bf16 top-k, this build against the earlier one in turns on normal,
+    scale-0.55, constant and one-exponent-bin rows (and the bf16 fused run's
+    input), with the clocked copy's phases and the plain-stores variant."""
+    cs.check_bf16_topk(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rows, vocab = 4 * cs.ROWS, cs.VOCAB
+    gen = torch.Generator(device=device).manual_seed(5)
+    budgets = torch.tensor([388, 608, 342, 428], dtype=torch.int32, device=device).repeat_interleave(cs.ROWS)
+    level = torch.randint(0, 128, (rows, vocab), generator=gen, device=device)
+    inputs = {"normal rows": (torch.randn((rows, vocab), generator=gen, device=device), budgets),
+              "rows of scale 0.55": (0.55 * torch.randn((rows, vocab), generator=gen, device=device), budgets),
+              "constant rows": (torch.full((rows, vocab), 0.5, device=device), budgets),
+              "one-exponent-bin rows": (1.0 + level / 128.0, budgets)}
+    if real is not None:
+        inputs["the bf16 fused run's input"] = real
+    out = torch.empty((rows, vocab), dtype=cs.BF16, device=device)
+    new = ops._fn("topk_select", "topk_mask_bf16", 3, 5)
+    old = c_fn(libs["parent_topk"], "topk_mask_bf16", 3, 5)
+    clk = c_fn(libs["topk_bf16_clocks"], "topk_mask_bf16", 3, 5)
+    variants = {name: c_fn(libs[name], "topk_mask_bf16", 3, 5) for name in VARIANTS if name.startswith("topk")}
+    libs["topk_bf16_clocks"].topk_set_prof.argtypes = [P]
+    clocks = torch.zeros((rows, 8), dtype=torch.int64, device=device)
+    libs["topk_bf16_clocks"].topk_set_prof(clocks.data_ptr())
+    for label, (x, kk) in inputs.items():
+        x = x.to(cs.BF16)
+        args = (x.data_ptr(), kk.data_ptr(), out.data_ptr(), rows, vocab, 0, 1, 1, stream)
+        want = ref.topk_mask_ref(x, kk, guard=True)
+        for fn in (new, old, clk, *variants.values()):
+            out.zero_()
+            assert fn(*args) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), label
+        in_turns(f"topk_mask_dynamic.bf16 on {label}", lambda a=args: old(*a), lambda a=args: new(*a))
+        times = {name: cs.time_ms(lambda fn=fn, a=args: fn(*a)) * 1e3 for name, fn in variants.items()}
+        print(f"[probe]   variants: {', '.join(f'{n} {t:.2f} us' for n, t in times.items())}", flush=True)
+        d = clocks.cpu()
+        phases = ", ".join(f"{name} {median(d[:, j])}" for j, name in enumerate(
+            ("load+high histogram", "scans+low pass", "replay", "store")))
+        span = int(d[:, 7].max() - d[:, 6].min())
+        starts = d[:, 6] - d[:, 6].min()
+        print(f"[probe]   per-row median cycles: {phases}; kernel span {span} ns (globaltimer), block "
+              f"duration median {median(d[:, 7] - d[:, 6])} ns, last block start {int(starts.max())} ns",
+              flush=True)
+
+
+def attention_bf16_ab(libs, device) -> None:
+    """The bf16 attention, this build against the earlier one and bf16 SDPA
+    in turns at (96, 1024, 64), with the clocked copy's per-warpgroup
+    phases, the one-block-an-SM variant and the kernel's opcode mix."""
+    cs.check_bf16_attention(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    b, h, seq, d = 8, 12, 1024, 64
+    gen = torch.Generator(device=device).manual_seed(7)
+    q4, k4, v4 = (torch.randn((b, h, seq, d), generator=gen, device=device).to(cs.BF16) for _ in range(3))
+    q, k, v = (t.reshape(b * h, seq, d) for t in (q4, k4, v4))
+    out = torch.empty_like(q)
+    want = ref.flash_attention_ref(q, k, v)
+    tol = cs.attention_tolerance(seq, v)
+    args = [x.data_ptr() for x in (q, k, v, out)]
+    fns = {"this": ops._fn("flash_attention", "flash_attention_bf16", 4, 3, 1),
+           "earlier": c_fn(libs["parent_attention"], "flash_attention_bf16", 4, 3, 1),
+           "clocked": c_fn(libs["attention_bf16_clocks"], "flash_attention_bf16", 4, 3, 1),
+           **{name: c_fn(libs[name], "flash_attention_bf16", 4, 3, 1)
+              for name in VARIANTS if name.startswith("attention")}}
+    runs = {name: (lambda fn=fn: fn(*args, b * h, seq, d, d**-0.5, stream)) for name, fn in fns.items()}
+    for name, fn in runs.items():
+        out.fill_(float("nan"))
+        assert fn() == 0, name
+        torch.cuda.synchronize()
+        print(f"[probe] flash_attention.bf16 {name}: max |diff| {cs.within_bf16(out, want, tol):.3e}",
+              flush=True)
+    in_turns(f"flash_attention.bf16 at ({b * h}, {seq}, {d})", runs["earlier"], runs["this"])
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
+    t = [cs.time_ms(f) * 1e3 for f in (sdpa, runs["this"], runs["this"], sdpa)]
+    print(f"[probe] flash_attention.bf16: bf16 SDPA {t[0]:.2f} / {t[3]:.2f} us, this {t[1]:.2f} / {t[2]:.2f} us",
           flush=True)
+    for name in VARIANTS:
+        if name.startswith("attention"):
+            in_turns(f"flash_attention.bf16 {name} (earlier: this build)", runs["this"], runs[name])
+    n_qt = seq // 128
+    prof = torch.zeros((b * h * n_qt * 2, 8), dtype=torch.int64, device=device)
+    libs["attention_bf16_clocks"].attn_set_prof.argtypes = [P]
+    libs["attention_bf16_clocks"].attn_set_prof(prof.data_ptr())
+    assert runs["clocked"]() == 0
+    torch.cuda.synchronize()
+    p = prof.cpu()
+    tiles = p[:, 4].sum()
+    parts = ", ".join(f"{name} {float(p[:, j].sum() / tiles):.0f}" for j, name in enumerate(
+        ("waiting for K/V", "Q K^T", "max and rescale", "exps, P pieces and P V")))
+    span = int(p[:, 7].max() - p[:, 6].min())
+    print(f"[probe] flash_attention.bf16 clocked: cycles a warpgroup-tile: {parts}; kernel span {span} ns, "
+          f"warpgroup duration median {median(p[:, 7] - p[:, 6])} ns, last block start "
+          f"{int((p[:, 6] - p[:, 6].min()).max())} ns", flush=True)
+    lib = build.build_all(["flash_attention"])["flash_attention"]
+    print(f"[probe] flash_attention.bf16 SASS: {sass_histogram(lib, 'flash_attention_bf16_kernel')}", flush=True)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, required=True, help="a checkout of the earlier commit")
     parser.add_argument("--real", action="store_true", help="also time the fused run's own input")
-    parser.add_argument("--kernels", default="topk,scatter,agg,kl,attention",
-                        help="comma-separated: which of topk, scatter, agg, kl, attention to probe")
+    names = ("topk", "scatter", "agg", "kl", "attention", "topk_bf16", "attention_bf16")
+    parser.add_argument("--kernels", default=",".join(names),
+                        help=f"comma-separated: which of {', '.join(names)} to probe")
     args = parser.parse_args()
     kernels = set(args.kernels.split(","))
-    if not kernels <= {"topk", "scatter", "agg", "kl", "attention"}:
+    if not kernels <= set(names):
         raise SystemExit(f"kernel_probe: unknown kernels {sorted(kernels)}")
     device, card = cs.phase_device()
     cs.phase_build()
@@ -343,9 +543,14 @@ def main() -> int:
         kl_ab(libs, device)
     if "attention" in kernels:
         attention_ab(libs, device)
+    if "attention_bf16" in kernels:
+        attention_bf16_ab(libs, device)
     if "topk" in kernels:
         real = cs.phase_main_path(device, "fused", False)["topk_input"] if args.real else None
         topk_ab(libs, device, real)
+    if "topk_bf16" in kernels:
+        real = cs.phase_main_path(device, "fused", False, bf16=True)["topk_input"] if args.real else None
+        topk_bf16_ab(libs, device, real)
     if "scatter" in kernels:
         scatter_ab(libs, device)
     if "agg" in kernels:
