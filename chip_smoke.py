@@ -43,14 +43,18 @@ Phases (any failure raises and exits non-zero):
      build line gives every kernel's registers and spills, and the count of
      tensor-core instructions in the attention library's SASS (HMMA: the
      fp32 kernel's mma.sync; HGMMA: the bf16 kernel's wgmma).
-   Then each kernel's bf16 entry point on bf16 inputs: the wire scatter,
-   the top-k masks (bf16-rounded normal rows, the NaN/+-inf/near-3e38
+   Then each kernel's bf16 entry point on bf16 inputs: the wire scatter
+   (also at its edges: 1 and 200 rows, N 1 and 8, k 1, 1000 and 3000, V 5
+   and 37, a column that takes 1e8, 1, -1e8, 1 from clients 0-3, and a, b,
+   idx as views at an offset), the top-k masks (bf16-rounded normal rows, the
+   NaN/+-inf/near-3e38
    rows, rows of a few exact bf16 values whose k-th value sits in a tie
    group of ~50, ~500, ~2000 and ~17 000 values, and a row of one exponent
    bin, which the bf16 kernel's radix select histograms into one bin) and
    the dense aggregation ``torch.equal`` to their plain versions (fp32
    arithmetic on the upcast inputs, rounded to bf16 once); the KL within
-   its fp32 tolerance; the attention within S * 2^-24 * max|v| plus one
+   its fp32 tolerance (also at 1 and 200 rows, with the maxima in the last
+   CTA's slice of the row); the attention within S * 2^-24 * max|v| plus one
    bf16 ulp (both round once from fp32; with late maxima too), and causal
    bitwise.
 4. small input — the port's round on a tiny config on the card (kernels)
@@ -112,7 +116,10 @@ Phases (any failure raises and exits non-zero):
    on constant rows (its worst case).  The KL's inputs (25.7 MB) would stay
    in the 50 MB L2 between back-to-back launches, so its row's ``ms`` (and
    ``plain_ms``) take the launches in turn over ``COLD_COPIES`` copies of
-   them, each read cold; ``ms_warm`` repeats one copy.  The bf16 entry
+   them, each read cold; ``ms_warm`` repeats one copy.  The float wire
+   scatter's and the KL's rows (fp32 and bf16) add ``ms_graph``: the same
+   launches captured in a CUDA graph and replayed, the host's per-call work
+   out of the way (for the KL read cold; ``ms_graph_warm`` warm).  The bf16 entry
    points get rows of their own (``name.bf16``), their bounds counting
    bytes at bf16 width (and, for the attention, Q K^T as one bf16 product
    and P V as three, P in three bf16 pieces for fp32 grade;
@@ -201,10 +208,12 @@ BF16 = torch.bfloat16
 # the bf16 main-path runs: the models compute in bf16, and so does the round body
 BF16_CFG = dict(compute_dtype="bfloat16")
 # the bf16 kernels' times before their redesign (loaders that upcast each
-# tile into the fp32 kernels: PERF.md section 6, H100 80GB HBM3, 700 W),
-# printed beside this run's; the kernels line keeps only what this run measured
+# tile into the fp32 kernels: PERF.md section 6, H100 80GB HBM3, 700 W; the
+# KL's read cold), printed beside this run's; the kernels line keeps only
+# what this run measured
 EARLIER_MS = {"topk_mask_dynamic.bf16": 0.0539, "topk_mask.bf16": 0.0536,
-              "flash_attention.bf16": 0.1410}
+              "flash_attention.bf16": 0.1410, "scatter_wire_sums.bf16": 0.0123,
+              "distill_kl.bf16": 0.0117}
 # the serving phase: tenants, slots, batch, prompt and decode lengths
 TENANTS, SLOTS, SERVE_BATCH, PROMPT, GEN = 8, 4, 8, 32, 32
 PREFILL_S = 1024
@@ -381,6 +390,25 @@ def time_ms(fn, calls: int = 10, reps: int = 21, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(launches, calls: int = 16, reps: int = 21) -> float:
+    """Milliseconds per launch with the host's work out of the way:
+    ``calls`` launches (``launches``: C-entry calls taking a stream handle,
+    run in turn) captured once in a CUDA graph, whose replays are timed.
+    Each is first called off the capture (first-call attributes)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for launch in launches:
+            assert launch(side.cuda_stream) == 0
+    torch.cuda.current_stream().wait_stream(side)
+    graph, turn = torch.cuda.CUDAGraph(), itertools.cycle(launches)
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(calls):
+            assert next(turn)(stream) == 0
+    return time_ms(graph.replay, calls=2, reps=reps) / calls
+
+
 def in_turn(calls):
     """One call that runs ``calls`` in turn, one a time."""
     turn = itertools.cycle(calls)
@@ -459,8 +487,9 @@ def phase_build():
     libs = build.build_all()
     log(f"[build] {', '.join(map(str, libs.values()))} in {time.perf_counter() - t0:.1f} s")
     report = (ptxas_report(build.build_log("topk_select"), ("topk_mask_kernel", "topk_radix_bf16_kernel"))
-              + ptxas_report(build.build_log("sparse_agg"), ("scatter_wire_kernel", "sparse_aggregate"))
-              + ptxas_report(build.build_log("distill_kl"), ("distill_kl_kernel",))
+              + ptxas_report(build.build_log("sparse_agg"), ("scatter_wire_kernel", "scatter_wire_bf16_kernel",
+                                                             "sparse_aggregate"))
+              + ptxas_report(build.build_log("distill_kl"), ("distill_kl_kernel", "distill_kl_bf16_kernel"))
               + ptxas_report(build.build_log("flash_attention"),
                              ("flash_attention_kernel", "flash_attention_bf16_kernel")))
     log(f"[build] ptxas -v: {' | '.join(report) or 'no log (library built earlier)'}")
@@ -615,6 +644,56 @@ def check_bf16_kernels(device):
     them), the KL within its fp32 tolerance (fp32 math on exactly upcast
     inputs), the attention within its fp32 bound plus one bf16 ulp, and
     causal bitwise."""
+    check_bf16_scatter(device)
+    check_bf16_topk(device)
+    for sparse in (True, False):
+        stack = dense_stack([1024, 517, 1, VOCAB], seed=11, device=device, sparse=sparse).to(BF16)
+        got, want = ops.sparse_aggregate(stack), ref.sparse_aggregate_ref(stack).to(BF16)
+        torch.cuda.synchronize()
+        assert got.dtype == BF16 and torch.equal(got, want), ("sparse_aggregate.bf16", sparse)
+    log("[kernels bf16] dense aggregation torch.equal to its plain version (fp32 result rounded "
+        "to bf16), top-k-sparse and dense stacks")
+    check_bf16_kl(device)
+    check_bf16_attention(device)
+
+
+ORDER_COL = 777  # takes 1e8, 1, -1e8, 1 from clients 0-3: 1 summed in order, 0 in reverse
+
+
+def at_offset(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of ``x`` as a contiguous view ``offset`` elements into a
+    buffer: another 16-byte phase than a fresh tensor's."""
+    view = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)[offset:].view(x.shape)
+    return view.copy_(x)
+
+
+def edge_wire(n: int, rows: int, k: int, vocab: int, seed: int, device):
+    """A bf16 wire of ``n`` clients with distinct indices per (client, row),
+    drawn from a seed: values of N(0, 9) (b = |a|), client 1 padding its
+    last entry at index 0 with zeros, and, for n >= 4 and V > 777, the
+    order-sensitive column first in clients 0-3."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    score = torch.rand((n, rows, vocab), generator=gen, device=device)
+    order = n >= 4 and vocab > ORDER_COL
+    if order:  # first in clients 0-3's top-k, in no other client's
+        score[:4, :, ORDER_COL], score[4:, :, ORDER_COL] = 2.0, -1.0
+    idx = torch.topk(score, k, dim=-1).indices.to(torch.int32)
+    a = 3.0 * torch.randn((n, rows, k), generator=gen, device=device)
+    if order:
+        a[:4, :, 0] = torch.tensor([1e8, 1.0, -1e8, 1.0], device=device)[:, None]
+    if n > 1 and k > 1:
+        idx[1, :, -1], a[1, :, -1] = 0, 0.0
+    a = a.to(BF16)
+    del score
+    return a, a.abs(), idx.contiguous()
+
+
+def check_bf16_scatter(device):
+    """The bf16 wire scatter ``torch.equal`` to its plain version (fp32 sums
+    rounded to bf16 once) on the main path's wires, and on wires at its
+    edges: 1 and 200 rows, N 1 and 8, k 1, 1000 and 3000, V 5, 37 and 152 064, the
+    order-sensitive column, and a, b and idx as views at an offset (another
+    16-byte phase: the bulk copies' head and tail granules)."""
     for k_cap, rows, vocab in ((128, ROWS, VOCAB), (1024, ROWS, VOCAB), (1024, WIDE_ROWS, WIDE_VOCAB)):
         wire = make_wire(k_cap, seed=k_cap, device=device, rows=rows, vocab=vocab, dtype=BF16)
         for mode in MODES:
@@ -626,18 +705,35 @@ def check_bf16_kernels(device):
                 "scatter_wire_sums.bf16", k_cap, mode)
     log("[kernels bf16] wire scatter torch.equal to its plain version (fp32 sums rounded to "
         "bf16) in all 3 modes, k_cap 128 and 1024, V 50 257 and 152 064")
-    check_bf16_topk(device)
-    for sparse in (True, False):
-        stack = dense_stack([1024, 517, 1, VOCAB], seed=11, device=device, sparse=sparse).to(BF16)
-        got, want = ops.sparse_aggregate(stack), ref.sparse_aggregate_ref(stack).to(BF16)
-        torch.cuda.synchronize()
-        assert got.dtype == BF16 and torch.equal(got, want), ("sparse_aggregate.bf16", sparse)
-    log("[kernels bf16] dense aggregation torch.equal to its plain version (fp32 result rounded "
-        "to bf16), top-k-sparse and dense stacks")
+    cases = ((1, 1, 1, VOCAB, (0, 0, 0)), (8, 200, 1000, VOCAB, (3, 5, 1)), (4, ROWS, 1024, VOCAB, (1, 7, 3)),
+             (8, 3, 3, VOCAB, (0, 1, 2)), (2, 5, 3000, VOCAB, (3, 1, 3)), (4, 1, 1000, WIDE_VOCAB, (5, 0, 1)),
+             (8, 3, 37, 37, (2, 0, 1)),
+             (2, 2, 5, 5, (1, 1, 1)))
+    for n, rows, k, vocab, offsets in cases:
+        a, b, idx = edge_wire(n, rows, k, vocab, seed=n * rows + k, device=device)
+        want = [x.to(BF16) for x in ref.scatter_wire_sums_ref(a, b, idx, vocab)]
+        for placed in ((a, b, idx), tuple(at_offset(x, o) for x, o in zip((a, b, idx), offsets))):
+            got = ops.scatter_wire_sums(*placed, vocab)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), ("scatter_wire_sums.bf16", n, rows, k,
+                                                                       vocab, placed[0].data_ptr() % 16)
+        if n >= 4 and vocab > ORDER_COL:  # the clients were summed in order
+            assert bool((want[0][:, ORDER_COL] == 1.0).all())
+    log(f"[kernels bf16] wire scatter torch.equal to its plain version at (N, rows, k, V) "
+        f"{[c[:4] for c in cases]}, each also with a, b, idx at offsets {[c[4] for c in cases]} "
+        f"elements; the column taking 1e8, 1, -1e8, 1 from clients 0-3 sums to 1")
+
+
+def check_bf16_kl(device):
+    """The bf16 KL within its fp32 tolerance of its plain version, exactly 0
+    for teacher == student."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for rows, vocab in ((ROWS, VOCAB), (32, VOCAB), (WIDE_ROWS, WIDE_VOCAB), (2 * sms + 56, VOCAB),
-                        (WIDE_ROWS, 37), (WIDE_ROWS, 5)):
-        t, s = (z.to(BF16) for z in kl_logits(rows, vocab, seed=vocab + 1, device=device))
+                        (WIDE_ROWS, 37), (WIDE_ROWS, 5), (1, VOCAB), (200, VOCAB)):
+        t, s = kl_logits(max(rows, 5), vocab, seed=vocab + 1, device=device)
+        # row 4: the teacher's and the student's maxima in the last CTA's slice of the row
+        t[4, vocab - min(9, vocab)], s[4, vocab - min(20, vocab)] = 40.0, 30.0
+        t, s = t[:rows].to(BF16), s[:rows].to(BF16)
         s_off = torch.empty(rows * vocab + 1, dtype=BF16, device=device)[1:].view(rows, vocab)
         s_off.copy_(s)  # another 16-byte phase than the teacher's
         worst = 0.0
@@ -651,10 +747,10 @@ def check_bf16_kernels(device):
                 assert bool((err <= tol).all()), ("distill_kl.bf16", rows, vocab, temp, float(err.max()))
                 assert float(got[0]) == 0.0, got[:4]
                 worst = max(worst, float(err.max()))
-        log(f"[kernels bf16] distill_kl at ({rows}, {vocab}), T in (1, 2, 4): within rtol 1e-5 + "
-            f"2e-6 (1 + |lse_t| + |lse_s|) per row (max |diff| {worst:.3e}), exactly 0 for teacher "
-            f"== student, student on another 16-byte phase")
-    check_bf16_attention(device)
+        c = max(c for c in (1, 2, 4, 8) if c == 1 or rows * c <= sms)
+        log(f"[kernels bf16] distill_kl at ({rows}, {vocab}) (C = {c}), T in (1, 2, 4): within rtol "
+            f"1e-5 + 2e-6 (1 + |lse_t| + |lse_s|) per row (max |diff| {worst:.3e}), exactly 0 for "
+            f"teacher == student, maxima in the last CTA's slice, student on another 16-byte phase")
 
 
 def check_bf16_topk(device):
@@ -1056,11 +1152,12 @@ def phase_serving(device, card: str) -> dict:
 
 
 def _row(name: str, raw, wrapper, plain, library, check, bytes_moved: float, ops_done: float,
-         desc: str, ops_per_s: float = FP32_OPS_PER_S) -> dict:
+         desc: str, ops_per_s: float = FP32_OPS_PER_S, graph=None) -> dict:
     """Time one kernel: its C entry point (``raw``, preallocated outputs,
     so the device and not the wrapper's host checks sets the pace), its
     wrapper, its plain version and the library call; ``check`` compares the
-    raw launch's output with the plain version's."""
+    raw launch's output with the plain version's.  ``graph``: the same
+    launches as functions of a stream, for ``ms_graph`` (``graph_ms``)."""
     assert raw() == 0
     torch.cuda.synchronize()
     err = check()
@@ -1073,6 +1170,11 @@ def _row(name: str, raw, wrapper, plain, library, check, bytes_moved: float, ops
         "library_ms": None if library is None else time_ms(library),
     }
     row["pct_of_bound"] = 100.0 * bound_ms / row["ms"]
+    if graph is not None:
+        row["ms_graph"] = graph_ms(graph)
+        log(f"[timing] {name}: {row['ms_graph']:.4f} ms a launch replayed from a CUDA graph "
+            f"(back-to-back C calls {row['ms']:.4f} ms), {100.0 * bound_ms / row['ms_graph']:.0f} % of "
+            f"its bound")
     lib = "-" if library is None else f"{row['library_ms']:.4f} ms"
     log(f"[timing] {name} {desc}: kernel {row['ms']:.4f} ms (wrapper call {time_ms(wrapper):.4f} ms), "
         f"plain {row['plain_ms']:.4f} ms, library {lib}, bound {bound_ms * 1e3:.2f} us by {bound_by} "
@@ -1095,6 +1197,7 @@ def time_scatter(name: str, k_cap: int, device) -> dict:
             a, b, wire.indices, VOCAB))
         fn = ops._fn("sparse_agg", "scatter_wire_sums" + ("_bf16" if width == 2 else "_f32"), 5, 4)
         ptrs = [t.data_ptr() for t in (a, b, wire.indices, num, den)]
+        graph = [lambda st: fn(*ptrs, n, rows, k, VOCAB, st)]
         raw = lambda: fn(*ptrs, n, rows, k, VOCAB, stream)  # noqa: E731
         in_bytes = n * rows * k * (width + width + 4)
     else:
@@ -1107,6 +1210,7 @@ def time_scatter(name: str, k_cap: int, device) -> dict:
         fn = ops._fn("sparse_agg", "scatter_wire_sums_dequant_i8", 6, 5)
         ptrs = [t.data_ptr() for t in (qw.values, qw.scale, qw.mask.view(torch.uint8), qw.indices, num, den)]
         raw = lambda: fn(*ptrs, n, rows, k, VOCAB, 0, stream)  # noqa: E731  mode 0: adaptive
+        graph = None
         in_bytes = n * rows * k * (1 + 1 + 4) + n * rows * 4
     want = plain()
 
@@ -1114,9 +1218,13 @@ def time_scatter(name: str, k_cap: int, device) -> dict:
         assert torch.equal(num, want[0]) and torch.equal(den, want[1])
         return max(float((g - w).abs().max()) for g, w in zip((num, den), want))
 
-    return _row(name, raw, wrapper, plain, scatter_library_call(a, b, wire.indices), check,
-                in_bytes + 2 * rows * VOCAB * width, 2 * n * rows * k,
-                f"N={n} rows={rows} k_cap={k} V={VOCAB} ({dtype})")
+    row = _row(name, raw, wrapper, plain, scatter_library_call(a, b, wire.indices), check,
+               in_bytes + 2 * rows * VOCAB * width, 2 * n * rows * k,
+               f"N={n} rows={rows} k_cap={k} V={VOCAB} ({dtype})", graph=graph)
+    if name in EARLIER_MS:
+        log(f"[timing] {name}: the earlier upcasting design took {EARLIER_MS[name]} ms (H100 80GB "
+            f"HBM3, 700 W; PERF.md section 6), not measured in this run")
+    return row
 
 
 def time_topk(name: str, real, device) -> dict:
@@ -1224,8 +1332,9 @@ def time_distill_kl(device, dtype: torch.dtype = torch.float32) -> dict:
     stream = torch.cuda.current_stream(device).cuda_stream
     bf16 = dtype == BF16
     fn = ops._fn("distill_kl", "distill_kl" + ("_bf16" if bf16 else "_f32"), 3, 2, 1)
-    raws = [lambda a=a, b=b: fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), ROWS, VOCAB, 0.5, stream)
-            for a, b in copies]
+    launches = [lambda st, a=a, b=b: fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), ROWS, VOCAB, 0.5, st)
+                for a, b in copies]
+    raws = [lambda launch=launch: launch(stream) for launch in launches]
     want = ref.distill_kl_ref(t, s, 2.0)
     tol = kl_tolerance(t, s, 2.0, want)
 
@@ -1240,10 +1349,15 @@ def time_distill_kl(device, dtype: torch.dtype = torch.float32) -> dict:
                in_turn([lambda a=a, b=b: ref.distill_kl_ref(a, b, 2.0) for a, b in copies]), None, check,
                2 * ROWS * VOCAB * dtype.itemsize + ROWS * 4, 12 * ROWS * VOCAB,
                f"rows={ROWS} V={VOCAB} T=2 ({dtype}; cold: in turn over {COLD_COPIES} copies of "
-               f"the inputs)")
+               f"the inputs)", graph=launches)
     row["ms_warm"] = time_ms(raws[0])
-    log(f"[timing] {name} warm (the same inputs each launch, in the L2) {row['ms_warm']:.4f} ms; "
-        f"cold {row['ms']:.4f} ms is {row['bound_ms'] / row['ms']:.0%} of its bound")
+    row["ms_graph_warm"] = graph_ms(launches[:1])
+    log(f"[timing] {name} warm (the same inputs each launch, in the L2) {row['ms_warm']:.4f} ms "
+        f"(from a CUDA graph {row['ms_graph_warm']:.4f} ms); cold {row['ms']:.4f} ms is "
+        f"{row['bound_ms'] / row['ms']:.0%} of its bound")
+    if name in EARLIER_MS:
+        log(f"[timing] {name}: the earlier upcasting design took {EARLIER_MS[name]} ms cold (H100 "
+            f"80GB HBM3, 700 W; PERF.md section 6), not measured in this run")
     return row
 
 

@@ -5,11 +5,8 @@
 //   distill_kl_{f32,bf16} <- distill_kl_pallas (_kl_kernel)
 //
 // bf16 rows (distill_kl_bf16), as the reference's kernel takes them (it
-// upcasts each tile): a 16-byte granule holds 8 bf16 values, each upcast
-// exactly as it is read, and runs as two tiles of 4 through the same
-// online state, so everything after the loads is the fp32 kernel's code;
-// the result is fp32.  The bf16 rows are half the bytes (12.9 MB at 64 x
-// 50257: ~3.8 us at 3.35 TB/s).
+// upcasts each tile), have a kernel of their own, distill_kl_bf16_kernel
+// (below); the result is fp32.
 //
 // Both compute the KL in ONE pass over the two rows, with online-rescaled
 // accumulators (t~ = t/T, s~ = s/T):
@@ -62,6 +59,27 @@
 // student run the same code (explicitly rounded adds and multiplies), so
 // t == s gives U = 0 and lse_t == lse_s bitwise: KL exactly 0.
 //
+// The bf16 kernel.  bf16 rows are half the bytes (12.9 MB at 64 x 50257:
+// ~3.8 us at 3.35 TB/s), but run through the fp32 body above they took
+// about as long as fp32 rows read warm: each 4-pair tile's own max and a
+// rescale costing two more exps (2.5 a pair, a serial chain through the
+// running state) added ~3.4 K cycles of math to the loop's loads, and the
+// merge (two cluster barriers around rank 0 reading every warp's partial)
+// ~4.4 K cycles after it (tools/kernel_probe.py's clocked copy).
+// distill_kl_bf16_kernel keeps the row split over a cluster, the loop's
+// shape (thread x on granules x, x + 512, ..., the next granules' loads in
+// flight during a granule's math: it overlapped loads and math better than
+// a chunk of 8 granules loaded before any math, or a ring of TMA bulk
+// copies into shared memory, both tried and timed), the scalar head and
+// tail and a fixed merge order, and changes two things:
+//   * the math: each granule pair's exact maxima (taken on the packed bf16
+//     words) rescale the running state only where they grow, so a pair
+//     costs 2 exps (not 2.5), and rescales grow rarer along the row;
+//   * the merge: each CTA merges its warps and stores its state into the
+//     first CTA's shared memory, and only the first CTA waits, once.
+// Teacher and student still run the same code, so t == s still gives
+// exactly 0.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC.
 // Plain C interface, loaded through ctypes; the entry point launches on
@@ -72,8 +90,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -239,59 +255,37 @@ __device__ __forceinline__ void merge_and_write(KL st, cg::cluster_group& cluste
   cluster.sync();  // no CTA leaves while rank 0 may still read its shared memory
 }
 
-// T: float or __nv_bfloat16; a 16-byte granule holds kPer values of T.
-template <class T>
+// The fp32 kernel: a 16-byte granule holds 4 values, one tile.
 __global__ void __launch_bounds__(kThreads)
-    distill_kl_kernel(const T* __restrict__ teacher, const T* __restrict__ student,
+    distill_kl_kernel(const float* __restrict__ teacher, const float* __restrict__ student,
                       float* __restrict__ out, int vocab, float inv_temp) {
-  constexpr int kPer = 16 / (int)sizeof(T);
   cg::cluster_group cluster = cg::this_cluster();
   const int n_ranks = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int r = blockIdx.x / n_ranks;
-  const T* t = teacher + (size_t)r * vocab;
-  const T* s = student + (size_t)r * vocab;
+  const float* t = teacher + (size_t)r * vocab;
+  const float* s = student + (size_t)r * vocab;
   KL st;
   st.t.m = st.s.m = -INFINITY;
   st.t.z = st.s.z = st.u = 0.0f;
 
   const uintptr_t pt = (uintptr_t)t, ps = (uintptr_t)s;
-  if ((pt & 15) == (ps & 15) && (pt & (sizeof(T) - 1)) == 0) {
-    const int head = min(vocab, (int)(((16 - (pt & 15)) & 15) / sizeof(T)));
-    const int n4 = (vocab - head) >> (kPer == 4 ? 2 : 3);  // whole granules
+  if ((pt & 15) == (ps & 15) && (pt & 3) == 0) {
+    const int head = min(vocab, (int)(((16 - (pt & 15)) & 15) / 4));
+    const int n4 = (vocab - head) >> 2;  // whole granules
     const int chunk = (n4 + n_ranks - 1) / n_ranks;
     const int b0 = min(n4, rank * chunk), b1 = min(n4, b0 + chunk);
     if (rank == 0) add_scalars(st, t, s, 0, head, inv_temp);
-    if constexpr (std::is_same<T, float>::value) {
-      const float4* t4 = reinterpret_cast<const float4*>(t + head);
-      const float4* s4 = reinterpret_cast<const float4*>(s + head);
+    const float4* t4 = reinterpret_cast<const float4*>(t + head);
+    const float4* s4 = reinterpret_cast<const float4*>(s + head);
 #pragma unroll 2
-      for (int i = b0 + threadIdx.x; i < b1; i += kThreads) {
-        float tt[4], ss[4];
-        unpack(tt, __ldg(t4 + i), inv_temp);
-        unpack(ss, __ldg(s4 + i), inv_temp);
-        add_tile<false>(st, tt, ss, 4);
-      }
-    } else {  // 8 bf16 values a granule: two tiles of 4
-      const uint4* t8 = reinterpret_cast<const uint4*>(t + head);
-      const uint4* s8 = reinterpret_cast<const uint4*>(s + head);
-#pragma unroll 2
-      for (int i = b0 + threadIdx.x; i < b1; i += kThreads) {
-        const uint4 a = __ldg(t8 + i), b = __ldg(s8 + i);
-        float tt[4], ss[4];
-        unpack2(tt, a.x, inv_temp);
-        unpack2(tt + 2, a.y, inv_temp);
-        unpack2(ss, b.x, inv_temp);
-        unpack2(ss + 2, b.y, inv_temp);
-        add_tile<false>(st, tt, ss, 4);
-        unpack2(tt, a.z, inv_temp);
-        unpack2(tt + 2, a.w, inv_temp);
-        unpack2(ss, b.z, inv_temp);
-        unpack2(ss + 2, b.w, inv_temp);
-        add_tile<false>(st, tt, ss, 4);
-      }
+    for (int i = b0 + threadIdx.x; i < b1; i += kThreads) {
+      float tt[4], ss[4];
+      unpack(tt, __ldg(t4 + i), inv_temp);
+      unpack(ss, __ldg(s4 + i), inv_temp);
+      add_tile<false>(st, tt, ss, 4);
     }
-    if (rank == n_ranks - 1) add_scalars(st, t, s, head + kPer * n4, vocab, inv_temp);
+    if (rank == n_ranks - 1) add_scalars(st, t, s, head + 4 * n4, vocab, inv_temp);
   } else {  // rows on different 16-byte phases: all scalar, a slice a rank
     const int chunk = (vocab + n_ranks - 1) / n_ranks;
     const int lo = min(vocab, rank * chunk);
@@ -299,6 +293,159 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   merge_and_write(st, cluster, out + r);
+}
+
+// -- the bf16 kernel ----------------------------------------------------------
+
+// The larger of the bf16 values in a word pair, exact.
+__device__ __forceinline__ __nv_bfloat162 max2(uint32_t a, uint32_t b) {
+  return __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                 *reinterpret_cast<const __nv_bfloat162*>(&b));
+}
+
+// The largest of a granule's 8 bf16 values, times inv_temp: the max of
+// the products, since rounding a product by a positive factor keeps the
+// order.
+__device__ __forceinline__ float granule_max(uint4 x, float inv_temp) {
+  const __nv_bfloat162 m = __hmax2(max2(x.x, x.y), max2(x.z, x.w));
+  return __bfloat162float(__hmax(m.x, m.y)) * inv_temp;
+}
+
+// A granule pair (8 element pairs) into the running state: its exact
+// maxima; a rescale of the state only where a maximum grows (no serial
+// chain through the max, a rescale rarer the further a thread gets); then
+// its sums, rescale-free, added to the state's.
+__device__ __forceinline__ void add_granule(KL& st, uint4 a, uint4 b, float inv_temp) {
+  const float mt = granule_max(a, inv_temp), ms = granule_max(b, inv_temp);
+  if (mt > st.t.m) {  // exp(-inf) = 0 on a thread's first granule
+    const float rt = __expf(st.t.m - mt);
+    st.t.z = __fmul_rn(st.t.z, rt);
+    st.u = __fmul_rn(st.u, rt);  // U rides on the teacher's rescale
+    st.t.m = mt;
+  }
+  if (ms > st.s.m) {
+    st.s.z = __fmul_rn(st.s.z, __expf(st.s.m - ms));
+    st.s.m = ms;
+  }
+  float tt[8], ss[8];
+  unpack2(tt, a.x, inv_temp);
+  unpack2(tt + 2, a.y, inv_temp);
+  unpack2(tt + 4, a.z, inv_temp);
+  unpack2(tt + 6, a.w, inv_temp);
+  unpack2(ss, b.x, inv_temp);
+  unpack2(ss + 2, b.y, inv_temp);
+  unpack2(ss + 4, b.z, inv_temp);
+  unpack2(ss + 6, b.w, inv_temp);
+  float zt = 0.0f, zs = 0.0f, u = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float w = __expf(__fsub_rn(tt[i], st.t.m));
+    zt = __fadd_rn(zt, w);
+    u = __fmaf_rn(w, __fsub_rn(tt[i], ss[i]), u);
+    zs = __fadd_rn(zs, __expf(__fsub_rn(ss[i], st.s.m)));
+  }
+  st.t.z = __fadd_rn(st.t.z, zt);
+  st.s.z = __fadd_rn(st.s.z, zs);
+  st.u = __fadd_rn(st.u, u);
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The row's partial states merged in a fixed order and its KL written to
+// *out, each CTA pushing its state to the first: each warp's lanes; the
+// CTA's warps (lane w of warp 0 takes warp w); the CTA's state
+// stored into the first CTA's shared memory (slot `rank`) through
+// distributed shared memory, then a cluster barrier that only the first
+// CTA waits on before it merges the slots (lane c takes rank c) -- the
+// others leave as soon as they have stored.  Every thread arrived once at
+// kernel start (cluster_arrive_relaxed), and waits for that phase before
+// the store, so the first CTA has started.
+__device__ __forceinline__ void push_merge_and_write(KL st, cg::cluster_group& cluster, float* out) {
+  const int n_ranks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  __shared__ KL part[kWarps];
+  __shared__ KL slot[kMaxCluster];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  KL none;
+  none.t.m = none.s.m = -INFINITY;
+  none.t.z = none.s.z = none.u = 0.0f;
+  st = warp_merge(st);
+  if (lane == 0) part[warp] = st;
+  __syncthreads();
+  cluster_wait();  // every CTA of the cluster has started
+  if (warp == 0) {
+    st = warp_merge(lane < kWarps ? part[lane] : none);
+    if (lane == 0) *cluster.map_shared_rank(&slot[rank], 0) = st;
+  }
+  cluster_arrive();  // this CTA's state is in the first CTA's slot
+  if (rank != 0) return;
+  cluster_wait();
+  if (warp == 0) {
+    st = warp_merge(lane < n_ranks ? slot[lane] : none);
+    if (lane == 0) {
+      const float lse_t = st.t.m + logf(st.t.z);
+      const float lse_s = st.s.m + logf(st.s.z);
+      *out = st.u / st.t.z - lse_t + lse_s;
+    }
+  }
+}
+
+// A granule of an operand, read once: past L1, each miss fetching 256
+// bytes into L2 (the next warps' granules), which streamed faster cold.
+__device__ __forceinline__ uint4 load_granule(const uint4* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+
+// The bf16 KL: the layout of distill_kl_kernel (a row over a cluster of C
+// CTAs, CTA `rank` on the rank-th slice of its granules, thread x on
+// granules x, x + 512, ...), each granule pair added with add_granule, the
+// loop unrolled so that the next granules' loads are in flight during a
+// granule's math.
+__global__ void __launch_bounds__(kThreads, 1)
+    distill_kl_bf16_kernel(const __nv_bfloat16* __restrict__ teacher,
+                           const __nv_bfloat16* __restrict__ student, float* __restrict__ out, int vocab,
+                           float inv_temp) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int r = blockIdx.x / n_ranks;
+  const __nv_bfloat16* t = teacher + (size_t)r * vocab;
+  const __nv_bfloat16* s = student + (size_t)r * vocab;
+  cluster_arrive_relaxed();  // waited for before the merge's store to the first CTA
+  KL st;
+  st.t.m = st.s.m = -INFINITY;
+  st.t.z = st.s.z = st.u = 0.0f;
+
+  const uintptr_t pt = (uintptr_t)t, ps = (uintptr_t)s;
+  if ((pt & 15) == (ps & 15) && (pt & 1) == 0) {
+    const int head = min(vocab, (int)(((16 - (pt & 15)) & 15) / 2));
+    const int n8 = (vocab - head) >> 3;  // whole granules
+    const int chunk = (n8 + n_ranks - 1) / n_ranks;
+    const int b0 = min(n8, rank * chunk), b1 = min(n8, b0 + chunk);
+    if (rank == 0) add_scalars(st, t, s, 0, head, inv_temp);
+    const uint4* t8 = reinterpret_cast<const uint4*>(t + head);
+    const uint4* s8 = reinterpret_cast<const uint4*>(s + head);
+#pragma unroll 2
+    for (int i = b0 + threadIdx.x; i < b1; i += kThreads)
+      add_granule(st, load_granule(t8 + i), load_granule(s8 + i), inv_temp);
+    if (rank == n_ranks - 1) add_scalars(st, t, s, head + 8 * n8, vocab, inv_temp);
+  } else {  // rows on different 16-byte phases: all scalar, a slice a rank
+    const int chunk = (vocab + n_ranks - 1) / n_ranks;
+    const int lo = min(vocab, rank * chunk);
+    add_scalars(st, t, s, lo, min(vocab, lo + chunk), inv_temp);
+  }
+
+  push_merge_and_write(st, cluster, out + r);
 }
 
 cudaLaunchConfig_t launch_config(int rows, int cluster, cudaStream_t stream,
@@ -332,8 +479,8 @@ int cluster_size(int rows, int* out) {
 }
 
 template <class T>
-int launch_kl(const T* teacher, const T* student, float* out, int rows, int vocab,
-              float inv_temp, void* stream) {
+int launch_kl(void (*kernel)(const T*, const T*, float*, int, float), const T* teacher,
+              const T* student, float* out, int rows, int vocab, float inv_temp, void* stream) {
   if (rows <= 0 || vocab <= 0) return (int)cudaSuccess;
   int c = 1;
   const int err = cluster_size(rows, &c);
@@ -341,7 +488,7 @@ int launch_kl(const T* teacher, const T* student, float* out, int rows, int voca
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(rows, c, (cudaStream_t)stream, &attr);
   const cudaError_t launch =
-      cudaLaunchKernelEx(&cfg, distill_kl_kernel<T>, teacher, student, out, vocab, inv_temp);
+      cudaLaunchKernelEx(&cfg, kernel, teacher, student, out, vocab, inv_temp);
   if (launch != cudaSuccess) return (int)launch;
   return (int)cudaGetLastError();
 }
@@ -353,13 +500,13 @@ extern "C" {
 // teacher, student: (rows, vocab) fp32, contiguous; out: (rows,) fp32.
 int distill_kl_f32(const float* teacher, const float* student, float* out, int rows, int vocab,
                    float inv_temp, void* stream) {
-  return launch_kl(teacher, student, out, rows, vocab, inv_temp, stream);
+  return launch_kl(distill_kl_kernel, teacher, student, out, rows, vocab, inv_temp, stream);
 }
 
 // teacher, student: (rows, vocab) bf16, contiguous; out: (rows,) fp32.
 int distill_kl_bf16(const __nv_bfloat16* teacher, const __nv_bfloat16* student, float* out,
                     int rows, int vocab, float inv_temp, void* stream) {
-  return launch_kl(teacher, student, out, rows, vocab, inv_temp, stream);
+  return launch_kl(distill_kl_bf16_kernel, teacher, student, out, rows, vocab, inv_temp, stream);
 }
 
 }  // extern "C"

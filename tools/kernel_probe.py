@@ -2,7 +2,7 @@
 break the top-k's and the bf16 kernels' time into their phases.
 
     python3 tools/kernel_probe.py --parent DIR [--real]
-        [--kernels topk,scatter,agg,kl,attention,topk_bf16,attention_bf16]
+        [--kernels topk,scatter,agg,kl,attention,topk_bf16,attention_bf16,scatter_bf16,kl_bf16]
 
 DIR is a checkout of an earlier commit (for example ``git archive <commit>``
 unpacked into ``build/parent``); its ``topk_select.cu``, ``sparse_agg.cu``,
@@ -11,7 +11,10 @@ checkout's (the earlier build's ``ptxas -v`` lines are printed beside the
 ``[build]`` line of this one), and the two fp32 entry points are timed in
 turns (earlier, this, this, earlier) in the same process, on the same
 inputs, both held to the plain versions (and the KL's and attention's
-outputs compared bitwise with each other); ``--kernels`` picks which:
+outputs compared bitwise with each other); the scatter and the KL are
+also timed replayed from a CUDA graph (``chip_smoke.graph_ms``: the host's
+per-call work out of the way).  Only what the named probes need is built.
+``--kernels`` picks which:
 
 * the dynamic top-k at (256, 50 257) with the budgets [388, 608, 342, 428],
   on normal rows, on rows of scale 0.55 (the spread of a randomly
@@ -39,7 +42,19 @@ outputs compared bitwise with each other); ``--kernels`` picks which:
   check and beside bf16 SDPA (a library call the port never makes), with a
   clocked copy of this checkout's kernel (each consumer warpgroup's cycles
   waiting for K/V tiles, in Q K^T, in the softmax and in P V) and a copy
-  at one block an SM, and the bf16 kernel's opcode mix.
+  at one block an SM, and the bf16 kernel's opcode mix;
+* the bf16 wire scatter (``scatter_wire_sums_bf16``) at N 4, 64 rows, V
+  50 257, k_cap 128 and 1024, after ``chip_smoke.py``'s checks of it, both
+  builds ``torch.equal`` to the plain version, with clocked copies of the
+  earlier build's kernel (made from DIR's source: zero-fill, index loads,
+  value loads, adds, write) and of this checkout's (set-up, waiting for
+  chunks, reading the slot, the adds, the write), and variants (chunk
+  sizes, 512 consumer threads, the smallest tiles, no multicast);
+* the bf16 KL (``distill_kl_bf16``) at (64, 50 257), T = 2, warm and cold,
+  after ``chip_smoke.py``'s checks of it, both builds within tolerance,
+  with clocked copies of both builds' kernels (the loop, the merges) and
+  copies whose loop only loads, and variants (unrolled 4 times, plain
+  ``__ldg`` loads, the slice prefetched into L2 at the start).
 
 It also builds a copy of this checkout's ``topk_select.cu`` with clock
 reads added at its fp32 kernel's phase boundaries (load, bisection, store)
@@ -183,6 +198,192 @@ def attention_bf16_clocks() -> str:
     ))
 
 
+def gt(var: str) -> str:
+    return GLOBALTIMER.format(var)
+
+
+def scatter_loader_clocks(src: Path) -> str:
+    """``sparse_agg.cu`` as it was before the bf16 wire scatter had a kernel
+    of its own (it ran the fp32 kernel's templated body on bf16 loads), with thread 0's
+    cycles by phase written for the bf16 instantiation to a buffer set by
+    ``scatter_set_prof``: 8 int64 a block (zero-fill; index loads; value
+    loads, waited for; the adds and the barriers between clients; the
+    write; -; the block's globaltimer start and end)."""
+    return substituted(src, (
+        ("namespace {\n", "namespace {\n__device__ long long* g_sprof;\n"),
+        ("  const int t = blockIdx.x, r = blockIdx.y;\n",
+            "  long long pg0;\n  " + gt("pg0") + "\n  const long long c0_ = clock64();\n"
+            "  const int t = blockIdx.x, r = blockIdx.y;\n"),
+        ("  __syncthreads();\n\n  // The row's N*k entries",
+            "  __syncthreads();\n  const long long c1_ = clock64();\n  long long cidx = 0, cval = 0, cadd = 0;\n\n"
+            "  // The row's N*k entries"),
+        ("  for (int e0 = 0; e0 < total; e0 += step) {\n",
+            "  for (int e0 = 0; e0 < total; e0 += step) {\n    const long long ca_ = clock64();\n"),
+        ("    float2 v[kBatch];\n",
+            "    { int so = 0; for (int i = 0; i < kBatch; ++i) so += off[i]; asm volatile(\"\" ::\"r\"(so)); }\n"
+            "    const long long cb_ = clock64();\n    cidx += cb_ - ca_;\n    float2 v[kBatch];\n"),
+        ("    const int n_last = (min(total, e0 + step) - 1) / k;\n",
+            "    { float sv = 0.f; for (int i = 0; i < kBatch; ++i) if (off[i] >= 0) sv += v[i].x + v[i].y;\n"
+            "      asm volatile(\"\" ::\"f\"(sv)); }\n"
+            "    const long long cc_ = clock64();\n    cval += cc_ - cb_;\n"
+            "    const int n_last = (min(total, e0 + step) - 1) / k;\n"),
+        ("      __syncthreads();  // client n lands before client n+1 adds\n    }\n  }\n",
+            "      __syncthreads();  // client n lands before client n+1 adds\n    }\n    cadd += clock64() - cc_;\n  }\n"
+            "  const long long c2_ = clock64();\n"),
+        ("      if (c >= 0 && c < vocab) den_r[c] = from_f32<Out>(s_den[i]);\n    }\n  }\n}\n",
+            "      if (c >= 0 && c < vocab) den_r[c] = from_f32<Out>(s_den[i]);\n    }\n  }\n"
+            "  __syncthreads();\n"
+            "  if (sizeof(Out) == 2 && threadIdx.x == 0 && g_sprof) { long long g1;\n    " + gt("g1") + "\n"
+            "    long long* d = g_sprof + 8 * (blockIdx.y * gridDim.x + blockIdx.x);\n"
+            "    d[0] = c1_ - c0_; d[1] = cidx; d[2] = cval; d[3] = cadd; d[4] = clock64() - c2_;\n"
+            "    d[6] = pg0; d[7] = g1; }\n}\n"),
+        ('extern "C" {\n',
+            'extern "C" {\nvoid scatter_set_prof(long long* p) { cudaMemcpyToSymbol(g_sprof, &p, sizeof(p)); }\n'),
+    ))
+
+
+KL_LOADER_BF16_BODY = """        const uint4 a = __ldg(t8 + i), b = __ldg(s8 + i);
+        float tt[4], ss[4];
+        unpack2(tt, a.x, inv_temp);
+        unpack2(tt + 2, a.y, inv_temp);
+        unpack2(ss, b.x, inv_temp);
+        unpack2(ss + 2, b.y, inv_temp);
+        add_tile<false>(st, tt, ss, 4);
+        unpack2(tt, a.z, inv_temp);
+        unpack2(tt + 2, a.w, inv_temp);
+        unpack2(ss, b.z, inv_temp);
+        unpack2(ss + 2, b.w, inv_temp);
+        add_tile<false>(st, tt, ss, 4);
+"""
+
+
+def kl_loader_clocks(src: Path, loads_only: bool = False) -> str:
+    """``distill_kl.cu`` as it was before the bf16 KL had a kernel of its own
+    (it ran the fp32 kernel's body on bf16 loads), with thread 0's cycles by phase written for
+    the bf16 instantiation to a buffer set by ``kl_set_prof``: 8 int64 a
+    block (the streaming loop, loads and math; the warp merge; the first
+    cluster barrier; the merge through distributed shared memory and the
+    second barrier; the cluster rank; -; globaltimer start and end).
+    ``loads_only``: the bf16 loop loads and folds its words into U without
+    the math (its result is not a KL), so that its loop cycles are the
+    loads'."""
+    pairs = [
+        ("namespace {\n", "namespace {\n__device__ long long* g_kprof;\n"),
+        ("__device__ __forceinline__ void merge_and_write(KL st, cg::cluster_group& cluster, float* out) {\n",
+            "__device__ __forceinline__ void merge_and_write(KL st, cg::cluster_group& cluster, float* out,\n"
+            "    long long c0_, long long c1_, long long pg0, bool rec) {\n"),
+        ("  st = warp_merge(st);\n  __shared__ KL part[kWarps];\n",
+            "  st = warp_merge(st);\n  const long long c2_ = clock64();\n  __shared__ KL part[kWarps];\n"),
+        ("  cluster.sync();  // every warp's partial is in its CTA's shared memory\n",
+            "  cluster.sync();  // every warp's partial is in its CTA's shared memory\n"
+            "  const long long c3_ = clock64();\n"),
+        ("  cluster.sync();  // no CTA leaves while rank 0 may still read its shared memory\n}\n",
+            "  cluster.sync();  // no CTA leaves while rank 0 may still read its shared memory\n"
+            "  if (rec && threadIdx.x == 0 && g_kprof) { long long g1;\n    " + gt("g1") + "\n"
+            "    long long* d = g_kprof + 8 * blockIdx.x;\n"
+            "    d[0] = c1_ - c0_; d[1] = c2_ - c1_; d[2] = c3_ - c2_; d[3] = clock64() - c3_; d[4] = rank;\n"
+            "    d[6] = pg0; d[7] = g1; }\n}\n"),
+        ("  cg::cluster_group cluster = cg::this_cluster();\n  const int n_ranks = (int)cluster.num_blocks();\n",
+            "  long long pg0;\n  " + gt("pg0") + "\n  const long long c0_ = clock64();\n"
+            "  cg::cluster_group cluster = cg::this_cluster();\n  const int n_ranks = (int)cluster.num_blocks();\n"),
+        ("  merge_and_write(st, cluster, out + r);\n",
+            "  const long long c1_ = clock64();\n  merge_and_write(st, cluster, out + r, c0_, c1_, pg0, sizeof(T) == 2);\n"),
+        ('extern "C" {\n',
+            'extern "C" {\nvoid kl_set_prof(long long* p) { cudaMemcpyToSymbol(g_kprof, &p, sizeof(p)); }\n'),
+    ]
+    if loads_only:
+        pairs.append((KL_LOADER_BF16_BODY,
+                      "        const uint4 a = __ldg(t8 + i), b = __ldg(s8 + i);\n"
+                      "        st.u += __uint_as_float(((a.x ^ b.x ^ a.y ^ b.y ^ a.z ^ b.z ^ a.w ^ b.w) & 0x007fffffu)"
+                      " | 0x3f800000u);\n"))
+    return substituted(src, pairs)
+
+
+def scatter_bf16_clocks() -> str:
+    """``sparse_agg.cu`` with consumer thread 0's cycles by phase in the
+    bf16 wire scatter's own kernel, written to a buffer set by
+    ``scatter_set_prof``: 8 int64 a block (set-up, clearing the marks and
+    the cluster barrier; waiting for chunks to land; taking the entries out
+    of the slot; handing it back, the adds and the barriers between
+    clients; -; the write; the block's globaltimer start and end)."""
+    return substituted(CSRC / "sparse_agg.cu", (
+        ("namespace {\n", "namespace {\n__device__ long long* g_sprof;\n"),
+        ("  const int t = blockIdx.x, r = blockIdx.y, tid = threadIdx.x;\n",
+            "  long long pg0;\n  " + gt("pg0") + "\n  const long long c0_ = clock64();\n"
+            "  const int t = blockIdx.x, r = blockIdx.y, tid = threadIdx.x;\n"),
+        ("  consumers_sync();  // no column is marked\n",
+            "  consumers_sync();  // no column is marked\n"
+            "  const long long c1_ = clock64();\n  long long cw = 0, cread = 0, cadd = 0;\n"),
+        ("    mbar_wait(smem_u32(&full[s]), (i / kRing) & 1);\n",
+            "    const long long ca_ = clock64();\n    mbar_wait(smem_u32(&full[s]), (i / kRing) & 1);\n"
+            "    const long long cb_ = clock64();\n    cw += cb_ - ca_;\n"),
+        ("    __syncwarp();\n    if ((tid & 31) == 0) mbar_arrive(smem_u32(&done[s]));",
+            "    { float f = 0.f; for (int q = 0; q < kPerThread; ++q) f += va[q] + vb[q] + off[q];\n"
+            "      asm volatile(\"\" ::\"f\"(f)); }\n"
+            "    const long long cs_ = clock64();\n    cread += cs_ - cb_;\n"
+            "    __syncwarp();\n    if ((tid & 31) == 0) mbar_arrive(smem_u32(&done[s]));"),
+        ("    if ((i + 1) % per_client == 0) consumers_sync();  // client n lands before client n+1 adds\n  }\n",
+            "    if ((i + 1) % per_client == 0) consumers_sync();  // client n lands before client n+1 adds\n"
+            "    cadd += clock64() - cs_;\n  }\n  const long long c2_ = clock64();\n"),
+        ("      if (col >= 0 && col < vocab) den_r[col] = __float2bfloat16_rn(marked(s_den, marks, i));\n"
+         "    }\n  }\n}\n",
+            "      if (col >= 0 && col < vocab) den_r[col] = __float2bfloat16_rn(marked(s_den, marks, i));\n"
+            "    }\n  }\n"
+            "  consumers_sync();\n"
+            "  if (tid == 0 && g_sprof) { long long g1;\n    " + gt("g1") + "\n"
+            "    long long* d = g_sprof + 8 * (blockIdx.y * gridDim.x + blockIdx.x);\n"
+            "    d[0] = c1_ - c0_; d[1] = cw; d[2] = cread; d[3] = cadd; d[5] = clock64() - c2_;\n"
+            "    d[6] = pg0; d[7] = g1; }\n}\n"),
+        ('extern "C" {\n',
+            'extern "C" {\nvoid scatter_set_prof(long long* p) { cudaMemcpyToSymbol(g_sprof, &p, sizeof(p)); }\n'),
+    ))
+
+
+def kl_bf16_clocks(loads_only: bool = False) -> str:
+    """``distill_kl.cu`` with thread 0's cycles by phase in the bf16 KL's own
+    kernel, written to a buffer set by ``kl_set_prof``: 8 int64 a block
+    (the loop; the warp and CTA merges and the store to the first CTA; the
+    first CTA's wait for the cluster; its final merge; the cluster rank; -;
+    globaltimer start and end).  ``loads_only``: the loop loads each granule
+    pair and folds its words into U without the math."""
+    rec = ("#define KL_REC(x2, x3) if (threadIdx.x == 0 && g_kprof) { long long g1; "
+           + gt("g1") + " long long* d = g_kprof + 8 * blockIdx.x; d[0] = c1_ - c0_; d[1] = c2_ - c1_; "
+           "d[2] = (x2); d[3] = (x3); d[4] = rank; d[6] = pg0; d[7] = g1; }\n")
+    pairs = [
+        ("namespace {\n", "namespace {\n__device__ long long* g_kprof;\n" + rec),
+        ("__device__ __forceinline__ void push_merge_and_write(KL st, cg::cluster_group& cluster, float* out) {\n",
+            "__device__ __forceinline__ void push_merge_and_write(KL st, cg::cluster_group& cluster, float* out,\n"
+            "    long long c0_, long long c1_, long long pg0) {\n"),
+        ("    if (lane == 0) *cluster.map_shared_rank(&slot[rank], 0) = st;\n  }\n"
+         "  cluster_arrive();  // this CTA's state is in the first CTA's slot\n  if (rank != 0) return;\n"
+         "  cluster_wait();\n",
+            "    if (lane == 0) *cluster.map_shared_rank(&slot[rank], 0) = st;\n  }\n"
+            "  const long long c2_ = clock64();\n"
+            "  cluster_arrive();  // this CTA's state is in the first CTA's slot\n"
+            "  if (rank != 0) { KL_REC(0, 0); return; }\n"
+            "  cluster_wait();\n  const long long c3_ = clock64();\n"),
+        ("      *out = st.u / st.t.z - lse_t + lse_s;\n    }\n  }\n}\n",
+            "      *out = st.u / st.t.z - lse_t + lse_s;\n    }\n  }\n  KL_REC(c3_ - c2_, clock64() - c3_);\n}\n"),
+        ("                           float inv_temp) {\n  cg::cluster_group cluster = cg::this_cluster();\n",
+            "                           float inv_temp) {\n  long long pg0;\n  " + gt("pg0") + "\n"
+            "  const long long c0_ = clock64();\n  cg::cluster_group cluster = cg::this_cluster();\n"),
+        ("  push_merge_and_write(st, cluster, out + r);\n",
+            "  const long long c1_ = clock64();\n  push_merge_and_write(st, cluster, out + r, c0_, c1_, pg0);\n"),
+        ('extern "C" {\n',
+            'extern "C" {\nvoid kl_set_prof(long long* p) { cudaMemcpyToSymbol(g_kprof, &p, sizeof(p)); }\n'),
+    ]
+    if loads_only:
+        pairs.append(("      add_granule(st, load_granule(t8 + i), load_granule(s8 + i), inv_temp);\n",
+                      "    { const uint4 a = load_granule(t8 + i), b = load_granule(s8 + i);\n"
+                      "      st.u += __uint_as_float(((a.x ^ b.x ^ a.y ^ b.y ^ a.z ^ b.z ^ a.w ^ b.w) & 0x007fffffu)"
+                      " | 0x3f800000u); }\n"))
+    return substituted(CSRC / "distill_kl.cu", pairs)
+
+
+# the kernels whose registers, shared memory and spills the probe prints
+PTXAS_KEYS = ("topk_mask_kernel", "topk_radix_bf16_kernel", "scatter_wire_kernel", "scatter_wire_bf16_kernel",
+              "sparse_aggregate", "distill_kl_kernel", "distill_kl_bf16_kernel", "flash_attention_kernel",
+              "flash_attention_bf16_kernel")
 # builds of this checkout's bf16 kernels with a line or two changed, timed beside it
 VARIANTS = {
     "topk_plain_stores": ("topk_select.cu", [(
@@ -191,6 +392,45 @@ VARIANTS = {
     "attention_1_block": ("flash_attention.cu", [("constexpr int kBlocksPerSm = 2;",
                                                   "constexpr int kBlocksPerSm = 1;")]),
 }
+VARIANTS.update({
+    # the bf16 scatter's tiles halved (16 a row at V 50 257, five CTAs an SM) and doubled (4, two)
+    # chunks of 512 entries in a ring of 4, and of 256 in a ring of 4 (8.3 KB: small enough for
+    # more, smaller tiles in one wave at 64 rows)
+    **{f"scatter_chunk_{n}": ("sparse_agg.cu", [("constexpr int kChunk = 1024;", f"constexpr int kChunk = {n};"),
+                                                ("constexpr int kRing = 3;", "constexpr int kRing = 4;")])
+       for n in (512, 256)},
+    # 512 consumer threads instead of 256
+    "scatter_512_threads": ("sparse_agg.cu", [("constexpr int kBf16Consumers = 256;",
+                                               "constexpr int kBf16Consumers = 512;")]),
+    # always the smallest tiles (the launch's rule where no cut fits one wave)
+    "scatter_tiles_800": ("sparse_agg.cu", [("  for (int want = 1; want < most; ++want) {",
+                                             "  for (int want = most; want < most; ++want) {")]),
+    # no cluster: each CTA bulk-copies its row's wire itself (from L2, once a tile)
+    "scatter_no_multicast": ("sparse_agg.cu", [("  t.cluster = min(kMaxCluster, want);", "  t.cluster = 1;")]),
+    # the bf16 KL's loop unrolled 4 times (4 granules of each operand in flight a thread)
+    "kl_unroll_4": ("distill_kl.cu", [("#pragma unroll 2\n    for (int i = b0 + threadIdx.x; i < b1; i += kThreads)\n"
+                                       "      add_granule(",
+                                       "#pragma unroll 4\n    for (int i = b0 + threadIdx.x; i < b1; i += kThreads)\n"
+                                       "      add_granule(")]),
+    # the bf16 KL with the CTA's slice prefetched into L2 by bulk prefetches at its start
+    "kl_prefetch": ("distill_kl.cu", [(
+        "    const uint4* s8 = reinterpret_cast<const uint4*>(s + head);\n#pragma unroll 2\n",
+        "    const uint4* s8 = reinterpret_cast<const uint4*>(s + head);\n"
+        "    if (threadIdx.x == 0)\n"
+        "      for (int g = b0; g < b1; g += 1024) {\n"
+        "        const unsigned bytes = 16u * (unsigned)min(1024, b1 - g);\n"
+        "        asm volatile(\"cp.async.bulk.prefetch.L2.global [%0], %1;\" ::\"l\"(t8 + g), \"r\"(bytes) : \"memory\");\n"
+        "        asm volatile(\"cp.async.bulk.prefetch.L2.global [%0], %1;\" ::\"l\"(s8 + g), \"r\"(bytes) : \"memory\");\n"
+        "      }\n#pragma unroll 2\n")]),
+    # the bf16 KL's loads as plain __ldg, no L2 fetch-size hint
+    "kl_ldg": ("distill_kl.cu", [(
+        '  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"\n'
+        '      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));\n',
+        "  v = __ldg(p);\n")]),
+})
+VARIANT_OF = {"topk_plain_stores": "topk_bf16", "attention_1_block": "attention_bf16",
+              **{name: "scatter_bf16" for name in VARIANTS if name.startswith("scatter")},
+              **{name: "kl_bf16" for name in VARIANTS if name.startswith("kl")}}
 
 
 def c_fn(lib: ctypes.CDLL, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):
@@ -226,6 +466,8 @@ def scatter_ab(libs, device) -> None:
             assert torch.equal(num, want[0]) and torch.equal(den, want[1])
         in_turns(f"scatter_wire_sums k_cap={k_cap}", lambda: old_f(*fp, n, rows, k, cs.VOCAB, stream),
                  lambda: new_f(*fp, n, rows, k, cs.VOCAB, stream))
+        graph_turns(f"scatter_wire_sums k_cap={k_cap}", [lambda st: old_f(*fp, n, rows, k, cs.VOCAB, st)],
+                    [lambda st: new_f(*fp, n, rows, k, cs.VOCAB, st)])
         in_turns(f"scatter_wire_sums_dequant k_cap={k_cap}",
                  lambda: old_q(*qp, n, rows, k, cs.VOCAB, 0, stream),
                  lambda: new_q(*qp, n, rows, k, cs.VOCAB, 0, stream))
@@ -316,16 +558,35 @@ def topk_ab(libs, device, real=None) -> None:
               flush=True)
 
 
-def compile_libs(parent: Path) -> dict[str, ctypes.CDLL]:
-    """The earlier checkout's four sources, the clocked copies and the
-    variants, one nvcc each, all at once."""
+def compile_libs(parent: Path, kernels: set[str]) -> dict[str, ctypes.CDLL]:
+    """What the probes in ``kernels`` need of the earlier checkout's four
+    sources, the clocked copies and the variants, one nvcc each, all at
+    once."""
     OUT.mkdir(parents=True, exist_ok=True)
     pcsrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
-    sources = {"parent_topk": pcsrc / "topk_select.cu", "parent_agg": pcsrc / "sparse_agg.cu",
-               "parent_kl": pcsrc / "distill_kl.cu", "parent_attention": pcsrc / "flash_attention.cu"}
-    made = {"topk_clocks": topk_clocks(), "topk_bf16_clocks": topk_bf16_clocks(),
-            "attention_bf16_clocks": attention_bf16_clocks()}
-    made.update({name: substituted(CSRC / src, pairs) for name, (src, pairs) in VARIANTS.items()})
+    need = lambda *names: bool(kernels & set(names))  # noqa: E731
+    sources = {name: pcsrc / src for name, src, groups in (
+        ("parent_topk", "topk_select.cu", ("topk", "topk_bf16")),
+        ("parent_agg", "sparse_agg.cu", ("scatter", "agg", "scatter_bf16")),
+        ("parent_kl", "distill_kl.cu", ("kl", "kl_bf16")),
+        ("parent_attention", "flash_attention.cu", ("attention", "attention_bf16"))) if need(*groups)}
+    made = {}
+    if need("topk"):
+        made["topk_clocks"] = topk_clocks()
+    if need("topk_bf16"):
+        made["topk_bf16_clocks"] = topk_bf16_clocks()
+    if need("attention_bf16"):
+        made["attention_bf16_clocks"] = attention_bf16_clocks()
+    if need("scatter_bf16"):
+        made["earlier_scatter_clocks"] = scatter_loader_clocks(pcsrc / "sparse_agg.cu")
+        made["this_scatter_clocks"] = scatter_bf16_clocks()
+    if need("kl_bf16"):
+        made["earlier_kl_clocks"] = kl_loader_clocks(pcsrc / "distill_kl.cu")
+        made["earlier_kl_loads"] = kl_loader_clocks(pcsrc / "distill_kl.cu", loads_only=True)
+        made["this_kl_clocks"] = kl_bf16_clocks()
+        made["this_kl_loads"] = kl_bf16_clocks(loads_only=True)
+    made.update({name: substituted(CSRC / src, pairs) for name, (src, pairs) in VARIANTS.items()
+                 if need(VARIANT_OF[name])})
     for name, text in made.items():
         sources[name] = OUT / f"{name}.cu"
         sources[name].write_text(text)
@@ -333,15 +594,13 @@ def compile_libs(parent: Path) -> dict[str, ctypes.CDLL]:
         [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(OUT / f"lib{name}.so"), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for name, src in sources.items()}
     libs = {}
-    keys = ("topk_mask_kernel", "topk_radix_bf16_kernel", "scatter_wire_kernel", "sparse_aggregate",
-            "distill_kl_kernel", "flash_attention_kernel", "flash_attention_bf16_kernel")
     for name, (so, proc) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"kernel_probe: nvcc failed on {name}\n{log}")
         libs[name] = ctypes.CDLL(str(so))
         if name.startswith("parent_") or name in VARIANTS:  # registers and spills, beside this build's
-            print(f"[probe] {name} ptxas -v: {' | '.join(cs.ptxas_report(log, keys))}", flush=True)
+            print(f"[probe] {name} ptxas -v: {' | '.join(cs.ptxas_report(log, PTXAS_KEYS))}", flush=True)
     return libs
 
 
@@ -391,6 +650,11 @@ def kl_ab(libs, device) -> None:
             for name, fn in (("earlier", old), ("this", new))}
     in_turns(f"distill_kl at ({rows}, {vocab}), T=2, cold (in turn over {cs.COLD_COPIES} copies)",
              cold["earlier"], cold["this"])
+    launches = {name: [lambda st, a=a, b=b, fn=fn: fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, vocab,
+                                                      0.5, st) for a, b in copies]
+                for name, fn in (("earlier", old), ("this", new))}
+    graph_turns(f"distill_kl at ({rows}, {vocab}), T=2, warm", launches["earlier"][:1], launches["this"][:1])
+    graph_turns(f"distill_kl at ({rows}, {vocab}), T=2, cold", launches["earlier"], launches["this"])
 
 
 def attention_ab(libs, device) -> None:
@@ -525,11 +789,146 @@ def attention_bf16_ab(libs, device) -> None:
     print(f"[probe] flash_attention.bf16 SASS: {sass_histogram(lib, 'flash_attention_bf16_kernel')}", flush=True)
 
 
+def graph_turns(label: str, old, new) -> None:
+    """``in_turns`` for the time a launch takes replayed from a CUDA graph
+    (``chip_smoke.graph_ms``): ``old`` and ``new`` are lists of launches
+    taking a stream."""
+    t = [cs.graph_ms(f) * 1e3 for f in (old, new, new, old)]
+    print(f"[probe] {label}, from a CUDA graph: earlier {t[0]:.2f} / {t[3]:.2f} us, this {t[1]:.2f} / "
+          f"{t[2]:.2f} us", flush=True)
+
+
+def clock_report(label: str, prof: torch.Tensor, phases) -> None:
+    """Medians over the blocks of the phases' cycles (columns 0..), the
+    kernel's span and the last block's start (globaltimer, columns 6-7)."""
+    d = prof.cpu()
+    parts = ", ".join(f"{name} {median(d[:, j])}" for j, name in enumerate(phases) if name)
+    starts = d[:, 6] - d[:, 6].min()
+    print(f"[probe]   {label}: per-block median cycles: {parts}; kernel span {int(d[:, 7].max() - d[:, 6].min())} "
+          f"ns, block duration median {median(d[:, 7] - d[:, 6])} ns, last block start {int(starts.max())} ns",
+          flush=True)
+
+
+def clocked_run(lib: ctypes.CDLL, setter: str, blocks: int, launch) -> torch.Tensor:
+    """One launch of a clocked copy (after two unrecorded ones) writing 8
+    int64 a block."""
+    prof = torch.zeros((blocks, 8), dtype=torch.int64, device="cuda")
+    fn = getattr(lib, setter)
+    fn.argtypes = [P]
+    for ptr in (0, 0, prof.data_ptr()):
+        fn(ptr)
+        assert launch() == 0
+    torch.cuda.synchronize()
+    fn(0)
+    return prof
+
+
+SCATTER_PHASES = {"earlier_scatter_clocks": ("zero-fill", "index loads", "value loads", "adds", "write"),
+                  "this_scatter_clocks": ("set-up", "waiting for chunks", "reading the slot",
+                                          "release, adds and barriers", "", "write")}
+KL_PHASES = {"earlier": ("loop", "warp merge", "cluster barrier", "merge + barrier"),
+             "this": ("loop", "warp and CTA merges, store", "first CTA waiting", "final merge")}
+
+
+def scatter_bf16_ab(libs, device) -> None:
+    """The bf16 wire scatter (kernel 1b) at N 4, 64 rows, V 50 257, k_cap 128
+    and 1024: both builds ``torch.equal`` to the plain version, in turns
+    (back-to-back C calls, then from a CUDA graph), and the clocked copies'
+    phases."""
+    cs.check_bf16_scatter(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fns = {"this": ops._fn("sparse_agg", "scatter_wire_sums_bf16", 5, 4),
+           "earlier": c_fn(libs["parent_agg"], "scatter_wire_sums_bf16", 5, 4)}
+    clocked = {name: c_fn(libs[name], "scatter_wire_sums_bf16", 5, 4)
+               for name in libs if name.endswith("_scatter_clocks")}
+    variants = {name: c_fn(libs[name], "scatter_wire_sums_bf16", 5, 4) for name in libs if name in VARIANTS
+                and VARIANT_OF[name] == "scatter_bf16"}
+    for k_cap in (128, 1024):
+        wire = cs.make_wire(k_cap, seed=7, device=device, dtype=cs.BF16)
+        n, rows, k = wire.values.shape
+        a, b = cs.float_channels(wire, "adaptive")
+        num = torch.empty((rows, cs.VOCAB), dtype=cs.BF16, device=device)
+        den = torch.empty_like(num)
+        want = [x.to(cs.BF16) for x in ref.scatter_wire_sums_ref(a, b, wire.indices, cs.VOCAB)]
+        ptrs = [x.data_ptr() for x in (a, b, wire.indices, num, den)]
+        launch = {name: (lambda st, fn=fn: fn(*ptrs, n, rows, k, cs.VOCAB, st))
+                  for name, fn in {**fns, **clocked, **variants}.items()}
+        for name, fn in launch.items():
+            num.fill_(float("nan"))
+            den.fill_(float("nan"))
+            assert fn(stream) == 0, name
+            torch.cuda.synchronize()
+            assert torch.equal(num, want[0]) and torch.equal(den, want[1]), (name, k_cap)
+        label = f"scatter_wire_sums.bf16 k_cap={k_cap}"
+        print(f"[probe] {label}: {', '.join(launch)} torch.equal to the plain version", flush=True)
+        in_turns(label, lambda: launch["earlier"](stream), lambda: launch["this"](stream))
+        graph_turns(label, [launch["earlier"]], [launch["this"]])
+        for name in variants:
+            graph_turns(f"{label} {name} (earlier: this build)", [launch["this"]], [launch[name]])
+        for name in clocked:
+            prof = clocked_run(libs[name], "scatter_set_prof", rows * 32, lambda name=name: launch[name](stream))
+            blocks = prof[:, 7] != 0
+            clock_report(f"{name} ({int(blocks.sum())} blocks)", prof[blocks], SCATTER_PHASES[name])
+
+
+def kl_bf16_ab(libs, device) -> None:
+    """The bf16 KL (kernel 6b) at (64, 50 257), T = 2: both builds within
+    the tolerance, in turns warm and cold (in turn over
+    ``chip_smoke.COLD_COPIES`` copies), from a CUDA graph too, and the
+    clocked copies' phases (with a copy whose loop only loads)."""
+    cs.check_bf16_kl(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rows, vocab = cs.ROWS, cs.VOCAB
+    gen = torch.Generator(device=device).manual_seed(31)
+    t, s = ((2.0 * torch.randn((rows, vocab), generator=gen, device=device)).to(cs.BF16) for _ in range(2))
+    out = torch.empty(rows, device=device)
+    want = ref.distill_kl_ref(t, s, 2.0)
+    tol = cs.kl_tolerance(t, s, 2.0, want)
+    fns = {"this": ops._fn("distill_kl", "distill_kl_bf16", 3, 2, 1),
+           "earlier": c_fn(libs["parent_kl"], "distill_kl_bf16", 3, 2, 1)}
+    clocked = {name: c_fn(libs[name], "distill_kl_bf16", 3, 2, 1)
+               for name in libs if name.endswith(("_kl_clocks", "_kl_loads"))}
+    variants = {name: c_fn(libs[name], "distill_kl_bf16", 3, 2, 1) for name in libs if name in VARIANTS
+                and VARIANT_OF[name] == "kl_bf16"}
+    copies = [(t, s)] + [(t.clone(), s.clone()) for _ in range(cs.COLD_COPIES - 1)]
+    launches = {name: [lambda st, a=a, b=b, fn=fn: fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, vocab,
+                                                      0.5, st) for a, b in copies]
+                for name, fn in {**fns, **clocked, **variants}.items()}
+    outs = {}
+    for name, ls in launches.items():
+        out.fill_(float("nan"))
+        assert ls[0](stream) == 0, name
+        torch.cuda.synchronize()
+        if not name.endswith("_loads"):
+            assert bool(((out - want).abs() <= tol).all()), name
+            outs[name] = out.clone()
+    print(f"[probe] distill_kl.bf16: {', '.join(outs)} within tolerance; this == earlier bitwise: "
+          f"{torch.equal(outs['this'], outs['earlier'])}", flush=True)
+    label = f"distill_kl.bf16 at ({rows}, {vocab}), T=2"
+    warm = {name: (lambda ls=ls: ls[0](stream)) for name, ls in launches.items()}
+    cold = {name: cs.in_turn([lambda f=f: f(stream) for f in ls]) for name, ls in launches.items()}
+    in_turns(label + ", warm", warm["earlier"], warm["this"])
+    in_turns(label + f", cold (in turn over {cs.COLD_COPIES} copies)", cold["earlier"], cold["this"])
+    graph_turns(label + ", warm", launches["earlier"][:1], launches["this"][:1])
+    graph_turns(label + ", cold", launches["earlier"], launches["this"])
+    for name in variants:
+        graph_turns(f"{label}, cold, {name} (earlier: this build)", launches["this"], launches[name])
+    for name in clocked:
+        for temp, ls in (("warm", launches[name][:1]), ("cold", launches[name])):
+            f = cs.in_turn([lambda g=g: g(stream) for g in ls])
+            for _ in range(2 * len(ls)):
+                f()
+            prof = clocked_run(libs[name], "kl_set_prof", rows * 8, f)
+            blocks = prof[:, 7] != 0
+            clock_report(f"{name}, {temp} ({int(blocks.sum())} blocks)", prof[blocks],
+                         KL_PHASES[name.split("_")[0]])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, required=True, help="a checkout of the earlier commit")
     parser.add_argument("--real", action="store_true", help="also time the fused run's own input")
-    names = ("topk", "scatter", "agg", "kl", "attention", "topk_bf16", "attention_bf16")
+    names = ("topk", "scatter", "agg", "kl", "attention", "topk_bf16", "attention_bf16", "scatter_bf16", "kl_bf16")
     parser.add_argument("--kernels", default=",".join(names),
                         help=f"comma-separated: which of {', '.join(names)} to probe")
     args = parser.parse_args()
@@ -538,7 +937,7 @@ def main() -> int:
         raise SystemExit(f"kernel_probe: unknown kernels {sorted(kernels)}")
     device, card = cs.phase_device()
     cs.phase_build()
-    libs = compile_libs(args.parent.resolve())
+    libs = compile_libs(args.parent.resolve(), kernels)
     if "kl" in kernels:
         kl_ab(libs, device)
     if "attention" in kernels:
@@ -555,6 +954,10 @@ def main() -> int:
         scatter_ab(libs, device)
     if "agg" in kernels:
         agg_ab(libs, device)
+    if "scatter_bf16" in kernels:
+        scatter_bf16_ab(libs, device)
+    if "kl_bf16" in kernels:
+        kl_bf16_ab(libs, device)
     print(card)
     return 0
 
