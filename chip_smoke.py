@@ -65,7 +65,13 @@ Phases (any failure raises and exits non-zero):
    carries such differences into the weights); on the int8 uplink one
    quantization step, 1/127, since a last-bit difference can move a value
    across a rounding boundary.  On ``fused_e2e`` the server-distill loss is
-   held within rtol 1e-3 (off the e2e path it is NaN by definition).
+   held within rtol 1e-3 (off the e2e path it is NaN by definition).  Then
+   ``pretrain_classifier`` and ``pretrain_lm``, 3 steps each on the tiny
+   configs, on the card against the CPU: the adapters reset bitwise, the
+   backbone within the CPU tests' bound (every element within 1e-4 but up
+   to 0.1 % of a leaf, each within 2 * lr * steps: Adam's normalised step
+   turns a last-bit difference of a near-zero gradient into a step of
+   order lr).
 5. main path — ``run_federated`` with AdaLD and ``use_kernels=True`` at the
    paper's widths (GPT-2 small clients, GPT-2 large server), 2 rounds each:
    ``fused_e2e`` float and int8 wire, ``fused`` float and int8 uplink,
@@ -93,6 +99,25 @@ Phases (any failure raises and exits non-zero):
    against the plain version of the kernel (the plain bf16 loss rounds as
    the reference's does); the attention through
    ``kernels.ops.flash_attention`` in phase 6, in fp32 and in bf16.
+5b. pretrained main path — the same fleet with the reference's default
+   pretraining (80 supervised steps for the clients' shared GPT-2 small
+   backbone, 60 next-token steps for the GPT-2 large server, on 12 % of
+   the data), 3 rounds: ``fused_e2e`` round by round, with the pretraining
+   timed, its loss every 20 steps and both models' accuracy right after it
+   printed, and the last round traced; ``fused_e2e`` with
+   ``scan_rounds=True`` (pretraining from the cache), its block
+   (``FusedE2EEngine.run_block``) run under
+   ``torch.cuda.set_sync_debug_mode("error")``, so that any synchronising
+   call in it raises (the guard is first shown to catch a ``.item()``),
+   and held to the per-round run: identical k, bytes and transmitters,
+   accuracies within 1e-6, the distill loss within rtol 1e-4; the same
+   block again under ``torch.profiler`` (CUDA activity); ``fused``, whose
+   last top-k input is kept for the timing phase.  Each run asserts the
+   fleet store's shared layout and its launch counts (the scatter once a
+   round on ``fused_e2e``; the top-k and the aggregation once a round on
+   ``fused``).  ``[trace]`` lines give the device's busy share of the
+   traced window and of the untraced run's time for the same work, the
+   kernel count and the five longest idle gaps.
 6. serving — a shared GPT-2 small backbone and 8 tenant adapters (A and B
    drawn from a numpy seed) in a ``DeviceFleetStore``, exported to an
    ``AdapterCache`` of 4 slots behind a ``ServeSession`` of batch 8: two
@@ -112,8 +137,9 @@ Phases (any failure raises and exits non-zero):
    the attention, its operations at the TF32 tensor-core rate, three
    products per product, as the kernel runs them).  The
    top-k's work depends on its input: it is timed on the ``fused`` float
-   run's own last-round input (captured at its call), on random rows and
-   on constant rows (its worst case).  The KL's inputs (25.7 MB) would stay
+   run's own last-round input (captured at its call), on the pretrained
+   ``fused`` run's (``ms_pretrained``, fp32 rows), on random rows and on
+   constant rows (its worst case).  The KL's inputs (25.7 MB) would stay
    in the 50 MB L2 between back-to-back launches, so its row's ``ms`` (and
    ``plain_ms``) take the launches in turn over ``COLD_COPIES`` copies of
    them, each read cold; ``ms_warm`` repeats one copy.  The float wire
@@ -131,8 +157,8 @@ Phases (any failure raises and exits non-zero):
 
 The last lines are the card and its power limit, the kernels record and the
 device record (JSON).  In the kernels record ``launches`` is each kernel's
-count summed over the eight main-path runs, ``pct_of_bound`` its bound over
-its time; the static top-k's, the KL's and the attention's rows (fp32 and
+count summed over the eight main-path runs and the pretrained path's four,
+``pct_of_bound`` its bound over its time; the static top-k's, the KL's and the attention's rows (fp32 and
 bf16) add ``entry_launches``, their counts through their public entry
 points.
 """
@@ -162,13 +188,14 @@ from repro_torch.core.channel import ChannelConfig  # noqa: E402
 from repro_torch.core.distill import total_distill_loss  # noqa: E402
 from repro_torch.core.topk import quantize_wire, sparsify_wire, topk_mask_dense  # noqa: E402
 from repro_torch.data import make_banking77_like  # noqa: E402
-from repro_torch.fed import FedConfig  # noqa: E402
+from repro_torch.fed import FedConfig, FusedE2EEngine  # noqa: E402
+from repro_torch.fed import pretrain as fed_pretrain  # noqa: E402
 from repro_torch.fed import rounds as fed_rounds  # noqa: E402
 from repro_torch.fed import steps as fed_steps  # noqa: E402
 from repro_torch.fed.engines import k_cap_bucket  # noqa: E402
 from repro_torch.fed.store import DeviceFleetStore  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.lora import lora_template, merge_lora, split_lora  # noqa: E402
+from repro_torch.lora import is_lora_path, lora_template, merge_lora, split_lora  # noqa: E402
 from repro_torch.models import attention, model  # noqa: E402
 from repro_torch.models.layers import embedding, layer_norm  # noqa: E402
 from repro_torch.models.transformer import layer_slice  # noqa: E402
@@ -823,23 +850,28 @@ def check_bf16_attention(device):
     log("[kernels bf16] flash_attention causal bitwise")
 
 
-def _drive(client_cfg, server_cfg, dataset, fed, device):
+def _drive(client_cfg, server_cfg, dataset, fed, device, patches=None):
     """run_federated, also returning the engine (built through
-    ``make_engine``, whatever its kind) and the Server it built."""
+    ``make_engine``, whatever its kind) and the Server it built.
+    ``patches``: ``{(owner, name): wrap}``, each ``owner.name`` replaced by
+    ``wrap(original)`` for the run (a module, or a class for a method)."""
     built, saved = {}, {}
     for name in ("make_engine", "Server"):
-        saved[name] = make = getattr(fed_rounds, name)
+        saved[(fed_rounds, name)] = make = getattr(fed_rounds, name)
 
         def capture(*args, _make=make, _name=name, **kwargs):
             built[_name] = _make(*args, **kwargs)
             return built[_name]
 
         setattr(fed_rounds, name, capture)
+    for (owner, name), wrap in (patches or {}).items():
+        saved.setdefault((owner, name), getattr(owner, name))
+        setattr(owner, name, wrap(getattr(owner, name)))
     try:
         run = fed_rounds.run_federated(client_cfg, server_cfg, dataset, fed, device=device)
     finally:
-        for name, make in saved.items():
-            setattr(fed_rounds, name, make)
+        for (owner, name), orig in saved.items():
+            setattr(owner, name, orig)
     return run, built["make_engine"], built["Server"]
 
 
@@ -851,13 +883,18 @@ def final_broadcast(engine, server, tokens: torch.Tensor) -> torch.Tensor:
     return server.broadcast(tokens.to(server.params["embed"].device))[0]
 
 
-def phase_small_input(device):
+def small_configs():
+    """The tiny client and server configs of the CPU tests, and their data."""
     lora = LoRAConfig(rank=4, alpha=32.0, dropout=0.0, targets=("q", "v", "head"))
     client = REDUCED_CLIENT.with_overrides(num_layers=2, d_model=64, num_heads=2, num_kv_heads=2,
                                            d_ff=128, vocab_size=256, max_seq_len=32, lora=lora)
     server = REDUCED_SERVER.with_overrides(num_layers=2, d_model=96, num_heads=2, num_kv_heads=2,
                                            d_ff=192, vocab_size=256, max_seq_len=32, lora=lora)
-    ds = make_banking77_like(vocab_size=256, seq_len=12, total=500, seed=0)
+    return client, server, make_banking77_like(vocab_size=256, seq_len=12, total=500, seed=0)
+
+
+def phase_small_input(device):
+    client, server, ds = small_configs()
     tokens = torch.as_tensor(ds.tokens[:16])
     for engine in ("fused_e2e", "fused"):
         for quant in (False, True):
@@ -886,6 +923,19 @@ def phase_small_input(device):
                 f"distill_loss {gpu.distill_loss} vs {cpu.distill_loss}")
 
 
+def capture_topk(captured: dict):
+    """A wrapper for ``ops.topk_mask_dynamic`` that keeps a copy of its
+    input, the fused client phase's logits and budgets (the last call's)."""
+    def wrap(topk):
+        def capture(logits, ks):
+            captured["x"], captured["ks"] = logits.clone(), ks.clone()
+            return topk(logits, ks)
+
+        return capture
+
+    return wrap
+
+
 def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> dict:
     """One main-path run; returns its launch counts, its per-client k and,
     for ``fused``, the launch counts of the static top-k's public entry
@@ -905,18 +955,11 @@ def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    captured, topk_dynamic = {}, ops.topk_mask_dynamic
-    if engine == "fused" and not quantize:
-        def capture(logits, ks):  # the fused client phase's input, the last round's kept
-            captured["x"], captured["ks"] = logits.clone(), ks.clone()
-            return topk_dynamic(logits, ks)
-
-        ops.topk_mask_dynamic = capture
+    captured = {}
+    patches = ({(ops, "topk_mask_dynamic"): capture_topk(captured)}
+               if engine == "fused" and not quantize else None)
     ops.reset_launches()  # this path's launches only, from here
-    try:
-        run, eng, srv = _drive(client_cfg, server_cfg, ds, fed, device)
-    finally:
-        ops.topk_mask_dynamic = topk_dynamic
+    run, eng, srv = _drive(client_cfg, server_cfg, ds, fed, device, patches)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     wall = time.perf_counter() - t0
@@ -985,6 +1028,345 @@ def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> 
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# -- the pretrained main path -------------------------------------------------
+
+# The reference's default pretraining (FedConfig's defaults, spelled out)
+# on the main path's fleet, 3 rounds.
+PRETRAINED_FED = dict(method="adald", use_kernels=True, num_clients=8, clients_per_round=4,
+                      rounds=3, public_batch=64, local_steps=2, distill_steps=1,
+                      server_distill_steps=2, eval_size=128, pretrain_steps=80,
+                      server_pretrain="lm", server_pretrain_steps=60, pretrain_frac=0.12,
+                      pretrain_lr=2e-3)
+LOSS_EVERY = 20  # pretraining steps between the printed losses
+
+
+def recording_steps(losses: list):
+    """A wrapper for a pretraining step factory whose steps append their
+    loss (a device tensor: nothing waits for the card) and a CUDA event
+    recorded at their end to ``losses``."""
+    def wrap(make):
+        def factory(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def recorded(params, opt, batch):
+                params, opt, metrics = step(params, opt, batch)
+                done = torch.cuda.Event(enable_timing=True)
+                done.record()
+                losses.append((metrics["loss"], done))
+                return params, opt, metrics
+
+            return recorded
+
+        return factory
+
+    return wrap
+
+
+def timed(into: list):
+    """A wrapper that appends each call's seconds, from a synchronised card
+    to a synchronised card, to ``into``."""
+    def wrap(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+
+        return call
+
+    return wrap
+
+
+TRACE_ACTIVITIES = [torch.profiler.ProfilerActivity.CUDA]  # the card's work and the CUDA API
+
+
+def warm_profiler() -> None:
+    """Start and stop the tracer once, so that its set-up (seconds on the
+    first start) falls outside the traced windows."""
+    with torch.profiler.profile(activities=TRACE_ACTIVITIES):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+
+def trace_summary(prof, label: str, untraced_s: float) -> dict:
+    """The device's busy share of a traced window: the union of the
+    intervals of its device work (kernels, copies, fills) over the window,
+    from the first recorded event's start (a CUDA API call on the host) to
+    the last one's end; beside it, the same busy time over ``untraced_s``,
+    the same work's wall time in a run without the tracer, whose per-call
+    cost stretches the host's side.  Also the count of kernels and the five
+    longest idle gaps, each with the host's CUDA call that spans most of
+    it (or the work that follows it)."""
+    events = [e for e in prof.profiler.kineto_results.events() if not e.is_user_annotation()]
+    dev = sorted((e.start_ns(), e.end_ns(), e.name()) for e in events
+                 if e.device_type() == torch.autograd.DeviceType.CUDA)
+    host = [(e.start_ns(), e.end_ns(), e.name()) for e in events
+            if e.device_type() != torch.autograd.DeviceType.CUDA]
+    start = min(e.start_ns() for e in events)
+    end = max(e.end_ns() for e in events)
+    busy, gaps, cursor = 0, [], start
+    for a, b, name in dev + [(end, end, "the window's end")]:
+        if a > cursor:
+            gaps.append((a - cursor, cursor, a, name))
+        busy += max(0, b - max(a, cursor))
+        cursor = max(cursor, b)
+    longest = []
+    for length, a, b, name in sorted(gaps, reverse=True)[:5]:
+        spans = [(min(hb, b) - max(ha, a), hn) for ha, hb, hn in host
+                 if min(hb, b) - max(ha, a) > length / 2]
+        longest.append((length / 1e3, f"host in {max(spans)[1]}" if spans else f"before {name}"))
+    kernels = [d for d in dev if not d[2].startswith(("Memcpy", "Memset"))]
+    out = {"window_ms": (end - start) / 1e6, "busy_ms": busy / 1e6,
+           "busy_share": busy / max(end - start, 1), "busy_share_untraced": busy / 1e9 / untraced_s,
+           "kernels": len(kernels), "copies_fills": len(dev) - len(kernels), "gaps_us": longest}
+    log(f"[trace] {label}: window {out['window_ms']:.2f} ms, device busy {out['busy_ms']:.2f} ms "
+        f"({100 * out['busy_share']:.1f} % of the window, {100 * out['busy_share_untraced']:.1f} % of "
+        f"the untraced {untraced_s * 1e3:.1f} ms), {out['kernels']} kernels and "
+        f"{out['copies_fills']} copies/fills; longest idle gaps (us): "
+        + "; ".join(f"{g:.1f} {why[:70]}" for g, why in out["gaps_us"]))
+    return out
+
+
+def pretrained_run(device, engine: str, scan: bool, patches=None) -> tuple:
+    """One run of the pretrained main path; returns the run, its engine and
+    Server, its launch counts and its peak memory (GiB)."""
+    fed = FedConfig(engine=engine, scan_rounds=scan, **PRETRAINED_FED)
+    ds = make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ops.reset_launches()  # this path's launches only, from here
+    run, eng, srv = _drive(GPT2_SMALL, GPT2_LARGE, ds, fed, device, patches)
+    torch.cuda.synchronize()
+    launches, peak = dict(ops.LAUNCHES), torch.cuda.max_memory_allocated() / 2**30
+    tag = f"{engine}{'/scan' if scan else ''}"
+    log(f"[pretrained {tag}] {fed.rounds} rounds in {time.perf_counter() - t0:.1f} s (setup and any "
+        f"pretraining included), round_seconds={[round(x, 3) for x in run.round_seconds]}, "
+        f"max_memory_allocated={peak:.2f} GiB")
+    log(f"[pretrained {tag}] per_client_k={run.per_client_k}")
+    log(f"[pretrained {tag}] uplink_bytes={[r.uplink_bytes for r in run.ledger.rounds]} "
+        f"downlink_bytes={[r.downlink_bytes for r in run.ledger.rounds]} "
+        f"transmitters={[r.num_transmitters for r in run.ledger.rounds]}")
+    log(f"[pretrained {tag}] server_acc={run.server_acc} client_acc={run.client_acc} "
+        f"distill_loss={run.distill_loss}; kernel launches {launches}")
+    assert eng._store.shared, "the pretrained fleet does not share its backbone"
+    assert all(math.isfinite(x) for x in run.server_acc + run.client_acc)
+    tx_rounds = sum(1 for r in run.ledger.rounds if r.num_transmitters > 0)
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    if engine == "fused_e2e":
+        want["scatter_wire_sums"] = fed.rounds
+        assert all(math.isfinite(x) for x in run.distill_loss)
+    else:
+        want["sparse_aggregate"], want["topk_mask_dynamic"] = tx_rounds, fed.rounds
+    assert launches == want, (tag, launches, want)
+    return run, eng, srv, launches, peak
+
+
+def phase_pretrained(device) -> dict:
+    """The pretrained main path (see the module docstring, phase 5b);
+    returns its launch counts and the top-k input of the ``fused`` run."""
+    losses = {"pretrain_classifier": [], "pretrain_lm": []}
+    seconds = {"pretrain_classifier": [], "pretrain_lm": []}
+    pre, evals, traces, block = {}, {}, {}, {}
+
+    def before_engine(make):  # the pretrained models, as the engine receives them
+        def call(kind, clients, cfg, **kwargs):
+            pre["client"], pre["server"] = dict(clients[0].params), dict(kwargs["server"].params)
+            return make(kind, clients, cfg, **kwargs)
+
+        return call
+
+    def eval_split(make):  # the run's eval split, from the evaluator's first call
+        def call(*args, **kwargs):
+            evaluate = make(*args, **kwargs)
+
+            def recorded(params, tokens, labels):
+                evals.setdefault("split", (tokens, labels))
+                return evaluate(params, tokens, labels)
+
+            return recorded
+
+        return call
+
+    def profiled_round(run_round):  # the last round of the per-round run, traced
+        calls = []
+
+        def call(self, *args, **kwargs):
+            calls.append(1)
+            if len(calls) == PRETRAINED_FED["rounds"]:
+                torch.cuda.synchronize()
+                traces["prof"] = prof = torch.profiler.profile(activities=TRACE_ACTIVITIES)
+                prof.start()
+            return run_round(self, *args, **kwargs)
+
+        return call
+
+    patches = {(fed_rounds, "make_engine"): before_engine, (fed_rounds, "make_eval_fn"): eval_split,
+               (FusedE2EEngine, "run_round"): profiled_round}
+    for name in losses:
+        patches[(fed_rounds, name)] = timed(seconds[name])
+    patches[(fed_pretrain, "_supervised_step")] = recording_steps(losses["pretrain_classifier"])
+    patches[(fed_pretrain, "make_train_step")] = recording_steps(losses["pretrain_lm"])
+    fed_pretrain._CACHE.clear()
+    warm_profiler()
+    loop, loop_eng, _, loop_launches, loop_peak = pretrained_run(device, "fused_e2e", False, patches)
+    torch.cuda.synchronize()
+    traces["prof"].stop()
+    traces["round"] = trace_summary(
+        traces["prof"], "fused_e2e, one steady per-round round (the run's last: its round body, "
+        "broadcast, server sync and two evals)", loop.round_seconds[1])
+    for name, cfg, steps in (("pretrain_classifier", GPT2_SMALL, PRETRAINED_FED["pretrain_steps"]),
+                             ("pretrain_lm", GPT2_LARGE, PRETRAINED_FED["server_pretrain_steps"])):
+        vals = [float(loss) for loss, _ in losses[name]]
+        assert len(vals) == steps and all(math.isfinite(x) for x in vals), (name, vals)
+        first, last = losses[name][0][1], losses[name][-1][1]
+        step_ms = first.elapsed_time(last) / (steps - 1)
+        shown = ", ".join(f"{i + 1}: {vals[i]:.4f}" for i in range(0, steps, LOSS_EVERY))
+        log(f"[pretrain] {name} {cfg.name}: {steps} steps in {seconds[name][0]:.2f} s (the inits "
+            f"for the model and the LoRA reset, drawn on the host, included); {step_ms:.1f} ms a "
+            f"step on the card's clock after the first; loss by step {shown}, {steps}: {vals[-1]:.4f}")
+    tokens, labels = evals["split"]
+    acc = {who: fed_steps.make_eval_fn(cfg, loop_eng._num_classes)(pre[who], tokens, labels)
+           for who, cfg in (("client", GPT2_SMALL), ("server", GPT2_LARGE))}
+    log(f"[pretrain] right after pretraining, on the run's eval split ({len(labels)} samples): "
+        f"client accuracy {acc['client']:.4f}, server accuracy {acc['server']:.4f}")
+
+    def guarded_block(run_block):  # the block, with every synchronising call an error
+        def call(self, staged):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                taps = run_block(self, staged)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            block["seconds"] = time.perf_counter() - t0
+            return taps
+
+        return call
+
+    check_sync_guard(device)
+    scan, scan_eng, _, scan_launches, scan_peak = pretrained_run(
+        device, "fused_e2e", True, {(FusedE2EEngine, "run_block"): guarded_block})
+    rounds = PRETRAINED_FED["rounds"]
+    log(f"[pretrained fused_e2e/scan] the block's {rounds} rounds: {block['seconds']:.3f} s, "
+        f"{block['seconds'] / rounds:.3f} s a round, from its first launch to its last round's "
+        f"end, with no synchronising call (torch.cuda.set_sync_debug_mode('error') around it); "
+        f"the per-round run's rounds {[round(x, 3) for x in loop.round_seconds]} s (round 0 cold, "
+        f"round {rounds - 1} traced)")
+    assert scan.per_client_k == loop.per_client_k
+    for a, b in zip(scan.ledger.rounds, loop.ledger.rounds):
+        assert (a.uplink_bytes, a.downlink_bytes, a.num_transmitters) == (
+            b.uplink_bytes, b.downlink_bytes, b.num_transmitters)
+    np.testing.assert_allclose(scan.server_acc, loop.server_acc, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(scan.client_acc, loop.client_acc, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(scan.distill_loss, loop.distill_loss, rtol=1e-4)
+    log("[pretrained] scan_rounds == per-round: identical k, bytes and transmitters, accuracies "
+        "within 1e-6, distill loss within rtol 1e-4")
+    del scan_eng, loop_eng
+
+    def profiled_block(run_block):
+        def call(self, staged):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=TRACE_ACTIVITIES) as prof:
+                taps = run_block(self, staged)
+                torch.cuda.synchronize()
+            traces["block"] = trace_summary(prof, f"fused_e2e, the {rounds}-round block",
+                                            block["seconds"])
+            return taps
+
+        return call
+
+    traced, _, _, traced_launches, _ = pretrained_run(
+        device, "fused_e2e", True, {(FusedE2EEngine, "run_block"): profiled_block})
+    assert traced.per_client_k == scan.per_client_k
+
+    captured = {}
+    fused, _, _, fused_launches, _ = pretrained_run(
+        device, "fused", False, {(ops, "topk_mask_dynamic"): capture_topk(captured)})
+    assert fused.per_client_k == loop.per_client_k
+    x, ks = captured["x"], captured["ks"]
+    fed_pretrain._CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = (loop_launches, scan_launches, traced_launches, fused_launches)
+    return {"launches": {k: sum(r[k] for r in runs) for k in ops.LAUNCHES},
+            "topk_input": (x.reshape(-1, x.shape[-1]), ks.reshape(-1)),
+            "peak": (loop_peak, scan_peak), "block_s": block["seconds"]}
+
+
+def check_sync_guard(device):
+    """The guard that holds the block to no synchronising call catches one:
+    a value read back to the host, and a blocking copy from the host."""
+    caught = {}
+    for name, sync in (("a .item()", lambda: torch.ones(1, device=device).item()),
+                       ("torch.tensor(list, device=cuda)", lambda: torch.tensor([1, 2], device=device))):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sync()
+            caught[name] = False
+        except RuntimeError:
+            caught[name] = True
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert caught["a .item()"], "set_sync_debug_mode('error') let a .item() through"
+    # AdamW's bias correction, with the scalar in the kernel: bitwise the
+    # earlier form with a host-made tensor, and no synchronising call
+    count = torch.arange(1, 20001, dtype=torch.int32, device=device).float()
+    for b in (0.9, 0.999):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            new = 1.0 - b**count
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(new, 1.0 - torch.pow(torch.tensor(b, dtype=torch.float32, device=device),
+                                                count))
+    log(f"[sync guard] raised under set_sync_debug_mode('error'): {caught}; AdamW's 1 - b**count "
+        f"runs under it, bitwise the earlier torch.pow(torch.tensor(b)) form on counts 1..20000")
+
+
+def _pretrain_bound(got: dict, want: dict, lr: float, steps: int) -> tuple[float, int]:
+    """``tests/test_torch_pretrain.py``'s bound for parameters after training
+    steps (every element within 1e-4 but up to 0.1 % of a leaf, rounded
+    up, each within 2 * lr * steps; the key bias, whose gradient is zero in
+    exact arithmetic, within that alone); returns the largest difference
+    and the most strays of a leaf."""
+    worst, most = 0.0, 0
+    for key, g in got.items():
+        diff = (g.detach().cpu() - want[key]).abs()
+        worst = max(worst, float(diff.max()))
+        assert float(diff.max()) <= 2 * lr * steps, (key, float(diff.max()))
+        if key != "stack/pos0/attn/wk/b":
+            strays = int((diff > 1e-4).sum())
+            most = max(most, strays)
+            assert strays <= math.ceil(1e-3 * diff.numel()), (key, strays)
+    return worst, most
+
+
+def phase_small_pretrain(device):
+    """Pretraining on the card against the CPU at the tiny configs, 3 steps
+    each: the same parameters within the bound of the CPU tests, the
+    adapters reset bitwise (the same init, drawn on the CPU)."""
+    client, server, ds = small_configs()
+    data = ds.subset(np.arange(100))
+    kw = dict(steps=3, lr=2e-3, batch_size=32, seed=3)
+    for name, run in (("pretrain_classifier", lambda dev: fed_pretrain.pretrain_classifier(
+                          client, data, num_classes=ds.num_classes, device=dev, **kw)),
+                      ("pretrain_lm", lambda dev: fed_pretrain.pretrain_lm(server, data, device=dev,
+                                                                          **kw))):
+        gpu, cpu = run(device), run("cpu")
+        lora = [k for k in cpu if is_lora_path(k)]
+        assert lora and all(torch.equal(gpu[k].cpu(), cpu[k]) for k in lora)
+        frozen = {k: v for k, v in gpu.items() if k not in lora}
+        worst, most = _pretrain_bound(frozen, cpu, kw["lr"], kw["steps"])
+        log(f"[small input] {name} on the card == CPU: adapters bitwise, backbone max |diff| "
+            f"{worst:.2e} (key bias included), at most {most} elements of a leaf beyond 1e-4")
+    fed_pretrain._CACHE.clear()
 
 
 def kl_entry(eng, srv, tokens, temp: float, client_cfg=GPT2_SMALL) -> dict:
@@ -1227,7 +1609,7 @@ def time_scatter(name: str, k_cap: int, device) -> dict:
     return row
 
 
-def time_topk(name: str, real, device) -> dict:
+def time_topk(name: str, real, device, pretrained=None) -> dict:
     """The top-k masks at the fused main path's shape, (C·64, V) rows, on
     three inputs, since the fp32 candidate bisection's work depends on the
     data: the ``fused`` run's real input of its last round (the row's
@@ -1235,14 +1617,19 @@ def time_topk(name: str, real, device) -> dict:
     earlier PRs timed) and constant rows (``ms_constant``: the fp32 kernel's
     candidate set never shrinks, every step is a full pass, its worst case);
     in bf16 also rows of one exponent bin (``ms_one_bin``: the radix
-    select's histogram puts every value in one bin, its worst case).  The
-    static k is the largest budget."""
+    select's histogram puts every value in one bin, its worst case); with
+    ``pretrained``, the pretrained ``fused`` run's input of its last round
+    (``ms_pretrained``: a trained model's logits).  The static k is the
+    largest budget."""
     x_real, kk = real
     rows, dtype = x_real.shape[0], x_real.dtype
     gen = torch.Generator(device=device).manual_seed(5)
     inputs = {"real": x_real,
               "random": torch.randn((rows, VOCAB), generator=gen, device=device).to(dtype),
               "constant": torch.full((rows, VOCAB), 0.5, dtype=dtype, device=device)}
+    if pretrained is not None:  # the pretrained fused run's own input, with the budgets above
+        assert pretrained[0].shape == x_real.shape and pretrained[0].dtype == dtype
+        inputs["pretrained"] = pretrained[0]
     if dtype == BF16:  # every value in [1, 2): one bin of the radix select's high digit
         inputs["one_bin"] = 1.0 + torch.randint(0, 128, (rows, VOCAB), generator=gen,
                                                 device=device).to(dtype) / 128
@@ -1289,8 +1676,10 @@ def time_topk(name: str, real, device) -> dict:
     row = _row(name, raw, wrapper, plain, library, check, in_bytes + rows * VOCAB * dtype.itemsize,
                ops_done, desc)
     one_bin = f", on one-exponent-bin rows {extra['ms_one_bin']:.4f} ms" if "ms_one_bin" in extra else ""
+    pre = (f", on the pretrained run's input {extra['ms_pretrained']:.4f} ms"
+           if "ms_pretrained" in extra else "")
     log(f"[timing] {name} on random rows {extra['ms_random']:.4f} ms, on constant rows "
-        f"{extra['ms_constant']:.4f} ms{one_bin} (torch.equal to the plain version on each)")
+        f"{extra['ms_constant']:.4f} ms{one_bin}{pre} (torch.equal to the plain version on each)")
     if name in EARLIER_MS:
         log(f"[timing] {name}: the earlier upcasting design took {EARLIER_MS[name]} ms on the real "
             f"input (H100 80GB HBM3, 700 W; PERF.md section 6), not measured in this run")
@@ -1418,6 +1807,7 @@ def time_flash_attention(qkv, device) -> dict:
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     device, card = phase_device()
     phase_build()
     check_scatter_kernels(device)
@@ -1427,6 +1817,7 @@ def main() -> int:
     check_flash_attention(device)
     check_bf16_kernels(device)
     phase_small_input(device)
+    phase_small_pretrain(device)
 
     runs = {}
     for engine, quantize, bf16 in (("fused_e2e", False, False), ("fused_e2e", True, False),
@@ -1443,13 +1834,15 @@ def main() -> int:
         assert bf["per_client_k"] == f32["per_client_k"] and bf["bytes"] == f32["bytes"], (engine, f32, bf)
     log("[main path] bf16 == fp32 on per-client k, uplink and downlink bytes and transmitters, "
         "fused_e2e and fused")
+    pretrained = phase_pretrained(device)
     serving = phase_serving(device, card)
-    launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) for name in KERNELS}
+    launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) + pretrained["launches"][name]
+                for name in KERNELS}
     entry_names = ("topk_mask", "distill_kl", "topk_mask.bf16", "distill_kl.bf16")
     entry = {name: sum(r["entry_launches"].get(name, 0) for r in runs.values()) for name in entry_names}
     for name in ("flash_attention", "flash_attention.bf16"):
         entry[name] = serving["entry_launches"][name]
-    log(f"[main path] kernel launches over the eight runs {launches}")
+    log(f"[main path] kernel launches over the eight runs and the pretrained phase's four {launches}")
     log(f"[entry] launches through the public entry points {entry}")
 
     k_caps = {
@@ -1463,8 +1856,9 @@ def main() -> int:
     topk_bf16 = runs[("fused", False, True)]["topk_input"]
     assert topk_bf16[0].dtype == BF16
     rows = [time_scatter(name, k_cap, device) for name, k_cap in k_caps.items()]
-    rows += [time_topk("topk_mask_dynamic", topk_input, device), time_sparse_aggregate(fused_ks, device),
-             time_topk("topk_mask", topk_input, device), time_distill_kl(device),
+    rows += [time_topk("topk_mask_dynamic", topk_input, device, pretrained["topk_input"]),
+             time_sparse_aggregate(fused_ks, device),
+             time_topk("topk_mask", topk_input, device, pretrained["topk_input"]), time_distill_kl(device),
              time_flash_attention(serving["qkv"], device),
              time_topk("topk_mask_dynamic.bf16", topk_bf16, device),
              time_sparse_aggregate(runs[("fused", False, True)]["per_client_k"][-1], device, BF16),
@@ -1473,6 +1867,7 @@ def main() -> int:
     rows = [{**row, "launches": launches[row["name"]],
              **({"entry_launches": entry[row["name"]]} if row["name"] in entry else {})}
             for row in rows]
+    log(f"[smoke] every phase passed in {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@
   function; the uplink is the per-row-budget bisection top-k (the CUDA
   kernel with ``use_kernels``).
 * :class:`FusedE2EEngine` — the whole round, client and server phase, as
-  one function call with the sparse wire between them.
+  one function call with the sparse wire between them; ``run_rounds``
+  runs a block of rounds without a host round trip between them.
 
 The cohort engines keep the fleet in a device fleet store; all four are
 driven by
@@ -22,6 +23,7 @@ from repro_torch.fed.client import Client
 from repro_torch.fed.engines.base import (
     BroadcastState,
     ClientPhase,
+    RoundsTrajectory,
     SequentialEngine,
     check_unique_cohort,
     cohort_budgets,
@@ -37,6 +39,7 @@ from repro_torch.fed.engines.fused import FusedEngine
 __all__ = [
     "BroadcastState",
     "ClientPhase",
+    "RoundsTrajectory",
     "SequentialEngine",
     "BatchedEngine",
     "FusedEngine",

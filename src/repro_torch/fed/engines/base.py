@@ -1,7 +1,7 @@
 """Shared engine plumbing: budget math, the dense uplink's int8 code, round
-dataclasses, the sequential engine and the server-owner mixin — the port of
-``repro/fed/engines/base.py`` (its multi-round trajectory belongs to
-``run_rounds``, a later slice)."""
+dataclasses (a multi-round block's trajectory among them), the sequential
+engine and the server-owner mixin — the port of
+``repro/fed/engines/base.py``."""
 
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from repro_torch.optim import adamw_init
 __all__ = [
     "BroadcastState",
     "ClientPhase",
+    "RoundsTrajectory",
     "SequentialEngine",
     "cohort_budgets",
     "k_cap_bucket",
@@ -137,6 +138,32 @@ class ClientPhase:
     @property
     def num_transmitters(self) -> int:
         return len(self.payloads)
+
+
+@dataclasses.dataclass
+class RoundsTrajectory:
+    """Per-round observables of one :meth:`FusedE2EEngine.run_rounds` block.
+
+    ``ks``/``payloads`` are the host's accounting (what R ``run_round``
+    calls report); ``mean_k``, ``distill_loss`` and, when eval data was
+    passed, ``server_acc``/``client_acc`` are the block's in-block taps,
+    kept on the device round by round and copied to the host once, after
+    the block.  ``distill_loss`` is the round's final server-distill step
+    loss (NaN for an all-dropped round: the server never distilled).
+    ``family_client_acc`` (mixed fleets) and ``snr_db``/``outage`` (channel
+    scenarios) stay None: the port carries neither yet (ROADMAP.md port
+    queue: "other model families and mixed fleets", "scenarios and faults,
+    then checkpoints")."""
+
+    ks: list[list[int]]
+    payloads: list[list[UplinkPayload]]
+    mean_k: list[float]
+    distill_loss: list[float]
+    server_acc: list[float] | None = None
+    client_acc: list[float] | None = None
+    family_client_acc: list[list[float]] | None = None
+    snr_db: list[list[float]] | None = None
+    outage: list[list[bool]] | None = None
 
 
 class SequentialEngine:

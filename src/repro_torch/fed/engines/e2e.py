@@ -1,32 +1,62 @@
 """The whole-round engine — the port of ``repro/fed/engines/e2e.py``'s
-``FusedE2EEngine.run_round``.
+``FusedE2EEngine``: ``run_round`` and the multi-round ``run_rounds``.
 
 The fleet's state lives in the engines' device fleet store; a round
 gathers the cohort's rows, runs the client phase and the server phase as
 one function call with the sparse wire between them, and writes the
 advanced rows back.
+
+``run_rounds`` is the reference's one compiled ``lax.scan`` over R rounds.
+The port splits it in two: :meth:`FusedE2EEngine.stage_rounds` does all the
+host work first (budgets, manifests, one ``k_cap`` for the block, every
+round's batches, public tokens, budgets and cohort indices copied to the
+device), then :meth:`FusedE2EEngine.run_block` runs the R round bodies
+back to back, from the first launch to the end of the last round with no
+call that waits for the device; the per-round taps are copied to the host
+once, after the block.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.channel import BatchedChannelState, ChannelState
+from repro_torch.core.protocol import UplinkPayload
 from repro_torch.fed import steps as fed_steps
 from repro_torch.fed.client import Client
 from repro_torch.fed.engines.base import (
     BroadcastState,
     ClientPhase,
+    RoundsTrajectory,
     _ServerOwnerMixin,
     check_unique_cohort,
     k_cap_bucket,
+    not_carried,
 )
 from repro_torch.fed.engines.batched import _FleetEngine
 
-__all__ = ["FusedE2EEngine"]
+__all__ = ["FusedE2EEngine", "StagedRounds"]
+
+
+@dataclasses.dataclass
+class StagedRounds:
+    """A block of R rounds staged by :meth:`FusedE2EEngine.stage_rounds`:
+    the host's accounting, and every operand of the block on the device."""
+
+    ks: list[list[int]]  # per round, each cohort client's k (host ints)
+    payloads: list[list[UplinkPayload]]  # per round, the transmitters' manifests
+    k_cap: int  # one wire width for the whole block
+    send_h: bool
+    idx: list[torch.Tensor]  # per round, the cohort's fleet rows, (C,) int64
+    ks_dev: torch.Tensor  # (R, C) int32, the budgets as data
+    pubs: list[torch.Tensor]  # per round, the public batch (P, L)
+    batches: list[dict]  # per round, {tokens (C, S, B, L), labels (C, S, B)}
+    eval_tokens: torch.Tensor | None = None  # (N, L), N a multiple of EVAL_BATCH
+    eval_labels: torch.Tensor | None = None
 
 
 class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
@@ -112,3 +142,154 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         self._store.commit(idx, lora, opt)
         return ClientPhase(payloads=payloads, ks=ks, sparse=sparse)
 
+    # -- the multi-round block ----------------------------------------------
+    def run_rounds(
+        self,
+        sels: Sequence[Sequence[int]],
+        pubs: Sequence[torch.Tensor],
+        states_per_round: Sequence,
+        *,
+        adaptive_k: bool,
+        send_h: bool,
+        eval_tokens: torch.Tensor | None = None,
+        eval_labels: torch.Tensor | None = None,
+        channel_scan: dict | None = None,
+    ) -> RoundsTrajectory:
+        """Run R whole rounds as one block, as R ``run_round`` calls would:
+        fleet, server and broadcast state advance in place, and the block
+        returns a :class:`RoundsTrajectory`.
+
+        ``eval_tokens``/``eval_labels`` (both or neither) are evaluated after
+        each round on the server model and on the round's first selected
+        client, the models the per-round loop evaluates; the split is
+        truncated to whole ``EVAL_BATCH`` batches, as the host evaluator
+        walks it, and a split smaller than one batch is refused.
+        The host's work comes first (:meth:`stage_rounds`), then the block
+        (:meth:`run_block`); its taps cross to the host once, after it."""
+        staged = self.stage_rounds(
+            sels, pubs, states_per_round, adaptive_k=adaptive_k, send_h=send_h,
+            eval_tokens=eval_tokens, eval_labels=eval_labels, channel_scan=channel_scan,
+        )
+        taps = self.run_block(staged)
+        names = list(taps)
+        host = dict(zip(names, torch.stack([taps[k] for k in names]).cpu().tolist())) if taps else {}
+        no_eval = staged.eval_tokens is None
+        return RoundsTrajectory(
+            ks=staged.ks, payloads=staged.payloads, mean_k=host.get("mean_k", []),
+            distill_loss=host.get("distill_loss", []),
+            server_acc=None if no_eval else host.get("server_acc", []),
+            client_acc=None if no_eval else host.get("client_acc", []),
+        )
+
+    def stage_rounds(
+        self,
+        sels: Sequence[Sequence[int]],
+        pubs: Sequence[torch.Tensor],
+        states_per_round: Sequence,
+        *,
+        adaptive_k: bool,
+        send_h: bool,
+        eval_tokens: torch.Tensor | None = None,
+        eval_labels: torch.Tensor | None = None,
+        channel_scan: dict | None = None,
+    ) -> StagedRounds:
+        """The block's host work, in the per-round path's order: each
+        round's budgets, upload manifests and private batches (each selected
+        client's rng advances as ``run_round`` advances it), then one
+        ``k_cap`` for every k of the block; every operand copied to the
+        device."""
+        if self.store_kind != "device":
+            raise RuntimeError(
+                "run_rounds carries the whole fleet on the device, which only "
+                f"fleet_store='device' provides (store_kind={self.store_kind!r})"
+            )
+        if channel_scan is not None:
+            raise not_carried("a channel scenario in run_rounds (channel_scan)",
+                              "scenarios and faults, then checkpoints")
+        sels = [check_unique_cohort(sel) for sel in sels]
+        if (eval_tokens is None) != (eval_labels is None):
+            raise ValueError("pass eval_tokens and eval_labels together")
+        n_cohort = len(sels[0]) if sels else 0
+        if any(len(sel) != n_cohort for sel in sels):
+            raise ValueError("run_rounds requires equal-size cohorts")
+        if sels and eval_tokens is not None:
+            seen = (int(eval_tokens.shape[0]) // fed_steps.EVAL_BATCH) * fed_steps.EVAL_BATCH
+            if seen == 0:
+                raise ValueError(
+                    f"eval split of {int(eval_tokens.shape[0])} samples is smaller than one eval "
+                    f"batch ({fed_steps.EVAL_BATCH})"
+                )
+            eval_tokens = torch.as_tensor(eval_tokens[:seen], device=self.device)
+            eval_labels = torch.as_tensor(eval_labels[:seen], device=self.device)
+        all_ks, all_payloads, batches = [], [], []
+        n_samples = int(pubs[0].shape[0]) if sels else 0
+        for sel, states in zip(sels, states_per_round):
+            cohort = [self.clients[i] for i in sel]
+            states = list(states)
+            ks = self._budgets(states, n_samples, adaptive_k, len(cohort), send_h)
+            _active, payloads, _rank = self._upload_manifests(cohort, states, ks, n_samples,
+                                                              send_h)
+            all_ks.append(ks)
+            all_payloads.append(payloads)
+            batches.append(self._stacked_batches(cohort, step_major=False))
+        return StagedRounds(
+            ks=all_ks, payloads=all_payloads,
+            k_cap=k_cap_bucket([k for ks in all_ks for k in ks], self.cfg.vocab_size),
+            send_h=send_h, idx=[torch.as_tensor(sel, device=self.device) for sel in sels],
+            ks_dev=torch.as_tensor(all_ks, dtype=torch.int32, device=self.device).reshape(
+                len(sels), n_cohort),
+            pubs=[torch.as_tensor(p, device=self.device) for p in pubs[:len(sels)]],
+            batches=batches, eval_tokens=eval_tokens, eval_labels=eval_labels,
+        )
+
+    def run_block(self, staged: StagedRounds) -> dict[str, torch.Tensor]:
+        """The R round bodies of a staged block back to back, each the
+        fleet gather, the round function, the in-block eval tap (server, and
+        the round's first client) and the fleet commit; no call in here
+        waits for the device.  Returns the taps as device tensors, one
+        ``(R,)`` row each: ``mean_k``, ``distill_loss`` and, with eval data,
+        ``server_acc`` and ``client_acc``."""
+        rounds = len(staged.ks)
+        has_eval = staged.eval_tokens is not None
+        if rounds == 0:
+            return {}
+        fn = fed_steps.make_fused_e2e_round_fn(
+            self.cfg, self.server.cfg, self._num_classes, k_cap=staged.k_cap,
+            send_h=staged.send_h, **self._fn_kwargs,
+        )
+        server_eval = fed_steps.make_scan_eval_fn(self.server.cfg, self._num_classes,
+                                                  last_only=self.last_only)
+        client_eval = fed_steps.make_scan_eval_fn(self.cfg, self._num_classes,
+                                                  last_only=self.last_only)
+        if self._b_logits is not None:
+            g_tokens, g_logits, g_h, g_valid = self._b_tokens, self._b_logits, self._b_h, True
+        else:
+            n_samples = int(staged.pubs[0].shape[0])
+            (g_tokens, g_logits, g_h), g_valid = (
+                self._cold_broadcast(staged.pubs[0], n_samples), False)
+        taps: dict[str, list] = {"distill_loss": []}
+        if has_eval:
+            taps.update(server_acc=[], client_acc=[])
+        for r in range(rounds):
+            idx, lora, frozen, opt = self._store.fetch(staged.idx[r])
+            (lora, opt, self._s_lora, self._s_opt, _wire, b_logits, b_h, d_loss) = fn(
+                lora, frozen, opt, self._s_lora, self._s_frozen, self._s_opt,
+                g_tokens, g_logits, g_h, g_valid, staged.batches[r], staged.pubs[r],
+                staged.ks[r], staged.ks_dev[r],
+            )
+            taps["distill_loss"].append(d_loss.float())
+            if has_eval:
+                taps["server_acc"].append(server_eval(
+                    {k: v[0] for k, v in self._s_lora.items()}, self._s_frozen,
+                    staged.eval_tokens, staged.eval_labels))
+                taps["client_acc"].append(client_eval(
+                    {k: v[0] for k, v in lora.items()},
+                    frozen if self._shared else {k: v[0] for k, v in frozen.items()},
+                    staged.eval_tokens, staged.eval_labels))
+            self._store.commit(idx, lora, opt)
+            g_tokens, g_logits, g_h, g_valid = staged.pubs[r], b_logits, b_h, True
+        self._b_tokens, self._b_logits, self._b_h = g_tokens, g_logits, g_h
+        self._d_loss = taps["distill_loss"][-1]
+        out = {k: torch.stack(v) for k, v in taps.items()}
+        out["mean_k"] = staged.ks_dev.float().mean(dim=1)
+        return out

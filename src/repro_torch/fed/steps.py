@@ -52,9 +52,11 @@ __all__ = [
     "make_server_phase_fn",
     "make_fused_e2e_round_fn",
     "make_eval_fn",
+    "make_scan_eval_fn",
 ]
 
-# Host-eval batch size: make_eval_fn walks whole batches and drops the rest.
+# Eval batch size: make_eval_fn and the in-block eval tap walk whole batches
+# and drop the rest.
 EVAL_BATCH = 64
 
 
@@ -386,25 +388,31 @@ def make_server_phase_fn(
     """The server phase of one round (Algorithm 1 lines 13-16 + the next
     broadcast), reading the cohort's wire.
 
-    fn(s_lora (1,...), s_frozen, s_opt, wire, h (N,P,r)|None, ks, pub_tokens (P,L))
+    fn(s_lora (1,...), s_frozen, s_opt, wire, h (N,P,r)|None, ks, pub_tokens (P,L),
+       ks_dev=None)
     -> (s_lora, s_opt, b_logits (P,V), b_h (P,r)|None, d_loss)
 
-    The aggregation runs every round.  When every client dropped
-    (all ``ks == 0``) the server does not distill and ``d_loss`` is NaN;
-    the broadcast still refreshes on the current public batch."""
+    ``ks`` are the host's ints, which decide the branches; ``ks_dev`` the
+    same budgets as an int32 device tensor (made from ``ks`` when None), of
+    which the transmit mask is made on the device.  The aggregation runs
+    every round.  When every client dropped (all ``ks == 0``) the server
+    does not distill and ``d_loss`` is a NaN on the device; the broadcast
+    still refreshes on the current public batch."""
     kd_loss = _distill_loss_cached_fn(server_cfg, temperature, lam, last_only, compute_dtype)
     teacher_cache = _teacher_cache_fn(temperature, restrict_to_support, True)
 
-    def fn(s_lora, s_frozen, s_opt, wire, h, ks: Sequence[int], pub_tokens):
+    def fn(s_lora, s_frozen, s_opt, wire, h, ks: Sequence[int], pub_tokens, ks_dev=None):
         n_tx = sum(1 for k in ks if k > 0)
         # -- line 15: aggregation from the wire (eqs. 6-7) --
         k_g = aggregate_wire(wire, aggregation, num_transmitters=n_tx, use_kernel=use_kernels)
         h_g = None
         if send_h and h is not None:
-            tx = torch.as_tensor([k > 0 for k in ks], dtype=h.dtype, device=h.device)
+            if ks_dev is None:
+                ks_dev = torch.as_tensor(ks, dtype=torch.int32, device=h.device)
+            tx = (ks_dev > 0).to(h.dtype)
             h_g = torch.sum(h * tx[:, None, None], dim=0) / max(n_tx, 1)
         # -- line 16: server distillation against the teacher softmaxed once --
-        d_loss = torch.tensor(float("nan"))
+        d_loss = torch.full((), float("nan"), device=pub_tokens.device)
         if n_tx > 0:
             kg_logp, kg_h_logp, kg_support = teacher_cache(k_g, h_g)
             tokens = _per_client_tokens(pub_tokens, 1)
@@ -450,12 +458,15 @@ def make_fused_e2e_round_fn(
 
     fn(lora (C,...), frozen, opt, s_lora, s_frozen, s_opt,
        g_tokens (P,L), g_logits (P,V), g_h (P,r)|None, g_valid bool,
-       batches {tokens (C,S,B,L), labels (C,S,B)}, pub_tokens (P,L), ks [C ints])
+       batches {tokens (C,S,B,L), labels (C,S,B)}, pub_tokens (P,L), ks [C ints],
+       ks_dev=None)
     -> (lora, opt, s_lora, s_opt, wire (C,P,k_cap), b_logits (P,V),
         b_h (P,r)|None, d_loss)
 
     The uplink leaves the client phase as the sparse wire of width
     ``k_cap`` (int8 with ``quantize``) and is aggregated straight from it.
+    ``ks_dev`` is ``ks`` as an int32 device tensor, made here when None: a
+    multi-round block stages it before its first launch.
     ``compute_dtype`` is the round body's (see the module docstring)."""
     client_round = _client_round_core(
         client_cfg, num_classes, lr=lr, weight_decay=weight_decay, distill_lr=distill_lr,
@@ -473,36 +484,74 @@ def make_fused_e2e_round_fn(
     )
 
     def fn(lora, frozen, opt, s_lora, s_frozen, s_opt, g_tokens, g_logits, g_h, g_valid,
-           batches, pub_tokens, ks):
+           batches, pub_tokens, ks, ks_dev=None):
+        if ks_dev is None:
+            ks_dev = torch.as_tensor(ks, dtype=torch.int32, device=pub_tokens.device)
         t_cache = teacher_cache(g_logits, g_h) if g_valid else None
         lora, opt, last, h = client_round(
             lora, frozen, opt, g_tokens, t_cache, g_valid, batches, pub_tokens
         )
-        wire = sparsify_wire(last, ks, k_cap, quantize=quantize)
+        wire = sparsify_wire(last, ks_dev, k_cap, quantize=quantize)
         s_lora, s_opt, b_last, b_h, d_loss = server_phase(
-            s_lora, s_frozen, s_opt, wire, h, ks, pub_tokens
+            s_lora, s_frozen, s_opt, wire, h, ks, pub_tokens, ks_dev
         )
         return lora, opt, s_lora, s_opt, wire, b_last, b_h, d_loss
 
     return fn
 
 
+def _eval_correct_fn(cfg: ModelConfig, num_classes: int, last_only: bool) -> Callable:
+    """correct(params, tokens (B,L), labels (B,)) -> () fp32 count of correct
+    last-position class predictions on the device: the one copy of the eval
+    math that :func:`make_eval_fn` and :func:`make_scan_eval_fn` share."""
+
+    def correct(params, tokens, labels):
+        last, _ = last_logits(
+            params, cfg, tokens[None], last_only=last_only,
+            head_cols=num_classes if last_only else None,
+        )
+        pred = torch.argmax(class_logits(last[0], num_classes), dim=-1)
+        return torch.sum((pred == labels).float())
+
+    return correct
+
+
+def make_scan_eval_fn(cfg: ModelConfig, num_classes: int, *, last_only: bool = True) -> Callable:
+    """The in-block eval tap of ``run_rounds``:
+    acc(lora, frozen, tokens (N,L), labels (N,)) -> () fp32 accuracy of one
+    model as a DEVICE scalar (nothing crosses to the host), walking the
+    split in ``EVAL_BATCH`` chunks — :func:`make_eval_fn`'s per-sample math.
+    ``N`` must be a non-empty multiple of ``EVAL_BATCH``, so that both read
+    the same samples."""
+    correct = _eval_correct_fn(cfg, num_classes, last_only)
+
+    @torch.no_grad()
+    def acc(lora, frozen, tokens, labels):
+        params = merge_lora(lora, frozen)
+        n = int(labels.shape[0])
+        if n == 0 or n % EVAL_BATCH:
+            raise ValueError(
+                f"eval split must be a non-empty multiple of EVAL_BATCH={EVAL_BATCH}, got {n}"
+            )
+        total = sum(correct(params, tokens[i:i + EVAL_BATCH], labels[i:i + EVAL_BATCH])
+                    for i in range(0, n, EVAL_BATCH))
+        return total / n
+
+    return acc
+
+
 def make_eval_fn(cfg: ModelConfig, num_classes: int, *, last_only: bool = True) -> Callable:
     """evaluate(params, tokens (N,L), labels (N,)) -> accuracy of one model
-    over whole ``EVAL_BATCH`` batches (the remainder is dropped)."""
+    over whole ``EVAL_BATCH`` batches (the remainder is dropped), as a host
+    float."""
+    correct = _eval_correct_fn(cfg, num_classes, last_only)
 
     @torch.no_grad()
     def evaluate(params, tokens, labels) -> float:
         n = tokens.shape[0]
-        correct = 0.0
+        total = 0.0
         for i in range(0, n - EVAL_BATCH + 1, EVAL_BATCH):
-            last, _ = last_logits(
-                params, cfg, tokens[None, i:i + EVAL_BATCH], last_only=last_only,
-                head_cols=num_classes if last_only else None,
-            )
-            pred = torch.argmax(class_logits(last[0], num_classes), dim=-1)
-            correct += float(torch.sum(pred == labels[i:i + EVAL_BATCH]))
-        return correct / max(1, (n // EVAL_BATCH) * EVAL_BATCH)
+            total += float(correct(params, tokens[i:i + EVAL_BATCH], labels[i:i + EVAL_BATCH]))
+        return total / max(1, (n // EVAL_BATCH) * EVAL_BATCH)
 
     return evaluate
-

@@ -7,7 +7,8 @@ stacked on a leading ``(num_clients, ...)`` axis on the device, and works
 on the selected cohort per round:
 
 * ``fetch(sel) -> (idx, lora, frozen, opt)`` — the cohort's rows, leading
-  axis = cohort (fresh tensors, safe to update);
+  axis = cohort (fresh tensors, safe to update); ``sel`` may be the
+  cohort's index tensor already on the device;
 * ``commit(idx, lora, opt)`` — write the advanced cohort rows back;
 * ``client_row(cid) -> (lora, frozen)`` — one client's trees, for
   evaluation;
@@ -57,8 +58,10 @@ class DeviceFleetStore:
     def device(self) -> torch.device:
         return next(iter(self.lora.values())).device
 
-    def fetch(self, sel: Sequence[int]):
-        idx = torch.as_tensor(list(sel), device=self.device)
+    def fetch(self, sel: Sequence[int] | torch.Tensor):
+        """The cohort's rows; ``sel`` is the client ids, or their int64
+        index tensor already on the device (staged: no host copy)."""
+        idx = sel if isinstance(sel, torch.Tensor) else torch.as_tensor(list(sel), device=self.device)
         opt = AdamWState(m=_rows(self.opt.m, idx), v=_rows(self.opt.v, idx),
                          count=self.opt.count[idx])
         frozen = self.frozen if self.shared else _rows(self.frozen, idx)

@@ -22,7 +22,9 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.transformer import LAYER_NDIM, STACK_PREFIX, init_stack_cache, stack_apply
 
-__all__ = ["Aux", "check_supported", "init", "forward", "init_cache", "decode_step", "prefill"]
+__all__ = [
+    "Aux", "check_supported", "init", "backbone", "forward", "init_cache", "decode_step", "prefill",
+]
 
 _ATTN_TARGETS = ("q", "k", "v", "o")
 # dims of the top-level leaves of ONE model (a per-client leaf has one more)
@@ -121,6 +123,29 @@ def _lm_logits(params, cfg: ModelConfig, h: torch.Tensor, head_cols: int | None)
     return logits
 
 
+def backbone(
+    params: dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    *,
+    last_only: bool = False,
+) -> tuple[torch.Tensor, Aux]:
+    """Hidden states post final-norm, pre LM head: ``tokens (C, B, S)`` ->
+    ``(C, B, S, d)``, or ``(C, B, 1, d)`` for the final position only with
+    ``last_only`` (the stack still runs every position).  Training reads
+    this with a chunked cross-entropy, so ``(B, S, V)`` logits never exist
+    at once.  ``Aux.lora_h`` always pools the whole sequence."""
+    check_supported(cfg)
+    s = tokens.shape[-1]
+    pos = params["pos_embed"]
+    pos = pos[:s] if pos.ndim == 2 else pos[:, None, :s]
+    cd = torch_dtype(cfg.compute_dtype)
+    x = embedding(params["embed"], tokens).to(cd) + pos.to(cd)
+    st = stack_apply(params, x, cfg)
+    h = st.x[:, :, -1:] if last_only else st.x
+    return layer_norm(h, params["final_norm/scale"], params["final_norm/bias"]), Aux(lora_h=st.lora_h)
+
+
 def forward(
     params: dict[str, torch.Tensor],
     cfg: ModelConfig,
@@ -133,16 +158,9 @@ def forward(
     from the final position only with ``last_only``; ``head_cols=k`` keeps
     the first k vocab columns (the class readout).  ``Aux.lora_h`` always
     pools the whole sequence."""
-    check_supported(cfg)
-    s = tokens.shape[-1]
-    pos = params["pos_embed"]
-    pos = pos[:s] if pos.ndim == 2 else pos[:, None, :s]
-    cd = torch_dtype(cfg.compute_dtype)
-    x = embedding(params["embed"], tokens).to(cd) + pos.to(cd)
-    st = stack_apply(params, x, cfg)
-    h = st.x[:, :, -1] if last_only else st.x
-    h = layer_norm(h, params["final_norm/scale"], params["final_norm/bias"])
-    return _lm_logits(params, cfg, h, head_cols), Aux(lora_h=st.lora_h)
+    h, aux = backbone(params, cfg, tokens, last_only=last_only)
+    logits = _lm_logits(params, cfg, h, head_cols)
+    return (logits[:, :, 0] if last_only else logits), aux
 
 
 def _client_rows(params: dict[str, torch.Tensor]) -> int:

@@ -82,8 +82,10 @@ def adamw_update(
     """Returns ``(new_params, new_state)``; inputs are left untouched."""
     count = state.count + 1
     cf = count.float()
-    bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=cf.device), cf)
-    bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=cf.device), cf)
+    # the fp32 bias corrections 1 - b**count: the python scalar rides into
+    # the kernel, where a host-made tensor would be a blocking copy
+    bc1 = 1.0 - b1**cf
+    bc2 = 1.0 - b2**cf
     if grad_clip is not None:
         scale = torch.clamp(grad_clip / (global_norm(grads) + 1e-9), max=1.0)
         grads = {k: g * _per_client(scale, g).to(g.dtype) for k, g in grads.items()}

@@ -331,7 +331,6 @@ _QUEUE = "ROADMAP.md port queue: "
 @pytest.mark.parametrize("change,match", [
     pytest.param(dict(engine="fused", shard_clients=True), _QUEUE + "launchers and scale-out",
                  id="fused-shard_clients"),
-    pytest.param(dict(pretrain_steps=80), _QUEUE + "pretraining", id="pretrain_steps"),
     # the id is kept from the bf16 refusal that this case held before bf16 ran
     pytest.param(dict(compute_dtype="float16"), _QUEUE + "fp16", id="bf16-compute"),
     pytest.param(dict(scenario="gauss_markov"), _QUEUE + "scenarios and faults",
@@ -339,7 +338,8 @@ _QUEUE = "ROADMAP.md port queue: "
     pytest.param(dict(faults="crashes"), _QUEUE + "scenarios and faults", id="fault-injection"),
     pytest.param(dict(fleet_store="host"), _QUEUE + "the host fleet store",
                  id="fused_e2e-host-fleet-store"),
-    pytest.param(dict(scan_rounds=True), _QUEUE + "run_rounds and scan_rounds", id="scan_rounds"),
+    pytest.param(dict(scan_rounds=True, scenario="gauss_markov"), _QUEUE + "scenarios and faults",
+                 id="scan_rounds-channel-scenario"),
     pytest.param(dict(shard_clients=True), _QUEUE + "launchers and scale-out",
                  id="fused_e2e-shard_clients"),
     # the reference's own refusal, kept by the port's sequential engine
