@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -73,17 +74,6 @@ from repro_torch.models import init_cache as t_init_cache  # noqa: E402
 from repro_torch.optim import adamw_init as t_adamw_init  # noqa: E402
 from repro_torch.optim import adamw_update as t_adamw_update  # noqa: E402
 from repro_torch.serve import make_prefill_step  # noqa: E402
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread while this module runs: its tensors are tiny, and
-    the suite runs several workers on shared cores, where a pool of spinning
-    threads per worker only slows every worker down."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
 
 MODEL_TOL = 2.0**-6  # four bf16 ulps of the largest magnitude
 GRAD_TOL = 2.0**-4

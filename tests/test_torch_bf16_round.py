@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 
@@ -53,17 +54,6 @@ from repro_torch.fed import FedConfig as TFed  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.lora import split_lora  # noqa: E402
 from repro_torch.models import model as t_model  # noqa: E402
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread while this module runs: its tensors are tiny, and
-    the suite runs several workers on shared cores, where a pool of spinning
-    threads per worker only slows every worker down."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
 
 ACC_TOL = 0.15  # the reference's own bf16 tolerance (tests/test_engine.py)
 _LORA = dict(rank=4, alpha=32.0, dropout=0.0, targets=("q", "v", "head"))

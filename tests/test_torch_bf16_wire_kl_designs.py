@@ -44,6 +44,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.kernels import ref  # noqa: E402
 

@@ -2,10 +2,11 @@
 
 ``models.backbone``, ``launch.steps.chunked_lm_loss`` and
 ``make_train_step``, ``fed.pretrain``'s ``pretrain_classifier`` and
-``pretrain_lm``, and ``run_federated`` with ``pretrain_steps=2`` and
-``server_pretrain`` in ``"lm"``, ``"supervised"`` and ``"none"`` on
-``fused_e2e`` and ``batched`` (2 rounds, the clients on one shared
-pretrained backbone: the fleet store's shared layout), on the tiny configs
+``pretrain_lm``, and ``run_federated`` with ``pretrain_steps=2``,
+``server_pretrain_steps=2`` and ``server_pretrain`` in ``"lm"``,
+``"supervised"`` and ``"none"`` on ``fused_e2e`` and ``batched`` (2
+rounds, the clients on one shared pretrained backbone: the fleet store's
+shared layout), on the tiny configs
 of ``tests/test_engine.py`` with the JAX init bridged into the port (both
 packages start from the same weights; ``repro_torch.models.model.init`` is
 replaced for the module).
@@ -38,6 +39,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -312,7 +314,8 @@ def _fed(engine, server_pretrain, package):
     return fed(method="adald", engine=engine, num_clients=4, clients_per_round=2, rounds=2,
                public_size=64, public_batch=16, eval_size=EVAL_SIZE, local_steps=2,
                distill_steps=1, server_distill_steps=2, seed=0, pretrain_steps=2,
-               server_pretrain=server_pretrain, channel=chan(bandwidth_hz=2e5, mean_snr_db=2.0),
+               server_pretrain=server_pretrain, server_pretrain_steps=2,
+               channel=chan(bandwidth_hz=2e5, mean_snr_db=2.0),
                **({} if package == "jax" else {"use_kernels": True}))
 
 
