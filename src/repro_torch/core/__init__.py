@@ -3,7 +3,20 @@
 
 from repro_torch.core.aggregation import aggregate, aggregate_wire
 from repro_torch.core.channel import ChannelConfig, ChannelSimulator, ChannelState, topk_budget_batch
+from repro_torch.core.faults import (
+    FAULTS,
+    FaultCarry,
+    FaultConfig,
+    FaultResolution,
+    FaultSimulator,
+    corrupt_wire,
+    get_faults,
+    quarantine_wire,
+    validate_dense,
+    validate_wire,
+)
 from repro_torch.core.protocol import CommLedger, PayloadSpec, UplinkPayload, downlink_bits
+from repro_torch.core.scenario import SCENARIOS, ScenarioConfig, get_scenario
 from repro_torch.core.topk import (
     QUANT_LEVELS,
     QuantizedWire,
@@ -24,6 +37,19 @@ __all__ = [
     "ChannelSimulator",
     "ChannelState",
     "topk_budget_batch",
+    "FAULTS",
+    "FaultCarry",
+    "FaultConfig",
+    "FaultResolution",
+    "FaultSimulator",
+    "corrupt_wire",
+    "get_faults",
+    "quarantine_wire",
+    "validate_dense",
+    "validate_wire",
+    "SCENARIOS",
+    "ScenarioConfig",
+    "get_scenario",
     "CommLedger",
     "PayloadSpec",
     "UplinkPayload",

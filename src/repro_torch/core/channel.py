@@ -529,3 +529,64 @@ class ChannelSimulator:
             )
             for s in self.states(round_index, client_ids)
         ]
+
+    def scan_channel_inputs(self, num_rounds: int, *, start_round: int = 0) -> dict:
+        """Host-precomputed operands for the in-scan channel replica.
+
+        The multi-round block evolves ``(z, bad)`` round by round on the
+        device from these f32 operands (:func:`repro_torch.fed.steps
+        .make_channel_step_fn`): per-round copula normals ``w``, outage
+        uniforms ``u`` and deterministic base SNR (mean + shadowing +
+        trajectory), plus the scalar dynamics ``rho``/``p_gb``/``p_bg``/
+        ``fade_scale``.  Every scenario differs only through these operands
+        (``rho = 0`` is the i.i.d. case).  The draws come from the very
+        streams the host realisation consumes, so the in-scan trajectory replays the host
+        one (f32 vs f64 rounding aside).
+        """
+        if num_rounds < 0 or start_round < 0:
+            raise ValueError("num_rounds and start_round must be >= 0")
+        cfg = self.config
+        sc = cfg.scenario or ScenarioConfig()
+        n = self.num_clients
+        carry = self.init_channel_carry()
+        for t in range(start_round):
+            carry, _snr, _bad = self.step_channel(carry, t)
+        rho = sc.effective_rho if cfg.fast_fading else 0.0
+        if sc.p_gb is not None:
+            p_gb, p_bg = sc.ge_params(cfg.dropout_prob)
+        else:
+            p_gb, p_bg = float(cfg.dropout_prob), 1.0 - float(cfg.dropout_prob)
+        outage_on = p_gb > 0.0
+        w = np.zeros((num_rounds, n), dtype=np.float64)
+        u = np.ones((num_rounds, n), dtype=np.float64)
+        base = np.zeros((num_rounds, n), dtype=np.float64)
+        shadow = cfg.mean_snr_db + self._shadowing_db.astype(np.float64)
+        for r in range(num_rounds):
+            t = start_round + r
+            base[r] = shadow
+            if sc.snr_drift_db_per_round != 0.0 or sc.snr_amp_db != 0.0:
+                base[r] += np.array([
+                    trajectory_offset_db(sc, t, cid, n) for cid in range(n)
+                ])
+            if cfg.fast_fading:
+                p = np.array([
+                    self._stream(self._FADING_DOMAIN, t, cid).exponential(1.0)
+                    for cid in range(n)
+                ])
+                w[r] = exp_to_gauss(p)
+            if outage_on:
+                u[r] = np.array([
+                    self._stream(self._OUTAGE_DOMAIN, t, cid).random()
+                    for cid in range(n)
+                ])
+        return {
+            "z0": carry.z.astype(np.float32),
+            "bad0": carry.bad.copy(),
+            "w": w.astype(np.float32),
+            "u": u.astype(np.float32),
+            "base_snr_db": base.astype(np.float32),
+            "rho": np.float32(rho),
+            "p_gb": np.float32(p_gb if outage_on else 0.0),
+            "p_bg": np.float32(p_bg if outage_on else 1.0),
+            "fade_scale": np.float32(1.0 if cfg.fast_fading else 0.0),
+        }

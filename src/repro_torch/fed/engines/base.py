@@ -1,13 +1,19 @@
 """Shared engine plumbing: budget math, the dense uplink's int8 code, round
-dataclasses (a multi-round block's trajectory among them), the sequential
-engine and the server-owner mixin — the port of
-``repro/fed/engines/base.py``."""
+dataclasses (a multi-round block's trajectory among them), the channel
+scenario's operands for a block, the sequential engine and the
+server-owner mixin — the port of ``repro/fed/engines/base.py``.
+
+Checkpoint trees (``fleet_state``, ``server_state``) take the reference's
+shapes: one model's LoRA and optimizer state have no client axis there,
+so the port's client axis of 1 is dropped on the way out and restored on
+the way in (an AdamW ``count`` of shape ``()``)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -16,8 +22,9 @@ from repro_torch.core.channel import BatchedChannelState, ChannelState
 from repro_torch.core.protocol import UplinkPayload, downlink_bits, lora_projection_bits
 from repro_torch.core.topk import QUANT_LEVELS, QuantizedWire, SparseWire, densify
 from repro_torch.fed.client import Client
+from repro_torch.fed.store import owned_copy
 from repro_torch.lora import merge_lora, split_lora
-from repro_torch.optim import adamw_init
+from repro_torch.optim import AdamWState, adamw_init
 
 __all__ = [
     "BroadcastState",
@@ -29,6 +36,8 @@ __all__ = [
     "check_unique_cohort",
     "fake_quant_dense",
     "not_carried",
+    "one_model_opt",
+    "client_axis_opt",
     "shared_frozen_backbone",
 ]
 
@@ -76,6 +85,50 @@ def k_cap_bucket(ks: Sequence[int], vocab: int) -> int:
     while cap < need:
         cap *= 2
     return min(cap, vocab)
+
+
+def _channel_scan_ops(channel_scan: dict, num_rounds: int, device) -> tuple:
+    """Validate a ``scan_channel_inputs`` dict and copy it to ``device``
+    for a block of ``num_rounds``: ``(z0, bad0, w, u, base_snr_db, rho,
+    p_gb, p_bg, fade_scale)``, fp32 (``bad0`` bool).  Every scenario is
+    these operands only; the block runs one channel step for all."""
+    try:
+        w = np.asarray(channel_scan["w"])
+    except KeyError as e:
+        raise ValueError(f"channel_scan is missing key {e}") from None
+    if w.ndim != 2 or w.shape[0] < num_rounds:
+        raise ValueError(
+            f"channel_scan covers {w.shape[0] if w.ndim == 2 else '?'} rounds, need {num_rounds} "
+            "(ChannelSimulator.scan_channel_inputs(num_rounds))"
+        )
+    f32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)  # noqa: E731
+    return (
+        f32(channel_scan["z0"]),
+        torch.as_tensor(np.asarray(channel_scan["bad0"], dtype=bool), device=device),
+        f32(w[:num_rounds]),
+        f32(np.asarray(channel_scan["u"])[:num_rounds]),
+        f32(np.asarray(channel_scan["base_snr_db"])[:num_rounds]),
+        f32(channel_scan["rho"]),
+        f32(channel_scan["p_gb"]),
+        f32(channel_scan["p_bg"]),
+        f32(channel_scan["fade_scale"]),
+    )
+
+
+def one_model_opt(opt: AdamWState) -> AdamWState:
+    """One model's optimizer state on a client axis of 1 -> the
+    reference's shapes (``count`` a scalar)."""
+    drop = lambda tree: None if tree is None else {k: v[0] for k, v in tree.items()}  # noqa: E731
+    return AdamWState(m=drop(opt.m), v=drop(opt.v), count=opt.count[0], master=drop(opt.master))
+
+
+def client_axis_opt(opt: AdamWState, device) -> AdamWState:
+    """The inverse of :func:`one_model_opt`, as owned copies on ``device``."""
+    add = lambda tree: None if tree is None else {  # noqa: E731
+        k: owned_copy(v, device)[None] for k, v in tree.items()}
+    return AdamWState(m=add(opt.m), v=add(opt.v),
+                      count=owned_copy(opt.count, device).to(torch.int32).reshape(1),
+                      master=add(opt.master))
 
 
 def fake_quant_dense(dense: torch.Tensor) -> torch.Tensor:
@@ -150,10 +203,12 @@ class RoundsTrajectory:
     kept on the device round by round and copied to the host once, after
     the block.  ``distill_loss`` is the round's final server-distill step
     loss (NaN for an all-dropped round: the server never distilled).
-    ``family_client_acc`` (mixed fleets) and ``snr_db``/``outage`` (channel
-    scenarios) stay None: the port carries neither yet (ROADMAP.md port
-    queue: "other model families and mixed fleets", "scenarios and faults,
-    then checkpoints")."""
+    ``snr_db``/``outage`` (blocks given a ``channel_scan``): per round, the
+    cohort's SNR (dB, -inf in outage) and Gilbert-Elliott outage flags from
+    the block's own fp32 replica of the channel chain that priced
+    ``ks``/``payloads``.  ``family_client_acc`` (mixed fleets) stays None:
+    the port does not carry them yet (ROADMAP.md port queue: "other model
+    families and mixed fleets")."""
 
     ks: list[list[int]]
     payloads: list[list[UplinkPayload]]
@@ -184,6 +239,18 @@ class SequentialEngine:
     def client_params(self, cid: int) -> dict:
         """Current parameters of one client (for evaluation)."""
         return self.clients[cid].params
+
+    def fleet_state(self) -> dict:
+        """The fleet's trainable state as one checkpointable tree of
+        per-client subtrees ``client{i}/params|opt`` (the reference's)."""
+        return {f"client{i}": {"params": c.params, "opt": one_model_opt(c.opt)}
+                for i, c in enumerate(self.clients)}
+
+    def load_fleet_state(self, state: dict) -> None:
+        for i, c in enumerate(self.clients):
+            dev = c.params["embed"].device
+            c.params = {k: owned_copy(v, dev) for k, v in state[f"client{i}"]["params"].items()}
+            c.opt = client_axis_opt(state[f"client{i}"]["opt"], dev)
 
     def prefetch_cohort(self, sel: Sequence[int]) -> None:
         """No-op: every client's state already lives on the device."""
@@ -273,3 +340,23 @@ class _ServerOwnerMixin:
     def sync_server(self) -> None:
         """Write the engine-held server state back onto the Server."""
         self.server.params = merge_lora({k: v[0] for k, v in self._s_lora.items()}, self._s_frozen)
+
+    def server_state(self) -> dict:
+        """The engine-held server state as one checkpointable tree."""
+        return {"s_lora": {k: v[0] for k, v in self._s_lora.items()},
+                "s_frozen": self._s_frozen, "s_opt": one_model_opt(self._s_opt)}
+
+    def load_server_state(self, state: dict) -> None:
+        dev = self.device
+        self._s_lora = {k: owned_copy(v, dev)[None] for k, v in state["s_lora"].items()}
+        self._s_frozen = {k: owned_copy(v, dev) for k, v in state["s_frozen"].items()}
+        self._s_opt = client_axis_opt(state["s_opt"], dev)
+        self.sync_server()
+
+    def load_broadcast(self, tokens, logits, h=None) -> None:
+        """Restore the broadcast the NEXT round's cohort distills against
+        (a checkpoint's)."""
+        dev = self.device
+        self._b_tokens = torch.as_tensor(tokens, device=dev)
+        self._b_logits = owned_copy(logits, dev)
+        self._b_h = None if h is None else owned_copy(h, dev)

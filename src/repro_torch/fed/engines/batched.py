@@ -71,6 +71,22 @@ class _FleetEngine:
         """One client's merged parameters (for evaluation)."""
         return merge_lora(*self._store.client_row(cid))
 
+    # -- checkpoints: the store's state, in the reference's layout ---------
+    def fleet_state(self) -> dict:
+        """The fleet as one checkpointable tree ``{"lora", "opt",
+        "frozen"}``, the backbone included, so a checkpoint stands alone."""
+        return self._store.state_dict()
+
+    def load_fleet_state(self, state: dict) -> None:
+        self._store.load_state_dict(state)
+
+    def save_fleet_shards(self, dir_path: str, *, prefix: str = "fleet") -> None:
+        """The fleet as per-client-range shards, never as one tree."""
+        self._store.save_shards(dir_path, prefix=prefix)
+
+    def load_fleet_shards(self, dir_path: str, *, prefix: str = "fleet") -> None:
+        self._store.load_shards(dir_path, prefix=prefix)
+
     def _budgets(self, states, n_samples: int, adaptive_k: bool, n_cohort: int,
                  send_h: bool = False) -> list[int]:
         return cohort_budgets(

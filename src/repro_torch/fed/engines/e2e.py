@@ -33,9 +33,9 @@ from repro_torch.fed.engines.base import (
     ClientPhase,
     RoundsTrajectory,
     _ServerOwnerMixin,
+    _channel_scan_ops,
     check_unique_cohort,
     k_cap_bucket,
-    not_carried,
 )
 from repro_torch.fed.engines.batched import _FleetEngine
 
@@ -57,6 +57,8 @@ class StagedRounds:
     batches: list[dict]  # per round, {tokens (C, S, B, L), labels (C, S, B)}
     eval_tokens: torch.Tensor | None = None  # (N, L), N a multiple of EVAL_BATCH
     eval_labels: torch.Tensor | None = None
+    # a channel scenario's operands on the device (``_channel_scan_ops``)
+    chan: tuple | None = None
 
 
 class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
@@ -172,13 +174,19 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         )
         taps = self.run_block(staged)
         names = list(taps)
-        host = dict(zip(names, torch.stack([taps[k] for k in names]).cpu().tolist())) if taps else {}
-        no_eval = staged.eval_tokens is None
+        host = {}
+        if taps:  # one copy to the host for every tap
+            flat = torch.cat([taps[k].reshape(-1).float() for k in names]).cpu()
+            for k, part in zip(names, flat.split([taps[k].numel() for k in names])):
+                host[k] = part.reshape(taps[k].shape).tolist()
+        no_eval, no_chan = staged.eval_tokens is None, channel_scan is None
         return RoundsTrajectory(
             ks=staged.ks, payloads=staged.payloads, mean_k=host.get("mean_k", []),
             distill_loss=host.get("distill_loss", []),
             server_acc=None if no_eval else host.get("server_acc", []),
             client_acc=None if no_eval else host.get("client_acc", []),
+            snr_db=None if no_chan else host.get("snr_db", []),
+            outage=None if no_chan else [[bool(x) for x in row] for row in host.get("outage", [])],
         )
 
     def stage_rounds(
@@ -197,15 +205,14 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         round's budgets, upload manifests and private batches (each selected
         client's rng advances as ``run_round`` advances it), then one
         ``k_cap`` for every k of the block; every operand copied to the
-        device."""
+        device, a ``channel_scan``'s
+        (:meth:`~repro_torch.core.channel.ChannelSimulator.scan_channel_inputs`)
+        among them."""
         if self.store_kind != "device":
             raise RuntimeError(
                 "run_rounds carries the whole fleet on the device, which only "
                 f"fleet_store='device' provides (store_kind={self.store_kind!r})"
             )
-        if channel_scan is not None:
-            raise not_carried("a channel scenario in run_rounds (channel_scan)",
-                              "scenarios and faults, then checkpoints")
         sels = [check_unique_cohort(sel) for sel in sels]
         if (eval_tokens is None) != (eval_labels is None):
             raise ValueError("pass eval_tokens and eval_labels together")
@@ -240,6 +247,8 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
                 len(sels), n_cohort),
             pubs=[torch.as_tensor(p, device=self.device) for p in pubs[:len(sels)]],
             batches=batches, eval_tokens=eval_tokens, eval_labels=eval_labels,
+            chan=(None if channel_scan is None or not sels
+                  else _channel_scan_ops(channel_scan, len(sels), self.device)),
         )
 
     def run_block(self, staged: StagedRounds) -> dict[str, torch.Tensor]:
@@ -248,7 +257,8 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         the round's first client) and the fleet commit; no call in here
         waits for the device.  Returns the taps as device tensors, one
         ``(R,)`` row each: ``mean_k``, ``distill_loss`` and, with eval data,
-        ``server_acc`` and ``client_acc``."""
+        ``server_acc`` and ``client_acc``; with a channel scenario the
+        cohort's ``snr_db`` (fp32) and ``outage`` (bool), ``(R, C)``."""
         rounds = len(staged.ks)
         has_eval = staged.eval_tokens is not None
         if rounds == 0:
@@ -270,6 +280,10 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         taps: dict[str, list] = {"distill_loss": []}
         if has_eval:
             taps.update(server_acc=[], client_acc=[])
+        if staged.chan is not None:
+            chan_step = fed_steps.make_channel_step_fn()
+            ch_z, ch_bad, ch_w, ch_u, ch_base, rho, p_gb, p_bg, fade = staged.chan
+            taps.update(snr_db=[], outage=[])
         for r in range(rounds):
             idx, lora, frozen, opt = self._store.fetch(staged.idx[r])
             (lora, opt, self._s_lora, self._s_opt, _wire, b_logits, b_h, d_loss) = fn(
@@ -287,6 +301,11 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
                     frozen if self._shared else {k: v[0] for k, v in frozen.items()},
                     staged.eval_tokens, staged.eval_labels))
             self._store.commit(idx, lora, opt)
+            if staged.chan is not None:  # the fleet's channel advances one round
+                ch_z, ch_bad, snr = chan_step(ch_z, ch_bad, ch_w[r], ch_u[r], ch_base[r],
+                                              rho, p_gb, p_bg, fade)
+                taps["snr_db"].append(snr[idx])
+                taps["outage"].append(ch_bad[idx])
             g_tokens, g_logits, g_h, g_valid = staged.pubs[r], b_logits, b_h, True
         self._b_tokens, self._b_logits, self._b_h = g_tokens, g_logits, g_h
         self._d_loss = taps["distill_loss"][-1]

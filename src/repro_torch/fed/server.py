@@ -7,17 +7,22 @@ dense stack of the transmitters' top-k masks, which the server aggregates
 (:meth:`Server.aggregate_dense`), distills into its LLM
 (:meth:`Server.distill`) and answers with a refreshed broadcast
 (:meth:`Server.broadcast`).  The ``fused_e2e`` engine runs the same work
-inside its round and only keeps the parameters here for evaluation.
+inside its round and only keeps the parameters here for evaluation.  A
+caller holding a sparse wire outside a round aggregates it with
+:meth:`Server.aggregate_sparse_wire`, which can gate it first
+(``validate=True``: the corrupted rows quarantined).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.aggregation import AggregationMode, aggregate
+from repro_torch.core.aggregation import AggregationMode, aggregate, aggregate_wire
+from repro_torch.core.faults import quarantine_wire, validate_wire
 from repro_torch.core.protocol import downlink_bits
-from repro_torch.core.topk import densify
+from repro_torch.core.topk import QuantizedWire, SparseWire, densify
 from repro_torch.fed import steps as fed_steps
 from repro_torch.fed.client import ClientUpload
 from repro_torch.models import model as model_lib
@@ -50,10 +55,8 @@ class Server:
         self.params = (
             initial_params if initial_params is not None else model_lib.init(cfg, seed, device)
         )
-        # made by the first distill: the fused_e2e engine distills inside
-        # its round and holds its own optimizer state
-        self.opt = None
-        self._distill_step = None
+        self.opt = fed_steps.init_lora_opt(self.params, cfg)  # a client axis of 1
+        self._distill_step = None  # made by the first distill
         self._distill_kwargs = dict(lr=distill_lr, temperature=temperature, lam=lam,
                                     restrict_to_support=restrict_to_support, last_only=last_only)
 
@@ -82,10 +85,38 @@ class Server:
         h_g = torch.mean(h_stack, dim=0) if h_stack is not None else None
         return k_g, h_g
 
+    def aggregate_sparse_wire(
+        self,
+        wire: SparseWire | QuantizedWire,
+        h_stack: torch.Tensor | None = None,
+        *,
+        validate: bool = False,
+        budget_bits=None,
+        value_bits: int = 16,
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Aggregate straight from the sparse wire (float or int8), with no
+        dense stack: the wire scatter kernels (1 and 2) under
+        ``use_kernels``.  ``validate=True`` runs the server-side integrity
+        gate first (:func:`repro_torch.core.faults.validate_wire`:
+        non-finite values, out-of-range indices and, with ``budget_bits``,
+        fits-violating byte counts) and quarantines the offending rows
+        through the transmit mask; their ``h`` rows leave the projection
+        mean too."""
+        if validate:
+            ok, _reasons = validate_wire(wire, value_bits=value_bits, budget_bits=budget_bits)
+            if not bool(np.all(ok)):
+                wire = quarantine_wire(wire, ok)
+                if h_stack is not None:
+                    keep = np.flatnonzero(ok)
+                    h_stack = (h_stack[torch.as_tensor(keep, device=h_stack.device)]
+                               if len(keep) else None)
+        k_g = aggregate_wire(wire, self.aggregation, use_kernel=self.use_kernels)
+        h_g = torch.mean(h_stack, dim=0) if h_stack is not None else None
+        return k_g, h_g
+
     # ---- Algorithm 1, line 16: update the LLM by distilling K_g, h_g ----
     def distill(self, public_tokens: torch.Tensor, k_g: torch.Tensor, h_g) -> dict:
         if self._distill_step is None:
-            self.opt = fed_steps.init_lora_opt(self.params, self.cfg)
             self._distill_step = fed_steps.make_distill_step(self.cfg, **self._distill_kwargs)
         metrics = {}
         for _ in range(self.distill_steps):

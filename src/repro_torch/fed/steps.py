@@ -53,6 +53,7 @@ __all__ = [
     "make_fused_e2e_round_fn",
     "make_eval_fn",
     "make_scan_eval_fn",
+    "make_channel_step_fn",
 ]
 
 # Eval batch size: make_eval_fn and the in-block eval tap walk whole batches
@@ -555,3 +556,35 @@ def make_eval_fn(cfg: ModelConfig, num_classes: int, *, last_only: bool = True) 
         return total / max(1, (n // EVAL_BATCH) * EVAL_BATCH)
 
     return evaluate
+
+
+def make_channel_step_fn() -> Callable:
+    """One round of the block's channel dynamics, on the device (the port of
+    the reference's in-scan ``repro.core.scenario`` replica).
+
+    channel_step(z, bad, w, u, base_snr_db, rho, p_gb, p_bg, fade_scale)
+        -> (z', bad', snr_db)
+
+    The AR(1) fading state ``z`` and the Gilbert-Elliott outage state
+    ``bad`` (each ``(N,)``, the whole fleet) evolve from the host's
+    precomputed copula normals ``w`` and outage uniforms ``u``
+    (:meth:`repro_torch.core.channel.ChannelSimulator.scan_channel_inputs`);
+    every scenario parameter is an fp32 tensor operand, so ``rho = 0``
+    replays the i.i.d. channel and ``fade_scale = 0`` a fading-free one.
+    fp32 tensor math, no host read: the block calls it between launches.
+    It is the observability replica of the host's f64 realisation (the
+    budgets stay host-side scalar math); the fp32 recursion tracks the f64
+    chain to ~1e-2 dB over a block (the AR(1) map is contracting).
+    """
+
+    def channel_step(z, bad, w, u, base_snr_db, rho, p_gb, p_bg, fade_scale):
+        z = rho * z + torch.sqrt(torch.clamp(1.0 - rho * rho, min=0.0)) * w
+        u_fade = torch.clamp(torch.special.ndtr(z), 1e-7, 1.0 - 1e-7)
+        power = -torch.log1p(-u_fade)
+        fade_db = 10.0 * torch.log10(torch.clamp(power, min=1e-6))
+        bad = torch.where(bad, u < 1.0 - p_bg, u < p_gb)
+        snr_db = torch.where(bad, torch.full_like(z, float("-inf")),
+                             base_snr_db + fade_scale * fade_db)
+        return z, bad, snr_db
+
+    return channel_step

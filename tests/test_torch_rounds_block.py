@@ -298,12 +298,12 @@ def test_scan_rounds_needs_the_whole_round_engine():
     (dict(eval_tokens=64), ValueError, "pass eval_tokens and eval_labels together"),
     (dict(sels=[[0, 1], [2]]), ValueError, "equal-size cohorts"),
     (dict(sels=[[0, 0], [2, 3]]), ValueError, "duplicate client ids"),
-    (dict(channel_scan={}), NotImplementedError, "port queue: scenarios and faults"),
+    (dict(channel_scan={}), ValueError, "channel_scan is missing key"),
 ], ids=["eval-split-under-one-batch", "eval-tokens-without-labels", "unequal-cohorts",
         "duplicate-client", "channel-scan"])
 def test_run_rounds_refuses(change, error, match):
-    """The reference's refusals (and the scenarios' message for a channel
-    scan), before any work: the fleet is left as it was."""
+    """The reference's refusals, before any work: the fleet is left as it
+    was."""
     ds, eng = _cohort("torch")
     pubs, states, ev_tok, ev_lab = _block_inputs(ds, "torch")
     kw = dict(sels=SELS, pubs=pubs, states_per_round=states)

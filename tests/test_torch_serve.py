@@ -316,12 +316,16 @@ def test_export_from_a_live_fleet_store(model):
         export_adapters(per_client).frozen_tree()
 
 
-def test_checkpoint_sources_are_not_carried(tmp_path):
+def test_checkpoint_sources_refuse_what_is_not_a_checkpoint(tmp_path):
+    """A directory with no shards and no step file, a missing step file, a
+    source that is not a store or a path (serving from real checkpoints:
+    ``tests/test_torch_ckpt.py``)."""
     for make in (lambda: export_adapters(str(tmp_path)), lambda: ShardDirSource(str(tmp_path)),
-                 lambda: MonolithicSource(str(tmp_path / "step_00000001.npz"))):
-        with pytest.raises(NotImplementedError,
-                           match="port queue: scenarios and faults, then checkpoints"):
+                 lambda: export_adapters(str(tmp_path / "step_00000001.npz"))):
+        with pytest.raises(FileNotFoundError):
             make()
+    with pytest.raises(FileNotFoundError):
+        MonolithicSource(str(tmp_path / "step_00000001.npz"))
     with pytest.raises(TypeError):
         export_adapters(42)
 
