@@ -118,6 +118,27 @@ Phases (any failure raises and exits non-zero):
    ``fused``).  ``[trace]`` lines give the device's busy share of the
    traced window and of the untraced run's time for the same work, the
    kernel count and the five longest idle gaps.
+5c. scenarios, faults, checkpoints — the main path's fleet with one
+   pretraining step (the fleet shares one backbone; the server's none) on
+   a Gilbert-Elliott channel of 300 MHz with ``faults="lossy"``, seed 5
+   (over its 3 rounds an outage, a crash, a quarantine and a delivery
+   after a HARQ retry, which needs a budget of two payload copies: a
+   client whose k the vocabulary caps): ``fused_e2e`` round by round, then
+   as a ``scan_rounds`` block under ``set_sync_debug_mode("error")``, held
+   identical on k, attempted k, bytes and fault taps, with the block's SNR
+   taps within 1e-2 dB of the host's chain and its outage flags equal;
+   ``batched`` with ``faults="corruption"`` (kernel 4 after the server's
+   ``validate_dense`` gate); the largest round's wire, float and int8,
+   with one client row corrupted, through
+   ``Server.aggregate_sparse_wire(validate=True)`` (kernels 1 and 2),
+   ``torch.equal`` to its plain version and to the wire without that row;
+   1 round with ``ckpt_dir``, its bytes and save seconds, serving 8 tokens
+   for 2 tenants from its npz (``MonolithicSource``) against the live
+   store, then resumed to 3 rounds (restore seconds) and held to the
+   uninterrupted run: integers identical, floats reported bitwise or not
+   and held within one eval sample (accuracies) and rtol 1e-3 (distill
+   loss).  The checkpoint directory (one step on disk at a time) is
+   removed.
 6. serving — a shared GPT-2 small backbone and 8 tenant adapters (A and B
    drawn from a numpy seed) in a ``DeviceFleetStore``, exported to an
    ``AdapterCache`` of 4 slots behind a ``ServeSession`` of batch 8: two
@@ -157,7 +178,8 @@ Phases (any failure raises and exits non-zero):
 
 The last lines are the card and its power limit, the kernels record and the
 device record (JSON).  In the kernels record ``launches`` is each kernel's
-count summed over the eight main-path runs and the pretrained path's four,
+count summed over the eight main-path runs, the pretrained path's four and
+phase 5c's runs and validated wires,
 ``pct_of_bound`` its bound over its time; the static top-k's, the KL's and the attention's rows (fp32 and
 bf16) add ``entry_launches``, their counts through their public entry
 points.
@@ -165,14 +187,18 @@ points.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import itertools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -181,11 +207,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.checkpoint import ckpt as ckpt_io  # noqa: E402
 from repro_torch.configs.base import LoRAConfig  # noqa: E402
 from repro_torch.configs.gpt2_paper import GPT2_LARGE, GPT2_SMALL, REDUCED_CLIENT, REDUCED_SERVER  # noqa: E402
 from repro_torch.core.aggregation import AggregationMode  # noqa: E402
-from repro_torch.core.channel import ChannelConfig  # noqa: E402
+from repro_torch.core.channel import ChannelConfig, ChannelSimulator  # noqa: E402
 from repro_torch.core.distill import total_distill_loss  # noqa: E402
+from repro_torch.core.faults import FaultSimulator, corrupt_wire  # noqa: E402
+from repro_torch.core.scenario import get_scenario  # noqa: E402
 from repro_torch.core.topk import quantize_wire, sparsify_wire, topk_mask_dense  # noqa: E402
 from repro_torch.data import make_banking77_like  # noqa: E402
 from repro_torch.fed import FedConfig, FusedE2EEngine  # noqa: E402
@@ -199,6 +228,7 @@ from repro_torch.lora import is_lora_path, lora_template, merge_lora, split_lora
 from repro_torch.models import attention, model  # noqa: E402
 from repro_torch.models.layers import embedding, layer_norm  # noqa: E402
 from repro_torch.models.transformer import layer_slice  # noqa: E402
+from repro_torch.serve.export import FleetStoreSource, MonolithicSource  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AdapterCache,
     ServeConfig,
@@ -850,11 +880,12 @@ def check_bf16_attention(device):
     log("[kernels bf16] flash_attention causal bitwise")
 
 
-def _drive(client_cfg, server_cfg, dataset, fed, device, patches=None):
+def _drive(client_cfg, server_cfg, dataset, fed, device, patches=None, **run_kw):
     """run_federated, also returning the engine (built through
     ``make_engine``, whatever its kind) and the Server it built.
     ``patches``: ``{(owner, name): wrap}``, each ``owner.name`` replaced by
-    ``wrap(original)`` for the run (a module, or a class for a method)."""
+    ``wrap(original)`` for the run (a module, or a class for a method);
+    ``run_kw``: ``ckpt_dir``, ``resume``."""
     built, saved = {}, {}
     for name in ("make_engine", "Server"):
         saved[(fed_rounds, name)] = make = getattr(fed_rounds, name)
@@ -868,7 +899,8 @@ def _drive(client_cfg, server_cfg, dataset, fed, device, patches=None):
         saved.setdefault((owner, name), getattr(owner, name))
         setattr(owner, name, wrap(getattr(owner, name)))
     try:
-        run = fed_rounds.run_federated(client_cfg, server_cfg, dataset, fed, device=device)
+        run = fed_rounds.run_federated(client_cfg, server_cfg, dataset, fed, device=device,
+                                       **run_kw)
     finally:
         for (owner, name), orig in saved.items():
             setattr(owner, name, orig)
@@ -1166,6 +1198,28 @@ def pretrained_run(device, engine: str, scan: bool, patches=None) -> tuple:
     return run, eng, srv, launches, peak
 
 
+def guarded_block(block: dict):
+    """A wrapper for ``FusedE2EEngine.run_block`` that runs the block with
+    every synchronising call an error and keeps its seconds in
+    ``block["seconds"]``."""
+    def wrap(run_block):
+        def call(self, staged):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                taps = run_block(self, staged)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            block["seconds"] = time.perf_counter() - t0
+            return taps
+
+        return call
+
+    return wrap
+
+
 def phase_pretrained(device) -> dict:
     """The pretrained main path (see the module docstring, phase 5b);
     returns its launch counts and the top-k input of the ``fused`` run."""
@@ -1235,24 +1289,9 @@ def phase_pretrained(device) -> dict:
     log(f"[pretrain] right after pretraining, on the run's eval split ({len(labels)} samples): "
         f"client accuracy {acc['client']:.4f}, server accuracy {acc['server']:.4f}")
 
-    def guarded_block(run_block):  # the block, with every synchronising call an error
-        def call(self, staged):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                taps = run_block(self, staged)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize()
-            block["seconds"] = time.perf_counter() - t0
-            return taps
-
-        return call
-
     check_sync_guard(device)
     scan, scan_eng, _, scan_launches, scan_peak = pretrained_run(
-        device, "fused_e2e", True, {(FusedE2EEngine, "run_block"): guarded_block})
+        device, "fused_e2e", True, {(FusedE2EEngine, "run_block"): guarded_block(block)})
     rounds = PRETRAINED_FED["rounds"]
     log(f"[pretrained fused_e2e/scan] the block's {rounds} rounds: {block['seconds']:.3f} s, "
         f"{block['seconds'] / rounds:.3f} s a round, from its first launch to its last round's "
@@ -1328,6 +1367,265 @@ def check_sync_guard(device):
                                                 count))
     log(f"[sync guard] raised under set_sync_debug_mode('error'): {caught}; AdamW's 1 - b**count "
         f"runs under it, bitwise the earlier torch.pow(torch.tensor(b)) form on counts 1..20000")
+
+
+# -- scenarios, faults and checkpoints -----------------------------------------
+
+# The main path's fleet on a Gilbert-Elliott channel with faults="lossy", 3
+# rounds.  A HARQ retry needs a budget of two copies of a payload, which
+# only a client whose k the vocabulary caps has: a 300 MHz channel, where
+# most budgets reach it.  At seed 5 the rounds hold an outage, a crash, a
+# quarantine and a retry (the draws are the host's: the same on any
+# device).  One pretraining step (the server's none) makes the fleet share
+# one backbone, which serving from the checkpoint needs.
+FAULT_FED = dict(method="adald", use_kernels=True, num_clients=8, clients_per_round=4, rounds=3,
+                 public_batch=64, local_steps=2, distill_steps=1, server_distill_steps=2,
+                 eval_size=128, seed=5, pretrain_steps=1, server_pretrain="none",
+                 scenario="gilbert_elliott", faults="lossy")
+FAULT_BANDWIDTH_HZ = 3e8
+SERVE_TOKENS, SERVE_PROMPT = 8, 16  # decoded from the checkpoint for two tenants
+
+
+def fault_fed(**change) -> FedConfig:
+    return FedConfig(channel=ChannelConfig(bandwidth_hz=FAULT_BANDWIDTH_HZ),
+                     **{**FAULT_FED, **change})
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def recording(into: list, keep=lambda args, out: out):
+    """A wrapper that appends ``keep(args, result)`` of each call to ``into``."""
+    def wrap(fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            into.append(keep(args, out))
+            return out
+
+        return call
+
+    return wrap
+
+
+def newest_step_only(into: list, on_card: bool):
+    """A wrapper for ``ckpt_io.save_step`` that times each save (from a
+    synchronised card to a synchronised card) into ``into`` and then removes
+    the steps before the one just written: one step on disk at a time."""
+    def wrap(save_step):
+        save = timed(into)(save_step) if on_card else recording(into)(save_step)
+
+        def call(ckpt_dir, step, tree, **meta):
+            path = save(ckpt_dir, step, tree, **meta)
+            for name in os.listdir(ckpt_dir):
+                m = re.match(r"step_(\d+)\.npz(\.meta\.json)?$", name)
+                if m and int(m.group(1)) < step:
+                    os.remove(os.path.join(ckpt_dir, name))
+            return path
+
+        return call
+
+    return wrap
+
+
+def fault_integers(run) -> tuple:
+    """What a faulted run must reproduce exactly."""
+    return (run.per_client_k, run.attempted_k, run.num_quarantined, run.num_crashed,
+            run.retrans_bytes, [(r.uplink_bytes, r.downlink_bytes, r.num_transmitters,
+                                 r.fault_counts) for r in run.ledger.rounds])
+
+
+def fault_run(device, cfgs, fed, label, patches=None, **run_kw):
+    """One run of the phase; returns the run, its engine and Server, and its
+    launch counts."""
+    client_cfg, server_cfg, ds = cfgs
+    on_card = torch.device(device).type == "cuda"
+    sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ops.reset_launches()  # this run's launches only, from here
+    run, eng, srv = _drive(client_cfg, server_cfg, ds, fed, device, patches, **run_kw)
+    sync(device)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    log(f"[faults {label}] {fed.engine}, {fed.rounds} rounds in {time.perf_counter() - t0:.1f} s "
+        f"(setup included), round_seconds={[round(x, 3) for x in run.round_seconds]}, "
+        f"max_memory_allocated={peak:.2f} GiB; kernel launches {launches}")
+    log(f"[faults {label}] per_client_k={run.per_client_k} attempted_k={run.attempted_k} "
+        f"quarantined={run.num_quarantined} crashed={run.num_crashed} "
+        f"retrans_bytes={run.retrans_bytes}")
+    log(f"[faults {label}] uplink_bytes={[r.uplink_bytes for r in run.ledger.rounds]} "
+        f"fault_counts={[r.fault_counts for r in run.ledger.rounds]} server_acc={run.server_acc} "
+        f"client_acc={run.client_acc} distill_loss={run.distill_loss}")
+    return run, eng, srv, launches
+
+
+def check_wire_gate(srv, wire, device) -> dict:
+    """A real round's wire, float and int8, with client row 1 corrupted
+    (a NaN value; a NaN scale): ``Server.aggregate_sparse_wire(validate=
+    True)`` through kernel 1 or 2 is ``torch.equal`` to its plain version
+    and to the kernel's aggregate of the wire without that row.  Returns
+    the launches of the validated calls."""
+    launches = {}
+    keep = torch.as_tensor([i for i in range(wire.values.shape[0]) if i != 1], device=wire.mask.device)
+    for name, w in (("float", wire), ("int8", quantize_wire(wire))):
+        bad = corrupt_wire(w, [1], mode="nan")
+        ops.reset_launches()
+        k_g, _ = srv.aggregate_sparse_wire(bad, validate=True)
+        sync(device)
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for kname, n in got.items():
+            launches[kname] = launches.get(kname, 0) + n
+        srv.use_kernels = False
+        plain, _ = srv.aggregate_sparse_wire(bad, validate=True)
+        srv.use_kernels = True
+        without = type(w)(vocab=w.vocab, **{f: getattr(w, f)[keep] for f in w._fields if f != "vocab"})
+        whole, _ = srv.aggregate_sparse_wire(without)
+        assert bool(torch.isfinite(k_g).all()), name
+        assert torch.equal(k_g, plain) and torch.equal(k_g, whole), name
+        log(f"[faults wire] {name} wire {tuple(w.values.shape)} with row 1 corrupted: "
+            f"aggregate_sparse_wire(validate=True) == its plain version == the wire without "
+            f"row 1 (torch.equal); the validated call's kernel launches {got}")
+    return launches
+
+
+def serve_tokens(source, cfg, device) -> np.ndarray:
+    """Greedy tokens of two tenants served from ``source``."""
+    params = serving_params(source, model.init(cfg, 3, device))
+    cache = AdapterCache(source, like=lora_template(params), slots=2, device=device)
+    sess = ServeSession(ServeConfig(model=cfg, batch=2, cache_len=SERVE_PROMPT + SERVE_TOKENS),
+                        params, adapters=cache, device=device)
+    sess.attach([5, 2])
+    sess.prefill(np.random.default_rng(29).integers(0, cfg.vocab_size, (2, SERVE_PROMPT))
+                 .astype(np.int32))
+    return sess.decode(SERVE_TOKENS)[0]
+
+
+def phase_faults(device, cfgs=None, require_events: bool = True) -> dict:
+    """Channel scenarios, fault injection and checkpoints at the main path's
+    widths (``cfgs``: client config, server config, dataset; the tiny
+    configs of a rehearsal on the CPU otherwise).  Returns the phase's
+    launch counts."""
+    cfgs = cfgs or (GPT2_SMALL, GPT2_LARGE,
+                    make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32))
+    on_card = torch.device(device).type == "cuda"
+    total: dict[str, int] = {}
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # 1. fused_e2e, float wire: round by round, then as a block
+    resolutions, rounds_seen = [], []
+    keep_round = recording(rounds_seen, lambda args, phase: (args[1], phase.sparse))
+    loop, _, loop_srv, launches = fault_run(
+        device, cfgs, fault_fed(engine="fused_e2e"), "fused_e2e/loop",
+        {(FaultSimulator, "resolve_round"): recording(resolutions, lambda args, res: res),
+         (FusedE2EEngine, "run_round"): keep_round})
+    count(launches)
+    rounds = FAULT_FED["rounds"]
+    if on_card:
+        assert launches == {"scatter_wire_sums": rounds}, launches
+    retries = sum(1 for res in resolutions for d, a in zip(res.delivered, res.attempts) if d and a > 1)
+    events = dict(crash=sum(loop.num_crashed), quarantine=sum(loop.num_quarantined), retry=retries)
+    sels = [sel for sel, _ in rounds_seen]
+    wire = max((w for _, w in rounds_seen if w is not None), key=lambda w: w.values.shape[0])
+    del rounds_seen
+    block = {}
+    scan, _, _, launches = fault_run(
+        device, cfgs, fault_fed(engine="fused_e2e", scan_rounds=True), "fused_e2e/block",
+        {(FusedE2EEngine, "run_block"): guarded_block(block)} if on_card else None)
+    count(launches)
+    if on_card:
+        assert launches == {"scatter_wire_sums": rounds}, launches
+    assert fault_integers(scan) == fault_integers(loop)
+    np.testing.assert_allclose(scan.server_acc, loop.server_acc, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(scan.client_acc, loop.client_acc, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(scan.distill_loss, loop.distill_loss, rtol=1e-4)
+    # the block's channel taps against the host's f64 chain of the same seed
+    chan = ChannelSimulator(FAULT_FED["num_clients"], dataclasses.replace(
+        ChannelConfig(bandwidth_hz=FAULT_BANDWIDTH_HZ),
+        scenario=get_scenario(FAULT_FED["scenario"])), seed=FAULT_FED["seed"])
+    worst = 0.0
+    for r, sel in enumerate(sels):
+        for i, st in enumerate(chan.states(r, sel)):
+            assert scan.outage[r][i] == (st.snr_db == -math.inf), (r, i)
+            if not scan.outage[r][i]:
+                worst = max(worst, abs(scan.snr_db[r][i] - st.snr_db))
+    assert worst <= 1e-2, worst
+    events["outage"] = sum(o for row in scan.outage for o in row)
+    log(f"[faults] block == per-round on k, attempted k, bytes, transmitters and fault taps; "
+        f"accuracies within 1e-6, distill loss within rtol 1e-4; the block's SNR taps within "
+        f"{worst:.2e} dB of the host chain (bound 1e-2), outage flags equal; block "
+        f"{block.get('seconds', float('nan')):.3f} s for {rounds} rounds under "
+        f"set_sync_debug_mode('error'); events at seed {FAULT_FED['seed']}: {events}")
+    if require_events:
+        assert all(events.values()), events
+
+    # 2. batched with corruption: kernel 4 after the server's validate_dense gate
+    batched, _, _, launches = fault_run(
+        device, cfgs, fault_fed(engine="batched", faults="corruption", rounds=2),
+        "batched/corruption")
+    count(launches)
+    tx_rounds = sum(1 for r in batched.ledger.rounds if r.num_transmitters > 0)
+    if on_card:
+        assert launches == {"sparse_aggregate": tx_rounds}, launches
+    assert batched.num_quarantined is not None
+
+    # 3. a real round's wire through the server's gate, kernels 1 and 2
+    count(check_wire_gate(loop_srv, wire, device))
+    del wire, loop_srv
+
+    # 4. checkpoints: 1 round with ckpt_dir, then resume to 3
+    ckpt_dir = tempfile.mkdtemp(prefix="fed_ckpt_")
+    try:
+        free = shutil.disk_usage(ckpt_dir).free
+        saves, restores = [], []
+        save_timer = {(ckpt_io, "save_step"): newest_step_only(saves, on_card)}
+        _, first_eng, _, launches = fault_run(
+            device, cfgs, fault_fed(engine="fused_e2e", rounds=1), "ckpt/1 round", save_timer,
+            ckpt_dir=ckpt_dir)
+        count(launches)
+        step1 = os.path.join(ckpt_dir, "step_00000001.npz")
+        nbytes = os.path.getsize(step1)
+        live = serve_tokens(FleetStoreSource(first_eng._store), cfgs[0], device)
+        stored = serve_tokens(MonolithicSource(step1), cfgs[0], device)
+        assert np.array_equal(stored, live), (stored, live)
+        del first_eng
+        resumed, _, _, launches = fault_run(
+            device, cfgs, fault_fed(engine="fused_e2e"), "ckpt/resumed",
+            {**save_timer, (ckpt_io, "restore_step"): timed(restores) if on_card
+             else recording(restores)}, ckpt_dir=ckpt_dir, resume=True)
+        count(launches)
+        if on_card:
+            assert launches == {"scatter_wire_sums": rounds - 1}, launches
+        assert fault_integers(resumed) == fault_integers(loop)
+        bitwise = (resumed.server_acc == loop.server_acc and resumed.client_acc == loop.client_acc
+                   and resumed.distill_loss == loop.distill_loss)
+        np.testing.assert_allclose(resumed.server_acc, loop.server_acc, rtol=0,
+                                   atol=1 / FAULT_FED["eval_size"] + 1e-9)
+        np.testing.assert_allclose(resumed.client_acc, loop.client_acc, rtol=0,
+                                   atol=1 / FAULT_FED["eval_size"] + 1e-9)
+        np.testing.assert_allclose(resumed.distill_loss, loop.distill_loss, rtol=1e-3)
+        seconds = (f"save {[round(x, 2) for x in saves]} s, restore {[round(x, 2) for x in restores]} s"
+                   if on_card else "not timed off the card")
+        log(f"[checkpoint] step 1: {nbytes} bytes ({nbytes / 2**30:.2f} GiB; {free / 2**30:.0f} GiB "
+            f"free in the directory before), {seconds}; resumed to {rounds} rounds: k, attempted k, "
+            f"bytes and fault taps identical to the uninterrupted run, accuracies and distill "
+            f"losses bitwise {bitwise} (max |diff| server_acc "
+            f"{max(abs(a - b) for a, b in zip(resumed.server_acc, loop.server_acc)):.2e}, "
+            f"distill_loss {max(abs(a - b) for a, b in zip(resumed.distill_loss, loop.distill_loss)):.2e}); "
+            f"serving from step 1's npz (MonolithicSource): {SERVE_TOKENS} tokens x 2 tenants "
+            f"equal to the live store's")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    assert not os.path.exists(ckpt_dir)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"launches": total}
 
 
 def _pretrain_bound(got: dict, want: dict, lr: float, steps: int) -> tuple[float, int]:
@@ -1835,14 +2133,16 @@ def main() -> int:
     log("[main path] bf16 == fp32 on per-client k, uplink and downlink bytes and transmitters, "
         "fused_e2e and fused")
     pretrained = phase_pretrained(device)
+    faults = phase_faults(device)
     serving = phase_serving(device, card)
     launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) + pretrained["launches"][name]
-                for name in KERNELS}
+                + faults["launches"].get(name, 0) for name in KERNELS}
     entry_names = ("topk_mask", "distill_kl", "topk_mask.bf16", "distill_kl.bf16")
     entry = {name: sum(r["entry_launches"].get(name, 0) for r in runs.values()) for name in entry_names}
     for name in ("flash_attention", "flash_attention.bf16"):
         entry[name] = serving["entry_launches"][name]
-    log(f"[main path] kernel launches over the eight runs and the pretrained phase's four {launches}")
+    log(f"[main path] kernel launches over the eight runs, the pretrained phase's four and the "
+        f"faults phase's {launches} (the faults phase's alone {faults['launches']})")
     log(f"[entry] launches through the public entry points {entry}")
 
     k_caps = {
