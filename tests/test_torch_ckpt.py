@@ -16,8 +16,10 @@
   pretraining on.
 * Across packages, on ``fused_e2e`` with ``faults="lossy"`` (one
   ``FedConfig``, field for field, ``use_kernels=False`` on both sides): a
-  checkpoint the reference wrote after round 1 resumes in the port, and one
-  the port wrote resumes in the reference; each reproduces the reference's
+  checkpoint the reference wrote after round 1 resumes in the port (also
+  one of the reference's host fleet store, whose fleet is in shards beside
+  the step: the fingerprint leaves the store out), and one the port wrote
+  resumes in the reference; each reproduces the reference's
   uninterrupted run with integers and fault taps identical, accuracies
   within one eval sample and the distill loss within rtol 1e-4
   (``tests/test_torch_round.py``'s bounds: the packages compute the same
@@ -354,19 +356,27 @@ def _mark_resumed(ckpt_dir: str) -> None:
 def cross(tmp_path_factory):
     """The reference's uninterrupted run, the port resuming the reference's
     round-1 checkpoint, and the reference resuming the port's."""
-    j_dir, t_dir = (str(tmp_path_factory.mktemp(n)) for n in ("jax_wrote", "port_wrote"))
+    j_dir, j_host_dir, t_dir = (str(tmp_path_factory.mktemp(n))
+                                for n in ("jax_wrote", "jax_host_store_wrote", "port_wrote"))
     j_full = _j_run(_fed("jax", 3, **CROSS))
     _j_run(_fed("jax", 1, **CROSS), ckpt_dir=j_dir)
     _mark_resumed(j_dir)
     t_resumed = _t_run(_fed("torch", 3, **CROSS), ckpt_dir=j_dir, resume=True)[0]
+    # the reference's host store checkpoints its fleet as shards beside the step
+    _j_run(_fed("jax", 1, fleet_store="host", **CROSS), ckpt_dir=j_host_dir)
+    assert os.path.isdir(os.path.join(j_host_dir, "step_00000001.fleet"))
+    _mark_resumed(j_host_dir)
+    t_from_shards = _t_run(_fed("torch", 3, **CROSS), ckpt_dir=j_host_dir, resume=True)[0]
     _t_run(_fed("torch", 1, **CROSS), ckpt_dir=t_dir)
     _mark_resumed(t_dir)
     j_resumed = _j_run(_fed("jax", 3, **CROSS), ckpt_dir=t_dir, resume=True)
     return {"port-resumes-reference": (j_full, t_resumed),
+            "port-resumes-reference-host-store": (j_full, t_from_shards),
             "reference-resumes-port": (j_full, j_resumed)}
 
 
-@pytest.mark.parametrize("case", ["port-resumes-reference", "reference-resumes-port"])
+@pytest.mark.parametrize("case", ["port-resumes-reference", "port-resumes-reference-host-store",
+                                  "reference-resumes-port"])
 def test_a_checkpoint_resumes_across_packages(cross, case):
     want, got = cross[case]
     assert got.client_acc[0] == -1.0  # round 0 came from the checkpoint
