@@ -1027,7 +1027,7 @@ def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> 
     else:
         states = [eng._store.lora, eng._store.opt.m, eng._store.opt.v]
     states += ([eng._s_lora, eng._s_opt.m, eng._s_opt.v] if engine == "fused_e2e"
-               else [split_lora(srv.params)[0]] + ([srv.opt.m, srv.opt.v] if srv.opt else []))
+               else [split_lora(srv.params)[0], srv.opt.m, srv.opt.v])
     assert all(v.dtype == torch.float32 for tree in states for v in tree.values())
     assert all(math.isfinite(x) for x in run.server_acc + run.client_acc)
     if engine == "fused_e2e":  # NaN off the e2e path, by the reference's definition

@@ -85,18 +85,14 @@ def _host_tensor(arr: np.ndarray) -> torch.Tensor:
     """A stored array as a CPU tensor that owns its storage; ``|V2`` is
     read as bf16 bits."""
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()).view(torch.bfloat16)
+        bits = np.ascontiguousarray(arr).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def _from_numpy(arr: np.ndarray, like: Any) -> Any:
-    """``arr`` as ``like``'s kind: a tensor of its dtype on its device, or
-    a numpy array of its dtype."""
-    t = _host_tensor(arr)
-    if isinstance(like, torch.Tensor):
-        return t.to(device=like.device, dtype=like.dtype)
-    dtype = np.asarray(like).dtype
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().astype(dtype)
+def _from_numpy(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``arr`` as a tensor of ``like``'s dtype on its device."""
+    return _host_tensor(arr).to(device=like.device, dtype=like.dtype)
 
 
 def _rebuild(like: Any, path: tuple, fetch) -> Any:
@@ -140,7 +136,8 @@ def save(path: str, tree: Any, *, metadata: dict | None = None) -> None:
 
 
 def restore(path: str, like: Any) -> Any:
-    """Restore into the structure of ``like`` (its dtypes and devices).
+    """Restore into the structure of ``like``, a tree of tensors (their
+    dtypes and devices).
     Raises ``ValueError`` naming the key when the checkpoint lacks a leaf
     or stores it at another shape than ``like``'s."""
     if not path.endswith(".npz"):

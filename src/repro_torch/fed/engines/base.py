@@ -24,7 +24,7 @@ from repro_torch.core.topk import QUANT_LEVELS, QuantizedWire, SparseWire, densi
 from repro_torch.fed.client import Client
 from repro_torch.fed.store import owned_copy
 from repro_torch.lora import merge_lora, split_lora
-from repro_torch.optim import AdamWState, adamw_init
+from repro_torch.optim import AdamWState
 
 __all__ = [
     "BroadcastState",
@@ -305,7 +305,7 @@ class _ServerOwnerMixin:
         self.server = server
         lora, self._s_frozen = split_lora(server.params)
         self._s_lora = {k: v[None] for k, v in lora.items()}
-        self._s_opt = adamw_init(self._s_lora, state_dtype=server.cfg.optimizer_state_dtype)
+        self._s_opt = server.opt
         self._b_tokens: torch.Tensor | None = None
         self._b_logits: torch.Tensor | None = None
         self._b_h: torch.Tensor | None = None
@@ -340,6 +340,7 @@ class _ServerOwnerMixin:
     def sync_server(self) -> None:
         """Write the engine-held server state back onto the Server."""
         self.server.params = merge_lora({k: v[0] for k, v in self._s_lora.items()}, self._s_frozen)
+        self.server.opt = self._s_opt
 
     def server_state(self) -> dict:
         """The engine-held server state as one checkpointable tree."""

@@ -488,14 +488,66 @@ def run_federated(
         for entry in ckpt_meta.get("ledger", []):
             ledger.record(RoundStats(**entry))
 
+    def scan_block(start: int) -> None:
+        """The ``scan_rounds`` path: rounds ``start..fed.rounds-1`` drawn first,
+        in the per-round loop's order (faults resolved from the block's fault
+        operands), then run as one ``run_rounds`` block with the eval tap and,
+        under a channel scenario, the channel chain inside it; the record is
+        filled from its trajectory, extending the taps a resumed run restored.
+        The block's wall time is spread evenly over its rounds."""
+        t0 = time.perf_counter()
+        n_block = fed.rounds - start
+        fault_inputs = (fault_sim.scan_fault_inputs(n_block, start_round=start)
+                        if fault_sim is not None else None)
+        sels, pubs, states, fault_rows = [], [], [], []
+        for j, rnd in enumerate(range(start, fed.rounds)):
+            sel, pub_tokens, st = draw_round(rnd)
+            if fault_sim is not None:
+                st, attempted, res, ghosts = apply_faults(rnd, sel, st, fault_inputs, j)
+                fault_rows.append((attempted, res, ghosts))
+            sels.append(sel)
+            pubs.append(pub_tokens)
+            states.append(st)
+        # the tap reads the samples the host evaluator walks: whole batches only
+        seen = (len(eval_tokens) // EVAL_BATCH) * EVAL_BATCH
+        eval_kw = (dict(eval_tokens=eval_tokens[:seen], eval_labels=eval_labels[:seen])
+                   if seen else {})
+        chan_kw = ({} if chan_sim.scenario is None else
+                   dict(channel_scan=chan_sim.scan_channel_inputs(n_block, start_round=start)))
+        traj = engine.run_rounds(sels, pubs, states, adaptive_k=preset["adaptive_k"],
+                                 send_h=preset["send_h"], **eval_kw, **chan_kw)
+        engine.sync_server()
+        if traj.snr_db is not None:
+            run.snr_db = (run.snr_db or []) + traj.snr_db
+            run.outage = (run.outage or []) + traj.outage
+        b_rank = server_cfg.lora.rank if server_cfg.lora is not None else None
+        b_bits = downlink_bits(fed.public_batch, server_cfg.vocab_size, b_rank)
+        wall = time.perf_counter() - t0
+        for j, rnd in enumerate(range(start, fed.rounds)):
+            # an eval split under one batch gives 0.0 on the host path: mirror it
+            s_acc = traj.server_acc[j] if traj.server_acc else 0.0
+            c_acc = traj.client_acc[j] if traj.client_acc else 0.0
+            stats_kw: dict = {}
+            extra = 0.0
+            if fault_rows:
+                attempted, res, ghosts = fault_rows[j]
+                extra, retrans, stats_kw = fault_ledger(sels[j], res, ghosts, traj.payloads[j])
+                record_fault_taps(attempted, res, retrans)
+            # after fault_ledger: the delivered manifests price their retries
+            payloads = traj.payloads[j]
+            _record(run, rnd, traj.ks[j], float(sum(p.bytes for p in payloads)) + extra,
+                    b_bits * len(sels[j]) if rnd > 0 else 0, len(payloads), s_acc, c_acc,
+                    traj.distill_loss[j], traj.mean_k[j], **stats_kw)
+            run.round_seconds.append(wall / n_block)
+            if verbose:
+                _print_round(f"{fed.method}/{fed.engine}+scan", run)
+
     if fed.scan_rounds:
         if not handles_server:
             raise ValueError(
                 f"FedConfig.scan_rounds requires engine='fused_e2e' (got {fed.engine!r})"
             )
-        _scan_rounds(fed, preset, engine, server_cfg, draw_round, eval_tokens, eval_labels, run,
-                     verbose, completed, chan_sim, fault_sim, apply_faults, fault_ledger,
-                     record_fault_taps)
+        scan_block(completed)
         if ckpt_dir is not None:
             save_ckpt(fed.rounds)
         return run
@@ -598,60 +650,3 @@ def _print_round(tag: str, run: FedRun) -> None:
         f"client_acc={r.client_accuracy:.3f}  mean_k={r.mean_k:7.1f}  "
         f"uplink={r.uplink_bytes / 1e6:.2f}MB  tx={r.num_transmitters}/{r.num_selected}"
     )
-
-
-def _scan_rounds(fed: FedConfig, preset: dict, engine, server_cfg: ModelConfig, draw_round,
-                 eval_tokens: torch.Tensor, eval_labels: torch.Tensor, run: FedRun,
-                 verbose: bool, start: int, chan_sim: ChannelSimulator, fault_sim,
-                 apply_faults, fault_ledger, record_fault_taps) -> None:
-    """The ``scan_rounds`` path: rounds ``start..fed.rounds-1`` drawn first,
-    in the per-round loop's order (faults resolved from the block's fault
-    operands), then run as one ``run_rounds`` block with the eval tap and,
-    under a channel scenario, the channel chain inside it; the record is
-    filled from its trajectory, extending the taps a resumed run restored.
-    The block's wall time is spread evenly over its rounds."""
-    t0 = time.perf_counter()
-    n_block = fed.rounds - start
-    fault_inputs = (fault_sim.scan_fault_inputs(n_block, start_round=start)
-                    if fault_sim is not None else None)
-    sels, pubs, states, fault_rows = [], [], [], []
-    for j, rnd in enumerate(range(start, fed.rounds)):
-        sel, pub_tokens, st = draw_round(rnd)
-        if fault_sim is not None:
-            st, attempted, res, ghosts = apply_faults(rnd, sel, st, fault_inputs, j)
-            fault_rows.append((attempted, res, ghosts))
-        sels.append(sel)
-        pubs.append(pub_tokens)
-        states.append(st)
-    # the tap reads the samples the host evaluator walks: whole batches only
-    seen = (len(eval_tokens) // EVAL_BATCH) * EVAL_BATCH
-    eval_kw = dict(eval_tokens=eval_tokens[:seen], eval_labels=eval_labels[:seen]) if seen else {}
-    chan_kw = ({} if chan_sim.scenario is None else
-               dict(channel_scan=chan_sim.scan_channel_inputs(n_block, start_round=start)))
-    traj = engine.run_rounds(sels, pubs, states, adaptive_k=preset["adaptive_k"],
-                             send_h=preset["send_h"], **eval_kw, **chan_kw)
-    engine.sync_server()
-    if traj.snr_db is not None:
-        run.snr_db = (run.snr_db or []) + traj.snr_db
-        run.outage = (run.outage or []) + traj.outage
-    b_rank = server_cfg.lora.rank if server_cfg.lora is not None else None
-    b_bits = downlink_bits(fed.public_batch, server_cfg.vocab_size, b_rank)
-    wall = time.perf_counter() - t0
-    for j, rnd in enumerate(range(start, fed.rounds)):
-        # an eval split under one batch gives 0.0 on the host path: mirror it
-        s_acc = traj.server_acc[j] if traj.server_acc else 0.0
-        c_acc = traj.client_acc[j] if traj.client_acc else 0.0
-        stats_kw: dict = {}
-        extra = 0.0
-        if fault_rows:
-            attempted, res, ghosts = fault_rows[j]
-            extra, retrans, stats_kw = fault_ledger(sels[j], res, ghosts, traj.payloads[j])
-            record_fault_taps(attempted, res, retrans)
-        # after fault_ledger: the delivered manifests price their retries
-        payloads = traj.payloads[j]
-        _record(run, rnd, traj.ks[j], float(sum(p.bytes for p in payloads)) + extra,
-                b_bits * len(sels[j]) if rnd > 0 else 0, len(payloads), s_acc, c_acc,
-                traj.distill_loss[j], traj.mean_k[j], **stats_kw)
-        run.round_seconds.append(wall / n_block)
-        if verbose:
-            _print_round(f"{fed.method}/{fed.engine}+scan", run)
