@@ -3,6 +3,7 @@
 from repro_torch.checkpoint.ckpt import (
     fleet_shard_dir,
     fleet_shard_name,
+    host_skeleton,
     latest_step,
     list_fleet_shards,
     restore,
@@ -16,6 +17,7 @@ from repro_torch.checkpoint.ckpt import (
 __all__ = [
     "fleet_shard_dir",
     "fleet_shard_name",
+    "host_skeleton",
     "latest_step",
     "list_fleet_shards",
     "restore",

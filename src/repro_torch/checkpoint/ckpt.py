@@ -15,7 +15,9 @@ shape.  numpy has no bf16: the reference's ``np.asarray`` of a bf16 array
 is stored as raw 2-byte void (``|V2``, the bf16 bits), and the port writes
 a bf16 tensor the same way.  :func:`restore` reads ``|V2`` as bf16 bits
 (the reference's own ``restore`` cannot cast it back).  Restored tensors
-take the ``like`` leaf's dtype and device and own their storage.
+take the ``like`` leaf's dtype and device and own their storage; a
+:func:`host_skeleton` of a tree on the card restores to the host, so the
+caller's one copy to the card is the only one.
 
 Crash safety: :func:`save` is atomic — the arrays and then the metadata
 sidecar are written to temp files in the target directory and
@@ -38,6 +40,7 @@ import torch
 __all__ = [
     "save",
     "restore",
+    "host_skeleton",
     "restore_subtree",
     "latest_step",
     "save_step",
@@ -83,11 +86,13 @@ def _flatten(tree: Any) -> dict[str, np.ndarray]:
 
 def _host_tensor(arr: np.ndarray) -> torch.Tensor:
     """A stored array as a CPU tensor that owns its storage; ``|V2`` is
-    read as bf16 bits."""
+    read as bf16 bits.  An array read from an npz is a fresh one, so it is
+    taken as it is, without a copy."""
+    if not (arr.flags.writeable and arr.flags.c_contiguous):
+        arr = np.array(arr, copy=True)
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
-        bits = np.ascontiguousarray(arr).view(np.int16).copy()
-        return torch.from_numpy(bits).view(torch.bfloat16)
-    return torch.from_numpy(np.array(arr, copy=True))
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _from_numpy(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -108,6 +113,13 @@ def _rebuild(like: Any, path: tuple, fetch) -> Any:
     if isinstance(like, (list, tuple)):
         return type(like)(_rebuild(v, path + (f"idx{i}",), fetch) for i, v in enumerate(like))
     return fetch(path, like)
+
+
+def host_skeleton(like: Any) -> Any:
+    """``like``'s structure with each tensor an empty CPU tensor of its
+    shape and dtype: :func:`restore` into it leaves every leaf on the host."""
+    return _rebuild(like, (), lambda _parts, leaf: torch.empty(tuple(leaf.shape),
+                                                               dtype=leaf.dtype))
 
 
 def _atomic_write(path: str, write) -> None:

@@ -55,6 +55,7 @@ from repro_torch.fed.engines.base import client_axis_opt, not_carried, one_model
 from repro_torch.fed.pretrain import pretrain_classifier, pretrain_lm
 from repro_torch.fed.server import Server
 from repro_torch.fed.steps import EVAL_BATCH, make_eval_fn
+from repro_torch.fed.store import owned_copy
 from repro_torch.models import model as model_lib
 
 __all__ = ["FedConfig", "FedRun", "run_federated", "METHODS"]
@@ -447,8 +448,11 @@ def run_federated(
     if completed:
         # a reference checkpoint of a host store keeps the fleet in shards
         sharded = bool(ckpt_meta.get("fleet_sharded"))
-        tree, _ = ckpt_io.restore_step(ckpt_dir, ckpt_tree(like=True, include_fleet=not sharded),
-                                       completed)
+        # restored on the host: each load below copies a leaf to the device
+        # once, into storage the engine owns
+        tree, _ = ckpt_io.restore_step(
+            ckpt_dir, ckpt_io.host_skeleton(ckpt_tree(like=True, include_fleet=not sharded)),
+            completed)
         if sharded:
             engine.load_fleet_shards(ckpt_io.fleet_shard_dir(ckpt_dir, completed))
         else:
@@ -456,7 +460,8 @@ def run_federated(
         if handles_server:
             engine.load_server_state(tree["server"])
         else:
-            server.params = tree["server"]["s_params"]
+            server.params = {k: owned_copy(v, device)
+                             for k, v in tree["server"]["s_params"].items()}
             server.opt = client_axis_opt(tree["server"]["s_opt"], device)
         # replay the host draws and each selected client's batch stream
         # through the completed rounds; device state is restored, not

@@ -155,11 +155,13 @@ class DeviceFleetStore:
         stacks = {"lora": self.lora, "opt": self.opt}
         if not self.shared:
             stacks["frozen"] = self.frozen
-        parts = [ckpt_io.restore(path, {k: _map(lambda t: t[: hi - lo], v)
-                                        for k, v in stacks.items()})
+        # restored on the host: load_state_dict's copy to the device is the one
+        parts = [ckpt_io.restore(path, ckpt_io.host_skeleton(
+                     {k: _map(lambda t: t[: hi - lo], v) for k, v in stacks.items()}))
                  for lo, hi, path in shards]
         state = {k: _map(lambda *xs: torch.cat(xs), *(p[k] for p in parts)) for k in stacks}
         if self.shared:
+            like = ckpt_io.host_skeleton({"frozen": self.frozen})
             state["frozen"] = ckpt_io.restore(os.path.join(dir_path, f"{prefix}_frozen.npz"),
-                                              {"frozen": self.frozen})["frozen"]
+                                              like)["frozen"]
         self.load_state_dict(state)

@@ -171,6 +171,25 @@ def test_each_package_restores_the_others_file(tmp_path):
         j_ckpt.restore(str(tmp_path / "t.npz"), {"half": j_tree["half"]})
 
 
+def test_a_host_skeleton_restores_on_the_host(tmp_path):
+    """A tree on another device (``meta`` stands in for the card) restores
+    through its host skeleton to CPU tensors of its shapes and dtypes, the
+    bf16 leaf included, each in storage of its own."""
+    _, t_tree = _trees()
+    t_ckpt.save(str(tmp_path / "t.npz"), t_tree)
+    on_meta = t_ckpt._rebuild(t_tree, (), lambda _parts, leaf: leaf.to("meta"))
+    got = t_ckpt.restore(str(tmp_path / "t.npz"), t_ckpt.host_skeleton(on_meta))
+    want = bridge.flatten({"params": t_tree["params"], "opt": t_tree["opt"]._asdict(),
+                           "half": t_tree["half"]})
+    have = bridge.flatten({"params": got["params"], "opt": got["opt"]._asdict(),
+                           "half": got["half"]})
+    assert have.keys() == want.keys()
+    for key, w in want.items():
+        assert have[key].device.type == "cpu" and have[key].dtype == w.dtype, key
+        assert torch.equal(have[key], w), key
+    assert len({t.untyped_storage().data_ptr() for t in have.values()}) == len(have)
+
+
 @pytest.mark.parametrize("direction", ["port-reads-reference", "reference-reads-port"])
 def test_a_leaf_that_does_not_line_up_is_refused(tmp_path, direction):
     """The port's optimizer count carries a client axis of 1 in memory, the
