@@ -144,6 +144,32 @@ Phases (any failure raises and exits non-zero):
    equal, and the final fleet and server adapters and optimizer states
    ``torch.equal``.  The checkpoint directory (one step on disk at a
    time) is removed.
+5d. the host fleet store and ``fed_train`` — first the store's staging on
+   toy rows: 12 rounds of cohorts that overlap the round before, in the
+   round loop's order (hint r+1, fetch r, commit r), every fetch
+   ``torch.equal`` to a store without prefetch.  (a) Phase 5's
+   ``fused_e2e`` float-wire run again with ``fleet_store="host"`` (prefetch
+   on): per-client k, bytes, transmitters, accuracies and distill losses
+   equal to the device store's run, and every trained tensor (fleet and
+   server LoRA, Adam m, v, count) ``torch.equal``; the store's staging
+   slots and commit rows pinned, its side stream not the current one; each
+   round's time and the peak memory beside phase 5's; the prefetch hits,
+   the host time of a staged and of a cold ``fetch``, and of each
+   ``commit`` (its wait for the round and the copy, and its host-row
+   write).  (b) The same engine over ``HostFleetStore.from_template``
+   (one shared backbone, clients cycled over the 8 real ones) at N = 8 and
+   N = 10 000, 3 rounds of cohort 4 each in the round loop's order:
+   ``device_bytes()`` the backbone's bytes at both, the peak memory at
+   10 000 within 256 MiB of 8's, the steady round time and the resident
+   host bytes printed; then a staging thread made to fail must fail the
+   fetch of its cohort.  (c) ``repro_torch.launch.fed_train.main`` at its
+   own reduced widths (``--engine fused_e2e --use-kernels --fleet-size 64
+   --per-round 4``): a host-store run of 2 rounds with ``--ckpt-dir``
+   (``fleet_*`` shards in ``step_00000002.fleet/``, ``fleet_sharded`` in
+   the step's metadata), a device-store run resuming it to 3 rounds, and a
+   fresh device-store run of 3: the resumed record equals the fresh one on
+   every round's mean k, uplink and downlink MB, accuracies and distill
+   loss.  Every run's launches are counted (the scatter once a round).
 6. serving — a shared GPT-2 small backbone and 8 tenant adapters (A and B
    drawn from a numpy seed) in a ``DeviceFleetStore``, exported to an
    ``AdapterCache`` of 4 slots behind a ``ServeSession`` of batch 8: two
@@ -183,8 +209,8 @@ Phases (any failure raises and exits non-zero):
 
 The last lines are the card and its power limit, the kernels record and the
 device record (JSON).  In the kernels record ``launches`` is each kernel's
-count summed over the eight main-path runs, the pretrained path's four and
-phase 5c's runs and validated wires,
+count summed over the eight main-path runs, the pretrained path's four,
+phase 5c's runs and validated wires and phase 5d's runs,
 ``pct_of_bound`` its bound over its time; the static top-k's, the KL's and the attention's rows (fp32 and
 bf16) add ``entry_launches``, their counts through their public entry
 points.
@@ -204,6 +230,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -227,7 +254,8 @@ from repro_torch.fed import pretrain as fed_pretrain  # noqa: E402
 from repro_torch.fed import rounds as fed_rounds  # noqa: E402
 from repro_torch.fed import steps as fed_steps  # noqa: E402
 from repro_torch.fed.engines import k_cap_bucket  # noqa: E402
-from repro_torch.fed.store import DeviceFleetStore  # noqa: E402
+from repro_torch.fed.store import DeviceFleetStore, HostFleetStore  # noqa: E402
+from repro_torch.launch import fed_train  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.lora import is_lora_path, lora_template, merge_lora, split_lora  # noqa: E402
 from repro_torch.models import attention, model  # noqa: E402
@@ -973,16 +1001,24 @@ def capture_topk(captured: dict):
     return wrap
 
 
+def main_fed(engine: str, quantize: bool, bf16: bool = False, **change) -> FedConfig:
+    """The main path's FedConfig: GPT-2 small clients x8, cohort 4, 2 rounds."""
+    return FedConfig(method="adald", engine=engine, use_kernels=True, pretrain_steps=0,
+                     num_clients=8, clients_per_round=4, rounds=2, public_batch=64,
+                     local_steps=2, distill_steps=1, server_distill_steps=2, eval_size=128,
+                     quantize_wire=quantize, **(BF16_CFG if bf16 else {}), **change)
+
+
 def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> dict:
     """One main-path run; returns its launch counts, its per-client k and,
     for ``fused``, the launch counts of the static top-k's public entry
-    point driven on its own after the run (and of the KL's, in bf16).
-    ``bf16``: the models compute in bf16 (``ModelConfig.compute_dtype``)
-    and so does the round body (``FedConfig.compute_dtype``)."""
-    fed = FedConfig(method="adald", engine=engine, use_kernels=True, pretrain_steps=0,
-                    num_clients=8, clients_per_round=4, rounds=2, public_batch=64,
-                    local_steps=2, distill_steps=1, server_distill_steps=2, eval_size=128,
-                    quantize_wire=quantize, **(BF16_CFG if bf16 else {}))
+    point driven on its own after the run (and of the KL's, in bf16); for
+    the fp32 ``fused_e2e`` float-wire run also its record, round times, peak
+    memory and trained state on the host (what phase 5d holds the host
+    store to).  ``bf16``: the models compute in bf16
+    (``ModelConfig.compute_dtype``) and so does the round body
+    (``FedConfig.compute_dtype``)."""
+    fed = main_fed(engine, quantize, bf16)
     client_cfg, server_cfg = GPT2_SMALL, GPT2_LARGE
     if bf16:
         client_cfg, server_cfg = (c.with_overrides(**BF16_CFG) for c in (GPT2_SMALL, GPT2_LARGE))
@@ -1038,8 +1074,12 @@ def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> 
     if engine == "fused_e2e":  # NaN off the e2e path, by the reference's definition
         assert all(math.isfinite(x) for x in run.distill_loss)
     assert all(k > 0 for ks in run.per_client_k for k in ks)  # default channel: everyone transmits
+    peak = torch.cuda.max_memory_allocated()
     out = {"launches": launches, "per_client_k": run.per_client_k, "entry_launches": {},
            "bytes": [(r.uplink_bytes, r.downlink_bytes, r.num_transmitters) for r in run.ledger.rounds]}
+    if engine == "fused_e2e" and not (quantize or bf16):
+        out.update(record=main_record(run), round_seconds=list(run.round_seconds), peak=peak,
+                   trained=trained_state(eng))
     if captured:
         x, ks = captured["x"], captured["ks"]
         out["topk_input"] = (x.reshape(-1, x.shape[-1]), ks.reshape(-1))
@@ -1706,6 +1746,294 @@ def phase_faults(device, cfgs=None) -> dict:
     return {"launches": total}
 
 
+# -- phase 5d: the host fleet store and the fed_train entry point ----------------
+
+SCALE_N = 10_000  # phase 5d (b): a fleet no device store of GPT-2 small rows fits beside the run
+SCALE_ROUNDS = 3
+PEAK_SLACK = 256 * 2**20  # (b)'s peak at N = 10 000 against N = 8
+
+
+def main_record(run) -> dict:
+    """What two runs of one configuration must give alike, whatever the store."""
+    return {"per_client_k": run.per_client_k,
+            "bytes": [(r.uplink_bytes, r.downlink_bytes, r.num_transmitters)
+                      for r in run.ledger.rounds],
+            "server_acc": run.server_acc, "client_acc": run.client_acc,
+            "distill_loss": run.distill_loss}
+
+
+def timed_calls(into: list, label=lambda self, args: None):
+    """A wrapper for a method that appends ``(label(self, args) taken before
+    the call, host seconds of the call)`` to ``into``; on the card the
+    clock stops after a synchronise of the calling thread's stream only if
+    the method itself waits (``fetch`` does not: its copies are queued)."""
+    def wrap(method):
+        def call(self, *args, **kwargs):
+            tag = label(self, args)
+            t0 = time.perf_counter()
+            out = method(self, *args, **kwargs)
+            into.append((tag, time.perf_counter() - t0))
+            return out
+
+        return call
+
+    return wrap
+
+
+class CyclingClients:
+    """A fleet of any size over a few real clients: client ``i`` is
+    ``clients[i % len(clients)]`` (data streams and manifests are the
+    small fleet's; the store holds N rows)."""
+
+    def __init__(self, clients):
+        self.clients = list(clients)
+
+    def __getitem__(self, i):
+        return self.clients[int(i) % len(self.clients)]
+
+    def __len__(self):
+        return len(self.clients)
+
+
+def nbytes(tree: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in tree.values())
+
+
+def drive_rounds(eng, sels, pub, chan, device) -> list[float]:
+    """Rounds of ``eng`` in the round loop's order (hint round r+1, then run
+    round r), each timed to a synchronised card; returns the round times."""
+    bcast, times = eng.broadcast_state(pub), []
+    for r, sel in enumerate(sels):
+        t0 = time.perf_counter()
+        if r + 1 < len(sels):
+            eng.prefetch_cohort(sels[r + 1])
+        eng.run_round(sel, pub, bcast, chan.states_batched(r, sel), adaptive_k=True, send_h=True)
+        bcast = eng.broadcast_state(pub)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def staging_failure_raises(store, sel) -> str:
+    """A staging thread that raises makes the fetch of its cohort raise."""
+    stage = HostFleetStore._stage
+
+    def broken(self, ids, keys, stream):
+        if threading.current_thread() is not threading.main_thread():  # a staging thread
+            raise OSError("injected staging failure")
+        return stage(self, ids, keys, stream)
+
+    HostFleetStore._stage = broken
+    try:
+        store.prefetch(sel)
+        try:
+            store.fetch(sel)
+        except RuntimeError as e:
+            assert isinstance(e.__cause__, OSError), e
+            return str(e)
+        raise AssertionError("a failed staging thread did not fail the fetch")
+    finally:
+        HostFleetStore._stage = stage
+
+
+def check_host_store_staging(device, rounds: int = 12) -> int:
+    """The host store's staging on toy rows: ``rounds`` rounds of cohorts
+    that overlap the round before, in the round loop's order (hint r+1,
+    fetch r, commit r), each fetch ``torch.equal`` to a store without
+    prefetch; returns the fetches that found their cohort staged."""
+    gen = torch.Generator().manual_seed(3)
+    rows = [{"a": torch.randn(64, 8, generator=gen), "b": torch.randn(8, 64, generator=gen)}
+            for _ in range(16)]
+    frozen = {"w": torch.randn(64, 64, generator=gen).to(device)}
+    loras = [{k: v.to(device) for k, v in r.items()} for r in rows]
+    staged, plain = (HostFleetStore(loras, [frozen] * 16, shared=True, prefetch=p) for p in (True, False))
+    rng = np.random.default_rng(4)
+    sels = [[int(x) for x in rng.choice(16, 4, replace=False)] for _ in range(rounds)]
+    hits = 0
+    for r, sel in enumerate(sels):
+        if r + 1 < rounds:
+            staged.prefetch(sels[r + 1])
+        hits += tuple(sel) in staged._pf
+        got, want = staged.fetch(sel), plain.fetch(sel)
+        for x, y in zip(_store_leaves({"lora": got[1], "opt": got[3]}),
+                        _store_leaves({"lora": want[1], "opt": want[3]})):
+            assert x.device.type == torch.device(device).type and torch.equal(x, y)
+        for st, (idx, lora, _, opt) in ((staged, got), (plain, want)):
+            st.commit(idx, {k: v * 1.5 + r for k, v in lora.items()},
+                      opt._replace(m={k: v + r for k, v in opt.m.items()}, count=opt.count + 1))
+    assert hits == rounds - 1, hits
+    return hits
+
+
+def phase_host_store(device, main: dict | None = None, cfgs=None,
+                     cli_argv: tuple = ()) -> dict:
+    """Phase 5d (see the module docstring).  ``main``: phase 5's fp32
+    ``fused_e2e`` float-wire run (``phase_main_path``'s output); without it
+    (a rehearsal on the CPU, ``cfgs`` the tiny configs) the device-store run
+    is made here.  ``cli_argv``: arguments added to every ``fed_train``
+    call.  Returns the phase's launch counts."""
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    client_cfg, server_cfg, ds = cfgs or (
+        GPT2_SMALL, GPT2_LARGE, make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32))
+    total: dict[str, int] = {}
+
+    def count(launches, rounds, label):
+        if on_card:
+            assert launches == {"scatter_wire_sums": rounds}, (label, launches)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def measured(fn):
+        sync(device)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        out = fn()
+        sync(device)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        return out, launches, torch.cuda.max_memory_allocated() if on_card else 0
+
+    hits = check_host_store_staging(device)
+    log(f"[host store] staging on toy rows: {hits} staged fetches of cohorts overlapping the round "
+        f"before, each torch.equal to a store without prefetch")
+    if main is None:  # the rehearsal: the device store's run first
+        (run, eng, _), _, peak = measured(lambda: _drive(client_cfg, server_cfg, ds,
+                                                         main_fed("fused_e2e", False), device))
+        main = dict(record=main_record(run), round_seconds=list(run.round_seconds), peak=peak,
+                    trained=trained_state(eng))
+        del run, eng
+
+    # (a) the main path's fused_e2e float-wire run with the host store
+    fetches, commits, writes = [], [], []
+    patches = {
+        (HostFleetStore, "fetch"): timed_calls(fetches, lambda self, args: tuple(
+            int(i) for i in args[0]) in self._pf),
+        (HostFleetStore, "commit"): timed_calls(commits),
+        (HostFleetStore, "_write_rows"): timed_calls(writes),
+    }
+    fed = main_fed("fused_e2e", False, fleet_store="host")
+    (run, eng, _), launches, peak = measured(lambda: _drive(client_cfg, server_cfg, ds, fed,
+                                                            device, patches))
+    count(launches, fed.rounds, "host store")
+    store = eng._store
+    assert isinstance(store, HostFleetStore) and eng.store_kind == "host"
+    assert main_record(run) == main["record"], (main_record(run), main["record"])
+    got = trained_state(eng)
+    assert got.keys() == main["trained"].keys()
+    unequal = [k for k, v in main["trained"].items() if not torch.equal(got[k], v)]
+    assert not unequal, unequal
+    hits = [t for staged, t in fetches if staged]
+    colds = [t for staged, t in fetches if not staged]
+    assert len(hits) >= 1 and len(colds) >= 1, fetches
+    if on_card:  # pinned slots, a side stream, pinned commit rows
+        assert store._side is not None and store._side != torch.cuda.current_stream()
+        slots = [t for group in store._slots.values() for slot in group
+                 for t in _store_leaves(slot["host"])]
+        bufs = [t for b in store._commit_bufs.values() for t in _store_leaves(b)]
+        assert slots and bufs and all(t.is_pinned() for t in slots + bufs)
+    stall = [t - w for (_, t), (_, w) in zip(commits, writes)]
+    log(f"[host store (a)] fused_e2e float wire, GPT-2 small x{fed.num_clients} (cohort "
+        f"{fed.clients_per_round}) in host memory: per-client k, bytes, transmitters, server_acc, "
+        f"client_acc, distill_loss equal to phase 5's device-store run; {len(got)} trained tensors "
+        f"(fleet LoRA, Adam m/v/count; server LoRA and Adam) torch.equal")
+    log(f"[host store (a)] round_seconds={[round(x, 3) for x in run.round_seconds]} (device store "
+        f"{[round(x, 3) for x in main['round_seconds']]}), max_memory_allocated="
+        f"{peak / 2**30:.2f} GiB (device store {main['peak'] / 2**30:.2f} GiB)")
+    log(f"[host store (a)] prefetch hits {len(hits)} of {len(fetches)} fetches; fetch host ms: "
+        f"staged {[round(t * 1e3, 2) for t in hits]}, cold {[round(t * 1e3, 2) for t in colds]}; "
+        f"commit host ms {[round(t * 1e3, 2) for _, t in commits]}, of which waiting for the round "
+        f"and the copy {[round(t * 1e3, 2) for t in stall]} and writing the host rows "
+        f"{[round(t * 1e3, 2) for _, t in writes]}")
+    a_steady = run.round_seconds[-1]
+
+    # (b) the same engine over a lazy fleet of N rows: N = 8, then N = SCALE_N
+    lora0, frozen0 = store.client_row(0)
+    frozen0 = {k: v.clone() for k, v in frozen0.items()}  # the shared backbone of (b)
+    pub = torch.as_tensor(ds.tokens[: fed.public_batch], device=device)
+    eng.clients = CyclingClients(eng.clients)
+    del run, store
+    scale = {}
+    for n in (fed.num_clients, SCALE_N):
+        eng._store = HostFleetStore.from_template(lora0, frozen0, num_clients=n)
+        rng = np.random.default_rng(1)
+        sels = [sorted(int(x) for x in rng.choice(n, fed.clients_per_round, replace=False))
+                for _ in range(SCALE_ROUNDS)]
+        chan = ChannelSimulator(n, ChannelConfig(), seed=0)
+        times, launches, peak = measured(lambda: drive_rounds(eng, sels, pub, chan, device))
+        count(launches, SCALE_ROUNDS, f"N={n}")
+        assert eng._store.device_bytes() == nbytes(frozen0), (eng._store.device_bytes(),
+                                                              nbytes(frozen0))
+        scale[n] = dict(times=times, peak=peak, host=eng._store.host_bytes())
+    small, big = scale[fed.num_clients], scale[SCALE_N]
+    if on_card:
+        assert abs(big["peak"] - small["peak"]) <= PEAK_SLACK, (big["peak"], small["peak"])
+    row = nbytes(lora0) * 3  # a LoRA row with Adam's m and v (fp32)
+    failure = staging_failure_raises(eng._store, sels[0])
+    log(f"[host store (b)] HostFleetStore.from_template, shared GPT-2 small backbone, "
+        f"{SCALE_ROUNDS} rounds of cohort {fed.clients_per_round} (hint r+1, then round r): "
+        f"device_bytes() = the backbone's {nbytes(frozen0)} bytes at N = {fed.num_clients} and "
+        f"N = {SCALE_N}; round_seconds {[round(x, 3) for x in small['times']]} / "
+        f"{[round(x, 3) for x in big['times']]}, steady {big['times'][-1]:.3f} s (a: "
+        f"{a_steady:.3f} s); max_memory_allocated {small['peak'] / 2**30:.3f} / "
+        f"{big['peak'] / 2**30:.3f} GiB (within {PEAK_SLACK >> 20} MiB; (a) "
+        f"{main['peak'] / 2**30:.2f} GiB on the device store); resident host bytes "
+        f"{big['host']} at N = {SCALE_N} (the template and the committed rows; the device store "
+        f"would hold {SCALE_N * row / 1e9:.1f} GB of LoRA and Adam rows); a staging failure "
+        f"raised at the fetch: {failure!r}")
+    del eng
+    gc.collect()
+
+    # (c) the entry point: a host-store checkpoint resumed under the device store
+    tmp = tempfile.mkdtemp(prefix="fed_train_")
+    try:
+        ckpt, records = os.path.join(tmp, "ckpt"), {}
+        common = ["--engine", "fused_e2e", "--use-kernels", "--fleet-size", "64", "--per-round",
+                  "4", "--device", str(device), *cli_argv]
+        for name, extra, rounds in (
+            ("host", ["--fleet-store", "host", "--rounds", "2", "--ckpt-dir", ckpt], 2),
+            ("resumed", ["--fleet-store", "device", "--rounds", "3", "--ckpt-dir", ckpt,
+                         "--resume"], 1),
+            ("fresh", ["--fleet-store", "device", "--rounds", "3"], 3),
+        ):
+            out = os.path.join(tmp, name)
+            code, launches, _ = measured(lambda: fed_train.main(common + extra + ["--out", out]))
+            assert code == 0, (name, code)
+            count(launches, rounds, f"fed_train {name}")
+            (record,) = os.listdir(out)
+            with open(os.path.join(out, record)) as f:
+                records[name] = json.load(f)
+        shard_dir = ckpt_io.fleet_shard_dir(ckpt, 2)
+        shards = sorted(os.listdir(shard_dir))
+        assert shards and all(f.startswith("fleet_") for f in shards), shards
+        assert ckpt_io.step_metadata(ckpt, 2)["fleet_sharded"] is True
+        keys = ("mean_k", "uplink_mb_per_round", "downlink_mb_per_round", "server_acc",
+                "client_acc", "distill_loss")
+        for key in keys:
+            assert records["resumed"][key] == records["fresh"][key], key
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[fed_train] python -m repro_torch.launch.fed_train {' '.join(common)}: a host-store run "
+        f"of 2 rounds wrote {shards} and fleet_sharded in step 2's metadata; the device store "
+        f"resumed it to 3 rounds equal to a fresh device-store run on {', '.join(keys)} "
+        f"(server_acc {records['fresh']['server_acc']})")
+    log(f"[host store] phase 5d in {time.perf_counter() - t_phase:.1f} s; kernel launches {total}")
+    return {"launches": total}
+
+
+def _store_leaves(trees: dict) -> list:
+    out = []
+    for tree in trees.values():
+        if isinstance(tree, dict):
+            out += list(tree.values())
+        else:  # an AdamWState
+            out += [t for f in tree if f is not None
+                    for t in (f.values() if isinstance(f, dict) else [f])]
+    return out
+
+
 def _pretrain_bound(got: dict, want: dict, lr: float, steps: int) -> tuple[float, int]:
     """``tests/test_torch_pretrain.py``'s bound for parameters after training
     steps (every element within 1e-4 but up to 0.1 % of a leaf, rounded
@@ -2212,15 +2540,18 @@ def main() -> int:
         "fused_e2e and fused")
     pretrained = phase_pretrained(device)
     faults = phase_faults(device)
+    host_store = phase_host_store(device, runs[("fused_e2e", False, False)])
     serving = phase_serving(device, card)
     launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) + pretrained["launches"][name]
-                + faults["launches"].get(name, 0) for name in KERNELS}
+                + faults["launches"].get(name, 0) + host_store["launches"].get(name, 0)
+                for name in KERNELS}
     entry_names = ("topk_mask", "distill_kl", "topk_mask.bf16", "distill_kl.bf16")
     entry = {name: sum(r["entry_launches"].get(name, 0) for r in runs.values()) for name in entry_names}
     for name in ("flash_attention", "flash_attention.bf16"):
         entry[name] = serving["entry_launches"][name]
-    log(f"[main path] kernel launches over the eight runs, the pretrained phase's four and the "
-        f"faults phase's {launches} (the faults phase's alone {faults['launches']})")
+    log(f"[main path] kernel launches over the eight runs, the pretrained phase's four, the "
+        f"faults phase's and the host store phase's {launches} (the faults phase's alone "
+        f"{faults['launches']}, the host store phase's {host_store['launches']})")
     log(f"[entry] launches through the public entry points {entry}")
 
     k_caps = {

@@ -12,8 +12,9 @@
   one function call with the sparse wire between them; ``run_rounds``
   runs a block of rounds without a host round trip between them.
 
-The cohort engines keep the fleet in a device fleet store; all four are
-driven by
+The cohort engines keep the fleet in a fleet store
+(:mod:`repro_torch.fed.store`: the device store, or the host store that
+stages each cohort onto the device); all four are driven by
 :func:`repro_torch.fed.rounds.run_federated`.  A client whose channel
 yields ``k == 0`` transmits nothing and is left out of the aggregation.
 """
@@ -73,7 +74,8 @@ def make_engine(kind: str, clients: list[Client], cfg: ModelConfig, **kwargs):
                 "compute_dtype is not supported by the sequential reference"
                 " engine — use 'fused' or 'fused_e2e'"
             )
-        if kwargs.get("fleet_store", "device") != "device":
+        store = kwargs.get("fleet_store", "device")
+        if store != "device" and getattr(store, "kind", store) != "device":
             raise NotImplementedError(
                 "fleet_store='host' is not supported by the sequential"
                 " reference engine (it keeps per-client state inside the"
@@ -86,8 +88,6 @@ def make_engine(kind: str, clients: list[Client], cfg: ModelConfig, **kwargs):
         raise ValueError(
             f"unknown engine: {kind!r} (expected 'sequential', 'batched', 'fused' or 'fused_e2e')"
         )
-    if kwargs.pop("fleet_store", "device") != "device":
-        raise not_carried("a fleet_store other than 'device'", "the host fleet store")
     if kind == "batched":
         # the fp32 per-phase reference: the bf16 round body exists only on
         # the fused paths, and the batched engine has no kernel of its own

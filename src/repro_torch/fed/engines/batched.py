@@ -21,7 +21,7 @@ from repro_torch.fed.engines.base import (
     fake_quant_dense,
     shared_frozen_backbone,
 )
-from repro_torch.fed.store import DeviceFleetStore
+from repro_torch.fed.store import make_fleet_store
 from repro_torch.lora import merge_lora, split_lora
 
 __all__ = ["BatchedEngine"]
@@ -29,13 +29,12 @@ __all__ = ["BatchedEngine"]
 
 class _FleetEngine:
     """The host plumbing every engine shares: the fleet's LoRA and optimizer
-    state in a :class:`repro_torch.fed.store.DeviceFleetStore` (a round
-    fetches the cohort's rows and commits the advanced rows back), the
-    cohort's budgets, upload manifests and private batches.  The engine owns
-    the client parameters from construction on: read them back through
+    state in a fleet store (``fleet_store``: ``"device"``, ``"host"`` or a
+    built :class:`repro_torch.fed.store.FleetStore`; a round fetches the
+    cohort's rows and commits the advanced rows back), the cohort's budgets,
+    upload manifests and private batches.  The engine owns the client
+    parameters from construction on: read them back through
     :meth:`client_params`.  Each engine builds the step functions it runs."""
-
-    store_kind = "device"
 
     def __init__(
         self,
@@ -47,6 +46,7 @@ class _FleetEngine:
         k_min: int,
         last_only: bool,
         quantize_wire: bool,
+        fleet_store="device",
     ):
         self.clients = clients
         self.cfg = cfg
@@ -56,9 +56,10 @@ class _FleetEngine:
         self.last_only = last_only
         self.quantize_wire = quantize_wire
         loras, frozens = zip(*(split_lora(c.params) for c in clients))
-        self._shared = shared_frozen_backbone(frozens)
-        self._store = DeviceFleetStore(loras, frozens, shared=self._shared,
+        self._store = make_fleet_store(fleet_store, loras=loras, frozens=frozens,
+                                       shared=shared_frozen_backbone(frozens),
                                        state_dtype=cfg.optimizer_state_dtype)
+        self._shared = self._store.shared
         del loras, frozens
         for c in clients:  # the store owns the fleet state from here on
             c.params = c.opt = None
@@ -66,6 +67,16 @@ class _FleetEngine:
     @property
     def device(self) -> torch.device:
         return self._store.device
+
+    @property
+    def store_kind(self) -> str:
+        return self._store.kind
+
+    def prefetch_cohort(self, sel: Sequence[int]) -> None:
+        """Hint the NEXT round's cohort: a host store starts staging it onto
+        the device now, under the current round's compute (a no-op on the
+        device store)."""
+        self._store.prefetch(sel)
 
     def client_params(self, cid: int) -> dict:
         """One client's merged parameters (for evaluation)."""
@@ -162,9 +173,11 @@ class BatchedEngine(_FleetEngine):
         k_min: int = 1,
         last_only: bool = True,
         quantize_wire: bool = False,
+        fleet_store="device",
     ):
         super().__init__(clients, cfg, local_steps=local_steps, value_bits=value_bits,
-                         k_min=k_min, last_only=last_only, quantize_wire=quantize_wire)
+                         k_min=k_min, last_only=last_only, quantize_wire=quantize_wire,
+                         fleet_store=fleet_store)
         self.distill_steps = distill_steps
         self._train = fed_steps.make_batched_finetune_step(
             cfg, num_classes, lr=lr, last_only=last_only

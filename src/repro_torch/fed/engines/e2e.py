@@ -1,8 +1,8 @@
 """The whole-round engine — the port of ``repro/fed/engines/e2e.py``'s
 ``FusedE2EEngine``: ``run_round`` and the multi-round ``run_rounds``.
 
-The fleet's state lives in the engines' device fleet store; a round
-gathers the cohort's rows, runs the client phase and the server phase as
+The fleet's state lives in the engine's fleet store; a round gathers the
+cohort's rows, runs the client phase and the server phase as
 one function call with the sparse wire between them, and writes the
 advanced rows back.
 
@@ -89,9 +89,11 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         use_kernels: bool = False,
         quantize_wire: bool = False,
         compute_dtype: str = "float32",
+        fleet_store="device",
     ):
         super().__init__(clients, cfg, local_steps=local_steps, value_bits=value_bits,
-                         k_min=k_min, last_only=last_only, quantize_wire=quantize_wire)
+                         k_min=k_min, last_only=last_only, quantize_wire=quantize_wire,
+                         fleet_store=fleet_store)
         self._fn_kwargs = dict(
             lr=lr, distill_lr=distill_lr, temperature=temperature, lam=lam,
             restrict_to_support=restrict_to_support, local_steps=local_steps,
@@ -208,11 +210,7 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         device, a ``channel_scan``'s
         (:meth:`~repro_torch.core.channel.ChannelSimulator.scan_channel_inputs`)
         among them."""
-        if self.store_kind != "device":
-            raise RuntimeError(
-                "run_rounds carries the whole fleet on the device, which only "
-                f"fleet_store='device' provides (store_kind={self.store_kind!r})"
-            )
+        self._require_device_store()
         sels = [check_unique_cohort(sel) for sel in sels]
         if (eval_tokens is None) != (eval_labels is None):
             raise ValueError("pass eval_tokens and eval_labels together")
@@ -251,6 +249,18 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
                   else _channel_scan_ops(channel_scan, len(sels), self.device)),
         )
 
+    def _require_device_store(self) -> None:
+        """A block reads the fleet's rows by index tensors staged on the
+        device: only the device store holds the whole fleet there."""
+        if self.store_kind != "device":
+            raise RuntimeError(
+                "run_rounds scans the WHOLE fleet stack as a donated device "
+                "carry, which only fleet_store='device' provides; a host "
+                f"store (store_kind={self.store_kind!r}) keeps O(cohort) "
+                "device residency — drive rounds one at a time with "
+                "run_round instead (rounds.py falls back automatically)"
+            )
+
     def run_block(self, staged: StagedRounds) -> dict[str, torch.Tensor]:
         """The R round bodies of a staged block back to back, each the
         fleet gather, the round function, the in-block eval tap (server, and
@@ -259,6 +269,7 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         ``(R,)`` row each: ``mean_k``, ``distill_loss`` and, with eval data,
         ``server_acc`` and ``client_acc``; with a channel scenario the
         cohort's ``snr_db`` (fp32) and ``outage`` (bool), ``(R, C)``."""
+        self._require_device_store()
         rounds = len(staged.ks)
         has_eval = staged.eval_tokens is not None
         if rounds == 0:

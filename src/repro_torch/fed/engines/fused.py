@@ -47,9 +47,11 @@ class FusedEngine(_FleetEngine):
         use_kernels: bool = False,
         quantize_wire: bool = False,
         compute_dtype: str = "float32",
+        fleet_store="device",
     ):
         super().__init__(clients, cfg, local_steps=local_steps, value_bits=value_bits,
-                         k_min=k_min, last_only=last_only, quantize_wire=quantize_wire)
+                         k_min=k_min, last_only=last_only, quantize_wire=quantize_wire,
+                         fleet_store=fleet_store)
 
         def fused(n_distill: int):
             return fed_steps.make_fused_round_fn(

@@ -24,8 +24,11 @@ round first and runs them as one block, ``FusedE2EEngine.run_rounds``.
 bursty episodes (``repro_torch.core.faults``): a lost upload is forced to
 k = 0 before any engine sees the round, and its bytes stay on the ledger.
 ``ckpt_dir`` writes a crash-safe checkpoint after every round (after the
-block with ``scan_rounds``) in the reference's npz layout, and
-``resume=True`` continues from the newest one, JAX-written or not.
+block with ``scan_rounds``) in the reference's npz layout, a host store's
+fleet as shards beside it, and ``resume=True`` continues from the newest
+one, JAX-written or not, under either store.  ``fleet_store="host"`` keeps
+the fleet in host memory and stages each cohort onto the device, round
+r+1's under round r; ``scan_rounds`` then runs the per-round loop.
 
 What the port does not carry yet raises ``NotImplementedError`` naming its
 entry in ROADMAP.md's port queue.
@@ -405,6 +408,12 @@ def run_federated(
         run.attempted_k.append(list(attempted))
 
     # -- crash-safe checkpoints, in the reference's layout ---------------------
+    # A host store's fleet is checkpointed as per-client-range shards beside
+    # the step's npz, never as one tree: the shards first, the main npz
+    # last, so a valid step file implies complete shards, and a crash while
+    # the shards are written resumes from the step before.
+    fleet_sharded = engine.store_kind == "host"
+
     def ckpt_tree(like: bool = False, include_fleet: bool = True) -> dict:
         """The federation's state as one tree: the fleet (backbone
         included), the server, and for a server-owning engine the
@@ -442,11 +451,14 @@ def run_federated(
         for tap in _TAPS:
             if getattr(run, tap) is not None:
                 meta[tap] = getattr(run, tap)
-        ckpt_io.save_step(ckpt_dir, step, ckpt_tree(), **meta)
+        if fleet_sharded:
+            engine.save_fleet_shards(ckpt_io.fleet_shard_dir(ckpt_dir, step))
+            meta["fleet_sharded"] = True
+        ckpt_io.save_step(ckpt_dir, step, ckpt_tree(include_fleet=not fleet_sharded), **meta)
 
     bcast: BroadcastState | None = None
     if completed:
-        # a reference checkpoint of a host store keeps the fleet in shards
+        # a checkpoint of a host store (either package's) keeps the fleet in shards
         sharded = bool(ckpt_meta.get("fleet_sharded"))
         # restored on the host: each load below copies a leaf to the device
         # once, into storage the engine owns
@@ -552,14 +564,34 @@ def run_federated(
             raise ValueError(
                 f"FedConfig.scan_rounds requires engine='fused_e2e' (got {fed.engine!r})"
             )
+        if engine.store_kind != "device" and verbose:
+            # a block reads the whole fleet on the device, which the host
+            # store's O(cohort) residency rules out: the per-round loop
+            # streams the cohorts instead
+            print(
+                "[rounds] scan_rounds needs the device fleet store; "
+                f"fleet_store={engine.store_kind!r} falls back to the per-round "
+                "driver with cohort prefetch"
+            )
+    if fed.scan_rounds and engine.store_kind == "device":
         scan_block(completed)
         if ckpt_dir is not None:
             save_ckpt(fed.rounds)
         return run
 
+    # Rounds are drawn ONE round ahead, so that the store can stage round
+    # r+1's cohort onto the device under round r's compute.  draw_round(r)
+    # still runs in increasing r, so the host rng chain is the one of a loop
+    # without prefetch, and the channel and fault draws are keyed by (seed,
+    # round, cid): drawing round r+1 before round r's faults resolve
+    # changes nothing.
+    pending = draw_round(completed) if fed.rounds > completed else None
     for rnd in range(completed, fed.rounds):
         t0 = time.perf_counter()
-        sel, pub_tokens, states = draw_round(rnd)
+        sel, pub_tokens, states = pending
+        pending = draw_round(rnd + 1) if rnd + 1 < fed.rounds else None
+        if pending is not None:
+            engine.prefetch_cohort(pending[0])
         fault_row = None
         if fault_sim is not None:
             states, attempted, res, ghosts = apply_faults(rnd, sel, states)

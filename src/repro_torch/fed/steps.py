@@ -95,7 +95,10 @@ def _grads(loss_fn: Callable, lora: dict, *args):
     leaves = {k: v.detach().requires_grad_(True) for k, v in lora.items()}
     with torch.enable_grad():
         losses = loss_fn(leaves, *args)
-        grads = torch.autograd.grad(losses.sum(), list(leaves.values()))
+        # an adapter no layer reads (LoRA on ``o``: no layer applies it, as in
+        # the reference) gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(losses.sum(), list(leaves.values()), allow_unused=True,
+                                    materialize_grads=True)
     return losses.detach(), dict(zip(leaves, grads))
 
 

@@ -1,7 +1,8 @@
-"""Step functions for training and serving — the port of ``repro/launch``'s
-``steps`` module.  The rest of ``repro/launch`` (the ``fed_train``,
-``serve`` and ``train`` launchers, ``mesh``, ``policy`` and the dry run) is
-a later slice: ROADMAP.md port queue, "launchers and scale-out"."""
+"""Launchers: step functions for training and serving (the port of
+``repro/launch``'s ``steps`` module) and the federated driver
+``python -m repro_torch.launch.fed_train``.  The rest of ``repro/launch``
+(the ``serve`` and ``train`` launchers, ``mesh``, ``policy`` and the dry
+run) is a later slice: ROADMAP.md port queue, "launchers and scale-out"."""
 
 from repro_torch.launch.steps import (
     CE_CHUNK,

@@ -93,7 +93,10 @@ def full_grads(loss_fn: Callable, params: dict[str, torch.Tensor], *args):
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
         out = loss_fn(leaves, *args)
-        grads = torch.autograd.grad(out[0], list(leaves.values()))
+        # a leaf the loss does not read (an ``o`` adapter) gets a zero
+        # gradient, as jax.grad gives it
+        grads = torch.autograd.grad(out[0], list(leaves.values()), allow_unused=True,
+                                    materialize_grads=True)
     return tuple(o.detach() for o in out), dict(zip(leaves, grads))
 
 

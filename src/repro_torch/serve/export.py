@@ -1,7 +1,7 @@
 """Federation -> serving handoff — the port of ``repro/serve/export.py``.
 
 ``export_adapters`` resolves a live
-:class:`~repro_torch.fed.store.DeviceFleetStore` or what a run with
+:class:`~repro_torch.fed.store.FleetStore` (device or host) or what a run with
 ``ckpt_dir`` left on disk (either package's: the layout is the
 reference's) into the :class:`~repro_torch.serve.cache.AdapterSource` an
 AdapterCache pages from:
@@ -29,7 +29,6 @@ from collections import OrderedDict
 import torch
 
 from repro_torch.checkpoint import ckpt as ckpt_io
-from repro_torch.fed.store import DeviceFleetStore
 from repro_torch.lora import is_lora_path
 
 __all__ = [
@@ -48,9 +47,10 @@ _NOT_SHARED = (
 
 
 class FleetStoreSource:
-    """Adapters straight out of a live fleet store (no disk round-trip)."""
+    """Adapters straight out of a live fleet store, device or host (no disk
+    round-trip)."""
 
-    def __init__(self, store: DeviceFleetStore):
+    def __init__(self, store):
         self.store = store
         self.num_adapters = store.num_clients
 
@@ -159,10 +159,14 @@ def export_adapters(src):
     ``step_N.fleet/`` shard directory, a ``step_N.npz`` file, or a
     checkpoint directory (its newest valid step, shards preferred over the
     monolithic fleet subtree)."""
-    if isinstance(src, DeviceFleetStore):
+    # imported here: ``repro_torch.fed`` imports the launchers' steps, which
+    # import serving; at module level this would close a cycle
+    from repro_torch.fed.store import FleetStore
+
+    if isinstance(src, FleetStore):
         return FleetStoreSource(src)
     if not isinstance(src, (str, os.PathLike)):
-        raise TypeError(f"export_adapters wants a DeviceFleetStore or a path, got {type(src)!r}")
+        raise TypeError(f"export_adapters wants a FleetStore or a path, got {type(src)!r}")
     path = os.fspath(src)
     if os.path.isdir(path):
         try:

@@ -334,8 +334,6 @@ _QUEUE = "ROADMAP.md port queue: "
                  id="fused-shard_clients"),
     # the id is kept from the bf16 refusal that this case held before bf16 ran
     pytest.param(dict(compute_dtype="float16"), _QUEUE + "fp16", id="bf16-compute"),
-    pytest.param(dict(fleet_store="host"), _QUEUE + "the host fleet store",
-                 id="fused_e2e-host-fleet-store"),
     pytest.param(dict(shard_clients=True), _QUEUE + "launchers and scale-out",
                  id="fused_e2e-shard_clients"),
     # the reference's own refusal, kept by the port's sequential engine
