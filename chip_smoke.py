@@ -118,7 +118,9 @@ Phases (any failure raises and exits non-zero):
    ``fused``).  ``[trace]`` lines give the device's busy share of the
    traced window and of the untraced run's time for the same work, the
    kernel count and the five longest idle gaps.
-5c. scenarios, faults, checkpoints — the main path's fleet with one
+5c. scenarios, faults, checkpoints — the main path's fleet, its server
+   at GPT-2 large's widths but 12 of its 36 layers (``FAULT_SERVER``: the
+   smoke's time), with one
    pretraining step (the fleet shares one backbone; the server's none) on
    a Gilbert-Elliott channel of 300 MHz with ``faults="lossy"``, seed 5
    (over its 3 rounds an outage, a crash, a quarantine and a delivery
@@ -170,6 +172,31 @@ Phases (any failure raises and exits non-zero):
    fresh device-store run of 3: the resumed record equals the fresh one on
    every round's mean k, uplink and downlink MB, accuracies and distill
    loss.  Every run's launches are counted (the scatter once a round).
+5e. scale-out — ``shard_clients`` over ``torch.distributed``.  (a) World
+   size 1 over NCCL (a one-rank group on a ``HashStore``): phase 5's
+   ``fused_e2e`` float and int8 wire and ``fused`` float runs again with
+   ``shard_clients=True``: per-client k, bytes, transmitters, accuracies and
+   distill losses equal, and every trained tensor ``torch.equal`` (at one
+   rank the split is no split and the gather a copy); launches as phase
+   5's.  (b) World size 2 over gloo, two spawned processes on the one card
+   (a child's failure fails the phase), ``fused_e2e`` float wire: cohorts of
+   4 (2 rows a rank) and of 3 (one pad row) round by round, and the cohort of
+   3 as a 2-round ``scan_rounds`` block; against the unsharded run (the
+   parent's; for the cohort of 4, phase 5's, its wire masks from (a)): k,
+   bytes, transmitters and every round's wire mask identical, accuracies
+   within one eval sample, distill losses within rtol 1e-4, trained LoRA
+   leaves within 1e-3 in relative L2 per leaf (``SHARD_NORM``); both ranks'
+   records and trained tensors ``torch.equal``.  Round times, and the bytes
+   each round gathers and the gather's device time (CUDA events), are
+   printed at world sizes 1 and 2: on one card two ranks check correctness,
+   not speed (both run the server phase on the same GPU).  (c)
+   ``fed_train --shard-clients`` under ``python -m torch.distributed.run
+   --standalone --nproc-per-node 1`` at its reduced widths: its JSON equals
+   the unsharded CLI run's (in this process) on mean k, uplink and downlink
+   MB and accuracies.  (d) The ``train`` CLI (5 steps of the GPT-2 smoke
+   config) and the ``serve`` CLI (one adapter; 8 tenants in 8 slots): their
+   losses, ms a step and tokens/s printed beside the card's name and power
+   limit.
 6. serving — a shared GPT-2 small backbone and 8 tenant adapters (A and B
    drawn from a numpy seed) in a ``DeviceFleetStore``, exported to an
    ``AdapterCache`` of 4 slots behind a ``ServeSession`` of batch 8: two
@@ -210,7 +237,8 @@ Phases (any failure raises and exits non-zero):
 The last lines are the card and its power limit, the kernels record and the
 device record (JSON).  In the kernels record ``launches`` is each kernel's
 count summed over the eight main-path runs, the pretrained path's four,
-phase 5c's runs and validated wires and phase 5d's runs,
+phase 5c's runs and validated wires, phase 5d's runs and phase 5e's
+(its children's included),
 ``pct_of_bound`` its bound over its time; the static top-k's, the KL's and the attention's rows (fp32 and
 bf16) add ``entry_launches``, their counts through their public entry
 points.
@@ -232,10 +260,14 @@ import sys
 import tempfile
 import threading
 import time
+from contextlib import redirect_stdout
+from io import StringIO
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as torch_mp
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -255,7 +287,11 @@ from repro_torch.fed import rounds as fed_rounds  # noqa: E402
 from repro_torch.fed import steps as fed_steps  # noqa: E402
 from repro_torch.fed.engines import k_cap_bucket  # noqa: E402
 from repro_torch.fed.store import DeviceFleetStore, HostFleetStore  # noqa: E402
+from repro_torch import sharding  # noqa: E402
 from repro_torch.launch import fed_train  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import H100  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.lora import is_lora_path, lora_template, merge_lora, split_lora  # noqa: E402
 from repro_torch.models import attention, model  # noqa: E402
@@ -271,10 +307,11 @@ from repro_torch.serve import (  # noqa: E402
     serving_params,
 )
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
-TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores, NVIDIA data sheet
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores, NVIDIA data sheet
+# the H100 SXM data sheet's figures (repro_torch.launch.mesh.H100), not measurements
+HBM_BYTES_PER_S = H100["hbm_bandwidth"]
+FP32_OPS_PER_S = H100["peak_fp32_flops"]  # outside the tensor cores
+TF32_OPS_PER_S = H100["peak_tf32_flops"]  # dense, on the tensor cores
+BF16_OPS_PER_S = H100["peak_bf16_flops"]  # dense, on the tensor cores
 TF32_SPLIT = 3  # the attention kernel's TF32 products per fp32 product (3xTF32)
 N_CLIENTS, ROWS, VOCAB = 4, 64, GPT2_SMALL.vocab_size
 WIDE_ROWS, WIDE_VOCAB = 8, 152_064  # a vocabulary beyond one block's shared memory
@@ -1003,10 +1040,11 @@ def capture_topk(captured: dict):
 
 def main_fed(engine: str, quantize: bool, bf16: bool = False, **change) -> FedConfig:
     """The main path's FedConfig: GPT-2 small clients x8, cohort 4, 2 rounds."""
-    return FedConfig(method="adald", engine=engine, use_kernels=True, pretrain_steps=0,
-                     num_clients=8, clients_per_round=4, rounds=2, public_batch=64,
-                     local_steps=2, distill_steps=1, server_distill_steps=2, eval_size=128,
-                     quantize_wire=quantize, **(BF16_CFG if bf16 else {}), **change)
+    return FedConfig(**{**dict(method="adald", engine=engine, use_kernels=True, pretrain_steps=0,
+                               num_clients=8, clients_per_round=4, rounds=2, public_batch=64,
+                               local_steps=2, distill_steps=1, server_distill_steps=2,
+                               eval_size=128, quantize_wire=quantize),
+                        **(BF16_CFG if bf16 else {}), **change})
 
 
 def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> dict:
@@ -1077,9 +1115,9 @@ def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> 
     peak = torch.cuda.max_memory_allocated()
     out = {"launches": launches, "per_client_k": run.per_client_k, "entry_launches": {},
            "bytes": [(r.uplink_bytes, r.downlink_bytes, r.num_transmitters) for r in run.ledger.rounds]}
-    if engine == "fused_e2e" and not (quantize or bf16):
+    if not bf16 and (engine, quantize) in SHARD_RUNS:  # what phases 5d and 5e hold to it
         out.update(record=main_record(run), round_seconds=list(run.round_seconds), peak=peak,
-                   trained=trained_state(eng))
+                   trained=trained_state(eng, None if engine == "fused_e2e" else srv))
     if captured:
         x, ks = captured["x"], captured["ks"]
         out["topk_input"] = (x.reshape(-1, x.shape[-1]), ks.reshape(-1))
@@ -1428,6 +1466,10 @@ FAULT_FED = dict(method="adald", use_kernels=True, num_clients=8, clients_per_ro
                  eval_size=128, seed=5, pretrain_steps=1, server_pretrain="none",
                  scenario="gilbert_elliott", faults="lossy")
 FAULT_BANDWIDTH_HZ = 3e8
+# the phase's server: GPT-2 large's widths at a third of its depth, which keeps the
+# whole smoke near half its time limit (the phase checks events, gates and resumes,
+# none of which depends on the server's depth)
+FAULT_SERVER = GPT2_LARGE.with_overrides(num_layers=12)
 SERVE_TOKENS, SERVE_PROMPT = 8, 16  # decoded from the checkpoint for two tenants
 
 
@@ -1481,9 +1523,10 @@ def fault_integers(run) -> tuple:
                                  r.fault_counts) for r in run.ledger.rounds])
 
 
-def trained_state(eng) -> dict[str, torch.Tensor]:
+def trained_state(eng, srv=None) -> dict[str, torch.Tensor]:
     """What the rounds train, on the CPU: the fleet's and the server's
-    adapters and optimizer states (the frozen backbones are not trained)."""
+    adapters and optimizer states (the frozen backbones are not trained).
+    The server's are the engine's on ``fused_e2e``, else ``srv``'s."""
     flat = {}
 
     def walk(prefix, tree):
@@ -1496,9 +1539,13 @@ def trained_state(eng) -> dict[str, torch.Tensor]:
             for name, v in zip(tree._fields, tree):
                 walk(f"{prefix}/{name}", v)
 
-    fleet, server = eng.fleet_state(), eng.server_state()
+    fleet = eng.fleet_state()
     walk("fleet", {k: fleet[k] for k in ("lora", "opt")})
-    walk("server", {k: server[k] for k in ("s_lora", "s_opt")})
+    if srv is None:
+        server = eng.server_state()
+        walk("server", {k: server[k] for k in ("s_lora", "s_opt")})
+    else:
+        walk("server", {"s_lora": split_lora(srv.params)[0], "s_opt": srv.opt})
     return flat
 
 
@@ -1592,7 +1639,7 @@ def phase_faults(device, cfgs=None) -> dict:
     widths (``cfgs``: client config, server config, dataset; the tiny
     configs of a rehearsal on the CPU otherwise).  Returns the phase's
     launch counts."""
-    cfgs = cfgs or (GPT2_SMALL, GPT2_LARGE,
+    cfgs = cfgs or (GPT2_SMALL, FAULT_SERVER,
                     make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32))
     on_card = torch.device(device).type == "cuda"
     total: dict[str, int] = {}
@@ -1751,6 +1798,12 @@ def phase_faults(device, cfgs=None) -> dict:
 SCALE_N = 10_000  # phase 5d (b): a fleet no device store of GPT-2 small rows fits beside the run
 SCALE_ROUNDS = 3
 PEAK_SLACK = 256 * 2**20  # (b)'s peak at N = 10 000 against N = 8
+
+
+def same_record(a: dict, b: dict) -> bool:
+    """Two records equal, a NaN (no server-distill loss off the e2e path)
+    equal to a NaN: compared through their JSON text, every float exact."""
+    return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
 
 
 def main_record(run) -> dict:
@@ -2020,6 +2073,290 @@ def phase_host_store(device, main: dict | None = None, cfgs=None,
         f"resumed it to 3 rounds equal to a fresh device-store run on {', '.join(keys)} "
         f"(server_acc {records['fresh']['server_acc']})")
     log(f"[host store] phase 5d in {time.perf_counter() - t_phase:.1f} s; kernel launches {total}")
+    return {"launches": total}
+
+
+# -- phase 5e: scale-out ------------------------------------------------------
+
+SHARD_RUNS = (("fused_e2e", False), ("fused_e2e", True), ("fused", False))  # (a), with phase 5's
+# (b): the fused_e2e float-wire runs two ranks split, against the same unsharded
+SCALE_OUT_B = {"cohort 4": dict(), "cohort 3": dict(clients_per_round=3),
+               "cohort 3 block": dict(clients_per_round=3, scan_rounds=True)}
+# relative L2 per trained LoRA leaf, two ranks' split against the unsharded run:
+# tests/test_torch_rounds_block.py's bound for B factors after two rounds.  They start
+# at zero and hold a few Adam steps, each normalised, so a last-bit gradient difference
+# on a near-zero-gradient element moves it by up to lr; on the card a rank's block of
+# 2 clients runs other GEMM shapes than the cohort of 4 (the server's q B factor sat
+# 1.5e-4 from the unsharded run's on the first run here)
+SHARD_NORM = 1e-3
+
+
+def scale_out_run(fed: FedConfig, device, cfgs=None) -> dict:
+    """One run of ``fed`` for phase 5e: its record, trained tensors (host),
+    round times, launches, peak memory, every round's wire mask (copied to
+    the host after the run: the block makes no synchronising call) and, when
+    sharded, each gather's bytes and device time (CUDA events)."""
+    client_cfg, server_cfg, ds = cfgs or (
+        GPT2_SMALL, GPT2_LARGE, make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32))
+    on_card = torch.device(device).type == "cuda"
+    masks, gathers = [], []
+
+    def keep_mask(make):
+        def made(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                masks.append(out[4].mask.clone())
+                return out
+
+            return call
+
+        return made
+
+    def timed_gather(gather):
+        def call(tree, group=None):
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else []
+            if events:
+                events[0].record()
+            out = gather(tree, group)
+            if events:
+                events[1].record()
+            moved = sum(t.numel() * t.element_size() for t in torch.utils._pytree.tree_leaves(out)
+                        if isinstance(t, torch.Tensor))
+            gathers.append((moved, events))
+            return out
+
+        return call
+
+    patches = {(fed_steps, "make_fused_e2e_round_fn"): keep_mask,
+               (sharding, "gather_cohort"): timed_gather}
+    sync(device)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run, eng, srv = _drive(client_cfg, server_cfg, ds, fed, device, patches)
+    sync(device)
+    out = dict(record=main_record(run), round_seconds=list(run.round_seconds),
+               launches={k: v for k, v in ops.LAUNCHES.items() if v},
+               peak=torch.cuda.max_memory_allocated() if on_card else 0,
+               trained=trained_state(eng, None if fed.engine == "fused_e2e" else srv),
+               masks=[m.cpu() for m in masks],
+               gathers=[(n, ev[0].elapsed_time(ev[1]) if ev else float("nan"))
+                        for n, ev in gathers])
+    del run, eng, srv
+    gc.collect()
+    return out
+
+
+def _scale_out_rank(rank: int, rdzv: str, out_dir: str, device: str, cfgs) -> None:
+    """Phase 5e (b)'s child: rank ``rank`` of a gloo group of two on the one
+    card (or the CPU), running every :data:`SCALE_OUT_B` run split."""
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank, world_size=2)
+    try:
+        res = {name: scale_out_run(main_fed("fused_e2e", False, shard_clients=True, **change),
+                                   device, cfgs)
+               for name, change in SCALE_OUT_B.items()}
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _gathered(run: dict) -> str:
+    if not run["gathers"]:
+        return "no gather"
+    n = [b for b, _ in run["gathers"]]
+    return (f"{len(n)} gathers of {statistics.mean(n) / 1e6:.3f} MB, "
+            f"{statistics.mean(ms for _, ms in run['gathers']):.3f} ms each on the device")
+
+
+def _within_norm(got: dict, want: dict) -> tuple[float, str]:
+    """The largest relative L2 distance over the trained LoRA leaves, and
+    its leaf (the Adam moments follow their parameters, as in the CPU
+    tests; Adam's step counts must be equal)."""
+    assert got.keys() == want.keys()
+    worst = (0.0, "")
+    for k, v in want.items():
+        if not v.is_floating_point():
+            assert torch.equal(got[k], v), k
+        elif "/m/" not in k and "/v/" not in k:
+            ref = float(torch.linalg.vector_norm(v.double()))
+            worst = max(worst, (float(torch.linalg.vector_norm((got[k] - v).double()))
+                                / max(ref, 1e-30), k))
+    return worst
+
+
+def phase_scale_out(device, card: str, runs: dict | None = None, cfgs=None,
+                    cli_argv: tuple = ()) -> dict:
+    """Phase 5e (see the module docstring).  ``runs``: phase 5's runs by
+    ``(engine, quantize, bf16)``; without them (a rehearsal on the CPU,
+    ``cfgs`` the tiny configs) the unsharded runs are made here.
+    ``cli_argv``: arguments added to every ``fed_train`` call.  Returns the
+    phase's launch counts."""
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    total: dict[str, int] = {}
+
+    def count(launches: dict) -> None:
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def expect(engine: str, quant: bool, run: dict, rounds: int) -> None:
+        if not on_card:
+            return
+        tx = sum(1 for _, _, n in run["record"]["bytes"] if n > 0)
+        want = ({"scatter_wire_sums_dequant" if quant else "scatter_wire_sums": rounds}
+                if engine == "fused_e2e" else {"topk_mask_dynamic": rounds, "sparse_aggregate": tx})
+        assert run["launches"] == want, (engine, quant, run["launches"], want)
+
+    # (a) world size 1 over NCCL (gloo on the CPU): a one-rank group on a HashStore
+    plain_group = not dist.is_initialized()
+    a_masks = None
+    for engine, quant in SHARD_RUNS:
+        fed = main_fed(engine, quant)
+        want = (runs or {}).get((engine, quant, False)) or scale_out_run(fed, device, cfgs)
+        got = scale_out_run(dataclasses.replace(fed, shard_clients=True), device, cfgs)
+        expect(engine, quant, got, fed.rounds)
+        count(got["launches"])
+        assert dist.get_world_size() == 1 and dist.get_backend() == ("nccl" if on_card else "gloo")
+        assert same_record(got["record"], want["record"]), (engine, quant, got["record"],
+                                                            want["record"])
+        unequal = [k for k, v in want["trained"].items() if not torch.equal(got["trained"][k], v)]
+        assert not unequal and got["trained"].keys() == want["trained"].keys(), unequal
+        if engine == "fused_e2e" and not quant:
+            a_masks = got["masks"]
+        tag = f"{engine}/{'int8' if quant else 'float'}"
+        log(f"[scale-out (a) {tag}] shard_clients=True at world size 1 ({dist.get_backend()}): "
+            f"per-client k, bytes, transmitters, accuracies, distill losses equal to the unsharded "
+            f"run, {len(want['trained'])} trained tensors torch.equal; round_seconds "
+            f"{[round(x, 3) for x in got['round_seconds']]} (unsharded "
+            f"{[round(x, 3) for x in want['round_seconds']]}), {_gathered(got)}, launches "
+            f"{got['launches']}; {card}")
+    if plain_group:
+        dist.destroy_process_group()
+
+    # (b) world size 2 over gloo: two processes on the one card
+    wants = {"cohort 4": (runs or {}).get(("fused_e2e", False, False))}
+    for name, change in SCALE_OUT_B.items():
+        if wants.get(name) is None:
+            wants[name] = scale_out_run(main_fed("fused_e2e", False, **change), device, cfgs)
+    if wants["cohort 4"].get("masks") is None:
+        wants["cohort 4"] = dict(wants["cohort 4"], masks=a_masks)  # (a)'s run equals phase 5's
+    sync(device)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="scale_out_")
+    try:
+        t0 = time.perf_counter()
+        torch_mp.spawn(_scale_out_rank, args=(os.path.join(tmp, "rdzv"), tmp, str(device), cfgs),
+                       nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    one_sample = 1.0 / main_fed("fused_e2e", False).eval_size + 1e-9
+    for name, change in SCALE_OUT_B.items():
+        want, r0, r1 = wants[name], ranks[0][name], ranks[1][name]
+        for got in (r0, r1):
+            assert got["record"]["per_client_k"] == want["record"]["per_client_k"], name
+            assert got["record"]["bytes"] == want["record"]["bytes"], name
+            assert len(got["masks"]) == len(want["masks"]) and all(
+                torch.equal(g, w) for g, w in zip(got["masks"], want["masks"])), name
+            np.testing.assert_allclose(got["record"]["server_acc"], want["record"]["server_acc"],
+                                       rtol=0, atol=one_sample)
+            np.testing.assert_allclose(got["record"]["client_acc"], want["record"]["client_acc"],
+                                       rtol=0, atol=one_sample)
+            np.testing.assert_allclose(got["record"]["distill_loss"],
+                                       want["record"]["distill_loss"], rtol=1e-4)
+        worst, leaf = _within_norm(r0["trained"], want["trained"])
+        assert worst <= SHARD_NORM, (name, worst, leaf)
+        assert r0["record"] == r1["record"], name
+        unequal = [k for k, v in r0["trained"].items() if not torch.equal(r1["trained"][k], v)]
+        assert not unequal, (name, unequal)
+        if on_card:
+            rounds = len(want["record"]["per_client_k"])
+            for got in (r0, r1):
+                assert got["launches"] == {"scatter_wire_sums": rounds}, (name, got["launches"])
+        count(r0["launches"])
+        count(r1["launches"])
+        log(f"[scale-out (b) {name}] 2 ranks over gloo on one device: k, bytes, transmitters and "
+            f"{len(want['masks'])} wire masks identical to the unsharded run, accuracies within one "
+            f"eval sample, trained LoRA leaves within {worst:.2e} (relative L2, bound "
+            f"{SHARD_NORM}; {leaf}), "
+            f"both ranks' records and {len(r0['trained'])} trained tensors torch.equal; "
+            f"round_seconds rank 0 {[round(x, 3) for x in r0['round_seconds']]}, rank 1 "
+            f"{[round(x, 3) for x in r1['round_seconds']]} (unsharded "
+            f"{[round(x, 3) for x in want['round_seconds']]}), {_gathered(r0)}; peak "
+            f"{r0['peak'] / 2**30:.2f} / {r1['peak'] / 2**30:.2f} GiB; {card}")
+    log(f"[scale-out (b)] the two processes ran in {spawn_s:.1f} s (start-up included)")
+
+    # (c) fed_train --shard-clients under torch.distributed.run, against the same run unsharded
+    tmp = tempfile.mkdtemp(prefix="fed_train_shard_")
+    try:
+        common = ["--engine", "fused_e2e", "--use-kernels", "--fleet-size", "8", "--per-round", "4",
+                  "--rounds", "2", *cli_argv]
+        records = {}
+        for name in ("plain", "sharded"):
+            out = os.path.join(tmp, name)
+            sync(device)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            if name == "plain":
+                assert fed_train.main(common + ["--device", str(device), "--out", out]) == 0
+                sync(device)
+                count({k: v for k, v in ops.LAUNCHES.items() if v})
+            else:
+                # the child's intra-op threads as this process's: CPU sums in one order
+                env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
+                           OMP_NUM_THREADS=str(torch.get_num_threads()))
+                cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                       "--nproc-per-node", "1", "-m", "repro_torch.launch.fed_train",
+                       "--shard-clients", *common, "--out", out]
+                if not on_card:
+                    cmd.append("--device=cpu")
+                proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+                assert proc.returncode == 0, (proc.returncode, proc.stdout[-4000:],
+                                              proc.stderr[-4000:])
+            seconds = time.perf_counter() - t0
+            (record,) = os.listdir(out)
+            with open(os.path.join(out, record)) as f:
+                records[name] = json.load(f)
+            log(f"[scale-out (c)] fed_train {name}: {seconds:.1f} s (start-up and pretraining "
+                f"included), server_acc {records[name]['server_acc']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert records["sharded"]["fed"]["shard_clients"] is True
+    keys = ("mean_k", "uplink_mb_per_round", "downlink_mb_per_round", "server_acc", "client_acc")
+    for key in keys:
+        assert records["sharded"][key] == records["plain"][key], (key, records)
+    log(f"[scale-out (c)] python -m torch.distributed.run --standalone --nproc-per-node 1 -m "
+        f"repro_torch.launch.fed_train --shard-clients {' '.join(common)}: its JSON equals the "
+        f"unsharded CLI run's on {', '.join(keys)} (distill_loss "
+        f"{records['sharded']['distill_loss']} vs {records['plain']['distill_loss']})")
+
+    # (d) the train and serve CLIs
+    for name, cli, argv in (
+        ("train", train_cli, ["--steps", "5", "--batch", "8", "--seq", "128"]),
+        ("serve", serve_cli, ["--batch", "8", "--tokens", "32"]),
+        ("serve", serve_cli, ["--batch", "8", "--tokens", "32", "--adapters", "8", "--slots", "8"]),
+    ):
+        printed = StringIO()
+        ops.reset_launches()
+        with redirect_stdout(printed):
+            assert cli.main(argv + ["--device", str(device)]) == 0
+        assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES  # no kernel on either path
+        for line in printed.getvalue().splitlines():
+            log(f"[scale-out (d) {name} {' '.join(argv)}] {line} ({card})")
+    log(f"[scale-out] phase 5e in {time.perf_counter() - t_phase:.1f} s; kernel launches {total}")
     return {"launches": total}
 
 
@@ -2541,17 +2878,20 @@ def main() -> int:
     pretrained = phase_pretrained(device)
     faults = phase_faults(device)
     host_store = phase_host_store(device, runs[("fused_e2e", False, False)])
+    scale_out = phase_scale_out(device, card, runs)
     serving = phase_serving(device, card)
     launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) + pretrained["launches"][name]
                 + faults["launches"].get(name, 0) + host_store["launches"].get(name, 0)
+                + scale_out["launches"].get(name, 0)
                 for name in KERNELS}
     entry_names = ("topk_mask", "distill_kl", "topk_mask.bf16", "distill_kl.bf16")
     entry = {name: sum(r["entry_launches"].get(name, 0) for r in runs.values()) for name in entry_names}
     for name in ("flash_attention", "flash_attention.bf16"):
         entry[name] = serving["entry_launches"][name]
     log(f"[main path] kernel launches over the eight runs, the pretrained phase's four, the "
-        f"faults phase's and the host store phase's {launches} (the faults phase's alone "
-        f"{faults['launches']}, the host store phase's {host_store['launches']})")
+        f"faults phase's, the host store phase's and the scale-out phase's {launches} (the faults "
+        f"phase's alone {faults['launches']}, the host store phase's {host_store['launches']}, "
+        f"the scale-out phase's {scale_out['launches']})")
     log(f"[entry] launches through the public entry points {entry}")
 
     k_caps = {

@@ -58,8 +58,10 @@ def make_engine(kind: str, clients: list[Client], cfg: ModelConfig, **kwargs):
     """Build a round engine, dropping the keyword arguments that ``kind``
     does not take, as the reference's ``make_engine`` does: the batched
     engine drops ``shard_clients``, ``use_kernels`` (its aggregation kernel
-    runs in the Server) and ``compute_dtype``.  The sequential engine keeps
-    the reference's own refusals."""
+    runs in the Server) and ``compute_dtype``, and the sequential engine
+    takes only ``value_bits`` and ``k_min`` (``shard_clients`` among what
+    it drops) and keeps the reference's own refusals.  ``fused`` and
+    ``fused_e2e`` take ``shard_clients`` (:mod:`repro_torch.sharding`)."""
     if kind != "fused_e2e":
         for e2e_only in ("server", "server_distill_steps", "aggregation"):
             kwargs.pop(e2e_only, None)
@@ -94,8 +96,6 @@ def make_engine(kind: str, clients: list[Client], cfg: ModelConfig, **kwargs):
         for dropped in ("shard_clients", "use_kernels", "compute_dtype"):
             kwargs.pop(dropped, None)
         return BatchedEngine(clients, cfg, **kwargs)
-    if kwargs.pop("shard_clients", False):
-        raise not_carried("shard_clients", "launchers and scale-out")
     if kwargs.get("compute_dtype", "float32") not in ("float32", "bfloat16"):
         raise not_carried(f"compute_dtype={kwargs['compute_dtype']!r}", "fp16")
     if kind == "fused":

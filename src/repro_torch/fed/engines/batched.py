@@ -8,6 +8,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.channel import BatchedChannelState, ChannelState
 from repro_torch.core.topk import topk_mask_batch
@@ -34,7 +35,12 @@ class _FleetEngine:
     cohort's rows and commits the advanced rows back), the cohort's budgets,
     upload manifests and private batches.  The engine owns the client
     parameters from construction on: read them back through
-    :meth:`client_params`.  Each engine builds the step functions it runs."""
+    :meth:`client_params`.  Each engine builds the step functions it runs.
+
+    ``shard_clients`` (the fused engines) places the cohort over the ranks
+    of the default process group (:func:`repro_torch.sharding.cohort_mesh`):
+    each rank fetches and computes its block of the cohort, and every rank
+    commits the whole gathered cohort, so every rank holds the same fleet."""
 
     def __init__(
         self,
@@ -47,6 +53,7 @@ class _FleetEngine:
         last_only: bool,
         quantize_wire: bool,
         fleet_store="device",
+        shard_clients: bool = False,
     ):
         self.clients = clients
         self.cfg = cfg
@@ -63,6 +70,8 @@ class _FleetEngine:
         del loras, frozens
         for c in clients:  # the store owns the fleet state from here on
             c.params = c.opt = None
+        self.shard_clients = shard_clients
+        self._mesh = sharding.cohort_mesh(self.device) if shard_clients else None
 
     @property
     def device(self) -> torch.device:
@@ -75,8 +84,44 @@ class _FleetEngine:
     def prefetch_cohort(self, sel: Sequence[int]) -> None:
         """Hint the NEXT round's cohort: a host store starts staging it onto
         the device now, under the current round's compute (a no-op on the
-        device store)."""
+        device store).  Under ``shard_clients`` it stages exactly the rows
+        this rank will fetch, its block of the padded cohort, or the hint
+        misses."""
+        sel = list(sel)
+        if sel:
+            sel, _ = self._pad_cohort(self._cohort_shard(len(sel)), sel, {})
         self._store.prefetch(sel)
+
+    # -- shard_clients: the cohort over the ranks ---------------------------
+    def _cohort_shard(self, n: int) -> sharding.CohortShard | None:
+        """This rank's share of a cohort of ``n``; ``None`` unsharded."""
+        return None if self._mesh is None else sharding.CohortShard.of(self._mesh, n)
+
+    def _pad_cohort(self, shard: sharding.CohortShard | None, sel: Sequence[int], batches: dict):
+        """The masked ``k = 0`` padding contract, in one place (the fused
+        round, the e2e round and the e2e block): a cohort that does not
+        divide the world size is extended with duplicate rows of ``sel[0]``
+        that ride at ``k = 0``.  Their batches are copies, so ``sel[0]``'s
+        rng stream advances once, and the gather drops their rows
+        (:meth:`repro_torch.sharding.CohortShard.gather`) before anything
+        reads them.  Returns this rank's block of the padded cohort's ids
+        and of its batches; ``(sel, batches)`` unsharded."""
+        if shard is None:
+            return list(sel), batches
+        return (shard.block(shard.padded(list(sel))),
+                {k: shard.block(shard.padded(v)) for k, v in batches.items()})
+
+    def _fetch_cohort(self, sel: Sequence[int], batches: dict):
+        """``(shard, idx, lora, frozen, opt, batches)``: the rows this rank
+        computes, fetched from the store, and ``idx``, the ids the round
+        commits: the cohort's, which under ``shard_clients`` are the whole
+        real cohort's (the gathered rows), not this rank's block."""
+        shard = self._cohort_shard(len(sel))
+        block, batches = self._pad_cohort(shard, sel, batches)
+        idx, lora, frozen, opt = self._store.fetch(block)
+        if shard is not None:
+            idx = torch.as_tensor(list(sel), device=self.device)
+        return shard, idx, lora, frozen, opt, batches
 
     def client_params(self, cid: int) -> dict:
         """One client's merged parameters (for evaluation)."""

@@ -14,6 +14,11 @@ device), then :meth:`FusedE2EEngine.run_block` runs the R round bodies
 back to back, from the first launch to the end of the last round with no
 call that waits for the device; the per-round taps are copied to the host
 once, after the block.
+
+``shard_clients=True`` runs each round's client phase on this rank's block
+of the padded cohort, gathers the block's state, wire and projections on
+every rank (:mod:`repro_torch.sharding`) and runs the server phase,
+replicated, on the real cohort, in ``run_round`` and in the block alike.
 """
 
 from __future__ import annotations
@@ -51,7 +56,11 @@ class StagedRounds:
     payloads: list[list[UplinkPayload]]  # per round, the transmitters' manifests
     k_cap: int  # one wire width for the whole block
     send_h: bool
+    sels: list[list[int]]  # per round, the cohort's client ids
     idx: list[torch.Tensor]  # per round, the cohort's fleet rows, (C,) int64
+    # per round, the rows this rank fetches and computes: ``idx`` unsharded,
+    # its block of the padded cohort under ``shard``
+    fetch_idx: list[torch.Tensor]
     ks_dev: torch.Tensor  # (R, C) int32, the budgets as data
     pubs: list[torch.Tensor]  # per round, the public batch (P, L)
     batches: list[dict]  # per round, {tokens (C, S, B, L), labels (C, S, B)}
@@ -59,6 +68,7 @@ class StagedRounds:
     eval_labels: torch.Tensor | None = None
     # a channel scenario's operands on the device (``_channel_scan_ops``)
     chan: tuple | None = None
+    shard: object = None  # the block's CohortShard (shard_clients), else None
 
 
 class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
@@ -86,6 +96,7 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         value_bits: int = 16,
         k_min: int = 1,
         last_only: bool = True,
+        shard_clients: bool = False,
         use_kernels: bool = False,
         quantize_wire: bool = False,
         compute_dtype: str = "float32",
@@ -93,7 +104,7 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
     ):
         super().__init__(clients, cfg, local_steps=local_steps, value_bits=value_bits,
                          k_min=k_min, last_only=last_only, quantize_wire=quantize_wire,
-                         fleet_store=fleet_store)
+                         fleet_store=fleet_store, shard_clients=shard_clients)
         self._fn_kwargs = dict(
             lr=lr, distill_lr=distill_lr, temperature=temperature, lam=lam,
             restrict_to_support=restrict_to_support, local_steps=local_steps,
@@ -118,7 +129,7 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         cohort = [self.clients[i] for i in sel]
         states = list(states)
         batches = self._stacked_batches(cohort, step_major=False)  # (C, S, ...)
-        idx, lora, frozen, opt = self._store.fetch(sel)
+        shard, idx, lora, frozen, opt, batches = self._fetch_cohort(sel, batches)
         n_samples = int(pub_tokens.shape[0])
         ks = self._budgets(states, n_samples, adaptive_k, len(cohort), send_h)
         k_cap = k_cap_bucket(ks, self.cfg.vocab_size)
@@ -133,7 +144,7 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         )
         (lora, opt, self._s_lora, self._s_opt, wire, b_logits, b_h, self._d_loss) = fn(
             lora, frozen, opt, self._s_lora, self._s_frozen, self._s_opt,
-            g_tokens, g_logits, g_h, g_valid, batches, pub_tokens, ks,
+            g_tokens, g_logits, g_h, g_valid, batches, pub_tokens, ks, shard=shard,
         )
         self._b_tokens, self._b_logits, self._b_h = pub_tokens, b_logits, b_h
 
@@ -226,8 +237,9 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
                 )
             eval_tokens = torch.as_tensor(eval_tokens[:seen], device=self.device)
             eval_labels = torch.as_tensor(eval_labels[:seen], device=self.device)
-        all_ks, all_payloads, batches = [], [], []
+        all_ks, all_payloads, batches, blocks = [], [], [], []
         n_samples = int(pubs[0].shape[0]) if sels else 0
+        shard = self._cohort_shard(n_cohort) if sels else None
         for sel, states in zip(sels, states_per_round):
             cohort = [self.clients[i] for i in sel]
             states = list(states)
@@ -236,17 +248,24 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
                                                               send_h)
             all_ks.append(ks)
             all_payloads.append(payloads)
-            batches.append(self._stacked_batches(cohort, step_major=False))
+            block, batch = self._pad_cohort(shard, sel,
+                                            self._stacked_batches(cohort, step_major=False))
+            blocks.append(block)
+            batches.append(batch)
+        idx = [torch.as_tensor(sel, device=self.device) for sel in sels]
         return StagedRounds(
             ks=all_ks, payloads=all_payloads,
             k_cap=k_cap_bucket([k for ks in all_ks for k in ks], self.cfg.vocab_size),
-            send_h=send_h, idx=[torch.as_tensor(sel, device=self.device) for sel in sels],
+            send_h=send_h, sels=sels, idx=idx,
+            fetch_idx=idx if shard is None else [torch.as_tensor(b, device=self.device)
+                                                 for b in blocks],
             ks_dev=torch.as_tensor(all_ks, dtype=torch.int32, device=self.device).reshape(
                 len(sels), n_cohort),
             pubs=[torch.as_tensor(p, device=self.device) for p in pubs[:len(sels)]],
             batches=batches, eval_tokens=eval_tokens, eval_labels=eval_labels,
             chan=(None if channel_scan is None or not sels
                   else _channel_scan_ops(channel_scan, len(sels), self.device)),
+            shard=shard,
         )
 
     def _require_device_store(self) -> None:
@@ -296,20 +315,24 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
             ch_z, ch_bad, ch_w, ch_u, ch_base, rho, p_gb, p_bg, fade = staged.chan
             taps.update(snr_db=[], outage=[])
         for r in range(rounds):
-            idx, lora, frozen, opt = self._store.fetch(staged.idx[r])
+            idx = staged.idx[r]
+            _, lora, frozen, opt = self._store.fetch(staged.fetch_idx[r])
             (lora, opt, self._s_lora, self._s_opt, _wire, b_logits, b_h, d_loss) = fn(
                 lora, frozen, opt, self._s_lora, self._s_frozen, self._s_opt,
                 g_tokens, g_logits, g_h, g_valid, staged.batches[r], staged.pubs[r],
-                staged.ks[r], staged.ks_dev[r],
+                staged.ks[r], staged.ks_dev[r], shard=staged.shard,
             )
             taps["distill_loss"].append(d_loss.float())
             if has_eval:
                 taps["server_acc"].append(server_eval(
                     {k: v[0] for k, v in self._s_lora.items()}, self._s_frozen,
                     staged.eval_tokens, staged.eval_labels))
+                # the first client's backbone from the store: under shard_clients
+                # this rank's block need not hold it
+                first_frozen = (frozen if self._shared
+                                else self._store.client_row(staged.sels[r][0])[1])
                 taps["client_acc"].append(client_eval(
-                    {k: v[0] for k, v in lora.items()},
-                    frozen if self._shared else {k: v[0] for k, v in frozen.items()},
+                    {k: v[0] for k, v in lora.items()}, first_frozen,
                     staged.eval_tokens, staged.eval_labels))
             self._store.commit(idx, lora, opt)
             if staged.chan is not None:  # the fleet's channel advances one round

@@ -24,7 +24,10 @@ class FusedEngine(_FleetEngine):
     CUDA kernel with ``use_kernels=True``, its plain version otherwise.  A
     ``k = 0`` straggler's row is zeroed by the sparsifier and dropped on the
     host; byte accounting uses the host-side k, so the ledger is identical
-    to the other engines'."""
+    to the other engines'.  ``shard_clients=True`` runs the client phase on
+    each rank's block of the cohort and gathers it
+    (:mod:`repro_torch.sharding`); the dense uplink leaves the round
+    whole, on every rank."""
 
     name = "fused"
 
@@ -44,6 +47,7 @@ class FusedEngine(_FleetEngine):
         value_bits: int = 16,
         k_min: int = 1,
         last_only: bool = True,
+        shard_clients: bool = False,
         use_kernels: bool = False,
         quantize_wire: bool = False,
         compute_dtype: str = "float32",
@@ -51,7 +55,7 @@ class FusedEngine(_FleetEngine):
     ):
         super().__init__(clients, cfg, local_steps=local_steps, value_bits=value_bits,
                          k_min=k_min, last_only=last_only, quantize_wire=quantize_wire,
-                         fleet_store=fleet_store)
+                         fleet_store=fleet_store, shard_clients=shard_clients)
 
         def fused(n_distill: int):
             return fed_steps.make_fused_round_fn(
@@ -78,7 +82,7 @@ class FusedEngine(_FleetEngine):
         cohort = [self.clients[i] for i in sel]
         states = list(states)
         batches = self._stacked_batches(cohort, step_major=False)  # (C, S, ...)
-        idx, lora, frozen, opt = self._store.fetch(sel)
+        shard, idx, lora, frozen, opt, batches = self._fetch_cohort(sel, batches)
         n_samples = int(pub_tokens.shape[0])
         ks = self._budgets(states, n_samples, adaptive_k, len(cohort), send_h)
 
@@ -87,7 +91,7 @@ class FusedEngine(_FleetEngine):
         else:  # the g_* operands are unused by the cold round
             step, g_tokens, g_logits, g_h = self._fused_cold, pub_tokens, None, None
         lora, opt, dense_all, h_all = step(
-            lora, frozen, opt, g_tokens, g_logits, g_h, batches, pub_tokens, ks
+            lora, frozen, opt, g_tokens, g_logits, g_h, batches, pub_tokens, ks, shard=shard
         )
 
         active, payloads, rank = self._upload_manifests(cohort, states, ks, n_samples, send_h)

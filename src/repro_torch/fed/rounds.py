@@ -30,6 +30,13 @@ one, JAX-written or not, under either store.  ``fleet_store="host"`` keeps
 the fleet in host memory and stages each cohort onto the device, round
 r+1's under round r; ``scan_rounds`` then runs the per-round loop.
 
+``shard_clients`` (``fused``, ``fused_e2e``) splits each round's client
+phase over the ranks of the default process group
+(:mod:`repro_torch.sharding`); every rank runs the whole loop and holds the
+same state.  Under a group of more than one rank, rank 0 alone prints and
+writes checkpoints, and every rank waits for the write; every rank reads
+on resume.
+
 What the port does not carry yet raises ``NotImplementedError`` naming its
 entry in ROADMAP.md's port queue.
 """
@@ -43,7 +50,9 @@ from typing import Literal
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import sharding
 from repro_torch.checkpoint import ckpt as ckpt_io
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.channel import ChannelConfig, ChannelSimulator
@@ -199,8 +208,12 @@ def run_federated(
     rounds, the device state is restored, and channels and faults replay
     from their (seed, round, cid) keys, so the resumed ``FedRun`` is the
     uninterrupted run's.  With no checkpoint in ``ckpt_dir`` it starts
-    from round 0."""
+    from round 0.  Under a process group of more than one rank (each rank
+    calls this with the same arguments), rank 0 alone prints and writes."""
     _check_carried(client_cfg)
+    ranks = sharding.world_size()
+    lead = sharding.rank() == 0
+    verbose = verbose and lead
     preset = METHODS[fed.method]
     rng = np.random.default_rng(fed.seed)
 
@@ -441,6 +454,12 @@ def run_federated(
         return tree
 
     def save_ckpt(step: int) -> None:
+        if lead:
+            write_ckpt(step)
+        if ranks > 1:  # no rank reads on before the step is whole
+            dist.barrier()
+
+    def write_ckpt(step: int) -> None:
         meta = dict(
             config=_config_fingerprint(fed), server_acc=run.server_acc,
             client_acc=run.client_acc, mean_k=run.mean_k, per_client_k=run.per_client_k,

@@ -339,7 +339,7 @@ def make_fused_round_fn(
 
     fn(lora (C,...), frozen, opt (C,...), g_tokens (P,L), g_logits (P,V),
        g_h (P,r)|None, batches {tokens (C,S,B,L), labels (C,S,B)},
-       pub_tokens (P,L), ks [C ints])
+       pub_tokens (P,L), ks [C ints], shard=None)
     -> (lora, opt, dense (C,P,V), h (C,P,r)|None)
 
     ``distill_steps`` distillation updates, ``local_steps``
@@ -349,7 +349,14 @@ def make_fused_round_fn(
     ``use_kernels``, else :func:`repro_torch.core.topk.topk_mask_dynamic` —
     the same threshold (ties-kept) semantics.  ``distill_steps=0`` builds
     the cold round (no broadcast exists yet; the g_* operands are unused).
-    ``compute_dtype`` is the round body's (see the module docstring)."""
+    ``compute_dtype`` is the round body's (see the module docstring).
+
+    ``shard`` (a :class:`repro_torch.sharding.CohortShard`, ``None`` for
+    the unsharded call) runs the phase on this rank's block of the padded
+    cohort: ``lora``, ``frozen`` (per-client backbones), ``opt`` and
+    ``batches`` are the block's rows, ``ks`` the real cohort's budgets (a
+    pad row's is 0).  The block's outputs are then gathered, the pad rows
+    dropped, and the function returns the real cohort's, as unsharded."""
     client_round = _client_round_core(
         cfg, num_classes, lr=lr, weight_decay=weight_decay, distill_lr=distill_lr,
         temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
@@ -357,12 +364,15 @@ def make_fused_round_fn(
         compute_dtype=compute_dtype,
     )
 
-    def fn(lora, frozen, opt, g_tokens, g_logits, g_h, batches, pub_tokens, ks):
+    def fn(lora, frozen, opt, g_tokens, g_logits, g_h, batches, pub_tokens, ks, shard=None):
         lora, opt, last, h = client_round(
             lora, frozen, opt, g_tokens, (g_logits, g_h), True, batches, pub_tokens
         )
         # -- line 10: adaptive top-k over the (C·P, V) rows, one budget per client --
-        kk = torch.as_tensor(ks, dtype=torch.int32, device=last.device)[:, None]
+        kk = torch.as_tensor(ks, dtype=torch.int32, device=last.device)
+        if shard is not None:
+            kk = shard.block_ks(kk)
+        kk = kk[:, None]
         if use_kernels:
             from repro_torch.kernels import ops as kops
 
@@ -370,6 +380,8 @@ def make_fused_round_fn(
             dense = kops.topk_mask_dynamic(last.contiguous(), rows_k)
         else:
             dense = topk_mask_dynamic(last, kk)
+        if shard is not None:  # the reference's shard_map ends here
+            lora, opt, dense, h = shard.gather((lora, opt, dense, h))
         return lora, opt, dense, h
 
     return fn
@@ -463,7 +475,7 @@ def make_fused_e2e_round_fn(
     fn(lora (C,...), frozen, opt, s_lora, s_frozen, s_opt,
        g_tokens (P,L), g_logits (P,V), g_h (P,r)|None, g_valid bool,
        batches {tokens (C,S,B,L), labels (C,S,B)}, pub_tokens (P,L), ks [C ints],
-       ks_dev=None)
+       ks_dev=None, shard=None)
     -> (lora, opt, s_lora, s_opt, wire (C,P,k_cap), b_logits (P,V),
         b_h (P,r)|None, d_loss)
 
@@ -471,7 +483,16 @@ def make_fused_e2e_round_fn(
     ``k_cap`` (int8 with ``quantize``) and is aggregated straight from it.
     ``ks_dev`` is ``ks`` as an int32 device tensor, made here when None: a
     multi-round block stages it before its first launch.
-    ``compute_dtype`` is the round body's (see the module docstring)."""
+    ``compute_dtype`` is the round body's (see the module docstring).
+
+    ``shard`` (a :class:`repro_torch.sharding.CohortShard`, ``None`` for
+    the unsharded call) runs the client phase on this rank's block of the
+    padded cohort, as :func:`make_fused_round_fn` does; ``ks`` and
+    ``ks_dev`` stay the real cohort's.  The block's LoRA and optimizer
+    state, wire and projections are gathered and the pad rows dropped, so
+    the server phase, replicated on every rank, reads exactly the
+    unsharded round's operands, and the function returns what the
+    unsharded call returns."""
     client_round = _client_round_core(
         client_cfg, num_classes, lr=lr, weight_decay=weight_decay, distill_lr=distill_lr,
         temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
@@ -488,14 +509,18 @@ def make_fused_e2e_round_fn(
     )
 
     def fn(lora, frozen, opt, s_lora, s_frozen, s_opt, g_tokens, g_logits, g_h, g_valid,
-           batches, pub_tokens, ks, ks_dev=None):
+           batches, pub_tokens, ks, ks_dev=None, shard=None):
         if ks_dev is None:
             ks_dev = torch.as_tensor(ks, dtype=torch.int32, device=pub_tokens.device)
         t_cache = teacher_cache(g_logits, g_h) if g_valid else None
         lora, opt, last, h = client_round(
             lora, frozen, opt, g_tokens, t_cache, g_valid, batches, pub_tokens
         )
-        wire = sparsify_wire(last, ks_dev, k_cap, quantize=quantize)
+        if shard is None:
+            wire = sparsify_wire(last, ks_dev, k_cap, quantize=quantize)
+        else:  # the block's wire; the reference's shard_map ends here
+            wire = sparsify_wire(last, shard.block_ks(ks_dev), k_cap, quantize=quantize)
+            lora, opt, wire, h = shard.gather((lora, opt, wire, h))
         s_lora, s_opt, b_last, b_h, d_loss = server_phase(
             s_lora, s_frozen, s_opt, wire, h, ks, pub_tokens, ks_dev
         )

@@ -8,9 +8,16 @@ Reduced-scale GPT-2-family models on the synthetic Banking77-statistics
 dataset; writes a JSON history (``{out}/{method}_seed{seed}.json``).
 ``--fleet-store host --fleet-size N`` keeps the fleet in host memory and
 streams each round's cohort to the device, so device memory stays
-O(cohort).  ``--families`` and ``--shard-clients`` are refused: ROADMAP.md
-port queue, "other model families and mixed fleets" and "launchers and
-scale-out".
+O(cohort).  ``--shard-clients`` splits each round's client phase over the
+ranks of a process group, one process per device::
+
+  python -m torch.distributed.run --nproc-per-node N \
+      -m repro_torch.launch.fed_train --shard-clients --engine fused_e2e ...
+
+Each rank takes ``cuda:{LOCAL_RANK}`` (NCCL; gloo with ``--device cpu``),
+and rank 0 writes the JSON; started without ``torch.distributed.run`` it
+runs on one rank.  ``--families`` is refused: ROADMAP.md port queue,
+"other model families and mixed fleets".
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ import dataclasses
 import json
 import math
 import os
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.gpt2_paper import REDUCED_CLIENT, REDUCED_SERVER
 from repro_torch.data import make_banking77_like
@@ -39,7 +49,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--full-head", action="store_true",
                     help="materialise full (B,T,V) logits instead of the last-only LM head")
     ap.add_argument("--shard-clients", action="store_true",
-                    help="place the client axis over devices (not carried by the port yet)")
+                    help="fused/fused_e2e: split each round's client phase over the ranks of "
+                         "the process group (one process per device, under "
+                         "torch.distributed.run; one rank without it)")
     ap.add_argument("--scan-rounds", action="store_true",
                     help="fused_e2e only: run ALL rounds as one block with the per-round "
                          "eval tapped inside it")
@@ -123,14 +135,29 @@ def main(argv=None) -> int:
         ap.error("--resume requires --ckpt-dir")
     if args.families:
         raise not_carried("--families", "other model families and mixed fleets")
-    if args.shard_clients:
-        raise not_carried("--shard-clients", "launchers and scale-out")
+    device, own_group = args.device, False
+    if args.shard_clients and "LOCAL_RANK" in os.environ and not dist.is_initialized():
+        # one process per device, started by torch.distributed.run
+        if device != "cpu":
+            device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
+            torch.cuda.set_device(device)
+        dist.init_process_group("gloo" if device == "cpu" else "nccl")
+        own_group = True
+    try:
+        return _run(args, device)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
 
+
+def _run(args: argparse.Namespace, device: str) -> int:
     seq_len = 24
     ds = make_banking77_like(vocab_size=REDUCED_CLIENT.vocab_size, seq_len=seq_len, seed=args.seed)
     fed = fed_config(args)
     run = run_federated(REDUCED_CLIENT, REDUCED_SERVER, ds, fed, verbose=True,
-                        ckpt_dir=args.ckpt_dir, resume=args.resume, device=args.device)
+                        ckpt_dir=args.ckpt_dir, resume=args.resume, device=device)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return 0  # rank 0 writes the record
 
     os.makedirs(args.out, exist_ok=True)
     rec = {

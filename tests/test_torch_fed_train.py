@@ -4,14 +4,16 @@
   and hand ``run_federated`` the same models and checkpoint arguments; each
   module's ``run_federated`` is stubbed to capture them.  The port's JSON
   record has the reference's keys, and the same ``fed`` entry.
-* ``--families`` and ``--shard-clients`` raise naming their ROADMAP.md port
-  queue items; ``--resume`` without ``--ckpt-dir`` is a usage error in both.
+* ``--families`` raises naming its ROADMAP.md port queue item; ``--resume``
+  without ``--ckpt-dir`` is a usage error in both.
 * End to end on the CPU (the CLI's models shrunk to the tests' tiny
   configs): a host-store run of 2 rounds with ``--ckpt-dir`` leaves the
   fleet in shards beside the step, a device-store run resumes it to 3
   rounds, and its record equals a fresh device-store run's, round by round
   (mean k, uplink and downlink MB, accuracies, distill loss): the resume is
   exact, as within one package it is everywhere else.
+* ``--shard-clients`` started without ``torch.distributed.run`` (one rank)
+  writes the record of the same run without it, exactly.
 * The CLI's adapters (``REDUCED_LORA``: q, v, o and the head; no attention
   layer reads the o adapter, in either package) train as in the reference:
   its gradient is zero there, where the port's raised before.
@@ -100,7 +102,6 @@ def test_the_device_defaults_to_the_card(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--families", "gpt2-paper,mamba2-130m"], "other model families and mixed fleets"),
-    (["--shard-clients", "--engine", "fused"], "launchers and scale-out"),
 ])
 def test_what_the_cli_does_not_carry_raises(flag, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md port queue: {item}"):
@@ -138,17 +139,22 @@ def cli_runs(tmp_path_factory):
         eval_size=64, local_steps=1, distill_steps=1, server_distill_steps=2))
     root = tmp_path_factory.mktemp("cli")
     ckpt, out = str(root / "ckpt"), {}
+    had_group = torch.distributed.is_initialized()
     try:
         for name, extra in (
             ("host", ["--fleet-store", "host", "--rounds", "2", "--ckpt-dir", ckpt]),
             ("resumed", ["--fleet-store", "device", "--rounds", "3", "--ckpt-dir", ckpt,
                          "--resume"]),
             ("fresh", ["--fleet-store", "device", "--rounds", "3"]),
+            # started without torch.distributed.run: a group of one rank
+            ("sharded", ["--fleet-store", "device", "--rounds", "3", "--shard-clients"]),
         ):
             assert t_cli.main(COMMON + extra + ["--out", str(root / name)]) == 0
             out[name] = _record(str(root / name))
     finally:
         mp.undo()
+        if torch.distributed.is_initialized() and not had_group:
+            torch.distributed.destroy_process_group()  # the sharded run's one-rank group
     out["ckpt"] = ckpt
     return out
 
@@ -173,6 +179,16 @@ def test_a_cross_store_resume_is_the_fresh_run(cli_runs):
     assert all(x is not None and math.isfinite(x) for x in fresh["distill_loss"])
     assert resumed["summary"] == fresh["summary"]
     assert np.isfinite(fresh["summary"]["total_mb"]) and fresh["summary"]["rounds"] == 3.0
+
+
+def test_shard_clients_on_one_rank_is_the_unsharded_run(cli_runs):
+    """``--shard-clients`` at world size 1: the cohort is one rank's block
+    and the gather a copy, so the record is the unsharded run's exactly."""
+    sharded, fresh = cli_runs["sharded"], cli_runs["fresh"]
+    assert sharded["fed"]["shard_clients"] is True and fresh["fed"]["shard_clients"] is False
+    for key in ("mean_k", "uplink_mb_per_round", "downlink_mb_per_round", "server_acc",
+                "client_acc", "distill_loss"):
+        assert sharded[key] == fresh[key], key
 
 
 # -- the CLI's adapters against the reference ---------------------------------------------------

@@ -271,6 +271,36 @@ def test_batched_engine_drops_the_options_it_does_not_take(plain_batched_run, op
     assert (other.server_acc, other.client_acc) == (plain.server_acc, plain.client_acc)
 
 
+def test_sequential_engine_drops_shard_clients():
+    """As the reference's ``make_engine`` does, the sequential engine drops
+    ``shard_clients`` (the batched engine's case is above): both packages
+    build their plain sequential engine, and the port's run is the plain
+    sequential run, bit for bit."""
+    j_ds = j_dataset(vocab_size=256, seq_len=12, total=500, seed=0)
+    j_clients = [JClient(i, J_CLIENT, j_ds.subset(np.arange(i * 60, (i + 1) * 60)),
+                         num_classes=j_ds.num_classes, seed=i) for i in range(2)]
+    j_eng = j_rounds.make_engine("sequential", j_clients, J_CLIENT, shard_clients=True,
+                                 num_classes=j_ds.num_classes)
+    ds = t_dataset(vocab_size=256, seq_len=12, total=500, seed=0)
+    fed = dict(_fed_kwargs("batched_float_wire"), channel=TChannel(**_CHAN), engine="sequential",
+               rounds=1)
+    built = []
+    mp = pytest.MonkeyPatch()
+    mp.setattr(t_rounds, "make_engine", _capture(t_rounds, "make_engine", built))
+    try:
+        runs = [t_rounds.run_federated(T_CLIENT, T_SERVER, ds, TFed(**fed, shard_clients=shard),
+                                       device="cpu") for shard in (False, True)]
+    finally:
+        mp.undo()
+    assert type(j_eng).__name__ == type(built[1]).__name__ == "SequentialEngine"
+    assert not hasattr(built[1], "shard_clients")
+    plain, other = runs
+    assert other.per_client_k == plain.per_client_k
+    assert (other.server_acc, other.client_acc) == (plain.server_acc, plain.client_acc)
+    for o, p in zip(other.ledger.rounds, plain.ledger.rounds):
+        assert (o.uplink_bytes, o.downlink_bytes) == (p.uplink_bytes, p.downlink_bytes)
+
+
 def _fused_engines(seed=0, n=3):
     """``tests/test_engine.py``'s ``_mini_cohort`` in both packages: clients
     with 60 private samples each on the tiny client config, the port's
@@ -330,12 +360,8 @@ _QUEUE = "ROADMAP.md port queue: "
 
 
 @pytest.mark.parametrize("change,match", [
-    pytest.param(dict(engine="fused", shard_clients=True), _QUEUE + "launchers and scale-out",
-                 id="fused-shard_clients"),
     # the id is kept from the bf16 refusal that this case held before bf16 ran
     pytest.param(dict(compute_dtype="float16"), _QUEUE + "fp16", id="bf16-compute"),
-    pytest.param(dict(shard_clients=True), _QUEUE + "launchers and scale-out",
-                 id="fused_e2e-shard_clients"),
     # the reference's own refusal, kept by the port's sequential engine
     pytest.param(dict(engine="sequential", fleet_store="host"),
                  "fleet_store='host' is not supported by the sequential reference engine",
