@@ -210,6 +210,29 @@ Phases (any failure raises and exits non-zero):
    held against the chunked attention and the plain version (and a q that
    requires grad must raise); then that q/k/v rounded to bf16 through the
    bf16 kernel.
+6f. model families and mixed fleets (after serving, whose single timed
+   prefill it would otherwise follow onto a freshly emptied allocator) —
+   (a) a fleet of GPT-2 small and granite-moe-1b-a400m clients (its
+   published widths: 24 layers, d 1024, GQA 16/8, RoPE, RMSNorm, SwiGLU, 32
+   experts top-8; re-based onto the GPT-2 vocabulary and GPT-2 small's
+   LoRA, fp32) x8, cohort 4, 2 rounds,
+   one pretraining step a family (one backbone each) and a 12-layer GPT-2
+   large server, through ``fused_e2e`` (float and int8 union wire),
+   ``fused``, ``batched`` and ``sequential``: the four float runs identical
+   on per-client k, uplink and downlink bytes and transmitters, accuracies
+   within 4 of 128 eval samples of the sequential run's (``FAMILY_ACC_TOL``:
+   the engines sum in other orders on the card), the int8 wire's k at
+   least the float wire's with the same transmitters; each run's round
+   seconds, peak memory and cohorts by family printed, its launches held
+   exactly (kernel 1 or 2 once a round, kernel 3 once a bucket a round,
+   kernel 4 once a round).  (b) Each dense and MoE smoke config: forward,
+   prefill, and 8 decode steps within 2e-3 of the forward (MoE at capacity
+   factor 8), and a sliding-window decode of 16 steps through a ring of 6
+   slots; then granite at full width: the (8, 1024) prefill and a decode
+   step at batch 8 timed, one step run with every synchronising call an
+   error.  (c) A union wire of two buckets at k_cap 128 and 1024
+   (``concat_wires``) through kernels 1 and 2, ``torch.equal`` to their
+   plain versions and to the unpadded wide wire.
 7. timing — each kernel's C entry point, its wrapper, its plain version and
    one PyTorch library call where one computes the same function, at the
    main path's shapes, beside the least time the card could take (for
@@ -237,8 +260,8 @@ Phases (any failure raises and exits non-zero):
 The last lines are the card and its power limit, the kernels record and the
 device record (JSON).  In the kernels record ``launches`` is each kernel's
 count summed over the eight main-path runs, the pretrained path's four,
-phase 5c's runs and validated wires, phase 5d's runs and phase 5e's
-(its children's included),
+phase 5c's runs and validated wires, phase 5d's runs, phase 5e's
+(its children's included) and phase 6f's five,
 ``pct_of_bound`` its bound over its time; the static top-k's, the KL's and the attention's rows (fp32 and
 bf16) add ``entry_launches``, their counts through their public entry
 points.
@@ -272,14 +295,15 @@ import torch.multiprocessing as torch_mp
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.checkpoint import ckpt as ckpt_io  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.base import LoRAConfig  # noqa: E402
 from repro_torch.configs.gpt2_paper import GPT2_LARGE, GPT2_SMALL, REDUCED_CLIENT, REDUCED_SERVER  # noqa: E402
-from repro_torch.core.aggregation import AggregationMode  # noqa: E402
+from repro_torch.core.aggregation import AggregationMode, aggregate_wire  # noqa: E402
 from repro_torch.core.channel import ChannelConfig, ChannelSimulator  # noqa: E402
 from repro_torch.core.distill import total_distill_loss  # noqa: E402
 from repro_torch.core.faults import FaultSimulator, corrupt_wire  # noqa: E402
 from repro_torch.core.scenario import get_scenario  # noqa: E402
-from repro_torch.core.topk import quantize_wire, sparsify_wire, topk_mask_dense  # noqa: E402
+from repro_torch.core.topk import concat_wires, quantize_wire, sparsify_wire, topk_mask_dense  # noqa: E402
 from repro_torch.data import make_banking77_like  # noqa: E402
 from repro_torch.fed import BatchedEngine, FedConfig, FusedE2EEngine, Server  # noqa: E402
 from repro_torch.fed import pretrain as fed_pretrain  # noqa: E402
@@ -2464,6 +2488,243 @@ def tenant_rows(lora: dict, n: int, seed: int, device) -> list[dict]:
     return rows
 
 
+# -- phase 6f: the dense and MoE families, mixed fleets ---------------------------
+
+# granite-moe-1b-a400m at its published widths, re-based as fed_train's
+# family_configs re-bases a family (the GPT-2 exchange vocabulary, GPT-2
+# small's LoRA), in the main path's fp32
+GRANITE = get_config("granite-moe-1b-a400m").with_overrides(
+    name="fam-granite-moe-1b-a400m", vocab_size=GPT2_SMALL.vocab_size, lora=GPT2_SMALL.lora,
+    param_dtype="float32", compute_dtype="float32", remat=False)
+FAMILY_RUNS = (("fused_e2e", False), ("fused_e2e", True), ("fused", False), ("batched", False),
+               ("sequential", False))
+FAMILY_ARCHS = ("stablelm-1.6b", "llama4-scout-17b-a16e", "yi-9b", "moonshot-v1-16b-a3b",
+                "command-r-35b", "granite-moe-1b-a400m")
+FAMILY_ACC_TOL = 4 / 128  # four eval samples of 128: see phase_families
+DECODE_TOL = 2e-3  # the reference's decode-vs-forward bound (tests/test_models_smoke.py)
+
+
+def family_cohorts(into: dict):
+    """A wrapper for ``ChannelSimulator.states_batched`` that keeps each
+    round's cohort, ``into[round] = sel``."""
+    def wrap(states_batched):
+        def call(self, rnd, sel):
+            into[int(rnd)] = [int(i) for i in sel]
+            return states_batched(self, rnd, sel)
+
+        return call
+
+    return wrap
+
+
+def family_runs(device, cfgs, card: str = "") -> dict:
+    """(a): the mixed fleet through the five engines; returns their launches
+    and a granite client's merged parameters (for (b)).  ``card`` (the
+    card's name and power limit) follows each line with a time."""
+    families, server_cfg, ds = cfgs
+    on_card = torch.device(device).type == "cuda"
+    out, launches = {}, {}
+    for engine, quantize in FAMILY_RUNS:
+        fed = main_fed(engine, quantize, pretrain_steps=1, server_pretrain="none")
+        tag = f"{engine}/{'int8' if quantize else 'float'}"
+        cohorts: dict = {}
+        sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ops.reset_launches()  # this run's launches only, from here
+        run, eng, srv = _drive(families, server_cfg, ds, fed, device,
+                               {(ChannelSimulator, "states_batched"): family_cohorts(cohorts)})
+        sync(device)
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+        make_up = [[sum(1 for i in cohorts[r] if i % len(families) == fi)
+                    for fi in range(len(families))] for r in range(fed.rounds)]
+        log(f"[families {tag}] {' + '.join(f.name for f in families)} clients "
+            f"x{fed.num_clients} (cohort {fed.clients_per_round}), server {server_cfg.name} "
+            f"{server_cfg.num_layers} layers, {fed.rounds} rounds in "
+            f"{time.perf_counter() - t0:.1f} s (setup included), "
+            f"round_seconds={[round(x, 3) for x in run.round_seconds]}, "
+            f"max_memory_allocated={peak:.2f} GiB ({card})")
+        log(f"[families {tag}] cohorts {[cohorts[r] for r in range(fed.rounds)]}, clients of each "
+            f"family a round {make_up}; per_client_k={run.per_client_k}")
+        log(f"[families {tag}] uplink_bytes={[r.uplink_bytes for r in run.ledger.rounds]} "
+            f"server_acc={run.server_acc} client_acc={run.client_acc} "
+            f"distill_loss={run.distill_loss}; kernel launches {got}")
+        # the families bucket as they should: granite at its published widths
+        if engine != "sequential":
+            assert [b.cfg for b in eng.buckets] == list(families), [b.cfg.name for b in eng.buckets]
+        assert all(math.isfinite(x) for x in run.server_acc + run.client_acc)
+        if engine == "fused_e2e":
+            assert all(math.isfinite(x) for x in run.distill_loss)
+        b = final_broadcast(eng, srv, torch.as_tensor(ds.tokens[:fed.public_batch], device=device))
+        assert tuple(b.shape) == (fed.public_batch, server_cfg.vocab_size)
+        assert bool(torch.isfinite(b).all())
+        if on_card:  # each bucket's call is a launch of the per-row top-k on `fused`
+            buckets = sum(len({i % len(families) for i in cohorts[r]}) for r in range(fed.rounds))
+            tx = sum(1 for r in run.ledger.rounds if r.num_transmitters > 0)
+            want = {"scatter_wire_sums_dequant" if quantize else "scatter_wire_sums": fed.rounds}
+            if engine != "fused_e2e":
+                want = {"sparse_aggregate": tx, **({"topk_mask_dynamic": buckets}
+                                                     if engine == "fused" else {})}
+            assert got == want, (tag, got, want)
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        out[tag] = dict(ints=(run.per_client_k, [(r.uplink_bytes, r.downlink_bytes,
+                                                  r.num_transmitters) for r in run.ledger.rounds]),
+                        server_acc=run.server_acc, client_acc=run.client_acc,
+                        round_seconds=list(run.round_seconds), peak=peak, make_up=make_up)
+        if engine == "sequential":  # a granite client's merged parameters, for (b)
+            out["granite"] = eng.client_params(1)
+        del run, eng, srv, b
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    float_tags = [f"{e}/float" for e, q in FAMILY_RUNS if not q]
+    seq = out["sequential/float"]
+    for tag in float_tags:  # the reference's contract (tests/test_hetero.py)
+        assert out[tag]["ints"] == seq["ints"], (tag, out[tag]["ints"], seq["ints"])
+        for key in ("server_acc", "client_acc"):
+            np.testing.assert_allclose(out[tag][key], seq[key], rtol=0, atol=FAMILY_ACC_TOL + 1e-9)
+    e2e8 = out["fused_e2e/int8"]["ints"]
+    # int8 entries cost 8 value bits: every budget affords at least the float wire's k
+    assert all(k8 >= k for r8, r in zip(e2e8[0], seq["ints"][0]) for k8, k in zip(r8, r))
+    assert [x[2] for x in e2e8[1]] == [x[2] for x in seq["ints"][1]]
+    log(f"[families] fused_e2e, fused, batched and sequential: identical per-client k, uplink and "
+        f"downlink bytes and transmitters, accuracies within {FAMILY_ACC_TOL:.4f}; the int8 wire's "
+        f"k at least the float wire's, the same transmitters; launches {launches}")
+    return dict(runs=out, launches=launches)
+
+
+def check_family_models(device) -> None:
+    """(b) part 1: each dense and MoE smoke config on the card: the forward,
+    the prefill (its last position), and 8 decode steps against the
+    forward's logits (MoE at capacity factor 8, as the reference's test
+    holds it: a full sequence's groups then drop nothing), then one
+    sliding-window decode of 16 steps through a ring of 6 slots."""
+    gen = np.random.default_rng(11)
+    for arch in FAMILY_ARCHS + ("yi-9b/window",):
+        cfg = get_smoke_config(arch.split("/")[0])
+        if cfg.moe is not None:
+            cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+        steps, window = (16, 6) if arch.endswith("/window") else (8, None)
+        cfg = cfg.with_overrides(sliding_window=window)
+        params = model.init(cfg, 0, device)
+        tokens = torch.as_tensor(gen.integers(0, cfg.vocab_size, (2, steps)), device=device)
+        with torch.no_grad():
+            full, aux = model.forward(params, cfg, tokens[None])
+            last, _ = model.prefill(params, cfg, {"tokens": tokens})
+            cache = model.init_cache(cfg, 2, 64, device=device)
+            if window is not None:
+                assert cache["layers"]["pos0"].k.shape[2] == window
+            errs = []
+            for t in range(steps):
+                logits, cache = model.decode_step(params, cfg, cache, tokens[:, t])
+                errs.append(float((logits - full[0, :, t]).abs().max()))
+        assert bool(torch.isfinite(full).all()) and bool(torch.isfinite(aux.moe_aux).all())
+        assert float((last - full[0, :, -1]).abs().max()) <= 1e-5
+        assert max(errs) <= DECODE_TOL, (arch, errs)
+        log(f"[families model {arch}] forward {tuple(full.shape[1:])}, moe_aux "
+            f"{float(aux.moe_aux[0]):.4f}, {steps} decode steps within {max(errs):.2e} of the "
+            f"forward")
+        del params, cache
+    sync(device)
+
+
+def time_granite(device, params, card: str) -> dict:
+    """(b) part 2: granite at full width (its 24 layers, d 1024, 32 experts
+    top-8): the (8, 1024) prefill and a decode step at batch 8, each timed
+    with CUDA events (the median of 5 and 9 calls after a warm-up); the
+    first decode step runs with every synchronising call an error."""
+    tokens = torch.as_tensor(np.random.default_rng(12).integers(0, GRANITE.vocab_size,
+                                                                (SERVE_BATCH, PREFILL_S)),
+                             device=device)
+
+    def median_ms(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        prefill_ms = median_ms(lambda: model.prefill(params, GRANITE, {"tokens": tokens}))
+        prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+        cache = model.init_cache(GRANITE, SERVE_BATCH, 64, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a decode step waits for nothing
+        try:
+            model.decode_step(params, GRANITE, cache, tokens[:, 0])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        step = iter(range(1, 10**6))
+        decode_ms = median_ms(lambda: model.decode_step(params, GRANITE, cache,
+                                                        tokens[:, next(step) % PREFILL_S]), reps=9)
+        logits, _ = model.prefill(params, GRANITE, {"tokens": tokens})
+    assert bool(torch.isfinite(logits).all())
+    log(f"[families granite] {GRANITE.num_layers} layers, d {GRANITE.d_model}, "
+        f"{GRANITE.moe.num_experts} experts top-{GRANITE.moe.top_k}, fp32 (TF32 off): prefill "
+        f"({SERVE_BATCH}, {PREFILL_S}) {prefill_ms:.1f} ms (peak {prefill_peak:.2f} GiB), decode "
+        f"step at batch {SERVE_BATCH} {decode_ms:.2f} ms ({card})")
+    return dict(prefill_ms=prefill_ms, decode_ms=decode_ms, prefill_peak=prefill_peak)
+
+
+def check_union_wire(device) -> None:
+    """(c): the union of two buckets' wires with different k_cap
+    (``concat_wires``: the narrower padded with masked zeros at index 0)
+    through kernels 1 and 2, ``torch.equal`` to their plain versions and to
+    the kernels' sums of the same rows sparsified at the wide k_cap."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    logits = [torch.randn((2, ROWS, VOCAB), generator=gen, device=device) for _ in range(2)]
+    ks = [torch.tensor([100, 0], device=device), torch.tensor([1000, 37], device=device)]
+    for quantize in (False, True):
+        union = concat_wires([sparsify_wire(x, k, cap, quantize=quantize)
+                              for x, k, cap in zip(logits, ks, (128, 1024))])
+        wide = concat_wires([sparsify_wire(x, k, 1024, quantize=quantize)
+                             for x, k in zip(logits, ks)])
+        assert union.k_cap == 1024 and not torch.equal(union.indices, wide.indices)
+        for mode in MODES:
+            got = aggregate_wire(union, mode, use_kernel=True)
+            assert torch.equal(got, aggregate_wire(union, mode, use_kernel=False)), mode
+            assert torch.equal(got, aggregate_wire(wide, mode, use_kernel=True)), mode
+    log("[families union wire] k_cap 128 and 1024 buckets, float and int8: kernels 1 and 2 "
+        "torch.equal to their plain versions and to the unpadded wide wire, every mode")
+
+
+def phase_families(device, card: str = "", cfgs=None) -> dict:
+    """Phase 6f: the dense and MoE families and a mixed fleet (module
+    docstring).  ``cfgs`` = ``(families, server, dataset)`` replaces the
+    full-width fleet (a rehearsal at small widths on the CPU runs (a) and
+    the smoke configs of (b))."""
+    t0 = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    cached = set(fed_pretrain._CACHE)
+    if cfgs is None:
+        cfgs = ([GPT2_SMALL, GRANITE], FAULT_SERVER,
+                make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32))
+    out = family_runs(device, cfgs, card)
+    granite = out["runs"].pop("granite")
+    for key in set(fed_pretrain._CACHE) - cached:  # the phase's backbones
+        del fed_pretrain._CACHE[key]
+    check_family_models(device)
+    if on_card:
+        out["granite"] = time_granite(device, granite, card)
+        del granite
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launches()
+        check_union_wire(device)
+        ops.reset_launches()  # the comparisons' launches do not count
+    log(f"[families] phase 6f passed in {time.perf_counter() - t0:.1f} s ({card})")
+    return out
+
+
 def phase_serving(device, card: str) -> dict:
     """Multi-tenant serving at GPT-2 small width, then the prefill at
     S = 1024 and the attention kernel on its layer-0 q/k/v; returns the
@@ -2880,18 +3141,21 @@ def main() -> int:
     host_store = phase_host_store(device, runs[("fused_e2e", False, False)])
     scale_out = phase_scale_out(device, card, runs)
     serving = phase_serving(device, card)
+    families = phase_families(device, card)
     launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) + pretrained["launches"][name]
                 + faults["launches"].get(name, 0) + host_store["launches"].get(name, 0)
-                + scale_out["launches"].get(name, 0)
+                + scale_out["launches"].get(name, 0) + families["launches"].get(name, 0)
                 for name in KERNELS}
     entry_names = ("topk_mask", "distill_kl", "topk_mask.bf16", "distill_kl.bf16")
     entry = {name: sum(r["entry_launches"].get(name, 0) for r in runs.values()) for name in entry_names}
     for name in ("flash_attention", "flash_attention.bf16"):
         entry[name] = serving["entry_launches"][name]
     log(f"[main path] kernel launches over the eight runs, the pretrained phase's four, the "
-        f"faults phase's, the host store phase's and the scale-out phase's {launches} (the faults "
+        f"faults phase's, the host store phase's, the scale-out phase's and the families phase's "
+        f"{launches} (the faults "
         f"phase's alone {faults['launches']}, the host store phase's {host_store['launches']}, "
-        f"the scale-out phase's {scale_out['launches']})")
+        f"the scale-out phase's {scale_out['launches']}, the families phase's "
+        f"{families['launches']})")
     log(f"[entry] launches through the public entry points {entry}")
 
     k_caps = {

@@ -1,16 +1,22 @@
-"""Model configuration schema, the paper's GPT-2 pair (copies of the
-reference package's ``repro.configs.base`` and ``gpt2_paper``) and the
-architecture registry: ``--arch <id>`` resolution for the launchers.
+"""Model configuration schema, the paper's GPT-2 pair and the reference's
+other architectures (copies of the reference package's ``repro.configs``,
+data only) and the architecture registry: ``--arch <id>`` resolution for
+the launchers.
 
-``ARCHITECTURES`` lists the reference's public dashed ids in its order;
-the port carries ``gpt2-paper``, and ``get_config``/``get_smoke_config``
-of any other id raise naming its ROADMAP.md port queue item."""
+``ARCHITECTURES`` lists the reference's public dashed ids in its order, and
+``get_config``/``get_smoke_config`` return every one of them.  What the
+port does not run yet (the SSM, hybrid, VLM and audio families) is refused
+when a model is built (:func:`repro_torch.models.model.check_supported`).
+``remat`` and ``microbatches`` pass through: they change memory, not
+results, and the port ignores ``remat``."""
 
-from repro_torch.configs.base import LoRAConfig, ModelConfig
+import importlib
+
+from repro_torch.configs.base import LoRAConfig, ModelConfig, MoEConfig, SSMConfig
 from repro_torch.configs.gpt2_paper import GPT2_LARGE, GPT2_SMALL, REDUCED_CLIENT, REDUCED_SERVER
 
-__all__ = ["ARCHITECTURES", "LoRAConfig", "ModelConfig", "GPT2_SMALL", "GPT2_LARGE",
-           "REDUCED_CLIENT", "REDUCED_SERVER", "get_config", "get_smoke_config"]
+__all__ = ["ARCHITECTURES", "LoRAConfig", "ModelConfig", "MoEConfig", "SSMConfig", "GPT2_SMALL",
+           "GPT2_LARGE", "REDUCED_CLIENT", "REDUCED_SERVER", "get_config", "get_smoke_config"]
 
 # arch id -> module name, as in the reference
 ARCHITECTURES: dict[str, str] = {
@@ -32,13 +38,7 @@ ARCHITECTURES: dict[str, str] = {
 def _module(arch_id: str):
     if arch_id not in ARCHITECTURES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHITECTURES)}")
-    if arch_id != "gpt2-paper":
-        from repro_torch.fed.engines.base import not_carried
-
-        raise not_carried(f"--arch {arch_id}", "other model families and mixed fleets")
-    from repro_torch.configs import gpt2_paper
-
-    return gpt2_paper
+    return importlib.import_module(f"repro_torch.configs.{ARCHITECTURES[arch_id]}")
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -21,9 +21,12 @@ from repro_torch.core.topk import (
     QUANT_LEVELS,
     QuantizedWire,
     SparseWire,
+    concat_wires,
     densify,
+    pad_wire,
     quantize_wire,
     sparsify_wire,
+    take_wire_rows,
     topk_mask_batch,
     topk_mask_dense,
     topk_mask_dynamic,
@@ -59,6 +62,9 @@ __all__ = [
     "SparseWire",
     "quantize_wire",
     "sparsify_wire",
+    "pad_wire",
+    "concat_wires",
+    "take_wire_rows",
     "densify",
     "topk_sparsify",
     "topk_mask_batch",

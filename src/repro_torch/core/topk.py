@@ -13,6 +13,9 @@ Two uplink forms:
   explicit transmit mask (client ``n`` transmits its first ``k_n`` entries;
   a dropped straggler, ``k = 0``, transmits nothing).  ``quantize_wire``
   turns it into the int8 wire with one fp32 scale per (client, sample) row.
+  The wires of several family buckets merge into one union wire
+  (:func:`concat_wires`: each padded to the widest ``k_cap`` with masked
+  zeros at index 0, which the aggregation skips).
 
 ``lax.top_k`` in the reference is a stable select — on ties the lower
 index comes first — which ``torch.topk`` does not promise; a stable
@@ -40,6 +43,9 @@ __all__ = [
     "QuantizedWire",
     "sparsify_wire",
     "quantize_wire",
+    "pad_wire",
+    "concat_wires",
+    "take_wire_rows",
 ]
 
 # Symmetric int8 range: round(v / scale) lands in [-127, 127], so the scale
@@ -186,3 +192,48 @@ def sparsify_wire(
     )
     return quantize_wire(wire) if quantize else wire
 
+
+def pad_wire(wire: SparseWire | QuantizedWire, k_cap: int) -> SparseWire | QuantizedWire:
+    """Widen a wire to ``k_cap`` entries a row with masked-out padding
+    (value 0, index 0, mask False), which the densify and the aggregation
+    skip; the quantized wire's per-row ``scale`` is untouched."""
+    pad = k_cap - wire.k_cap
+    if pad < 0:
+        raise ValueError(f"cannot shrink a wire from {wire.k_cap} to {k_cap}")
+    if pad == 0:
+        return wire
+    widen = lambda t: torch.nn.functional.pad(t, (0, pad))  # noqa: E731
+    fields = {"values": widen(wire.values), "indices": widen(wire.indices),
+              "mask": widen(wire.mask)}
+    if isinstance(wire, QuantizedWire):
+        fields["scale"] = wire.scale
+    return type(wire)(vocab=wire.vocab, **fields)
+
+
+def concat_wires(wires: Sequence[SparseWire | QuantizedWire]) -> SparseWire | QuantizedWire:
+    """The union of several cohorts' uplinks as one wire: each padded to the
+    widest ``k_cap``, then concatenated on the leading client axis.  The
+    wire is vocab-indexed, so the union of family buckets' wires
+    aggregates as one cohort's; every wire must address one vocabulary and
+    be of one format."""
+    if not wires:
+        raise ValueError("concat_wires needs at least one wire")
+    vocabs = {w.vocab for w in wires}
+    if len(vocabs) > 1:
+        raise ValueError(f"wires address different vocabularies: {sorted(vocabs)}")
+    if len({type(w) for w in wires}) > 1:
+        raise ValueError("cannot union float and quantized wires — "
+                         "quantize (or dequantize) every bucket first")
+    k_cap = max(w.k_cap for w in wires)
+    padded = [pad_wire(w, k_cap) for w in wires]
+    fields = {f: torch.cat([getattr(w, f) for w in padded]) for f in wires[0]._fields
+              if f != "vocab"}
+    return type(wires[0])(vocab=wires[0].vocab, **fields)
+
+
+def take_wire_rows(wire: SparseWire | QuantizedWire, rows) -> SparseWire | QuantizedWire:
+    """The wire's client rows ``rows`` in that order (a permutation back to
+    cohort order, or the transmitters only)."""
+    take = torch.as_tensor(rows, dtype=torch.long, device=wire.values.device)
+    fields = {f: getattr(wire, f)[take] for f in wire._fields if f != "vocab"}
+    return type(wire)(vocab=wire.vocab, **fields)

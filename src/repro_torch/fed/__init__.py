@@ -1,10 +1,19 @@
 """The federated AdaLD runtime (Algorithm 1): the ``sequential``,
-``batched``, ``fused`` and ``fused_e2e`` engines."""
+``batched``, ``fused`` and ``fused_e2e`` engines, and their
+family-bucketed forms for mixed fleets."""
 
+from repro_torch.fed.cohort import (
+    FamilyBucket,
+    partition_fleet,
+    split_cohort,
+    validate_family_contracts,
+)
 from repro_torch.fed.engines import (
     BatchedEngine,
     FusedE2EEngine,
     FusedEngine,
+    HeteroClientEngine,
+    HeteroFusedE2EEngine,
     SequentialEngine,
     make_engine,
 )
@@ -16,6 +25,12 @@ __all__ = [
     "BatchedEngine",
     "FusedEngine",
     "FusedE2EEngine",
+    "HeteroClientEngine",
+    "HeteroFusedE2EEngine",
+    "FamilyBucket",
+    "partition_fleet",
+    "split_cohort",
+    "validate_family_contracts",
     "make_engine",
     "Server",
     "METHODS",

@@ -96,10 +96,11 @@ class Client:
         self.local_steps = local_steps
         self.distill_steps = distill_steps
         self.last_only = last_only
-        params = model_lib.init(cfg, seed, device)
-        if initial_params is not None:
+        if initial_params is None:
+            params = model_lib.init(cfg, seed, device)
+        else:
             # shared pretrained backbone W' (paper eq. 1) + this client's fresh LoRA
-            own_lora, _ = split_lora(params)
+            own_lora, _ = split_lora(model_lib.init(cfg, seed, device, adapters_only=True))
             _, frozen = split_lora(initial_params)
             params = merge_lora(own_lora, frozen)
         # a cohort engine takes both over at start-up and sets them to None

@@ -1,9 +1,7 @@
 """The import shim of ``repro/fed/engine.py``: the engines live in
 :mod:`repro_torch.fed.engines`, and every name the reference's shim
-re-exports that the port carries imports from here too.  The hetero
-engines (``HeteroClientEngine``, ``HeteroFusedE2EEngine``) and
-``tree_stack`` come with ROADMAP.md port queue: other model families and
-mixed fleets."""
+re-exports that the port carries imports from here too (the reference's
+``tree_stack``, a JAX pytree helper, has no use in the port)."""
 
 from repro_torch.fed.engines import (  # noqa: F401
     BatchedEngine,
@@ -11,6 +9,8 @@ from repro_torch.fed.engines import (  # noqa: F401
     ClientPhase,
     FusedE2EEngine,
     FusedEngine,
+    HeteroClientEngine,
+    HeteroFusedE2EEngine,
     RoundsTrajectory,
     SequentialEngine,
     check_unique_cohort,
@@ -33,6 +33,8 @@ __all__ = [
     "BatchedEngine",
     "FusedEngine",
     "FusedE2EEngine",
+    "HeteroClientEngine",
+    "HeteroFusedE2EEngine",
     "make_engine",
     "k_cap_bucket",
     "cohort_budgets",

@@ -11,6 +11,9 @@
 * :class:`FusedE2EEngine` — the whole round, client and server phase, as
   one function call with the sparse wire between them; ``run_rounds``
   runs a block of rounds without a host round trip between them.
+* :class:`HeteroClientEngine` / :class:`HeteroFusedE2EEngine` — the
+  family-bucketed versions of the cohort engines for mixed fleets
+  (:mod:`repro_torch.fed.cohort`).
 
 The cohort engines keep the fleet in a fleet store
 (:mod:`repro_torch.fed.store`: the device store, or the host store that
@@ -36,6 +39,7 @@ from repro_torch.fed.engines.base import (
 from repro_torch.fed.engines.batched import BatchedEngine
 from repro_torch.fed.engines.e2e import FusedE2EEngine
 from repro_torch.fed.engines.fused import FusedEngine
+from repro_torch.fed.engines.hetero import HeteroClientEngine, HeteroFusedE2EEngine
 
 __all__ = [
     "BroadcastState",
@@ -45,6 +49,8 @@ __all__ = [
     "BatchedEngine",
     "FusedEngine",
     "FusedE2EEngine",
+    "HeteroClientEngine",
+    "HeteroFusedE2EEngine",
     "make_engine",
     "check_unique_cohort",
     "cohort_budgets",
@@ -61,7 +67,10 @@ def make_engine(kind: str, clients: list[Client], cfg: ModelConfig, **kwargs):
     runs in the Server) and ``compute_dtype``, and the sequential engine
     takes only ``value_bits`` and ``k_min`` (``shard_clients`` among what
     it drops) and keeps the reference's own refusals.  ``fused`` and
-    ``fused_e2e`` take ``shard_clients`` (:mod:`repro_torch.sharding`)."""
+    ``fused_e2e`` take ``shard_clients`` (:mod:`repro_torch.sharding`).
+    A fleet whose clients run more than one config is served by the
+    family-bucketed engines for every cohort ``kind``, and natively by
+    ``sequential`` (each client runs its own architecture)."""
     if kind != "fused_e2e":
         for e2e_only in ("server", "server_distill_steps", "aggregation"):
             kwargs.pop(e2e_only, None)
@@ -90,14 +99,21 @@ def make_engine(kind: str, clients: list[Client], cfg: ModelConfig, **kwargs):
         raise ValueError(
             f"unknown engine: {kind!r} (expected 'sequential', 'batched', 'fused' or 'fused_e2e')"
         )
+    hetero = len({c.cfg for c in clients}) > 1
     if kind == "batched":
         # the fp32 per-phase reference: the bf16 round body exists only on
         # the fused paths, and the batched engine has no kernel of its own
         for dropped in ("shard_clients", "use_kernels", "compute_dtype"):
             kwargs.pop(dropped, None)
+        if hetero:
+            return HeteroClientEngine(kind, clients, **kwargs)
         return BatchedEngine(clients, cfg, **kwargs)
     if kwargs.get("compute_dtype", "float32") not in ("float32", "bfloat16"):
         raise not_carried(f"compute_dtype={kwargs['compute_dtype']!r}", "fp16")
     if kind == "fused":
+        if hetero:
+            return HeteroClientEngine(kind, clients, **kwargs)
         return FusedEngine(clients, cfg, **kwargs)
+    if hetero:
+        return HeteroFusedE2EEngine(clients, **kwargs)
     return FusedE2EEngine(clients, cfg, **kwargs)

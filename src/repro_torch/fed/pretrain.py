@@ -44,7 +44,7 @@ def _reset_lora(params: dict, cfg: ModelConfig, seed: int, device) -> dict:
     """The pretrained backbone under the fresh adapters of ``init(cfg,
     seed)``: pretraining moved A and B too, and the federated protocol
     starts from W' with B = 0."""
-    fresh_lora, _ = split_lora(model_lib.init(cfg, seed, device))
+    fresh_lora, _ = split_lora(model_lib.init(cfg, seed, device, adapters_only=True))
     _, frozen = split_lora(params)
     return merge_lora(fresh_lora, frozen)
 
@@ -53,11 +53,10 @@ def _supervised_step(cfg: ModelConfig, num_classes: int, lr: float, last_only: b
     """step(params, opt, batch {tokens (B, L), labels (B,)}) -> (params,
     opt, {"loss", "acc"}): the class readout's NLL at the last position (the
     head computes only the ``num_classes`` columns it reads) plus 0.01 times
-    the MoE router's auxiliary loss, 0 for the GPT-2 family."""
-    moe_aux = 0.0  # no MoE layer in the GPT-2 family
+    the MoE router's auxiliary loss (0 without MoE layers)."""
 
     def loss_fn(params, tokens, labels):
-        last, _aux = fed_steps.last_logits(
+        last, aux = fed_steps.last_logits(
             params, cfg, tokens[None], last_only=last_only,
             head_cols=num_classes if last_only else None,
         )
@@ -65,7 +64,7 @@ def _supervised_step(cfg: ModelConfig, num_classes: int, lr: float, last_only: b
         logp = torch.log_softmax(cls.float(), dim=-1)
         nll = -torch.gather(logp, -1, labels[:, None].long())[:, 0].mean()
         acc = torch.mean((torch.argmax(cls, dim=-1) == labels).float())
-        return nll + 0.01 * moe_aux, acc
+        return nll + 0.01 * aux.moe_aux[0], acc
 
     def step(params, opt, batch):
         (loss, acc), grads = full_grads(loss_fn, params, batch["tokens"], batch["labels"])

@@ -12,11 +12,15 @@ transmitters' dense top-k stack for the :class:`Server`.  Host-side draws (cohor
 channels, client batch streams) use the reference's numpy streams in the
 reference's order, so both packages see identical data under one seed.
 
-With ``pretrain_steps > 0`` (the default) one backbone per model family is
-pretrained first on a split that the run never sees, and shared by that
-family's clients as the frozen W' of paper eq. 1; the server's is
-LM-pretrained by default.  ``scan_rounds`` (``fused_e2e`` only) draws every
-round first and runs them as one block, ``FusedE2EEngine.run_rounds``.
+A fleet may mix model families (``client_cfg`` a sequence of configs:
+client i runs ``client_cfg[i % F]``); the cohort engines then run it
+through their family-bucketed forms (:mod:`repro_torch.fed.cohort`), and
+``sequential`` natively.  With ``pretrain_steps > 0`` (the default) one
+backbone per model family is pretrained first on a split that the run
+never sees, and shared by that family's clients as the frozen W' of paper
+eq. 1; the server's is LM-pretrained by default.  ``scan_rounds``
+(``fused_e2e`` only) draws every round first and runs them as one block,
+``FusedE2EEngine.run_rounds``.
 
 ``FedConfig.scenario`` gives the channel time-correlated dynamics
 (``repro_torch.core.scenario``), which a block also evolves on the device;
@@ -46,7 +50,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
-from typing import Literal
+from typing import Literal, Sequence
 
 import numpy as np
 import torch
@@ -173,16 +177,21 @@ def _config_fingerprint(fed: FedConfig) -> dict:
     return json.loads(json.dumps(d, sort_keys=True, default=str))
 
 
-def _check_carried(client_cfg) -> None:
-    """Raise on what the port does not carry, before any work;
+def _check_carried(families: list[ModelConfig], fed: FedConfig) -> None:
+    """Raise on what the port does not carry, before any work: a model
+    family the port does not run, and ``scan_rounds`` on a mixed fleet;
     ``make_engine`` checks the engine's own options (kind, shard_clients,
     compute_dtype, fleet_store)."""
-    if not isinstance(client_cfg, ModelConfig):
-        raise not_carried("a mixed-family fleet", "other model families and mixed fleets")
+    for cfg in families:
+        model_lib.check_supported(cfg)
+    if (fed.scan_rounds and fed.engine == "fused_e2e" and fed.fleet_store == "device"
+            and len(set(families)) > 1):
+        raise not_carried("scan_rounds on a mixed fleet (HeteroFusedE2EEngine.run_rounds)",
+                          "other model families and mixed fleets")
 
 
 def run_federated(
-    client_cfg: ModelConfig,
+    client_cfg: ModelConfig | Sequence[ModelConfig],
     server_cfg: ModelConfig,
     dataset: IntentDataset,
     fed: FedConfig,
@@ -193,13 +202,17 @@ def run_federated(
     device: str | torch.device = "cuda",
 ) -> FedRun:
     """Run the whole federation on ``device`` (the card unless the caller
-    asks for ``"cpu"``).  Every client runs ``client_cfg``.  With
-    ``pretrain_steps > 0`` the clients share one pretrained backbone (seed
-    ``fed.seed``) under their own adapters (seed ``fed.seed + i``), and the
-    server starts from its own pretraining (``server_pretrain``: ``"lm"``,
-    ``"supervised"`` or ``"none"``, seed ``fed.seed + 999``); without, each
-    client inits its own backbone (seed ``fed.seed + i``) and the server
-    inits from ``fed.seed + 999``.
+    asks for ``"cpu"``).  ``client_cfg`` is one config (every client runs
+    it) or a sequence of family configs, client i running
+    ``client_cfg[i % F]``; the families must share one vocabulary and one
+    LoRA rank with the server (the paper's §II exchange contracts).  With
+    ``pretrain_steps > 0`` the clients of family ``fi`` share one
+    pretrained backbone (seed ``fed.seed + 17 * fi``) under their own
+    adapters (seed ``fed.seed + i``), and the server starts from its own
+    pretraining (``server_pretrain``: ``"lm"``, ``"supervised"`` or
+    ``"none"``, seed ``fed.seed + 999``); without, each client inits its own
+    backbone (seed ``fed.seed + i``) and the server inits from ``fed.seed +
+    999``.
 
     ``ckpt_dir`` writes ``step_{r}`` after every completed round (after
     every completed block with ``scan_rounds``).  ``resume=True`` restores
@@ -210,7 +223,11 @@ def run_federated(
     uninterrupted run's.  With no checkpoint in ``ckpt_dir`` it starts
     from round 0.  Under a process group of more than one rank (each rank
     calls this with the same arguments), rank 0 alone prints and writes."""
-    _check_carried(client_cfg)
+    families = [client_cfg] if isinstance(client_cfg, ModelConfig) else list(client_cfg)
+    if not families:
+        raise ValueError("client_cfg must name at least one model config")
+    _check_carried(families, fed)
+    cfgs = [families[i % len(families)] for i in range(fed.num_clients)]
     ranks = sharding.world_size()
     lead = sharding.rank() == 0
     verbose = verbose and lead
@@ -248,9 +265,9 @@ def run_federated(
                 )
 
     # a disjoint pretraining split first (the simulated pretrained W'): one
-    # backbone per family, at fed.seed + 17 * family (the port carries one
-    # family)
-    server_init = client_init = None
+    # backbone per family, at fed.seed + 17 * family
+    server_init = None
+    client_inits: dict[ModelConfig, dict] = {}
     if fed.pretrain_steps > 0:
         n_pre = int(len(dataset) * fed.pretrain_frac)
         pre_idx = np.random.default_rng(fed.seed + 31).permutation(len(dataset))
@@ -259,14 +276,17 @@ def run_federated(
         if completed:
             # resuming: the checkpoint holds every pretrained tensor, so no
             # pretraining runs; one placeholder backbone handed to every
-            # client rebuilds the store's shared layout before the restore
-            client_init = model_lib.init(client_cfg, fed.seed, device)
+            # client of a family rebuilds the store's shared layout before
+            # the restore
+            for fi, fam in enumerate(families):
+                client_inits[fam] = model_lib.init(fam, fed.seed + 17 * fi, device)
         else:
-            client_init = pretrain_classifier(
-                client_cfg, pretrain_ds, num_classes=dataset.num_classes,
-                steps=fed.pretrain_steps, lr=fed.pretrain_lr, seed=fed.seed,
-                last_only=fed.last_only, verbose=verbose, device=device,
-            )
+            for fi, fam in enumerate(families):
+                client_inits[fam] = pretrain_classifier(
+                    fam, pretrain_ds, num_classes=dataset.num_classes,
+                    steps=fed.pretrain_steps, lr=fed.pretrain_lr, seed=fed.seed + 17 * fi,
+                    last_only=fed.last_only, verbose=verbose, device=device,
+                )
             if fed.server_pretrain == "supervised":
                 server_init = pretrain_classifier(
                     server_cfg, pretrain_ds, num_classes=dataset.num_classes,
@@ -288,11 +308,11 @@ def run_federated(
         parts = iid_partition(len(private), fed.num_clients, seed=fed.seed)
     clients = [
         Client(
-            i, client_cfg, private.subset(parts[i]), num_classes=dataset.num_classes,
+            i, cfgs[i], private.subset(parts[i]), num_classes=dataset.num_classes,
             seed=fed.seed + i, lr=fed.lr, distill_lr=fed.distill_lr, temperature=fed.temperature,
             lam=fed.lam, local_steps=fed.local_steps, distill_steps=fed.distill_steps,
             restrict_to_support=fed.restrict_to_support, last_only=fed.last_only, device=device,
-            initial_params=client_init,
+            initial_params=client_inits.get(cfgs[i]),
         )
         for i in range(fed.num_clients)
     ]
@@ -313,10 +333,11 @@ def run_federated(
     eval_tokens = torch.as_tensor(private.tokens[eval_idx], device=device)
     eval_labels = torch.as_tensor(private.labels[eval_idx], device=device)
     evaluate = make_eval_fn(server_cfg, dataset.num_classes, last_only=fed.last_only)
-    evaluate_client = make_eval_fn(client_cfg, dataset.num_classes, last_only=fed.last_only)
+    evaluate_client = {fam: make_eval_fn(fam, dataset.num_classes, last_only=fed.last_only)
+                       for fam in families}
 
     engine = make_engine(
-        fed.engine, clients, client_cfg, num_classes=dataset.num_classes,
+        fed.engine, clients, cfgs[0], num_classes=dataset.num_classes,
         lr=fed.lr, distill_lr=fed.distill_lr, temperature=fed.temperature, lam=fed.lam,
         local_steps=fed.local_steps, distill_steps=fed.distill_steps,
         restrict_to_support=fed.restrict_to_support, value_bits=fed.channel.value_bits,
@@ -357,7 +378,7 @@ def run_federated(
         uploads' manifests, whose bytes were spent on air."""
         n_samples = fed.public_batch
         attempted = cohort_budgets(
-            states, client_cfg, n_samples, preset["adaptive_k"], len(sel), preset["send_h"],
+            states, cfgs[sel[0]], n_samples, preset["adaptive_k"], len(sel), preset["send_h"],
             value_bits=fed.channel.value_bits, k_min=fed.channel.min_k,
             quantize_wire=fed.quantize_wire,
         )
@@ -366,7 +387,7 @@ def run_federated(
             p = None
             if attempted[i] > 0:
                 p, _rank = make_upload_payload(
-                    client_cfg, cid, n_samples, attempted[i], send_h=preset["send_h"],
+                    cfgs[cid], cid, n_samples, attempted[i], send_h=preset["send_h"],
                     value_bits=fed.channel.value_bits, snr_db=float(states.snr_db[i]),
                     quantize=fed.quantize_wire,
                 )
@@ -661,7 +682,8 @@ def run_federated(
             bcast = BroadcastState(tokens=pub_tokens, logits=g_logits, h=g_h, bits=g_bits)
 
         s_acc = evaluate(server.params, eval_tokens, eval_labels)
-        c_acc = evaluate_client(engine.client_params(sel[0]), eval_tokens, eval_labels)
+        c_acc = evaluate_client[cfgs[sel[0]]](engine.client_params(sel[0]), eval_tokens,
+                                              eval_labels)
         # the reference reports no server-distill loss off the e2e path
         d_loss = engine.last_distill_loss if handles_server else float("nan")
         _record(run, rnd, phase.ks, phase.uplink_bytes + extra, downlink, phase.num_transmitters,

@@ -49,6 +49,7 @@ __all__ = [
     "make_batched_distill_step",
     "make_batched_public_logits",
     "make_fused_round_fn",
+    "make_bucket_client_phase_fn",
     "make_server_phase_fn",
     "make_fused_e2e_round_fn",
     "make_eval_fn",
@@ -104,17 +105,19 @@ def _grads(loss_fn: Callable, lora: dict, *args):
 
 def _finetune_loss_fn(cfg: ModelConfig, num_classes: int, last_only: bool = True,
                       compute_dtype: str = "float32") -> Callable:
-    """loss(lora, frozen, tokens (C,B,L), labels (C,B)) -> per-client NLL (C,);
-    the LM head computes only the ``num_classes`` columns the loss reads."""
+    """loss(lora, frozen, tokens (C,B,L), labels (C,B)) -> per-client NLL plus
+    0.01 times the MoE load-balance loss (C,); the LM head computes only the
+    ``num_classes`` columns the loss reads."""
 
     def loss_fn(lora, frozen, tokens, labels):
-        last, _aux = last_logits(
+        last, aux = last_logits(
             _cast_params(merge_lora(lora, frozen), compute_dtype), cfg, tokens,
             last_only=last_only,
             head_cols=num_classes if last_only else None,
         )
         logp = torch.log_softmax(class_logits(last, num_classes).float(), dim=-1)
-        return -torch.gather(logp, -1, labels[..., None].long())[..., 0].mean(dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0].mean(dim=-1)
+        return nll + 0.01 * aux.moe_aux
 
     return loss_fn
 
@@ -124,7 +127,8 @@ def _distill_loss_fn(cfg: ModelConfig, temperature: float, lam: float,
                      compute_dtype: str = "float32") -> Callable:
     """loss(lora, frozen, tokens (C,P,L), g_logits (P,V), g_h (P,r)|None) ->
     (C,) eq. 10 per client through :func:`total_distill_loss`, the teacher
-    softmaxed anew for each client (the reference's uncached form)."""
+    softmaxed anew for each client (the reference's uncached form), plus
+    0.01 times the MoE load-balance loss."""
     use_h = cfg.lora is not None
 
     def loss_fn(lora, frozen, tokens, g_logits, g_h):
@@ -137,7 +141,7 @@ def _distill_loss_fn(cfg: ModelConfig, temperature: float, lam: float,
                 temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
             )[0]
             for i in range(own.shape[0])
-        ])
+        ]) + 0.01 * aux.moe_aux
 
     return loss_fn
 
@@ -145,7 +149,8 @@ def _distill_loss_fn(cfg: ModelConfig, temperature: float, lam: float,
 def _distill_loss_cached_fn(cfg: ModelConfig, temperature: float, lam: float,
                             last_only: bool = True, compute_dtype: str = "float32") -> Callable:
     """loss(lora, frozen, tokens, t_logp, th_logp, support) -> (C,) eq. 10
-    with the teacher log-probs precomputed once per round."""
+    with the teacher log-probs precomputed once per round, plus 0.01 times
+    the MoE load-balance loss."""
     use_h = cfg.lora is not None
 
     def loss_fn(lora, frozen, tokens, t_logp, th_logp, support):
@@ -155,7 +160,7 @@ def _distill_loss_cached_fn(cfg: ModelConfig, temperature: float, lam: float,
         loss = kl_rows(t_logp, own, temperature, mask=support).mean(dim=-1) * t2
         if use_h and th_logp is not None:
             loss = loss + lam * kl_rows(th_logp, aux.lora_h, temperature).mean(dim=-1) * t2
-        return loss
+        return loss + 0.01 * aux.moe_aux
 
     return loss_fn
 
@@ -448,6 +453,65 @@ def make_server_phase_fn(
     return fn
 
 
+def make_bucket_client_phase_fn(
+    cfg: ModelConfig,
+    num_classes: int,
+    *,
+    k_cap: int,
+    lr: float = 1e-3,
+    weight_decay: float = 1e-3,
+    distill_lr: float = 1e-3,
+    temperature: float = 2.0,
+    lam: float = 0.03,
+    restrict_to_support: bool = False,
+    local_steps: int = 4,
+    distill_steps: int = 2,
+    last_only: bool = True,
+    quantize: bool = False,
+    compute_dtype: str = "float32",
+) -> Callable:
+    """The client phase of a round for a cohort that runs ``cfg`` (the whole
+    cohort of ``fused_e2e``, or one family bucket of a mixed fleet's), up
+    to the sparse wire.
+
+    fn(lora (C,...), frozen, opt (C,...), g_tokens (P,L), g_logits (P,V),
+       g_h (P,r)|None, g_valid bool, batches {tokens (C,S,B,L), labels (C,S,B)},
+       pub_tokens (P,L), ks_dev (C,) int32, shard=None)
+    -> (lora, opt, wire (C,P,k_cap), h (C,P,r)|None)
+
+    The broadcast teacher is softmaxed once for the cohort; ``g_valid``
+    False (the cold server of round 0) skips the distillation.  The wire is
+    int8 with ``quantize``.  ``shard`` (a
+    :class:`repro_torch.sharding.CohortShard`, ``None`` unsharded) runs the
+    phase on this rank's block of the padded cohort, as
+    :func:`make_fused_round_fn` does, with ``ks_dev`` the real cohort's;
+    the block's state, wire and projections are gathered and the pad rows
+    dropped, so the function returns what the unsharded call returns."""
+    client_round = _client_round_core(
+        cfg, num_classes, lr=lr, weight_decay=weight_decay, distill_lr=distill_lr,
+        temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
+        local_steps=local_steps, distill_steps=distill_steps, last_only=last_only,
+        kd_loss=_distill_loss_cached_fn(cfg, temperature, lam, last_only, compute_dtype),
+        compute_dtype=compute_dtype,
+    )
+    teacher_cache = _teacher_cache_fn(temperature, restrict_to_support, cfg.lora is not None)
+
+    def fn(lora, frozen, opt, g_tokens, g_logits, g_h, g_valid, batches, pub_tokens, ks_dev,
+           shard=None):
+        t_cache = teacher_cache(g_logits, g_h) if g_valid else None
+        lora, opt, last, h = client_round(
+            lora, frozen, opt, g_tokens, t_cache, g_valid, batches, pub_tokens
+        )
+        if shard is None:
+            wire = sparsify_wire(last, ks_dev, k_cap, quantize=quantize)
+        else:  # the block's wire; the reference's shard_map ends here
+            wire = sparsify_wire(last, shard.block_ks(ks_dev), k_cap, quantize=quantize)
+            lora, opt, wire, h = shard.gather((lora, opt, wire, h))
+        return lora, opt, wire, h
+
+    return fn
+
+
 def make_fused_e2e_round_fn(
     client_cfg: ModelConfig,
     server_cfg: ModelConfig,
@@ -479,28 +543,21 @@ def make_fused_e2e_round_fn(
     -> (lora, opt, s_lora, s_opt, wire (C,P,k_cap), b_logits (P,V),
         b_h (P,r)|None, d_loss)
 
-    The uplink leaves the client phase as the sparse wire of width
-    ``k_cap`` (int8 with ``quantize``) and is aggregated straight from it.
-    ``ks_dev`` is ``ks`` as an int32 device tensor, made here when None: a
-    multi-round block stages it before its first launch.
-    ``compute_dtype`` is the round body's (see the module docstring).
-
-    ``shard`` (a :class:`repro_torch.sharding.CohortShard`, ``None`` for
-    the unsharded call) runs the client phase on this rank's block of the
-    padded cohort, as :func:`make_fused_round_fn` does; ``ks`` and
-    ``ks_dev`` stay the real cohort's.  The block's LoRA and optimizer
-    state, wire and projections are gathered and the pad rows dropped, so
-    the server phase, replicated on every rank, reads exactly the
-    unsharded round's operands, and the function returns what the
-    unsharded call returns."""
-    client_round = _client_round_core(
-        client_cfg, num_classes, lr=lr, weight_decay=weight_decay, distill_lr=distill_lr,
-        temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
-        local_steps=local_steps, distill_steps=distill_steps, last_only=last_only,
-        kd_loss=_distill_loss_cached_fn(client_cfg, temperature, lam, last_only, compute_dtype),
+    The uplink leaves the client phase (:func:`make_bucket_client_phase_fn`)
+    as the sparse wire of width ``k_cap`` (int8 with ``quantize``) and is
+    aggregated straight from it.  ``ks_dev`` is ``ks`` as an int32 device
+    tensor, made here when None: a multi-round block stages it before its
+    first launch.  ``compute_dtype`` is the round body's (see the module
+    docstring).  ``shard`` splits the client phase over the ranks (see
+    :func:`make_bucket_client_phase_fn`); the server phase, replicated on
+    every rank, reads exactly the unsharded round's operands."""
+    client_phase = make_bucket_client_phase_fn(
+        client_cfg, num_classes, k_cap=k_cap, lr=lr, weight_decay=weight_decay,
+        distill_lr=distill_lr, temperature=temperature, lam=lam,
+        restrict_to_support=restrict_to_support, local_steps=local_steps,
+        distill_steps=distill_steps, last_only=last_only, quantize=quantize,
         compute_dtype=compute_dtype,
     )
-    teacher_cache = _teacher_cache_fn(temperature, restrict_to_support, client_cfg.lora is not None)
     server_phase = make_server_phase_fn(
         server_cfg, distill_lr=distill_lr,
         temperature=temperature, lam=lam, restrict_to_support=restrict_to_support,
@@ -512,15 +569,8 @@ def make_fused_e2e_round_fn(
            batches, pub_tokens, ks, ks_dev=None, shard=None):
         if ks_dev is None:
             ks_dev = torch.as_tensor(ks, dtype=torch.int32, device=pub_tokens.device)
-        t_cache = teacher_cache(g_logits, g_h) if g_valid else None
-        lora, opt, last, h = client_round(
-            lora, frozen, opt, g_tokens, t_cache, g_valid, batches, pub_tokens
-        )
-        if shard is None:
-            wire = sparsify_wire(last, ks_dev, k_cap, quantize=quantize)
-        else:  # the block's wire; the reference's shard_map ends here
-            wire = sparsify_wire(last, shard.block_ks(ks_dev), k_cap, quantize=quantize)
-            lora, opt, wire, h = shard.gather((lora, opt, wire, h))
+        lora, opt, wire, h = client_phase(lora, frozen, opt, g_tokens, g_logits, g_h, g_valid,
+                                          batches, pub_tokens, ks_dev, shard=shard)
         s_lora, s_opt, b_last, b_h, d_loss = server_phase(
             s_lora, s_frozen, s_opt, wire, h, ks, pub_tokens, ks_dev
         )

@@ -6,6 +6,9 @@ record, plus ``--device`` (the card unless ``--device cpu``)::
 
 Reduced-scale GPT-2-family models on the synthetic Banking77-statistics
 dataset; writes a JSON history (``{out}/{method}_seed{seed}.json``).
+``--families yi-9b,granite-moe-1b-a400m`` federates a mixed fleet instead:
+each arch's smoke config re-based onto the reduced experiment's vocabulary
+and LoRA (:func:`family_configs`), the clients cycling through them.
 ``--fleet-store host --fleet-size N`` keeps the fleet in host memory and
 streams each round's cohort to the device, so device memory stays
 O(cohort).  ``--shard-clients`` splits each round's client phase over the
@@ -16,8 +19,9 @@ ranks of a process group, one process per device::
 
 Each rank takes ``cuda:{LOCAL_RANK}`` (NCCL; gloo with ``--device cpu``),
 and rank 0 writes the JSON; started without ``torch.distributed.run`` it
-runs on one rank.  ``--families`` is refused: ROADMAP.md port queue,
-"other model families and mixed fleets".
+runs on one rank.  A family the port does not run yet (SSM, hybrid, VLM,
+audio) is refused: ROADMAP.md port queue, "other model families and mixed
+fleets".
 """
 
 from __future__ import annotations
@@ -31,11 +35,34 @@ import os
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.configs.gpt2_paper import REDUCED_CLIENT, REDUCED_SERVER
 from repro_torch.data import make_banking77_like
 from repro_torch.fed import FedConfig, run_federated
-from repro_torch.fed.engines.base import not_carried
 from repro_torch.fed.rounds import METHODS
+
+
+def family_configs(spec: str, seq_len: int):
+    """``--families`` as per-family model configs on the shared exchange
+    contracts (one vocabulary, one LoRA rank — paper §II): each
+    comma-separated arch id's smoke config re-based onto the reduced
+    experiment's vocabulary and LoRA; an SSM family gets a chunk size that
+    divides the sequence length.  The reference's function."""
+    fams = []
+    for arch in spec.split(","):
+        arch = arch.strip()
+        if not arch:
+            continue
+        smoke = get_smoke_config(arch)
+        over = dict(name=f"fam-{arch}", vocab_size=REDUCED_CLIENT.vocab_size,
+                    lora=REDUCED_CLIENT.lora, max_seq_len=max(seq_len, 32))
+        if smoke.ssm is not None:
+            chunk = next(c for c in (8, 4, 2, 1) if seq_len % c == 0)
+            over["ssm"] = dataclasses.replace(smoke.ssm, chunk_size=chunk)
+        fams.append(smoke.with_overrides(**over))
+    if not fams:
+        raise SystemExit(f"--families {spec!r} names no architectures")
+    return fams
 
 
 def parser() -> argparse.ArgumentParser:
@@ -56,8 +83,10 @@ def parser() -> argparse.ArgumentParser:
                     help="fused_e2e only: run ALL rounds as one block with the per-round "
                          "eval tapped inside it")
     ap.add_argument("--families", default=None,
-                    help="comma-separated arch ids: a heterogeneous fleet (not carried by "
-                         "the port yet).  Default: homogeneous REDUCED_CLIENT")
+                    help="comma-separated arch ids for a heterogeneous fleet: clients cycle "
+                         "these families round-robin, served by the family-bucketed engines; "
+                         "smoke configs are re-based onto the shared vocab/LoRA-rank "
+                         "contract.  Default: homogeneous REDUCED_CLIENT")
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--clients", type=int, default=10)
     ap.add_argument("--fleet-size", type=int, default=None,
@@ -133,8 +162,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.resume and args.ckpt_dir is None:
         ap.error("--resume requires --ckpt-dir")
-    if args.families:
-        raise not_carried("--families", "other model families and mixed fleets")
     device, own_group = args.device, False
     if args.shard_clients and "LOCAL_RANK" in os.environ and not dist.is_initialized():
         # one process per device, started by torch.distributed.run
@@ -154,7 +181,8 @@ def _run(args: argparse.Namespace, device: str) -> int:
     seq_len = 24
     ds = make_banking77_like(vocab_size=REDUCED_CLIENT.vocab_size, seq_len=seq_len, seed=args.seed)
     fed = fed_config(args)
-    run = run_federated(REDUCED_CLIENT, REDUCED_SERVER, ds, fed, verbose=True,
+    client_cfg = family_configs(args.families, seq_len) if args.families else REDUCED_CLIENT
+    run = run_federated(client_cfg, REDUCED_SERVER, ds, fed, verbose=True,
                         ckpt_dir=args.ckpt_dir, resume=args.resume, device=device)
     if dist.is_initialized() and dist.get_rank() != 0:
         return 0  # rank 0 writes the record

@@ -119,18 +119,16 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, weight_decay: float =
     -> (params, opt, {"loss": (), "ce": ()})
 
     The loss is the next-token CE plus ``router_aux_weight`` times the MoE
-    router's auxiliary loss, which is 0 for the GPT-2 family the port
-    carries.  With ``cfg.microbatches = m > 1`` dividing the batch, the
-    gradients of the m microbatches are summed in the params' dtype and
-    divided by m."""
-    moe_aux = 0.0  # no MoE layer in the GPT-2 family
+    router's auxiliary loss (0 without MoE layers).  With
+    ``cfg.microbatches = m > 1`` dividing the batch, the gradients of the m
+    microbatches are summed in the params' dtype and divided by m."""
 
     def loss_fn(params, tokens):
-        h, _aux = backbone(params, cfg, tokens[None])
+        h, aux = backbone(params, cfg, tokens[None])
         targets = tokens[None, :, 1:]
         mask = torch.ones(targets.shape, dtype=torch.float32, device=tokens.device)
         ce = chunked_lm_loss(params, cfg, h[:, :, :-1], targets, mask)
-        return ce + router_aux_weight * moe_aux, ce
+        return ce + router_aux_weight * aux.moe_aux[0], ce
 
     def train_step(params, opt: AdamWState, batch):
         tokens = batch["tokens"]

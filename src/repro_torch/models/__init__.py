@@ -1,4 +1,4 @@
-"""The GPT-2 family model with LoRA, on tensors with a client axis."""
+"""The dense and MoE model families with LoRA, on tensors with a client axis."""
 
 from repro_torch.models import model
 from repro_torch.models.model import Aux, decode_step, forward, init, init_cache, prefill

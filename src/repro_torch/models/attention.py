@@ -1,12 +1,20 @@
-"""Causal self-attention with q/k/v LoRA and the decode KV cache — the port
-of ``repro/models/attention.py`` for the GPT-2 family.
+"""Causal self-attention with q/k/v LoRA, grouped-query heads, RoPE, the
+sliding window and the decode KV cache — the port of
+``repro/models/attention.py``'s self-attention.
 
-Full-sequence mode (no cache) masks the future: dense attention below
-``2 * Q_CHUNK`` positions, and from there the reference's chunked path,
-which scans query chunks so the ``(S, S)`` scores are never held at once
+Full-sequence mode (no cache) masks the future (and, with a window, keys
+``window`` or more positions back): dense attention below ``2 * Q_CHUNK``
+positions, and from there the reference's chunked path, which scans query
+chunks so the ``(S, S)`` scores are never held at once
 (``_chunked_attention``; the same function, less peak memory).  Decode mode
 writes one new token's K/V into a ring slot of the cache and attends over
-every written slot.
+every written slot still inside the window.
+
+Grouped-query attention keeps ``num_kv_heads`` K/V heads; query head ``h``
+reads K/V head ``h // q_per_kv`` (the reference's ``jnp.repeat`` on the
+head axis).  Under RoPE, q and k are rotated by absolute position; in
+decode the new key is rotated by ``length`` before it is written, so a
+cached key is never rotated again.
 
 Per-request adapters (multi-tenant serving) ride on the model's leading
 client axis: ``C`` requests of batch 1 each, every request with its own
@@ -21,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import linear, torch_dtype
+from repro_torch.models.layers import apply_rope, linear, torch_dtype
 
 __all__ = ["KVCache", "Q_CHUNK", "init_kv_cache", "lora_delta", "qkv", "attn_apply"]
 
@@ -85,20 +93,31 @@ def qkv(lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig):
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """``softmax(q k^T * Dh^-0.5)`` over the keys ``valid`` marks, times v:
-    q ``(B, S, H, Dh)``, k/v ``(B, T, H, Dh)``, ``valid`` broadcastable to
-    ``(S, T)`` -> ``(B, S, H·Dh)`` fp32."""
+    q ``(B, S, H, Dh)``, k/v ``(B, T, Kv, Dh)`` with ``Kv`` dividing ``H``
+    (query head h reads K/V head ``h // (H / Kv)``), ``valid``
+    broadcastable to ``(S, T)`` -> ``(B, S, H·Dh)`` fp32."""
+    g = q.shape[2] // k.shape[2]
+    if g > 1:
+        k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * q.shape[-1] ** -0.5
     probs = torch.softmax(torch.where(valid, scores, _NEG_INF), dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, v.float())
     return out.reshape(out.shape[0], out.shape[1], -1)
 
 
-def _dense_attention(q, k, v) -> torch.Tensor:
+def _causal(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int | None) -> torch.Tensor:
+    """``(S, T)``: key t is visible to query s (not in its future, and
+    fewer than ``window`` positions back with a window)."""
+    delta = q_pos[:, None] - k_pos[None, :]
+    return (delta >= 0) if window is None else (delta >= 0) & (delta < window)
+
+
+def _dense_attention(q, k, v, window: int | None = None) -> torch.Tensor:
     pos = torch.arange(q.shape[1], device=q.device)
-    return _attend(q, k, v, pos[:, None] >= pos[None, :])
+    return _attend(q, k, v, _causal(pos, pos, window))
 
 
-def _chunked_attention(q, k, v) -> torch.Tensor:
+def _chunked_attention(q, k, v, window: int | None = None) -> torch.Tensor:
     """Causal attention one ``Q_CHUNK`` of queries at a time against every
     key: peak memory ``(B, H, Q_CHUNK, S)`` scores, the exact softmax per
     row."""
@@ -106,7 +125,7 @@ def _chunked_attention(q, k, v) -> torch.Tensor:
     assert s % Q_CHUNK == 0, f"seq {s} not divisible by q-chunk {Q_CHUNK}"
     pos = torch.arange(s, device=q.device)
     return torch.cat([
-        _attend(q[:, i:i + Q_CHUNK], k, v, pos[i:i + Q_CHUNK, None] >= pos[None, :])
+        _attend(q[:, i:i + Q_CHUNK], k, v, _causal(pos[i:i + Q_CHUNK], pos, window))
         for i in range(0, s, Q_CHUNK)
     ], dim=1)
 
@@ -114,21 +133,30 @@ def _chunked_attention(q, k, v) -> torch.Tensor:
 def attn_apply(
     lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
     cache: KVCache | None = None,
+    window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Causal self-attention of one layer.  ``lp`` holds the layer's
     ``attn/w{q,k,v,o}/{w,b}`` and, when it has adapters,
     ``lora/<target>/{A,B}``; ``x (C, B, S, d)``.  Returns ``(y, lora_h)``
-    (see :func:`qkv`).
+    (see :func:`qkv`).  ``window`` limits each query to the keys fewer
+    than ``window`` positions back.
 
     With ``cache`` (decode, ``S == 1``) the new K/V is written IN PLACE into
     ring slot ``length % cache_len`` of the cache (``k``, ``v``, ``pos``;
     the caller advances ``length``), and the query attends over every slot
-    written so far."""
+    written so far (and, with a window, at a position after ``length -
+    window``)."""
     c, bsz, s, _ = x.shape
     q, k, v, lora_h = qkv(lp, x, cfg)
+    # absolute positions: 0..S-1, or the cached length in decode (a tensor:
+    # no host sync)
+    pos = torch.arange(s, device=x.device) if cache is None else cache.length.reshape(1)
+    if cfg.positional == "rope":
+        q = apply_rope(q, pos, theta=cfg.rope_theta)
+        k = apply_rope(k, pos, theta=cfg.rope_theta)
     if cache is None:
         attend = _chunked_attention if s >= 2 * Q_CHUNK else _dense_attention
-        out = attend(q, k, v)
+        out = attend(q, k, v, window)
     else:
         assert s == 1, "decode mode expects one new token"
         # a one-element index tensor: the write needs no host sync
@@ -137,6 +165,8 @@ def attn_apply(
         cache.v.index_copy_(1, slot, v.to(cache.v.dtype))
         cache.pos.index_copy_(0, slot, cache.length.reshape(1))
         valid = (cache.pos >= 0) & (cache.pos <= cache.length)  # every written slot
+        if window is not None:
+            valid &= cache.pos > cache.length - window
         out = _attend(q, cache.k, cache.v, valid[None, :])
     out = out.reshape(c, bsz, s, -1).to(x.dtype)
     y = linear(out, lp["attn/wo/w"], lp.get("attn/wo/b"), cd=torch_dtype(cfg.compute_dtype))

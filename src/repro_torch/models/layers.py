@@ -1,29 +1,39 @@
 """Primitive layers on tensors with a leading CLIENT axis — the port of
-``repro/models/layers.py`` for the GPT-2 family.
+``repro/models/layers.py``: LayerNorm and RMSNorm, RoPE, the GELU and
+SwiGLU MLPs, embeddings.
 
 Activations are ``(C, ..., d)``: ``C`` clients (1 for a single model).  A
 weight leaf is either SHARED (its base shape, broadcast over the clients:
 the matmul sees ``(C·B·S, d)``) or PER CLIENT (a leading ``(C, ...)``
 axis: a batched matmul over the client axis); the layer tells the two apart
 by the leaf's number of dims.  Two defaults differ from PyTorch's own:
-LayerNorm's eps is 1e-6 (as in the reference), and GELU is the tanh
-approximation (``jax.nn.gelu``'s default).
+the norms' eps is 1e-6 (as in the reference), and GELU is the tanh
+approximation (``jax.nn.gelu``'s default).  RoPE rotates split halves
+(``x[..., :Dh/2]`` against ``x[..., Dh/2:]``, the reference's
+``jnp.split``), not interleaved pairs.
 
 Precision follows the reference's: a layer computes in the model's
 compute dtype (:func:`linear` casts its input and weights to it, as
-``dense_apply`` does), LayerNorm keeps its statistics in fp32 and returns
-its input's dtype, and parameters are stored in ``param_dtype``.
+``dense_apply`` does), the norms keep their statistics in fp32 and return
+their input's dtype, RoPE's angles and rotation are fp32, and parameters
+are stored in ``param_dtype``.
 
-Init draws from an explicit CPU ``torch.Generator`` — the same shapes and
-scales as ``repro.models.init`` (truncated-normal fan-in dense weights, zero
-biases, N(0, 0.02) embeddings) — so a seed gives the same weights on any
-device.
+Init draws from an explicit seeded stream on the CPU (:class:`InitStream`)
+— the same shapes and scales as ``repro.models.init`` (truncated-normal
+fan-in dense weights, zero biases, N(0, 0.02) embeddings) — so a seed gives
+the same weights on any device.  Each leaf is drawn in fixed chunks, every
+chunk from a numpy generator of its own, on a pool of threads: the values
+depend on the seed alone, and a billion-parameter model draws in about a
+second rather than the ~16 s of one sequential generator.
 """
 
 from __future__ import annotations
 
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,9 +42,15 @@ __all__ = [
     "torch_dtype",
     "linear",
     "layer_norm",
+    "rms_norm",
+    "norm_apply",
     "gelu",
+    "rope_frequencies",
+    "apply_rope",
+    "mlp_apply",
     "embedding",
     "per_client",
+    "InitStream",
     "truncated_normal",
     "normal",
 ]
@@ -82,8 +98,55 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torc
     return (y * per_client(scale.float(), y) + per_client(bias.float(), y)).to(x.dtype)
 
 
+def rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """RMSNorm over the last axis, statistics in fp32, eps 1e-6."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + NORM_EPS)
+    return (y * per_client(scale.float(), y)).to(x.dtype)
+
+
+def norm_apply(params: dict[str, torch.Tensor], name: str, x: torch.Tensor,
+               kind: str) -> torch.Tensor:
+    """The norm ``name`` (``norm1``, ``final_norm``, ...) of ``params`` by
+    the config's ``kind``: RMSNorm holds ``{name}/scale`` only, LayerNorm
+    ``{name}/scale`` and ``{name}/bias``."""
+    if kind == "rmsnorm":
+        return rms_norm(x, params[f"{name}/scale"])
+    return layer_norm(x, params[f"{name}/scale"], params[f"{name}/bias"])
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device: str | torch.device = "cpu") -> torch.Tensor:
+    """RoPE's inverse frequencies ``(head_dim // 2,)``, fp32."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0) -> torch.Tensor:
+    """Rotate ``x (..., S, H, Dh)`` by the absolute ``positions (S,)``: the
+    first half of each head against the second, angles in fp32."""
+    inv_freq = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * inv_freq  # (S, Dh/2)
+    cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def mlp_apply(lp: dict[str, torch.Tensor], x: torch.Tensor, *, activation: str,
+              cd: torch.dtype = torch.float32) -> torch.Tensor:
+    """The dense MLP of one layer (``mlp/{up,down}/{w,b}``, and
+    ``mlp/gate/{w,b}`` under SwiGLU): ``down(silu(gate(x)) * up(x))`` or
+    ``down(gelu(up(x)))``."""
+    up = linear(x, lp["mlp/up/w"], lp.get("mlp/up/b"), cd=cd)
+    if activation == "swiglu":
+        hidden = F.silu(linear(x, lp["mlp/gate/w"], lp.get("mlp/gate/b"), cd=cd)) * up
+    else:
+        hidden = gelu(up)
+    return linear(hidden, lp["mlp/down/w"], lp.get("mlp/down/b"), cd=cd)
 
 
 def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -95,11 +158,43 @@ def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[c.reshape((-1,) + (1,) * (ids.ndim - 1)), ids]
 
 
-def truncated_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
-    """N(0, 1) truncated to [-2, 2], times ``std`` (fp32, on the CPU)."""
-    u = torch.empty(shape, dtype=torch.float32).uniform_(_PHI_LO, _PHI_HI, generator=gen)
+class InitStream:
+    """A seeded stream of parameter draws: the n-th leaf drawn from it takes
+    the n-th child of ``numpy.random.SeedSequence(seed)``, and its values
+    come in chunks of ``CHUNK``, each from a child of the leaf's, filled in
+    parallel on the CPU."""
+
+    CHUNK = 1 << 22
+    _POOL = ThreadPoolExecutor(max_workers=max(1, min(8, os.cpu_count() or 1)))
+
+    def __init__(self, seed: int):
+        self._seq = np.random.SeedSequence(int(seed))
+
+    def _fill(self, shape, draw) -> np.ndarray:
+        """``draw(generator, out)`` over the chunks of a new fp32 array."""
+        out = np.empty(int(np.prod(shape, dtype=np.int64)), dtype=np.float32)
+        (leaf,) = self._seq.spawn(1)
+        chunks = [out[i:i + self.CHUNK] for i in range(0, out.size, self.CHUNK)]
+        seeds = leaf.spawn(len(chunks))
+        list(self._POOL.map(lambda a: draw(np.random.Generator(np.random.PCG64(a[1])), a[0]),
+                            zip(chunks, seeds)))
+        return out.reshape(shape)
+
+    def uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
+        u = self._fill(shape, lambda g, out: g.random(out=out, dtype=np.float32))
+        return torch.from_numpy(u).mul_(hi - lo).add_(lo)
+
+    def normal(self, shape) -> torch.Tensor:
+        return torch.from_numpy(self._fill(
+            shape, lambda g, out: g.standard_normal(out=out, dtype=np.float32)))
+
+
+def truncated_normal(shape, std: float, gen: InitStream) -> torch.Tensor:
+    """N(0, 1) truncated to [-2, 2], times ``std`` (fp32, on the CPU), by
+    the inverse CDF of a uniform draw."""
+    u = gen.uniform(shape, _PHI_LO, _PHI_HI)
     return u.mul_(2.0).sub_(1.0).erfinv_().mul_(_SQRT2 * std)
 
 
-def normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
-    return torch.empty(shape, dtype=torch.float32).normal_(0.0, std, generator=gen)
+def normal(shape, std: float, gen: InitStream) -> torch.Tensor:
+    return gen.normal(shape).mul_(std)

@@ -1,6 +1,8 @@
-"""Top-level model: embeddings + stack + tied LM head — the port of
+"""Top-level model: embeddings + stack + LM head — the port of
 ``repro/models/model.py``'s ``init``, ``forward``, ``init_cache``,
-``decode_step`` and ``prefill`` for the GPT-2 family.
+``decode_step`` and ``prefill`` for the attention families (``dense`` and
+``moe``: learned positions or RoPE, LayerNorm or RMSNorm, GELU or SwiGLU,
+multi-head or grouped-query attention, a tied or untied head).
 
 Parameters are a flat dict keyed by the reference's pytree paths joined
 with ``/`` (``embed``, ``stack/pos0/attn/wq/w``, ``lora_head/A``, ...), so
@@ -18,8 +20,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (
-    embedding, layer_norm, linear, normal, torch_dtype, truncated_normal,
+    InitStream, embedding, linear, norm_apply, normal, torch_dtype, truncated_normal,
 )
+from repro_torch.models.moe import moe_init
 from repro_torch.models.transformer import LAYER_NDIM, STACK_PREFIX, init_stack_cache, stack_apply
 
 __all__ = [
@@ -33,27 +36,21 @@ _TOP_NDIM = {"embed": 2, "pos_embed": 2, "lm_head": 2, "final_norm/scale": 1,
 
 
 class Aux(NamedTuple):
+    moe_aux: torch.Tensor  # (C,) fp32 load-balance loss (0 without MoE layers)
     lora_h: torch.Tensor | None  # (C, B, r) pooled LoRA projection (paper eq. 8)
 
 
-def _other_families(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the port carries the GPT-2 family only "
-        "(ROADMAP.md port queue: other model families and mixed fleets)"
-    )
-
-
 def check_supported(cfg: ModelConfig) -> None:
-    """The port carries the GPT-2 family (dense, learned positions,
-    LayerNorm, GELU, multi-head attention) with fp32 or bf16 parameters
-    and compute; anything else is a later slice's work."""
-    ok = (
-        cfg.family == "dense" and cfg.moe is None and cfg.positional == "learned"
-        and cfg.norm == "layernorm" and cfg.activation == "gelu"
-        and cfg.num_kv_heads == cfg.num_heads and cfg.sliding_window is None
-    )
-    if not ok:
-        raise _other_families(f"model {cfg.name!r}")
+    """The port carries the attention families, ``dense`` and ``moe``, with
+    fp32 or bf16 parameters and compute; the SSM, hybrid, VLM and audio
+    families (and cross-attention or a frontend) are a later slice's
+    work."""
+    if (cfg.family in ("ssm", "hybrid", "vlm", "audio") or cfg.cross_attention
+            or cfg.frontend != "none" or cfg.positional == "none"):
+        raise NotImplementedError(
+            f"model {cfg.name!r} (family {cfg.family!r}): the port carries the dense and MoE "
+            "families only (ROADMAP.md port queue: other model families and mixed fleets)"
+        )
     for field in ("param_dtype", "compute_dtype", "optimizer_state_dtype"):
         if getattr(cfg, field) not in ("float32", "bfloat16"):
             raise NotImplementedError(
@@ -62,18 +59,47 @@ def check_supported(cfg: ModelConfig) -> None:
             )
 
 
-def init(cfg: ModelConfig, seed: int, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+def init(cfg: ModelConfig, seed: int, device: str | torch.device = "cuda", *,
+         adapters_only: bool = False) -> dict[str, torch.Tensor]:
     """Fresh parameters with the reference's shapes and scales, drawn in
-    fp32 from a CPU ``torch.Generator`` seeded with ``seed``, stored in
-    ``cfg.param_dtype`` on ``device``."""
+    fp32 from the CPU stream :class:`~repro_torch.models.layers.InitStream`
+    seeded with ``seed``, stored in
+    ``cfg.param_dtype`` on ``device``.  The LoRA adapters are drawn first,
+    so ``adapters_only=True`` returns the same adapter leaves alone without
+    drawing the backbone: what a client needs under a shared pretrained
+    backbone, where drawing and copying the backbone would cost seconds a
+    client at a billion parameters."""
     check_supported(cfg)
-    gen = torch.Generator().manual_seed(int(seed))
+    gen = InitStream(seed)
     d, L, hd = cfg.d_model, cfg.num_layers, cfg.head_dim
+    pre = STACK_PREFIX
+    p: dict[str, torch.Tensor] = {}
+    lc = cfg.lora
+    if lc is not None:
+        out_dims = {"q": cfg.num_heads * hd, "k": cfg.num_kv_heads * hd,
+                    "v": cfg.num_kv_heads * hd, "o": d}
+        for tgt in (t for t in lc.targets if t in _ATTN_TARGETS):
+            p[pre + f"lora/{tgt}/A"] = normal((L, d, lc.rank), d**-0.5, gen)
+            p[pre + f"lora/{tgt}/B"] = torch.zeros(L, lc.rank, out_dims[tgt])
+        if "head" in lc.targets:
+            p["lora_head/A"] = normal((d, lc.rank), d**-0.5, gen)
+            p["lora_head/B"] = torch.zeros(lc.rank, cfg.vocab_size)
+    if not adapters_only:
+        p.update(_init_backbone(cfg, gen))
+    dt = torch_dtype(cfg.param_dtype)
+    return {k: v.to(device=device, dtype=dt) for k, v in p.items()}
+
+
+def _init_backbone(cfg: ModelConfig, gen: InitStream) -> dict[str, torch.Tensor]:
+    """The frozen leaves of :func:`init`, fp32 on the CPU."""
+    d, L, hd = cfg.d_model, cfg.num_layers, cfg.head_dim
+    layer_norm = cfg.norm == "layernorm"
     p: dict[str, torch.Tensor] = {
         "embed": normal((cfg.vocab_size, d), 0.02, gen),
         "final_norm/scale": torch.ones(d),
-        "final_norm/bias": torch.zeros(d),
     }
+    if layer_norm:
+        p["final_norm/bias"] = torch.zeros(d)
     pre = STACK_PREFIX
 
     def dense(name, i, o):
@@ -83,27 +109,23 @@ def init(cfg: ModelConfig, seed: int, device: str | torch.device = "cuda") -> di
 
     for norm in ("norm1", "norm2"):
         p[pre + norm + "/scale"] = torch.ones(L, d)
-        p[pre + norm + "/bias"] = torch.zeros(L, d)
+        if layer_norm:
+            p[pre + norm + "/bias"] = torch.zeros(L, d)
     for name, (i, o) in {"wq": (d, cfg.num_heads * hd), "wk": (d, cfg.num_kv_heads * hd),
                          "wv": (d, cfg.num_kv_heads * hd), "wo": (cfg.num_heads * hd, d)}.items():
         dense("attn/" + name, i, o)
-    dense("mlp/up", d, cfg.d_ff)
-    dense("mlp/down", cfg.d_ff, d)
-    lc = cfg.lora
-    if lc is not None:
-        out_dims = {"q": cfg.num_heads * hd, "k": cfg.num_kv_heads * hd,
-                    "v": cfg.num_kv_heads * hd, "o": d}
-        for tgt in (t for t in lc.targets if t in _ATTN_TARGETS):
-            p[pre + f"lora/{tgt}/A"] = normal((L, d, lc.rank), d**-0.5, gen)
-            p[pre + f"lora/{tgt}/B"] = torch.zeros(L, lc.rank, out_dims[tgt])
-    p["pos_embed"] = normal((cfg.max_seq_len, d), 0.02, gen)
+    if cfg.is_moe_layer(0):
+        p.update({pre + k: v for k, v in moe_init(cfg, L, gen).items()})
+    else:
+        dense("mlp/up", d, cfg.d_ff)
+        dense("mlp/down", cfg.d_ff, d)
+        if cfg.activation == "swiglu":
+            dense("mlp/gate", d, cfg.d_ff)
+    if cfg.positional == "learned":
+        p["pos_embed"] = normal((cfg.max_seq_len, d), 0.02, gen)
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((cfg.vocab_size, d), 0.02, gen)
-    if lc is not None and "head" in lc.targets:
-        p["lora_head/A"] = normal((d, lc.rank), d**-0.5, gen)
-        p["lora_head/B"] = torch.zeros(lc.rank, cfg.vocab_size)
-    dt = torch_dtype(cfg.param_dtype)
-    return {k: v.to(device=device, dtype=dt) for k, v in p.items()}
+    return p
 
 
 def _lm_logits(params, cfg: ModelConfig, h: torch.Tensor, head_cols: int | None) -> torch.Tensor:
@@ -123,27 +145,40 @@ def _lm_logits(params, cfg: ModelConfig, h: torch.Tensor, head_cols: int | None)
     return logits
 
 
+def _embed(params: dict[str, torch.Tensor], cfg: ModelConfig, tokens: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    """Token embeddings ``tokens (C, B, S)`` -> ``(C, B, S, d)`` in the
+    compute dtype, plus the learned position rows ``positions (S,)`` when
+    the model has them (RoPE rotates q and k in attention instead)."""
+    cd = torch_dtype(cfg.compute_dtype)
+    x = embedding(params["embed"], tokens).to(cd)
+    if cfg.positional == "learned":
+        pos = params["pos_embed"].index_select(-2, positions.long())
+        x = x + (pos if pos.ndim == 2 else pos[:, None]).to(cd)
+    return x
+
+
 def backbone(
     params: dict[str, torch.Tensor],
     cfg: ModelConfig,
     tokens: torch.Tensor,
     *,
     last_only: bool = False,
+    window: int | None = None,
 ) -> tuple[torch.Tensor, Aux]:
     """Hidden states post final-norm, pre LM head: ``tokens (C, B, S)`` ->
     ``(C, B, S, d)``, or ``(C, B, 1, d)`` for the final position only with
     ``last_only`` (the stack still runs every position).  Training reads
     this with a chunked cross-entropy, so ``(B, S, V)`` logits never exist
-    at once.  ``Aux.lora_h`` always pools the whole sequence."""
+    at once.  ``Aux.lora_h`` always pools the whole sequence.  ``window``
+    (default ``cfg.sliding_window``) is every attention layer's sliding
+    window."""
     check_supported(cfg)
-    s = tokens.shape[-1]
-    pos = params["pos_embed"]
-    pos = pos[:s] if pos.ndim == 2 else pos[:, None, :s]
-    cd = torch_dtype(cfg.compute_dtype)
-    x = embedding(params["embed"], tokens).to(cd) + pos.to(cd)
-    st = stack_apply(params, x, cfg)
+    window = window if window is not None else cfg.sliding_window
+    x = _embed(params, cfg, tokens, torch.arange(tokens.shape[-1], device=tokens.device))
+    st = stack_apply(params, x, cfg, window=window)
     h = st.x[:, :, -1:] if last_only else st.x
-    return layer_norm(h, params["final_norm/scale"], params["final_norm/bias"]), Aux(lora_h=st.lora_h)
+    return norm_apply(params, "final_norm", h, cfg.norm), Aux(moe_aux=st.moe_aux, lora_h=st.lora_h)
 
 
 def forward(
@@ -153,12 +188,13 @@ def forward(
     *,
     last_only: bool = False,
     head_cols: int | None = None,
+    window: int | None = None,
 ) -> tuple[torch.Tensor, Aux]:
     """``tokens (C, B, S)`` -> logits ``(C, B, S, V)``, or ``(C, B, V)``
     from the final position only with ``last_only``; ``head_cols=k`` keeps
     the first k vocab columns (the class readout).  ``Aux.lora_h`` always
     pools the whole sequence."""
-    h, aux = backbone(params, cfg, tokens, last_only=last_only)
+    h, aux = backbone(params, cfg, tokens, last_only=last_only, window=window)
     logits = _lm_logits(params, cfg, h, head_cols)
     return (logits[:, :, 0] if last_only else logits), aux
 
@@ -178,12 +214,13 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: int | No
                device: str | torch.device = "cuda") -> dict:
     """Decode cache: the stacked per-layer KV caches (``{"layers": {"pos0":
     KVCache}}``, every field with a leading ``(L, ...)`` axis) and the
-    absolute ``length``."""
+    absolute ``length``.  With a ``window`` (default
+    ``cfg.sliding_window``) each layer keeps a ring of ``min(cache_len,
+    window)`` slots."""
     check_supported(cfg)
-    if window is not None:
-        raise _other_families("a sliding-window decode")
+    window = window if window is not None else cfg.sliding_window
     return {
-        "layers": init_stack_cache(cfg, batch, cache_len, device),
+        "layers": init_stack_cache(cfg, batch, cache_len, window=window, device=device),
         "length": torch.zeros((), dtype=torch.int32, device=device),
     }
 
@@ -196,21 +233,17 @@ def decode_step(params: dict[str, torch.Tensor], cfg: ModelConfig, cache: dict,
 
     ``params`` is one model (shared leaves: the batch is a client axis of 1)
     or per-request adapters on the client axis (``B`` rows of batch 1 each)
-    over a shared backbone."""
+    over a shared backbone.  ``window`` (default ``cfg.sliding_window``)
+    must be the one the cache was made with."""
     check_supported(cfg)
-    if window is not None:
-        raise _other_families("a sliding-window decode")
+    window = window if window is not None else cfg.sliding_window
     b = token.shape[0]
     c = _client_rows(params)
     if c not in (1, b):
         raise ValueError(f"{c} adapter rows for a batch of {b}")
-    pos = params["pos_embed"].index_select(-2, cache["length"].reshape(1).long())
-    if pos.ndim == 3:
-        pos = pos[:, None]
-    cd = torch_dtype(cfg.compute_dtype)
-    x = embedding(params["embed"], token.reshape(c, b // c, 1)).to(cd) + pos.to(cd)
-    st = stack_apply(params, x, cfg, caches=cache["layers"])
-    h = layer_norm(st.x, params["final_norm/scale"], params["final_norm/bias"])
+    x = _embed(params, cfg, token.reshape(c, b // c, 1), cache["length"].reshape(1))
+    st = stack_apply(params, x, cfg, caches=cache["layers"], window=window)
+    h = norm_apply(params, "final_norm", st.x, cfg.norm)
     logits = _lm_logits(params, cfg, h, None).reshape(b, -1)
     cache["layers"]["pos0"].length.add_(1)
     cache["length"].add_(1)
@@ -221,9 +254,8 @@ def prefill(params: dict[str, torch.Tensor], cfg: ModelConfig, batch: dict, *,
             window: int | None = None) -> tuple[torch.Tensor, Aux]:
     """Full forward over the prompts ``batch["tokens"] (B, S)`` of one
     model, returning the last-position logits ``(B, V)`` — what sampling
-    needs — and ``Aux`` with ``lora_h (B, r)``.  From ``S = 1024`` on the
-    attention takes the chunked path."""
-    if window is not None:
-        raise _other_families("a sliding-window prefill")
-    logits, aux = forward(params, cfg, batch["tokens"][None], last_only=True)
-    return logits[0], Aux(lora_h=None if aux.lora_h is None else aux.lora_h[0])
+    needs — and ``Aux`` with ``moe_aux ()`` and ``lora_h (B, r)``.  From
+    ``S = 1024`` on the attention takes the chunked path."""
+    logits, aux = forward(params, cfg, batch["tokens"][None], last_only=True, window=window)
+    return logits[0], Aux(moe_aux=aux.moe_aux[0],
+                          lora_h=None if aux.lora_h is None else aux.lora_h[0])

@@ -57,7 +57,7 @@ def init_from(path: str):
     ``{cfg name}/{seed}/{key}`` arrays), the bridged JAX init."""
     saved = np.load(path)
 
-    def init(cfg, seed, device="cuda"):
+    def init(cfg, seed, device="cuda", **_):
         head = f"{cfg.name}/{seed}/"
         return {k[len(head):]: torch.as_tensor(saved[k], device=device)
                 for k in saved.files if k.startswith(head)}

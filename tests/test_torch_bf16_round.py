@@ -116,7 +116,7 @@ def runs():
     to_jax = {T_CLIENT_BF: J_CLIENT_BF, T_SERVER_BF: J_SERVER_BF, T_CLIENT: J_CLIENT,
               T_SERVER: J_SERVER}
 
-    def bridged_init(cfg, seed, device="cuda"):
+    def bridged_init(cfg, seed, device="cuda", **_):
         tree = j_init(jax.random.PRNGKey(seed), to_jax[cfg])
         return bridge.to_torch(jax.tree.map(np.asarray, tree), device)
 

@@ -207,7 +207,7 @@ def _fed(engine, scan, package):
                scenario="gilbert_elliott", faults="lossy", channel=chan(**CHAN))
 
 
-def _bridged_init(cfg, seed, device="cuda"):
+def _bridged_init(cfg, seed, device="cuda", **_):
     tree = j_init(jax.random.PRNGKey(seed), {T_CLIENT: J_CLIENT, T_SERVER: J_SERVER}[cfg])
     return bridge.to_torch(jax.tree.map(np.asarray, tree), device)
 

@@ -221,7 +221,7 @@ def test_the_clis_adapters_train_as_in_the_reference():
     t_cfg = {"client": t_cli.REDUCED_CLIENT.with_overrides(**sizes["client"]),
              "server": t_cli.REDUCED_SERVER.with_overrides(**sizes["server"])}
 
-    def bridged(cfg, seed, device="cuda"):
+    def bridged(cfg, seed, device="cuda", **_):
         role = "client" if cfg == t_cfg["client"] else "server"
         return bridge.to_torch(jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(seed), j_cfg[role])),
                                device)

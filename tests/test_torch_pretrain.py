@@ -86,7 +86,7 @@ LR, STEPS = 2e-3, 3
 NOISE_LEAVES = ("stack/pos0/attn/wk/b",)  # zero gradient in exact arithmetic
 
 
-def _bridged_init(cfg, seed, device="cuda"):
+def _bridged_init(cfg, seed, device="cuda", **_):
     tree = j_init(jax.random.PRNGKey(seed), CFG_MAP[cfg])
     return bridge.to_torch(jax.tree.map(np.asarray, tree), device)
 

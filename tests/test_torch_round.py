@@ -113,7 +113,7 @@ def _capture(module, name, into):
     return wrapped
 
 
-def _bridged_init(cfg, seed, device="cuda"):
+def _bridged_init(cfg, seed, device="cuda", **_):
     cfg_map = {T_CLIENT: J_CLIENT, T_SERVER: J_SERVER}
     tree = j_init(jax.random.PRNGKey(seed), cfg_map[cfg])
     return bridge.to_torch(jax.tree.map(np.asarray, tree), device)
@@ -359,16 +359,27 @@ def test_fused_engine_dense_uplink_matches_reference():
 _QUEUE = "ROADMAP.md port queue: "
 
 
-@pytest.mark.parametrize("change,match", [
+# a Llama-style family beside T_CLIENT: a mixed fleet
+_MIXED = [T_CLIENT, T_CLIENT.with_overrides(name="t-llama", positional="rope", norm="rmsnorm",
+                                            activation="swiglu", num_kv_heads=1)]
+
+
+@pytest.mark.parametrize("change,match,clients", [
     # the id is kept from the bf16 refusal that this case held before bf16 ran
-    pytest.param(dict(compute_dtype="float16"), _QUEUE + "fp16", id="bf16-compute"),
+    pytest.param(dict(compute_dtype="float16"), _QUEUE + "fp16", T_CLIENT, id="bf16-compute"),
     # the reference's own refusal, kept by the port's sequential engine
     pytest.param(dict(engine="sequential", fleet_store="host"),
                  "fleet_store='host' is not supported by the sequential reference engine",
-                 id="sequential-host-fleet-store"),
+                 T_CLIENT, id="sequential-host-fleet-store"),
+    # a mixed fleet runs round by round; its block is a later slice's
+    pytest.param(dict(scan_rounds=True), _QUEUE + "other model families and mixed fleets",
+                 _MIXED, id="mixed-fleet-scan-rounds"),
+    pytest.param(dict(), _QUEUE + "other model families and mixed fleets",
+                 [T_CLIENT, T_CLIENT.with_overrides(family="vlm", frontend="vision")],
+                 id="vlm-family"),
 ])
-def test_what_the_port_does_not_carry_raises(change, match):
+def test_what_the_port_does_not_carry_raises(change, match, clients):
     fed = TFed(**{**_fed_kwargs("float_wire"), **change})
     ds = t_dataset(vocab_size=256, seq_len=12, total=500, seed=0)
     with pytest.raises(NotImplementedError, match=match):
-        t_rounds.run_federated(T_CLIENT, T_SERVER, ds, fed, device="cpu")
+        t_rounds.run_federated(clients, T_SERVER, ds, fed, device="cpu")

@@ -89,7 +89,7 @@ SCAN_CASES = {"scan-pretrained": ("fused_e2e", "none", 2, True),
 PORT_ONLY = ("loop-pretrained", "loop-random-init", "scan-random-init")
 
 
-def _bridged_init(cfg, seed, device="cuda"):
+def _bridged_init(cfg, seed, device="cuda", **_):
     tree = j_init(jax.random.PRNGKey(seed), {T_CLIENT: J_CLIENT, T_SERVER: J_SERVER}[cfg])
     return bridge.to_torch(jax.tree.map(np.asarray, tree), device)
 

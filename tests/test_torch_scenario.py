@@ -200,7 +200,7 @@ def _fed(scan, package):
                scenario="gilbert_elliott", channel=chan(bandwidth_hz=2e5, mean_snr_db=2.0))
 
 
-def _bridged_init(cfg, seed, device="cuda"):
+def _bridged_init(cfg, seed, device="cuda", **_):
     tree = j_init(jax.random.PRNGKey(seed), {T_CLIENT: J_CLIENT, T_SERVER: J_SERVER}[cfg])
     return bridge.to_torch(jax.tree.map(np.asarray, tree), device)
 

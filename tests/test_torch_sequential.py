@@ -71,7 +71,7 @@ RUNS = [("reference", "float"), ("sequential", "float"), ("batched", "float"),
 PROBE = np.random.default_rng(3).integers(0, 256, size=(16, 12)).astype(np.int32)
 
 
-def _bridged_init(cfg, seed, device="cuda"):
+def _bridged_init(cfg, seed, device="cuda", **_):
     cfg_map = {T_CLIENT: J_CLIENT, T_SERVER: J_SERVER}
     tree = j_init(jax.random.PRNGKey(seed), cfg_map[cfg])
     return bridge.to_torch(jax.tree.map(np.asarray, tree), device)
