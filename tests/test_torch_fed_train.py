@@ -4,7 +4,7 @@
   and hand ``run_federated`` the same models and checkpoint arguments; each
   module's ``run_federated`` is stubbed to capture them.  The port's JSON
   record has the reference's keys, and the same ``fed`` entry.
-* ``--families`` raises naming its ROADMAP.md port queue item; ``--resume``
+* ``--families`` with a VLM raises naming its ROADMAP.md port queue item; ``--resume``
   without ``--ckpt-dir`` is a usage error in both.
 * End to end on the CPU (the CLI's models shrunk to the tests' tiny
   configs): a host-store run of 2 rounds with ``--ckpt-dir`` leaves the
@@ -101,7 +101,7 @@ def test_the_device_defaults_to_the_card(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--families", "gpt2-paper,mamba2-130m"], "other model families and mixed fleets"),
+    (["--families", "gpt2-paper,internvl2-76b"], "other model families and mixed fleets"),
 ])
 def test_what_the_cli_does_not_carry_raises(flag, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md port queue: {item}"):

@@ -200,17 +200,18 @@ def test_the_registry_is_the_references_and_carries_gpt2():
 
 
 # every id resolves now; a family the port does not run is refused when its
-# model is built (the registry cases build one: jamba is hybrid, mamba SSM)
+# model is built, before anything is drawn (the registry cases build one:
+# seamless is audio, internvl2 a VLM)
 @pytest.mark.parametrize("call,item", [
-    pytest.param(lambda: t_serve.model_init(get_config("jamba-1.5-large-398b"), 0, "cpu"),
+    pytest.param(lambda: t_serve.model_init(get_config("seamless-m4t-large-v2"), 0, "cpu"),
                  "other model families and mixed fleets", id="registry"),
-    pytest.param(lambda: t_serve.model_init(get_smoke_config("mamba2-130m"), 0, "cpu"),
+    pytest.param(lambda: t_serve.model_init(get_smoke_config("internvl2-76b"), 0, "cpu"),
                  "other model families and mixed fleets", id="smoke-registry"),
     pytest.param(lambda: t_train.main(["--production", "--device", "cpu"]),
                  "production mesh, sharding rules and the dry run", id="train-production"),
     pytest.param(lambda: t_train.main(["--arch", "internvl2-76b", "--device", "cpu"]),
                  "other model families and mixed fleets", id="train-arch"),
-    pytest.param(lambda: t_serve.main(["--arch", "mamba2-130m", "--device", "cpu"]),
+    pytest.param(lambda: t_serve.main(["--arch", "seamless-m4t-large-v2", "--device", "cpu"]),
                  "other model families and mixed fleets", id="serve-arch"),
 ])
 def test_what_the_launchers_do_not_carry_raises(call, item):

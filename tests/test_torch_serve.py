@@ -43,7 +43,7 @@ from repro.serve import make_prefill_step as j_prefill_step  # noqa: E402
 from repro.serve.adapters import gather_adapters as j_gather  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs.base import LoRAConfig as TLoRA  # noqa: E402
-from repro_torch.configs.base import SSMConfig as TSSM  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs.gpt2_paper import REDUCED_CLIENT as T_RC  # noqa: E402
 from repro_torch.fed.store import DeviceFleetStore  # noqa: E402
 from repro_torch.lora import lora_template, map_lora, merge_lora, split_lora  # noqa: E402
@@ -349,11 +349,10 @@ def test_sampling_is_seeded(model):
 
 def test_serving_refuses_what_the_port_does_not_carry(model):
     _, tp, _, _ = model
-    # a sliding window serves now; an SSM decode cache is a later slice's
-    ssm = T_RC.with_overrides(family="ssm", positional="none", norm="rmsnorm",
-                              ssm=TSSM(state_dim=16, head_dim=16, expand=2, chunk_size=4))
+    # a sliding window and an SSM decode cache serve now; an audio model's
+    # decode cache (the fixed encoder output) is a later slice's
     with pytest.raises(NotImplementedError, match="port queue: other model families"):
-        t_init_cache(ssm, 2, 8, window=4, device="cpu")
+        t_init_cache(get_smoke_config("seamless-m4t-large-v2"), 2, 8, window=4, device="cpu")
     sess = ServeSession(ServeConfig(model=TCFG, batch=1, cache_len=PROMPT + GEN), tp, device="cpu")
     with pytest.raises(ValueError, match="AdapterCache"):
         sess.attach([0])
