@@ -233,6 +233,26 @@ Phases (any failure raises and exits non-zero):
    error.  (c) A union wire of two buckets at k_cap 128 and 1024
    (``concat_wires``) through kernels 1 and 2, ``torch.equal`` to their
    plain versions and to the unpadded wide wire.
+6g. the state-space families, SSM and hybrid — (a) phase 6f's fleet with
+   mamba2-130m in granite's place (its published widths: 24 layers, d 768,
+   d_inner 1536, 24 SSD heads of P 64, state N 128, conv 4, chunk 256;
+   the vocabulary re-based to GPT-2's, fp32; attention-free, so of GPT-2
+   small's rank-8 LoRA it keeps the head adapter, which gives its eq. 8
+   projection), the same five runs and checks.  (b) mamba2-130m alone in
+   its published bf16 and in fp32: the (8, 1024) prefill (4 chunks), 16
+   decode steps at batch 8 against the forward (``DECODE_TOL``; bf16 plus
+   4 bf16 ulps of the largest logit), a decode step run with every
+   synchronising call an error and then timed, and one decode step traced
+   (busy share, top device ops).  (c) The SSM and the hybrid smoke configs
+   (jamba-smoke: a period of SSM, SSM + MoE, attention, SSM + MoE; MoE at
+   capacity factor 8): forward, prefill, 8 decode steps against the
+   forward; then ``fed_train --families
+   gpt2-paper,mamba2-130m,jamba-1.5-large-398b --engine fused_e2e
+   --use-kernels --rounds 2`` on the card (kernel 1 once a round).  (d) A
+   ``ServeSession`` of batch 8 on mamba2-130m with 8 tenants' head
+   adapters in an ``AdapterCache`` of 4 slots: 32-token prompts, 32
+   greedy tokens, every request's logits within 1e-5 of their largest
+   magnitude against the request alone (the CPU test's bound).
 7. timing — each kernel's C entry point, its wrapper, its plain version and
    one PyTorch library call where one computes the same function, at the
    main path's shapes, beside the least time the card could take (for
@@ -261,7 +281,8 @@ The last lines are the card and its power limit, the kernels record and the
 device record (JSON).  In the kernels record ``launches`` is each kernel's
 count summed over the eight main-path runs, the pretrained path's four,
 phase 5c's runs and validated wires, phase 5d's runs, phase 5e's
-(its children's included) and phase 6f's five,
+(its children's included), phase 6f's five and phase 6g's five and its
+``fed_train`` run,
 ``pct_of_bound`` its bound over its time; the static top-k's, the KL's and the attention's rows (fp32 and
 bf16) add ``entry_launches``, their counts through their public entry
 points.
@@ -2519,7 +2540,7 @@ def family_cohorts(into: dict):
 
 def family_runs(device, cfgs, card: str = "") -> dict:
     """(a): the mixed fleet through the five engines; returns their launches
-    and a granite client's merged parameters (for (b)).  ``card`` (the
+    and client 1's merged parameters (the second family's, for (b)).  ``card`` (the
     card's name and power limit) follows each line with a time."""
     families, server_cfg, ds = cfgs
     on_card = torch.device(device).type == "cuda"
@@ -2574,8 +2595,8 @@ def family_runs(device, cfgs, card: str = "") -> dict:
                                                   r.num_transmitters) for r in run.ledger.rounds]),
                         server_acc=run.server_acc, client_acc=run.client_acc,
                         round_seconds=list(run.round_seconds), peak=peak, make_up=make_up)
-        if engine == "sequential":  # a granite client's merged parameters, for (b)
-            out["granite"] = eng.client_params(1)
+        if engine == "sequential":  # client 1's merged parameters (the second family's), for (b)
+            out["client1"] = eng.client_params(1)
         del run, eng, srv, b
         gc.collect()
         if on_card:
@@ -2596,14 +2617,14 @@ def family_runs(device, cfgs, card: str = "") -> dict:
     return dict(runs=out, launches=launches)
 
 
-def check_family_models(device) -> None:
-    """(b) part 1: each dense and MoE smoke config on the card: the forward,
+def check_family_models(device, archs=FAMILY_ARCHS + ("yi-9b/window",)) -> None:
+    """(b) part 1: each smoke config of ``archs`` on the card: the forward,
     the prefill (its last position), and 8 decode steps against the
     forward's logits (MoE at capacity factor 8, as the reference's test
-    holds it: a full sequence's groups then drop nothing), then one
-    sliding-window decode of 16 steps through a ring of 6 slots."""
+    holds it: a full sequence's groups then drop nothing); ``yi-9b/window``
+    a sliding-window decode of 16 steps through a ring of 6 slots."""
     gen = np.random.default_rng(11)
-    for arch in FAMILY_ARCHS + ("yi-9b/window",):
+    for arch in archs:
         cfg = get_smoke_config(arch.split("/")[0])
         if cfg.moe is not None:
             cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
@@ -2631,6 +2652,31 @@ def check_family_models(device) -> None:
     sync(device)
 
 
+def median_ms(fn, reps=5) -> float:
+    """The median of ``reps`` calls of ``fn`` after one warm-up, each timed
+    alone with CUDA events."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def guarded(fn):
+    """``fn()`` with every synchronising call an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def time_granite(device, params, card: str) -> dict:
     """(b) part 2: granite at full width (its 24 layers, d 1024, 32 experts
     top-8): the (8, 1024) prefill and a decode step at batch 8, each timed
@@ -2639,30 +2685,13 @@ def time_granite(device, params, card: str) -> dict:
     tokens = torch.as_tensor(np.random.default_rng(12).integers(0, GRANITE.vocab_size,
                                                                 (SERVE_BATCH, PREFILL_S)),
                              device=device)
-
-    def median_ms(fn, reps=5):
-        fn()
-        times = []
-        for _ in range(reps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
     with torch.no_grad():
         torch.cuda.reset_peak_memory_stats()
         prefill_ms = median_ms(lambda: model.prefill(params, GRANITE, {"tokens": tokens}))
         prefill_peak = torch.cuda.max_memory_allocated() / 2**30
         cache = model.init_cache(GRANITE, SERVE_BATCH, 64, device=device)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")  # a decode step waits for nothing
-        try:
-            model.decode_step(params, GRANITE, cache, tokens[:, 0])
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        # a decode step waits for nothing
+        guarded(lambda: model.decode_step(params, GRANITE, cache, tokens[:, 0]))
         step = iter(range(1, 10**6))
         decode_ms = median_ms(lambda: model.decode_step(params, GRANITE, cache,
                                                         tokens[:, next(step) % PREFILL_S]), reps=9)
@@ -2709,7 +2738,7 @@ def phase_families(device, card: str = "", cfgs=None) -> dict:
         cfgs = ([GPT2_SMALL, GRANITE], FAULT_SERVER,
                 make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32))
     out = family_runs(device, cfgs, card)
-    granite = out["runs"].pop("granite")
+    granite = out["runs"].pop("client1")
     for key in set(fed_pretrain._CACHE) - cached:  # the phase's backbones
         del fed_pretrain._CACHE[key]
     check_family_models(device)
@@ -2722,6 +2751,213 @@ def phase_families(device, card: str = "", cfgs=None) -> dict:
         check_union_wire(device)
         ops.reset_launches()  # the comparisons' launches do not count
     log(f"[families] phase 6f passed in {time.perf_counter() - t0:.1f} s ({card})")
+    return out
+
+
+# -- phase 6g: the state-space families, SSM and hybrid -------------------------
+
+# mamba2-130m at its published widths (24 layers, d 768, d_inner 1536, 24 SSD
+# heads of P 64, state N 128, conv 4, chunk 256), re-based as fed_train's
+# family_configs re-bases a family (the GPT-2 exchange vocabulary).  It has no
+# attention, so of GPT-2 small's LoRA (rank 8) it keeps the head adapter,
+# which gives its eq. 8 projection.  MAMBA_BF16 keeps the published config's
+# bf16 parameters and compute; MAMBA is fp32, as the main path.
+MAMBA_BF16 = get_config("mamba2-130m").with_overrides(
+    name="fam-mamba2-130m", vocab_size=GPT2_SMALL.vocab_size,
+    lora=dataclasses.replace(GPT2_SMALL.lora, targets=("q", "v", "head")), remat=False)
+MAMBA = MAMBA_BF16.with_overrides(param_dtype="float32", compute_dtype="float32")
+SSM_ARCHS = ("mamba2-130m", "jamba-1.5-large-398b")
+SSM_DECODE_STEPS = 16
+# in bf16 the decode and the chunked forward round at the same points but sum
+# in other orders (GEMMs of other shapes, the recurrence against the chunked
+# SSD), so a rounding may land a bf16 ulp away: DECODE_TOL plus this many bf16
+# ulps (2^-8 relative each) of the largest logit
+BF16_DECODE_ULPS = 4
+SSM_SERVE_TOL = 1e-5  # of the largest logit: tests/test_torch_serve.py's bound
+FAMILIES_CLI = "gpt2-paper,mamba2-130m,jamba-1.5-large-398b"
+
+
+def top_device_ops(prof, n: int = 5) -> list[tuple[str, float, int]]:
+    """The ``n`` device ops of a trace with the most device time: (name,
+    microseconds, calls)."""
+    by_name: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+            acc = by_name.setdefault(e.name(), [0.0, 0])
+            acc[0] += (e.end_ns() - e.start_ns()) / 1e3
+            acc[1] += 1
+    return sorted(((k, v[0], v[1]) for k, v in by_name.items()), key=lambda x: -x[1])[:n]
+
+
+def time_mamba(device, cfg, card: str) -> dict:
+    """(b): mamba2-130m alone at full width in ``cfg``'s dtype: the (8, 1024)
+    prefill (4 chunks of 256) timed with CUDA events (the median of 5 after
+    a warm-up); 16 decode steps at batch 8 against the forward's logits
+    (within ``DECODE_TOL``, in bf16 plus ``BF16_DECODE_ULPS`` ulps); a decode
+    step run with every synchronising call an error, then timed (the median
+    of 9); and one decode step traced."""
+    fp32 = cfg.compute_dtype == "float32"
+    dtype = "fp32 (TF32 off)" if fp32 else "bf16"
+    params = model.init(cfg, 0, device)
+    tokens = torch.as_tensor(np.random.default_rng(31).integers(0, cfg.vocab_size,
+                                                                (SERVE_BATCH, PREFILL_S)),
+                             device=device)
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        prefill_ms = median_ms(lambda: model.prefill(params, cfg, {"tokens": tokens}))
+        prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+        last, aux = model.prefill(params, cfg, {"tokens": tokens})
+        assert tuple(last.shape) == (SERVE_BATCH, cfg.vocab_size) and bool(torch.isfinite(last).all())
+        assert tuple(aux.lora_h.shape) == (SERVE_BATCH, cfg.lora.rank)  # the head's projection
+        short = tokens[:, :SSM_DECODE_STEPS]
+        full, _ = model.forward(params, cfg, short[None])
+        cache = model.init_cache(cfg, SERVE_BATCH, 64, device=device)
+        errs = []
+        for t in range(SSM_DECODE_STEPS):
+            logits, cache = model.decode_step(params, cfg, cache, short[:, t])
+            errs.append(float((logits.float() - full[0, :, t].float()).abs().max()))
+        scale = float(full.float().abs().max())
+        tol = DECODE_TOL + (0 if fp32 else BF16_DECODE_ULPS * 2**-8 * scale)
+        assert max(errs) <= tol, (dtype, errs, tol)
+        at = iter(range(SSM_DECODE_STEPS, 10**6))
+
+        def step():
+            return model.decode_step(params, cfg, cache, tokens[:, next(at) % PREFILL_S])
+
+        guarded(step)  # a decode step waits for nothing
+        decode_ms = median_ms(step, reps=9)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        untraced_s = time.perf_counter() - t0
+        warm_profiler()
+        with torch.profiler.profile(activities=TRACE_ACTIVITIES) as prof:
+            step()
+            torch.cuda.synchronize()
+    trace = trace_summary(prof, f"mamba2-130m {dtype} decode step, batch {SERVE_BATCH}", untraced_s)
+    top = top_device_ops(prof)
+    log(f"[ssm mamba2-130m {dtype}] {cfg.num_layers} layers, d {cfg.d_model}, state "
+        f"{cfg.ssm.state_dim}, chunk {cfg.ssm.chunk_size}: prefill ({SERVE_BATCH}, {PREFILL_S}) "
+        f"{prefill_ms:.1f} ms (peak {prefill_peak:.2f} GiB); {SSM_DECODE_STEPS} decode steps within "
+        f"{max(errs):.3e} of the forward (bound {tol:.3e}, largest logit {scale:.3f}); decode step "
+        f"at batch {SERVE_BATCH} {decode_ms:.2f} ms, none synchronising ({card})")
+    log(f"[ssm mamba2-130m {dtype}] the traced decode step's top device ops (us, calls): "
+        + "; ".join(f"{name[:60]} {us:.1f} x{n}" for name, us, n in top))
+    del params, cache
+    return dict(prefill_ms=prefill_ms, prefill_peak=prefill_peak, decode_ms=decode_ms,
+                decode_err=max(errs), busy_share=trace["busy_share"], top_ops=top)
+
+
+def serve_ssm(device, card: str, cfg=MAMBA) -> dict:
+    """(d): a ``ServeSession`` of batch 8 on a shared ``cfg`` backbone with 8
+    tenants' head adapters (A and B drawn from a numpy seed) exported from a
+    ``DeviceFleetStore`` into an ``AdapterCache`` of 4 slots: 32-token
+    prompts, 32 greedy tokens; every request's logits at every step within
+    ``SSM_SERVE_TOL`` of their largest magnitude against the request run
+    alone with its merged adapter, the stacked run's tokens fed to it."""
+    backbone = model.init(cfg, 0, device)
+    lora, frozen = split_lora(backbone)
+    assert set(lora) == {"lora_head/A", "lora_head/B"}, sorted(lora)
+    rows = tenant_rows(lora, TENANTS, seed=37, device=device)
+    src = export_adapters(DeviceFleetStore(rows, [frozen] * TENANTS, shared=True))
+    cache = AdapterCache(src, like=lora_template(backbone), slots=SLOTS, device=device)
+    sess = ServeSession(ServeConfig(model=cfg, batch=SERVE_BATCH, cache_len=128),
+                        serving_params(src, backbone), adapters=cache, device=device)
+    prompts = np.random.default_rng(41).integers(0, cfg.vocab_size,
+                                                 (SERVE_BATCH, PROMPT)).astype(np.int32)
+    ids = [0, 1, 1, 2, 3, 3, 0, 2]
+    ops.reset_launches()
+    sess.attach(ids)
+    assert cache.stats.as_dict() == dict(hits=0, misses=4, evictions=0, lookups=1)
+    sess.prefill(prompts)
+    sync(device)
+    t0 = time.perf_counter()
+    toks, _ = sess.decode(GEN)  # every step ends in a device sync
+    step_s = (time.perf_counter() - t0) / GEN
+    sess.reset()
+    stacked = [sess.prefill(prompts)] + [sess.step(toks[:, i]) for i in range(GEN)]
+    worst = 0.0
+    for b, cid in enumerate(ids):
+        solo = ServeSession(ServeConfig(model=cfg, batch=1, cache_len=128),
+                            merge_lora(rows[cid], frozen), device=device)
+        logits = [solo.prefill(prompts[b:b + 1])] + [solo.step(toks[b:b + 1, i])
+                                                      for i in range(GEN)]
+        for i, (lo, st) in enumerate(zip(logits, stacked)):
+            err = float((lo[0] - st[b]).abs().max() / st[b].abs().max())
+            assert err <= SSM_SERVE_TOL, ("stacked vs solo", b, i, err)
+            worst = max(worst, err)
+    assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES  # no kernel on the serving path
+    log(f"[ssm serving] {cfg.name} backbone + {TENANTS} tenants' head adapters, AdapterCache of "
+        f"{SLOTS} slots, batch {SERVE_BATCH}, tenants {ids}: stacked decode vs each request alone "
+        f"over {GEN + 1} steps max |diff|/max|logit| {worst:.3e} (bound {SSM_SERVE_TOL}); decode "
+        f"step {step_s * 1e3:.3f} ms over {GEN} greedy steps (host clock), "
+        f"{SERVE_BATCH / step_s:.1f} tokens/s ({card})")
+    return dict(decode_step_ms=step_s * 1e3, stacked_vs_solo=worst)
+
+
+def families_cli(device) -> dict:
+    """(c) part 2: ``fed_train --families gpt2-paper,mamba2-130m,jamba-...``
+    on ``fused_e2e`` with the kernels, 2 rounds at the CLI's own sizes (each
+    smoke config re-based onto the reduced experiment's vocabulary and
+    LoRA), in a temp directory it removes; returns its launches."""
+    tmp = tempfile.mkdtemp(prefix="fed_train_families_")
+    argv = ["--families", FAMILIES_CLI, "--engine", "fused_e2e", "--use-kernels", "--rounds", "2",
+            "--device", str(device), "--out", tmp]
+    try:
+        sync(device)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        assert fed_train.main(argv) == 0
+        sync(device)
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        (name,) = os.listdir(tmp)
+        with open(os.path.join(tmp, name)) as f:
+            rec = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert rec["families"] == FAMILIES_CLI and len(rec["server_acc"]) == 2
+    assert all(x is not None and math.isfinite(x) for x in rec["distill_loss"])
+    if torch.device(device).type == "cuda":
+        assert launches == {"scatter_wire_sums": 2}, launches
+    log(f"[ssm fed_train] python -m repro_torch.launch.fed_train {' '.join(argv[:-2])}: "
+        f"{seconds:.1f} s (pretraining included), mean_k {rec['mean_k']}, uplink MB "
+        f"{rec['uplink_mb_per_round']}, server_acc {rec['server_acc']}, distill_loss "
+        f"{rec['distill_loss']}; kernel launches {launches}")
+    return launches
+
+
+def phase_ssm(device, card: str = "", cfgs=None) -> dict:
+    """Phase 6g: the SSM and hybrid families (module docstring).  ``cfgs`` =
+    ``(families, server, dataset)`` replaces the full-width fleet of (a): a
+    rehearsal at small widths on the CPU runs (a), the smoke configs of (c)
+    and the CLI run."""
+    t0 = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    cached = set(fed_pretrain._CACHE)
+    if cfgs is None:
+        cfgs = ([GPT2_SMALL, MAMBA], FAULT_SERVER,
+                make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32))
+    out = family_runs(device, cfgs, card)
+    del out["runs"]["client1"]
+    for key in set(fed_pretrain._CACHE) - cached:  # the phase's backbones
+        del fed_pretrain._CACHE[key]
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        out["mamba"] = {c.compute_dtype: time_mamba(device, c, card) for c in (MAMBA_BF16, MAMBA)}
+    check_family_models(device, SSM_ARCHS)
+    for name, n in families_cli(device).items():
+        out["launches"][name] = out["launches"].get(name, 0) + n
+    for key in set(fed_pretrain._CACHE) - cached:
+        del fed_pretrain._CACHE[key]
+    if on_card:
+        out["serving"] = serve_ssm(device, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[ssm] phase 6g passed in {time.perf_counter() - t0:.1f} s; kernel launches "
+        f"{out['launches']} ({card})")
     return out
 
 
@@ -2789,7 +3025,7 @@ def phase_serving(device, card: str) -> dict:
     assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES
     with torch.no_grad():  # layer 0's q, k, v of that prefill, and its chunked attention
         x = embedding(params["embed"], tokens[None]) + params["pos_embed"][:PREFILL_S]
-        lp = layer_slice(params, 0)
+        lp = layer_slice(params, 0, 0)
         q, k, v, _ = attention.qkv(lp, layer_norm(x, lp["norm1/scale"], lp["norm1/bias"]),
                                    GPT2_SMALL)
         chunked = attention._chunked_attention(q, k, v)
@@ -3142,20 +3378,21 @@ def main() -> int:
     scale_out = phase_scale_out(device, card, runs)
     serving = phase_serving(device, card)
     families = phase_families(device, card)
+    ssm = phase_ssm(device, card)
     launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) + pretrained["launches"][name]
                 + faults["launches"].get(name, 0) + host_store["launches"].get(name, 0)
                 + scale_out["launches"].get(name, 0) + families["launches"].get(name, 0)
-                for name in KERNELS}
+                + ssm["launches"].get(name, 0) for name in KERNELS}
     entry_names = ("topk_mask", "distill_kl", "topk_mask.bf16", "distill_kl.bf16")
     entry = {name: sum(r["entry_launches"].get(name, 0) for r in runs.values()) for name in entry_names}
     for name in ("flash_attention", "flash_attention.bf16"):
         entry[name] = serving["entry_launches"][name]
     log(f"[main path] kernel launches over the eight runs, the pretrained phase's four, the "
-        f"faults phase's, the host store phase's, the scale-out phase's and the families phase's "
-        f"{launches} (the faults "
+        f"faults phase's, the host store phase's, the scale-out phase's, the families phase's "
+        f"and the state-space phase's {launches} (the faults "
         f"phase's alone {faults['launches']}, the host store phase's {host_store['launches']}, "
         f"the scale-out phase's {scale_out['launches']}, the families phase's "
-        f"{families['launches']})")
+        f"{families['launches']}, the state-space phase's {ssm['launches']})")
     log(f"[entry] launches through the public entry points {entry}")
 
     k_caps = {

@@ -2,7 +2,9 @@
 ``repro/models/model.py``'s ``init``, ``forward``, ``init_cache``,
 ``decode_step`` and ``prefill`` for the attention families (``dense`` and
 ``moe``: learned positions or RoPE, LayerNorm or RMSNorm, GELU or SwiGLU,
-multi-head or grouped-query attention, a tied or untied head).
+multi-head or grouped-query attention, a tied or untied head), the
+attention-free SSM family (Mamba2, no positions) and the hybrid (Jamba's
+layer period of SSD mixers, attention and MoE).
 
 Parameters are a flat dict keyed by the reference's pytree paths joined
 with ``/`` (``embed``, ``stack/pos0/attn/wq/w``, ``lora_head/A``, ...), so
@@ -10,6 +12,10 @@ with ``/`` (``embed``, ``stack/pos0/attn/wq/w``, ``lora_head/A``, ...), so
 ``forward`` runs a leading CLIENT axis: ``tokens (C, B, S)``, LoRA leaves
 ``(C, ...)``, backbone leaves shared or ``(C, ...)`` (see
 :mod:`repro_torch.models.layers`).
+
+LoRA adapters sit on the attention layers' projections and on the LM head;
+an attention-free model (SSM) has the head adapter alone, and its paper
+eq. 8 projection comes from it (see :func:`backbone`).
 """
 
 from __future__ import annotations
@@ -19,11 +25,15 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (
     InitStream, embedding, linear, norm_apply, normal, torch_dtype, truncated_normal,
 )
 from repro_torch.models.moe import moe_init
-from repro_torch.models.transformer import LAYER_NDIM, STACK_PREFIX, init_stack_cache, stack_apply
+from repro_torch.models.ssm import ssm_init
+from repro_torch.models.transformer import (
+    LAYER_NDIM, STACK_PREFIX, init_stack_cache, layer_kinds, period_of, pos_prefix, stack_apply,
+)
 
 __all__ = [
     "Aux", "check_supported", "init", "backbone", "forward", "init_cache", "decode_step", "prefill",
@@ -41,15 +51,14 @@ class Aux(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port carries the attention families, ``dense`` and ``moe``, with
-    fp32 or bf16 parameters and compute; the SSM, hybrid, VLM and audio
-    families (and cross-attention or a frontend) are a later slice's
-    work."""
-    if (cfg.family in ("ssm", "hybrid", "vlm", "audio") or cfg.cross_attention
-            or cfg.frontend != "none" or cfg.positional == "none"):
+    """The port carries the dense, MoE, SSM and hybrid families, with fp32
+    or bf16 parameters and compute; the VLM and audio families (and
+    cross-attention or a frontend) are a later slice's work."""
+    if cfg.family in ("vlm", "audio") or cfg.cross_attention or cfg.frontend != "none":
         raise NotImplementedError(
-            f"model {cfg.name!r} (family {cfg.family!r}): the port carries the dense and MoE "
-            "families only (ROADMAP.md port queue: other model families and mixed fleets)"
+            f"model {cfg.name!r} (family {cfg.family!r}): the port carries the dense, MoE, SSM "
+            "and hybrid families only (ROADMAP.md port queue: other model families and mixed "
+            "fleets)"
         )
     for field in ("param_dtype", "compute_dtype", "optimizer_state_dtype"):
         if getattr(cfg, field) not in ("float32", "bfloat16"):
@@ -71,16 +80,19 @@ def init(cfg: ModelConfig, seed: int, device: str | torch.device = "cuda", *,
     client at a billion parameters."""
     check_supported(cfg)
     gen = InitStream(seed)
-    d, L, hd = cfg.d_model, cfg.num_layers, cfg.head_dim
-    pre = STACK_PREFIX
+    d, hd, period = cfg.d_model, cfg.head_dim, period_of(cfg)
+    reps = cfg.num_layers // period
     p: dict[str, torch.Tensor] = {}
     lc = cfg.lora
     if lc is not None:
         out_dims = {"q": cfg.num_heads * hd, "k": cfg.num_kv_heads * hd,
                     "v": cfg.num_kv_heads * hd, "o": d}
-        for tgt in (t for t in lc.targets if t in _ATTN_TARGETS):
-            p[pre + f"lora/{tgt}/A"] = normal((L, d, lc.rank), d**-0.5, gen)
-            p[pre + f"lora/{tgt}/B"] = torch.zeros(L, lc.rank, out_dims[tgt])
+        for j in range(period):  # adapters on the attention layers only
+            if layer_kinds(cfg, j)[0] != "attn":
+                continue
+            for tgt in (t for t in lc.targets if t in _ATTN_TARGETS):
+                p[pos_prefix(j) + f"lora/{tgt}/A"] = normal((reps, d, lc.rank), d**-0.5, gen)
+                p[pos_prefix(j) + f"lora/{tgt}/B"] = torch.zeros(reps, lc.rank, out_dims[tgt])
         if "head" in lc.targets:
             p["lora_head/A"] = normal((d, lc.rank), d**-0.5, gen)
             p["lora_head/B"] = torch.zeros(lc.rank, cfg.vocab_size)
@@ -91,8 +103,10 @@ def init(cfg: ModelConfig, seed: int, device: str | torch.device = "cuda", *,
 
 
 def _init_backbone(cfg: ModelConfig, gen: InitStream) -> dict[str, torch.Tensor]:
-    """The frozen leaves of :func:`init`, fp32 on the CPU."""
-    d, L, hd = cfg.d_model, cfg.num_layers, cfg.head_dim
+    """The frozen leaves of :func:`init`, fp32 on the CPU: each position of
+    the layer period, its leaves stacked over the repeats."""
+    d, hd, period = cfg.d_model, cfg.head_dim, period_of(cfg)
+    reps = cfg.num_layers // period
     layer_norm = cfg.norm == "layernorm"
     p: dict[str, torch.Tensor] = {
         "embed": normal((cfg.vocab_size, d), 0.02, gen),
@@ -100,27 +114,33 @@ def _init_backbone(cfg: ModelConfig, gen: InitStream) -> dict[str, torch.Tensor]
     }
     if layer_norm:
         p["final_norm/bias"] = torch.zeros(d)
-    pre = STACK_PREFIX
 
     def dense(name, i, o):
-        p[pre + name + "/w"] = truncated_normal((L, i, o), i**-0.5, gen)
+        p[name + "/w"] = truncated_normal((reps, i, o), i**-0.5, gen)
         if cfg.use_bias:
-            p[pre + name + "/b"] = torch.zeros(L, o)
+            p[name + "/b"] = torch.zeros(reps, o)
 
-    for norm in ("norm1", "norm2"):
-        p[pre + norm + "/scale"] = torch.ones(L, d)
-        if layer_norm:
-            p[pre + norm + "/bias"] = torch.zeros(L, d)
-    for name, (i, o) in {"wq": (d, cfg.num_heads * hd), "wk": (d, cfg.num_kv_heads * hd),
-                         "wv": (d, cfg.num_kv_heads * hd), "wo": (cfg.num_heads * hd, d)}.items():
-        dense("attn/" + name, i, o)
-    if cfg.is_moe_layer(0):
-        p.update({pre + k: v for k, v in moe_init(cfg, L, gen).items()})
-    else:
-        dense("mlp/up", d, cfg.d_ff)
-        dense("mlp/down", cfg.d_ff, d)
-        if cfg.activation == "swiglu":
-            dense("mlp/gate", d, cfg.d_ff)
+    for j in range(period):
+        pre = pos_prefix(j)
+        mixer, mlp = layer_kinds(cfg, j)
+        for norm in ("norm1",) if mlp is None else ("norm1", "norm2"):
+            p[pre + norm + "/scale"] = torch.ones(reps, d)
+            if layer_norm:
+                p[pre + norm + "/bias"] = torch.zeros(reps, d)
+        if mixer == "attn":
+            for name, (i, o) in {"wq": (d, cfg.num_heads * hd), "wk": (d, cfg.num_kv_heads * hd),
+                                 "wv": (d, cfg.num_kv_heads * hd),
+                                 "wo": (cfg.num_heads * hd, d)}.items():
+                dense(pre + "attn/" + name, i, o)
+        else:
+            p.update({pre + k: v for k, v in ssm_init(cfg, reps, gen).items()})
+        if mlp == "moe":
+            p.update({pre + k: v for k, v in moe_init(cfg, reps, gen).items()})
+        elif mlp == "dense":
+            dense(pre + "mlp/up", d, cfg.d_ff)
+            dense(pre + "mlp/down", cfg.d_ff, d)
+            if cfg.activation == "swiglu":
+                dense(pre + "mlp/gate", d, cfg.d_ff)
     if cfg.positional == "learned":
         p["pos_embed"] = normal((cfg.max_seq_len, d), 0.02, gen)
     if not cfg.tie_embeddings:
@@ -143,6 +163,14 @@ def _lm_logits(params, cfg: ModelConfig, h: torch.Tensor, head_cols: int | None)
             cfg.lora.alpha / cfg.lora.rank
         )
     return logits
+
+
+def _head_projection(params: dict[str, torch.Tensor], cfg: ModelConfig,
+                     h: torch.Tensor) -> torch.Tensor:
+    """The fallback eq. 8 projection of a model whose stack gives none (no
+    attention layer): ``mean_s(h · lora_head.A)`` over the normed hidden
+    states ``h (C, B, S, d)`` -> ``(C, B, r)``."""
+    return linear(h, params["lora_head/A"], cd=torch_dtype(cfg.compute_dtype)).mean(dim=2)
 
 
 def _embed(params: dict[str, torch.Tensor], cfg: ModelConfig, tokens: torch.Tensor,
@@ -170,15 +198,24 @@ def backbone(
     ``(C, B, S, d)``, or ``(C, B, 1, d)`` for the final position only with
     ``last_only`` (the stack still runs every position).  Training reads
     this with a chunked cross-entropy, so ``(B, S, V)`` logits never exist
-    at once.  ``Aux.lora_h`` always pools the whole sequence.  ``window``
-    (default ``cfg.sliding_window``) is every attention layer's sliding
-    window."""
+    at once.  ``Aux.lora_h`` always pools the whole sequence: when the
+    stack gives no projection (an SSM model) and the model has a head
+    adapter, it is :func:`_head_projection` of every normed position, so
+    then the final norm runs over the whole sequence even with
+    ``last_only``.  ``window`` (default ``cfg.sliding_window``) is every
+    attention layer's sliding window."""
     check_supported(cfg)
     window = window if window is not None else cfg.sliding_window
     x = _embed(params, cfg, tokens, torch.arange(tokens.shape[-1], device=tokens.device))
     st = stack_apply(params, x, cfg, window=window)
-    h = st.x[:, :, -1:] if last_only else st.x
-    return norm_apply(params, "final_norm", h, cfg.norm), Aux(moe_aux=st.moe_aux, lora_h=st.lora_h)
+    lora_h = st.lora_h
+    if lora_h is None and "lora_head/A" in params:
+        h = norm_apply(params, "final_norm", st.x, cfg.norm)
+        lora_h = _head_projection(params, cfg, h)
+        h = h[:, :, -1:] if last_only else h
+    else:
+        h = norm_apply(params, "final_norm", st.x[:, :, -1:] if last_only else st.x, cfg.norm)
+    return h, Aux(moe_aux=st.moe_aux, lora_h=lora_h)
 
 
 def forward(
@@ -212,11 +249,12 @@ def _client_rows(params: dict[str, torch.Tensor]) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: int | None = None,
                device: str | torch.device = "cuda") -> dict:
-    """Decode cache: the stacked per-layer KV caches (``{"layers": {"pos0":
-    KVCache}}``, every field with a leading ``(L, ...)`` axis) and the
-    absolute ``length``.  With a ``window`` (default
-    ``cfg.sliding_window``) each layer keeps a ring of ``min(cache_len,
-    window)`` slots."""
+    """Decode cache: the stacked per-layer caches (``{"layers": {"pos{j}":
+    KVCache or SSMCache}}``, every field with a leading repeats axis) and
+    the absolute ``length``.  With a ``window`` (default
+    ``cfg.sliding_window``) each attention layer keeps a ring of
+    ``min(cache_len, window)`` slots; an SSM layer keeps its conv histories
+    and state, whatever the length."""
     check_supported(cfg)
     window = window if window is not None else cfg.sliding_window
     return {
@@ -229,7 +267,8 @@ def decode_step(params: dict[str, torch.Tensor], cfg: ModelConfig, cache: dict,
                 token: torch.Tensor, *, window: int | None = None) -> tuple[torch.Tensor, dict]:
     """One serving step: consume ``token (B,)`` at position ``length``,
     return the next-token logits ``(B, V)`` and the cache, advanced IN
-    PLACE (the new K/V in each layer's ring slot, ``length + 1``).
+    PLACE (the new K/V in each attention layer's ring slot and its
+    ``length + 1``, each SSM layer's histories and state, ``length + 1``).
 
     ``params`` is one model (shared leaves: the batch is a client axis of 1)
     or per-request adapters on the client axis (``B`` rows of batch 1 each)
@@ -245,7 +284,9 @@ def decode_step(params: dict[str, torch.Tensor], cfg: ModelConfig, cache: dict,
     st = stack_apply(params, x, cfg, caches=cache["layers"], window=window)
     h = norm_apply(params, "final_norm", st.x, cfg.norm)
     logits = _lm_logits(params, cfg, h, None).reshape(b, -1)
-    cache["layers"]["pos0"].length.add_(1)
+    for layer_cache in cache["layers"].values():
+        if isinstance(layer_cache, KVCache):
+            layer_cache.length.add_(1)
     cache["length"].add_(1)
     return logits, cache
 

@@ -1,20 +1,26 @@
 """The decoder stack — the port of ``repro/models/transformer.py``'s
-``stack_apply`` and ``init_stack_cache`` for the attention families
-(``dense`` and ``moe``): pre-norm blocks of self-attention, then a dense or
-a MoE MLP by ``cfg.is_moe_layer``, with LayerNorm or RMSNorm by
-``cfg.norm``.  These families have a period of one layer, so every layer
-is of one kind and the stack is the reference's one period ``pos0``.
+``period_of``, ``stack_apply`` and ``init_stack_cache`` for the
+attention families (``dense``, ``moe``), the attention-free SSM family
+(Mamba2: the SSD mixer is the whole layer, no second norm and no MLP) and
+the hybrid (Jamba: SSD mixers with an attention layer every
+``attn_every`` layers and a MoE MLP every ``moe_every``).
 
-Layer parameters keep the reference's layer-stacked layout: every leaf
-under ``stack/pos0/`` has a leading ``(num_layers, ...)`` axis (after the
-client axis, when the leaf is per client), and the ``lax.scan`` over layers
-becomes a Python loop that slices layer ``l`` out of each leaf.  The decode
-cache stacks the layers' KV caches the same way, ``(L, ...)``, and layer
-``l`` writes into its slice in place.
+Layers repeat with a **period** of ``p`` positions (1 for the uniform
+families; ``lcm(attn_every, moe_every)`` for the hybrid), and layer ``i =
+r·p + j`` is repeat ``r`` of position ``j``.  Parameters keep the
+reference's layout: every leaf under ``stack/pos{j}/`` has a leading
+``(num_layers // p, ...)`` repeats axis (after the client axis, when the
+leaf is per client).  The reference's ``lax.scan`` over repeats becomes a
+Python loop, repeats outermost and positions inside them, which slices
+repeat ``r`` out of each leaf.  The decode cache is the same period dict:
+a ``KVCache`` at each attention position and an ``SSMCache`` at each SSM
+position, each field stacked over the repeats, and layer ``i`` writes into
+its slice in place.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -23,17 +29,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import KVCache, attn_apply, init_kv_cache
 from repro_torch.models.layers import mlp_apply, norm_apply, torch_dtype
 from repro_torch.models.moe import moe_apply
+from repro_torch.models.ssm import SSMCache, init_ssm_cache, ssm_apply
 
 __all__ = [
-    "StackState", "STACK_PREFIX", "LAYER_NDIM", "layer_slice", "init_stack_cache", "stack_apply",
+    "StackState", "STACK_PREFIX", "LAYER_NDIM", "period_of", "layer_kinds", "pos_prefix",
+    "layer_slice", "init_stack_cache", "stack_apply",
 ]
 
-STACK_PREFIX = "stack/pos0/"
+STACK_PREFIX = "stack/"
 # dims of one layer's leaf of ONE model, by its last path component (a MoE
 # layer's experts ``mlp/{up,down,gate}`` are (E, i, o)); a stack leaf has
-# these + 1 (the layer axis), + 2 with a leading client axis
+# these + 1 (the repeats axis), + 2 with a leading client axis
 LAYER_NDIM = {"w": 2, "b": 1, "scale": 1, "bias": 1, "A": 2, "B": 2, "up": 3, "down": 3,
-              "gate": 3}
+              "gate": 3, "conv_x_w": 2, "conv_bc_w": 2, "conv_x_b": 1, "conv_bc_b": 1,
+              "dt_bias": 1, "a_log": 1, "d_skip": 1}
 
 
 class StackState(NamedTuple):
@@ -42,52 +51,100 @@ class StackState(NamedTuple):
     lora_h: torch.Tensor | None  # (C, B, r) pooled projection of the last adapted layer
 
 
-def layer_slice(params: dict[str, torch.Tensor], l: int) -> dict[str, torch.Tensor]:
-    """Layer ``l`` of every ``stack/pos0/`` leaf, keyed relative to the
-    layer (``attn/wq/w``, ``lora/q/A``, ...), client axis kept."""
-    out = {}
+def period_of(cfg: ModelConfig) -> int:
+    """Positions in the repeating layer period: 1, or for the hybrid
+    ``attn_every`` (lcm'd with ``moe_every`` when it has MoE)."""
+    if cfg.family != "hybrid":
+        return 1
+    p = cfg.attn_every if cfg.moe is None else math.lcm(cfg.attn_every, cfg.moe_every)
+    assert cfg.num_layers % p == 0, (
+        f"{cfg.name}: num_layers={cfg.num_layers} not divisible by period {p}")
+    return p
+
+
+def layer_kinds(cfg: ModelConfig, j: int) -> tuple[str, str | None]:
+    """``(mixer, mlp)`` of position ``j``: ``"attn"`` or ``"ssm"``, and
+    ``"moe"``, ``"dense"`` or None (the SSM family has no MLP)."""
+    mixer = "attn" if cfg.is_attention_layer(j) else "ssm"
+    if cfg.family == "ssm":
+        return mixer, None
+    return mixer, "moe" if cfg.is_moe_layer(j) else "dense"
+
+
+def pos_prefix(j: int) -> str:
+    return f"{STACK_PREFIX}pos{j}/"
+
+
+def layer_slice(params: dict[str, torch.Tensor], j: int, r: int) -> dict[str, torch.Tensor]:
+    """Repeat ``r`` of every ``stack/pos{j}/`` leaf, keyed relative to the
+    layer (``attn/wq/w``, ``ssm/a_log``, ``lora/q/A``, ...), client axis
+    kept."""
+    pre, out = pos_prefix(j), {}
     for key, t in params.items():
-        if key.startswith(STACK_PREFIX):
+        if key.startswith(pre):
             per_client = t.ndim == LAYER_NDIM[key.rsplit("/", 1)[-1]] + 2
-            out[key[len(STACK_PREFIX):]] = t[:, l] if per_client else t[l]
+            out[key[len(pre):]] = t[:, r] if per_client else t[r]
     return out
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: int | None = None,
-                     device: str | torch.device = "cuda") -> dict[str, KVCache]:
-    """The stack's decode cache, ``{"pos0": KVCache}`` (the reference's
-    period dict, one period for the attention families) with every field
-    stacked over the ``cfg.num_layers`` layers; with a ``window`` a ring of
+                     device: str | torch.device = "cuda") -> dict[str, KVCache | SSMCache]:
+    """The stack's decode cache, the reference's period dict ``{"pos{j}":
+    KVCache or SSMCache}`` with every field stacked over the position's
+    repeats; with a ``window`` each attention layer keeps a ring of
     ``min(cache_len, window)`` slots."""
-    one = init_kv_cache(cfg, batch, cache_len if window is None else min(cache_len, window),
-                        device)
-    return {"pos0": KVCache(*(t.expand((cfg.num_layers,) + t.shape).clone() for t in one))}
+    p = period_of(cfg)
+    out = {}
+    for j in range(p):
+        if layer_kinds(cfg, j)[0] == "attn":
+            one = init_kv_cache(cfg, batch, cache_len if window is None
+                                else min(cache_len, window), device)
+        else:
+            one = init_ssm_cache(cfg, batch, device)
+        out[f"pos{j}"] = type(one)(*(t.expand((cfg.num_layers // p,) + t.shape).clone()
+                                     for t in one))
+    return out
 
 
 def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
-                caches: dict[str, KVCache] | None = None,
+                caches: dict[str, KVCache | SSMCache] | None = None,
                 window: int | None = None) -> StackState:
-    """Run the ``cfg.num_layers`` pre-norm blocks over ``x (C, B, S, D)``;
-    with ``caches`` (decode) layer ``l`` attends over, and writes into, its
-    slice of the stacked cache in place.  ``window``: the sliding window of
-    every attention layer."""
+    """Run the ``cfg.num_layers`` pre-norm blocks over ``x (C, B, S, D)``,
+    layer ``r·p + j`` for repeats ``r`` and positions ``j``; with
+    ``caches`` (decode) each layer reads, and writes into, its slice of the
+    stacked cache in place.  ``window``: the sliding window of every
+    attention layer.  ``lora_h`` starts at zeros when a position of the
+    period is an attention layer and the model has LoRA (the reference's
+    start: such a model whose adapters give no projection reports zeros),
+    else at None."""
+    p = period_of(cfg)
+    kinds = [layer_kinds(cfg, j) for j in range(p)]
     lora_h = None
+    if cfg.lora is not None and any(mixer == "attn" for mixer, _ in kinds):
+        lora_h = torch.zeros(x.shape[:2] + (cfg.lora.rank,), dtype=torch_dtype(cfg.compute_dtype),
+                             device=x.device)
     moe_aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
     cd = torch_dtype(cfg.compute_dtype)
-    is_moe = cfg.is_moe_layer(0)  # period one: every layer's MLP is of one kind
-    for l in range(cfg.num_layers):
-        lp = layer_slice(params, l)
-        h_in = norm_apply(lp, "norm1", x, cfg.norm)
-        cache = None if caches is None else KVCache(*(t[l] for t in caches["pos0"]))
-        y, h = attn_apply(lp, h_in, cfg, cache=cache, window=window)
-        if h is not None:
-            lora_h = h.mean(dim=2)  # (C, B, r): paper eq. 8, pooled over the sequence
-        x = x + y
-        h2 = norm_apply(lp, "norm2", x, cfg.norm)
-        if is_moe:
-            y2, aux = moe_apply(lp, h2, cfg)
-            moe_aux = moe_aux + aux
-        else:
-            y2 = mlp_apply(lp, h2, activation=cfg.activation, cd=cd)
-        x = x + y2
+    for r in range(cfg.num_layers // p):
+        for j, (mixer, mlp) in enumerate(kinds):
+            lp = layer_slice(params, j, r)
+            cache = None if caches is None else type(caches[f"pos{j}"])(
+                *(t[r] for t in caches[f"pos{j}"]))
+            h_in = norm_apply(lp, "norm1", x, cfg.norm)
+            if mixer == "attn":
+                y, h = attn_apply(lp, h_in, cfg, cache=cache, window=window)
+                if h is not None:
+                    lora_h = h.mean(dim=2)  # (C, B, r): paper eq. 8, pooled over the sequence
+            else:
+                y = ssm_apply(lp, h_in, cfg, cache=cache)
+            x = x + y
+            if mlp is None:
+                continue
+            h2 = norm_apply(lp, "norm2", x, cfg.norm)
+            if mlp == "moe":
+                y2, aux = moe_apply(lp, h2, cfg)
+                moe_aux = moe_aux + aux
+            else:
+                y2 = mlp_apply(lp, h2, activation=cfg.activation, cd=cd)
+            x = x + y2
     return StackState(x=x, moe_aux=moe_aux, lora_h=lora_h)

@@ -1,7 +1,10 @@
-"""The port's dense and MoE model families against the JAX reference, on the
-CPU: the Llama-style layers (RMSNorm, RoPE, SwiGLU), grouped-query
-attention with and without a sliding window, the MoE MLP, and the six
-dense and MoE smoke configs end to end.
+"""The port's model families against the JAX reference, on the CPU: the
+Llama-style layers (RMSNorm, RoPE, SwiGLU), grouped-query attention with
+and without a sliding window, the MoE MLP, and the six dense and MoE smoke
+configs, the SSM one (mamba2) and the hybrid one (jamba: a period of four
+layers) end to end; the attention-free model's eq. 8 projection from its
+head adapter, ``lora_h``'s zero start where a period has attention, and a
+hybrid tree through the bridge.
 
 Weights are the reference's init bridged into the port (LoRA B factors
 made non-zero, so every adapter is live); inputs are drawn from numpy
@@ -10,8 +13,9 @@ seeds.  Tolerances:
 * layers, attention and the MoE MLP: atol 1e-5 (fp32, the same operations
   in another order; the MoE's routing — its top-k, its ties and its drops —
   is exact, or its output would differ by whole expert outputs);
-* the models' forward logits, ``lora_h`` and decode logits: atol 1e-5;
-  ``moe_aux``: rtol 1e-5;
+* the models' forward logits, ``lora_h`` and decode logits: atol 1e-5
+  (the SSM's chunked SSD and its recurrence too: ``exp`` and ``cumsum`` in
+  fp32 over 12 positions stay inside it); ``moe_aux``: rtol 1e-5;
 * decode against the port's own forward at the last position: atol 2e-3
   (the reference's bound in ``tests/test_models_smoke.py``; MoE configs at
   capacity factor 8 there too, so that the full sequence's groups drop
@@ -61,11 +65,11 @@ from repro_torch.launch.steps import init_train_opt, make_train_step  # noqa: E4
 from repro_torch.models import attention as t_attention  # noqa: E402
 from repro_torch.models import layers as t_layers  # noqa: E402
 from repro_torch.models import moe as t_moe  # noqa: E402
-from repro_torch.models.model import decode_step, forward, init, init_cache  # noqa: E402
+from repro_torch.models.model import backbone, decode_step, forward, init, init_cache  # noqa: E402
 
-# the six dense and MoE architectures
+# the six dense and MoE architectures, the SSM and the hybrid
 ARCHS = ["stablelm-1.6b", "llama4-scout-17b-a16e", "yi-9b", "moonshot-v1-16b-a3b",
-         "command-r-35b", "granite-moe-1b-a400m"]
+         "command-r-35b", "granite-moe-1b-a400m", "mamba2-130m", "jamba-1.5-large-398b"]
 _LORA = dict(rank=4, alpha=32.0, dropout=0.0, targets=("q", "v", "head"))
 ATOL = 1e-5
 
@@ -333,6 +337,78 @@ def test_bridge_carries_the_moe_and_rmsnorm_trees():
     flat = bridge.to_torch(tree, "cpu")
     assert "stack/pos0/mlp/up" in flat and "stack/pos0/mlp/router/w" in flat
     assert "stack/pos0/norm1/bias" not in flat and "pos_embed" not in flat and "lm_head" in flat
+    back = bridge.to_numpy_tree(flat)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(a, b)
+
+
+# -- the eq. 8 projection without attention, and the hybrid's tree ----------------------------
+
+
+def test_the_ssm_fallback_projection_norms_the_whole_sequence():
+    """An attention-free model's ``lora_h`` is ``mean_s(norm(h) · lora_head.A)``
+    over every position, with ``last_only`` too (the final norm then runs
+    over the whole sequence, and only then is the last position taken)."""
+    jc, tc = _cfgs("mamba2-130m")
+    jp = _live(j_init(jax.random.PRNGKey(3), jc), 3)
+    tp = _bridged(jp)
+    tokens = np.random.default_rng(3).integers(0, tc.vocab_size, size=(2, 12)).astype(np.int32)
+    full, full_aux = forward(tp, tc, torch.as_tensor(tokens)[None])
+    last, last_aux = forward(tp, tc, torch.as_tensor(tokens)[None], last_only=True)
+    want, want_aux = j_forward(jp, jc, {"tokens": jnp.asarray(tokens)}, last_only=True)
+    _close(last[0], want)
+    _close(last_aux.lora_h[0], want_aux.lora_h)
+    assert torch.equal(last_aux.lora_h, full_aux.lora_h)
+    _close(last, full[:, :, -1])
+    # the projection of the last position alone is another vector
+    h_last, _ = backbone(tp, tc, torch.as_tensor(tokens)[None], last_only=True)
+    alone = (h_last[:, :, 0] @ tp["lora_head/A"]).numpy()
+    assert not np.allclose(alone, last_aux.lora_h.numpy(), atol=1e-3)
+
+
+ZERO_H_CASES = {  # arch, LoRA targets, what lora_h is
+    "dense-k": ("yi-9b", ("k", "head"), "zeros"),
+    "hybrid-head": ("jamba-1.5-large-398b", ("head",), "zeros"),
+    "hybrid-qv": ("jamba-1.5-large-398b", ("q", "v", "head"), "projection"),
+    "ssm-head": ("mamba2-130m", ("head",), "projection"),
+}
+
+
+@pytest.mark.parametrize("case", list(ZERO_H_CASES))
+def test_lora_h_starts_at_zeros_as_the_reference(case):
+    """A stack with an attention position and LoRA starts ``lora_h`` at zeros
+    (the reference's start): adapters on no q or v report zeros, not the
+    head fallback; a hybrid's projection is its last attention layer's q
+    adapter's; an SSM stack starts at None, so the fallback applies."""
+    arch, targets, kind = ZERO_H_CASES[case]
+    over = {}
+    if j_smoke(arch).moe is not None:
+        over["moe"] = dataclasses.replace(j_smoke(arch).moe, capacity_factor=8.0)
+    jc = j_smoke(arch).with_overrides(lora=JLoRA(**dict(_LORA, targets=targets)), **over)
+    tc = get_smoke_config(arch).with_overrides(lora=TLoRA(**dict(_LORA, targets=targets)), **over)
+    jp = _live(j_init(jax.random.PRNGKey(4), jc), 4)
+    tp = _bridged(jp)
+    tokens = np.random.default_rng(4).integers(0, tc.vocab_size, size=(2, 8)).astype(np.int32)
+    _, want = j_forward(jp, jc, {"tokens": jnp.asarray(tokens)})
+    logits, got = forward(tp, tc, torch.as_tensor(tokens)[None])
+    assert got.lora_h.shape == (1, 2, 4) and got.lora_h.dtype == torch.float32
+    _close(got.lora_h[0], want.lora_h)
+    assert (float(got.lora_h.abs().max()) == 0.0) == (kind == "zeros")
+
+
+def test_bridge_carries_the_hybrid_tree():
+    """jamba-smoke's period of four (``stack/pos0..pos3``: SSM at 0, 1, 3,
+    attention at 2, MoE at 1 and 3) crosses both ways leaf for leaf."""
+    jc, tc = _cfgs("jamba-1.5-large-398b")
+    tree = jax.tree.map(np.asarray, _live(j_init(jax.random.PRNGKey(5), jc), 5))
+    flat = bridge.to_torch(tree, "cpu")
+    assert {k.split("/")[1] for k in flat if k.startswith("stack/")} == {
+        "pos0", "pos1", "pos2", "pos3"}
+    assert "stack/pos2/attn/wq/w" in flat and "stack/pos2/lora/q/A" in flat
+    assert "stack/pos0/ssm/conv_x_w" in flat and "stack/pos0/lora/q/A" not in flat
+    assert "stack/pos1/mlp/router/w" in flat and "stack/pos0/mlp/up/w" in flat
+    assert flat["stack/pos1/mlp/up"].shape[0] == 1  # 4 layers / period 4: one repeat
     back = bridge.to_numpy_tree(flat)
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):

@@ -17,6 +17,8 @@
 * The CLI's adapters (``REDUCED_LORA``: q, v, o and the head; no attention
   layer reads the o adapter, in either package) train as in the reference:
   its gradient is zero there, where the port's raised before.
+* ``--families gpt2-paper,mamba2-130m`` in both CLIs on the CPU: the
+  record's integers (per-client k, bytes, transmitters) identical.
 """
 
 import dataclasses
@@ -247,3 +249,64 @@ def test_the_clis_adapters_train_as_in_the_reference():
     np.testing.assert_allclose(got.server_acc, want.server_acc, rtol=0, atol=one_sample)
     np.testing.assert_allclose(got.client_acc, want.client_acc, rtol=0, atol=one_sample)
     np.testing.assert_allclose(got.distill_loss, want.distill_loss, rtol=1e-4)
+
+
+def test_fed_train_families_with_an_ssm_is_the_reference_clis(tmp_path):
+    """``fed_train --families gpt2-paper,mamba2-130m`` (the reference CLI's
+    own mixed-fleet example: a dense GPT-2 family beside an attention-free
+    one, whose eq. 8 projection comes from its head adapter) in both CLIs on
+    the CPU, the reduced experiment's vocabulary cut to the tests' 256 and
+    the run shortened alike; the port starts from the reference's init,
+    bridged.  The record's integers — per-client k, uplink and downlink
+    bytes and transmitters a round — are the reference CLI's exactly."""
+    import jax
+
+    from repro.models import init as j_init
+    from repro_torch import bridge
+    from repro_torch.models import model as t_model
+
+    argv = ["--families", "gpt2-paper,mamba2-130m", "--engine", "fused_e2e", "--use-kernels",
+            "--rounds", "2", "--clients", "4", "--per-round", "2", "--public-batch", "16"]
+    runs, j_cfgs = {}, []
+    short = dict(pretrain_steps=1, server_pretrain_steps=1, public_size=64, eval_size=64,
+                 local_steps=1, distill_steps=1, server_distill_steps=1)
+    mp = pytest.MonkeyPatch()
+    try:
+        for name, cli in (("reference", j_cli), ("port", t_cli)):
+            mp.setattr(cli, "REDUCED_CLIENT", cli.REDUCED_CLIENT.with_overrides(vocab_size=256))
+            mp.setattr(cli, "REDUCED_SERVER", cli.REDUCED_SERVER.with_overrides(
+                num_layers=2, d_model=96, d_ff=192, **{k: v for k, v in _TINY.items()
+                                                       if k != "num_layers"}))
+            if cli is t_cli:
+                mp.setattr(cli, "fed_config", lambda args, f=cli.fed_config: dataclasses.replace(
+                    f(args), **short))
+            else:  # the reference builds its FedConfig inline
+                mp.setattr(cli, "FedConfig", lambda f=cli.FedConfig, **kw: f(**{**kw, **short}))
+
+            def keep(client_cfg, server_cfg, ds, fed, real=cli.run_federated, name=name, **kw):
+                if name == "reference":
+                    j_cfgs.extend(list(client_cfg) + [server_cfg])
+                runs[name] = real(client_cfg, server_cfg, ds, fed, **kw)
+                return runs[name]
+
+            mp.setattr(cli, "run_federated", keep)
+        assert j_cli.main(argv + ["--out", str(tmp_path / "j")]) == 0
+
+        def bridged(cfg, seed, device="cuda", **_):
+            (j_cfg,) = [c for c in j_cfgs if dataclasses.asdict(c) == dataclasses.asdict(cfg)]
+            return bridge.to_torch(jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(seed),
+                                                                   j_cfg)), device)
+
+        mp.setattr(t_model, "init", bridged)
+        assert t_cli.main(argv + ["--out", str(tmp_path / "t"), "--device", "cpu"]) == 0
+    finally:
+        mp.undo()
+    assert [c.family for c in j_cfgs[:2]] == ["dense", "ssm"]
+    want, got = runs["reference"], runs["port"]
+    assert got.per_client_k == want.per_client_k and len(got.per_client_k) == 2
+    assert [(r.uplink_bytes, r.downlink_bytes, r.num_transmitters) for r in got.ledger.rounds] \
+        == [(r.uplink_bytes, r.downlink_bytes, r.num_transmitters) for r in want.ledger.rounds]
+    j_rec, t_rec = _record(str(tmp_path / "j")), _record(str(tmp_path / "t"))
+    assert t_rec["families"] == j_rec["families"] == "gpt2-paper,mamba2-130m"
+    for key in ("mean_k", "uplink_mb_per_round", "downlink_mb_per_round"):
+        assert t_rec[key] == j_rec[key], key

@@ -21,8 +21,12 @@ architecture registry against the reference's, on the CPU.
   the fp32 cosines of XLA and of torch differ by up to an ulp, and
   ``1 + cos`` cancels toward the end of the decay, which turns that ulp
   into up to 5 ulps of the value, never more than one of ``peak_lr``.
+* ``train --arch`` and ``serve --arch`` of the SSM and hybrid smoke
+  configs, held as the GPT-2 pair is.
 * What the port does not carry raises naming its ROADMAP.md item.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -47,14 +51,19 @@ _QUEUE = "ROADMAP.md port queue: "
 LOGIT_TOL = 1e-5  # of the largest logit magnitude (see the module docstring)
 
 
-def _bridged_init(cfg, seed, device="cuda"):
-    assert cfg == get_smoke_config("gpt2-paper")
-    tree = j_init(jax.random.PRNGKey(seed), j_smoke("gpt2-paper"))
+def _bridged_init(cfg, seed, device="cuda", arch="gpt2-paper"):
+    assert cfg == get_smoke_config(arch)
+    tree = j_init(jax.random.PRNGKey(seed), j_smoke(arch))
     return bridge.to_torch(jax.tree.map(np.asarray, tree), device)
 
 
 def test_train_cli_losses_are_the_references(monkeypatch, tmp_path):
-    argv = ["--steps", "3", "--batch", "2", "--seq", "32"]
+    _train_losses_held(["--steps", "3", "--batch", "2", "--seq", "32"], monkeypatch, tmp_path)
+
+
+def _train_losses_held(argv, monkeypatch, tmp_path, arch="gpt2-paper"):
+    """Both train CLIs on ``argv``, the port from the reference's init: the
+    losses of the three steps within rtol 1e-5."""
     j_losses, t_losses = [], []
     j_make = j_train.make_train_step
 
@@ -82,7 +91,7 @@ def test_train_cli_losses_are_the_references(monkeypatch, tmp_path):
 
     monkeypatch.setattr(j_train, "make_train_step", j_recording)
     monkeypatch.setattr(t_train, "make_train_step", t_recording)
-    monkeypatch.setattr(t_train, "model_init", _bridged_init)
+    monkeypatch.setattr(t_train, "model_init", functools.partial(_bridged_init, arch=arch))
     assert j_train.main(argv) == 0
     assert t_train.main(argv + ["--device", "cpu", "--ckpt-dir", str(tmp_path)]) == 0
     assert len(t_losses) == len(j_losses) == 3
@@ -114,22 +123,29 @@ def _recording_session(base, into: dict):
     return Recording
 
 
-def _serve(argv, monkeypatch):
+def _serve(argv, monkeypatch, arch="gpt2-paper"):
     j_got, t_got = {}, {}
     monkeypatch.setattr(j_serve, "ServeSession", _recording_session(j_serve.ServeSession, j_got))
     monkeypatch.setattr(t_serve, "ServeSession", _recording_session(t_serve.ServeSession, t_got))
-    monkeypatch.setattr(t_serve, "model_init", _bridged_init)
+    monkeypatch.setattr(t_serve, "model_init", functools.partial(_bridged_init, arch=arch))
     assert j_serve.main(argv) == 0
     assert t_serve.main(argv + ["--device", "cpu"]) == 0
     return j_got, t_got
 
 
 def test_serve_cli_single_adapter_decodes_as_the_reference(monkeypatch):
+    _serve_held(monkeypatch, vocab=1024)
+
+
+def _serve_held(monkeypatch, vocab, arch="gpt2-paper"):
+    """Both serve CLIs, one adapter, batch 4: the logits at every step up
+    to a greedy token taken at a near-tie of the reference's own logits,
+    and most of the decode held token for token."""
     prompt, tokens = 8, 12
-    j_got, t_got = _serve(["--batch", "4", "--prompt-len", str(prompt), "--tokens",
-                           str(tokens)], monkeypatch)
+    j_got, t_got = _serve(["--arch", arch, "--batch", "4", "--prompt-len", str(prompt),
+                           "--tokens", str(tokens)], monkeypatch, arch)
     j_logits, t_logits = np.stack(j_got["logits"]), np.stack(t_got["logits"])
-    assert j_logits.shape == t_logits.shape == (prompt + tokens, 4, 1024)
+    assert j_logits.shape == t_logits.shape == (prompt + tokens, 4, vocab)
     atol = LOGIT_TOL * np.abs(j_logits).max()
     # the logits each greedy token is taken from: the prompt's last, then each decode step's
     chosen_from = j_logits[prompt - 1:prompt - 1 + tokens]
@@ -145,6 +161,15 @@ def test_serve_cli_single_adapter_decodes_as_the_reference(monkeypatch):
                                    rtol=0, atol=atol)
         compared += last
     assert compared >= 2 * tokens  # most of the decode is held token for token
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b"])
+def test_train_and_serve_clis_carry_the_ssm_and_hybrid(arch, monkeypatch, tmp_path):
+    """``train --arch`` and ``serve --arch`` of the SSM and the hybrid smoke
+    configs, held to the reference's CLIs as the GPT-2 pair is."""
+    _train_losses_held(["--arch", arch, "--steps", "3", "--batch", "2", "--seq", "32"],
+                       monkeypatch, tmp_path, arch)
+    _serve_held(monkeypatch, vocab=get_smoke_config(arch).vocab_size, arch=arch)
 
 
 def test_serve_cli_tenants_page_as_in_the_reference(monkeypatch):

@@ -17,6 +17,12 @@ tokens equal the reference's.  Cache hit, miss and eviction counts and slot
 maps are integers and must be identical.  Sampling at ``temperature > 0``
 draws from a ``torch.Generator`` and cannot match ``jax.random``'s draws:
 it is checked for determinism under its seed only.
+
+An attention-free model (mamba2's smoke config at d 64, vocab 256) serves
+through the same session: its tenants carry the head adapter alone, its
+decode cache is the conv histories and the fp32 SSM state, and it is held
+to the reference's session and its stacked decode to solo decodes at the
+same bound.
 """
 
 import numpy as np
@@ -28,7 +34,9 @@ from _torch_threads import one_torch_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_smoke_config as j_smoke  # noqa: E402
 from repro.configs.base import LoRAConfig as JLoRA  # noqa: E402
+from repro.configs.base import SSMConfig as JSSM  # noqa: E402
 from repro.configs.gpt2_paper import REDUCED_CLIENT as J_RC  # noqa: E402
 from repro.lora import lora_template as j_template  # noqa: E402
 from repro.lora import merge_lora as j_merge  # noqa: E402
@@ -43,6 +51,7 @@ from repro.serve import make_prefill_step as j_prefill_step  # noqa: E402
 from repro.serve.adapters import gather_adapters as j_gather  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs.base import LoRAConfig as TLoRA  # noqa: E402
+from repro_torch.configs.base import SSMConfig as TSSM  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs.gpt2_paper import REDUCED_CLIENT as T_RC  # noqa: E402
 from repro_torch.fed.store import DeviceFleetStore  # noqa: E402
@@ -358,3 +367,89 @@ def test_serving_refuses_what_the_port_does_not_carry(model):
         sess.attach([0])
     with pytest.raises(RuntimeError, match="prefill"):
         sess.decode(1)
+
+
+# -- an attention-free model: the SSM decode cache and head-only adapters ------------------------
+
+_SSM_SHAPE = dict(d_model=64, vocab_size=256, max_seq_len=64)
+J_SSM = j_smoke("mamba2-130m").with_overrides(
+    **_SSM_SHAPE, lora=JLoRA(**_LORA), ssm=JSSM(state_dim=16, head_dim=16, expand=2, chunk_size=4))
+T_SSM = get_smoke_config("mamba2-130m").with_overrides(
+    **_SSM_SHAPE, lora=TLoRA(**_LORA), ssm=TSSM(state_dim=16, head_dim=16, expand=2, chunk_size=4))
+
+
+@pytest.fixture(scope="module")
+def ssm_model():
+    jp = _jax_params(J_SSM, seed=2)
+    j_rows, t_rows = _adapter_rows(jp, seed=8)
+    return jp, _to_port(jp), j_rows, t_rows
+
+
+def _ssm_sessions(ssm_model, batch, slots):
+    jp, tp, j_rows, t_rows = ssm_model
+    j_sess = JSession(JServeConfig(model=J_SSM, batch=batch, cache_len=PROMPT + GEN), jp,
+                      adapters=JCache(ListSource(j_rows), like=j_template(jp), slots=slots))
+    t_sess = ServeSession(ServeConfig(model=T_SSM, batch=batch, cache_len=PROMPT + GEN), tp,
+                          adapters=AdapterCache(ListSource(t_rows), like=lora_template(tp),
+                                                slots=slots, device="cpu"),
+                          device="cpu")
+    return j_sess, t_sess
+
+
+def test_ssm_session_matches_reference(ssm_model):
+    """An SSM model's tenants carry the head adapter alone (the slab has no
+    stack leaves); its decode cache is the conv histories and the fp32
+    state.  The session against the reference's, as for the attention
+    model: slot maps, the logits at every step with the reference's tokens
+    fed to both, the greedy tokens, and the final cache."""
+    jp, tp, _, t_rows = ssm_model
+    assert set(t_rows[0]) == {"lora_head/A", "lora_head/B"}
+    j_cache, t_cache = j_init_cache(J_SSM, 3, 8), t_init_cache(T_SSM, 3, 8, device="cpu")
+    for field in ("conv_x", "conv_bc", "state"):
+        np.testing.assert_array_equal(getattr(t_cache["layers"]["pos0"], field).numpy(),
+                                      np.asarray(getattr(j_cache["layers"]["pos0"], field)))
+    assert t_cache["layers"]["pos0"].state.dtype == torch.float32
+    batch, ids = 4, [0, 2, 2, 1]
+    j_sess, t_sess = _ssm_sessions(ssm_model, batch, slots=3)
+    prompts = _prompts(batch)
+    np.testing.assert_array_equal(t_sess.attach(ids), j_sess.attach(ids))
+    j_toks, _ = (j_sess.prefill(prompts), j_sess.decode(GEN))[1]
+    j_sess.attach(ids)
+    j_logits = [np.asarray(j_sess.prefill(prompts))]
+    j_logits += [np.asarray(j_sess.step(j_toks[:, i])) for i in range(GEN)]
+    t_logits = [t_sess.prefill(prompts).numpy()]
+    t_logits += [t_sess.step(j_toks[:, i]).numpy() for i in range(GEN)]
+    for t, j in zip(t_logits, j_logits):
+        _close(t, j)
+    for field in ("conv_x", "conv_bc", "state"):
+        _close(getattr(t_sess._cache["layers"]["pos0"], field).numpy(),
+               getattr(j_sess._cache["layers"]["pos0"], field))
+    t_sess.attach(ids)
+    t_sess.prefill(prompts)
+    np.testing.assert_array_equal(t_sess.decode(GEN)[0], j_toks)
+
+
+def test_ssm_stacked_decode_matches_each_request_alone(ssm_model):
+    """Each request of a stacked SSM batch against the same request alone
+    with its head adapter merged, the stacked run's tokens fed to the solo
+    run: within 1e-5 of the largest logit, the bound of the attention
+    model (the reference's bitwise claim, its ``[ssm]`` case, fails on this
+    tree)."""
+    _, tp, _, t_rows = ssm_model
+    ids = [0, 3, 3, 1]
+    _, t_sess = _ssm_sessions(ssm_model, len(ids), slots=4)
+    prompts = _prompts(len(ids))
+    t_sess.attach(ids)
+    logits = [t_sess.prefill(prompts)]
+    toks, _ = t_sess.decode(GEN)
+    t_sess.attach(ids)
+    t_sess.prefill(prompts)
+    logits += [t_sess.step(toks[:, i]) for i in range(GEN - 1)]
+    _, frozen = split_lora(tp)
+    for b, cid in enumerate(ids):
+        solo = ServeSession(ServeConfig(model=T_SSM, batch=1, cache_len=PROMPT + GEN),
+                            merge_lora(t_rows[cid], frozen), device="cpu")
+        solo_logits = [solo.prefill(prompts[b:b + 1])]
+        solo_logits += [solo.step(toks[b:b + 1, i]) for i in range(GEN - 1)]
+        for s, st in zip(solo_logits, logits):
+            _close(s[0].numpy(), st[b].numpy())
