@@ -253,6 +253,33 @@ Phases (any failure raises and exits non-zero):
    adapters in an ``AdapterCache`` of 4 slots: 32-token prompts, 32
    greedy tokens, every request's logits within 1e-5 of their largest
    magnitude against the request alone (the CPU test's bound).
+6h. the VLM and the audio encoder-decoder — (a) phase 6f's fleet with
+   internvl2-76b in granite's place (its published widths: d 8192, GQA
+   64/8, d_ff 28 672, RoPE, RMSNorm, SwiGLU; cut to 1 of its 80 layers and
+   32 of its 256 stub patches; the vocabulary re-based to GPT-2's with
+   GPT-2 small's LoRA; fp32, its AdamW moments too): ``fused_e2e`` float
+   wire and ``fused``, identical on per-client k, bytes and transmitters,
+   launches exact.  (b) The same with seamless-m4t-large-v2 (its published
+   widths and depth: 24 encoder + 24 decoder layers, d 1024, 16 heads,
+   d_ff 8192; 32 of its 1024 stub frames; re-based likewise; fp32) through
+   phase 6f's five runs and checks.  (c) Each alone at its published
+   widths in bf16: internvl2 at 8 layers (256 patches, 768 text tokens as
+   ``input_token_len`` gives, vocab 128 256) and seamless at its 24 + 24
+   (1024 frames, vocab 256 208, GPT-2 small's LoRA): the (8, 1024)
+   prefill timed beside its operations (``prefill_flops``), 16 decode
+   steps at batch 8 (seamless's against its forward within
+   ``DECODE_TOL`` plus 8 bf16 ulps of the largest logit; internvl2's
+   finite: its decode carries no patches), a decode step run with every
+   synchronising call an error, timed and traced.  (d) ``fed_train
+   --families gpt2-paper,internvl2-76b,seamless-m4t-large-v2 --engine
+   fused_e2e --use-kernels --rounds 2`` (kernel 1 once a round).  (e)
+   seamless at its published widths in fp32: 16 decode steps within
+   ``DECODE_TOL`` of its forward, then a ``ServeSession`` of batch 8 with
+   8 tenants' adapters (the encoder's among them) in an ``AdapterCache``
+   of 4 slots, the encoder run once a reset on the session's own
+   parameters: 32-token prompts, 32 greedy tokens, every request's logits
+   within 1e-5 of their largest magnitude against the request alone (on
+   its own frames of the batch's stub).
 7. timing — each kernel's C entry point, its wrapper, its plain version and
    one PyTorch library call where one computes the same function, at the
    main path's shapes, beside the least time the card could take (for
@@ -281,8 +308,8 @@ The last lines are the card and its power limit, the kernels record and the
 device record (JSON).  In the kernels record ``launches`` is each kernel's
 count summed over the eight main-path runs, the pretrained path's four,
 phase 5c's runs and validated wires, phase 5d's runs, phase 5e's
-(its children's included), phase 6f's five and phase 6g's five and its
-``fed_train`` run,
+(its children's included), phase 6f's five, phase 6g's five and its
+``fed_train`` run and phase 6h's seven and its ``fed_train`` run,
 ``pct_of_bound`` its bound over its time; the static top-k's, the KL's and the attention's rows (fp32 and
 bf16) add ``entry_launches``, their counts through their public entry
 points.
@@ -339,7 +366,7 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import H100  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.lora import is_lora_path, lora_template, merge_lora, split_lora  # noqa: E402
-from repro_torch.models import attention, model  # noqa: E402
+from repro_torch.models import attention, frontends, model  # noqa: E402
 from repro_torch.models.layers import embedding, layer_norm  # noqa: E402
 from repro_torch.models.transformer import layer_slice  # noqa: E402
 from repro_torch.serve.export import FleetStoreSource, MonolithicSource  # noqa: E402
@@ -2538,14 +2565,16 @@ def family_cohorts(into: dict):
     return wrap
 
 
-def family_runs(device, cfgs, card: str = "") -> dict:
-    """(a): the mixed fleet through the five engines; returns their launches
-    and client 1's merged parameters (the second family's, for (b)).  ``card`` (the
-    card's name and power limit) follows each line with a time."""
+def family_runs(device, cfgs, card: str = "", runs=FAMILY_RUNS, label: str = "families") -> dict:
+    """(a): the mixed fleet through the engine ``runs`` (the five by
+    default); returns their launches and, with a ``sequential`` run,
+    client 1's merged parameters (the second family's, for (b)).  ``card``
+    (the card's name and power limit) follows each line with a time;
+    ``label`` opens each line."""
     families, server_cfg, ds = cfgs
     on_card = torch.device(device).type == "cuda"
     out, launches = {}, {}
-    for engine, quantize in FAMILY_RUNS:
+    for engine, quantize in runs:
         fed = main_fed(engine, quantize, pretrain_steps=1, server_pretrain="none")
         tag = f"{engine}/{'int8' if quantize else 'float'}"
         cohorts: dict = {}
@@ -2561,15 +2590,15 @@ def family_runs(device, cfgs, card: str = "") -> dict:
         peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
         make_up = [[sum(1 for i in cohorts[r] if i % len(families) == fi)
                     for fi in range(len(families))] for r in range(fed.rounds)]
-        log(f"[families {tag}] {' + '.join(f.name for f in families)} clients "
+        log(f"[{label} {tag}] {' + '.join(f.name for f in families)} clients "
             f"x{fed.num_clients} (cohort {fed.clients_per_round}), server {server_cfg.name} "
             f"{server_cfg.num_layers} layers, {fed.rounds} rounds in "
             f"{time.perf_counter() - t0:.1f} s (setup included), "
             f"round_seconds={[round(x, 3) for x in run.round_seconds]}, "
             f"max_memory_allocated={peak:.2f} GiB ({card})")
-        log(f"[families {tag}] cohorts {[cohorts[r] for r in range(fed.rounds)]}, clients of each "
+        log(f"[{label} {tag}] cohorts {[cohorts[r] for r in range(fed.rounds)]}, clients of each "
             f"family a round {make_up}; per_client_k={run.per_client_k}")
-        log(f"[families {tag}] uplink_bytes={[r.uplink_bytes for r in run.ledger.rounds]} "
+        log(f"[{label} {tag}] uplink_bytes={[r.uplink_bytes for r in run.ledger.rounds]} "
             f"server_acc={run.server_acc} client_acc={run.client_acc} "
             f"distill_loss={run.distill_loss}; kernel launches {got}")
         # the families bucket as they should: granite at its published widths
@@ -2601,19 +2630,22 @@ def family_runs(device, cfgs, card: str = "") -> dict:
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
-    float_tags = [f"{e}/float" for e, q in FAMILY_RUNS if not q]
-    seq = out["sequential/float"]
+    float_tags = [f"{e}/float" for e, q in runs if not q]
+    seq = out.get("sequential/float", out[float_tags[0]])
     for tag in float_tags:  # the reference's contract (tests/test_hetero.py)
         assert out[tag]["ints"] == seq["ints"], (tag, out[tag]["ints"], seq["ints"])
         for key in ("server_acc", "client_acc"):
             np.testing.assert_allclose(out[tag][key], seq[key], rtol=0, atol=FAMILY_ACC_TOL + 1e-9)
-    e2e8 = out["fused_e2e/int8"]["ints"]
-    # int8 entries cost 8 value bits: every budget affords at least the float wire's k
-    assert all(k8 >= k for r8, r in zip(e2e8[0], seq["ints"][0]) for k8, k in zip(r8, r))
-    assert [x[2] for x in e2e8[1]] == [x[2] for x in seq["ints"][1]]
-    log(f"[families] fused_e2e, fused, batched and sequential: identical per-client k, uplink and "
-        f"downlink bytes and transmitters, accuracies within {FAMILY_ACC_TOL:.4f}; the int8 wire's "
-        f"k at least the float wire's, the same transmitters; launches {launches}")
+    said = ""
+    if "fused_e2e/int8" in out:
+        e2e8 = out["fused_e2e/int8"]["ints"]
+        # int8 entries cost 8 value bits: every budget affords at least the float wire's k
+        assert all(k8 >= k for r8, r in zip(e2e8[0], seq["ints"][0]) for k8, k in zip(r8, r))
+        assert [x[2] for x in e2e8[1]] == [x[2] for x in seq["ints"][1]]
+        said = "; the int8 wire's k at least the float wire's, the same transmitters"
+    log(f"[{label}] {', '.join(t.split('/')[0] for t in float_tags)}: identical per-client k, "
+        f"uplink and downlink bytes and transmitters, accuracies within {FAMILY_ACC_TOL:.4f}"
+        f"{said}; launches {launches}")
     return dict(runs=out, launches=launches)
 
 
@@ -2773,7 +2805,7 @@ SSM_DECODE_STEPS = 16
 # SSD), so a rounding may land a bf16 ulp away: DECODE_TOL plus this many bf16
 # ulps (2^-8 relative each) of the largest logit
 BF16_DECODE_ULPS = 4
-SSM_SERVE_TOL = 1e-5  # of the largest logit: tests/test_torch_serve.py's bound
+SERVE_TOL = 1e-5  # of the largest logit: tests/test_torch_serve.py's bound
 FAMILIES_CLI = "gpt2-paper,mamba2-130m,jamba-1.5-large-398b"
 
 
@@ -2849,16 +2881,21 @@ def time_mamba(device, cfg, card: str) -> dict:
                 decode_err=max(errs), busy_share=trace["busy_share"], top_ops=top)
 
 
-def serve_ssm(device, card: str, cfg=MAMBA) -> dict:
-    """(d): a ``ServeSession`` of batch 8 on a shared ``cfg`` backbone with 8
-    tenants' head adapters (A and B drawn from a numpy seed) exported from a
-    ``DeviceFleetStore`` into an ``AdapterCache`` of 4 slots: 32-token
-    prompts, 32 greedy tokens; every request's logits at every step within
-    ``SSM_SERVE_TOL`` of their largest magnitude against the request run
-    alone with its merged adapter, the stacked run's tokens fed to it."""
-    backbone = model.init(cfg, 0, device)
+def serve_tenants(device, card: str, cfg=MAMBA, backbone=None,
+                  label: str = "ssm serving") -> dict:
+    """(d) of 6g, (e) of 6h: a ``ServeSession`` of batch 8 on a shared ``cfg``
+    backbone (``model.init(cfg, 0)`` unless given) with 8 tenants' adapters
+    (A and B drawn from a numpy seed) exported from a ``DeviceFleetStore``
+    into an ``AdapterCache`` of 4 slots: 32-token prompts, 32 greedy
+    tokens; every request's logits at every step within ``SERVE_TOL`` of
+    their largest magnitude against the request run alone with its merged
+    adapter, the stacked run's tokens fed to it.  An audio model's encoder
+    runs once a reset, on the session's own parameters, so the request run
+    alone keeps the backbone's encoder adapters and encodes its own frames
+    of the batch's stub."""
+    if backbone is None:
+        backbone = model.init(cfg, 0, device)
     lora, frozen = split_lora(backbone)
-    assert set(lora) == {"lora_head/A", "lora_head/B"}, sorted(lora)
     rows = tenant_rows(lora, TENANTS, seed=37, device=device)
     src = export_adapters(DeviceFleetStore(rows, [frozen] * TENANTS, shared=True))
     cache = AdapterCache(src, like=lora_template(backbone), slots=SLOTS, device=device)
@@ -2866,43 +2903,53 @@ def serve_ssm(device, card: str, cfg=MAMBA) -> dict:
                         serving_params(src, backbone), adapters=cache, device=device)
     prompts = np.random.default_rng(41).integers(0, cfg.vocab_size,
                                                  (SERVE_BATCH, PROMPT)).astype(np.int32)
+    audio = cfg.family == "audio"
+    frames = frontends.synth_frontend_embeddings(cfg, SERVE_BATCH, device=device) if audio else None
     ids = [0, 1, 1, 2, 3, 3, 0, 2]
     ops.reset_launches()
     sess.attach(ids)
     assert cache.stats.as_dict() == dict(hits=0, misses=4, evictions=0, lookups=1)
+    sync(device)
+    t0 = time.perf_counter()
+    sess.reset()  # an audio model's encoder pass over the batch's frames
+    sync(device)
+    reset_s = time.perf_counter() - t0
     sess.prefill(prompts)
     sync(device)
     t0 = time.perf_counter()
     toks, _ = sess.decode(GEN)  # every step ends in a device sync
     step_s = (time.perf_counter() - t0) / GEN
-    sess.reset()
     stacked = [sess.prefill(prompts)] + [sess.step(toks[:, i]) for i in range(GEN)]
     worst = 0.0
     for b, cid in enumerate(ids):
+        own = {k: (backbone[k] if k.startswith("encoder/") else v) for k, v in rows[cid].items()}
         solo = ServeSession(ServeConfig(model=cfg, batch=1, cache_len=128),
-                            merge_lora(rows[cid], frozen), device=device)
-        logits = [solo.prefill(prompts[b:b + 1])] + [solo.step(toks[b:b + 1, i])
-                                                      for i in range(GEN)]
+                            merge_lora(own, frozen), device=device)
+        solo.reset(frontend=None if frames is None else frames[b:b + 1])
+        logits = [[solo.step(prompts[b:b + 1, t]) for t in range(PROMPT)][-1]]
+        logits += [solo.step(toks[b:b + 1, i]) for i in range(GEN)]
         for i, (lo, st) in enumerate(zip(logits, stacked)):
             err = float((lo[0] - st[b]).abs().max() / st[b].abs().max())
-            assert err <= SSM_SERVE_TOL, ("stacked vs solo", b, i, err)
+            assert err <= SERVE_TOL, ("stacked vs solo", b, i, err)
             worst = max(worst, err)
     assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES  # no kernel on the serving path
-    log(f"[ssm serving] {cfg.name} backbone + {TENANTS} tenants' head adapters, AdapterCache of "
-        f"{SLOTS} slots, batch {SERVE_BATCH}, tenants {ids}: stacked decode vs each request alone "
-        f"over {GEN + 1} steps max |diff|/max|logit| {worst:.3e} (bound {SSM_SERVE_TOL}); decode "
-        f"step {step_s * 1e3:.3f} ms over {GEN} greedy steps (host clock), "
-        f"{SERVE_BATCH / step_s:.1f} tokens/s ({card})")
-    return dict(decode_step_ms=step_s * 1e3, stacked_vs_solo=worst)
+    log(f"[{label}] {cfg.name} backbone + {TENANTS} tenants' adapters ({len(lora)} leaves a "
+        f"tenant), AdapterCache of {SLOTS} slots, batch {SERVE_BATCH}, tenants {ids}: stacked "
+        f"decode vs each request alone over {GEN + 1} steps max |diff|/max|logit| {worst:.3e} "
+        f"(bound {SERVE_TOL}); a reset {reset_s * 1e3:.1f} ms"
+        f"{' (the encoder pass)' if audio else ''}, decode step {step_s * 1e3:.3f} ms over {GEN} "
+        f"greedy steps (host clock), {SERVE_BATCH / step_s:.1f} tokens/s ({card})")
+    return dict(decode_step_ms=step_s * 1e3, reset_ms=reset_s * 1e3, stacked_vs_solo=worst)
 
 
-def families_cli(device) -> dict:
+def families_cli(device, families: str = FAMILIES_CLI, label: str = "ssm") -> dict:
     """(c) part 2: ``fed_train --families gpt2-paper,mamba2-130m,jamba-...``
-    on ``fused_e2e`` with the kernels, 2 rounds at the CLI's own sizes (each
-    smoke config re-based onto the reduced experiment's vocabulary and
-    LoRA), in a temp directory it removes; returns its launches."""
+    (or ``families``) on ``fused_e2e`` with the kernels, 2 rounds at the
+    CLI's own sizes (each smoke config re-based onto the reduced
+    experiment's vocabulary and LoRA), in a temp directory it removes;
+    returns its launches."""
     tmp = tempfile.mkdtemp(prefix="fed_train_families_")
-    argv = ["--families", FAMILIES_CLI, "--engine", "fused_e2e", "--use-kernels", "--rounds", "2",
+    argv = ["--families", families, "--engine", "fused_e2e", "--use-kernels", "--rounds", "2",
             "--device", str(device), "--out", tmp]
     try:
         sync(device)
@@ -2917,11 +2964,11 @@ def families_cli(device) -> dict:
             rec = json.load(f)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    assert rec["families"] == FAMILIES_CLI and len(rec["server_acc"]) == 2
+    assert rec["families"] == families and len(rec["server_acc"]) == 2
     assert all(x is not None and math.isfinite(x) for x in rec["distill_loss"])
     if torch.device(device).type == "cuda":
         assert launches == {"scatter_wire_sums": 2}, launches
-    log(f"[ssm fed_train] python -m repro_torch.launch.fed_train {' '.join(argv[:-2])}: "
+    log(f"[{label} fed_train] python -m repro_torch.launch.fed_train {' '.join(argv[:-2])}: "
         f"{seconds:.1f} s (pretraining included), mean_k {rec['mean_k']}, uplink MB "
         f"{rec['uplink_mb_per_round']}, server_acc {rec['server_acc']}, distill_loss "
         f"{rec['distill_loss']}; kernel launches {launches}")
@@ -2953,10 +3000,232 @@ def phase_ssm(device, card: str = "", cfgs=None) -> dict:
     for key in set(fed_pretrain._CACHE) - cached:
         del fed_pretrain._CACHE[key]
     if on_card:
-        out["serving"] = serve_ssm(device, card)
+        backbone = model.init(MAMBA, 0, device)
+        assert {k for k in backbone if is_lora_path(k)} == {"lora_head/A", "lora_head/B"}
+        out["serving"] = serve_tenants(device, card, MAMBA, backbone)
         gc.collect()
         torch.cuda.empty_cache()
     log(f"[ssm] phase 6g passed in {time.perf_counter() - t0:.1f} s; kernel launches "
+        f"{out['launches']} ({card})")
+    return out
+
+
+# -- phase 6h: the VLM and the audio encoder-decoder --------------------------------
+
+# internvl2-76b at its published widths (d 8192, GQA 64/8, d_ff 28 672, RoPE,
+# RMSNorm, SwiGLU), its decoder cut to 1 of 80 layers and its stub patches to
+# 32 of 256, re-based as fed_train's family_configs re-bases a family (the
+# GPT-2 exchange vocabulary, GPT-2 small's LoRA), in the main path's fp32 (its
+# AdamW moments too, which the published config keeps in bf16).  At 2 layers
+# its pretraining step ran out of the card's 80 GB: at its peak the
+# functional AdamW holds the parameters, the gradients and their clipped copy,
+# the old and the new moments and the new parameters, 8 fp32 copies of the
+# model (81 GB at 2.53 B parameters; 54 GB at 1 layer's 1.68 B).
+INTERNVL2 = get_config("internvl2-76b").with_overrides(
+    name="fam-internvl2-76b", num_layers=1, frontend_len=32, vocab_size=GPT2_SMALL.vocab_size,
+    lora=GPT2_SMALL.lora, param_dtype="float32", compute_dtype="float32",
+    optimizer_state_dtype="float32", remat=False)
+# seamless-m4t-large-v2 at its published widths and depth (24 + 24 layers, d
+# 1024, 16 heads, d_ff 8192), its stub frames cut to 32 of 1024, re-based alike
+SEAMLESS = get_config("seamless-m4t-large-v2").with_overrides(
+    name="fam-seamless-m4t-large-v2", frontend_len=32, vocab_size=GPT2_SMALL.vocab_size,
+    lora=GPT2_SMALL.lora, param_dtype="float32", compute_dtype="float32", remat=False)
+# (c) and (e): each family alone at its published widths and vocabulary.
+# seamless carries GPT-2 small's LoRA, whose adapters the tenants of (e)
+# replace; init draws in fp32 whatever the dtype, so its bf16 parameters are
+# its fp32 ones rounded.  internvl2 is cut to 8 of its 80 layers (18 GB).
+SEAMLESS_ALONE = get_config("seamless-m4t-large-v2").with_overrides(lora=GPT2_SMALL.lora,
+                                                                   remat=False)
+SEAMLESS_ALONE_FP32 = SEAMLESS_ALONE.with_overrides(param_dtype="float32", compute_dtype="float32")
+INTERNVL2_ALONE = get_config("internvl2-76b").with_overrides(num_layers=8, remat=False)
+MODAL_RUNS = (("fused_e2e", False), ("fused", False))
+MODAL_DECODE_STEPS = 16
+# seamless's bf16 decode against its bf16 forward: DECODE_TOL plus this many
+# bf16 ulps of the largest logit.  Each of its 24 decoder layers rounds three
+# residual adds to bf16, and its cross-attention sums 1 024 frames in GEMMs of
+# other shapes in the forward (16 queries) and in decode (1); the first run on
+# the card gave 4.0 ulps, at mamba's bound of 4.  The fp32 decode of (e) is
+# held within DECODE_TOL itself.
+BF16_AUDIO_DECODE_ULPS = 8
+FAMILIES_MODAL_CLI = "gpt2-paper,internvl2-76b,seamless-m4t-large-v2"
+
+
+def prefill_flops(cfg, batch: int, tokens: int) -> float:
+    """The floating-point operations of a prefill of ``tokens`` text
+    positions a sequence: 2 per multiply-add of every projection over the
+    positions that run it (a VLM's patches too, an audio model's frames
+    through the encoder and the decoder's cross K/V), 4 · S_q · S_k · H ·
+    Dh a layer for the scores and their product with V (every pair, as the
+    plain attention computes them before it masks), and the head on the
+    last position only."""
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = d * cfg.num_heads * hd * 2 + d * cfg.num_kv_heads * hd * 2
+    mlp = d * cfg.d_ff * (3 if cfg.activation == "swiglu" else 2)
+    pairs = lambda q, k: 4 * q * k * cfg.num_heads * hd  # noqa: E731
+    f = cfg.frontend_len if cfg.frontend != "none" else 0
+    dec = tokens + (f if cfg.family == "vlm" else 0)
+    ops = cfg.num_layers * (2 * (attn + mlp) * dec + pairs(dec, dec))
+    if cfg.family == "audio":
+        ops += cfg.encoder_layers * (2 * (attn + mlp) * f + pairs(f, f))
+        ops += cfg.num_layers * (2 * d * cfg.num_heads * hd * 2 * tokens
+                                 + 2 * d * cfg.num_kv_heads * hd * 2 * f + pairs(tokens, f))
+    return batch * (ops + 2 * d * cfg.vocab_size)
+
+
+def decode_errors(params, cfg, tokens, frontend, device) -> tuple[list[float], float]:
+    """Decode ``tokens (B, T)`` one step at a time from a fresh cache (an
+    audio model's ``enc_out`` encoded from ``frontend``) and return each
+    step's largest |logit - forward logit| and the forward's largest
+    |logit|."""
+    b = tokens.shape[0]
+    full, _ = model.forward(params, cfg, tokens[None], frontend=frontend)
+    enc_out = model._run_encoder(params, cfg, frontend[None])[0] if cfg.family == "audio" else None
+    cache = model.init_cache(cfg, b, 64, enc_out=enc_out, device=device)
+    errs = []
+    for t in range(tokens.shape[1]):
+        logits, cache = model.decode_step(params, cfg, cache, tokens[:, t])
+        errs.append(float((logits.float() - full[0, :, t].float()).abs().max()))
+    return errs, float(full.float().abs().max())
+
+
+def time_alone(device, cfg, params, card: str) -> dict:
+    """(c): ``cfg`` alone at full width in its published bf16.  The (8,
+    1024) prefill (the VLM's 1024 positions its 256 patches and the 768
+    text tokens ``input_token_len`` gives; the audio model's 1024 tokens
+    over 1024 frames) timed with CUDA events (the median of 5 after a
+    warm-up), beside its operations; 16 decode steps at batch 8: the audio
+    model's within ``DECODE_TOL`` plus ``BF16_AUDIO_DECODE_ULPS`` bf16 ulps of
+    the largest logit of its forward, the VLM's finite (its decode carries no
+    patches, so it has no forward to match: the CPU tests hold it to the
+    reference's ``decode_step``); a decode step run with every synchronising
+    call an error, then timed (the median of 9), and one traced."""
+    s_text = model.input_token_len(cfg, PREFILL_S)
+    tokens = torch.as_tensor(np.random.default_rng(43).integers(0, cfg.vocab_size,
+                                                                (SERVE_BATCH, s_text)),
+                             device=device)
+    frontend = frontends.synth_frontend_embeddings(cfg, SERVE_BATCH, device=device)
+    batch = {"tokens": tokens, "frontend": frontend}
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        prefill_ms = median_ms(lambda: model.prefill(params, cfg, batch))
+        prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+        last, _ = model.prefill(params, cfg, batch)
+        assert tuple(last.shape) == (SERVE_BATCH, cfg.vocab_size)
+        assert bool(torch.isfinite(last).all())
+        short = tokens[:, :MODAL_DECODE_STEPS]
+        if cfg.family == "audio":
+            errs, scale = decode_errors(params, cfg, short, frontend, device)
+            tol = DECODE_TOL + BF16_AUDIO_DECODE_ULPS * 2**-8 * scale
+            assert max(errs) <= tol, (cfg.name, errs, tol)
+            held = (f"{MODAL_DECODE_STEPS} decode steps within {max(errs):.3e} of the forward "
+                    f"(bound {tol:.3e}, largest logit {scale:.3f})")
+        cache = model.init_cache(cfg, SERVE_BATCH, 64, device=device, enc_out=(
+            model._run_encoder(params, cfg, frontend[None])[0] if cfg.family == "audio" else None))
+        for t in range(MODAL_DECODE_STEPS):
+            logits, cache = model.decode_step(params, cfg, cache, short[:, t])
+            assert bool(torch.isfinite(logits).all()), (cfg.name, t)
+        if cfg.family != "audio":
+            held = f"{MODAL_DECODE_STEPS} decode steps' logits finite"
+        at = iter(range(MODAL_DECODE_STEPS, 10**6))
+
+        def step():
+            return model.decode_step(params, cfg, cache, tokens[:, next(at) % s_text])
+
+        guarded(step)  # a decode step waits for nothing
+        decode_ms = median_ms(step, reps=9)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        untraced_s = time.perf_counter() - t0
+        warm_profiler()
+        with torch.profiler.profile(activities=TRACE_ACTIVITIES) as prof:
+            step()
+            torch.cuda.synchronize()
+    trace = trace_summary(prof, f"{cfg.name} bf16 decode step, batch {SERVE_BATCH}", untraced_s)
+    top = top_device_ops(prof)
+    flops = prefill_flops(cfg, SERVE_BATCH, s_text)
+    log(f"[modal {cfg.name} bf16] {cfg.num_layers} layers"
+        f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}, d "
+        f"{cfg.d_model}, {cfg.frontend_len} {'frames' if cfg.family == 'audio' else 'patches'}, "
+        f"vocab {cfg.vocab_size}: prefill ({SERVE_BATCH}, {s_text} tokens) {prefill_ms:.1f} ms "
+        f"({flops / 1e12:.1f} TFLOP, {flops / prefill_ms / 1e9:.0f} TFLOP/s; peak "
+        f"{prefill_peak:.2f} GiB); {held}; decode step at batch {SERVE_BATCH} {decode_ms:.2f} ms, "
+        f"none synchronising ({card})")
+    log(f"[modal {cfg.name} bf16] the traced decode step's top device ops (us, calls): "
+        + "; ".join(f"{name[:60]} {us:.1f} x{n}" for name, us, n in top))
+    return dict(prefill_ms=prefill_ms, prefill_tflop=flops / 1e12, prefill_peak=prefill_peak,
+                decode_ms=decode_ms, busy_share=trace["busy_share"], top_ops=top)
+
+
+def audio_decode_fp32(device, cfg, backbone) -> float:
+    """(e) part 1: seamless at its published widths in fp32, 16 decode steps
+    at batch 8 over its 1 024 frames against its forward, within
+    ``DECODE_TOL``."""
+    tokens = torch.as_tensor(np.random.default_rng(53).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, MODAL_DECODE_STEPS)), device=device)
+    frames = frontends.synth_frontend_embeddings(cfg, SERVE_BATCH, device=device)
+    with torch.no_grad():
+        errs, scale = decode_errors(backbone, cfg, tokens, frames, device)
+    assert max(errs) <= DECODE_TOL, (errs, DECODE_TOL)
+    log(f"[modal decode] {cfg.name} fp32 (TF32 off), {cfg.frontend_len} frames: "
+        f"{MODAL_DECODE_STEPS} decode steps within {max(errs):.3e} of the forward (bound "
+        f"{DECODE_TOL}, largest logit {scale:.3f})")
+    return max(errs)
+
+
+def phase_modal(device, card: str = "", cfgs=None) -> dict:
+    """Phase 6h: the VLM and the audio encoder-decoder (module docstring).
+    ``cfgs`` = ``(vlm fleet, audio fleet, server, dataset, audio alone)``
+    replaces the full-width models: a rehearsal at small widths on the CPU
+    runs (a), (b), the CLI run of (d) and the serving of (e)."""
+    t0 = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    cached = set(fed_pretrain._CACHE)
+    if cfgs is None:
+        ds = make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32)
+        cfgs = ([GPT2_SMALL, INTERNVL2], [GPT2_SMALL, SEAMLESS], FAULT_SERVER, ds,
+                SEAMLESS_ALONE_FP32)
+    vlm, audio, server_cfg, ds, alone = cfgs
+    out = family_runs(device, (vlm, server_cfg, ds), card, runs=MODAL_RUNS, label="modal vlm")
+    out["audio"] = family_runs(device, (audio, server_cfg, ds), card, label="modal audio")
+    del out["audio"]["runs"]["client1"]
+    for name, n in out.pop("audio")["launches"].items():
+        out["launches"][name] = out["launches"].get(name, 0) + n
+    for key in set(fed_pretrain._CACHE) - cached:  # the phase's backbones
+        del fed_pretrain._CACHE[key]
+    gc.collect()
+    backbone = None
+    if on_card:
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        params = model.init(INTERNVL2_ALONE, 0, device)
+        log(f"[modal] {INTERNVL2_ALONE.name} at {INTERNVL2_ALONE.num_layers} layers drawn in "
+            f"{time.perf_counter() - t1:.1f} s ({INTERNVL2_ALONE.param_count() / 1e9:.2f} B "
+            f"parameters, bf16)")
+        out["alone"] = {"internvl2": time_alone(device, INTERNVL2_ALONE, params, card)}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        backbone = model.init(alone, 0, device)
+        rounded = {k: v.to(torch.bfloat16) for k, v in backbone.items()}
+        out["alone"]["seamless"] = time_alone(device, SEAMLESS_ALONE, rounded, card)
+        del rounded
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, n in families_cli(device, FAMILIES_MODAL_CLI, "modal").items():
+        out["launches"][name] = out["launches"].get(name, 0) + n
+    for key in set(fed_pretrain._CACHE) - cached:
+        del fed_pretrain._CACHE[key]
+    if backbone is None:
+        backbone = model.init(alone, 0, device)
+    out["decode_fp32"] = audio_decode_fp32(device, alone, backbone)
+    out["serving"] = serve_tenants(device, card, alone, backbone, "modal serving")
+    del backbone
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[modal] phase 6h passed in {time.perf_counter() - t0:.1f} s; kernel launches "
         f"{out['launches']} ({card})")
     return out
 
@@ -3379,20 +3648,22 @@ def main() -> int:
     serving = phase_serving(device, card)
     families = phase_families(device, card)
     ssm = phase_ssm(device, card)
+    modal = phase_modal(device, card)
     launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) + pretrained["launches"][name]
                 + faults["launches"].get(name, 0) + host_store["launches"].get(name, 0)
                 + scale_out["launches"].get(name, 0) + families["launches"].get(name, 0)
-                + ssm["launches"].get(name, 0) for name in KERNELS}
+                + ssm["launches"].get(name, 0) + modal["launches"].get(name, 0) for name in KERNELS}
     entry_names = ("topk_mask", "distill_kl", "topk_mask.bf16", "distill_kl.bf16")
     entry = {name: sum(r["entry_launches"].get(name, 0) for r in runs.values()) for name in entry_names}
     for name in ("flash_attention", "flash_attention.bf16"):
         entry[name] = serving["entry_launches"][name]
     log(f"[main path] kernel launches over the eight runs, the pretrained phase's four, the "
-        f"faults phase's, the host store phase's, the scale-out phase's, the families phase's "
-        f"and the state-space phase's {launches} (the faults "
+        f"faults phase's, the host store phase's, the scale-out phase's, the families phase's, "
+        f"the state-space phase's and the modal phase's {launches} (the faults "
         f"phase's alone {faults['launches']}, the host store phase's {host_store['launches']}, "
         f"the scale-out phase's {scale_out['launches']}, the families phase's "
-        f"{families['launches']}, the state-space phase's {ssm['launches']})")
+        f"{families['launches']}, the state-space phase's {ssm['launches']}, the modal phase's "
+        f"{modal['launches']})")
     log(f"[entry] launches through the public entry points {entry}")
 
     k_caps = {

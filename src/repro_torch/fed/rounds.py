@@ -178,8 +178,8 @@ def _config_fingerprint(fed: FedConfig) -> dict:
 
 
 def _check_carried(families: list[ModelConfig], fed: FedConfig) -> None:
-    """Raise on what the port does not carry, before any work: a model
-    family the port does not run, and ``scan_rounds`` on a mixed fleet;
+    """Raise on what the port does not carry, before any work: a model in
+    fp16, and ``scan_rounds`` on a mixed fleet;
     ``make_engine`` checks the engine's own options (kind, shard_clients,
     compute_dtype, fleet_store)."""
     for cfg in families:

@@ -7,10 +7,13 @@ record, plus ``--device`` (the card unless ``--device cpu``)::
 Reduced-scale GPT-2-family models on the synthetic Banking77-statistics
 dataset; writes a JSON history (``{out}/{method}_seed{seed}.json``).
 ``--families gpt2-paper,mamba2-130m`` federates a mixed fleet instead
-(the reference's example; any dense, MoE, SSM or hybrid arch ids): each
+(the reference's example; any arch ids of the registry): each
 arch's smoke config re-based onto the reduced experiment's vocabulary and
 LoRA (:func:`family_configs`), the clients cycling through them.  An
-attention-free family's eq. 8 projection comes from its head adapter.
+attention-free family's eq. 8 projection comes from its head adapter; a
+VLM or audio family reads the stub frontend
+(:mod:`repro_torch.models.frontends`), and an audio family's encoder
+adapters train with its decoder's.
 ``--fleet-store host --fleet-size N`` keeps the fleet in host memory and
 streams each round's cohort to the device, so device memory stays
 O(cohort).  ``--shard-clients`` splits each round's client phase over the
@@ -21,8 +24,7 @@ ranks of a process group, one process per device::
 
 Each rank takes ``cuda:{LOCAL_RANK}`` (NCCL; gloo with ``--device cpu``),
 and rank 0 writes the JSON; started without ``torch.distributed.run`` it
-runs on one rank.  A family the port does not run yet (VLM, audio) is
-refused: ROADMAP.md port queue, "other model families and mixed fleets".
+runs on one rank.
 """
 
 from __future__ import annotations

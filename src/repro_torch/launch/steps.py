@@ -112,8 +112,9 @@ def full_adamw_step(grads: dict, opt: AdamWState, params: dict, *, lr: float,
 
 def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, weight_decay: float = 0.1,
                     router_aux_weight: float = 0.01) -> Callable:
-    """LM pretraining/fine-tuning step over a ``{"tokens": (B, S)}`` batch,
-    full-parameter AdamW.
+    """LM pretraining/fine-tuning step over a ``{"tokens": (B, S)}`` batch
+    (plus ``"frontend" (B, F, d)`` for a VLM or audio model, the stub's
+    draw when absent), full-parameter AdamW.
 
     step(params, opt (from :func:`init_train_opt`), batch)
     -> (params, opt, {"loss": (), "ce": ()})
@@ -123,25 +124,26 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, weight_decay: float =
     ``cfg.microbatches = m > 1`` dividing the batch, the gradients of the m
     microbatches are summed in the params' dtype and divided by m."""
 
-    def loss_fn(params, tokens):
-        h, aux = backbone(params, cfg, tokens[None])
+    def loss_fn(params, tokens, frontend=None):
+        h, aux = backbone(params, cfg, tokens[None], frontend=frontend)
         targets = tokens[None, :, 1:]
         mask = torch.ones(targets.shape, dtype=torch.float32, device=tokens.device)
         ce = chunked_lm_loss(params, cfg, h[:, :, :-1], targets, mask)
         return ce + router_aux_weight * aux.moe_aux[0], ce
 
     def train_step(params, opt: AdamWState, batch):
-        tokens = batch["tokens"]
+        tokens, frontend = batch["tokens"], batch.get("frontend")
         bsz, m = tokens.shape[0], cfg.microbatches
         if m > bsz or bsz % m != 0:
             m = 1  # smoke-scale batches: accumulate-free step
         if m <= 1:
-            (loss, ce), grads = full_grads(loss_fn, params, tokens)
+            (loss, ce), grads = full_grads(loss_fn, params, tokens, frontend)
         else:
             grads = {k: torch.zeros_like(p) for k, p in params.items()}
             loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            for micro in tokens.reshape((m, bsz // m) + tuple(tokens.shape[1:])):
-                (loss, _), g = full_grads(loss_fn, params, micro)
+            fronts = [None] * m if frontend is None else frontend.chunk(m)
+            for micro, micro_f in zip(tokens.chunk(m), fronts):
+                (loss, _), g = full_grads(loss_fn, params, micro, micro_f)
                 grads = {k: grads[k] + g[k].to(grads[k].dtype) for k in grads}
                 loss_sum = loss_sum + loss
             grads = {k: g / m for k, g in grads.items()}

@@ -4,7 +4,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --steps 20 --batch 8 --seq 128
 
-Runs the architecture's smoke config through
+Runs the architecture's smoke config (a VLM or audio model with a stub
+frontend in each batch, drawn at the step's seed) through
 :func:`repro_torch.launch.steps.make_train_step` (full-parameter AdamW,
 next-token CE) on a synthetic LM stream, prints each step's loss and
 tokens/s, and with ``--ckpt-dir`` writes the params through
@@ -26,6 +27,7 @@ from repro_torch.data import make_lm_stream
 from repro_torch.fed.engines.base import not_carried
 from repro_torch.launch.steps import init_train_opt, make_train_step
 from repro_torch.models import init as model_init
+from repro_torch.models import frontends
 
 
 def main(argv=None) -> int:
@@ -60,6 +62,9 @@ def main(argv=None) -> int:
     for i in range(args.steps):
         batch = {"tokens": torch.as_tensor(tokens[i * args.batch:(i + 1) * args.batch],
                                            device=device)}
+        if cfg.frontend != "none":
+            batch["frontend"] = frontends.synth_frontend_embeddings(cfg, args.batch, seed=i,
+                                                                    device=device)
         t_step = time.perf_counter()
         params, opt, metrics = step_fn(params, opt, batch)
         losses.append(float(metrics["loss"]))  # waits for the step

@@ -1,5 +1,5 @@
-"""The dense, MoE, SSM and hybrid model families with LoRA, on tensors with a
-client axis."""
+"""Every model family with LoRA — dense, MoE, SSM, hybrid, the VLM and the
+audio encoder-decoder — on tensors with a client axis."""
 
 from repro_torch.models import model
 from repro_torch.models.model import Aux, backbone, decode_step, forward, init, init_cache, prefill

@@ -1,9 +1,10 @@
-"""Causal self-attention with q/k/v LoRA, grouped-query heads, RoPE, the
-sliding window and the decode KV cache — the port of
-``repro/models/attention.py``'s self-attention.
+"""Self-attention with q/k/v LoRA, grouped-query heads, RoPE, the
+sliding window and the decode KV cache, and the encoder-decoder's
+cross-attention — the port of ``repro/models/attention.py``.
 
 Full-sequence mode (no cache) masks the future (and, with a window, keys
-``window`` or more positions back): dense attention below ``2 * Q_CHUNK``
+``window`` or more positions back), or nothing with ``causal=False`` (an
+encoder's bidirectional layers): dense attention below ``2 * Q_CHUNK``
 positions, and from there the reference's chunked path, which scans query
 chunks so the ``(S, S)`` scores are never held at once
 (``_chunked_attention``; the same function, less peak memory).  Decode mode
@@ -15,6 +16,10 @@ reads K/V head ``h // q_per_kv`` (the reference's ``jnp.repeat`` on the
 head axis).  Under RoPE, q and k are rotated by absolute position; in
 decode the new key is rotated by ``length`` before it is written, so a
 cached key is never rotated again.
+
+Cross-attention (:func:`cross_attn_apply`) reads q from the decoder's
+stream and K/V from the encoder's output: no mask, no RoPE, no LoRA, and
+K/V recomputed on every call, decode steps included, as in the reference.
 
 Per-request adapters (multi-tenant serving) ride on the model's leading
 client axis: ``C`` requests of batch 1 each, every request with its own
@@ -31,7 +36,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_rope, linear, torch_dtype
 
-__all__ = ["KVCache", "Q_CHUNK", "init_kv_cache", "lora_delta", "qkv", "attn_apply"]
+__all__ = ["KVCache", "Q_CHUNK", "init_kv_cache", "lora_delta", "qkv", "attn_apply",
+           "cross_attn_apply"]
 
 _NEG_INF = -1e30
 # query-chunk length of the full-sequence path from 2 * Q_CHUNK positions on
@@ -91,16 +97,20 @@ def qkv(lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig):
     return proj["q"], proj["k"], proj["v"], hs.get("q", hs.get("v"))
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """``softmax(q k^T * Dh^-0.5)`` over the keys ``valid`` marks, times v:
-    q ``(B, S, H, Dh)``, k/v ``(B, T, Kv, Dh)`` with ``Kv`` dividing ``H``
-    (query head h reads K/V head ``h // (H / Kv)``), ``valid``
-    broadcastable to ``(S, T)`` -> ``(B, S, H·Dh)`` fp32."""
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            valid: torch.Tensor | None) -> torch.Tensor:
+    """``softmax(q k^T * Dh^-0.5)`` over the keys ``valid`` marks (every
+    key when None), times v: q ``(B, S, H, Dh)``, k/v ``(B, T, Kv, Dh)``
+    with ``Kv`` dividing ``H`` (query head h reads K/V head ``h // (H /
+    Kv)``), ``valid`` broadcastable to ``(S, T)`` -> ``(B, S, H·Dh)``
+    fp32."""
     g = q.shape[2] // k.shape[2]
     if g > 1:
         k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * q.shape[-1] ** -0.5
-    probs = torch.softmax(torch.where(valid, scores, _NEG_INF), dim=-1)
+    if valid is not None:
+        scores = torch.where(valid, scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, v.float())
     return out.reshape(out.shape[0], out.shape[1], -1)
 
@@ -112,20 +122,21 @@ def _causal(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int | None) -> tor
     return (delta >= 0) if window is None else (delta >= 0) & (delta < window)
 
 
-def _dense_attention(q, k, v, window: int | None = None) -> torch.Tensor:
+def _dense_attention(q, k, v, window: int | None = None, causal: bool = True) -> torch.Tensor:
     pos = torch.arange(q.shape[1], device=q.device)
-    return _attend(q, k, v, _causal(pos, pos, window))
+    return _attend(q, k, v, _causal(pos, pos, window) if causal else None)
 
 
-def _chunked_attention(q, k, v, window: int | None = None) -> torch.Tensor:
-    """Causal attention one ``Q_CHUNK`` of queries at a time against every
-    key: peak memory ``(B, H, Q_CHUNK, S)`` scores, the exact softmax per
-    row."""
+def _chunked_attention(q, k, v, window: int | None = None, causal: bool = True) -> torch.Tensor:
+    """Attention one ``Q_CHUNK`` of queries at a time against every key
+    (causal, or every key with ``causal=False``): peak memory ``(B, H,
+    Q_CHUNK, S)`` scores, the exact softmax per row."""
     s = q.shape[1]
     assert s % Q_CHUNK == 0, f"seq {s} not divisible by q-chunk {Q_CHUNK}"
     pos = torch.arange(s, device=q.device)
     return torch.cat([
-        _attend(q[:, i:i + Q_CHUNK], k, v, _causal(pos[i:i + Q_CHUNK], pos, window))
+        _attend(q[:, i:i + Q_CHUNK], k, v,
+                _causal(pos[i:i + Q_CHUNK], pos, window) if causal else None)
         for i in range(0, s, Q_CHUNK)
     ], dim=1)
 
@@ -134,12 +145,15 @@ def attn_apply(
     lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
     cache: KVCache | None = None,
     window: int | None = None,
+    causal: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Causal self-attention of one layer.  ``lp`` holds the layer's
+    """Self-attention of one layer.  ``lp`` holds the layer's
     ``attn/w{q,k,v,o}/{w,b}`` and, when it has adapters,
     ``lora/<target>/{A,B}``; ``x (C, B, S, d)``.  Returns ``(y, lora_h)``
     (see :func:`qkv`).  ``window`` limits each query to the keys fewer
-    than ``window`` positions back.
+    than ``window`` positions back; ``causal=False`` (full sequence only:
+    an encoder layer) lets every query see every key, window or not, as the
+    reference's mask does.
 
     With ``cache`` (decode, ``S == 1``) the new K/V is written IN PLACE into
     ring slot ``length % cache_len`` of the cache (``k``, ``v``, ``pos``;
@@ -156,7 +170,7 @@ def attn_apply(
         k = apply_rope(k, pos, theta=cfg.rope_theta)
     if cache is None:
         attend = _chunked_attention if s >= 2 * Q_CHUNK else _dense_attention
-        out = attend(q, k, v, window)
+        out = attend(q, k, v, window, causal)
     else:
         assert s == 1, "decode mode expects one new token"
         # a one-element index tensor: the write needs no host sync
@@ -171,3 +185,21 @@ def attn_apply(
     out = out.reshape(c, bsz, s, -1).to(x.dtype)
     y = linear(out, lp["attn/wo/w"], lp.get("attn/wo/b"), cd=torch_dtype(cfg.compute_dtype))
     return y, lora_h
+
+
+def cross_attn_apply(lp: dict[str, torch.Tensor], x: torch.Tensor, enc_out: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Encoder-decoder cross-attention of one layer: q from ``x (C, B, S,
+    d)``, K and V from ``enc_out (C, B, T, d)``, grouped-query heads, no
+    mask, no RoPE and no LoRA; ``lp`` holds the layer's
+    ``cross/w{q,k,v,o}/{w,b}``.  K and V are recomputed on every call."""
+    c, bsz, s, _ = x.shape
+    cd = torch_dtype(cfg.compute_dtype)
+
+    def proj(name, src):
+        y = linear(src, lp[f"cross/w{name}/w"], lp.get(f"cross/w{name}/b"), cd=cd)
+        return y.reshape(c * bsz, src.shape[2], -1, cfg.head_dim)
+
+    out = _attend(proj("q", x), proj("k", enc_out), proj("v", enc_out), None)
+    out = out.reshape(c, bsz, s, -1).to(x.dtype)
+    return linear(out, lp["cross/wo/w"], lp.get("cross/wo/b"), cd=cd)

@@ -1,21 +1,27 @@
-"""The decoder stack — the port of ``repro/models/transformer.py``'s
+"""The layer stacks — the port of ``repro/models/transformer.py``'s
 ``period_of``, ``stack_apply`` and ``init_stack_cache`` for the
-attention families (``dense``, ``moe``), the attention-free SSM family
-(Mamba2: the SSD mixer is the whole layer, no second norm and no MLP) and
-the hybrid (Jamba: SSD mixers with an attention layer every
-``attn_every`` layers and a MoE MLP every ``moe_every``).
+attention families (``dense``, ``moe``, and the VLM's decoder), the
+attention-free SSM family (Mamba2: the SSD mixer is the whole layer, no
+second norm and no MLP), the hybrid (Jamba: SSD mixers with an attention
+layer every ``attn_every`` layers and a MoE MLP every ``moe_every``) and
+the encoder-decoder (audio): a bidirectional encoder stack under
+``encoder/`` and a decoder whose layers add a cross-attention sub-layer
+(``norm_x`` then ``cross``, between the mixer and the MLP) over the
+encoder's output.
 
 Layers repeat with a **period** of ``p`` positions (1 for the uniform
 families; ``lcm(attn_every, moe_every)`` for the hybrid), and layer ``i =
 r·p + j`` is repeat ``r`` of position ``j``.  Parameters keep the
-reference's layout: every leaf under ``stack/pos{j}/`` has a leading
-``(num_layers // p, ...)`` repeats axis (after the client axis, when the
-leaf is per client).  The reference's ``lax.scan`` over repeats becomes a
-Python loop, repeats outermost and positions inside them, which slices
-repeat ``r`` out of each leaf.  The decode cache is the same period dict:
-a ``KVCache`` at each attention position and an ``SSMCache`` at each SSM
-position, each field stacked over the repeats, and layer ``i`` writes into
-its slice in place.
+reference's layout: every leaf under ``stack/pos{j}/``
+(``encoder/pos{j}/`` for the encoder) has a leading ``(num_layers // p,
+...)`` repeats axis (after the client axis, when the leaf is per client).
+The reference's ``lax.scan`` over repeats becomes a Python loop, repeats
+outermost and positions inside them, which slices repeat ``r`` out of each
+leaf.  The decode cache is the same period dict: a ``KVCache`` at each
+attention position and an ``SSMCache`` at each SSM position, each field
+stacked over the repeats, and layer ``i`` writes into its slice in place.
+An encoder stack has period 1 unless it is as deep as the decoder, when it
+takes the decoder's (the reference's rule).
 """
 
 from __future__ import annotations
@@ -26,17 +32,19 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import KVCache, attn_apply, init_kv_cache
+from repro_torch.models.attention import KVCache, attn_apply, cross_attn_apply, init_kv_cache
 from repro_torch.models.layers import mlp_apply, norm_apply, torch_dtype
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.ssm import SSMCache, init_ssm_cache, ssm_apply
 
 __all__ = [
-    "StackState", "STACK_PREFIX", "LAYER_NDIM", "period_of", "layer_kinds", "pos_prefix",
-    "layer_slice", "init_stack_cache", "stack_apply",
+    "StackState", "STACK_PREFIX", "ENCODER_PREFIX", "STACK_PREFIXES", "LAYER_NDIM", "period_of",
+    "stack_period", "layer_kinds", "pos_prefix", "layer_slice", "init_stack_cache", "stack_apply",
 ]
 
 STACK_PREFIX = "stack/"
+ENCODER_PREFIX = "encoder/"
+STACK_PREFIXES = (STACK_PREFIX, ENCODER_PREFIX)
 # dims of one layer's leaf of ONE model, by its last path component (a MoE
 # layer's experts ``mlp/{up,down,gate}`` are (E, i, o)); a stack leaf has
 # these + 1 (the repeats axis), + 2 with a leading client axis
@@ -62,6 +70,13 @@ def period_of(cfg: ModelConfig) -> int:
     return p
 
 
+def stack_period(cfg: ModelConfig, num_layers: int) -> int:
+    """The period of a stack of ``num_layers``: the model's, or 1 for an
+    encoder of another depth than the decoder's."""
+    p = period_of(cfg)
+    return p if num_layers == cfg.num_layers else 1
+
+
 def layer_kinds(cfg: ModelConfig, j: int) -> tuple[str, str | None]:
     """``(mixer, mlp)`` of position ``j``: ``"attn"`` or ``"ssm"``, and
     ``"moe"``, ``"dense"`` or None (the SSM family has no MLP)."""
@@ -71,15 +86,16 @@ def layer_kinds(cfg: ModelConfig, j: int) -> tuple[str, str | None]:
     return mixer, "moe" if cfg.is_moe_layer(j) else "dense"
 
 
-def pos_prefix(j: int) -> str:
-    return f"{STACK_PREFIX}pos{j}/"
+def pos_prefix(j: int, prefix: str = STACK_PREFIX) -> str:
+    return f"{prefix}pos{j}/"
 
 
-def layer_slice(params: dict[str, torch.Tensor], j: int, r: int) -> dict[str, torch.Tensor]:
-    """Repeat ``r`` of every ``stack/pos{j}/`` leaf, keyed relative to the
-    layer (``attn/wq/w``, ``ssm/a_log``, ``lora/q/A``, ...), client axis
-    kept."""
-    pre, out = pos_prefix(j), {}
+def layer_slice(params: dict[str, torch.Tensor], j: int, r: int,
+                prefix: str = STACK_PREFIX) -> dict[str, torch.Tensor]:
+    """Repeat ``r`` of every ``{prefix}pos{j}/`` leaf, keyed relative to
+    the layer (``attn/wq/w``, ``ssm/a_log``, ``lora/q/A``, ``cross/wk/w``,
+    ...), client axis kept."""
+    pre, out = pos_prefix(j, prefix), {}
     for key, t in params.items():
         if key.startswith(pre):
             per_client = t.ndim == LAYER_NDIM[key.rsplit("/", 1)[-1]] + 2
@@ -108,16 +124,22 @@ def init_stack_cache(cfg: ModelConfig, batch: int, cache_len: int, *, window: in
 
 def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
                 caches: dict[str, KVCache | SSMCache] | None = None,
-                window: int | None = None) -> StackState:
-    """Run the ``cfg.num_layers`` pre-norm blocks over ``x (C, B, S, D)``,
-    layer ``r·p + j`` for repeats ``r`` and positions ``j``; with
-    ``caches`` (decode) each layer reads, and writes into, its slice of the
-    stacked cache in place.  ``window``: the sliding window of every
-    attention layer.  ``lora_h`` starts at zeros when a position of the
-    period is an attention layer and the model has LoRA (the reference's
-    start: such a model whose adapters give no projection reports zeros),
-    else at None."""
-    p = period_of(cfg)
+                window: int | None = None, prefix: str = STACK_PREFIX,
+                num_layers: int | None = None, causal: bool = True,
+                enc_out: torch.Tensor | None = None) -> StackState:
+    """Run the ``num_layers`` (default ``cfg.num_layers``) pre-norm blocks
+    of the stack under ``prefix`` over ``x (C, B, S, D)``, layer ``r·p +
+    j`` for repeats ``r`` and positions ``j``; with ``caches`` (decode)
+    each layer reads, and writes into, its slice of the stacked cache in
+    place.  ``window``: the sliding window of every attention layer;
+    ``causal=False``: bidirectional self-attention (the encoder).  With
+    ``enc_out (C, B, T, D)`` a layer that has a ``cross`` sub-layer
+    cross-attends to it.  ``lora_h`` starts at zeros when a position of
+    the period is an attention layer and the model has LoRA (the
+    reference's start: such a model whose adapters give no projection
+    reports zeros), else at None."""
+    num_layers = cfg.num_layers if num_layers is None else num_layers
+    p = stack_period(cfg, num_layers)
     kinds = [layer_kinds(cfg, j) for j in range(p)]
     lora_h = None
     if cfg.lora is not None and any(mixer == "attn" for mixer, _ in kinds):
@@ -125,19 +147,21 @@ def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
                              device=x.device)
     moe_aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
     cd = torch_dtype(cfg.compute_dtype)
-    for r in range(cfg.num_layers // p):
+    for r in range(num_layers // p):
         for j, (mixer, mlp) in enumerate(kinds):
-            lp = layer_slice(params, j, r)
+            lp = layer_slice(params, j, r, prefix)
             cache = None if caches is None else type(caches[f"pos{j}"])(
                 *(t[r] for t in caches[f"pos{j}"]))
             h_in = norm_apply(lp, "norm1", x, cfg.norm)
             if mixer == "attn":
-                y, h = attn_apply(lp, h_in, cfg, cache=cache, window=window)
+                y, h = attn_apply(lp, h_in, cfg, cache=cache, window=window, causal=causal)
                 if h is not None:
                     lora_h = h.mean(dim=2)  # (C, B, r): paper eq. 8, pooled over the sequence
             else:
                 y = ssm_apply(lp, h_in, cfg, cache=cache)
             x = x + y
+            if enc_out is not None and "cross/wq/w" in lp:
+                x = x + cross_attn_apply(lp, norm_apply(lp, "norm_x", x, cfg.norm), enc_out, cfg)
             if mlp is None:
                 continue
             h2 = norm_apply(lp, "norm2", x, cfg.norm)

@@ -30,6 +30,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.lora import split_lora
 from repro_torch.models import init_cache
+from repro_torch.models import frontends
+from repro_torch.models.model import _run_encoder
 from repro_torch.serve.cache import AdapterCache
 from repro_torch.serve.steps import make_decode_step, make_stacked_decode_step
 
@@ -101,11 +103,23 @@ class ServeSession:
         return self._slot_idx is not None
 
     # -- decode-cache lifecycle -------------------------------------------
-    def reset(self) -> None:
-        """A fresh decode cache."""
-        mc = self.cfg.model  # init_cache refuses other families (the audio encoder too)
+    def reset(self, *, frontend=None) -> None:
+        """A fresh decode cache; an audio model's encoder runs once here, on
+        ``frontend (B, F, d)`` (the stub's draw when None) with the
+        session's own ``params`` (tenants attached or not, as in the
+        reference), and its output stays in the cache for every decode
+        step to cross-attend to."""
+        mc = self.cfg.model
+        enc_out = None
+        if mc.family == "audio":
+            if frontend is None:
+                frontend = frontends.synth_frontend_embeddings(mc, self.cfg.batch,
+                                                               device=self.device)
+            with torch.no_grad():
+                enc_out = _run_encoder(self.params, mc,
+                                       torch.as_tensor(frontend, device=self.device)[None])[0]
         self._cache = init_cache(mc, self.cfg.batch, self.cfg.cache_len, window=self.cfg.window,
-                                 device=self.device)
+                                 enc_out=enc_out, device=self.device)
         self._length = 0
         self._logits = None
 

@@ -4,8 +4,9 @@
   and hand ``run_federated`` the same models and checkpoint arguments; each
   module's ``run_federated`` is stubbed to capture them.  The port's JSON
   record has the reference's keys, and the same ``fed`` entry.
-* ``--families`` with a VLM raises naming its ROADMAP.md port queue item; ``--resume``
-  without ``--ckpt-dir`` is a usage error in both.
+* ``--families`` with a VLM and ``--scan-rounds`` (a mixed fleet's block)
+  raises naming its ROADMAP.md port queue item; ``--resume`` without
+  ``--ckpt-dir`` is a usage error in both.
 * End to end on the CPU (the CLI's models shrunk to the tests' tiny
   configs): a host-store run of 2 rounds with ``--ckpt-dir`` leaves the
   fleet in shards beside the step, a device-store run resumes it to 3
@@ -103,7 +104,8 @@ def test_the_device_defaults_to_the_card(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--families", "gpt2-paper,internvl2-76b"], "other model families and mixed fleets"),
+    (["--families", "gpt2-paper,internvl2-76b", "--engine", "fused_e2e", "--scan-rounds"],
+     "other model families and mixed fleets"),
 ])
 def test_what_the_cli_does_not_carry_raises(flag, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md port queue: {item}"):

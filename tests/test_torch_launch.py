@@ -22,8 +22,12 @@ architecture registry against the reference's, on the CPU.
   ``1 + cos`` cancels toward the end of the decay, which turns that ulp
   into up to 5 ulps of the value, never more than one of ``peak_lr``.
 * ``train --arch`` and ``serve --arch`` of the SSM and hybrid smoke
-  configs, held as the GPT-2 pair is.
-* What the port does not carry raises naming its ROADMAP.md item.
+  configs, held as the GPT-2 pair is; ``train --arch internvl2-76b`` (a
+  stub frontend in each batch) and ``serve --arch seamless-m4t-large-v2``
+  (the encoder run once a request batch) likewise, the port's stub the
+  reference's draw (``_torch_modal``).
+* What the port does not carry raises naming its ROADMAP.md item: fp16 on
+  the VLM and audio families among it.
 """
 
 import functools
@@ -32,6 +36,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_modal import reference_draw  # noqa: E402
 from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
@@ -45,6 +50,7 @@ import repro_torch.launch.serve as t_serve  # noqa: E402
 import repro_torch.launch.train as t_train  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import ARCHITECTURES, get_config, get_smoke_config  # noqa: E402
+from repro_torch.models import frontends as t_frontends  # noqa: E402
 from repro_torch.optim import schedule as t_schedule  # noqa: E402
 
 _QUEUE = "ROADMAP.md port queue: "
@@ -224,20 +230,30 @@ def test_the_registry_is_the_references_and_carries_gpt2():
         get_config("gpt2-xl")
 
 
-# every id resolves now; a family the port does not run is refused when its
-# model is built, before anything is drawn (the registry cases build one:
-# seamless is audio, internvl2 a VLM)
+@pytest.mark.parametrize("arch,vocab", [
+    pytest.param("internvl2-76b", 512, id="train-arch"),
+    pytest.param("seamless-m4t-large-v2", 512, id="serve-arch"),
+])
+def test_the_launchers_carry_the_vlm_and_audio(arch, vocab, monkeypatch, tmp_path):
+    """``train --arch`` and ``serve --arch`` of the VLM and the audio smoke
+    configs (each case was the refusal of its call), held to the
+    reference's CLIs as the GPT-2 pair is."""
+    monkeypatch.setattr(t_frontends, "synth_frontend_embeddings", reference_draw)
+    _train_losses_held(["--arch", arch, "--steps", "3", "--batch", "2", "--seq", "32"],
+                       monkeypatch, tmp_path, arch)
+    _serve_held(monkeypatch, vocab=vocab, arch=arch)
+
+
+# every id resolves and every family runs; fp16 is refused when a model is
+# built, before anything is drawn (the registry cases build one: seamless is
+# audio, internvl2 a VLM)
 @pytest.mark.parametrize("call,item", [
-    pytest.param(lambda: t_serve.model_init(get_config("seamless-m4t-large-v2"), 0, "cpu"),
-                 "other model families and mixed fleets", id="registry"),
-    pytest.param(lambda: t_serve.model_init(get_smoke_config("internvl2-76b"), 0, "cpu"),
-                 "other model families and mixed fleets", id="smoke-registry"),
+    pytest.param(lambda: t_serve.model_init(get_config("seamless-m4t-large-v2").with_overrides(
+        param_dtype="float16"), 0, "cpu"), "fp16", id="registry"),
+    pytest.param(lambda: t_serve.model_init(get_smoke_config("internvl2-76b").with_overrides(
+        compute_dtype="float16"), 0, "cpu"), "fp16", id="smoke-registry"),
     pytest.param(lambda: t_train.main(["--production", "--device", "cpu"]),
                  "production mesh, sharding rules and the dry run", id="train-production"),
-    pytest.param(lambda: t_train.main(["--arch", "internvl2-76b", "--device", "cpu"]),
-                 "other model families and mixed fleets", id="train-arch"),
-    pytest.param(lambda: t_serve.main(["--arch", "seamless-m4t-large-v2", "--device", "cpu"]),
-                 "other model families and mixed fleets", id="serve-arch"),
 ])
 def test_what_the_launchers_do_not_carry_raises(call, item):
     with pytest.raises(NotImplementedError, match=_QUEUE + item):

@@ -374,7 +374,8 @@ _MIXED = [T_CLIENT, T_CLIENT.with_overrides(name="t-llama", positional="rope", n
     # a mixed fleet runs round by round; its block is a later slice's
     pytest.param(dict(scan_rounds=True), _QUEUE + "other model families and mixed fleets",
                  _MIXED, id="mixed-fleet-scan-rounds"),
-    pytest.param(dict(), _QUEUE + "other model families and mixed fleets",
+    # a VLM runs in a mixed fleet round by round; the fleet's block is still refused
+    pytest.param(dict(scan_rounds=True), _QUEUE + "other model families and mixed fleets",
                  [T_CLIENT, T_CLIENT.with_overrides(family="vlm", frontend="vision")],
                  id="vlm-family"),
 ])

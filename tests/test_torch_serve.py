@@ -358,10 +358,14 @@ def test_sampling_is_seeded(model):
 
 def test_serving_refuses_what_the_port_does_not_carry(model):
     _, tp, _, _ = model
-    # a sliding window and an SSM decode cache serve now; an audio model's
-    # decode cache (the fixed encoder output) is a later slice's
-    with pytest.raises(NotImplementedError, match="port queue: other model families"):
-        t_init_cache(get_smoke_config("seamless-m4t-large-v2"), 2, 8, window=4, device="cpu")
+    # a sliding window, an SSM decode cache and an audio model's (the fixed
+    # encoder output beside the layers' caches) serve now; fp16 does not
+    audio = get_smoke_config("seamless-m4t-large-v2")
+    cache = t_init_cache(audio, 2, 8, window=4, device="cpu")
+    assert tuple(cache["enc_out"].shape) == (2, audio.frontend_len, audio.d_model)
+    assert cache["layers"]["pos0"].k.shape[2] == 4
+    with pytest.raises(NotImplementedError, match="port queue: fp16"):
+        t_init_cache(audio.with_overrides(compute_dtype="float16"), 2, 8, window=4, device="cpu")
     sess = ServeSession(ServeConfig(model=TCFG, batch=1, cache_len=PROMPT + GEN), tp, device="cpu")
     with pytest.raises(ValueError, match="AdapterCache"):
         sess.attach([0])
