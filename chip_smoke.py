@@ -2799,7 +2799,7 @@ MAMBA_BF16 = get_config("mamba2-130m").with_overrides(
     lora=dataclasses.replace(GPT2_SMALL.lora, targets=("q", "v", "head")), remat=False)
 MAMBA = MAMBA_BF16.with_overrides(param_dtype="float32", compute_dtype="float32")
 SSM_ARCHS = ("mamba2-130m", "jamba-1.5-large-398b")
-SSM_DECODE_STEPS = 16
+DECODE_STEPS = 16  # decode steps held against the forward, at batch 8
 # in bf16 the decode and the chunked forward round at the same points but sum
 # in other orders (GEMMs of other shapes, the recurrence against the chunked
 # SSD), so a rounding may land a bf16 ulp away: DECODE_TOL plus this many bf16
@@ -2821,40 +2821,69 @@ def top_device_ops(prof, n: int = 5) -> list[tuple[str, float, int]]:
     return sorted(((k, v[0], v[1]) for k, v in by_name.items()), key=lambda x: -x[1])[:n]
 
 
-def time_mamba(device, cfg, card: str) -> dict:
-    """(b): mamba2-130m alone at full width in ``cfg``'s dtype: the (8, 1024)
-    prefill (4 chunks of 256) timed with CUDA events (the median of 5 after
-    a warm-up); 16 decode steps at batch 8 against the forward's logits
-    (within ``DECODE_TOL``, in bf16 plus ``BF16_DECODE_ULPS`` ulps); a decode
-    step run with every synchronising call an error, then timed (the median
-    of 9); and one decode step traced."""
-    fp32 = cfg.compute_dtype == "float32"
-    dtype = "fp32 (TF32 off)" if fp32 else "bf16"
-    params = model.init(cfg, 0, device)
+def decode_steps(params, cfg, tokens, frontend, device, against_forward: bool = True):
+    """Decode ``tokens (B, T)`` one step at a time from a fresh cache (an
+    audio model's ``enc_out`` encoded from ``frontend``), every step's
+    logits finite.  Returns the cache, each step's largest |logit - the
+    forward's logit| and the forward's largest |logit| (with
+    ``against_forward=False``: ``[]`` and NaN)."""
+    full = None
+    if against_forward:
+        full = model.forward(params, cfg, tokens[None], frontend=frontend)[0][0]
+    enc_out = model._run_encoder(params, cfg, frontend[None])[0] if cfg.family == "audio" else None
+    cache = model.init_cache(cfg, tokens.shape[0], 64, enc_out=enc_out, device=device)
+    errs = []
+    for t in range(tokens.shape[1]):
+        logits, cache = model.decode_step(params, cfg, cache, tokens[:, t])
+        assert bool(torch.isfinite(logits).all()), (cfg.name, t)
+        if full is not None:
+            errs.append(float((logits.float() - full[:, t].float()).abs().max()))
+    return cache, errs, float("nan") if full is None else float(full.float().abs().max())
+
+
+def time_model(device, cfg, params, card: str, label: str, ulps: int | None = 0,
+               flops: float | None = None) -> dict:
+    """A model alone at full width in its dtype: the (8, 1024) prefill (a
+    VLM's 1024 positions its ``frontend_len`` patches and the text tokens
+    ``input_token_len`` gives; an audio model's tokens over its frames)
+    timed with CUDA events (the median of 5 after a warm-up), beside its
+    ``flops`` when given; 16 decode steps at batch 8 against the forward
+    within ``DECODE_TOL`` plus ``ulps`` bf16 ulps of its largest logit
+    (``ulps=None``: finite logits only, for a VLM, whose decode carries no
+    patches and so matches no forward); a decode step run with every
+    synchronising call an error, then timed (the median of 9); and one
+    decode step traced."""
+    dtype = "fp32 (TF32 off)" if cfg.compute_dtype == "float32" else "bf16"
+    s_text = model.input_token_len(cfg, PREFILL_S)
     tokens = torch.as_tensor(np.random.default_rng(31).integers(0, cfg.vocab_size,
-                                                                (SERVE_BATCH, PREFILL_S)),
+                                                                (SERVE_BATCH, s_text)),
                              device=device)
+    frontend = None
+    batch = {"tokens": tokens}
+    if cfg.frontend != "none":
+        frontend = batch["frontend"] = frontends.synth_frontend_embeddings(cfg, SERVE_BATCH,
+                                                                           device=device)
     with torch.no_grad():
         torch.cuda.reset_peak_memory_stats()
-        prefill_ms = median_ms(lambda: model.prefill(params, cfg, {"tokens": tokens}))
+        prefill_ms = median_ms(lambda: model.prefill(params, cfg, batch))
         prefill_peak = torch.cuda.max_memory_allocated() / 2**30
-        last, aux = model.prefill(params, cfg, {"tokens": tokens})
-        assert tuple(last.shape) == (SERVE_BATCH, cfg.vocab_size) and bool(torch.isfinite(last).all())
-        assert tuple(aux.lora_h.shape) == (SERVE_BATCH, cfg.lora.rank)  # the head's projection
-        short = tokens[:, :SSM_DECODE_STEPS]
-        full, _ = model.forward(params, cfg, short[None])
-        cache = model.init_cache(cfg, SERVE_BATCH, 64, device=device)
-        errs = []
-        for t in range(SSM_DECODE_STEPS):
-            logits, cache = model.decode_step(params, cfg, cache, short[:, t])
-            errs.append(float((logits.float() - full[0, :, t].float()).abs().max()))
-        scale = float(full.float().abs().max())
-        tol = DECODE_TOL + (0 if fp32 else BF16_DECODE_ULPS * 2**-8 * scale)
-        assert max(errs) <= tol, (dtype, errs, tol)
-        at = iter(range(SSM_DECODE_STEPS, 10**6))
+        last, aux = model.prefill(params, cfg, batch)
+        assert tuple(last.shape) == (SERVE_BATCH, cfg.vocab_size)
+        assert bool(torch.isfinite(last).all())
+        if cfg.lora is not None:  # the pooled projection (an SSM's from its head adapter)
+            assert tuple(aux.lora_h.shape) == (SERVE_BATCH, cfg.lora.rank)
+        cache, errs, scale = decode_steps(params, cfg, tokens[:, :DECODE_STEPS], frontend, device,
+                                          against_forward=ulps is not None)
+        held = f"{DECODE_STEPS} decode steps' logits finite"
+        if ulps is not None:
+            tol = DECODE_TOL + ulps * 2**-8 * scale
+            assert max(errs) <= tol, (cfg.name, dtype, errs, tol)
+            held = (f"{DECODE_STEPS} decode steps within {max(errs):.3e} of the forward (bound "
+                    f"{tol:.3e}, largest logit {scale:.3f})")
+        at = iter(range(DECODE_STEPS, 10**6))
 
         def step():
-            return model.decode_step(params, cfg, cache, tokens[:, next(at) % PREFILL_S])
+            return model.decode_step(params, cfg, cache, tokens[:, next(at) % s_text])
 
         guarded(step)  # a decode step waits for nothing
         decode_ms = median_ms(step, reps=9)
@@ -2867,18 +2896,25 @@ def time_mamba(device, cfg, card: str) -> dict:
         with torch.profiler.profile(activities=TRACE_ACTIVITIES) as prof:
             step()
             torch.cuda.synchronize()
-    trace = trace_summary(prof, f"mamba2-130m {dtype} decode step, batch {SERVE_BATCH}", untraced_s)
+    trace = trace_summary(prof, f"{cfg.name} {dtype} decode step, batch {SERVE_BATCH}", untraced_s)
     top = top_device_ops(prof)
-    log(f"[ssm mamba2-130m {dtype}] {cfg.num_layers} layers, d {cfg.d_model}, state "
-        f"{cfg.ssm.state_dim}, chunk {cfg.ssm.chunk_size}: prefill ({SERVE_BATCH}, {PREFILL_S}) "
-        f"{prefill_ms:.1f} ms (peak {prefill_peak:.2f} GiB); {SSM_DECODE_STEPS} decode steps within "
-        f"{max(errs):.3e} of the forward (bound {tol:.3e}, largest logit {scale:.3f}); decode step "
-        f"at batch {SERVE_BATCH} {decode_ms:.2f} ms, none synchronising ({card})")
-    log(f"[ssm mamba2-130m {dtype}] the traced decode step's top device ops (us, calls): "
+    shape = f"{cfg.num_layers} layers"
+    if cfg.encoder_layers:
+        shape += f" + {cfg.encoder_layers} encoder layers"
+    shape += f", d {cfg.d_model}"
+    if cfg.ssm is not None:
+        shape += f", state {cfg.ssm.state_dim}, chunk {cfg.ssm.chunk_size}"
+    if frontend is not None:
+        shape += f", {cfg.frontend_len} {'frames' if cfg.family == 'audio' else 'patches'}"
+    rate = "" if flops is None else (f" ({flops / 1e12:.1f} TFLOP, "
+                                     f"{flops / prefill_ms / 1e9:.0f} TFLOP/s)")
+    log(f"[{label} {dtype}] {shape}, vocab {cfg.vocab_size}: prefill ({SERVE_BATCH}, {s_text} "
+        f"tokens) {prefill_ms:.1f} ms{rate} (peak {prefill_peak:.2f} GiB); {held}; decode step at "
+        f"batch {SERVE_BATCH} {decode_ms:.2f} ms, none synchronising ({card})")
+    log(f"[{label} {dtype}] the traced decode step's top device ops (us, calls): "
         + "; ".join(f"{name[:60]} {us:.1f} x{n}" for name, us, n in top))
-    del params, cache
     return dict(prefill_ms=prefill_ms, prefill_peak=prefill_peak, decode_ms=decode_ms,
-                decode_err=max(errs), busy_share=trace["busy_share"], top_ops=top)
+                decode_err=max(errs, default=None), busy_share=trace["busy_share"], top_ops=top)
 
 
 def serve_tenants(device, card: str, cfg=MAMBA, backbone=None,
@@ -2993,7 +3029,12 @@ def phase_ssm(device, card: str = "", cfgs=None) -> dict:
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-        out["mamba"] = {c.compute_dtype: time_mamba(device, c, card) for c in (MAMBA_BF16, MAMBA)}
+        out["mamba"] = {}
+        for cfg, ulps in ((MAMBA_BF16, BF16_DECODE_ULPS), (MAMBA, 0)):
+            params = model.init(cfg, 0, device)
+            out["mamba"][cfg.compute_dtype] = time_model(device, cfg, params, card,
+                                                         "ssm mamba2-130m", ulps)
+            del params
     check_family_models(device, SSM_ARCHS)
     for name, n in families_cli(device).items():
         out["launches"][name] = out["launches"].get(name, 0) + n
@@ -3039,7 +3080,6 @@ SEAMLESS_ALONE = get_config("seamless-m4t-large-v2").with_overrides(lora=GPT2_SM
 SEAMLESS_ALONE_FP32 = SEAMLESS_ALONE.with_overrides(param_dtype="float32", compute_dtype="float32")
 INTERNVL2_ALONE = get_config("internvl2-76b").with_overrides(num_layers=8, remat=False)
 MODAL_RUNS = (("fused_e2e", False), ("fused", False))
-MODAL_DECODE_STEPS = 16
 # seamless's bf16 decode against its bf16 forward: DECODE_TOL plus this many
 # bf16 ulps of the largest logit.  Each of its 24 decoder layers rounds three
 # residual adds to bf16, and its cross-attention sums 1 024 frames in GEMMs of
@@ -3072,104 +3112,18 @@ def prefill_flops(cfg, batch: int, tokens: int) -> float:
     return batch * (ops + 2 * d * cfg.vocab_size)
 
 
-def decode_errors(params, cfg, tokens, frontend, device) -> tuple[list[float], float]:
-    """Decode ``tokens (B, T)`` one step at a time from a fresh cache (an
-    audio model's ``enc_out`` encoded from ``frontend``) and return each
-    step's largest |logit - forward logit| and the forward's largest
-    |logit|."""
-    b = tokens.shape[0]
-    full, _ = model.forward(params, cfg, tokens[None], frontend=frontend)
-    enc_out = model._run_encoder(params, cfg, frontend[None])[0] if cfg.family == "audio" else None
-    cache = model.init_cache(cfg, b, 64, enc_out=enc_out, device=device)
-    errs = []
-    for t in range(tokens.shape[1]):
-        logits, cache = model.decode_step(params, cfg, cache, tokens[:, t])
-        errs.append(float((logits.float() - full[0, :, t].float()).abs().max()))
-    return errs, float(full.float().abs().max())
-
-
-def time_alone(device, cfg, params, card: str) -> dict:
-    """(c): ``cfg`` alone at full width in its published bf16.  The (8,
-    1024) prefill (the VLM's 1024 positions its 256 patches and the 768
-    text tokens ``input_token_len`` gives; the audio model's 1024 tokens
-    over 1024 frames) timed with CUDA events (the median of 5 after a
-    warm-up), beside its operations; 16 decode steps at batch 8: the audio
-    model's within ``DECODE_TOL`` plus ``BF16_AUDIO_DECODE_ULPS`` bf16 ulps of
-    the largest logit of its forward, the VLM's finite (its decode carries no
-    patches, so it has no forward to match: the CPU tests hold it to the
-    reference's ``decode_step``); a decode step run with every synchronising
-    call an error, then timed (the median of 9), and one traced."""
-    s_text = model.input_token_len(cfg, PREFILL_S)
-    tokens = torch.as_tensor(np.random.default_rng(43).integers(0, cfg.vocab_size,
-                                                                (SERVE_BATCH, s_text)),
-                             device=device)
-    frontend = frontends.synth_frontend_embeddings(cfg, SERVE_BATCH, device=device)
-    batch = {"tokens": tokens, "frontend": frontend}
-    with torch.no_grad():
-        torch.cuda.reset_peak_memory_stats()
-        prefill_ms = median_ms(lambda: model.prefill(params, cfg, batch))
-        prefill_peak = torch.cuda.max_memory_allocated() / 2**30
-        last, _ = model.prefill(params, cfg, batch)
-        assert tuple(last.shape) == (SERVE_BATCH, cfg.vocab_size)
-        assert bool(torch.isfinite(last).all())
-        short = tokens[:, :MODAL_DECODE_STEPS]
-        if cfg.family == "audio":
-            errs, scale = decode_errors(params, cfg, short, frontend, device)
-            tol = DECODE_TOL + BF16_AUDIO_DECODE_ULPS * 2**-8 * scale
-            assert max(errs) <= tol, (cfg.name, errs, tol)
-            held = (f"{MODAL_DECODE_STEPS} decode steps within {max(errs):.3e} of the forward "
-                    f"(bound {tol:.3e}, largest logit {scale:.3f})")
-        cache = model.init_cache(cfg, SERVE_BATCH, 64, device=device, enc_out=(
-            model._run_encoder(params, cfg, frontend[None])[0] if cfg.family == "audio" else None))
-        for t in range(MODAL_DECODE_STEPS):
-            logits, cache = model.decode_step(params, cfg, cache, short[:, t])
-            assert bool(torch.isfinite(logits).all()), (cfg.name, t)
-        if cfg.family != "audio":
-            held = f"{MODAL_DECODE_STEPS} decode steps' logits finite"
-        at = iter(range(MODAL_DECODE_STEPS, 10**6))
-
-        def step():
-            return model.decode_step(params, cfg, cache, tokens[:, next(at) % s_text])
-
-        guarded(step)  # a decode step waits for nothing
-        decode_ms = median_ms(step, reps=9)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        untraced_s = time.perf_counter() - t0
-        warm_profiler()
-        with torch.profiler.profile(activities=TRACE_ACTIVITIES) as prof:
-            step()
-            torch.cuda.synchronize()
-    trace = trace_summary(prof, f"{cfg.name} bf16 decode step, batch {SERVE_BATCH}", untraced_s)
-    top = top_device_ops(prof)
-    flops = prefill_flops(cfg, SERVE_BATCH, s_text)
-    log(f"[modal {cfg.name} bf16] {cfg.num_layers} layers"
-        f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}, d "
-        f"{cfg.d_model}, {cfg.frontend_len} {'frames' if cfg.family == 'audio' else 'patches'}, "
-        f"vocab {cfg.vocab_size}: prefill ({SERVE_BATCH}, {s_text} tokens) {prefill_ms:.1f} ms "
-        f"({flops / 1e12:.1f} TFLOP, {flops / prefill_ms / 1e9:.0f} TFLOP/s; peak "
-        f"{prefill_peak:.2f} GiB); {held}; decode step at batch {SERVE_BATCH} {decode_ms:.2f} ms, "
-        f"none synchronising ({card})")
-    log(f"[modal {cfg.name} bf16] the traced decode step's top device ops (us, calls): "
-        + "; ".join(f"{name[:60]} {us:.1f} x{n}" for name, us, n in top))
-    return dict(prefill_ms=prefill_ms, prefill_tflop=flops / 1e12, prefill_peak=prefill_peak,
-                decode_ms=decode_ms, busy_share=trace["busy_share"], top_ops=top)
-
-
 def audio_decode_fp32(device, cfg, backbone) -> float:
     """(e) part 1: seamless at its published widths in fp32, 16 decode steps
     at batch 8 over its 1 024 frames against its forward, within
     ``DECODE_TOL``."""
     tokens = torch.as_tensor(np.random.default_rng(53).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, MODAL_DECODE_STEPS)), device=device)
+        0, cfg.vocab_size, (SERVE_BATCH, DECODE_STEPS)), device=device)
     frames = frontends.synth_frontend_embeddings(cfg, SERVE_BATCH, device=device)
     with torch.no_grad():
-        errs, scale = decode_errors(backbone, cfg, tokens, frames, device)
+        _, errs, scale = decode_steps(backbone, cfg, tokens, frames, device)
     assert max(errs) <= DECODE_TOL, (errs, DECODE_TOL)
     log(f"[modal decode] {cfg.name} fp32 (TF32 off), {cfg.frontend_len} frames: "
-        f"{MODAL_DECODE_STEPS} decode steps within {max(errs):.3e} of the forward (bound "
+        f"{DECODE_STEPS} decode steps within {max(errs):.3e} of the forward (bound "
         f"{DECODE_TOL}, largest logit {scale:.3f})")
     return max(errs)
 
@@ -3203,13 +3157,18 @@ def phase_modal(device, card: str = "", cfgs=None) -> dict:
         log(f"[modal] {INTERNVL2_ALONE.name} at {INTERNVL2_ALONE.num_layers} layers drawn in "
             f"{time.perf_counter() - t1:.1f} s ({INTERNVL2_ALONE.param_count() / 1e9:.2f} B "
             f"parameters, bf16)")
-        out["alone"] = {"internvl2": time_alone(device, INTERNVL2_ALONE, params, card)}
+        text = model.input_token_len(INTERNVL2_ALONE, PREFILL_S)  # its patches take the rest
+        out["alone"] = {"internvl2": time_model(
+            device, INTERNVL2_ALONE, params, card, "modal internvl2-76b", None,
+            prefill_flops(INTERNVL2_ALONE, SERVE_BATCH, text))}
         del params
         gc.collect()
         torch.cuda.empty_cache()
         backbone = model.init(alone, 0, device)
         rounded = {k: v.to(torch.bfloat16) for k, v in backbone.items()}
-        out["alone"]["seamless"] = time_alone(device, SEAMLESS_ALONE, rounded, card)
+        out["alone"]["seamless"] = time_model(
+            device, SEAMLESS_ALONE, rounded, card, "modal seamless-m4t-large-v2",
+            BF16_AUDIO_DECODE_ULPS, prefill_flops(SEAMLESS_ALONE, SERVE_BATCH, PREFILL_S))
         del rounded
         gc.collect()
         torch.cuda.empty_cache()
