@@ -363,7 +363,8 @@ def decode_step(params: dict[str, torch.Tensor], cfg: ModelConfig, cache: dict,
 
     ``params`` is one model (shared leaves: the batch is a client axis of 1)
     or per-request adapters on the client axis (``B`` rows of batch 1 each)
-    over a shared backbone.  ``window`` (default ``cfg.sliding_window``)
+    over a shared backbone; either way an MoE layer routes the ``B``
+    tokens as one group set, as the reference's batch.  ``window`` (default ``cfg.sliding_window``)
     must be the one the cache was made with."""
     check_supported(cfg)
     window = window if window is not None else cfg.sliding_window
@@ -375,7 +376,8 @@ def decode_step(params: dict[str, torch.Tensor], cfg: ModelConfig, cache: dict,
     enc_out = cache.get("enc_out")
     if enc_out is not None:  # the encoder's frames of each request, on the client axis
         enc_out = enc_out.reshape((c, b // c) + tuple(enc_out.shape[1:]))
-    st = stack_apply(params, x, cfg, caches=cache["layers"], window=window, enc_out=enc_out)
+    st = stack_apply(params, x, cfg, caches=cache["layers"], window=window, enc_out=enc_out,
+                     pool_moe=True)
     h = norm_apply(params, "final_norm", st.x, cfg.norm)
     logits = _lm_logits(params, cfg, h, None).reshape(b, -1)
     for layer_cache in cache["layers"].values():

@@ -6,7 +6,11 @@ group axis; see :func:`group_size` where that does not divide ``B·S``),
 each client's tokens in groups of its own: the reference runs
 one client's round under ``vmap``, so its capacity and its drops depend on
 that client's tokens alone, and pooling the clients' tokens into shared
-groups would change both.  Routing: a softmax router in fp32, ``top_k``
+groups would change both.  The stacked serving step is the other case:
+its client axis holds one request a row over one shared backbone, and the
+reference routes the batch's tokens as one token set, so there the caller
+asks for ``pool_clients=True`` (the shape alone cannot tell the two apart:
+B federated clients may share one pretrained backbone too).  Routing: a softmax router in fp32, ``top_k``
 experts per token (ties to the lower expert index, as ``lax.top_k``),
 gates renormalised with ``+1e-9``; each (token, slot) takes a place in its
 expert's queue by a slot-major cumulative sum, so every token's first
@@ -73,12 +77,20 @@ def _experts(x: torch.Tensor, w: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
     return torch.einsum(eq, x, w.to(cd))
 
 
-def moe_apply(lp: dict[str, torch.Tensor], x: torch.Tensor,
-              cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
+              pool_clients: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """``x (C, B, S, d)`` -> ``(out (C, B, S, d), aux (C,) fp32)``: one
-    layer's MoE MLP and each client's load-balance loss."""
+    layer's MoE MLP and each client's load-balance loss.  ``pool_clients``
+    routes the ``C·B·S`` tokens as one token set (groups, capacities and
+    drops over all of them; ``aux`` the pooled loss on every row), which
+    needs a router and experts without a client axis."""
     moe = cfg.moe
     cd = torch_dtype(cfg.compute_dtype)
+    shape = x.shape
+    if pool_clients:
+        if lp["mlp/up"].ndim != 3 or lp["mlp/router/w"].ndim != 2:
+            raise ValueError("pooled routing needs one shared router and shared experts")
+        x = x.reshape((1, -1) + tuple(shape[2:]))
     c, b, s, d = x.shape
     e, k = moe.num_experts, moe.top_k
     t = b * s
@@ -126,4 +138,4 @@ def moe_apply(lp: dict[str, torch.Tensor], x: torch.Tensor,
     f_e = torch.mean(top1, dim=(1, 2))
     p_e = torch.mean(router_probs, dim=(1, 2))
     aux = e * torch.sum(f_e * p_e, dim=-1)
-    return out.reshape(c, b, s, d).to(x.dtype), aux.float()
+    return out.reshape(shape).to(x.dtype), aux.float().expand(shape[0])

@@ -126,7 +126,7 @@ def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
                 caches: dict[str, KVCache | SSMCache] | None = None,
                 window: int | None = None, prefix: str = STACK_PREFIX,
                 num_layers: int | None = None, causal: bool = True,
-                enc_out: torch.Tensor | None = None) -> StackState:
+                enc_out: torch.Tensor | None = None, pool_moe: bool = False) -> StackState:
     """Run the ``num_layers`` (default ``cfg.num_layers``) pre-norm blocks
     of the stack under ``prefix`` over ``x (C, B, S, D)``, layer ``r·p +
     j`` for repeats ``r`` and positions ``j``; with ``caches`` (decode)
@@ -134,7 +134,9 @@ def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
     place.  ``window``: the sliding window of every attention layer;
     ``causal=False``: bidirectional self-attention (the encoder).  With
     ``enc_out (C, B, T, D)`` a layer that has a ``cross`` sub-layer
-    cross-attends to it.  ``lora_h`` starts at zeros when a position of
+    cross-attends to it.  ``pool_moe`` routes each MoE layer's tokens
+    across the client axis as one set (``moe_apply``'s ``pool_clients``:
+    the stacked decode).  ``lora_h`` starts at zeros when a position of
     the period is an attention layer and the model has LoRA (the
     reference's start: such a model whose adapters give no projection
     reports zeros), else at None."""
@@ -166,7 +168,7 @@ def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
                 continue
             h2 = norm_apply(lp, "norm2", x, cfg.norm)
             if mlp == "moe":
-                y2, aux = moe_apply(lp, h2, cfg)
+                y2, aux = moe_apply(lp, h2, cfg, pool_clients=pool_moe)
                 moe_aux = moe_aux + aux
             else:
                 y2 = mlp_apply(lp, h2, activation=cfg.activation, cd=cd)

@@ -182,6 +182,72 @@ def test_decode_step_matches_reference(model, mode):
     assert int(t_cache["length"]) == int(j_cache["length"]) == steps
 
 
+# granite's smoke config (4 experts, top-2, d 256) with LoRA on q, v and the head
+_MOE_LORA = dict(rank=4, alpha=32.0, dropout=0.0, targets=("q", "v", "head"))
+J_MOE = j_smoke("granite-moe-1b-a400m").with_overrides(lora=JLoRA(**_MOE_LORA))
+T_MOE = get_smoke_config("granite-moe-1b-a400m").with_overrides(lora=TLoRA(**_MOE_LORA))
+
+
+def _reference_drops(into: list):
+    """A wrapper for the reference's ``moe_apply`` that appends, for every
+    call, how many (token, slot) choices its router sent past an expert's
+    capacity (its own expression, groups of ``min(1024, B·S)``)."""
+    def wrap(moe_apply):
+        def call(params, x, cfg):
+            moe = cfg.moe
+            b, s, d = x.shape
+            tg = min(1024, b * s)
+            probs = jax.nn.softmax(jnp.einsum("gtd,de->gte", x.reshape(-1, tg, d),
+                                              params["router"]["w"]).astype(jnp.float32), axis=-1)
+            _, idx = jax.lax.top_k(probs, moe.top_k)
+            cap = min(int(max(4, round(moe.capacity_factor * moe.top_k * tg / moe.num_experts))),
+                      tg)
+            per_expert = jax.nn.one_hot(idx, moe.num_experts).sum(axis=(1, 2))  # (G, E)
+            jax.debug.callback(lambda n: into.append(int(n)),
+                               jnp.maximum(per_expert - cap, 0).sum())
+            return moe_apply(params, x, cfg)
+
+        return call
+
+    return wrap
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_stacked_moe_decode_matches_reference(batch, monkeypatch):
+    """The stacked decode of an MoE model routes the batch's tokens as ONE
+    group set over the shared experts, as the reference's stacked step
+    does: five tenants through each package's ``AdapterCache``, ten steps,
+    the port's logits within 1e-5 of the reference's largest at every step.
+    At batch 8 the reference's router sends choices past an expert's
+    capacity, so the case covers the drops that routing each request alone
+    would never make."""
+    import repro.models.transformer as j_transformer
+
+    drops: list = []
+    monkeypatch.setattr(j_transformer, "moe_apply", _reference_drops(drops)(
+        j_transformer.moe_apply))
+    jp = _jax_params(J_MOE, seed=2)
+    j_rows, t_rows = _adapter_rows(jp)
+    tp = _to_port(jp)
+    ids = [0, 1, 2, 3, 4, 0, 2, 4][:batch]
+    j_cache_ad = JCache(ListSource(j_rows), like=j_template(jp), slots=N_TENANTS)
+    t_cache_ad = AdapterCache(ListSource(t_rows), like=lora_template(tp), slots=N_TENANTS,
+                              device="cpu")
+    j_slots, t_slots = j_cache_ad.lookup(ids), t_cache_ad.lookup(ids)
+    np.testing.assert_array_equal(t_slots, j_slots)
+    j_params = j_merge(j_gather(j_cache_ad.slab, jnp.asarray(j_slots)), j_split(jp)[1])
+    t_step, (_, t_frozen) = make_stacked_decode_step(T_MOE), split_lora(tp)
+    j_cache, t_cache = j_init_cache(J_MOE, batch, 16), t_init_cache(T_MOE, batch, 16, device="cpu")
+    toks = _prompts(batch, 10, seed=5, vocab=J_MOE.vocab_size)
+    for t in range(10):
+        j_logits, j_cache = j_decode(j_params, J_MOE, j_cache, jnp.asarray(toks[:, t]))
+        t_logits, t_cache = t_step(t_frozen, t_cache_ad.slab, torch.as_tensor(t_slots).long(),
+                                   t_cache, torch.as_tensor(toks[:, t]).long())
+        _close(t_logits.numpy(), j_logits)
+    assert len(drops) == 10 * J_MOE.num_layers
+    assert (max(drops) > 0) == (batch == 8), drops
+
+
 @pytest.mark.parametrize("long", [False, True], ids=["dense-S12", "chunked-S1024"])
 def test_prefill_matches_reference(model, long):
     if long:
