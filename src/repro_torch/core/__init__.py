@@ -1,8 +1,9 @@
 """Channel, protocol, wire and aggregation primitives of the paper's method
 (§III), ported from ``repro.core``."""
 
-from repro_torch.core.aggregation import aggregate, aggregate_wire
+from repro_torch.core.aggregation import aggregate, aggregate_sparse, aggregate_wire
 from repro_torch.core.channel import ChannelConfig, ChannelSimulator, ChannelState, topk_budget_batch
+from repro_torch.core.distill import soft_labels
 from repro_torch.core.faults import (
     FAULTS,
     FaultCarry,
@@ -35,6 +36,7 @@ from repro_torch.core.topk import (
 
 __all__ = [
     "aggregate",
+    "aggregate_sparse",
     "aggregate_wire",
     "ChannelConfig",
     "ChannelSimulator",
@@ -57,6 +59,7 @@ __all__ = [
     "PayloadSpec",
     "UplinkPayload",
     "downlink_bits",
+    "soft_labels",
     "QUANT_LEVELS",
     "QuantizedWire",
     "SparseWire",

@@ -32,6 +32,7 @@ from repro_torch.kernels.ref import scatter_wire_sums_dequant_ref
 
 __all__ = [
     "AggregationMode",
+    "aggregate_sparse",
     "aggregate_adaptive",
     "aggregate_zeropad",
     "aggregate_mean_nonzero",
@@ -177,3 +178,41 @@ def aggregate_wire(
             num_transmitters = int(wire.mask.reshape(wire.mask.shape[0], -1).any(dim=1).sum())
         return num / max(int(num_transmitters), 1)
     return num / (den + _EPS)
+
+
+def aggregate_sparse(
+    values: torch.Tensor,
+    indices: torch.Tensor,
+    vocab: int,
+    mode: AggregationMode = "adaptive",
+    *,
+    eps: float = _EPS,
+) -> torch.Tensor:
+    """Aggregate straight from sparse ``(value, index)`` payloads, every
+    entry taken as transmitted (:func:`aggregate_wire` is the masked wire's
+    route): per row, ``Σ|K|K``, ``Σ|K|``, ``ΣK`` and the count of clients
+    at each vocab index, then the ``mode``'s ratio (``zeropad``: ``ΣK /
+    N``; ``mean_nonzero`` and any other mode, as the reference: ``ΣK /
+    (count + eps)``).  The reference walks the clients of a row in a loop;
+    here one ``scatter_add_`` a sum takes every client's entries at once.
+
+    values/indices ``(N, ..., k)`` -> ``(..., vocab)``."""
+    n, k = values.shape[0], values.shape[-1]
+    lead = values.shape[1:-1]
+    rows = lead.numel()
+    # (rows, N·k): a row's entries of every client side by side
+    vals = values.reshape(n, rows, k).transpose(0, 1).reshape(rows, n * k)
+    idx = indices.reshape(n, rows, k).transpose(0, 1).reshape(rows, n * k).long()
+
+    def summed(src: torch.Tensor) -> torch.Tensor:
+        return torch.zeros((rows, vocab), dtype=vals.dtype, device=vals.device).scatter_add_(
+            1, idx, src)
+
+    if mode == "adaptive":
+        s = torch.abs(vals)
+        out = summed(s * vals) / (summed(s) + eps)
+    elif mode == "zeropad":
+        out = summed(vals) / float(n)
+    else:
+        out = summed(vals) / (summed(torch.ones_like(vals)) + eps)
+    return out.reshape(lead + (vocab,))

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "soft_labels",
     "teacher_log_probs",
     "kl_rows",
     "kl_divergence",
@@ -34,6 +35,11 @@ _NEG = -1e30
 
 def _log_softmax(x: torch.Tensor) -> torch.Tensor:
     return x - torch.logsumexp(x, dim=-1, keepdim=True)
+
+
+def soft_labels(logits: torch.Tensor, temperature: float = DEFAULT_TEMPERATURE) -> torch.Tensor:
+    """The global soft-label distribution ``σ(K/T)`` (paper §II-B)."""
+    return torch.softmax(logits / temperature, dim=-1)
 
 
 def teacher_log_probs(

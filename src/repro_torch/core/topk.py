@@ -36,6 +36,8 @@ __all__ = [
     "SparseLogits",
     "topk_sparsify",
     "densify",
+    "sparsify_batch",
+    "payload_entries",
     "topk_mask_dense",
     "topk_mask_batch",
     "topk_mask_dynamic",
@@ -43,9 +45,12 @@ __all__ = [
     "QuantizedWire",
     "sparsify_wire",
     "quantize_wire",
+    "dequantize_wire",
     "pad_wire",
     "concat_wires",
     "take_wire_rows",
+    "wire_densify",
+    "wire_support",
 ]
 
 # Symmetric int8 range: round(v / scale) lands in [-127, 127], so the scale
@@ -82,6 +87,17 @@ def densify(sparse: SparseLogits, *, fill: float = 0.0) -> torch.Tensor:
     shape = sparse.values.shape[:-1] + (sparse.vocab,)
     dense = torch.full(shape, fill, dtype=sparse.values.dtype, device=sparse.values.device)
     return dense.scatter_(-1, sparse.indices.long(), sparse.values)
+
+
+def sparsify_batch(logits: torch.Tensor, k: int) -> SparseLogits:
+    """:func:`topk_sparsify` of a ``(num_samples, vocab)`` batch: one
+    client's public-set upload of a round."""
+    return topk_sparsify(logits, k)
+
+
+def payload_entries(sparse: SparseLogits) -> int:
+    """The (value, index) entries of a payload: samples · k."""
+    return int(sparse.values.numel())
 
 
 def topk_mask_dense(logits: torch.Tensor, k: int, *, use_kernel: bool = False) -> torch.Tensor:
@@ -172,6 +188,14 @@ def quantize_wire(wire: SparseWire) -> QuantizedWire:
     )
 
 
+def dequantize_wire(wire: QuantizedWire) -> SparseWire:
+    """The float wire back from the int8 one: ``values · scale`` a row,
+    exact zeros off the transmit mask."""
+    v = wire.values.float() * wire.scale[..., None]
+    return SparseWire(values=torch.where(wire.mask, v, 0.0), indices=wire.indices,
+                      mask=wire.mask, vocab=wire.vocab)
+
+
 def sparsify_wire(
     logits: torch.Tensor, ks: torch.Tensor, k_cap: int, *, quantize: bool = False
 ) -> SparseWire | QuantizedWire:
@@ -237,3 +261,26 @@ def take_wire_rows(wire: SparseWire | QuantizedWire, rows) -> SparseWire | Quant
     take = torch.as_tensor(rows, dtype=torch.long, device=wire.values.device)
     fields = {f: getattr(wire, f)[take] for f in wire._fields if f != "vocab"}
     return type(wire)(vocab=wire.vocab, **fields)
+
+
+def _scatter_last(values: torch.Tensor, indices: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``values (..., k)`` added at ``indices`` into zeros ``(..., vocab)``."""
+    out = torch.zeros(values.shape[:-1] + (vocab,), dtype=values.dtype, device=values.device)
+    return out.scatter_add_(-1, indices.long(), values)
+
+
+def wire_densify(wire: SparseWire | QuantizedWire) -> torch.Tensor:
+    """The dense ``(N, ..., vocab)`` stack of a wire, zeros off the
+    transmitted support (an int8 wire dequantized first): what the dense
+    aggregation reads."""
+    if isinstance(wire, QuantizedWire):
+        wire = dequantize_wire(wire)
+    return _scatter_last(torch.where(wire.mask, wire.values, 0), wire.indices, wire.vocab)
+
+
+def wire_support(wire: SparseWire | QuantizedWire) -> torch.Tensor:
+    """The dense ``(N, ..., vocab)`` bool transmit mask: which indices each
+    client sent, True even where the value sent is 0.0.  The mask is summed
+    first and thresholded after, so a masked pad entry at index 0 cannot
+    clear a real index-0 entry."""
+    return _scatter_last(wire.mask.float(), wire.indices, wire.vocab) > 0

@@ -12,7 +12,8 @@ from typing import Callable
 
 import torch
 
-__all__ = ["is_lora_path", "split_lora", "merge_lora", "map_lora", "lora_template"]
+__all__ = ["is_lora_path", "split_lora", "merge_lora", "lora_param_count", "map_lora",
+           "lora_template"]
 
 
 def is_lora_path(key: str) -> bool:
@@ -25,6 +26,11 @@ def split_lora(params: dict[str, torch.Tensor]) -> tuple[dict, dict]:
     lora = {k: v for k, v in params.items() if is_lora_path(k)}
     frozen = {k: v.requires_grad_(False) for k, v in params.items() if not is_lora_path(k)}
     return lora, frozen
+
+
+def lora_param_count(params: dict[str, torch.Tensor]) -> int:
+    """The number of trainable adapter parameters in ``params``."""
+    return sum(int(v.numel()) for k, v in params.items() if is_lora_path(k))
 
 
 def merge_lora(lora: dict, frozen: dict) -> dict:
