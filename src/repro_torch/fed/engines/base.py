@@ -22,6 +22,7 @@ from repro_torch.core.channel import BatchedChannelState, ChannelState
 from repro_torch.core.protocol import UplinkPayload, downlink_bits, lora_projection_bits
 from repro_torch.core.topk import QUANT_LEVELS, QuantizedWire, SparseWire, densify
 from repro_torch.fed.client import Client
+from repro_torch.fed.steps import EVAL_BATCH
 from repro_torch.fed.store import owned_copy
 from repro_torch.lora import merge_lora, split_lora
 from repro_torch.optim import AdamWState
@@ -195,7 +196,9 @@ class ClientPhase:
 
 @dataclasses.dataclass
 class RoundsTrajectory:
-    """Per-round observables of one :meth:`FusedE2EEngine.run_rounds` block.
+    """Per-round observables of one ``run_rounds`` block
+    (:class:`FusedE2EEngine` or, on a mixed fleet,
+    :class:`HeteroFusedE2EEngine`).
 
     ``ks``/``payloads`` are the host's accounting (what R ``run_round``
     calls report); ``mean_k``, ``distill_loss`` and, when eval data was
@@ -206,9 +209,12 @@ class RoundsTrajectory:
     ``snr_db``/``outage`` (blocks given a ``channel_scan``): per round, the
     cohort's SNR (dB, -inf in outage) and Gilbert-Elliott outage flags from
     the block's own fp32 replica of the channel chain that priced
-    ``ks``/``payloads``.  ``family_client_acc`` (mixed fleets) stays None:
-    the port does not carry them yet (ROADMAP.md port queue: "other model
-    families and mixed fleets")."""
+    ``ks``/``payloads``.  ``family_client_acc`` (a mixed fleet's block with
+    eval data; None otherwise): per round, one accuracy a family bucket,
+    of the family's first selected client after its update, or of its
+    local client 0, untouched, when the family sat the round out;
+    ``client_acc`` is the entry of the family of the round's first
+    selected client."""
 
     ks: list[list[int]]
     payloads: list[list[UplinkPayload]]
@@ -300,6 +306,97 @@ class _ServerOwnerMixin:
     the merged parameters back for evaluation."""
 
     handles_server = True
+    _family_tap = False  # the block reports one client accuracy a family bucket
+
+    # -- the multi-round block: stage_rounds, then run_block ------------------
+    def run_rounds(
+        self,
+        sels: Sequence[Sequence[int]],
+        pubs: Sequence[torch.Tensor],
+        states_per_round: Sequence,
+        *,
+        adaptive_k: bool,
+        send_h: bool,
+        eval_tokens: torch.Tensor | None = None,
+        eval_labels: torch.Tensor | None = None,
+        channel_scan: dict | None = None,
+    ) -> RoundsTrajectory:
+        """Run R whole rounds as one block, as R ``run_round`` calls would:
+        fleet, server and broadcast state advance in place, and the block
+        returns a :class:`RoundsTrajectory`.
+
+        ``eval_tokens``/``eval_labels`` (both or neither) are evaluated after
+        each round on the server model and on the round's first selected
+        client (on a mixed fleet also on each family's), the models the
+        per-round loop evaluates; the split is truncated to whole
+        ``EVAL_BATCH`` batches, as the host evaluator walks it, and a split
+        smaller than one batch is refused.  The host's work comes first
+        (``stage_rounds``), then the block (``run_block``); its taps cross
+        to the host once, after it."""
+        staged = self.stage_rounds(
+            sels, pubs, states_per_round, adaptive_k=adaptive_k, send_h=send_h,
+            eval_tokens=eval_tokens, eval_labels=eval_labels, channel_scan=channel_scan,
+        )
+        taps = self.run_block(staged)
+        names = list(taps)
+        host = {}
+        if taps:  # one copy to the host for every tap
+            flat = torch.cat([taps[k].reshape(-1).float() for k in names]).cpu()
+            for k, part in zip(names, flat.split([taps[k].numel() for k in names])):
+                host[k] = part.reshape(taps[k].shape).tolist()
+        no_eval, no_chan = staged.eval_tokens is None, channel_scan is None
+        return RoundsTrajectory(
+            ks=staged.ks, payloads=staged.payloads, mean_k=host.get("mean_k", []),
+            distill_loss=host.get("distill_loss", []),
+            server_acc=None if no_eval else host.get("server_acc", []),
+            client_acc=None if no_eval else host.get("client_acc", []),
+            family_client_acc=(None if no_eval or not self._family_tap
+                               else host.get("family_client_acc", [])),
+            snr_db=None if no_chan else host.get("snr_db", []),
+            outage=None if no_chan else [[bool(x) for x in row] for row in host.get("outage", [])],
+        )
+
+    def _require_device_store(self) -> None:
+        """A block reads the fleet's rows by index tensors staged on the
+        device: only the device store holds the whole fleet there."""
+        if self.store_kind != "device":
+            raise RuntimeError(
+                "run_rounds scans the WHOLE fleet stack (every family bucket's on a mixed "
+                "fleet) as a donated device carry, which only fleet_store='device' provides; "
+                f"a host store (store_kind={self.store_kind!r}) keeps O(cohort) device "
+                "residency — drive rounds one at a time with run_round instead (rounds.py "
+                "falls back automatically)"
+            )
+
+    def _block_checks(self, sels, eval_tokens, eval_labels):
+        """The reference's refusals of a block, before any work: a device
+        store, unique and equal-size cohorts, eval data in pairs and of at
+        least one ``EVAL_BATCH``.  Returns the cohorts as lists and the eval
+        split cut to whole batches, on the device."""
+        self._require_device_store()
+        sels = [check_unique_cohort(sel) for sel in sels]
+        if (eval_tokens is None) != (eval_labels is None):
+            raise ValueError("pass eval_tokens and eval_labels together")
+        if any(len(sel) != len(sels[0]) for sel in sels):
+            raise ValueError("run_rounds requires equal-size cohorts")
+        if sels and eval_tokens is not None:
+            seen = (int(eval_tokens.shape[0]) // EVAL_BATCH) * EVAL_BATCH
+            if seen == 0:
+                raise ValueError(
+                    f"eval split of {int(eval_tokens.shape[0])} samples is smaller than one eval "
+                    f"batch ({EVAL_BATCH})"
+                )
+            eval_tokens = torch.as_tensor(eval_tokens[:seen], device=self.device)
+            eval_labels = torch.as_tensor(eval_labels[:seen], device=self.device)
+        return sels, eval_tokens, eval_labels
+
+    def _block_broadcast(self, pub0: torch.Tensor):
+        """The broadcast a block's first round distills against: the last
+        round's, or round 0's placeholders (``g_valid`` False)."""
+        if self._b_logits is not None:
+            return self._b_tokens, self._b_logits, self._b_h, True
+        g_tokens, g_logits, g_h = self._cold_broadcast(pub0, int(pub0.shape[0]))
+        return g_tokens, g_logits, g_h, False
 
     def _init_server_state(self, server) -> None:
         self.server = server

@@ -36,7 +36,6 @@ from repro_torch.fed.client import Client
 from repro_torch.fed.engines.base import (
     BroadcastState,
     ClientPhase,
-    RoundsTrajectory,
     _ServerOwnerMixin,
     _channel_scan_ops,
     check_unique_cohort,
@@ -157,51 +156,7 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         self._store.commit(idx, lora, opt)
         return ClientPhase(payloads=payloads, ks=ks, sparse=sparse)
 
-    # -- the multi-round block ----------------------------------------------
-    def run_rounds(
-        self,
-        sels: Sequence[Sequence[int]],
-        pubs: Sequence[torch.Tensor],
-        states_per_round: Sequence,
-        *,
-        adaptive_k: bool,
-        send_h: bool,
-        eval_tokens: torch.Tensor | None = None,
-        eval_labels: torch.Tensor | None = None,
-        channel_scan: dict | None = None,
-    ) -> RoundsTrajectory:
-        """Run R whole rounds as one block, as R ``run_round`` calls would:
-        fleet, server and broadcast state advance in place, and the block
-        returns a :class:`RoundsTrajectory`.
-
-        ``eval_tokens``/``eval_labels`` (both or neither) are evaluated after
-        each round on the server model and on the round's first selected
-        client, the models the per-round loop evaluates; the split is
-        truncated to whole ``EVAL_BATCH`` batches, as the host evaluator
-        walks it, and a split smaller than one batch is refused.
-        The host's work comes first (:meth:`stage_rounds`), then the block
-        (:meth:`run_block`); its taps cross to the host once, after it."""
-        staged = self.stage_rounds(
-            sels, pubs, states_per_round, adaptive_k=adaptive_k, send_h=send_h,
-            eval_tokens=eval_tokens, eval_labels=eval_labels, channel_scan=channel_scan,
-        )
-        taps = self.run_block(staged)
-        names = list(taps)
-        host = {}
-        if taps:  # one copy to the host for every tap
-            flat = torch.cat([taps[k].reshape(-1).float() for k in names]).cpu()
-            for k, part in zip(names, flat.split([taps[k].numel() for k in names])):
-                host[k] = part.reshape(taps[k].shape).tolist()
-        no_eval, no_chan = staged.eval_tokens is None, channel_scan is None
-        return RoundsTrajectory(
-            ks=staged.ks, payloads=staged.payloads, mean_k=host.get("mean_k", []),
-            distill_loss=host.get("distill_loss", []),
-            server_acc=None if no_eval else host.get("server_acc", []),
-            client_acc=None if no_eval else host.get("client_acc", []),
-            snr_db=None if no_chan else host.get("snr_db", []),
-            outage=None if no_chan else [[bool(x) for x in row] for row in host.get("outage", [])],
-        )
-
+    # -- the multi-round block: run_rounds (the mixin's) = stage_rounds + run_block
     def stage_rounds(
         self,
         sels: Sequence[Sequence[int]],
@@ -221,22 +176,8 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
         device, a ``channel_scan``'s
         (:meth:`~repro_torch.core.channel.ChannelSimulator.scan_channel_inputs`)
         among them."""
-        self._require_device_store()
-        sels = [check_unique_cohort(sel) for sel in sels]
-        if (eval_tokens is None) != (eval_labels is None):
-            raise ValueError("pass eval_tokens and eval_labels together")
+        sels, eval_tokens, eval_labels = self._block_checks(sels, eval_tokens, eval_labels)
         n_cohort = len(sels[0]) if sels else 0
-        if any(len(sel) != n_cohort for sel in sels):
-            raise ValueError("run_rounds requires equal-size cohorts")
-        if sels and eval_tokens is not None:
-            seen = (int(eval_tokens.shape[0]) // fed_steps.EVAL_BATCH) * fed_steps.EVAL_BATCH
-            if seen == 0:
-                raise ValueError(
-                    f"eval split of {int(eval_tokens.shape[0])} samples is smaller than one eval "
-                    f"batch ({fed_steps.EVAL_BATCH})"
-                )
-            eval_tokens = torch.as_tensor(eval_tokens[:seen], device=self.device)
-            eval_labels = torch.as_tensor(eval_labels[:seen], device=self.device)
         all_ks, all_payloads, batches, blocks = [], [], [], []
         n_samples = int(pubs[0].shape[0]) if sels else 0
         shard = self._cohort_shard(n_cohort) if sels else None
@@ -268,18 +209,6 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
             shard=shard,
         )
 
-    def _require_device_store(self) -> None:
-        """A block reads the fleet's rows by index tensors staged on the
-        device: only the device store holds the whole fleet there."""
-        if self.store_kind != "device":
-            raise RuntimeError(
-                "run_rounds scans the WHOLE fleet stack as a donated device "
-                "carry, which only fleet_store='device' provides; a host "
-                f"store (store_kind={self.store_kind!r}) keeps O(cohort) "
-                "device residency — drive rounds one at a time with "
-                "run_round instead (rounds.py falls back automatically)"
-            )
-
     def run_block(self, staged: StagedRounds) -> dict[str, torch.Tensor]:
         """The R round bodies of a staged block back to back, each the
         fleet gather, the round function, the in-block eval tap (server, and
@@ -301,12 +230,7 @@ class FusedE2EEngine(_ServerOwnerMixin, _FleetEngine):
                                                   last_only=self.last_only)
         client_eval = fed_steps.make_scan_eval_fn(self.cfg, self._num_classes,
                                                   last_only=self.last_only)
-        if self._b_logits is not None:
-            g_tokens, g_logits, g_h, g_valid = self._b_tokens, self._b_logits, self._b_h, True
-        else:
-            n_samples = int(staged.pubs[0].shape[0])
-            (g_tokens, g_logits, g_h), g_valid = (
-                self._cold_broadcast(staged.pubs[0], n_samples), False)
+        g_tokens, g_logits, g_h, g_valid = self._block_broadcast(staged.pubs[0])
         taps: dict[str, list] = {"distill_loss": []}
         if has_eval:
             taps.update(server_acc=[], client_acc=[])

@@ -20,7 +20,8 @@ backbone per model family is pretrained first on a split that the run
 never sees, and shared by that family's clients as the frozen W' of paper
 eq. 1; the server's is LM-pretrained by default.  ``scan_rounds``
 (``fused_e2e`` only) draws every round first and runs them as one block,
-``FusedE2EEngine.run_rounds``.
+``FusedE2EEngine.run_rounds`` (``HeteroFusedE2EEngine.run_rounds`` on a
+mixed fleet, whose block also fills ``family_client_acc``).
 
 ``FedConfig.scenario`` gives the channel time-correlated dynamics
 (``repro_torch.core.scenario``), which a block also evolves on the device;
@@ -67,7 +68,7 @@ from repro_torch.data.partition import dirichlet_partition, iid_partition, split
 from repro_torch.data.synthetic import IntentDataset
 from repro_torch.fed.client import Client, make_upload_payload
 from repro_torch.fed.engines import BroadcastState, cohort_budgets, make_engine
-from repro_torch.fed.engines.base import client_axis_opt, not_carried, one_model_opt
+from repro_torch.fed.engines.base import client_axis_opt, one_model_opt
 from repro_torch.fed.pretrain import pretrain_classifier, pretrain_lm
 from repro_torch.fed.server import Server
 from repro_torch.fed.steps import EVAL_BATCH, make_eval_fn
@@ -179,15 +180,10 @@ def _config_fingerprint(fed: FedConfig) -> dict:
 
 def _check_carried(families: list[ModelConfig], fed: FedConfig) -> None:
     """Raise on what the port does not carry, before any work: a model in
-    fp16, and ``scan_rounds`` on a mixed fleet;
-    ``make_engine`` checks the engine's own options (kind, shard_clients,
-    compute_dtype, fleet_store)."""
+    fp16; ``make_engine`` checks the engine's own options (kind,
+    shard_clients, compute_dtype, fleet_store)."""
     for cfg in families:
         model_lib.check_supported(cfg)
-    if (fed.scan_rounds and fed.engine == "fused_e2e" and fed.fleet_store == "device"
-            and len(set(families)) > 1):
-        raise not_carried("scan_rounds on a mixed fleet (HeteroFusedE2EEngine.run_rounds)",
-                          "other model families and mixed fleets")
 
 
 def run_federated(
@@ -574,6 +570,9 @@ def run_federated(
         traj = engine.run_rounds(sels, pubs, states, adaptive_k=preset["adaptive_k"],
                                  send_h=preset["send_h"], **eval_kw, **chan_kw)
         engine.sync_server()
+        # extend, never clobber, the taps a resumed run restored
+        if traj.family_client_acc is not None:
+            run.family_client_acc = (run.family_client_acc or []) + traj.family_client_acc
         if traj.snr_db is not None:
             run.snr_db = (run.snr_db or []) + traj.snr_db
             run.outage = (run.outage or []) + traj.outage

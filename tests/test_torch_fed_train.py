@@ -5,7 +5,7 @@
   module's ``run_federated`` is stubbed to capture them.  The port's JSON
   record has the reference's keys, and the same ``fed`` entry.
 * ``--families`` with a VLM and ``--scan-rounds`` (a mixed fleet's block)
-  raises naming its ROADMAP.md port queue item; ``--resume`` without
+  runs and records the block's family tap; ``--resume`` without
   ``--ckpt-dir`` is a usage error in both.
 * End to end on the CPU (the CLI's models shrunk to the tests' tiny
   configs): a host-store run of 2 rounds with ``--ckpt-dir`` leaves the
@@ -107,9 +107,32 @@ def test_the_device_defaults_to_the_card(monkeypatch, tmp_path):
     (["--families", "gpt2-paper,internvl2-76b", "--engine", "fused_e2e", "--scan-rounds"],
      "other model families and mixed fleets"),
 ])
-def test_what_the_cli_does_not_carry_raises(flag, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md port queue: {item}"):
-        t_cli.main(flag + ["--out", str(tmp_path), "--device", "cpu"])
+def test_what_the_cli_does_not_carry_raises(flag, item, tmp_path, monkeypatch):
+    """What this case once refused, naming its port queue ``item``, the CLI
+    now runs: ``--families gpt2-paper,internvl2-76b --engine fused_e2e
+    --scan-rounds`` (a mixed fleet's block, a VLM in it) on the CPU, the
+    families at the tests' widths, the run shortened; the record carries
+    the block's family tap, one accuracy a family a round."""
+    assert item == "other model families and mixed fleets"
+    monkeypatch.setattr(t_cli, "REDUCED_CLIENT", t_cli.REDUCED_CLIENT.with_overrides(
+        d_model=64, d_ff=128, **_TINY))
+    monkeypatch.setattr(t_cli, "REDUCED_SERVER", t_cli.REDUCED_SERVER.with_overrides(
+        d_model=96, d_ff=192, **_TINY))
+    monkeypatch.setattr(t_cli, "get_smoke_config", lambda arch, f=t_cli.get_smoke_config: (
+        f(arch) if arch == "gpt2-paper" else f(arch).with_overrides(
+            d_model=64, num_heads=4, num_kv_heads=2, d_ff=128, frontend_len=8)))
+    fed_config = t_cli.fed_config
+    monkeypatch.setattr(t_cli, "fed_config", lambda args: dataclasses.replace(
+        fed_config(args), pretrain_steps=0, server_pretrain_steps=0, public_size=64,
+        eval_size=64, local_steps=1, distill_steps=1, server_distill_steps=1))
+    argv = flag + ["--rounds", "2", "--clients", "4", "--per-round", "2", "--public-batch", "16",
+                   "--out", str(tmp_path), "--device", "cpu"]
+    assert t_cli.main(argv) == 0
+    rec = _record(str(tmp_path))
+    assert rec["fed"]["scan_rounds"] is True and rec["families"] == "gpt2-paper,internvl2-76b"
+    assert [len(row) for row in rec["family_client_acc"]] == [2, 2]
+    assert all(c in row for c, row in zip(rec["client_acc"], rec["family_client_acc"]))
+    assert all(x is not None and math.isfinite(x) for x in rec["distill_loss"])
 
 
 def test_resume_without_a_checkpoint_dir_is_a_usage_error(tmp_path):

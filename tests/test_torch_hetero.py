@@ -242,8 +242,14 @@ def test_the_family_contracts_fail_fast():
                     shard_clients=True)
     engine = make_engine("fused_e2e", _fleets(2)[1], T_FAMS[0], server=server, num_classes=8)
     assert isinstance(engine, HeteroFusedE2EEngine)
-    with pytest.raises(NotImplementedError, match="other model families and mixed fleets"):
-        engine.run_rounds([[0, 1]], [], [], adaptive_k=True, send_h=True)
+    # the mixed fleet's block runs (an empty one here: tests/test_torch_hetero_block*.py
+    # run real ones); on a host store it is the reference's refusal
+    traj = engine.run_rounds([], [], [], adaptive_k=True, send_h=True)
+    assert traj.ks == [] and traj.family_client_acc is None
+    hosted = make_engine("fused_e2e", _fleets(2)[1], T_FAMS[0], server=server, num_classes=8,
+                         fleet_store="host")
+    with pytest.raises(RuntimeError, match="fleet_store='device'"):
+        hosted.run_rounds([[0, 1]], [], [], adaptive_k=True, send_h=True)
 
 
 # -- the union wire -------------------------------------------------------------------------

@@ -371,12 +371,15 @@ _MIXED = [T_CLIENT, T_CLIENT.with_overrides(name="t-llama", positional="rope", n
     pytest.param(dict(engine="sequential", fleet_store="host"),
                  "fleet_store='host' is not supported by the sequential reference engine",
                  T_CLIENT, id="sequential-host-fleet-store"),
-    # a mixed fleet runs round by round; its block is a later slice's
-    pytest.param(dict(scan_rounds=True), _QUEUE + "other model families and mixed fleets",
-                 _MIXED, id="mixed-fleet-scan-rounds"),
-    # a VLM runs in a mixed fleet round by round; the fleet's block is still refused
-    pytest.param(dict(scan_rounds=True), _QUEUE + "other model families and mixed fleets",
-                 [T_CLIENT, T_CLIENT.with_overrides(family="vlm", frontend="vision")],
+    # a mixed fleet's block runs (tests/test_torch_hetero_block*.py); one with
+    # a family in fp16 is refused before any work
+    pytest.param(dict(scan_rounds=True), _QUEUE + "fp16",
+                 [_MIXED[0], _MIXED[1].with_overrides(compute_dtype="float16")],
+                 id="mixed-fleet-scan-rounds"),
+    # a VLM runs in a mixed fleet's block too; a VLM family in fp16 is refused
+    pytest.param(dict(scan_rounds=True), _QUEUE + "fp16",
+                 [T_CLIENT, T_CLIENT.with_overrides(family="vlm", frontend="vision",
+                                                    param_dtype="float16")],
                  id="vlm-family"),
 ])
 def test_what_the_port_does_not_carry_raises(change, match, clients):

@@ -20,8 +20,9 @@ Both packages start from the reference's init, bridged.
   the e2e server-distill loss within rtol 1e-4.
 * The port's int8 wire gives the same integers on ``fused_e2e`` and
   ``fused``.
-* ``scan_rounds`` on a mixed fleet still raises, naming its ROADMAP.md
-  port queue item.
+* ``scan_rounds`` on a mixed fleet with a family in fp16 raises, naming
+  its ROADMAP.md port queue item (the block itself runs:
+  ``tests/test_torch_hetero_block*.py``).
 """
 
 import numpy as np
@@ -142,6 +143,10 @@ def test_the_int8_wire_agrees_across_engines(runs):
 
 
 def test_scan_rounds_on_a_mixed_fleet_still_raises():
-    with pytest.raises(NotImplementedError, match="other model families and mixed fleets"):
-        t_run(T_FAMS, T_SERVER, _dataset(t_dataset),
+    """A mixed fleet's block runs (``tests/test_torch_hetero_block*.py``);
+    with its SSM family in fp16 it is refused before any work, naming the
+    port queue's fp16 item."""
+    fams = [T_FAMS[0], T_FAMS[1].with_overrides(compute_dtype="float16"), T_FAMS[2]]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md port queue: fp16"):
+        t_run(fams, T_SERVER, _dataset(t_dataset),
               _fed(TFed, TChannel, "fused_e2e", scan_rounds=True), device="cpu")
