@@ -232,7 +232,19 @@ Phases (any failure raises and exits non-zero):
    step at batch 8 timed, one step run with every synchronising call an
    error.  (c) A union wire of two buckets at k_cap 128 and 1024
    (``concat_wires``) through kernels 1 and 2, ``torch.equal`` to their
-   plain versions and to the unpadded wide wire.
+   plain versions and to the unpadded wide wire.  (d) The fleet of (a) once
+   more on ``fused_e2e`` with the float wire as a ``scan_rounds`` block
+   (``HeteroFusedE2EEngine.run_rounds``), its ``run_block`` with every
+   synchronising call an error: per-client k, bytes and transmitters
+   identical to (a)'s per-round ``fused_e2e`` run, accuracies within
+   ``FAMILY_ACC_TOL``, one family tap a family a round, kernel 1 once a
+   round.  (e) granite serving at (a)'s widths: a ``ServeSession`` of batch
+   8 with one tenant in every row, whose stacked step routes the 8 tokens
+   as one group, within 1e-5 of their largest logit against that
+   tenant's own ``decode_step`` at batch 8 over 32 prompt and 16 greedy
+   tokens (the first step's router choices past an expert's capacity
+   counted); then 8 tenants in 4 slots: exact cache stats, a step's time
+   and tokens/s.
 6g. the state-space families, SSM and hybrid — (a) phase 6f's fleet with
    mamba2-130m in granite's place (its published widths: 24 layers, d 768,
    d_inner 1536, 24 SSD heads of P 64, state N 128, conv 4, chunk 256;
@@ -248,7 +260,8 @@ Phases (any failure raises and exits non-zero):
    capacity factor 8): forward, prefill, 8 decode steps against the
    forward; then ``fed_train --families
    gpt2-paper,mamba2-130m,jamba-1.5-large-398b --engine fused_e2e
-   --use-kernels --rounds 2`` on the card (kernel 1 once a round).  (d) A
+   --use-kernels --rounds 2`` on the card (kernel 1 once a round).  (a)
+   also runs 6f (d)'s block on this fleet.  (d) A
    ``ServeSession`` of batch 8 on mamba2-130m with 8 tenants' head
    adapters in an ``AdapterCache`` of 4 slots: 32-token prompts, 32
    greedy tokens, every request's logits within 1e-5 of their largest
@@ -262,7 +275,7 @@ Phases (any failure raises and exits non-zero):
    launches exact.  (b) The same with seamless-m4t-large-v2 (its published
    widths and depth: 24 encoder + 24 decoder layers, d 1024, 16 heads,
    d_ff 8192; 32 of its 1024 stub frames; re-based likewise; fp32) through
-   phase 6f's five runs and checks.  (c) Each alone at its published
+   phase 6f's five runs and checks and 6f (d)'s block.  (c) Each alone at its published
    widths in bf16: internvl2 at 8 layers (256 patches, 768 text tokens as
    ``input_token_len`` gives, vocab 128 256) and seamless at its 24 + 24
    (1024 frames, vocab 256 208, GPT-2 small's LoRA): the (8, 1024)
@@ -308,8 +321,8 @@ The last lines are the card and its power limit, the kernels record and the
 device record (JSON).  In the kernels record ``launches`` is each kernel's
 count summed over the eight main-path runs, the pretrained path's four,
 phase 5c's runs and validated wires, phase 5d's runs, phase 5e's
-(its children's included), phase 6f's five, phase 6g's five and its
-``fed_train`` run and phase 6h's seven and its ``fed_train`` run,
+(its children's included), phase 6f's six, phase 6g's six and its
+``fed_train`` run and phase 6h's eight and its ``fed_train`` run,
 ``pct_of_bound`` its bound over its time; the static top-k's, the KL's and the attention's rows (fp32 and
 bf16) add ``entry_launches``, their counts through their public entry
 points.
@@ -351,9 +364,13 @@ from repro_torch.core.channel import ChannelConfig, ChannelSimulator  # noqa: E4
 from repro_torch.core.distill import total_distill_loss  # noqa: E402
 from repro_torch.core.faults import FaultSimulator, corrupt_wire  # noqa: E402
 from repro_torch.core.scenario import get_scenario  # noqa: E402
-from repro_torch.core.topk import concat_wires, quantize_wire, sparsify_wire, topk_mask_dense  # noqa: E402
+from repro_torch.core.topk import (  # noqa: E402
+    _stable_topk, concat_wires, quantize_wire, sparsify_wire, topk_mask_dense,
+)
 from repro_torch.data import make_banking77_like  # noqa: E402
-from repro_torch.fed import BatchedEngine, FedConfig, FusedE2EEngine, Server  # noqa: E402
+from repro_torch.fed import (  # noqa: E402
+    BatchedEngine, FedConfig, FusedE2EEngine, HeteroFusedE2EEngine, Server,
+)
 from repro_torch.fed import pretrain as fed_pretrain  # noqa: E402
 from repro_torch.fed import rounds as fed_rounds  # noqa: E402
 from repro_torch.fed import steps as fed_steps  # noqa: E402
@@ -366,7 +383,8 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import H100  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.lora import is_lora_path, lora_template, merge_lora, split_lora  # noqa: E402
-from repro_torch.models import attention, frontends, model  # noqa: E402
+from repro_torch.models import attention, frontends, model, transformer  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.layers import embedding, layer_norm  # noqa: E402
 from repro_torch.models.transformer import layer_slice  # noqa: E402
 from repro_torch.serve.export import FleetStoreSource, MonolithicSource  # noqa: E402
@@ -2649,6 +2667,63 @@ def family_runs(device, cfgs, card: str = "", runs=FAMILY_RUNS, label: str = "fa
     return dict(runs=out, launches=launches)
 
 
+def family_block(device, cfgs, per_round: dict, card: str = "",
+                 label: str = "families") -> dict:
+    """(d): the fleet of ``cfgs`` on ``fused_e2e`` with the float wire as a
+    ``scan_rounds`` block (``HeteroFusedE2EEngine.run_rounds``), with the
+    per-round runs' ``FedConfig``; on the card its ``run_block`` runs with
+    every synchronising call an error.  Held to ``per_round`` (the
+    ``fused_e2e`` float run of :func:`family_runs`): per-client k, bytes
+    and transmitters identical, accuracies within ``FAMILY_ACC_TOL``; one
+    finite family tap a family a round, kernel 1 once a round."""
+    families, server_cfg, ds = cfgs
+    on_card = torch.device(device).type == "cuda"
+    fed = main_fed("fused_e2e", False, pretrain_steps=1, server_pretrain="none", scan_rounds=True)
+    block: dict = {}
+    patches = {(HeteroFusedE2EEngine, "run_block"): guarded_block(block)} if on_card else None
+    sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ops.reset_launches()  # this run's launches only, from here
+    run, eng, _srv = _drive(families, server_cfg, ds, fed, device, patches)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    fam = run.family_client_acc
+    log(f"[{label} block] fused_e2e/float scan_rounds: {fed.rounds} rounds as one block in "
+        f"{seconds:.1f} s (setup and pretraining included), round_seconds="
+        f"{[round(x, 3) for x in run.round_seconds]}, "
+        + (f"run_block {block['seconds']:.3f} s with every synchronising call an error"
+           if on_card else "run_block unguarded (no card)")
+        + f", max_memory_allocated={peak:.2f} GiB ({card})")
+    log(f"[{label} block] per_client_k={run.per_client_k} server_acc={run.server_acc} "
+        f"client_acc={run.client_acc} family_client_acc={fam} distill_loss={run.distill_loss}; "
+        f"kernel launches {launches}")
+    assert isinstance(eng, HeteroFusedE2EEngine), type(eng)
+    want = per_round["fused_e2e/float"]
+    ints = (run.per_client_k, [(r.uplink_bytes, r.downlink_bytes, r.num_transmitters)
+                               for r in run.ledger.rounds])
+    assert ints == want["ints"], (ints, want["ints"])
+    for key in ("server_acc", "client_acc"):
+        np.testing.assert_allclose(getattr(run, key), want[key], rtol=0,
+                                   atol=FAMILY_ACC_TOL + 1e-9, err_msg=key)
+    assert [len(row) for row in fam] == [len(families)] * fed.rounds, fam
+    assert all(math.isfinite(x) for x in [a for row in fam for a in row] + run.distill_loss)
+    assert all(c in row for c, row in zip(run.client_acc, fam))
+    if on_card:
+        assert launches == {"scatter_wire_sums": fed.rounds}, launches
+    log(f"[{label} block] identical per-client k, uplink and downlink bytes and transmitters "
+        f"to the per-round fused_e2e run, accuracies within {FAMILY_ACC_TOL:.4f}")
+    del run, eng, _srv
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(launches=launches, seconds=seconds, block_seconds=block.get("seconds"),
+                peak=peak, family_client_acc=fam)
+
+
 def check_family_models(device, archs=FAMILY_ARCHS + ("yi-9b/window",)) -> None:
     """(b) part 1: each smoke config of ``archs`` on the card: the forward,
     the prefill (its last position), and 8 decode steps against the
@@ -2758,6 +2833,101 @@ def check_union_wire(device) -> None:
         "torch.equal to their plain versions and to the unpadded wide wire, every mode")
 
 
+def moe_overflow(into: list):
+    """A wrapper for ``moe_apply`` that appends, for every call, how many
+    (token, slot) router choices landed past an expert's capacity, routed
+    as the call routes them (a device scalar, read after the run)."""
+    def wrap(moe_apply):
+        def call(lp, x, cfg, *, pool_clients=False):
+            moe = cfg.moe
+            tokens = x.reshape((1 if pool_clients else x.shape[0], -1, x.shape[-1]))
+            tg = moe_lib.group_size(tokens.shape[1])
+            tokens = tokens.reshape(tokens.shape[0], -1, tg, tokens.shape[-1])
+            probs = torch.softmax((tokens.float() @ lp["mlp/router/w"].float()), dim=-1)
+            _, idx = _stable_topk(probs, moe.top_k)
+            per_expert = (idx[..., None] == torch.arange(moe.num_experts, device=x.device)).sum(
+                dim=(2, 3))
+            into.append(torch.clamp(per_expert - moe_lib.moe_capacity(cfg, tg), min=0).sum())
+            return moe_apply(lp, x, cfg, pool_clients=pool_clients)
+
+        return call
+
+    return wrap
+
+
+MOE_GEN = 16  # greedy tokens after the prompt in (e)'s one-tenant check
+
+
+def serve_moe(device, card: str, cfg, backbone, label: str = "families serving") -> dict:
+    """(e): MoE serving.  A ``ServeSession`` of batch 8 on ``backbone``
+    with 8 tenants' adapters in an ``AdapterCache`` of 4 slots.  With one
+    tenant in every row the stacked step routes the 8 requests' tokens as
+    one group, as that tenant's own ``decode_step`` at batch 8 does: every
+    step's logits over 32 prompt and ``MOE_GEN`` greedy tokens within
+    ``SERVE_TOL`` of their largest against a session on the tenant's merged
+    parameters, fed the same tokens; the first step's router choices past
+    an expert's capacity counted.  (With pooled routing a request's logits
+    depend on its batch, in the reference too, so the stacked-versus-solo
+    check of :func:`serve_tenants` does not apply.)  Then 8 tenants in the 4
+    slots: exact cache stats, a step's time and tokens/s."""
+    lora, frozen = split_lora(backbone)
+    rows = tenant_rows(lora, TENANTS, seed=37, device=device)
+    src = export_adapters(DeviceFleetStore(rows, [frozen] * TENANTS, shared=True))
+    cache = AdapterCache(src, like=lora_template(backbone), slots=SLOTS, device=device)
+    sess = ServeSession(ServeConfig(model=cfg, batch=SERVE_BATCH, cache_len=128),
+                        serving_params(src, backbone), adapters=cache, device=device)
+    prompts = np.random.default_rng(43).integers(0, cfg.vocab_size,
+                                                 (SERVE_BATCH, PROMPT)).astype(np.int32)
+    tenant = 3
+    ops.reset_launches()
+    sess.attach([tenant] * SERVE_BATCH)
+    assert cache.stats.as_dict() == dict(hits=0, misses=1, evictions=0, lookups=1)
+    drops: list = []
+    saved = transformer.moe_apply
+    transformer.moe_apply = moe_overflow(drops)(saved)
+    try:
+        sess.reset()
+        stacked = [sess.step(prompts[:, 0])]
+    finally:
+        transformer.moe_apply = saved
+    first_drops = [int(n) for n in torch.stack(drops).tolist()]
+    for t in range(1, PROMPT):
+        stacked.append(sess.step(prompts[:, t]))
+    toks = []
+    for _ in range(MOE_GEN):
+        toks.append(torch.argmax(stacked[-1], dim=-1))
+        stacked.append(sess.step(toks[-1]))
+    solo = ServeSession(ServeConfig(model=cfg, batch=SERVE_BATCH, cache_len=128),
+                        merge_lora(rows[tenant], frozen), device=device)
+    own = [solo.step(prompts[:, t]) for t in range(PROMPT)] + [solo.step(t) for t in toks]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(stacked, own)):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= SERVE_TOL, ("one tenant stacked vs its decode_step", i, err)
+        worst = max(worst, err)
+    ids = [0, 1, 1, 2, 3, 3, 0, 2]
+    cache.reset_stats()  # the 8-tenant mix alone: tenant 3 resident, 3 slots free
+    sess.attach(ids)
+    stats = cache.stats.as_dict()
+    assert stats == dict(hits=1, misses=3, evictions=0, lookups=1), stats
+    sess.prefill(prompts)
+    sync(device)
+    t0 = time.perf_counter()
+    sess.decode(GEN)  # every step ends in a device sync
+    step_s = (time.perf_counter() - t0) / GEN
+    assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES  # no kernel on the serving path
+    cap = moe_lib.moe_capacity(cfg, moe_lib.group_size(SERVE_BATCH))
+    log(f"[{label}] {cfg.name} at batch {SERVE_BATCH}, tenant {tenant} in every row: stacked "
+        f"decode vs its own decode_step over {len(stacked)} steps max |diff|/max|logit| "
+        f"{worst:.3e} (bound {SERVE_TOL}); the first step's top-{cfg.moe.top_k} choices past "
+        f"an expert's capacity of {cap}, by layer: {first_drops} ({sum(first_drops)} in all)")
+    log(f"[{label}] {TENANTS} tenants {ids} in {SLOTS} slots: cache stats {stats}, decode step "
+        f"{step_s * 1e3:.3f} ms over {GEN} greedy steps (host clock), {SERVE_BATCH / step_s:.1f} "
+        f"tokens/s ({card})")
+    return dict(decode_step_ms=step_s * 1e3, one_tenant_vs_own=worst, first_step_drops=first_drops,
+                stats=stats)
+
+
 def phase_families(device, card: str = "", cfgs=None) -> dict:
     """Phase 6f: the dense and MoE families and a mixed fleet (module
     docstring).  ``cfgs`` = ``(families, server, dataset)`` replaces the
@@ -2771,9 +2941,13 @@ def phase_families(device, card: str = "", cfgs=None) -> dict:
                 make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32))
     out = family_runs(device, cfgs, card)
     granite = out["runs"].pop("client1")
+    out["block"] = family_block(device, cfgs, out["runs"], card)
+    for name, n in out["block"]["launches"].items():
+        out["launches"][name] = out["launches"].get(name, 0) + n
     for key in set(fed_pretrain._CACHE) - cached:  # the phase's backbones
         del fed_pretrain._CACHE[key]
     check_family_models(device)
+    out["serving"] = serve_moe(device, card, cfgs[0][1], granite)
     if on_card:
         out["granite"] = time_granite(device, granite, card)
         del granite
@@ -3024,6 +3198,9 @@ def phase_ssm(device, card: str = "", cfgs=None) -> dict:
                 make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32))
     out = family_runs(device, cfgs, card)
     del out["runs"]["client1"]
+    out["block"] = family_block(device, cfgs, out["runs"], card, label="ssm")
+    for name, n in out["block"]["launches"].items():
+        out["launches"][name] = out["launches"].get(name, 0) + n
     for key in set(fed_pretrain._CACHE) - cached:  # the phase's backbones
         del fed_pretrain._CACHE[key]
     gc.collect()
@@ -3144,6 +3321,10 @@ def phase_modal(device, card: str = "", cfgs=None) -> dict:
     out = family_runs(device, (vlm, server_cfg, ds), card, runs=MODAL_RUNS, label="modal vlm")
     out["audio"] = family_runs(device, (audio, server_cfg, ds), card, label="modal audio")
     del out["audio"]["runs"]["client1"]
+    out["block"] = family_block(device, (audio, server_cfg, ds), out["audio"]["runs"], card,
+                                label="modal audio")
+    for name, n in out["block"]["launches"].items():
+        out["audio"]["launches"][name] = out["audio"]["launches"].get(name, 0) + n
     for name, n in out.pop("audio")["launches"].items():
         out["launches"][name] = out["launches"].get(name, 0) + n
     for key in set(fed_pretrain._CACHE) - cached:  # the phase's backbones
