@@ -300,10 +300,12 @@ class SequentialEngine:
 
 
 class _ServerOwnerMixin:
-    """Server-state plumbing of the whole-round engine: it owns the server
+    """Server-state plumbing of the whole-round engines: they own the server
     LLM's LoRA (with a client axis of 1), optimizer state and frozen
-    backbone for the run, computes the broadcast in the round, and writes
-    the merged parameters back for evaluation."""
+    backbone for the run, compute the broadcast in the round, and write
+    the merged parameters back for evaluation.  The multi-round block's
+    driver lives here too: each engine brings its ``stage_rounds`` and
+    ``run_block``."""
 
     handles_server = True
     _family_tap = False  # the block reports one client accuracy a family bucket
