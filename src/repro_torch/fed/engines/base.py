@@ -304,8 +304,8 @@ class _ServerOwnerMixin:
     LLM's LoRA (with a client axis of 1), optimizer state and frozen
     backbone for the run, compute the broadcast in the round, and write
     the merged parameters back for evaluation.  The multi-round block's
-    driver lives here too: each engine brings its ``stage_rounds`` and
-    ``run_block``."""
+    ``run_rounds`` lives here too: each engine brings its
+    ``stage_rounds`` and ``run_block``."""
 
     handles_server = True
     _family_tap = False  # the block reports one client accuracy a family bucket
