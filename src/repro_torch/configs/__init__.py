@@ -4,9 +4,9 @@ data only) and the architecture registry: ``--arch <id>`` resolution for
 the launchers.
 
 ``ARCHITECTURES`` lists the reference's public dashed ids in its order, and
-``get_config``/``get_smoke_config`` return every one of them.  What the
-port does not run yet (the VLM and audio families) is refused
-when a model is built (:func:`repro_torch.models.model.check_supported`).
+``get_config``/``get_smoke_config`` return every one of them, and the port
+runs each in fp32, bf16 and fp16; any other dtype name is refused when a
+model is built (:func:`repro_torch.models.model.check_supported`).
 ``remat`` and ``microbatches`` pass through: they change memory, not
 results, and the port ignores ``remat``."""
 

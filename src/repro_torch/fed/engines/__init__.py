@@ -33,13 +33,13 @@ from repro_torch.fed.engines.base import (
     cohort_budgets,
     fake_quant_dense,
     k_cap_bucket,
-    not_carried,
     shared_frozen_backbone,
 )
 from repro_torch.fed.engines.batched import BatchedEngine
 from repro_torch.fed.engines.e2e import FusedE2EEngine
 from repro_torch.fed.engines.fused import FusedEngine
 from repro_torch.fed.engines.hetero import HeteroClientEngine, HeteroFusedE2EEngine
+from repro_torch.models.layers import FLOAT_DTYPES
 
 __all__ = [
     "BroadcastState",
@@ -101,15 +101,16 @@ def make_engine(kind: str, clients: list[Client], cfg: ModelConfig, **kwargs):
         )
     hetero = len({c.cfg for c in clients}) > 1
     if kind == "batched":
-        # the fp32 per-phase reference: the bf16 round body exists only on
+        # the fp32 per-phase reference: the low-precision round body exists only on
         # the fused paths, and the batched engine has no kernel of its own
         for dropped in ("shard_clients", "use_kernels", "compute_dtype"):
             kwargs.pop(dropped, None)
         if hetero:
             return HeteroClientEngine(kind, clients, **kwargs)
         return BatchedEngine(clients, cfg, **kwargs)
-    if kwargs.get("compute_dtype", "float32") not in ("float32", "bfloat16"):
-        raise not_carried(f"compute_dtype={kwargs['compute_dtype']!r}", "fp16")
+    if kwargs.get("compute_dtype", "float32") not in FLOAT_DTYPES:
+        raise ValueError(f"compute_dtype={kwargs['compute_dtype']!r}; expected one of "
+                         f"{', '.join(FLOAT_DTYPES)}")
     if kind == "fused":
         if hetero:
             return HeteroClientEngine(kind, clients, **kwargs)

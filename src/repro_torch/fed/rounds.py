@@ -179,9 +179,9 @@ def _config_fingerprint(fed: FedConfig) -> dict:
 
 
 def _check_carried(families: list[ModelConfig], fed: FedConfig) -> None:
-    """Raise on what the port does not carry, before any work: a model in
-    fp16; ``make_engine`` checks the engine's own options (kind,
-    shard_clients, compute_dtype, fleet_store)."""
+    """Raise before any work on a model whose dtype names the port does not
+    take (float32, bfloat16 and float16 it does); ``make_engine`` checks the
+    engine's own options (kind, shard_clients, compute_dtype, fleet_store)."""
     for cfg in families:
         model_lib.check_supported(cfg)
 

@@ -2,11 +2,12 @@
 //   out[r] = KL( softmax(t[r,:]/T) || softmax(s[r,:]/T) )
 //
 // Replaces the TPU kernel src/repro/kernels/distill_kl.py
-//   distill_kl_{f32,bf16} <- distill_kl_pallas (_kl_kernel)
+//   distill_kl_{f32,bf16,f16} <- distill_kl_pallas (_kl_kernel)
 //
-// bf16 rows (distill_kl_bf16), as the reference's kernel takes them (it
-// upcasts each tile), have a kernel of their own, distill_kl_bf16_kernel
-// (below); the result is fp32.
+// bf16 and fp16 rows (distill_kl_bf16, distill_kl_f16), as the reference's
+// kernel takes them (it upcasts each tile), have a kernel of their own,
+// distill_kl_16_kernel<T> (below; only the exact upcast of a packed pair
+// and the pair's maximum differ between the two types); the result is fp32.
 //
 // Both compute the KL in ONE pass over the two rows, with online-rescaled
 // accumulators (t~ = t/T, s~ = s/T):
@@ -66,7 +67,7 @@
 // running state) added ~3.4 K cycles of math to the loop's loads, and the
 // merge (two cluster barriers around rank 0 reading every warp's partial)
 // ~4.4 K cycles after it (tools/kernel_probe.py's clocked copy).
-// distill_kl_bf16_kernel keeps the row split over a cluster, the loop's
+// distill_kl_16_kernel keeps the row split over a cluster, the loop's
 // shape (thread x on granules x, x + 512, ..., the next granules' loads in
 // flight during a granule's math: it overlapped loads and math better than
 // a chunk of 8 granules loaded before any math, or a ring of TMA bulk
@@ -78,7 +79,9 @@
 //   * the merge: each CTA merges its warps and stores its state into the
 //     first CTA's shared memory, and only the first CTA waits, once.
 // Teacher and student still run the same code, so t == s still gives
-// exactly 0.
+// exactly 0.  A row holding +inf gets +inf as its maximum and exp(inf -
+// inf) = NaN in its sums, as the plain log-sum-exp gives NaN; a NaN, which
+// the packed maxima pass over, reaches the sums through its own exp.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC.
@@ -87,6 +90,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -196,6 +200,7 @@ __device__ __forceinline__ KL warp_merge(const KL& a) {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 // Elements [lo, hi) one at a time, four per thread a tile, masked
 template <class T>
@@ -223,10 +228,34 @@ __device__ __forceinline__ void unpack(float* dst, float4 a, float inv_temp) {
   dst[3] = a.w * inv_temp;
 }
 
-// Two bf16 values (one 32-bit word) upcast exactly, times inv_temp.
+// What the 16-bit kernel needs of its element type T: two values (one
+// 32-bit word) upcast exactly, and the larger of each pair of a word pair
+// (NaN passed over, as max.f16x2 / max.bf16x2 do), exact.
+template <class T>
+struct Pair16;
+
+template <>
+struct Pair16<__nv_bfloat16> {
+  using T2 = __nv_bfloat162;
+  static __device__ __forceinline__ float2 up(uint32_t w) {
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+  }
+};
+
+template <>
+struct Pair16<__half> {
+  using T2 = __half2;
+  static __device__ __forceinline__ float2 up(uint32_t w) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  }
+};
+
+// Two 16-bit values (one 32-bit word) upcast exactly, times inv_temp.
+template <class T>
 __device__ __forceinline__ void unpack2(float* dst, uint32_t w, float inv_temp) {
-  dst[0] = __uint_as_float(w << 16) * inv_temp;
-  dst[1] = __uint_as_float(w & 0xffff0000u) * inv_temp;
+  const float2 f = Pair16<T>::up(w);
+  dst[0] = f.x * inv_temp;
+  dst[1] = f.y * inv_temp;
 }
 
 // The row's partial states merged in a fixed order and its KL written to
@@ -295,28 +324,31 @@ __global__ void __launch_bounds__(kThreads)
   merge_and_write(st, cluster, out + r);
 }
 
-// -- the bf16 kernel ----------------------------------------------------------
+// -- the 16-bit kernel (bf16 and fp16) -----------------------------------------
 
-// The larger of the bf16 values in a word pair, exact.
-__device__ __forceinline__ __nv_bfloat162 max2(uint32_t a, uint32_t b) {
-  return __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-                 *reinterpret_cast<const __nv_bfloat162*>(&b));
+// The larger of the 16-bit values in a word pair, exact.
+template <class T>
+__device__ __forceinline__ typename Pair16<T>::T2 max2(uint32_t a, uint32_t b) {
+  using T2 = typename Pair16<T>::T2;
+  return __hmax2(*reinterpret_cast<const T2*>(&a), *reinterpret_cast<const T2*>(&b));
 }
 
-// The largest of a granule's 8 bf16 values, times inv_temp: the max of
+// The largest of a granule's 8 16-bit values, times inv_temp: the max of
 // the products, since rounding a product by a positive factor keeps the
 // order.
+template <class T>
 __device__ __forceinline__ float granule_max(uint4 x, float inv_temp) {
-  const __nv_bfloat162 m = __hmax2(max2(x.x, x.y), max2(x.z, x.w));
-  return __bfloat162float(__hmax(m.x, m.y)) * inv_temp;
+  const typename Pair16<T>::T2 m = __hmax2(max2<T>(x.x, x.y), max2<T>(x.z, x.w));
+  return to_f32(__hmax(m.x, m.y)) * inv_temp;
 }
 
 // A granule pair (8 element pairs) into the running state: its exact
 // maxima; a rescale of the state only where a maximum grows (no serial
 // chain through the max, a rescale rarer the further a thread gets); then
 // its sums, rescale-free, added to the state's.
+template <class T>
 __device__ __forceinline__ void add_granule(KL& st, uint4 a, uint4 b, float inv_temp) {
-  const float mt = granule_max(a, inv_temp), ms = granule_max(b, inv_temp);
+  const float mt = granule_max<T>(a, inv_temp), ms = granule_max<T>(b, inv_temp);
   if (mt > st.t.m) {  // exp(-inf) = 0 on a thread's first granule
     const float rt = __expf(st.t.m - mt);
     st.t.z = __fmul_rn(st.t.z, rt);
@@ -328,14 +360,14 @@ __device__ __forceinline__ void add_granule(KL& st, uint4 a, uint4 b, float inv_
     st.s.m = ms;
   }
   float tt[8], ss[8];
-  unpack2(tt, a.x, inv_temp);
-  unpack2(tt + 2, a.y, inv_temp);
-  unpack2(tt + 4, a.z, inv_temp);
-  unpack2(tt + 6, a.w, inv_temp);
-  unpack2(ss, b.x, inv_temp);
-  unpack2(ss + 2, b.y, inv_temp);
-  unpack2(ss + 4, b.z, inv_temp);
-  unpack2(ss + 6, b.w, inv_temp);
+  unpack2<T>(tt, a.x, inv_temp);
+  unpack2<T>(tt + 2, a.y, inv_temp);
+  unpack2<T>(tt + 4, a.z, inv_temp);
+  unpack2<T>(tt + 6, a.w, inv_temp);
+  unpack2<T>(ss, b.x, inv_temp);
+  unpack2<T>(ss + 2, b.y, inv_temp);
+  unpack2<T>(ss + 4, b.z, inv_temp);
+  unpack2<T>(ss + 6, b.w, inv_temp);
   float zt = 0.0f, zs = 0.0f, u = 0.0f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -406,21 +438,21 @@ __device__ __forceinline__ uint4 load_granule(const uint4* p) {
   return v;
 }
 
-// The bf16 KL: the layout of distill_kl_kernel (a row over a cluster of C
-// CTAs, CTA `rank` on the rank-th slice of its granules, thread x on
+// The 16-bit KL: the layout of distill_kl_kernel (a row over a cluster of
+// C CTAs, CTA `rank` on the rank-th slice of its granules, thread x on
 // granules x, x + 512, ...), each granule pair added with add_granule, the
 // loop unrolled so that the next granules' loads are in flight during a
 // granule's math.
+template <class T>
 __global__ void __launch_bounds__(kThreads, 1)
-    distill_kl_bf16_kernel(const __nv_bfloat16* __restrict__ teacher,
-                           const __nv_bfloat16* __restrict__ student, float* __restrict__ out, int vocab,
-                           float inv_temp) {
+    distill_kl_16_kernel(const T* __restrict__ teacher, const T* __restrict__ student,
+                         float* __restrict__ out, int vocab, float inv_temp) {
   cg::cluster_group cluster = cg::this_cluster();
   const int n_ranks = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int r = blockIdx.x / n_ranks;
-  const __nv_bfloat16* t = teacher + (size_t)r * vocab;
-  const __nv_bfloat16* s = student + (size_t)r * vocab;
+  const T* t = teacher + (size_t)r * vocab;
+  const T* s = student + (size_t)r * vocab;
   cluster_arrive_relaxed();  // waited for before the merge's store to the first CTA
   KL st;
   st.t.m = st.s.m = -INFINITY;
@@ -437,7 +469,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint4* s8 = reinterpret_cast<const uint4*>(s + head);
 #pragma unroll 2
     for (int i = b0 + threadIdx.x; i < b1; i += kThreads)
-      add_granule(st, load_granule(t8 + i), load_granule(s8 + i), inv_temp);
+      add_granule<T>(st, load_granule(t8 + i), load_granule(s8 + i), inv_temp);
     if (rank == n_ranks - 1) add_scalars(st, t, s, head + 8 * n8, vocab, inv_temp);
   } else {  // rows on different 16-byte phases: all scalar, a slice a rank
     const int chunk = (vocab + n_ranks - 1) / n_ranks;
@@ -506,7 +538,14 @@ int distill_kl_f32(const float* teacher, const float* student, float* out, int r
 // teacher, student: (rows, vocab) bf16, contiguous; out: (rows,) fp32.
 int distill_kl_bf16(const __nv_bfloat16* teacher, const __nv_bfloat16* student, float* out,
                     int rows, int vocab, float inv_temp, void* stream) {
-  return launch_kl(distill_kl_bf16_kernel, teacher, student, out, rows, vocab, inv_temp, stream);
+  return launch_kl(distill_kl_16_kernel<__nv_bfloat16>, teacher, student, out, rows, vocab, inv_temp,
+                   stream);
+}
+
+// teacher, student: (rows, vocab) fp16, contiguous; out: (rows,) fp32.
+int distill_kl_f16(const __half* teacher, const __half* student, float* out, int rows, int vocab,
+                   float inv_temp, void* stream) {
+  return launch_kl(distill_kl_16_kernel<__half>, teacher, student, out, rows, vocab, inv_temp, stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,10 @@
 // Blockwise causal softmax attention, forward only (inference prefill):
 //   out[b, i, :] = sum_{j <= i} softmax_j(q[b,i,:] . k[b,j,:] * D^-0.5) v[b,j,:]
-// over fused head-batches q, k, v, out: (B*H, S, D) fp32 or bf16.
+// over fused head-batches q, k, v, out: (B*H, S, D) fp32, bf16 or fp16.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
-//   flash_attention_{f32,bf16} <- flash_attention_pallas (_flash_kernel,
-//                                                         _online_update)
+//   flash_attention_{f32,bf16,f16} <- flash_attention_pallas (_flash_kernel,
+//                                                             _online_update)
 //
 // Both keep, per query row, an online max m, normaliser l and output
 // accumulator over key tiles; tiles wholly above the causal diagonal are
@@ -92,6 +92,17 @@
 //   B*H = 96, S = 1024 on 989 TFLOP/s, 19.5 us, against 50.3 MB of bf16
 //   q, k, v and out (15 us).
 //
+// fp16 q, k, v (flash_attention_f16) run the same kernel,
+// flash_attention_16_kernel<E>, with E = F16: wgmma .f32.f16.f16, tensor
+// maps of fp16, and P in two fp16 pieces (cvt.rn.f16x2.f32).  An fp16 value
+// has 11 significant bits and 5 exponent bits, so it is exact in TF32 and
+// fp32, and the product of two is exact in fp32: Q K^T stays exact as in
+// bf16.  P is in [0, 1]: hi = fp16(P) keeps 11 bits (one piece misses the
+// check by far, as bf16's does), lo = fp16(P - hi) the next 11, down to
+// fp16's subnormal step 2^-24, below which a weight is dropped (at most
+// 2^-25 a key, S 2^-25 max|v| in all, half the check's bound).  The output
+// is rounded to fp16 once.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC.
 // Plain C interface, loaded through ctypes; the entry point launches on
@@ -99,9 +110,12 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -352,14 +366,14 @@ int launch_attention(const float* q, const float* k, const float* v, float* out,
   return (int)cudaGetLastError();
 }
 
-// ---- bf16: both products on bf16 wgmma, K and V fed by TMA -----------------
+// ---- bf16 and fp16: both products on 16-bit wgmma, K and V fed by TMA -------
 
 constexpr int kConsumers = 2;                    // warpgroups of 64 query rows
 constexpr int kBlockRows = 64 * kConsumers;      // query rows a block
 constexpr int kBf16Threads = 128 * kConsumers + 32;  // and one producer warp
 constexpr int kBlocksPerSm = 2;
 constexpr int kStagesBf16 = 4;                   // K/V tiles in flight
-constexpr int kTileBytes = 64 * D * 2;           // 64 rows of bf16, 128 bytes a row
+constexpr int kTileBytes = 64 * D * 2;           // 64 rows of 16-bit values, 128 bytes a row
 constexpr int kSmemBf16 = 1024 + kBlockRows * D * 2 + kStagesBf16 * 2 * kTileBytes;  // + alignment
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -430,53 +444,93 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// d (+)= A B on the tensor cores, one m64n64k16 bf16 product of the warpgroup
-// with fp32 accumulators: A (64 x 16) and B (64 x 16, K-major) from shared
-// memory; scale_d = 0 overwrites d.
+// The 16-bit element types: what differs between the bf16 and the fp16
+// kernel is the product's input type, the tensor maps' element type, and how
+// two fp32 values are rounded into one register and read back exactly.
+struct Bf16 {
+  using T = __nv_bfloat16;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // (lo column, hi column) -> two bf16, rounded to nearest, in one register
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    uint32_t d;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+    return d;
+  }
+  static __device__ __forceinline__ float lo(uint32_t w) { return __uint_as_float(w << 16); }
+  static __device__ __forceinline__ float hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+};
+
+struct F16 {
+  using T = __half;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  // (lo column, hi column) -> two fp16, rounded to nearest, in one register
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    uint32_t d;
+    asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+    return d;
+  }
+  static __device__ __forceinline__ float lo(uint32_t w) {
+    return __half2float(__ushort_as_half((unsigned short)(w & 0xffffu)));
+  }
+  static __device__ __forceinline__ float hi(uint32_t w) {
+    return __half2float(__ushort_as_half((unsigned short)(w >> 16)));
+  }
+};
+
+// d (+)= A B on the tensor cores, one m64n64k16 product (E: bf16 or fp16
+// inputs) of the warpgroup with fp32 accumulators: A (64 x 16) and B
+// (64 x 16, K-major) from shared memory; scale_d = 0 overwrites d.
+#define WGMMA_SS(TYPE)                                                                  \
+  asm volatile(                                                                         \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                      \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "                    \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      WGMMA_D : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+// d += A B, one m64n64k16 product with A (64 x 16) from registers (the
+// accumulator fragment layout, two values a register) and B (16 x 64,
+// MN-major: transposed) from shared memory.
+#define WGMMA_RS(TYPE)                                                                  \
+  asm volatile(                                                                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "                    \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n" \
+      WGMMA_D : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b))
+#define WGMMA_D                                                                                       \
+  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),       \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),           \
+    "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),           \
+    "+f"(d[30]), "+f"(d[31])
+
+template <class E>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  if constexpr (std::is_same<E, F16>::value) {
+    WGMMA_SS("f16");
+  } else {
+    WGMMA_SS("bf16");
+  }
 }
 
-// d += A B, one m64n64k16 bf16 product with A (64 x 16) from registers (the
-// accumulator fragment layout, two bf16 a register) and B (16 x 64,
-// MN-major: transposed) from shared memory.
+template <class E>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t desc_b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
-}
-
-// (lo column, hi column) -> two bf16, rounded to nearest, in one register
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
+  if constexpr (std::is_same<E, F16>::value) {
+    WGMMA_RS("f16");
+  } else {
+    WGMMA_RS("bf16");
+  }
 }
 
 // A block owns kBlockRows query rows of one head-batch; warpgroup w of its
 // consumers owns rows q0 + 64 w ...; the producer warp's lane 0 loads Q and
 // then K/V tiles 0 .. the last consumer's diagonal through a ring of
 // kStagesBf16 stages (full: TMA bytes landed; empty: the consumers' 8 warps
-// are done with it).  c = scale * log2(e).
+// are done with it).  c = scale * log2(e).  E: Bf16 or F16.
+template <class E>
 __global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
-    flash_attention_bf16_kernel(__grid_constant__ const CUtensorMap tm_q,
-                                __grid_constant__ const CUtensorMap tm_k,
-                                __grid_constant__ const CUtensorMap tm_v,
-                                __nv_bfloat16* __restrict__ out, int seq, float c) {
+    flash_attention_16_kernel(__grid_constant__ const CUtensorMap tm_q,
+                              __grid_constant__ const CUtensorMap tm_k,
+                              __grid_constant__ const CUtensorMap tm_v,
+                              typename E::T* __restrict__ out, int seq, float c) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, bar_full[kStagesBf16], bar_empty[kStagesBf16];
   const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's 1024-byte atoms
@@ -546,12 +600,12 @@ __global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
     mbar_wait(smem_u32(&bar_full[s]), (j / kStagesBf16) & 1);
     __syncwarp();  // the warp converged again for the .aligned wgmma instructions
 
-    // S = Q K^T: bf16 x bf16 is exact in fp32
+    // S = Q K^T: bf16 x bf16 (fp16 x fp16) is exact in fp32
     float sc[32];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(sc, dq + 2 * kk, dks + 2 * kk, kk);  // 32 bytes a k-step
+      wgmma_ss<E>(sc, dq + 2 * kk, dks + 2 * kk, kk);  // 32 bytes a k-step
     wgmma_commit();
     wgmma_wait();
     fence_regs(sc);
@@ -591,8 +645,8 @@ __global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
     fence_regs(o);
 
     // O += P V, k-step by k-step as its P is ready, so that the tensor cores
-    // run the first k-steps while the later exps are taken.  P in two bf16
-    // pieces, hi = bf16(P) and lo = bf16(P - hi), the small piece first: k-step
+    // run the first k-steps while the later exps are taken.  P in two 16-bit
+    // pieces, hi = T(P) and lo = T(P - hi), the small piece first: k-step
     // kk (keys 16 kk ..) takes accumulator pairs 8 kk + 2 r, 8 kk + 2 r + 1 as
     // its A register r, no shuffle; V as stored, (keys, D), is the MN-major B
     uint32_t p_hi[16], p_lo[16];
@@ -609,14 +663,13 @@ __global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
         } else {
           l0 += a + b;
         }
-        p_hi[i] = pack_bf16(a, b);
-        p_lo[i] = pack_bf16(a - __uint_as_float(p_hi[i] << 16),
-                            b - __uint_as_float(p_hi[i] & 0xffff0000u));
+        p_hi[i] = E::pack(a, b);
+        p_lo[i] = E::pack(a - E::lo(p_hi[i]), b - E::hi(p_hi[i]));
         asm volatile("" : "+r"(p_hi[i]), "+r"(p_lo[i])::"memory");
       }
       wgmma_fence();
-      wgmma_rs(o, p_lo + 4 * kk, dvs + 128 * kk);  // 2048 bytes a k-step
-      wgmma_rs(o, p_hi + 4 * kk, dvs + 128 * kk);
+      wgmma_rs<E>(o, p_lo + 4 * kk, dvs + 128 * kk);  // 2048 bytes a k-step
+      wgmma_rs<E>(o, p_hi + 4 * kk, dvs + 128 * kk);
     }
     wgmma_commit();
     wgmma_wait();
@@ -630,16 +683,16 @@ __global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
-  __nv_bfloat16* ob = out + (size_t)bh * seq * D;
+  typename E::T* ob = out + (size_t)bh * seq * D;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {  // rounded to bf16 once
+  for (int i = 0; i < 8; ++i) {  // rounded to T once
     const int col = 8 * i + 2 * t;
     if (row0 < seq)
       *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * D + col) =
-          pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+          E::pack(o[4 * i] * inv0, o[4 * i + 1] * inv0);
     if (row1 < seq)
       *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * D + col) =
-          pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+          E::pack(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
   }
 }
 
@@ -663,34 +716,36 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (bh, seq, D) bf16 as a 3-D tensor map in boxes of `rows` whole rows of
-// 128 bytes, 128-byte swizzle; rows past seq read as zeros.
-bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int seq, int rows) {
+// (bh, seq, D) 16-bit values of `type` as a 3-D tensor map in boxes of
+// `rows` whole rows of 128 bytes, 128-byte swizzle; rows past seq read as zeros.
+bool tensor_map(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                int bh, int seq, int rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)seq, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)seq * D * 2};
   const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
                 elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int launch_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                          __nv_bfloat16* out, int bh, int seq, int head_dim, float scale,
-                          void* stream) {
+template <class E>
+int launch_attention16(const typename E::T* q, const typename E::T* k, const typename E::T* v,
+                       typename E::T* out, int bh, int seq, int head_dim, float scale, void* stream) {
   if (head_dim != D) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map(encode, &tm_q, q, bh, seq, kBlockRows) || !tensor_map(encode, &tm_k, k, bh, seq, 64) ||
-      !tensor_map(encode, &tm_v, v, bh, seq, 64))
+  if (!tensor_map(encode, &tm_q, E::kMapType, q, bh, seq, kBlockRows) ||
+      !tensor_map(encode, &tm_k, E::kMapType, k, bh, seq, 64) ||
+      !tensor_map(encode, &tm_v, E::kMapType, v, bh, seq, 64))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBf16);
+      flash_attention_16_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBf16);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (seq + kBlockRows - 1) / kBlockRows);
-  flash_attention_bf16_kernel<<<grid, kBf16Threads, kSmemBf16, (cudaStream_t)stream>>>(
+  flash_attention_16_kernel<E><<<grid, kBf16Threads, kSmemBf16, (cudaStream_t)stream>>>(
       tm_q, tm_k, tm_v, out, seq, scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -712,7 +767,14 @@ int flash_attention_f32(const float* q, const float* k, const float* v, float* o
 int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                          __nv_bfloat16* out, int bh, int seq, int head_dim, float scale,
                          void* stream) {
-  return launch_attention_bf16(q, k, v, out, bh, seq, head_dim, scale, stream);
+  return launch_attention16<Bf16>(q, k, v, out, bh, seq, head_dim, scale, stream);
+}
+
+// q, k, v, out: (bh, seq, head_dim) fp16, contiguous, 16-byte aligned; the
+// rest as flash_attention_f32.
+int flash_attention_f16(const __half* q, const __half* k, const __half* v, __half* out, int bh,
+                        int seq, int head_dim, float scale, void* stream) {
+  return launch_attention16<F16>(q, k, v, out, bh, seq, head_dim, scale, stream);
 }
 
 }  // extern "C"

@@ -2,20 +2,22 @@
 // and the wire scatter-accumulate kernel for the sparse uplink.
 //
 // Replaces the three TPU kernels of src/repro/kernels/sparse_agg.py:
-//   sparse_aggregate_{f32,bf16}  <- sparse_agg_pallas (_agg_kernel)
-//   scatter_wire_sums_{f32,bf16} <- scatter_wire_sums_pallas (_scatter_wire_kernel)
+//   sparse_aggregate_{f32,bf16,f16}  <- sparse_agg_pallas (_agg_kernel)
+//   scatter_wire_sums_{f32,bf16,f16} <- scatter_wire_sums_pallas (_scatter_wire_kernel)
 //   scatter_wire_sums_dequant_i8 <- scatter_wire_sums_dequant_pallas
 //                                   (_scatter_wire_dequant_kernel)
 //
-// bf16 inputs: each bf16 entry point reads bf16, upcasts every value
-// exactly, runs the fp32 arithmetic and rounds its fp32 result to bf16
-// once, as it writes (round to nearest even) -- what the reference
-// computes: the Pallas kernels upcast inside, and its wrappers cast their
-// fp32 results back to the input's dtype.  So the bf16 outputs are
-// bitwise the plain versions' fp32 results cast to bf16, and the outputs
-// move half the bytes.  The bf16 wire scatter is a kernel of its own
-// (scatter_wire_bf16_kernel, below); the bf16 aggregation runs the fp32
-// kernel's body on bf16 loads.
+// bf16 and fp16 inputs: each 16-bit entry point reads its type, upcasts
+// every value exactly, runs the fp32 arithmetic and rounds its fp32 result
+// to that type once, as it writes (round to nearest even) -- what the
+// reference computes: the Pallas kernels upcast inside, and its wrappers
+// cast their fp32 results back to the input's dtype.  So the 16-bit outputs
+// are bitwise the plain versions' fp32 results cast to their type, and the
+// outputs move half the bytes.  An fp16 sum past 65 504 rounds to inf, as
+// the cast does.  The 16-bit wire scatter is a kernel of its own
+// (scatter_wire_16_kernel<T>, below, for T = bf16 and fp16: only the
+// upcast of a value and the one rounding differ); the 16-bit aggregation
+// runs the fp32 kernel's body on 16-bit loads.
 //
 // sparse_aggregate_f32, for a dense (N, rows, V) fp32 stack of the
 // transmitters' top-k masks (zeros off each client's support):
@@ -68,9 +70,10 @@
 // draft with a four-block cluster adding through distributed shared memory
 // took 4x longer, its cluster barriers between clients dominating.)
 //
-// The bf16 wire scatter (scatter_wire_sums_bf16) bounds the same way at
-// half the bytes: 12.9 MB of bf16 sums written against 2.1 MB of wire at
-// N=4, k=1024 (~4.5 us at 3.35 TB/s).  Run through the fp32 body above,
+// The bf16 wire scatter (scatter_wire_sums_bf16; scatter_wire_sums_f16 is
+// the same kernel on fp16) bounds the same way at half the bytes: 12.9 MB
+// of 16-bit sums written against 2.1 MB of wire at N=4, k=1024 (~4.5 us at
+// 3.35 TB/s).  Run through the fp32 body above,
 // each CTA was a serial chain (zero-fill, the row's index loads, the
 // dependent value loads, four client phases, then the write, the only
 // part the bound counts); the loads took ~7 K of its ~18 K cycles
@@ -98,13 +101,13 @@
 //     them, and hands the slot back in between;
 //   * tiles cut to the card: the most tiles a row whose grid the card
 //     holds at once (cudaOccupancyMaxActiveClusters), down to tiles of
-//     kBf16TileGran granules where nothing fits one wave.  At 64 rows of
+//     k16TileGran granules where nothing fits one wave.  At 64 rows of
 //     V = 50 257 that is 2 tiles of ~201 KB of fp32 sums, one CTA an SM:
 //     smaller tiles, several an SM, took a second wave (the fp32 sums of
 //     all 64 rows are 25.7 MB, 85 % of the card's shared memory);
 //   * bitwise the plain version: fp32 sums in shared memory, clients in
 //     order, zero contributions skipped, out-of-range indices dropped, no
-//     atomics on the sums, each value rounded to bf16 once as it is written
+//     atomics on the sums, each value rounded to T once as it is written
 //     with 16-byte streaming stores (the edge granules and a den on another
 //     phase than num as in the fp32 kernel).
 // A bulk copy takes 16-byte-aligned addresses and sizes, and a chunk of k
@@ -121,6 +124,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -137,6 +141,7 @@ enum Mode { kAdaptive = 0, kZeropad = 1, kMeanNonzero = 2 };
 // Exact upcast of an input value, and the one rounding of a result.
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 template <class T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -144,6 +149,35 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// A 16-bit value's exact upcast from its raw bits, and two fp32 values
+// rounded to the type once each, packed in one word (lo in the low half).
+template <class T>
+__device__ __forceinline__ float from_bits(uint32_t bits);
+template <>
+__device__ __forceinline__ float from_bits<__nv_bfloat16>(uint32_t bits) {
+  return __uint_as_float(bits << 16);
+}
+template <>
+__device__ __forceinline__ float from_bits<__half>(uint32_t bits) {
+  return __half2float(__ushort_as_half((unsigned short)bits));
+}
+template <class T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // The float wire: entry i contributes (a[i], b[i]), upcast to fp32.
@@ -194,19 +228,15 @@ __device__ __forceinline__ void write_tile(float* dst_row, int p, const float* s
   }
 }
 
-// The same for a bf16 output row, whose 16-byte granules hold 8 values:
+// The same for a 16-bit output row, whose 16-byte granules hold 8 values:
 // element c sits in granule (c + p) / 8, and each value is rounded once.
 // Column i of the tile holds src[i] where bit i of `marks` is set, else 0.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 __device__ __forceinline__ float marked(const float* src, const uint32_t* marks, int i) {
   return (marks[i >> 5] >> (i & 31)) & 1 ? src[i] : 0.0f;
 }
 
-__device__ __forceinline__ void write_tile(__nv_bfloat16* dst_row, int p, const float* src,
+template <class T>
+__device__ __forceinline__ void write_tile(T* dst_row, int p, const float* src,
                                            const uint32_t* marks, int g0, int n_gran, int vocab, int tid,
                                            int n_threads) {
   uint4* dst4 = reinterpret_cast<uint4*>(dst_row - p);
@@ -225,11 +255,11 @@ __device__ __forceinline__ void write_tile(__nv_bfloat16* dst_row, int p, const 
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[j] = (m >> j) & 1 ? all[j] : 0.0f;
       }
-      __stcs(dst4 + gg, make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
-                                   pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7])));
+      __stcs(dst4 + gg, make_uint4(pack2<T>(v[0], v[1]), pack2<T>(v[2], v[3]),
+                                   pack2<T>(v[4], v[5]), pack2<T>(v[6], v[7])));
     } else {
       for (int j = 0; j < 8; ++j)
-        if (c + j >= 0 && c + j < vocab) dst_row[c + j] = __float2bfloat16_rn(marked(src, marks, 8 * g + j));
+        if (c + j >= 0 && c + j < vocab) dst_row[c + j] = from_f32<T>(marked(src, marks, 8 * g + j));
     }
   }
 }
@@ -354,13 +384,13 @@ int launch_scatter(const Wire& wire, const int32_t* idx, Out* num, Out* den, int
   return (int)cudaGetLastError();
 }
 
-// -- the bf16 wire scatter ----------------------------------------------------
+// -- the 16-bit wire scatter (bf16 and fp16) ------------------------------------
 
 constexpr int kChunk = 1024;                          // wire entries of one client a chunk
-constexpr int kBf16Consumers = 256;                   // threads that add and write
-constexpr int kBf16Threads = kBf16Consumers + 64;     // + the producer and the releaser warps
-constexpr int kPerThread = (kChunk + kBf16Consumers - 1) / kBf16Consumers;  // entries a chunk
-constexpr int kBf16TileGran = 800;                    // output granules (8 bf16) of the smallest tile
+constexpr int k16Consumers = 256;                     // threads that add and write
+constexpr int k16Threads = k16Consumers + 64;         // + the producer and the releaser warps
+constexpr int kPerThread = (kChunk + k16Consumers - 1) / k16Consumers;  // entries a chunk
+constexpr int k16TileGran = 800;                      // output granules (8 values) of the smallest tile
 constexpr int kMaxCluster = 8;                        // the portable cluster size
 constexpr int kRing = 3;                              // chunks in flight
 constexpr int kIdxBytes = kChunk * 4 + 16;            // a chunk's granules: its entries + one
@@ -443,8 +473,8 @@ struct Chunk {
   Span idx, a, b;
 };
 
-__device__ __forceinline__ Chunk chunk_at(int i, int r, const int32_t* idx, const __nv_bfloat16* a,
-                                          const __nv_bfloat16* b, int rows, int k, int per_client) {
+__device__ __forceinline__ Chunk chunk_at(int i, int r, const int32_t* idx, const void* a,
+                                          const void* b, int rows, int k, int per_client) {
   Chunk c;
   c.n = i / per_client;
   const int j0 = (i - c.n * per_client) * kChunk;
@@ -457,7 +487,7 @@ __device__ __forceinline__ Chunk chunk_at(int i, int r, const int32_t* idx, cons
 }
 
 __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kBf16Consumers) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(k16Consumers) : "memory");
 }
 
 
@@ -469,15 +499,16 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // One (row, tile) CTA of a cluster of `cluster` tiles of the row: threads
-// [0, kBf16Consumers) add the wire's chunks into the tile's fp32 sums as
-// they land, clients in order, and write the tile in bf16 once; one thread
-// of the cluster's first CTA feeds every CTA's ring, and one warp of each
-// CTA hands its slots back as its consumer warps finish them.
-__global__ void __launch_bounds__(kBf16Threads)
-    scatter_wire_bf16_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
-                             const int32_t* __restrict__ idx, __nv_bfloat16* __restrict__ num,
-                             __nv_bfloat16* __restrict__ den, int n_clients, int rows, int k, int vocab,
-                             int gran_per_tile) {
+// [0, k16Consumers) add the wire's chunks into the tile's fp32 sums as
+// they land, clients in order, and write the tile in T (bf16 or fp16) once;
+// one thread of the cluster's first CTA feeds every CTA's ring, and one
+// warp of each CTA hands its slots back as its consumer warps finish them.
+template <class T>
+__global__ void __launch_bounds__(k16Threads)
+    scatter_wire_16_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                           const int32_t* __restrict__ idx, T* __restrict__ num,
+                           T* __restrict__ den, int n_clients, int rows, int k, int vocab,
+                           int gran_per_tile) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // chunk landed, one a slot
   uint64_t* done = full + kRing;                       // this CTA's consumer warps are through it
@@ -497,7 +528,7 @@ __global__ void __launch_bounds__(kBf16Threads)
   if (tid == 0) {
     for (int s = 0; s < kRing; ++s) {
       mbar_init(smem_u32(&full[s]), 1);
-      mbar_init(smem_u32(&done[s]), kBf16Consumers / 32);
+      mbar_init(smem_u32(&done[s]), k16Consumers / 32);
       mbar_init(smem_u32(&empty[s]), n_ranks);
     }
     for (int i = 0; i < min(kRing, n_chunks); ++i) {
@@ -508,12 +539,12 @@ __global__ void __launch_bounds__(kBf16Threads)
   }
   __syncwarp();
   cluster_arrive_relaxed();  // this CTA's mbarriers are set (the fence above releases them)
-  if (tid < kBf16Consumers)  // no column marked yet: the sums need no zero-fill
-    for (int i = tid; i < mark_words; i += kBf16Consumers) marks[i] = 0u;
+  if (tid < k16Consumers)  // no column marked yet: the sums need no zero-fill
+    for (int i = tid; i < mark_words; i += k16Consumers) marks[i] = 0u;
   cluster_wait();  // every CTA's mbarriers are set before any chunk lands
 
-  if (tid >= kBf16Consumers + 32) {  // the releaser: a slot back to the first CTA once done
-    if (tid != kBf16Consumers + 32) return;
+  if (tid >= k16Consumers + 32) {  // the releaser: a slot back to the first CTA once done
+    if (tid != k16Consumers + 32) return;
     for (int i = 0; i < n_chunks; ++i) {
       const int s = i % kRing;
       mbar_wait(smem_u32(&done[s]), (i / kRing) & 1);
@@ -525,8 +556,8 @@ __global__ void __launch_bounds__(kBf16Threads)
     }
     return;
   }
-  if (tid >= kBf16Consumers) {  // the producer: one thread of the first CTA
-    if (rank != 0 || tid != kBf16Consumers) return;
+  if (tid >= k16Consumers) {  // the producer: one thread of the first CTA
+    if (rank != 0 || tid != k16Consumers) return;
     const uint16_t mask = (uint16_t)((1u << n_ranks) - 1);
     for (int i = 0; i < n_chunks; ++i) {
       const int s = i % kRing;
@@ -544,8 +575,8 @@ __global__ void __launch_bounds__(kBf16Threads)
     return;
   }
 
-  __nv_bfloat16* num_r = num + (size_t)r * vocab;
-  __nv_bfloat16* den_r = den + (size_t)r * vocab;
+  T* num_r = num + (size_t)r * vocab;
+  T* den_r = den + (size_t)r * vocab;
   const int p = (int)(((uintptr_t)num_r / 2) & 7);
   const int c0 = t * width - p;  // column of s_num[0]
   consumers_sync();  // no column is marked
@@ -564,12 +595,12 @@ __global__ void __launch_bounds__(kBf16Threads)
     float va[kPerThread], vb[kPerThread];
 #pragma unroll
     for (int q = 0; q < kPerThread; ++q) {
-      const int j = tid + q * kBf16Consumers;
+      const int j = tid + q * k16Consumers;
       const int col = j < c.len ? w_idx[j] : -1;
       // out-of-range entries are dropped
       off[q] = (unsigned)col < (unsigned)vocab && (unsigned)(col - c0) < (unsigned)width ? col - c0 : -1;
-      va[q] = off[q] >= 0 ? __uint_as_float((uint32_t)w_a[j] << 16) : 0.0f;
-      vb[q] = off[q] >= 0 ? __uint_as_float((uint32_t)w_b[j] << 16) : 0.0f;
+      va[q] = off[q] >= 0 ? from_bits<T>(w_a[j]) : 0.0f;
+      vb[q] = off[q] >= 0 ? from_bits<T>(w_b[j]) : 0.0f;
     }
     __syncwarp();
     if ((tid & 31) == 0) mbar_arrive(smem_u32(&done[s]));  // this warp is through the slot
@@ -591,14 +622,14 @@ __global__ void __launch_bounds__(kBf16Threads)
     if ((i + 1) % per_client == 0) consumers_sync();  // client n lands before client n+1 adds
   }
 
-  write_tile(num_r, p, s_num, marks, t * gran_per_tile, gran_per_tile, vocab, tid, kBf16Consumers);
+  write_tile(num_r, p, s_num, marks, t * gran_per_tile, gran_per_tile, vocab, tid, k16Consumers);
   const int pd = (int)(((uintptr_t)den_r / 2) & 7);
   if (pd == p) {
-    write_tile(den_r, p, s_den, marks, t * gran_per_tile, gran_per_tile, vocab, tid, kBf16Consumers);
+    write_tile(den_r, p, s_den, marks, t * gran_per_tile, gran_per_tile, vocab, tid, k16Consumers);
   } else {  // den on another 16-byte phase than num: element by element
-    for (int i = tid; i < width; i += kBf16Consumers) {
+    for (int i = tid; i < width; i += k16Consumers) {
       const int col = c0 + i;
-      if (col >= 0 && col < vocab) den_r[col] = __float2bfloat16_rn(marked(s_den, marks, i));
+      if (col >= 0 && col < vocab) den_r[col] = from_f32<T>(marked(s_den, marks, i));
     }
   }
 }
@@ -622,7 +653,7 @@ cudaLaunchConfig_t scatter_config(const Tiling& t, int rows, cudaStream_t stream
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)t.tiles, (unsigned)rows);
-  cfg.blockDim = dim3(kBf16Threads);
+  cfg.blockDim = dim3(k16Threads);
   cfg.dynamicSmemBytes = (size_t)t.bytes;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -634,13 +665,14 @@ cudaLaunchConfig_t scatter_config(const Tiling& t, int rows, cudaStream_t stream
   return cfg;
 }
 
-// The cut of a row: the most tiles (down to kBf16TileGran granules each)
+// The cut of a row: the most tiles (down to k16TileGran granules each)
 // whose grid the card holds at once -- as many CTAs an SM as their shared
 // memory allows, clusters placed within a GPC (cudaOccupancyMaxActiveClusters)
 // -- so that more, smaller tiles never cost a second wave; where none does
-// (many rows), tiles of kBf16TileGran granules.  Looked up once per device
-// and shape.
-cudaError_t bf16_tiling(int rows, int vocab, Tiling* out) {
+// (many rows), tiles of k16TileGran granules.  Looked up once per device,
+// shape and element type.
+template <class T>
+cudaError_t tiling16(int rows, int vocab, Tiling* out) {
   static int optin[64] = {};
   static int last_rows[64] = {}, last_vocab[64] = {};
   static Tiling last[64];
@@ -656,13 +688,13 @@ cudaError_t bf16_tiling(int rows, int vocab, Tiling* out) {
     int bytes = 0;
     err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(scatter_wire_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      err = cudaFuncSetAttribute(scatter_wire_16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  bytes);
     if (err != cudaSuccess) return err;
     optin[dev] = bytes;
   }
   const int gran = (vocab + 14) / 8;  // granules of a row at its worst phase
-  const int most = (gran + kBf16TileGran - 1) / kBf16TileGran;
+  const int most = (gran + k16TileGran - 1) / k16TileGran;
   Tiling best = cut_row(gran, most);
   for (int want = 1; want < most; ++want) {
     const Tiling t = cut_row(gran, want);
@@ -670,7 +702,7 @@ cudaError_t bf16_tiling(int rows, int vocab, Tiling* out) {
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = scatter_config(t, rows, 0, &attr);
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, scatter_wire_bf16_kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, scatter_wire_16_kernel<T>, &cfg);
     if (err != cudaSuccess) return err;
     if ((long long)rows * (t.tiles / t.cluster) <= clusters) best = t;
   }
@@ -680,16 +712,16 @@ cudaError_t bf16_tiling(int rows, int vocab, Tiling* out) {
   return cudaSuccess;
 }
 
-int launch_scatter_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b, const int32_t* idx,
-                        __nv_bfloat16* num, __nv_bfloat16* den, int n_clients, int rows, int k,
-                        int vocab, cudaStream_t stream) {
+template <class T>
+int launch_scatter16(const T* a, const T* b, const int32_t* idx, T* num, T* den, int n_clients,
+                     int rows, int k, int vocab, cudaStream_t stream) {
   if (rows <= 0 || vocab <= 0) return (int)cudaSuccess;
   Tiling t;
-  cudaError_t err = bf16_tiling(rows, vocab, &t);
+  cudaError_t err = tiling16<T>(rows, vocab, &t);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = scatter_config(t, rows, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, scatter_wire_bf16_kernel, a, b, idx, num, den, n_clients, rows, k,
+  err = cudaLaunchKernelEx(&cfg, scatter_wire_16_kernel<T>, a, b, idx, num, den, n_clients, rows, k,
                            vocab, t.per_tile);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -736,6 +768,12 @@ int sparse_aggregate_bf16(const __nv_bfloat16* x, __nv_bfloat16* out, int n_clie
   return launch_aggregate(x, out, n_clients, rows, vocab, stream);
 }
 
+// x: (n_clients, rows, vocab) fp16; out: (rows, vocab) fp16, the fp32 result rounded.
+int sparse_aggregate_f16(const __half* x, __half* out, int n_clients, int rows, int vocab,
+                         void* stream) {
+  return launch_aggregate(x, out, n_clients, rows, vocab, stream);
+}
+
 int scatter_wire_sums_f32(const float* a, const float* b, const int32_t* idx,
                           float* num, float* den, int n_clients, int rows,
                           int k, int vocab, void* stream) {
@@ -747,7 +785,13 @@ int scatter_wire_sums_f32(const float* a, const float* b, const int32_t* idx,
 int scatter_wire_sums_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b, const int32_t* idx,
                            __nv_bfloat16* num, __nv_bfloat16* den, int n_clients, int rows,
                            int k, int vocab, void* stream) {
-  return launch_scatter_bf16(a, b, idx, num, den, n_clients, rows, k, vocab, (cudaStream_t)stream);
+  return launch_scatter16(a, b, idx, num, den, n_clients, rows, k, vocab, (cudaStream_t)stream);
+}
+
+// a, b: (n_clients, rows, k) fp16; num, den: (rows, vocab) fp16, the fp32 sums rounded.
+int scatter_wire_sums_f16(const __half* a, const __half* b, const int32_t* idx, __half* num,
+                          __half* den, int n_clients, int rows, int k, int vocab, void* stream) {
+  return launch_scatter16(a, b, idx, num, den, n_clients, rows, k, vocab, (cudaStream_t)stream);
 }
 
 int scatter_wire_sums_dequant_i8(const int8_t* q, const float* scale,

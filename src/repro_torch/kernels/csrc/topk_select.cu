@@ -1,8 +1,8 @@
 // Dense top-k mask by fp32 threshold bisection (paper eqs. 3-4).
 //
 // Replaces the two TPU kernels of src/repro/kernels/topk_select.py:
-//   topk_mask_{f32,bf16} (dynamic = 1) <- topk_mask_dynamic_pallas (_topk_dynamic_kernel)
-//   topk_mask_{f32,bf16} (dynamic = 0) <- topk_mask_pallas (_topk_kernel)
+//   topk_mask_{f32,bf16,f16} (dynamic = 1) <- topk_mask_dynamic_pallas (_topk_dynamic_kernel)
+//   topk_mask_{f32,bf16,f16} (dynamic = 0) <- topk_mask_pallas (_topk_kernel)
 //
 // What they compute, per row r of x (rows, V) fp32 with budget k[r]:
 //   lo = min(x[r]), hi = max(x[r]) + 1
@@ -126,15 +126,28 @@
 //   * Rows too wide for shared memory (V 152 064: 304 KB in bf16) run the
 //     same passes on the row in device memory.  Correct, not tuned.
 //
+// fp16 rows (topk_mask_f16) run the same kernel, topk_radix_16_kernel<T>,
+// on fp16's 16-bit key: the same map (every bit of a negative value
+// flipped, the top bit of a positive one set) orders fp16 values too, its
+// high digit now sign, 5 exponent bits and 5 mantissa bits.  What differs is
+// per type: the exact upcast of a key's value, min and max on fp16 pairs
+// (min.NaN.f16x2 / max.NaN.f16x2), and lo rounded up to fp16 for the keep
+// test.  Every fp16 value, subnormals included, is exact in fp32, and so is
+// hi = max + 1 up to 65 504; where lo lies above 65 504, rounding it up
+// gives +inf, so only +inf values are kept, as in the plain version.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC   (no fast math: the value math must be IEEE).
 // Plain C interface, loaded through ctypes; the entry point launches on the
 // given stream and returns a cudaError_t.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -741,53 +754,92 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 
-// -- bf16 rows: an exact radix select of X_k, then the bisection replayed ----
+// -- 16-bit rows: an exact radix select of X_k, then the bisection replayed --
 
 constexpr int kLowBits = 5;                    // the key's low digit: 5 bits
 constexpr int kHighBins = 1 << (16 - kLowBits);  // its high digit: 11 bits, 2048 bins
 constexpr int kLowBins = 1 << kLowBits;
 
-// Two bf16 values (a 32-bit word) to their 16-bit keys in value order: a
-// negative value's bits all flipped, a positive value's top bit set.
+// Two bf16 or fp16 values (a 32-bit word) to their 16-bit keys in value
+// order: a negative value's bits all flipped, a positive value's top bit set.
 __device__ __forceinline__ uint32_t keys2(uint32_t w) {
   uint32_t neg;  // 0xffff in each half that holds a negative value (prmt's sign replication)
   asm("prmt.b32 %0, %1, %2, 0xbb99;" : "=r"(neg) : "r"(w), "r"(0u));
   return w ^ (neg | 0x80008000u);
 }
 
+// What the 16-bit kernel needs of its element type: the exact fp32 value
+// of raw bits; min and max of two packed pairs, NaN when either is NaN
+// (torch.amin's rule); +inf and -inf in both halves; a value rounded up to
+// the type in both halves; and the shift that takes 1.0's bits (the packed
+// compare's true) to bit 0.
+template <class T>
+struct Half16;
+
+template <>
+struct Half16<__nv_bfloat16> {
+  using T2 = __nv_bfloat162;
+  static constexpr uint32_t kInf2 = 0x7f807f80u, kNegInf2 = 0xff80ff80u;
+  static constexpr int kOneShift = 7;  // 1.0 is 0x3f80
+  static __device__ __forceinline__ float value(uint32_t bits) { return __uint_as_float(bits << 16); }
+  static __device__ __forceinline__ uint32_t min2_nan(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("min.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ uint32_t max2_nan(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ T2 up2(float x) { return __bfloat162bfloat162(__float2bfloat16_ru(x)); }
+};
+
+template <>
+struct Half16<__half> {
+  using T2 = __half2;
+  static constexpr uint32_t kInf2 = 0x7c007c00u, kNegInf2 = 0xfc00fc00u;
+  static constexpr int kOneShift = 10;  // 1.0 is 0x3c00
+  static __device__ __forceinline__ float value(uint32_t bits) {
+    return __half2float(__ushort_as_half((unsigned short)bits));
+  }
+  static __device__ __forceinline__ uint32_t min2_nan(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("min.NaN.f16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ uint32_t max2_nan(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("max.NaN.f16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ T2 up2(float x) { return __half2half2(__float2half_ru(x)); }
+};
+
 // The value of a 16-bit key, exact in fp32.
+template <class T>
 __device__ __forceinline__ float key_value(uint32_t key) {
-  return __uint_as_float((key ^ ((key & 0x8000u) ? 0x8000u : 0xffffu)) << 16);
+  return Half16<T>::value(key ^ ((key & 0x8000u) ? 0x8000u : 0xffffu));
 }
 
-// min and max of two bf16 pairs, NaN when either is NaN (torch.amin's rule)
-__device__ __forceinline__ uint32_t min2_nan(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("min.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ uint32_t max2_nan(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-// Both bf16 values of a word kept where x >= lo, with their own bits, else
-// +0; lo2 holds lo rounded up to bf16 in both halves: for a bf16 x, x >= lo
-// iff x >= lo rounded toward +inf (a NaN lo compares false, as in fp32).
-// One packed compare a word.
-__device__ __forceinline__ uint32_t keep2(uint32_t w, __nv_bfloat162 lo2) {
-  const __nv_bfloat162 ge = __hge2(*reinterpret_cast<const __nv_bfloat162*>(&w), lo2);
-  const uint32_t one = *reinterpret_cast<const uint32_t*>(&ge);  // 1.0 (0x3f80) or 0 a half
-  return w & (((one >> 7) & 0x00010001u) * 0xffffu);
+// Both values of a word kept where x >= lo, with their own bits, else +0;
+// lo2 holds lo rounded up to T in both halves: for a T x, x >= lo iff x >=
+// lo rounded toward +inf (a NaN lo compares false, as in fp32).  One
+// packed compare a word.
+template <class T>
+__device__ __forceinline__ uint32_t keep2(uint32_t w, typename Half16<T>::T2 lo2) {
+  using T2 = typename Half16<T>::T2;
+  const T2 ge = __hge2(*reinterpret_cast<const T2*>(&w), lo2);
+  const uint32_t one = *reinterpret_cast<const uint32_t*>(&ge);  // 1.0 or 0 a half
+  return w & (((one >> Half16<T>::kOneShift) & 0x00010001u) * 0xffffu);
 }
 
 template <bool kSmem>
-__device__ __forceinline__ uint4 granule_bf16(const uint4* row, int g) {
+__device__ __forceinline__ uint4 granule16(const uint4* row, int g) {
   return kSmem ? row[g] : __ldg(row + g);
 }
 
-// Value j (0..7) of a granule's four words: its raw bf16 bits.
+// Value j (0..7) of a granule's four words: its raw 16 bits.
 __device__ __forceinline__ uint32_t bits_at(const uint4& v, int j) {
   const uint32_t w = j < 2 ? v.x : j < 4 ? v.y : j < 6 ? v.z : v.w;
   return (w >> ((j & 1) << 4)) & 0xffffu;
@@ -835,14 +887,16 @@ __device__ void select_bin(const uint32_t* hist, int kk, int* warp_tot, int* sel
   __syncthreads();
 }
 
-// One block a bf16 row: the row in shared memory (kSmem) or read from
-// device memory on each pass.  Same contract as topk_mask_kernel.  The
-// granules 0 and G - 1, which hold values of the neighbouring rows, are
-// taken value by value by threads 0 and 32, outside the passes' loops.
-template <bool kSmem>
+// One block a 16-bit row (T: bf16 or fp16): the row in shared memory
+// (kSmem) or read from device memory on each pass.  Same contract as
+// topk_mask_kernel.  The granules 0 and G - 1, which hold values of the
+// neighbouring rows, are taken value by value by threads 0 and 32, outside
+// the passes' loops.
+template <class T, bool kSmem>
 __global__ void __launch_bounds__(kThreads, 2)
-    topk_radix_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ ks,
-                           __nv_bfloat16* __restrict__ out, int vocab, int k_static, int dynamic) {
+    topk_radix_16_kernel(const T* __restrict__ x, const int32_t* __restrict__ ks,
+                         T* __restrict__ out, int vocab, int k_static, int dynamic) {
+  using H = Half16<T>;
   extern __shared__ __align__(16) uint4 row_s[];
   __shared__ __align__(8) unsigned long long s_bar[kChunks];
   __shared__ uint32_t s_hist[kHighBins];
@@ -852,8 +906,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   __shared__ float s_lo;
 
   const int tid = threadIdx.x;
-  const __nv_bfloat16* xr = x + (size_t)blockIdx.x * vocab;
-  __nv_bfloat16* outr = out + (size_t)blockIdx.x * vocab;
+  const T* xr = x + (size_t)blockIdx.x * vocab;
+  T* outr = out + (size_t)blockIdx.x * vocab;
   uint16_t* o16 = reinterpret_cast<uint16_t*>(outr);
   const int p = (int)(((uintptr_t)xr >> 1) & 7);  // the row's phase in its 16-byte granule
   const int q = (int)(((uintptr_t)outr >> 1) & 7);
@@ -901,19 +955,19 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
   const uint4* row = kSmem ? row_s : src;
-  uint32_t vmin = 0x7f807f80u, vmax = 0xff80ff80u;  // two bf16 a word: +inf, -inf
+  uint32_t vmin = H::kInf2, vmax = H::kNegInf2;  // two values a word: +inf, -inf
   for (int c = 0; c < (kSmem ? kChunks : 1); ++c) {
     const int g0 = kSmem ? c * per_chunk : 0, g1 = kSmem ? min(G, g0 + per_chunk) : G;
     if (g1 <= g0) break;
     if (kSmem) mbar_wait(smem_u32(&s_bar[c]), 0);
     for (int g = g0 + tid; g < g1; g += kThreads) {
       if (g == 0 || g == G - 1) continue;  // the edge granules: below
-      const uint4 v = granule_bf16<kSmem>(row, g);
+      const uint4 v = granule16<kSmem>(row, g);
       const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        vmin = min2_nan(vmin, w[j]);
-        vmax = max2_nan(vmax, w[j]);
+        vmin = H::min2_nan(vmin, w[j]);
+        vmax = H::max2_nan(vmax, w[j]);
         const uint32_t kw = keys2(w[j]);
         atomicAdd(&s_hist[(kw & 0xffffu) >> kLowBits], 1u);
         atomicAdd(&s_hist[kw >> (16 + kLowBits)], 1u);
@@ -921,19 +975,19 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
   if (edge >= 0) {  // the edge granules, value by value
-    const uint4 v = granule_bf16<kSmem>(row, edge);
+    const uint4 v = granule16<kSmem>(row, edge);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = 8 * edge + j - p;
       if (col < 0 || col >= vocab) continue;
       const uint32_t b = bits_at(v, j);
-      vmin = min2_nan(vmin, b * 0x10001u);
-      vmax = max2_nan(vmax, b * 0x10001u);
+      vmin = H::min2_nan(vmin, b * 0x10001u);
+      vmax = H::max2_nan(vmax, b * 0x10001u);
       atomicAdd(&s_hist[(keys2(b) & 0xffffu) >> kLowBits], 1u);
     }
   }
-  float mn = min_nan(__uint_as_float(vmin << 16), __uint_as_float(vmin & 0xffff0000u));
-  float mx = max_nan(__uint_as_float(vmax << 16), __uint_as_float(vmax & 0xffff0000u));
+  float mn = min_nan(H::value(vmin & 0xffffu), H::value(vmin >> 16));
+  float mx = max_nan(H::value(vmax & 0xffffu), H::value(vmax >> 16));
   block_minmax(mn, mx, s_min, s_max);  // its barriers also close the histogram
   const bool any_nan = mn != mn;
 
@@ -952,7 +1006,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const uint32_t raw_high = high ^ (pos ? (uint32_t)kHighBins / 2 : (uint32_t)kHighBins - 1);
     const uint32_t m = ((raw_high << kLowBits) | (pos ? 0u : kLowBins - 1u)) * 0x00010001u;
     for (int g = 1 + tid; g < G - 1; g += kThreads) {
-      const uint4 v = granule_bf16<kSmem>(row, g);
+      const uint4 v = granule16<kSmem>(row, g);
       const uint32_t w[4] = {v.x ^ m, v.y ^ m, v.z ^ m, v.w ^ m};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -965,7 +1019,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     if (edge >= 0) {
-      const uint4 v = granule_bf16<kSmem>(row, edge);
+      const uint4 v = granule16<kSmem>(row, edge);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = 8 * edge + j - p;
@@ -975,7 +1029,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     __syncthreads();
     select_bin<kLowBins>(s_hist, k - above, s_warp, s_sel);
-    xk = key_value((high << kLowBits) | (uint32_t)s_sel[0]);
+    xk = key_value<T>((high << kLowBits) | (uint32_t)s_sel[0]);
   }
 
   // -- the 30 steps, replayed: count(x >= mid) >= k iff mid <= X_k -----------
@@ -994,60 +1048,65 @@ __global__ void __launch_bounds__(kThreads, 2)
     s_lo = lo;
   }
   __syncthreads();
-  // lo rounded up to bf16, in both halves; NaN keeps nothing
-  const __nv_bfloat162 lo2 = __bfloat162bfloat162(__float2bfloat16_ru(s_lo));
+  // lo rounded up to T, in both halves; NaN keeps nothing
+  const typename H::T2 lo2 = H::up2(s_lo);
 
-  // -- the kept values, written back in bf16 -------------------------------------
+  // -- the kept values, written back in T ----------------------------------------
   if (q == p) {
     for (int g = 1 + tid; g < G - 1; g += kThreads) {
-      const uint4 v = granule_bf16<kSmem>(row, g);
+      const uint4 v = granule16<kSmem>(row, g);
       // streaming stores: the masked row leaves the L2 for device memory now, not
       // during the next launch's loads
       __stcs(reinterpret_cast<uint4*>(outr - q) + g,
-             make_uint4(keep2(v.x, lo2), keep2(v.y, lo2), keep2(v.z, lo2),
-                        keep2(v.w, lo2)));
+             make_uint4(keep2<T>(v.x, lo2), keep2<T>(v.y, lo2), keep2<T>(v.z, lo2),
+                        keep2<T>(v.w, lo2)));
     }
     if (edge >= 0) {
-      const uint4 v = granule_bf16<kSmem>(row, edge);
+      const uint4 v = granule16<kSmem>(row, edge);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = 8 * edge + j - p;
-        if (col >= 0 && col < vocab) o16[col] = (uint16_t)keep2(bits_at(v, j), lo2);
+        if (col >= 0 && col < vocab) o16[col] = (uint16_t)keep2<T>(bits_at(v, j), lo2);
       }
     }
   } else {  // out on another phase than x: value by value
     const uint16_t* x16 = kSmem ? reinterpret_cast<const uint16_t*>(row_s) + p
                                 : reinterpret_cast<const uint16_t*>(xr);
-    for (int c = tid; c < vocab; c += kThreads) o16[c] = (uint16_t)keep2(x16[c], lo2);
+    for (int c = tid; c < vocab; c += kThreads) o16[c] = (uint16_t)keep2<T>(x16[c], lo2);
   }
 }
 
+// The row dtypes' codes: the kernel a code launches.
+enum Dtype { kF32 = 0, kBf16 = 1, kF16 = 2 };
+
 // The shared-memory paths' static shared memory and what a block may opt
-// into, per kernel (0: fp32, 1: bf16) and device, looked up once (the
-// queries cost host time per launch).
+// into, per kernel (a Dtype) and device, looked up once (the queries cost
+// host time per launch).
 struct SmemLimits {
   int stat, optin, granted;
 };
 
-int smem_limits(int bf16, SmemLimits*& out) {
-  static SmemLimits lim[2][64];
-  static bool known[2][64] = {};
+int smem_limits(int dtype, SmemLimits*& out) {
+  static SmemLimits lim[3][64];
+  static bool known[3][64] = {};
+  if (dtype < kF32 || dtype > kF16) return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!known[bf16][dev]) {
+  if (!known[dtype][dev]) {
     cudaFuncAttributes attr;
-    err = bf16 ? cudaFuncGetAttributes(&attr, topk_radix_bf16_kernel<true>)
-               : cudaFuncGetAttributes(&attr, topk_mask_kernel<true>);
+    err = dtype == kBf16  ? cudaFuncGetAttributes(&attr, topk_radix_16_kernel<__nv_bfloat16, true>)
+          : dtype == kF16 ? cudaFuncGetAttributes(&attr, topk_radix_16_kernel<__half, true>)
+                          : cudaFuncGetAttributes(&attr, topk_mask_kernel<true>);
     if (err != cudaSuccess) return (int)err;
     int optin = 0;
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return (int)err;
-    lim[bf16][dev] = SmemLimits{(int)attr.sharedSizeBytes, optin, 0};
-    known[bf16][dev] = true;
+    lim[dtype][dev] = SmemLimits{(int)attr.sharedSizeBytes, optin, 0};
+    known[dtype][dev] = true;
   }
-  out = &lim[bf16][dev];
+  out = &lim[dtype][dev];
   return (int)cudaSuccess;
 }
 
@@ -1057,7 +1116,7 @@ int launch_topk(const float* x, const int32_t* ks, float* out, int rows, int voc
   cudaStream_t s = (cudaStream_t)stream;
   if (use_smem) {
     SmemLimits* lim = nullptr;
-    const int lerr = smem_limits(0, lim);
+    const int lerr = smem_limits(kF32, lim);
     if (lerr != (int)cudaSuccess) return lerr;
     const int row_bytes = 16 * ((vocab + 6) >> 2);
     int cap = (lim->optin - lim->stat - row_bytes) / (int)sizeof(float);
@@ -1080,29 +1139,30 @@ int launch_topk(const float* x, const int32_t* ks, float* out, int rows, int voc
   return (int)cudaGetLastError();
 }
 
-int launch_topk_bf16(const __nv_bfloat16* x, const int32_t* ks, __nv_bfloat16* out, int rows,
-                     int vocab, int k_static, int dynamic, int use_smem, void* stream) {
+template <class T>
+int launch_topk16(const T* x, const int32_t* ks, T* out, int rows, int vocab, int k_static,
+                  int dynamic, int use_smem, void* stream) {
   if (rows <= 0 || vocab <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (use_smem) {
     SmemLimits* lim = nullptr;
-    const int lerr = smem_limits(1, lim);
+    const int lerr = smem_limits(std::is_same<T, __half>::value ? kF16 : kBf16, lim);
     if (lerr != (int)cudaSuccess) return lerr;
     const int bytes = 16 * ((vocab + 14) >> 3);  // the row's granules at its worst phase
     if (bytes > lim->optin - lim->stat) return (int)cudaErrorInvalidValue;
     if (lim->granted < bytes) {
-      cudaError_t err = cudaFuncSetAttribute(topk_radix_bf16_kernel<true>,
+      cudaError_t err = cudaFuncSetAttribute(topk_radix_16_kernel<T, true>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
       if (err == cudaSuccess)  // all of the SM's shared memory, for two blocks an SM
-        err = cudaFuncSetAttribute(topk_radix_bf16_kernel<true>,
+        err = cudaFuncSetAttribute(topk_radix_16_kernel<T, true>,
                                    cudaFuncAttributePreferredSharedMemoryCarveout, 100);
       if (err != cudaSuccess) return (int)err;
       lim->granted = bytes;
     }
-    topk_radix_bf16_kernel<true><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static,
-                                                                dynamic);
+    topk_radix_16_kernel<T, true><<<rows, kThreads, bytes, s>>>(x, ks, out, vocab, k_static,
+                                                                 dynamic);
   } else {
-    topk_radix_bf16_kernel<false><<<rows, kThreads, 0, s>>>(x, ks, out, vocab, k_static, dynamic);
+    topk_radix_16_kernel<T, false><<<rows, kThreads, 0, s>>>(x, ks, out, vocab, k_static, dynamic);
   }
   return (int)cudaGetLastError();
 }
@@ -1111,16 +1171,16 @@ int launch_topk_bf16(const __nv_bfloat16* x, const int32_t* ks, __nv_bfloat16* o
 
 extern "C" {
 
-// Largest V the shared-memory path takes, per row dtype (bf16 != 0: the
-// bf16 kernel).  fp32: the row (at its worst 16-byte phase) and a candidate
-// buffer of at least kMinCap values; bf16: the row alone (at its worst
-// phase); each beside its kernel's static shared memory, within what a
-// block may opt into.
-int topk_mask_smem_max_vocab(int bf16) {
+// Largest V the shared-memory path takes, per row dtype (0: fp32, 1: bf16,
+// 2: fp16).  fp32: the row (at its worst 16-byte phase) and a candidate
+// buffer of at least kMinCap values; bf16 and fp16: the row alone (at its
+// worst phase); each beside its kernel's static shared memory, within what
+// a block may opt into.
+int topk_mask_smem_max_vocab(int dtype) {
   SmemLimits* lim = nullptr;
-  const int err = smem_limits(bf16 ? 1 : 0, lim);
+  const int err = smem_limits(dtype, lim);
   if (err != (int)cudaSuccess) return -err;
-  if (bf16) return 8 * ((lim->optin - lim->stat) / 16) - 14;
+  if (dtype != kF32) return 8 * ((lim->optin - lim->stat) / 16) - 14;
   const int floats = (lim->optin - lim->stat) / (int)sizeof(float) - kMinCap;
   return (floats / 4) * 4 - 6;
 }
@@ -1136,7 +1196,13 @@ int topk_mask_f32(const float* x, const int32_t* ks, float* out, int rows,
 // x, out: (rows, vocab) bf16; the rest as topk_mask_f32.
 int topk_mask_bf16(const __nv_bfloat16* x, const int32_t* ks, __nv_bfloat16* out, int rows,
                    int vocab, int k_static, int dynamic, int use_smem, void* stream) {
-  return launch_topk_bf16(x, ks, out, rows, vocab, k_static, dynamic, use_smem, stream);
+  return launch_topk16(x, ks, out, rows, vocab, k_static, dynamic, use_smem, stream);
+}
+
+// x, out: (rows, vocab) fp16; the rest as topk_mask_f32.
+int topk_mask_f16(const __half* x, const int32_t* ks, __half* out, int rows, int vocab,
+                  int k_static, int dynamic, int use_smem, void* stream) {
+  return launch_topk16(x, ks, out, rows, vocab, k_static, dynamic, use_smem, stream);
 }
 
 }  // extern "C"

@@ -4,13 +4,13 @@ Each wrapper folds the batch dims as ``repro/kernels/ops.py`` does, checks
 its inputs, and then looks at the device the tensors lie on: a CPU tensor
 goes to the plain version in :mod:`repro_torch.kernels.ref`, a CUDA tensor
 to the hand-written kernel (built from ``csrc/`` at first use) — or an
-exception, never a fallback.  Float inputs are fp32 or bf16: each kernel
-has an entry point for each (``*_f32``, ``*_bf16``), the bf16 one reads
-bf16, computes in fp32 and writes the reference wrapper's output dtype; a
-bf16 tensor is never upcast here to reach the fp32 kernel.  ``LAUNCHES``
-counts kernel launches per wrapper and input dtype (``name`` for fp32,
-``name.bf16`` for bf16), so a run can show that its path went through the
-kernels.
+exception, never a fallback.  Float inputs are fp32, bf16 or fp16: each
+kernel has an entry point for each (``*_f32``, ``*_bf16``, ``*_f16``); the
+16-bit ones read their type, compute in fp32 and write the reference
+wrapper's output dtype, and a 16-bit tensor is never upcast here to reach
+the fp32 kernel.  ``LAUNCHES`` counts kernel launches per wrapper and input
+dtype (``name`` for fp32, ``name.bf16`` for bf16, ``name.f16`` for fp16),
+so a run can show that its path went through the kernels.
 
 The KL and attention kernels are forward only, as in the reference: their
 wrappers raise on an input that requires a gradient (with autograd on)
@@ -47,20 +47,23 @@ __all__ = [
     "flash_attention",
 ]
 
-# the wrappers with a bf16 kernel beside the fp32 one (the int8 wire's
-# scatter reads int8 values and an fp32 scale whatever the round's dtype)
+# the wrappers with bf16 and fp16 kernels beside the fp32 one (the int8
+# wire's scatter reads int8 values and an fp32 scale whatever the round's dtype)
 BF16_KERNELS = ("topk_mask_dynamic", "topk_mask", "sparse_aggregate", "scatter_wire_sums",
                 "distill_kl", "flash_attention")
 LAUNCHES: dict[str, int] = {
     **dict.fromkeys(("topk_mask_dynamic", "topk_mask", "sparse_aggregate", "scatter_wire_sums",
                      "scatter_wire_sums_dequant", "distill_kl", "flash_attention"), 0),
-    **{f"{name}.bf16": 0 for name in BF16_KERNELS},
+    **{f"{name}{tag}": 0 for name in BF16_KERNELS for tag in (".bf16", ".f16")},
 }
 
 _MODES = {"adaptive": 0, "zeropad": 1, "mean_nonzero": 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FLOAT = (torch.float32, torch.bfloat16)
-_SUFFIX = {torch.float32: ("", "_f32"), torch.bfloat16: (".bf16", "_bf16")}
+_FLOAT = (torch.float32, torch.bfloat16, torch.float16)
+_SUFFIX = {torch.float32: ("", "_f32"), torch.bfloat16: (".bf16", "_bf16"),
+           torch.float16: (".f16", "_f16")}
+# the top-k library's code for a row dtype (topk_mask_smem_max_vocab)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def reset_launches() -> None:
@@ -73,11 +76,6 @@ def _check(name: str, tensors: dict, dtypes: dict, shapes: dict) -> None:
     one call share their dtype."""
     dev, floats = None, set()
     for key, t in tensors.items():
-        if t.dtype == torch.float16 and torch.float32 in dtypes[key]:
-            raise NotImplementedError(
-                f"{name}: {key} is {t.dtype}; the kernels take float32 and bfloat16 "
-                "(ROADMAP.md port queue: fp16)"
-            )
         if t.dtype not in dtypes[key]:
             raise TypeError(f"{name}: {key} has dtype {t.dtype}, expected one of {dtypes[key]}")
         if dtypes[key] == _FLOAT:
@@ -124,12 +122,12 @@ def _fn(lib: str, symbol: str, nargs_ptr: int, nargs_int: int, nargs_float: int 
 @functools.cache
 def smem_max_vocab(device_index: int, dtype: torch.dtype = torch.float32) -> int:
     """Widest row the top-k kernel for ``dtype`` rows keeps in shared memory
-    on this card (the fp32 kernel beside a candidate buffer, the bf16 one a
-    bf16 row alone); wider rows take its global-memory path."""
+    on this card (the fp32 kernel beside a candidate buffer, the 16-bit
+    ones a row alone); wider rows take its global-memory path."""
     fn = build.load("topk_select").topk_mask_smem_max_vocab
     fn.argtypes, fn.restype = [_I], _I
     with torch.cuda.device(device_index):
-        out = fn(int(dtype == torch.bfloat16))
+        out = fn(_DTYPE_CODE[dtype])
     if out < 0:
         raise RuntimeError(f"topk_mask_smem_max_vocab: CUDA error {-out}")
     return out
@@ -138,8 +136,8 @@ def smem_max_vocab(device_index: int, dtype: torch.dtype = torch.float32) -> int
 def _launch(name: str, lib: str, symbol: str, ptrs, ints, device, floats=(),
             dtype: torch.dtype | None = None) -> None:
     """Launch ``symbol`` (+ the entry point's suffix for the float inputs'
-    ``dtype``: ``_f32``, ``_bf16``) and count it under ``name`` (+
-    ``.bf16``)."""
+    ``dtype``: ``_f32``, ``_bf16``, ``_f16``) and count it under ``name``
+    (+ ``.bf16``, ``.f16``)."""
     tag, suffix = ("", "") if dtype is None else _SUFFIX[dtype]
     fn = _fn(lib, symbol + suffix, len(ptrs), len(ints), len(floats))
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -174,24 +172,24 @@ def _topk(name: str, logits: torch.Tensor, ks: torch.Tensor | None, k_static: in
 
 
 def topk_mask_dynamic(logits: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
-    """Per-row-budget dense top-k mask of ``logits (..., V)`` fp32 or bf16
-    (out: the same dtype) with int32 budgets ``ks`` of the leading shape,
-    clamped to ``[0, V]``, by the fp32 bisection on the values (the bf16
-    kernel finds the k-th value exactly and replays the bisection's steps):
+    """Per-row-budget dense top-k mask of ``logits (..., V)`` fp32, bf16 or
+    fp16 (out: the same dtype) with int32 budgets ``ks`` of the leading
+    shape, clamped to ``[0, V]``, by the fp32 bisection on the values (the
+    16-bit kernels find the k-th value exactly and replay the bisection's steps):
     threshold semantics (ties at the k-th value kept), ``k = 0`` zeroes the
     row — the ``fused`` engine's uplink sparsifier."""
     return _topk("topk_mask_dynamic", logits, ks, 0)
 
 
 def topk_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """Dense top-k mask of ``logits (..., V)`` fp32 or bf16 with one static
+    """Dense top-k mask of ``logits (..., V)`` fp32, bf16 or fp16 with one static
     ``min(k, V)`` for every row and no ``k > 0`` guard (paper eq. 4)."""
     return _topk("topk_mask", logits, None, int(min(int(k), logits.shape[-1])))
 
 
 def sparse_aggregate(stack: torch.Tensor) -> torch.Tensor:
-    """Dense adaptive aggregation (eqs. 6-7) of ``stack (N, ..., V)`` fp32 or
-    bf16: ``Σₙ|x|x / (Σₙ|x| + 1e-12)`` in fp32 -> ``(..., V)`` in the
+    """Dense adaptive aggregation (eqs. 6-7) of ``stack (N, ..., V)`` fp32,
+    bf16 or fp16: ``Σₙ|x|x / (Σₙ|x| + 1e-12)`` in fp32 -> ``(..., V)`` in the
     stack's dtype (the reference wrapper's cast)."""
     _check("sparse_aggregate", {"stack": stack}, {"stack": _FLOAT}, {})
     n, vocab = stack.shape[0], stack.shape[-1]
@@ -211,8 +209,9 @@ def scatter_wire_sums(
     """Two-channel scatter-accumulate from the sparse uplink wire:
     ``a, b, indices (N, ..., k)`` -> ``(num, den)`` each ``(..., vocab)``,
     with ``num[..., idx] += a`` summed in fp32 over the clients in order;
-    fp32 or bf16 ``a, b``, and the sums come back in their dtype (the
-    reference wrapper's cast, which the bf16 kernel makes as it writes)."""
+    fp32, bf16 or fp16 ``a, b``, and the sums come back in their dtype (the
+    reference wrapper's cast, which the 16-bit kernels make as they write;
+    an fp16 sum past 65 504 becomes inf, as the cast makes it)."""
     _check(
         "scatter_wire_sums", {"a": a, "b": b, "indices": indices},
         {"a": _FLOAT, "b": _FLOAT, "indices": (torch.int32,)},
@@ -272,7 +271,7 @@ def scatter_wire_sums_dequant(
 
 def distill_kl_rows(teacher: torch.Tensor, student: torch.Tensor,
                     temperature: float = 2.0) -> torch.Tensor:
-    """Per-row ``KL(σ(t/T) || σ(s/T))`` of ``(..., V)`` fp32 or bf16 inputs
+    """Per-row ``KL(σ(t/T) || σ(s/T))`` of ``(..., V)`` fp32, bf16 or fp16 inputs
     -> ``(...)`` fp32 (no T², no mean) through the fused one-pass kernel.
     Forward only: raises when either input requires grad (with autograd
     on), since a loss built on it would silently train nothing."""
@@ -306,8 +305,8 @@ FLASH_HEAD_DIM = 64
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Causal attention of ``(B, H, S, D)`` or fused ``(B·H, S, D)`` fp32
-    or bf16 q, k, v (out: q's dtype, from fp32 math), with ``S`` a multiple
+    """Causal attention of ``(B, H, S, D)`` or fused ``(B·H, S, D)`` fp32,
+    bf16 or fp16 q, k, v (out: q's dtype, from fp32 math), with ``S`` a multiple
     of ``min(128, S)`` as the reference's tiling asserts; the CUDA kernel
     takes head dim 64.  Forward only (inference prefill): raises when an
     input requires grad."""

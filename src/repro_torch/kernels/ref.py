@@ -6,7 +6,7 @@ card.  The top-k and aggregation kernels compute exactly what their plain
 versions compute, in the same order, and are held with ``torch.equal``;
 the KL and attention kernels sum in another order (online, blocked) than
 their plain versions' log-sum-exp and softmax, and are held within a
-stated tolerance.  They mirror ``repro/kernels/ref.py``: fp32 or bf16
+stated tolerance.  They mirror ``repro/kernels/ref.py``: fp32, bf16 or fp16
 inputs, upcast first, fp32 math; the top-k keeps its input's dtype and the
 attention returns q's, the rest return fp32 (the ``ops`` wrappers cast the
 aggregation sums back to their input's dtype, as the reference's do).

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "NORM_EPS",
+    "FLOAT_DTYPES",
     "torch_dtype",
     "linear",
     "layer_norm",
@@ -70,9 +71,13 @@ def per_client(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return t.reshape((t.shape[0],) + (1,) * (x.ndim - 2) + (t.shape[-1],))
 
 
+# the dtype names a config may give its parameters, compute and optimizer state
+FLOAT_DTYPES = ("float32", "bfloat16", "float16")
+
+
 def torch_dtype(name: str) -> torch.dtype:
-    """The torch dtype of a config's dtype name (``"float32"``,
-    ``"bfloat16"``)."""
+    """The torch dtype of a config's dtype name (one of
+    :data:`FLOAT_DTYPES`)."""
     return getattr(torch, name)
 
 

@@ -37,7 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import frontends
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (
-    InitStream, embedding, linear, norm_apply, normal, torch_dtype, truncated_normal,
+    FLOAT_DTYPES, InitStream, embedding, linear, norm_apply, normal, torch_dtype, truncated_normal,
 )
 from repro_torch.models.moe import moe_init
 from repro_torch.models.ssm import ssm_init
@@ -64,13 +64,13 @@ class Aux(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port carries every family with fp32 or bf16 parameters and
-    compute; fp16 is refused."""
+    """The port carries every family with fp32, bf16 or fp16 parameters,
+    compute and optimizer state; any other dtype name raises."""
     for field in ("param_dtype", "compute_dtype", "optimizer_state_dtype"):
-        if getattr(cfg, field) not in ("float32", "bfloat16"):
-            raise NotImplementedError(
-                f"model {cfg.name!r}: {field}={getattr(cfg, field)!r}; the port carries float32 "
-                "and bfloat16 (ROADMAP.md port queue: fp16)"
+        if getattr(cfg, field) not in FLOAT_DTYPES:
+            raise ValueError(
+                f"model {cfg.name!r}: {field}={getattr(cfg, field)!r}; expected one of "
+                f"{', '.join(FLOAT_DTYPES)}"
             )
 
 

@@ -32,10 +32,9 @@ class AdamWState(NamedTuple):
 
 
 def _dtype(name: str) -> torch.dtype:
-    if name not in ("float32", "bfloat16"):
-        raise NotImplementedError(
-            f"an optimizer dtype of {name!r}: the port keeps float32 and bfloat16 "
-            "(ROADMAP.md port queue: fp16)"
+    if name not in ("float32", "bfloat16", "float16"):
+        raise ValueError(
+            f"an optimizer dtype of {name!r}: expected float32, bfloat16 or float16"
         )
     return getattr(torch, name)
 

@@ -3,7 +3,8 @@
 * The npz layout: a parameter tree, an AdamW state and a bf16 leaf saved by
   each package give the same keys and the same bytes; each package
   restores the other's file (a bf16 leaf as its bits: the reference itself
-  cannot cast them back, the port can); a leaf that does not line up (an
+  cannot cast them back, the port can; an fp16 leaf is ``<f2`` and
+  round-trips both ways); a leaf that does not line up (an
   AdamW count on the port's client axis, a master the file lacks) is
   refused naming its key, both ways; ``latest_step`` skips a torn file;
   the resume fingerprint's JSON is the reference's.
@@ -169,6 +170,37 @@ def test_each_package_restores_the_others_file(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     with pytest.raises(ValueError):
         j_ckpt.restore(str(tmp_path / "t.npz"), {"half": j_tree["half"]})
+
+
+@pytest.mark.parametrize("direction", ["port-reads-reference", "reference-reads-port"])
+def test_an_fp16_leaf_round_trips_between_the_packages(tmp_path, direction):
+    """An fp16 leaf (and an fp16 model's parameters) is ``<f2`` in the npz
+    of either package, unlike bf16's bits, so each package restores the
+    other's fp16 leaves exactly, subnormals, +-0, 65 504 and +-inf included."""
+    vals = np.array([0.0, -0.0, 2.0**-24, -(2.0**-20), 1.5, -3.25, 65504.0, np.inf, -np.inf],
+                    dtype=np.float16)
+    j_params = j_init(jax.random.PRNGKey(4), J_CLIENT.with_overrides(param_dtype="float16"))
+    j_tree = {"params": j_params, "h": jnp.asarray(vals)}
+    t_tree = {"params": bridge.to_torch(jax.tree.map(np.asarray, j_params), "cpu"),
+              "h": torch.as_tensor(vals)}
+    assert all(v.dtype == torch.float16 for v in t_tree["params"].values())
+    if direction == "port-reads-reference":
+        j_ckpt.save(str(tmp_path / "c.npz"), j_tree)
+        like = {"params": {k: torch.zeros_like(v) for k, v in t_tree["params"].items()},
+                "h": torch.zeros_like(t_tree["h"])}
+        got = t_ckpt.restore(str(tmp_path / "c.npz"), like)
+        want = bridge.flatten(t_tree)
+        for key, have in bridge.flatten(got).items():
+            assert have.dtype == torch.float16 and torch.equal(have, want[key]), key
+        assert torch.equal(torch.signbit(got["h"]), torch.signbit(t_tree["h"]))  # -0 kept
+    else:
+        t_ckpt.save(str(tmp_path / "c.npz"), t_tree)
+        back = j_ckpt.restore(str(tmp_path / "c.npz"), jax.tree.map(jnp.zeros_like, j_tree))
+        for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(j_tree)):
+            assert a.dtype == jnp.float16
+            assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+    with np.load(tmp_path / "c.npz") as f:
+        assert f["h"].dtype == np.dtype("<f2")
 
 
 def test_a_host_skeleton_restores_on_the_host(tmp_path):

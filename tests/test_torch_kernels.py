@@ -472,13 +472,20 @@ def test_wrappers_reject_bad_inputs():
         ops.topk_mask(x.t().contiguous().t(), 3)
     with pytest.raises(ValueError, match="contiguous"):
         ops.sparse_aggregate(stack.transpose(1, 2).contiguous().transpose(1, 2))
+    # fp16 runs (the plain versions on the CPU, in fp16 out); float64 has no kernel
     for low in (torch.float16,):
-        with pytest.raises(NotImplementedError, match="port queue: fp16"):
-            ops.topk_mask_dynamic(x.to(low), ks)
-        with pytest.raises(NotImplementedError, match="port queue: fp16"):
-            ops.topk_mask(x.to(low), 3)
-        with pytest.raises(NotImplementedError, match="port queue: fp16"):
-            ops.sparse_aggregate(stack.to(low))
+        want = ref.topk_mask_ref(x.to(low), torch.clamp(ks, 0, x.shape[-1]), guard=True)
+        got = ops.topk_mask_dynamic(x.to(low), ks)
+        assert got.dtype == low and torch.equal(got, want)
+        assert ops.topk_mask(x.to(low), 3).dtype == low
+        assert ops.sparse_aggregate(stack.to(low)).dtype == low
+    for bad_dtype in (torch.float64,):
+        with pytest.raises(TypeError, match="dtype"):
+            ops.topk_mask_dynamic(x.to(bad_dtype), ks)
+        with pytest.raises(TypeError, match="dtype"):
+            ops.topk_mask(x.to(bad_dtype), 3)
+        with pytest.raises(TypeError, match="dtype"):
+            ops.sparse_aggregate(stack.to(bad_dtype))
     with pytest.raises(TypeError, match="mix"):  # one dtype for the float inputs of a call
         ops.scatter_wire_sums(ta, tb.to(torch.bfloat16), ti, vocab)
     with pytest.raises(TypeError, match="dtype"):
@@ -513,7 +520,7 @@ def test_every_kernel_source_exists_and_is_built_by_name():
     for src in build.SOURCES.values():
         assert src.is_file() and src.suffix == ".cu"
     text = {name: src.read_text() for name, src in build.SOURCES.items()}
-    for suffix in ("f32", "bf16"):  # an entry point per input dtype
+    for suffix in ("f32", "bf16", "f16"):  # an entry point per input dtype
         assert f"int topk_mask_{suffix}(" in text["topk_select"]
         assert f"int sparse_aggregate_{suffix}(" in text["sparse_agg"]
         assert f"int scatter_wire_sums_{suffix}(" in text["sparse_agg"]
@@ -523,4 +530,5 @@ def test_every_kernel_source_exists_and_is_built_by_name():
     # the launches the wrappers count, one counter per wrapper and input dtype
     fp32 = {"topk_mask_dynamic", "topk_mask", "sparse_aggregate", "scatter_wire_sums",
             "scatter_wire_sums_dequant", "distill_kl", "flash_attention"}
-    assert set(ops.LAUNCHES) == fp32 | {f"{n}.bf16" for n in fp32 - {"scatter_wire_sums_dequant"}}
+    assert set(ops.LAUNCHES) == fp32 | {f"{n}{tag}" for n in fp32 - {"scatter_wire_sums_dequant"}
+                                        for tag in (".bf16", ".f16")}

@@ -186,11 +186,15 @@ def test_flash_attention_rejects_bad_inputs():
     q = torch.randn(2, 128, 32)
     with pytest.raises(ValueError, match="shape"):
         ops.flash_attention(q, q[:1].contiguous(), q)
+    # fp16 runs (the plain versions on the CPU); float64 has no kernel
     for low in (torch.float16,):
-        with pytest.raises(NotImplementedError, match="port queue: fp16"):
-            ops.flash_attention(q.to(low), q.to(low), q.to(low))
-        with pytest.raises(NotImplementedError, match="port queue: fp16"):
-            ops.distill_kl(q.to(low), q.to(low))
+        assert ops.flash_attention(q.to(low), q.to(low), q.to(low)).dtype == low
+        assert float(ops.distill_kl(q.to(low), q.to(low))) == 0.0
+    for bad_dtype in (torch.float64,):
+        with pytest.raises(TypeError, match="dtype"):
+            ops.flash_attention(q.to(bad_dtype), q.to(bad_dtype), q.to(bad_dtype))
+        with pytest.raises(TypeError, match="dtype"):
+            ops.distill_kl(q.to(bad_dtype), q.to(bad_dtype))
     with pytest.raises(TypeError, match="mix"):  # one dtype for the float inputs of a call
         ops.flash_attention(q, q.to(torch.bfloat16), q)
     with pytest.raises(ValueError, match="contiguous"):

@@ -26,8 +26,9 @@ architecture registry against the reference's, on the CPU.
   stub frontend in each batch) and ``serve --arch seamless-m4t-large-v2``
   (the encoder run once a request batch) likewise, the port's stub the
   reference's draw (``_torch_modal``).
-* What the port does not carry raises naming its ROADMAP.md item: fp16 on
-  the VLM and audio families among it.
+* What the port does not carry raises: a dtype name outside fp32, bf16 and
+  fp16 on the VLM and audio families, and ``--production``, naming its
+  ROADMAP.md item.
 """
 
 import functools
@@ -244,17 +245,18 @@ def test_the_launchers_carry_the_vlm_and_audio(arch, vocab, monkeypatch, tmp_pat
     _serve_held(monkeypatch, vocab=vocab, arch=arch)
 
 
-# every id resolves and every family runs; fp16 is refused when a model is
-# built, before anything is drawn (the registry cases build one: seamless is
-# audio, internvl2 a VLM)
-@pytest.mark.parametrize("call,item", [
+# every id resolves and every family runs, in fp32, bf16 and fp16; a dtype
+# name outside those is refused when a model is built, before anything is
+# drawn (the registry cases build one: seamless is audio, internvl2 a VLM)
+@pytest.mark.parametrize("call,exc,match", [
     pytest.param(lambda: t_serve.model_init(get_config("seamless-m4t-large-v2").with_overrides(
-        param_dtype="float16"), 0, "cpu"), "fp16", id="registry"),
+        param_dtype="float64"), 0, "cpu"), ValueError, "param_dtype='float64'", id="registry"),
     pytest.param(lambda: t_serve.model_init(get_smoke_config("internvl2-76b").with_overrides(
-        compute_dtype="float16"), 0, "cpu"), "fp16", id="smoke-registry"),
-    pytest.param(lambda: t_train.main(["--production", "--device", "cpu"]),
-                 "production mesh, sharding rules and the dry run", id="train-production"),
+        compute_dtype="float64"), 0, "cpu"), ValueError, "compute_dtype='float64'",
+        id="smoke-registry"),
+    pytest.param(lambda: t_train.main(["--production", "--device", "cpu"]), NotImplementedError,
+                 _QUEUE + "production mesh, sharding rules and the dry run", id="train-production"),
 ])
-def test_what_the_launchers_do_not_carry_raises(call, item):
-    with pytest.raises(NotImplementedError, match=_QUEUE + item):
+def test_what_the_launchers_do_not_carry_raises(call, exc, match):
+    with pytest.raises(exc, match=match):
         call()

@@ -27,7 +27,7 @@ reference's draw while this module runs (``_torch_modal``).
   client axis are each its own single-model call.
 * One LM train step with a frontend in the batch: the loss and every
   updated leaf within the bound.
-* fp16 is still refused on these families.
+* fp16 builds on these families, and float64 is refused.
 """
 
 import numpy as np
@@ -354,6 +354,11 @@ def test_a_train_step_with_a_frontend_matches_reference(model):
 
 
 @pytest.mark.parametrize("arch", ARCHS, ids=IDS)
-def test_fp16_is_still_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port queue: fp16"):
-        t_model.init(get_smoke_config(arch).with_overrides(compute_dtype="float16"), 0, "cpu")
+def test_fp16_builds_and_float64_is_refused(arch):
+    """fp16 builds on these families (held to the reference in
+    ``tests/test_torch_fp16.py``); a dtype outside fp32, bf16 and fp16 is
+    refused before anything is drawn."""
+    half = get_smoke_config(arch).with_overrides(param_dtype="float16", compute_dtype="float16")
+    assert all(v.dtype == torch.float16 for v in t_model.init(half, 0, "cpu").values())
+    with pytest.raises(ValueError, match="compute_dtype='float64'"):
+        t_model.init(get_smoke_config(arch).with_overrides(compute_dtype="float64"), 0, "cpu")

@@ -25,7 +25,7 @@ and its stub frontend is the reference's draw (``_torch_modal``).
 * The port resumes the reference CLI's round-1 checkpoint (its audio
   clients' encoder adapters and AdamW state included) to the reference's
   round-2 record.
-* ``scan_rounds`` on a mixed fleet holding a VLM in fp16 still raises.
+* ``scan_rounds`` on a mixed fleet holding a VLM in float64 still raises.
 """
 
 import dataclasses
@@ -198,10 +198,11 @@ def test_the_port_resumes_the_references_checkpoint(fleet):
 
 def test_scan_rounds_on_a_mixed_fleet_with_a_vlm_still_raises(fleet):
     """The block of this fleet runs (``tests/test_torch_fed_train.py``,
-    ``tests/test_torch_hetero_block*.py``); with its VLM family in fp16 it
-    is refused before any work, naming the port queue's fp16 item."""
+    ``tests/test_torch_hetero_block*.py``), in fp16 too; with its VLM family
+    in a dtype the port does not take (float64) it is refused before any
+    work, naming the dtypes it does take."""
     fams, server, ds, fed = fleet["scan"]
-    fams = [c.with_overrides(compute_dtype="float16") if c.family == "vlm" else c for c in fams]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port queue: fp16"):
+    fams = [c.with_overrides(compute_dtype="float64") if c.family == "vlm" else c for c in fams]
+    with pytest.raises(ValueError, match="float32, bfloat16, float16"):
         t_rounds.run_federated(fams, server, ds, dataclasses.replace(fed, scan_rounds=True),
                                device="cpu")

@@ -364,26 +364,28 @@ _MIXED = [T_CLIENT, T_CLIENT.with_overrides(name="t-llama", positional="rope", n
                                             activation="swiglu", num_kv_heads=1)]
 
 
-@pytest.mark.parametrize("change,match,clients", [
-    # the id is kept from the bf16 refusal that this case held before bf16 ran
-    pytest.param(dict(compute_dtype="float16"), _QUEUE + "fp16", T_CLIENT, id="bf16-compute"),
+@pytest.mark.parametrize("change,exc,match,clients", [
+    # the id is kept from the bf16 refusal that this case held before bf16 ran;
+    # fp16 runs now (tests/test_torch_fp16_round.py), a float64 round body does not
+    pytest.param(dict(compute_dtype="float64"), ValueError, "compute_dtype='float64'", T_CLIENT,
+                 id="bf16-compute"),
     # the reference's own refusal, kept by the port's sequential engine
-    pytest.param(dict(engine="sequential", fleet_store="host"),
+    pytest.param(dict(engine="sequential", fleet_store="host"), NotImplementedError,
                  "fleet_store='host' is not supported by the sequential reference engine",
                  T_CLIENT, id="sequential-host-fleet-store"),
     # a mixed fleet's block runs (tests/test_torch_hetero_block*.py); one with
-    # a family in fp16 is refused before any work
-    pytest.param(dict(scan_rounds=True), _QUEUE + "fp16",
-                 [_MIXED[0], _MIXED[1].with_overrides(compute_dtype="float16")],
+    # a family in a dtype the port does not take is refused before any work
+    pytest.param(dict(scan_rounds=True), ValueError, "compute_dtype='float64'",
+                 [_MIXED[0], _MIXED[1].with_overrides(compute_dtype="float64")],
                  id="mixed-fleet-scan-rounds"),
-    # a VLM runs in a mixed fleet's block too; a VLM family in fp16 is refused
-    pytest.param(dict(scan_rounds=True), _QUEUE + "fp16",
+    # a VLM runs in a mixed fleet's block too; a VLM family in float64 is refused
+    pytest.param(dict(scan_rounds=True), ValueError, "param_dtype='float64'",
                  [T_CLIENT, T_CLIENT.with_overrides(family="vlm", frontend="vision",
-                                                    param_dtype="float16")],
+                                                    param_dtype="float64")],
                  id="vlm-family"),
 ])
-def test_what_the_port_does_not_carry_raises(change, match, clients):
+def test_what_the_port_does_not_carry_raises(change, exc, match, clients):
     fed = TFed(**{**_fed_kwargs("float_wire"), **change})
     ds = t_dataset(vocab_size=256, seq_len=12, total=500, seed=0)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         t_rounds.run_federated(clients, T_SERVER, ds, fed, device="cpu")

@@ -425,13 +425,16 @@ def test_sampling_is_seeded(model):
 def test_serving_refuses_what_the_port_does_not_carry(model):
     _, tp, _, _ = model
     # a sliding window, an SSM decode cache and an audio model's (the fixed
-    # encoder output beside the layers' caches) serve now; fp16 does not
+    # encoder output beside the layers' caches) serve now, in fp16 too; a
+    # dtype the port does not take (float64) does not
     audio = get_smoke_config("seamless-m4t-large-v2")
     cache = t_init_cache(audio, 2, 8, window=4, device="cpu")
     assert tuple(cache["enc_out"].shape) == (2, audio.frontend_len, audio.d_model)
     assert cache["layers"]["pos0"].k.shape[2] == 4
-    with pytest.raises(NotImplementedError, match="port queue: fp16"):
-        t_init_cache(audio.with_overrides(compute_dtype="float16"), 2, 8, window=4, device="cpu")
+    half = t_init_cache(audio.with_overrides(compute_dtype="float16"), 2, 8, window=4, device="cpu")
+    assert half["layers"]["pos0"].k.dtype == torch.float16
+    with pytest.raises(ValueError, match="compute_dtype='float64'"):
+        t_init_cache(audio.with_overrides(compute_dtype="float64"), 2, 8, window=4, device="cpu")
     sess = ServeSession(ServeConfig(model=TCFG, batch=1, cache_len=PROMPT + GEN), tp, device="cpu")
     with pytest.raises(ValueError, match="AdapterCache"):
         sess.attach([0])

@@ -144,9 +144,9 @@ def test_the_int8_wire_agrees_across_engines(runs):
 
 def test_scan_rounds_on_a_mixed_fleet_still_raises():
     """A mixed fleet's block runs (``tests/test_torch_hetero_block*.py``);
-    with its SSM family in fp16 it is refused before any work, naming the
-    port queue's fp16 item."""
-    fams = [T_FAMS[0], T_FAMS[1].with_overrides(compute_dtype="float16"), T_FAMS[2]]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port queue: fp16"):
+    with its SSM family in a dtype the port does not take (float64) it is
+    refused before any work, naming the dtypes it does take."""
+    fams = [T_FAMS[0], T_FAMS[1].with_overrides(compute_dtype="float64"), T_FAMS[2]]
+    with pytest.raises(ValueError, match="float32, bfloat16, float16"):
         t_run(fams, T_SERVER, _dataset(t_dataset),
               _fed(TFed, TChannel, "fused_e2e", scan_rounds=True), device="cpu")
