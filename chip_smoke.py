@@ -3,7 +3,7 @@
 Phases (any failure raises and exits non-zero):
 
 1. device — a CUDA device is required (no CPU fallback); prints the card's
-   name and power limit; full-fp32 matmuls (TF32 off).
+   name and power limit; full-fp32 matmuls (TF32 off), fp16 GEMMs reduced in fp32.
 2. build — compiles every CUDA source of ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) into ``build/``.
 3. kernels — each kernel against its plain PyTorch version on the card at
@@ -42,7 +42,7 @@ Phases (any failure raises and exits non-zero):
      and v from a position on leaves every earlier output unchanged.  The
      build line gives every kernel's registers and spills, and the count of
      tensor-core instructions in the attention library's SASS (HMMA: the
-     fp32 kernel's mma.sync; HGMMA: the bf16 kernel's wgmma).
+     fp32 kernel's mma.sync; HGMMA: the bf16 and fp16 kernels' wgmma).
    Then each kernel's bf16 entry point on bf16 inputs: the wire scatter
    (also at its edges: 1 and 200 rows, N 1 and 8, k 1, 1000 and 3000, V 5
    and 37, a column that takes 1e8, 1, -1e8, 1 from clients 0-3, and a, b,
@@ -56,7 +56,17 @@ Phases (any failure raises and exits non-zero):
    its fp32 tolerance (also at 1 and 200 rows, with the maxima in the last
    CTA's slice of the row); the attention within S * 2^-24 * max|v| plus one
    bf16 ulp (both round once from fp32; with late maxima too), and causal
-   bitwise.
+   bitwise.  Then each fp16 entry point on fp16 inputs, the same checks
+   (``check_f16_kernels``) at fp16's range: the wire's order-sensitive
+   column takes 32 768, 2^-14, -32 768, 2^-14 (2^-14 in order) and its b
+   sums past 65 504 (inf, as the plain version's cast); the top-k also on
+   rows of fp16 subnormals with +-0, of values near +-65 504 (a static k = 0
+   takes lo to just under 65 505, which rounds up to +inf: nothing kept),
+   of those with +inf entries (only they stay) and of subnormals of both
+   signs, its one-bin row in [1, 1 + 2^-5); the KL's -1e30 entries as -6e4
+   (fp16's -1e30 is -inf, and the KL NaN), and NaN where the plain version
+   is NaN on rows holding +inf; the attention within S * 2^-24 * max|v|
+   plus one fp16 ulp.
 4. small input — the port's round on a tiny config on the card (kernels)
    and on the CPU (plain versions), ``fused_e2e`` then ``fused``, float and
    int8 uplink: identical k and bytes, accuracies within one eval sample,
@@ -77,11 +87,13 @@ Phases (any failure raises and exits non-zero):
    ``fused_e2e`` float and int8 wire, ``fused`` float and int8 uplink,
    ``batched`` and ``sequential`` float uplink; then ``fused_e2e`` float
    wire and ``fused`` float uplink in bf16 (the models and the round body
-   compute in bf16: ``compute_dtype="bfloat16"`` on both), held identical
-   to their fp32 runs on per-client k, bytes and transmitters, with the
-   LoRA masters and Adam moments checked fp32 after every run.  Every
-   launch count is set to 0 just before each run and read just after: the
-   bf16 runs launch the bf16 entry points (``name.bf16``), the scatter kernels
+   compute in bf16: ``compute_dtype="bfloat16"`` on both), then the same
+   two in fp16 (``compute_dtype="float16"``), each held identical to its
+   fp32 run on per-client k, bytes and transmitters, with the LoRA masters
+   and Adam moments checked fp32 after every run.  Every launch count is set
+   to 0 just before each run and read just after: the bf16 runs launch the
+   bf16 entry points (``name.bf16``), the fp16 runs the fp16 ones
+   (``name.f16``), the scatter kernels
    launch once a round on ``fused_e2e`` (float or int8), the per-row top-k
    once a round on ``fused``, the dense aggregation once a round with a
    transmitter on ``fused``, ``batched`` and ``sequential``, and nothing
@@ -95,10 +107,10 @@ Phases (any failure raises and exits non-zero):
    ``total_distill_loss(use_kernel=True)`` after the ``sequential`` run,
    the final broadcast as teacher and client 0's public logits as student,
    against ``use_kernel=False`` (and a student that requires grad must
-   raise), and the same after the bf16 ``fused`` run, its kernel part held
-   against the plain version of the kernel (the plain bf16 loss rounds as
-   the reference's does); the attention through
-   ``kernels.ops.flash_attention`` in phase 6, in fp32 and in bf16.
+   raise), and the same after the bf16 and fp16 ``fused`` runs, its kernel
+   part held against the plain version of the kernel (the plain 16-bit
+   loss rounds as the reference's does); the attention through
+   ``kernels.ops.flash_attention`` in phase 6, in fp32, bf16 and fp16.
 5b. pretrained main path — the same fleet with the reference's default
    pretraining (80 supervised steps for the clients' shared GPT-2 small
    backbone, 60 next-token steps for the GPT-2 large server, on 12 % of
@@ -209,7 +221,7 @@ Phases (any failure raises and exits non-zero):
    attention, and the attention kernel on layer 0's q/k/v of that prefill,
    held against the chunked attention and the plain version (and a q that
    requires grad must raise); then that q/k/v rounded to bf16 through the
-   bf16 kernel.
+   bf16 kernel, and rounded to fp16 through the fp16 kernel.
 6f. model families and mixed fleets (after serving, whose single timed
    prefill it would otherwise follow onto a freshly emptied allocator) —
    (a) a fleet of GPT-2 small and granite-moe-1b-a400m clients (its
@@ -315,17 +327,22 @@ Phases (any failure raises and exits non-zero):
    are timed on the bf16 ``fused`` run's input (and on one-exponent-bin
    rows, ``ms_one_bin``), and the bf16 attention's library call (bf16
    SDPA, which rounds P to bf16: not the same function) reports its error
-   against the plain version beside its time.
+   against the plain version beside its time.  The fp16 entry points get
+   rows of their own (``name.f16``) on the same terms: bytes at 16-bit
+   width, the attention's operations at the fp16 tensor-core rate (the
+   bf16 rate), the top-k timed on the fp16 ``fused`` run's input (and on
+   rows of one fp16 high-digit bin), the library calls ``scatter_add_``,
+   ``torch.topk`` and fp16 SDPA.
 
 The last lines are the card and its power limit, the kernels record and the
 device record (JSON).  In the kernels record ``launches`` is each kernel's
-count summed over the eight main-path runs, the pretrained path's four,
+count summed over the ten main-path runs, the pretrained path's four,
 phase 5c's runs and validated wires, phase 5d's runs, phase 5e's
 (its children's included), phase 6f's six, phase 6g's six and its
 ``fed_train`` run and phase 6h's eight and its ``fed_train`` run,
-``pct_of_bound`` its bound over its time; the static top-k's, the KL's and the attention's rows (fp32 and
-bf16) add ``entry_launches``, their counts through their public entry
-points.
+``pct_of_bound`` its bound over its time; the static top-k's, the KL's and the attention's rows (fp32,
+bf16 and fp16) add ``entry_launches``, their counts through their public
+entry points.
 """
 
 from __future__ import annotations
@@ -418,12 +435,14 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "distill_kl": (_CSRC + "distill_kl.cu", "src/repro/kernels/distill_kl.py:96"),
     "flash_attention": (_CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),
 }
-# each kernel's bf16 entry point: the same source and TPU kernel (the int8
-# wire's scatter has no bf16 input)
-KERNELS.update({f"{name}.bf16": KERNELS[name] for name in ops.BF16_KERNELS})
-BF16 = torch.bfloat16
-# the bf16 main-path runs: the models compute in bf16, and so does the round body
-BF16_CFG = dict(compute_dtype="bfloat16")
+BF16, F16 = torch.bfloat16, torch.float16
+TAG = {dt: tag for dt, (tag, _) in ops._SUFFIX.items()}  # launch-count tags: "", ".bf16", ".f16"
+SUFFIX = {dt: suffix for dt, (_, suffix) in ops._SUFFIX.items()}  # C entry points: "_f32", ...
+# each kernel's bf16 and fp16 entry points: the same source and TPU kernel
+# (the int8 wire's scatter has no 16-bit input)
+KERNELS.update({f"{name}{TAG[dt]}": KERNELS[name] for dt in (BF16, F16) for name in ops.BF16_KERNELS})
+# the 16-bit main-path runs: the models compute in that dtype, and so does the round body
+LOW_CFG = {BF16: dict(compute_dtype="bfloat16"), F16: dict(compute_dtype="float16")}
 # the bf16 kernels' times before their redesign (loaders that upcast each
 # tile into the fp32 kernels: PERF.md section 6, H100 80GB HBM3, 700 W; the
 # KL's read cold), printed beside this run's; the kernels line keeps only
@@ -512,23 +531,6 @@ def dense_stack(ks, seed: int, device, sparse: bool = True):
     return ref.topk_mask_ref(x.reshape(-1, VOCAB), kk.reshape(-1), guard=True).reshape(x.shape)
 
 
-def kl_logits(rows: int, vocab: int, seed: int, device):
-    """Teacher and student logits of N(0, 2) with the edge cases in the first
-    rows: row 0 the teacher equal to its student, row 1 logits of +-3e4 (the
-    online rescale), row 2 -1e30 on both sides every third entry, row 3
-    -1e30 on the teacher only every fourth entry."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    t = 2.0 * torch.randn((rows, vocab), generator=gen, device=device)
-    s = 2.0 * torch.randn((rows, vocab), generator=gen, device=device)
-    s[0] = t[0]
-    t[1] = torch.rand(vocab, generator=gen, device=device) * 6e4 - 3e4
-    s[1] = t[1] + torch.randn(vocab, generator=gen, device=device)
-    t[2, ::3] = -1e30
-    s[2, ::3] = -1e30
-    t[3, 1::4] = -1e30
-    return t, s
-
-
 def kl_tolerance(t, s, temp: float, plain: torch.Tensor) -> torch.Tensor:
     """Per-row bound of the KL kernel against its plain version: rtol 1e-5
     plus 2e-6 (1 + |lse_t| + |lse_s|), a few ulps of the log-partitions whose
@@ -543,21 +545,28 @@ def attention_tolerance(s: int, v: torch.Tensor) -> float:
     return s * 2.0**-24 * float(v.abs().max())
 
 
-def bf16_ulp(*xs: torch.Tensor) -> torch.Tensor:
-    """One bf16 ulp of the larger magnitude, elementwise: bf16 keeps 8
-    significant bits, so 2^(e - 7) for a value in [2^e, 2^(e+1))."""
+# significant bits, and the least exponent whose ulp the rule below gives
+# (fp16's subnormals share the ulp of its least normal binade, 2^-24)
+ULP_BITS = {BF16: (8, 1e-38), F16: (11, 2.0**-14)}
+
+
+def ulp16(dtype: torch.dtype, *xs: torch.Tensor) -> torch.Tensor:
+    """One ulp of ``dtype`` (bf16 or fp16) at the larger magnitude,
+    elementwise: with p significant bits, 2^(e - p + 1) for a value in
+    [2^e, 2^(e+1)) (bf16 keeps 8, fp16 11)."""
+    bits, least = ULP_BITS[dtype]
     a = torch.stack([x.float().abs() for x in xs]).amax(dim=0)
-    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-38))) - 7),
+    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a.clamp_min(least))) - (bits - 1)),
                        torch.zeros_like(a))
 
 
-def within_bf16(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
-    """Check a bf16 output rounded once from an fp32 result against its
+def within_16(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """Check a 16-bit output rounded once from an fp32 result against its
     plain version, rounded once too: within the fp32 bound ``tol`` plus one
-    bf16 ulp (two fp32 values that close can round to neighbouring bf16
-    values); returns the largest difference."""
+    ulp of its dtype (two fp32 values that close can round to neighbouring
+    16-bit values); returns the largest difference."""
     err = (got.float() - want.float()).abs()
-    assert bool((err <= tol + bf16_ulp(got, want)).all()), float(err.max())
+    assert bool((err <= tol + ulp16(got.dtype, got, want)).all()), float(err.max())
     return float(err.max())
 
 
@@ -663,6 +672,9 @@ def phase_device():
     ).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # fp16 GEMMs reduce in fp32, as the reference's dots accumulate (cuBLAS may
+    # otherwise reduce split-K partial sums in fp16)
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     log(f"[device] {card}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     return torch.device("cuda"), card
@@ -683,8 +695,8 @@ def ptxas_report(text: str, keys: tuple[str, ...]) -> list[str]:
         if m and name and any(key in name for key in keys):
             key = next(key for key in keys if key in name)
             args = [a for a, tag in (("FloatWire", "FloatWire"), ("Int8Wire", "Int8Wire"),
-                                     ("true", "Lb1E"), ("false", "Lb0E"),
-                                     ("bf16", "nv_bfloat16")) if tag in name]
+                                     ("bf16", "nv_bfloat16"), ("bf16", "4Bf16"), ("f16", "6__half"),
+                                     ("f16", "3F16"), ("true", "Lb1E"), ("false", "Lb0E")) if tag in name]
             out.append(f"{key}<{', '.join(args)}>: {m.group(1)} registers{m.group(2)}; {spill}")
             name = None
     return out
@@ -703,18 +715,18 @@ def phase_build():
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] {', '.join(map(str, libs.values()))} in {time.perf_counter() - t0:.1f} s")
-    report = (ptxas_report(build.build_log("topk_select"), ("topk_mask_kernel", "topk_radix_bf16_kernel"))
-              + ptxas_report(build.build_log("sparse_agg"), ("scatter_wire_kernel", "scatter_wire_bf16_kernel",
+    report = (ptxas_report(build.build_log("topk_select"), ("topk_mask_kernel", "topk_radix_16_kernel"))
+              + ptxas_report(build.build_log("sparse_agg"), ("scatter_wire_kernel", "scatter_wire_16_kernel",
                                                              "sparse_aggregate"))
-              + ptxas_report(build.build_log("distill_kl"), ("distill_kl_kernel", "distill_kl_bf16_kernel"))
+              + ptxas_report(build.build_log("distill_kl"), ("distill_kl_kernel", "distill_kl_16_kernel"))
               + ptxas_report(build.build_log("flash_attention"),
-                             ("flash_attention_kernel", "flash_attention_bf16_kernel")))
+                             ("flash_attention_kernel", "flash_attention_16_kernel")))
     log(f"[build] ptxas -v: {' | '.join(report) or 'no log (library built earlier)'}")
     hmma = sass_count(libs["flash_attention"], "HMMA")
     hgmma = sass_count(libs["flash_attention"], "HGMMA")
     assert hmma > 0 and hgmma > 0, "an attention kernel runs no tensor-core instruction"
     log(f"[build] flash_attention SASS: {hmma} HMMA instructions (mma.sync) in its fp32 kernel, "
-        f"{hgmma} HGMMA (wgmma) in its bf16 kernel: their products on the tensor cores")
+        f"{hgmma} HGMMA (wgmma) in its bf16 and fp16 kernels: their products on the tensor cores")
 
 
 def check_scatter_kernels(device):
@@ -854,27 +866,44 @@ def check_flash_attention(device):
         "from 700 on), (B, H, S, D) == (B*H, S, D) bitwise")
 
 
-def check_bf16_kernels(device):
-    """Each kernel's bf16 entry point against its plain version on bf16
-    inputs: the wire scatter, the top-k masks and the dense aggregation
-    ``torch.equal`` (fp32 sums rounded once, as their plain versions round
-    them), the KL within its fp32 tolerance (fp32 math on exactly upcast
-    inputs), the attention within its fp32 bound plus one bf16 ulp, and
-    causal bitwise."""
-    check_bf16_scatter(device)
-    check_bf16_topk(device)
+def check_16bit_kernels(device, dtype: torch.dtype):
+    """Each kernel's bf16 or fp16 entry point against its plain version on
+    inputs of that dtype: the wire scatter, the top-k masks and the dense
+    aggregation ``torch.equal`` (fp32 sums rounded once, as their plain
+    versions round them), the KL within its fp32 tolerance (fp32 math on
+    exactly upcast inputs), the attention within its fp32 bound plus one ulp
+    of the dtype, and causal bitwise."""
+    check_scatter_16(device, dtype)
+    check_topk_16(device, dtype)
+    tag = TAG[dtype]
     for sparse in (True, False):
-        stack = dense_stack([1024, 517, 1, VOCAB], seed=11, device=device, sparse=sparse).to(BF16)
-        got, want = ops.sparse_aggregate(stack), ref.sparse_aggregate_ref(stack).to(BF16)
+        stack = dense_stack([1024, 517, 1, VOCAB], seed=11, device=device, sparse=sparse).to(dtype)
+        got, want = ops.sparse_aggregate(stack), ref.sparse_aggregate_ref(stack).to(dtype)
         torch.cuda.synchronize()
-        assert got.dtype == BF16 and torch.equal(got, want), ("sparse_aggregate.bf16", sparse)
-    log("[kernels bf16] dense aggregation torch.equal to its plain version (fp32 result rounded "
-        "to bf16), top-k-sparse and dense stacks")
-    check_bf16_kl(device)
-    check_bf16_attention(device)
+        assert got.dtype == dtype and torch.equal(got, want), ("sparse_aggregate" + tag, sparse)
+    log(f"[kernels {tag[1:]}] dense aggregation torch.equal to its plain version (fp32 result "
+        f"rounded to {dtype}), top-k-sparse and dense stacks")
+    check_kl_16(device, dtype)
+    check_attention_16(device, dtype)
+
+
+def check_bf16_kernels(device):
+    check_16bit_kernels(device, BF16)
+
+
+def check_f16_kernels(device):
+    """The fp16 entry points as ``check_bf16_kernels`` holds the bf16 ones,
+    on inputs in fp16's range (its order-sensitive wire column, its
+    subnormals, values near 65 504 and sums past it, which round to inf)."""
+    check_16bit_kernels(device, F16)
 
 
 ORDER_COL = 777  # takes 1e8, 1, -1e8, 1 from clients 0-3: 1 summed in order, 0 in reverse
+# the order-sensitive column's values in each dtype, and its sum in order
+# (in reverse it is 0): fp16's range holds no 1e8, but 2^-14 vanishes beside
+# 32 768 in fp32 as 1 does beside 1e8
+ORDER_VALUES = {BF16: ((1e8, 1.0, -1e8, 1.0), 1.0),
+                F16: ((32768.0, 2.0**-14, -32768.0, 2.0**-14), 2.0**-14)}
 
 
 def at_offset(x: torch.Tensor, offset: int) -> torch.Tensor:
@@ -884,11 +913,12 @@ def at_offset(x: torch.Tensor, offset: int) -> torch.Tensor:
     return view.copy_(x)
 
 
-def edge_wire(n: int, rows: int, k: int, vocab: int, seed: int, device):
-    """A bf16 wire of ``n`` clients with distinct indices per (client, row),
-    drawn from a seed: values of N(0, 9) (b = |a|), client 1 padding its
-    last entry at index 0 with zeros, and, for n >= 4 and V > 777, the
-    order-sensitive column first in clients 0-3."""
+def edge_wire(n: int, rows: int, k: int, vocab: int, seed: int, device, dtype: torch.dtype = BF16):
+    """A bf16 or fp16 wire of ``n`` clients with distinct indices per
+    (client, row), drawn from a seed: values of N(0, 9) (b = |a|), client 1
+    padding its last entry at index 0 with zeros, and, for n >= 4 and V >
+    777, the order-sensitive column first in clients 0-3 (in fp16 its b
+    sums past 65 504: inf)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     score = torch.rand((n, rows, vocab), generator=gen, device=device)
     order = n >= 4 and vocab > ORDER_COL
@@ -897,61 +927,87 @@ def edge_wire(n: int, rows: int, k: int, vocab: int, seed: int, device):
     idx = torch.topk(score, k, dim=-1).indices.to(torch.int32)
     a = 3.0 * torch.randn((n, rows, k), generator=gen, device=device)
     if order:
-        a[:4, :, 0] = torch.tensor([1e8, 1.0, -1e8, 1.0], device=device)[:, None]
+        a[:4, :, 0] = torch.tensor(ORDER_VALUES[dtype][0], device=device)[:, None]
     if n > 1 and k > 1:
         idx[1, :, -1], a[1, :, -1] = 0, 0.0
-    a = a.to(BF16)
+    a = a.to(dtype)
     del score
     return a, a.abs(), idx.contiguous()
 
 
-def check_bf16_scatter(device):
-    """The bf16 wire scatter ``torch.equal`` to its plain version (fp32 sums
-    rounded to bf16 once) on the main path's wires, and on wires at its
-    edges: 1 and 200 rows, N 1 and 8, k 1, 1000 and 3000, V 5, 37 and 152 064, the
-    order-sensitive column, and a, b and idx as views at an offset (another
-    16-byte phase: the bulk copies' head and tail granules)."""
+def check_scatter_16(device, dtype: torch.dtype):
+    """The 16-bit wire scatter ``torch.equal`` to its plain version (fp32
+    sums rounded to the dtype once) on the main path's wires, and on wires
+    at its edges: 1 and 200 rows, N 1 and 8, k 1, 1000 and 3000, V 5, 37
+    and 152 064, the order-sensitive column, and a, b and idx as views at an
+    offset (another 16-byte phase: the bulk copies' head and tail granules)."""
+    tag = TAG[dtype]
     for k_cap, rows, vocab in ((128, ROWS, VOCAB), (1024, ROWS, VOCAB), (1024, WIDE_ROWS, WIDE_VOCAB)):
-        wire = make_wire(k_cap, seed=k_cap, device=device, rows=rows, vocab=vocab, dtype=BF16)
+        wire = make_wire(k_cap, seed=k_cap, device=device, rows=rows, vocab=vocab, dtype=dtype)
         for mode in MODES:
             a, b = float_channels(wire, mode)
             got = ops.scatter_wire_sums(a, b, wire.indices, vocab)
-            want = [x.to(BF16) for x in ref.scatter_wire_sums_ref(a, b, wire.indices, vocab)]
+            want = [x.to(dtype) for x in ref.scatter_wire_sums_ref(a, b, wire.indices, vocab)]
             torch.cuda.synchronize()
-            assert got[0].dtype == BF16 and all(torch.equal(g, w) for g, w in zip(got, want)), (
-                "scatter_wire_sums.bf16", k_cap, mode)
-    log("[kernels bf16] wire scatter torch.equal to its plain version (fp32 sums rounded to "
-        "bf16) in all 3 modes, k_cap 128 and 1024, V 50 257 and 152 064")
+            assert got[0].dtype == dtype and all(torch.equal(g, w) for g, w in zip(got, want)), (
+                "scatter_wire_sums" + tag, k_cap, mode)
+    log(f"[kernels {tag[1:]}] wire scatter torch.equal to its plain version (fp32 sums rounded to "
+        f"{dtype}) in all 3 modes, k_cap 128 and 1024, V 50 257 and 152 064")
     cases = ((1, 1, 1, VOCAB, (0, 0, 0)), (8, 200, 1000, VOCAB, (3, 5, 1)), (4, ROWS, 1024, VOCAB, (1, 7, 3)),
              (8, 3, 3, VOCAB, (0, 1, 2)), (2, 5, 3000, VOCAB, (3, 1, 3)), (4, 1, 1000, WIDE_VOCAB, (5, 0, 1)),
              (8, 3, 37, 37, (2, 0, 1)),
              (2, 2, 5, 5, (1, 1, 1)))
     for n, rows, k, vocab, offsets in cases:
-        a, b, idx = edge_wire(n, rows, k, vocab, seed=n * rows + k, device=device)
-        want = [x.to(BF16) for x in ref.scatter_wire_sums_ref(a, b, idx, vocab)]
+        a, b, idx = edge_wire(n, rows, k, vocab, seed=n * rows + k, device=device, dtype=dtype)
+        want = [x.to(dtype) for x in ref.scatter_wire_sums_ref(a, b, idx, vocab)]
         for placed in ((a, b, idx), tuple(at_offset(x, o) for x, o in zip((a, b, idx), offsets))):
             got = ops.scatter_wire_sums(*placed, vocab)
             torch.cuda.synchronize()
-            assert all(torch.equal(g, w) for g, w in zip(got, want)), ("scatter_wire_sums.bf16", n, rows, k,
-                                                                       vocab, placed[0].data_ptr() % 16)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), ("scatter_wire_sums" + tag, n, rows,
+                                                                       k, vocab, placed[0].data_ptr() % 16)
         if n >= 4 and vocab > ORDER_COL:  # the clients were summed in order
-            assert bool((want[0][:, ORDER_COL] == 1.0).all())
-    log(f"[kernels bf16] wire scatter torch.equal to its plain version at (N, rows, k, V) "
+            assert bool((want[0][:, ORDER_COL] == ORDER_VALUES[dtype][1]).all())
+            if dtype == F16:  # b's sum past 65 504 rounds to inf, as the plain version's cast
+                assert bool(torch.isinf(want[1][:, ORDER_COL]).all())
+    values, total = ORDER_VALUES[dtype]
+    log(f"[kernels {tag[1:]}] wire scatter torch.equal to its plain version at (N, rows, k, V) "
         f"{[c[:4] for c in cases]}, each also with a, b, idx at offsets {[c[4] for c in cases]} "
-        f"elements; the column taking 1e8, 1, -1e8, 1 from clients 0-3 sums to 1")
+        f"elements; the column taking {values} from clients 0-3 sums to {total}"
+        + ("; its b, past 65 504, to inf" if dtype == F16 else ""))
 
 
-def check_bf16_kl(device):
-    """The bf16 KL within its fp32 tolerance of its plain version, exactly 0
-    for teacher == student."""
+def kl_logits(rows: int, vocab: int, seed: int, device, floor: float = -1e30):
+    """Teacher and student logits of N(0, 2) with the edge cases in the first
+    rows: row 0 the teacher equal to its student, row 1 logits of +-3e4 (the
+    online rescale), row 2 ``floor`` on both sides every third entry, row 3
+    ``floor`` on the teacher only every fourth entry (-1e30, or -6e4 for
+    fp16, where -1e30 is -inf and the KL of such a row NaN)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = 2.0 * torch.randn((rows, vocab), generator=gen, device=device)
+    s = 2.0 * torch.randn((rows, vocab), generator=gen, device=device)
+    s[0] = t[0]
+    t[1] = torch.rand(vocab, generator=gen, device=device) * 6e4 - 3e4
+    s[1] = t[1] + torch.randn(vocab, generator=gen, device=device)
+    t[2, ::3] = floor
+    s[2, ::3] = floor
+    t[3, 1::4] = floor
+    return t, s
+
+
+def check_kl_16(device, dtype: torch.dtype):
+    """The 16-bit KL within its fp32 tolerance of its plain version, exactly
+    0 for teacher == student; in fp16 also NaN wherever the plain version is
+    NaN (a row holding +inf: exp(inf - inf))."""
+    tag = TAG[dtype]
+    floor = -6e4 if dtype == F16 else -1e30
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for rows, vocab in ((ROWS, VOCAB), (32, VOCAB), (WIDE_ROWS, WIDE_VOCAB), (2 * sms + 56, VOCAB),
                         (WIDE_ROWS, 37), (WIDE_ROWS, 5), (1, VOCAB), (200, VOCAB)):
-        t, s = kl_logits(max(rows, 5), vocab, seed=vocab + 1, device=device)
+        t, s = kl_logits(max(rows, 5), vocab, seed=vocab + 1, device=device, floor=floor)
         # row 4: the teacher's and the student's maxima in the last CTA's slice of the row
         t[4, vocab - min(9, vocab)], s[4, vocab - min(20, vocab)] = 40.0, 30.0
-        t, s = t[:rows].to(BF16), s[:rows].to(BF16)
-        s_off = torch.empty(rows * vocab + 1, dtype=BF16, device=device)[1:].view(rows, vocab)
+        t, s = t[:rows].to(dtype), s[:rows].to(dtype)
+        s_off = torch.empty(rows * vocab + 1, dtype=dtype, device=device)[1:].view(rows, vocab)
         s_off.copy_(s)  # another 16-byte phase than the teacher's
         worst = 0.0
         for temp in (1.0, 2.0, 4.0):
@@ -961,31 +1017,84 @@ def check_bf16_kl(device):
                 got = ops.distill_kl_rows(t, student, temp)
                 torch.cuda.synchronize()
                 err = (got - want).abs()
-                assert bool((err <= tol).all()), ("distill_kl.bf16", rows, vocab, temp, float(err.max()))
+                assert bool((err <= tol).all()), ("distill_kl" + tag, rows, vocab, temp, float(err.max()))
                 assert float(got[0]) == 0.0, got[:4]
                 worst = max(worst, float(err.max()))
         c = max(c for c in (1, 2, 4, 8) if c == 1 or rows * c <= sms)
-        log(f"[kernels bf16] distill_kl at ({rows}, {vocab}) (C = {c}), T in (1, 2, 4): within rtol "
-            f"1e-5 + 2e-6 (1 + |lse_t| + |lse_s|) per row (max |diff| {worst:.3e}), exactly 0 for "
+        log(f"[kernels {tag[1:]}] distill_kl at ({rows}, {vocab}) (C = {c}), T in (1, 2, 4): within "
+            f"rtol 1e-5 + 2e-6 (1 + |lse_t| + |lse_s|) per row (max |diff| {worst:.3e}), exactly 0 for "
             f"teacher == student, maxima in the last CTA's slice, student on another 16-byte phase")
+    if dtype == F16:  # +inf in the teacher (row 0) or the student (row 1): NaN, as the plain version
+        t, s = kl_logits(4, VOCAB, seed=3, device=device, floor=floor)
+        t[0, 100], s[1, 20000] = float("inf"), float("inf")
+        t, s = t.to(dtype), s.to(dtype)
+        got, want = ops.distill_kl_rows(t, s, 2.0), ref.distill_kl_ref(t, s, 2.0)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(want[:2]).all()), (
+            got, want)
+        log(f"[kernels {tag[1:]}] distill_kl NaN where its plain version is NaN: rows holding +inf "
+            f"{got.tolist()}")
 
 
-def check_bf16_topk(device):
-    """The bf16 top-k masks ``torch.equal`` to their plain versions at both
-    widths: the edge rows of ``topk_rows`` rounded to bf16 (NaN, +-inf,
-    near 3e38, constant), tie groups of ~50 to ~17 000 values at the k-th
-    value, and a row whose values all share one exponent bin (the radix
-    select's histogram puts it in one bin), per-row and static k."""
+F16_EDGE_ROWS = BF16_ONE_BIN_ROW + 1  # the first of four rows at fp16's range edges
+
+
+def f16_edge_rows(x: torch.Tensor, ks: torch.Tensor, gen) -> None:
+    """Rows 17-20 of a top-k input (in place), at fp16's range edges: fp16
+    subnormals (2^-24 .. 2^-14, normal in fp32) with +-0 beside them; values
+    within 64 ulps of 65 504 of both signs (a static k = 0 replays every step
+    to lo just under max + 1 = 65 505, which rounds up to +inf: nothing kept,
+    as in the plain version); that row's magnitudes with 9 +inf entries
+    (there every step's mid is +inf and only the +inf values stay); and
+    subnormals of both signs, whose k-th value is negative."""
+    vocab = x.shape[1]
+    sub = torch.randint(0, 1024, (vocab,), generator=gen, device=x.device).float() * 2.0**-24
+    x[F16_EDGE_ROWS] = sub
+    x[F16_EDGE_ROWS, :40] = 0.0
+    x[F16_EDGE_ROWS, 40:80] = -0.0
+    big = 65504.0 - 32.0 * torch.randint(0, 64, (vocab,), generator=gen, device=x.device).float()
+    sign = torch.where(torch.rand(vocab, generator=gen, device=x.device) < 0.5, -1.0, 1.0)
+    x[F16_EDGE_ROWS + 1] = big * sign
+    x[F16_EDGE_ROWS + 2] = big
+    x[F16_EDGE_ROWS + 2, 11:20] = float("inf")
+    x[F16_EDGE_ROWS + 3] = -sub
+    x[F16_EDGE_ROWS + 3, : vocab // 2] *= -1.0
+    ks[F16_EDGE_ROWS:F16_EDGE_ROWS + 4] = torch.tensor([3000, 700, 12, vocab // 2 + 5], dtype=torch.int32)
+
+
+def one_bin_row(x: torch.Tensor, ks: torch.Tensor, gen, dtype: torch.dtype) -> None:
+    """The one-bin row of a top-k input for ``dtype``: bf16's
+    (``bf16_one_bin_row``) or fp16's, every value in [1, 1 + 2^-5), whose
+    keys share sign, exponent and their top 5 mantissa bits, the high digit
+    of fp16's radix select (32 values, ~1 570 tied at each)."""
+    if dtype == BF16:
+        bf16_one_bin_row(x, ks, gen)
+        return
+    level = torch.randint(0, 32, (x.shape[1],), generator=gen, device=x.device)
+    x[BF16_ONE_BIN_ROW] = 1.0 + level / 1024.0
+    ks[BF16_ONE_BIN_ROW] = 3000
+
+
+def check_topk_16(device, dtype: torch.dtype):
+    """The 16-bit top-k masks ``torch.equal`` to their plain versions at
+    both widths: the edge rows of ``topk_rows`` rounded to the dtype (NaN,
+    +-inf, near 3e38 -- inf in fp16 --, constant), tie groups of ~50 to
+    ~17 000 values at the k-th value, and a row whose values all share one
+    bin of the radix select's high digit; in fp16 also subnormals, +-0 and
+    values near +-65 504 (``f16_edge_rows``); per-row and static k."""
+    tag = TAG[dtype]
     for rows, vocab in ((N_CLIENTS * ROWS, VOCAB), (3 * WIDE_ROWS, WIDE_VOCAB)):
         x, ks = topk_rows(rows, vocab, seed=vocab + 1, device=device)
         gen = torch.Generator(device=device).manual_seed(vocab)
         bf16_tie_rows(x, ks, gen)
-        bf16_one_bin_row(x, ks, gen)
-        x = x.to(BF16)  # the normal rows rounded to bf16: ties of ~10 values a step at X_k
+        one_bin_row(x, ks, gen, dtype)
+        if dtype == F16:
+            f16_edge_rows(x, ks, gen)
+        x = x.to(dtype)  # the normal rows rounded: ties of a few values a step at X_k
         got = ops.topk_mask_dynamic(x, ks)
         want = ref.topk_mask_ref(x, torch.clamp(ks, 0, vocab), guard=True)
         torch.cuda.synchronize()
-        assert got.dtype == BF16 and torch.equal(got, want), ("topk_mask_dynamic.bf16", rows, vocab)
+        assert got.dtype == dtype and torch.equal(got, want), ("topk_mask_dynamic" + tag, rows, vocab)
         kept = (want != 0).sum(dim=1).tolist()
         assert kept[8] == 0 and kept[9] == vocab, kept[:12]  # a NaN row keeps nothing
         xf = x.float()
@@ -993,24 +1102,35 @@ def check_bf16_topk(device):
                 for r in range(TOPK_EDGE_ROWS, BF16_ONE_BIN_ROW + 1)]
         assert min(ties) > 32 and max(ties) > 8192, ties  # past the warp and the buffer
         one_bin = xf[BF16_ONE_BIN_ROW]
-        assert bool(((one_bin >= 1.0) & (one_bin < 2.0)).all())  # one high byte of the key
+        assert bool(((one_bin >= 1.0) & (one_bin < (2.0 if dtype == BF16 else 1.0 + 2.0**-5))).all())
+        edges = ""
+        if dtype == F16:
+            sub = xf[F16_EDGE_ROWS]
+            assert bool((sub[80:] < 2.0**-14).all()) and bool((sub[80:] > 0).any())
+            assert bool((xf[F16_EDGE_ROWS + 1].abs() >= 65504.0 - 32 * 63).all())
+            edges = (f", fp16 subnormals with +-0 (kept {kept[F16_EDGE_ROWS]}), values near +-65 504, "
+                     f"with +-inf, subnormals of both signs (kept {kept[F16_EDGE_ROWS + 3]})")
         for k in (0, 1, 517, vocab, vocab + 5):
             got = ops.topk_mask(x, k)
             want = ref.topk_mask_ref(x, torch.full((rows,), min(k, vocab), dtype=torch.int32,
                                                    device=device), guard=False)
             torch.cuda.synchronize()
-            assert torch.equal(got, want), ("topk_mask.bf16", rows, vocab, k)
-        path = "shared-memory" if vocab <= ops.smem_max_vocab(device.index or 0, BF16) else "global-memory"
-        log(f"[kernels bf16] rows={rows} V={vocab} ({path} path): top-k masks torch.equal to their "
-            f"plain versions on bf16-rounded rows (NaN, +-inf, near 3e38, constant), tie groups of "
-            f"{ties[:4]} values at the k-th value and a one-exponent-bin row ({ties[4]} tied), "
+            assert torch.equal(got, want), ("topk_mask" + tag, rows, vocab, k)
+            if dtype == F16 and k == 0:  # lo above 65 504 rounds up to +inf: only +inf kept
+                near = (want[F16_EDGE_ROWS + 1:F16_EDGE_ROWS + 3] != 0).sum(dim=1).tolist()
+                assert near == [0, 9], near
+        path = "shared-memory" if vocab <= ops.smem_max_vocab(device.index or 0, dtype) else "global-memory"
+        log(f"[kernels {tag[1:]}] rows={rows} V={vocab} ({path} path): top-k masks torch.equal to their "
+            f"plain versions on {dtype}-rounded rows (NaN, +-inf, near 3e38, constant), tie groups of "
+            f"{ties[:4]} values at the k-th value and a one-bin row ({ties[4]} tied){edges}, "
             f"per-row and static k")
 
 
-def check_bf16_attention(device):
-    """The bf16 attention within S * 2^-24 * max|v| plus one bf16 ulp of its
-    plain version (both round once from fp32), with q, k x4, one key tile,
-    a tile past the end and late maxima; causal bitwise."""
+def check_attention_16(device, dtype: torch.dtype):
+    """The 16-bit attention within S * 2^-24 * max|v| plus one ulp of the
+    dtype of its plain version (both round once from fp32), with q, k x4,
+    one key tile, a tile past the end and late maxima; causal bitwise."""
+    tag = TAG[dtype]
     for bh, seq, d, what in ((96, 1024, 64, "q, k ~ N(0, 1)"), (20, 128, 64, "q, k ~ N(0, 1)"),
                              (20, 64, 64, "one key tile"), (12, 96, 64, "a tile past the end"),
                              (24, 1024, 64, "q, k x4"), (8, 1024, 64, "late maxima")):
@@ -1020,24 +1140,24 @@ def check_bf16_attention(device):
             q, k = 4 * q, 4 * k
         if what == "late maxima":  # row 1000's largest score at key 900, key tile 14 of 16
             k[:, 900] = 2.0 * q[:, 1000]
-        q, k, v = (z.to(BF16) for z in (q, k, v))
+        q, k, v = (z.to(dtype) for z in (q, k, v))
         got, want = ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
-        assert got.dtype == BF16
-        err = within_bf16(got, want, attention_tolerance(seq, v))
+        assert got.dtype == dtype
+        err = within_16(got, want, attention_tolerance(seq, v))
         if what == "late maxima":
             assert float((got[:, 1000].float() - v[:, 900].float()).abs().max()) < 0.05 * float(
                 v.float().abs().max())
-        log(f"[kernels bf16] flash_attention at ({bh}, {seq}, {d}), {what}: max |diff| {err:.3e} "
-            f"against its plain version (bound S * 2^-24 * max|v| + one bf16 ulp)")
+        log(f"[kernels {tag[1:]}] flash_attention at ({bh}, {seq}, {d}), {what}: max |diff| {err:.3e} "
+            f"against its plain version (bound S * 2^-24 * max|v| + one {tag[1:]} ulp)")
     gen = torch.Generator(device=device).manual_seed(6)
-    q, k, v = (torch.randn((24, 1024, 64), generator=gen, device=device).to(BF16) for _ in range(3))
+    q, k, v = (torch.randn((24, 1024, 64), generator=gen, device=device).to(dtype) for _ in range(3))
     base = ops.flash_attention(q, k, v)
     k[:, 700:], v[:, 700:] = 99.0, -99.0
     pert = ops.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert torch.equal(base[:, :700], pert[:, :700]) and not torch.equal(base[:, 700:], pert[:, 700:])
-    log("[kernels bf16] flash_attention causal bitwise")
+    log(f"[kernels {tag[1:]}] flash_attention causal bitwise")
 
 
 def _drive(client_cfg, server_cfg, dataset, fed, device, patches=None, **run_kw):
@@ -1128,43 +1248,77 @@ def capture_topk(captured: dict):
     return wrap
 
 
-def main_fed(engine: str, quantize: bool, bf16: bool = False, **change) -> FedConfig:
-    """The main path's FedConfig: GPT-2 small clients x8, cohort 4, 2 rounds."""
+def capture_sums(captured: list):
+    """A wrapper for ``ops.scatter_wire_sums`` that keeps each call's
+    ``(num, den)``: the wire aggregate's two channels."""
+    def wrap(sums):
+        def capture(*args, **kwargs):
+            captured.append(sums(*args, **kwargs))
+            return captured[-1]
+
+        return capture
+
+    return wrap
+
+
+def check_f16_wire_teacher(sums: list) -> int:
+    """The fp16 ``fused_e2e`` round's teacher is the reference's: ``num /
+    (den + 1e-12)`` in fp16, where 1e-12 rounds to 0, so every column no
+    client sent is 0 / 0 = NaN (``src/repro/core/aggregation.py:259``
+    gives the same) and, in round 0 (whose clients distil on no broadcast),
+    every other column is finite; from round 1 the clients distil on the
+    NaN broadcast.  Returns round 0's NaN columns."""
+    num, den = sums[0]
+    teacher = num / (den + 1e-12)
+    empty = (den == 0) & (num == 0)
+    assert teacher.dtype == F16 and torch.equal(torch.isnan(teacher), empty)
+    assert bool(torch.isfinite(teacher[~empty]).all()) and bool(torch.isfinite(num).all())
+    assert all(bool(torch.isnan(n / (d + 1e-12)).any()) for n, d in sums[1:])
+    return int(empty.sum())
+
+
+def main_fed(engine: str, quantize: bool, low: torch.dtype | None = None, **change) -> FedConfig:
+    """The main path's FedConfig: GPT-2 small clients x8, cohort 4, 2 rounds
+    (the round body in ``low``, bf16 or fp16, when given)."""
     return FedConfig(**{**dict(method="adald", engine=engine, use_kernels=True, pretrain_steps=0,
                                num_clients=8, clients_per_round=4, rounds=2, public_batch=64,
                                local_steps=2, distill_steps=1, server_distill_steps=2,
                                eval_size=128, quantize_wire=quantize),
-                        **(BF16_CFG if bf16 else {}), **change})
+                        **(LOW_CFG[low] if low else {}), **change})
 
 
-def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> dict:
+def phase_main_path(device, engine: str, quantize: bool, low: torch.dtype | None = None) -> dict:
     """One main-path run; returns its launch counts, its per-client k and,
     for ``fused``, the launch counts of the static top-k's public entry
-    point driven on its own after the run (and of the KL's, in bf16); for
-    the fp32 ``fused_e2e`` float-wire run also its record, round times, peak
-    memory and trained state on the host (what phase 5d holds the host
-    store to).  ``bf16``: the models compute in bf16
+    point driven on its own after the run (and of the KL's, in bf16 and
+    fp16); for the fp32 ``fused_e2e`` float-wire run also its record, round
+    times, peak memory and trained state on the host (what phase 5d holds
+    the host store to).  ``low`` (bf16 or fp16): the models compute in it
     (``ModelConfig.compute_dtype``) and so does the round body
     (``FedConfig.compute_dtype``)."""
-    fed = main_fed(engine, quantize, bf16)
+    fed = main_fed(engine, quantize, low)
     client_cfg, server_cfg = GPT2_SMALL, GPT2_LARGE
-    if bf16:
-        client_cfg, server_cfg = (c.with_overrides(**BF16_CFG) for c in (GPT2_SMALL, GPT2_LARGE))
-    dt = ".bf16" if bf16 else ""
+    if low:
+        client_cfg, server_cfg = (c.with_overrides(**LOW_CFG[low]) for c in (GPT2_SMALL, GPT2_LARGE))
+    dt = TAG[low] if low else ""
     ds = make_banking77_like(vocab_size=GPT2_SMALL.vocab_size, seq_len=32)
     tokens = torch.as_tensor(ds.tokens[: fed.public_batch], device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    captured = {}
+    captured, sums = {}, []
     patches = ({(ops, "topk_mask_dynamic"): capture_topk(captured)}
                if engine == "fused" and not quantize else None)
+    # fp16 wire aggregates hold NaN where no client sent, as the reference's (check_f16_wire_teacher)
+    nan_teacher = low == F16 and engine == "fused_e2e" and not quantize
+    if nan_teacher:
+        patches = {(ops, "scatter_wire_sums"): capture_sums(sums)}
     ops.reset_launches()  # this path's launches only, from here
     run, eng, srv = _drive(client_cfg, server_cfg, ds, fed, device, patches)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     wall = time.perf_counter() - t0
-    tag = f"{engine}/{'int8' if quantize else 'float'}{'/bf16' if bf16 else ''}"
+    tag = f"{engine}/{'int8' if quantize else 'float'}{'/' + dt[1:] if low else ''}"
     log(f"[main path {tag}] GPT-2 small clients x{fed.num_clients} (cohort {fed.clients_per_round}), "
         f"GPT-2 large server, {fed.rounds} rounds in {wall:.1f} s (setup included)")
     log(f"[main path {tag}] per_client_k={run.per_client_k}")
@@ -1188,8 +1342,17 @@ def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> 
         want["topk_mask_dynamic" + dt] = rounds if engine == "fused" else 0
     assert launches == want, (tag, launches, want)
     b = final_broadcast(eng, srv, tokens)
-    assert tuple(b.shape) == (fed.public_batch, GPT2_LARGE.vocab_size) and bool(torch.isfinite(b).all())
-    assert b.dtype == (BF16 if bf16 else torch.float32), b.dtype
+    assert tuple(b.shape) == (fed.public_batch, GPT2_LARGE.vocab_size)
+    assert b.dtype == (low or torch.float32), b.dtype
+    if nan_teacher:  # the server distils on the NaN columns: its loss and broadcast are NaN too
+        empty = check_f16_wire_teacher(sums)
+        assert len(sums) == rounds and all(math.isnan(x) for x in run.distill_loss), run.distill_loss
+        log(f"[main path {tag}] the wire aggregate num / (den + 1e-12) in fp16 is NaN exactly at the "
+            f"{empty} of {sums[0][0].numel()} columns no client sent in round 0 (1e-12 is 0 in fp16), "
+            f"finite elsewhere, as the reference's aggregate_wire gives it; the server distils on it: "
+            f"distill_loss {run.distill_loss}, broadcast NaN {int(torch.isnan(b).sum())} of {b.numel()}")
+    else:
+        assert bool(torch.isfinite(b).all())
     # the LoRA masters and the Adam moments stay fp32, whatever the round's dtype
     if engine == "sequential":  # the clients keep their own state
         states = [t for c in eng.clients for t in (split_lora(c.params)[0], c.opt.m, c.opt.v)]
@@ -1199,13 +1362,13 @@ def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> 
                else [split_lora(srv.params)[0], srv.opt.m, srv.opt.v])
     assert all(v.dtype == torch.float32 for tree in states for v in tree.values())
     assert all(math.isfinite(x) for x in run.server_acc + run.client_acc)
-    if engine == "fused_e2e":  # NaN off the e2e path, by the reference's definition
+    if engine == "fused_e2e" and not nan_teacher:  # NaN off the e2e path, by the reference's definition
         assert all(math.isfinite(x) for x in run.distill_loss)
     assert all(k > 0 for ks in run.per_client_k for k in ks)  # default channel: everyone transmits
     peak = torch.cuda.max_memory_allocated()
     out = {"launches": launches, "per_client_k": run.per_client_k, "entry_launches": {},
            "bytes": [(r.uplink_bytes, r.downlink_bytes, r.num_transmitters) for r in run.ledger.rounds]}
-    if not bf16 and (engine, quantize) in SHARD_RUNS:  # what phases 5d and 5e hold to it
+    if not low and (engine, quantize) in SHARD_RUNS:  # what phases 5d and 5e hold to it
         out.update(record=main_record(run), round_seconds=list(run.round_seconds), peak=peak,
                    trained=trained_state(eng, None if engine == "fused_e2e" else srv))
     if captured:
@@ -1226,9 +1389,9 @@ def phase_main_path(device, engine: str, quantize: bool, bf16: bool = False) -> 
         assert torch.equal(kept, torch.where(b.float() >= kth, b, torch.zeros_like(b)))
         log(f"[entry {tag}] topk_mask_dense(use_kernel=True) on the final broadcast at k={k}: "
             f"kernel launches {ops.LAUNCHES}")
-        if bf16:  # the KL's public entry point on the bf16 run's logits
+        if low:  # the KL's public entry point on the 16-bit run's logits
             kl = kl_entry(eng, srv, tokens, fed.temperature, client_cfg)
-            out["entry_launches"] = {**out["entry_launches"], "distill_kl.bf16": kl["distill_kl.bf16"]}
+            out["entry_launches"] = {**out["entry_launches"], "distill_kl" + dt: kl["distill_kl" + dt]}
     del run, eng, srv, b
     gc.collect()
     torch.cuda.empty_cache()
@@ -2287,7 +2450,7 @@ def _within_norm(got: dict, want: dict) -> tuple[float, str]:
 def phase_scale_out(device, card: str, runs: dict | None = None, cfgs=None,
                     cli_argv: tuple = ()) -> dict:
     """Phase 5e (see the module docstring).  ``runs``: phase 5's runs by
-    ``(engine, quantize, bf16)``; without them (a rehearsal on the CPU,
+    ``(engine, quantize, 16-bit dtype or None)``; without them (a rehearsal on the CPU,
     ``cfgs`` the tiny configs) the unsharded runs are made here.
     ``cli_argv``: arguments added to every ``fed_train`` call.  Returns the
     phase's launch counts."""
@@ -2312,7 +2475,7 @@ def phase_scale_out(device, card: str, runs: dict | None = None, cfgs=None,
     a_masks = None
     for engine, quant in SHARD_RUNS:
         fed = main_fed(engine, quant)
-        want = (runs or {}).get((engine, quant, False)) or scale_out_run(fed, device, cfgs)
+        want = (runs or {}).get((engine, quant, None)) or scale_out_run(fed, device, cfgs)
         got = scale_out_run(dataclasses.replace(fed, shard_clients=True), device, cfgs)
         expect(engine, quant, got, fed.rounds)
         count(got["launches"])
@@ -2334,7 +2497,7 @@ def phase_scale_out(device, card: str, runs: dict | None = None, cfgs=None,
         dist.destroy_process_group()
 
     # (b) world size 2 over gloo: two processes on the one card
-    wants = {"cohort 4": (runs or {}).get(("fused_e2e", False, False))}
+    wants = {"cohort 4": (runs or {}).get(("fused_e2e", False, None))}
     for name, change in SCALE_OUT_B.items():
         if wants.get(name) is None:
             wants[name] = scale_out_run(main_fed("fused_e2e", False, **change), device, cfgs)
@@ -2504,12 +2667,12 @@ def kl_entry(eng, srv, tokens, temp: float, client_cfg=GPT2_SMALL) -> dict:
     """The KL kernel through its public entry point on the run's real
     tensors: the final broadcast (teacher) and client 0's public logits
     (student), with their LoRA projections; returns the entry's launches.
-    On bf16 logits the plain loss computes in bf16, as the reference's
-    does, so the kernel's part is held against the plain version of the
-    kernel (fp32 math on the upcast logits) instead."""
+    On bf16 or fp16 logits the plain loss computes in that dtype, as the
+    reference's does, so the kernel's part is held against the plain
+    version of the kernel (fp32 math on the upcast logits) instead."""
     student, s_h = fed_steps.public_logits(eng.client_params(0), client_cfg, tokens)
     teacher, t_h, _ = srv.broadcast(tokens)
-    dt = ".bf16" if teacher.dtype == BF16 else ""
+    dt = TAG[teacher.dtype]
     ops.reset_launches()
     loss, parts = total_distill_loss(teacher, student, t_h, s_h, temperature=temp, use_kernel=True)
     torch.cuda.synchronize()
@@ -2531,7 +2694,7 @@ def kl_entry(eng, srv, tokens, temp: float, client_cfg=GPT2_SMALL) -> dict:
         assert "forward only" in str(e)
     else:
         raise AssertionError("the forward-only KL kernel accepted a student that requires grad")
-    log(f"[entry {'fused/bf16' if dt else 'sequential'}] total_distill_loss(use_kernel=True) on the "
+    log(f"[entry {'fused/' + dt[1:] if dt else 'sequential'}] total_distill_loss(use_kernel=True) on the "
         f"final broadcast "
         f"{tuple(teacher.shape)} and client 0's public logits: {float(loss):.6f} against "
         f"{float(plain):.6f} (use_kernel=False), |diff| {err:.3e} <= {tol:.3e}; kernel launches "
@@ -3462,18 +3625,21 @@ def phase_serving(device, card: str) -> dict:
         f"{tuple(qh.shape)}: max |diff| {err_chunked:.3e} against the chunked attention, "
         f"{err_plain:.3e} against its plain version (bound {tol:.3e}); kernel launches {entry}; "
         f"a q that requires grad raises")
-    # the bf16 kernel through the same entry point, on that q/k/v rounded to bf16
-    qb, kb, vb = (t.to(BF16) for t in (qh, kh, vh))
-    ops.reset_launches()
-    got = ops.flash_attention(qb, kb, vb)
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention.bf16"] == 1 and sum(ops.LAUNCHES.values()) == 1
-    entry["flash_attention.bf16"] = 1
-    plain_bf16 = ref.flash_attention_ref(*(t.reshape(-1, PREFILL_S, q.shape[-1]) for t in (qb, kb, vb)))
-    err_bf16 = within_bf16(got, plain_bf16.reshape(got.shape), attention_tolerance(PREFILL_S, vb))
-    log(f"[prefill] flash_attention on that q/k/v in bf16: max |diff| {err_bf16:.3e} against its "
-        f"plain version (bound S * 2^-24 * max|v| + one bf16 ulp); kernel launches {dict(ops.LAUNCHES)}")
-    out = {"entry_launches": entry, "qkv": (qh, kh, vh), "qkv_bf16": (qb, kb, vb)}
+    # the bf16 and fp16 kernels through the same entry point, on that q/k/v rounded
+    out = {"entry_launches": entry, "qkv": (qh, kh, vh)}
+    for dtype in (BF16, F16):
+        name = "flash_attention" + TAG[dtype]
+        qb, kb, vb = (t.to(dtype) for t in (qh, kh, vh))
+        ops.reset_launches()
+        got = ops.flash_attention(qb, kb, vb)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name] == 1 and sum(ops.LAUNCHES.values()) == 1
+        entry[name] = 1
+        plain_16 = ref.flash_attention_ref(*(t.reshape(-1, PREFILL_S, q.shape[-1]) for t in (qb, kb, vb)))
+        err_16 = within_16(got, plain_16.reshape(got.shape), attention_tolerance(PREFILL_S, vb))
+        log(f"[prefill] flash_attention on that q/k/v in {dtype}: max |diff| {err_16:.3e} against its "
+            f"plain version (bound S * 2^-24 * max|v| + one ulp); kernel launches {dict(ops.LAUNCHES)}")
+        out["qkv" + TAG[dtype].replace(".", "_")] = (qb, kb, vb)
     del sess, cache, store, src, params, backbone
     gc.collect()
     torch.cuda.empty_cache()
@@ -3512,7 +3678,7 @@ def _row(name: str, raw, wrapper, plain, library, check, bytes_moved: float, ops
 
 
 def time_scatter(name: str, k_cap: int, device) -> dict:
-    dtype = BF16 if name.endswith(".bf16") else torch.float32
+    dtype = next((dt for dt in (BF16, F16) if name.endswith(TAG[dt])), torch.float32)
     width = dtype.itemsize
     wire = make_wire(k_cap, seed=7, device=device, dtype=dtype)
     n, rows, k = wire.values.shape
@@ -3524,7 +3690,7 @@ def time_scatter(name: str, k_cap: int, device) -> dict:
         wrapper = lambda: ops.scatter_wire_sums(a, b, wire.indices, VOCAB)  # noqa: E731
         plain = lambda: tuple(x.to(dtype) for x in ref.scatter_wire_sums_ref(  # noqa: E731
             a, b, wire.indices, VOCAB))
-        fn = ops._fn("sparse_agg", "scatter_wire_sums" + ("_bf16" if width == 2 else "_f32"), 5, 4)
+        fn = ops._fn("sparse_agg", "scatter_wire_sums" + SUFFIX[dtype], 5, 4)
         ptrs = [t.data_ptr() for t in (a, b, wire.indices, num, den)]
         graph = [lambda st: fn(*ptrs, n, rows, k, VOCAB, st)]
         raw = lambda: fn(*ptrs, n, rows, k, VOCAB, stream)  # noqa: E731
@@ -3563,8 +3729,8 @@ def time_topk(name: str, real, device, pretrained=None) -> dict:
     ``ms``), random normal rows with those budgets (``ms_random``, the input
     earlier PRs timed) and constant rows (``ms_constant``: the fp32 kernel's
     candidate set never shrinks, every step is a full pass, its worst case);
-    in bf16 also rows of one exponent bin (``ms_one_bin``: the radix
-    select's histogram puts every value in one bin, its worst case); with
+    in bf16 and fp16 also rows of one bin of the radix select's high digit
+    (``ms_one_bin``: the histogram puts every value in one bin, its worst case); with
     ``pretrained``, the pretrained ``fused`` run's input of its last round
     (``ms_pretrained``: a trained model's logits).  The static k is the
     largest budget."""
@@ -3577,13 +3743,14 @@ def time_topk(name: str, real, device, pretrained=None) -> dict:
     if pretrained is not None:  # the pretrained fused run's own input, with the budgets above
         assert pretrained[0].shape == x_real.shape and pretrained[0].dtype == dtype
         inputs["pretrained"] = pretrained[0]
-    if dtype == BF16:  # every value in [1, 2): one bin of the radix select's high digit
-        inputs["one_bin"] = 1.0 + torch.randint(0, 128, (rows, VOCAB), generator=gen,
-                                                device=device).to(dtype) / 128
+    if dtype != torch.float32:  # one high-digit bin: [1, 2) in bf16, [1, 1 + 2^-5) in fp16
+        levels = 128 if dtype == BF16 else 32
+        inputs["one_bin"] = 1.0 + torch.randint(0, levels, (rows, VOCAB), generator=gen,
+                                                device=device).to(dtype) / (128 if dtype == BF16 else 1024)
     k_max = int(kk.max())
     out = torch.empty_like(x_real)
     stream = torch.cuda.current_stream(device).cuda_stream
-    fn = ops._fn("topk_select", "topk_mask" + ("_bf16" if dtype == BF16 else "_f32"), 3, 5)
+    fn = ops._fn("topk_select", "topk_mask" + SUFFIX[dtype], 3, 5)
     use_smem = int(VOCAB <= ops.smem_max_vocab(device.index or 0, dtype))
     k_all = torch.full((rows,), k_max, dtype=torch.int32, device=device)
     dynamic = name.startswith("topk_mask_dynamic")
@@ -3640,7 +3807,7 @@ def time_sparse_aggregate(ks: list[int], device, dtype: torch.dtype = torch.floa
     n = stack.shape[0]
     out = torch.empty((ROWS, VOCAB), dtype=dtype, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    fn = ops._fn("sparse_agg", "sparse_aggregate" + ("_bf16" if dtype == BF16 else "_f32"), 2, 3)
+    fn = ops._fn("sparse_agg", "sparse_aggregate" + SUFFIX[dtype], 2, 3)
     raw = lambda: fn(stack.data_ptr(), out.data_ptr(), n, ROWS, VOCAB, stream)  # noqa: E731
     want = ref.sparse_aggregate_ref(stack).to(dtype)
 
@@ -3649,7 +3816,7 @@ def time_sparse_aggregate(ks: list[int], device, dtype: torch.dtype = torch.floa
         return float((out - want).abs().max())
 
     elems = ROWS * VOCAB
-    return _row("sparse_aggregate" + (".bf16" if dtype == BF16 else ""), raw,
+    return _row("sparse_aggregate" + TAG[dtype], raw,
                 lambda: ops.sparse_aggregate(stack), lambda: ref.sparse_aggregate_ref(stack).to(dtype),
                 None, check, (n + 1) * elems * dtype.itemsize, (4 * n + 2) * elems,
                 f"N={n} rows={ROWS} V={VOCAB} k={ks} ({dtype})")
@@ -3666,8 +3833,7 @@ def time_distill_kl(device, dtype: torch.dtype = torch.float32) -> dict:
     copies = [(t, s)] + [(t.clone(), s.clone()) for _ in range(COLD_COPIES - 1)]
     out = torch.empty(ROWS, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    bf16 = dtype == BF16
-    fn = ops._fn("distill_kl", "distill_kl" + ("_bf16" if bf16 else "_f32"), 3, 2, 1)
+    fn = ops._fn("distill_kl", "distill_kl" + SUFFIX[dtype], 3, 2, 1)
     launches = [lambda st, a=a, b=b: fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), ROWS, VOCAB, 0.5, st)
                 for a, b in copies]
     raws = [lambda launch=launch: launch(stream) for launch in launches]
@@ -3680,7 +3846,7 @@ def time_distill_kl(device, dtype: torch.dtype = torch.float32) -> dict:
         return float(err.max())
 
     # per element pair: two scalings, a difference, two exps and the rescaled sums
-    name = "distill_kl" + (".bf16" if bf16 else "")
+    name = "distill_kl" + TAG[dtype]
     row = _row(name, in_turn(raws), lambda: ops.distill_kl(t, s, 2.0),
                in_turn([lambda a=a, b=b: ref.distill_kl_ref(a, b, 2.0) for a, b in copies]), None, check,
                2 * ROWS * VOCAB * dtype.itemsize + ROWS * 4, 12 * ROWS * VOCAB,
@@ -3699,23 +3865,23 @@ def time_distill_kl(device, dtype: torch.dtype = torch.float32) -> dict:
 
 def time_flash_attention(qkv, device) -> dict:
     """The attention kernel on the serving prefill's layer-0 q/k/v (in
-    their dtype).  In bf16 the library call, bf16 SDPA, rounds P to bf16
-    before P V, so it is not the same function: its max error against the
-    plain version is logged and kept beside its time."""
+    their dtype).  In bf16 (fp16) the library call, bf16 (fp16) SDPA,
+    rounds P to that dtype before P V, so it is not the same function: its
+    max error against the plain version is logged and kept beside its time."""
     b, h, seq, d = qkv[0].shape
     q, k, v = (x.reshape(b * h, seq, d) for x in qkv)
-    bf16 = q.dtype == BF16
+    low = q.dtype != torch.float32
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(device).cuda_stream
-    fn = ops._fn("flash_attention", "flash_attention" + ("_bf16" if bf16 else "_f32"), 4, 3, 1)
+    fn = ops._fn("flash_attention", "flash_attention" + SUFFIX[q.dtype], 4, 3, 1)
     ptrs = [x.data_ptr() for x in (q, k, v, out)]
     raw = lambda: fn(*ptrs, b * h, seq, d, d**-0.5, stream)  # noqa: E731
     want = ref.flash_attention_ref(q, k, v)
     tol = attention_tolerance(seq, v)
 
     def check():
-        if bf16:
-            return within_bf16(out, want, tol)
+        if low:
+            return within_16(out, want, tol)
         err = float((out - want).abs().max())
         assert err <= tol
         return err
@@ -3725,28 +3891,29 @@ def time_flash_attention(qkv, device) -> dict:
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         q4, k4, v4, is_causal=True)
     # the causal half of q k^T and of p v: S^2 * D operations each per head-batch.  fp32:
-    # each product at fp32 grade is three TF32 products on the tensor cores.  bf16: q k^T
-    # is one bf16 product (bf16 x bf16 is exact in fp32) and p v at fp32 grade three, p
-    # split into three bf16 pieces, at the bf16 rate (the row's bound, kept so that it
+    # each product at fp32 grade is three TF32 products on the tensor cores.  bf16 (fp16):
+    # q k^T is one 16-bit product (exact in fp32) and p v at fp32 grade three, p split
+    # into three 16-bit pieces, at the 16-bit rate (the row's bound, kept so that it
     # compares across versions); ``design_bound_ms`` prices what the kernel runs, p in
-    # two bf16 pieces
+    # two pieces
     ops_done = 2 * seq * seq * d * b * h
     io_bytes = 4 * q.numel() * q.element_size()
     fp32_ms, _ = bound(io_bytes, ops_done)
-    if bf16:
-        tc_ops, tc_rate, basis = (1 + 3) * ops_done // 2, BF16_OPS_PER_S, "1+3 bf16 products"
+    if low:
+        tc_ops, tc_rate, basis = (1 + 3) * ops_done // 2, BF16_OPS_PER_S, f"1+3 {q.dtype} products"
     else:
         tc_ops, tc_rate, basis = TF32_SPLIT * ops_done, TF32_OPS_PER_S, "3+3 TF32 products"
-    row = _row("flash_attention" + (".bf16" if bf16 else ""), raw, lambda: ops.flash_attention(q, k, v),
+    row = _row("flash_attention" + TAG[q.dtype], raw, lambda: ops.flash_attention(q, k, v),
                lambda: ref.flash_attention_ref(q, k, v), library, check, io_bytes, tc_ops,
                f"B*H={b * h} S={seq} D={d} ({q.dtype}; {basis} on the tensor cores; the fp32 "
                f"CUDA-core bound would be {fp32_ms * 1e3:.2f} us)", tc_rate)
-    if bf16:
+    if low:
         row["design_bound_ms"], _ = bound(io_bytes, (1 + 2) * ops_done // 2, BF16_OPS_PER_S)
-        log(f"[timing] {row['name']}: the kernel's own design (Q K^T one bf16 product, P V two: P "
-            f"in two bf16 pieces) bounds it at {row['design_bound_ms'] * 1e3:.2f} us; the earlier "
-            f"upcasting design took {EARLIER_MS[row['name']]} ms (H100 80GB HBM3, 700 W; PERF.md "
-            f"section 6), not measured in this run")
+        log(f"[timing] {row['name']}: the kernel's own design (Q K^T one 16-bit product, P V two: P "
+            f"in two pieces) bounds it at {row['design_bound_ms'] * 1e3:.2f} us")
+    if row["name"] in EARLIER_MS:
+        log(f"[timing] {row['name']}: the earlier upcasting design took {EARLIER_MS[row['name']]} ms "
+            f"(H100 80GB HBM3, 700 W; PERF.md section 6), not measured in this run")
     row["library_max_abs_err"] = float((library().reshape(want.shape).float() - want.float()).abs().max())
     log(f"[timing] {row['name']}: SDPA on (B, H, S, D) {row['library_ms']:.4f} ms, off the plain "
         f"version by {row['library_max_abs_err']:.3e} (the kernel by {row['max_abs_err']:.3e})")
@@ -3763,27 +3930,31 @@ def main() -> int:
     check_distill_kl(device)
     check_flash_attention(device)
     check_bf16_kernels(device)
+    check_f16_kernels(device)
     phase_small_input(device)
     phase_small_pretrain(device)
 
     runs = {}
-    for engine, quantize, bf16 in (("fused_e2e", False, False), ("fused_e2e", True, False),
-                                   ("fused", False, False), ("fused", True, False),
-                                   ("batched", False, False), ("sequential", False, False),
-                                   ("fused_e2e", False, True), ("fused", False, True)):
-        runs[(engine, quantize, bf16)] = phase_main_path(device, engine, quantize, bf16)
-    seq, bat = runs[("sequential", False, False)], runs[("batched", False, False)]
+    for engine, quantize, low in (("fused_e2e", False, None), ("fused_e2e", True, None),
+                                  ("fused", False, None), ("fused", True, None),
+                                  ("batched", False, None), ("sequential", False, None),
+                                  ("fused_e2e", False, BF16), ("fused", False, BF16),
+                                  ("fused_e2e", False, F16), ("fused", False, F16)):
+        runs[(engine, quantize, low)] = phase_main_path(device, engine, quantize, low)
+    seq, bat = runs[("sequential", False, None)], runs[("batched", False, None)]
     assert seq["per_client_k"] == bat["per_client_k"] and seq["bytes"] == bat["bytes"], (seq, bat)
     log("[main path] sequential == batched on per-client k, uplink and downlink bytes and "
         "transmitters")
-    for engine in ("fused_e2e", "fused"):  # the budgets depend on the channel only
-        f32, bf = runs[(engine, False, False)], runs[(engine, False, True)]
-        assert bf["per_client_k"] == f32["per_client_k"] and bf["bytes"] == f32["bytes"], (engine, f32, bf)
-    log("[main path] bf16 == fp32 on per-client k, uplink and downlink bytes and transmitters, "
-        "fused_e2e and fused")
+    for low in (BF16, F16):
+        for engine in ("fused_e2e", "fused"):  # the budgets depend on the channel only
+            f32, lo = runs[(engine, False, None)], runs[(engine, False, low)]
+            assert lo["per_client_k"] == f32["per_client_k"] and lo["bytes"] == f32["bytes"], (
+                engine, low, f32, lo)
+        log(f"[main path] {TAG[low][1:]} == fp32 on per-client k, uplink and downlink bytes and "
+            f"transmitters, fused_e2e and fused")
     pretrained = phase_pretrained(device)
     faults = phase_faults(device)
-    host_store = phase_host_store(device, runs[("fused_e2e", False, False)])
+    host_store = phase_host_store(device, runs[("fused_e2e", False, None)])
     scale_out = phase_scale_out(device, card, runs)
     serving = phase_serving(device, card)
     families = phase_families(device, card)
@@ -3793,11 +3964,12 @@ def main() -> int:
                 + faults["launches"].get(name, 0) + host_store["launches"].get(name, 0)
                 + scale_out["launches"].get(name, 0) + families["launches"].get(name, 0)
                 + ssm["launches"].get(name, 0) + modal["launches"].get(name, 0) for name in KERNELS}
-    entry_names = ("topk_mask", "distill_kl", "topk_mask.bf16", "distill_kl.bf16")
+    entry_names = ("topk_mask", "distill_kl", "topk_mask.bf16", "distill_kl.bf16", "topk_mask.f16",
+                   "distill_kl.f16")
     entry = {name: sum(r["entry_launches"].get(name, 0) for r in runs.values()) for name in entry_names}
-    for name in ("flash_attention", "flash_attention.bf16"):
+    for name in ("flash_attention", "flash_attention.bf16", "flash_attention.f16"):
         entry[name] = serving["entry_launches"][name]
-    log(f"[main path] kernel launches over the eight runs, the pretrained phase's four, the "
+    log(f"[main path] kernel launches over the ten runs, the pretrained phase's four, the "
         f"faults phase's, the host store phase's, the scale-out phase's, the families phase's, "
         f"the state-space phase's and the modal phase's {launches} (the faults "
         f"phase's alone {faults['launches']}, the host store phase's {host_store['launches']}, "
@@ -3807,24 +3979,26 @@ def main() -> int:
     log(f"[entry] launches through the public entry points {entry}")
 
     k_caps = {
-        name: max(k_cap_bucket(ks, VOCAB) for ks in runs[("fused_e2e", quant, bf16)]["per_client_k"])
-        for name, quant, bf16 in (("scatter_wire_sums", False, False),
-                                  ("scatter_wire_sums_dequant", True, False),
-                                  ("scatter_wire_sums.bf16", False, True))
+        name: max(k_cap_bucket(ks, VOCAB) for ks in runs[("fused_e2e", quant, low)]["per_client_k"])
+        for name, quant, low in (("scatter_wire_sums", False, None),
+                                 ("scatter_wire_sums_dequant", True, None),
+                                 ("scatter_wire_sums.bf16", False, BF16),
+                                 ("scatter_wire_sums.f16", False, F16))
     }
-    fused_ks = runs[("fused", False, False)]["per_client_k"][-1]
-    topk_input = runs[("fused", False, False)]["topk_input"]
-    topk_bf16 = runs[("fused", False, True)]["topk_input"]
-    assert topk_bf16[0].dtype == BF16
+    fused_ks = runs[("fused", False, None)]["per_client_k"][-1]
+    topk_input = runs[("fused", False, None)]["topk_input"]
     rows = [time_scatter(name, k_cap, device) for name, k_cap in k_caps.items()]
     rows += [time_topk("topk_mask_dynamic", topk_input, device, pretrained["topk_input"]),
              time_sparse_aggregate(fused_ks, device),
              time_topk("topk_mask", topk_input, device, pretrained["topk_input"]), time_distill_kl(device),
-             time_flash_attention(serving["qkv"], device),
-             time_topk("topk_mask_dynamic.bf16", topk_bf16, device),
-             time_sparse_aggregate(runs[("fused", False, True)]["per_client_k"][-1], device, BF16),
-             time_topk("topk_mask.bf16", topk_bf16, device), time_distill_kl(device, BF16),
-             time_flash_attention(serving["qkv_bf16"], device)]
+             time_flash_attention(serving["qkv"], device)]
+    for low in (BF16, F16):
+        topk_low = runs[("fused", False, low)]["topk_input"]
+        assert topk_low[0].dtype == low
+        rows += [time_topk("topk_mask_dynamic" + TAG[low], topk_low, device),
+                 time_sparse_aggregate(runs[("fused", False, low)]["per_client_k"][-1], device, low),
+                 time_topk("topk_mask" + TAG[low], topk_low, device), time_distill_kl(device, low),
+                 time_flash_attention(serving["qkv" + TAG[low].replace(".", "_")], device)]
     rows = [{**row, "launches": launches[row["name"]],
              **({"entry_launches": entry[row["name"]]} if row["name"] in entry else {})}
             for row in rows]

@@ -144,17 +144,17 @@ def topk_bf16_clocks() -> str:
     store; the block's globaltimer start and end)."""
     return substituted(CSRC / "topk_select.cu", (
         ("namespace {\n", "namespace {\n__device__ long long* g_prof;\n"),
-        ("  const int tid = threadIdx.x;\n  const __nv_bfloat16* xr",
+        ("  const int tid = threadIdx.x;\n  const T* xr",
             "  const long long pt0 = clock64(); long long pg0;\n  " + GLOBALTIMER.format("pg0") + "\n"
-            "  const int tid = threadIdx.x;\n  const __nv_bfloat16* xr"),
+            "  const int tid = threadIdx.x;\n  const T* xr"),
         ("  const bool any_nan = mn != mn;\n\n  // -- X_k",
             "  const bool any_nan = mn != mn;\n  const long long pt1 = clock64();\n\n  // -- X_k"),
         ("  // -- the 30 steps, replayed", "  const long long pt2 = clock64();\n  // -- the 30 steps, replayed"),
-        ("  const __nv_bfloat162 lo2 = __bfloat162bfloat162(__float2bfloat16_ru(s_lo));\n",
-            "  const __nv_bfloat162 lo2 = __bfloat162bfloat162(__float2bfloat16_ru(s_lo));\n"
+        ("  const typename H::T2 lo2 = H::up2(s_lo);\n",
+            "  const typename H::T2 lo2 = H::up2(s_lo);\n"
             "  const long long pt3 = clock64();\n"),
-        ("    for (int c = tid; c < vocab; c += kThreads) o16[c] = (uint16_t)keep2(x16[c], lo2);\n  }\n}\n",
-            "    for (int c = tid; c < vocab; c += kThreads) o16[c] = (uint16_t)keep2(x16[c], lo2);\n  }\n"
+        ("    for (int c = tid; c < vocab; c += kThreads) o16[c] = (uint16_t)keep2<T>(x16[c], lo2);\n  }\n}\n",
+            "    for (int c = tid; c < vocab; c += kThreads) o16[c] = (uint16_t)keep2<T>(x16[c], lo2);\n  }\n"
             "  __syncthreads();\n"
             "  if (tid == 0 && g_prof) { long long g1;\n    " + GLOBALTIMER.format("g1") + "\n"
             "    long long* d = g_prof + 8 * blockIdx.x;\n"
@@ -187,8 +187,8 @@ def attention_bf16_clocks() -> str:
             "    fence_regs(o);\n    const long long cd = clock64();\n    csm += cd - cc;\n\n    // O += P V"),
         ("    wgmma_commit();\n    wgmma_wait();\n    fence_regs(o);\n    __syncwarp();\n",
             "    wgmma_commit();\n    wgmma_wait();\n    fence_regs(o);\n    cpv += clock64() - cd;\n    __syncwarp();\n"),
-        ("          pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);\n  }\n}\n",
-            "          pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);\n  }\n"
+        ("          E::pack(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);\n  }\n}\n",
+            "          E::pack(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);\n  }\n"
             "  if ((threadIdx.x & 127) == 0 && g_aprof) { long long g1;\n    " + GLOBALTIMER.format("g1") + "\n"
             "    long long* d = g_aprof + 8 * ((blockIdx.y * gridDim.x + blockIdx.x) * kConsumers + wg);\n"
             "    d[0] = cw; d[1] = cq; d[2] = csm; d[3] = cpv; d[4] = n_mine; d[5] = blockIdx.y;\n"
@@ -325,9 +325,9 @@ def scatter_bf16_clocks() -> str:
         ("    if ((i + 1) % per_client == 0) consumers_sync();  // client n lands before client n+1 adds\n  }\n",
             "    if ((i + 1) % per_client == 0) consumers_sync();  // client n lands before client n+1 adds\n"
             "    cadd += clock64() - cs_;\n  }\n  const long long c2_ = clock64();\n"),
-        ("      if (col >= 0 && col < vocab) den_r[col] = __float2bfloat16_rn(marked(s_den, marks, i));\n"
+        ("      if (col >= 0 && col < vocab) den_r[col] = from_f32<T>(marked(s_den, marks, i));\n"
          "    }\n  }\n}\n",
-            "      if (col >= 0 && col < vocab) den_r[col] = __float2bfloat16_rn(marked(s_den, marks, i));\n"
+            "      if (col >= 0 && col < vocab) den_r[col] = from_f32<T>(marked(s_den, marks, i));\n"
             "    }\n  }\n"
             "  consumers_sync();\n"
             "  if (tid == 0 && g_sprof) { long long g1;\n    " + gt("g1") + "\n"
@@ -364,8 +364,10 @@ def kl_bf16_clocks(loads_only: bool = False) -> str:
             "  cluster_wait();\n  const long long c3_ = clock64();\n"),
         ("      *out = st.u / st.t.z - lse_t + lse_s;\n    }\n  }\n}\n",
             "      *out = st.u / st.t.z - lse_t + lse_s;\n    }\n  }\n  KL_REC(c3_ - c2_, clock64() - c3_);\n}\n"),
-        ("                           float inv_temp) {\n  cg::cluster_group cluster = cg::this_cluster();\n",
-            "                           float inv_temp) {\n  long long pg0;\n  " + gt("pg0") + "\n"
+        ("                         float* __restrict__ out, int vocab, float inv_temp) {\n"
+         "  cg::cluster_group cluster = cg::this_cluster();\n",
+            "                         float* __restrict__ out, int vocab, float inv_temp) {\n"
+            "  long long pg0;\n  " + gt("pg0") + "\n"
             "  const long long c0_ = clock64();\n  cg::cluster_group cluster = cg::this_cluster();\n"),
         ("  push_merge_and_write(st, cluster, out + r);\n",
             "  const long long c1_ = clock64();\n  push_merge_and_write(st, cluster, out + r, c0_, c1_, pg0);\n"),
@@ -373,7 +375,7 @@ def kl_bf16_clocks(loads_only: bool = False) -> str:
             'extern "C" {\nvoid kl_set_prof(long long* p) { cudaMemcpyToSymbol(g_kprof, &p, sizeof(p)); }\n'),
     ]
     if loads_only:
-        pairs.append(("      add_granule(st, load_granule(t8 + i), load_granule(s8 + i), inv_temp);\n",
+        pairs.append(("      add_granule<T>(st, load_granule(t8 + i), load_granule(s8 + i), inv_temp);\n",
                       "    { const uint4 a = load_granule(t8 + i), b = load_granule(s8 + i);\n"
                       "      st.u += __uint_as_float(((a.x ^ b.x ^ a.y ^ b.y ^ a.z ^ b.z ^ a.w ^ b.w) & 0x007fffffu)"
                       " | 0x3f800000u); }\n"))
@@ -381,9 +383,10 @@ def kl_bf16_clocks(loads_only: bool = False) -> str:
 
 
 # the kernels whose registers, shared memory and spills the probe prints
-PTXAS_KEYS = ("topk_mask_kernel", "topk_radix_bf16_kernel", "scatter_wire_kernel", "scatter_wire_bf16_kernel",
-              "sparse_aggregate", "distill_kl_kernel", "distill_kl_bf16_kernel", "flash_attention_kernel",
-              "flash_attention_bf16_kernel")
+PTXAS_KEYS = ("topk_mask_kernel", "topk_radix_bf16_kernel", "topk_radix_16_kernel", "scatter_wire_kernel",
+              "scatter_wire_bf16_kernel", "scatter_wire_16_kernel", "sparse_aggregate", "distill_kl_kernel",
+              "distill_kl_bf16_kernel", "distill_kl_16_kernel", "flash_attention_kernel",
+              "flash_attention_bf16_kernel", "flash_attention_16_kernel")
 # builds of this checkout's bf16 kernels with a line or two changed, timed beside it
 VARIANTS = {
     "topk_plain_stores": ("topk_select.cu", [(
@@ -400,8 +403,8 @@ VARIANTS.update({
                                                 ("constexpr int kRing = 3;", "constexpr int kRing = 4;")])
        for n in (512, 256)},
     # 512 consumer threads instead of 256
-    "scatter_512_threads": ("sparse_agg.cu", [("constexpr int kBf16Consumers = 256;",
-                                               "constexpr int kBf16Consumers = 512;")]),
+    "scatter_512_threads": ("sparse_agg.cu", [("constexpr int k16Consumers = 256;",
+                                               "constexpr int k16Consumers = 512;")]),
     # always the smallest tiles (the launch's rule where no cut fits one wave)
     "scatter_tiles_800": ("sparse_agg.cu", [("  for (int want = 1; want < most; ++want) {",
                                              "  for (int want = most; want < most; ++want) {")]),
@@ -409,9 +412,9 @@ VARIANTS.update({
     "scatter_no_multicast": ("sparse_agg.cu", [("  t.cluster = min(kMaxCluster, want);", "  t.cluster = 1;")]),
     # the bf16 KL's loop unrolled 4 times (4 granules of each operand in flight a thread)
     "kl_unroll_4": ("distill_kl.cu", [("#pragma unroll 2\n    for (int i = b0 + threadIdx.x; i < b1; i += kThreads)\n"
-                                       "      add_granule(",
+                                       "      add_granule<T>(",
                                        "#pragma unroll 4\n    for (int i = b0 + threadIdx.x; i < b1; i += kThreads)\n"
-                                       "      add_granule(")]),
+                                       "      add_granule<T>(")]),
     # the bf16 KL with the CTA's slice prefetched into L2 by bulk prefetches at its start
     "kl_prefetch": ("distill_kl.cu", [(
         "    const uint4* s8 = reinterpret_cast<const uint4*>(s + head);\n#pragma unroll 2\n",
@@ -581,8 +584,11 @@ def compile_libs(parent: Path, kernels: set[str]) -> dict[str, ctypes.CDLL]:
         made["earlier_scatter_clocks"] = scatter_loader_clocks(pcsrc / "sparse_agg.cu")
         made["this_scatter_clocks"] = scatter_bf16_clocks()
     if need("kl_bf16"):
-        made["earlier_kl_clocks"] = kl_loader_clocks(pcsrc / "distill_kl.cu")
-        made["earlier_kl_loads"] = kl_loader_clocks(pcsrc / "distill_kl.cu", loads_only=True)
+        try:  # the earlier build's upcasting loader: a checkout from before PR 18 has it
+            made["earlier_kl_clocks"] = kl_loader_clocks(pcsrc / "distill_kl.cu")
+            made["earlier_kl_loads"] = kl_loader_clocks(pcsrc / "distill_kl.cu", loads_only=True)
+        except SystemExit as e:
+            print(f"[probe] no clocked copy of the earlier KL ({e})", flush=True)
         made["this_kl_clocks"] = kl_bf16_clocks()
         made["this_kl_loads"] = kl_bf16_clocks(loads_only=True)
     made.update({name: substituted(CSRC / src, pairs) for name, (src, pairs) in VARIANTS.items()
@@ -604,14 +610,16 @@ def compile_libs(parent: Path, kernels: set[str]) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def sass_histogram(lib: Path, kernel: str, top: int = 24) -> str:
-    """The opcode mix of the one kernel of ``lib`` whose name holds ``kernel``."""
+def sass_histogram(lib: Path, kernel: str, top: int = 24, arg: str = "") -> str:
+    """The opcode mix of the kernel of ``lib`` whose name holds ``kernel``
+    (a template's instance: whose mangled name also holds ``arg``)."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
                           text=True).stdout
     # cuobjdump prints each function after a "Function : <mangled name>" line
     sections = re.split(r"\n\s*Function : ", sass)
-    sass = "\n".join(sec for sec in sections[1:] if re.match(rf"\S*\d{kernel}E", sec))
+    sass = "\n".join(sec for sec in sections[1:]
+                     if re.match(rf"\S*\d{kernel}[EI]", sec) and arg in sec.split(None, 1)[0])
     counts: dict[str, int] = {}
     for line in sass.splitlines():
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
@@ -695,7 +703,7 @@ def topk_bf16_ab(libs, device, real=None) -> None:
     """The bf16 top-k, this build against the earlier one in turns on normal,
     scale-0.55, constant and one-exponent-bin rows (and the bf16 fused run's
     input), with the clocked copy's phases and the plain-stores variant."""
-    cs.check_bf16_topk(device)
+    cs.check_topk_16(device, cs.BF16)
     stream = torch.cuda.current_stream(device).cuda_stream
     rows, vocab = 4 * cs.ROWS, cs.VOCAB
     gen = torch.Generator(device=device).manual_seed(5)
@@ -741,7 +749,7 @@ def attention_bf16_ab(libs, device) -> None:
     """The bf16 attention, this build against the earlier one and bf16 SDPA
     in turns at (96, 1024, 64), with the clocked copy's per-warpgroup
     phases, the one-block-an-SM variant and the kernel's opcode mix."""
-    cs.check_bf16_attention(device)
+    cs.check_attention_16(device, cs.BF16)
     stream = torch.cuda.current_stream(device).cuda_stream
     b, h, seq, d = 8, 12, 1024, 64
     gen = torch.Generator(device=device).manual_seed(7)
@@ -757,12 +765,16 @@ def attention_bf16_ab(libs, device) -> None:
            **{name: c_fn(libs[name], "flash_attention_bf16", 4, 3, 1)
               for name in VARIANTS if name.startswith("attention")}}
     runs = {name: (lambda fn=fn: fn(*args, b * h, seq, d, d**-0.5, stream)) for name, fn in fns.items()}
+    outs = {}
     for name, fn in runs.items():
         out.fill_(float("nan"))
         assert fn() == 0, name
         torch.cuda.synchronize()
-        print(f"[probe] flash_attention.bf16 {name}: max |diff| {cs.within_bf16(out, want, tol):.3e}",
+        outs[name] = out.clone()
+        print(f"[probe] flash_attention.bf16 {name}: max |diff| {cs.within_16(out, want, tol):.3e}",
               flush=True)
+    print(f"[probe] flash_attention.bf16: this == earlier bitwise: {torch.equal(outs['this'], outs['earlier'])}",
+          flush=True)
     in_turns(f"flash_attention.bf16 at ({b * h}, {seq}, {d})", runs["earlier"], runs["this"])
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
     t = [cs.time_ms(f) * 1e3 for f in (sdpa, runs["this"], runs["this"], sdpa)]
@@ -786,7 +798,7 @@ def attention_bf16_ab(libs, device) -> None:
           f"warpgroup duration median {median(p[:, 7] - p[:, 6])} ns, last block start "
           f"{int((p[:, 6] - p[:, 6].min()).max())} ns", flush=True)
     lib = build.build_all(["flash_attention"])["flash_attention"]
-    print(f"[probe] flash_attention.bf16 SASS: {sass_histogram(lib, 'flash_attention_bf16_kernel')}", flush=True)
+    print(f"[probe] flash_attention.bf16 SASS: {sass_histogram(lib, 'flash_attention_16_kernel', arg='4Bf16')}", flush=True)
 
 
 def graph_turns(label: str, old, new) -> None:
@@ -835,7 +847,7 @@ def scatter_bf16_ab(libs, device) -> None:
     and 1024: both builds ``torch.equal`` to the plain version, in turns
     (back-to-back C calls, then from a CUDA graph), and the clocked copies'
     phases."""
-    cs.check_bf16_scatter(device)
+    cs.check_scatter_16(device, cs.BF16)
     stream = torch.cuda.current_stream(device).cuda_stream
     fns = {"this": ops._fn("sparse_agg", "scatter_wire_sums_bf16", 5, 4),
            "earlier": c_fn(libs["parent_agg"], "scatter_wire_sums_bf16", 5, 4)}
@@ -868,6 +880,9 @@ def scatter_bf16_ab(libs, device) -> None:
         for name in clocked:
             prof = clocked_run(libs[name], "scatter_set_prof", rows * 32, lambda name=name: launch[name](stream))
             blocks = prof[:, 7] != 0
+            if not bool(blocks.any()):  # an earlier build whose bf16 scatter has no fp32-body loader
+                print(f"[probe] {name}: no block ran the clocked code", flush=True)
+                continue
             clock_report(f"{name} ({int(blocks.sum())} blocks)", prof[blocks], SCATTER_PHASES[name])
 
 
@@ -876,7 +891,7 @@ def kl_bf16_ab(libs, device) -> None:
     the tolerance, in turns warm and cold (in turn over
     ``chip_smoke.COLD_COPIES`` copies), from a CUDA graph too, and the
     clocked copies' phases (with a copy whose loop only loads)."""
-    cs.check_bf16_kl(device)
+    cs.check_kl_16(device, cs.BF16)
     stream = torch.cuda.current_stream(device).cuda_stream
     rows, vocab = cs.ROWS, cs.VOCAB
     gen = torch.Generator(device=device).manual_seed(31)
