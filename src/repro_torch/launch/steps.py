@@ -24,6 +24,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import _lm_logits, backbone
 from repro_torch.optim import AdamWState, adamw_init, adamw_update
+from repro_torch.sharding import constrain, local_apply
 
 # the serving steps live in repro_torch.serve, re-exported as the reference does
 from repro_torch.serve.steps import make_decode_step as make_serve_step
@@ -58,12 +59,14 @@ def chunked_lm_loss(params: dict, cfg: ModelConfig, h: torch.Tensor, targets: to
     chunk = min(CE_CHUNK, s)
     pad = (-s) % chunk
     if pad:
-        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
-        targets = torch.nn.functional.pad(targets, (0, pad))
-        mask = torch.nn.functional.pad(mask, (0, pad))
+        h = _pad_positions(h, pad, h.ndim - 2)
+        targets = _pad_positions(targets, pad, targets.ndim - 1)
+        mask = _pad_positions(mask, pad, mask.ndim - 1)
 
     def one(hc, tc, mc):
-        logits = _lm_logits(params, cfg, hc, None).float()  # (..., chunk, V)
+        # (..., chunk, V); on a mesh the chunk's vocab gathered whole first
+        logits = constrain(_lm_logits(params, cfg, hc, None).float(),
+                           *(None,) * (hc.ndim - 3), "batch", None, None)
         logz = torch.logsumexp(logits, dim=-1)
         tgt_logit = torch.gather(logits, -1, tc[..., None].long())[..., 0]
         return torch.sum((logz - tgt_logit) * mc)
@@ -78,6 +81,16 @@ def chunked_lm_loss(params: dict, cfg: ModelConfig, h: torch.Tensor, targets: to
         else:
             total = total + one(*part)
     return total / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _pad_positions(x: torch.Tensor, pad: int, seq_dim: int) -> torch.Tensor:
+    """``x`` with ``pad`` zeros after the last position of ``seq_dim``.  On a
+    mesh each rank pads its own batch rows (the positions are whole on
+    every rank), as DTensor's own pad may lose a mesh dim's placement."""
+    widths = (0, 0) * (x.ndim - 1 - seq_dim) + (0, pad)
+    logical = tuple("batch" if d == seq_dim - 1 else None for d in range(x.ndim))
+    return local_apply(lambda t: torch.nn.functional.pad(t, widths), (x,), (logical,), logical,
+                       {"batch": x.shape[seq_dim - 1]})
 
 
 def init_train_opt(params: dict[str, torch.Tensor], cfg: ModelConfig) -> AdamWState:

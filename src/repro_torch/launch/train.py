@@ -9,8 +9,9 @@ frontend in each batch, drawn at the step's seed) through
 :func:`repro_torch.launch.steps.make_train_step` (full-parameter AdamW,
 next-token CE) on a synthetic LM stream, prints each step's loss and
 tokens/s, and with ``--ckpt-dir`` writes the params through
-:func:`repro_torch.checkpoint.save_step`.  ``--production`` (the full
-config on the production mesh) is a later slice.
+:func:`repro_torch.checkpoint.save_step`.  ``--production`` builds the
+full config and stops, as the reference's does: its path needs the 16x16
+mesh of 256 cards, and ``python -m repro_torch.launch.dryrun`` proves it.
 """
 
 from __future__ import annotations
@@ -22,9 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_step
-from repro_torch.configs import ARCHITECTURES, get_smoke_config
+from repro_torch.configs import ARCHITECTURES, get_config, get_smoke_config
 from repro_torch.data import make_lm_stream
-from repro_torch.fed.engines.base import not_carried
 from repro_torch.launch.steps import init_train_opt, make_train_step
 from repro_torch.models import init as model_init
 from repro_torch.models import frontends
@@ -38,7 +38,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--production", action="store_true",
-                    help="full config on the production mesh (not carried by the port yet)")
+                    help="full config on the production mesh (256 cards)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -46,7 +46,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.production:
-        raise not_carried("--production", "production mesh, sharding rules and the dry run")
+        get_config(args.arch)
+        raise SystemExit(
+            "--production needs the 16x16 production mesh of 256 cards; this run has one. "
+            "The dry run (python -m repro_torch.launch.dryrun) proves this path traces."
+        )
     cfg = get_smoke_config(args.arch)
     device = torch.device(args.device)
 

@@ -21,6 +21,11 @@ Cross-attention (:func:`cross_attn_apply`) reads q from the decoder's
 stream and K/V from the encoder's output: no mask, no RoPE, no LoRA, and
 K/V recomputed on every call, decode steps included, as in the reference.
 
+On a mesh (:func:`repro_torch.sharding.on_mesh`) the attention runs as
+each rank's block: the full sequence per (batch row, head), decode per
+slot shard of the sequence-sharded cache, the partial softmaxes merged
+across the ranks; with no rules installed both are the one-device code.
+
 Per-request adapters (multi-tenant serving) ride on the model's leading
 client axis: ``C`` requests of batch 1 each, every request with its own
 ``(C, d, r)`` adapter row, so row b's contraction is the per-client matmul
@@ -29,12 +34,16 @@ of a cohort.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_rope, linear, torch_dtype
+from repro_torch.sharding import (
+    constrain, index_copy_, local_apply, reduce_over, split_axes, split_last,
+)
 
 __all__ = ["KVCache", "Q_CHUNK", "init_kv_cache", "lora_delta", "qkv", "attn_apply",
            "cross_attn_apply"]
@@ -93,7 +102,8 @@ def qkv(lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig):
                 alpha=cfg.lora.alpha, rank=cfg.lora.rank, cd=cd,
             )
             y = y + delta
-        proj[name] = y.reshape(c * bsz, s, -1, cfg.head_dim)
+        heads = cfg.num_heads if name == "q" else cfg.num_kv_heads
+        proj[name] = split_last(y, heads, c * bsz, s)
     return proj["q"], proj["k"], proj["v"], hs.get("q", hs.get("v"))
 
 
@@ -107,6 +117,46 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = q.shape[2] // k.shape[2]
     if g > 1:
         k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    # every (batch row, head) attends on its own: on a mesh each rank runs
+    # its block of the head-sharded (B, H, S, T) scores, the reference's
+    # anchor on the scores
+    heads = ("batch", None, "heads", None)
+    return local_apply(_attend_heads, (q, k, v, valid), (heads, heads, heads, None), heads[:3],
+                       {"batch": q.shape[0], "heads": q.shape[2]})
+
+
+def _attend_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """Decode's :func:`_attend` over the cache.  On a mesh whose cache is
+    sharded over its slots (the reference's flash-decoding layout, q whole
+    over ``"model"``) each rank attends over its own slots and the partial
+    softmaxes are merged across the ranks (their maxima, normalisers and
+    weighted values reduced), where placing the heads would move the whole
+    cache every step."""
+    seq = split_axes("seq", k.shape[1])
+    if not seq:
+        return _attend(q, k, v, valid)
+    whole, slots = ("batch", None, None, None), ("batch", "seq", None, None)
+    return local_apply(functools.partial(_attend_slots, axes=seq), (q, k, v, valid),
+                       (whole, slots, slots, (None, "seq")), whole[:3],
+                       {"batch": q.shape[0], "seq": k.shape[1]})
+
+
+def _attend_slots(q, k, v, valid, axes):
+    g = q.shape[2] // k.shape[2]
+    if g > 1:
+        k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * q.shape[-1] ** -0.5
+    scores = torch.where(valid, scores, _NEG_INF)
+    top = reduce_over(scores.amax(dim=-1, keepdim=True), "max", axes)
+    p = torch.exp(scores - top)
+    norm = reduce_over(p.sum(dim=-1, keepdim=True), "sum", axes)  # (B, H, S, 1)
+    out = reduce_over(torch.einsum("bhst,bthd->bshd", p, v.float()), "sum", axes)
+    out = out / norm.transpose(1, 2)
+    return out.reshape(out.shape[0], out.shape[1], -1)
+
+
+def _attend_heads(q, k, v, valid):
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * q.shape[-1] ** -0.5
     if valid is not None:
         scores = torch.where(valid, scores, _NEG_INF)
@@ -162,6 +212,11 @@ def attn_apply(
     window``)."""
     c, bsz, s, _ = x.shape
     q, k, v, lora_h = qkv(lp, x, cfg)
+    if cache is None:  # full sequence: anchor the head axis (decode keeps the
+        # sequence-sharded cache's layout instead, q replicated over "model")
+        q = constrain(q, "batch", None, "heads", None)
+        k = constrain(k, "batch", None, "kv", None)
+        v = constrain(v, "batch", None, "kv", None)
     # absolute positions: 0..S-1, or the cached length in decode (a tensor:
     # no host sync)
     pos = torch.arange(s, device=x.device) if cache is None else cache.length.reshape(1)
@@ -175,13 +230,13 @@ def attn_apply(
         assert s == 1, "decode mode expects one new token"
         # a one-element index tensor: the write needs no host sync
         slot = (cache.length % cache.k.shape[1]).reshape(1).long()
-        cache.k.index_copy_(1, slot, k.to(cache.k.dtype))
-        cache.v.index_copy_(1, slot, v.to(cache.v.dtype))
-        cache.pos.index_copy_(0, slot, cache.length.reshape(1))
+        index_copy_(cache.k, 1, slot, k.to(cache.k.dtype))
+        index_copy_(cache.v, 1, slot, v.to(cache.v.dtype))
+        index_copy_(cache.pos, 0, slot, cache.length.reshape(1))
         valid = (cache.pos >= 0) & (cache.pos <= cache.length)  # every written slot
         if window is not None:
             valid &= cache.pos > cache.length - window
-        out = _attend(q, cache.k, cache.v, valid[None, :])
+        out = _attend_cache(q, cache.k, cache.v, valid[None, :])
     out = out.reshape(c, bsz, s, -1).to(x.dtype)
     y = linear(out, lp["attn/wo/w"], lp.get("attn/wo/b"), cd=torch_dtype(cfg.compute_dtype))
     return y, lora_h
@@ -198,7 +253,8 @@ def cross_attn_apply(lp: dict[str, torch.Tensor], x: torch.Tensor, enc_out: torc
 
     def proj(name, src):
         y = linear(src, lp[f"cross/w{name}/w"], lp.get(f"cross/w{name}/b"), cd=cd)
-        return y.reshape(c * bsz, src.shape[2], -1, cfg.head_dim)
+        return split_last(y, cfg.num_heads if name == "q" else cfg.num_kv_heads, c * bsz,
+                          src.shape[2])
 
     out = _attend(proj("q", x), proj("k", enc_out), proj("v", enc_out), None)
     out = out.reshape(c, bsz, s, -1).to(x.dtype)

@@ -37,6 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import gather_fsdp
+
 __all__ = [
     "NORM_EPS",
     "FLOAT_DTYPES",
@@ -85,8 +87,9 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
            cd: torch.dtype = torch.float32) -> torch.Tensor:
     """``x @ w (+ b)`` in the compute dtype ``cd`` (x, w and b cast to it)
     for ``x (C, ..., i)`` and a shared ``w (i, o)`` or a per-client
-    ``w (C, i, o)``."""
-    x, w = x.to(cd), w.to(cd)
+    ``w (C, i, o)``.  A DTensor weight is gathered over the FSDP axes first
+    (:func:`repro_torch.sharding.gather_fsdp`)."""
+    x, w = x.to(cd), gather_fsdp(w).to(cd)
     if w.ndim == 2:
         y = torch.matmul(x, w)
     else:

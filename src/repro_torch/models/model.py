@@ -32,6 +32,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import frontends
@@ -45,10 +46,11 @@ from repro_torch.models.transformer import (
     ENCODER_PREFIX, LAYER_NDIM, STACK_PREFIX, STACK_PREFIXES, init_stack_cache, layer_kinds,
     pos_prefix, stack_apply, stack_period,
 )
+from repro_torch.sharding import constrain, gather_fsdp, rules_installed
 
 __all__ = [
-    "Aux", "check_supported", "init", "input_token_len", "backbone", "forward", "init_cache",
-    "decode_step", "prefill",
+    "Aux", "check_supported", "init", "param_shapes", "input_token_len", "backbone", "forward",
+    "init_cache", "decode_step", "prefill",
 ]
 
 _ATTN_TARGETS = ("q", "k", "v", "o")
@@ -84,8 +86,31 @@ def init(cfg: ModelConfig, seed: int, device: str | torch.device = "cuda", *,
     drawing the backbone: what a client needs under a shared pretrained
     backbone, where drawing and copying the backbone would cost seconds a
     client at a billion parameters."""
+    return _build(cfg, InitStream(seed), device, adapters_only)
+
+
+class _ShapeStream:
+    """An :class:`InitStream` that draws nothing: every leaf an empty
+    ``meta`` tensor of its shape."""
+
+    def uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
+        return torch.empty(shape, device="meta")
+
+    def normal(self, shape) -> torch.Tensor:
+        return torch.empty(shape, device="meta")
+
+
+def param_shapes(cfg: ModelConfig, dtype: str | None = None) -> dict[str, torch.Tensor]:
+    """The keys, shapes and dtypes :func:`init` gives (in ``dtype``, the
+    config's ``param_dtype`` by default) as ``meta`` tensors, with nothing
+    drawn or allocated: the port's ``jax.eval_shape(init)``, for a model of
+    any size."""
+    p = _build(cfg, _ShapeStream(), "meta", False)
+    return p if dtype is None else {k: v.to(torch_dtype(dtype)) for k, v in p.items()}
+
+
+def _build(cfg: ModelConfig, gen, device, adapters_only: bool) -> dict[str, torch.Tensor]:
     check_supported(cfg)
-    gen = InitStream(seed)
     d, hd = cfg.d_model, cfg.head_dim
     p: dict[str, torch.Tensor] = {}
     lc = cfg.lora
@@ -120,7 +145,7 @@ def _stacks(cfg: ModelConfig) -> list[tuple[str, int]]:
     return out
 
 
-def _init_backbone(cfg: ModelConfig, gen: InitStream):
+def _init_backbone(cfg: ModelConfig, gen):
     """The frozen leaves of :func:`init` as ``(key, leaf)`` pairs, each leaf
     fp32 on the CPU and drawn when its pair is taken: each position of each
     stack's layer period, its leaves stacked over the repeats; the
@@ -215,7 +240,26 @@ def _embed(params: dict[str, torch.Tensor], cfg: ModelConfig, tokens: torch.Tens
     compute dtype, plus the learned position rows ``positions (S,)`` when
     the model has them (RoPE rotates q and k in attention instead)."""
     cd = torch_dtype(cfg.compute_dtype)
-    x = embedding(params["embed"], tokens).to(cd)
+    table = params["embed"]
+    if rules_installed() and tokens.shape[-1] > 1 and table.ndim == 2:
+        # a one-hot matmul in place of the gather, so the contraction runs
+        # over the vocab shards (a gather on the vocab-sharded table would
+        # gather the whole table); the one-hot vocab-sharded and
+        # recomputed in the backward pass rather than kept
+        def embed(tok, tab):
+            vocab = torch.arange(cfg.vocab_size, device=tok.device)
+            onehot = constrain((tok[..., None] == vocab).to(cd), None, "batch", None, "vocab")
+            return torch.matmul(onehot, gather_fsdp(tab).to(cd))
+
+        x = torch.utils.checkpoint.checkpoint(embed, tokens, table, use_reentrant=False)
+    elif rules_installed() and table.ndim == 2:
+        # decode: each rank looks its vocab shard's rows up for every token
+        # (the ids whole on every rank), the partial rows summed over "model"
+        whole = (None,) * tokens.ndim
+        rows = torch.nn.functional.embedding(constrain(tokens, *whole), gather_fsdp(table))
+        x = constrain(rows, *whole, None).to(cd)
+    else:
+        x = embedding(table, tokens).to(cd)
     if cfg.positional == "learned":
         pos = params["pos_embed"].index_select(-2, positions.long())
         x = x + (pos if pos.ndim == 2 else pos[:, None]).to(cd)

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.topk import _stable_topk
 from repro_torch.models.layers import InitStream, gelu, linear, torch_dtype, truncated_normal
+from repro_torch.sharding import constrain, gather_fsdp, split_axes
 
 __all__ = ["GROUP_SIZE", "group_size", "moe_capacity", "moe_init", "moe_apply"]
 
@@ -74,7 +75,7 @@ def _experts(x: torch.Tensor, w: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
     """``x (C, G, E, cap, i)`` through each expert's ``w``: shared ``(E, i,
     o)`` or per client ``(C, E, i, o)``."""
     eq = "ngepi,eio->ngepo" if w.ndim == 3 else "ngepi,neio->ngepo"
-    return torch.einsum(eq, x, w.to(cd))
+    return torch.einsum(eq, x, gather_fsdp(w).to(cd))
 
 
 def moe_apply(lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
@@ -96,7 +97,15 @@ def moe_apply(lp: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
     t = b * s
     tg = group_size(t)
     g = t // tg
-    tokens = x.reshape(c, g, tg, d).to(cd)
+    # on a mesh a dispatch group's tokens are whole on a rank (capacity is
+    # per group): the groups split over the batch axes the rows split over
+    # where they divide the groups too, else every rank holds every group
+    rows = split_axes("batch", b)
+    grouped = bool(rows) and split_axes("batch", g) == rows
+    if not grouped:
+        x = constrain(x, None, None, None, None)
+    tokens = constrain(x.reshape(c, g, tg, d).to(cd), None, "batch" if grouped else None, None,
+                       None)
 
     # -- routing --
     router_logits = linear(tokens, lp["mlp/router/w"], cd=cd)  # (C, G, Tg, E)

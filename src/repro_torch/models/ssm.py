@@ -30,8 +30,9 @@ differ by less than 3e-9 there.
 
 Parameters are keyed relative to the layer, ``ssm/w_z/w``,
 ``ssm/conv_x_w``, ``ssm/gate_norm/scale``, ...; each is shared (its base
-shape) or per client (a leading ``(C, ...)`` axis).  The reference's
-``sharding.constrain`` calls have no counterpart here.
+shape) or per client (a leading ``(C, ...)`` axis).  On the full sequence
+``xh`` and ``dt`` are anchored head-sharded (:func:`repro_torch.sharding.
+constrain`, the identity without rules), as in the reference.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (
     InitStream, linear, normal, per_client, rms_norm, torch_dtype, truncated_normal,
 )
+from repro_torch.sharding import constrain, local_apply, split_last
 
 __all__ = ["SSMCache", "ssm_dims", "init_ssm_cache", "ssm_init", "segsum", "ssd_chunked",
            "causal_conv", "ssm_apply"]
@@ -205,19 +207,27 @@ def ssm_apply(lp: dict[str, torch.Tensor], x_in: torch.Tensor, cfg: ModelConfig,
 
     z, x_pre, bc_pre, dt_raw = proj("w_z"), proj("w_x"), proj("w_bc"), proj("w_dt")
     dt = F.softplus(dt_raw.float() + per_client(lp["ssm/dt_bias"].float(), dt_raw))  # (C,B,S,H)
-    a_dt = dt * per_client(-torch.exp(lp["ssm/a_log"].float()), dt)  # dt·A, A negative
 
     hist = (None, None) if cache is None else (
         cache.conv_x.view(c, bsz, -1, d_inner), cache.conv_bc.view(c, bsz, -1, 2 * n))
     xs, new_x = causal_conv(x_pre, lp["ssm/conv_x_w"], lp["ssm/conv_x_b"], hist[0])
     bc, new_bc = causal_conv(bc_pre, lp["ssm/conv_bc_w"], lp["ssm/conv_bc_b"], hist[1])
-    xh = xs.reshape(c, bsz, s, heads, p)
+    xh = split_last(xs, heads, c, bsz, s)
+    if cache is None:  # head-sharded, so the SSD's (B, H, nc, Q, Q) decays shard by head
+        xh = constrain(xh, None, "batch", None, "heads", None)
+        dt = constrain(dt, None, "batch", None, "heads")
+    a_dt = dt * per_client(-torch.exp(lp["ssm/a_log"].float()), dt)  # dt·A, A negative
     x_dt = (xh * dt[..., None]).reshape(c * bsz, s, heads, p)
     b_mat = bc[..., :n].reshape(c * bsz, s, n)
     c_mat = bc[..., n:].reshape(c * bsz, s, n)
     if cache is None:
-        y, _ = ssd_chunked(x_dt, a_dt.reshape(c * bsz, s, heads), b_mat, c_mat,
-                           min(ssm.chunk_size, s))
+        # independent per (batch row, head): on a mesh each rank runs its block
+        chunk = min(ssm.chunk_size, s)
+        y = local_apply(lambda x_, a_, b_, c_: ssd_chunked(x_, a_, b_, c_, chunk)[0],
+                        (x_dt, a_dt.reshape(c * bsz, s, heads), b_mat, c_mat),
+                        (("batch", None, "heads", None), ("batch", None, "heads"),
+                         ("batch", None, None), ("batch", None, None)),
+                        ("batch", None, "heads", None), {"batch": c * bsz, "heads": heads})
     else:
         assert s == 1, "decode mode expects one new token"
         da = torch.exp(a_dt.reshape(c * bsz, heads))
@@ -227,7 +237,10 @@ def ssm_apply(lp: dict[str, torch.Tensor], x_in: torch.Tensor, cfg: ModelConfig,
         cache.conv_bc.copy_(new_bc.reshape(cache.conv_bc.shape))
         cache.state.copy_(state)
     y = y.reshape(c, bsz, s, heads, p) + per_client(lp["ssm/d_skip"].float(), dt)[..., None] * xh
-    y = y.reshape(c, bsz, s, d_inner) * F.silu(z.float())
+    # the inner width whole or model-sharded as z is, so the gradient the
+    # head split gets back is placed as its forward was (the identity
+    # without rules)
+    y = constrain(y.reshape(c, bsz, s, d_inner), None, "batch", None, "dff") * F.silu(z.float())
     y = rms_norm(y.to(cd), lp["ssm/gate_norm/scale"])
     out = linear(y, lp["ssm/out_proj/w"], lp.get("ssm/out_proj/b"), cd=cd)
     return out.to(x_in.dtype)

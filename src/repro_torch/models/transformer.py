@@ -36,6 +36,7 @@ from repro_torch.models.attention import KVCache, attn_apply, cross_attn_apply, 
 from repro_torch.models.layers import mlp_apply, norm_apply, torch_dtype
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.ssm import SSMCache, init_ssm_cache, ssm_apply
+from repro_torch.sharding import constrain
 
 __all__ = [
     "StackState", "STACK_PREFIX", "ENCODER_PREFIX", "STACK_PREFIXES", "LAYER_NDIM", "period_of",
@@ -149,6 +150,11 @@ def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
                              device=x.device)
     moe_aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
     cd = torch_dtype(cfg.compute_dtype)
+
+    def residual(x):  # the stream batch-sharded, whole over "model" (the identity without rules)
+        return constrain(x, None, "batch", None, None)
+
+    x = residual(x)
     for r in range(num_layers // p):
         for j, (mixer, mlp) in enumerate(kinds):
             lp = layer_slice(params, j, r, prefix)
@@ -161,9 +167,10 @@ def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
                     lora_h = h.mean(dim=2)  # (C, B, r): paper eq. 8, pooled over the sequence
             else:
                 y = ssm_apply(lp, h_in, cfg, cache=cache)
-            x = x + y
+            x = residual(x + y)
             if enc_out is not None and "cross/wq/w" in lp:
-                x = x + cross_attn_apply(lp, norm_apply(lp, "norm_x", x, cfg.norm), enc_out, cfg)
+                x = residual(x + cross_attn_apply(lp, norm_apply(lp, "norm_x", x, cfg.norm),
+                                                  enc_out, cfg))
             if mlp is None:
                 continue
             h2 = norm_apply(lp, "norm2", x, cfg.norm)
@@ -172,5 +179,5 @@ def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
                 moe_aux = moe_aux + aux
             else:
                 y2 = mlp_apply(lp, h2, activation=cfg.activation, cd=cd)
-            x = x + y2
+            x = residual(x + y2)
     return StackState(x=x, moe_aux=moe_aux, lora_h=lora_h)

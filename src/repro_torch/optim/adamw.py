@@ -57,8 +57,19 @@ def adamw_init(params: dict[str, torch.Tensor], *, state_dtype: str = "float32",
 
 def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
     """Per-client L2 norm over all leaves: ``(C,)``."""
-    sq = [torch.sum(torch.square(g.float()).reshape(g.shape[0], -1), dim=1) for g in grads.values()]
-    return torch.sqrt(sum(sq))
+    return torch.sqrt(sum(_sum_of_squares(g) for g in grads.values()))
+
+
+def _sum_of_squares(g: torch.Tensor) -> torch.Tensor:
+    """``Σ g²`` over every dim but the client axis.  A DTensor (a mesh's
+    sharded gradient) is summed over those dims in place, since flattening
+    a sharded dim would gather it."""
+    from torch.distributed.tensor import DTensor
+
+    sq = torch.square(g.float())
+    if isinstance(g, DTensor):
+        return torch.sum(sq, dim=tuple(range(1, g.ndim)))
+    return torch.sum(sq.reshape(g.shape[0], -1), dim=1)
 
 
 def _per_client(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
