@@ -333,6 +333,29 @@ Phases (any failure raises and exits non-zero):
    bf16 rate), the top-k timed on the fp16 ``fused`` run's input (and on
    rows of one fp16 high-digit bin), the library calls ``scatter_add_``,
    ``torch.topk`` and fp16 SDPA.
+9. production mesh (runs after phase 6h, before the timing rows; no
+   hand-written kernel).  (a) A 1x1 ``("data", "model")`` mesh over a
+   one-rank NCCL group: yi-9b at its published widths cut to 4 layers,
+   mamba2-130m and granite-moe-1b-a400m whole (bf16, their configs), each
+   train step (``make_train_step``, AdamW), prefill and 4 decode steps at
+   batch 4 and 1024 tokens, once on plain tensors and once with every
+   argument a DTensor placed by the spec rules and the activation rules
+   installed (the one-hot embedding, the anchors, the attention and SSD
+   through ``local_map``, the ring write; decode's per-slot-shard attention
+   needs a cache split over ranks, and runs in (b) and in the CPU tests'
+   2x2 mesh): loss, prefill and decode logits bitwise or
+   within two bf16 ulps of their largest magnitude, each updated
+   parameter within a bf16 ulp of its leaf's largest value plus 2 lr.
+   (b) ``python -m repro_torch.launch.dryrun`` in processes of their own,
+   started with the phase: yi-9b x train_4k on the single- and multi-pod
+   meshes (256 and 512 fake ranks), mamba2-130m x long_500k, granite x
+   decode_32k; each record's per-device argument and peak GiB against the
+   card's 80 GiB, its TFLOP and collective GB by kind.  (c) The dry run at
+   (a)'s 1x1 mesh of (a)'s yi-9b train step (a spawned process, a fake
+   world of one): its flops and argument bytes equal to the real step's,
+   its peak (arguments + temp) beside ``torch.cuda.max_memory_allocated``
+   above the memory held before the step's arguments; the phase fails
+   below 80 %.
 
 The last lines are the card and its power limit, the kernels record and the
 device record (JSON).  In the kernels record ``launches`` is each kernel's
@@ -347,6 +370,7 @@ entry points.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -374,7 +398,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.checkpoint import ckpt as ckpt_io  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
-from repro_torch.configs.base import LoRAConfig  # noqa: E402
+from repro_torch.configs.base import LoRAConfig, ShapeConfig  # noqa: E402
 from repro_torch.configs.gpt2_paper import GPT2_LARGE, GPT2_SMALL, REDUCED_CLIENT, REDUCED_SERVER  # noqa: E402
 from repro_torch.core.aggregation import AggregationMode, aggregate_wire  # noqa: E402
 from repro_torch.core.channel import ChannelConfig, ChannelSimulator  # noqa: E402
@@ -398,6 +422,7 @@ from repro_torch.launch import fed_train  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import H100  # noqa: E402
+from repro_torch.launch.steps import init_train_opt, make_serve_step, make_train_step  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.lora import is_lora_path, lora_template, merge_lora, split_lora  # noqa: E402
 from repro_torch.models import attention, frontends, model, transformer  # noqa: E402
@@ -3533,6 +3558,224 @@ def phase_modal(device, card: str = "", cfgs=None) -> dict:
     return out
 
 
+# -- phase 9: the production mesh ---------------------------------------------------
+
+# (a)'s models on a 1x1 mesh: yi-9b at its published widths cut to MESH_YI_LAYERS
+# layers, mamba2-130m and granite-moe-1b-a400m whole; each train step, prefill and
+# MESH_DECODE decode steps at (MESH_BATCH, MESH_SEQ): the chunked attention
+# (S >= 1024) and two cross-entropy chunks, each recomputed in the backward pass
+MESH_YI_LAYERS, MESH_BATCH, MESH_SEQ, MESH_DECODE = 4, 4, 1024, 4
+# (b): the dry run's combos on the card machine, each in a process of its own
+MESH_DRYRUNS = (("yi-9b", "train_4k", False), ("yi-9b", "train_4k", True),
+                ("mamba2-130m", "long_500k", False), ("granite-moe-1b-a400m", "decode_32k", False))
+# (a)'s tolerances against the plain steps' values: on one rank the DTensor
+# steps run the plain op sequence but for the one-hot embedding, whose
+# backward sums in another order than the gather's; each value is reported
+# bitwise where it is, and held within two bf16 ulps of its largest magnitude
+# (losses, logits) or, for a parameter after one AdamW step (bf16 values, an
+# update of at most lr = 3e-4 an element), a bf16 ulp of its leaf's largest
+# value plus 2 lr
+MESH_BF16_ULP = 2.0**-8
+
+
+def mesh_models() -> dict:
+    return {"yi-9b": get_config("yi-9b").with_overrides(num_layers=MESH_YI_LAYERS),
+            "mamba2-130m": get_config("mamba2-130m"),
+            "granite-moe-1b-a400m": get_config("granite-moe-1b-a400m")}
+
+
+def mesh_shape() -> ShapeConfig:
+    return ShapeConfig("mesh_train", MESH_SEQ, MESH_BATCH, "train")
+
+
+def _full(x):
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def mesh_run(cfg, device, mesh=None) -> dict:
+    """``cfg``'s train step (``make_train_step``), prefill and
+    ``MESH_DECODE`` decode steps from an empty cache on ``init(cfg, 0)``:
+    plain, or every argument placed on ``mesh`` by the spec rules with the
+    activation rules installed.  Returns the loss, the updated parameters,
+    the prefill and decode logits (plain tensors) and, for the train step,
+    its argument bytes, its peak above the memory held before its
+    arguments, and what ``StepAccounting`` counted."""
+    from repro_torch.launch.dryrun import StepAccounting
+
+    base = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+    params = model.init(cfg, 0, device)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MESH_BATCH, MESH_SEQ)).astype(np.int32), device=device)
+    opt = init_train_opt(params, cfg)
+    batch = {"tokens": tokens}
+    cache = model.init_cache(cfg, MESH_BATCH, MESH_SEQ, device=device)
+    if mesh is not None:
+        pspecs = sharding.param_specs(params, mesh)
+        params = sharding.distribute_tree(params, pspecs, mesh)
+        opt = sharding.distribute_tree(opt, sharding.opt_state_specs(pspecs), mesh)
+        batch = sharding.distribute_tree(batch, sharding.batch_specs(mesh, with_labels=False),
+                                         mesh)
+        cache = sharding.distribute_tree(cache, sharding.cache_specs(cache, mesh), mesh)
+    out = {"arg_bytes": sharding.local_bytes((params, opt, batch))}
+    ctx = sharding.on_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    with ctx:
+        sync(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with StepAccounting() as acc:
+            new_p, _, metrics = make_train_step(cfg)(params, opt, batch)
+            out["loss"] = _full(metrics["loss"]).float()
+        sync(device)
+        out["peak"] = (torch.cuda.max_memory_allocated() - base) if device.type == "cuda" else 0
+        out["flops"], out["collectives"] = acc.flops, acc.record()[1]
+        out["params"] = {k: _full(v) for k, v in new_p.items()}
+        del new_p, opt
+        out["prefill"] = _full(make_prefill_step(cfg)(params, batch))
+        decode = make_serve_step(cfg)
+        logits = []
+        for t in range(MESH_DECODE):
+            tok = tokens[:, t]
+            if mesh is not None:
+                tok = sharding.distribute_tree(tok, (sharding.batch_axes(mesh),), mesh)
+            step_logits, cache = decode(params, cache, tok)
+            logits.append(_full(step_logits))
+        out["decode"] = torch.stack(logits)
+    return out
+
+
+def mesh_diff(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
+    """(bitwise equal, max |got - want|) in fp32."""
+    return torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+def _dryrun_at_one(out: str, cfg, shape, device_type: str) -> None:
+    """The dry run of ``cfg``'s train step at ``shape`` on a 1x1 mesh over a
+    fake world of one rank (a process of its own): its record's parts."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dryrun.start_fake_world(1)
+    rec = dryrun.trace_combo(cfg.name, shape, make_host_mesh((1, 1), device=device_type),
+                             cfg_override=cfg)
+    with open(out, "w") as f:
+        json.dump({k: rec[k] for k in ("memory", "cost", "collectives", "lower_s")}, f)
+
+
+def phase_production_mesh(device, card: str = "", models: dict | None = None,
+                          dryruns=MESH_DRYRUNS) -> None:
+    """Phase 9 (see the module docstring).  ``models`` replaces (a)'s
+    (``mesh_models()``; the first is the one (c) holds), ``dryruns``
+    (b)'s combos: a rehearsal on the CPU at tiny widths."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    models = models or mesh_models()
+    first = next(iter(models))
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    # (b) and (c)'s dry runs take the host's cores while (a) runs on the card
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    dry = {}
+    for arch, shape, multi in dryruns:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               "--out", tmp, "--device", device.type] + (["--multi-pod"] if multi else [])
+        dry[(arch, shape, multi)] = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT, text=True)
+    one = torch_mp.get_context("spawn").Process(
+        target=_dryrun_at_one,
+        args=(os.path.join(tmp, "one.json"), models[first], mesh_shape(), device.type))
+    one.start()
+    try:
+        # (a) the 1x1 mesh over NCCL: each model's steps on DTensors against the plain steps
+        plain_group = not dist.is_initialized()
+        if plain_group:
+            dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                    store=dist.HashStore(), rank=0, world_size=1)
+        mesh = make_host_mesh((1, 1), device=device.type)
+        yi_real = None
+        for name, cfg in models.items():
+            t_model = time.perf_counter()
+            want = mesh_run(cfg, device)
+            got = mesh_run(cfg, device, mesh)
+            report = {}
+            for key in ("loss", "prefill", "decode"):
+                equal, err = mesh_diff(got[key], want[key])
+                tol = 2 * MESH_BF16_ULP * float(want[key].float().abs().max())
+                assert err <= tol, (name, key, err, tol)
+                report[key] = "bitwise" if equal else f"{err:.3g} (bound {tol:.3g})"
+            worst, unequal = 0.0, 0
+            for k, w in want["params"].items():
+                equal, err = mesh_diff(got["params"][k], w)
+                tol = MESH_BF16_ULP * float(w.float().abs().max()) + 2 * 3e-4
+                assert err <= tol, (name, k, err, tol)
+                worst, unequal = max(worst, err), unequal + (not equal)
+            report["params"] = (f"{len(want['params'])} leaves bitwise" if not unequal else
+                                f"{unequal} of {len(want['params'])} leaves not bitwise, max "
+                                f"{worst:.3g}")
+            log(f"[production mesh (a) {name}] {cfg.num_layers} layers, d {cfg.d_model}, batch "
+                f"{MESH_BATCH}, seq {MESH_SEQ}, {MESH_DECODE} decode steps, on a 1x1 mesh "
+                f"({dist.get_backend()}) against the plain steps: loss {float(got['loss']):.6f} "
+                f"({report['loss']}), updated parameters {report['params']}, prefill logits "
+                f"{report['prefill']}, decode logits {report['decode']}; train step "
+                f"{got['flops'] / 1e12:.3f} TFLOP, collectives {got['collectives']['count']}; "
+                f"{time.perf_counter() - t_model:.1f} s; {card}")
+            if name == first:
+                yi_real = {k: got[k] for k in ("flops", "arg_bytes", "peak")}
+            del want, got
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        if plain_group:
+            dist.destroy_process_group()
+
+        # (b) the dry runs of the production meshes
+        gib = 1024**3
+        for (arch, shape, multi), proc in dry.items():
+            text, _ = proc.communicate(timeout=900)
+            assert proc.returncode == 0, (arch, shape, multi, text[-3000:])
+            mesh_name = "multi_pod" if multi else "single_pod"
+            with open(os.path.join(tmp, f"{arch}__{shape}__{mesh_name}.json")) as f:
+                rec = json.load(f)
+            mem, coll = rec["memory"], rec["collectives"]
+            args_b = mem["argument_size_in_bytes"]
+            peak_b = args_b + mem["temp_size_in_bytes"]
+            log(f"[production mesh (b) {arch} x {shape} x {mesh_name}] {rec['chips']} ranks: "
+                f"per device arguments {args_b / gib:.3f} GiB, peak {peak_b / gib:.3f} GiB of the "
+                f"card's {H100['hbm_bytes'] / gib:.0f} GiB, {rec['cost']['flops'] / 1e12:.3f} "
+                f"TFLOP, collectives GB " + ", ".join(
+                    f"{k} {v / 1e9:.3f}" for k, v in coll.items() if k != "count")
+                + f" ({coll['count']} ops), trace {rec['lower_s']:.1f} s")
+
+        # (c) the dry run at (a)'s 1x1 mesh against (a)'s real yi-9b train step
+        one.join(timeout=900)
+        assert one.exitcode == 0, one.exitcode
+        with open(os.path.join(tmp, "one.json")) as f:
+            est = json.load(f)
+        args_b = est["memory"]["argument_size_in_bytes"]
+        peak_est = args_b + est["memory"]["temp_size_in_bytes"]
+        assert est["cost"]["flops"] == yi_real["flops"], (est["cost"]["flops"], yi_real["flops"])
+        assert args_b == yi_real["arg_bytes"], (args_b, yi_real["arg_bytes"])
+        ratio = peak_est / yi_real["peak"] if device.type == "cuda" else float("nan")
+        log(f"[production mesh (c) {first} train step, 1x1] the dry run's flops "
+            f"{est['cost']['flops'] / 1e12:.3f} TFLOP and argument bytes {args_b} equal the real "
+            f"step's; its peak {peak_est / gib:.3f} GiB beside torch.cuda.max_memory_allocated "
+            f"{yi_real['peak'] / gib:.3f} GiB: ratio {ratio:.3f} (trace {est['lower_s']:.1f} s); "
+            f"{card}")
+        assert ratio >= 0.8 or device.type != "cuda", ratio
+    finally:
+        for proc in dry.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if one.is_alive():
+            one.kill()
+            one.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[production mesh] phase 9 passed in {time.perf_counter() - t0:.1f} s ({card})")
+
+
 def phase_serving(device, card: str) -> dict:
     """Multi-tenant serving at GPT-2 small width, then the prefill at
     S = 1024 and the attention kernel on its layer-0 q/k/v; returns the
@@ -3960,6 +4203,7 @@ def main() -> int:
     families = phase_families(device, card)
     ssm = phase_ssm(device, card)
     modal = phase_modal(device, card)
+    phase_production_mesh(device, card)
     launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) + pretrained["launches"][name]
                 + faults["launches"].get(name, 0) + host_store["launches"].get(name, 0)
                 + scale_out["launches"].get(name, 0) + families["launches"].get(name, 0)
