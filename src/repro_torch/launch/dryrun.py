@@ -35,7 +35,10 @@ attention), where XLA counts every op; ``bytes accessed`` every non-view
 op's inputs read and outputs written once, unfused.  ``collectives``: the
 result bytes of each collective DTensor issues, under the reference's
 keys.  ``compile_s`` is ``null``: eager has no compile; ``lower_s`` is the
-trace.
+trace.  A combo whose arguments plus temp exceed the card's memory
+(``H100["hbm_bytes"]``) traces all the same and is named in a warning:
+the port ignores ``cfg.remat``, so a train step keeps every layer's
+activations, and the trace proves the path, not that it fits.
 
 The shards are ``meta`` tensors and not fake ones: DTensor's sharding
 propagator runs each op once more on global-shape fake tensors, and only
@@ -71,7 +74,7 @@ from repro_torch.launch.mesh import H100, PRODUCTION_SHAPES, make_host_mesh
 from repro_torch.launch.policy import arch_shape_config, input_specs, window_for
 
 __all__ = ["COLLECTIVES", "StepAccounting", "collective_bytes", "start_fake_world", "step_args",
-           "trace_combo", "run_one", "run_cost", "main"]
+           "trace_combo", "run_one", "peak_bytes", "run_cost", "main"]
 
 DEFAULT_OUT = "experiments/dryrun"
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
@@ -290,7 +293,21 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
         json.dump(record, f, indent=1)
     print(f"[dryrun] OK {arch} x {shape_name} x {record['mesh']} "
           f"(trace {traced['lower_s']:.1f}s) -> {path}")
+    peak = peak_bytes(record)
+    if peak > H100["hbm_bytes"]:
+        print(f"[dryrun] WARNING {arch} x {shape_name} x {record['mesh']}: a peak of "
+              f"{peak / 1024**3:.1f} GiB a device exceeds the card's "
+              f"{H100['hbm_bytes'] / 1024**3:.0f} GiB (the port ignores cfg.remat: every "
+              "layer's activations are kept for the backward pass)", file=sys.stderr)
     return record
+
+
+def peak_bytes(record: dict) -> int:
+    """A record's peak bytes a device: its arguments plus the step's peak
+    above them; a combo fits the card when this is within
+    ``H100["hbm_bytes"]``."""
+    mem = record["memory"]
+    return mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
 
 
 def _depth_reduced(cfg: ModelConfig, n: int) -> ModelConfig:
@@ -364,10 +381,13 @@ def run_cost(arch: str, shape: str | ShapeConfig, *, out_dir: str, device: str =
 
 def run_matrix(*, multi_pod: bool, cost_mode: bool, jobs: int, out_dir: str, device: str) -> int:
     """Every (arch x shape) but ``gpt2-paper``'s, each in a process of its
-    own; a combo that fails is reported ``FAIL`` and the matrix exits 1."""
+    own; a combo that fails is reported ``FAIL`` and the matrix exits 1.
+    A combo that traces but whose peak exceeds the card's memory is listed
+    in a warning: the trace proves the path, not that it fits."""
     combos = [(a, s) for a in ARCHITECTURES if a != "gpt2-paper" for s in INPUT_SHAPES]
     procs: list[tuple[tuple, subprocess.Popen]] = []
-    failures = []
+    failures, over = [], []
+    mesh = "multi_pod" if multi_pod else "single_pod"
     pending = list(combos)
     while pending or procs:
         while pending and len(procs) < jobs:
@@ -385,8 +405,15 @@ def run_matrix(*, multi_pod: bool, cost_mode: bool, jobs: int, out_dir: str, dev
             if p.returncode != 0:
                 failures.append(c)
                 print(f"[dryrun] FAIL {c} (exit code {p.returncode})", flush=True)
+            elif not cost_mode:
+                with open(os.path.join(out_dir, f"{c[0]}__{c[1]}__{mesh}.json")) as f:
+                    if peak_bytes(json.load(f)) > H100["hbm_bytes"]:
+                        over.append(c)
         time.sleep(0.2)
     print(f"[dryrun] matrix done, {len(failures)} failures: {failures}")
+    if over:
+        print(f"[dryrun] WARNING {len(over)} combos traced but exceed the card's "
+              f"{H100['hbm_bytes'] / 1024**3:.0f} GiB a device (cfg.remat ignored): {over}")
     return 1 if failures else 0
 
 

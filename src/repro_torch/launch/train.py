@@ -49,7 +49,9 @@ def main(argv=None) -> int:
         get_config(args.arch)
         raise SystemExit(
             "--production needs the 16x16 production mesh of 256 cards; this run has one. "
-            "The dry run (python -m repro_torch.launch.dryrun) proves this path traces."
+            "The dry run (python -m repro_torch.launch.dryrun) proves this path traces; it "
+            "does not prove that every combo fits a card's 80 GiB (the port ignores "
+            "cfg.remat), and it warns of each combo whose peak a device exceeds it."
         )
     cfg = get_smoke_config(args.arch)
     device = torch.device(args.device)

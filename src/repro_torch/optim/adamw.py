@@ -61,15 +61,9 @@ def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def _sum_of_squares(g: torch.Tensor) -> torch.Tensor:
-    """``Σ g²`` over every dim but the client axis.  A DTensor (a mesh's
-    sharded gradient) is summed over those dims in place, since flattening
-    a sharded dim would gather it."""
-    from torch.distributed.tensor import DTensor
-
-    sq = torch.square(g.float())
-    if isinstance(g, DTensor):
-        return torch.sum(sq, dim=tuple(range(1, g.ndim)))
-    return torch.sum(sq.reshape(g.shape[0], -1), dim=1)
+    """``Σ g²`` over every dim but the client axis of a ``(C, ...)`` leaf,
+    in row-major order (a sharded gradient in place: no dim is flattened)."""
+    return torch.sum(torch.square(g.float()).contiguous(), dim=tuple(range(1, g.ndim)))
 
 
 def _per_client(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

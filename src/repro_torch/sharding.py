@@ -44,6 +44,10 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import implicit_replication, local_map
 from torch.utils import _pytree
 
 __all__ = [
@@ -257,8 +261,6 @@ def placements(spec: tuple, mesh) -> list:
     ``Replicate()`` (also on a mesh dim of one rank, where the two are
     the same).  An entry of several names (``("pod", "data")``) shards its
     dim over those mesh dims, outer first, as JAX's does."""
-    from torch.distributed.tensor import Replicate, Shard
-
     names, sizes = axis_names(mesh), _axis_sizes(mesh)
     out = [Replicate() for _ in names]
     for d, entry in enumerate(spec):
@@ -276,8 +278,6 @@ def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
     """Every tensor of ``tree`` (dicts, named tuples) as a DTensor placed by
     its spec in ``specs`` (the same structure; ``None`` where the tree has
     ``None``): the counterpart of the reference's ``tree_named``."""
-    from torch.distributed.tensor import distribute_tensor
-
     if isinstance(tree, dict):
         return {k: distribute_tree(v, specs[k], mesh) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -292,8 +292,6 @@ def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
 def local_bytes(tree: Any) -> int:
     """Bytes of this rank's shards of every tensor in ``tree`` (a DTensor
     counts its local shard, a plain tensor itself)."""
-    from torch.distributed.tensor import DTensor
-
     total = 0
     for x in _pytree.tree_leaves(tree):
         if isinstance(x, torch.Tensor):
@@ -342,8 +340,6 @@ def constrain(x, *logical: str | None):
     """Redistribute the DTensor ``x`` to the placements the rules give its
     dims' logical axes (one name or None a dim); the identity when no
     rules are installed or on a plain tensor."""
-    from torch.distributed.tensor import DTensor
-
     if _ACTIVATION_RULES is None or not isinstance(x, DTensor):
         return x
     if len(logical) != x.ndim:
@@ -397,9 +393,6 @@ def local_apply(fn, args: tuple, in_axes: tuple, out_axes, sizes: dict[str, int]
     mamba2-130m's 24 SSD heads over 16 ranks; a batch of 1).  Each
     DTensor arg is redistributed to its placements first, an explicit
     redistribution; without DTensor args it is ``fn(*args)``."""
-    from torch.distributed.tensor import DTensor, Partial
-    from torch.distributed.tensor.experimental import local_map
-
     dts = [a for a in args if isinstance(a, DTensor)]
     if not dts:
         return fn(*args)
@@ -431,8 +424,6 @@ def reduce_over(x: torch.Tensor, op: str, axes: tuple[str, ...]) -> torch.Tensor
     """``x`` reduced (``"sum"``, ``"max"``) over the ranks of the mesh
     ``axes`` of the installed rules' mesh: inside a :func:`local_apply`
     function, across the blocks of a dim split over ``axes``."""
-    import torch.distributed._functional_collectives as funcol
-
     mesh = _ACTIVATION_RULES["mesh"]
     for a in axes:
         x = funcol.all_reduce(x, op, (mesh, axis_names(mesh).index(a)))
@@ -447,8 +438,6 @@ def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
     moves the activations instead (the batch gathered, the weight's
     shard contracted, every rank computing every token).  The identity
     on a plain tensor."""
-    from torch.distributed.tensor import DTensor, Replicate
-
     if not isinstance(w, DTensor):
         return w
     fsdp = fsdp_axes(w.device_mesh)
@@ -463,8 +452,6 @@ def split_last(x: torch.Tensor, lead: int, *shape: int) -> torch.Tensor:
     sharded over ``m`` ranks into ``lead`` groups unless ``m`` divides
     ``lead`` (GQA's 4 or 8 K/V heads over 16, llama4's 40 query heads):
     such a mesh dim is gathered first, an explicit redistribution."""
-    from torch.distributed.tensor import DTensor, Replicate
-
     if isinstance(x, DTensor):
         last = x.ndim - 1
         place = [Replicate() if p.is_shard(last) and lead % x.device_mesh.size(i) else p
@@ -481,9 +468,6 @@ def index_copy_(buf: torch.Tensor, dim: int, index: torch.Tensor, val: torch.Ten
     each rank writes into its own shard, and only the rank that holds the
     slot changes anything: ``val`` is placed as ``buf`` with ``dim``
     replicated, and every other rank writes its slot's old value back."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-
     if not isinstance(buf, DTensor):
         buf.index_copy_(dim, index, val)
         return
@@ -509,8 +493,6 @@ def on_mesh(mesh):
     installed, and a plain tensor the step makes (positions, masks, RoPE's
     frequencies, zero states) taken as replicated where it meets a
     DTensor."""
-    from torch.distributed.tensor.experimental import implicit_replication
-
     set_activation_sharding(mesh)
     try:
         with implicit_replication():

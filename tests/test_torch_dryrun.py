@@ -218,3 +218,35 @@ def test_the_cli_writes_the_references_record(tmp_path):
     assert set(rec["collectives"]) == set(dryrun.COLLECTIVES) | {"count"}
     assert rec["hw"]["hbm_bytes"] == 80 * 1024**3 and "nvlink_bandwidth" in rec["hw"]
     assert rec["model_params"] == get_config("mamba2-130m").param_count()
+    assert dryrun.peak_bytes(rec) < rec["hw"]["hbm_bytes"] and "WARNING" not in out.stderr
+
+
+def test_the_matrix_names_the_combos_over_the_cards_memory(tmp_path, monkeypatch, capsys):
+    """``--all`` reads each record its processes wrote: a combo whose
+    arguments plus temp exceed the card's 80 GiB is named in a warning, a
+    combo that fails to trace is a ``FAIL`` and the exit code 1."""
+    fits, over, failing = ("a", "s1"), ("a", "s2"), ("b", "s1")
+    temp = {fits: 79 * 1024**3, over: 80 * 1024**3, ("b", "s2"): 0}
+
+    class Done:
+        def __init__(self, cmd):
+            combo = (cmd[cmd.index("--arch") + 1], cmd[cmd.index("--shape") + 1])
+            self.returncode = 1 if combo == failing else 0
+            if combo in temp:
+                mem = {"argument_size_in_bytes": 1, "temp_size_in_bytes": temp[combo]}
+                (tmp_path / f"{combo[0]}__{combo[1]}__single_pod.json").write_text(
+                    json.dumps({"memory": mem}))
+
+        def poll(self):
+            return self.returncode
+
+    monkeypatch.setattr(dryrun, "ARCHITECTURES", {"a": "", "b": "", "gpt2-paper": ""})
+    monkeypatch.setattr(dryrun, "INPUT_SHAPES", {"s1": None, "s2": None})
+    monkeypatch.setattr(dryrun.subprocess, "Popen", Done)
+    monkeypatch.setattr(dryrun.time, "sleep", lambda _: None)
+    rc = dryrun.run_matrix(multi_pod=False, cost_mode=False, jobs=2, out_dir=str(tmp_path),
+                           device="cpu")
+    text = capsys.readouterr().out
+    assert rc == 1 and f"FAIL {failing}" in text
+    warning = [line for line in text.splitlines() if "WARNING" in line]
+    assert len(warning) == 1 and str(over) in warning[0] and str(fits) not in warning[0]

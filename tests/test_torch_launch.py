@@ -27,8 +27,8 @@ architecture registry against the reference's, on the CPU.
   (the encoder run once a request batch) likewise, the port's stub the
   reference's draw (``_torch_modal``).
 * What the port does not carry raises: a dtype name outside fp32, bf16 and
-  fp16 on the VLM and audio families, and ``--production``, naming its
-  ROADMAP.md item.
+  fp16 on the VLM and audio families; ``--production`` exits as the
+  reference's does, naming the dry run.
 """
 
 import functools

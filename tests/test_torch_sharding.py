@@ -263,3 +263,22 @@ def test_argument_bytes_are_the_references_specs(fake_world, shapes, combo):
         want += _ref_bytes(cache, j_sh.cache_specs(cache, jm, batch_shardable=shardable), sizes)
         want += shape.global_batch // (_size(sizes, j_sh.batch_axes(jm)) if shardable else 1) * 4
     assert got == want
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "transposed", "bf16-transposed"])
+def test_adamw_norm_sums_each_leaf_in_row_major_order(layout):
+    """AdamW's per-client norm reduces each ``(C, ...)`` leaf over its own
+    dims (a sharded gradient is never flattened), bitwise the sum over
+    the leaf flattened in row-major order, also where its strides are not
+    row-major."""
+    from repro_torch.optim import global_norm
+
+    rng = np.random.default_rng(0)
+    grads = {k: torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+             for k, s in (("w", (3, 96, 130)), ("b", (3, 130)), ("e", (3, 4, 33, 17)))}
+    if layout != "contiguous":
+        grads = {k: g.transpose(1, -1) for k, g in grads.items()}
+    if layout.startswith("bf16"):
+        grads = {k: g.to(torch.bfloat16) for k, g in grads.items()}
+    flat = sum(torch.square(g.float()).reshape(3, -1).sum(dim=1) for g in grads.values())
+    assert torch.equal(global_norm(grads), torch.sqrt(flat))
