@@ -11,7 +11,13 @@ Phases (any failure raises and exits non-zero):
    * the wire scatters (4 clients x 64 public samples x vocab 50 257,
      k_cap 128 and 1024, and 8 rows x V 152 064, k_cap 1024, which takes
      more column tiles; k = 0 client rows, wire padding at index 0 beside
-     a real index-0 entry, negative values), ``torch.equal``;
+     a real index-0 entry, negative values), ``torch.equal``; and the
+     sparse path's memory contract, the float and the int8 wire aggregated
+     through these kernels and through the plain route at the reference
+     test's shapes (10 clients, 64 rows, V 8 192, k_cap 256) and the main
+     path's (4, 64, 50 257, 1 024): ``max_intermediate_elems`` (every op's
+     output, the kernels' outputs among them) at most rows * V, below the
+     (N, rows, V) dense stack;
    * the bisection top-k masks, per-row budget and static k, at 256 rows x
      V 50 257 (the shared-memory path) and 16 rows x V 152 064 (the
      global-memory path): k = 0, 1, V and > V, ties at the threshold, an
@@ -349,7 +355,8 @@ Phases (any failure raises and exits non-zero):
    parameter leaf within 1e-2 of its update (``||got - want|| / ||want -
    p0||``; bitwise where the plain step leaves it unchanged).
    (b) ``python -m repro_torch.launch.dryrun`` in processes of their own,
-   started with the phase: yi-9b x train_4k on the single- and multi-pod
+   started before phase 6f (they take host cores, no card, and run beside
+   phases 6f-6h): yi-9b x train_4k on the single- and multi-pod
    meshes (256 and 512 fake ranks), mamba2-130m x long_500k, granite x
    decode_32k; each record's per-device argument and peak GiB against the
    card's 80 GiB, its TFLOP and collective GB by kind.  (c) The dry run at
@@ -357,7 +364,22 @@ Phases (any failure raises and exits non-zero):
    world of one): its flops and argument bytes equal to the real step's,
    its peak (arguments + temp) beside ``torch.cuda.max_memory_allocated``
    above the memory held before the step's arguments; the phase fails
-   below 80 %.
+   below 80 %.  Every step of (a)-(c) rematerialises (the full configs set
+   ``remat``).  (d) In (a)'s process after it: each of (a)'s models and a
+   hybrid of one period of jamba-1.5-large-398b's layout (8 layers: its
+   attention at offset 4, MoE every 2 at offset 1, SSD state 128, head 64,
+   expand 2, vocab 65 536, bf16, as published; cut to d 2 048, 16 / 2
+   heads, 4 experts of d_ff 6 144, each cut logged) take one train step
+   with ``remat`` and two without, at (a)'s batch and tokens: the loss and
+   each parameter leaf of the remat'd step held to the first plain step's
+   by (a)'s bounds, the second plain step's spread beside; the gradient
+   pass alone (forward and backward of the step's first microbatch, no
+   update) and the whole step each read ``torch.cuda.max_memory_allocated``
+   from a reset, less the memory held before the run plus the step's
+   arguments (the step's is
+   the functional AdamW update's wherever the optimizer state outweighs the
+   activations), and the remat'd gradient pass must peak lower than both
+   plain ones; ms a step each.
 
 The last lines are the card and its power limit, the kernels record and the
 device record (JSON).  In the kernels record ``launches`` is each kernel's
@@ -402,13 +424,15 @@ from repro_torch.checkpoint import ckpt as ckpt_io  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.base import LoRAConfig, ShapeConfig  # noqa: E402
 from repro_torch.configs.gpt2_paper import GPT2_LARGE, GPT2_SMALL, REDUCED_CLIENT, REDUCED_SERVER  # noqa: E402
-from repro_torch.core.aggregation import AggregationMode, aggregate_wire  # noqa: E402
+from repro_torch.core.aggregation import (  # noqa: E402
+    AggregationMode, aggregate_wire, max_intermediate_elems,
+)
 from repro_torch.core.channel import ChannelConfig, ChannelSimulator  # noqa: E402
 from repro_torch.core.distill import total_distill_loss  # noqa: E402
 from repro_torch.core.faults import FaultSimulator, corrupt_wire  # noqa: E402
 from repro_torch.core.scenario import get_scenario  # noqa: E402
 from repro_torch.core.topk import (  # noqa: E402
-    _stable_topk, concat_wires, quantize_wire, sparsify_wire, topk_mask_dense,
+    SparseWire, _stable_topk, concat_wires, quantize_wire, sparsify_wire, topk_mask_dense,
 )
 from repro_torch.data import make_banking77_like  # noqa: E402
 from repro_torch.fed import (  # noqa: E402
@@ -424,7 +448,13 @@ from repro_torch.launch import fed_train  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import H100  # noqa: E402
-from repro_torch.launch.steps import init_train_opt, make_serve_step, make_train_step  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    full_grads,
+    init_train_opt,
+    make_serve_step,
+    make_train_loss,
+    make_train_step,
+)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.lora import is_lora_path, lora_template, merge_lora, split_lora  # noqa: E402
 from repro_torch.models import attention, frontends, model, transformer  # noqa: E402
@@ -781,6 +811,44 @@ def check_scatter_kernels(device):
         assert bool((wire.values[3][wire.mask[3]] < 0).all())
         log(f"[kernels] k_cap={k_cap}: both wire scatters torch.equal to their plain versions "
             f"in all 3 modes at N={N_CLIENTS} rows={rows} V={vocab}")
+    check_wire_memory_contract(device)
+
+
+# the sparse path's memory contract, (N, rows, V, k_cap): the reference test's shapes
+# (tests/test_engine.py) and the main path's
+CONTRACT_SHAPES = ((10, 64, 8192, 256), (N_CLIENTS, ROWS, VOCAB, 1024))
+
+
+def contract_wire(n: int, rows: int, vocab: int, k_cap: int, seed: int, device) -> SparseWire:
+    """A random float wire of ``n`` clients, a tenth of its entries masked
+    (their index 0, as ``pad_wire`` pads)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (n, rows, k_cap)
+    values = torch.randn(shape, generator=gen, device=device)
+    idx = torch.randint(0, vocab, shape, generator=gen, device=device, dtype=torch.int32)
+    mask = torch.rand(shape, generator=gen, device=device) < 0.9
+    return SparseWire(values=values, indices=torch.where(mask, idx, 0), mask=mask, vocab=vocab)
+
+
+def check_wire_memory_contract(device):
+    """Aggregating straight from the float and the int8 wire, through the
+    wire kernels and through the plain route, never holds anything larger
+    than the ``(rows, V)`` sums (``max_intermediate_elems``: every op's
+    output; the kernels' outputs are allocated through torch), far below the
+    ``(N, rows, V)`` dense stack."""
+    for n, rows, vocab, k_cap in CONTRACT_SHAPES:
+        wire = contract_wire(n, rows, vocab, k_cap, seed=n, device=device)
+        worst = {}
+        for label, w in (("float", wire), ("int8", quantize_wire(wire))):
+            for route, use_kernel in (("kernel", True), ("plain", False)):
+                count = max_intermediate_elems(aggregate_wire, w, "adaptive",
+                                               num_transmitters=n, use_kernel=use_kernel)
+                assert count <= rows * vocab < n * rows * vocab, (label, route, n, count)
+                worst[f"{label} {route}"] = count
+        log(f"[kernels] memory contract at N={n} rows={rows} V={vocab} k_cap={k_cap}: the largest "
+            f"intermediate of the wire aggregation " + ", ".join(
+                f"{k} {v}" for k, v in worst.items())
+            + f" elements, <= rows*V {rows * vocab} < N*rows*V {n * rows * vocab}")
 
 
 def check_topk_kernels(device):
@@ -3588,10 +3656,43 @@ MESH_BF16_ULP = 2.0**-8
 MESH_UPDATE_RTOL = 1e-2
 
 
+# (d), in (a)'s process: each model's train step with cfg.remat and without (the
+# latter twice, for its run-to-run spread), at (a)'s batch and tokens: (a)'s models
+# and a hybrid of ONE period of jamba-1.5-large-398b's layout (attention every 8 at
+# offset 4, MoE every 2 at offset 1, SSD state 128, head 64, expand 2, vocab 65 536,
+# bf16, as published), cut in depth, width and experts; the loss and each
+# parameter leaf held to the plain step's by (a)'s bounds
+REMAT_HYBRID = dict(num_layers=8, d_model=2048, num_heads=16, num_kv_heads=2, d_ff=6144)
+REMAT_HYBRID_EXPERTS = 4
+
+
 def mesh_models() -> dict:
     return {"yi-9b": get_config("yi-9b").with_overrides(num_layers=MESH_YI_LAYERS),
             "mamba2-130m": get_config("mamba2-130m"),
             "granite-moe-1b-a400m": get_config("granite-moe-1b-a400m")}
+
+
+def remat_models() -> dict:
+    jamba = get_config("jamba-1.5-large-398b")
+    hybrid = jamba.with_overrides(**REMAT_HYBRID, moe=dataclasses.replace(
+        jamba.moe, num_experts=REMAT_HYBRID_EXPERTS, d_ff=REMAT_HYBRID["d_ff"]))
+    return {**mesh_models(), "jamba-1.5-large-398b": hybrid}
+
+
+def config_cuts(arch: str, cfg) -> str:
+    """Every field of ``cfg`` that differs from ``arch``'s published config,
+    ``field published -> here``."""
+    def flat(c, pre=""):
+        out = {}
+        for f in dataclasses.fields(c):
+            v = getattr(c, f.name)
+            out.update(flat(v, f"{pre}{f.name}.") if dataclasses.is_dataclass(v)
+                       else {pre + f.name: v})
+        return out
+
+    pub, got = flat(get_config(arch)), flat(cfg)
+    return ", ".join(f"{k} {pub.get(k)} -> {v}" for k, v in got.items()
+                     if v != pub.get(k)) or "none"
 
 
 def mesh_shape() -> ShapeConfig:
@@ -3671,6 +3772,92 @@ def update_rel(got: torch.Tensor, want: torch.Tensor, p0: torch.Tensor) -> float
     return err / step if step else (0.0 if err == 0 else math.inf)
 
 
+def remat_run(cfg, params, opt, tokens, device) -> dict:
+    """``cfg``'s gradient pass alone (``full_grads`` of the train loss on
+    the step's first microbatch), then its train step (``make_train_step``),
+    each from ``torch.cuda.reset_peak_memory_stats()``: the loss, the
+    updated parameters, the step's ms (host clock ending in a sync) and each
+    one's peak, ``max_memory_allocated`` less the memory held before the
+    run plus the step's arguments (what an earlier run left on the card
+    does not count)."""
+    cuda = device.type == "cuda"
+    m = cfg.microbatches if tokens.shape[0] % cfg.microbatches == 0 else 1
+    args = sharding.local_bytes((params, opt, tokens))
+    sync(device)
+    base = torch.cuda.memory_allocated() if cuda else 0
+
+    def peak() -> int:
+        return torch.cuda.max_memory_allocated() - base + args if cuda else 0
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _, grads = full_grads(make_train_loss(cfg), params, tokens[:tokens.shape[0] // m])
+    sync(device)
+    grad_peak = peak()
+    del grads
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new_p, _, metrics = make_train_step(cfg)(params, opt, {"tokens": tokens})
+    sync(device)
+    ms = 1e3 * (time.perf_counter() - t0)
+    return {"loss": metrics["loss"].float(), "ms": ms, "grad_peak": grad_peak, "peak": peak(),
+            "rows": tokens.shape[0] // m, "params": new_p}
+
+
+def remat_check(models: dict, device, card: str) -> None:
+    """(d): each model's train step with remat against it without; fails
+    where a loss or a parameter leaf leaves (a)'s bounds, or where the
+    remat'd gradient pass does not peak lower on the card."""
+    gib = 1024**3
+    for arch, cfg in models.items():
+        t_model = time.perf_counter()
+        params = model.init(cfg, 0, device)
+        opt = init_train_opt(params, cfg)
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (MESH_BATCH, MESH_SEQ)).astype(np.int32), device=device)
+        off, on = cfg.with_overrides(remat=False), cfg.with_overrides(remat=True)
+        plain = remat_run(off, params, opt, tokens, device)
+        n, runs, report = len(plain["params"]), {}, {}
+        for name, c in (("remat", on), ("again", off)):  # held to the first plain step's
+            run = remat_run(c, params, opt, tokens, device)
+            equal, err = mesh_diff(run["loss"], plain["loss"])
+            tol = 2 * MESH_BF16_ULP * float(plain["loss"].abs())
+            assert name == "again" or err <= tol, (arch, "loss", err, tol)
+            worst, worst_key, unequal = 0.0, "", 0
+            for k, w in plain["params"].items():
+                rel = update_rel(run["params"][k], w, params[k])
+                assert name == "again" or rel <= MESH_UPDATE_RTOL, (arch, k, rel)
+                unequal += not torch.equal(run["params"][k], w)
+                if rel > worst:
+                    worst, worst_key = rel, k
+            report[name] = ("loss bitwise" if equal else f"loss off by {err:.3g} (bound {tol:.3g})"
+                            ) + ", " + (f"{n} leaves bitwise" if not unequal else
+                                        f"{unequal} of {n} leaves not bitwise, the largest off "
+                                        f"by {worst:.3g} of its update ({worst_key})")
+            del run["params"]
+            runs[name] = run
+        remat, again = runs["remat"], runs["again"]
+        if device.type == "cuda":
+            assert remat["grad_peak"] < min(plain["grad_peak"], again["grad_peak"]), (
+                arch, remat["grad_peak"], plain["grad_peak"], again["grad_peak"])
+        log(f"[production mesh (d) {arch}] {cfg.num_layers} layers, d {cfg.d_model}, batch "
+            f"{MESH_BATCH}, seq {MESH_SEQ}, one train step with remat against without (twice); "
+            f"cuts from the published config: {config_cuts(arch, cfg)}; remat: "
+            f"{report['remat']} (bound {MESH_UPDATE_RTOL:g} of the update); plain twice: "
+            f"{report['again']}; max_memory_allocated GiB, step: remat "
+            f"{remat['peak'] / gib:.3f}, plain {plain['peak'] / gib:.3f} / "
+            f"{again['peak'] / gib:.3f}; gradient pass (a microbatch of {remat['rows']} rows): "
+            f"remat {remat['grad_peak'] / gib:.3f}, "
+            f"plain {plain['grad_peak'] / gib:.3f} / {again['grad_peak'] / gib:.3f}; ms a step: "
+            f"remat {remat['ms']:.1f}, plain {plain['ms']:.1f} / {again['ms']:.1f}; "
+            f"{time.perf_counter() - t_model:.1f} s; {card}")
+        del plain, runs, remat, again, params, opt
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
 def _dryrun_at_one(out: str, cfg, shape, device_type: str) -> None:
     """The dry run of ``cfg``'s train step at ``shape`` on a 1x1 mesh over a
     fake world of one rank (a process of its own): its record's parts."""
@@ -3684,11 +3871,13 @@ def _dryrun_at_one(out: str, cfg, shape, device_type: str) -> None:
         json.dump({k: rec[k] for k in ("memory", "cost", "collectives", "lower_s")}, f)
 
 
-def _mesh_steps_at_one(out: str, models: dict, device_type: str, card: str, seq: int) -> None:
+def _mesh_steps_at_one(out: str, models: dict, remat: dict, device_type: str, card: str,
+                       seq: int) -> None:
     """(a) in a process of its own, on a one-rank group of its own (NCCL on
     the card), so that no state an earlier phase left reaches it: each
     model's steps on a 1x1 mesh against its plain steps.  Writes the first
-    model's train-step flops, argument bytes and peak to ``out`` for (c)."""
+    model's train-step flops, argument bytes and peak to ``out`` for (c).
+    Then (d), the ``remat`` models' train steps with remat and without."""
     global MESH_SEQ
     from repro_torch.launch.mesh import make_host_mesh
 
@@ -3737,28 +3926,51 @@ def _mesh_steps_at_one(out: str, models: dict, device_type: str, card: str, seq:
                 torch.cuda.empty_cache()
         with open(out, "w") as f:
             json.dump(real, f)
+        remat_check(remat, device, card)
     finally:
         dist.destroy_process_group()
 
 
-def phase_production_mesh(device, card: str = "", models: dict | None = None,
-                          dryruns=MESH_DRYRUNS) -> None:
-    """Phase 9 (see the module docstring).  ``models`` replaces (a)'s
-    (``mesh_models()``; the first is the one (c) holds), ``dryruns``
-    (b)'s combos: a rehearsal on the CPU at tiny widths."""
-    t0 = time.perf_counter()
-    device = torch.device(device)
-    models = models or mesh_models()
-    first = next(iter(models))
+def start_mesh_dryruns(device_type: str, dryruns=MESH_DRYRUNS) -> tuple[str, dict]:
+    """(b)'s dry runs, each ``python -m repro_torch.launch.dryrun`` in a
+    process of its own writing its record and its output to a new temp
+    directory: ``(the directory, {combo: process})``.  They take host cores
+    and no card, so the smoke starts them ahead of phase 9, beside phases
+    6f-6h; :func:`stop_mesh_dryruns` ends them."""
     tmp = tempfile.mkdtemp(prefix="dryrun_")
-    # (b) and (c)'s dry runs take the host's cores while (a) runs on the card
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
     dry = {}
     for arch, shape, multi in dryruns:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-               "--out", tmp, "--device", device.type] + (["--multi-pod"] if multi else [])
-        dry[(arch, shape, multi)] = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                                     stderr=subprocess.STDOUT, text=True)
+               "--out", tmp, "--device", device_type] + (["--multi-pod"] if multi else [])
+        with open(os.path.join(tmp, f"{arch}__{shape}__{multi}.log"), "w") as out:
+            dry[(arch, shape, multi)] = subprocess.Popen(cmd, env=env, stdout=out,
+                                                         stderr=subprocess.STDOUT)
+    return tmp, dry
+
+
+def stop_mesh_dryruns(tmp: str, dry: dict) -> None:
+    for proc in dry.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_production_mesh(device, card: str = "", models: dict | None = None,
+                          dryruns=MESH_DRYRUNS, remat: dict | None = None,
+                          started: tuple[str, dict] | None = None) -> None:
+    """Phase 9 (see the module docstring).  ``models`` replaces (a)'s
+    (``mesh_models()``; the first is the one (c) holds), ``dryruns``
+    (b)'s combos and ``remat`` (d)'s models (``remat_models()``): a
+    rehearsal on the CPU at tiny widths.  ``started``: (b)'s dry runs from
+    :func:`start_mesh_dryruns`, else the phase starts them."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    models = models or mesh_models()
+    remat = remat or remat_models()
+    first = next(iter(models))
+    tmp, dry = started if started is not None else start_mesh_dryruns(device.type, dryruns)
     spawn = torch_mp.get_context("spawn")
     one = spawn.Process(
         target=_dryrun_at_one,
@@ -3767,8 +3979,8 @@ def phase_production_mesh(device, card: str = "", models: dict | None = None,
     if device.type == "cuda":
         torch.cuda.empty_cache()  # the card's memory this process holds idle goes to (a)
     steps = spawn.Process(target=_mesh_steps_at_one,
-                          args=(os.path.join(tmp, "steps.json"), models, device.type, card,
-                                MESH_SEQ))
+                          args=(os.path.join(tmp, "steps.json"), models, remat, device.type,
+                                card, MESH_SEQ))
     steps.start()
     try:
         # (a) the 1x1 mesh over NCCL: each model's steps on DTensors against the plain steps
@@ -3780,8 +3992,9 @@ def phase_production_mesh(device, card: str = "", models: dict | None = None,
         # (b) the dry runs of the production meshes
         gib = 1024**3
         for (arch, shape, multi), proc in dry.items():
-            text, _ = proc.communicate(timeout=900)
-            assert proc.returncode == 0, (arch, shape, multi, text[-3000:])
+            proc.wait(timeout=900)
+            with open(os.path.join(tmp, f"{arch}__{shape}__{multi}.log")) as f:
+                assert proc.returncode == 0, (arch, shape, multi, f.read()[-3000:])
             mesh_name = "multi_pod" if multi else "single_pod"
             with open(os.path.join(tmp, f"{arch}__{shape}__{mesh_name}.json")) as f:
                 rec = json.load(f)
@@ -3812,15 +4025,11 @@ def phase_production_mesh(device, card: str = "", models: dict | None = None,
             f"{card}")
         assert ratio >= 0.8 or device.type != "cuda", ratio
     finally:
-        for proc in dry.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
         for proc in (one, steps):
             if proc.is_alive():
                 proc.kill()
                 proc.join()
-        shutil.rmtree(tmp, ignore_errors=True)
+        stop_mesh_dryruns(tmp, dry)
     log(f"[production mesh] phase 9 passed in {time.perf_counter() - t0:.1f} s ({card})")
 
 
@@ -4248,10 +4457,15 @@ def main() -> int:
     host_store = phase_host_store(device, runs[("fused_e2e", False, None)])
     scale_out = phase_scale_out(device, card, runs)
     serving = phase_serving(device, card)
-    families = phase_families(device, card)
-    ssm = phase_ssm(device, card)
-    modal = phase_modal(device, card)
-    phase_production_mesh(device, card)
+    started = start_mesh_dryruns(device.type)  # phase 9 (b), on host cores beside 6f-6h
+    try:
+        families = phase_families(device, card)
+        ssm = phase_ssm(device, card)
+        modal = phase_modal(device, card)
+    except BaseException:
+        stop_mesh_dryruns(*started)
+        raise
+    phase_production_mesh(device, card, started=started)
     launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) + pretrained["launches"][name]
                 + faults["launches"].get(name, 0) + host_store["launches"].get(name, 0)
                 + scale_out["launches"].get(name, 0) + families["launches"].get(name, 0)

@@ -7,8 +7,9 @@ the launchers.
 ``get_config``/``get_smoke_config`` return every one of them, and the port
 runs each in fp32, bf16 and fp16; any other dtype name is refused when a
 model is built (:func:`repro_torch.models.model.check_supported`).
-``remat`` and ``microbatches`` pass through: they change memory, not
-results, and the port ignores ``remat``."""
+``remat`` (each repeat of the layer period, and each position of a longer
+period, recomputed in the backward: ``models.transformer.stack_apply``) and
+``microbatches`` change memory, not results."""
 
 import importlib
 

@@ -1,7 +1,12 @@
 """Channel, protocol, wire and aggregation primitives of the paper's method
 (§III), ported from ``repro.core``."""
 
-from repro_torch.core.aggregation import aggregate, aggregate_sparse, aggregate_wire
+from repro_torch.core.aggregation import (
+    aggregate,
+    aggregate_sparse,
+    aggregate_wire,
+    max_intermediate_elems,
+)
 from repro_torch.core.channel import ChannelConfig, ChannelSimulator, ChannelState, topk_budget_batch
 from repro_torch.core.distill import soft_labels
 from repro_torch.core.faults import (
@@ -38,6 +43,7 @@ __all__ = [
     "aggregate",
     "aggregate_sparse",
     "aggregate_wire",
+    "max_intermediate_elems",
     "ChannelConfig",
     "ChannelSimulator",
     "ChannelState",

@@ -26,6 +26,8 @@ from __future__ import annotations
 from typing import Literal
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.core.topk import QuantizedWire, SparseWire
 from repro_torch.kernels.ref import scatter_wire_sums_dequant_ref
@@ -40,6 +42,7 @@ __all__ = [
     "aggregate_wire",
     "scatter_wire_sums",
     "scatter_wire_sums_dequant",
+    "max_intermediate_elems",
 ]
 
 AggregationMode = Literal["adaptive", "zeropad", "mean_nonzero"]
@@ -178,6 +181,41 @@ def aggregate_wire(
             num_transmitters = int(wire.mask.reshape(wire.mask.shape[0], -1).any(dim=1).sum())
         return num / max(int(num_transmitters), 1)
     return num / (den + _EPS)
+
+
+class _LargestOutput(TorchDispatchMode):
+    """Tracks the largest element count of any op's output."""
+
+    def __init__(self):
+        super().__init__()
+        self.worst = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.worst = max(self.worst, t.numel())
+        return out
+
+
+def max_intermediate_elems(fn, *args, **kwargs) -> int:
+    """Largest element count of any op's output while ``fn(*args,
+    **kwargs)`` runs: the inspection behind the sparse path's memory
+    contract, that aggregating straight from the wire never builds the
+    ``(N, B, V)`` dense stack.
+
+    The reference takes a jaxpr and reads every equation's outputs,
+    sub-jaxprs included; torch has no jaxpr, so this takes the function and
+    its arguments and runs it under a dispatch mode that sees every op,
+    views included (a broadcast to ``(N, B, V)`` counts at that size,
+    erring strict, as the reference's ``broadcast_in_dim`` does).  It runs
+    on CPU, CUDA and ``meta`` tensors.  On the card the wire kernels'
+    wrappers (:mod:`repro_torch.kernels.ops`) allocate their outputs through
+    torch and launch with no scratch of their own, so the mode sees every
+    buffer the kernel route holds; the launch itself is not an op."""
+    with _LargestOutput() as mode:
+        fn(*args, **kwargs)
+    return mode.worst
 
 
 def aggregate_sparse(

@@ -17,6 +17,8 @@ that share a configuration pretrain once.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -31,6 +33,12 @@ from repro_torch.models import model as model_lib
 __all__ = ["pretrain_classifier", "pretrain_lm"]
 
 _CACHE: dict = {}
+
+
+def _data_key(data: IntentDataset) -> str:
+    """A digest of the pretraining split's tokens and labels."""
+    return hashlib.sha1(np.ascontiguousarray(data.tokens).tobytes()
+                        + np.ascontiguousarray(data.labels).tobytes()).hexdigest()
 
 
 def _owned(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -112,8 +120,8 @@ def pretrain_classifier(
     """Full-parameter supervised pretraining from ``init(cfg, seed)``;
     returns the pretrained backbone with the fresh adapters of ``init(cfg,
     seed + 1)`` — the shared W' + θ_0 of eq. 1."""
-    key = (cfg.name, cfg.num_layers, cfg.d_model, steps, lr, seed, len(pretrain_data),
-           num_classes, batch_size, last_only, str(torch.device(device)))
+    key = (cfg, steps, lr, seed, _data_key(pretrain_data), num_classes, batch_size, last_only,
+           str(torch.device(device)))
     if key not in _CACHE:
         params = model_lib.init(cfg, seed, device)
         step = _supervised_step(cfg, num_classes, lr, last_only)
@@ -139,8 +147,7 @@ def pretrain_lm(
     label information — the paper's server LLM, a generically pretrained
     model whose task knowledge arrives through distillation.  Returns the
     backbone under the fresh adapters of ``init(cfg, seed + 1)``."""
-    key = ("lm", cfg.name, cfg.num_layers, cfg.d_model, steps, lr, seed, len(pretrain_data),
-           str(torch.device(device)))
+    key = ("lm", cfg, steps, lr, seed, _data_key(pretrain_data), str(torch.device(device)))
     if key not in _CACHE:
         params = model_lib.init(cfg, seed, device)
         step = make_train_step(cfg, lr=lr, weight_decay=1e-4)

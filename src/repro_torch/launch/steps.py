@@ -36,6 +36,7 @@ __all__ = [
     "init_train_opt",
     "full_grads",
     "full_adamw_step",
+    "make_train_loss",
     "make_train_step",
     "make_prefill_step",
     "make_serve_step",
@@ -123,6 +124,21 @@ def full_adamw_step(grads: dict, opt: AdamWState, params: dict, *, lr: float,
     return {k: v[0] for k, v in new.items()}, opt
 
 
+def make_train_loss(cfg: ModelConfig, *, router_aux_weight: float = 0.01) -> Callable:
+    """The train step's loss: ``loss_fn(params, tokens (B, S), frontend=None)
+    -> (loss, ce)``, the next-token CE plus ``router_aux_weight`` times the
+    MoE router's auxiliary loss; :func:`full_grads` takes it."""
+
+    def loss_fn(params, tokens, frontend=None):
+        h, aux = backbone(params, cfg, tokens[None], frontend=frontend)
+        targets = tokens[None, :, 1:]
+        mask = torch.ones(targets.shape, dtype=torch.float32, device=tokens.device)
+        ce = chunked_lm_loss(params, cfg, h[:, :, :-1], targets, mask)
+        return ce + router_aux_weight * aux.moe_aux[0], ce
+
+    return loss_fn
+
+
 def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, weight_decay: float = 0.1,
                     router_aux_weight: float = 0.01) -> Callable:
     """LM pretraining/fine-tuning step over a ``{"tokens": (B, S)}`` batch
@@ -136,13 +152,7 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, weight_decay: float =
     router's auxiliary loss (0 without MoE layers).  With
     ``cfg.microbatches = m > 1`` dividing the batch, the gradients of the m
     microbatches are summed in the params' dtype and divided by m."""
-
-    def loss_fn(params, tokens, frontend=None):
-        h, aux = backbone(params, cfg, tokens[None], frontend=frontend)
-        targets = tokens[None, :, 1:]
-        mask = torch.ones(targets.shape, dtype=torch.float32, device=tokens.device)
-        ce = chunked_lm_loss(params, cfg, h[:, :, :-1], targets, mask)
-        return ce + router_aux_weight * aux.moe_aux[0], ce
+    loss_fn = make_train_loss(cfg, router_aux_weight=router_aux_weight)
 
     def train_step(params, opt: AdamWState, batch):
         tokens, frontend = batch["tokens"], batch.get("frontend")

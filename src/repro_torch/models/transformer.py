@@ -26,10 +26,12 @@ takes the decoder's (the reference's rule).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import KVCache, attn_apply, cross_attn_apply, init_kv_cache
@@ -140,7 +142,10 @@ def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
     the stacked decode).  ``lora_h`` starts at zeros when a position of
     the period is an attention layer and the model has LoRA (the
     reference's start: such a model whose adapters give no projection
-    reports zeros), else at None."""
+    reports zeros), else at None.  With ``cfg.remat``, grad on and no
+    ``caches``, each repeat runs under a non-reentrant
+    ``torch.utils.checkpoint``, and so does each position of a period of
+    several (the reference's nested remat); the results are the same."""
     num_layers = cfg.num_layers if num_layers is None else num_layers
     p = stack_period(cfg, num_layers)
     kinds = [layer_kinds(cfg, j) for j in range(p)]
@@ -154,30 +159,60 @@ def stack_apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConf
     def residual(x):  # the stream batch-sharded, whole over "model" (the identity without rules)
         return constrain(x, None, "batch", None, None)
 
-    x = residual(x)
+    def layer(j, r, state):
+        """Layer ``r·p + j`` on ``state = [x, moe_aux, lora_h]``, which it
+        empties: no caller holds the stream once its first residual
+        replaces it."""
+        x, moe_aux, lora_h = state
+        state.clear()
+        mixer, mlp = kinds[j]
+        lp = layer_slice(params, j, r, prefix)
+        cache = None if caches is None else type(caches[f"pos{j}"])(
+            *(t[r] for t in caches[f"pos{j}"]))
+        h_in = norm_apply(lp, "norm1", x, cfg.norm)
+        if mixer == "attn":
+            y, h = attn_apply(lp, h_in, cfg, cache=cache, window=window, causal=causal)
+            if h is not None:
+                lora_h = h.mean(dim=2)  # (C, B, r): paper eq. 8, pooled over the sequence
+        else:
+            y = ssm_apply(lp, h_in, cfg, cache=cache)
+        x = residual(x + y)
+        if enc_out is not None and "cross/wq/w" in lp:
+            x = residual(x + cross_attn_apply(lp, norm_apply(lp, "norm_x", x, cfg.norm),
+                                              enc_out, cfg))
+        if mlp is None:
+            return [x, moe_aux, lora_h]
+        h2 = norm_apply(lp, "norm2", x, cfg.norm)
+        if mlp == "moe":
+            y2, aux = moe_apply(lp, h2, cfg, pool_clients=pool_moe)
+            moe_aux = moe_aux + aux
+        else:
+            y2 = mlp_apply(lp, h2, activation=cfg.activation, cd=cd)
+        return [residual(x + y2), moe_aux, lora_h]
+
+    # remat (the reference's jax.checkpoint): a pass a backward can follow
+    # keeps only each repeat's inputs and recomputes the repeat's layers in
+    # the backward, and a period of several positions checkpoints each one
+    # inside it too; a cached or no-grad pass has nothing to keep.  On a mesh
+    # the recompute runs in the step's backward, which every step takes
+    # inside its ``sharding.on_mesh``, so the activation rules hold for it
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+
+    def checkpointed(fn, state):
+        """``fn(state)`` under a non-reentrant checkpoint, which keeps the
+        state's tensors for the recompute."""
+        return list(torch.utils.checkpoint.checkpoint(
+            lambda *s: tuple(fn(list(s))), *state, use_reentrant=False))
+
+    def period(r, state):
+        for j in range(p):
+            one = functools.partial(layer, j, r)
+            state = checkpointed(one, state) if remat and p > 1 else one(state)
+        return state
+
+    state = [residual(x), moe_aux, lora_h]
     for r in range(num_layers // p):
-        for j, (mixer, mlp) in enumerate(kinds):
-            lp = layer_slice(params, j, r, prefix)
-            cache = None if caches is None else type(caches[f"pos{j}"])(
-                *(t[r] for t in caches[f"pos{j}"]))
-            h_in = norm_apply(lp, "norm1", x, cfg.norm)
-            if mixer == "attn":
-                y, h = attn_apply(lp, h_in, cfg, cache=cache, window=window, causal=causal)
-                if h is not None:
-                    lora_h = h.mean(dim=2)  # (C, B, r): paper eq. 8, pooled over the sequence
-            else:
-                y = ssm_apply(lp, h_in, cfg, cache=cache)
-            x = residual(x + y)
-            if enc_out is not None and "cross/wq/w" in lp:
-                x = residual(x + cross_attn_apply(lp, norm_apply(lp, "norm_x", x, cfg.norm),
-                                                  enc_out, cfg))
-            if mlp is None:
-                continue
-            h2 = norm_apply(lp, "norm2", x, cfg.norm)
-            if mlp == "moe":
-                y2, aux = moe_apply(lp, h2, cfg, pool_clients=pool_moe)
-                moe_aux = moe_aux + aux
-            else:
-                y2 = mlp_apply(lp, h2, activation=cfg.activation, cd=cd)
-            x = residual(x + y2)
+        one = functools.partial(period, r)
+        state = checkpointed(one, state) if remat else one(state)
+    x, moe_aux, lora_h = state
     return StackState(x=x, moe_aux=moe_aux, lora_h=lora_h)

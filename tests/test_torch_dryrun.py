@@ -188,6 +188,67 @@ def test_cost_extrapolation_is_the_full_depth_count(mesh, tmp_path):
     assert os.path.exists(tmp_path / "yi-9b__train_tiny__cost.json")
 
 
+REMAT_SHAPE = ShapeConfig("train_tiny", 64, 8, "train")
+
+
+def _stack_forward_flops(cfg, shape, mesh) -> int:
+    """``StepAccounting``'s flops of one forward of the decoder stack alone
+    on the train step's inputs (the embedding outside it)."""
+    from repro_torch import sharding as sh
+    from repro_torch.models.model import _embed
+    from repro_torch.models.transformer import stack_apply
+
+    _, (params, _, batch) = dryrun.step_args(cfg, shape, mesh)
+    tokens = batch["tokens"][None]
+    with torch.no_grad(), sh.on_mesh(mesh):
+        x = _embed(params, cfg, tokens, torch.arange(tokens.shape[-1]))
+        with dryrun.StepAccounting() as acc:
+            stack_apply(params, x, cfg)
+    return acc.flops
+
+
+@pytest.mark.parametrize("arch,layers,recomputes", [
+    ("yi-9b", 4, 1), ("yi-9b", 8, 1),
+    ("jamba-1.5-large-398b", 4, 2), ("jamba-1.5-large-398b", 8, 2)])
+def test_remat_recomputes_the_stack_forward(mesh, arch, layers, recomputes):
+    """A remat'd train step on the 2x2 mesh.  With PyTorch's early stop
+    off (each recompute runs its region whole) its flops are the plain
+    step's plus exactly one forward of the stack (yi-9b: each repeat
+    recomputed once) or two (jamba's period of 4, nested: the repeat
+    recomputed once, then each position inside it once more).  The port
+    runs with early stop on (a recompute ends at its region's last saved
+    tensor, as XLA's recompute drops what the backward does not read), which
+    recomputes at most that (and the plain step's embedding, checkpointed
+    too, a little less).  The recompute issues its collectives again, and
+    the step's temp peak is lower."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    cfg = get_smoke_config(arch).with_overrides(num_layers=layers, microbatches=1)
+    on = cfg.with_overrides(remat=True)
+    with set_checkpoint_early_stop(False):  # the plain step's embedding is checkpointed too
+        plain = dryrun.trace_combo(arch, REMAT_SHAPE, mesh, cfg_override=cfg)
+        whole = dryrun.trace_combo(arch, REMAT_SHAPE, mesh, cfg_override=on)["cost"]["flops"]
+    remat = dryrun.trace_combo(arch, REMAT_SHAPE, mesh, cfg_override=on)
+    forward = _stack_forward_flops(cfg, REMAT_SHAPE, mesh)
+    assert whole == plain["cost"]["flops"] + recomputes * forward
+    assert plain["cost"]["flops"] < remat["cost"]["flops"] <= whole
+    assert remat["collectives"]["count"] > plain["collectives"]["count"]
+    assert remat["memory"]["temp_size_in_bytes"] < plain["memory"]["temp_size_in_bytes"]
+    assert remat["memory"]["argument_size_in_bytes"] == plain["memory"]["argument_size_in_bytes"]
+
+
+def test_cost_extrapolation_with_remat_is_the_full_depth_count(mesh, tmp_path):
+    """With remat each repeat's recompute is the same work, so the
+    depth-1/depth-2 extrapolation still equals the full-depth flops and
+    collectives exactly."""
+    shape = REMAT_SHAPE
+    cfg = _small("yi-9b").with_overrides(remat=True)
+    rec = dryrun.run_cost("yi-9b", shape, out_dir=str(tmp_path), mesh=mesh, base_cfg=cfg)
+    full = dryrun.trace_combo("yi-9b", shape, mesh, cfg_override=cfg)
+    assert rec["estimate"]["flops"] == full["cost"]["flops"] > 0
+    assert rec["estimate"]["collectives"] == full["collectives"]
+
+
 def test_a_replicated_batch_is_not_divided(mesh):
     """long_500k's batch of 1 does not divide the batch axes: it stays
     whole on every rank, so a rank computes the logical step's batch

@@ -72,6 +72,7 @@ from repro_torch.lora import is_lora_path  # noqa: E402
 from repro_torch.models import model as t_model  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 
+PORT_INIT = t_model.init  # the port's own init, before the module's fixture bridges it
 _LORA = dict(rank=4, alpha=32.0, dropout=0.0, targets=("q", "v", "head"))
 _C = dict(num_layers=2, d_model=64, num_heads=2, num_kv_heads=2, d_ff=128, vocab_size=256,
           max_seq_len=32)
@@ -357,3 +358,27 @@ def test_pretrained_run_matches_reference(pretrained_runs, case):
     np.testing.assert_allclose(t_run.distill_loss, j_run.distill_loss, rtol=1e-3, equal_nan=True)
     assert np.isnan(t_run.distill_loss).all() == (t_eng.name == "batched")
     assert t_eng._store.shared
+
+
+def test_the_cache_keys_on_the_whole_config_and_the_data(monkeypatch):
+    """Pretrained backbones are cached per config and per pretraining
+    split, not per name, depth and width and the split's length: two
+    configs alike in those but for their LoRA rank each get adapters of
+    their own rank (the cache once handed the second the first's, and a
+    later run in the same process failed its server distillation on the
+    mismatched projection), one config on two splits of one length gets two
+    backbones, and the same call again is the cached result."""
+    monkeypatch.setattr(t_model, "init", PORT_INIT)
+    monkeypatch.setattr(t_pre, "_CACHE", {})
+    eight = T_CLIENT.with_overrides(lora=TLoRA(**{**_LORA, "rank": 8}))
+    data, other = (t_dataset(vocab_size=256, seq_len=12, total=64, seed=s) for s in (0, 1))
+    kw = dict(num_classes=data.num_classes, steps=1, batch_size=16, device="cpu")
+    four_p = t_pre.pretrain_classifier(T_CLIENT, data, **kw)
+    eight_p = t_pre.pretrain_classifier(eight, data, **kw)
+    assert four_p["lora_head/A"].shape[-1] == 4 and eight_p["lora_head/A"].shape[-1] == 8
+    other_p = t_pre.pretrain_classifier(T_CLIENT, other, **kw)
+    assert not torch.equal(four_p["embed"], other_p["embed"])
+    again = t_pre.pretrain_classifier(T_CLIENT, data, **kw)
+    assert all(torch.equal(four_p[k], again[k]) for k in four_p)
+    lm = t_pre.pretrain_lm(eight, data, steps=1, batch_size=16, device="cpu")
+    assert lm["lora_head/A"].shape[-1] == 8

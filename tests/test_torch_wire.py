@@ -9,6 +9,8 @@ rtol 1e-6 (plus 1e-6 of the largest magnitude for the dense aggregation,
 whose client sums may run in another order and cancel).
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -198,3 +200,88 @@ def test_budgets_and_ledger_bytes_identical(seed, quantize):
         j_led.record(j_proto.RoundStats(rnd, uplink_bytes=sum(j_bytes), downlink_bytes=down / 8))
         t_led.record(t_proto.RoundStats(rnd, uplink_bytes=sum(t_bytes), downlink_bytes=down / 8))
     assert (t_led.total_mb, t_led.uplink_mb) == (j_led.total_mb, j_led.uplink_mb)
+
+
+# -- the sparse path's memory contract (max_intermediate_elems) ---------------------------------
+
+# the reference's shapes (tests/test_engine.py): N clients, rows, vocab, k_cap
+N_MC, ROWS_MC, V_MC, K_MC = 10, 64, 8192, 256
+
+
+def _contract_wire(quantize: bool, device: str = "cpu"):
+    """A random wire at the contract's shapes, both packages' forms:
+    ``(port wire, reference aggregation's positional arguments)``."""
+    rng = np.random.default_rng(7)
+    shape = (N_MC, ROWS_MC, K_MC)
+    idx = rng.integers(0, V_MC, size=shape).astype(np.int32)
+    mask = rng.random(shape) < 0.9
+    if quantize:
+        q = rng.integers(-127, 128, size=shape).astype(np.int8)
+        scale = rng.random((N_MC, ROWS_MC)).astype(np.float32)
+        wire = t_topk.QuantizedWire(values=torch.as_tensor(q, device=device),
+                                    scale=torch.as_tensor(scale, device=device),
+                                    indices=torch.as_tensor(idx, device=device),
+                                    mask=torch.as_tensor(mask, device=device), vocab=V_MC)
+        return wire, (jnp.asarray(q), jnp.asarray(scale), jnp.asarray(idx), jnp.asarray(mask))
+    v = rng.normal(size=shape).astype(np.float32)
+    wire = t_topk.SparseWire(values=torch.as_tensor(v, device=device),
+                             indices=torch.as_tensor(idx, device=device),
+                             mask=torch.as_tensor(mask, device=device), vocab=V_MC)
+    return wire, (jnp.asarray(v), jnp.asarray(idx), jnp.asarray(mask))
+
+
+def _j_contract_count(quantize: bool, use_kernel: bool, args) -> int:
+    """The reference's count, as its tests take it: the jaxpr of
+    ``aggregate_wire`` on the wire's arrays."""
+    import jax
+
+    def agg(*arrays):
+        if quantize:
+            q, scale, idx, mask = arrays
+            wire = j_topk.QuantizedWire(values=q, scale=scale, indices=idx, mask=mask, vocab=V_MC)
+        else:
+            v, idx, mask = arrays
+            wire = j_topk.SparseWire(values=v, indices=idx, mask=mask, vocab=V_MC)
+        return j_agg.aggregate_wire(wire, "adaptive", num_transmitters=N_MC,
+                                    use_kernel=use_kernel)
+
+    return j_agg.max_intermediate_elems(jax.make_jaxpr(agg)(*args))
+
+
+@pytest.mark.parametrize("use_kernel", [False, True], ids=["plain", "kernel"])
+@pytest.mark.parametrize("quantize", [False, True], ids=["float", "int8"])
+def test_wire_aggregation_never_densifies_the_stack(quantize, use_kernel):
+    """The twins of the reference's ``test_e2e_aggregation_path_never_
+    densifies_stack`` and ``test_e2e_dequant_fused_aggregation_never_
+    densifies_stack``: aggregating a float or int8 wire of 10 clients never
+    holds anything larger than the ``(rows, V)`` sums, far below the
+    ``(N, rows, V)`` dense stack, and the port's worst count is the
+    reference's jaxpr count.  On the CPU the kernel route is the kernels'
+    plain versions; ``chip_smoke.py`` holds the kernels themselves to it."""
+    wire, j_args = _contract_wire(quantize)
+    worst = t_agg.max_intermediate_elems(
+        t_agg.aggregate_wire, wire, "adaptive", num_transmitters=N_MC, use_kernel=use_kernel)
+    assert worst <= ROWS_MC * V_MC < N_MC * ROWS_MC * V_MC
+    assert worst == _j_contract_count(quantize, use_kernel, j_args)
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["float", "int8"])
+def test_max_intermediate_elems_runs_on_meta_tensors(quantize):
+    """The same count on ``meta`` tensors, where nothing is allocated."""
+    wire, _ = _contract_wire(quantize)
+    meta, _ = _contract_wire(quantize, device="meta")
+    count = functools.partial(t_agg.max_intermediate_elems, t_agg.aggregate_wire,
+                              mode="adaptive", num_transmitters=N_MC)
+    assert count(meta) == count(wire) == ROWS_MC * V_MC
+
+
+def test_max_intermediate_elems_counts_a_broadcast_stack():
+    """A function that broadcasts one client's ``(rows, V)`` logits to the
+    ``(N, rows, V)`` stack reports the stack's size, though the broadcast is
+    a view; the dense aggregation of a stack reports the stack it builds."""
+    x = torch.ones(ROWS_MC, V_MC)
+    assert t_agg.max_intermediate_elems(
+        lambda t: t[None].expand(N_MC, ROWS_MC, V_MC).sum(0), x) == N_MC * ROWS_MC * V_MC
+    assert t_agg.max_intermediate_elems(lambda t: t * 2, x) == ROWS_MC * V_MC
+    stack = torch.ones(3, 4, 16)
+    assert t_agg.max_intermediate_elems(t_agg.aggregate, stack) == 3 * 4 * 16

@@ -7,7 +7,9 @@ and granite-moe-1b-a400m at their published widths, train step, prefill
 and decode on DTensors over a 1x1 NCCL mesh against the plain steps; (b)
 the dry run of yi-9b x train_4k on the single- and multi-pod meshes,
 mamba2-130m x long_500k and granite-moe-1b-a400m x decode_32k; (c) the dry
-run at (a)'s 1x1 mesh against (a)'s real yi-9b train step.
+run at (a)'s 1x1 mesh against (a)'s real yi-9b train step; (d) each of (a)'s
+models and a one-period cut of jamba-1.5-large-398b, one train step with
+remat against two without: loss, parameters, peaks and ms.
 
 ``--repeat N`` runs (a)'s steps N times instead, plain and on the mesh in
 turn, with (b)'s dry runs in processes beside them as in the phase, and
