@@ -37,15 +37,20 @@ Phases (any failure raises and exits non-zero):
      2e-6 (1 + |lse_t| + |lse_s|) per row (the KL is a difference of terms
      of the size of the log-partitions, each carried in fp32; the kernel
      sums online in another order than the plain log-sum-exp);
-   * causal attention at (96, 1024, 64), (20, 128, 64), (20, 64, 64) (one
-     key tile: only the diagonal) and (12, 96, 64) (a tile past the
-     sequence's end), with q and k x4 at (24, 1024, 64) (where one TF32
+   * causal attention at head dims 64 and 128 (each case at both; the
+     kernels are templates on D) at (96, 1024, D), (20, 128, D), (20, 64, D)
+     (one key tile: only the diagonal) and (12, 96, D) (a tile past the
+     sequence's end), with q and k x4 at (24, 1024, D) (where one TF32
      product per product misses the bound: the plain version with TF32
      matmuls is shown to, by > 10x), and with rows whose
      largest score arrives in a late key tile: within S * 2^-24 * max|v|
      (each output is a convex combination of at most S rows of v, summed
      in fp32 in another order), and a causality check, bitwise: changing k
-     and v from a position on leaves every earlier output unchanged.  The
+     and v from a position on leaves every earlier output unchanged, and
+     (B, H, S, D) bitwise (B*H, S, D), at both head dims; at head dim
+     96 the wrapper raises ``ValueError`` in each dtype with nothing
+     launched, and each C entry point returns ``cudaErrorInvalidValue``
+     with its output untouched.  The
      build line gives every kernel's registers and spills, and the count of
      tensor-core instructions in the attention library's SASS (HMMA: the
      fp32 kernel's mma.sync; HGMMA: the bf16 and fp16 kernels' wgmma).
@@ -61,8 +66,8 @@ Phases (any failure raises and exits non-zero):
    arithmetic on the upcast inputs, rounded to bf16 once); the KL within
    its fp32 tolerance (also at 1 and 200 rows, with the maxima in the last
    CTA's slice of the row); the attention within S * 2^-24 * max|v| plus one
-   bf16 ulp (both round once from fp32; with late maxima too), and causal
-   bitwise.  Then each fp16 entry point on fp16 inputs, the same checks
+   bf16 ulp (both round once from fp32; with late maxima too; at D 64 and
+   128), and causal and folded bitwise.  Then each fp16 entry point on fp16 inputs, the same checks
    (``check_f16_kernels``) at fp16's range: the wire's order-sensitive
    column takes 32 768, 2^-14, -32 768, 2^-14 (2^-14 in order) and its b
    sums past 65 504 (inf, as the plain version's cast); the top-k also on
@@ -227,7 +232,18 @@ Phases (any failure raises and exits non-zero):
    attention, and the attention kernel on layer 0's q/k/v of that prefill,
    held against the chunked attention and the plain version (and a q that
    requires grad must raise); then that q/k/v rounded to bf16 through the
-   bf16 kernel, and rounded to fp16 through the fp16 kernel.
+   bf16 kernel, and rounded to fp16 through the fp16 kernel.  Then
+   (``[prefill 32k]`` lines) yi-9b's layer-0 attention at the dry run's
+   prefill_32k sequence, 32 768 (its batch of 32 cut to 1): q, k, v from
+   the port's own init of one layer at the published widths (d 4 096, 32
+   query heads over 4 K/V heads, D 128, RoPE), K and V repeated to the 32
+   heads and passed through ``ops.flash_attention`` in fp32, bf16 and fp16
+   (the D = 128 kernels, one launch each, counted under ``name.d128``),
+   each held against the
+   model's own chunked GQA attention of that layer (``Q_CHUNK`` 512) and
+   against the plain version on head-batches 0 and 27, one at a time (its
+   S x S scores are 4 GiB a head-batch), under the same bounds, and timed
+   beside its bound.
 6f. model families and mixed fleets (after serving, whose single timed
    prefill it would otherwise follow onto a freshly emptied allocator) —
    (a) a fleet of GPT-2 small and granite-moe-1b-a400m clients (its
@@ -328,8 +344,10 @@ Phases (any failure raises and exits non-zero):
    out of the way (for the KL read cold; ``ms_graph_warm`` warm).  The bf16 entry
    points get rows of their own (``name.bf16``), their bounds counting
    bytes at bf16 width (and, for the attention, Q K^T as one bf16 product
-   and P V as three, P in three bf16 pieces for fp32 grade;
-   ``design_bound_ms`` the two pieces the kernel runs); the bf16 top-k rows
+   and P V as two at D 128, the two pieces of P the kernel runs, which the
+   checks show are enough, and as three at D 64, P in three bf16 pieces,
+   the basis of those rows' earlier records; ``design_bound_ms`` and
+   ``bound_1p3_ms`` give both bases on every 16-bit row); the bf16 top-k rows
    are timed on the bf16 ``fused`` run's input (and on one-exponent-bin
    rows, ``ms_one_bin``), and the bf16 attention's library call (bf16
    SDPA, which rounds P to bf16: not the same function) reports its error
@@ -338,7 +356,15 @@ Phases (any failure raises and exits non-zero):
    width, the attention's operations at the fp16 tensor-core rate (the
    bf16 rate), the top-k timed on the fp16 ``fused`` run's input (and on
    rows of one fp16 high-digit bin), the library calls ``scatter_add_``,
-   ``torch.topk`` and fp16 SDPA.
+   ``torch.topk`` and fp16 SDPA.  The attention also has rows at head dim
+   128 (``name.d128``, N(0, 1) inputs at (96, 1024, 128), each dtype, its
+   SDPA in that dtype) and one at yi-9b's prefill_32k
+   (``flash_attention.bf16.d128.s32k``: the bf16 q/k/v of phase 6's
+   [prefill 32k] check at (32, 32 768, 128), held to the plain version on
+   the two sampled head-batches, which it times one head-batch at a time
+   over all 32; few repeats).  The wrapper counts the D = 128 instances
+   apart (``name.d128``); their rows' ``entry_launches`` are those
+   instances' launches in the yi-9b check (the 32k row's the bf16 one's).
 9. production mesh (runs after phase 6h, before the timing rows; no
    hand-written kernel).  (a) In a spawned process of its own (so that no
    state an earlier phase left reaches it), a 1x1 ``("data", "model")``
@@ -459,7 +485,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.lora import is_lora_path, lora_template, merge_lora, split_lora  # noqa: E402
 from repro_torch.models import attention, frontends, model, transformer  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
-from repro_torch.models.layers import embedding, layer_norm  # noqa: E402
+from repro_torch.models.layers import apply_rope, embedding, layer_norm, norm_apply  # noqa: E402
 from repro_torch.models.transformer import layer_slice  # noqa: E402
 from repro_torch.serve.export import FleetStoreSource, MonolithicSource  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -498,6 +524,13 @@ SUFFIX = {dt: suffix for dt, (_, suffix) in ops._SUFFIX.items()}  # C entry poin
 # each kernel's bf16 and fp16 entry points: the same source and TPU kernel
 # (the int8 wire's scatter has no 16-bit input)
 KERNELS.update({f"{name}{TAG[dt]}": KERNELS[name] for dt in (BF16, F16) for name in ops.BF16_KERNELS})
+# the attention's rows at head dim 128 (the kernels' D = 128 instances, which
+# the wrapper counts under these names), and bf16 at yi-9b's prefill_32k
+D128 = ".d128"
+ATTN_32K = "flash_attention.bf16" + D128 + ".s32k"
+KERNELS.update({f"flash_attention{TAG[dt]}{D128}": KERNELS["flash_attention"]
+                for dt in (torch.float32, BF16, F16)})
+KERNELS[ATTN_32K] = KERNELS["flash_attention"]
 # the 16-bit main-path runs: the models compute in that dtype, and so does the round body
 LOW_CFG = {BF16: dict(compute_dtype="bfloat16"), F16: dict(compute_dtype="float16")}
 # the bf16 kernels' times before their redesign (loaders that upcast each
@@ -510,6 +543,10 @@ EARLIER_MS = {"topk_mask_dynamic.bf16": 0.0539, "topk_mask.bf16": 0.0536,
 # the serving phase: tenants, slots, batch, prompt and decode lengths
 TENANTS, SLOTS, SERVE_BATCH, PROMPT, GEN = 8, 4, 8, 32, 32
 PREFILL_S = 1024
+# yi-9b's layer-0 attention at the dry run's prefill_32k sequence (its batch
+# of 32 cut to 1), and the two head-batches the plain version runs on (its
+# S x S scores are 4 GiB a head-batch): head 0 of K/V group 0, head 27 of group 3
+YI_S, YI_HEADS = 32_768, (0, 27)
 
 
 def log(msg: str) -> None:
@@ -758,7 +795,8 @@ def ptxas_report(text: str, keys: tuple[str, ...]) -> list[str]:
             key = next(key for key in keys if key in name)
             args = [a for a, tag in (("FloatWire", "FloatWire"), ("Int8Wire", "Int8Wire"),
                                      ("bf16", "nv_bfloat16"), ("bf16", "4Bf16"), ("f16", "6__half"),
-                                     ("f16", "3F16"), ("true", "Lb1E"), ("false", "Lb0E")) if tag in name]
+                                     ("f16", "3F16"), ("true", "Lb1E"), ("false", "Lb0E"),
+                                     ("D 64", "Li64E"), ("D 128", "Li128E")) if tag in name]
             out.append(f"{key}<{', '.join(args)}>: {m.group(1)} registers{m.group(2)}; {spill}")
             name = None
     return out
@@ -918,12 +956,16 @@ def check_distill_kl(device):
             f"another 16-byte phase")
 
 
+# the head dims the attention kernels take, each case run at all
+HEAD_DIMS = tuple(sorted(ops.FLASH_HEAD_DIMS))
+
+
 def check_flash_attention(device):
-    cases = ((96, 1024, 64, 1.0, "q, k ~ N(0, 1)"), (20, 128, 64, 1.0, "q, k ~ N(0, 1)"),
-             (20, 64, 64, 1.0, "one key tile, only the diagonal"),
-             (12, 96, 64, 1.0, "a key tile past the sequence's end"),
-             (24, 1024, 64, 4.0, "q, k x4"), (8, 1024, 64, 1.0, "late maxima"))
-    for bh, seq, d, qk_scale, what in cases:
+    cases = ((96, 1024, 1.0, "q, k ~ N(0, 1)"), (20, 128, 1.0, "q, k ~ N(0, 1)"),
+             (20, 64, 1.0, "one key tile, only the diagonal"),
+             (12, 96, 1.0, "a key tile past the sequence's end"),
+             (24, 1024, 4.0, "q, k x4"), (8, 1024, 1.0, "late maxima"))
+    for (bh, seq, qk_scale, what), d in itertools.product(cases, HEAD_DIMS):
         gen = torch.Generator(device=device).manual_seed(seq + d)
         q, k, v = (torch.randn((bh, seq, d), generator=gen, device=device) for _ in range(3))
         q, k = q * qk_scale, k * qk_scale
@@ -949,21 +991,56 @@ def check_flash_attention(device):
                    f"by {err_one:.3e}, {err_one / tol:.0f}x the bound")
         log(f"[kernels] flash_attention at ({bh}, {seq}, {d}), {what}: max |diff| {err:.3e} "
             f"against its plain version (bound S * 2^-24 * max|v| = {tol:.3e}){one}")
-    # causality, bitwise: k and v from position 700 on must not reach rows 0..699
-    gen = torch.Generator(device=device).manual_seed(5)
-    q, k, v = (torch.randn((2, 12, 1024, 64), generator=gen, device=device) for _ in range(3))
-    base = ops.flash_attention(q, k, v)
-    k2, v2 = k.clone(), v.clone()
-    k2[:, :, 700:] = 99.0
-    v2[:, :, 700:] = -99.0
-    pert = ops.flash_attention(q, k2, v2)
-    folded = ops.flash_attention(*(x.reshape(24, 1024, 64) for x in (q, k, v)))
-    torch.cuda.synchronize()
-    assert torch.equal(base[:, :, :700], pert[:, :, :700]), "flash_attention is not causal"
-    assert not torch.equal(base[:, :, 700:], pert[:, :, 700:])
-    assert torch.equal(folded.reshape(base.shape), base)
-    log("[kernels] flash_attention causal bitwise (rows before 700 unchanged when k, v change "
-        "from 700 on), (B, H, S, D) == (B*H, S, D) bitwise")
+    check_attention_causal(device, torch.float32)
+    check_attention_refuses_other_head_dims(device)
+
+
+def check_attention_refuses_other_head_dims(device, d: int = 96) -> None:
+    """A head dim the kernels do not take: the wrapper raises ``ValueError``
+    in every dtype and launches nothing, and each C entry point returns
+    ``cudaErrorInvalidValue`` (1) with nothing launched (the output it
+    was handed stays as it was)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for dtype in (torch.float32, BF16, F16):
+        q, k, v = (torch.randn((4, 128, d), device=device).to(dtype) for _ in range(3))
+        ops.reset_launches()
+        try:
+            ops.flash_attention(q, k, v)
+        except ValueError as e:
+            assert "flash attention head dims" in str(e), e
+        else:
+            raise AssertionError(f"flash_attention took head dim {d} on the card ({dtype})")
+        assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES
+        out = torch.full_like(q, 7.0)
+        fn = ops._fn("flash_attention", "flash_attention" + SUFFIX[dtype], 4, 3, 1)
+        rc = fn(*(t.data_ptr() for t in (q, k, v, out)), 4, 128, d, d**-0.5, stream)
+        torch.cuda.synchronize()
+        assert rc == 1 and bool((out == 7.0).all()), (dtype, rc)
+    log(f"[kernels] flash_attention at head dim {d}: the wrapper raises ValueError and launches "
+        f"nothing, and flash_attention_f32, _bf16 and _f16 return cudaErrorInvalidValue with "
+        f"their output untouched")
+
+
+def check_attention_causal(device, dtype: torch.dtype) -> None:
+    """Causality, bitwise, at each head dim: k and v from position 700 on
+    must not reach rows 0..699; and (B, H, S, D) is (B*H, S, D) bitwise."""
+    for d in HEAD_DIMS:
+        gen = torch.Generator(device=device).manual_seed(5 + d)
+        q, k, v = (torch.randn((2, 12, 1024, d), generator=gen, device=device).to(dtype)
+                   for _ in range(3))
+        base = ops.flash_attention(q, k, v)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, 700:] = 99.0
+        v2[:, :, 700:] = -99.0
+        pert = ops.flash_attention(q, k2, v2)
+        folded = ops.flash_attention(*(x.reshape(24, 1024, d) for x in (q, k, v)))
+        torch.cuda.synchronize()
+        assert torch.equal(base[:, :, :700], pert[:, :, :700]), ("not causal", dtype, d)
+        assert not torch.equal(base[:, :, 700:], pert[:, :, 700:])
+        assert torch.equal(folded.reshape(base.shape), base), ("folded heads", dtype, d)
+    log(f"[kernels{TAG[dtype].replace('.', ' ')}] flash_attention causal bitwise at D {HEAD_DIMS} "
+        f"(rows before 700 unchanged when k, v change from 700 on), (B, H, S, D) == (B*H, S, D) "
+        f"bitwise")
 
 
 def check_16bit_kernels(device, dtype: torch.dtype):
@@ -1229,11 +1306,12 @@ def check_topk_16(device, dtype: torch.dtype):
 def check_attention_16(device, dtype: torch.dtype):
     """The 16-bit attention within S * 2^-24 * max|v| plus one ulp of the
     dtype of its plain version (both round once from fp32), with q, k x4,
-    one key tile, a tile past the end and late maxima; causal bitwise."""
+    one key tile, a tile past the end and late maxima, at each head dim;
+    causal bitwise, heads folded bitwise."""
     tag = TAG[dtype]
-    for bh, seq, d, what in ((96, 1024, 64, "q, k ~ N(0, 1)"), (20, 128, 64, "q, k ~ N(0, 1)"),
-                             (20, 64, 64, "one key tile"), (12, 96, 64, "a tile past the end"),
-                             (24, 1024, 64, "q, k x4"), (8, 1024, 64, "late maxima")):
+    cases = ((96, 1024, "q, k ~ N(0, 1)"), (20, 128, "q, k ~ N(0, 1)"), (20, 64, "one key tile"),
+             (12, 96, "a tile past the end"), (24, 1024, "q, k x4"), (8, 1024, "late maxima"))
+    for (bh, seq, what), d in itertools.product(cases, HEAD_DIMS):
         gen = torch.Generator(device=device).manual_seed(seq + d + 1)
         q, k, v = (torch.randn((bh, seq, d), generator=gen, device=device) for _ in range(3))
         if what == "q, k x4":
@@ -1250,14 +1328,7 @@ def check_attention_16(device, dtype: torch.dtype):
                 v.float().abs().max())
         log(f"[kernels {tag[1:]}] flash_attention at ({bh}, {seq}, {d}), {what}: max |diff| {err:.3e} "
             f"against its plain version (bound S * 2^-24 * max|v| + one {tag[1:]} ulp)")
-    gen = torch.Generator(device=device).manual_seed(6)
-    q, k, v = (torch.randn((24, 1024, 64), generator=gen, device=device).to(dtype) for _ in range(3))
-    base = ops.flash_attention(q, k, v)
-    k[:, 700:], v[:, 700:] = 99.0, -99.0
-    pert = ops.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    assert torch.equal(base[:, :700], pert[:, :700]) and not torch.equal(base[:, 700:], pert[:, 700:])
-    log(f"[kernels {tag[1:]}] flash_attention causal bitwise")
+    check_attention_causal(device, dtype)
 
 
 def _drive(client_cfg, server_cfg, dataset, fed, device, patches=None, **run_kw):
@@ -4143,26 +4214,139 @@ def phase_serving(device, card: str) -> dict:
     del sess, cache, store, src, params, backbone
     gc.collect()
     torch.cuda.empty_cache()
+    out.update(check_yi_prefill_attention(device, card))
     return out
 
 
+def yi_layer0_qkv(device, seq: int = YI_S, cfg=None):
+    """yi-9b's layer-0 q, k, v (after RoPE) on ``seq`` random tokens, from
+    the port's own init of one layer at the published widths, in fp32:
+    ``(1, seq, 32, 128)`` q, ``(1, seq, 4, 128)`` k and v."""
+    cfg = cfg or get_config("yi-9b").with_overrides(num_layers=1, param_dtype="float32",
+                                                    compute_dtype="float32")
+    params = model.init(cfg, 31, device)
+    tokens = torch.as_tensor(np.random.default_rng(37).integers(0, cfg.vocab_size, (1, seq)),
+                             device=device)
+    with torch.no_grad():
+        lp = layer_slice(params, 0, 0)
+        x = norm_apply(lp, "norm1", embedding(params["embed"], tokens[None]), cfg.norm)
+        q, k, v, _ = attention.qkv(lp, x, cfg)
+        pos = torch.arange(seq, device=device)
+        return apply_rope(q, pos, theta=cfg.rope_theta), apply_rope(k, pos, theta=cfg.rope_theta), v
+
+
+# the 16-bit products of p v in the 16-bit attention's bound, by head dim: at
+# D 128 the two pieces of p the kernel runs, which the checks show are enough;
+# the D 64 rows keep the three of their earlier records, so that their % of
+# bound compares across versions (their two-piece bound is ``design_bound_ms``)
+P_PIECES = {64: 3, 128: 2}
+
+
+def attention_work(bh: int, seq: int, d: int, dtype: torch.dtype,
+                   pieces: int | None = None) -> tuple[int, int, float]:
+    """The attention's bytes (q, k, v read once, out written once), its
+    operations on the tensor cores and their rate.  The causal half of
+    q k^T and of p v is S^2 * D operations each a head-batch.  fp32: each
+    product at fp32 grade is three TF32 products.  bf16 (fp16): q k^T is
+    one 16-bit product (exact in fp32) and p v ``pieces`` (default
+    ``P_PIECES[d]``), p split into that many 16-bit pieces, at the 16-bit
+    rate."""
+    ops_done = 2 * seq * seq * d * bh
+    io_bytes = 4 * bh * seq * d * torch.finfo(dtype).bits // 8
+    if dtype == torch.float32:
+        return io_bytes, TF32_SPLIT * ops_done, TF32_OPS_PER_S
+    return io_bytes, (1 + (pieces or P_PIECES[d])) * ops_done // 2, BF16_OPS_PER_S
+
+
+def attention_bound_ms(bh: int, seq: int, d: int, dtype: torch.dtype) -> float:
+    """The attention's least time on the card, as its timing row counts it."""
+    return bound(*attention_work(bh, seq, d, dtype))[0]
+
+
+def check_yi_prefill_attention(device, card: str, seq: int = YI_S, cfg=None,
+                               heads=YI_HEADS) -> dict:
+    """yi-9b's layer-0 attention at (1, ``seq``), 32 query heads over 4 K/V
+    heads, D 128: K and V repeated to the 32 heads and passed through
+    ``ops.flash_attention`` in fp32, bf16 and fp16 (the D = 128 kernels,
+    one launch each), each held against the model's own chunked GQA
+    attention of that layer (on the q/k/v rounded to the dtype; fp32 math,
+    rounded once) and against the plain version on the sampled head-batches
+    ``heads``, one at a time, under the same bounds; each kernel timed
+    beside its bound.  Returns the launches (``entry_d128``) and the bf16
+    q/k/v for the timing phase, on the host."""
+    t0 = time.perf_counter()
+    q, k, v = yi_layer0_qkv(device, seq, cfg)
+    h_q, group = q.shape[2], q.shape[2] // k.shape[2]
+    heads_first = lambda t: t.permute(0, 2, 1, 3).contiguous()  # noqa: E731  (B, H, S, D)
+    qh = heads_first(q)
+    kh, vh = (heads_first(t.repeat_interleave(group, dim=2)) for t in (k, v))
+    log(f"[prefill 32k] yi-9b layer 0 at its published widths (d {q.shape[2] * q.shape[3]}, "
+        f"{h_q} query heads over {k.shape[2]} K/V heads, D {q.shape[3]}, RoPE): q/k/v at (1, {seq}) "
+        f"in {time.perf_counter() - t0:.1f} s (the dry run's prefill_32k batch of 32 cut to 1)")
+    out, entry = {}, {}
+    for dtype in (torch.float32, BF16, F16):
+        name = "flash_attention" + TAG[dtype] + D128
+        qd, kd, vd = (t.to(dtype) for t in (qh, kh, vh))
+        ops.reset_launches()
+        got = ops.flash_attention(qd, kd, vd)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name] == 1 and sum(ops.LAUNCHES.values()) == 1, ops.LAUNCHES
+        entry[name] = 1
+        launched = {key: n for key, n in ops.LAUNCHES.items() if n}
+        assert got.dtype == dtype and tuple(got.shape) == tuple(qh.shape)
+        tol = attention_tolerance(seq, vd)
+        with torch.no_grad():
+            chunked = attention._chunked_attention(q.to(dtype), k.to(dtype), v.to(dtype))
+        err_chunked = attention_err(got, heads_first(chunked.reshape(q.shape)).to(dtype), tol)
+        del chunked
+        err_plain = max(attention_err(got[:, h], ref.flash_attention_ref(qd[:, h], kd[:, h], vd[:, h]), tol)
+                        for h in heads)
+        ms = time_ms(lambda: ops.flash_attention(qd, kd, vd), calls=2, reps=5, warmup=1)
+        bound_ms = attention_bound_ms(h_q, seq, q.shape[3], dtype)
+        log(f"[prefill 32k] {name} at (1, {h_q}, {seq}, {q.shape[3]}): max "
+            f"|diff| {err_chunked:.3e} against the chunked GQA attention (Q_CHUNK "
+            f"{attention.Q_CHUNK}), {err_plain:.3e} against its plain version on head-batches "
+            f"{heads} (bound {tol:.3e}{'' if dtype == torch.float32 else ' + one ulp'}); "
+            f"{ms:.3f} ms (wrapper call), bound {bound_ms:.3f} ms, {100.0 * bound_ms / ms:.1f} % "
+            f"of it ({card}); kernel launches before the timing {launched}")
+        if dtype == BF16:  # kept on the host through phases 6f-9 (768 MiB)
+            out["qkv_32k"] = tuple(t.cpu() for t in (qd, kd, vd))
+        del got
+    del q, k, v, qh, kh, vh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"entry_d128": entry, **out}
+
+
+def attention_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """The attention's largest difference from ``want``, asserted within
+    ``tol`` (plus one ulp of a 16-bit dtype: ``within_16``)."""
+    if got.dtype != torch.float32:
+        return within_16(got, want, tol)
+    err = float((got - want).abs().max())
+    assert err <= tol, (err, tol)
+    return err
+
+
 def _row(name: str, raw, wrapper, plain, library, check, bytes_moved: float, ops_done: float,
-         desc: str, ops_per_s: float = FP32_OPS_PER_S, graph=None) -> dict:
+         desc: str, ops_per_s: float = FP32_OPS_PER_S, graph=None, timing=None) -> dict:
     """Time one kernel: its C entry point (``raw``, preallocated outputs,
     so the device and not the wrapper's host checks sets the pace), its
     wrapper, its plain version and the library call; ``check`` compares the
     raw launch's output with the plain version's.  ``graph``: the same
-    launches as functions of a stream, for ``ms_graph`` (``graph_ms``)."""
+    launches as functions of a stream, for ``ms_graph`` (``graph_ms``);
+    ``timing``: ``time_ms``'s calls and reps for calls of many ms."""
     assert raw() == 0
     torch.cuda.synchronize()
     err = check()
     bound_ms, bound_by = bound(bytes_moved, ops_done, ops_per_s)
     source, replaces = KERNELS[name]
+    timed_ms = lambda fn: time_ms(fn, **(timing or {}))  # noqa: E731
     row = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "max_abs_err": err, "ms": time_ms(raw), "plain_ms": time_ms(plain),
+        "max_abs_err": err, "ms": timed_ms(raw), "plain_ms": timed_ms(plain),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None if library is None else time_ms(library),
+        "library_ms": None if library is None else timed_ms(library),
     }
     row["pct_of_bound"] = 100.0 * bound_ms / row["ms"]
     if graph is not None:
@@ -4171,7 +4355,7 @@ def _row(name: str, raw, wrapper, plain, library, check, bytes_moved: float, ops
             f"(back-to-back C calls {row['ms']:.4f} ms), {100.0 * bound_ms / row['ms_graph']:.0f} % of "
             f"its bound")
     lib = "-" if library is None else f"{row['library_ms']:.4f} ms"
-    log(f"[timing] {name} {desc}: kernel {row['ms']:.4f} ms (wrapper call {time_ms(wrapper):.4f} ms), "
+    log(f"[timing] {name} {desc}: kernel {row['ms']:.4f} ms (wrapper call {timed_ms(wrapper):.4f} ms), "
         f"plain {row['plain_ms']:.4f} ms, library {lib}, bound {bound_ms * 1e3:.2f} us by {bound_by} "
         f"({bytes_moved:.0f} B, {ops_done:.0f} ops), max_abs_err {err}")
     return row
@@ -4363,11 +4547,21 @@ def time_distill_kl(device, dtype: torch.dtype = torch.float32) -> dict:
     return row
 
 
-def time_flash_attention(qkv, device) -> dict:
-    """The attention kernel on the serving prefill's layer-0 q/k/v (in
-    their dtype).  In bf16 (fp16) the library call, bf16 (fp16) SDPA,
-    rounds P to that dtype before P V, so it is not the same function: its
-    max error against the plain version is logged and kept beside its time."""
+def attention_inputs(shape, dtype: torch.dtype, device):
+    """N(0, 1) q, k, v of ``shape`` (B, H, S, D) in ``dtype``."""
+    gen = torch.Generator(device=device).manual_seed(sum(shape))
+    return tuple(torch.randn(shape, generator=gen, device=device).to(dtype) for _ in range(3))
+
+
+def time_flash_attention(qkv, device, suffix: str = "", heads=None) -> dict:
+    """The attention kernel on ``qkv`` (B, H, S, D) in its dtype: the
+    serving prefill's layer-0 q/k/v (D 64), N(0, 1) inputs at D 128
+    (``suffix`` ".d128"), yi-9b's at 32k.  ``heads``: the head-batches the
+    plain version is held on (all when None), and the plain version then
+    timed one head-batch at a time, as it fits.  In bf16 (fp16) the library
+    call, bf16 (fp16) SDPA, rounds P to that dtype before P V, so it is not
+    the same function: its max error against the plain version is logged
+    and kept beside its time."""
     b, h, seq, d = qkv[0].shape
     q, k, v = (x.reshape(b * h, seq, d) for x in qkv)
     low = q.dtype != torch.float32
@@ -4376,45 +4570,41 @@ def time_flash_attention(qkv, device) -> dict:
     fn = ops._fn("flash_attention", "flash_attention" + SUFFIX[q.dtype], 4, 3, 1)
     ptrs = [x.data_ptr() for x in (q, k, v, out)]
     raw = lambda: fn(*ptrs, b * h, seq, d, d**-0.5, stream)  # noqa: E731
-    want = ref.flash_attention_ref(q, k, v)
+    sample = list(range(b * h)) if heads is None else list(heads)
+    plain = (lambda: ref.flash_attention_ref(q, k, v)) if heads is None else (  # noqa: E731
+        lambda: [ref.flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1]) for i in range(b * h)])
+    want = ref.flash_attention_ref(q, k, v) if heads is None else torch.cat(
+        [ref.flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1]) for i in sample])
     tol = attention_tolerance(seq, v)
 
     def check():
-        if low:
-            return within_16(out, want, tol)
-        err = float((out - want).abs().max())
-        assert err <= tol
-        return err
+        return attention_err(out[sample], want, tol)
 
     # the library call on (B, H, S, D), the layout its fused kernels take
     q4, k4, v4 = qkv
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         q4, k4, v4, is_causal=True)
-    # the causal half of q k^T and of p v: S^2 * D operations each per head-batch.  fp32:
-    # each product at fp32 grade is three TF32 products on the tensor cores.  bf16 (fp16):
-    # q k^T is one 16-bit product (exact in fp32) and p v at fp32 grade three, p split
-    # into three 16-bit pieces, at the 16-bit rate (the row's bound, kept so that it
-    # compares across versions); ``design_bound_ms`` prices what the kernel runs, p in
-    # two pieces
     ops_done = 2 * seq * seq * d * b * h
-    io_bytes = 4 * q.numel() * q.element_size()
+    io_bytes, tc_ops, tc_rate = attention_work(b * h, seq, d, q.dtype)
     fp32_ms, _ = bound(io_bytes, ops_done)
-    if low:
-        tc_ops, tc_rate, basis = (1 + 3) * ops_done // 2, BF16_OPS_PER_S, f"1+3 {q.dtype} products"
-    else:
-        tc_ops, tc_rate, basis = TF32_SPLIT * ops_done, TF32_OPS_PER_S, "3+3 TF32 products"
-    row = _row("flash_attention" + TAG[q.dtype], raw, lambda: ops.flash_attention(q, k, v),
-               lambda: ref.flash_attention_ref(q, k, v), library, check, io_bytes, tc_ops,
+    basis = f"1+{P_PIECES[d]} {q.dtype} products" if low else "3+3 TF32 products"
+    row = _row("flash_attention" + TAG[q.dtype] + suffix, raw, lambda: ops.flash_attention(q, k, v),
+               plain, library, check, io_bytes, tc_ops,
                f"B*H={b * h} S={seq} D={d} ({q.dtype}; {basis} on the tensor cores; the fp32 "
-               f"CUDA-core bound would be {fp32_ms * 1e3:.2f} us)", tc_rate)
-    if low:
-        row["design_bound_ms"], _ = bound(io_bytes, (1 + 2) * ops_done // 2, BF16_OPS_PER_S)
+               f"CUDA-core bound would be {fp32_ms * 1e3:.2f} us)", tc_rate,
+               timing=None if heads is None else dict(calls=1, reps=3, warmup=1))
+    if low:  # both bases beside the bound: p v in two 16-bit pieces (the kernel's) and in three
+        row["design_bound_ms"] = bound(*attention_work(b * h, seq, d, q.dtype, 2))[0]
+        row["bound_1p3_ms"] = bound(*attention_work(b * h, seq, d, q.dtype, 3))[0]
         log(f"[timing] {row['name']}: the kernel's own design (Q K^T one 16-bit product, P V two: P "
-            f"in two pieces) bounds it at {row['design_bound_ms'] * 1e3:.2f} us")
+            f"in two pieces) bounds it at {row['design_bound_ms'] * 1e3:.2f} us, "
+            f"{row['design_bound_ms'] / row['ms']:.1%} of its time; P V in three pieces (the basis "
+            f"of the D 64 rows) at {row['bound_1p3_ms'] * 1e3:.2f} us, "
+            f"{row['bound_1p3_ms'] / row['ms']:.1%}")
     if row["name"] in EARLIER_MS:
         log(f"[timing] {row['name']}: the earlier upcasting design took {EARLIER_MS[row['name']]} ms "
             f"(H100 80GB HBM3, 700 W; PERF.md section 6), not measured in this run")
-    row["library_max_abs_err"] = float((library().reshape(want.shape).float() - want.float()).abs().max())
+    row["library_max_abs_err"] = float((library().reshape(q.shape)[sample].float() - want.float()).abs().max())
     log(f"[timing] {row['name']}: SDPA on (B, H, S, D) {row['library_ms']:.4f} ms, off the plain "
         f"version by {row['library_max_abs_err']:.3e} (the kernel by {row['max_abs_err']:.3e})")
     return row
@@ -4469,12 +4659,14 @@ def main() -> int:
     launches = {name: sum(r["launches"].get(name, 0) for r in runs.values()) + pretrained["launches"][name]
                 + faults["launches"].get(name, 0) + host_store["launches"].get(name, 0)
                 + scale_out["launches"].get(name, 0) + families["launches"].get(name, 0)
-                + ssm["launches"].get(name, 0) + modal["launches"].get(name, 0) for name in KERNELS}
+                + ssm["launches"].get(name, 0) + modal["launches"].get(name, 0) for name in ops.LAUNCHES}
     entry_names = ("topk_mask", "distill_kl", "topk_mask.bf16", "distill_kl.bf16", "topk_mask.f16",
                    "distill_kl.f16")
     entry = {name: sum(r["entry_launches"].get(name, 0) for r in runs.values()) for name in entry_names}
     for name in ("flash_attention", "flash_attention.bf16", "flash_attention.f16"):
-        entry[name] = serving["entry_launches"][name]
+        entry[name] = serving["entry_launches"][name]  # GPT-2's layer 0, D 64
+        entry[name + D128] = serving["entry_d128"][name + D128]  # yi-9b's layer 0 at 32k, D 128
+    entry[ATTN_32K] = entry["flash_attention.bf16" + D128]
     log(f"[main path] kernel launches over the ten runs, the pretrained phase's four, the "
         f"faults phase's, the host store phase's, the scale-out phase's, the families phase's, "
         f"the state-space phase's and the modal phase's {launches} (the faults "
@@ -4505,7 +4697,13 @@ def main() -> int:
                  time_sparse_aggregate(runs[("fused", False, low)]["per_client_k"][-1], device, low),
                  time_topk("topk_mask" + TAG[low], topk_low, device), time_distill_kl(device, low),
                  time_flash_attention(serving["qkv" + TAG[low].replace(".", "_")], device)]
-    rows = [{**row, "launches": launches[row["name"]],
+    for dtype in (torch.float32, BF16, F16):  # head dim 128 at the GPT-2 rows' (96, 1024)
+        rows.append(time_flash_attention(attention_inputs((8, 12, 1024, 128), dtype, device), device,
+                                         D128))
+    rows.append(time_flash_attention(tuple(t.to(device) for t in serving["qkv_32k"]), device,
+                                     D128 + ".s32k", heads=YI_HEADS))
+    # a row's main-path count is its kernel instance's (the 32k row's the bf16 D = 128 one's)
+    rows = [{**row, "launches": launches[row["name"].removesuffix(".s32k")],
              **({"entry_launches": entry[row["name"]]} if row["name"] in entry else {})}
             for row in rows]
     log(f"[smoke] every phase passed in {time.perf_counter() - t0:.1f} s")

@@ -1,6 +1,9 @@
 // Blockwise causal softmax attention, forward only (inference prefill):
 //   out[b, i, :] = sum_{j <= i} softmax_j(q[b,i,:] . k[b,j,:] * D^-0.5) v[b,j,:]
-// over fused head-batches q, k, v, out: (B*H, S, D) fp32, bf16 or fp16.
+// over fused head-batches q, k, v, out: (B*H, S, D) fp32, bf16 or fp16, with
+// head dim D 64 (GPT-2, granite, stablelm, seamless, mamba2) or 128 (yi-9b,
+// command-r, llama4, internvl2, jamba, moonshot): every kernel is a template
+// on D, instantiated at both; any other D launches nothing.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 //   flash_attention_{f32,bf16,f16} <- flash_attention_pallas (_flash_kernel,
@@ -60,6 +63,21 @@
 // 230 registers a thread (no spills): two blocks an SM; a third (168
 // registers) spills and runs slower.
 //
+// fp32 at D = 128 (flash_attention_kernel<128>).  Twice the work a key:
+// 25.8 GFLOP at B*H = 96, S = 1024, so 3 * 25.8 / 495 = 156 us.  q's split
+// fragments would take 128 registers a lane and O 64, so q's tile stays in
+// shared memory (rows padded to 144 floats, the same bank pattern as K's)
+// and each pair of k-steps reads its two float4s and splits them there; the
+// key tiles are 32 keys (S is then 16 registers), so a block of 64 query rows
+// holds 2 x 35 KB of K/V stages and 37 KB of q: 105 KB, two blocks an SM
+// (196 registers a thread, no spills).
+// K's rows padded to 144 floats and V's to 132 keep the D = 64 bank argument
+// (144 = 80 and 132 = 68 mod 32).  The block's last two key tiles take the
+// causal mask; warps 0 and 1 (rows q0 .. q0 + 31) skip the last one, all of
+// whose keys lie after their rows.  The scale 128^-0.5 = 2^-3.5 is not exact,
+// so q is not scaled: the scale enters the exponent, as in the 16-bit kernels
+// (2^(s c - m c), c = scale * log2(e)), and S = q k^T carries 3xTF32's error.
+//
 // bf16 q, k, v (flash_attention_bf16), as the reference's kernel takes
 // them (it upcasts each tile and returns q's dtype): a kernel of its own, on
 // Hopper's bf16 warpgroup products (wgmma, 989 TFLOP/s against TF32's 495).
@@ -91,9 +109,19 @@
 //   Bound: Q K^T one bf16 product and P V two, 6.4 + 2 * 6.4 GFLOP at
 //   B*H = 96, S = 1024 on 989 TFLOP/s, 19.5 us, against 50.3 MB of bf16
 //   q, k, v and out (15 us).
+//   D = 128 (flash_attention_16_kernel<E, 128>): a 256-byte row is two
+//   spans of the 128-byte swizzle, so TMA loads every tile as two boxes of
+//   64 columns into two column blocks (Q: 2 x 16 KB, K and V: 2 x 8 KB), and
+//   each descriptor steps to the second block at k-step 4 of Q K^T's eight.
+//   P V runs as two m64n64k16 products a piece and k-step, one a column block
+//   of V, into two 32-register halves of O.  O's 64 registers beside S's 32
+//   and P's 32 need more than two blocks an SM leave a thread (113), so one
+//   block an SM (up to 224 registers a thread; it takes 147, no spills, so
+//   no setmaxnreg) with Q and 4 stages of K/V: 161 KB.  Bound 39.1 us
+//   (design) at B*H = 96, S = 1024.
 //
 // fp16 q, k, v (flash_attention_f16) run the same kernel,
-// flash_attention_16_kernel<E>, with E = F16: wgmma .f32.f16.f16, tensor
+// flash_attention_16_kernel<E, D>, with E = F16: wgmma .f32.f16.f16, tensor
 // maps of fp16, and P in two fp16 pieces (cvt.rn.f16x2.f32).  An fp16 value
 // has 11 significant bits and 5 exponent bits, so it is exact in TF32 and
 // fp32, and the product of two is exact in fp32: Q K^T stays exact as in
@@ -119,21 +147,31 @@
 
 namespace {
 
-constexpr int D = 64;                   // head dim (GPT-2 small and large)
 constexpr int kWarps = 4;               // 16 query rows each
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;      // query rows per block
-constexpr int kKeys = 64;               // keys per staged tile
-// shared-memory rows padded (in floats) so that a warp's fragment loads hit
-// distinct banks: K's for 16-byte loads, V's for 4-byte loads
-constexpr int kStrideK = D + 16;
-constexpr int kStrideV = D + 4;
-constexpr int kTileK = kKeys * kStrideK;  // floats of one staged K or V tile
-constexpr int kTileV = kKeys * kStrideV;
-constexpr int kStage = kTileK + kTileV;
-constexpr int kSmemBytes = 2 * kStage * (int)sizeof(float);  // 2 stages of K and V
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kRows == kKeys, "the diagonal tile of a block is its last key tile");
+
+// The fp32 kernel's tiles at head dim D.  D = 64: 64-key tiles, q's split
+// fragments in registers for the whole block.  D = 128: 32-key tiles, q's
+// tile in shared memory beside the two K/V stages.
+template <int D>
+struct Tiles32 {
+  static constexpr int kKeys = D == 64 ? 64 : 32;  // keys per staged tile
+  // shared-memory rows padded (in floats) so that a warp's fragment loads hit
+  // distinct banks: K's (and q's) for 16-byte loads, V's for 4-byte loads
+  static constexpr int kStrideK = D + 16;
+  static constexpr int kStrideV = D + 4;
+  static constexpr int kTileK = kKeys * kStrideK;  // floats of one staged K or V tile
+  static constexpr int kTileV = kKeys * kStrideV;
+  static constexpr int kStage = kTileK + kTileV;
+  static constexpr bool kQRegs = D == 64;  // q's fragments in registers, q scaled by 2^-3 first
+  // 2 stages of K and V, and q's tile where it stays in shared memory
+  static constexpr int kSmemBytes = (2 * kStage + (kQRegs ? 0 : kRows * kStrideK)) * (int)sizeof(float);
+  static constexpr int kMinBlocks = kQRegs ? 1 : 2;  // D = 128: two blocks an SM, 255 registers
+  static_assert(D == 64 || D == 128, "head dims 64 and 128");
+  static_assert(kRows % kKeys == 0, "a block's query tile is whole key tiles");
+};
 
 // x = big + small to ~22 bits.  big is cvt.rna.tf32.f32(x) for finite x,
 // formed with two integer operations (the cvt instruction compiles to a
@@ -175,12 +213,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// 64 rows of one (seq, D) matrix from row0 into a tile of rows padded to
-// `stride` floats; rows past the sequence are zero
-template <int kStride>
+// kN rows of one (seq, D) matrix from row0 into a tile of rows padded to
+// `kStride` floats; rows past the sequence are zero
+template <int D, int kN, int kStride>
 __device__ __forceinline__ void stage(float* dst, const float* src, int row0, int seq) {
 #pragma unroll
-  for (int i = 0; i < kKeys * (D / 4) / kThreads; ++i) {
+  for (int i = 0; i < kN * (D / 4) / kThreads; ++i) {
     const int c = threadIdx.x + i * kThreads;
     const int r = c / (D / 4), col = 4 * (c % (D / 4));
     const bool in = row0 + r < seq;
@@ -201,12 +239,17 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int D>
+__global__ void __launch_bounds__(kThreads, Tiles32<D>::kMinBlocks)
     flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ out, int seq,
                            float scale) {
+  using T = Tiles32<D>;
+  constexpr int kKeys = T::kKeys, kStrideK = T::kStrideK, kStrideV = T::kStrideV;
+  constexpr int kTileK = T::kTileK, kStage = T::kStage;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // stage s: K, then V, at s * kStage
+  float* q_tile = smem + 2 * kStage;              // D = 128: q's tile, the whole block
 
   const int n_qt = (seq + kRows - 1) / kRows;
   const int q0 = (n_qt - 1 - (int)blockIdx.y) * kRows;  // the longest query tiles first
@@ -214,21 +257,26 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row group and lane in the quad
   const int row0 = q0 + 16 * warp + g, row1 = row0 + 8;
-  const int n_kt = q0 / kKeys + 1;  // key tiles 0 .. the diagonal
+  const int n_kt = q0 / kKeys + kRows / kKeys;  // key tiles 0 .. the block's last row
+  // exp(x * scale) = 2^(x c): at D = 64 q is scaled by 2^-3 first (exact) and
+  // c = log2(e); at D = 128 the scale enters the exponent
+  const float c = T::kQRegs ? kLog2e : scale * kLog2e;
 
-  // the q tile through stage 1's K buffer, beside key tile 0 in stage 0
-  stage<kStrideK>(smem, k + base, 0, seq);
-  stage<kStrideV>(smem + kTileK, v + base, 0, seq);
-  stage<kStrideK>(smem + kStage, q + base, q0, seq);
+  // D = 64: the q tile through stage 1's K buffer, beside key tile 0 in stage 0
+  stage<D, kKeys, kStrideK>(smem, k + base, 0, seq);
+  stage<D, kKeys, kStrideV>(smem + kTileK, v + base, 0, seq);
+  stage<D, kRows, kStrideK>(T::kQRegs ? smem + kStage : q_tile, q + base, q0, seq);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  // A fragments of the scaled q, big and small.  The sum over D is taken in
-  // another order inside each pair of k-steps (2m, 2m + 1): A column t holds
-  // d = 16m + 4t + 2h of k-step 2m + h, column t + 4 the next d, and K's B
-  // fragments follow, so that a lane reads its four K values as one float4.
-  uint32_t qb[D / 8][4], qs[D / 8][4];
-  {
+  // D = 64: A fragments of the scaled q, big and small.  The sum over D is
+  // taken in another order inside each pair of k-steps (2m, 2m + 1): A
+  // column t holds d = 16m + 4t + 2h of k-step 2m + h, column t + 4 the next
+  // d, and K's B fragments follow, so that a lane reads its four K values as
+  // one float4.  D = 128 reads the same fragments from q's tile k-step pair
+  // by k-step pair, unscaled.
+  uint32_t qb[T::kQRegs ? D / 8 : 1][4], qs[T::kQRegs ? D / 8 : 1][4];
+  if constexpr (T::kQRegs) {
     const float* qt = smem + kStage + 16 * warp * kStrideK + 4 * t;
 #pragma unroll
     for (int m = 0; m < D / 16; ++m) {
@@ -243,8 +291,8 @@ __global__ void __launch_bounds__(kThreads)
       split(x0.w * scale, qb[2 * m + 1][2], qs[2 * m + 1][2]);
       split(x1.w * scale, qb[2 * m + 1][3], qs[2 * m + 1][3]);
     }
+    __syncthreads();  // the q tile is read before key tile 1 overwrites it
   }
-  __syncthreads();  // the q tile is read before key tile 1 overwrites it
 
   float o[D / 8][4];
 #pragma unroll
@@ -254,8 +302,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int it = 0; it < n_kt; ++it) {
     if (it + 1 < n_kt) {
       float* next = smem + ((it + 1) & 1) * kStage;
-      stage<kStrideK>(next, k + base, (it + 1) * kKeys, seq);
-      stage<kStrideV>(next + kTileK, v + base, (it + 1) * kKeys, seq);
+      stage<D, kKeys, kStrideK>(next, k + base, (it + 1) * kKeys, seq);
+      stage<D, kKeys, kStrideV>(next + kTileK, v + base, (it + 1) * kKeys, seq);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -265,73 +313,97 @@ __global__ void __launch_bounds__(kThreads)
     const float* ks = smem + (it & 1) * kStage;
     const float* vs = ks + kTileK;
     const int k0 = it * kKeys;
-    const bool diag = it == n_kt - 1;
+    // the tiles that reach past the block's first row take the causal mask
+    const bool diag = kKeys == kRows ? it == n_kt - 1 : k0 >= q0;
 
-    // S = (q * scale) k^T, 16 rows x 64 keys a warp: the 8 key n-tiles are
-    // independent accumulators, interleaved over each k-step
-    float s[kKeys / 8][4];
+    // D = 128: a warp whose rows all lie before the tile's keys skips it
+    // (warps 0 and 1 on the last tile); key k0 <= every row it does run
+    if (kKeys == kRows || k0 <= q0 + 16 * warp + 15) {
+      // S = (q * scale) k^T (D = 128: q k^T), 16 rows x kKeys keys a warp:
+      // the key n-tiles are independent accumulators, interleaved over each k-step
+      float s[kKeys / 8][4];
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      for (int j = 0; j < kKeys / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
-    for (int m = 0; m < D / 16; ++m) {
+      for (int m = 0; m < D / 16; ++m) {
+        uint32_t ab[2][4], as[2][4];  // D = 128: q's fragments of k-steps 2m and 2m + 1
+        if constexpr (!T::kQRegs) {
+          const float* qt = q_tile + 16 * warp * kStrideK + 4 * t + 16 * m;
+          const float4 x0 = *reinterpret_cast<const float4*>(qt + g * kStrideK);
+          const float4 x1 = *reinterpret_cast<const float4*>(qt + (g + 8) * kStrideK);
+          split(x0.x, ab[0][0], as[0][0]);
+          split(x1.x, ab[0][1], as[0][1]);
+          split(x0.y, ab[0][2], as[0][2]);
+          split(x1.y, ab[0][3], as[0][3]);
+          split(x0.z, ab[1][0], as[1][0]);
+          split(x1.z, ab[1][1], as[1][1]);
+          split(x0.w, ab[1][2], as[1][2]);
+          split(x1.w, ab[1][3], as[1][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          const float4 kr =
+              *reinterpret_cast<const float4*>(ks + (8 * j + g) * kStrideK + 16 * m + 4 * t);
+          if constexpr (T::kQRegs) {
+            mma3(s[j], qb[2 * m], qs[2 * m], kr.x, kr.y);
+            mma3(s[j], qb[2 * m + 1], qs[2 * m + 1], kr.z, kr.w);
+          } else {
+            mma3(s[j], ab[0], as[0], kr.x, kr.y);
+            mma3(s[j], ab[1], as[1], kr.z, kr.w);
+          }
+        }
+      }
+      // the causal mask, then the tile's row max across the quad
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kKeys / 8; ++j) {
-        const float4 kr =
-            *reinterpret_cast<const float4*>(ks + (8 * j + g) * kStrideK + 16 * m + 4 * t);
-        mma3(s[j], qb[2 * m], qs[2 * m], kr.x, kr.y);
-        mma3(s[j], qb[2 * m + 1], qs[2 * m + 1], kr.z, kr.w);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          if (diag && key > (e < 2 ? row0 : row1)) s[j][e] = -INFINITY;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
       }
-    }
-    // the causal mask, then the tile's row max across the quad
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+      // key k0 <= every row of the warp, so the new maxima are finite;
+      // exp(x) = 2^(x log2 e), and exp(-inf) is an exact 0
+      const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+      const float r0 = exp2_approx((m0 - n0) * c);  // 0 on the first tile
+      const float r1 = exp2_approx((m1 - n1) * c);
+      m0 = n0;
+      m1 = n1;
+      const float c0 = -m0 * c, c1 = -m1 * c;
+      l0 *= r0;
+      l1 *= r1;
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * t + (e & 1);
-        if (diag && key > (e < 2 ? row0 : row1)) s[j][e] = -INFINITY;
+      for (int nd = 0; nd < D / 8; ++nd) {
+        o[nd][0] *= r0;
+        o[nd][1] *= r0;
+        o[nd][2] *= r1;
+        o[nd][3] *= r1;
       }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    // key k0 <= every row of the block, so the new maxima are finite;
-    // exp(x) = 2^(x log2 e), and exp(-inf) is an exact 0
-    const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
-    const float r0 = exp2_approx((m0 - n0) * kLog2e);  // 0 on the first tile
-    const float r1 = exp2_approx((m1 - n1) * kLog2e);
-    m0 = n0;
-    m1 = n1;
-    const float c0 = -m0 * kLog2e, c1 = -m1 * kLog2e;
-    l0 *= r0;
-    l1 *= r1;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      o[nd][0] *= r0;
-      o[nd][1] *= r0;
-      o[nd][2] *= r1;
-      o[nd][3] *= r1;
-    }
+      for (int j = 0; j < kKeys / 8; ++j) {
+        s[j][0] = exp2_approx(fmaf(s[j][0], c, c0));
+        s[j][1] = exp2_approx(fmaf(s[j][1], c, c0));
+        s[j][2] = exp2_approx(fmaf(s[j][2], c, c1));
+        s[j][3] = exp2_approx(fmaf(s[j][3], c, c1));
+        l0 += s[j][0] + s[j][1];
+        l1 += s[j][2] + s[j][3];
+      }
+      // O += P V: the accumulators of keys (2t, 2t + 1) are the A columns
+      // (t, t + 4), so the B fragment takes V rows 2t and 2t + 1
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) {
-      s[j][0] = exp2_approx(fmaf(s[j][0], kLog2e, c0));
-      s[j][1] = exp2_approx(fmaf(s[j][1], kLog2e, c0));
-      s[j][2] = exp2_approx(fmaf(s[j][2], kLog2e, c1));
-      s[j][3] = exp2_approx(fmaf(s[j][3], kLog2e, c1));
-      l0 += s[j][0] + s[j][1];
-      l1 += s[j][2] + s[j][3];
-    }
-    // O += P V: the accumulators of keys (2t, 2t + 1) are the A columns
-    // (t, t + 4), so the B fragment takes V rows 2t and 2t + 1
+      for (int j = 0; j < kKeys / 8; ++j) {
+        uint32_t pb[4], ps[4];
+        split(s[j][0], pb[0], ps[0]);
+        split(s[j][2], pb[1], ps[1]);
+        split(s[j][1], pb[2], ps[2]);
+        split(s[j][3], pb[3], ps[3]);
+        const float* vr = vs + (8 * j + 2 * t) * kStrideV + g;
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) {
-      uint32_t pb[4], ps[4];
-      split(s[j][0], pb[0], ps[0]);
-      split(s[j][2], pb[1], ps[1]);
-      split(s[j][1], pb[2], ps[2]);
-      split(s[j][3], pb[3], ps[3]);
-      const float* vr = vs + (8 * j + 2 * t) * kStrideV + g;
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) mma3(o[nd], pb, ps, vr[8 * nd], vr[kStrideV + 8 * nd]);
+        for (int nd = 0; nd < D / 8; ++nd) mma3(o[nd], pb, ps, vr[8 * nd], vr[kStrideV + 8 * nd]);
+      }
     }
     __syncthreads();  // the tile is read before the next stage overwrites it
   }
@@ -353,16 +425,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int D>
 int launch_attention(const float* q, const float* k, const float* v, float* out, int bh, int seq,
-                     int head_dim, float scale, void* stream) {
-  if (head_dim != D) return (int)cudaErrorInvalidValue;
-  if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel,
+                     float scale, void* stream) {
+  constexpr int kSmemBytes = Tiles32<D>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (seq + kRows - 1) / kRows);
-  flash_attention_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(q, k, v, out, seq,
-                                                                               scale);
+  flash_attention_kernel<D><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(q, k, v, out,
+                                                                                  seq, scale);
   return (int)cudaGetLastError();
 }
 
@@ -371,10 +443,18 @@ int launch_attention(const float* q, const float* k, const float* v, float* out,
 constexpr int kConsumers = 2;                    // warpgroups of 64 query rows
 constexpr int kBlockRows = 64 * kConsumers;      // query rows a block
 constexpr int kBf16Threads = 128 * kConsumers + 32;  // and one producer warp
-constexpr int kBlocksPerSm = 2;
 constexpr int kStagesBf16 = 4;                   // K/V tiles in flight
-constexpr int kTileBytes = 64 * D * 2;           // 64 rows of 16-bit values, 128 bytes a row
-constexpr int kSmemBf16 = 1024 + kBlockRows * D * 2 + kStagesBf16 * 2 * kTileBytes;  // + alignment
+constexpr int kSpanBytes = 128;                  // a row of one swizzle span: 64 16-bit columns
+
+// The 16-bit kernel's tiles at head dim D: D / 64 column blocks of one
+// swizzle span each, a tile's block c at c * (its rows * 128 bytes).
+template <int D>
+struct Tiles16 {
+  static constexpr int kBlocksPerSm = D == 64 ? 2 : 1;
+  static constexpr int kTileBytes = 64 * D * 2;  // 64 rows of K or V
+  static constexpr int kSmem = 1024 + kBlockRows * D * 2 + kStagesBf16 * 2 * kTileBytes;  // + alignment
+  static_assert(D == 64 || D == 128, "head dims 64 and 128");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -403,14 +483,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// One box of a 3-D tensor map (d, row, head-batch) into shared memory,
-// completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int row, int bh,
-                                         uint32_t bar) {
+// One box of a 3-D tensor map (d, row, head-batch) from column `col` into
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col, int row,
+                                         int bh, uint32_t bar) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4}], [%5];\n"
-      ::"r"(dst), "l"((uint64_t)map), "r"(0), "r"(row), "r"(bh), "r"(bar)
+      ::"r"(dst), "l"((uint64_t)map), "r"(col), "r"(row), "r"(bh), "r"(bar)
       : "memory");
 }
 
@@ -524,13 +604,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint
 // consumers owns rows q0 + 64 w ...; the producer warp's lane 0 loads Q and
 // then K/V tiles 0 .. the last consumer's diagonal through a ring of
 // kStagesBf16 stages (full: TMA bytes landed; empty: the consumers' 8 warps
-// are done with it).  c = scale * log2(e).  E: Bf16 or F16.
-template <class E>
-__global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
+// are done with it).  c = scale * log2(e).  E: Bf16 or F16; D: 64 or 128.
+template <class E, int D>
+__global__ void __launch_bounds__(kBf16Threads, Tiles16<D>::kBlocksPerSm)
     flash_attention_16_kernel(__grid_constant__ const CUtensorMap tm_q,
                               __grid_constant__ const CUtensorMap tm_k,
                               __grid_constant__ const CUtensorMap tm_v,
                               typename E::T* __restrict__ out, int seq, float c) {
+  constexpr int kTileBytes = Tiles16<D>::kTileBytes;
+  constexpr int kCols = D / 64;                       // column blocks of a row
+  constexpr int kQBlock = kBlockRows * kSpanBytes;    // bytes of one column block of Q
+  constexpr int kKVBlock = 64 * kSpanBytes;           // and of K or V
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, bar_full[kStagesBf16], bar_empty[kStagesBf16];
   const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's 1024-byte atoms
@@ -558,7 +642,9 @@ __global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
       int n_tiles = 0;
       for (int w = 0; w < kConsumers; ++w) n_tiles = max(n_tiles, tiles(w));
       mbar_expect_tx(smem_u32(&bar_q), kBlockRows * D * 2);
-      tma_load(s_q, &tm_q, q0, bh, smem_u32(&bar_q));
+#pragma unroll
+      for (int cb = 0; cb < kCols; ++cb)
+        tma_load(s_q + cb * kQBlock, &tm_q, 64 * cb, q0, bh, smem_u32(&bar_q));
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStagesBf16;
         // a stage is reused once every consumer that reads tile j - stages is done
@@ -566,8 +652,12 @@ __global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
         if (j >= kStagesBf16) mbar_wait(smem_u32(&bar_empty[s]), (j / kStagesBf16 - 1) & 1);
         const uint32_t bar = smem_u32(&bar_full[s]), k_dst = s_kv + 2 * s * kTileBytes;
         mbar_expect_tx(bar, 2 * kTileBytes);
-        tma_load(k_dst, &tm_k, 64 * j, bh, bar);
-        tma_load(k_dst + kTileBytes, &tm_v, 64 * j, bh, bar);
+#pragma unroll
+        for (int cb = 0; cb < kCols; ++cb)
+          tma_load(k_dst + cb * kKVBlock, &tm_k, 64 * cb, 64 * j, bh, bar);
+#pragma unroll
+        for (int cb = 0; cb < kCols; ++cb)
+          tma_load(k_dst + kTileBytes + cb * kKVBlock, &tm_v, 64 * cb, 64 * j, bh, bar);
       }
     }
     return;
@@ -582,15 +672,18 @@ __global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
   const int row0 = q0 + 64 * wg + 16 * (warp & 3) + g, row1 = row0 + 8;
   // the wgmma descriptors of this warpgroup's 64 query rows at k-step 0 and
   // of stage 0's K and V tiles; a descriptor's low bits are the address / 16
-  const uint64_t dq = sw128_desc(s_q + wg * 64 * D * 2), dk = sw128_desc(s_kv);
+  const uint64_t dq = sw128_desc(s_q + wg * 64 * kSpanBytes), dk = sw128_desc(s_kv);
   // key - row on the diagonal tile, less 8 i + (e & 1) + 8 (e >> 1)
   const int diag_off = 2 * t - 16 * (warp & 3) - g;
 
   // accumulator fragment: d[4i + e] holds row (e < 2 ? row0 : row1), column
-  // 8i + 2t + (e & 1) of the warpgroup's 64 x 64 tile
-  float o[32];
+  // 8i + 2t + (e & 1) of the warpgroup's 64 x 64 tile; O's column block cb
+  // is o[cb], columns 64 cb ..
+  float o[kCols][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  for (int cb = 0; cb < kCols; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[cb][i] = 0.0f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
   mbar_wait(smem_u32(&bar_q), 0);
 
@@ -600,12 +693,14 @@ __global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
     mbar_wait(smem_u32(&bar_full[s]), (j / kStagesBf16) & 1);
     __syncwarp();  // the warp converged again for the .aligned wgmma instructions
 
-    // S = Q K^T: bf16 x bf16 (fp16 x fp16) is exact in fp32
+    // S = Q K^T: bf16 x bf16 (fp16 x fp16) is exact in fp32; 32 bytes a
+    // k-step, the next column block every 4
     float sc[32];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<E>(sc, dq + 2 * kk, dks + 2 * kk, kk);  // 32 bytes a k-step
+      wgmma_ss<E>(sc, dq + (kk / 4) * (kQBlock >> 4) + 2 * (kk % 4),
+                  dks + (kk / 4) * (kKVBlock >> 4) + 2 * (kk % 4), kk);
     wgmma_commit();
     wgmma_wait();
     fence_regs(sc);
@@ -636,19 +731,23 @@ __global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
     l0 *= r0;
     l1 *= r1;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      o[4 * i] *= r0;
-      o[4 * i + 1] *= r0;
-      o[4 * i + 2] *= r1;
-      o[4 * i + 3] *= r1;
+    for (int cb = 0; cb < kCols; ++cb) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        o[cb][4 * i] *= r0;
+        o[cb][4 * i + 1] *= r0;
+        o[cb][4 * i + 2] *= r1;
+        o[cb][4 * i + 3] *= r1;
+      }
+      fence_regs(o[cb]);
     }
-    fence_regs(o);
 
     // O += P V, k-step by k-step as its P is ready, so that the tensor cores
     // run the first k-steps while the later exps are taken.  P in two 16-bit
     // pieces, hi = T(P) and lo = T(P - hi), the small piece first: k-step
     // kk (keys 16 kk ..) takes accumulator pairs 8 kk + 2 r, 8 kk + 2 r + 1 as
-    // its A register r, no shuffle; V as stored, (keys, D), is the MN-major B
+    // its A register r, no shuffle; V as stored, (keys, D), is the MN-major B,
+    // one m64n64k16 product a column block of V
     uint32_t p_hi[16], p_lo[16];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -668,12 +767,16 @@ __global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
         asm volatile("" : "+r"(p_hi[i]), "+r"(p_lo[i])::"memory");
       }
       wgmma_fence();
-      wgmma_rs<E>(o, p_lo + 4 * kk, dvs + 128 * kk);  // 2048 bytes a k-step
-      wgmma_rs<E>(o, p_hi + 4 * kk, dvs + 128 * kk);
+#pragma unroll
+      for (int cb = 0; cb < kCols; ++cb) {  // 2048 bytes a k-step
+        wgmma_rs<E>(o[cb], p_lo + 4 * kk, dvs + cb * (kKVBlock >> 4) + 128 * kk);
+        wgmma_rs<E>(o[cb], p_hi + 4 * kk, dvs + cb * (kKVBlock >> 4) + 128 * kk);
+      }
     }
     wgmma_commit();
     wgmma_wait();
-    fence_regs(o);
+#pragma unroll
+    for (int cb = 0; cb < kCols; ++cb) fence_regs(o[cb]);
     __syncwarp();
     if (lane == 0) mbar_arrive(smem_u32(&bar_empty[s]));  // this warp is done with the stage
   }
@@ -685,14 +788,17 @@ __global__ void __launch_bounds__(kBf16Threads, kBlocksPerSm)
   const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
   typename E::T* ob = out + (size_t)bh * seq * D;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {  // rounded to T once
-    const int col = 8 * i + 2 * t;
-    if (row0 < seq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * D + col) =
-          E::pack(o[4 * i] * inv0, o[4 * i + 1] * inv0);
-    if (row1 < seq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * D + col) =
-          E::pack(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+  for (int cb = 0; cb < kCols; ++cb) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {  // rounded to T once
+      const int col = 64 * cb + 8 * i + 2 * t;
+      if (row0 < seq)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * D + col) =
+            E::pack(o[cb][4 * i] * inv0, o[cb][4 * i + 1] * inv0);
+      if (row1 < seq)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * D + col) =
+            E::pack(o[cb][4 * i + 2] * inv1, o[cb][4 * i + 3] * inv1);
+    }
   }
 }
 
@@ -716,50 +822,56 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (bh, seq, D) 16-bit values of `type` as a 3-D tensor map in boxes of
-// `rows` whole rows of 128 bytes, 128-byte swizzle; rows past seq read as zeros.
+// (bh, seq, d) 16-bit values of `type` as a 3-D tensor map in boxes of
+// `rows` rows of 64 columns (128 bytes: one span of the 128-byte swizzle; a
+// 128-wide row is two boxes), rows past seq read as zeros.
 bool tensor_map(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-                int bh, int seq, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)seq, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)seq * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
+                int bh, int seq, int d, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)seq * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)(kSpanBytes / 2), (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
                 elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <class E>
+template <class E, int D>
 int launch_attention16(const typename E::T* q, const typename E::T* k, const typename E::T* v,
-                       typename E::T* out, int bh, int seq, int head_dim, float scale, void* stream) {
-  if (head_dim != D) return (int)cudaErrorInvalidValue;
-  if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
+                       typename E::T* out, int bh, int seq, float scale, void* stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map(encode, &tm_q, E::kMapType, q, bh, seq, kBlockRows) ||
-      !tensor_map(encode, &tm_k, E::kMapType, k, bh, seq, 64) ||
-      !tensor_map(encode, &tm_v, E::kMapType, v, bh, seq, 64))
+  if (!tensor_map(encode, &tm_q, E::kMapType, q, bh, seq, D, kBlockRows) ||
+      !tensor_map(encode, &tm_k, E::kMapType, k, bh, seq, D, 64) ||
+      !tensor_map(encode, &tm_v, E::kMapType, v, bh, seq, D, 64))
     return (int)cudaErrorInvalidValue;
+  constexpr int kSmem = Tiles16<D>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_16_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBf16);
+      flash_attention_16_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (seq + kBlockRows - 1) / kBlockRows);
-  flash_attention_16_kernel<E><<<grid, kBf16Threads, kSmemBf16, (cudaStream_t)stream>>>(
+  flash_attention_16_kernel<E, D><<<grid, kBf16Threads, kSmem, (cudaStream_t)stream>>>(
       tm_q, tm_k, tm_v, out, seq, scale * kLog2e);
   return (int)cudaGetLastError();
 }
+
+// The head dims with a kernel: 64 and 128; any other launches nothing.
+bool head_dim_taken(int head_dim) { return head_dim == 64 || head_dim == 128; }
 
 }  // namespace
 
 extern "C" {
 
 // q, k, v, out: (bh, seq, head_dim) fp32, contiguous, 16-byte aligned;
-// head_dim 64 (else cudaErrorInvalidValue, nothing launched); scale: the
-// caller's fp32 head_dim^-0.5.
+// head_dim 64 or 128 (else cudaErrorInvalidValue, nothing launched); scale:
+// the caller's fp32 head_dim^-0.5.
 int flash_attention_f32(const float* q, const float* k, const float* v, float* out, int bh,
                         int seq, int head_dim, float scale, void* stream) {
-  return launch_attention(q, k, v, out, bh, seq, head_dim, scale, stream);
+  if (!head_dim_taken(head_dim)) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
+  return head_dim == 64 ? launch_attention<64>(q, k, v, out, bh, seq, scale, stream)
+                        : launch_attention<128>(q, k, v, out, bh, seq, scale, stream);
 }
 
 // q, k, v, out: (bh, seq, head_dim) bf16, contiguous, 16-byte aligned; the
@@ -767,14 +879,20 @@ int flash_attention_f32(const float* q, const float* k, const float* v, float* o
 int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                          __nv_bfloat16* out, int bh, int seq, int head_dim, float scale,
                          void* stream) {
-  return launch_attention16<Bf16>(q, k, v, out, bh, seq, head_dim, scale, stream);
+  if (!head_dim_taken(head_dim)) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
+  return head_dim == 64 ? launch_attention16<Bf16, 64>(q, k, v, out, bh, seq, scale, stream)
+                        : launch_attention16<Bf16, 128>(q, k, v, out, bh, seq, scale, stream);
 }
 
 // q, k, v, out: (bh, seq, head_dim) fp16, contiguous, 16-byte aligned; the
 // rest as flash_attention_f32.
 int flash_attention_f16(const __half* q, const __half* k, const __half* v, __half* out, int bh,
                         int seq, int head_dim, float scale, void* stream) {
-  return launch_attention16<F16>(q, k, v, out, bh, seq, head_dim, scale, stream);
+  if (!head_dim_taken(head_dim)) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
+  return head_dim == 64 ? launch_attention16<F16, 64>(q, k, v, out, bh, seq, scale, stream)
+                        : launch_attention16<F16, 128>(q, k, v, out, bh, seq, scale, stream);
 }
 
 }  // extern "C"

@@ -10,7 +10,9 @@ kernel has an entry point for each (``*_f32``, ``*_bf16``, ``*_f16``); the
 wrapper's output dtype, and a 16-bit tensor is never upcast here to reach
 the fp32 kernel.  ``LAUNCHES`` counts kernel launches per wrapper and input
 dtype (``name`` for fp32, ``name.bf16`` for bf16, ``name.f16`` for fp16),
-so a run can show that its path went through the kernels.
+and for the attention per head dim too (``.d128`` after the dtype's tag for
+the D = 128 instances), so a run can show that its path went through the
+kernels.
 
 The KL and attention kernels are forward only, as in the reference: their
 wrappers raise on an input that requires a gradient (with autograd on)
@@ -55,6 +57,7 @@ LAUNCHES: dict[str, int] = {
     **dict.fromkeys(("topk_mask_dynamic", "topk_mask", "sparse_aggregate", "scatter_wire_sums",
                      "scatter_wire_sums_dequant", "distill_kl", "flash_attention"), 0),
     **{f"{name}{tag}": 0 for name in BF16_KERNELS for tag in (".bf16", ".f16")},
+    **{f"flash_attention{tag}.d128": 0 for tag in ("", ".bf16", ".f16")},
 }
 
 _MODES = {"adaptive": 0, "zeropad": 1, "mean_nonzero": 2}
@@ -134,10 +137,10 @@ def smem_max_vocab(device_index: int, dtype: torch.dtype = torch.float32) -> int
 
 
 def _launch(name: str, lib: str, symbol: str, ptrs, ints, device, floats=(),
-            dtype: torch.dtype | None = None) -> None:
+            dtype: torch.dtype | None = None, instance: str = "") -> None:
     """Launch ``symbol`` (+ the entry point's suffix for the float inputs'
     ``dtype``: ``_f32``, ``_bf16``, ``_f16``) and count it under ``name``
-    (+ ``.bf16``, ``.f16``)."""
+    (+ ``.bf16``, ``.f16``, + ``instance``)."""
     tag, suffix = ("", "") if dtype is None else _SUFFIX[dtype]
     fn = _fn(lib, symbol + suffix, len(ptrs), len(ints), len(floats))
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -145,7 +148,7 @@ def _launch(name: str, lib: str, symbol: str, ptrs, ints, device, floats=(),
         rc = fn(*[None if t is None else t.data_ptr() for t in ptrs], *ints, *floats, stream)
     if rc != 0:
         raise RuntimeError(f"{symbol}{suffix}: CUDA error {rc} at launch")
-    LAUNCHES[name + tag] += 1
+    LAUNCHES[name + tag + instance] += 1
 
 
 def _topk(name: str, logits: torch.Tensor, ks: torch.Tensor | None, k_static: int) -> torch.Tensor:
@@ -300,16 +303,29 @@ def distill_kl(teacher: torch.Tensor, student: torch.Tensor, temperature: float 
 
 # the Pallas kernel's tile: S must be a multiple of min(128, S)
 FLASH_BLOCK = 128
-# the one head dim the CUDA kernel takes (GPT-2 small and large)
-FLASH_HEAD_DIM = 64
+# the head dims the CUDA kernels take: 64 (GPT-2, granite, stablelm, seamless,
+# mamba2) and 128 (yi-9b, command-r, llama4, internvl2, jamba, moonshot)
+FLASH_HEAD_DIMS = frozenset((64, 128))
+# the launch counter's suffix for each head dim's kernel instances
+_FLASH_INSTANCE = {64: "", 128: ".d128"}
+
+
+def check_flash_head_dim(d: int) -> None:
+    """Raise ``ValueError`` for a head dim the CUDA kernels do not take (the
+    reference's Pallas kernel takes any; ROADMAP "flash attention head
+    dims" lists the rest)."""
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the CUDA kernels take head dims "
+                         f"{sorted(FLASH_HEAD_DIMS)}, got {d} (ROADMAP: flash attention head dims)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal attention of ``(B, H, S, D)`` or fused ``(B·H, S, D)`` fp32,
     bf16 or fp16 q, k, v (out: q's dtype, from fp32 math), with ``S`` a multiple
-    of ``min(128, S)`` as the reference's tiling asserts; the CUDA kernel
-    takes head dim 64.  Forward only (inference prefill): raises when an
-    input requires grad."""
+    of ``min(128, S)`` as the reference's tiling asserts.  On the CPU any
+    ``D`` (the plain version); the CUDA kernels take ``D`` in
+    :data:`FLASH_HEAD_DIMS` and raise on any other, never falling back.
+    Forward only (inference prefill): raises when an input requires grad."""
     _forward_only("flash_attention", q, k, v)
     if q.ndim not in (3, 4):
         raise ValueError(f"flash_attention: q has shape {tuple(q.shape)}, expected (B, H, S, D) "
@@ -324,13 +340,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     fold = lambda x: x.reshape(-1, s, d)  # noqa: E731
     if q.device.type == "cpu":
         return flash_attention_ref(fold(q), fold(k), fold(v)).reshape(q.shape)
-    if d != FLASH_HEAD_DIM:
-        raise ValueError(f"flash_attention: the CUDA kernel takes head dim {FLASH_HEAD_DIM}, got {d}")
+    check_flash_head_dim(d)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     bh = fold(q).shape[0]
     if bh and s:
         _launch("flash_attention", "flash_attention", "flash_attention", (q, k, v, out),
-                (bh, s, d), q.device, (d**-0.5,), dtype=q.dtype)
+                (bh, s, d), q.device, (d**-0.5,), dtype=q.dtype, instance=_FLASH_INSTANCE[d])
     return out

@@ -189,7 +189,7 @@ def test_distill_kl_on_bf16_matches_the_pallas_kernel(rows, vocab):
         assert float(got[0]) == 0.0
 
 
-@pytest.mark.parametrize("shape", [(1, 128, 64), (2, 256, 64)])
+@pytest.mark.parametrize("shape", [(1, 128, 64), (2, 256, 64), (1, 128, 128), (2, 256, 128)])
 def test_flash_attention_on_bf16_matches_the_pallas_kernel(shape):
     rng = np.random.default_rng(sum(shape))
     (jq, tq), (jk, tk), (jv, tv) = (_bf16(rng.normal(size=shape).astype(np.float32))

@@ -29,7 +29,15 @@ softmax, the diagonal tile masked with -inf before the max, and rounds the
 output to bf16 once.  The model is held within ``S * 2^-24 * max|v|`` plus
 one bf16 ulp of the plain version (the check ``chip_smoke.py`` holds the
 kernel to) at q, k scales 1 and 4; with P in one piece, as bf16 SDPA
-rounds it, it misses that check; and it is causal bitwise.
+rounds it, it misses that check; and it is causal bitwise.  The kernel is a
+template on the head dim (``flash_attention_16_kernel<E, D>``, D 64 or
+128); the model runs at both, and also sums Q K^T k-step by k-step in
+the kernel's order.  At D = 128 a 256-byte row is two spans of TMA's 128-byte
+swizzle: each tile lies in shared memory as two column blocks, and Q K^T's
+descriptors step to the second block at k-step 4; a byte-level model of
+the swizzled tiles and of the descriptors' start addresses reads every
+k-step's operands back (and a descriptor that does not step across
+misreads them), and reads V's MN-major k-steps block by block.
 """
 
 import math
@@ -47,6 +55,7 @@ f32 = np.float32
 ITERS = ref.BISECTION_ITERS
 LOW_BITS = 5  # the top-k kernel's low digit (kLowBits); the high digit has 16 - 5
 KEYS = 64  # the attention kernel's key tile
+SPAN = 128  # bytes of one span of the 128-byte swizzle: 64 16-bit columns
 
 
 # -- top-k: the radix select and the replayed bisection ------------------------
@@ -259,6 +268,24 @@ def attention_model(q, k, v, pieces: int = 2) -> torch.Tensor:
     it: 64-key tiles in order with the online softmax, scores from exact
     bf16 products summed in fp32, exp as 2^(s c - m c) with c = scale *
     log2(e), P in ``pieces`` bf16 pieces, the output rounded to bf16 once."""
+    return online_attention(q, k, v, pieces, torch.bfloat16)
+
+
+def kstep_scores(qf: torch.Tensor, kt: torch.Tensor) -> torch.Tensor:
+    """Q K^T (``kt``: K transposed) as the kernel's wgmma chain takes it:
+    fp32 sums of 16-wide k-steps over D, in order (D / 16 of them: 4 at
+    D = 64, 8 at D = 128)."""
+    sc = torch.zeros(qf.shape[:-1] + kt.shape[-1:])
+    for kk in range(qf.shape[-1] // 16):
+        sc = sc + qf[..., 16 * kk:16 * kk + 16] @ kt[..., 16 * kk:16 * kk + 16, :]
+    return sc
+
+
+def online_attention(q, k, v, pieces: int, dtype: torch.dtype, ksteps: bool = False) -> torch.Tensor:
+    """The 16-bit kernel's arithmetic over (B, S, D) q, k, v of ``dtype``
+    (bf16 or fp16): see :func:`attention_model`.  Q K^T's fp32 sums run in
+    the plain version's order, or with ``ksteps`` in the kernel's
+    (:func:`kstep_scores`)."""
     b, s, d = q.shape
     c = f32(d**-0.5) * f32(math.log2(math.e))
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -268,7 +295,7 @@ def attention_model(q, k, v, pieces: int = 2) -> torch.Tensor:
     o = torch.zeros((b, s, d))
     for j in range(0, s, KEYS):
         keys = torch.arange(j, min(j + KEYS, s))
-        sc = qf @ kf[:, keys].transpose(1, 2)
+        sc = (kstep_scores if ksteps else torch.matmul)(qf, kf[:, keys].transpose(1, 2))
         sc = torch.where(keys[None, None, :] > rows[None, :, None], -math.inf, sc)  # diagonal tile
         live = (rows // KEYS >= j // KEYS)[None, :]  # tiles above a query tile's diagonal: skipped
         new_m = torch.maximum(m, sc.amax(dim=-1))
@@ -277,13 +304,13 @@ def attention_model(q, k, v, pieces: int = 2) -> torch.Tensor:
         acc = torch.zeros_like(o)
         rest = p
         for _ in range(pieces):  # the small piece enters first in the kernel; fp32 sums here
-            piece = rest.to(torch.bfloat16).float()
+            piece = rest.to(dtype).float()
             acc = acc + piece @ vf[:, keys]
             rest = rest - piece
         o = torch.where(live[..., None], o * r[..., None] + acc, o)
         lsum = torch.where(live, lsum * r + p.sum(dim=-1), lsum)
         m = torch.where(live, new_m, m)
-    return (o / lsum[..., None]).to(torch.bfloat16)
+    return (o / lsum[..., None]).to(dtype)
 
 
 def bf16_ulp(*xs):
@@ -307,11 +334,22 @@ def _qkv(seed, shape, scale=1.0):
 
 
 @pytest.mark.parametrize("qk_scale", [1.0, 4.0])
-@pytest.mark.parametrize("shape", [(2, 256, 64), (3, 96, 64)])
+@pytest.mark.parametrize("shape", [(2, 256, 64), (3, 96, 64), (2, 256, 128), (3, 96, 128)])
 def test_two_piece_attention_model_within_the_check(shape, qk_scale):
     q, k, v = _qkv(int(qk_scale) + shape[1], shape, qk_scale)
     want = ref.flash_attention_ref(q, k, v)
     assert excess(attention_model(q, k, v), want, shape[1], v) <= 1.0
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("qk_scale", [1.0, 4.0])
+def test_kstep_order_within_the_check(d, qk_scale):
+    """Q K^T summed k-step by k-step, the kernel's order over D (across the
+    two column blocks at D = 128), at the q, k scales the card checks
+    use."""
+    q, k, v = _qkv(int(qk_scale) + d, (2, 256, d), qk_scale)
+    got = online_attention(q, k, v, 2, torch.bfloat16, ksteps=True)
+    assert excess(got, ref.flash_attention_ref(q, k, v), 256, v) <= 1.0
 
 
 def test_one_bf16_piece_misses_the_check():
@@ -323,20 +361,113 @@ def test_one_bf16_piece_misses_the_check():
     assert one > 4.0 and two <= 1.0, (one, two)
 
 
-def test_attention_model_is_causal_bitwise():
-    q, k, v = _qkv(5, (2, 256, 64))
-    base = attention_model(q, k, v)
+def check_causal(model, qkv, d):
+    q, k, v = qkv(5, (2, 256, d))
+    base = model(q, k, v)
     k2, v2 = k.clone(), v.clone()
     k2[:, 150:], v2[:, 150:] = 99.0, -99.0
-    pert = attention_model(q, k2, v2)
+    pert = model(q, k2, v2)
     assert torch.equal(base[:, :150], pert[:, :150]) and not torch.equal(base[:, 150:], pert[:, 150:])
+
+
+def check_late_maximum(model, qkv, excess_of, d):
+    q, k, v = qkv(6, (1, 256, d))
+    k[:, 200] = (2.0 * q[:, 230].float()).to(q.dtype)
+    got = model(q, k, v)
+    assert excess_of(got, ref.flash_attention_ref(q, k, v), 256, v) <= 1.0
+    assert float((got[0, 230].float() - v[0, 200].float()).abs().max()) < 0.05 * float(v.float().abs().max())
+
+
+def test_attention_model_is_causal_bitwise():
+    check_causal(attention_model, _qkv, 64)
 
 
 def test_attention_model_late_maximum():
     """A row whose largest score arrives in a late key tile rescales its
     earlier sums: the model stays within the check and lands on that key's v."""
-    q, k, v = _qkv(6, (1, 256, 64))
-    k[:, 200] = (2.0 * q[:, 230].float()).to(torch.bfloat16)
-    got = attention_model(q, k, v)
-    assert excess(got, ref.flash_attention_ref(q, k, v), 256, v) <= 1.0
-    assert float((got[0, 230].float() - v[0, 200].float()).abs().max()) < 0.05 * float(v.float().abs().max())
+    check_late_maximum(attention_model, _qkv, excess, 64)
+
+
+def test_attention_model_at_d128_is_causal_bitwise():
+    check_causal(attention_model, _qkv, 128)
+
+
+def test_attention_model_at_d128_late_maximum():
+    check_late_maximum(attention_model, _qkv, excess, 128)
+
+
+# -- the tiles in shared memory and the wgmma descriptors at D = 64 and 128 ----
+
+
+def tma_tile(x: np.ndarray) -> np.ndarray:
+    """The bytes a tile of ``x`` (rows, D) 16-bit values takes in shared
+    memory as the kernel's TMA boxes write it: D / 64 column blocks of rows
+    x 128 bytes, block c at c * rows * 128, each in the 128-byte swizzle
+    (16-byte chunk j of row r at chunk j ^ (r % 8))."""
+    rows, d = x.shape
+    raw = np.ascontiguousarray(x.astype(np.uint16)).view(np.uint8).reshape(rows, d * 2)
+    buf = np.zeros(rows * d * 2, np.uint8)
+    for cb in range(d // 64):
+        for r in range(rows):
+            for j in range(8):
+                at = cb * rows * SPAN + r * SPAN + 16 * (j ^ (r % 8))
+                buf[at:at + 16] = raw[r, cb * SPAN + 16 * j: cb * SPAN + 16 * j + 16]
+    return buf
+
+
+def swizzled(addr: int) -> int:
+    """The 128-byte swizzle on a shared-memory address (1024-byte aligned
+    atoms): bits 4-6 XOR bits 7-9."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def k_major_operand(buf: np.ndarray, start: int, rows: int) -> np.ndarray:
+    """What a K-major wgmma operand of ``rows`` x 16 (Q's or K's k-step)
+    reads from a descriptor at byte ``start``: row r's two 16-byte chunks
+    at start + (r / 8) * 1024 (the stride byte offset) + (r % 8) * 128."""
+    out = np.zeros((rows, 16), np.uint16)
+    for r in range(rows):
+        for c in range(2):
+            at = swizzled(start + (r // 8) * 1024 + (r % 8) * SPAN + 16 * c)
+            out[r, 8 * c:8 * c + 8] = buf[at:at + 16].view(np.uint16)
+    return out
+
+
+def mn_major_operand(buf: np.ndarray, start: int) -> np.ndarray:
+    """What V's MN-major k-step (16 keys x 64 columns) reads from a
+    descriptor at ``start``: key r's 128-byte row at start + (r / 8) * 1024
+    + (r % 8) * 128, swizzled."""
+    out = np.zeros((16, 64), np.uint16)
+    for r in range(16):
+        for j in range(8):
+            at = swizzled(start + (r // 8) * 1024 + (r % 8) * SPAN + 16 * j)
+            out[r, 8 * j:8 * j + 8] = buf[at:at + 16].view(np.uint16)
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_descriptors_step_across_the_swizzle_spans(d):
+    """Q K^T's k-step kk reads columns 16 kk .. 16 kk + 15 of Q (128 rows:
+    a warpgroup's 64 at wg * 64 * 128) and of K (64 rows) from the
+    kernel's descriptor start ``(kk / 4) * block + 32 * (kk % 4)``, block the
+    bytes of one column block; P V's k-step kk of column block cb reads V's
+    keys 16 kk .. and columns 64 cb .. at ``cb * 8192 + 2048 kk``.  A start
+    that steps 32 bytes a k-step without crossing to the next block
+    misreads k-steps 4-7 at D = 128."""
+    rng = np.random.default_rng(d)
+    q = rng.integers(0, 1 << 16, (128, d))
+    k, v = (rng.integers(0, 1 << 16, (64, d)) for _ in range(2))
+    qb, kb, vb = tma_tile(q), tma_tile(k), tma_tile(v)
+    for kk in range(d // 16):
+        cols = slice(16 * kk, 16 * kk + 16)
+        for wg in range(2):
+            start = (kk // 4) * 128 * SPAN + wg * 64 * SPAN + 32 * (kk % 4)
+            np.testing.assert_array_equal(k_major_operand(qb, start, 64), q[64 * wg:64 * wg + 64, cols])
+        np.testing.assert_array_equal(k_major_operand(kb, (kk // 4) * 64 * SPAN + 32 * (kk % 4), 64),
+                                      k[:, cols])
+        if kk >= 4:  # the D = 64 stepping carried on past the span
+            assert not np.array_equal(k_major_operand(kb, 32 * kk, 64), k[:, cols])
+    for cb in range(d // 64):
+        for kk in range(4):
+            np.testing.assert_array_equal(mn_major_operand(vb, cb * 64 * SPAN + 2048 * kk),
+                                          v[16 * kk:16 * kk + 16, 64 * cb:64 * cb + 64])

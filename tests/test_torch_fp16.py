@@ -229,7 +229,7 @@ def test_distill_kl_on_fp16_matches_the_pallas_kernel(rows, vocab):
         assert np.isnan(np.asarray(distill_kl_pallas(jt, js, 2.0, interpret=True))).all()
 
 
-@pytest.mark.parametrize("shape", [(1, 128, 64), (2, 256, 64)])
+@pytest.mark.parametrize("shape", [(1, 128, 64), (2, 256, 64), (1, 128, 128), (2, 256, 128)])
 def test_flash_attention_on_fp16_matches_the_pallas_kernel(shape):
     rng = np.random.default_rng(sum(shape) + 1)
     (jq, tq), (jk, tk), (jv, tv) = (_f16(rng.normal(size=shape).astype(np.float32))

@@ -15,7 +15,13 @@ with -inf, and is held within ``S · 2^-24 · max|v|`` (the bound
 ``chip_smoke.py`` holds the kernel to); a model with one TF32 product per
 product misses that bound, which is why the kernel splits.  A register-level
 model of one warp's ``mma.sync.m16n8k8`` fragments follows the kernel's
-index expressions and is held exactly to the plain products.
+index expressions and is held exactly to the plain products.  At head dim
+128 (``flash_attention_kernel<128>``) the kernel takes 32-key tiles, reads
+q's fragments from its tile in shared memory each k-step pair, does not
+scale q (128^-0.5 = 2^-3.5 would round): the scale enters the exponent,
+``2^(s c - m c)`` with ``c = scale · log2(e)``; a warp whose 16 rows all
+lie before a tile's keys skips it.  The models follow that too, and the
+padded strides 144 and 132 keep the bank argument.
 
 KL (``csrc/distill_kl.cu``).  The model follows the kernel's indexing: a
 row split over C CTAs of 512 threads, each thread's strided 16-byte
@@ -42,7 +48,9 @@ from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.kernels import ref  # noqa: E402
 
-KEYS = 64  # the attention kernel's query and key tile
+KEYS = 64  # the attention kernel's query tile, and its key tile at D = 64
+D128_KEYS = 32  # its key tile at D = 128
+LOG2E = np.float32(1.4426950408889634)
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -79,11 +87,18 @@ def prod3_rna(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (tf32(a - ab) @ bb + ab @ tf32(b - bb)) + ab @ bb
 
 
-def attention_model(q, k, v, prod=prod3):
+def attention_model(q, k, v, prod=prod3, prescale=None):
     """The kernel's tiles and online softmax over fused head-batches
-    ``(B, S, D)`` fp32."""
+    ``(B, S, D)`` fp32.  D = 64: q scaled by 2^-3 first (exact), 64-key
+    tiles.  D = 128: 32-key tiles and q unscaled, the scale in the exponent:
+    ``2^(s c - m c)``, c = fp32(scale) · fp32(log2 e); a 16-row group skips
+    a tile whose keys all lie after its rows.  ``prescale`` forces q scaled
+    first (True) or not (False) at either D."""
     _, seq, d = q.shape
-    qs = q * d**-0.5  # 2^-3 at D = 64: exact
+    prescale = d == 64 if prescale is None else prescale
+    keys_a_tile = KEYS if d == 64 else D128_KEYS
+    qs = q * d**-0.5 if prescale else q  # 2^-3 at D = 64: exact
+    c = LOG2E if prescale else np.float32(d**-0.5) * LOG2E
     out = torch.empty_like(q)
     for q0 in range(0, seq, KEYS):
         qt = qs[:, q0:q0 + KEYS]
@@ -91,17 +106,22 @@ def attention_model(q, k, v, prod=prod3):
         m = torch.full(qt.shape[:2], -math.inf)
         l = torch.zeros(qt.shape[:2])
         o = torch.zeros_like(qt)
-        for k0 in range(0, q0 + 1, KEYS):
-            kt, vt = k[:, k0:k0 + KEYS], v[:, k0:k0 + KEYS]
+        for k0 in range(0, q0 + KEYS, keys_a_tile):
+            kt, vt = k[:, k0:k0 + keys_a_tile], v[:, k0:k0 + keys_a_tile]
+            if kt.shape[1] == 0:  # a tile past the sequence's end (zeros, all masked)
+                break
             s = prod(qt, kt.transpose(1, 2))
-            if k0 == q0:  # the diagonal tile: keys after the query are -inf
+            if k0 >= q0:  # the tiles past the block's first row: keys after the query are -inf
                 keys = torch.arange(k0, k0 + kt.shape[1])[None, :]
                 s = torch.where(keys > rows, -math.inf, s)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            r = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l = l * r + p.sum(dim=-1)
-            o = o * r[..., None] + prod(p, vt)
+            # the 16-row groups (warps) that run this tile: a row group of
+            # the kernel whose rows all lie before k0 skips it
+            live = (q0 + 16 * ((rows - q0) // 16) + 15 >= k0)[:, 0]
+            m_new = torch.where(live, torch.maximum(m, s.amax(dim=-1)), m)
+            r = torch.exp2((m - m_new) * c)
+            p = torch.exp2(s * c - (m_new * c)[..., None])
+            l = torch.where(live, l * r + p.sum(dim=-1), l)
+            o = torch.where(live[:, None], o * r[..., None] + prod(p, vt), o)
             m = m_new
         out[:, q0:q0 + KEYS] = o * (1.0 / l)[..., None]
     return out
@@ -141,7 +161,7 @@ def test_tf32_rounding_on_the_bits():
 
 @pytest.mark.parametrize("prod", ["truncated small", "rounded small"])
 @pytest.mark.parametrize("qk_scale", [1.0, 4.0])
-@pytest.mark.parametrize("shape", [(2, 256, 64), (3, 96, 64)])
+@pytest.mark.parametrize("shape", [(2, 256, 64), (3, 96, 64), (2, 256, 128), (3, 96, 128)])
 def test_3xtf32_attention_model_within_the_bound(shape, qk_scale, prod):
     q, k, v = _qkv(sum(shape) + int(qk_scale), shape, qk_scale)
     got = attention_model(q, k, v, prod3 if prod == "truncated small" else prod3_rna)
@@ -163,8 +183,8 @@ def test_one_tf32_product_misses_the_bound(qk_scale):
     assert one > 20 * three
 
 
-def test_attention_model_is_causal_bitwise():
-    q, k, v = _qkv(3, (2, 256, 64))
+def _check_causal(d):
+    q, k, v = _qkv(3, (2, 256, d))
     base = attention_model(q, k, v)
     k2, v2 = k.clone(), v.clone()
     k2[:, 150:] = 99.0
@@ -174,14 +194,59 @@ def test_attention_model_is_causal_bitwise():
     assert not torch.equal(base[:, 150:], pert[:, 150:])
 
 
-def test_attention_model_late_maximum():
-    """A row whose largest score arrives in a late key tile rescales what
-    the earlier tiles summed."""
-    q, k, v = _qkv(5, (1, 256, 64))
-    k[0, 200] = 2.0 * q[0, 250]  # row 250's largest score, in key tile 3 of 4
+def _check_late_maximum(d):
+    q, k, v = _qkv(5, (1, 256, d))
+    k[0, 200] = 2.0 * q[0, 250]  # row 250's largest score, in a late key tile
     got, want = attention_model(q, k, v), ref.flash_attention_ref(q, k, v)
     assert float((got - want).abs().max()) <= _bound(256, v)
     assert float((got[0, 250] - v[0, 200]).abs().max()) < 0.05 * float(v.abs().max())
+
+
+def test_attention_model_is_causal_bitwise():
+    _check_causal(64)
+
+
+def test_attention_model_late_maximum():
+    """A row whose largest score arrives in a late key tile rescales what
+    the earlier tiles summed."""
+    _check_late_maximum(64)
+
+
+def test_attention_model_at_d128_is_causal_bitwise():
+    """At D = 128 too, where a row group skips a tile wholly after it and
+    the diagonal spans two 32-key tiles."""
+    _check_causal(128)
+
+
+def test_attention_model_at_d128_late_maximum():
+    _check_late_maximum(128)
+
+
+@pytest.mark.parametrize("qk_scale", [1.0, 4.0])
+def test_d128_scale_in_the_exponent_within_the_bound(qk_scale):
+    """At D = 128 the scale 2^-3.5 is not exact in fp32: q scaled by it
+    rounds, where the plain version rounds only the scores times the scale.
+    The kernel leaves q whole and puts the scale into the exponent; that
+    model is within the bound at both q, k scales (and so is the rounded
+    pre-scaling at these sizes: the exponent route is the one with no
+    extra rounding of q)."""
+    scale = np.float32(128**-0.5)
+    x = torch.as_tensor(np.random.default_rng(2).normal(size=4096).astype(np.float32))
+    assert not torch.equal((x * float(scale)) / float(scale), x)  # pre-scaling rounds q
+    q, k, v = _qkv(40 + int(qk_scale), (2, 256, 128), qk_scale)
+    want = ref.flash_attention_ref(q, k, v)
+    for prescale in (False, True):
+        got = attention_model(q, k, v, prescale=prescale)
+        assert float((got - want).abs().max()) <= _bound(256, v), prescale
+
+
+def test_one_tf32_product_misses_the_bound_at_d128():
+    """One TF32 product per product misses the bound at D = 128 as well."""
+    q, k, v = _qkv(12, (2, 256, 128), 4.0)
+    want = ref.flash_attention_ref(q, k, v)
+    one = float((attention_model(q, k, v, prod1) - want).abs().max())
+    three = float((attention_model(q, k, v, prod3) - want).abs().max())
+    assert one > 5 * _bound(256, v) and three <= _bound(256, v), (one, three)
 
 
 # -- one warp's fragments -----------------------------------------------------
@@ -217,34 +282,45 @@ def test_warp_fragments_follow_the_kernels_indexing():
     fragments taken from the S accumulators without a shuffle (a0 = c0,
     a1 = c2, a2 = c1, a3 = c3) against V's B fragments from rows 2t and
     2t + 1.  Exact in float64: S = q k^T, O = P V."""
+    _warp_fragments(64, KEYS)
+
+
+def test_warp_fragments_at_d128():
+    """The same fragments at D = 128 against a 32-key tile: eight k-step
+    pairs, q's float4s read from its tile in shared memory at each pair (the
+    same index expressions as K's), 16 output n-tiles of V."""
+    _warp_fragments(128, D128_KEYS)
+
+
+def _warp_fragments(d, keys):
     rng = np.random.default_rng(1)
-    qt, ks, vs = rng.normal(size=(16, 64)), rng.normal(size=(64, 64)), rng.normal(size=(64, 64))
+    qt, ks, vs = rng.normal(size=(16, d)), rng.normal(size=(keys, d)), rng.normal(size=(keys, d))
     lanes = [divmod(lane, 4) for lane in range(32)]
     qa = [np.array([[qt[g, 16 * m + 4 * t + 2 * h], qt[g + 8, 16 * m + 4 * t + 2 * h],
                      qt[g, 16 * m + 4 * t + 2 * h + 1], qt[g + 8, 16 * m + 4 * t + 2 * h + 1]]
-                    for g, t in lanes]) for m in range(4) for h in range(2)]
+                    for g, t in lanes]) for m in range(d // 16) for h in range(2)]
     s = []
-    for j in range(8):
+    for j in range(keys // 8):
         c = np.zeros((32, 4))
-        for m in range(4):
+        for m in range(d // 16):
             kr = [ks[8 * j + g, 16 * m + 4 * t: 16 * m + 4 * t + 4] for g, t in lanes]  # float4
             for h in range(2):
                 b = np.array([[x[2 * h], x[2 * h + 1]] for x in kr])
                 c = _mma_m16n8k8(c, qa[2 * m + h], b)
         s.append(c)
-    S = np.empty((16, 64))
-    for j in range(8):
+    S = np.empty((16, keys))
+    for j in range(keys // 8):
         for lane, (g, t) in enumerate(lanes):
             S[g, 8 * j + 2 * t: 8 * j + 2 * t + 2] = s[j][lane, :2]
             S[g + 8, 8 * j + 2 * t: 8 * j + 2 * t + 2] = s[j][lane, 2:]
     np.testing.assert_allclose(S, qt @ ks.T, rtol=0, atol=1e-12)
     P = np.exp(S - S.max(axis=1, keepdims=True))
     p = [np.array([[P[g, 8 * j + 2 * t], P[g, 8 * j + 2 * t + 1], P[g + 8, 8 * j + 2 * t],
-                    P[g + 8, 8 * j + 2 * t + 1]] for g, t in lanes]) for j in range(8)]
-    O = np.empty((16, 64))
-    for nd in range(8):
+                    P[g + 8, 8 * j + 2 * t + 1]] for g, t in lanes]) for j in range(keys // 8)]
+    O = np.empty((16, d))
+    for nd in range(d // 8):
         c = np.zeros((32, 4))
-        for j in range(8):
+        for j in range(keys // 8):
             a = p[j][:, [0, 2, 1, 3]]
             b = np.array([[vs[8 * j + 2 * t, 8 * nd + g], vs[8 * j + 2 * t + 1, 8 * nd + g]]
                           for g, t in lanes])
@@ -274,6 +350,21 @@ def test_padded_rows_spread_fragment_loads_over_the_banks():
 
     assert k_phases(80) == 32 and k_phases(64) <= 16
     assert v_banks(68) == 32 and v_banks(64) <= 8
+    # D = 128: K's (and q's) rows padded to 144 floats, V's to 132, the same
+    # residues mod 32 as 80 and 68; unpadded 128-float rows collide as 64's
+    assert k_phases(144) == 32 and k_phases(128) <= 16
+    assert v_banks(132) == 32 and v_banks(128) <= 8
+
+
+def test_d128_tiles_fit_two_blocks_an_sm():
+    """The D = 128 kernel's shared memory: two stages of a 32-key K tile
+    (rows of 144 floats) and V tile (132), and q's 64-row tile (144): 105
+    KB, so that two blocks fit an SM's 228 KB (1 KB of each reserved); with
+    64-key tiles (178 KB) one would."""
+    def smem(keys):
+        return 4 * (2 * keys * (144 + 132) + 64 * 144)
+    assert smem(D128_KEYS) == 107_520 and 2 * (smem(D128_KEYS) + 1024) <= 228 * 1024
+    assert 2 * (smem(64) + 1024) > 228 * 1024
 
 
 # -- the split-row KL ---------------------------------------------------------

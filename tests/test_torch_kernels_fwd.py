@@ -144,7 +144,7 @@ def _qkv(seed, shape, scale=1.0):
     return tuple((scale * rng.normal(size=shape)).astype(np.float32) for _ in range(3))
 
 
-@pytest.mark.parametrize("shape", [(2, 128, 64), (1, 256, 32), (3, 64, 64)])
+@pytest.mark.parametrize("shape", [(2, 128, 64), (1, 256, 32), (3, 64, 64), (1, 128, 128), (2, 256, 128)])
 def test_flash_attention_matches_reference(shape):
     q, k, v = _qkv(sum(shape), shape)
     j_kern = np.asarray(flash_attention_pallas(*map(jnp.asarray, (q, k, v)), interpret=True))
@@ -177,6 +177,22 @@ def test_flash_attention_is_causal():
     pert = ops.flash_attention(q, k2, v2)
     assert torch.equal(base[:, :200], pert[:, :200])
     assert not torch.equal(base[:, 200:], pert[:, 200:])
+
+
+def test_flash_attention_head_dims_on_the_card():
+    """The CUDA kernels take head dims 64 and 128 and nothing else: the
+    check the wrapper runs on a CUDA tensor before any launch refuses D 96
+    (and 32, which the CPU route takes) with a ValueError that names the
+    head dims and the ROADMAP item; there is no fallback to the plain
+    version.  The CPU route takes any D."""
+    assert ops.FLASH_HEAD_DIMS == {64, 128}
+    for d in ops.FLASH_HEAD_DIMS:
+        ops.check_flash_head_dim(d)
+    for d in (96, 32, 256):
+        with pytest.raises(ValueError, match=r"head dims \[64, 128\], got %d .*flash attention head dims" % d):
+            ops.check_flash_head_dim(d)
+    q = torch.randn(2, 128, 96)
+    assert ops.flash_attention(q, q, q).shape == q.shape
 
 
 def test_flash_attention_rejects_bad_inputs():

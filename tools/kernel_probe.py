@@ -1,8 +1,8 @@
 """Measure the port's kernels against an earlier checkout on one GPU, and
 break the top-k's and the bf16 kernels' time into their phases.
 
-    python3 tools/kernel_probe.py --parent DIR [--real]
-        [--kernels topk,scatter,agg,kl,attention,topk_bf16,attention_bf16,scatter_bf16,kl_bf16]
+    python3 tools/kernel_probe.py --parent DIR [--real] [--head-dim 64|128]
+        [--kernels topk,scatter,agg,kl,attention,topk_bf16,attention_bf16,attention_f16,scatter_bf16,kl_bf16]
 
 DIR is a checkout of an earlier commit (for example ``git archive <commit>``
 unpacked into ``build/parent``); its ``topk_select.cu``, ``sparse_agg.cu``,
@@ -26,9 +26,14 @@ per-call work out of the way).  Only what the named probes need is built.
 * the distillation KL at (64, 50 257), T = 2, after ``chip_smoke.py``'s
   checks of the KL kernel: warm (the same inputs each launch) and cold (in
   turn over ``chip_smoke.COLD_COPIES`` copies of them);
-* the causal attention at (96, 1024, 64) on N(0, 1) q, k, v, after
-  ``chip_smoke.py``'s checks of the attention kernel, with the opcode mix of
-  this checkout's fp32 attention kernel (``cuobjdump -sass``);
+* the causal attention at (96, 1024, D) on N(0, 1) q, k, v, D the
+  ``--head-dim`` (64 unless said), after ``chip_smoke.py``'s checks of the
+  attention kernel, beside fp32 SDPA in turns, with the opcode mix of this
+  checkout's fp32 attention kernel at that D (``cuobjdump -sass``); an
+  earlier build that takes only D = 64 refuses D = 128 and is left out of
+  the turns.  Any attention probe first compares the SASS of each D = 64
+  instance of this checkout's attention kernels (fp32, bf16, fp16) with the
+  earlier build's kernel, instruction by instruction;
 * the bf16 top-k (``topk_mask_bf16``) on the same inputs rounded to bf16
   and on rows of one exponent bin (with ``--real``, the bf16 ``fused``
   run's input), after ``chip_smoke.py``'s checks of the bf16 top-k, both
@@ -37,12 +42,14 @@ per-call work out of the way).  Only what the named probes need is built.
   scans and the low-digit pass, the replay, the store) and a copy that
   writes the row with plain stores instead of streaming ones, timed
   beside it;
-* the bf16 attention (``flash_attention_bf16``) at (96, 1024, 64), after
+* the bf16 attention (``flash_attention_bf16``) at (96, 1024, D), after
   ``chip_smoke.py``'s checks of the bf16 attention, both builds within the
   check and beside bf16 SDPA (a library call the port never makes), with a
   clocked copy of this checkout's kernel (each consumer warpgroup's cycles
   waiting for K/V tiles, in Q K^T, in the softmax and in P V) and a copy
   at one block an SM, and the bf16 kernel's opcode mix;
+* the fp16 attention (``flash_attention_f16``) at (96, 1024, D), after
+  ``chip_smoke.py``'s checks of the fp16 attention, as the fp32 probe;
 * the bf16 wire scatter (``scatter_wire_sums_bf16``) at N 4, 64 rows, V
   50 257, k_cap 128 and 1024, after ``chip_smoke.py``'s checks of it, both
   builds ``torch.equal`` to the plain version, with clocked copies of the
@@ -181,14 +188,16 @@ def attention_bf16_clocks() -> str:
             "  mbar_wait(smem_u32(&bar_q), 0);\n  long long cw = 0, cq = 0, csm = 0, cpv = 0;\n"),
         ("    mbar_wait(smem_u32(&bar_full[s]), (j / kStagesBf16) & 1);\n",
             "    const long long ca = clock64();\n    mbar_wait(smem_u32(&bar_full[s]), (j / kStagesBf16) & 1);\n"
-            "    const long long cb = clock64();\n    cw += cb - ca;\n"),
-        ("    fence_regs(sc);\n", "    fence_regs(sc);\n    const long long cc = clock64();\n    cq += cc - cb;\n"),
-        ("    fence_regs(o);\n\n    // O += P V",
-            "    fence_regs(o);\n    const long long cd = clock64();\n    csm += cd - cc;\n\n    // O += P V"),
-        ("    wgmma_commit();\n    wgmma_wait();\n    fence_regs(o);\n    __syncwarp();\n",
-            "    wgmma_commit();\n    wgmma_wait();\n    fence_regs(o);\n    cpv += clock64() - cd;\n    __syncwarp();\n"),
-        ("          E::pack(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);\n  }\n}\n",
-            "          E::pack(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);\n  }\n"
+            "    const long long cx = clock64();\n    cw += cx - ca;\n"),
+        ("    fence_regs(sc);\n", "    fence_regs(sc);\n    const long long cc = clock64();\n    cq += cc - cx;\n"),
+        ("      fence_regs(o[cb]);\n    }\n\n    // O += P V",
+            "      fence_regs(o[cb]);\n    }\n    const long long cd = clock64();\n    csm += cd - cc;\n\n"
+            "    // O += P V"),
+        ("    for (int cb = 0; cb < kCols; ++cb) fence_regs(o[cb]);\n    __syncwarp();\n",
+            "    for (int cb = 0; cb < kCols; ++cb) fence_regs(o[cb]);\n    cpv += clock64() - cd;\n"
+            "    __syncwarp();\n"),
+        ("            E::pack(o[cb][4 * i + 2] * inv1, o[cb][4 * i + 3] * inv1);\n    }\n  }\n}\n",
+            "            E::pack(o[cb][4 * i + 2] * inv1, o[cb][4 * i + 3] * inv1);\n    }\n  }\n"
             "  if ((threadIdx.x & 127) == 0 && g_aprof) { long long g1;\n    " + GLOBALTIMER.format("g1") + "\n"
             "    long long* d = g_aprof + 8 * ((blockIdx.y * gridDim.x + blockIdx.x) * kConsumers + wg);\n"
             "    d[0] = cw; d[1] = cq; d[2] = csm; d[3] = cpv; d[4] = n_mine; d[5] = blockIdx.y;\n"
@@ -392,8 +401,8 @@ VARIANTS = {
     "topk_plain_stores": ("topk_select.cu", [(
         "      __stcs(reinterpret_cast<uint4*>(outr - q) + g,\n             make_uint4(",
         "      *(reinterpret_cast<uint4*>(outr - q) + g) = (\n             make_uint4(")]),
-    "attention_1_block": ("flash_attention.cu", [("constexpr int kBlocksPerSm = 2;",
-                                                  "constexpr int kBlocksPerSm = 1;")]),
+    "attention_1_block": ("flash_attention.cu", [("static constexpr int kBlocksPerSm = D == 64 ? 2 : 1;",
+                                                  "static constexpr int kBlocksPerSm = 1;")]),
 }
 VARIANTS.update({
     # the bf16 scatter's tiles halved (16 a row at V 50 257, five CTAs an SM) and doubled (4, two)
@@ -431,6 +440,9 @@ VARIANTS.update({
         '      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));\n',
         "  v = __ldg(p);\n")]),
 })
+# a variant that changes one head dim's instance only, built and timed at that head dim alone
+# (the D = 128 attention already runs one block an SM)
+VARIANT_HEAD_DIM = {"attention_1_block": 64}
 VARIANT_OF = {"topk_plain_stores": "topk_bf16", "attention_1_block": "attention_bf16",
               **{name: "scatter_bf16" for name in VARIANTS if name.startswith("scatter")},
               **{name: "kl_bf16" for name in VARIANTS if name.startswith("kl")}}
@@ -561,10 +573,10 @@ def topk_ab(libs, device, real=None) -> None:
               flush=True)
 
 
-def compile_libs(parent: Path, kernels: set[str]) -> dict[str, ctypes.CDLL]:
-    """What the probes in ``kernels`` need of the earlier checkout's four
-    sources, the clocked copies and the variants, one nvcc each, all at
-    once."""
+def compile_libs(parent: Path, kernels: set[str], head_dim: int = 64) -> dict[str, ctypes.CDLL]:
+    """What the probes in ``kernels`` at the attention's ``head_dim`` need
+    of the earlier checkout's four sources, the clocked copies and the
+    variants, one nvcc each, all at once."""
     OUT.mkdir(parents=True, exist_ok=True)
     pcsrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
     need = lambda *names: bool(kernels & set(names))  # noqa: E731
@@ -572,7 +584,8 @@ def compile_libs(parent: Path, kernels: set[str]) -> dict[str, ctypes.CDLL]:
         ("parent_topk", "topk_select.cu", ("topk", "topk_bf16")),
         ("parent_agg", "sparse_agg.cu", ("scatter", "agg", "scatter_bf16")),
         ("parent_kl", "distill_kl.cu", ("kl", "kl_bf16")),
-        ("parent_attention", "flash_attention.cu", ("attention", "attention_bf16"))) if need(*groups)}
+        ("parent_attention", "flash_attention.cu", ("attention", "attention_bf16", "attention_f16")))
+        if need(*groups)}
     made = {}
     if need("topk"):
         made["topk_clocks"] = topk_clocks()
@@ -592,7 +605,7 @@ def compile_libs(parent: Path, kernels: set[str]) -> dict[str, ctypes.CDLL]:
         made["this_kl_clocks"] = kl_bf16_clocks()
         made["this_kl_loads"] = kl_bf16_clocks(loads_only=True)
     made.update({name: substituted(CSRC / src, pairs) for name, (src, pairs) in VARIANTS.items()
-                 if need(VARIANT_OF[name])})
+                 if need(VARIANT_OF[name]) and VARIANT_HEAD_DIM.get(name, head_dim) == head_dim})
     for name, text in made.items():
         sources[name] = OUT / f"{name}.cu"
         sources[name].write_text(text)
@@ -612,14 +625,15 @@ def compile_libs(parent: Path, kernels: set[str]) -> dict[str, ctypes.CDLL]:
 
 def sass_histogram(lib: Path, kernel: str, top: int = 24, arg: str = "") -> str:
     """The opcode mix of the kernel of ``lib`` whose name holds ``kernel``
-    (a template's instance: whose mangled name also holds ``arg``)."""
+    (a template's instance: whose mangled name also matches the regex
+    ``arg``)."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
                           text=True).stdout
     # cuobjdump prints each function after a "Function : <mangled name>" line
     sections = re.split(r"\n\s*Function : ", sass)
     sass = "\n".join(sec for sec in sections[1:]
-                     if re.match(rf"\S*\d{kernel}[EI]", sec) and arg in sec.split(None, 1)[0])
+                     if re.match(rf"\S*\d{kernel}[EI]", sec) and re.search(arg, sec.split(None, 1)[0]))
     counts: dict[str, int] = {}
     for line in sass.splitlines():
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
@@ -665,34 +679,97 @@ def kl_ab(libs, device) -> None:
     graph_turns(f"distill_kl at ({rows}, {vocab}), T=2, cold", launches["earlier"], launches["this"])
 
 
-def attention_ab(libs, device) -> None:
-    cs.check_flash_attention(device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    bh, seq, d = 96, 1024, 64
+# the attention's C entry point and launch-count tag for each input dtype
+ATTN_SYMBOL = {torch.float32: "flash_attention_f32", cs.BF16: "flash_attention_bf16",
+               cs.F16: "flash_attention_f16"}
+
+
+def sass_functions(lib: Path, key: str) -> dict[str, list[str]]:
+    """The SASS of the functions of ``lib`` whose mangled name holds
+    ``key``: each instruction's text (opcode and operands), addresses and
+    encodings dropped, by mangled name."""
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    out = {}
+    for sec in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = sec.split(None, 1)[0]
+        if key in name:
+            out[name] = [m.group(1).strip() for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", sec)]
+    return out
+
+
+def attention_sass_same(parent_lib: Path) -> None:
+    """Whether each D = 64 instance of this build's attention kernels is the
+    earlier build's kernel instruction for instruction."""
+    lib = build.build_all(["flash_attention"])["flash_attention"]
+    for kernel, tags in (("flash_attention_kernel", ("",)), ("flash_attention_16_kernel", ("4Bf16", "3F16"))):
+        this, earlier = sass_functions(lib, kernel + "I"), sass_functions(parent_lib, kernel)
+        for tag in tags:
+            mine = [body for name, body in this.items() if tag in name and "Li64E" in name]
+            theirs = [body for name, body in earlier.items() if tag in name and "Li" not in name]
+            if len(mine) != 1 or len(theirs) != 1:
+                print(f"[probe] SASS {kernel}<{tag or 'f32'}>: {len(mine)} D 64 instance(s) here, "
+                      f"{len(theirs)} earlier: not compared", flush=True)
+                continue
+            pairs = [(i, a, b) for i, (a, b) in enumerate(zip(mine[0], theirs[0])) if a != b]
+            diff = len(pairs) + abs(len(mine[0]) - len(theirs[0]))
+            shown = "; ".join(f"#{i}: {a} (earlier {b})" for i, a, b in pairs[:6])
+            print(f"[probe] SASS {kernel}<{tag or 'f32'}, D 64> == the earlier build's: {diff == 0} "
+                  f"({len(mine[0])} / {len(theirs[0])} instructions, {diff} differ{': ' if shown else ''}"
+                  f"{shown})", flush=True)
+
+
+def attention_ab(libs, device, dtype: torch.dtype, d: int) -> dict:
+    """One attention entry point at (96, 1024, d) on N(0, 1) q, k, v in
+    ``dtype``, after ``chip_smoke.py``'s checks of it: this build against
+    the earlier one (outputs compared bitwise; an earlier build that takes
+    only D = 64 refuses D = 128 and is left out), both held to the plain
+    version, timed in turns, then beside SDPA in the same dtype in turns.
+    Returns the runs and inputs for the bf16 probe's extras."""
+    tag = cs.TAG[dtype]
+    b, h, seq = 8, 12, 1024
     gen = torch.Generator(device=device).manual_seed(7)
-    q, k, v = (torch.randn((bh, seq, d), generator=gen, device=device) for _ in range(3))
+    q4, k4, v4 = (torch.randn((b, h, seq, d), generator=gen, device=device).to(dtype) for _ in range(3))
+    q, k, v = (t.reshape(b * h, seq, d) for t in (q4, k4, v4))
     out = torch.empty_like(q)
     want = ref.flash_attention_ref(q, k, v)
     tol = cs.attention_tolerance(seq, v)
     args = [x.data_ptr() for x in (q, k, v, out)]
-    new = ops._fn("flash_attention", "flash_attention_f32", 4, 3, 1)
-    old = c_fn(libs["parent_attention"], "flash_attention_f32", 4, 3, 1)
-    runs = {"earlier": lambda: old(*args, bh, seq, d, d**-0.5, stream),
-            "this": lambda: new(*args, bh, seq, d, d**-0.5, stream)}
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fns = {"this": ops._fn("flash_attention", ATTN_SYMBOL[dtype], 4, 3, 1),
+           "earlier": c_fn(libs["parent_attention"], ATTN_SYMBOL[dtype], 4, 3, 1)}
+    runs = {name: (lambda fn=fn: fn(*args, b * h, seq, d, d**-0.5, stream)) for name, fn in fns.items()}
     outs = {}
-    for name, fn in runs.items():
+    for name, fn in list(runs.items()):
         out.fill_(float("nan"))
-        assert fn() == 0, name
+        rc = fn()
+        if rc != 0 and name == "earlier":
+            print(f"[probe] flash_attention{tag} earlier build at D {d}: refused (CUDA error {rc})", flush=True)
+            del runs[name]
+            continue
+        assert rc == 0, (name, rc)
         torch.cuda.synchronize()
-        err = float((out - want).abs().max())
-        assert err <= tol, (name, err, tol)
+        err = cs.attention_err(out, want, tol)
         outs[name] = out.clone()
-        print(f"[probe] flash_attention {name}: max |diff| {err:.3e} (bound {tol:.3e})", flush=True)
-    print(f"[probe] flash_attention: this == earlier bitwise: "
-          f"{torch.equal(outs['this'], outs['earlier'])}", flush=True)
-    in_turns(f"flash_attention at ({bh}, {seq}, {d})", runs["earlier"], runs["this"])
+        print(f"[probe] flash_attention{tag} {name} at ({b * h}, {seq}, {d}): max |diff| {err:.3e} "
+              f"(bound {tol:.3e})", flush=True)
+    if "earlier" in runs:
+        print(f"[probe] flash_attention{tag} at D {d}: this == earlier bitwise: "
+              f"{torch.equal(outs['this'], outs['earlier'])}", flush=True)
+        in_turns(f"flash_attention{tag} at ({b * h}, {seq}, {d})", runs["earlier"], runs["this"])
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
+    t = [cs.time_ms(f) * 1e3 for f in (sdpa, runs["this"], runs["this"], sdpa)]
+    print(f"[probe] flash_attention{tag} at ({b * h}, {seq}, {d}): {dtype} SDPA {t[0]:.2f} / {t[3]:.2f} us, "
+          f"this {t[1]:.2f} / {t[2]:.2f} us; bound {cs.attention_bound_ms(b * h, seq, d, dtype) * 1e3:.2f} us",
+          flush=True)
     lib = build.build_all(["flash_attention"])["flash_attention"]
-    print(f"[probe] flash_attention (fp32) SASS: {sass_histogram(lib, 'flash_attention_kernel')}", flush=True)
+    if dtype == torch.float32:
+        print(f"[probe] flash_attention (fp32) SASS: {sass_histogram(lib, 'flash_attention_kernel', arg=f'Li{d}E')}",
+              flush=True)
+    # the inputs too: the launches hold only their addresses
+    return {"runs": runs, "args": args, "out": out, "want": want, "tol": tol, "shape": (b, h, seq, d),
+            "stream": stream, "inputs": (q4, k4, v4)}
 
 
 def median(values) -> float:
@@ -745,44 +822,29 @@ def topk_bf16_ab(libs, device, real=None) -> None:
               flush=True)
 
 
-def attention_bf16_ab(libs, device) -> None:
-    """The bf16 attention, this build against the earlier one and bf16 SDPA
-    in turns at (96, 1024, 64), with the clocked copy's per-warpgroup
-    phases, the one-block-an-SM variant and the kernel's opcode mix."""
+def attention_bf16_ab(libs, device, d: int) -> None:
+    """The bf16 attention at (96, 1024, d) as ``attention_ab`` probes it,
+    with the clocked copy's per-warpgroup phases, the one-block-an-SM
+    variant (at D = 64 only: the D = 128 kernel already runs one) and the
+    kernel's opcode mix."""
     cs.check_attention_16(device, cs.BF16)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    b, h, seq, d = 8, 12, 1024, 64
-    gen = torch.Generator(device=device).manual_seed(7)
-    q4, k4, v4 = (torch.randn((b, h, seq, d), generator=gen, device=device).to(cs.BF16) for _ in range(3))
-    q, k, v = (t.reshape(b * h, seq, d) for t in (q4, k4, v4))
-    out = torch.empty_like(q)
-    want = ref.flash_attention_ref(q, k, v)
-    tol = cs.attention_tolerance(seq, v)
-    args = [x.data_ptr() for x in (q, k, v, out)]
-    fns = {"this": ops._fn("flash_attention", "flash_attention_bf16", 4, 3, 1),
-           "earlier": c_fn(libs["parent_attention"], "flash_attention_bf16", 4, 3, 1),
-           "clocked": c_fn(libs["attention_bf16_clocks"], "flash_attention_bf16", 4, 3, 1),
-           **{name: c_fn(libs[name], "flash_attention_bf16", 4, 3, 1)
-              for name in VARIANTS if name.startswith("attention")}}
-    runs = {name: (lambda fn=fn: fn(*args, b * h, seq, d, d**-0.5, stream)) for name, fn in fns.items()}
-    outs = {}
-    for name, fn in runs.items():
+    ab = attention_ab(libs, device, cs.BF16, d)
+    b, h, seq, d = ab["shape"]
+    args, out, stream = ab["args"], ab["out"], ab["stream"]
+    runs = {"this": ab["runs"]["this"]}
+    variants = [name for name in VARIANTS
+                if name.startswith("attention") and VARIANT_HEAD_DIM.get(name, d) == d]
+    fns = {"clocked": c_fn(libs["attention_bf16_clocks"], "flash_attention_bf16", 4, 3, 1),
+           **{name: c_fn(libs[name], "flash_attention_bf16", 4, 3, 1) for name in variants}}
+    for name, fn in fns.items():
+        runs[name] = lambda fn=fn: fn(*args, b * h, seq, d, d**-0.5, stream)
         out.fill_(float("nan"))
-        assert fn() == 0, name
+        assert runs[name]() == 0, name
         torch.cuda.synchronize()
-        outs[name] = out.clone()
-        print(f"[probe] flash_attention.bf16 {name}: max |diff| {cs.within_16(out, want, tol):.3e}",
+        print(f"[probe] flash_attention.bf16 {name}: max |diff| {cs.within_16(out, ab['want'], ab['tol']):.3e}",
               flush=True)
-    print(f"[probe] flash_attention.bf16: this == earlier bitwise: {torch.equal(outs['this'], outs['earlier'])}",
-          flush=True)
-    in_turns(f"flash_attention.bf16 at ({b * h}, {seq}, {d})", runs["earlier"], runs["this"])
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
-    t = [cs.time_ms(f) * 1e3 for f in (sdpa, runs["this"], runs["this"], sdpa)]
-    print(f"[probe] flash_attention.bf16: bf16 SDPA {t[0]:.2f} / {t[3]:.2f} us, this {t[1]:.2f} / {t[2]:.2f} us",
-          flush=True)
-    for name in VARIANTS:
-        if name.startswith("attention"):
-            in_turns(f"flash_attention.bf16 {name} (earlier: this build)", runs["this"], runs[name])
+    for name in variants:
+        in_turns(f"flash_attention.bf16 {name} at D {d} (earlier: this build)", runs["this"], runs[name])
     n_qt = seq // 128
     prof = torch.zeros((b * h * n_qt * 2, 8), dtype=torch.int64, device=device)
     libs["attention_bf16_clocks"].attn_set_prof.argtypes = [P]
@@ -794,11 +856,12 @@ def attention_bf16_ab(libs, device) -> None:
     parts = ", ".join(f"{name} {float(p[:, j].sum() / tiles):.0f}" for j, name in enumerate(
         ("waiting for K/V", "Q K^T", "max and rescale", "exps, P pieces and P V")))
     span = int(p[:, 7].max() - p[:, 6].min())
-    print(f"[probe] flash_attention.bf16 clocked: cycles a warpgroup-tile: {parts}; kernel span {span} ns, "
-          f"warpgroup duration median {median(p[:, 7] - p[:, 6])} ns, last block start "
+    print(f"[probe] flash_attention.bf16 clocked at D {d}: cycles a warpgroup-tile: {parts}; kernel span "
+          f"{span} ns, warpgroup duration median {median(p[:, 7] - p[:, 6])} ns, last block start "
           f"{int((p[:, 6] - p[:, 6].min()).max())} ns", flush=True)
     lib = build.build_all(["flash_attention"])["flash_attention"]
-    print(f"[probe] flash_attention.bf16 SASS: {sass_histogram(lib, 'flash_attention_16_kernel', arg='4Bf16')}", flush=True)
+    print(f"[probe] flash_attention.bf16 SASS at D {d}: "
+          f"{sass_histogram(lib, 'flash_attention_16_kernel', arg=f'4Bf16E?Li{d}E')}", flush=True)
 
 
 def graph_turns(label: str, old, new) -> None:
@@ -943,22 +1006,31 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, required=True, help="a checkout of the earlier commit")
     parser.add_argument("--real", action="store_true", help="also time the fused run's own input")
-    names = ("topk", "scatter", "agg", "kl", "attention", "topk_bf16", "attention_bf16", "scatter_bf16", "kl_bf16")
+    names = ("topk", "scatter", "agg", "kl", "attention", "topk_bf16", "attention_bf16", "attention_f16",
+             "scatter_bf16", "kl_bf16")
     parser.add_argument("--kernels", default=",".join(names),
                         help=f"comma-separated: which of {', '.join(names)} to probe")
+    parser.add_argument("--head-dim", type=int, default=64, choices=sorted(ops.FLASH_HEAD_DIMS),
+                        help="the attention probes' head dim")
     args = parser.parse_args()
     kernels = set(args.kernels.split(","))
     if not kernels <= set(names):
         raise SystemExit(f"kernel_probe: unknown kernels {sorted(kernels)}")
     device, card = cs.phase_device()
     cs.phase_build()
-    libs = compile_libs(args.parent.resolve(), kernels)
+    libs = compile_libs(args.parent.resolve(), kernels, args.head_dim)
     if "kl" in kernels:
         kl_ab(libs, device)
+    if kernels & {"attention", "attention_bf16", "attention_f16"}:
+        attention_sass_same(OUT / "libparent_attention.so")
     if "attention" in kernels:
-        attention_ab(libs, device)
+        cs.check_flash_attention(device)
+        attention_ab(libs, device, torch.float32, args.head_dim)
     if "attention_bf16" in kernels:
-        attention_bf16_ab(libs, device)
+        attention_bf16_ab(libs, device, args.head_dim)
+    if "attention_f16" in kernels:
+        cs.check_attention_16(device, cs.F16)
+        attention_ab(libs, device, cs.F16, args.head_dim)
     if "topk" in kernels:
         real = cs.phase_main_path(device, "fused", False)["topk_input"] if args.real else None
         topk_ab(libs, device, real)
