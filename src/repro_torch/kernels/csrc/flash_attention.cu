@@ -2,8 +2,9 @@
 //   out[b, i, :] = sum_{j <= i} softmax_j(q[b,i,:] . k[b,j,:] * D^-0.5) v[b,j,:]
 // over fused head-batches q, k, v, out: (B*H, S, D) fp32, bf16 or fp16, with
 // head dim D 64 (GPT-2, granite, stablelm, seamless, mamba2) or 128 (yi-9b,
-// command-r, llama4, internvl2, jamba, moonshot): every kernel is a template
-// on D, instantiated at both; any other D launches nothing.
+// command-r, llama4, internvl2, jamba, moonshot): the fp32 kernel is a
+// template on D, instantiated at both; the 16-bit ones are a template at D =
+// 64 and a kernel of their own at D = 128; any other D launches nothing.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 //   flash_attention_{f32,bf16,f16} <- flash_attention_pallas (_flash_kernel,
@@ -109,19 +110,53 @@
 //   Bound: Q K^T one bf16 product and P V two, 6.4 + 2 * 6.4 GFLOP at
 //   B*H = 96, S = 1024 on 989 TFLOP/s, 19.5 us, against 50.3 MB of bf16
 //   q, k, v and out (15 us).
-//   D = 128 (flash_attention_16_kernel<E, 128>): a 256-byte row is two
-//   spans of the 128-byte swizzle, so TMA loads every tile as two boxes of
-//   64 columns into two column blocks (Q: 2 x 16 KB, K and V: 2 x 8 KB), and
-//   each descriptor steps to the second block at k-step 4 of Q K^T's eight.
-//   P V runs as two m64n64k16 products a piece and k-step, one a column block
-//   of V, into two 32-register halves of O.  O's 64 registers beside S's 32
-//   and P's 32 need more than two blocks an SM leave a thread (113), so one
-//   block an SM (up to 224 registers a thread; it takes 147, no spills, so
-//   no setmaxnreg) with Q and 4 stages of K/V: 161 KB.  Bound 39.1 us
-//   (design) at B*H = 96, S = 1024.
-//
-// fp16 q, k, v (flash_attention_f16) run the same kernel,
-// flash_attention_16_kernel<E, D>, with E = F16: wgmma .f32.f16.f16, tensor
+//   D = 128: a kernel of its own for Hopper, flash_attention_16_d128_kernel<E>,
+//   replacing src/repro/kernels/flash_attention.py flash_attention_pallas at
+//   that head dim in bf16 and fp16 (the template above is instantiated at
+//   D = 64 only, so its code there stays as it was).  Bound: Q K^T one 16-bit product and P V two, 3 *
+//   2 * S^2 * D * B*H / 2 operations on 989 TFLOP/s: 39.1 us at B*H = 96,
+//   S = 1024, 13.3 ms at yi-9b's prefill_32k (32, 32 768, 128).  A first
+//   design (the template at D = 128: 64-key tiles, 288 threads, a block of
+//   128 query rows a grid cell) ran at 38 % of it: each warpgroup took Q K^T,
+//   the softmax and P V of a tile in series, and 768 blocks of 1-16 tiles
+//   each paid their own set-up, Q load and epilogue.  What this kernel takes:
+//   * Wider products on 128-key tiles: Q K^T as eight m64n128k16 (A and B from
+//     shared memory: 6 KB in 64 tensor cycles, 75 % of the shared-memory
+//     rate, where m64n64k16's 4 KB in 32 took all of it), and each P piece as
+//     one m64n128k16 a k-step over both column blocks of V (the MN-major
+//     descriptor's leading byte offset is the 16 KB to block 1); the row max
+//     and the rescale come once per 128 keys.
+//   * setmaxnreg: 384 threads, a producer warpgroup that keeps 40 registers
+//     (two of its threads issue TMA: K and V, and Q) and two consumer warpgroups
+//     that take 232 (128 * 40 + 256 * 232 = 64 512 of 65 536), so that O
+//     (64 a thread), a tile's scores (64) and P's two pieces (64) live at once.
+//   * Within a warpgroup: tile j's Q K^T and tile j - 1's P V are issued
+//     together; wgmma.wait_group 1 returns with the scores, and tile j's
+//     softmax runs while P V still does.
+//   * Ping-pong: the two consumer warpgroups take turns at issuing (named
+//     barriers 1 and 2), so that one's softmax runs beside the other's products.
+//   * O's rescale is skipped where no row of a warp grew its max (__all_sync):
+//     the factor it skips is 2^0 = 1, so no bit changes.
+//   * Persistent: one block an SM walks (head-batch, query tile of 128 rows)
+//     items longest first, in a static order (rounds of G items, forwards and
+//     backwards in turn); K/V flow on from one item into the next; Q in two
+//     buffers, each loaded by its own producer thread as soon as the O store
+//     of the item two back has read it; O rounded once, written over its
+//     warpgroup's rows of the item's Q buffer in the swizzle and stored by one
+//     TMA store (two boxes) a warpgroup.
+//   Shared memory: 2 Q buffers, 2 K stages and 3 V stages of 32 KB (a V tile
+//   is read a step after its K tile) = 225 KB with the 1 KB alignment: one
+//   block an SM.  ptxas: 168 registers at launch (the 384 threads' share),
+//   40 / 232 after setmaxnreg, no spills, no wgmma serialisation
+//   (chip_smoke.py prints both).  Tried and not taken: the items as one
+//   stream of steps, an item's first Q K^T issued with the last P V of the
+//   item before (slower in turns); Q K^T of warpgroup 0's diagonal tile on
+//   keys 0-63 only (an m64n64k16 into half the fragment made ptxas serialise
+//   every wgmma of the kernel).  Times, each part's cost and the clocked
+//   phases: PERF.md section 6, from tools/kernel_probe.py.
+
+// fp16 q, k, v (flash_attention_f16) run the same kernels,
+// flash_attention_16_kernel<E, 64> and flash_attention_16_d128_kernel<E>, with E = F16: wgmma .f32.f16.f16, tensor
 // maps of fp16, and P in two fp16 pieces (cvt.rn.f16x2.f32).  An fp16 value
 // has 11 significant bits and 5 exponent bits, so it is exact in TF32 and
 // fp32, and the product of two is exact in fp32: Q K^T stays exact as in
@@ -510,6 +545,11 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// wait until at most N of this warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Pin registers that wgmma reads or writes at this point of the program:
 // the compiler may not move their other uses across it.
@@ -802,6 +842,456 @@ __global__ void __launch_bounds__(kBf16Threads, Tiles16<D>::kBlocksPerSm)
   }
 }
 
+// ---- bf16 and fp16 at D = 128: persistent, 128-key tiles, ping-pong ---------
+
+constexpr int kD128Keys = 128;                           // keys a K/V tile
+constexpr int kD128TileBytes = kD128Keys * 128 * 2;      // a K or V tile, 32 KB
+constexpr int kD128QBytes = kBlockRows * 128 * 2;        // a Q buffer (then the item's O), 32 KB
+// Q buffers, and K and V tiles in flight: a V tile is read a step after its
+// K tile, so V's ring is the deeper one
+constexpr int kD128QBuffers = 2, kD128KStages = 2, kD128VStages = 3;
+static_assert(kD128QBytes == kD128TileBytes, "Q buffers and K/V stages are laid out alike");
+constexpr int kD128Smem =
+    1024 + (kD128QBuffers + kD128KStages + kD128VStages) * kD128TileBytes;  // 225 KB with the alignment
+// two consumer warpgroups and a producer warpgroup (two threads of which load),
+// the registers moved from the producer to the consumers by setmaxnreg:
+// 128 * 40 + 256 * 232 = 64 512 of the SM's 65 536
+constexpr int kD128Threads = 128 * (kConsumers + 1);
+constexpr int kD128ProducerRegs = 40, kD128ConsumerRegs = 232;
+// the design's parts that a build can turn off, so that each is timed alone
+// (tools/kernel_probe.py builds copies with one of these false)
+constexpr bool kPingPong = true;     // the consumers take turns at issuing products (named barriers 1, 2)
+constexpr bool kWideV = true;        // a P piece as one m64n128k16 over both column blocks of V
+constexpr bool kSkipRescale = true;  // no rescale of O where no row's max grew
+
+// d (+)= A B, one m64n128k16 product: A (64 x 16) and B (128 x 16, K-major)
+// from shared memory; scale_d = 0 overwrites d.
+#define WGMMA_SS128(TYPE)                                                                 \
+  asm volatile(                                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE " "                     \
+      "{" WGMMA_REGS64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                  \
+      WGMMA_D64 : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+// d += A B, one m64n128k16 product with A from registers (the accumulator
+// fragment layout) and B (16 x 128, MN-major) from shared memory.
+#define WGMMA_RS128(TYPE)                                                                 \
+  asm volatile(                                                                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE " "                     \
+      "{" WGMMA_REGS64 "}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"                       \
+      WGMMA_D64 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b))
+#define WGMMA_REGS64                                                                      \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+#define WGMMA_D64                                                                                   \
+  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),     \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),           \
+    "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),         \
+    "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),         \
+    "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
+    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),         \
+    "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),         \
+    "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),         \
+    "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+template <class E>
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  if constexpr (std::is_same<E, F16>::value) {
+    WGMMA_SS128("f16");
+  } else {
+    WGMMA_SS128("bf16");
+  }
+}
+
+template <class E>
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64], const uint32_t* a, uint64_t desc_b) {
+  if constexpr (std::is_same<E, F16>::value) {
+    WGMMA_RS128("f16");
+  } else {
+    WGMMA_RS128("bf16");
+  }
+}
+
+// sw128_desc with the leading byte offset `lbo`: for an MN-major B wider than
+// one swizzle span, the distance from its 64 columns (N) to the next 64
+__device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t addr, uint32_t lbo) {
+  return (sw128_desc(addr) & ~((uint64_t)0x3fff << 16)) | ((uint64_t)((lbo >> 4) & 0x3fff) << 16);
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One box of shared memory out to a 3-D tensor map at (col, row, bh); rows
+// past the map's end are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int col, int row,
+                                          int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"((uint64_t)map), "r"(src), "r"(col), "r"(row), "r"(bh)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// this thread's bulk stores have read their shared memory (read) or are done
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+// order this thread's shared-memory accesses with the async proxy's (TMA, wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t value) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(value) : "memory");
+}
+
+// The persistent grid's schedule.  Item i of n_bh * n_qt is query tile
+// n_qt - 1 - i / n_bh (of kBlockRows rows) of head-batch i % n_bh: the
+// longest first.  Block b of G takes item slot(r, b, G) in round r, rounds
+// running forwards and backwards in turn, so that each block's sum of
+// tiles stays near the mean.
+__device__ __forceinline__ int d128_slot(int r, int b, int G) {
+  return r * G + ((r & 1) ? G - 1 - b : b);
+}
+
+// S = Q K^T over one 128-key tile: eight m64n128k16 products, 32 bytes a
+// k-step, the next column block every 4; exact 16-bit products summed in fp32
+template <class E>
+__device__ __forceinline__ void qk_d128(float (&sc)[64], uint64_t dq, uint64_t dk) {
+  constexpr int kBlock = (kD128Keys * kSpanBytes) >> 4;  // a column block, in descriptor units
+  static_assert(kBlockRows == kD128Keys, "Q's and K's column blocks step alike");
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_ss128<E>(sc, dq + (kk / 4) * kBlock + 2 * (kk % 4), dk + (kk / 4) * kBlock + 2 * (kk % 4), kk);
+  wgmma_commit();
+}
+
+// O += P V over one 128-key tile: P in two 16-bit pieces, the small piece
+// first at each k-step; k-step kk (keys 16 kk ..) takes A registers 4 kk ..
+// of each piece, and V as stored is the MN-major B (2048 bytes a k-step),
+// one m64n128k16 over both column blocks (or, with !kWideV, two m64n64k16)
+template <class E>
+__device__ __forceinline__ void pv_d128(float (&o)[64], const uint32_t (&p_hi)[32],
+                                        const uint32_t (&p_lo)[32], uint64_t dv) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (kWideV) {
+      wgmma_rs128<E>(o, p_lo + 4 * kk, dv + 128 * kk);
+      wgmma_rs128<E>(o, p_hi + 4 * kk, dv + 128 * kk);
+    } else {  // O's columns 64 cb .. are o[32 cb ..]
+#pragma unroll
+      for (int cb = 0; cb < 2; ++cb) {
+        float(&oh)[32] = *reinterpret_cast<float(*)[32]>(o + 32 * cb);
+        wgmma_rs<E>(oh, p_lo + 4 * kk, dv + cb * ((kD128Keys * kSpanBytes) >> 4) + 128 * kk);
+        wgmma_rs<E>(oh, p_hi + 4 * kk, dv + cb * ((kD128Keys * kSpanBytes) >> 4) + 128 * kk);
+      }
+    }
+  }
+  wgmma_commit();
+}
+
+// The online softmax of one tile's scores, in place.  The accumulator
+// fragment: sc[4x + e] holds row wrow + 8 (e >> 1) of the query tile, key
+// 8x + 2t + (e & 1) of the tile.  On the diagonal tile a key after the query
+// is -inf before the max (its weight an exact 0); the row max over the quad;
+// r = 2^((m - new m) c), the factor that takes O and l to the new max, with
+// `grew` false where no row of the warp has a larger max (r is then 2^0 =
+// 1 for every row, so a skipped rescale changes no bit); then each score
+// becomes 2^(s c - m c), summed into l.
+__device__ __forceinline__ void online_softmax(float (&sc)[64], bool diag, int diag_off, float c,
+                                               float& m0, float& m1, float& l0, float& l1,
+                                               float& r0, float& r1, bool& grew) {
+  if (diag) {
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * x + (e & 1) - 8 * (e >> 1) + diag_off > 0) sc[4 * x + e] = -INFINITY;
+    }
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int x = 0; x < 16; ++x) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * x], sc[4 * x + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * x + 2], sc[4 * x + 3]));
+  }
+  // the tile's first key is at or before every row, so the new maxima are
+  // finite; 2^-inf is an exact 0 (the first tile's r)
+  const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+  grew = !kSkipRescale || !__all_sync(0xffffffffu, n0 == m0 && n1 == m1);
+  r0 = exp2_approx((m0 - n0) * c);
+  r1 = exp2_approx((m1 - n1) * c);
+  m0 = n0;
+  m1 = n1;
+  const float c0 = -m0 * c, c1 = -m1 * c;
+  float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+  for (int x = 0; x < 16; ++x) {
+    sc[4 * x] = exp2_approx(fmaf(sc[4 * x], c, c0));
+    sc[4 * x + 1] = exp2_approx(fmaf(sc[4 * x + 1], c, c0));
+    sc[4 * x + 2] = exp2_approx(fmaf(sc[4 * x + 2], c, c1));
+    sc[4 * x + 3] = exp2_approx(fmaf(sc[4 * x + 3], c, c1));
+    s0 += sc[4 * x] + sc[4 * x + 1];
+    s1 += sc[4 * x + 2] + sc[4 * x + 3];
+  }
+  l0 = l0 * r0 + s0;
+  l1 = l1 * r1 + s1;
+}
+
+// P in two 16-bit pieces, hi = T(P) and lo = T(P - hi): A register q of
+// k-step kk is the accumulator pair 8 kk + 2 q, 8 kk + 2 q + 1, packed (no shuffle)
+template <class E>
+__device__ __forceinline__ void split_p(const float (&sc)[64], uint32_t (&p_hi)[32], uint32_t (&p_lo)[32]) {
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    p_hi[x] = E::pack(sc[2 * x], sc[2 * x + 1]);
+    p_lo[x] = E::pack(sc[2 * x] - E::lo(p_hi[x]), sc[2 * x + 1] - E::hi(p_hi[x]));
+  }
+}
+
+// O *= r row by row (accumulator d[4x + e]: row 0 for e < 2)
+__device__ __forceinline__ void rescale_o(float (&o)[64], float r0, float r1) {
+#pragma unroll
+  for (int x = 0; x < 64; ++x) o[x] *= (x & 2) ? r1 : r0;
+}
+
+// O / l rounded to T once, written over this warpgroup's rows of the item's
+// Q buffer at `ob` (no wgmma reads them any more) in the 128-byte swizzle
+// (16-byte chunk x % 8 of row wrow at chunk (x % 8) ^ (wrow % 8)), then
+// stored by the warpgroup's first thread as two TMA boxes of 64 x 64 (rows
+// past seq are not written)
+template <class E>
+__device__ __forceinline__ void store_o(const float (&o)[64], float l0, float l1, uint32_t ob,
+                                       const CUtensorMap* tm_o, int wg, int wrow, int t, int row0,
+                                       int bh, bool leader) {
+  constexpr int kQBlock = kBlockRows * kSpanBytes;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  fence_proxy_async();
+#pragma unroll
+  for (int x = 0; x < 16; ++x) {
+    const uint32_t at = ob + (x / 8) * kQBlock + wrow * kSpanBytes + (((x % 8) ^ (wrow % 8)) << 4) + 4 * t;
+    st_shared(at, E::pack(o[4 * x] * inv0, o[4 * x + 1] * inv0));
+    st_shared(at + 8 * kSpanBytes, E::pack(o[4 * x + 2] * inv1, o[4 * x + 3] * inv1));
+  }
+  fence_proxy_async();
+  named_sync(3 + wg, 128);
+  if (leader) {
+#pragma unroll
+    for (int cb = 0; cb < 2; ++cb)
+      tma_store(tm_o, ob + cb * kQBlock + wg * 64 * kSpanBytes, 64 * cb, row0 + 64 * wg, bh);
+    bulk_commit();
+  }
+}
+
+// Each block: a producer warpgroup, whose first warp's lane 0 loads each
+// item's K/V tiles 0 .. the diagonal through rings of kD128KStages and
+// kD128VStages stages, K one tile ahead of V (K is released after Q K^T, V
+// after P V), and whose second warp's lane 0 loads each item's Q
+// into kD128QBuffers buffers as soon as one is free; and two consumer
+// warpgroups of 64 query rows.  For each tile after an item's first, a
+// consumer issues the tile's Q K^T with the P V of the tile before (taking
+// turns at the tensor cores with the other consumer), then takes the tile's
+// softmax while that P V runs; an item's O goes out through its Q buffer and
+// a TMA store.  c = scale * log2(e).
+template <class E>
+__global__ void __launch_bounds__(kD128Threads, 1)
+    flash_attention_16_d128_kernel(__grid_constant__ const CUtensorMap tm_q,
+                                   __grid_constant__ const CUtensorMap tm_k,
+                                   __grid_constant__ const CUtensorMap tm_v,
+                                   __grid_constant__ const CUtensorMap tm_o, int n_bh, int seq,
+                                   float c) {
+  constexpr int kQBlock = kBlockRows * kSpanBytes;  // bytes of one column block of a Q buffer
+  constexpr int kKVBlock = kD128Keys * kSpanBytes;  // and of a K or V tile
+  constexpr int kQB = kD128QBuffers, kSK = kD128KStages, kSV = kD128VStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_qf[kQB], bar_qe[kQB], bar_kf[kSK], bar_ke[kSK], bar_vf[kSV],
+      bar_ve[kSV];
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;  // Q buffer qb at s_q + qb * kD128QBytes
+  const uint32_t s_k = s_q + kQB * kD128QBytes;       // K stage s at s_k + s * kD128TileBytes
+  const uint32_t s_v = s_k + kSK * kD128TileBytes;    // and V's at s_v + s * kD128TileBytes
+
+  const int n_qt = (seq + kBlockRows - 1) / kBlockRows;
+  const int items = n_bh * n_qt, grid = gridDim.x, blk = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kQB; ++i) {
+      mbar_init(smem_u32(&bar_qf[i]), 1);
+      mbar_init(smem_u32(&bar_qe[i]), kConsumers);
+    }
+    for (int s = 0; s < kSK; ++s) {
+      mbar_init(smem_u32(&bar_kf[s]), 1);
+      mbar_init(smem_u32(&bar_ke[s]), 4 * kConsumers);
+    }
+    for (int s = 0; s < kSV; ++s) {
+      mbar_init(smem_u32(&bar_vf[s]), 1);
+      mbar_init(smem_u32(&bar_ve[s]), 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {  // the producer warpgroup gives its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kD128ProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
+      // K or V tile t of the block's sequence into stage t % stages of its
+      // ring at `ring`, once the consumers are done with tile t - stages there
+      auto load = [&](const CUtensorMap* map, uint64_t* full, uint64_t* empty, uint32_t ring, int stages,
+                      int t, int key0, int bh) {
+        const int s = t % stages;
+        if (t >= stages) mbar_wait(smem_u32(&empty[s]), ((t / stages) - 1) & 1);
+        mbar_expect_tx(smem_u32(&full[s]), kD128TileBytes);
+#pragma unroll
+        for (int cb = 0; cb < 2; ++cb)
+          tma_load(ring + s * kD128TileBytes + cb * kKVBlock, map, 64 * cb, key0, bh, smem_u32(&full[s]));
+      };
+      int g = 0;  // this block's K/V tiles so far
+      for (int r = 0; r * grid < items; ++r) {
+        const int i = d128_slot(r, blk, grid);
+        if (i >= items) continue;
+        const int bh = i % n_bh, qt = n_qt - 1 - i / n_bh;
+        load(&tm_k, bar_kf, bar_ke, s_k, kSK, g, 0, bh);
+        for (int j = 0; j <= qt; ++j) {
+          if (j < qt) load(&tm_k, bar_kf, bar_ke, s_k, kSK, g + j + 1, kD128Keys * (j + 1), bh);
+          load(&tm_v, bar_vf, bar_ve, s_v, kSV, g + j, kD128Keys * j, bh);
+        }
+        g += qt + 1;
+      }
+    } else if (warp == 4 * kConsumers + 1 && lane == 0) {  // Q, as soon as a buffer is free
+      int n = 0;  // this block's items so far
+      for (int r = 0; r * grid < items; ++r) {
+        const int i = d128_slot(r, blk, grid);
+        if (i >= items) continue;
+        const int bh = i % n_bh, qt = n_qt - 1 - i / n_bh, qb = n % kQB;
+        // a Q buffer is reused once both warpgroups' O stores of item n - kQB have read it
+        if (n >= kQB) mbar_wait(smem_u32(&bar_qe[qb]), ((n / kQB) - 1) & 1);
+        mbar_expect_tx(smem_u32(&bar_qf[qb]), kD128QBytes);
+#pragma unroll
+        for (int cb = 0; cb < 2; ++cb)
+          tma_load(s_q + qb * kD128QBytes + cb * kQBlock, &tm_q, 64 * cb, kBlockRows * qt, bh,
+                   smem_u32(&bar_qf[qb]));
+        ++n;
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kD128ConsumerRegs));
+
+  // this consumer warpgroup, broadcast from lane 0 so that the compiler
+  // keeps what derives from it (the wgmma descriptors) in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int t = lane & 3;                                    // lane in the quad
+  const int wrow = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // the thread's first row in the query tile
+  const int diag_off = 2 * t - wrow;  // key - row on the diagonal tile, less 8 x + (e & 1) - 8 (e >> 1)
+  const bool leader = (threadIdx.x & 127) == 0;
+  // the wgmma descriptors of this warpgroup's rows in Q buffer 0 at k-step 0,
+  // of K's stage 0, and of V's stage 0 as one MN-major B of 128 columns
+  const uint64_t dq0 = sw128_desc(s_q + wg * 64 * kSpanBytes), dk0 = sw128_desc(s_k);
+  const uint64_t dv0 = sw128_desc_mn(s_v, kKVBlock);
+  constexpr uint64_t kTile = kD128TileBytes >> 4;  // a tile, in descriptor units
+  if (kPingPong && wg == 1) named_arrive(1, 256);  // warpgroup 0 takes the first turn
+  // a turn at the tensor cores: warpgroup wg waits on barrier 1 + wg, then
+  // lets the other go
+  auto turn_begin = [&] {
+    if (kPingPong) named_sync(1 + wg, 256);
+  };
+  auto turn_end = [&] {
+    if (kPingPong) named_arrive(2 - wg, 256);
+  };
+  // K tile t of the block's sequence (or V's): full, then released by this warp
+  auto wait_k = [&](int tile) { mbar_wait(smem_u32(&bar_kf[tile % kSK]), (tile / kSK) & 1); };
+  auto wait_v = [&](int tile) { mbar_wait(smem_u32(&bar_vf[tile % kSV]), (tile / kSV) & 1); };
+  auto release = [&](uint64_t* empty, int slot) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&empty[slot]));
+  };
+
+  int n = 0, g = 0;  // this block's items and K/V tiles so far
+  int stored = -1;   // the Q buffer of an O store not yet known to have read it
+  for (int r = 0; r * grid < items; ++r) {
+    const int i = d128_slot(r, blk, grid);
+    if (i >= items) continue;
+    const int bh = i % n_bh, qt = n_qt - 1 - i / n_bh, qb = n % kQB;
+    const uint64_t dq = dq0 + qb * (kD128QBytes >> 4);
+
+    float o[64], sc[64];
+    uint32_t p_hi[32], p_lo[32];
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f, r0, r1;
+    bool grew;
+    mbar_wait(smem_u32(&bar_qf[qb]), (n / kQB) & 1);
+
+    // tile 0: Q K^T alone, then its softmax and P
+    wait_k(g);
+    __syncwarp();  // the warp converged again for the .aligned wgmma instructions
+    turn_begin();
+    qk_d128<E>(sc, dq, dk0 + (g % kSK) * kTile);
+    turn_end();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    release(bar_ke, g % kSK);
+    if (stored >= 0) {  // the item before's O store has read its Q buffer
+      if (leader) {
+        bulk_wait_read();
+        mbar_arrive(smem_u32(&bar_qe[stored]));
+      }
+      stored = -1;
+    }
+    online_softmax(sc, qt == 0, diag_off, c, m0, m1, l0, l1, r0, r1, grew);
+#pragma unroll
+    for (int x = 0; x < 64; ++x) o[x] = 0.0f;
+    split_p<E>(sc, p_hi, p_lo);
+
+    // tile j: Q K_j^T and P_{j-1} V_{j-1} issued together, tile j's softmax
+    // while the latter runs, then P_j
+    for (int j = 1; j <= qt; ++j) {
+      const int tk = g + j, tv = g + j - 1;
+      wait_k(tk);
+      wait_v(tv);
+      __syncwarp();
+      turn_begin();
+      qk_d128<E>(sc, dq, dk0 + (tk % kSK) * kTile);
+      if (grew) rescale_o(o, r0, r1);  // O to tile j - 1's max, before its P V
+      fence_regs(o);
+      pv_d128<E>(o, p_hi, p_lo, dv0 + (tv % kSV) * kTile);
+      turn_end();
+      wgmma_wait<1>();  // Q K_j^T is done; P_{j-1} V_{j-1} may still run
+      fence_regs(sc);
+      release(bar_ke, tk % kSK);
+      online_softmax(sc, j == qt, diag_off, c, m0, m1, l0, l1, r0, r1, grew);
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(bar_ve, tv % kSV);
+      split_p<E>(sc, p_hi, p_lo);
+    }
+    // the last tile's P V, and O out
+    const int tv = g + qt;
+    wait_v(tv);
+    __syncwarp();
+    if (grew) rescale_o(o, r0, r1);
+    fence_regs(o);
+    pv_d128<E>(o, p_hi, p_lo, dv0 + (tv % kSV) * kTile);
+    wgmma_wait<0>();
+    fence_regs(o);
+    release(bar_ve, tv % kSV);
+    store_o<E>(o, l0, l1, s_q + qb * kD128QBytes, &tm_o, wg, wrow, t, kBlockRows * qt, bh, leader);
+    stored = qb;
+    g += qt + 1;
+    ++n;
+  }
+  if (leader) bulk_wait();  // shared memory stays until the last stores are done
+}
+
 // cuTensorMapEncodeTiled looked up through the runtime's entry-point query
 // (no link to libcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -856,6 +1346,32 @@ int launch_attention16(const typename E::T* q, const typename E::T* k, const typ
   return (int)cudaGetLastError();
 }
 
+// D = 128: one block an SM, at most one a work item, each walking its items
+template <class E>
+int launch_attention16_d128(const typename E::T* q, const typename E::T* k, const typename E::T* v,
+                            typename E::T* out, int bh, int seq, float scale, void* stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!tensor_map(encode, &tm_q, E::kMapType, q, bh, seq, 128, kBlockRows) ||
+      !tensor_map(encode, &tm_k, E::kMapType, k, bh, seq, 128, kD128Keys) ||
+      !tensor_map(encode, &tm_v, E::kMapType, v, bh, seq, 128, kD128Keys) ||
+      !tensor_map(encode, &tm_o, E::kMapType, out, bh, seq, 128, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_16_d128_kernel<E>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kD128Smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int items = bh * ((seq + kBlockRows - 1) / kBlockRows);
+  flash_attention_16_d128_kernel<E><<<items < sms ? items : sms, kD128Threads, kD128Smem,
+                                      (cudaStream_t)stream>>>(
+      tm_q, tm_k, tm_v, tm_o, bh, seq, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 // The head dims with a kernel: 64 and 128; any other launches nothing.
 bool head_dim_taken(int head_dim) { return head_dim == 64 || head_dim == 128; }
 
@@ -882,7 +1398,7 @@ int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const _
   if (!head_dim_taken(head_dim)) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
   return head_dim == 64 ? launch_attention16<Bf16, 64>(q, k, v, out, bh, seq, scale, stream)
-                        : launch_attention16<Bf16, 128>(q, k, v, out, bh, seq, scale, stream);
+                        : launch_attention16_d128<Bf16>(q, k, v, out, bh, seq, scale, stream);
 }
 
 // q, k, v, out: (bh, seq, head_dim) fp16, contiguous, 16-byte aligned; the
@@ -892,7 +1408,7 @@ int flash_attention_f16(const __half* q, const __half* k, const __half* v, __hal
   if (!head_dim_taken(head_dim)) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
   return head_dim == 64 ? launch_attention16<F16, 64>(q, k, v, out, bh, seq, scale, stream)
-                        : launch_attention16<F16, 128>(q, k, v, out, bh, seq, scale, stream);
+                        : launch_attention16_d128<F16>(q, k, v, out, bh, seq, scale, stream);
 }
 
 }  // extern "C"

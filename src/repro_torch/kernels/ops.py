@@ -319,6 +319,15 @@ def check_flash_head_dim(d: int) -> None:
                          f"{sorted(FLASH_HEAD_DIMS)}, got {d} (ROADMAP: flash attention head dims)")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where its data starts on a 16-byte boundary, else a
+    fresh contiguous copy that does (a view at a storage offset, such as
+    ``buf[1:].view(...)``): the 16-bit attention kernels' tensor maps need
+    16-byte-aligned addresses and the fp32 kernel loads 16 bytes at a time.
+    The kernel then runs on the copy; nothing falls back."""
+    return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal attention of ``(B, H, S, D)`` or fused ``(B·H, S, D)`` fp32,
     bf16 or fp16 q, k, v (out: q's dtype, from fp32 math), with ``S`` a multiple
@@ -341,8 +350,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if q.device.type == "cpu":
         return flash_attention_ref(fold(q), fold(k), fold(v)).reshape(q.shape)
     check_flash_head_dim(d)
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
+    q, k, v = (aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
     bh = fold(q).shape[0]
     if bh and s:

@@ -40,8 +40,10 @@ k-step's operands back (and a descriptor that does not step across
 misreads them), and reads V's MN-major k-steps block by block.
 """
 
+import itertools
 import math
 import operator
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -54,7 +56,8 @@ from repro_torch.kernels import ref  # noqa: E402
 f32 = np.float32
 ITERS = ref.BISECTION_ITERS
 LOW_BITS = 5  # the top-k kernel's low digit (kLowBits); the high digit has 16 - 5
-KEYS = 64  # the attention kernel's key tile
+KEYS = 64  # the attention kernel's key tile (the D = 128 16-bit kernel's: 128)
+D128_KEYS = 128
 SPAN = 128  # bytes of one span of the 128-byte swizzle: 64 16-bit columns
 
 
@@ -281,11 +284,15 @@ def kstep_scores(qf: torch.Tensor, kt: torch.Tensor) -> torch.Tensor:
     return sc
 
 
-def online_attention(q, k, v, pieces: int, dtype: torch.dtype, ksteps: bool = False) -> torch.Tensor:
+def online_attention(q, k, v, pieces: int, dtype: torch.dtype, ksteps: bool = False, keys_per_tile: int = KEYS,
+                     skip_rescale: bool = False, skipped: list | None = None) -> torch.Tensor:
     """The 16-bit kernel's arithmetic over (B, S, D) q, k, v of ``dtype``
     (bf16 or fp16): see :func:`attention_model`.  Q K^T's fp32 sums run in
     the plain version's order, or with ``ksteps`` in the kernel's
-    (:func:`kstep_scores`)."""
+    (:func:`kstep_scores`).  ``keys_per_tile``: the key tile (64; the D =
+    128 kernel's 128).  ``skip_rescale``: as the D = 128 kernel, O and l
+    keep their values (no multiply by r) on a tile where no row of a warp's
+    16 grew its max; ``skipped`` then collects how many such warp-tiles."""
     b, s, d = q.shape
     c = f32(d**-0.5) * f32(math.log2(math.e))
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -293,13 +300,18 @@ def online_attention(q, k, v, pieces: int, dtype: torch.dtype, ksteps: bool = Fa
     m = torch.full((b, s), -math.inf)
     lsum = torch.zeros((b, s))
     o = torch.zeros((b, s, d))
-    for j in range(0, s, KEYS):
-        keys = torch.arange(j, min(j + KEYS, s))
+    for j in range(0, s, keys_per_tile):
+        keys = torch.arange(j, min(j + keys_per_tile, s))
         sc = (kstep_scores if ksteps else torch.matmul)(qf, kf[:, keys].transpose(1, 2))
         sc = torch.where(keys[None, None, :] > rows[None, :, None], -math.inf, sc)  # diagonal tile
-        live = (rows // KEYS >= j // KEYS)[None, :]  # tiles above a query tile's diagonal: skipped
+        live = (rows // keys_per_tile >= j // keys_per_tile)[None, :]  # tiles above the diagonal: skipped
         new_m = torch.maximum(m, sc.amax(dim=-1))
         r = torch.exp2((m - new_m) * c)
+        if skip_rescale:  # a warp's 16 rows rescale together, or not at all
+            grew = (new_m != m).reshape(b, s // 16, 16).any(dim=-1).repeat_interleave(16, dim=1)
+            if skipped is not None:
+                skipped.append(int((~grew & live)[:, ::16].sum()))
+            r = torch.where(grew, r, torch.ones_like(r))
         p = torch.exp2(sc * c - (new_m * c)[..., None])
         acc = torch.zeros_like(o)
         rest = p
@@ -471,3 +483,131 @@ def test_descriptors_step_across_the_swizzle_spans(d):
         for kk in range(4):
             np.testing.assert_array_equal(mn_major_operand(vb, cb * 64 * SPAN + 2048 * kk),
                                           v[16 * kk:16 * kk + 16, 64 * cb:64 * cb + 64])
+
+
+# -- the D = 128 kernel (flash_attention_16_d128_kernel<E>) --------------------
+#
+# 128-key tiles (Q K^T one m64n128k16 chain, each P piece one m64n128k16 over
+# both column blocks of V), O's rescale skipped where no row of a warp grew
+# its max, a persistent grid walking (head-batch, query tile) items longest
+# first, and O written through the item's Q buffer for one TMA store.
+
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
+
+
+def d128_model(q, k, v, pieces: int = 2, dtype=torch.bfloat16, skipped=None) -> torch.Tensor:
+    """The D = 128 kernel's arithmetic: 128-key tiles, Q K^T summed in its
+    k-step order, O's rescale skipped a warp at a time."""
+    return online_attention(q, k, v, pieces, dtype, ksteps=True, keys_per_tile=D128_KEYS,
+                            skip_rescale=True, skipped=skipped)
+
+
+@pytest.mark.parametrize("qk_scale", [1.0, 4.0])
+@pytest.mark.parametrize("shape", [(2, 256, 128), (3, 96, 128), (2, 64, 128)])
+def test_d128_model_within_the_check(shape, qk_scale):
+    q, k, v = _qkv(int(qk_scale) + shape[1], shape, qk_scale)
+    assert excess(d128_model(q, k, v), ref.flash_attention_ref(q, k, v), shape[1], v) <= 1.0
+
+
+def test_d128_model_is_causal_bitwise():
+    check_causal(d128_model, _qkv, 128)
+
+
+def test_d128_model_late_maximum():
+    """Row 230's largest score at key 200, in the 128-key tile before its own."""
+    check_late_maximum(d128_model, _qkv, excess, 128)
+
+
+def test_d128_skipped_rescale_is_bitwise_the_full_one():
+    """Where no row of a warp grew its max, the kernel leaves O and l as they
+    are: the factor it skips is 2^0 = 1, so nothing changes, bit for bit;
+    and at S 2 048 the skip does happen (on N(0, 1) inputs, once a row has
+    seen many keys, a new tile seldom raises its max)."""
+    q, k, v = _qkv(11, (2, 2048, 128))
+    skipped = []
+    got = d128_model(q, k, v, skipped=skipped)
+    full = online_attention(q, k, v, 2, torch.bfloat16, ksteps=True, keys_per_tile=D128_KEYS)
+    assert torch.equal(got, full) and sum(skipped) > 0, skipped
+
+
+def mn_major_wide_operand(buf: np.ndarray, start: int, lbo: int) -> np.ndarray:
+    """What an MN-major B of 16 keys x 128 columns (m64n128k16's P V) reads
+    from a descriptor at ``start`` with leading byte offset ``lbo``:
+    columns 64 nb .. 64 nb + 63 as :func:`mn_major_operand` reads them from
+    ``start + nb * lbo``."""
+    return np.concatenate([mn_major_operand(buf, start + nb * lbo) for nb in range(2)], axis=1)
+
+
+def test_d128_descriptors_read_128_key_tiles():
+    """A 128-key K or V tile lies as two column blocks of 128 rows (block c
+    at c * 16 384).  Q K^T's k-step kk reads all 128 keys of K as one
+    K-major B from ``(kk / 4) * 16384 + 32 (kk % 4)``; P V's k-step kk reads
+    keys 16 kk .. of V across both column blocks as one MN-major B from
+    ``2048 kk`` with leading byte offset 16 384, the distance to block 1.
+    With the offset of one span (the n64 products' unused field) it
+    misreads columns 64-127."""
+    rng = np.random.default_rng(128)
+    k, v = (rng.integers(0, 1 << 16, (D128_KEYS, 128)) for _ in range(2))
+    kb, vb = tma_tile(k), tma_tile(v)
+    block = D128_KEYS * SPAN
+    for kk in range(8):
+        np.testing.assert_array_equal(k_major_operand(kb, (kk // 4) * block + 32 * (kk % 4), D128_KEYS),
+                                      k[:, 16 * kk:16 * kk + 16])
+        np.testing.assert_array_equal(mn_major_wide_operand(vb, 2048 * kk, block), v[16 * kk:16 * kk + 16])
+        assert not np.array_equal(mn_major_wide_operand(vb, 2048 * kk, 16), v[16 * kk:16 * kk + 16])
+
+
+def test_d128_epilogue_writes_o_as_the_tma_store_reads_it():
+    """Each consumer thread writes its O fragment (rows wrow and wrow + 8,
+    columns 8x + 2t and 8x + 2t + 1 as one 4-byte word) over its
+    warpgroup's rows of the item's Q buffer at ``(x / 8) * 16384 + row *
+    128 + ((x % 8) ^ gr) * 16 + 4t``: the buffer then holds O in the tiles'
+    layout (``tma_tile``), which the TMA store reads, each warpgroup's rows
+    at 64 wg * 128 of each column block; each store of a warp hits 32
+    distinct banks."""
+    rng = np.random.default_rng(5)
+    o = rng.integers(0, 1 << 16, (128, 128)).astype(np.uint16)
+    buf = np.zeros(128 * 128 * 2, np.uint8)
+    for wg, warp in itertools.product(range(2), range(4)):
+        banks: dict[tuple[int, int], set[int]] = {}
+        for lane, x, half in itertools.product(range(32), range(16), range(2)):
+            gr, t = lane >> 2, lane & 3
+            row = 64 * wg + 16 * warp + gr + 8 * half
+            at = (x // 8) * 128 * SPAN + row * SPAN + (((x % 8) ^ gr) << 4) + 4 * t
+            buf[at:at + 4] = o[row, 8 * x + 2 * t:8 * x + 2 * t + 2].view(np.uint8)
+            banks.setdefault((x, half), set()).add(at // 4 % 32)
+        assert all(len(b) == 32 for b in banks.values())
+    np.testing.assert_array_equal(buf, tma_tile(o))
+
+
+def d128_schedule(n_bh: int, seq: int, sms: int) -> list[list[tuple[int, int]]]:
+    """Each block's (head-batch, query tile) items in the order it takes
+    them, as the kernel's source states the schedule: G = min(SMs, items)
+    blocks; block b takes item ``r G + (r odd ? G - 1 - b : b)`` in round r
+    while that is below the item count; item i is query tile n_qt - 1 - i /
+    n_bh of head-batch i % n_bh."""
+    n_qt = -(-seq // 128)
+    items = n_bh * n_qt
+    grid = min(sms, items)
+    slots = [[r * grid + (grid - 1 - b if r & 1 else b) for r in range(-(-items // grid))] for b in range(grid)]
+    return [[(i % n_bh, n_qt - 1 - i // n_bh) for i in mine if i < items] for mine in slots]
+
+
+@pytest.mark.parametrize("n_bh,seq", [(96, 1024), (20, 128), (20, 64), (12, 96), (24, 1024), (8, 1024),
+                                      (12, 256), (32, 32768)])
+def test_d128_schedule_takes_each_item_once_longest_first(n_bh, seq):
+    """At the card cases' shapes, on 132 SMs (an H100) and on fewer: every
+    item is taken exactly once; each block takes its items longest first;
+    and the blocks' key tiles differ by at most one item's."""
+    src = (CSRC / "flash_attention.cu").read_text()
+    assert "return r * G + ((r & 1) ? G - 1 - b : b);" in src
+    # the K/V loader, the Q loader and the consumers walk the same items
+    assert src.count("const int bh = i % n_bh, qt = n_qt - 1 - i / n_bh") == 3
+    n_qt = -(-seq // 128)
+    for sms in (132, 7, 1):
+        blocks = d128_schedule(n_bh, seq, sms)
+        taken = sorted(item for mine in blocks for item in mine)
+        assert taken == sorted(itertools.product(range(n_bh), range(n_qt)))
+        assert all(a[1] >= b[1] for mine in blocks for a, b in zip(mine, mine[1:]))
+        loads = [sum(qt + 1 for _, qt in mine) for mine in blocks]
+        assert max(loads) - min(loads) <= n_qt, (sms, min(loads), max(loads))

@@ -55,6 +55,7 @@ import pytest
 torch = pytest.importorskip("torch")
 from _torch_threads import one_torch_thread  # noqa: E402,F401
 from test_torch_bf16_designs import (  # noqa: E402
+    D128_KEYS,
     ITERS,
     LOW_BITS,
     check_causal,
@@ -377,3 +378,42 @@ def test_attention_model_at_d128_is_causal_bitwise():
 
 def test_attention_model_at_d128_late_maximum():
     check_late_maximum(attention_model, _qkv, excess, 128)
+
+
+# -- the D = 128 kernel (flash_attention_16_d128_kernel<F16>) ------------------
+
+
+def d128_model(q, k, v, pieces: int = 2, skipped=None) -> torch.Tensor:
+    """The D = 128 fp16 kernel's arithmetic: 128-key tiles, Q K^T in its
+    k-step order, O's rescale skipped where no row of a warp grew its max
+    (``test_torch_bf16_designs.d128_model`` in fp16)."""
+    return online_attention(q, k, v, pieces, torch.float16, ksteps=True, keys_per_tile=D128_KEYS,
+                            skip_rescale=True, skipped=skipped)
+
+
+@pytest.mark.parametrize("qk_scale", [1.0, 4.0, 12.0])
+@pytest.mark.parametrize("shape", [(2, 256, 128), (3, 96, 128)])
+def test_d128_model_within_the_check(shape, qk_scale):
+    """Within the check at x1 and x4; at x12 within it plus
+    ``score_order_term``, the bound the card's x12 case uses."""
+    q, k, v = _qkv(int(qk_scale) + shape[1], shape, qk_scale)
+    extra = score_order_term(q, k, v) if qk_scale > 4 else 0.0
+    assert excess(d128_model(q, k, v), ref.flash_attention_ref(q, k, v), shape[1], v, extra) <= 1.0
+
+
+def test_d128_model_is_causal_bitwise():
+    check_causal(d128_model, _qkv, 128)
+
+
+def test_d128_model_late_maximum():
+    check_late_maximum(d128_model, _qkv, excess, 128)
+
+
+def test_d128_skipped_rescale_is_bitwise_the_full_one():
+    """As in bf16: the skipped factor is 2^0 = 1, so the skip changes no
+    bit, and at S 2 048 it happens."""
+    q, k, v = _qkv(11, (2, 2048, 128))
+    skipped = []
+    got = d128_model(q, k, v, skipped=skipped)
+    full = online_attention(q, k, v, 2, torch.float16, ksteps=True, keys_per_tile=D128_KEYS)
+    assert torch.equal(got, full) and sum(skipped) > 0, skipped

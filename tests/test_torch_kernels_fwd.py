@@ -195,6 +195,23 @@ def test_flash_attention_head_dims_on_the_card():
     assert ops.flash_attention(q, q, q).shape == q.shape
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_aligned16_copies_a_misaligned_view(dtype):
+    """The wrapper's choice before a CUDA launch: a contiguous view one
+    element into a buffer (2 bytes for bf16 and fp16, 4 for fp32; the
+    ``buf[1:].view(B*H, S, D)`` the reference takes) comes back as an aligned
+    copy of equal values; an aligned tensor comes back as it is."""
+    n = 2 * 128 * 64
+    buf = torch.as_tensor(np.random.default_rng(3).normal(size=n + 8).astype(np.float32)).to(dtype)
+    view = buf[1:1 + n].view(2, 128, 64)
+    assert view.is_contiguous() and view.data_ptr() % 16 == torch.finfo(dtype).bits // 8
+    got = ops.aligned16(view)
+    assert got.data_ptr() % 16 == 0 and got.data_ptr() != view.data_ptr()
+    assert got.is_contiguous() and got.dtype == dtype and torch.equal(got, view)
+    aligned = buf[:n].view(2, 128, 64)
+    assert aligned.data_ptr() % 16 == 0 and ops.aligned16(aligned) is aligned
+
+
 def test_flash_attention_rejects_bad_inputs():
     q = torch.randn(2, 192, 32)
     with pytest.raises(ValueError, match="tile"):

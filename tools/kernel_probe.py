@@ -45,11 +45,18 @@ per-call work out of the way).  Only what the named probes need is built.
 * the bf16 attention (``flash_attention_bf16``) at (96, 1024, D), after
   ``chip_smoke.py``'s checks of the bf16 attention, both builds within the
   check and beside bf16 SDPA (a library call the port never makes), with a
-  clocked copy of this checkout's kernel (each consumer warpgroup's cycles
-  waiting for K/V tiles, in Q K^T, in the softmax and in P V) and a copy
-  at one block an SM, and the bf16 kernel's opcode mix;
+  clocked copy of this checkout's kernel (at D 64 each consumer
+  warpgroup's cycles waiting for K/V tiles, in Q K^T, in the softmax and
+  in P V; at D 128, the persistent kernel's, also waiting for its turn at
+  the tensor cores, waiting for V and in each item's epilogue), variants
+  (at D 64 one block an SM; at D 128 the kernel with its turns, its wide
+  P V products or its skipped rescales turned off, one at a time), and the
+  bf16 kernel's opcode mix;
 * the fp16 attention (``flash_attention_f16``) at (96, 1024, D), after
   ``chip_smoke.py``'s checks of the fp16 attention, as the fp32 probe;
+* at ``--head-dim 128`` the bf16 and fp16 probes also run at yi-9b's
+  prefill_32k shape, (32, 32 768, 128), both builds in turns and beside
+  SDPA, the plain version on two head-batches;
 * the bf16 wire scatter (``scatter_wire_sums_bf16``) at N 4, 64 rows, V
   50 257, k_cap 128 and 1024, after ``chip_smoke.py``'s checks of it, both
   builds ``torch.equal`` to the plain version, with clocked copies of the
@@ -75,6 +82,7 @@ when those lines change, the script stops with the line it could not find.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import re
 import statistics
@@ -189,7 +197,7 @@ def attention_bf16_clocks() -> str:
         ("    mbar_wait(smem_u32(&bar_full[s]), (j / kStagesBf16) & 1);\n",
             "    const long long ca = clock64();\n    mbar_wait(smem_u32(&bar_full[s]), (j / kStagesBf16) & 1);\n"
             "    const long long cx = clock64();\n    cw += cx - ca;\n"),
-        ("    fence_regs(sc);\n", "    fence_regs(sc);\n    const long long cc = clock64();\n    cq += cc - cx;\n"),
+        ("    fence_regs(sc);\n\n", "    fence_regs(sc);\n    const long long cc = clock64();\n    cq += cc - cx;\n\n"),
         ("      fence_regs(o[cb]);\n    }\n\n    // O += P V",
             "      fence_regs(o[cb]);\n    }\n    const long long cd = clock64();\n    csm += cd - cc;\n\n"
             "    // O += P V"),
@@ -202,6 +210,60 @@ def attention_bf16_clocks() -> str:
             "    long long* d = g_aprof + 8 * ((blockIdx.y * gridDim.x + blockIdx.x) * kConsumers + wg);\n"
             "    d[0] = cw; d[1] = cq; d[2] = csm; d[3] = cpv; d[4] = n_mine; d[5] = blockIdx.y;\n"
             "    d[6] = pg0; d[7] = g1; }\n}\n"),
+        ('extern "C" {\n',
+            'extern "C" {\nvoid attn_set_prof(long long* p) { cudaMemcpyToSymbol(g_aprof, &p, sizeof(p)); }\n'),
+    ))
+
+
+# the D = 128 clocked copy's columns: cycles summed by phase over the tiles
+# after each item's first, then over the items, then counts and globaltimer stamps
+D128_TILE_PHASES = ("waiting for K and V", "waiting for its turn", "issuing Q K^T, the rescale and P V",
+                    "waiting for Q K^T", "softmax", "waiting for P V", "release and P pieces")
+D128_ITEM_PHASES = ("waiting for Q", "tile 0", "the last P V and O out")
+
+
+def attention_d128_clocks() -> str:
+    """``flash_attention.cu`` with the D = 128 16-bit kernel's consumer
+    cycles summed by phase (``D128_TILE_PHASES`` over the tiles after each
+    item's first, ``D128_ITEM_PHASES`` over its items), read by each
+    warpgroup's first thread and written to a buffer set by
+    ``attn_set_prof``: 16 int64 a warpgroup (the ten sums, its tiles after
+    the first, its items, its globaltimer start and end, 0, 0)."""
+    return substituted(CSRC / "flash_attention.cu", (
+        ("namespace {\n", "namespace {\n__device__ long long* g_aprof;\n"),
+        ("  if (kPingPong && wg == 1) named_arrive(1, 256);  // warpgroup 0 takes the first turn\n",
+            "  if (kPingPong && wg == 1) named_arrive(1, 256);  // warpgroup 0 takes the first turn\n"
+            "  long long pg0;\n  " + GLOBALTIMER.format("pg0") + "\n"
+            "  long long prof[16] = {};\n"),
+        ("    mbar_wait(smem_u32(&bar_qf[qb]), (n / kQB) & 1);\n",
+            "    const long long i0_ = clock64();\n    mbar_wait(smem_u32(&bar_qf[qb]), (n / kQB) & 1);\n"
+            "    const long long i1_ = clock64();\n    prof[7] += i1_ - i0_;\n"),
+        ("    // tile j: Q K_j^T and P_{j-1} V_{j-1} issued together",
+            "    prof[8] += clock64() - i1_;\n    // tile j: Q K_j^T and P_{j-1} V_{j-1} issued together"),
+        ("      wait_k(tk);\n", "      const long long ka_ = clock64();\n      wait_k(tk);\n"),
+        ("      __syncwarp();\n      turn_begin();\n      qk_d128<E>(sc, dq, dk0 + (tk % kSK) * kTile);\n",
+            "      __syncwarp();\n      const long long kb_ = clock64();\n      prof[0] += kb_ - ka_;\n"
+            "      turn_begin();\n      const long long tb_ = clock64();\n      prof[1] += tb_ - kb_;\n"
+            "      qk_d128<E>(sc, dq, dk0 + (tk % kSK) * kTile);\n"),
+        ("      turn_end();\n      wgmma_wait<1>();  // Q K_j^T is done",
+            "      turn_end();\n      const long long ie_ = clock64();\n      prof[2] += ie_ - tb_;\n"
+            "      wgmma_wait<1>();  // Q K_j^T is done"),
+        ("      online_softmax(sc, j == qt, diag_off, c, m0, m1, l0, l1, r0, r1, grew);\n      wgmma_wait<0>();\n",
+            "      const long long sa_ = clock64();\n      prof[3] += sa_ - ie_;\n"
+            "      online_softmax(sc, j == qt, diag_off, c, m0, m1, l0, l1, r0, r1, grew);\n"
+            "      const long long sb_ = clock64();\n      prof[4] += sb_ - sa_;\n      wgmma_wait<0>();\n"
+            "      const long long pw_ = clock64();\n      prof[5] += pw_ - sb_;\n"),
+        ("      split_p<E>(sc, p_hi, p_lo);\n    }\n    // the last tile's P V, and O out\n",
+            "      split_p<E>(sc, p_hi, p_lo);\n      prof[6] += clock64() - pw_;\n      ++prof[10];\n    }\n"
+            "    const long long e0_ = clock64();\n    // the last tile's P V, and O out\n"),
+        ("    stored = qb;\n    g += qt + 1;\n",
+            "    stored = qb;\n    prof[9] += clock64() - e0_;\n    ++prof[11];\n    g += qt + 1;\n"),
+        ("  if (leader) bulk_wait();  // shared memory stays until the last stores are done\n}\n",
+            "  if (leader) bulk_wait();  // shared memory stays until the last stores are done\n"
+            "  if (leader && g_aprof) { long long g1;\n    " + GLOBALTIMER.format("g1") + "\n"
+            "    prof[12] = pg0; prof[13] = g1;\n"
+            "    long long* d = g_aprof + 16 * (blockIdx.x * kConsumers + wg);\n"
+            "    for (int x = 0; x < 16; ++x) d[x] = prof[x]; }\n}\n"),
         ('extern "C" {\n',
             'extern "C" {\nvoid attn_set_prof(long long* p) { cudaMemcpyToSymbol(g_aprof, &p, sizeof(p)); }\n'),
     ))
@@ -440,10 +502,22 @@ VARIANTS.update({
         '      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));\n',
         "  v = __ldg(p);\n")]),
 })
+# the D = 128 16-bit kernel with one part of its design turned off: no turns at the tensor
+# cores, each P piece as two m64n64k16 (one a column block of V), O rescaled on every tile
+VARIANTS.update({
+    f"attention_d128_{name}": ("flash_attention.cu", [(f"constexpr bool {flag} = true;",
+                                                       f"constexpr bool {flag} = false;")])
+    for name, flag in (("no_ping_pong", "kPingPong"), ("narrow_v", "kWideV"),
+                       ("always_rescale", "kSkipRescale"))})
+# and with three Q buffers and two V stages in the same shared memory
+VARIANTS["attention_d128_q3_v2"] = ("flash_attention.cu", [(
+    "constexpr int kD128QBuffers = 2, kD128KStages = 2, kD128VStages = 3;",
+    "constexpr int kD128QBuffers = 3, kD128KStages = 2, kD128VStages = 2;")])
 # a variant that changes one head dim's instance only, built and timed at that head dim alone
 # (the D = 128 attention already runs one block an SM)
-VARIANT_HEAD_DIM = {"attention_1_block": 64}
+VARIANT_HEAD_DIM = {"attention_1_block": 64, **{name: 128 for name in VARIANTS if name.startswith("attention_d128")}}
 VARIANT_OF = {"topk_plain_stores": "topk_bf16", "attention_1_block": "attention_bf16",
+              **{name: "attention_bf16" for name in VARIANTS if name.startswith("attention_d128")},
               **{name: "scatter_bf16" for name in VARIANTS if name.startswith("scatter")},
               **{name: "kl_bf16" for name in VARIANTS if name.startswith("kl")}}
 
@@ -454,9 +528,43 @@ def c_fn(lib: ctypes.CDLL, symbol: str, n_ptr: int, n_int: int, n_float: int = 0
     return fn
 
 
-def in_turns(label: str, old, new) -> None:
-    t = [cs.time_ms(f) * 1e3 for f in (old, new, new, old)]
-    print(f"[probe] {label}: earlier {t[0]:.2f} / {t[3]:.2f} us, this {t[1]:.2f} / {t[2]:.2f} us", flush=True)
+@contextlib.contextmanager
+def smi_samples():
+    """The SM clock (MHz) and the power (W) the card reports (``nvidia-smi``,
+    every 50 ms) while the block runs: a list of pairs, filled on exit."""
+    samples: list[tuple[float, float]] = []
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+                             "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield samples
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate()
+        samples += [(float(a), float(b)) for a, b in (line.split(",") for line in out.splitlines()
+                                                      if line.count(",") == 1)]
+
+
+@contextlib.contextmanager
+def smi_clocks(label: str):
+    """``smi_samples`` over the block, printed as medians."""
+    with smi_samples() as got:
+        yield
+    if got:
+        sm, watts = [a for a, _ in got], [b for _, b in got]
+        print(f"[probe] {label}: SM clock median {median(sm):.0f} MHz (min {min(sm):.0f}, max {max(sm):.0f}), "
+              f"power median {median(watts):.1f} W, {len(got)} samples", flush=True)
+
+
+def in_turns(label: str, old, new, clocks: bool = False, **timing) -> None:
+    """``old`` and ``new`` timed in turns (old, new, new, old); with
+    ``clocks``, each time beside the median SM clock and power while it ran."""
+    t, notes = [], []
+    for f in (old, new, new, old):
+        with smi_samples() if clocks else contextlib.nullcontext([]) as got:
+            t.append(cs.time_ms(f, **timing) * 1e3)
+        notes.append(f" ({median(a for a, _ in got):.0f} MHz, {median(b for _, b in got):.0f} W)" if got else "")
+    print(f"[probe] {label}: earlier {t[0]:.2f}{notes[0]} / {t[3]:.2f}{notes[3]} us, this {t[1]:.2f}{notes[1]} / "
+          f"{t[2]:.2f}{notes[2]} us", flush=True)
 
 
 def scatter_ab(libs, device) -> None:
@@ -592,7 +700,7 @@ def compile_libs(parent: Path, kernels: set[str], head_dim: int = 64) -> dict[st
     if need("topk_bf16"):
         made["topk_bf16_clocks"] = topk_bf16_clocks()
     if need("attention_bf16"):
-        made["attention_bf16_clocks"] = attention_bf16_clocks()
+        made["attention_bf16_clocks"] = attention_bf16_clocks() if head_dim == 64 else attention_d128_clocks()
     if need("scatter_bf16"):
         made["earlier_scatter_clocks"] = scatter_loader_clocks(pcsrc / "sparse_agg.cu")
         made["this_scatter_clocks"] = scatter_bf16_clocks()
@@ -707,7 +815,9 @@ def attention_sass_same(parent_lib: Path) -> None:
         this, earlier = sass_functions(lib, kernel + "I"), sass_functions(parent_lib, kernel)
         for tag in tags:
             mine = [body for name, body in this.items() if tag in name and "Li64E" in name]
-            theirs = [body for name, body in earlier.items() if tag in name and "Li" not in name]
+            # an earlier build's D 64 instance, or its kernel from before the template on D
+            theirs = [body for name, body in earlier.items() if tag in name and "Li64E" in name] or [
+                body for name, body in earlier.items() if tag in name and "Li" not in name]
             if len(mine) != 1 or len(theirs) != 1:
                 print(f"[probe] SASS {kernel}<{tag or 'f32'}>: {len(mine)} D 64 instance(s) here, "
                       f"{len(theirs)} earlier: not compared", flush=True)
@@ -720,21 +830,25 @@ def attention_sass_same(parent_lib: Path) -> None:
                   f"{shown})", flush=True)
 
 
-def attention_ab(libs, device, dtype: torch.dtype, d: int) -> dict:
-    """One attention entry point at (96, 1024, d) on N(0, 1) q, k, v in
-    ``dtype``, after ``chip_smoke.py``'s checks of it: this build against
-    the earlier one (outputs compared bitwise; an earlier build that takes
-    only D = 64 refuses D = 128 and is left out), both held to the plain
-    version, timed in turns, then beside SDPA in the same dtype in turns.
-    Returns the runs and inputs for the bf16 probe's extras."""
+def attention_ab(libs, device, dtype: torch.dtype, d: int, shape=(8, 12, 1024), heads=None) -> dict:
+    """One attention entry point at ``shape`` (B, H, S; (96, 1024, d) unless
+    said) on N(0, 1) q, k, v in ``dtype``, after ``chip_smoke.py``'s checks
+    of it: this build against the earlier one (outputs compared bitwise; an
+    earlier build that takes only D = 64 refuses D = 128 and is left out),
+    both held to the plain version (on the head-batches ``heads`` only,
+    when given), timed in turns, then beside SDPA in the same dtype in
+    turns.  Returns the runs and inputs for the bf16 probe's extras."""
     tag = cs.TAG[dtype]
-    b, h, seq = 8, 12, 1024
+    b, h, seq = shape
     gen = torch.Generator(device=device).manual_seed(7)
     q4, k4, v4 = (torch.randn((b, h, seq, d), generator=gen, device=device).to(dtype) for _ in range(3))
     q, k, v = (t.reshape(b * h, seq, d) for t in (q4, k4, v4))
     out = torch.empty_like(q)
-    want = ref.flash_attention_ref(q, k, v)
+    sample = list(range(b * h)) if heads is None else list(heads)
+    want = torch.cat([ref.flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1]) for i in sample]) \
+        if heads is not None else ref.flash_attention_ref(q, k, v)
     tol = cs.attention_tolerance(seq, v)
+    timing = {} if seq <= 4096 else dict(calls=2, reps=7, warmup=1)  # calls of many ms
     args = [x.data_ptr() for x in (q, k, v, out)]
     stream = torch.cuda.current_stream(device).cuda_stream
     fns = {"this": ops._fn("flash_attention", ATTN_SYMBOL[dtype], 4, 3, 1),
@@ -750,16 +864,22 @@ def attention_ab(libs, device, dtype: torch.dtype, d: int) -> dict:
             continue
         assert rc == 0, (name, rc)
         torch.cuda.synchronize()
-        err = cs.attention_err(out, want, tol)
+        err = cs.attention_err(out[sample], want, tol)
         outs[name] = out.clone()
         print(f"[probe] flash_attention{tag} {name} at ({b * h}, {seq}, {d}): max |diff| {err:.3e} "
               f"(bound {tol:.3e})", flush=True)
     if "earlier" in runs:
         print(f"[probe] flash_attention{tag} at D {d}: this == earlier bitwise: "
               f"{torch.equal(outs['this'], outs['earlier'])}", flush=True)
-        in_turns(f"flash_attention{tag} at ({b * h}, {seq}, {d})", runs["earlier"], runs["this"])
+        if timing:  # calls of many ms: the card first brought to its power limit, then two sets of turns
+            for fn in (runs["earlier"], runs["this"]):
+                cs.time_ms(fn, calls=2, reps=10, warmup=1)
+        with smi_clocks(f"flash_attention{tag} at ({b * h}, {seq}, {d}) in turns"):
+            for _ in range(3 if timing else 1):
+                in_turns(f"flash_attention{tag} at ({b * h}, {seq}, {d})", runs["earlier"], runs["this"],
+                         clocks=bool(timing), **timing)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
-    t = [cs.time_ms(f) * 1e3 for f in (sdpa, runs["this"], runs["this"], sdpa)]
+    t = [cs.time_ms(f, **timing) * 1e3 for f in (sdpa, runs["this"], runs["this"], sdpa)]
     print(f"[probe] flash_attention{tag} at ({b * h}, {seq}, {d}): {dtype} SDPA {t[0]:.2f} / {t[3]:.2f} us, "
           f"this {t[1]:.2f} / {t[2]:.2f} us; bound {cs.attention_bound_ms(b * h, seq, d, dtype) * 1e3:.2f} us",
           flush=True)
@@ -824,9 +944,9 @@ def topk_bf16_ab(libs, device, real=None) -> None:
 
 def attention_bf16_ab(libs, device, d: int) -> None:
     """The bf16 attention at (96, 1024, d) as ``attention_ab`` probes it,
-    with the clocked copy's per-warpgroup phases, the one-block-an-SM
-    variant (at D = 64 only: the D = 128 kernel already runs one) and the
-    kernel's opcode mix."""
+    with the clocked copy's per-warpgroup phases, the variants at that head
+    dim (at D 64 one block an SM; at D 128 each part of the design turned
+    off in turn) and the kernel's opcode mix."""
     cs.check_attention_16(device, cs.BF16)
     ab = attention_ab(libs, device, cs.BF16, d)
     b, h, seq, d = ab["shape"]
@@ -845,23 +965,51 @@ def attention_bf16_ab(libs, device, d: int) -> None:
               flush=True)
     for name in variants:
         in_turns(f"flash_attention.bf16 {name} at D {d} (earlier: this build)", runs["this"], runs[name])
-    n_qt = seq // 128
-    prof = torch.zeros((b * h * n_qt * 2, 8), dtype=torch.int64, device=device)
+    if d == 64:
+        prof = attention_clock_prof(libs, runs["clocked"], b * h * (seq // 128) * 2, 8)
+        report_phases(d, prof, ("waiting for K/V", "Q K^T", "max and rescale", "exps, P pieces and P V"), (),
+                      4, None, (6, 7))
+    else:  # the persistent kernel: one block an SM, at most one a work item
+        blocks = min(torch.cuda.get_device_properties(device).multi_processor_count, b * h * (seq // 128))
+        prof = attention_clock_prof(libs, runs["clocked"], blocks * 2, 16)
+        report_phases(d, prof, D128_TILE_PHASES, D128_ITEM_PHASES, 10, 11, (12, 13))
+    lib = build.build_all(["flash_attention"])["flash_attention"]
+    kernel = "flash_attention_16_kernel" if d == 64 else "flash_attention_16_d128_kernel"
+    print(f"[probe] flash_attention.bf16 SASS at D {d}: "
+          f"{sass_histogram(lib, kernel, arg='4Bf16E?Li64E' if d == 64 else '4Bf16E')}", flush=True)
+
+
+def attention_clock_prof(libs, launch, rows: int, cols: int) -> torch.Tensor:
+    """One launch of the clocked bf16 attention, ``cols`` int64 a warpgroup,
+    on the host (the warpgroups that wrote a row)."""
+    prof = torch.zeros((rows, cols), dtype=torch.int64, device="cuda")
     libs["attention_bf16_clocks"].attn_set_prof.argtypes = [P]
     libs["attention_bf16_clocks"].attn_set_prof(prof.data_ptr())
-    assert runs["clocked"]() == 0
+    assert launch() == 0
     torch.cuda.synchronize()
-    p = prof.cpu()
-    tiles = p[:, 4].sum()
-    parts = ", ".join(f"{name} {float(p[:, j].sum() / tiles):.0f}" for j, name in enumerate(
-        ("waiting for K/V", "Q K^T", "max and rescale", "exps, P pieces and P V")))
-    span = int(p[:, 7].max() - p[:, 6].min())
-    print(f"[probe] flash_attention.bf16 clocked at D {d}: cycles a warpgroup-tile: {parts}; kernel span "
-          f"{span} ns, warpgroup duration median {median(p[:, 7] - p[:, 6])} ns, last block start "
-          f"{int((p[:, 6] - p[:, 6].min()).max())} ns", flush=True)
-    lib = build.build_all(["flash_attention"])["flash_attention"]
-    print(f"[probe] flash_attention.bf16 SASS at D {d}: "
-          f"{sass_histogram(lib, 'flash_attention_16_kernel', arg=f'4Bf16E?Li{d}E')}", flush=True)
+    libs["attention_bf16_clocks"].attn_set_prof(None)
+    prof = prof.cpu()
+    return prof[prof.abs().sum(dim=1) > 0]
+
+
+def report_phases(d: int, p: torch.Tensor, tile_phases, item_phases, tiles_col: int, items_col, stamps) -> None:
+    """The clocked copy's cycles: ``tile_phases`` (columns 0 ..) summed over
+    every warpgroup, over their tiles (column ``tiles_col``); ``item_phases``
+    (the next columns) over their items (column ``items_col``); the
+    kernel's span and the warpgroups' durations from the globaltimer
+    columns ``stamps``."""
+    tiles = p[:, tiles_col].sum()
+    parts = ", ".join(f"{name} {float(p[:, j].sum() / tiles):.0f}" for j, name in enumerate(tile_phases))
+    if item_phases:
+        items = p[:, items_col].sum()
+        parts += "; cycles a warpgroup-item: " + ", ".join(
+            f"{name} {float(p[:, len(tile_phases) + j].sum() / items):.0f}" for j, name in enumerate(item_phases))
+        parts += f" ({int(items)} warpgroup-items)"
+    t0, t1 = stamps
+    print(f"[probe] flash_attention.bf16 clocked at D {d}: cycles a warpgroup-tile: {parts}; "
+          f"{int(tiles)} warpgroup-tiles; kernel span {int(p[:, t1].max() - p[:, t0].min())} ns, warpgroup "
+          f"duration median {median(p[:, t1] - p[:, t0])} ns, last warpgroup start "
+          f"{int((p[:, t0] - p[:, t0].min()).max())} ns", flush=True)
 
 
 def graph_turns(label: str, old, new) -> None:
@@ -1031,6 +1179,17 @@ def main() -> int:
     if "attention_f16" in kernels:
         cs.check_attention_16(device, cs.F16)
         attention_ab(libs, device, cs.F16, args.head_dim)
+    if args.head_dim == 128:  # and at yi-9b's prefill_32k shape, (32, 32 768, 128)
+        for dtype, probe in ((cs.BF16, "attention_bf16"), (cs.F16, "attention_f16")):
+            if probe in kernels:
+                ab = attention_ab(libs, device, dtype, 128, shape=(1, 32, cs.YI_S), heads=cs.YI_HEADS)
+                if dtype == cs.BF16:  # the design's parts turned off one at a time, at 32k too
+                    for name in (n for n in VARIANTS if VARIANT_HEAD_DIM.get(n) == 128):
+                        fn = c_fn(libs[name], "flash_attention_bf16", 4, 3, 1)
+                        in_turns(f"flash_attention.bf16 {name} at (32, {cs.YI_S}, 128) (earlier: this build)",
+                                 ab["runs"]["this"], lambda fn=fn: fn(*ab["args"], 32, cs.YI_S, 128, 128**-0.5,
+                                                                      ab["stream"]),
+                                 clocks=True, calls=2, reps=7, warmup=1)
     if "topk" in kernels:
         real = cs.phase_main_path(device, "fused", False)["topk_input"] if args.real else None
         topk_ab(libs, device, real)
