@@ -829,9 +829,14 @@ def phase_build():
                              ("flash_attention_kernel", "flash_attention_16_kernel",
                               "flash_attention_16_d128_kernel")))
     log(f"[build] ptxas -v: {' | '.join(report) or 'no log (library built earlier)'}")
-    warned = [line.strip() for name in libs for line in build.build_log(name).splitlines()
+    logs = {name: build.build_log(name) for name in libs}
+    warned = [line.strip() for text in logs.values() for line in text.splitlines()
               if "Performance Loss" in line or "wgmma" in line.lower()]
-    log(f"[build] ptxas warnings on wgmma (serialised products): {warned or 'none'}")
+    unlogged = [name for name, text in logs.items() if not text]
+    log(f"[build] ptxas warnings on wgmma (serialised products): {warned or 'none'}"
+        + (f"; no log for {', '.join(unlogged)} (built earlier)" if unlogged else ""))
+    # a serialised wgmma runs every product of its kernel one after another
+    assert not warned, f"ptxas serialised wgmma products: {warned}"
     hmma = sass_count(libs["flash_attention"], "HMMA")
     hgmma = sass_count(libs["flash_attention"], "HGMMA")
     assert hmma > 0 and hgmma > 0, "an attention kernel runs no tensor-core instruction"
@@ -1360,7 +1365,8 @@ def check_attention_16(device, dtype: torch.dtype):
     one key tile, a tile past the end and late maxima, at each head dim;
     with q, k x12 within that plus ``score_order_term`` (the scores'
     rounding in the kernel's order, which the other cases' bound has no
-    term for); causal bitwise, heads folded bitwise, offset views bitwise."""
+    term for; 16-bit SDPA, P in one piece, is printed against that bound
+    too); causal bitwise, heads folded bitwise, offset views bitwise."""
     tag = TAG[dtype]
     cases = ((96, 1024, "q, k ~ N(0, 1)"), (20, 128, "q, k ~ N(0, 1)"), (20, 64, "one key tile"),
              (12, 96, "a tile past the end"), (24, 1024, "q, k x4"), (8, 1024, "late maxima"),
@@ -1383,6 +1389,12 @@ def check_attention_16(device, dtype: torch.dtype):
             assert float((got[:, 1000].float() - v[:, 900].float()).abs().max()) < 0.05 * float(
                 v.float().abs().max())
         extra = f" + the scores' order term {term:.3e}" if term else ""
+        if term:  # does this bound tell P in one piece (as SDPA rounds it) from two?
+            one = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)
+            gap = (one.float() - want.float()).abs()
+            inside = bool((gap <= attention_tolerance(seq, v) + term + ulp16(dtype, one, want)).all())
+            extra += (f"; {tag[1:]} SDPA (P in one piece) max |diff| {float(gap.max()):.3e}, "
+                      f"{'within' if inside else 'outside'} the same bound")
         log(f"[kernels {tag[1:]}] flash_attention at ({bh}, {seq}, {d}), {what}: max |diff| {err:.3e} "
             f"against its plain version (bound S * 2^-24 * max|v| + one {tag[1:]} ulp{extra})")
     check_attention_causal(device, dtype)

@@ -3,8 +3,8 @@
 // over fused head-batches q, k, v, out: (B*H, S, D) fp32, bf16 or fp16, with
 // head dim D 64 (GPT-2, granite, stablelm, seamless, mamba2) or 128 (yi-9b,
 // command-r, llama4, internvl2, jamba, moonshot): the fp32 kernel is a
-// template on D, instantiated at both; the 16-bit ones are a template at D =
-// 64 and a kernel of their own at D = 128; any other D launches nothing.
+// template on D, instantiated at both; the 16-bit ones have a kernel for
+// each D; any other D launches nothing.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 //   flash_attention_{f32,bf16,f16} <- flash_attention_pallas (_flash_kernel,
@@ -112,14 +112,14 @@
 //   q, k, v and out (15 us).
 //   D = 128: a kernel of its own for Hopper, flash_attention_16_d128_kernel<E>,
 //   replacing src/repro/kernels/flash_attention.py flash_attention_pallas at
-//   that head dim in bf16 and fp16 (the template above is instantiated at
-//   D = 64 only, so its code there stays as it was).  Bound: Q K^T one 16-bit product and P V two, 3 *
-//   2 * S^2 * D * B*H / 2 operations on 989 TFLOP/s: 39.1 us at B*H = 96,
-//   S = 1024, 13.3 ms at yi-9b's prefill_32k (32, 32 768, 128).  A first
-//   design (the template at D = 128: 64-key tiles, 288 threads, a block of
-//   128 query rows a grid cell) ran at 38 % of it: each warpgroup took Q K^T,
-//   the softmax and P V of a tile in series, and 768 blocks of 1-16 tiles
-//   each paid their own set-up, Q load and epilogue.  What this kernel takes:
+//   that head dim in bf16 and fp16 (the kernel above takes D = 64 only).
+//   Bound: Q K^T one 16-bit product and P V two, 3 * 2 * S^2 * D * B*H / 2
+//   operations on 989 TFLOP/s: 39.1 us at B*H = 96, S = 1024, 13.3 ms at
+//   yi-9b's prefill_32k (32, 32 768, 128).  A first design (the D = 64
+//   kernel widened: 64-key tiles, 288 threads, a block of 128 query rows a
+//   grid cell) ran at 38 % of it: each warpgroup took Q K^T, the softmax and
+//   P V of a tile in series, and 768 blocks of 1-16 tiles each paid their
+//   own set-up, Q load and epilogue.  What this kernel takes:
 //   * Wider products on 128-key tiles: Q K^T as eight m64n128k16 (A and B from
 //     shared memory: 6 KB in 64 tensor cycles, 75 % of the shared-memory
 //     rate, where m64n64k16's 4 KB in 32 took all of it), and each P piece as
@@ -132,11 +132,8 @@
 //     (64 a thread), a tile's scores (64) and P's two pieces (64) live at once.
 //   * Within a warpgroup: tile j's Q K^T and tile j - 1's P V are issued
 //     together; wgmma.wait_group 1 returns with the scores, and tile j's
-//     softmax runs while P V still does.
-//   * Ping-pong: the two consumer warpgroups take turns at issuing (named
-//     barriers 1 and 2), so that one's softmax runs beside the other's products.
-//   * O's rescale is skipped where no row of a warp grew its max (__all_sync):
-//     the factor it skips is 2^0 = 1, so no bit changes.
+//     softmax runs while P V still does.  The two consumer warpgroups issue
+//     as they are ready, with no order between them.
 //   * Persistent: one block an SM walks (head-batch, query tile of 128 rows)
 //     items longest first, in a static order (rounds of G items, forwards and
 //     backwards in turn); K/V flow on from one item into the next; Q in two
@@ -148,18 +145,24 @@
 //   is read a step after its K tile) = 225 KB with the 1 KB alignment: one
 //   block an SM.  ptxas: 168 registers at launch (the 384 threads' share),
 //   40 / 232 after setmaxnreg, no spills, no wgmma serialisation
-//   (chip_smoke.py prints both).  Tried and not taken: the items as one
-//   stream of steps, an item's first Q K^T issued with the last P V of the
-//   item before (slower in turns); Q K^T of warpgroup 0's diagonal tile on
-//   keys 0-63 only (an m64n64k16 into half the fragment made ptxas serialise
-//   every wgmma of the kernel).  Times, each part's cost and the clocked
+//   (chip_smoke.py prints both and fails on a serialised wgmma).  Tried and
+//   not taken, each timed in turns against the kernel with it: the two
+//   consumers taking turns at issuing their products (named barriers, so
+//   that one's softmax runs beside the other's products) and O's rescale
+//   skipped where no row of a warp grew its max (__all_sync; the factor is
+//   then 2^0 = 1, no bit changes), neither faster beyond the spread; P V as
+//   two m64n64k16 a piece, one a column block of V, no faster; the items as
+//   one stream of steps, an item's first Q K^T issued with the last P V of
+//   the item before, slower; Q K^T of warpgroup 0's diagonal tile on keys
+//   0-63 only (an m64n64k16 into half the fragment made ptxas serialise
+//   every wgmma of the kernel).  Times, the parts' costs and the clocked
 //   phases: PERF.md section 6, from tools/kernel_probe.py.
 
 // fp16 q, k, v (flash_attention_f16) run the same kernels,
-// flash_attention_16_kernel<E, 64> and flash_attention_16_d128_kernel<E>, with E = F16: wgmma .f32.f16.f16, tensor
-// maps of fp16, and P in two fp16 pieces (cvt.rn.f16x2.f32).  An fp16 value
-// has 11 significant bits and 5 exponent bits, so it is exact in TF32 and
-// fp32, and the product of two is exact in fp32: Q K^T stays exact as in
+// flash_attention_16_kernel<E> (D = 64) and flash_attention_16_d128_kernel<E>,
+// with E = F16: wgmma .f32.f16.f16, tensor maps of fp16, and P in two fp16
+// pieces (cvt.rn.f16x2.f32).  An fp16 value has 11 significant bits and 5
+// exponent bits, so it is exact in TF32 and fp32, and the product of two is exact in fp32: Q K^T stays exact as in
 // bf16.  P is in [0, 1]: hi = fp16(P) keeps 11 bits (one piece misses the
 // check by far, as bf16's does), lo = fp16(P - hi) the next 11, down to
 // fp16's subnormal step 2^-24, below which a weight is dropped (at most
@@ -480,16 +483,9 @@ constexpr int kBlockRows = 64 * kConsumers;      // query rows a block
 constexpr int kBf16Threads = 128 * kConsumers + 32;  // and one producer warp
 constexpr int kStagesBf16 = 4;                   // K/V tiles in flight
 constexpr int kSpanBytes = 128;                  // a row of one swizzle span: 64 16-bit columns
-
-// The 16-bit kernel's tiles at head dim D: D / 64 column blocks of one
-// swizzle span each, a tile's block c at c * (its rows * 128 bytes).
-template <int D>
-struct Tiles16 {
-  static constexpr int kBlocksPerSm = D == 64 ? 2 : 1;
-  static constexpr int kTileBytes = 64 * D * 2;  // 64 rows of K or V
-  static constexpr int kSmem = 1024 + kBlockRows * D * 2 + kStagesBf16 * 2 * kTileBytes;  // + alignment
-  static_assert(D == 64 || D == 128, "head dims 64 and 128");
-};
+// The D = 64 kernel's tiles: a row is one swizzle span
+constexpr int kD64TileBytes = 64 * 64 * 2;       // 64 rows of K or V
+constexpr int kD64Smem = 1024 + kBlockRows * 64 * 2 + kStagesBf16 * 2 * kD64TileBytes;  // + alignment
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -640,25 +636,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint
   }
 }
 
-// A block owns kBlockRows query rows of one head-batch; warpgroup w of its
-// consumers owns rows q0 + 64 w ...; the producer warp's lane 0 loads Q and
-// then K/V tiles 0 .. the last consumer's diagonal through a ring of
-// kStagesBf16 stages (full: TMA bytes landed; empty: the consumers' 8 warps
-// are done with it).  c = scale * log2(e).  E: Bf16 or F16; D: 64 or 128.
-template <class E, int D>
-__global__ void __launch_bounds__(kBf16Threads, Tiles16<D>::kBlocksPerSm)
+// A block owns kBlockRows query rows of one head-batch at D = 64; warpgroup
+// w of its consumers owns rows q0 + 64 w ...; the producer warp's lane 0
+// loads Q and then K/V tiles 0 .. the last consumer's diagonal through a
+// ring of kStagesBf16 stages (full: TMA bytes landed; empty: the consumers'
+// 8 warps are done with it).  c = scale * log2(e).  E: Bf16 or F16.
+template <class E>
+__global__ void __launch_bounds__(kBf16Threads, 2)
     flash_attention_16_kernel(__grid_constant__ const CUtensorMap tm_q,
                               __grid_constant__ const CUtensorMap tm_k,
                               __grid_constant__ const CUtensorMap tm_v,
                               typename E::T* __restrict__ out, int seq, float c) {
-  constexpr int kTileBytes = Tiles16<D>::kTileBytes;
-  constexpr int kCols = D / 64;                       // column blocks of a row
-  constexpr int kQBlock = kBlockRows * kSpanBytes;    // bytes of one column block of Q
-  constexpr int kKVBlock = 64 * kSpanBytes;           // and of K or V
+  constexpr int kTileBytes = kD64TileBytes;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, bar_full[kStagesBf16], bar_empty[kStagesBf16];
   const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's 1024-byte atoms
-  const uint32_t s_kv = s_q + kBlockRows * D * 2;  // stage s: K at s_kv + 2 s kTileBytes, then V
+  const uint32_t s_kv = s_q + kBlockRows * 64 * 2;  // stage s: K at s_kv + 2 s kTileBytes, then V
 
   const int n_qt = (seq + kBlockRows - 1) / kBlockRows;
   const int q0 = (n_qt - 1 - (int)blockIdx.y) * kBlockRows;  // the longest query tiles first
@@ -681,10 +674,8 @@ __global__ void __launch_bounds__(kBf16Threads, Tiles16<D>::kBlocksPerSm)
     if (lane == 0) {
       int n_tiles = 0;
       for (int w = 0; w < kConsumers; ++w) n_tiles = max(n_tiles, tiles(w));
-      mbar_expect_tx(smem_u32(&bar_q), kBlockRows * D * 2);
-#pragma unroll
-      for (int cb = 0; cb < kCols; ++cb)
-        tma_load(s_q + cb * kQBlock, &tm_q, 64 * cb, q0, bh, smem_u32(&bar_q));
+      mbar_expect_tx(smem_u32(&bar_q), kBlockRows * 64 * 2);
+      tma_load(s_q, &tm_q, 0, q0, bh, smem_u32(&bar_q));
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStagesBf16;
         // a stage is reused once every consumer that reads tile j - stages is done
@@ -692,12 +683,8 @@ __global__ void __launch_bounds__(kBf16Threads, Tiles16<D>::kBlocksPerSm)
         if (j >= kStagesBf16) mbar_wait(smem_u32(&bar_empty[s]), (j / kStagesBf16 - 1) & 1);
         const uint32_t bar = smem_u32(&bar_full[s]), k_dst = s_kv + 2 * s * kTileBytes;
         mbar_expect_tx(bar, 2 * kTileBytes);
-#pragma unroll
-        for (int cb = 0; cb < kCols; ++cb)
-          tma_load(k_dst + cb * kKVBlock, &tm_k, 64 * cb, 64 * j, bh, bar);
-#pragma unroll
-        for (int cb = 0; cb < kCols; ++cb)
-          tma_load(k_dst + kTileBytes + cb * kKVBlock, &tm_v, 64 * cb, 64 * j, bh, bar);
+        tma_load(k_dst, &tm_k, 0, 64 * j, bh, bar);
+        tma_load(k_dst + kTileBytes, &tm_v, 0, 64 * j, bh, bar);
       }
     }
     return;
@@ -717,13 +704,10 @@ __global__ void __launch_bounds__(kBf16Threads, Tiles16<D>::kBlocksPerSm)
   const int diag_off = 2 * t - 16 * (warp & 3) - g;
 
   // accumulator fragment: d[4i + e] holds row (e < 2 ? row0 : row1), column
-  // 8i + 2t + (e & 1) of the warpgroup's 64 x 64 tile; O's column block cb
-  // is o[cb], columns 64 cb ..
-  float o[kCols][32];
+  // 8i + 2t + (e & 1) of the warpgroup's 64 x 64 tile
+  float o[32];
 #pragma unroll
-  for (int cb = 0; cb < kCols; ++cb)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[cb][i] = 0.0f;
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
   mbar_wait(smem_u32(&bar_q), 0);
 
@@ -733,14 +717,11 @@ __global__ void __launch_bounds__(kBf16Threads, Tiles16<D>::kBlocksPerSm)
     mbar_wait(smem_u32(&bar_full[s]), (j / kStagesBf16) & 1);
     __syncwarp();  // the warp converged again for the .aligned wgmma instructions
 
-    // S = Q K^T: bf16 x bf16 (fp16 x fp16) is exact in fp32; 32 bytes a
-    // k-step, the next column block every 4
+    // S = Q K^T: bf16 x bf16 (fp16 x fp16) is exact in fp32; 32 bytes a k-step
     float sc[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<E>(sc, dq + (kk / 4) * (kQBlock >> 4) + 2 * (kk % 4),
-                  dks + (kk / 4) * (kKVBlock >> 4) + 2 * (kk % 4), kk);
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<E>(sc, dq + 2 * kk, dks + 2 * kk, kk);
     wgmma_commit();
     wgmma_wait();
     fence_regs(sc);
@@ -771,23 +752,19 @@ __global__ void __launch_bounds__(kBf16Threads, Tiles16<D>::kBlocksPerSm)
     l0 *= r0;
     l1 *= r1;
 #pragma unroll
-    for (int cb = 0; cb < kCols; ++cb) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        o[cb][4 * i] *= r0;
-        o[cb][4 * i + 1] *= r0;
-        o[cb][4 * i + 2] *= r1;
-        o[cb][4 * i + 3] *= r1;
-      }
-      fence_regs(o[cb]);
+    for (int i = 0; i < 8; ++i) {
+      o[4 * i] *= r0;
+      o[4 * i + 1] *= r0;
+      o[4 * i + 2] *= r1;
+      o[4 * i + 3] *= r1;
     }
+    fence_regs(o);
 
     // O += P V, k-step by k-step as its P is ready, so that the tensor cores
     // run the first k-steps while the later exps are taken.  P in two 16-bit
     // pieces, hi = T(P) and lo = T(P - hi), the small piece first: k-step
     // kk (keys 16 kk ..) takes accumulator pairs 8 kk + 2 r, 8 kk + 2 r + 1 as
-    // its A register r, no shuffle; V as stored, (keys, D), is the MN-major B,
-    // one m64n64k16 product a column block of V
+    // its A register r, no shuffle; V as stored, (keys, D), is the MN-major B
     uint32_t p_hi[16], p_lo[16];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -806,17 +783,13 @@ __global__ void __launch_bounds__(kBf16Threads, Tiles16<D>::kBlocksPerSm)
         p_lo[i] = E::pack(a - E::lo(p_hi[i]), b - E::hi(p_hi[i]));
         asm volatile("" : "+r"(p_hi[i]), "+r"(p_lo[i])::"memory");
       }
-      wgmma_fence();
-#pragma unroll
-      for (int cb = 0; cb < kCols; ++cb) {  // 2048 bytes a k-step
-        wgmma_rs<E>(o[cb], p_lo + 4 * kk, dvs + cb * (kKVBlock >> 4) + 128 * kk);
-        wgmma_rs<E>(o[cb], p_hi + 4 * kk, dvs + cb * (kKVBlock >> 4) + 128 * kk);
-      }
+      wgmma_fence();  // 2048 bytes a k-step
+      wgmma_rs<E>(o, p_lo + 4 * kk, dvs + 128 * kk);
+      wgmma_rs<E>(o, p_hi + 4 * kk, dvs + 128 * kk);
     }
     wgmma_commit();
     wgmma_wait();
-#pragma unroll
-    for (int cb = 0; cb < kCols; ++cb) fence_regs(o[cb]);
+    fence_regs(o);
     __syncwarp();
     if (lane == 0) mbar_arrive(smem_u32(&bar_empty[s]));  // this warp is done with the stage
   }
@@ -826,23 +799,20 @@ __global__ void __launch_bounds__(kBf16Threads, Tiles16<D>::kBlocksPerSm)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
-  typename E::T* ob = out + (size_t)bh * seq * D;
+  typename E::T* ob = out + (size_t)bh * seq * 64;
 #pragma unroll
-  for (int cb = 0; cb < kCols; ++cb) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {  // rounded to T once
-      const int col = 64 * cb + 8 * i + 2 * t;
-      if (row0 < seq)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * D + col) =
-            E::pack(o[cb][4 * i] * inv0, o[cb][4 * i + 1] * inv0);
-      if (row1 < seq)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * D + col) =
-            E::pack(o[cb][4 * i + 2] * inv1, o[cb][4 * i + 3] * inv1);
-    }
+  for (int i = 0; i < 8; ++i) {  // rounded to T once
+    const int col = 8 * i + 2 * t;
+    if (row0 < seq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * 64 + col) =
+          E::pack(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+    if (row1 < seq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * 64 + col) =
+          E::pack(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
   }
 }
 
-// ---- bf16 and fp16 at D = 128: persistent, 128-key tiles, ping-pong ---------
+// ---- bf16 and fp16 at D = 128: persistent, 128-key tiles, setmaxnreg -------
 
 constexpr int kD128Keys = 128;                           // keys a K/V tile
 constexpr int kD128TileBytes = kD128Keys * 128 * 2;      // a K or V tile, 32 KB
@@ -858,11 +828,6 @@ constexpr int kD128Smem =
 // 128 * 40 + 256 * 232 = 64 512 of the SM's 65 536
 constexpr int kD128Threads = 128 * (kConsumers + 1);
 constexpr int kD128ProducerRegs = 40, kD128ConsumerRegs = 232;
-// the design's parts that a build can turn off, so that each is timed alone
-// (tools/kernel_probe.py builds copies with one of these false)
-constexpr bool kPingPong = true;     // the consumers take turns at issuing products (named barriers 1, 2)
-constexpr bool kWideV = true;        // a P piece as one m64n128k16 over both column blocks of V
-constexpr bool kSkipRescale = true;  // no rescale of O where no row's max grew
 
 // d (+)= A B, one m64n128k16 product: A (64 x 16) and B (128 x 16, K-major)
 // from shared memory; scale_d = 0 overwrites d.
@@ -923,9 +888,6 @@ __device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t addr, uint32_t lbo) {
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 // One box of shared memory out to a 3-D tensor map at (col, row, bh); rows
 // past the map's end are not written.
@@ -975,24 +937,15 @@ __device__ __forceinline__ void qk_d128(float (&sc)[64], uint64_t dq, uint64_t d
 // O += P V over one 128-key tile: P in two 16-bit pieces, the small piece
 // first at each k-step; k-step kk (keys 16 kk ..) takes A registers 4 kk ..
 // of each piece, and V as stored is the MN-major B (2048 bytes a k-step),
-// one m64n128k16 over both column blocks (or, with !kWideV, two m64n64k16)
+// one m64n128k16 over both column blocks
 template <class E>
 __device__ __forceinline__ void pv_d128(float (&o)[64], const uint32_t (&p_hi)[32],
                                         const uint32_t (&p_lo)[32], uint64_t dv) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
-    if (kWideV) {
-      wgmma_rs128<E>(o, p_lo + 4 * kk, dv + 128 * kk);
-      wgmma_rs128<E>(o, p_hi + 4 * kk, dv + 128 * kk);
-    } else {  // O's columns 64 cb .. are o[32 cb ..]
-#pragma unroll
-      for (int cb = 0; cb < 2; ++cb) {
-        float(&oh)[32] = *reinterpret_cast<float(*)[32]>(o + 32 * cb);
-        wgmma_rs<E>(oh, p_lo + 4 * kk, dv + cb * ((kD128Keys * kSpanBytes) >> 4) + 128 * kk);
-        wgmma_rs<E>(oh, p_hi + 4 * kk, dv + cb * ((kD128Keys * kSpanBytes) >> 4) + 128 * kk);
-      }
-    }
+    wgmma_rs128<E>(o, p_lo + 4 * kk, dv + 128 * kk);
+    wgmma_rs128<E>(o, p_hi + 4 * kk, dv + 128 * kk);
   }
   wgmma_commit();
 }
@@ -1001,13 +954,11 @@ __device__ __forceinline__ void pv_d128(float (&o)[64], const uint32_t (&p_hi)[3
 // fragment: sc[4x + e] holds row wrow + 8 (e >> 1) of the query tile, key
 // 8x + 2t + (e & 1) of the tile.  On the diagonal tile a key after the query
 // is -inf before the max (its weight an exact 0); the row max over the quad;
-// r = 2^((m - new m) c), the factor that takes O and l to the new max, with
-// `grew` false where no row of the warp has a larger max (r is then 2^0 =
-// 1 for every row, so a skipped rescale changes no bit); then each score
-// becomes 2^(s c - m c), summed into l.
+// r = 2^((m - new m) c), the factor that takes O and l to the new max; then
+// each score becomes 2^(s c - m c), summed into l.
 __device__ __forceinline__ void online_softmax(float (&sc)[64], bool diag, int diag_off, float c,
                                                float& m0, float& m1, float& l0, float& l1,
-                                               float& r0, float& r1, bool& grew) {
+                                               float& r0, float& r1) {
   if (diag) {
 #pragma unroll
     for (int x = 0; x < 16; ++x) {
@@ -1025,7 +976,6 @@ __device__ __forceinline__ void online_softmax(float (&sc)[64], bool diag, int d
   // the tile's first key is at or before every row, so the new maxima are
   // finite; 2^-inf is an exact 0 (the first tile's r)
   const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
-  grew = !kSkipRescale || !__all_sync(0xffffffffu, n0 == m0 && n1 == m1);
   r0 = exp2_approx((m0 - n0) * c);
   r1 = exp2_approx((m1 - n1) * c);
   m0 = n0;
@@ -1085,7 +1035,7 @@ __device__ __forceinline__ void store_o(const float (&o)[64], float l0, float l1
     st_shared(at + 8 * kSpanBytes, E::pack(o[4 * x + 2] * inv1, o[4 * x + 3] * inv1));
   }
   fence_proxy_async();
-  named_sync(3 + wg, 128);
+  named_sync(1 + wg, 128);
   if (leader) {
 #pragma unroll
     for (int cb = 0; cb < 2; ++cb)
@@ -1100,10 +1050,9 @@ __device__ __forceinline__ void store_o(const float (&o)[64], float l0, float l1
 // after P V), and whose second warp's lane 0 loads each item's Q
 // into kD128QBuffers buffers as soon as one is free; and two consumer
 // warpgroups of 64 query rows.  For each tile after an item's first, a
-// consumer issues the tile's Q K^T with the P V of the tile before (taking
-// turns at the tensor cores with the other consumer), then takes the tile's
-// softmax while that P V runs; an item's O goes out through its Q buffer and
-// a TMA store.  c = scale * log2(e).
+// consumer issues the tile's Q K^T with the P V of the tile before, then
+// takes the tile's softmax while that P V runs; an item's O goes out through
+// its Q buffer and a TMA store.  c = scale * log2(e).
 template <class E>
 __global__ void __launch_bounds__(kD128Threads, 1)
     flash_attention_16_d128_kernel(__grid_constant__ const CUtensorMap tm_q,
@@ -1200,15 +1149,6 @@ __global__ void __launch_bounds__(kD128Threads, 1)
   const uint64_t dq0 = sw128_desc(s_q + wg * 64 * kSpanBytes), dk0 = sw128_desc(s_k);
   const uint64_t dv0 = sw128_desc_mn(s_v, kKVBlock);
   constexpr uint64_t kTile = kD128TileBytes >> 4;  // a tile, in descriptor units
-  if (kPingPong && wg == 1) named_arrive(1, 256);  // warpgroup 0 takes the first turn
-  // a turn at the tensor cores: warpgroup wg waits on barrier 1 + wg, then
-  // lets the other go
-  auto turn_begin = [&] {
-    if (kPingPong) named_sync(1 + wg, 256);
-  };
-  auto turn_end = [&] {
-    if (kPingPong) named_arrive(2 - wg, 256);
-  };
   // K tile t of the block's sequence (or V's): full, then released by this warp
   auto wait_k = [&](int tile) { mbar_wait(smem_u32(&bar_kf[tile % kSK]), (tile / kSK) & 1); };
   auto wait_v = [&](int tile) { mbar_wait(smem_u32(&bar_vf[tile % kSV]), (tile / kSV) & 1); };
@@ -1228,15 +1168,12 @@ __global__ void __launch_bounds__(kD128Threads, 1)
     float o[64], sc[64];
     uint32_t p_hi[32], p_lo[32];
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f, r0, r1;
-    bool grew;
     mbar_wait(smem_u32(&bar_qf[qb]), (n / kQB) & 1);
 
     // tile 0: Q K^T alone, then its softmax and P
     wait_k(g);
     __syncwarp();  // the warp converged again for the .aligned wgmma instructions
-    turn_begin();
     qk_d128<E>(sc, dq, dk0 + (g % kSK) * kTile);
-    turn_end();
     wgmma_wait<0>();
     fence_regs(sc);
     release(bar_ke, g % kSK);
@@ -1247,7 +1184,7 @@ __global__ void __launch_bounds__(kD128Threads, 1)
       }
       stored = -1;
     }
-    online_softmax(sc, qt == 0, diag_off, c, m0, m1, l0, l1, r0, r1, grew);
+    online_softmax(sc, qt == 0, diag_off, c, m0, m1, l0, l1, r0, r1);
 #pragma unroll
     for (int x = 0; x < 64; ++x) o[x] = 0.0f;
     split_p<E>(sc, p_hi, p_lo);
@@ -1259,16 +1196,14 @@ __global__ void __launch_bounds__(kD128Threads, 1)
       wait_k(tk);
       wait_v(tv);
       __syncwarp();
-      turn_begin();
       qk_d128<E>(sc, dq, dk0 + (tk % kSK) * kTile);
-      if (grew) rescale_o(o, r0, r1);  // O to tile j - 1's max, before its P V
+      rescale_o(o, r0, r1);  // O to tile j - 1's max, before its P V
       fence_regs(o);
       pv_d128<E>(o, p_hi, p_lo, dv0 + (tv % kSV) * kTile);
-      turn_end();
       wgmma_wait<1>();  // Q K_j^T is done; P_{j-1} V_{j-1} may still run
       fence_regs(sc);
       release(bar_ke, tk % kSK);
-      online_softmax(sc, j == qt, diag_off, c, m0, m1, l0, l1, r0, r1, grew);
+      online_softmax(sc, j == qt, diag_off, c, m0, m1, l0, l1, r0, r1);
       wgmma_wait<0>();
       fence_regs(o);
       release(bar_ve, tv % kSV);
@@ -1278,7 +1213,7 @@ __global__ void __launch_bounds__(kD128Threads, 1)
     const int tv = g + qt;
     wait_v(tv);
     __syncwarp();
-    if (grew) rescale_o(o, r0, r1);
+    rescale_o(o, r0, r1);
     fence_regs(o);
     pv_d128<E>(o, p_hi, p_lo, dv0 + (tv % kSV) * kTile);
     wgmma_wait<0>();
@@ -1326,22 +1261,22 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type, 
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <class E, int D>
-int launch_attention16(const typename E::T* q, const typename E::T* k, const typename E::T* v,
-                       typename E::T* out, int bh, int seq, float scale, void* stream) {
+// D = 64: a block a (head-batch, query tile)
+template <class E>
+int launch_attention16_d64(const typename E::T* q, const typename E::T* k, const typename E::T* v,
+                           typename E::T* out, int bh, int seq, float scale, void* stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map(encode, &tm_q, E::kMapType, q, bh, seq, D, kBlockRows) ||
-      !tensor_map(encode, &tm_k, E::kMapType, k, bh, seq, D, 64) ||
-      !tensor_map(encode, &tm_v, E::kMapType, v, bh, seq, D, 64))
+  if (!tensor_map(encode, &tm_q, E::kMapType, q, bh, seq, 64, kBlockRows) ||
+      !tensor_map(encode, &tm_k, E::kMapType, k, bh, seq, 64, 64) ||
+      !tensor_map(encode, &tm_v, E::kMapType, v, bh, seq, 64, 64))
     return (int)cudaErrorInvalidValue;
-  constexpr int kSmem = Tiles16<D>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_16_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_attention_16_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, kD64Smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (seq + kBlockRows - 1) / kBlockRows);
-  flash_attention_16_kernel<E, D><<<grid, kBf16Threads, kSmem, (cudaStream_t)stream>>>(
+  flash_attention_16_kernel<E><<<grid, kBf16Threads, kD64Smem, (cudaStream_t)stream>>>(
       tm_q, tm_k, tm_v, out, seq, scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -1397,7 +1332,7 @@ int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const _
                          void* stream) {
   if (!head_dim_taken(head_dim)) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
-  return head_dim == 64 ? launch_attention16<Bf16, 64>(q, k, v, out, bh, seq, scale, stream)
+  return head_dim == 64 ? launch_attention16_d64<Bf16>(q, k, v, out, bh, seq, scale, stream)
                         : launch_attention16_d128<Bf16>(q, k, v, out, bh, seq, scale, stream);
 }
 
@@ -1407,7 +1342,7 @@ int flash_attention_f16(const __half* q, const __half* k, const __half* v, __hal
                         int seq, int head_dim, float scale, void* stream) {
   if (!head_dim_taken(head_dim)) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
-  return head_dim == 64 ? launch_attention16<F16, 64>(q, k, v, out, bh, seq, scale, stream)
+  return head_dim == 64 ? launch_attention16_d64<F16>(q, k, v, out, bh, seq, scale, stream)
                         : launch_attention16_d128<F16>(q, k, v, out, bh, seq, scale, stream);
 }
 

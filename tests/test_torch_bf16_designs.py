@@ -284,15 +284,13 @@ def kstep_scores(qf: torch.Tensor, kt: torch.Tensor) -> torch.Tensor:
     return sc
 
 
-def online_attention(q, k, v, pieces: int, dtype: torch.dtype, ksteps: bool = False, keys_per_tile: int = KEYS,
-                     skip_rescale: bool = False, skipped: list | None = None) -> torch.Tensor:
+def online_attention(q, k, v, pieces: int, dtype: torch.dtype, ksteps: bool = False,
+                     keys_per_tile: int = KEYS) -> torch.Tensor:
     """The 16-bit kernel's arithmetic over (B, S, D) q, k, v of ``dtype``
     (bf16 or fp16): see :func:`attention_model`.  Q K^T's fp32 sums run in
     the plain version's order, or with ``ksteps`` in the kernel's
     (:func:`kstep_scores`).  ``keys_per_tile``: the key tile (64; the D =
-    128 kernel's 128).  ``skip_rescale``: as the D = 128 kernel, O and l
-    keep their values (no multiply by r) on a tile where no row of a warp's
-    16 grew its max; ``skipped`` then collects how many such warp-tiles."""
+    128 kernel's 128)."""
     b, s, d = q.shape
     c = f32(d**-0.5) * f32(math.log2(math.e))
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -307,11 +305,6 @@ def online_attention(q, k, v, pieces: int, dtype: torch.dtype, ksteps: bool = Fa
         live = (rows // keys_per_tile >= j // keys_per_tile)[None, :]  # tiles above the diagonal: skipped
         new_m = torch.maximum(m, sc.amax(dim=-1))
         r = torch.exp2((m - new_m) * c)
-        if skip_rescale:  # a warp's 16 rows rescale together, or not at all
-            grew = (new_m != m).reshape(b, s // 16, 16).any(dim=-1).repeat_interleave(16, dim=1)
-            if skipped is not None:
-                skipped.append(int((~grew & live)[:, ::16].sum()))
-            r = torch.where(grew, r, torch.ones_like(r))
         p = torch.exp2(sc * c - (new_m * c)[..., None])
         acc = torch.zeros_like(o)
         rest = p
@@ -488,18 +481,17 @@ def test_descriptors_step_across_the_swizzle_spans(d):
 # -- the D = 128 kernel (flash_attention_16_d128_kernel<E>) --------------------
 #
 # 128-key tiles (Q K^T one m64n128k16 chain, each P piece one m64n128k16 over
-# both column blocks of V), O's rescale skipped where no row of a warp grew
-# its max, a persistent grid walking (head-batch, query tile) items longest
-# first, and O written through the item's Q buffer for one TMA store.
+# both column blocks of V), a persistent grid walking (head-batch, query
+# tile) items longest first, and O written through the item's Q buffer for
+# one TMA store.
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 
 
-def d128_model(q, k, v, pieces: int = 2, dtype=torch.bfloat16, skipped=None) -> torch.Tensor:
+def d128_model(q, k, v, pieces: int = 2, dtype=torch.bfloat16) -> torch.Tensor:
     """The D = 128 kernel's arithmetic: 128-key tiles, Q K^T summed in its
-    k-step order, O's rescale skipped a warp at a time."""
-    return online_attention(q, k, v, pieces, dtype, ksteps=True, keys_per_tile=D128_KEYS,
-                            skip_rescale=True, skipped=skipped)
+    k-step order."""
+    return online_attention(q, k, v, pieces, dtype, ksteps=True, keys_per_tile=D128_KEYS)
 
 
 @pytest.mark.parametrize("qk_scale", [1.0, 4.0])
@@ -518,16 +510,16 @@ def test_d128_model_late_maximum():
     check_late_maximum(d128_model, _qkv, excess, 128)
 
 
-def test_d128_skipped_rescale_is_bitwise_the_full_one():
-    """Where no row of a warp grew its max, the kernel leaves O and l as they
-    are: the factor it skips is 2^0 = 1, so nothing changes, bit for bit;
-    and at S 2 048 the skip does happen (on N(0, 1) inputs, once a row has
-    seen many keys, a new tile seldom raises its max)."""
-    q, k, v = _qkv(11, (2, 2048, 128))
-    skipped = []
-    got = d128_model(q, k, v, skipped=skipped)
-    full = online_attention(q, k, v, 2, torch.bfloat16, ksteps=True, keys_per_tile=D128_KEYS)
-    assert torch.equal(got, full) and sum(skipped) > 0, skipped
+@pytest.mark.parametrize("qk_scale", [1.0, 4.0])
+def test_d128_one_piece_misses_the_check(qk_scale):
+    """At D 128, on 128-key tiles, P rounded once to bf16 misses the check
+    the card's x1 and x4 cases hold the kernel to, where two pieces pass.
+    (At x12 the bound adds ``score_order_term``, which one piece stays
+    within: that case checks the order of the sums, not the pieces.)"""
+    q, k, v = _qkv(int(qk_scale) + 128, (2, 256, 128), qk_scale)
+    want = ref.flash_attention_ref(q, k, v)
+    one, two = (excess(d128_model(q, k, v, n), want, 256, v) for n in (1, 2))
+    assert one > 4.0 and two <= 1.0, (one, two)
 
 
 def mn_major_wide_operand(buf: np.ndarray, start: int, lbo: int) -> np.ndarray:

@@ -383,12 +383,10 @@ def test_attention_model_at_d128_late_maximum():
 # -- the D = 128 kernel (flash_attention_16_d128_kernel<F16>) ------------------
 
 
-def d128_model(q, k, v, pieces: int = 2, skipped=None) -> torch.Tensor:
+def d128_model(q, k, v, pieces: int = 2) -> torch.Tensor:
     """The D = 128 fp16 kernel's arithmetic: 128-key tiles, Q K^T in its
-    k-step order, O's rescale skipped where no row of a warp grew its max
-    (``test_torch_bf16_designs.d128_model`` in fp16)."""
-    return online_attention(q, k, v, pieces, torch.float16, ksteps=True, keys_per_tile=D128_KEYS,
-                            skip_rescale=True, skipped=skipped)
+    k-step order (``test_torch_bf16_designs.d128_model`` in fp16)."""
+    return online_attention(q, k, v, pieces, torch.float16, ksteps=True, keys_per_tile=D128_KEYS)
 
 
 @pytest.mark.parametrize("qk_scale", [1.0, 4.0, 12.0])
@@ -409,11 +407,12 @@ def test_d128_model_late_maximum():
     check_late_maximum(d128_model, _qkv, excess, 128)
 
 
-def test_d128_skipped_rescale_is_bitwise_the_full_one():
-    """As in bf16: the skipped factor is 2^0 = 1, so the skip changes no
-    bit, and at S 2 048 it happens."""
-    q, k, v = _qkv(11, (2, 2048, 128))
-    skipped = []
-    got = d128_model(q, k, v, skipped=skipped)
-    full = online_attention(q, k, v, 2, torch.float16, ksteps=True, keys_per_tile=D128_KEYS)
-    assert torch.equal(got, full) and sum(skipped) > 0, skipped
+@pytest.mark.parametrize("qk_scale", [1.0, 4.0])
+def test_d128_one_piece_misses_the_check(qk_scale):
+    """As in bf16: at D 128, on 128-key tiles, P rounded once to fp16
+    misses the check of the card's x1 and x4 cases, where two pieces pass
+    (at x12 one piece stays within the bound plus ``score_order_term``)."""
+    q, k, v = _qkv(int(qk_scale) + 128, (2, 256, 128), qk_scale)
+    want = ref.flash_attention_ref(q, k, v)
+    one, two = (excess(d128_model(q, k, v, n), want, 256, v) for n in (1, 2))
+    assert one > 2.0 and two <= 1.0, (one, two)

@@ -47,11 +47,10 @@ per-call work out of the way).  Only what the named probes need is built.
   check and beside bf16 SDPA (a library call the port never makes), with a
   clocked copy of this checkout's kernel (at D 64 each consumer
   warpgroup's cycles waiting for K/V tiles, in Q K^T, in the softmax and
-  in P V; at D 128, the persistent kernel's, also waiting for its turn at
-  the tensor cores, waiting for V and in each item's epilogue), variants
-  (at D 64 one block an SM; at D 128 the kernel with its turns, its wide
-  P V products or its skipped rescales turned off, one at a time), and the
-  bf16 kernel's opcode mix;
+  in P V; at D 128, the persistent kernel's, also waiting for P V and in
+  each item's first tile and epilogue), variants (at D 64 one block an SM;
+  at D 128 three Q buffers and two V stages), and the bf16 kernel's opcode
+  mix;
 * the fp16 attention (``flash_attention_f16``) at (96, 1024, D), after
   ``chip_smoke.py``'s checks of the fp16 attention, as the fp32 probe;
 * at ``--head-dim 128`` the bf16 and fp16 probes also run at yi-9b's
@@ -198,14 +197,14 @@ def attention_bf16_clocks() -> str:
             "    const long long ca = clock64();\n    mbar_wait(smem_u32(&bar_full[s]), (j / kStagesBf16) & 1);\n"
             "    const long long cx = clock64();\n    cw += cx - ca;\n"),
         ("    fence_regs(sc);\n\n", "    fence_regs(sc);\n    const long long cc = clock64();\n    cq += cc - cx;\n\n"),
-        ("      fence_regs(o[cb]);\n    }\n\n    // O += P V",
-            "      fence_regs(o[cb]);\n    }\n    const long long cd = clock64();\n    csm += cd - cc;\n\n"
+        ("    fence_regs(o);\n\n    // O += P V",
+            "    fence_regs(o);\n    const long long cd = clock64();\n    csm += cd - cc;\n\n"
             "    // O += P V"),
-        ("    for (int cb = 0; cb < kCols; ++cb) fence_regs(o[cb]);\n    __syncwarp();\n",
-            "    for (int cb = 0; cb < kCols; ++cb) fence_regs(o[cb]);\n    cpv += clock64() - cd;\n"
+        ("    fence_regs(o);\n    __syncwarp();\n",
+            "    fence_regs(o);\n    cpv += clock64() - cd;\n"
             "    __syncwarp();\n"),
-        ("            E::pack(o[cb][4 * i + 2] * inv1, o[cb][4 * i + 3] * inv1);\n    }\n  }\n}\n",
-            "            E::pack(o[cb][4 * i + 2] * inv1, o[cb][4 * i + 3] * inv1);\n    }\n  }\n"
+        ("          E::pack(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);\n  }\n}\n",
+            "          E::pack(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);\n  }\n"
             "  if ((threadIdx.x & 127) == 0 && g_aprof) { long long g1;\n    " + GLOBALTIMER.format("g1") + "\n"
             "    long long* d = g_aprof + 8 * ((blockIdx.y * gridDim.x + blockIdx.x) * kConsumers + wg);\n"
             "    d[0] = cw; d[1] = cq; d[2] = csm; d[3] = cpv; d[4] = n_mine; d[5] = blockIdx.y;\n"
@@ -217,8 +216,8 @@ def attention_bf16_clocks() -> str:
 
 # the D = 128 clocked copy's columns: cycles summed by phase over the tiles
 # after each item's first, then over the items, then counts and globaltimer stamps
-D128_TILE_PHASES = ("waiting for K and V", "waiting for its turn", "issuing Q K^T, the rescale and P V",
-                    "waiting for Q K^T", "softmax", "waiting for P V", "release and P pieces")
+D128_TILE_PHASES = ("waiting for K and V", "issuing Q K^T, the rescale and P V", "waiting for Q K^T", "softmax",
+                    "waiting for P V", "release and P pieces")
 D128_ITEM_PHASES = ("waiting for Q", "tile 0", "the last P V and O out")
 
 
@@ -227,41 +226,40 @@ def attention_d128_clocks() -> str:
     cycles summed by phase (``D128_TILE_PHASES`` over the tiles after each
     item's first, ``D128_ITEM_PHASES`` over its items), read by each
     warpgroup's first thread and written to a buffer set by
-    ``attn_set_prof``: 16 int64 a warpgroup (the ten sums, its tiles after
-    the first, its items, its globaltimer start and end, 0, 0)."""
+    ``attn_set_prof``: 16 int64 a warpgroup (the nine sums, its tiles after
+    the first, its items, its globaltimer start and end, 0, 0, 0)."""
     return substituted(CSRC / "flash_attention.cu", (
         ("namespace {\n", "namespace {\n__device__ long long* g_aprof;\n"),
-        ("  if (kPingPong && wg == 1) named_arrive(1, 256);  // warpgroup 0 takes the first turn\n",
-            "  if (kPingPong && wg == 1) named_arrive(1, 256);  // warpgroup 0 takes the first turn\n"
+        ("  constexpr uint64_t kTile = kD128TileBytes >> 4;  // a tile, in descriptor units\n",
+            "  constexpr uint64_t kTile = kD128TileBytes >> 4;  // a tile, in descriptor units\n"
             "  long long pg0;\n  " + GLOBALTIMER.format("pg0") + "\n"
             "  long long prof[16] = {};\n"),
         ("    mbar_wait(smem_u32(&bar_qf[qb]), (n / kQB) & 1);\n",
             "    const long long i0_ = clock64();\n    mbar_wait(smem_u32(&bar_qf[qb]), (n / kQB) & 1);\n"
-            "    const long long i1_ = clock64();\n    prof[7] += i1_ - i0_;\n"),
+            "    const long long i1_ = clock64();\n    prof[6] += i1_ - i0_;\n"),
         ("    // tile j: Q K_j^T and P_{j-1} V_{j-1} issued together",
-            "    prof[8] += clock64() - i1_;\n    // tile j: Q K_j^T and P_{j-1} V_{j-1} issued together"),
+            "    prof[7] += clock64() - i1_;\n    // tile j: Q K_j^T and P_{j-1} V_{j-1} issued together"),
         ("      wait_k(tk);\n", "      const long long ka_ = clock64();\n      wait_k(tk);\n"),
-        ("      __syncwarp();\n      turn_begin();\n      qk_d128<E>(sc, dq, dk0 + (tk % kSK) * kTile);\n",
+        ("      __syncwarp();\n      qk_d128<E>(sc, dq, dk0 + (tk % kSK) * kTile);\n",
             "      __syncwarp();\n      const long long kb_ = clock64();\n      prof[0] += kb_ - ka_;\n"
-            "      turn_begin();\n      const long long tb_ = clock64();\n      prof[1] += tb_ - kb_;\n"
             "      qk_d128<E>(sc, dq, dk0 + (tk % kSK) * kTile);\n"),
-        ("      turn_end();\n      wgmma_wait<1>();  // Q K_j^T is done",
-            "      turn_end();\n      const long long ie_ = clock64();\n      prof[2] += ie_ - tb_;\n"
+        ("      wgmma_wait<1>();  // Q K_j^T is done",
+            "      const long long ie_ = clock64();\n      prof[1] += ie_ - kb_;\n"
             "      wgmma_wait<1>();  // Q K_j^T is done"),
-        ("      online_softmax(sc, j == qt, diag_off, c, m0, m1, l0, l1, r0, r1, grew);\n      wgmma_wait<0>();\n",
-            "      const long long sa_ = clock64();\n      prof[3] += sa_ - ie_;\n"
-            "      online_softmax(sc, j == qt, diag_off, c, m0, m1, l0, l1, r0, r1, grew);\n"
-            "      const long long sb_ = clock64();\n      prof[4] += sb_ - sa_;\n      wgmma_wait<0>();\n"
-            "      const long long pw_ = clock64();\n      prof[5] += pw_ - sb_;\n"),
+        ("      online_softmax(sc, j == qt, diag_off, c, m0, m1, l0, l1, r0, r1);\n      wgmma_wait<0>();\n",
+            "      const long long sa_ = clock64();\n      prof[2] += sa_ - ie_;\n"
+            "      online_softmax(sc, j == qt, diag_off, c, m0, m1, l0, l1, r0, r1);\n"
+            "      const long long sb_ = clock64();\n      prof[3] += sb_ - sa_;\n      wgmma_wait<0>();\n"
+            "      const long long pw_ = clock64();\n      prof[4] += pw_ - sb_;\n"),
         ("      split_p<E>(sc, p_hi, p_lo);\n    }\n    // the last tile's P V, and O out\n",
-            "      split_p<E>(sc, p_hi, p_lo);\n      prof[6] += clock64() - pw_;\n      ++prof[10];\n    }\n"
+            "      split_p<E>(sc, p_hi, p_lo);\n      prof[5] += clock64() - pw_;\n      ++prof[9];\n    }\n"
             "    const long long e0_ = clock64();\n    // the last tile's P V, and O out\n"),
         ("    stored = qb;\n    g += qt + 1;\n",
-            "    stored = qb;\n    prof[9] += clock64() - e0_;\n    ++prof[11];\n    g += qt + 1;\n"),
+            "    stored = qb;\n    prof[8] += clock64() - e0_;\n    ++prof[10];\n    g += qt + 1;\n"),
         ("  if (leader) bulk_wait();  // shared memory stays until the last stores are done\n}\n",
             "  if (leader) bulk_wait();  // shared memory stays until the last stores are done\n"
             "  if (leader && g_aprof) { long long g1;\n    " + GLOBALTIMER.format("g1") + "\n"
-            "    prof[12] = pg0; prof[13] = g1;\n"
+            "    prof[11] = pg0; prof[12] = g1;\n"
             "    long long* d = g_aprof + 16 * (blockIdx.x * kConsumers + wg);\n"
             "    for (int x = 0; x < 16; ++x) d[x] = prof[x]; }\n}\n"),
         ('extern "C" {\n',
@@ -463,8 +461,8 @@ VARIANTS = {
     "topk_plain_stores": ("topk_select.cu", [(
         "      __stcs(reinterpret_cast<uint4*>(outr - q) + g,\n             make_uint4(",
         "      *(reinterpret_cast<uint4*>(outr - q) + g) = (\n             make_uint4(")]),
-    "attention_1_block": ("flash_attention.cu", [("static constexpr int kBlocksPerSm = D == 64 ? 2 : 1;",
-                                                  "static constexpr int kBlocksPerSm = 1;")]),
+    "attention_1_block": ("flash_attention.cu", [("__launch_bounds__(kBf16Threads, 2)",
+                                                  "__launch_bounds__(kBf16Threads, 1)")]),
 }
 VARIANTS.update({
     # the bf16 scatter's tiles halved (16 a row at V 50 257, five CTAs an SM) and doubled (4, two)
@@ -502,14 +500,7 @@ VARIANTS.update({
         '      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));\n',
         "  v = __ldg(p);\n")]),
 })
-# the D = 128 16-bit kernel with one part of its design turned off: no turns at the tensor
-# cores, each P piece as two m64n64k16 (one a column block of V), O rescaled on every tile
-VARIANTS.update({
-    f"attention_d128_{name}": ("flash_attention.cu", [(f"constexpr bool {flag} = true;",
-                                                       f"constexpr bool {flag} = false;")])
-    for name, flag in (("no_ping_pong", "kPingPong"), ("narrow_v", "kWideV"),
-                       ("always_rescale", "kSkipRescale"))})
-# and with three Q buffers and two V stages in the same shared memory
+# the D = 128 16-bit kernel with three Q buffers and two V stages in the same shared memory
 VARIANTS["attention_d128_q3_v2"] = ("flash_attention.cu", [(
     "constexpr int kD128QBuffers = 2, kD128KStages = 2, kD128VStages = 3;",
     "constexpr int kD128QBuffers = 3, kD128KStages = 2, kD128VStages = 2;")])
@@ -814,7 +805,8 @@ def attention_sass_same(parent_lib: Path) -> None:
     for kernel, tags in (("flash_attention_kernel", ("",)), ("flash_attention_16_kernel", ("4Bf16", "3F16"))):
         this, earlier = sass_functions(lib, kernel + "I"), sass_functions(parent_lib, kernel)
         for tag in tags:
-            mine = [body for name, body in this.items() if tag in name and "Li64E" in name]
+            # this build's D 64 instance (the 16-bit kernels take D 64 only: no D in their name)
+            mine = [body for name, body in this.items() if tag in name and "Li128E" not in name]
             # an earlier build's D 64 instance, or its kernel from before the template on D
             theirs = [body for name, body in earlier.items() if tag in name and "Li64E" in name] or [
                 body for name, body in earlier.items() if tag in name and "Li" not in name]
@@ -945,8 +937,8 @@ def topk_bf16_ab(libs, device, real=None) -> None:
 def attention_bf16_ab(libs, device, d: int) -> None:
     """The bf16 attention at (96, 1024, d) as ``attention_ab`` probes it,
     with the clocked copy's per-warpgroup phases, the variants at that head
-    dim (at D 64 one block an SM; at D 128 each part of the design turned
-    off in turn) and the kernel's opcode mix."""
+    dim (at D 64 one block an SM; at D 128 three Q buffers and two V
+    stages) and the kernel's opcode mix."""
     cs.check_attention_16(device, cs.BF16)
     ab = attention_ab(libs, device, cs.BF16, d)
     b, h, seq, d = ab["shape"]
@@ -972,11 +964,11 @@ def attention_bf16_ab(libs, device, d: int) -> None:
     else:  # the persistent kernel: one block an SM, at most one a work item
         blocks = min(torch.cuda.get_device_properties(device).multi_processor_count, b * h * (seq // 128))
         prof = attention_clock_prof(libs, runs["clocked"], blocks * 2, 16)
-        report_phases(d, prof, D128_TILE_PHASES, D128_ITEM_PHASES, 10, 11, (12, 13))
+        report_phases(d, prof, D128_TILE_PHASES, D128_ITEM_PHASES, 9, 10, (11, 12))
     lib = build.build_all(["flash_attention"])["flash_attention"]
     kernel = "flash_attention_16_kernel" if d == 64 else "flash_attention_16_d128_kernel"
     print(f"[probe] flash_attention.bf16 SASS at D {d}: "
-          f"{sass_histogram(lib, kernel, arg='4Bf16E?Li64E' if d == 64 else '4Bf16E')}", flush=True)
+          f"{sass_histogram(lib, kernel, arg='4Bf16E')}", flush=True)
 
 
 def attention_clock_prof(libs, launch, rows: int, cols: int) -> torch.Tensor:
@@ -1183,7 +1175,7 @@ def main() -> int:
         for dtype, probe in ((cs.BF16, "attention_bf16"), (cs.F16, "attention_f16")):
             if probe in kernels:
                 ab = attention_ab(libs, device, dtype, 128, shape=(1, 32, cs.YI_S), heads=cs.YI_HEADS)
-                if dtype == cs.BF16:  # the design's parts turned off one at a time, at 32k too
+                if dtype == cs.BF16:  # the D 128 variants at 32k too
                     for name in (n for n in VARIANTS if VARIANT_HEAD_DIM.get(n) == 128):
                         fn = c_fn(libs[name], "flash_attention_bf16", 4, 3, 1)
                         in_turns(f"flash_attention.bf16 {name} at (32, {cs.YI_S}, 128) (earlier: this build)",
