@@ -364,13 +364,15 @@ Phases (any failure raises and exits non-zero):
    rows of one fp16 high-digit bin), the library calls ``scatter_add_``,
    ``torch.topk`` and fp16 SDPA.  The attention also has rows at head dim
    128 (``name.d128``, N(0, 1) inputs at (96, 1024, 128), each dtype, its
-   SDPA in that dtype) and one at yi-9b's prefill_32k
-   (``flash_attention.bf16.d128.s32k``: the bf16 q/k/v of phase 6's
-   [prefill 32k] check at (32, 32 768, 128), held to the plain version on
-   the two sampled head-batches, which it times one head-batch at a time
-   over all 32; few repeats).  The wrapper counts the D = 128 instances
-   apart (``name.d128``); their rows' ``entry_launches`` are those
-   instances' launches in the yi-9b check (the 32k row's the bf16 one's).
+   SDPA in that dtype) and two at yi-9b's prefill_32k
+   (``flash_attention.d128.s32k`` and ``flash_attention.bf16.d128.s32k``:
+   the fp32 and bf16 q/k/v of phase 6's [prefill 32k] check at (32, 32 768,
+   128), held to the plain version on the two sampled head-batches, which
+   it times one head-batch at a time over all 32; few repeats, then three
+   samples each beside the SM clock, ``ms_samples`` and ``sm_clock_mhz``).
+   The wrapper counts the D = 128 instances apart (``name.d128``); their
+   rows' ``entry_launches`` are those instances' launches in the yi-9b check
+   (the 32k rows' those of their dtype's D = 128 instance).
 9. production mesh (runs after phase 6h, before the timing rows; no
    hand-written kernel).  (a) In a spawned process of its own (so that no
    state an earlier phase left reaches it), a 1x1 ``("data", "model")``
@@ -531,12 +533,13 @@ SUFFIX = {dt: suffix for dt, (_, suffix) in ops._SUFFIX.items()}  # C entry poin
 # (the int8 wire's scatter has no 16-bit input)
 KERNELS.update({f"{name}{TAG[dt]}": KERNELS[name] for dt in (BF16, F16) for name in ops.BF16_KERNELS})
 # the attention's rows at head dim 128 (the kernels' D = 128 instances, which
-# the wrapper counts under these names), and bf16 at yi-9b's prefill_32k
+# the wrapper counts under these names), and fp32 and bf16 at yi-9b's prefill_32k
 D128 = ".d128"
 ATTN_32K = "flash_attention.bf16" + D128 + ".s32k"
+ATTN_32K_F32 = "flash_attention" + D128 + ".s32k"
 KERNELS.update({f"flash_attention{TAG[dt]}{D128}": KERNELS["flash_attention"]
                 for dt in (torch.float32, BF16, F16)})
-KERNELS[ATTN_32K] = KERNELS["flash_attention"]
+KERNELS[ATTN_32K] = KERNELS[ATTN_32K_F32] = KERNELS["flash_attention"]
 # the 16-bit main-path runs: the models compute in that dtype, and so does the round body
 LOW_CFG = {BF16: dict(compute_dtype="bfloat16"), F16: dict(compute_dtype="float16")}
 # the bf16 kernels' times before their redesign (loaders that upcast each
@@ -735,6 +738,25 @@ def graph_ms(launches, calls: int = 16, reps: int = 21) -> float:
     return time_ms(graph.replay, calls=2, reps=reps) / calls
 
 
+def clocked_samples(fn, n: int = 3, least_s: float = 0.5) -> tuple[list[float], list]:
+    """``n`` timings of ``fn`` (ms a call: CUDA events around enough calls to
+    last ``least_s``), each beside the median SM clock (MHz) that
+    ``nvidia-smi`` read every 50 ms while it ran (None where it read none)."""
+    calls = max(1, math.ceil(least_s * 1e3 / time_ms(fn, calls=1, reps=1, warmup=1)))
+    ms, mhz = [], []
+    for _ in range(n):
+        proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                                 "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        try:
+            ms.append(time_ms(fn, calls=calls, reps=1, warmup=0))
+        finally:
+            proc.terminate()
+            got, _ = proc.communicate()
+        vals = [float(x) for x in got.split() if x.replace(".", "", 1).isdigit()]
+        mhz.append(statistics.median(vals) if vals else None)
+    return ms, mhz
+
+
 def in_turn(calls):
     """One call that runs ``calls`` in turn, one a time."""
     turn = itertools.cycle(calls)
@@ -808,13 +830,20 @@ def ptxas_report(text: str, keys: tuple[str, ...]) -> list[str]:
     return out
 
 
-def sass_count(lib: Path, opcode: str) -> int:
-    """Instructions of ``opcode`` in a built library's SASS (``cuobjdump
+def sass_opcodes(lib: Path, kernel: str = "") -> dict[str, int]:
+    """The opcodes (with their modifiers) of the functions of a built
+    library whose mangled name holds ``kernel``, counted (``cuobjdump
     -sass`` from the toolkit that holds nvcc)."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
                           text=True).stdout
-    return sum(1 for line in sass.splitlines() if re.search(rf"\b{opcode}\b", line))
+    counts: dict[str, int] = {}
+    for sec in re.split(r"\n\s*Function : ", sass)[1:]:
+        if kernel not in sec.split(None, 1)[0]:
+            continue
+        for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)", sec):
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
 
 
 def phase_build():
@@ -826,8 +855,8 @@ def phase_build():
                                                              "sparse_aggregate"))
               + ptxas_report(build.build_log("distill_kl"), ("distill_kl_kernel", "distill_kl_16_kernel"))
               + ptxas_report(build.build_log("flash_attention"),
-                             ("flash_attention_kernel", "flash_attention_16_kernel",
-                              "flash_attention_16_d128_kernel")))
+                             ("flash_attention_kernel", "flash_attention_f32_d128_kernel",
+                              "flash_attention_16_kernel", "flash_attention_16_d128_kernel")))
     log(f"[build] ptxas -v: {' | '.join(report) or 'no log (library built earlier)'}")
     logs = {name: build.build_log(name) for name in libs}
     warned = [line.strip() for text in logs.values() for line in text.splitlines()
@@ -837,11 +866,18 @@ def phase_build():
         + (f"; no log for {', '.join(unlogged)} (built earlier)" if unlogged else ""))
     # a serialised wgmma runs every product of its kernel one after another
     assert not warned, f"ptxas serialised wgmma products: {warned}"
-    hmma = sass_count(libs["flash_attention"], "HMMA")
-    hgmma = sass_count(libs["flash_attention"], "HGMMA")
+    count = lambda ops, kind: sum(n for op, n in ops.items() if op.split(".")[0] == kind)  # noqa: E731
+    every = sass_opcodes(libs["flash_attention"])
+    hmma, hgmma = count(every, "HMMA"), count(every, "HGMMA")
     assert hmma > 0 and hgmma > 0, "an attention kernel runs no tensor-core instruction"
-    log(f"[build] flash_attention SASS: {hmma} HMMA instructions (mma.sync) in its fp32 kernel, "
-        f"{hgmma} HGMMA (wgmma) in its bf16 and fp16 kernels: their products on the tensor cores")
+    # the fp32 kernel at D 128: TF32 warpgroup products only
+    f32_d128 = sass_opcodes(libs["flash_attention"], "flash_attention_f32_d128_kernel")
+    tf32_hgmma = sum(n for op, n in f32_d128.items() if op.startswith("HGMMA") and op.endswith(".TF32"))
+    f32_hmma = count(f32_d128, "HMMA")
+    assert tf32_hgmma > 0 and f32_hmma == 0, f32_d128
+    log(f"[build] flash_attention SASS: {hmma} HMMA instructions (mma.sync) in its fp32 kernel at D 64, "
+        f"{hgmma} HGMMA (wgmma) in the others, of which {tf32_hgmma} TF32 ones and {f32_hmma} HMMA in "
+        f"flash_attention_f32_d128_kernel: their products on the tensor cores")
 
 
 def check_scatter_kernels(device):
@@ -4342,8 +4378,8 @@ def check_yi_prefill_attention(device, card: str, seq: int = YI_S, cfg=None,
     attention of that layer (on the q/k/v rounded to the dtype; fp32 math,
     rounded once) and against the plain version on the sampled head-batches
     ``heads``, one at a time, under the same bounds; each kernel timed
-    beside its bound.  Returns the launches (``entry_d128``) and the bf16
-    q/k/v for the timing phase, on the host."""
+    beside its bound.  Returns the launches (``entry_d128``) and the fp32
+    and bf16 q/k/v for the timing phase, on the host."""
     t0 = time.perf_counter()
     q, k, v = yi_layer0_qkv(device, seq, cfg)
     h_q, group = q.shape[2], q.shape[2] // k.shape[2]
@@ -4379,8 +4415,8 @@ def check_yi_prefill_attention(device, card: str, seq: int = YI_S, cfg=None,
             f"{heads} (bound {tol:.3e}{'' if dtype == torch.float32 else ' + one ulp'}); "
             f"{ms:.3f} ms (wrapper call), bound {bound_ms:.3f} ms, {100.0 * bound_ms / ms:.1f} % "
             f"of it ({card}); kernel launches before the timing {launched}")
-        if dtype == BF16:  # kept on the host through phases 6f-9 (768 MiB)
-            out["qkv_32k"] = tuple(t.cpu() for t in (qd, kd, vd))
+        if dtype in (torch.float32, BF16):  # kept on the host through phases 6f-9 (1.5 GiB, 768 MiB)
+            out["qkv_32k" + ("_f32" if dtype == torch.float32 else "")] = tuple(t.cpu() for t in (qd, kd, vd))
         del got
     del q, k, v, qh, kh, vh
     gc.collect()
@@ -4671,6 +4707,11 @@ def time_flash_attention(qkv, device, suffix: str = "", heads=None) -> dict:
             f"{row['design_bound_ms'] / row['ms']:.1%} of its time; P V in three pieces (the basis "
             f"of the D 64 rows) at {row['bound_1p3_ms'] * 1e3:.2f} us, "
             f"{row['bound_1p3_ms'] / row['ms']:.1%}")
+    if heads is not None:  # calls of many ms, at the card's power limit: each sample beside its SM clock
+        row["ms_samples"], row["sm_clock_mhz"] = clocked_samples(raw)
+        log(f"[timing] {row['name']}: {len(row['ms_samples'])} samples " + ", ".join(
+            f"{t:.4f} ms ({'-' if c is None else f'{c:.0f}'} MHz)" for t, c in zip(row["ms_samples"],
+                                                                                   row["sm_clock_mhz"])))
     if row["name"] in EARLIER_MS:
         log(f"[timing] {row['name']}: the earlier upcasting design took {EARLIER_MS[row['name']]} ms "
             f"(H100 80GB HBM3, 700 W; PERF.md section 6), not measured in this run")
@@ -4737,6 +4778,7 @@ def main() -> int:
         entry[name] = serving["entry_launches"][name]  # GPT-2's layer 0, D 64
         entry[name + D128] = serving["entry_d128"][name + D128]  # yi-9b's layer 0 at 32k, D 128
     entry[ATTN_32K] = entry["flash_attention.bf16" + D128]
+    entry[ATTN_32K_F32] = entry["flash_attention" + D128]
     log(f"[main path] kernel launches over the ten runs, the pretrained phase's four, the "
         f"faults phase's, the host store phase's, the scale-out phase's, the families phase's, "
         f"the state-space phase's and the modal phase's {launches} (the faults "
@@ -4770,9 +4812,12 @@ def main() -> int:
     for dtype in (torch.float32, BF16, F16):  # head dim 128 at the GPT-2 rows' (96, 1024)
         rows.append(time_flash_attention(attention_inputs((8, 12, 1024, 128), dtype, device), device,
                                          D128))
+    rows.append(time_flash_attention(tuple(t.to(device) for t in serving["qkv_32k_f32"]), device,
+                                     D128 + ".s32k", heads=YI_HEADS))
+    del serving["qkv_32k_f32"]
     rows.append(time_flash_attention(tuple(t.to(device) for t in serving["qkv_32k"]), device,
                                      D128 + ".s32k", heads=YI_HEADS))
-    # a row's main-path count is its kernel instance's (the 32k row's the bf16 D = 128 one's)
+    # a row's main-path count is its kernel instance's (a 32k row's its dtype's D = 128 one's)
     rows = [{**row, "launches": launches[row["name"].removesuffix(".s32k")],
              **({"entry_launches": entry[row["name"]]} if row["name"] in entry else {})}
             for row in rows]

@@ -2,9 +2,8 @@
 //   out[b, i, :] = sum_{j <= i} softmax_j(q[b,i,:] . k[b,j,:] * D^-0.5) v[b,j,:]
 // over fused head-batches q, k, v, out: (B*H, S, D) fp32, bf16 or fp16, with
 // head dim D 64 (GPT-2, granite, stablelm, seamless, mamba2) or 128 (yi-9b,
-// command-r, llama4, internvl2, jamba, moonshot): the fp32 kernel is a
-// template on D, instantiated at both; the 16-bit ones have a kernel for
-// each D; any other D launches nothing.
+// command-r, llama4, internvl2, jamba, moonshot): each dtype has a kernel
+// for each D; any other D launches nothing.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 //   flash_attention_{f32,bf16,f16} <- flash_attention_pallas (_flash_kernel,
@@ -36,8 +35,9 @@
 // relative) and small's last bits are dropped, so the products carry
 // ~fp32 precision; the TF32 products are exact in the fp32 accumulators.
 //
-// Design.  A block owns 64 query rows of one head-batch: 4 warps of 16
-// rows, each warp one m16n8k8 row tile; blocks are launched with the query
+// Design (fp32, D = 64: flash_attention_kernel).  A block owns 64 query
+// rows of one head-batch: 4 warps of 16 rows, each warp one m16n8k8 row
+// tile; blocks are launched with the query
 // tiles that see the most keys first, so the causal triangle leaves no
 // tail of long blocks.  The q tile is staged once through shared memory,
 // scaled by D^-0.5 (= 2^-3, exact) and split into big and small A
@@ -64,21 +64,70 @@
 // 230 registers a thread (no spills): two blocks an SM; a third (168
 // registers) spills and runs slower.
 //
-// fp32 at D = 128 (flash_attention_kernel<128>).  Twice the work a key:
-// 25.8 GFLOP at B*H = 96, S = 1024, so 3 * 25.8 / 495 = 156 us.  q's split
-// fragments would take 128 registers a lane and O 64, so q's tile stays in
-// shared memory (rows padded to 144 floats, the same bank pattern as K's)
-// and each pair of k-steps reads its two float4s and splits them there; the
-// key tiles are 32 keys (S is then 16 registers), so a block of 64 query rows
-// holds 2 x 35 KB of K/V stages and 37 KB of q: 105 KB, two blocks an SM
-// (196 registers a thread, no spills).
-// K's rows padded to 144 floats and V's to 132 keep the D = 64 bank argument
-// (144 = 80 and 132 = 68 mod 32).  The block's last two key tiles take the
-// causal mask; warps 0 and 1 (rows q0 .. q0 + 31) skip the last one, all of
-// whose keys lie after their rows.  The scale 128^-0.5 = 2^-3.5 is not exact,
-// so q is not scaled: the scale enters the exponent, as in the 16-bit kernels
-// (2^(s c - m c), c = scale * log2(e)), and S = q k^T carries 3xTF32's error.
-//
+// fp32 at D = 128: a kernel of its own for Hopper,
+// flash_attention_f32_d128_kernel, on TF32 warpgroup products (wgmma: on
+// Hopper only these reach the 495 TFLOP/s; mma.sync, which the D = 64 kernel
+// issues warp by warp, does not).  Bound: 3 * 2 * S^2 * D * B*H / 2
+// operations on 495 TFLOP/s (3xTF32 as above), 156.2 us at B*H = 96, S = 1024,
+// 53.3 ms at yi-9b's prefill_32k (32, 32 768, 128).  The design before it
+// (the D = 64 kernel widened: 32-key tiles, q's tile in shared memory and
+// re-split each k-step pair, every K and V value split by each of 4 warps)
+// ran at 31 %; clocked, its warps spent 3 600 + 3 030 cycles a 32-key tile
+// in Q K^T and P V on synchronous products, two warps a scheduler, and the
+// splits ~11 % of its time (PERF.md section 6).
+//   The card's constraints for fp32 at D = 128:
+//   * TF32 wgmma (m64nNk8): a k-step is 8 values, 32 bytes; A from registers
+//     or shared memory, B from shared memory, and both shared-memory
+//     operands K-major (TF32 has no transpose).  Q and K as stored are
+//     K-major; V as stored, (keys, D), is MN-major, so P V's B is V^T (keys
+//     along k), which someone lays out.
+//   * A 512-byte fp32 row is four 128-byte swizzle spans: a tile is four TMA
+//     boxes, and a K-major descriptor steps to the next column block every
+//     4 k-steps.
+//   * The tensor core reads an fp32 operand's top 19 bits: a tile as landed
+//     is its own big part, truncated.  Truncated, small is up to 2^-10 |x|
+//     (rounded: 2^-11), and the CPU model misses the bound at (3, 96, 128)
+//     with q, k x4 where rounding holds (test_torch_fp32_d128_designs.py),
+//     so big is rounded as at D = 64 and K and V get tiles of their own.
+//   * 227 KB of shared memory a block, read at 128 bytes a cycle; an RS
+//     m64nNk8 (A from registers) reads N * 32 bytes of B in N / 2 tensor
+//     cycles, half that rate; 255 registers a thread, O 64 of them.
+//   The design:
+//   * Persistent, as flash_attention_16_d128_kernel: one block an SM walks
+//     (head-batch, 128 query rows) items longest first (d128_slot); 384
+//     threads, a producer warpgroup at 56 registers and two consumer
+//     warpgroups of 64 rows at 224 (setmaxnreg; 128 * 56 + 256 * 224 =
+//     64 512).  64-key tiles: consumer w takes tiles 0 .. its diagonal.
+//   * Every value is split once a block.  The consumers hold Q's and P's A
+//     fragments in registers and split them there (Q two k-steps at a time
+//     from its landed tile, into two register sets the products read in
+//     turn; P as the softmax leaves it, each k-step's fragment the
+//     accumulators in place).  The producer's first thread loads Q (a 32 KB
+//     half a consumer) and each K and V tile by TMA into one landing
+//     buffer, K and V in turn; all 128 producer threads split each landed
+//     K tile into K's big and small tiles (same layout) and transpose each
+//     V tile into V^T's big and small tiles (row d, k position p of k-step
+//     kk holding key 8 kk + 2p for p < 4 and 8 kk + 2 (p - 4) + 1 after:
+//     the order in which P's fragment takes the keys).
+//   * S = Q K^T in 16 k-steps of three m64n64k8 (RS): Q's small part times
+//     K's big and Q's big times K's small into one accumulator, big times
+//     big into another, added once; O += P V in 8 k-steps of three
+//     m64n128k8 (RS), the small terms first.  The scale is in the exponent
+//     (2^(s c - m c)).
+//   * One stage each of K's two tiles and V^T's two tiles: the consumers
+//     take Q K^T and P V in turn, and the producer refills the one while
+//     they run the other.  Every consumer warp releases every tile, used or
+//     not, so that no single-stage barrier runs a phase ahead of a
+//     warpgroup.  O goes out from registers (rows past seq not written).
+//   Budget.  Shared memory: Q 64 KB, K's tiles 64 KB, the landing buffer 32
+//   KB, V^T's tiles 64 KB: 224 KB and 1 KB of alignment.  Its traffic a
+//   64-key tile for both consumers: wgmma 384 KB, Q's fragment loads 64 KB,
+//   the producer's splits 192 KB (K and V: 32 read, 64 written each) and
+//   the TMA's writes 64 KB, 704 KB against the 6 144 tensor cycles of the
+//   tile's products at 128 bytes a cycle: 92 % of the rate, were the tensor
+//   cores never idle.  Times, the clocked phases and the parts tried:
+//   PERF.md section 6, from tools/kernel_probe.py.
+
 // bf16 q, k, v (flash_attention_bf16), as the reference's kernel takes
 // them (it upcasts each tile and returns q's dtype): a kernel of its own, on
 // Hopper's bf16 warpgroup products (wgmma, 989 TFLOP/s against TF32's 495).
@@ -190,25 +239,20 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;      // query rows per block
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The fp32 kernel's tiles at head dim D.  D = 64: 64-key tiles, q's split
-// fragments in registers for the whole block.  D = 128: 32-key tiles, q's
-// tile in shared memory beside the two K/V stages.
-template <int D>
+// The fp32 kernel's tiles at head dim 64: 64-key tiles, q's split fragments
+// in registers for the whole block.
 struct Tiles32 {
-  static constexpr int kKeys = D == 64 ? 64 : 32;  // keys per staged tile
+  static constexpr int kD = 64;      // head dim
+  static constexpr int kKeys = 64;   // keys per staged tile
   // shared-memory rows padded (in floats) so that a warp's fragment loads hit
-  // distinct banks: K's (and q's) for 16-byte loads, V's for 4-byte loads
-  static constexpr int kStrideK = D + 16;
-  static constexpr int kStrideV = D + 4;
+  // distinct banks: K's for 16-byte loads, V's for 4-byte loads
+  static constexpr int kStrideK = kD + 16;
+  static constexpr int kStrideV = kD + 4;
   static constexpr int kTileK = kKeys * kStrideK;  // floats of one staged K or V tile
   static constexpr int kTileV = kKeys * kStrideV;
   static constexpr int kStage = kTileK + kTileV;
-  static constexpr bool kQRegs = D == 64;  // q's fragments in registers, q scaled by 2^-3 first
-  // 2 stages of K and V, and q's tile where it stays in shared memory
-  static constexpr int kSmemBytes = (2 * kStage + (kQRegs ? 0 : kRows * kStrideK)) * (int)sizeof(float);
-  static constexpr int kMinBlocks = kQRegs ? 1 : 2;  // D = 128: two blocks an SM, 255 registers
-  static_assert(D == 64 || D == 128, "head dims 64 and 128");
-  static_assert(kRows % kKeys == 0, "a block's query tile is whole key tiles");
+  static constexpr int kSmemBytes = 2 * kStage * (int)sizeof(float);  // 2 stages of K and V
+  static_assert(kRows == kKeys, "a block's query tile is one key tile");
 };
 
 // x = big + small to ~22 bits.  big is cvt.rna.tf32.f32(x) for finite x,
@@ -277,17 +321,16 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, Tiles32<D>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ out, int seq,
                            float scale) {
-  using T = Tiles32<D>;
+  using T = Tiles32;
+  constexpr int D = T::kD;
   constexpr int kKeys = T::kKeys, kStrideK = T::kStrideK, kStrideV = T::kStrideV;
   constexpr int kTileK = T::kTileK, kStage = T::kStage;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // stage s: K, then V, at s * kStage
-  float* q_tile = smem + 2 * kStage;              // D = 128: q's tile, the whole block
 
   const int n_qt = (seq + kRows - 1) / kRows;
   const int q0 = (n_qt - 1 - (int)blockIdx.y) * kRows;  // the longest query tiles first
@@ -296,25 +339,22 @@ __global__ void __launch_bounds__(kThreads, Tiles32<D>::kMinBlocks)
   const int g = lane >> 2, t = lane & 3;  // fragment row group and lane in the quad
   const int row0 = q0 + 16 * warp + g, row1 = row0 + 8;
   const int n_kt = q0 / kKeys + kRows / kKeys;  // key tiles 0 .. the block's last row
-  // exp(x * scale) = 2^(x c): at D = 64 q is scaled by 2^-3 first (exact) and
-  // c = log2(e); at D = 128 the scale enters the exponent
-  const float c = T::kQRegs ? kLog2e : scale * kLog2e;
+  // exp(x * scale) = 2^(x c): q is scaled by 2^-3 first (exact) and c = log2(e)
+  const float c = kLog2e;
 
-  // D = 64: the q tile through stage 1's K buffer, beside key tile 0 in stage 0
+  // the q tile through stage 1's K buffer, beside key tile 0 in stage 0
   stage<D, kKeys, kStrideK>(smem, k + base, 0, seq);
   stage<D, kKeys, kStrideV>(smem + kTileK, v + base, 0, seq);
-  stage<D, kRows, kStrideK>(T::kQRegs ? smem + kStage : q_tile, q + base, q0, seq);
+  stage<D, kRows, kStrideK>(smem + kStage, q + base, q0, seq);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  // D = 64: A fragments of the scaled q, big and small.  The sum over D is
-  // taken in another order inside each pair of k-steps (2m, 2m + 1): A
-  // column t holds d = 16m + 4t + 2h of k-step 2m + h, column t + 4 the next
-  // d, and K's B fragments follow, so that a lane reads its four K values as
-  // one float4.  D = 128 reads the same fragments from q's tile k-step pair
-  // by k-step pair, unscaled.
-  uint32_t qb[T::kQRegs ? D / 8 : 1][4], qs[T::kQRegs ? D / 8 : 1][4];
-  if constexpr (T::kQRegs) {
+  // A fragments of the scaled q, big and small.  The sum over D is taken in
+  // another order inside each pair of k-steps (2m, 2m + 1): A column t holds
+  // d = 16m + 4t + 2h of k-step 2m + h, column t + 4 the next d, and K's B
+  // fragments follow, so that a lane reads its four K values as one float4.
+  uint32_t qb[D / 8][4], qs[D / 8][4];
+  {
     const float* qt = smem + kStage + 16 * warp * kStrideK + 4 * t;
 #pragma unroll
     for (int m = 0; m < D / 16; ++m) {
@@ -351,97 +391,74 @@ __global__ void __launch_bounds__(kThreads, Tiles32<D>::kMinBlocks)
     const float* ks = smem + (it & 1) * kStage;
     const float* vs = ks + kTileK;
     const int k0 = it * kKeys;
-    // the tiles that reach past the block's first row take the causal mask
-    const bool diag = kKeys == kRows ? it == n_kt - 1 : k0 >= q0;
+    // the block's last key tile takes the causal mask
+    const bool diag = it == n_kt - 1;
 
-    // D = 128: a warp whose rows all lie before the tile's keys skips it
-    // (warps 0 and 1 on the last tile); key k0 <= every row it does run
-    if (kKeys == kRows || k0 <= q0 + 16 * warp + 15) {
-      // S = (q * scale) k^T (D = 128: q k^T), 16 rows x kKeys keys a warp:
-      // the key n-tiles are independent accumulators, interleaved over each k-step
-      float s[kKeys / 8][4];
+    // S = (q * scale) k^T, 16 rows x kKeys keys a warp: the key n-tiles are
+    // independent accumulators, interleaved over each k-step
+    float s[kKeys / 8][4];
 #pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+    for (int j = 0; j < kKeys / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
-      for (int m = 0; m < D / 16; ++m) {
-        uint32_t ab[2][4], as[2][4];  // D = 128: q's fragments of k-steps 2m and 2m + 1
-        if constexpr (!T::kQRegs) {
-          const float* qt = q_tile + 16 * warp * kStrideK + 4 * t + 16 * m;
-          const float4 x0 = *reinterpret_cast<const float4*>(qt + g * kStrideK);
-          const float4 x1 = *reinterpret_cast<const float4*>(qt + (g + 8) * kStrideK);
-          split(x0.x, ab[0][0], as[0][0]);
-          split(x1.x, ab[0][1], as[0][1]);
-          split(x0.y, ab[0][2], as[0][2]);
-          split(x1.y, ab[0][3], as[0][3]);
-          split(x0.z, ab[1][0], as[1][0]);
-          split(x1.z, ab[1][1], as[1][1]);
-          split(x0.w, ab[1][2], as[1][2]);
-          split(x1.w, ab[1][3], as[1][3]);
-        }
-#pragma unroll
-        for (int j = 0; j < kKeys / 8; ++j) {
-          const float4 kr =
-              *reinterpret_cast<const float4*>(ks + (8 * j + g) * kStrideK + 16 * m + 4 * t);
-          if constexpr (T::kQRegs) {
-            mma3(s[j], qb[2 * m], qs[2 * m], kr.x, kr.y);
-            mma3(s[j], qb[2 * m + 1], qs[2 * m + 1], kr.z, kr.w);
-          } else {
-            mma3(s[j], ab[0], as[0], kr.x, kr.y);
-            mma3(s[j], ab[1], as[1], kr.z, kr.w);
-          }
-        }
-      }
-      // the causal mask, then the tile's row max across the quad
-      float mx0 = -INFINITY, mx1 = -INFINITY;
+    for (int m = 0; m < D / 16; ++m) {
 #pragma unroll
       for (int j = 0; j < kKeys / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * j + 2 * t + (e & 1);
-          if (diag && key > (e < 2 ? row0 : row1)) s[j][e] = -INFINITY;
-        }
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+        const float4 kr =
+            *reinterpret_cast<const float4*>(ks + (8 * j + g) * kStrideK + 16 * m + 4 * t);
+        mma3(s[j], qb[2 * m], qs[2 * m], kr.x, kr.y);
+        mma3(s[j], qb[2 * m + 1], qs[2 * m + 1], kr.z, kr.w);
       }
-      // key k0 <= every row of the warp, so the new maxima are finite;
-      // exp(x) = 2^(x log2 e), and exp(-inf) is an exact 0
-      const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
-      const float r0 = exp2_approx((m0 - n0) * c);  // 0 on the first tile
-      const float r1 = exp2_approx((m1 - n1) * c);
-      m0 = n0;
-      m1 = n1;
-      const float c0 = -m0 * c, c1 = -m1 * c;
-      l0 *= r0;
-      l1 *= r1;
+    }
+    // the causal mask, then the tile's row max across the quad
+    float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        o[nd][0] *= r0;
-        o[nd][1] *= r0;
-        o[nd][2] *= r1;
-        o[nd][3] *= r1;
+    for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        if (diag && key > (e < 2 ? row0 : row1)) s[j][e] = -INFINITY;
       }
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    // key k0 <= every row of the warp, so the new maxima are finite;
+    // exp(x) = 2^(x log2 e), and exp(-inf) is an exact 0
+    const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+    const float r0 = exp2_approx((m0 - n0) * c);  // 0 on the first tile
+    const float r1 = exp2_approx((m1 - n1) * c);
+    m0 = n0;
+    m1 = n1;
+    const float c0 = -m0 * c, c1 = -m1 * c;
+    l0 *= r0;
+    l1 *= r1;
 #pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j) {
-        s[j][0] = exp2_approx(fmaf(s[j][0], c, c0));
-        s[j][1] = exp2_approx(fmaf(s[j][1], c, c0));
-        s[j][2] = exp2_approx(fmaf(s[j][2], c, c1));
-        s[j][3] = exp2_approx(fmaf(s[j][3], c, c1));
-        l0 += s[j][0] + s[j][1];
-        l1 += s[j][2] + s[j][3];
-      }
-      // O += P V: the accumulators of keys (2t, 2t + 1) are the A columns
-      // (t, t + 4), so the B fragment takes V rows 2t and 2t + 1
+    for (int nd = 0; nd < D / 8; ++nd) {
+      o[nd][0] *= r0;
+      o[nd][1] *= r0;
+      o[nd][2] *= r1;
+      o[nd][3] *= r1;
+    }
 #pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j) {
-        uint32_t pb[4], ps[4];
-        split(s[j][0], pb[0], ps[0]);
-        split(s[j][2], pb[1], ps[1]);
-        split(s[j][1], pb[2], ps[2]);
-        split(s[j][3], pb[3], ps[3]);
-        const float* vr = vs + (8 * j + 2 * t) * kStrideV + g;
+    for (int j = 0; j < kKeys / 8; ++j) {
+      s[j][0] = exp2_approx(fmaf(s[j][0], c, c0));
+      s[j][1] = exp2_approx(fmaf(s[j][1], c, c0));
+      s[j][2] = exp2_approx(fmaf(s[j][2], c, c1));
+      s[j][3] = exp2_approx(fmaf(s[j][3], c, c1));
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+    // O += P V: the accumulators of keys (2t, 2t + 1) are the A columns
+    // (t, t + 4), so the B fragment takes V rows 2t and 2t + 1
 #pragma unroll
-        for (int nd = 0; nd < D / 8; ++nd) mma3(o[nd], pb, ps, vr[8 * nd], vr[kStrideV + 8 * nd]);
-      }
+    for (int j = 0; j < kKeys / 8; ++j) {
+      uint32_t pb[4], ps[4];
+      split(s[j][0], pb[0], ps[0]);
+      split(s[j][2], pb[1], ps[1]);
+      split(s[j][1], pb[2], ps[2]);
+      split(s[j][3], pb[3], ps[3]);
+      const float* vr = vs + (8 * j + 2 * t) * kStrideV + g;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) mma3(o[nd], pb, ps, vr[8 * nd], vr[kStrideV + 8 * nd]);
     }
     __syncthreads();  // the tile is read before the next stage overwrites it
   }
@@ -463,16 +480,15 @@ __global__ void __launch_bounds__(kThreads, Tiles32<D>::kMinBlocks)
   }
 }
 
-template <int D>
 int launch_attention(const float* q, const float* k, const float* v, float* out, int bh, int seq,
                      float scale, void* stream) {
-  constexpr int kSmemBytes = Tiles32<D>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D>,
+  constexpr int kSmemBytes = Tiles32::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (seq + kRows - 1) / kRows);
-  flash_attention_kernel<D><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(q, k, v, out,
-                                                                                  seq, scale);
+  flash_attention_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(q, k, v, out, seq,
+                                                                               scale);
   return (int)cudaGetLastError();
 }
 
@@ -950,18 +966,19 @@ __device__ __forceinline__ void pv_d128(float (&o)[64], const uint32_t (&p_hi)[3
   wgmma_commit();
 }
 
-// The online softmax of one tile's scores, in place.  The accumulator
-// fragment: sc[4x + e] holds row wrow + 8 (e >> 1) of the query tile, key
-// 8x + 2t + (e & 1) of the tile.  On the diagonal tile a key after the query
+// The online softmax of one tile's N / 8 x 8 scores a warpgroup row pair, in
+// place.  The accumulator fragment: sc[4x + e] holds row wrow + 8 (e >> 1) of
+// the query tile, key 8x + 2t + (e & 1) of the tile.  On the diagonal tile a key after the query
 // is -inf before the max (its weight an exact 0); the row max over the quad;
 // r = 2^((m - new m) c), the factor that takes O and l to the new max; then
 // each score becomes 2^(s c - m c), summed into l.
-__device__ __forceinline__ void online_softmax(float (&sc)[64], bool diag, int diag_off, float c,
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&sc)[N], bool diag, int diag_off, float c,
                                                float& m0, float& m1, float& l0, float& l1,
                                                float& r0, float& r1) {
   if (diag) {
 #pragma unroll
-    for (int x = 0; x < 16; ++x) {
+    for (int x = 0; x < N / 4; ++x) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (8 * x + (e & 1) - 8 * (e >> 1) + diag_off > 0) sc[4 * x + e] = -INFINITY;
@@ -969,7 +986,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[64], bool diag, int d
   }
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int x = 0; x < 16; ++x) {
+  for (int x = 0; x < N / 4; ++x) {
     mx0 = fmaxf(mx0, fmaxf(sc[4 * x], sc[4 * x + 1]));
     mx1 = fmaxf(mx1, fmaxf(sc[4 * x + 2], sc[4 * x + 3]));
   }
@@ -983,7 +1000,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[64], bool diag, int d
   const float c0 = -m0 * c, c1 = -m1 * c;
   float s0 = 0.0f, s1 = 0.0f;
 #pragma unroll
-  for (int x = 0; x < 16; ++x) {
+  for (int x = 0; x < N / 4; ++x) {
     sc[4 * x] = exp2_approx(fmaf(sc[4 * x], c, c0));
     sc[4 * x + 1] = exp2_approx(fmaf(sc[4 * x + 1], c, c0));
     sc[4 * x + 2] = exp2_approx(fmaf(sc[4 * x + 2], c, c1));
@@ -1227,6 +1244,349 @@ __global__ void __launch_bounds__(kD128Threads, 1)
   if (leader) bulk_wait();  // shared memory stays until the last stores are done
 }
 
+// ---- fp32 at D = 128: 3xTF32 on TF32 warpgroup products, persistent --------
+
+constexpr int kF32Keys = 64;                        // keys a K/V tile
+constexpr int kF32Block = 64 * kSpanBytes;          // a column block (32 fp32) of 64 rows: 8 KB
+constexpr int kF32Tile = 4 * kF32Block;             // 64 rows of 128 fp32: 32 KB
+constexpr int kF32VtBlock = 128 * kSpanBytes;       // a column block (32 keys) of V^T's 128 rows: 16 KB
+static_assert(2 * kF32VtBlock == kF32Tile, "V^T of a 64-key tile is one tile's bytes");
+// Q (a 32 KB half a consumer warpgroup), K's big and small parts, the
+// landing buffer (K's and V's tiles in turn), V^T's big and small parts:
+// 7 x 32 KB, with the 1 KB alignment 225 KB
+constexpr int kF32Smem = 1024 + 7 * kF32Tile;
+constexpr int kF32Threads = 128 * (kConsumers + 1);
+// the producer warpgroup splits and transposes, so it keeps more than the
+// 16-bit kernel's: 128 * 56 + 256 * 224 = 64 512 of the SM's 65 536
+constexpr int kF32ProducerRegs = 56, kF32ConsumerRegs = 224;
+
+// d (+)= A B, one m64n64k8 TF32 product: A (64 x 8) from registers, fp32
+// values of which the tensor core reads the top 19 bits, in the fragment
+// a0 (row g, column t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) of
+// each warp's 16 rows; B (64 x 8, K-major) from shared memory; scale_d = 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t* a, uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      WGMMA_D : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d += A B, one m64n128k8 TF32 product: A as above, B (128 x 8, K-major).
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{" WGMMA_REGS64 "}, {%64, %65, %66, %67}, %68, 1, 1, 1;\n"
+      WGMMA_D64 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// split (above) on the four values of a float4: big and small as floats
+__device__ __forceinline__ void split4(float4 x, float4& big, float4& small) {
+  uint32_t b[4], s[4];
+  split(x.x, b[0], s[0]);
+  split(x.y, b[1], s[1]);
+  split(x.z, b[2], s[2]);
+  split(x.w, b[3], s[3]);
+  big = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]), __uint_as_float(b[2]),
+                    __uint_as_float(b[3]));
+  small = make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]), __uint_as_float(s[2]),
+                      __uint_as_float(s[3]));
+}
+
+// A consumer warpgroup's key tiles of the item whose 128 query rows start at
+// q0: 0 .. its diagonal, none when its 64 rows lie past seq
+__device__ __forceinline__ int f32_tiles(int q0, int wg, int seq) {
+  return q0 + 64 * wg < seq ? (q0 + 64 * wg) / kF32Keys + 1 : 0;
+}
+
+// S = Q K^T over one 64-key tile in 3xTF32, 16 k-steps of 8 columns: the
+// small terms (Q's small part times K's big, Q's big times K's small) summed
+// into ss, big times big into sb.  Q's A fragment is read from its tile as
+// TMA landed it (row wrow: 16-byte chunk (2 (kk % 4) + h) ^ g of column
+// block kk / 4, word t) two k-steps at a time and split there, into two sets
+// of registers the tensor cores read in turn.
+__device__ __forceinline__ void qk_f32(float (&sb)[32], float (&ss)[32], const float* q_row, int g,
+                                       uint64_t dk, uint64_t dks) {
+  constexpr int kRow8 = 8 * kSpanBytes / 4;  // 8 rows on, in floats
+  uint32_t qa[2][8], qs[2][8];  // [set][4 h + register]
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {  // k-step pairs
+    const int b = p & 1;
+    if (p >= 2) wgmma_wait<1>();  // the pair before last is done with set b
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kk = 2 * p + h;
+      const float* at = q_row + (kk / 4) * (kF32Block / 4);
+      const int c0 = ((2 * (kk % 4)) ^ g) << 2, c1 = ((2 * (kk % 4) + 1) ^ g) << 2;
+      const float x[4] = {at[c0], at[c0 + kRow8], at[c1], at[c1 + kRow8]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(x[e], qa[b][4 * h + e], qs[b][4 * h + e]);
+    }
+    fence_regs(qa[b]);
+    fence_regs(qs[b]);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kk = 2 * p + h;
+      const uint64_t off = (kk / 4) * (kF32Block >> 4) + 2 * (kk % 4);  // 32 bytes a k-step
+      wgmma_tf32_n64(ss, qs[b] + 4 * h, dk + off, kk);
+      wgmma_tf32_n64(ss, qa[b] + 4 * h, dks + off, 1);
+      wgmma_tf32_n64(sb, qa[b] + 4 * h, dk + off, kk);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+}
+
+// O += P V over one 64-key tile in 3xTF32: 8 k-steps of 8 keys, three
+// m64n128k8 products each, the small terms first.  pb and ps hold P's big
+// and small parts, each k-step's A fragment in place (k-step kk: registers
+// 4 kk ..): column t of the fragment is key 2t, column t + 4 key 2t + 1, and
+// V^T's k positions follow.
+__device__ __forceinline__ void pv_f32(float (&o)[64], const uint32_t (&pb)[32], const uint32_t (&ps)[32],
+                                       uint64_t dvt, uint64_t dvts) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t off = (kk / 4) * (kF32VtBlock >> 4) + 2 * (kk % 4);
+    wgmma_tf32_n128(o, ps + 4 * kk, dvt + off);
+    wgmma_tf32_n128(o, pb + 4 * kk, dvts + off);
+    wgmma_tf32_n128(o, pb + 4 * kk, dvt + off);
+  }
+  wgmma_commit();
+}
+
+// Each block: a producer warpgroup and two consumer warpgroups of 64 query
+// rows, walking the (head-batch, 128 query rows) items longest first
+// (d128_slot).  The producer's first thread loads each consumer's Q once it
+// released the item before's, and each K and V tile (0 .. the item's last
+// diagonal) by TMA into one landing buffer, K and V in turn; all 128
+// producer threads split each landed K tile into its big and small tiles,
+// and transpose each V tile into V^T's, after which the landing buffer takes
+// the next tile.  One stage each: the consumers take Q K^T and P V in turn,
+// and the producer refills the stage of the one while they run the other.
+// Every consumer warp releases every tile, used or not (a tile past its
+// warpgroup's diagonal is released as it is ready), so that the stages'
+// barriers never run a phase ahead of a warpgroup.  c = scale * log2(e).
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_attention_f32_d128_kernel(__grid_constant__ const CUtensorMap tm_q,
+                                    __grid_constant__ const CUtensorMap tm_k,
+                                    __grid_constant__ const CUtensorMap tm_v, float* __restrict__ out,
+                                    int n_bh, int seq, float c) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_qf[kConsumers], bar_qe[kConsumers], bar_l, bar_kf, bar_ke, bar_vf,
+      bar_ve;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t s_q = (raw + 1023u) & ~1023u;  // consumer w's Q rows at s_q + w * kF32Tile
+  const uint32_t s_k = s_q + kConsumers * kF32Tile;  // K's big part
+  const uint32_t s_ks = s_k + kF32Tile;             // K's small part
+  const uint32_t s_l = s_ks + kF32Tile;             // the landing buffer: K, then V
+  const uint32_t s_vt = s_l + kF32Tile;             // V^T's big part
+  const uint32_t s_vts = s_vt + kF32Tile;           // V^T's small part
+  float* const sm = reinterpret_cast<float*>(smem_raw + (s_q - raw));  // s_q, for plain loads and stores
+
+  const int n_qt = (seq + kBlockRows - 1) / kBlockRows;
+  const int items = n_bh * n_qt, grid = gridDim.x, blk = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kConsumers; ++w) {
+      mbar_init(smem_u32(&bar_qf[w]), 1);
+      mbar_init(smem_u32(&bar_qe[w]), 4);
+    }
+    mbar_init(smem_u32(&bar_l), 1);
+    mbar_init(smem_u32(&bar_kf), 128);
+    mbar_init(smem_u32(&bar_vf), 128);
+    mbar_init(smem_u32(&bar_ke), 4 * kConsumers);
+    mbar_init(smem_u32(&bar_ve), 4 * kConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
+    const int pt = threadIdx.x - 128 * kConsumers;
+    const bool leader = pt == 0;
+    // 64 rows from row0 of head-batch bh as four boxes, completing on bar
+    auto load = [&](const CUtensorMap* map, uint32_t dst, int row0, int bh, uint64_t* bar) {
+      mbar_expect_tx(smem_u32(bar), kF32Tile);
+#pragma unroll 1
+      for (int cb = 0; cb < 4; ++cb) tma_load(dst + cb * kF32Block, map, 32 * cb, row0, bh, smem_u32(bar));
+    };
+    // the block's item in the round after r, or -1
+    auto next_item = [&](int r) {
+      const int i = d128_slot(r + 1, blk, grid);
+      return (r + 1) * grid < items && i < items ? i : -1;
+    };
+    // every producer thread has read the landing buffer: the leader loads the next tile
+    auto landing_read = [&]() {
+      __syncwarp();
+      named_sync(3, 128);
+    };
+    // V^T: thread pt writes row d = pt; V as landed holds (key, d) in column
+    // block d / 32 at row key, 16-byte chunk ((d % 32) / 4) ^ (key % 8)
+    const float* v_in = sm + (s_l - s_q + (pt >> 5) * kF32Block + (pt & 3) * 4) / 4;
+    const int dc = (pt >> 2) & 7;
+    int nq[kConsumers] = {0, 0};  // Q loads of each consumer
+    int n = 0;                    // K and V tiles so far: the landing buffer's phase 2n is K's, 2n + 1 V's
+    if (leader) load(&tm_k, s_l, 0, blk % n_bh, &bar_l);  // the first item is blk
+    for (int r = 0; r * grid < items; ++r) {
+      const int i = d128_slot(r, blk, grid);
+      if (i >= items) continue;
+      const int bh = i % n_bh, q0 = kBlockRows * (n_qt - 1 - i / n_bh);
+      const int n_item = max(f32_tiles(q0, 0, seq), f32_tiles(q0, 1, seq));
+      if (leader) {
+        for (int w = 0; w < kConsumers; ++w) {
+          if (f32_tiles(q0, w, seq) == 0) continue;
+          if (nq[w] > 0) mbar_wait(smem_u32(&bar_qe[w]), (nq[w] - 1) & 1);
+          load(&tm_q, s_q + w * kF32Tile, q0 + 64 * w, bh, &bar_qf[w]);
+          ++nq[w];
+        }
+      }
+      for (int j = 0; j < n_item; ++j, ++n) {
+        // K tile j, landed, into its big and small parts once every consumer
+        // released the tile before
+        mbar_wait(smem_u32(&bar_l), 0);
+        if (n > 0) mbar_wait(smem_u32(&bar_ke), (n - 1) & 1);
+#pragma unroll 4
+        for (int x = pt; x < kF32Tile / 16; x += 128) {
+          float4 big, small;
+          split4(reinterpret_cast<const float4*>(sm)[(s_l - s_q) / 16 + x], big, small);
+          reinterpret_cast<float4*>(sm)[(s_k - s_q) / 16 + x] = big;
+          reinterpret_cast<float4*>(sm)[(s_ks - s_q) / 16 + x] = small;
+        }
+        fence_proxy_async();
+        mbar_arrive(smem_u32(&bar_kf));
+        landing_read();
+        if (leader) load(&tm_v, s_l, kF32Keys * j, bh, &bar_l);
+        // V tile j, landed, into V^T's big and small parts (keys along k in
+        // the order P's fragment takes them: positions 4h .. 4h + 3 of
+        // k-step kk hold keys 8 kk + 2e + h), once every consumer released
+        // the tile before
+        mbar_wait(smem_u32(&bar_l), 1);
+        if (n > 0) mbar_wait(smem_u32(&bar_ve), (n - 1) & 1);
+#pragma unroll
+        for (int kk = 0; kk < kF32Keys / 8; ++kk) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float x[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = 8 * kk + 2 * e + h;
+              x[e] = v_in[(key * kSpanBytes + ((dc ^ (key & 7)) << 4)) / 4];
+            }
+            float4 big, small;
+            split4(make_float4(x[0], x[1], x[2], x[3]), big, small);
+            const int at =
+                ((kk / 4) * kF32VtBlock + pt * kSpanBytes + (((2 * (kk % 4) + h) ^ (pt & 7)) << 4)) / 16;
+            reinterpret_cast<float4*>(sm)[(s_vt - s_q) / 16 + at] = big;
+            reinterpret_cast<float4*>(sm)[(s_vts - s_q) / 16 + at] = small;
+          }
+        }
+        fence_proxy_async();
+        mbar_arrive(smem_u32(&bar_vf));
+        landing_read();
+        if (leader) {  // the next K tile: this item's, or the next item's first
+          const int ni = j + 1 < n_item ? i : next_item(r);
+          if (ni >= 0) load(&tm_k, s_l, j + 1 < n_item ? kF32Keys * (j + 1) : 0, ni % n_bh, &bar_l);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kF32ConsumerRegs));
+
+  // this consumer warpgroup, broadcast from lane 0 so that the compiler
+  // keeps what derives from it (the wgmma descriptors) in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = 16 * (warp & 3) + g;  // the thread's first row among the warpgroup's 64
+  const int diag_off = 2 * t - wrow;     // key - row on the diagonal tile, less 8 x + (e & 1) - 8 (e >> 1)
+  const float* q_row = sm + (wg * kF32Tile + wrow * kSpanBytes) / 4 + t;
+  const uint64_t dk = sw128_desc(s_k), dks = sw128_desc(s_ks), dvt = sw128_desc(s_vt),
+                 dvts = sw128_desc(s_vts);
+  auto release = [&](uint64_t* empty) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(empty));
+  };
+
+  int nq = 0, n = 0;  // this warpgroup's Q loads; the block's K and V tiles so far
+  for (int r = 0; r * grid < items; ++r) {
+    const int i = d128_slot(r, blk, grid);
+    if (i >= items) continue;
+    const int bh = i % n_bh, q0 = kBlockRows * (n_qt - 1 - i / n_bh);
+    const int n_item = max(f32_tiles(q0, 0, seq), f32_tiles(q0, 1, seq));
+    const int n_mine = f32_tiles(q0, wg, seq);
+    float o[64];
+#pragma unroll
+    for (int x = 0; x < 64; ++x) o[x] = 0.0f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+    if (n_mine > 0) mbar_wait(smem_u32(&bar_qf[wg]), nq & 1);
+    for (int j = 0; j < n_mine; ++j) {
+      mbar_wait(smem_u32(&bar_kf), (n + j) & 1);
+      __syncwarp();  // the warp converged again for the .aligned wgmma instructions
+      float sb[32], ss[32];
+      qk_f32(sb, ss, q_row, g, dk, dks);
+      fence_regs(sb);
+      fence_regs(ss);
+      release(&bar_ke);
+      if (j == n_mine - 1) {  // Q is read: the next item's may land
+        fence_proxy_async();
+        release(&bar_qe[wg]);
+      }
+      float sc[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) sc[x] = sb[x] + ss[x];
+      float r0, r1;
+      online_softmax(sc, j == n_mine - 1, diag_off, c, m0, m1, l0, l1, r0, r1);
+      rescale_o(o, r0, r1);
+      // P's big and small parts, each k-step's A fragment in place:
+      // registers 4 kk .. take the accumulators 4 kk, 4 kk + 2, 4 kk + 1, 4 kk + 3
+      uint32_t pb[32], ps[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) split(sc[(x & ~3) | ((x & 1) << 1) | ((x >> 1) & 1)], pb[x], ps[x]);
+      fence_regs(pb);
+      fence_regs(ps);
+      fence_regs(o);
+      mbar_wait(smem_u32(&bar_vf), (n + j) & 1);
+      __syncwarp();
+      pv_f32(o, pb, ps, dvt, dvts);
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(&bar_ve);
+    }
+    if (n_mine > 0) {  // O / l, rows past seq not written
+      ++nq;
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+      const int row0 = q0 + 64 * wg + wrow;
+      float* ob = out + ((size_t)bh * seq + row0) * 128 + 2 * t;
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        if (row0 < seq)
+          *reinterpret_cast<float2*>(ob + 8 * x) = make_float2(o[4 * x] * inv0, o[4 * x + 1] * inv0);
+        if (row0 + 8 < seq)
+          *reinterpret_cast<float2*>(ob + 8 * 128 + 8 * x) =
+              make_float2(o[4 * x + 2] * inv1, o[4 * x + 3] * inv1);
+      }
+    }
+    // the item's tiles past this warpgroup's diagonal: released as they land
+    for (int j = n_mine; j < n_item; ++j) {
+      mbar_wait(smem_u32(&bar_kf), (n + j) & 1);
+      release(&bar_ke);
+      mbar_wait(smem_u32(&bar_vf), (n + j) & 1);
+      release(&bar_ve);
+    }
+    n += n_item;
+  }
+}
+
 // cuTensorMapEncodeTiled looked up through the runtime's entry-point query
 // (no link to libcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1247,14 +1607,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (bh, seq, d) 16-bit values of `type` as a 3-D tensor map in boxes of
-// `rows` rows of 64 columns (128 bytes: one span of the 128-byte swizzle; a
-// 128-wide row is two boxes), rows past seq read as zeros.
+// (bh, seq, d) values of `type` (`bytes` each: 2 unless said) as a 3-D
+// tensor map in boxes of `rows` rows of 128 bytes (one span of the 128-byte
+// swizzle: 64 16-bit or 32 fp32 columns; a row of 128 columns is two or four
+// boxes), rows past seq read as zeros.
 bool tensor_map(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-                int bh, int seq, int d, int rows) {
+                int bh, int seq, int d, int rows, int bytes = 2) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)seq * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)(kSpanBytes / 2), (cuuint32_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * bytes, (cuuint64_t)seq * d * bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)(kSpanBytes / bytes), (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
                 elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -1307,6 +1668,31 @@ int launch_attention16_d128(const typename E::T* q, const typename E::T* k, cons
   return (int)cudaGetLastError();
 }
 
+// D = 128 in fp32: one block an SM, at most one a work item, each walking its items
+int launch_attention_f32_d128(const float* q, const float* k, const float* v, float* out, int bh,
+                              int seq, float scale, void* stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!tensor_map(encode, &tm_q, kF32, q, bh, seq, 128, 64, 4) ||
+      !tensor_map(encode, &tm_k, kF32, k, bh, seq, 128, kF32Keys, 4) ||
+      !tensor_map(encode, &tm_v, kF32, v, bh, seq, 128, kF32Keys, 4))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_d128_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int items = bh * ((seq + kBlockRows - 1) / kBlockRows);
+  flash_attention_f32_d128_kernel<<<items < sms ? items : sms, kF32Threads, kF32Smem,
+                                    (cudaStream_t)stream>>>(tm_q, tm_k, tm_v, out, bh, seq,
+                                                            scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 // The head dims with a kernel: 64 and 128; any other launches nothing.
 bool head_dim_taken(int head_dim) { return head_dim == 64 || head_dim == 128; }
 
@@ -1321,8 +1707,8 @@ int flash_attention_f32(const float* q, const float* k, const float* v, float* o
                         int seq, int head_dim, float scale, void* stream) {
   if (!head_dim_taken(head_dim)) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
-  return head_dim == 64 ? launch_attention<64>(q, k, v, out, bh, seq, scale, stream)
-                        : launch_attention<128>(q, k, v, out, bh, seq, scale, stream);
+  return head_dim == 64 ? launch_attention(q, k, v, out, bh, seq, scale, stream)
+                        : launch_attention_f32_d128(q, k, v, out, bh, seq, scale, stream);
 }
 
 // q, k, v, out: (bh, seq, head_dim) bf16, contiguous, 16-byte aligned; the

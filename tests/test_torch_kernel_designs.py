@@ -16,12 +16,12 @@ with -inf, and is held within ``S · 2^-24 · max|v|`` (the bound
 product misses that bound, which is why the kernel splits.  A register-level
 model of one warp's ``mma.sync.m16n8k8`` fragments follows the kernel's
 index expressions and is held exactly to the plain products.  At head dim
-128 (``flash_attention_kernel<128>``) the kernel takes 32-key tiles, reads
-q's fragments from its tile in shared memory each k-step pair, does not
-scale q (128^-0.5 = 2^-3.5 would round): the scale enters the exponent,
-``2^(s c - m c)`` with ``c = scale · log2(e)``; a warp whose 16 rows all
-lie before a tile's keys skips it.  The models follow that too, and the
-padded strides 144 and 132 keep the bank argument.
+128 a kernel of its own (``flash_attention_f32_d128_kernel``, modelled in
+``test_torch_fp32_d128_designs.py``) runs TF32 warpgroup products on 64-key
+tiles with the same split, the small terms summed apart, and does not scale
+q (128^-0.5 = 2^-3.5 would round): the scale enters the exponent,
+``2^(s c - m c)`` with ``c = scale · log2(e)``.  The D = 128 cases here run
+that model and its warp fragments.
 
 KL (``csrc/distill_kl.cu``).  The model follows the kernel's indexing: a
 row split over C CTAs of 512 threads, each thread's strided 16-byte
@@ -48,8 +48,9 @@ from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.kernels import ref  # noqa: E402
 
+import test_torch_fp32_d128_designs as d128  # noqa: E402  (the D = 128 kernel's models)
+
 KEYS = 64  # the attention kernel's query tile, and its key tile at D = 64
-D128_KEYS = 32  # its key tile at D = 128
 LOG2E = np.float32(1.4426950408889634)
 
 
@@ -87,18 +88,19 @@ def prod3_rna(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (tf32(a - ab) @ bb + ab @ tf32(b - bb)) + ab @ bb
 
 
-def attention_model(q, k, v, prod=prod3, prescale=None):
-    """The kernel's tiles and online softmax over fused head-batches
+def attention_model(q, k, v, prod=None, prescale=None):
+    """The kernels' tiles and online softmax over fused head-batches
     ``(B, S, D)`` fp32.  D = 64: q scaled by 2^-3 first (exact), 64-key
-    tiles.  D = 128: 32-key tiles and q unscaled, the scale in the exponent:
-    ``2^(s c - m c)``, c = fp32(scale) · fp32(log2 e); a 16-row group skips
-    a tile whose keys all lie after its rows.  ``prescale`` forces q scaled
-    first (True) or not (False) at either D."""
+    tiles, ``prod`` (3xTF32 with big rounded unless said).  D = 128: the
+    D = 128 kernel's model (``d128.d128_model``: big by truncation unless
+    ``prod`` says otherwise, q unscaled and the scale in the exponent unless
+    ``prescale``)."""
     _, seq, d = q.shape
-    prescale = d == 64 if prescale is None else prescale
-    keys_a_tile = KEYS if d == 64 else D128_KEYS
-    qs = q * d**-0.5 if prescale else q  # 2^-3 at D = 64: exact
-    c = LOG2E if prescale else np.float32(d**-0.5) * LOG2E
+    if d == 128:
+        return d128.d128_model(q, k, v, prod or d128.prod3, bool(prescale))
+    prod = prod or prod3
+    qs = q * d**-0.5 if prescale in (None, True) else q  # 2^-3 at D = 64: exact
+    c = LOG2E if prescale in (None, True) else np.float32(d**-0.5) * LOG2E
     out = torch.empty_like(q)
     for q0 in range(0, seq, KEYS):
         qt = qs[:, q0:q0 + KEYS]
@@ -106,22 +108,17 @@ def attention_model(q, k, v, prod=prod3, prescale=None):
         m = torch.full(qt.shape[:2], -math.inf)
         l = torch.zeros(qt.shape[:2])
         o = torch.zeros_like(qt)
-        for k0 in range(0, q0 + KEYS, keys_a_tile):
-            kt, vt = k[:, k0:k0 + keys_a_tile], v[:, k0:k0 + keys_a_tile]
-            if kt.shape[1] == 0:  # a tile past the sequence's end (zeros, all masked)
-                break
+        for k0 in range(0, q0 + KEYS, KEYS):
+            kt, vt = k[:, k0:k0 + KEYS], v[:, k0:k0 + KEYS]
             s = prod(qt, kt.transpose(1, 2))
-            if k0 >= q0:  # the tiles past the block's first row: keys after the query are -inf
+            if k0 == q0:  # the diagonal tile: keys after the query are -inf
                 keys = torch.arange(k0, k0 + kt.shape[1])[None, :]
                 s = torch.where(keys > rows, -math.inf, s)
-            # the 16-row groups (warps) that run this tile: a row group of
-            # the kernel whose rows all lie before k0 skips it
-            live = (q0 + 16 * ((rows - q0) // 16) + 15 >= k0)[:, 0]
-            m_new = torch.where(live, torch.maximum(m, s.amax(dim=-1)), m)
+            m_new = torch.maximum(m, s.amax(dim=-1))
             r = torch.exp2((m - m_new) * c)
             p = torch.exp2(s * c - (m_new * c)[..., None])
-            l = torch.where(live, l * r + p.sum(dim=-1), l)
-            o = torch.where(live[:, None], o * r[..., None] + prod(p, vt), o)
+            l = l * r + p.sum(dim=-1)
+            o = o * r[..., None] + prod(p, vt)
             m = m_new
         out[:, q0:q0 + KEYS] = o * (1.0 / l)[..., None]
     return out
@@ -159,12 +156,19 @@ def test_tf32_rounding_on_the_bits():
     np.testing.assert_array_equal(big.double().numpy(), want)
 
 
+# the small part as the tensor core reads it (truncated) or rounded first;
+# at D = 128 the D = 128 kernel's arithmetic (the small terms summed apart)
+PRODS = {("truncated small", 64): prod3, ("rounded small", 64): prod3_rna,
+         ("truncated small", 128): d128.prod3,
+         ("rounded small", 128): lambda a, b: d128.prod3(a, b, small=d128.rounded)}
+
+
 @pytest.mark.parametrize("prod", ["truncated small", "rounded small"])
 @pytest.mark.parametrize("qk_scale", [1.0, 4.0])
 @pytest.mark.parametrize("shape", [(2, 256, 64), (3, 96, 64), (2, 256, 128), (3, 96, 128)])
 def test_3xtf32_attention_model_within_the_bound(shape, qk_scale, prod):
     q, k, v = _qkv(sum(shape) + int(qk_scale), shape, qk_scale)
-    got = attention_model(q, k, v, prod3 if prod == "truncated small" else prod3_rna)
+    got = attention_model(q, k, v, PRODS[prod, shape[2]])
     want = ref.flash_attention_ref(q, k, v)
     err, tol = float((got - want).abs().max()), _bound(shape[1], v)
     assert err <= tol, (err, tol)
@@ -213,8 +217,8 @@ def test_attention_model_late_maximum():
 
 
 def test_attention_model_at_d128_is_causal_bitwise():
-    """At D = 128 too, where a row group skips a tile wholly after it and
-    the diagonal spans two 32-key tiles."""
+    """At D = 128 too, where an item's two warpgroups of 64 rows end on
+    different 64-key tiles."""
     _check_causal(128)
 
 
@@ -226,10 +230,10 @@ def test_attention_model_at_d128_late_maximum():
 def test_d128_scale_in_the_exponent_within_the_bound(qk_scale):
     """At D = 128 the scale 2^-3.5 is not exact in fp32: q scaled by it
     rounds, where the plain version rounds only the scores times the scale.
-    The kernel leaves q whole and puts the scale into the exponent; that
-    model is within the bound at both q, k scales (and so is the rounded
-    pre-scaling at these sizes: the exponent route is the one with no
-    extra rounding of q)."""
+    The D = 128 kernel leaves q whole and puts the scale into the exponent;
+    that model is within the bound at both q, k scales (and so is the
+    rounded pre-scaling at these sizes: the exponent route is the one with
+    no extra rounding of q)."""
     scale = np.float32(128**-0.5)
     x = torch.as_tensor(np.random.default_rng(2).normal(size=4096).astype(np.float32))
     assert not torch.equal((x * float(scale)) / float(scale), x)  # pre-scaling rounds q
@@ -241,11 +245,12 @@ def test_d128_scale_in_the_exponent_within_the_bound(qk_scale):
 
 
 def test_one_tf32_product_misses_the_bound_at_d128():
-    """One TF32 product per product misses the bound at D = 128 as well."""
+    """One TF32 product per product misses the bound at D = 128 as well,
+    where the D = 128 kernel's three are within it."""
     q, k, v = _qkv(12, (2, 256, 128), 4.0)
     want = ref.flash_attention_ref(q, k, v)
-    one = float((attention_model(q, k, v, prod1) - want).abs().max())
-    three = float((attention_model(q, k, v, prod3) - want).abs().max())
+    one = float((attention_model(q, k, v, d128.prod1) - want).abs().max())
+    three = float((attention_model(q, k, v) - want).abs().max())
     assert one > 5 * _bound(256, v) and three <= _bound(256, v), (one, three)
 
 
@@ -286,27 +291,34 @@ def test_warp_fragments_follow_the_kernels_indexing():
 
 
 def test_warp_fragments_at_d128():
-    """The same fragments at D = 128 against a 32-key tile: eight k-step
-    pairs, q's float4s read from its tile in shared memory at each pair (the
-    same index expressions as K's), 16 output n-tiles of V."""
-    _warp_fragments(128, D128_KEYS)
+    """The D = 128 kernel's fragments, one warp's 16 rows of its warpgroup:
+    a TF32 wgmma's A and accumulator fragments are, warp by warp, the
+    m16n8k8 ones, N / 8 of them side by side.  Q's A fragment of k-step kk
+    in the natural order (a0 (g, 8kk + t), a2 (g, 8kk + t + 4): the K-major
+    descriptor reads K's columns 8kk .. 8kk + 7 in order) over 16 k-steps
+    into a 64-key tile's 8 n-tiles; then P's A fragment from the
+    accumulators as at D = 64 against V^T's positions (t: key 2t, t + 4:
+    key 2t + 1), 16 output n-tiles."""
+    _warp_fragments(128, d128.KEYS, natural=True)
 
 
-def _warp_fragments(d, keys):
+def _warp_fragments(d, keys, natural=False):
     rng = np.random.default_rng(1)
     qt, ks, vs = rng.normal(size=(16, d)), rng.normal(size=(keys, d)), rng.normal(size=(keys, d))
     lanes = [divmod(lane, 4) for lane in range(32)]
-    qa = [np.array([[qt[g, 16 * m + 4 * t + 2 * h], qt[g + 8, 16 * m + 4 * t + 2 * h],
-                     qt[g, 16 * m + 4 * t + 2 * h + 1], qt[g + 8, 16 * m + 4 * t + 2 * h + 1]]
-                    for g, t in lanes]) for m in range(d // 16) for h in range(2)]
+    if natural:  # k-step kk: columns 8kk + t and 8kk + t + 4
+        cols = [[(8 * kk + t, 8 * kk + t + 4) for _, t in lanes] for kk in range(d // 8)]
+    else:  # k-step 2m + h: columns 16m + 4t + 2h and the next
+        cols = [[(16 * m + 4 * t + 2 * h, 16 * m + 4 * t + 2 * h + 1) for _, t in lanes]
+                for m in range(d // 16) for h in range(2)]
+    qa = [np.array([[qt[g, c0], qt[g + 8, c0], qt[g, c1], qt[g + 8, c1]]
+                    for (g, _), (c0, c1) in zip(lanes, step)]) for step in cols]
     s = []
     for j in range(keys // 8):
         c = np.zeros((32, 4))
-        for m in range(d // 16):
-            kr = [ks[8 * j + g, 16 * m + 4 * t: 16 * m + 4 * t + 4] for g, t in lanes]  # float4
-            for h in range(2):
-                b = np.array([[x[2 * h], x[2 * h + 1]] for x in kr])
-                c = _mma_m16n8k8(c, qa[2 * m + h], b)
+        for kk, step in enumerate(cols):
+            b = np.array([[ks[8 * j + g, c0], ks[8 * j + g, c1]] for (g, _), (c0, c1) in zip(lanes, step)])
+            c = _mma_m16n8k8(c, qa[kk], b)
         s.append(c)
     S = np.empty((16, keys))
     for j in range(keys // 8):
@@ -350,21 +362,6 @@ def test_padded_rows_spread_fragment_loads_over_the_banks():
 
     assert k_phases(80) == 32 and k_phases(64) <= 16
     assert v_banks(68) == 32 and v_banks(64) <= 8
-    # D = 128: K's (and q's) rows padded to 144 floats, V's to 132, the same
-    # residues mod 32 as 80 and 68; unpadded 128-float rows collide as 64's
-    assert k_phases(144) == 32 and k_phases(128) <= 16
-    assert v_banks(132) == 32 and v_banks(128) <= 8
-
-
-def test_d128_tiles_fit_two_blocks_an_sm():
-    """The D = 128 kernel's shared memory: two stages of a 32-key K tile
-    (rows of 144 floats) and V tile (132), and q's 64-row tile (144): 105
-    KB, so that two blocks fit an SM's 228 KB (1 KB of each reserved); with
-    64-key tiles (178 KB) one would."""
-    def smem(keys):
-        return 4 * (2 * keys * (144 + 132) + 64 * 144)
-    assert smem(D128_KEYS) == 107_520 and 2 * (smem(D128_KEYS) + 1024) <= 228 * 1024
-    assert 2 * (smem(64) + 1024) > 228 * 1024
 
 
 # -- the split-row KL ---------------------------------------------------------

@@ -24,6 +24,7 @@ CLOCKED = {
     "topk_bf16": kp.topk_bf16_clocks,
     "attention_bf16 at D 64": kp.attention_bf16_clocks,
     "attention_bf16 at D 128": kp.attention_d128_clocks,
+    "attention_f32 at D 128": kp.attention_f32_d128_clocks,
     "scatter_bf16": kp.scatter_bf16_clocks,
     "kl_bf16": kp.kl_bf16_clocks,
     "kl_bf16 loads only": lambda: kp.kl_bf16_clocks(loads_only=True),
@@ -47,6 +48,23 @@ def test_d128_clocked_copy_fills_the_columns_the_report_reads():
         assert f"prof[{col}] +=" in text, col
     assert "++prof[9];" in text and "++prof[10];" in text
     assert "prof[11] = pg0; prof[12] = g1;" in text
+
+
+def test_f32_d128_clocked_copy_fills_the_columns_the_report_reads():
+    """The fp32 D 128 copy sums each consumer phase and each producer phase
+    into a column of its own and writes, in each row, the tile and item
+    counts and the globaltimer stamps where ``report_f32_phases`` reads them
+    (``F32_STAMPS``), a consumer's item phases at 10-11 and the producer's Q
+    waits and Q loads at 11-12."""
+    text = kp.attention_f32_d128_clocks()
+    assert len(kp.F32_D128_TILE_PHASES) == 5 and len(kp.F32_D128_ITEM_PHASES) == 2
+    for col in range(len(kp.F32_D128_TILE_PHASES) + len(kp.F32_D128_ITEM_PHASES)):
+        assert f"cp_[{col}] +=" in text, col
+    for col in (0, 1, 2, 3, 4, 5, 7):
+        assert f"pp_[{col}] +=" in text, col
+    assert kp.F32_STAMPS == (6, 7, 8, 9)
+    assert "d[6] = cp_[9]; d[7] = cp_[10]; d[8] = pg0; d[9] = g1; d[10] = cp_[5]; d[11] = cp_[6];" in text
+    assert "d[6] = pp_[9]; d[7] = pp_[10]; d[8] = pg0; d[9] = g1; d[11] = pp_[7]; d[12] = pp_[10];" in text
 
 
 @pytest.mark.parametrize("name", sorted(kp.VARIANTS))

@@ -31,7 +31,15 @@ per-call work out of the way).  Only what the named probes need is built.
   attention kernel, beside fp32 SDPA in turns, with the opcode mix of this
   checkout's fp32 attention kernel at that D (``cuobjdump -sass``); an
   earlier build that takes only D = 64 refuses D = 128 and is left out of
-  the turns.  Any attention probe first compares the SASS of each D = 64
+  the turns.  At D = 128 the fp32 probe adds a clocked copy of an earlier
+  build's kernel from before it had a Hopper design of its own (its splits
+  inside its products' loops; also timed in turns with them left out), a
+  clocked copy of this checkout's ``flash_attention_f32_d128_kernel`` (a
+  consumer warpgroup's cycles a 64-key tile waiting for K, in Q K^T, the
+  softmax, waiting for V^T and P V, and an item's epilogue and Q wait; the
+  producer's first thread's waits, splits and transposition a tile) and
+  its variants (the next tile prefetched into L2, O's rescale skipped),
+  timed in turns against it.  Any attention probe first compares the SASS of each D = 64
   instance of this checkout's attention kernels (fp32, bf16, fp16) with the
   earlier build's kernel, instruction by instruction;
 * the bf16 top-k (``topk_mask_bf16``) on the same inputs rounded to bf16
@@ -53,9 +61,10 @@ per-call work out of the way).  Only what the named probes need is built.
   mix;
 * the fp16 attention (``flash_attention_f16``) at (96, 1024, D), after
   ``chip_smoke.py``'s checks of the fp16 attention, as the fp32 probe;
-* at ``--head-dim 128`` the bf16 and fp16 probes also run at yi-9b's
+* at ``--head-dim 128`` the fp32, bf16 and fp16 probes also run at yi-9b's
   prefill_32k shape, (32, 32 768, 128), both builds in turns and beside
-  SDPA, the plain version on two head-batches;
+  SDPA in that dtype, the plain version on two head-batches (with their
+  D 128 variants);
 * the bf16 wire scatter (``scatter_wire_sums_bf16``) at N 4, 64 rows, V
   50 257, k_cap 128 and 1024, after ``chip_smoke.py``'s checks of it, both
   builds ``torch.equal`` to the plain version, with clocked copies of the
@@ -267,6 +276,154 @@ def attention_d128_clocks() -> str:
     ))
 
 
+# the fp32 attention's clocked copies at D = 128: cycles summed by phase, then counts
+# and globaltimer stamps (``F32_STAMPS``) in each row of 16 int64
+F32_SPLIT_PHASES = ("waiting for K/V (cp.async and the barrier)", "Q K^T (q's and K's splits inside)",
+                    "softmax", "P V (P's and V's splits inside)", "the barrier after the tile", "epilogue")
+F32_STAMPS = (6, 7, 8, 9)  # the row's tiles, its items (or query tiles), globaltimer start and end
+
+
+def attention_f32_split_clocks(src: Path) -> str:
+    """``flash_attention.cu`` as it was before the fp32 kernel at D = 128
+    had a Hopper design of its own (``flash_attention_kernel<128>``: 32-key
+    tiles on ``mma.sync``, every split inside the loops), with each warp's
+    cycles by phase (``F32_SPLIT_PHASES``; the splits run inside the
+    products' loops and count there) written by its lane 0 to a buffer set
+    by ``attn_f32_set_prof``: 16 int64 a warp."""
+    return substituted(src, (
+        ("namespace {\n", "namespace {\n__device__ long long* g_fprof;\n"),
+        ("  using T = Tiles32<D>;\n",
+            "  using T = Tiles32<D>;\n  long long pg0;\n  " + GLOBALTIMER.format("pg0") + "\n"
+            "  long long pw_ = 0, pq_ = 0, psm_ = 0, ppv_ = 0, pb_ = 0, ptiles_ = 0;\n"),
+        ("  for (int it = 0; it < n_kt; ++it) {\n    if (it + 1 < n_kt) {\n",
+            "  for (int it = 0; it < n_kt; ++it) {\n    const long long a0_ = clock64();\n"
+            "    if (it + 1 < n_kt) {\n"),
+        ("    __syncthreads();\n    const float* ks = smem + (it & 1) * kStage;\n",
+            "    __syncthreads();\n    const long long a1_ = clock64();\n    pw_ += a1_ - a0_;\n"
+            "    const float* ks = smem + (it & 1) * kStage;\n"),
+        ("      // the causal mask, then the tile's row max across the quad\n",
+            "      { float f_ = 0.f;\n#pragma unroll\n        for (int j = 0; j < kKeys / 8; ++j) f_ += s[j][0];\n"
+            "        asm volatile(\"\" ::\"f\"(f_)); }\n"
+            "      const long long a2_ = clock64();\n      pq_ += a2_ - a1_;\n"
+            "      // the causal mask, then the tile's row max across the quad\n"),
+        ("      // O += P V: the accumulators of keys (2t, 2t + 1) are the A columns\n",
+            "      const long long a3_ = clock64();\n      psm_ += a3_ - a2_;\n"
+            "      // O += P V: the accumulators of keys (2t, 2t + 1) are the A columns\n"),
+        ("      }\n    }\n    __syncthreads();  // the tile is read before the next stage overwrites it\n  }\n",
+            "      }\n      { float f_ = 0.f;\n#pragma unroll\n        for (int nd = 0; nd < D / 8; ++nd) f_ += o[nd][0];\n"
+            "        asm volatile(\"\" ::\"f\"(f_)); }\n"
+            "      ppv_ += clock64() - a3_;\n      ++ptiles_;\n    }\n"
+            "    const long long a4_ = clock64();\n"
+            "    __syncthreads();  // the tile is read before the next stage overwrites it\n"
+            "    pb_ += clock64() - a4_;\n  }\n  const long long a5_ = clock64();\n"),
+        ("          make_float2(o[nd][2] * inv1, o[nd][3] * inv1);\n  }\n}\n",
+            "          make_float2(o[nd][2] * inv1, o[nd][3] * inv1);\n  }\n"
+            "  if (lane == 0 && g_fprof && D == 128) { long long g1;\n    " + GLOBALTIMER.format("g1") + "\n"
+            "    long long* d = g_fprof + 16 * ((blockIdx.y * gridDim.x + blockIdx.x) * kWarps + warp);\n"
+            "    d[0] = pw_; d[1] = pq_; d[2] = psm_; d[3] = ppv_; d[4] = pb_; d[5] = clock64() - a5_;\n"
+            "    d[6] = ptiles_; d[7] = 1; d[8] = pg0; d[9] = g1; }\n}\n"),
+        ('extern "C" {\n',
+            'extern "C" {\nvoid attn_f32_set_prof(long long* p) { cudaMemcpyToSymbol(g_fprof, &p, sizeof(p)); }\n'),
+    ))
+
+
+# the fp32 D = 128 kernel's clocked copy: a consumer warpgroup's cycles by phase
+# over its tiles, then over its items; the producer's first thread's over the
+# K/V tiles and the items (``F32_STAMPS`` columns after them)
+F32_D128_TILE_PHASES = ("waiting for K", "Q K^T (Q's loads and splits inside)", "softmax and P's split",
+                        "waiting for V^T", "P V")
+F32_D128_ITEM_PHASES = ("epilogue and the tiles past the diagonal", "waiting for Q")
+F32_D128_PRODUCER_PHASES = ("waiting for K's release", "waiting for K to land",
+                            "K's big and small parts, the barrier, V's load", "waiting for V^T's release",
+                            "waiting for V to land", "V^T's big and small parts and the barrier",
+                            "waiting for Q's release (per item)")
+
+
+def attention_f32_d128_clocks() -> str:
+    """``flash_attention.cu`` with ``flash_attention_f32_d128_kernel``'s
+    cycles by phase written to a buffer set by ``attn_f32_set_prof``: 16
+    int64 a row, three rows a block (consumer warpgroups 0 and 1: the
+    ``F32_D128_TILE_PHASES`` and ``F32_D128_ITEM_PHASES`` sums; the
+    producer's first thread: the ``F32_D128_PRODUCER_PHASES`` sums; then
+    each row's ``F32_STAMPS``)."""
+    # a row: the phases at 0-5 (a consumer's item phases at 10-11, the producer's
+    # barrier at 10, its Q waits and Q loads at 11-12), then F32_STAMPS at 6-9
+    rec = ("    if ({who} && g_fprof) {{ long long g1;\n      " + GLOBALTIMER.format("g1") + "\n"
+           "      long long* d = g_fprof + 16 * (3 * blockIdx.x + {row});\n"
+           "      for (int x_ = 0; x_ < 6; ++x_) d[x_] = {arr}[x_];\n"
+           "      d[6] = {arr}[9]; d[7] = {arr}[10]; d[8] = pg0; d[9] = g1; d[10] = {arr}[6]; d[11] = {arr}[7]; }}\n")
+    return substituted(CSRC / "flash_attention.cu", (
+        ("namespace {\n", "namespace {\n__device__ long long* g_fprof;\n"),
+        ("  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n\n  if (threadIdx.x == 0) {\n"
+         "    for (int w = 0; w < kConsumers; ++w) {\n      mbar_init(smem_u32(&bar_qf[w]), 1);\n",
+            "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n  long long pg0;\n  "
+            + GLOBALTIMER.format("pg0") + "\n  long long pp_[16] = {}, cp_[16] = {};\n\n"
+            "  if (threadIdx.x == 0) {\n"
+            "    for (int w = 0; w < kConsumers; ++w) {\n      mbar_init(smem_u32(&bar_qf[w]), 1);\n"),
+        ("          if (nq[w] > 0) mbar_wait(smem_u32(&bar_qe[w]), (nq[w] - 1) & 1);\n",
+            "          const long long q0_ = clock64();\n"
+            "          if (nq[w] > 0) mbar_wait(smem_u32(&bar_qe[w]), (nq[w] - 1) & 1);\n"
+            "          pp_[7] += clock64() - q0_;\n          ++pp_[10];\n"),
+        ("        mbar_wait(smem_u32(&bar_l), 0);\n        if (n > 0) mbar_wait(smem_u32(&bar_ke), (n - 1) & 1);\n",
+            "        const long long a0_ = clock64();\n        mbar_wait(smem_u32(&bar_l), 0);\n"
+            "        const long long a1_ = clock64();\n        pp_[1] += a1_ - a0_;\n"
+            "        if (n > 0) mbar_wait(smem_u32(&bar_ke), (n - 1) & 1);\n"
+            "        const long long a2_ = clock64();\n        pp_[0] += a2_ - a1_;\n        ++pp_[9];\n"),
+        ("        landing_read();\n        if (leader) load(&tm_v, s_l, kF32Keys * j, bh, &bar_l);\n",
+            "        landing_read();\n        if (leader) load(&tm_v, s_l, kF32Keys * j, bh, &bar_l);\n"
+            "        const long long a3_ = clock64();\n        pp_[2] += a3_ - a2_;\n"),
+        ("        mbar_wait(smem_u32(&bar_l), 1);\n        if (n > 0) mbar_wait(smem_u32(&bar_ve), (n - 1) & 1);\n",
+            "        mbar_wait(smem_u32(&bar_l), 1);\n        const long long a5_ = clock64();\n"
+            "        pp_[4] += a5_ - a3_;\n"
+            "        if (n > 0) mbar_wait(smem_u32(&bar_ve), (n - 1) & 1);\n"
+            "        const long long a6_ = clock64();\n        pp_[3] += a6_ - a5_;\n"),
+        ("        landing_read();\n        if (leader) {  // the next K tile: this item's, or the next item's first\n",
+            "        landing_read();\n        pp_[5] += clock64() - a6_;\n"
+            "        if (leader) {  // the next K tile: this item's, or the next item's first\n"),
+        ("    return;\n  }\n  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 %0;\\n\" ::\"n\"(kF32ConsumerRegs));\n",
+            rec.format(who="leader", row=2, arr="pp_").replace(
+                "d[10] = pp_[6]; d[11] = pp_[7];", "d[11] = pp_[7]; d[12] = pp_[10];")
+            + "    return;\n  }\n  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 %0;\\n\" ::\"n\"(kF32ConsumerRegs));\n"),
+        ("    if (n_mine > 0) mbar_wait(smem_u32(&bar_qf[wg]), nq & 1);\n",
+            "    { const long long w0_ = clock64();\n    if (n_mine > 0) mbar_wait(smem_u32(&bar_qf[wg]), nq & 1);\n"
+            "    cp_[6] += clock64() - w0_; }\n"),
+        ("      mbar_wait(smem_u32(&bar_kf), (n + j) & 1);\n"
+         "      __syncwarp();  // the warp converged again for the .aligned wgmma instructions\n",
+            "      const long long k0_ = clock64();\n      mbar_wait(smem_u32(&bar_kf), (n + j) & 1);\n"
+            "      __syncwarp();  // the warp converged again for the .aligned wgmma instructions\n"
+            "      const long long k1_ = clock64();\n      cp_[0] += k1_ - k0_;\n"),
+        ("      qk_f32(sb, ss, q_row, g, dk, dks);\n      fence_regs(sb);\n      fence_regs(ss);\n",
+            "      qk_f32(sb, ss, q_row, g, dk, dks);\n      fence_regs(sb);\n      fence_regs(ss);\n"
+            "      const long long k2_ = clock64();\n      cp_[1] += k2_ - k1_;\n"),
+        ("      fence_regs(o);\n      mbar_wait(smem_u32(&bar_vf), (n + j) & 1);\n      __syncwarp();\n"
+         "      pv_f32(o, pb, ps, dvt, dvts);\n      wgmma_wait<0>();\n      fence_regs(o);\n",
+            "      fence_regs(o);\n      const long long k3_ = clock64();\n      cp_[2] += k3_ - k2_;\n"
+            "      mbar_wait(smem_u32(&bar_vf), (n + j) & 1);\n      __syncwarp();\n"
+            "      const long long k4_ = clock64();\n      cp_[3] += k4_ - k3_;\n"
+            "      pv_f32(o, pb, ps, dvt, dvts);\n      wgmma_wait<0>();\n      fence_regs(o);\n"
+            "      cp_[4] += clock64() - k4_;\n      ++cp_[9];\n"),
+        ("    if (n_mine > 0) {  // O / l, rows past seq not written\n",
+            "    const long long e0_ = clock64();\n    if (n_mine > 0) {  // O / l, rows past seq not written\n"),
+        ("    n += n_item;\n  }\n}\n",
+            "    cp_[5] += clock64() - e0_;\n    ++cp_[10];\n    n += n_item;\n  }\n"
+            + rec.format(who="(threadIdx.x & 127) == 0", row="wg", arr="cp_").replace(
+                "d[x_] = cp_[x_];", "d[x_] = x_ < 5 ? cp_[x_] : 0;").replace(
+                "d[10] = cp_[6]; d[11] = cp_[7];", "d[10] = cp_[5]; d[11] = cp_[6];") + "}\n"),
+        ('extern "C" {\n',
+            'extern "C" {\nvoid attn_f32_set_prof(long long* p) { cudaMemcpyToSymbol(g_fprof, &p, sizeof(p)); }\n'),
+    ))
+
+
+def attention_f32_nosplit(src: Path) -> str:
+    """The same source with the split left out (big = x, small = 0: every
+    product still runs, on wrong values), so that its time beside the
+    kernel's is the splits' cost."""
+    return substituted(src, ((
+        "  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+        "  small = __float_as_uint(x - __uint_as_float(big));\n",
+        "  big = __float_as_uint(x);\n  small = 0u;\n"),))
+
+
 def gt(var: str) -> str:
     return GLOBALTIMER.format(var)
 
@@ -455,6 +612,7 @@ def kl_bf16_clocks(loads_only: bool = False) -> str:
 PTXAS_KEYS = ("topk_mask_kernel", "topk_radix_bf16_kernel", "topk_radix_16_kernel", "scatter_wire_kernel",
               "scatter_wire_bf16_kernel", "scatter_wire_16_kernel", "sparse_aggregate", "distill_kl_kernel",
               "distill_kl_bf16_kernel", "distill_kl_16_kernel", "flash_attention_kernel",
+              "flash_attention_f32_d128_kernel",
               "flash_attention_bf16_kernel", "flash_attention_16_kernel")
 # builds of this checkout's bf16 kernels with a line or two changed, timed beside it
 VARIANTS = {
@@ -504,11 +662,30 @@ VARIANTS.update({
 VARIANTS["attention_d128_q3_v2"] = ("flash_attention.cu", [(
     "constexpr int kD128QBuffers = 2, kD128KStages = 2, kD128VStages = 3;",
     "constexpr int kD128QBuffers = 3, kD128KStages = 2, kD128VStages = 2;")])
+# the fp32 D = 128 kernel with parts tried and not taken: the next tile's K and V prefetched
+# into L2 a tile ahead of their loads; O rescaled only where a row of the warp has a new maximum
+VARIANTS["attention_f32_l2_prefetch"] = ("flash_attention.cu", [(
+    "      for (int j = 0; j < n_item; ++j, ++n) {\n        // K tile j, landed,",
+    "      for (int j = 0; j < n_item; ++j, ++n) {\n"
+    "        if (leader) {\n          const int ni = j + 1 < n_item ? i : next_item(r);\n"
+    "          const int row0 = j + 1 < n_item ? kF32Keys * (j + 1) : 0;\n"
+    "          const CUtensorMap* maps[2] = {&tm_k, &tm_v};\n"
+    "          for (int x = 0; ni >= 0 && x < 8; ++x)\n"
+    "            asm volatile(\"cp.async.bulk.prefetch.tensor.3d.L2.global.tile [%0, {%1, %2, %3}];\\n\"\n"
+    "                         ::\"l\"((uint64_t)maps[x / 4]), \"r\"(32 * (x % 4)), \"r\"(row0), \"r\"(ni % n_bh)\n"
+    "                         : \"memory\");\n"
+    "        }\n        // K tile j, landed,")])
+VARIANTS["attention_f32_rescale_skip"] = ("flash_attention.cu", [(
+    "      rescale_o(o, r0, r1);\n      // P's big and small parts",
+    "      if (__any_sync(0xffffffffu, r0 != 1.0f || r1 != 1.0f)) rescale_o(o, r0, r1);\n"
+    "      // P's big and small parts")])
 # a variant that changes one head dim's instance only, built and timed at that head dim alone
 # (the D = 128 attention already runs one block an SM)
-VARIANT_HEAD_DIM = {"attention_1_block": 64, **{name: 128 for name in VARIANTS if name.startswith("attention_d128")}}
+VARIANT_HEAD_DIM = {"attention_1_block": 64,
+                    **{name: 128 for name in VARIANTS if name.startswith(("attention_d128", "attention_f32"))}}
 VARIANT_OF = {"topk_plain_stores": "topk_bf16", "attention_1_block": "attention_bf16",
               **{name: "attention_bf16" for name in VARIANTS if name.startswith("attention_d128")},
+              **{name: "attention" for name in VARIANTS if name.startswith("attention_f32")},
               **{name: "scatter_bf16" for name in VARIANTS if name.startswith("scatter")},
               **{name: "kl_bf16" for name in VARIANTS if name.startswith("kl")}}
 
@@ -692,6 +869,12 @@ def compile_libs(parent: Path, kernels: set[str], head_dim: int = 64) -> dict[st
         made["topk_bf16_clocks"] = topk_bf16_clocks()
     if need("attention_bf16"):
         made["attention_bf16_clocks"] = attention_bf16_clocks() if head_dim == 64 else attention_d128_clocks()
+    if need("attention") and head_dim == 128:
+        try:  # the earlier build's fp32 kernel at D 128 with its splits inside the loops (before PR 32)
+            made["earlier_f32_clocks"] = attention_f32_split_clocks(pcsrc / "flash_attention.cu")
+            made["earlier_f32_nosplit"] = attention_f32_nosplit(pcsrc / "flash_attention.cu")
+        except SystemExit as e:
+            print(f"[probe] no clocked copy of the earlier fp32 attention ({e})", flush=True)
     if need("scatter_bf16"):
         made["earlier_scatter_clocks"] = scatter_loader_clocks(pcsrc / "sparse_agg.cu")
         made["this_scatter_clocks"] = scatter_bf16_clocks()
@@ -703,6 +886,8 @@ def compile_libs(parent: Path, kernels: set[str], head_dim: int = 64) -> dict[st
             print(f"[probe] no clocked copy of the earlier KL ({e})", flush=True)
         made["this_kl_clocks"] = kl_bf16_clocks()
         made["this_kl_loads"] = kl_bf16_clocks(loads_only=True)
+    if need("attention") and head_dim == 128:
+        made["this_f32_clocks"] = attention_f32_d128_clocks()
     made.update({name: substituted(CSRC / src, pairs) for name, (src, pairs) in VARIANTS.items()
                  if need(VARIANT_OF[name]) and VARIANT_HEAD_DIM.get(name, head_dim) == head_dim})
     for name, text in made.items():
@@ -735,7 +920,7 @@ def sass_histogram(lib: Path, kernel: str, top: int = 24, arg: str = "") -> str:
                      if re.match(rf"\S*\d{kernel}[EI]", sec) and re.search(arg, sec.split(None, 1)[0]))
     counts: dict[str, int] = {}
     for line in sass.splitlines():
-        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)", line)
         if m:
             counts[m.group(1)] = counts.get(m.group(1), 0) + 1
     ranked = sorted(counts.items(), key=lambda kv: -kv[1])[:top]
@@ -803,9 +988,10 @@ def attention_sass_same(parent_lib: Path) -> None:
     earlier build's kernel instruction for instruction."""
     lib = build.build_all(["flash_attention"])["flash_attention"]
     for kernel, tags in (("flash_attention_kernel", ("",)), ("flash_attention_16_kernel", ("4Bf16", "3F16"))):
-        this, earlier = sass_functions(lib, kernel + "I"), sass_functions(parent_lib, kernel)
+        this, earlier = sass_functions(lib, kernel), sass_functions(parent_lib, kernel)
         for tag in tags:
-            # this build's D 64 instance (the 16-bit kernels take D 64 only: no D in their name)
+            # this build's D 64 kernel (no D in its name: the fp32 one is not a template, the
+            # 16-bit ones are templates on the element type alone)
             mine = [body for name, body in this.items() if tag in name and "Li128E" not in name]
             # an earlier build's D 64 instance, or its kernel from before the template on D
             theirs = [body for name, body in earlier.items() if tag in name and "Li64E" in name] or [
@@ -877,8 +1063,8 @@ def attention_ab(libs, device, dtype: torch.dtype, d: int, shape=(8, 12, 1024), 
           flush=True)
     lib = build.build_all(["flash_attention"])["flash_attention"]
     if dtype == torch.float32:
-        print(f"[probe] flash_attention (fp32) SASS: {sass_histogram(lib, 'flash_attention_kernel', arg=f'Li{d}E')}",
-              flush=True)
+        kernel = "flash_attention_kernel" if d == 64 else "flash_attention_f32_d128_kernel"
+        print(f"[probe] flash_attention (fp32) SASS at D {d}: {sass_histogram(lib, kernel)}", flush=True)
     # the inputs too: the launches hold only their addresses
     return {"runs": runs, "args": args, "out": out, "want": want, "tol": tol, "shape": (b, h, seq, d),
             "stream": stream, "inputs": (q4, k4, v4)}
@@ -945,7 +1131,7 @@ def attention_bf16_ab(libs, device, d: int) -> None:
     args, out, stream = ab["args"], ab["out"], ab["stream"]
     runs = {"this": ab["runs"]["this"]}
     variants = [name for name in VARIANTS
-                if name.startswith("attention") and VARIANT_HEAD_DIM.get(name, d) == d]
+                if VARIANT_OF[name] == "attention_bf16" and VARIANT_HEAD_DIM.get(name, d) == d]
     fns = {"clocked": c_fn(libs["attention_bf16_clocks"], "flash_attention_bf16", 4, 3, 1),
            **{name: c_fn(libs[name], "flash_attention_bf16", 4, 3, 1) for name in variants}}
     for name, fn in fns.items():
@@ -969,6 +1155,81 @@ def attention_bf16_ab(libs, device, d: int) -> None:
     kernel = "flash_attention_16_kernel" if d == 64 else "flash_attention_16_d128_kernel"
     print(f"[probe] flash_attention.bf16 SASS at D {d}: "
           f"{sass_histogram(lib, kernel, arg='4Bf16E')}", flush=True)
+
+
+def attention_f32_d128_ab(libs, device, ab: dict) -> None:
+    """The fp32 attention at (96, 1024, 128) after ``attention_ab``: the
+    clocked copies' phases (the earlier build's, whose splits run inside
+    its products' loops), and the earlier kernel with its splits left out,
+    in turns against it (their difference: the splits' cost)."""
+    b, h, seq, d = ab["shape"]
+    args, stream = ab["args"], ab["stream"]
+    if "earlier_f32_clocks" in libs:
+        lib = libs["earlier_f32_clocks"]
+        fn = c_fn(lib, "flash_attention_f32", 4, 3, 1)
+        rows = b * h * (seq // 64) * 4  # a row a warp: 64-row blocks of 4 warps
+        prof = torch.zeros((rows, 16), dtype=torch.int64, device=device)
+        lib.attn_f32_set_prof.argtypes = [P]
+        lib.attn_f32_set_prof(prof.data_ptr())
+        assert fn(*args, b * h, seq, d, d**-0.5, stream) == 0
+        torch.cuda.synchronize()
+        lib.attn_f32_set_prof(None)
+        err = cs.attention_err(ab["out"], ab["want"], ab["tol"])
+        print(f"[probe] flash_attention earlier clocked at D {d}: max |diff| {err:.3e}", flush=True)
+        report_f32_phases("earlier (32-key tiles, mma.sync; a row a warp)", prof.cpu(), F32_SPLIT_PHASES)
+    if "this_f32_clocks" in libs:
+        lib = libs["this_f32_clocks"]
+        fn = c_fn(lib, "flash_attention_f32", 4, 3, 1)
+        blocks = min(torch.cuda.get_device_properties(device).multi_processor_count, b * h * (seq // 128))
+        prof = torch.zeros((3 * blocks, 16), dtype=torch.int64, device=device)
+        lib.attn_f32_set_prof.argtypes = [P]
+        for ptr in (None, None, prof.data_ptr()):  # two unrecorded launches first
+            lib.attn_f32_set_prof(ptr)
+            assert fn(*args, b * h, seq, d, d**-0.5, stream) == 0
+        torch.cuda.synchronize()
+        lib.attn_f32_set_prof(None)
+        err = cs.attention_err(ab["out"], ab["want"], ab["tol"])
+        print(f"[probe] flash_attention this clocked at D {d}: max |diff| {err:.3e}", flush=True)
+        p = prof.cpu()
+        cons, prod = p[torch.arange(len(p)) % 3 != 2], p[2::3]
+        report_f32_phases("this, a consumer warpgroup (64 rows, 64-key tiles)", cons,
+                          F32_D128_TILE_PHASES, {10: F32_D128_ITEM_PHASES[0], 11: F32_D128_ITEM_PHASES[1]})
+        report_f32_phases("this, the producer's first thread (a K/V tile)", prod, F32_D128_PRODUCER_PHASES[:6])
+        q_loads = int(prod[:, 12].sum())
+        print(f"[probe]   the producer: {F32_D128_PRODUCER_PHASES[6]}: {float(prod[:, 11].sum()) / max(q_loads, 1):.0f} "
+              f"cycles a Q load ({q_loads} loads)", flush=True)
+    for name in (n for n in VARIANTS if VARIANT_OF[n] == "attention" and VARIANT_HEAD_DIM.get(n) == d):
+        fn = c_fn(libs[name], "flash_attention_f32", 4, 3, 1)
+        launch = lambda fn=fn: fn(*args, b * h, seq, d, d**-0.5, stream)  # noqa: E731
+        ab["out"].fill_(float("nan"))
+        assert launch() == 0
+        torch.cuda.synchronize()
+        print(f"[probe] flash_attention {name}: max |diff| {cs.attention_err(ab['out'], ab['want'], ab['tol']):.3e}",
+              flush=True)
+        in_turns(f"flash_attention {name} at ({b * h}, {seq}, {d}) (earlier: this build)", ab["runs"]["this"], launch)
+    if "earlier_f32_nosplit" in libs:
+        fn = c_fn(libs["earlier_f32_nosplit"], "flash_attention_f32", 4, 3, 1)
+        in_turns(f"flash_attention at ({b * h}, {seq}, {d}), the earlier kernel (earlier) against it with its "
+                 "splits left out (this; wrong values)", ab["runs"]["earlier"],
+                 lambda: fn(*args, b * h, seq, d, d**-0.5, stream))
+
+
+def report_f32_phases(label: str, p: torch.Tensor, phases, item_phases=None, per_tile: bool = False) -> None:
+    """A clocked fp32 copy's rows (``F32_STAMPS``: tiles, items, globaltimer
+    start and end after the phase columns): cycles a row-tile by phase
+    (``item_phases``, {column: name}: a row-item, or with ``per_tile`` a
+    row-tile), the rows' items, the kernel's span."""
+    p = p[p[:, F32_STAMPS[3]] != 0]
+    tiles, items = int(p[:, F32_STAMPS[0]].sum()), int(p[:, F32_STAMPS[1]].sum())
+    parts = ", ".join(f"{name} {float(p[:, j].sum()) / max(tiles, 1):.0f}" for j, name in enumerate(phases))
+    if item_phases:
+        per = tiles if per_tile else items
+        parts += f"; a row-{'tile' if per_tile else 'item'}: " + ", ".join(
+            f"{name} {float(p[:, j].sum()) / max(per, 1):.0f}" for j, name in item_phases.items())
+    t0, t1 = F32_STAMPS[2], F32_STAMPS[3]
+    print(f"[probe] flash_attention clocked, {label}: cycles a row-tile: {parts}; {tiles} row-tiles over "
+          f"{items} row-items, {len(p)} rows; kernel span {int(p[:, t1].max() - p[:, t0].min())} ns, row "
+          f"duration median {median(p[:, t1] - p[:, t0])} ns", flush=True)
 
 
 def attention_clock_prof(libs, launch, rows: int, cols: int) -> torch.Tensor:
@@ -1165,23 +1426,25 @@ def main() -> int:
         attention_sass_same(OUT / "libparent_attention.so")
     if "attention" in kernels:
         cs.check_flash_attention(device)
-        attention_ab(libs, device, torch.float32, args.head_dim)
+        ab = attention_ab(libs, device, torch.float32, args.head_dim)
+        if args.head_dim == 128:
+            attention_f32_d128_ab(libs, device, ab)
     if "attention_bf16" in kernels:
         attention_bf16_ab(libs, device, args.head_dim)
     if "attention_f16" in kernels:
         cs.check_attention_16(device, cs.F16)
         attention_ab(libs, device, cs.F16, args.head_dim)
     if args.head_dim == 128:  # and at yi-9b's prefill_32k shape, (32, 32 768, 128)
-        for dtype, probe in ((cs.BF16, "attention_bf16"), (cs.F16, "attention_f16")):
+        for dtype, probe in ((torch.float32, "attention"), (cs.BF16, "attention_bf16"), (cs.F16, "attention_f16")):
             if probe in kernels:
                 ab = attention_ab(libs, device, dtype, 128, shape=(1, 32, cs.YI_S), heads=cs.YI_HEADS)
-                if dtype == cs.BF16:  # the D 128 variants at 32k too
-                    for name in (n for n in VARIANTS if VARIANT_HEAD_DIM.get(n) == 128):
-                        fn = c_fn(libs[name], "flash_attention_bf16", 4, 3, 1)
-                        in_turns(f"flash_attention.bf16 {name} at (32, {cs.YI_S}, 128) (earlier: this build)",
-                                 ab["runs"]["this"], lambda fn=fn: fn(*ab["args"], 32, cs.YI_S, 128, 128**-0.5,
-                                                                      ab["stream"]),
-                                 clocks=True, calls=2, reps=7, warmup=1)
+                # the D 128 variants at 32k too
+                for name in (n for n in VARIANTS if VARIANT_HEAD_DIM.get(n) == 128 and VARIANT_OF[n] == probe):
+                    fn = c_fn(libs[name], ATTN_SYMBOL[dtype], 4, 3, 1)
+                    in_turns(f"flash_attention{cs.TAG[dtype]} {name} at (32, {cs.YI_S}, 128) (earlier: this build)",
+                             ab["runs"]["this"], lambda fn=fn: fn(*ab["args"], 32, cs.YI_S, 128, 128**-0.5,
+                                                                  ab["stream"]),
+                             clocks=True, calls=2, reps=7, warmup=1)
     if "topk" in kernels:
         real = cs.phase_main_path(device, "fused", False)["topk_input"] if args.real else None
         topk_ab(libs, device, real)
