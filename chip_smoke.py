@@ -37,8 +37,10 @@ Phases (any failure raises and exits non-zero):
      2e-6 (1 + |lse_t| + |lse_s|) per row (the KL is a difference of terms
      of the size of the log-partitions, each carried in fp32; the kernel
      sums online in another order than the plain log-sum-exp);
-   * causal attention at head dims 64 and 128 (each case at both; the
-     kernels are templates on D) at (96, 1024, D), (20, 128, D), (20, 64, D)
+   * causal attention at head dims 64 and 128 (kernels of their own) and
+     32, 33, 80, 96, 256 and 320 (the kernel for every other D: D padded to
+     a multiple of 32, past 256 in chunks of output columns), each case at
+     every one, at (96, 1024, D), (20, 128, D), (20, 64, D)
      (one key tile: only the diagonal) and (12, 96, D) (a tile past the
      sequence's end), with q and k x4 at (24, 1024, D) (where one TF32
      product per product misses the bound: the plain version with TF32
@@ -47,16 +49,18 @@ Phases (any failure raises and exits non-zero):
      (each output is a convex combination of at most S rows of v, summed
      in fp32 in another order), and a causality check, bitwise: changing k
      and v from a position on leaves every earlier output unchanged, and
-     (B, H, S, D) bitwise (B*H, S, D), at both head dims; q, k and v as
+     (B, H, S, D) bitwise (B*H, S, D), at every head dim; q, k and v as
      views one element into a buffer (a storage offset that is not a
      multiple of 16 bytes, which the wrapper copies to aligned buffers)
-     give the aligned call's output bitwise; at head dim
-     96 the wrapper raises ``ValueError`` in each dtype with nothing
-     launched, and each C entry point returns ``cudaErrorInvalidValue``
-     with its output untouched.  The
-     build line gives every kernel's registers and spills, and the count of
-     tensor-core instructions in the attention library's SASS (HMMA: the
-     fp32 kernel's mma.sync; HGMMA: the bf16 and fp16 kernels' wgmma).
+     give the aligned call's output bitwise; at head dims 80, 96, 256 and
+     320 one call in each dtype launches the any-D kernel once (counted
+     under ``flash_attention{,.bf16,.f16}.dany``: its rows'
+     ``entry_launches``), and at head dim 0 each C entry point returns
+     ``cudaErrorInvalidValue`` with its output untouched.  The
+     build line gives every kernel's registers and spills (a spilled
+     attention kernel fails), and the count of tensor-core instructions in
+     the attention library's SASS (HMMA: the fp32 D 64 kernel's and the
+     any-D kernel's mma.sync; HGMMA: the others' wgmma).
    Then each kernel's bf16 entry point on bf16 inputs: the wire scatter
    (also at its edges: 1 and 200 rows, N 1 and 8, k 1, 1000 and 3000, V 5
    and 37, a column that takes 1e8, 1, -1e8, 1 from clients 0-3, and a, b,
@@ -350,10 +354,9 @@ Phases (any failure raises and exits non-zero):
    out of the way (for the KL read cold; ``ms_graph_warm`` warm).  The bf16 entry
    points get rows of their own (``name.bf16``), their bounds counting
    bytes at bf16 width (and, for the attention, Q K^T as one bf16 product
-   and P V as two at D 128, the two pieces of P the kernel runs, which the
-   checks show are enough, and as three at D 64, P in three bf16 pieces,
-   the basis of those rows' earlier records; ``design_bound_ms`` and
-   ``bound_1p3_ms`` give both bases on every 16-bit row); the bf16 top-k rows
+   and P V as two, the two pieces of P the kernels run, which the checks
+   show are enough, at every head dim; ``bound_1p3_ms`` beside it counts P
+   in three pieces, the basis of the D 64 rows' records before PR 33); the bf16 top-k rows
    are timed on the bf16 ``fused`` run's input (and on one-exponent-bin
    rows, ``ms_one_bin``), and the bf16 attention's library call (bf16
    SDPA, which rounds P to bf16: not the same function) reports its error
@@ -372,7 +375,10 @@ Phases (any failure raises and exits non-zero):
    samples each beside the SM clock, ``ms_samples`` and ``sm_clock_mhz``).
    The wrapper counts the D = 128 instances apart (``name.d128``); their
    rows' ``entry_launches`` are those instances' launches in the yi-9b check
-   (the 32k rows' those of their dtype's D = 128 instance).
+   (the 32k rows' those of their dtype's D = 128 instance).  The kernel for
+   every other head dim has rows at (96, 1024, D) for D 80, 96, 256 and 320
+   in each dtype (``name.dany.d<D>``, N(0, 1) inputs, SDPA in that dtype
+   beside), their launches the ``name.dany`` counter's.
 9. production mesh (runs after phase 6h, before the timing rows; no
    hand-written kernel).  (a) In a spawned process of its own (so that no
    state an earlier phase left reaches it), a 1x1 ``("data", "model")``
@@ -540,6 +546,19 @@ ATTN_32K_F32 = "flash_attention" + D128 + ".s32k"
 KERNELS.update({f"flash_attention{TAG[dt]}{D128}": KERNELS["flash_attention"]
                 for dt in (torch.float32, BF16, F16)})
 KERNELS[ATTN_32K] = KERNELS[ATTN_32K_F32] = KERNELS["flash_attention"]
+# the any-D kernel's timing rows at (96, 1024, D), each dtype: phi-2's 80,
+# Phi-3's 96, Gemma's 256 and the chunked path at 320; a row's name is its
+# counter's (``.dany``), then the head dim
+ANY_TIMED = (80, 96, 256, 320)
+
+
+def any_suffix(d: int) -> str:
+    """The any-D kernel's row suffix (after the dtype's tag) at head dim ``d``."""
+    return ops.flash_instance(d) + f".d{d}"
+
+
+KERNELS.update({f"flash_attention{TAG[dt]}{any_suffix(d)}": KERNELS["flash_attention"]
+                for dt in (torch.float32, BF16, F16) for d in ANY_TIMED})
 # the 16-bit main-path runs: the models compute in that dtype, and so does the round body
 LOW_CFG = {BF16: dict(compute_dtype="bfloat16"), F16: dict(compute_dtype="float16")}
 # the bf16 kernels' times before their redesign (loaders that upcast each
@@ -823,8 +842,10 @@ def ptxas_report(text: str, keys: tuple[str, ...]) -> list[str]:
             key = next(key for key in keys if key in name)
             args = [a for a, tag in (("FloatWire", "FloatWire"), ("Int8Wire", "Int8Wire"),
                                      ("bf16", "nv_bfloat16"), ("bf16", "4Bf16"), ("f16", "6__half"),
-                                     ("f16", "3F16"), ("true", "Lb1E"), ("false", "Lb0E"),
-                                     ("D 64", "Li64E"), ("D 128", "Li128E")) if tag in name]
+                                     ("f16", "3F16"), ("f32", "3F32")) if tag in name]
+            if key == "flash_attention_anyd_kernel":  # its padded head dim
+                args += [f"DP {n}" for n in re.findall(r"Li(\d+)E", name)]
+            args += [a for a, tag in (("true", "Lb1E"), ("false", "Lb0E")) if tag in name]
             out.append(f"{key}<{', '.join(args)}>: {m.group(1)} registers{m.group(2)}; {spill}")
             name = None
     return out
@@ -846,18 +867,25 @@ def sass_opcodes(lib: Path, kernel: str = "") -> dict[str, int]:
     return counts
 
 
+# the attention library's kernels (the any-D kernel: 9 instances a dtype)
+ATTENTION_KERNELS = ("flash_attention_kernel", "flash_attention_f32_d128_kernel", "flash_attention_16_kernel",
+                     "flash_attention_16_d128_kernel", "flash_attention_anyd_kernel")
+
+
 def phase_build():
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] {', '.join(map(str, libs.values()))} in {time.perf_counter() - t0:.1f} s")
+    attention = ptxas_report(build.build_log("flash_attention"), ATTENTION_KERNELS)
     report = (ptxas_report(build.build_log("topk_select"), ("topk_mask_kernel", "topk_radix_16_kernel"))
               + ptxas_report(build.build_log("sparse_agg"), ("scatter_wire_kernel", "scatter_wire_16_kernel",
                                                              "sparse_aggregate"))
               + ptxas_report(build.build_log("distill_kl"), ("distill_kl_kernel", "distill_kl_16_kernel"))
-              + ptxas_report(build.build_log("flash_attention"),
-                             ("flash_attention_kernel", "flash_attention_f32_d128_kernel",
-                              "flash_attention_16_kernel", "flash_attention_16_d128_kernel")))
+              + attention)
     log(f"[build] ptxas -v: {' | '.join(report) or 'no log (library built earlier)'}")
+    # a spilled attention kernel (each instance of the any-D kernel among them) fails the smoke
+    spilled = [line for line in attention if "0 bytes spill stores, 0 bytes spill loads" not in line]
+    assert not spilled, f"attention kernels spill: {spilled}"
     logs = {name: build.build_log(name) for name in libs}
     warned = [line.strip() for text in logs.values() for line in text.splitlines()
               if "Performance Loss" in line or "wgmma" in line.lower()]
@@ -870,13 +898,18 @@ def phase_build():
     every = sass_opcodes(libs["flash_attention"])
     hmma, hgmma = count(every, "HMMA"), count(every, "HGMMA")
     assert hmma > 0 and hgmma > 0, "an attention kernel runs no tensor-core instruction"
+    # the any-D kernel: mma.sync in every instance
+    anyd = sass_opcodes(libs["flash_attention"], "flash_attention_anyd_kernel")
+    anyd_hmma = count(anyd, "HMMA")
+    assert anyd_hmma > 0 and count(anyd, "HGMMA") == 0, anyd
     # the fp32 kernel at D 128: TF32 warpgroup products only
     f32_d128 = sass_opcodes(libs["flash_attention"], "flash_attention_f32_d128_kernel")
     tf32_hgmma = sum(n for op, n in f32_d128.items() if op.startswith("HGMMA") and op.endswith(".TF32"))
     f32_hmma = count(f32_d128, "HMMA")
     assert tf32_hgmma > 0 and f32_hmma == 0, f32_d128
-    log(f"[build] flash_attention SASS: {hmma} HMMA instructions (mma.sync) in its fp32 kernel at D 64, "
-        f"{hgmma} HGMMA (wgmma) in the others, of which {tf32_hgmma} TF32 ones and {f32_hmma} HMMA in "
+    log(f"[build] flash_attention SASS: {hmma - anyd_hmma} HMMA instructions (mma.sync) in its fp32 kernel "
+        f"at D 64, {anyd_hmma} in the 27 instances of flash_attention_anyd_kernel, {hgmma} HGMMA (wgmma) in "
+        f"the others, of which {tf32_hgmma} TF32 ones and {f32_hmma} HMMA in "
         f"flash_attention_f32_d128_kernel: their products on the tensor cores")
 
 
@@ -1007,8 +1040,20 @@ def check_distill_kl(device):
             f"another 16-byte phase")
 
 
-# the head dims the attention kernels take, each case run at all
-HEAD_DIMS = tuple(sorted(ops.FLASH_HEAD_DIMS))
+# the head dims the attention checks run each case at: 64 and 128, each with
+# kernels of its own, then D's of the kernel for every other head dim
+# (``.dany``): under its widest padded width, odd, phi-2's 80, Phi-3's 96,
+# Gemma's 256 and one past 256 (output columns in chunks)
+ANY_HEAD_DIMS = (32, 33, 80, 96, 256, 320)
+HEAD_DIMS = (64, 128) + ANY_HEAD_DIMS
+
+
+def late_key(q_row: torch.Tensor, d: int) -> torch.Tensor:
+    """A key whose score with ``q_row`` (N(0, 1) entries) outweighs every
+    other key of a 1 024-key row: 2 q_row, a score of ~2 D^0.5; below D 64
+    scaled up by 64 / D (at D 32 that score, ~11, falls to ~6 on a row of
+    small norm, which the row's other keys then outweigh)."""
+    return 2.0 * max(1.0, 64 / d) * q_row
 
 
 def check_flash_attention(device):
@@ -1021,7 +1066,7 @@ def check_flash_attention(device):
         q, k, v = (torch.randn((bh, seq, d), generator=gen, device=device) for _ in range(3))
         q, k = q * qk_scale, k * qk_scale
         if what == "late maxima":  # row 1000's largest score at key 900, key tile 14 of 16
-            k[:, 900] = 2.0 * q[:, 1000]
+            k[:, 900] = late_key(q[:, 1000], d)
         got = ops.flash_attention(q, k, v)
         want = ref.flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
@@ -1044,33 +1089,39 @@ def check_flash_attention(device):
             f"against its plain version (bound S * 2^-24 * max|v| = {tol:.3e}){one}")
     check_attention_causal(device, torch.float32)
     check_attention_offset_views(device, torch.float32)
-    check_attention_refuses_other_head_dims(device)
 
 
-def check_attention_refuses_other_head_dims(device, d: int = 96) -> None:
-    """A head dim the kernels do not take: the wrapper raises ``ValueError``
-    in every dtype and launches nothing, and each C entry point returns
-    ``cudaErrorInvalidValue`` (1) with nothing launched (the output it
-    was handed stays as it was)."""
+def check_attention_any_head_dim(device) -> dict:
+    """Every head dim runs on the card: at D 96 (a head dim the kernels
+    refused before the any-D kernel) and at each timed D, one call through
+    ``ops.flash_attention`` in each dtype launches one kernel, counted under
+    ``flash_attention{tag}.dany``, within the check of its dtype; each C
+    entry point returns ``cudaErrorInvalidValue`` (1) for head dim 0 and
+    leaves the output it was handed as it was.  Returns the launches by
+    timing row (``entry_launches``)."""
     stream = torch.cuda.current_stream(device).cuda_stream
+    entry = {}
     for dtype in (torch.float32, BF16, F16):
-        q, k, v = (torch.randn((4, 128, d), device=device).to(dtype) for _ in range(3))
-        ops.reset_launches()
-        try:
-            ops.flash_attention(q, k, v)
-        except ValueError as e:
-            assert "flash attention head dims" in str(e), e
-        else:
-            raise AssertionError(f"flash_attention took head dim {d} on the card ({dtype})")
-        assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES
+        name = "flash_attention" + TAG[dtype] + ".dany"
+        for d in sorted({96, *ANY_TIMED}):
+            q, k, v = attention_inputs((1, 4, 128, d), dtype, device)
+            ops.reset_launches()
+            got = ops.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES[name] == 1 and sum(ops.LAUNCHES.values()) == 1, ops.LAUNCHES
+            attention_err(got, ref.flash_attention_ref(*(x.reshape(4, 128, d) for x in (q, k, v))).reshape(
+                got.shape), attention_tolerance(128, v))
+            entry["flash_attention" + TAG[dtype] + any_suffix(d)] = 1
+        q, k, v = (torch.randn((4, 128, 1), device=device).to(dtype) for _ in range(3))
         out = torch.full_like(q, 7.0)
         fn = ops._fn("flash_attention", "flash_attention" + SUFFIX[dtype], 4, 3, 1)
-        rc = fn(*(t.data_ptr() for t in (q, k, v, out)), 4, 128, d, d**-0.5, stream)
+        rc = fn(*(t.data_ptr() for t in (q, k, v, out)), 4, 128, 0, 1.0, stream)
         torch.cuda.synchronize()
         assert rc == 1 and bool((out == 7.0).all()), (dtype, rc)
-    log(f"[kernels] flash_attention at head dim {d}: the wrapper raises ValueError and launches "
-        f"nothing, and flash_attention_f32, _bf16 and _f16 return cudaErrorInvalidValue with "
-        f"their output untouched")
+    log(f"[kernels] flash_attention at head dims {sorted({96, *ANY_TIMED})}: one launch a call, counted "
+        f"under flash_attention{{,.bf16,.f16}}.dany, within the check; flash_attention_f32, _bf16 and "
+        f"_f16 return cudaErrorInvalidValue at head dim 0 with their output untouched")
+    return entry
 
 
 def check_attention_offset_views(device, dtype: torch.dtype) -> None:
@@ -1086,7 +1137,7 @@ def check_attention_offset_views(device, dtype: torch.dtype) -> None:
         ops.reset_launches()
         got, want = ops.flash_attention(*views), ops.flash_attention(q, k, v)
         torch.cuda.synchronize()
-        name = "flash_attention" + TAG[dtype] + ("" if d == 64 else D128)
+        name = "flash_attention" + TAG[dtype] + ops.flash_instance(d)
         assert ops.LAUNCHES[name] == 2 and sum(ops.LAUNCHES.values()) == 2, ops.LAUNCHES
         assert torch.equal(got, want), ("offset views", dtype, d)
     log(f"[kernels{TAG[dtype].replace('.', ' ')}] flash_attention on q, k, v at a "
@@ -1377,10 +1428,12 @@ def check_topk_16(device, dtype: torch.dtype):
 
 def kstep_scores(qf: torch.Tensor, kt: torch.Tensor) -> torch.Tensor:
     """Q K^T (``kt``: K transposed) in the 16-bit kernels' order over D:
-    fp32 sums of 16-wide k-steps, in order (the wgmma chain)."""
+    fp32 sums of 16-wide k-steps, in order (the wgmma or mma.sync chain;
+    the last one narrower where D is not a multiple of 16, the any-D
+    kernel's zero-padded step)."""
     sc = torch.zeros(qf.shape[:-1] + kt.shape[-1:], device=qf.device)
-    for kk in range(qf.shape[-1] // 16):
-        sc = sc + qf[..., 16 * kk:16 * kk + 16] @ kt[..., 16 * kk:16 * kk + 16, :]
+    for c in range(0, qf.shape[-1], 16):
+        sc = sc + qf[..., c:c + 16] @ kt[..., c:c + 16, :]
     return sc
 
 
@@ -1414,7 +1467,7 @@ def check_attention_16(device, dtype: torch.dtype):
             scale = float(what.removeprefix("q, k x"))
             q, k = scale * q, scale * k
         if what == "late maxima":  # row 1000's largest score at key 900, key tile 14 of 16
-            k[:, 900] = 2.0 * q[:, 1000]
+            k[:, 900] = late_key(q[:, 1000], d)
         q, k, v = (z.to(dtype) for z in (q, k, v))
         got, want = ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
@@ -4341,27 +4394,19 @@ def yi_layer0_qkv(device, seq: int = YI_S, cfg=None):
         return apply_rope(q, pos, theta=cfg.rope_theta), apply_rope(k, pos, theta=cfg.rope_theta), v
 
 
-# the 16-bit products of p v in the 16-bit attention's bound, by head dim: at
-# D 128 the two pieces of p the kernel runs, which the checks show are enough;
-# the D 64 rows keep the three of their earlier records, so that their % of
-# bound compares across versions (their two-piece bound is ``design_bound_ms``)
-P_PIECES = {64: 3, 128: 2}
-
-
 def attention_work(bh: int, seq: int, d: int, dtype: torch.dtype,
-                   pieces: int | None = None) -> tuple[int, int, float]:
+                   pieces: int = 2) -> tuple[int, int, float]:
     """The attention's bytes (q, k, v read once, out written once), its
     operations on the tensor cores and their rate.  The causal half of
     q k^T and of p v is S^2 * D operations each a head-batch.  fp32: each
     product at fp32 grade is three TF32 products.  bf16 (fp16): q k^T is
-    one 16-bit product (exact in fp32) and p v ``pieces`` (default
-    ``P_PIECES[d]``), p split into that many 16-bit pieces, at the 16-bit
-    rate."""
+    one 16-bit product (exact in fp32) and p v ``pieces``, p split into that
+    many 16-bit pieces (the kernels' two unless said), at the 16-bit rate."""
     ops_done = 2 * seq * seq * d * bh
     io_bytes = 4 * bh * seq * d * torch.finfo(dtype).bits // 8
     if dtype == torch.float32:
         return io_bytes, TF32_SPLIT * ops_done, TF32_OPS_PER_S
-    return io_bytes, (1 + (pieces or P_PIECES[d])) * ops_done // 2, BF16_OPS_PER_S
+    return io_bytes, (1 + pieces) * ops_done // 2, BF16_OPS_PER_S
 
 
 def attention_bound_ms(bh: int, seq: int, d: int, dtype: torch.dtype) -> float:
@@ -4659,12 +4704,13 @@ def attention_inputs(shape, dtype: torch.dtype, device):
     return tuple(torch.randn(shape, generator=gen, device=device).to(dtype) for _ in range(3))
 
 
-def time_flash_attention(qkv, device, suffix: str = "", heads=None) -> dict:
+def time_flash_attention(qkv, device, suffix: str = "", heads=None, timing: dict | None = None) -> dict:
     """The attention kernel on ``qkv`` (B, H, S, D) in its dtype: the
     serving prefill's layer-0 q/k/v (D 64), N(0, 1) inputs at D 128
-    (``suffix`` ".d128"), yi-9b's at 32k.  ``heads``: the head-batches the
-    plain version is held on (all when None), and the plain version then
-    timed one head-batch at a time, as it fits.  In bf16 (fp16) the library
+    (``suffix`` ".d128") and at other D (``suffix`` ".dany.d<D>"), yi-9b's
+    at 32k.  ``heads``: the head-batches the plain version is held on (all
+    when None), and the plain version then timed one head-batch at a time,
+    as it fits; ``timing``: ``time_ms``'s repeats, where not its own.  In bf16 (fp16) the library
     call, bf16 (fp16) SDPA, rounds P to that dtype before P V, so it is not
     the same function: its max error against the plain version is logged
     and kept beside its time."""
@@ -4693,20 +4739,17 @@ def time_flash_attention(qkv, device, suffix: str = "", heads=None) -> dict:
     ops_done = 2 * seq * seq * d * b * h
     io_bytes, tc_ops, tc_rate = attention_work(b * h, seq, d, q.dtype)
     fp32_ms, _ = bound(io_bytes, ops_done)
-    basis = f"1+{P_PIECES[d]} {q.dtype} products" if low else "3+3 TF32 products"
+    basis = f"1+2 {q.dtype} products" if low else "3+3 TF32 products"
     row = _row("flash_attention" + TAG[q.dtype] + suffix, raw, lambda: ops.flash_attention(q, k, v),
                plain, library, check, io_bytes, tc_ops,
                f"B*H={b * h} S={seq} D={d} ({q.dtype}; {basis} on the tensor cores; the fp32 "
                f"CUDA-core bound would be {fp32_ms * 1e3:.2f} us)", tc_rate,
-               timing=None if heads is None else dict(calls=1, reps=3, warmup=1))
-    if low:  # both bases beside the bound: p v in two 16-bit pieces (the kernel's) and in three
-        row["design_bound_ms"] = bound(*attention_work(b * h, seq, d, q.dtype, 2))[0]
+               timing=timing if heads is None else dict(calls=1, reps=3, warmup=1))
+    if low:  # the three-piece basis beside it: the D 64 rows' records before PR 33
         row["bound_1p3_ms"] = bound(*attention_work(b * h, seq, d, q.dtype, 3))[0]
-        log(f"[timing] {row['name']}: the kernel's own design (Q K^T one 16-bit product, P V two: P "
-            f"in two pieces) bounds it at {row['design_bound_ms'] * 1e3:.2f} us, "
-            f"{row['design_bound_ms'] / row['ms']:.1%} of its time; P V in three pieces (the basis "
-            f"of the D 64 rows) at {row['bound_1p3_ms'] * 1e3:.2f} us, "
-            f"{row['bound_1p3_ms'] / row['ms']:.1%}")
+        log(f"[timing] {row['name']}: P V in three 16-bit pieces (the D 64 rows' earlier basis) would "
+            f"bound it at {row['bound_1p3_ms'] * 1e3:.2f} us, {row['bound_1p3_ms'] / row['ms']:.1%} of "
+            f"its time; its bound_ms counts the two pieces the kernels run")
     if heads is not None:  # calls of many ms, at the card's power limit: each sample beside its SM clock
         row["ms_samples"], row["sm_clock_mhz"] = clocked_samples(raw)
         log(f"[timing] {row['name']}: {len(row['ms_samples'])} samples " + ", ".join(
@@ -4732,6 +4775,7 @@ def main() -> int:
     check_flash_attention(device)
     check_bf16_kernels(device)
     check_f16_kernels(device)
+    any_entry = check_attention_any_head_dim(device)
     phase_small_input(device)
     phase_small_pretrain(device)
 
@@ -4779,6 +4823,7 @@ def main() -> int:
         entry[name + D128] = serving["entry_d128"][name + D128]  # yi-9b's layer 0 at 32k, D 128
     entry[ATTN_32K] = entry["flash_attention.bf16" + D128]
     entry[ATTN_32K_F32] = entry["flash_attention" + D128]
+    entry.update(any_entry)  # the any-D kernel's calls through ops.flash_attention
     log(f"[main path] kernel launches over the ten runs, the pretrained phase's four, the "
         f"faults phase's, the host store phase's, the scale-out phase's, the families phase's, "
         f"the state-space phase's and the modal phase's {launches} (the faults "
@@ -4817,8 +4862,13 @@ def main() -> int:
     del serving["qkv_32k_f32"]
     rows.append(time_flash_attention(tuple(t.to(device) for t in serving["qkv_32k"]), device,
                                      D128 + ".s32k", heads=YI_HEADS))
-    # a row's main-path count is its kernel instance's (a 32k row's its dtype's D = 128 one's)
-    rows = [{**row, "launches": launches[row["name"].removesuffix(".s32k")],
+    for dtype in (torch.float32, BF16, F16):  # the any-D kernel at the GPT-2 rows' (96, 1024)
+        for d in ANY_TIMED:
+            rows.append(time_flash_attention(attention_inputs((8, 12, 1024, d), dtype, device), device,
+                                             any_suffix(d), timing=dict(calls=4, reps=9, warmup=2)))
+    # a row's main-path count is its kernel's (a 32k row's its dtype's D = 128 one's, a
+    # .dany.d<D> row's the any-D kernel's)
+    rows = [{**row, "launches": launches[re.sub(r"(\.dany)\.d\d+$", r"\1", row["name"].removesuffix(".s32k"))],
              **({"entry_launches": entry[row["name"]]} if row["name"] in entry else {})}
             for row in rows]
     log(f"[smoke] every phase passed in {time.perf_counter() - t0:.1f} s")

@@ -1,9 +1,11 @@
 // Blockwise causal softmax attention, forward only (inference prefill):
 //   out[b, i, :] = sum_{j <= i} softmax_j(q[b,i,:] . k[b,j,:] * D^-0.5) v[b,j,:]
-// over fused head-batches q, k, v, out: (B*H, S, D) fp32, bf16 or fp16, with
-// head dim D 64 (GPT-2, granite, stablelm, seamless, mamba2) or 128 (yi-9b,
-// command-r, llama4, internvl2, jamba, moonshot): each dtype has a kernel
-// for each D; any other D launches nothing.
+// over fused head-batches q, k, v, out: (B*H, S, D) fp32, bf16 or fp16, any
+// head dim D >= 1: each dtype has a kernel of its own at D 64 (GPT-2,
+// granite, stablelm, seamless, mamba2) and at D 128 (yi-9b, command-r,
+// llama4, internvl2, jamba, moonshot), and one for every other D
+// (flash_attention_anyd_kernel, at the end: phi-2's 80, Phi-3's 96,
+// Gemma's 256, ...); D < 1 launches nothing.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 //   flash_attention_{f32,bf16,f16} <- flash_attention_pallas (_flash_kernel,
@@ -217,6 +219,52 @@
 // fp16's subnormal step 2^-24, below which a weight is dropped (at most
 // 2^-25 a key, S 2^-25 max|v| in all, half the check's bound).  The output
 // is rounded to fp16 once.
+//
+// Any other head dim (flash_attention_anyd_kernel<E, DP, kChunked>, fp32,
+// bf16 and fp16), replacing flash_attention_pallas at every D but 64 and 128:
+// the reference's blocks span the full D, so it takes any.  Bound, as above:
+// operations, 3 * 2 * S^2 * D * B*H / 2 at the TF32 rate (fp32), (1 + 2) *
+// S^2 * D * B*H at the 16-bit rate (bf16, fp16): at B*H = 96, S = 1024, 97.6
+// / 24.4 us at D 80, 117 / 29.3 at D 96, 312 / 78.2 at D 256.  A simple design
+// on mma.sync, as the fp32 kernel at D = 64, one instance a padded width:
+//   * D is padded to DP, D rounded up to a multiple of 32 (eight instances
+//     up to 256 a dtype, from 32 on); a D past 256 takes the DP = 256
+//     instance with kChunked: output columns in chunks of 256 on the grid's
+//     third axis, each chunk's block computing the scores over all of D in
+//     pieces of 256 staged through shared memory (ceil(D / 256) times the
+//     Q K^T work).  Columns D .. DP of Q and K (and of V) are zeroed in shared
+//     memory, so they add exact zeros to every score; V's give output columns
+//     that are never stored, and whose products are skipped 16 columns at a
+//     time; Q K^T stops at D rounded up to 16.  Rows past the sequence are
+//     zeros.
+//   * A block owns 64 query rows of one head-batch, 4 warps of 16 rows; the
+//     query tiles that see the most keys launch first.  Q is staged once
+//     into shared memory (a chunked block re-stages its pieces each key
+//     tile); K and V arrive in tiles of 64 keys (32 where 64 would leave one
+//     block an SM: fp32 from DP 96 on, 16-bit from DP 192 on), two stages
+//     (one when chunked).  A row of D elements is 16-byte aligned only when
+//     D * 4 (D * 2) is a multiple of 16, so neither TMA (strides of 16
+//     bytes) nor the 16-byte cp.async of the D = 64 kernel can load every
+//     row: each load is the widest that the row's bytes allow, 16, 8 or 4
+//     bytes by cp.async (zero-filled past the sequence) and 2 by plain loads
+//     (a 16-bit row of odd D), chosen at launch.
+//   * fp32: 3xTF32 m16n8k8 as the D = 64 kernel (Q's and K's fragments read
+//     as 16-byte loads in its k-step-pair order, P's from the accumulators
+//     in place); Q's fragments come from shared memory at every k-step pair
+//     and are split there (at DP 256 the output accumulator alone holds 128
+//     registers a thread: Q's split parts cannot stay).  bf16 / fp16:
+//     m16n8k16 with Q's and K's fragments and V's transposed ones by
+//     ldmatrix, Q K^T exact in fp32, P in two 16-bit pieces (the small one
+//     first), the output rounded once.  Rows padded so that every fragment
+//     load of a warp hits distinct banks: fp32 Q and K rows of DP + 16
+//     floats, V rows of DP + 4; 16-bit rows of DP + 8.
+//   * The scale is in the exponent (2^(s c - m c), c = scale * log2(e)): D^-0.5
+//     is exact only at D = 4^n.  The online softmax and the causal mask are
+//     the D = 128 kernels' (online_softmax); a warp takes key tiles 0 .. its
+//     own diagonal.
+//   Registers, shared memory and times: PERF.md section 6 (chip_smoke.py's
+//   [build] line prints ptxas's report of each instance and fails on a
+//   spill).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC.
@@ -1587,6 +1635,353 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   }
 }
 
+// ---- any other head dim: mma.sync on D padded to a multiple of 32 -----------
+
+// The any-D kernel's fp32 element type (3xTF32 on m16n8k8); Bf16 and F16 run
+// m16n8k16 on their own type.
+struct F32 {
+  using T = float;
+};
+
+constexpr int kAnyWidest = 256;  // the widest padded head dim; a wider D goes in chunks of it
+
+// The any-D kernel's tiles for element type E at padded width DP: a Q tile
+// of kRows rows, K and V tiles of kKeys keys in kStages stages, rows padded
+// (in elements) so that a warp's fragment loads hit distinct banks; 64-key
+// tiles where two blocks still fit an SM's 228 KB (1 KB of each reserved),
+// else 32.
+template <class E, int DP, bool kChunked>
+struct AnyTiles {
+  using T = typename E::T;
+  static constexpr bool kF32 = std::is_same<E, F32>::value;
+  static constexpr int kStrideQK = kF32 ? DP + 16 : DP + 8;  // fp32: 16-byte fragment loads
+  static constexpr int kStrideV = kF32 ? DP + 4 : DP + 8;    // fp32: 4-byte loads; 16-bit: ldmatrix
+  static constexpr int kStages = kChunked ? 1 : 2;
+  static constexpr int kQ = kRows * kStrideQK;                  // elements of the Q tile
+  static constexpr int kPerKey = kStages * (kStrideQK + kStrideV);  // and of a key's K and V rows
+  static constexpr int kKeys = 2 * ((kQ + 64 * kPerKey) * (int)sizeof(T) + 1024) <= 228 * 1024 ? 64 : 32;
+  static constexpr int kK = kKeys * kStrideQK, kV = kKeys * kStrideV;
+  static constexpr int kSmemBytes = (kQ + kKeys * kPerKey) * (int)sizeof(T);
+  static_assert(DP % 32 == 0 && DP <= kAnyWidest, "DP: a multiple of 32, at most 256");
+  static_assert(kSmemBytes <= 227 * 1024, "one block's shared memory");
+};
+
+// cp.async of N bytes (4, 8 or 16), zeros where !in
+template <int N>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, bool in) {
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(in ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)), "l"(src), "n"(N),
+                 "r"(in ? N : 0));
+  }
+}
+
+// Rows row0 .. row0 + kN - 1 of one (seq, d) matrix at src, its columns col0
+// .. col0 + width - 1, into a tile of rows of kStride elements at dst, in
+// copies of `vec` bytes (16, 8 or 4 by cp.async; 2, a 16-bit row of odd
+// width, by plain loads), rows past seq as zeros; the tile's columns width ..
+// DP - 1 are zeroed.  vec divides width's and d's bytes, and col0's are a
+// multiple of 16.
+template <class T, int kN, int kStride, int DP>
+__device__ __forceinline__ void stage_any(T* dst, const T* src, int row0, int seq, int d, int col0,
+                                          int width, int vec) {
+  const int per = vec / (int)sizeof(T), n = width / per;
+  for (int i = threadIdx.x; i < kN * n; i += kThreads) {
+    const int r = i / n, col = (i - r * n) * per;
+    const bool in = row0 + r < seq;
+    const T* s = src + (size_t)(in ? row0 + r : 0) * d + col0 + col;
+    T* t = dst + r * kStride + col;
+    if (vec == 16) {
+      cp_async_n<16>(t, s, in);
+    } else if (vec == 8) {
+      cp_async_n<8>(t, s, in);
+    } else if (vec == 4) {
+      cp_async_n<4>(t, s, in);
+    } else {
+      *reinterpret_cast<uint16_t*>(t) = in ? *reinterpret_cast<const uint16_t*>(s) : (uint16_t)0;
+    }
+  }
+  const int pad = DP - width;
+  for (int i = threadIdx.x; i < kN * pad; i += kThreads) {
+    const int r = i / pad, at = r * kStride + width + (i - r * pad);
+    if constexpr (sizeof(T) == 2) {
+      reinterpret_cast<uint16_t*>(dst)[at] = 0;
+    } else {
+      dst[at] = 0.0f;
+    }
+  }
+}
+
+// four 8 x 8 matrices of 16-bit values from shared memory, each lane's row
+// address given (lanes 8i .. 8i + 7: matrix i); .trans: transposed
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a . b on the tensor cores, one m16n8k16 product of 16-bit inputs
+template <class E>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<E, F16>::value) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// s += Q K^T for a warp's 16 rows (from row wrow of the Q tile) over a K
+// tile, the first n16 16-column steps of D.  s[j][e]: the accumulator of
+// keys 8j .. 8j + 7 (row g + 8 (e >> 1), key 8j + 2t + (e & 1)).
+template <class E, int kKeys, int kStride>
+__device__ __forceinline__ void qk_any(float (&s)[kKeys / 8][4], const typename E::T* sq,
+                                       const typename E::T* sk, int wrow, int lane, int n16) {
+  if constexpr (std::is_same<E, F32>::value) {
+    // 3xTF32, the D = 64 kernel's order: in each pair of k-steps (16 columns
+    // from 16m) A column t holds column 16m + 4t + 2h of k-step 2m + h,
+    // column t + 4 the next, so that a lane reads its four values as a float4
+    const int g = lane >> 2, t = lane & 3;
+    const float* q0 = sq + (wrow + g) * kStride + 4 * t;
+    const float* k0 = sk + g * kStride + 4 * t;
+#pragma unroll 1
+    for (int m = 0; m < n16; ++m) {
+      const float4 x0 = *reinterpret_cast<const float4*>(q0 + 16 * m);
+      const float4 x1 = *reinterpret_cast<const float4*>(q0 + 8 * kStride + 16 * m);
+      uint32_t qb[2][4], qs[2][4];
+      split(x0.x, qb[0][0], qs[0][0]);
+      split(x1.x, qb[0][1], qs[0][1]);
+      split(x0.y, qb[0][2], qs[0][2]);
+      split(x1.y, qb[0][3], qs[0][3]);
+      split(x0.z, qb[1][0], qs[1][0]);
+      split(x1.z, qb[1][1], qs[1][1]);
+      split(x0.w, qb[1][2], qs[1][2]);
+      split(x1.w, qb[1][3], qs[1][3]);
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        const float4 kr = *reinterpret_cast<const float4*>(k0 + 8 * j * kStride + 16 * m);
+        mma3(s[j], qb[0], qs[0], kr.x, kr.y);
+        mma3(s[j], qb[1], qs[1], kr.z, kr.w);
+      }
+    }
+  } else {
+    // lane l gives row l % 8 of matrix l / 8: Q's A fragment (rows +8 for
+    // matrices 1 and 3, columns +8 for 2 and 3) and the B fragments of two
+    // key n-tiles (columns +8 for matrices 1 and 3, keys +8 for 2 and 3)
+    const typename E::T* qa = sq + (wrow + (lane & 7) + (lane & 8)) * kStride + ((lane >> 4) << 3);
+    const typename E::T* ka = sk + ((lane & 7) + ((lane >> 4) << 3)) * kStride + (lane & 8);
+#pragma unroll 1
+    for (int kk = 0; kk < n16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, qa + 16 * kk);
+#pragma unroll
+      for (int jj = 0; jj < kKeys / 16; ++jj) {
+        uint32_t b[4];
+        ldsm_x4(b, ka + 16 * jj * kStride + 16 * kk);
+        mma16<E>(s[2 * jj], a, b[0], b[1]);
+        mma16<E>(s[2 * jj + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// o += P V for a warp's 16 rows over a V tile: P as the online softmax left
+// it in s, V's first `width` columns (16 at a time; the rest are never stored)
+template <class E, int DP, int kKeys, int kStride>
+__device__ __forceinline__ void pv_any(float (&o)[DP / 8][4], const float (&s)[kKeys / 8][4],
+                                       const typename E::T* sv, int lane, int width) {
+  if constexpr (std::is_same<E, F32>::value) {
+    // 3xTF32: the accumulators of keys (2t, 2t + 1) are the A columns (t, t + 4),
+    // so the B fragment takes V rows 2t and 2t + 1
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      uint32_t pb[4], ps[4];
+      split(s[j][0], pb[0], ps[0]);
+      split(s[j][2], pb[1], ps[1]);
+      split(s[j][1], pb[2], ps[2]);
+      split(s[j][3], pb[3], ps[3]);
+      const float* vr = sv + (8 * j + 2 * t) * kStride + g;
+#pragma unroll
+      for (int nd = 0; nd < DP / 8; ++nd) {
+        if (8 * (nd & ~1) < width) mma3(o[nd], pb, ps, vr[8 * nd], vr[kStride + 8 * nd]);
+      }
+    }
+  } else {
+    // k-step kk (keys 16 kk ..) takes the accumulator pairs of key n-tiles 2 kk
+    // and 2 kk + 1 as its A registers, no shuffle; P in two 16-bit pieces,
+    // hi = T(P) and lo = T(P - hi), the small piece first; V's B fragments of
+    // two column n-tiles by one transposed ldmatrix (keys +8 for matrices 1
+    // and 3, columns +8 for 2 and 3)
+    const typename E::T* va = sv + ((lane & 7) + (lane & 8)) * kStride + ((lane >> 4) << 3);
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      const float x[8] = {s[2 * kk][0], s[2 * kk][1], s[2 * kk][2], s[2 * kk][3],
+                          s[2 * kk + 1][0], s[2 * kk + 1][1], s[2 * kk + 1][2], s[2 * kk + 1][3]};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        hi[r] = E::pack(x[2 * r], x[2 * r + 1]);
+        lo[r] = E::pack(x[2 * r] - E::lo(hi[r]), x[2 * r + 1] - E::hi(hi[r]));
+      }
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        if (16 * np < width) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, va + 16 * kk * kStride + 16 * np);
+          mma16<E>(o[2 * np], lo, b[0], b[1]);
+          mma16<E>(o[2 * np], hi, b[0], b[1]);
+          mma16<E>(o[2 * np + 1], lo, b[2], b[3]);
+          mma16<E>(o[2 * np + 1], hi, b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// Two neighbouring output values of one row, rounded to T once; the second
+// only where `both` (the last column of an odd D has no neighbour)
+template <class E>
+__device__ __forceinline__ void store_pair(typename E::T* p, float a, float b, bool both) {
+  if constexpr (std::is_same<E, F32>::value) {
+    p[0] = a;
+    if (both) p[1] = b;
+  } else {
+    const uint32_t w = E::pack(a, b);
+    reinterpret_cast<uint16_t*>(p)[0] = (uint16_t)(w & 0xffffu);
+    if (both) reinterpret_cast<uint16_t*>(p)[1] = (uint16_t)(w >> 16);
+  }
+}
+
+// A block owns kRows query rows of one head-batch (query tile blockIdx.y
+// from the last) and output columns DP * blockIdx.z .. (chunked) of them;
+// warp w its rows 16 w ..  c = scale * log2(e); vec: the loads' bytes.
+template <class E, int DP, bool kChunked>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_anyd_kernel(const typename E::T* __restrict__ q, const typename E::T* __restrict__ k,
+                                const typename E::T* __restrict__ v, typename E::T* __restrict__ out,
+                                int seq, int d, float c, int vec) {
+  using L = AnyTiles<E, DP, kChunked>;
+  using T = typename E::T;
+  constexpr int kKeys = L::kKeys, kSQK = L::kStrideQK, kSV = L::kStrideV;
+  extern __shared__ float4 smem4[];
+  T* const sq = reinterpret_cast<T*>(smem4);
+  T* const skv = sq + L::kQ;  // stage s: K at skv + s (kK + kV), then V
+
+  const int n_qt = (seq + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * kRows;  // the longest query tiles first
+  const size_t base = (size_t)blockIdx.x * seq * d;
+  const int col0 = DP * (int)blockIdx.z;   // this block's output columns (chunked; else 0) ...
+  const int width = min(DP, d - col0);     // ... of which this many lie in D
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group and lane in the quad
+  const int wrow = 16 * warp;             // the warp's first row in the query tile
+  const int row0 = q0 + wrow + g, row1 = row0 + 8;
+  // key tiles 0 .. the block's last row; the warp's own end at its diagonal
+  const int n_kt = min((q0 + kRows - 1) / kKeys + 1, (seq + kKeys - 1) / kKeys);
+  const int last = q0 + wrow < seq ? (q0 + wrow) / kKeys : -1;  // none when its rows lie past seq
+
+  if constexpr (!kChunked) {  // Q once, beside key tile 0 in stage 0
+    stage_any<T, kRows, kSQK, DP>(sq, q + base, q0, seq, d, 0, d, vec);
+    stage_any<T, kKeys, kSQK, DP>(skv, k + base, 0, seq, d, 0, d, vec);
+    stage_any<T, kKeys, kSV, DP>(skv + L::kK, v + base, 0, seq, d, 0, d, vec);
+    cp_async_commit();
+  }
+  float o[DP / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DP / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * kKeys;
+    const bool mine = it <= last;
+    float s[kKeys / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+    const T* vs;
+    if constexpr (kChunked) {
+      // S = Q K^T over D in pieces of DP columns, Q's and K's staged in turn
+      T* const ks = skv;
+      for (int p = 0; p < d; p += DP) {
+        const int w = min(DP, d - p);
+        stage_any<T, kRows, kSQK, DP>(sq, q + base, q0, seq, d, p, w, vec);
+        stage_any<T, kKeys, kSQK, DP>(ks, k + base, k0, seq, d, p, w, vec);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (mine) qk_any<E, kKeys, kSQK>(s, sq, ks, wrow, lane, (w + 15) / 16);
+        __syncthreads();  // the pieces are read before the next overwrite them
+      }
+      T* const vt = skv + L::kK;
+      stage_any<T, kKeys, kSV, DP>(vt, v + base, k0, seq, d, col0, width, vec);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      vs = vt;
+    } else {
+      if (it + 1 < n_kt) {  // tile it + 1 loads while tile it computes
+        T* const next = skv + ((it + 1) & 1) * (L::kK + L::kV);
+        stage_any<T, kKeys, kSQK, DP>(next, k + base, k0 + kKeys, seq, d, 0, d, vec);
+        stage_any<T, kKeys, kSV, DP>(next + L::kK, v + base, k0 + kKeys, seq, d, 0, d, vec);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const T* ks = skv + (it & 1) * (L::kK + L::kV);
+      vs = ks + L::kK;
+      if (mine) qk_any<E, kKeys, kSQK>(s, sq, ks, wrow, lane, (d + 15) / 16);
+    }
+    if (mine) {
+      // the causal mask on the warp's diagonal tile, the online softmax, O
+      // rescaled to the new max, then O += P V
+      float r0, r1;
+      online_softmax(reinterpret_cast<float(&)[kKeys / 2]>(s), it == last, k0 + 2 * t - row0, c, m0, m1,
+                     l0, l1, r0, r1);
+#pragma unroll
+      for (int nd = 0; nd < DP / 8; ++nd) {
+        o[nd][0] *= r0;
+        o[nd][1] *= r0;
+        o[nd][2] *= r1;
+        o[nd][3] *= r1;
+      }
+      pv_any<E, DP, kKeys, kSV>(o, s, vs, lane, width);
+    }
+    __syncthreads();  // the tile is read before the next stage overwrites it
+  }
+
+  if (last < 0) return;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  T* const ob = out + base + col0;
+#pragma unroll
+  for (int nd = 0; nd < DP / 8; ++nd) {
+    const int col = 8 * nd + 2 * t;
+    if (col < width) {
+      if (row0 < seq) store_pair<E>(ob + (size_t)row0 * d + col, o[nd][0] * inv0, o[nd][1] * inv0, col + 1 < width);
+      if (row1 < seq) store_pair<E>(ob + (size_t)row1 * d + col, o[nd][2] * inv1, o[nd][3] * inv1, col + 1 < width);
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled looked up through the runtime's entry-point query
 // (no link to libcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1693,22 +2088,55 @@ int launch_attention_f32_d128(const float* q, const float* k, const float* v, fl
   return (int)cudaGetLastError();
 }
 
-// The head dims with a kernel: 64 and 128; any other launches nothing.
-bool head_dim_taken(int head_dim) { return head_dim == 64 || head_dim == 128; }
+// Any other head dim: the instance of D's padded width DP (D rounded up to
+// a multiple of 32), or past 256 the chunked one; each load `vec` bytes, the
+// widest that divides a row's bytes (the base address is 16-byte aligned)
+template <class E, int DP, bool kChunked>
+int launch_anyd(const typename E::T* q, const typename E::T* k, const typename E::T* v, typename E::T* out,
+                int bh, int seq, int d, float scale, int vec, void* stream) {
+  constexpr int kSmem = AnyTiles<E, DP, kChunked>::kSmemBytes;
+  const cudaError_t err = cudaFuncSetAttribute(flash_attention_anyd_kernel<E, DP, kChunked>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (seq + kRows - 1) / kRows, kChunked ? (d + DP - 1) / DP : 1);
+  flash_attention_anyd_kernel<E, DP, kChunked><<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+      q, k, v, out, seq, d, scale * kLog2e, vec);
+  return (int)cudaGetLastError();
+}
+
+template <class E>
+int launch_attention_anyd(const typename E::T* q, const typename E::T* k, const typename E::T* v,
+                          typename E::T* out, int bh, int seq, int d, float scale, void* stream) {
+  const int bytes = d * (int)sizeof(typename E::T);
+  const int vec = bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 2;
+  switch ((d + 31) / 32) {
+    case 1: return launch_anyd<E, 32, false>(q, k, v, out, bh, seq, d, scale, vec, stream);
+    case 2: return launch_anyd<E, 64, false>(q, k, v, out, bh, seq, d, scale, vec, stream);
+    case 3: return launch_anyd<E, 96, false>(q, k, v, out, bh, seq, d, scale, vec, stream);
+    case 4: return launch_anyd<E, 128, false>(q, k, v, out, bh, seq, d, scale, vec, stream);
+    case 5: return launch_anyd<E, 160, false>(q, k, v, out, bh, seq, d, scale, vec, stream);
+    case 6: return launch_anyd<E, 192, false>(q, k, v, out, bh, seq, d, scale, vec, stream);
+    case 7: return launch_anyd<E, 224, false>(q, k, v, out, bh, seq, d, scale, vec, stream);
+    case 8: return launch_anyd<E, 256, false>(q, k, v, out, bh, seq, d, scale, vec, stream);
+    default: return launch_anyd<E, kAnyWidest, true>(q, k, v, out, bh, seq, d, scale, vec, stream);
+  }
+}
 
 }  // namespace
 
 extern "C" {
 
 // q, k, v, out: (bh, seq, head_dim) fp32, contiguous, 16-byte aligned;
-// head_dim 64 or 128 (else cudaErrorInvalidValue, nothing launched); scale:
+// head_dim >= 1 (else cudaErrorInvalidValue, nothing launched): 64 and 128
+// to their own kernels, any other to flash_attention_anyd_kernel; scale:
 // the caller's fp32 head_dim^-0.5.
 int flash_attention_f32(const float* q, const float* k, const float* v, float* out, int bh,
                         int seq, int head_dim, float scale, void* stream) {
-  if (!head_dim_taken(head_dim)) return (int)cudaErrorInvalidValue;
+  if (head_dim < 1) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
-  return head_dim == 64 ? launch_attention(q, k, v, out, bh, seq, scale, stream)
-                        : launch_attention_f32_d128(q, k, v, out, bh, seq, scale, stream);
+  if (head_dim == 64) return launch_attention(q, k, v, out, bh, seq, scale, stream);
+  if (head_dim == 128) return launch_attention_f32_d128(q, k, v, out, bh, seq, scale, stream);
+  return launch_attention_anyd<F32>(q, k, v, out, bh, seq, head_dim, scale, stream);
 }
 
 // q, k, v, out: (bh, seq, head_dim) bf16, contiguous, 16-byte aligned; the
@@ -1716,20 +2144,22 @@ int flash_attention_f32(const float* q, const float* k, const float* v, float* o
 int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                          __nv_bfloat16* out, int bh, int seq, int head_dim, float scale,
                          void* stream) {
-  if (!head_dim_taken(head_dim)) return (int)cudaErrorInvalidValue;
+  if (head_dim < 1) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
-  return head_dim == 64 ? launch_attention16_d64<Bf16>(q, k, v, out, bh, seq, scale, stream)
-                        : launch_attention16_d128<Bf16>(q, k, v, out, bh, seq, scale, stream);
+  if (head_dim == 64) return launch_attention16_d64<Bf16>(q, k, v, out, bh, seq, scale, stream);
+  if (head_dim == 128) return launch_attention16_d128<Bf16>(q, k, v, out, bh, seq, scale, stream);
+  return launch_attention_anyd<Bf16>(q, k, v, out, bh, seq, head_dim, scale, stream);
 }
 
 // q, k, v, out: (bh, seq, head_dim) fp16, contiguous, 16-byte aligned; the
 // rest as flash_attention_f32.
 int flash_attention_f16(const __half* q, const __half* k, const __half* v, __half* out, int bh,
                         int seq, int head_dim, float scale, void* stream) {
-  if (!head_dim_taken(head_dim)) return (int)cudaErrorInvalidValue;
+  if (head_dim < 1) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || seq <= 0) return (int)cudaSuccess;
-  return head_dim == 64 ? launch_attention16_d64<F16>(q, k, v, out, bh, seq, scale, stream)
-                        : launch_attention16_d128<F16>(q, k, v, out, bh, seq, scale, stream);
+  if (head_dim == 64) return launch_attention16_d64<F16>(q, k, v, out, bh, seq, scale, stream);
+  if (head_dim == 128) return launch_attention16_d128<F16>(q, k, v, out, bh, seq, scale, stream);
+  return launch_attention_anyd<F16>(q, k, v, out, bh, seq, head_dim, scale, stream);
 }
 
 }  // extern "C"

@@ -10,8 +10,9 @@ kernel has an entry point for each (``*_f32``, ``*_bf16``, ``*_f16``); the
 wrapper's output dtype, and a 16-bit tensor is never upcast here to reach
 the fp32 kernel.  ``LAUNCHES`` counts kernel launches per wrapper and input
 dtype (``name`` for fp32, ``name.bf16`` for bf16, ``name.f16`` for fp16),
-and for the attention per head dim too (``.d128`` after the dtype's tag for
-the D = 128 instances), so a run can show that its path went through the
+and for the attention per kernel too (after the dtype's tag: ``.d128`` for
+the D = 128 kernels, ``.dany`` for every head dim but 64 and 128;
+:func:`flash_instance`), so a run can show that its path went through the
 kernels.
 
 The KL and attention kernels are forward only, as in the reference: their
@@ -57,7 +58,7 @@ LAUNCHES: dict[str, int] = {
     **dict.fromkeys(("topk_mask_dynamic", "topk_mask", "sparse_aggregate", "scatter_wire_sums",
                      "scatter_wire_sums_dequant", "distill_kl", "flash_attention"), 0),
     **{f"{name}{tag}": 0 for name in BF16_KERNELS for tag in (".bf16", ".f16")},
-    **{f"flash_attention{tag}.d128": 0 for tag in ("", ".bf16", ".f16")},
+    **{f"flash_attention{tag}{instance}": 0 for tag in ("", ".bf16", ".f16") for instance in (".d128", ".dany")},
 }
 
 _MODES = {"adaptive": 0, "zeropad": 1, "mean_nonzero": 2}
@@ -303,38 +304,40 @@ def distill_kl(teacher: torch.Tensor, student: torch.Tensor, temperature: float 
 
 # the Pallas kernel's tile: S must be a multiple of min(128, S)
 FLASH_BLOCK = 128
-# the head dims the CUDA kernels take: 64 (GPT-2, granite, stablelm, seamless,
-# mamba2) and 128 (yi-9b, command-r, llama4, internvl2, jamba, moonshot)
-FLASH_HEAD_DIMS = frozenset((64, 128))
-# the launch counter's suffix for each head dim's kernel instances
-_FLASH_INSTANCE = {64: "", 128: ".d128"}
 
 
-def check_flash_head_dim(d: int) -> None:
-    """Raise ``ValueError`` for a head dim the CUDA kernels do not take (the
-    reference's Pallas kernel takes any; ROADMAP "flash attention head
-    dims" lists the rest)."""
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: the CUDA kernels take head dims "
-                         f"{sorted(FLASH_HEAD_DIMS)}, got {d} (ROADMAP: flash attention head dims)")
+def flash_instance(d: int) -> str:
+    """The launch counter's suffix (after the dtype's tag) of the CUDA
+    kernel that head dim ``d`` reaches: ``""`` for 64 (GPT-2, granite,
+    stablelm, seamless, mamba2), ``".d128"`` for 128 (yi-9b, command-r,
+    llama4, internvl2, jamba, moonshot), ``".dany"`` for any other ``d >= 1``
+    (``flash_attention_anyd_kernel``: D padded to a multiple of 32, past 256
+    in chunks of output columns)."""
+    if d < 1:
+        raise ValueError(f"flash_attention: no kernel takes head dim {d}")
+    return {64: "", 128: ".d128"}.get(d, ".dany")
 
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself where its data starts on a 16-byte boundary, else a
     fresh contiguous copy that does (a view at a storage offset, such as
-    ``buf[1:].view(...)``): the 16-bit attention kernels' tensor maps need
-    16-byte-aligned addresses and the fp32 kernel loads 16 bytes at a time.
-    The kernel then runs on the copy; nothing falls back."""
+    ``buf[1:].view(...)``): the attention kernels' tensor maps and 16-byte
+    loads need a 16-byte-aligned base address.  Only the base is realigned:
+    a row of ``D`` elements starts on a 16-byte boundary only where its bytes
+    are a multiple of 16, and the kernel for other head dims loads such rows
+    in narrower pieces.  The kernel then runs on the copy; nothing falls
+    back."""
     return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal attention of ``(B, H, S, D)`` or fused ``(B·H, S, D)`` fp32,
     bf16 or fp16 q, k, v (out: q's dtype, from fp32 math), with ``S`` a multiple
-    of ``min(128, S)`` as the reference's tiling asserts.  On the CPU any
-    ``D`` (the plain version); the CUDA kernels take ``D`` in
-    :data:`FLASH_HEAD_DIMS` and raise on any other, never falling back.
-    Forward only (inference prefill): raises when an input requires grad."""
+    of ``min(128, S)`` as the reference's tiling asserts, at any head dim
+    ``D >= 1`` as the reference (``D`` 0 raises its ``ZeroDivisionError``, from
+    ``D**-0.5``): on the CPU the plain version, on the card one launch of the
+    kernel :func:`flash_instance` names, never a fallback.  Forward only
+    (inference prefill): raises when an input requires grad."""
     _forward_only("flash_attention", q, k, v)
     if q.ndim not in (3, 4):
         raise ValueError(f"flash_attention: q has shape {tuple(q.shape)}, expected (B, H, S, D) "
@@ -346,14 +349,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     blk = min(FLASH_BLOCK, s)
     if s % blk:
         raise ValueError(f"flash_attention: seq {s} must tile by {blk}")
+    scale = d**-0.5  # D 0: ZeroDivisionError, as the reference's d**-0.5
     fold = lambda x: x.reshape(-1, s, d)  # noqa: E731
     if q.device.type == "cpu":
         return flash_attention_ref(fold(q), fold(k), fold(v)).reshape(q.shape)
-    check_flash_head_dim(d)
     q, k, v = (aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
     bh = fold(q).shape[0]
     if bh and s:
         _launch("flash_attention", "flash_attention", "flash_attention", (q, k, v, out),
-                (bh, s, d), q.device, (d**-0.5,), dtype=q.dtype, instance=_FLASH_INSTANCE[d])
+                (bh, s, d), q.device, (scale,), dtype=q.dtype, instance=flash_instance(d))
     return out

@@ -528,9 +528,10 @@ def test_every_kernel_source_exists_and_is_built_by_name():
         assert f"int flash_attention_{suffix}(" in text["flash_attention"]
     assert "int scatter_wire_sums_dequant_i8(" in text["sparse_agg"]
     # the launches the wrappers count, one counter per wrapper and input dtype
-    # (and per head dim for the attention's D = 128 instances)
+    # (and per kernel for the attention: its D = 128 kernels and its kernel
+    # for every other head dim)
     fp32 = {"topk_mask_dynamic", "topk_mask", "sparse_aggregate", "scatter_wire_sums",
             "scatter_wire_sums_dequant", "distill_kl", "flash_attention"}
     assert set(ops.LAUNCHES) == fp32 | {f"{n}{tag}" for n in fp32 - {"scatter_wire_sums_dequant"}
                                         for tag in (".bf16", ".f16")} | {
-        f"flash_attention{tag}.d128" for tag in ("", ".bf16", ".f16")}
+        f"flash_attention{tag}{instance}" for tag in ("", ".bf16", ".f16") for instance in (".d128", ".dany")}

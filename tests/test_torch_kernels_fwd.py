@@ -180,17 +180,17 @@ def test_flash_attention_is_causal():
 
 
 def test_flash_attention_head_dims_on_the_card():
-    """The CUDA kernels take head dims 64 and 128 and nothing else: the
-    check the wrapper runs on a CUDA tensor before any launch refuses D 96
-    (and 32, which the CPU route takes) with a ValueError that names the
-    head dims and the ROADMAP item; there is no fallback to the plain
-    version.  The CPU route takes any D."""
-    assert ops.FLASH_HEAD_DIMS == {64, 128}
-    for d in ops.FLASH_HEAD_DIMS:
-        ops.check_flash_head_dim(d)
-    for d in (96, 32, 256):
-        with pytest.raises(ValueError, match=r"head dims \[64, 128\], got %d .*flash attention head dims" % d):
-            ops.check_flash_head_dim(d)
+    """The CUDA route takes every head dim: 64 and 128 reach kernels of
+    their own (launch counters ``flash_attention`` and ``.d128`` after the
+    dtype's tag), every other D >= 1 (96, 32, 256, which the CUDA route
+    refused before it had a kernel for them) the any-D kernel (``.dany``),
+    each counter in ``LAUNCHES`` for every dtype; the CPU route takes any D
+    (tests/test_torch_attention_head_dims.py holds it to the reference at
+    many)."""
+    for d, instance in ((64, ""), (128, ".d128"), (96, ".dany"), (32, ".dany"), (256, ".dany")):
+        assert ops.flash_instance(d) == instance
+        for tag in ("", ".bf16", ".f16"):
+            assert "flash_attention" + tag + instance in ops.LAUNCHES
     q = torch.randn(2, 128, 96)
     assert ops.flash_attention(q, q, q).shape == q.shape
 

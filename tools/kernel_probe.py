@@ -1,7 +1,7 @@
 """Measure the port's kernels against an earlier checkout on one GPU, and
 break the top-k's and the bf16 kernels' time into their phases.
 
-    python3 tools/kernel_probe.py --parent DIR [--real] [--head-dim 64|128]
+    python3 tools/kernel_probe.py --parent DIR [--real] [--head-dim D]
         [--kernels topk,scatter,agg,kl,attention,topk_bf16,attention_bf16,attention_f16,scatter_bf16,kl_bf16]
 
 DIR is a checkout of an earlier commit (for example ``git archive <commit>``
@@ -30,8 +30,14 @@ per-call work out of the way).  Only what the named probes need is built.
   ``--head-dim`` (64 unless said), after ``chip_smoke.py``'s checks of the
   attention kernel, beside fp32 SDPA in turns, with the opcode mix of this
   checkout's fp32 attention kernel at that D (``cuobjdump -sass``); an
-  earlier build that takes only D = 64 refuses D = 128 and is left out of
-  the turns.  At D = 128 the fp32 probe adds a clocked copy of an earlier
+  earlier build that refuses the head dim (one from before PR 30 at D 128,
+  from before PR 33 at any D but 64 and 128) is left out of the turns.  At
+  any D but 64 and 128 the three dtypes' probes time
+  ``flash_attention_anyd_kernel`` (its instance for D: opcode mix in each)
+  in turns against SDPA in their dtype, and its variant (``anyd_unroll_qk``:
+  the Q K^T loop over D unrolled twice) in turns against it, with no
+  clocked copy.
+  At D = 128 the fp32 probe adds a clocked copy of an earlier
   build's kernel from before it had a Hopper design of its own (its splits
   inside its products' loops; also timed in turns with them left out), a
   clocked copy of this checkout's ``flash_attention_f32_d128_kernel`` (a
@@ -40,8 +46,8 @@ per-call work out of the way).  Only what the named probes need is built.
   producer's first thread's waits, splits and transposition a tile) and
   its variants (the next tile prefetched into L2, O's rescale skipped),
   timed in turns against it.  Any attention probe first compares the SASS of each D = 64
-  instance of this checkout's attention kernels (fp32, bf16, fp16) with the
-  earlier build's kernel, instruction by instruction;
+  and D = 128 kernel of this checkout's attention library (fp32, bf16,
+  fp16) with the earlier build's kernel, instruction by instruction;
 * the bf16 top-k (``topk_mask_bf16``) on the same inputs rounded to bf16
   and on rows of one exponent bin (with ``--real``, the bf16 ``fused``
   run's input), after ``chip_smoke.py``'s checks of the bf16 top-k, both
@@ -613,7 +619,7 @@ PTXAS_KEYS = ("topk_mask_kernel", "topk_radix_bf16_kernel", "topk_radix_16_kerne
               "scatter_wire_bf16_kernel", "scatter_wire_16_kernel", "sparse_aggregate", "distill_kl_kernel",
               "distill_kl_bf16_kernel", "distill_kl_16_kernel", "flash_attention_kernel",
               "flash_attention_f32_d128_kernel",
-              "flash_attention_bf16_kernel", "flash_attention_16_kernel")
+              "flash_attention_bf16_kernel", "flash_attention_16_kernel", "flash_attention_anyd_kernel")
 # builds of this checkout's bf16 kernels with a line or two changed, timed beside it
 VARIANTS = {
     "topk_plain_stores": ("topk_select.cu", [(
@@ -679,15 +685,44 @@ VARIANTS["attention_f32_rescale_skip"] = ("flash_attention.cu", [(
     "      rescale_o(o, r0, r1);\n      // P's big and small parts",
     "      if (__any_sync(0xffffffffu, r0 != 1.0f || r1 != 1.0f)) rescale_o(o, r0, r1);\n"
     "      // P's big and small parts")])
+# the any-D attention with its Q K^T loop over D's 16-column steps unrolled twice (fp32 and 16-bit)
+VARIANTS["anyd_unroll_qk"] = ("flash_attention.cu", [
+    ("#pragma unroll 1\n    for (int m = 0; m < n16; ++m) {", "#pragma unroll 2\n    for (int m = 0; m < n16; ++m) {"),
+    ("#pragma unroll 1\n    for (int kk = 0; kk < n16; ++kk) {", "#pragma unroll 2\n    for (int kk = 0; kk < n16; ++kk) {")])
 # a variant that changes one head dim's instance only, built and timed at that head dim alone
-# (the D = 128 attention already runs one block an SM)
+# (the D = 128 attention already runs one block an SM; "any": the any-D kernel's, at any D but
+# 64 and 128, in each dtype)
 VARIANT_HEAD_DIM = {"attention_1_block": 64,
-                    **{name: 128 for name in VARIANTS if name.startswith(("attention_d128", "attention_f32"))}}
+                    **{name: 128 for name in VARIANTS if name.startswith(("attention_d128", "attention_f32"))},
+                    **{name: "any" for name in VARIANTS if name.startswith("anyd")}}
 VARIANT_OF = {"topk_plain_stores": "topk_bf16", "attention_1_block": "attention_bf16",
               **{name: "attention_bf16" for name in VARIANTS if name.startswith("attention_d128")},
-              **{name: "attention" for name in VARIANTS if name.startswith("attention_f32")},
+              **{name: "attention" for name in VARIANTS if name.startswith(("attention_f32", "anyd"))},
               **{name: "scatter_bf16" for name in VARIANTS if name.startswith("scatter")},
               **{name: "kl_bf16" for name in VARIANTS if name.startswith("kl")}}
+
+
+def variant_at(name: str, d: int) -> bool:
+    """Whether variant ``name`` is built and timed at head dim ``d``."""
+    want = VARIANT_HEAD_DIM.get(name, d)
+    return want == d or (want == "any" and d not in (64, 128))
+
+
+def anyd_variants_ab(libs, ab: dict, dtype: torch.dtype) -> None:
+    """The any-D kernel's variants against this build, in turns, on
+    ``attention_ab``'s inputs in ``dtype``, each held to the plain version."""
+    b, h, seq, d = ab["shape"]
+    args, out, stream = ab["args"], ab["out"], ab["stream"]
+    for name in (n for n in VARIANTS if VARIANT_HEAD_DIM.get(n) == "any" and n in libs):
+        fn = c_fn(libs[name], ATTN_SYMBOL[dtype], 4, 3, 1)
+        run = lambda fn=fn: fn(*args, b * h, seq, d, d**-0.5, stream)  # noqa: E731
+        out.fill_(float("nan"))
+        assert run() == 0, name
+        torch.cuda.synchronize()
+        err = cs.attention_err(out, ab["want"], ab["tol"])
+        print(f"[probe] flash_attention{cs.TAG[dtype]} {name} at ({b * h}, {seq}, {d}): max |diff| {err:.3e}",
+              flush=True)
+        in_turns(f"flash_attention{cs.TAG[dtype]} {name} at D {d} (earlier: this build)", ab["runs"]["this"], run)
 
 
 def c_fn(lib: ctypes.CDLL, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):
@@ -867,7 +902,7 @@ def compile_libs(parent: Path, kernels: set[str], head_dim: int = 64) -> dict[st
         made["topk_clocks"] = topk_clocks()
     if need("topk_bf16"):
         made["topk_bf16_clocks"] = topk_bf16_clocks()
-    if need("attention_bf16"):
+    if need("attention_bf16") and head_dim in (64, 128):
         made["attention_bf16_clocks"] = attention_bf16_clocks() if head_dim == 64 else attention_d128_clocks()
     if need("attention") and head_dim == 128:
         try:  # the earlier build's fp32 kernel at D 128 with its splits inside the loops (before PR 32)
@@ -889,7 +924,7 @@ def compile_libs(parent: Path, kernels: set[str], head_dim: int = 64) -> dict[st
     if need("attention") and head_dim == 128:
         made["this_f32_clocks"] = attention_f32_d128_clocks()
     made.update({name: substituted(CSRC / src, pairs) for name, (src, pairs) in VARIANTS.items()
-                 if need(VARIANT_OF[name]) and VARIANT_HEAD_DIM.get(name, head_dim) == head_dim})
+                 if need(VARIANT_OF[name]) and variant_at(name, head_dim)})
     for name, text in made.items():
         sources[name] = OUT / f"{name}.cu"
         sources[name].write_text(text)
@@ -966,6 +1001,8 @@ def kl_ab(libs, device) -> None:
 # the attention's C entry point and launch-count tag for each input dtype
 ATTN_SYMBOL = {torch.float32: "flash_attention_f32", cs.BF16: "flash_attention_bf16",
                cs.F16: "flash_attention_f16"}
+# the element type's name in the any-D kernel's mangled instances
+ANYD_TYPE = {torch.float32: "3F32", cs.BF16: "4Bf16", cs.F16: "3F16"}
 
 
 def sass_functions(lib: Path, key: str) -> dict[str, list[str]]:
@@ -984,26 +1021,30 @@ def sass_functions(lib: Path, key: str) -> dict[str, list[str]]:
 
 
 def attention_sass_same(parent_lib: Path) -> None:
-    """Whether each D = 64 instance of this build's attention kernels is the
-    earlier build's kernel instruction for instruction."""
+    """Whether each D = 64 and D = 128 kernel of this build's attention
+    library (fp32, bf16, fp16) is the earlier build's instruction for
+    instruction."""
     lib = build.build_all(["flash_attention"])["flash_attention"]
-    for kernel, tags in (("flash_attention_kernel", ("",)), ("flash_attention_16_kernel", ("4Bf16", "3F16"))):
+    for kernel, tags, d in (("flash_attention_kernel", ("",), 64),
+                            ("flash_attention_16_kernel", ("4Bf16", "3F16"), 64),
+                            ("flash_attention_f32_d128_kernel", ("",), 128),
+                            ("flash_attention_16_d128_kernel", ("4Bf16", "3F16"), 128)):
         this, earlier = sass_functions(lib, kernel), sass_functions(parent_lib, kernel)
         for tag in tags:
-            # this build's D 64 kernel (no D in its name: the fp32 one is not a template, the
+            # this build's kernel (no D in its name: the fp32 ones are not templates, the
             # 16-bit ones are templates on the element type alone)
-            mine = [body for name, body in this.items() if tag in name and "Li128E" not in name]
-            # an earlier build's D 64 instance, or its kernel from before the template on D
-            theirs = [body for name, body in earlier.items() if tag in name and "Li64E" in name] or [
+            mine = [body for name, body in this.items() if tag in name]
+            # an earlier build's instance at d, or its kernel from before the template on D
+            theirs = [body for name, body in earlier.items() if tag in name and f"Li{d}E" in name] or [
                 body for name, body in earlier.items() if tag in name and "Li" not in name]
             if len(mine) != 1 or len(theirs) != 1:
-                print(f"[probe] SASS {kernel}<{tag or 'f32'}>: {len(mine)} D 64 instance(s) here, "
+                print(f"[probe] SASS {kernel}<{tag or 'f32'}>: {len(mine)} D {d} instance(s) here, "
                       f"{len(theirs)} earlier: not compared", flush=True)
                 continue
             pairs = [(i, a, b) for i, (a, b) in enumerate(zip(mine[0], theirs[0])) if a != b]
             diff = len(pairs) + abs(len(mine[0]) - len(theirs[0]))
             shown = "; ".join(f"#{i}: {a} (earlier {b})" for i, a, b in pairs[:6])
-            print(f"[probe] SASS {kernel}<{tag or 'f32'}, D 64> == the earlier build's: {diff == 0} "
+            print(f"[probe] SASS {kernel}<{tag or 'f32'}, D {d}> == the earlier build's: {diff == 0} "
                   f"({len(mine[0])} / {len(theirs[0])} instructions, {diff} differ{': ' if shown else ''}"
                   f"{shown})", flush=True)
 
@@ -1062,7 +1103,13 @@ def attention_ab(libs, device, dtype: torch.dtype, d: int, shape=(8, 12, 1024), 
           f"this {t[1]:.2f} / {t[2]:.2f} us; bound {cs.attention_bound_ms(b * h, seq, d, dtype) * 1e3:.2f} us",
           flush=True)
     lib = build.build_all(["flash_attention"])["flash_attention"]
-    if dtype == torch.float32:
+    if d not in (64, 128):  # the any-D kernel's instance for d
+        dp, chunked = (32 * -(-d // 32), 0) if d <= 256 else (256, 1)
+        arg = f"{ANYD_TYPE[dtype]}Li{dp}ELb{chunked}E"
+        print(f"[probe] flash_attention{tag} SASS at D {d} (flash_attention_anyd_kernel, DP {dp}"
+              f"{', chunked' if chunked else ''}): {sass_histogram(lib, 'flash_attention_anyd_kernel', arg=arg)}",
+              flush=True)
+    elif dtype == torch.float32:
         kernel = "flash_attention_kernel" if d == 64 else "flash_attention_f32_d128_kernel"
         print(f"[probe] flash_attention (fp32) SASS at D {d}: {sass_histogram(lib, kernel)}", flush=True)
     # the inputs too: the launches hold only their addresses
@@ -1411,8 +1458,9 @@ def main() -> int:
              "scatter_bf16", "kl_bf16")
     parser.add_argument("--kernels", default=",".join(names),
                         help=f"comma-separated: which of {', '.join(names)} to probe")
-    parser.add_argument("--head-dim", type=int, default=64, choices=sorted(ops.FLASH_HEAD_DIMS),
-                        help="the attention probes' head dim")
+    parser.add_argument("--head-dim", type=int, default=64,
+                        help="the attention probes' head dim, any D >= 1 (64 and 128: their kernels' "
+                             "clocked copies and variants too)")
     args = parser.parse_args()
     kernels = set(args.kernels.split(","))
     if not kernels <= set(names):
@@ -1424,16 +1472,25 @@ def main() -> int:
         kl_ab(libs, device)
     if kernels & {"attention", "attention_bf16", "attention_f16"}:
         attention_sass_same(OUT / "libparent_attention.so")
+    any_d = args.head_dim not in (64, 128)  # the any-D kernel: its variants in each dtype
     if "attention" in kernels:
         cs.check_flash_attention(device)
         ab = attention_ab(libs, device, torch.float32, args.head_dim)
         if args.head_dim == 128:
             attention_f32_d128_ab(libs, device, ab)
+        if any_d:
+            anyd_variants_ab(libs, ab, torch.float32)
     if "attention_bf16" in kernels:
-        attention_bf16_ab(libs, device, args.head_dim)
+        if not any_d:
+            attention_bf16_ab(libs, device, args.head_dim)
+        else:
+            cs.check_attention_16(device, cs.BF16)
+            anyd_variants_ab(libs, attention_ab(libs, device, cs.BF16, args.head_dim), cs.BF16)
     if "attention_f16" in kernels:
         cs.check_attention_16(device, cs.F16)
-        attention_ab(libs, device, cs.F16, args.head_dim)
+        ab = attention_ab(libs, device, cs.F16, args.head_dim)
+        if any_d:
+            anyd_variants_ab(libs, ab, cs.F16)
     if args.head_dim == 128:  # and at yi-9b's prefill_32k shape, (32, 32 768, 128)
         for dtype, probe in ((torch.float32, "attention"), (cs.BF16, "attention_bf16"), (cs.F16, "attention_f16")):
             if probe in kernels:
